@@ -1,0 +1,263 @@
+"""Autoregressive decoding with a dense KV cache: the port of
+``kubegpu_tpu/models/decoding.py`` at full width.
+
+``DecodeLM`` is the cached twin of the JAX package's ``TransformerLM``
+with the same parameter tree (see ``models/params.py``).  Its numerics
+mirror the JAX model step by step, because the paged batcher prefills
+every prompt through it and greedy streams must match the reference at
+float32: attention scores in the model dtype divided by ``sqrt(hd)``
+cast to that dtype, a ``finfo.min`` mask, a float32 softmax cast back,
+flax's LayerNorm (float32 statistics, ``E[x^2] - E[x]^2`` variance,
+epsilon 1e-6), tanh-approximated GELU, and a float32 ``lm_head``.
+
+Caches are ``(b, max_seq, h, hd)`` per layer and are written IN PLACE
+(the JAX model returns new caches; updating them where they lie saves a
+copy of every cache per call).  Weight-only int8 (``QuantDense``) and
+sampling wait for later slices of the port.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import List, Tuple, Union
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from kubegpu_tpu_torch.models.params import (
+    bind_params,
+    meta_param,
+    resolve_device,
+    tree_map,
+)
+
+Caches = List[Tuple[torch.Tensor, torch.Tensor]]
+
+
+class Dense(nn.Module):
+    """flax ``nn.Dense(use_bias=False, dtype=dtype)``: ``kernel`` is
+    ``(in, out)``; input and kernel are promoted to ``dtype``."""
+
+    def __init__(self, n_in: int, n_out: int, dtype: torch.dtype) -> None:
+        super().__init__()
+        self.kernel = meta_param(n_in, n_out)
+        self.dtype = dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return x.to(self.dtype) @ self.kernel.to(self.dtype)
+
+
+class LayerNorm(nn.Module):
+    """flax ``nn.LayerNorm(dtype=dtype)``: statistics in float32 with the
+    fast variance ``E[x^2] - E[x]^2`` clipped at 0, epsilon 1e-6, scale
+    and bias applied in float32, result cast to ``dtype``."""
+
+    def __init__(self, hidden: int, dtype: torch.dtype) -> None:
+        super().__init__()
+        self.scale = meta_param(hidden)
+        self.bias = meta_param(hidden)
+        self.dtype = dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        xf = x.float()
+        mean = xf.mean(-1, keepdim=True)
+        var = torch.clamp((xf * xf).mean(-1, keepdim=True) - mean * mean,
+                          min=0.0)
+        mul = torch.rsqrt(var + 1e-6) * self.scale.float()
+        y = (xf - mean) * mul + self.bias.float()
+        return y.to(self.dtype)
+
+
+class Embed(nn.Module):
+    """flax ``nn.Embed(dtype=dtype)``: a row gather of ``embedding``."""
+
+    def __init__(self, rows: int, hidden: int, dtype: torch.dtype) -> None:
+        super().__init__()
+        self.embedding = meta_param(rows, hidden)
+        self.dtype = dtype
+
+    def forward(self, ids: torch.Tensor) -> torch.Tensor:
+        return self.embedding[ids.long()].to(self.dtype)
+
+
+def attn_scale(hd: int, dtype: torch.dtype, device) -> torch.Tensor:
+    """``jnp.sqrt(hd).astype(dtype)``: the score divisor, rounded to the
+    model dtype as the JAX model rounds it."""
+    return torch.tensor(math.sqrt(hd), dtype=torch.float32,
+                        device=device).to(dtype)
+
+
+class DecodeAttention(nn.Module):
+    """Chunked attention against a running KV cache: ``x`` is one token
+    per sequence (a decode step) or a whole chunk (prefill in one causal
+    pass)."""
+
+    def __init__(self, hidden: int, num_heads: int, dtype: torch.dtype) -> None:
+        super().__init__()
+        self.num_heads = num_heads
+        self.dtype = dtype
+        for name in ("q_proj", "k_proj", "v_proj", "o_proj"):
+            setattr(self, name, Dense(hidden, hidden, dtype))
+
+    def forward(self, x, cache_k, cache_v, pos):
+        # x (b, L, d); cache_* (b, max_seq, h, hd), written in place at
+        # rows pos + [0, L); pos (1,) when every sequence is aligned or
+        # (b,) per-sequence positions (continuous batching)
+        b, L, d = x.shape
+        h = self.num_heads
+        hd = d // h
+        q = self.q_proj(x).view(b, L, h, hd)
+        k = self.k_proj(x).view(b, L, h, hd)
+        v = self.v_proj(x).view(b, L, h, hd)
+        rows = pos.long()[:, None] + torch.arange(L, device=x.device)[None, :]
+        rows = rows.expand(b, L)
+        bidx = torch.arange(b, device=x.device)[:, None].expand(b, L)
+        cache_k[bidx, rows] = k
+        cache_v[bidx, rows] = v
+        scores = torch.einsum("bqhd,bkhd->bhqk", q, cache_k) / attn_scale(
+            hd, self.dtype, x.device
+        )
+        cols = torch.arange(cache_k.shape[1], device=x.device)
+        causal = cols[None, None, None, :] <= rows[:, None, :, None]
+        scores = torch.where(causal, scores,
+                             torch.finfo(self.dtype).min)
+        probs = torch.softmax(scores.float(), dim=-1).to(self.dtype)
+        out = torch.einsum("bhqk,bkhd->bqhd", probs, cache_v)
+        return self.o_proj(out.reshape(b, L, d))
+
+
+class DecodeBlock(nn.Module):
+    attn_cls = DecodeAttention
+
+    def __init__(self, hidden: int, num_heads: int, dtype: torch.dtype) -> None:
+        super().__init__()
+        self.ln1 = LayerNorm(hidden, dtype)
+        self.attn = self.attn_cls(hidden, num_heads, dtype)
+        self.ln2 = LayerNorm(hidden, dtype)
+        self.mlp_up = Dense(hidden, 4 * hidden, dtype)
+        self.mlp_down = Dense(4 * hidden, hidden, dtype)
+
+    def forward(self, x, *cache_args):
+        # cache_args: (cache_k, cache_v, pos) for the dense attention,
+        # (k_pool, v_pool, table, pos) for the paged one
+        x = x + self.attn(self.ln1(x), *cache_args)
+        # flax nn.gelu is the tanh approximation
+        y = F.gelu(self.mlp_up(self.ln2(x)), approximate="tanh")
+        return x + self.mlp_down(y)
+
+
+class LMBase(nn.Module):
+    """Embeddings, final norm and float32 head shared by the dense and
+    paged decode models (one parameter tree, two attention paths)."""
+
+    block_cls = DecodeBlock
+
+    def __init__(self, *, vocab_size: int, num_layers: int, num_heads: int,
+                 hidden: int, max_seq: int,
+                 dtype: torch.dtype = torch.bfloat16) -> None:
+        super().__init__()
+        self.vocab_size, self.num_layers = vocab_size, num_layers
+        self.num_heads, self.hidden, self.max_seq = num_heads, hidden, max_seq
+        self.dtype = dtype
+        self.embed = Embed(vocab_size, hidden, dtype)
+        self.pos_embed = Embed(max_seq, hidden, dtype)
+        for i in range(num_layers):
+            setattr(self, f"layer{i}",
+                    self.block_cls(hidden, num_heads, dtype))
+        self.ln_f = LayerNorm(hidden, dtype)
+        self.lm_head = Dense(hidden, vocab_size, torch.float32)
+
+    def blocks(self):
+        return [getattr(self, f"layer{i}") for i in range(self.num_layers)]
+
+    def embed_rows(self, tokens: torch.Tensor, pos_rows: torch.Tensor):
+        return self.embed(tokens) + self.pos_embed(pos_rows)
+
+    def head(self, x: torch.Tensor) -> torch.Tensor:
+        return self.lm_head(self.ln_f(x))
+
+
+class DecodeLM(LMBase):
+    """Cached twin of ``TransformerLM``: ``forward(tokens, caches, pos)``
+    with tokens ``(b, L)``, caches ``[(k, v)]`` per layer written in
+    place, and pos the cache row of the first token — an int or ``()``
+    tensor (aligned) or a ``(b,)`` tensor (per sequence).  Returns the
+    last row's float32 logits ``(b, vocab)``."""
+
+    def forward(self, tokens: torch.Tensor, caches: Caches,
+                pos: Union[int, torch.Tensor]) -> torch.Tensor:
+        return self.head(self.fill(tokens, caches, pos)[:, -1:])[:, -1]
+
+    def fill(self, tokens: torch.Tensor, caches: Caches,
+             pos: Union[int, torch.Tensor]) -> torch.Tensor:
+        """Run the blocks only: write every row's K/V into ``caches`` and
+        return the last block's output ``(b, L, hidden)`` — a prefill
+        chunk whose logits nobody reads skips the head."""
+        b, L = tokens.shape
+        pos = torch.as_tensor(pos, device=tokens.device).reshape(-1)
+        pos_rows = pos.long()[:, None] + torch.arange(
+            L, device=tokens.device
+        )[None, :]
+        x = self.embed_rows(tokens, pos_rows)
+        for block, (ck, cv) in zip(self.blocks(), caches):
+            x = block(x, ck, cv, pos)
+        return x
+
+
+def init_caches(batch: int, num_layers: int, num_heads: int, hidden: int,
+                max_seq: int, dtype=torch.bfloat16, device="cpu") -> Caches:
+    hd = hidden // num_heads
+    return [
+        (
+            torch.zeros((batch, max_seq, num_heads, hd), dtype=dtype,
+                        device=device),
+            torch.zeros((batch, max_seq, num_heads, hd), dtype=dtype,
+                        device=device),
+        )
+        for _ in range(num_layers)
+    ]
+
+
+@torch.no_grad()
+def generate(params, prompt, num_steps: int, *, vocab_size: int,
+             num_layers: int, num_heads: int, hidden: int, max_seq: int,
+             dtype=torch.bfloat16, temperature: float = 0.0,
+             device="cuda") -> torch.Tensor:
+    """Decode: prefill the whole prompt in one causal pass, then take
+    ``num_steps`` greedy steps.  ``prompt`` (b, prompt_len) int; returns
+    ``(b, prompt_len + num_steps)`` int32 on ``device``.  Sampling
+    (``temperature > 0``) arrives with the sampling slice of the port."""
+    if temperature > 0.0:
+        raise NotImplementedError(
+            "sampled decoding is not ported yet: it arrives with the "
+            "sampling slice (position-keyed draws); use temperature=0"
+        )
+    dev = resolve_device(device)
+    prompt = torch.as_tensor(prompt).to(dev, torch.int32)
+    b, prompt_len = prompt.shape
+    if prompt_len + num_steps > max_seq:
+        raise ValueError(
+            f"prompt ({prompt_len}) + steps ({num_steps}) exceeds "
+            f"max_seq ({max_seq}); cache writes would run past the cache"
+        )
+    model = DecodeLM(vocab_size=vocab_size, num_layers=num_layers,
+                     num_heads=num_heads, hidden=hidden, max_seq=max_seq,
+                     dtype=dtype)
+    bind_params(model, tree_map(lambda t: t.to(dev), params))
+    caches = init_caches(b, num_layers, num_heads, hidden, max_seq, dtype,
+                         dev)
+    logits = model(prompt, caches, 0)
+    out = [prompt]
+    for i in range(num_steps):
+        token = logits.argmax(-1).to(torch.int32)
+        out.append(token[:, None])
+        if i + 1 < num_steps:
+            logits = model(token[:, None], caches, prompt_len + i)
+    return torch.cat(out, dim=1)
+
+
+def greedy_generate(params, prompt, num_steps: int, **kw) -> torch.Tensor:
+    """Greedy decode (temperature 0) — see :func:`generate`."""
+    return generate(params, prompt, num_steps, temperature=0.0, **kw)
+

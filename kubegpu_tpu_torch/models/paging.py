@@ -1,0 +1,1032 @@
+"""Paged KV serving: continuous batching over a shared page pool — the
+port of ``kubegpu_tpu/models/paging.py`` for greedy, full-width serving.
+
+- ``PagedDecodeLM``: the single-token decode twin of ``DecodeLM`` with
+  the same parameter tree, whose per-layer cache is a
+  ``(pool_pages, heads, page, head_dim)`` pool plus a per-slot page
+  table; its attention is :func:`paged_decode_attention` (the Hopper
+  kernel on the card).
+- ``PrefixPageCache``: content-hash -> physical page map with refcounts
+  and LRU eviction (plain Python, as in the JAX package).
+- ``PagedContinuousBatcher``: the serving loop.  Prompts prefill in
+  page-sized chunks through a dense multi-slot STATION (``DecodeLM``),
+  each finished station page is scattered into freshly reserved pool
+  pages, full prompt pages are registered in the prefix cache, and
+  every decode step runs ``PagedDecodeLM`` over all slots.
+
+Numerics, as in the JAX package: the paged kernel scores and softmaxes
+in f32 while the dense station scores in the model dtype; at float32 the
+two agree to rounding and greedy streams match the JAX batcher token for
+token.
+
+The decode loop state (last tokens, tables, positions, active mask,
+remaining budgets) lives in device tensors and advances inside the step,
+termination included.  With ``pipeline_decode`` the host reads each
+step's tokens one iteration late: the readback is a ``non_blocking``
+copy into pinned host memory plus a CUDA event, so the next step is
+enqueued before the host waits.  Pools, station caches and the loop
+state are updated in place where they lie.
+"""
+
+from __future__ import annotations
+
+import hashlib
+import time
+from collections import OrderedDict, deque
+from dataclasses import dataclass, field
+from typing import Dict, List, Optional, Set
+
+import numpy as np
+import torch
+
+from kubegpu_tpu_torch.models.decoding import (
+    DecodeAttention,
+    DecodeBlock,
+    DecodeLM,
+    LMBase,
+    init_caches,
+)
+from kubegpu_tpu_torch.models.params import bind_params, resolve_device, tree_map
+from kubegpu_tpu_torch.models.serving import (
+    resolve_decode_page_cache,
+    resolve_kv_dtype,
+    validate_request,
+)
+from kubegpu_tpu_torch.ops.paged_attention import (
+    check_kernel_args,
+    paged_decode_attention,
+)
+
+Pools = List[tuple]
+
+
+class PagedDecodeAttention(DecodeAttention):
+    """Attention over a paged KV pool (parameter names as the dense
+    twin's).  The token's K/V row is written to the slot's page first
+    (in place), then the slot attends rows ``< pos + 1``."""
+
+    def forward(self, x, k_pool, v_pool, table, pos, checked=False):
+        # x (b, 1, d); pools (P, h, page, hd); table (b, n_pages) int32;
+        # pos (b,) int32 cache row of the token; checked: the kernel's
+        # operand checks already ran on this layout
+        b, L, d = x.shape
+        if L != 1:
+            raise NotImplementedError(
+                "multi-token windows (the speculative verify) arrive with "
+                "the greedy paged speculation slice (kernel K2)"
+            )
+        h = self.num_heads
+        hd = d // h
+        page = k_pool.shape[2]
+        q = self.q_proj(x).view(b, h, hd)
+        k = self.k_proj(x).view(b, h, hd)
+        v = self.v_proj(x).view(b, h, hd)
+        rows = torch.arange(b, device=x.device)
+        page_ids = table[rows, pos // page]
+        offs = pos % page
+        k_pool[page_ids, :, offs, :] = k
+        v_pool[page_ids, :, offs, :] = v
+        out = paged_decode_attention(q, k_pool, v_pool, table, pos + 1,
+                                     checked=checked)
+        return self.o_proj(out.reshape(b, 1, d))
+
+
+class PagedDecodeBlock(DecodeBlock):
+    attn_cls = PagedDecodeAttention
+
+
+class PagedDecodeLM(LMBase):
+    """Paged twin of ``DecodeLM`` for decode steps:
+    ``forward(tokens (b, 1), pools [(k, v)] per layer, table, pos (b,))``
+    returns float32 logits ``(b, vocab)`` and writes each slot's K/V row
+    into its page in place.  ``checked=True`` skips the attention
+    kernel's per-call operand checks (the batcher runs them once)."""
+
+    block_cls = PagedDecodeBlock
+
+    def forward(self, tokens, pools: Pools, table, pos,
+                checked: bool = False) -> torch.Tensor:
+        x = self.embed_rows(tokens, pos.long()[:, None])
+        for block, (kp, vp) in zip(self.blocks(), pools):
+            x = block(x, kp, vp, table, pos, checked)
+        return self.head(x)[:, -1]
+
+
+class PrefixPageCache:
+    """Content-hash -> physical page map with refcounts and LRU eviction.
+
+    A page is live while any sequence references it (refcount > 0); at
+    refcount 0 it stays cached — a later same-prefix request can still
+    hit it — and becomes evictable in LRU order when the pool needs
+    pages.  Host-side accounting only; the K/V bytes live in the pool.
+    Every entry carries a ``kind`` (``"prompt"`` for station-sealed
+    pages; ``"decode"`` is reserved for retirement sealing)."""
+
+    def __init__(self) -> None:
+        self._entries: "OrderedDict[bytes, int]" = OrderedDict()
+        self._refs: Dict[int, int] = {}
+        self._key_of: Dict[int, bytes] = {}
+        self._kind_of: Dict[int, str] = {}
+
+    def lookup(self, key: bytes) -> Optional[int]:
+        """Peek without taking a reference (admission feasibility)."""
+        return self._entries.get(key)
+
+    def acquire(self, key: bytes) -> Optional[int]:
+        page = self._entries.get(key)
+        if page is None:
+            return None
+        self._entries.move_to_end(key)
+        self._refs[page] += 1
+        return page
+
+    def insert(self, key: bytes, page: int, kind: str = "prompt") -> None:
+        """Register a freshly sealed page; the caller holds one ref."""
+        assert key not in self._entries, "duplicate prefix key"
+        assert page not in self._refs, "page already cached"
+        assert kind in ("prompt", "decode"), f"unknown page kind {kind!r}"
+        self._entries[key] = page
+        self._refs[page] = 1
+        self._key_of[page] = key
+        self._kind_of[page] = kind
+
+    def release(self, page: int) -> None:
+        self._refs[page] -= 1
+        assert self._refs[page] >= 0, f"refcount underflow on page {page}"
+
+    def refcount(self, page: int) -> int:
+        return self._refs.get(page, 0)
+
+    def kind_of(self, page: int) -> str:
+        return self._kind_of[page]
+
+    def idle_count(self) -> int:
+        return sum(1 for r in self._refs.values() if r == 0)
+
+    def evict_lru(self) -> Optional[int]:
+        """Drop the least-recently-used refcount-0 entry; returns its page
+        (now unowned) or None if everything is referenced."""
+        for key, page in self._entries.items():
+            if self._refs[page] == 0:
+                del self._entries[key]
+                del self._refs[page]
+                del self._key_of[page]
+                del self._kind_of[page]
+                return page
+        return None
+
+    def pages(self) -> Set[int]:
+        return set(self._refs)
+
+    def assert_consistent(self) -> None:
+        """entries/refs/keys/kinds describe exactly the same page set, and
+        every entry's reverse mapping agrees."""
+        assert set(self._refs) == set(self._key_of) == set(self._kind_of), (
+            "cache maps diverged: "
+            f"refs={sorted(self._refs)} keys={sorted(self._key_of)} "
+            f"kinds={sorted(self._kind_of)}"
+        )
+        assert len(self._entries) == len(self._refs), "entry/page count mismatch"
+        for key, page in self._entries.items():
+            assert self._key_of[page] == key, f"page {page} key drifted"
+
+    def __len__(self) -> int:
+        return len(self._entries)
+
+
+def chain_keys(stream: np.ndarray, page: int, n_full: int) -> List[bytes]:
+    """Prefix-chain keys of a stream's first ``n_full`` full pages: one
+    sha256 over the stream, its digest snapshotted at every page
+    boundary (key j hashes every token through page j — a row's K/V
+    depends on every token before it)."""
+    h = hashlib.sha256()
+    keys: List[bytes] = []
+    for j in range(n_full):
+        h.update(stream[j * page: (j + 1) * page].tobytes())
+        keys.append(h.copy().digest())
+    return keys
+
+
+@dataclass
+class _Seq:
+    seq_id: int = -1
+    remaining: int = 0
+    active: bool = False
+    prefilling: bool = False     # a _PrefillJob is feeding this slot
+    tokens: List[int] = field(default_factory=list)
+    pages: List[int] = field(default_factory=list)  # reserved physical ids
+    shared: Set[int] = field(default_factory=set)   # cache-owned subset
+    submitted_at: float = 0.0
+    last_emit_at: float = 0.0
+    # bumped every time the slot is (re)assigned, so a pipelined
+    # in-flight step's results are never credited to a later occupant
+    gen: int = 0
+
+
+@dataclass
+class _PrefillJob:
+    """One in-flight chunked admission through a prefill-station slot."""
+
+    slot: int                # sequence slot being fed
+    station: int             # station slot holding this job's dense rows
+    seq_id: int
+    prompt: np.ndarray
+    plen: int
+    keys: List[bytes]        # chain hashes of sharable full prompt pages
+    pos: int                 # prompt rows already prefilled (or cached)
+    next_scatter: int        # next page index to scatter from the station
+
+
+@dataclass
+class _Inflight:
+    """One dispatched-but-unread decode step: ``toks`` is the host copy
+    of the step's tokens (valid once ``event`` has completed, or at once
+    on the CPU); ``cand`` maps slot -> its admission generation at
+    dispatch."""
+
+    cand: Dict[int, int]
+    toks: torch.Tensor
+    event: Optional[torch.cuda.Event] = None
+
+
+def _not_ported(knob: str, arrives_with: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"{knob} is not ported yet: it arrives with {arrives_with}"
+    )
+
+
+SPEC_SLICE = "the greedy paged speculation slice (kernel K2)"
+SAMPLING_SLICE = "the sampling slice"
+INT8_SLICE = "the int8 slice (QuantDense weights and the int8 page pool)"
+TP_SLICE = "the tensor-parallel slice"
+MIGRATION_SLICE = "the migration slice (disaggregated prefill and handoff)"
+HTTP_SLICE = ("the HTTP replica slice (metrics, request tracing and the "
+              "ledger ride its data plane)")
+
+
+class PagedContinuousBatcher:
+    """Greedy continuous batching with a shared KV page pool and prefix
+    reuse — the JAX package's ``PagedContinuousBatcher`` at full width.
+
+    ``pool_pages`` bounds total cache memory across all slots (page 0 is
+    the permanent dump page); each admitted sequence reserves exactly
+    ``ceil((prompt + budget) / page)`` pages and returns them at
+    retirement.  Admission is FIFO and defers while the pool lacks the
+    reservation (refcount-0 prefix-cache pages count as available and
+    are LRU-evicted on demand); a request whose worst case exceeds the
+    whole pool is rejected at submit.  ``station_slots`` admissions
+    prefill concurrently, each advancing ``prefill_chunk`` rows per
+    serving iteration in page-sized chunks; ``token_budget`` bounds the
+    rows one iteration processes (active decode tokens + chunk rows, at
+    least one chunk always runs).  ``prefix_cache=False`` makes every
+    page private.  ``pipeline_decode`` (default) keeps one decode step in
+    flight and reads its tokens after dispatching the next; ``False`` is
+    the synchronous loop (state uploaded from host mirrors every step),
+    the oracle the pipelined loop must match token for token.
+
+    The constructor keeps the JAX signature.  Knobs of later slices
+    (speculation, sampling, int8, tensor parallelism, prefill-only
+    serving, metrics/tracing) raise ``NotImplementedError`` naming the
+    slice; ``seed`` keys sampled streams only, and greedy serving ignores
+    it.  ``device`` defaults to ``"cuda"`` and raises without a card; the
+    CPU runs only when asked for (``device="cpu"``)."""
+
+    def __init__(
+        self,
+        params,
+        *,
+        vocab_size: int,
+        num_layers: int,
+        num_heads: int,
+        hidden: int,
+        max_seq: int,
+        slots: int = 8,
+        prompt_pad: int = 128,
+        page_size: int = 128,
+        pool_pages: int = 64,
+        prefill_chunk: Optional[int] = None,
+        station_slots: Optional[int] = None,
+        token_budget: Optional[int] = None,
+        prefix_cache: bool = True,
+        decode_page_cache: str = "off",
+        kv_dtype: Optional[str] = None,
+        pipeline_decode: bool = True,
+        eos_id: Optional[int] = None,
+        dtype=torch.bfloat16,
+        quant: bool = False,
+        top_k: int = 0,
+        seed: int = 0,
+        metrics=None,
+        tracer=None,
+        ledger_size: int = 512,
+        draft_params=None,
+        draft_num_layers: Optional[int] = None,
+        draft_num_heads: Optional[int] = None,
+        draft_hidden: Optional[int] = None,
+        speculate_k: Optional[int] = None,
+        draft_window: Optional[int] = None,
+        sampling: bool = False,
+        mesh=None,
+        prefill_only: bool = False,
+        device="cuda",
+    ) -> None:
+        if speculate_k is not None or draft_window is not None or (
+            draft_params is not None
+            or (draft_num_layers, draft_num_heads, draft_hidden)
+            != (None, None, None)
+        ):
+            raise _not_ported("speculate_k and the draft model", SPEC_SLICE)
+        if sampling or top_k:
+            raise _not_ported("sampling/top_k", SAMPLING_SLICE)
+        if quant:
+            raise _not_ported("quant (int8 weights)", INT8_SLICE)
+        if mesh is not None:
+            raise _not_ported("mesh", TP_SLICE)
+        if prefill_only:
+            raise _not_ported("prefill_only", MIGRATION_SLICE)
+        if metrics is not None or tracer is not None or ledger_size != 512:
+            raise _not_ported("metrics/tracer/ledger", HTTP_SLICE)
+        if prompt_pad > max_seq:
+            raise ValueError(
+                f"prompt_pad ({prompt_pad}) exceeds max_seq ({max_seq})"
+            )
+        if prompt_pad % page_size:
+            raise ValueError(
+                f"prompt_pad ({prompt_pad}) must be a multiple of "
+                f"page_size ({page_size}): the admit scatter copies whole "
+                "pages out of the dense prefill cache"
+            )
+        if prefill_chunk is None:
+            prefill_chunk = page_size
+        if prefill_chunk <= 0 or prefill_chunk % page_size:
+            raise ValueError(
+                f"prefill_chunk ({prefill_chunk}) must be a positive "
+                f"multiple of page_size ({page_size}): station writes are "
+                "page-aligned"
+            )
+        self._chunks_per_step = prefill_chunk // page_size
+        if station_slots is None:
+            station_slots = slots
+        if station_slots < 1:
+            raise ValueError(f"station_slots ({station_slots}) must be >= 1")
+        self.station_slots = station_slots
+        if token_budget is not None and token_budget <= 0:
+            raise ValueError(
+                f"token_budget ({token_budget}) must be positive or None"
+            )
+        self.token_budget = token_budget
+        resolve_kv_dtype(kv_dtype, dtype)
+        self.decode_page_cache = decode_page_cache
+        resolve_decode_page_cache(decode_page_cache, dtype)
+        self.device = dev = resolve_device(device)
+        self.slots = slots
+        self.prompt_pad = prompt_pad
+        self.page = page_size
+        self.max_seq = max_seq
+        self.eos_id = eos_id
+        self.max_pages = -(-max_seq // page_size)  # table width per slot
+        self.num_layers = num_layers
+        self.num_heads = num_heads
+        self.hidden = hidden
+        self.dtype = dtype
+        self.pipeline_decode = pipeline_decode
+        hd = hidden // num_heads
+
+        params = tree_map(lambda t: t.to(dev), params)
+        # the head computes in float32 whatever the weights' dtype: cast
+        # its kernel once here, not on every step
+        params = dict(
+            params, lm_head={"kernel": params["lm_head"]["kernel"].float()}
+        )
+        model_cfg = dict(vocab_size=vocab_size, num_layers=num_layers,
+                         num_heads=num_heads, hidden=hidden, dtype=dtype)
+        self.model = bind_params(
+            PagedDecodeLM(max_seq=max_seq, **model_cfg), params
+        )
+        # the dense twin prefills prompts through the station; its
+        # position table is the target's, cut to the station's rows
+        station_params = dict(params, pos_embed={
+            "embedding": params["pos_embed"]["embedding"][:prompt_pad]
+        })
+        self.dense_model = bind_params(
+            DecodeLM(max_seq=prompt_pad, **model_cfg), station_params
+        )
+        self.pools = [
+            tuple(
+                torch.zeros((pool_pages, num_heads, page_size, hd),
+                            dtype=dtype, device=dev)
+                for _ in range(2)
+            )
+            for _ in range(num_layers)
+        ]
+        # page 0 is the permanent DUMP page, never allocated: the step
+        # runs every slot, and an idle slot's K/V write must land where
+        # it can never belong to a live sequence — its table points at
+        # page 0 with pos 0
+        self.free_pages = set(range(1, pool_pages))
+        self.pool_pages = pool_pages
+        self.prefix_cache: Optional[PrefixPageCache] = (
+            PrefixPageCache() if prefix_cache else None
+        )
+        # host MIRRORS of the decode loop state; the authoritative copies
+        # live on the device and advance inside the step
+        self.tables = np.zeros((slots, self.max_pages), np.int32)
+        self.pos = np.zeros((slots,), np.int32)   # rows already consumed
+        self._seqs = [_Seq() for _ in range(slots)]
+        self._last = np.zeros((slots,), np.int32)
+        self._tables_dev = torch.zeros((slots, self.max_pages),
+                                       dtype=torch.int32, device=dev)
+        self._pos_dev = torch.zeros((slots,), dtype=torch.int32, device=dev)
+        self._last_dev = torch.zeros((slots,), dtype=torch.int32, device=dev)
+        self._active_dev = torch.zeros((slots,), dtype=torch.bool, device=dev)
+        self._remaining_dev = torch.zeros((slots,), dtype=torch.int32,
+                                          device=dev)
+        if dev.type == "cuda":
+            # the step's attention operands keep this layout for the
+            # batcher's life, so the kernel's checks run once here and
+            # the step passes checked=True
+            q = torch.empty((slots, num_heads, hd), dtype=dtype, device=dev)
+            for kp, vp in self.pools:
+                check_kernel_args(q, kp, vp, self._tables_dev,
+                                  self._pos_dev)
+        self._inflight: deque = deque()
+        # the prefill station: one persistent dense cache of
+        # station_slots slots x prompt_pad rows; _jobs is insertion-
+        # ordered (station slot -> job), so iterating it IS admission
+        # order — the FIFO the chunk packer serves
+        self._station = init_caches(station_slots, num_layers, num_heads,
+                                    hidden, prompt_pad, dtype, dev)
+        self._jobs: "OrderedDict[int, _PrefillJob]" = OrderedDict()
+        # each queued entry carries its own prefix chain keys (computed
+        # at submit), so a seq_id queued twice never aliases another
+        # admission's hashes
+        self._pending: deque = deque()
+        self._reset_stats()
+
+    # -- page accounting ---------------------------------------------------
+    def _pages_for(self, plen: int, max_new: int) -> int:
+        return -(-(plen + max_new) // self.page)
+
+    def _available_pages(self, reserved: Set[int]) -> int:
+        """Pages obtainable right now: free + evictable cache entries,
+        excluding ``reserved`` (hit pages this admission is about to
+        acquire)."""
+        idle = 0
+        if self.prefix_cache is not None:
+            idle = sum(
+                1 for p in self.prefix_cache.pages()
+                if self.prefix_cache.refcount(p) == 0 and p not in reserved
+            )
+        return len(self.free_pages) + idle
+
+    def _alloc_page(self) -> int:
+        """Pop a free page, evicting the LRU idle cache entry if the free
+        list is empty.  Caller must have checked availability."""
+        if self.free_pages:
+            return self.free_pages.pop()
+        page = self.prefix_cache.evict_lru()
+        assert page is not None, "allocation past availability check"
+        return page
+
+    def _release_pages(self, s: _Seq) -> None:
+        for p in s.pages:
+            if p in s.shared:
+                self.prefix_cache.release(p)
+            else:
+                self.free_pages.add(p)
+        s.pages, s.shared = [], set()
+
+    def pages_in_use(self) -> int:
+        """Distinct pool pages held by live sequences (shared pages count
+        once); idle cache-resident pages are not in use."""
+        idle = (
+            self.prefix_cache.idle_count()
+            if self.prefix_cache is not None else 0
+        )
+        return self.pool_pages - 1 - len(self.free_pages) - idle
+
+    def assert_page_accounting(self) -> None:
+        """Invariant check: every allocatable page is exactly one of free /
+        cache-resident / privately live, refcounts equal the number of
+        live sequences sharing each page, and the pool and station rest
+        the declared dtype and bytes."""
+        all_pages = set(range(1, self.pool_pages))
+        cached = (
+            self.prefix_cache.pages()
+            if self.prefix_cache is not None else set()
+        )
+        private: Set[int] = set()
+        refs: Dict[int, int] = {}
+        for s in self._seqs:
+            if s.seq_id < 0:
+                continue
+            for p in s.pages:
+                if p in s.shared:
+                    refs[p] = refs.get(p, 0) + 1
+                else:
+                    assert p not in private, f"page {p} doubly private"
+                    private.add(p)
+        assert not (self.free_pages & cached), "free page still cached"
+        assert not (self.free_pages & private), "free page still live"
+        assert not (private & cached), "private page in prefix cache"
+        assert self.free_pages | cached | private == all_pages, (
+            "page leak: "
+            f"{sorted(all_pages - (self.free_pages | cached | private))}"
+        )
+        for p, n in refs.items():
+            assert self.prefix_cache.refcount(p) == n, (
+                f"page {p}: refcount {self.prefix_cache.refcount(p)} != "
+                f"{n} live holders"
+            )
+        if self.prefix_cache is not None:
+            for p in cached - set(refs):
+                assert self.prefix_cache.refcount(p) == 0, (
+                    f"page {p} refcounted with no live holder"
+                )
+            self.prefix_cache.assert_consistent()
+            # only the dense station registers pages in this slice
+            for p in cached:
+                assert self.prefix_cache.kind_of(p) == "prompt", (
+                    f"page {p} sealed as decode with "
+                    f"decode_page_cache={self.decode_page_cache!r}"
+                )
+        hd = self.hidden // self.num_heads
+        itemsize = torch.empty((), dtype=self.dtype).element_size()
+        page_bytes = self.num_heads * self.page * hd * itemsize
+        for li, (kp, vp) in enumerate(self.pools):
+            for nm, arr in (("k", kp), ("v", vp)):
+                assert arr.dtype == self.dtype, (
+                    f"layer {li} {nm}_pool stores {arr.dtype}, declared "
+                    f"{self.dtype}"
+                )
+                assert arr.numel() * arr.element_size() == (
+                    self.pool_pages * page_bytes
+                ), f"layer {li} {nm}_pool bytes drifted"
+        st_bytes = self.station_slots * self.prompt_pad * self.num_heads * hd
+        for li, (ck, cv) in enumerate(self._station):
+            for nm, arr in (("k", ck), ("v", cv)):
+                assert arr.dtype == self.dtype, (
+                    f"station layer {li} {nm} stores {arr.dtype}"
+                )
+                assert arr.numel() == st_bytes, (
+                    f"station layer {li} {nm} bytes drifted"
+                )
+
+    # -- page moves between the station and the pool ------------------------
+    def _write_pages(self, station: int, phys: List[int], base_row: int) -> None:
+        """Scatter ``len(phys)`` consecutive station pages of slot
+        ``station`` (rows ``base_row + j * page``) into pool pages
+        ``phys[j]``: station rows are (row, h, hd), pool pages
+        (h, page, hd)."""
+        n, page = len(phys), self.page
+        idx = torch.tensor(phys, dtype=torch.long, device=self.device)
+        rows = slice(base_row, base_row + n * page)
+        for (kp, vp), (ck, cv) in zip(self.pools, self._station):
+            for pool, cache in ((kp, ck), (vp, cv)):
+                blk = cache[station, rows].view(n, page, *cache.shape[2:])
+                pool[idx] = blk.transpose(1, 2)
+
+    def _gather_pages(self, station: int, phys: List[int]) -> None:
+        """The reverse copy: prefix-cache hit pages into station rows
+        ``[0, len(phys) * page)`` — the same bytes, no recompute."""
+        n = len(phys) * self.page
+        idx = torch.tensor(phys, dtype=torch.long, device=self.device)
+        for (ck, cv), (kp, vp) in zip(self._station, self.pools):
+            for cache, pool in ((ck, kp), (cv, vp)):
+                cache[station, :n] = pool[idx].transpose(1, 2).reshape(
+                    n, *cache.shape[2:]
+                )
+
+    # -- admission ---------------------------------------------------------
+    def _validate(self, prompt: np.ndarray, max_new: int) -> int:
+        plen = validate_request(prompt, max_new, self.prompt_pad,
+                                self.max_seq)
+        if max_new > 0:
+            need = self._pages_for(plen, max_new)
+            if need > self.pool_pages - 1:  # page 0 is the dump page
+                raise ValueError(
+                    f"request needs {need} pages; the pool has "
+                    f"{self.pool_pages - 1} allocatable"
+                )
+        return plen
+
+    def _try_begin_admit(self, slot: int, seq_id: int, prompt: np.ndarray,
+                         max_new: int, submitted_at: float,
+                         keys: List[bytes]) -> bool:
+        """Reserve pages (prefix-cache hits first), gather hit pages into
+        a free station slot, and open the prefill job.  Returns False to
+        defer (pool pressure, or an in-flight admission is prefilling
+        this prompt's shared prefix) with no state changed."""
+        plen = self._validate(prompt, max_new)
+        s = self._seqs[slot]
+        need = self._pages_for(plen, max_new)
+        # sharable pages: FULL prompt pages strictly below row plen-1 —
+        # the page holding the last prompt row takes the first decode
+        # write, so it stays private
+        hits: List[int] = []
+        if self.prefix_cache is not None:
+            for key in keys:  # the unbroken hit prefix
+                page = self.prefix_cache.lookup(key)
+                if page is None:
+                    break
+                hits.append(page)
+            # if the first missed page is mid-prefill by another
+            # admission, wait for it instead of computing it twice
+            if len(hits) < len(keys):
+                missed = keys[len(hits)]
+                if any(missed in j.keys for j in self._jobs.values()):
+                    return False
+        if need - len(hits) > self._available_pages(set(hits)):
+            return False  # defer until retirements/evictions free pages
+        station = min(set(range(self.station_slots)) - set(self._jobs))
+        for j, key in enumerate(keys[: len(hits)]):
+            acquired = self.prefix_cache.acquire(key)
+            assert acquired == hits[j]
+        fresh = [self._alloc_page() for _ in range(need - len(hits))]
+        # the slot's table stays parked on the dump page until
+        # activation: a prefilling slot's step writes must never land in
+        # a real page — least of all a shared hit page
+        s.seq_id, s.active, s.prefilling = seq_id, False, True
+        s.gen += 1
+        s.tokens, s.remaining = [], max_new
+        s.pages, s.shared = hits + fresh, set(hits)
+        s.submitted_at = submitted_at
+        hit_rows = len(hits) * self.page
+        self.stats["prefix_hit_tokens"] += hit_rows
+        self.stats["prefix_miss_tokens"] += (len(keys) - len(hits)) * self.page
+        self.stats["prompt_tokens"] += plen
+        # hit rows need station residency only if chunks run after them
+        if hits and hit_rows < plen - 1:
+            self._gather_pages(station, hits)
+        self._jobs[station] = _PrefillJob(
+            slot=slot, station=station, seq_id=seq_id, prompt=prompt,
+            plen=plen, keys=keys, pos=hit_rows, next_scatter=len(hits),
+        )
+        self.stats["admits"] += 1
+        self.stats["peak_pages"] = max(
+            self.stats["peak_pages"], self.pages_in_use()
+        )
+        return True
+
+    # -- chunked prefill ---------------------------------------------------
+    def _scatter_ready_pages(self, job: _PrefillJob) -> None:
+        s = self._seqs[job.slot]
+        # the ready run: pages prefill has passed, plus the partial tail
+        # once the job is flushing (pos == plen - 1)
+        first = hi = job.next_scatter
+        while hi * self.page < job.pos:
+            if (hi + 1) * self.page > job.pos and job.pos < job.plen - 1:
+                break
+            hi += 1
+        if hi == first:
+            return
+        self._write_pages(job.station, s.pages[first:hi], first * self.page)
+        for j in range(first, hi):
+            if (
+                self.prefix_cache is not None
+                and j < len(job.keys)
+                and (j + 1) * self.page <= job.pos
+                and self.prefix_cache.lookup(job.keys[j]) is None
+            ):
+                self.prefix_cache.insert(job.keys[j], s.pages[j],
+                                         kind="prompt")
+                s.shared.add(s.pages[j])
+        job.next_scatter = hi
+
+    def _activate(self, job: _PrefillJob) -> None:
+        # prompt rows [0, plen-1) are in pool pages; the LAST prompt
+        # token rides the ordinary step (write row plen-1, attend
+        # <= plen-1), which emits the first generated token
+        slot, s = job.slot, self._seqs[job.slot]
+        self.tables[slot, :] = s.pages[0]
+        self.tables[slot, : len(s.pages)] = s.pages
+        self.pos[slot] = job.plen - 1
+        last_tok = int(job.prompt[job.plen - 1])
+        self._last[slot] = last_tok
+        # push the slot's loop state to the device once, here; from now
+        # until retirement the step advances it
+        self._tables_dev[slot] = torch.from_numpy(self.tables[slot]).to(
+            self.device
+        )
+        self._pos_dev[slot] = job.plen - 1
+        self._last_dev[slot] = last_tok
+        self._active_dev[slot] = True
+        self._remaining_dev[slot] = s.remaining
+        s.prefilling, s.active = False, True
+
+    def _chunk(self, rows: torch.Tensor, starts: torch.Tensor,
+               stations: List[int]) -> None:
+        """One batched page-sized causal chunk across the picked station
+        slots: slot ``stations[i]`` advances rows
+        ``[starts[i], starts[i] + page)`` of its prompt, K/V landing at
+        the same station rows; other station slots are untouched."""
+        idx = torch.tensor(stations, dtype=torch.long, device=self.device)
+        sub = [(ck[idx], cv[idx]) for ck, cv in self._station]
+        self.dense_model.fill(rows, sub, starts)
+        for (ck, cv), (sk, sv) in zip(self._station, sub):
+            ck[idx] = sk
+            cv[idx] = sv
+
+    def _advance_prefill(self) -> None:
+        """The token-budget step packer: rounds of one batched station
+        chunk each, every round advancing each in-flight admission (FIFO
+        order) one page, up to ``prefill_chunk`` rows per admission and
+        ``token_budget`` rows (decode tokens included) per iteration."""
+        if self._jobs:
+            if self.token_budget is None:
+                pages_left = None
+            else:
+                n_active = sum(1 for s in self._seqs if s.active)
+                # at least one chunk always runs: a saturated decode
+                # batch may taper prefill but never starve it
+                pages_left = max(1, (self.token_budget - n_active) // self.page)
+            advanced = {st: 0 for st in self._jobs}
+            while True:
+                picked = []
+                for st, job in self._jobs.items():
+                    if pages_left is not None and len(picked) >= pages_left:
+                        break
+                    if advanced[st] >= self._chunks_per_step:
+                        continue
+                    end = min(job.pos + self.page, job.plen - 1)
+                    if end <= job.pos:
+                        continue
+                    picked.append((st, job, end))
+                if not picked:
+                    break
+                rows = np.zeros((len(picked), self.page), np.int32)
+                for i, (_, job, end) in enumerate(picked):
+                    rows[i, : end - job.pos] = job.prompt[job.pos:end]
+                starts = np.array([job.pos for _, job, _ in picked], np.int32)
+                self._chunk(
+                    torch.from_numpy(rows).to(self.device),
+                    torch.from_numpy(starts).to(self.device),
+                    [st for st, _, _ in picked],
+                )
+                for st, job, end in picked:
+                    job.pos = end
+                    advanced[st] += 1
+                    self.stats["prefill_chunks"] += 1
+                    self._scatter_ready_pages(job)
+                if pages_left is not None:
+                    pages_left -= len(picked)
+                    if pages_left <= 0:
+                        break
+        # completion pass: fully-prefilled prompts (including full-prefix
+        # hits with zero chunks) flush their partial tails and activate
+        done = [st for st, j in self._jobs.items() if j.pos >= j.plen - 1]
+        for st in done:
+            job = self._jobs.pop(st)
+            self._scatter_ready_pages(job)
+            self._activate(job)
+
+    # -- incremental serving API -------------------------------------------
+    def submit(self, seq_id: int, prompt: np.ndarray, max_new: int,
+               temperature: float = 0.0,
+               session_id: Optional[str] = None,
+               trace=None,
+               seed: Optional[int] = None) -> None:
+        """Queue one greedy request.  Validates shape and worst-case pool
+        limits eagerly (a request that can never fit fails here, not
+        mid-loop) and computes its prefix chain keys.  ``session_id`` is
+        advisory: prefix sharing is content-addressed."""
+        if seq_id < 0:
+            raise ValueError(f"seq_id must be >= 0, got {seq_id}")
+        if temperature > 0.0 or seed is not None:
+            raise _not_ported("sampled requests (temperature > 0, seed)",
+                              SAMPLING_SLICE)
+        if trace is not None:
+            raise _not_ported("request tracing", HTTP_SLICE)
+        prompt = np.asarray(prompt, np.int32)
+        plen = self._validate(prompt, max_new)
+        keys: List[bytes] = []
+        if self.prefix_cache is not None and max_new > 0:
+            keys = chain_keys(prompt, self.page, (plen - 1) // self.page)
+        self._pending.append(
+            (seq_id, prompt, max_new, time.monotonic(), keys)
+        )
+
+    def cancel(self, seq_id: int) -> bool:
+        """Withdraw a request from the queue, mid-prefill, or mid-decode;
+        its pages go back to the pool (shared ones decref).  Returns
+        False if the request is unknown."""
+        for i, item in enumerate(self._pending):
+            if item[0] == seq_id:
+                del self._pending[i]
+                return True
+        for i, s in enumerate(self._seqs):
+            if s.seq_id == seq_id:
+                for st, job in list(self._jobs.items()):
+                    if job.seq_id == seq_id:
+                        # the station rows become garbage; the next job
+                        # there overwrites them before it attends
+                        del self._jobs[st]
+                self._teardown_slot(i, s)
+                s.active, s.prefilling = False, False
+                s.tokens, s.remaining = [], 0
+                return True
+        return False
+
+    def _teardown_slot(self, i: int, s: _Seq) -> None:
+        """The shared retirement/cancel epilogue: release the pages and
+        park the slot on the dump page, host mirror and device lane."""
+        self._release_pages(s)
+        s.seq_id = -1
+        self.tables[i, :] = 0
+        self.pos[i] = 0
+        self._last[i] = 0
+        # any still-in-flight step wrote only to this sequence's own
+        # rows; every later one lands on the dump page
+        self._tables_dev[i] = 0
+        self._pos_dev[i] = 0
+        self._last_dev[i] = 0
+        self._active_dev[i] = False
+        self._remaining_dev[i] = 0
+
+    def has_work(self) -> bool:
+        return bool(self._pending) or any(s.seq_id >= 0 for s in self._seqs)
+
+    def live_tokens(self) -> Dict[int, List[int]]:
+        """Committed tokens of every live sequence (under the pipelined
+        loop, each delta is a step the device can no longer change)."""
+        return {s.seq_id: list(s.tokens) for s in self._seqs if s.seq_id >= 0}
+
+    def _reset_stats(self) -> None:
+        self.stats = {
+            "steps": 0, "admits": 0, "peak_pages": 0, "prefill_chunks": 0,
+            "prefix_hit_tokens": 0, "prefix_miss_tokens": 0,
+            "prompt_tokens": 0,
+        }
+        # seq_id -> seconds from submit to the first token's readback
+        self.first_token_s: Dict[int, float] = {}
+
+    def _sweep(self, finished: Dict[int, List[int]]) -> None:
+        progress = True
+        while progress:
+            progress = False
+            for i, s in enumerate(self._seqs):
+                if s.seq_id >= 0 and not s.active and not s.prefilling:
+                    finished[s.seq_id] = s.tokens
+                    self._teardown_slot(i, s)
+                    progress = True
+            # admission is strictly FIFO: a head that cannot begin holds
+            # everything behind it in place
+            while self._pending:
+                nxt = self._pending[0]
+                free = next(
+                    (i for i, s in enumerate(self._seqs) if s.seq_id < 0),
+                    None,
+                )
+                if free is None:
+                    break
+                if nxt[2] <= 0:
+                    # zero-budget no-op admit: no pages, no station work
+                    s = self._seqs[free]
+                    s.seq_id, s.active = nxt[0], False
+                    s.gen += 1
+                    s.prefilling, s.tokens, s.remaining = False, [], 0
+                    self._pending.popleft()
+                    self.stats["admits"] += 1
+                    progress = True
+                    continue
+                if len(self._jobs) >= self.station_slots:
+                    break  # every station slot busy: wait, in order
+                if not self._try_begin_admit(free, *nxt):
+                    break  # head deferred: hold the FIFO line
+                self._pending.popleft()
+                progress = True
+
+    @torch.no_grad()
+    def serve_step(self) -> Dict[int, List[int]]:
+        """One serving iteration: retire + admit, advance every in-flight
+        admission, dispatch one decode step if anything is active, then
+        read tokens at the one readback point — one step late when
+        ``pipeline_decode`` is on.  A slot awaiting its FIRST token reads
+        back at once, so time to first token keeps synchronous
+        semantics."""
+        finished: Dict[int, List[int]] = {}
+        self._sweep(finished)
+        self._advance_prefill()
+        n_active = sum(1 for s in self._seqs if s.active)
+        if n_active:
+            self._dispatch_step()
+        keep = 1 if (
+            self.pipeline_decode
+            and n_active
+            and not any(s.active and not s.tokens for s in self._seqs)
+        ) else 0
+        while len(self._inflight) > keep:
+            self._process_entry(self._inflight.popleft())
+        if n_active:
+            self._sweep(finished)
+            if not any(s.seq_id >= 0 for s in self._seqs):
+                # every sequence retired: the overhang step is all junk
+                while self._inflight:
+                    self._process_entry(self._inflight.popleft())
+        return finished
+
+    def _loop_state(self):
+        """The step's input state: the previous step's device outputs
+        (pipelined), or the host mirrors uploaded anew (synchronous)."""
+        if self.pipeline_decode:
+            return (self._last_dev, self._tables_dev, self._pos_dev,
+                    self._active_dev, self._remaining_dev)
+        active = np.array([s.active for s in self._seqs], bool)
+        remaining = np.array([s.remaining for s in self._seqs], np.int32)
+        return tuple(
+            torch.tensor(a, device=self.device)
+            for a in (self._last, self.tables, self.pos, active, remaining)
+        )
+
+    def _step(self, last, table, pos, active, remaining):
+        """The whole loop transition: emit a token for every slot, then
+        advance last/pos and retire (budget/EOS) active slots on the
+        device.  Inactive lanes are parked on the dump page here, so
+        their K/V write lands on page 0 however late the host learns of
+        a retirement."""
+        table = torch.where(active[:, None], table, 0)
+        run_pos = torch.where(active, pos, 0)
+        logits = self.model(last[:, None], self.pools, table, run_pos,
+                            checked=True)
+        toks = logits.argmax(-1).to(torch.int32)
+        act = active.to(torch.int32)
+        new_rem = remaining - act
+        done = new_rem <= 0
+        if self.eos_id is not None:
+            done = done | (toks == self.eos_id)
+        new_active = active & ~done
+        new_last = torch.where(active, toks, last)
+        return toks, new_last, pos + act, new_active, new_rem
+
+    def _dispatch_step(self) -> None:
+        """Launch one decode step on the device state and start its
+        token readback; the host reads it in ``_process_entry``."""
+        cand = {i: s.gen for i, s in enumerate(self._seqs) if s.active}
+        last, table, pos, active, remaining = self._loop_state()
+        (toks, self._last_dev, self._pos_dev, self._active_dev,
+         self._remaining_dev) = self._step(last, table, pos, active,
+                                           remaining)
+        event = None
+        if toks.is_cuda:
+            host = torch.empty(toks.shape, dtype=toks.dtype, pin_memory=True)
+            host.copy_(toks, non_blocking=True)
+            event = torch.cuda.Event()
+            event.record()
+            toks = host
+        self.stats["steps"] += 1
+        self._inflight.append(_Inflight(cand=cand, toks=toks, event=event))
+
+    def _process_entry(self, entry: _Inflight) -> None:
+        """The one readback point: wait for a dispatched step's tokens
+        and replay the step's integer arithmetic on the host mirrors —
+        token append, budget/EOS retirement.  Lanes whose slot changed
+        occupant since dispatch are junk and dropped."""
+        if entry.event is not None:
+            entry.event.synchronize()
+        toks_h = entry.toks.numpy()
+        now = time.monotonic()
+        for i, s in enumerate(self._seqs):
+            gen = entry.cand.get(i)
+            if gen is None or s.gen != gen or not s.active:
+                continue
+            self.pos[i] += 1  # the step consumed one row
+            t = int(toks_h[i])
+            if not s.tokens:
+                self.first_token_s[s.seq_id] = now - s.submitted_at
+            s.tokens.append(t)
+            s.last_emit_at = now
+            s.remaining -= 1
+            self._last[i] = t
+            if s.remaining <= 0 or (self.eos_id is not None and t == self.eos_id):
+                s.active = False
+
+    # -- the batch convenience loop ----------------------------------------
+    @torch.no_grad()
+    def run(self, prompts: List[np.ndarray], max_new_tokens: List[int],
+            temperatures: Optional[List[float]] = None,
+            seeds: Optional[List[Optional[int]]] = None
+            ) -> Dict[int, List[int]]:
+        """Serve ``prompts`` (request i gets seq_id i) to completion and
+        return ``{seq_id: tokens}``."""
+        if len(prompts) != len(max_new_tokens):
+            raise ValueError("one budget per prompt")
+        temps = temperatures or [0.0] * len(prompts)
+        pins = seeds or [None] * len(prompts)
+        if len(temps) != len(prompts) or len(pins) != len(prompts):
+            raise ValueError("one temperature and one seed per prompt")
+        self._reset_stats()
+        for i, (p, m) in enumerate(zip(prompts, max_new_tokens)):
+            self.submit(i, np.asarray(p), m, temps[i], seed=pins[i])
+        done: Dict[int, List[int]] = {}
+        while self.has_work():
+            done.update(self.serve_step())
+            if (
+                self._pending
+                and not self._jobs
+                and not any(s.seq_id >= 0 for s in self._seqs)
+            ):
+                raise RuntimeError(
+                    "pool cannot admit the next request though no sequence "
+                    "is live — pool_pages too small for the traffic"
+                )
+        return done

@@ -1,0 +1,174 @@
+"""Serving worker of the port: ``--model decode --serving paged``.
+
+The port of ``kubegpu_tpu/models/worker.py``'s paged decode mode.  It
+builds the LM at the given widths with fresh weights drawn from a fixed
+seed, serves one warm-up wave of requests and one timed wave through
+:class:`PagedContinuousBatcher`, and prints the JAX worker's
+``FIRST_DECODE_DONE`` / ``DECODE_DONE`` lines plus the launch count of
+the paged decode kernel (K1).  A wave is the JAX worker's: ``2 x
+--batch-per-chip`` prompts of random length in ``[1, --prompt-len]``
+from ``np.random.RandomState(0)``, budgets cycling ``1/4 .. 1 x
+--steps``.
+
+    python -m kubegpu_tpu_torch.models.worker --model decode --serving paged \\
+        --vocab 32768 --hidden 4096 --heads 32 --layers 4 \\
+        --prompt-len 128 --batch-per-chip 8 --steps 64
+
+Runs on the card by default; ``--device cpu`` runs the plain PyTorch
+path (K1 is then never launched).
+"""
+
+from __future__ import annotations
+
+import argparse
+import time
+from typing import Dict, List, Optional
+
+import numpy as np
+import torch
+
+from kubegpu_tpu_torch.models.paging import PagedContinuousBatcher
+from kubegpu_tpu_torch.models.params import bf16_cast, init_params, resolve_device
+from kubegpu_tpu_torch.ops.paged_attention import paged_decode_attention
+
+WEIGHT_SEED = 0
+
+
+def build_parser() -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--model", choices=["decode"], default="decode")
+    ap.add_argument("--serving", choices=["paged"], default="paged",
+                    help="paged = continuous batching over a shared KV "
+                    "page pool (the only serving mode ported so far)")
+    ap.add_argument("--steps", type=int, default=20,
+                    help="decode budget of the longest request")
+    ap.add_argument("--batch-per-chip", type=int, default=32,
+                    help="decode slots; a wave holds twice as many requests")
+    ap.add_argument("--vocab", type=int, default=32000)
+    ap.add_argument("--layers", type=int, default=4)
+    ap.add_argument("--heads", type=int, default=8)
+    ap.add_argument("--hidden", type=int, default=512)
+    ap.add_argument("--seq", type=int, default=1024,
+                    help="the LM's training window; the cache holds seq+1 rows")
+    ap.add_argument("--prompt-len", type=int, default=32,
+                    help="longest prompt (prompt-len + steps must fit seq + 1)")
+    ap.add_argument("--page-size", type=int, default=None,
+                    help="KV page rows (must divide --prompt-len); default "
+                    "128 when it divides, else the whole prompt pad")
+    ap.add_argument("--serve-fp32", action="store_true",
+                    help="serve float32 weights instead of the bf16 cast")
+    ap.add_argument("--device", choices=["cuda", "cpu"], default="cuda")
+    return ap
+
+
+def wave_requests(rng: np.random.RandomState, n_req: int, vocab: int,
+                  prompt_len: int) -> List[np.ndarray]:
+    """One wave's prompts, drawn exactly as the JAX worker draws them."""
+    return [
+        rng.randint(0, vocab, size=rng.randint(1, prompt_len + 1),
+                    dtype=np.int32)
+        for _ in range(n_req)
+    ]
+
+
+def build_batcher(args: argparse.Namespace) -> PagedContinuousBatcher:
+    """The worker's batcher: fresh weights from ``WEIGHT_SEED`` at the
+    given widths (bf16 unless ``--serve-fp32``), a pool sized for
+    ``--batch-per-chip`` sequences of ``--prompt-len + --steps`` rows."""
+    device = resolve_device(args.device)
+    max_seq = args.seq + 1
+    if args.prompt_len + args.steps > max_seq:
+        raise SystemExit(
+            f"--prompt-len {args.prompt_len} + --steps {args.steps} exceeds "
+            f"the cache size --seq+1 = {max_seq}"
+        )
+    if args.page_size is not None:
+        if args.page_size < 1 or args.prompt_len % args.page_size:
+            raise SystemExit(
+                f"--page-size {args.page_size} must be positive and divide "
+                f"--prompt-len {args.prompt_len} (whole-page admit scatter)"
+            )
+        page = args.page_size
+    else:
+        page = 128 if args.prompt_len % 128 == 0 else args.prompt_len
+    cfg = dict(vocab_size=args.vocab, num_layers=args.layers,
+               num_heads=args.heads, hidden=args.hidden, max_seq=max_seq)
+    dtype = torch.float32 if args.serve_fp32 else torch.bfloat16
+    gen = torch.Generator(device=device).manual_seed(WEIGHT_SEED)
+    params = init_params(cfg, gen, torch.float32, device)
+    if not args.serve_fp32:
+        params = bf16_cast(params)
+    slots = args.batch_per_chip
+    pool = slots * -(-(args.prompt_len + args.steps) // page) + 1
+    return PagedContinuousBatcher(
+        params, **cfg, slots=slots, prompt_pad=args.prompt_len,
+        page_size=page, pool_pages=pool, dtype=dtype, device=device,
+    )
+
+
+def run_decode(args: argparse.Namespace) -> Dict[str, object]:
+    """Build the batcher, serve a warm-up wave and a timed wave, and
+    return what was measured (the CLI prints it)."""
+    t0 = time.monotonic()
+    cb = build_batcher(args)
+    device = cb.device
+    slots = args.batch_per_chip
+    rng = np.random.RandomState(0)
+    n_req = 2 * slots
+    budgets = [max(args.steps * (1 + i % 4) // 4, 1) for i in range(n_req)]
+    launches0 = paged_decode_attention.launches
+
+    def wave():
+        prompts = wave_requests(rng, n_req, args.vocab, args.prompt_len)
+        tw = time.monotonic()
+        out = cb.run(prompts, budgets)
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        return out, time.monotonic() - tw
+
+    out, _ = wave()  # warm-up: first-use costs (kernel build, allocator)
+    steps = cb.stats["steps"]
+    first_s = time.monotonic() - t0
+    out, dt = wave()
+    steps += cb.stats["steps"]
+    ttft = sorted(cb.first_token_s.values())
+    total = sum(len(v) for v in out.values())
+    return {
+        "first_decode_s": first_s,
+        "tokens": total,
+        "tokens_per_sec": total / dt,
+        "wave_s": dt,
+        "requests": n_req,
+        "steps": cb.stats["steps"],
+        "admits": cb.stats["admits"],
+        "decode_steps_total": steps,
+        "layers": args.layers,
+        "k1_launches": paged_decode_attention.launches - launches0,
+        "ttft_mean_s": float(np.mean(ttft)) if ttft else None,
+        "ttft_max_s": ttft[-1] if ttft else None,
+        "outputs": out,
+        "device": str(device),
+    }
+
+
+def main(argv: Optional[List[str]] = None) -> int:
+    args = build_parser().parse_args(argv)
+    r = run_decode(args)
+    print(f"FIRST_DECODE_DONE seconds={r['first_decode_s']:.2f}", flush=True)
+    print(
+        f"DECODE_DONE tokens_per_sec={r['tokens_per_sec']:.1f} "
+        f"serving={args.serving} requests={r['requests']} "
+        f"steps={r['steps']} admits={r['admits']}",
+        flush=True,
+    )
+    print(
+        f"K1_LAUNCHES paged_decode_attention={r['k1_launches']} "
+        f"decode_steps={r['decode_steps_total']} layers={r['layers']} "
+        f"device={r['device']}",
+        flush=True,
+    )
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -1,0 +1,92 @@
+"""The port stands alone: no module of kubegpu_tpu_torch, and not
+chip_smoke.py, imports jax, flax or the JAX package; its entry points
+run on the card unless the caller asks for the CPU."""
+
+import ast
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PKG = os.path.join(REPO, "kubegpu_tpu_torch")
+FORBIDDEN_ROOTS = ("jax", "jaxlib", "flax", "kubegpu_tpu")
+
+
+def port_sources():
+    for root, _, files in os.walk(PKG):
+        for f in sorted(files):
+            if f.endswith(".py"):
+                yield os.path.join(root, f)
+    yield os.path.join(REPO, "chip_smoke.py")
+
+
+def test_importing_every_module_leaves_jax_out():
+    code = (
+        "import importlib, pkgutil, sys\n"
+        "import kubegpu_tpu_torch as pkg\n"
+        "names = [m.name for m in pkgutil.walk_packages(pkg.__path__, "
+        "'kubegpu_tpu_torch.')]\n"
+        "for n in names: importlib.import_module(n)\n"
+        "import chip_smoke\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        f"{FORBIDDEN_ROOTS!r})\n"
+        "print(len(names), bad)\n"
+        "sys.exit(1 if bad else 0)\n"
+    )
+    env = dict(os.environ, PYTHONPATH=REPO)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    n_modules = int(proc.stdout.split()[0])
+    assert n_modules >= 8
+
+
+def test_no_source_imports_jax_or_the_jax_package():
+    for path in port_sources():
+        tree = ast.parse(open(path).read(), path)
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom):
+                names = [node.module or ""]
+            else:
+                continue
+            for name in names:
+                assert name.split(".")[0] not in FORBIDDEN_ROOTS, (
+                    f"{path} imports {name}"
+                )
+
+
+def test_entry_points_default_to_the_card_and_raise_without_one(
+        monkeypatch):
+    from kubegpu_tpu_torch.models import worker
+    from kubegpu_tpu_torch.models.decoding import greedy_generate
+    from kubegpu_tpu_torch.models.paging import PagedContinuousBatcher
+    from kubegpu_tpu_torch.models.params import init_params
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = dict(vocab_size=16, num_layers=1, num_heads=2, hidden=16,
+               max_seq=16)
+    params = init_params(cfg, torch.Generator().manual_seed(0),
+                         torch.float32, "cpu")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        PagedContinuousBatcher(params, **cfg, prompt_pad=8, page_size=8)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        greedy_generate(params, np.zeros((1, 2), np.int32), 2, **cfg)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        init_params(cfg, torch.Generator().manual_seed(0))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        worker.run_decode(worker.build_parser().parse_args([]))
+
+
+def test_chip_smoke_exits_nonzero_without_a_card():
+    env = dict(os.environ, PYTHONPATH=REPO, CUDA_VISIBLE_DEVICES="")
+    proc = subprocess.run([sys.executable, "chip_smoke.py"], cwd=REPO,
+                          env=env, capture_output=True, text=True,
+                          timeout=300)
+    assert proc.returncode != 0
+    assert '"ok"' not in proc.stdout

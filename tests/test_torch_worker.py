@@ -1,0 +1,79 @@
+"""The port's serving worker (kubegpu_tpu_torch/models/worker.py) on the
+CPU at a tiny width: as a subprocess it prints the JAX worker's
+FIRST_DECODE_DONE / DECODE_DONE lines and a K1 launch count of 0 (the
+CPU takes the kernel's plain twin); in process it serves every request
+of a wave to its budget."""
+
+import os
+import re
+import subprocess
+import sys
+
+import pytest
+
+from kubegpu_tpu_torch.models import worker
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+TINY = ["--model", "decode", "--serving", "paged", "--vocab", "64",
+        "--hidden", "32", "--heads", "4", "--layers", "2", "--seq", "64",
+        "--prompt-len", "16", "--page-size", "8", "--batch-per-chip", "2",
+        "--steps", "8"]
+
+
+def run_worker(*extra):
+    env = dict(os.environ, PYTHONPATH=REPO)
+    return subprocess.run(
+        [sys.executable, "-m", "kubegpu_tpu_torch.models.worker", *TINY,
+         *extra],
+        cwd=REPO, env=env, capture_output=True, text=True, timeout=300,
+    )
+
+
+def test_worker_subprocess_on_cpu_prints_done_lines():
+    proc = run_worker("--device", "cpu")
+    assert proc.returncode == 0, proc.stderr
+    out = proc.stdout
+    assert re.search(r"^FIRST_DECODE_DONE seconds=[\d.]+$", out, re.M)
+    done = re.search(
+        r"^DECODE_DONE tokens_per_sec=[\d.]+ serving=paged requests=4 "
+        r"steps=(\d+) admits=4$", out, re.M)
+    assert done and int(done.group(1)) > 0, out
+    k1 = re.search(r"^K1_LAUNCHES paged_decode_attention=(\d+) "
+                   r"decode_steps=(\d+) layers=2 device=cpu$", out, re.M)
+    assert k1, out
+    assert int(k1.group(1)) == 0 and int(k1.group(2)) > 0
+
+
+def test_worker_run_decode_serves_every_request_to_its_budget():
+    args = worker.build_parser().parse_args(TINY + ["--device", "cpu",
+                                                    "--serve-fp32"])
+    r = worker.run_decode(args)
+    budgets = [max(8 * (1 + i % 4) // 4, 1) for i in range(4)]
+    assert sorted(r["outputs"]) == [0, 1, 2, 3]
+    for i, toks in r["outputs"].items():
+        assert len(toks) == budgets[i]
+        assert all(0 <= t < 64 for t in toks)
+    assert r["tokens"] == sum(budgets)
+    assert r["k1_launches"] == 0
+    assert r["ttft_mean_s"] is not None and r["ttft_mean_s"] >= 0
+
+
+def test_worker_wave_draws_prompts_like_the_jax_worker():
+    import numpy as np
+
+    rng = np.random.RandomState(0)
+    prompts = worker.wave_requests(rng, 4, 64, 16)
+    ref = np.random.RandomState(0)
+    for p in prompts:
+        want = ref.randint(0, 64, size=ref.randint(1, 17), dtype=np.int32)
+        np.testing.assert_array_equal(p, want)
+
+
+@pytest.mark.parametrize("bad, match", [
+    (["--steps", "60"], "exceeds"),
+    (["--page-size", "5"], "divide"),
+])
+def test_worker_refuses_bad_geometry(bad, match):
+    args = worker.build_parser().parse_args(TINY + ["--device", "cpu"] + bad)
+    with pytest.raises(SystemExit, match=match):
+        worker.run_decode(args)
