@@ -155,11 +155,15 @@ class LMBase(nn.Module):
 
     def __init__(self, *, vocab_size: int, num_layers: int, num_heads: int,
                  hidden: int, max_seq: int,
-                 dtype: torch.dtype = torch.bfloat16) -> None:
+                 dtype: torch.dtype = torch.bfloat16,
+                 all_logits: bool = False) -> None:
         super().__init__()
         self.vocab_size, self.num_layers = vocab_size, num_layers
         self.num_heads, self.hidden, self.max_seq = num_heads, hidden, max_seq
         self.dtype = dtype
+        # every row's logits, not just the last: a speculative verify
+        # scores all k+1 window positions from one forward
+        self.all_logits = all_logits
         self.embed = Embed(vocab_size, hidden, dtype)
         self.pos_embed = Embed(max_seq, hidden, dtype)
         for i in range(num_layers):
@@ -183,11 +187,15 @@ class DecodeLM(LMBase):
     with tokens ``(b, L)``, caches ``[(k, v)]`` per layer written in
     place, and pos the cache row of the first token — an int or ``()``
     tensor (aligned) or a ``(b,)`` tensor (per sequence).  Returns the
-    last row's float32 logits ``(b, vocab)``."""
+    last row's float32 logits ``(b, vocab)``, or every row's
+    ``(b, L, vocab)`` when built with ``all_logits=True``."""
 
     def forward(self, tokens: torch.Tensor, caches: Caches,
                 pos: Union[int, torch.Tensor]) -> torch.Tensor:
-        return self.head(self.fill(tokens, caches, pos)[:, -1:])[:, -1]
+        x = self.fill(tokens, caches, pos)
+        if self.all_logits:
+            return self.head(x)
+        return self.head(x[:, -1:])[:, -1]
 
     def fill(self, tokens: torch.Tensor, caches: Caches,
              pos: Union[int, torch.Tensor]) -> torch.Tensor:

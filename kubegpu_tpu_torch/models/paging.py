@@ -1,18 +1,22 @@
 """Paged KV serving: continuous batching over a shared page pool — the
 port of ``kubegpu_tpu/models/paging.py`` for greedy, full-width serving.
 
-- ``PagedDecodeLM``: the single-token decode twin of ``DecodeLM`` with
-  the same parameter tree, whose per-layer cache is a
+- ``PagedDecodeLM``: the paged twin of ``DecodeLM`` with the same
+  parameter tree, whose per-layer cache is a
   ``(pool_pages, heads, page, head_dim)`` pool plus a per-slot page
-  table; its attention is :func:`paged_decode_attention` (the Hopper
-  kernel on the card).
+  table; one token per slot attends through
+  :func:`paged_decode_attention` (K1 on the card), a speculative verify
+  window of k+1 tokens through :func:`paged_chunk_attention` (K2).
 - ``PrefixPageCache``: content-hash -> physical page map with refcounts
   and LRU eviction (plain Python, as in the JAX package).
 - ``PagedContinuousBatcher``: the serving loop.  Prompts prefill in
   page-sized chunks through a dense multi-slot STATION (``DecodeLM``),
   each finished station page is scattered into freshly reserved pool
   pages, full prompt pages are registered in the prefix cache, and
-  every decode step runs ``PagedDecodeLM`` over all slots.
+  every decode step runs ``PagedDecodeLM`` over all slots.  With
+  ``speculate_k`` a dense draft proposes k tokens per slot from its own
+  ring cache and one verify window scores them; greedy verification
+  makes the streams the non-speculative ones for any draft.
 
 Numerics, as in the JAX package: the paged kernel scores and softmaxes
 in f32 while the dense station scores in the model dtype; at float32 the
@@ -53,7 +57,9 @@ from kubegpu_tpu_torch.models.serving import (
     validate_request,
 )
 from kubegpu_tpu_torch.ops.paged_attention import (
+    check_chunk_args,
     check_kernel_args,
+    paged_chunk_attention,
     paged_decode_attention,
 )
 
@@ -62,33 +68,46 @@ Pools = List[tuple]
 
 class PagedDecodeAttention(DecodeAttention):
     """Attention over a paged KV pool (parameter names as the dense
-    twin's).  The token's K/V row is written to the slot's page first
-    (in place), then the slot attends rows ``< pos + 1``."""
+    twin's).  The window's K/V rows are written to the slot's pages first
+    (in place), then window row j attends rows ``< pos + 1 + j``: one
+    token (L == 1) is a decode step through K1, a wider window a
+    speculative verify through K2."""
 
     def forward(self, x, k_pool, v_pool, table, pos, checked=False):
-        # x (b, 1, d); pools (P, h, page, hd); table (b, n_pages) int32;
-        # pos (b,) int32 cache row of the token; checked: the kernel's
-        # operand checks already ran on this layout
+        # x (b, L, d); pools (P, h, page, hd); table (b, n_pages) int32;
+        # pos (b,) int32 cache row of the window's first token; checked:
+        # the kernel's operand checks already ran on this layout
         b, L, d = x.shape
-        if L != 1:
-            raise NotImplementedError(
-                "multi-token windows (the speculative verify) arrive with "
-                "the greedy paged speculation slice (kernel K2)"
-            )
         h = self.num_heads
         hd = d // h
         page = k_pool.shape[2]
-        q = self.q_proj(x).view(b, h, hd)
-        k = self.k_proj(x).view(b, h, hd)
-        v = self.v_proj(x).view(b, h, hd)
-        rows = torch.arange(b, device=x.device)
-        page_ids = table[rows, pos // page]
-        offs = pos % page
+        if L == 1:
+            q = self.q_proj(x).view(b, h, hd)
+            k = self.k_proj(x).view(b, h, hd)
+            v = self.v_proj(x).view(b, h, hd)
+            rows = torch.arange(b, device=x.device)
+            page_ids = table[rows, pos // page]
+            offs = pos % page
+            k_pool[page_ids, :, offs, :] = k
+            v_pool[page_ids, :, offs, :] = v
+            out = paged_decode_attention(q, k_pool, v_pool, table, pos + 1,
+                                         checked=checked)
+            return self.o_proj(out.reshape(b, 1, d))
+        q = self.q_proj(x).view(b, L, h, hd)
+        k = self.k_proj(x).view(b, L, h, hd)
+        v = self.v_proj(x).view(b, L, h, hd)
+        # window row j lands at cache row pos + j: one index-put over
+        # (b, L); rejected rows are junk the next window overwrites
+        # before any mask exposes them
+        cache_rows = pos.long()[:, None] + torch.arange(L, device=x.device)
+        slots = torch.arange(b, device=x.device)[:, None]
+        page_ids = table[slots, cache_rows // page]
+        offs = cache_rows % page
         k_pool[page_ids, :, offs, :] = k
         v_pool[page_ids, :, offs, :] = v
-        out = paged_decode_attention(q, k_pool, v_pool, table, pos + 1,
-                                     checked=checked)
-        return self.o_proj(out.reshape(b, 1, d))
+        out = paged_chunk_attention(q, k_pool, v_pool, table, pos + 1,
+                                    checked=checked)
+        return self.o_proj(out.reshape(b, L, d))
 
 
 class PagedDecodeBlock(DecodeBlock):
@@ -96,20 +115,28 @@ class PagedDecodeBlock(DecodeBlock):
 
 
 class PagedDecodeLM(LMBase):
-    """Paged twin of ``DecodeLM`` for decode steps:
-    ``forward(tokens (b, 1), pools [(k, v)] per layer, table, pos (b,))``
-    returns float32 logits ``(b, vocab)`` and writes each slot's K/V row
-    into its page in place.  ``checked=True`` skips the attention
-    kernel's per-call operand checks (the batcher runs them once)."""
+    """Paged twin of ``DecodeLM`` for decode steps and verify windows:
+    ``forward(tokens (b, L), pools [(k, v)] per layer, table, pos (b,))``
+    writes each slot's L K/V rows into its pages in place and returns
+    the last row's float32 logits ``(b, vocab)``, or every row's
+    ``(b, L, vocab)`` when built with ``all_logits=True`` (the verify).
+    ``pos`` is the cache row of the first token.  ``checked=True`` skips
+    the attention kernels' per-call operand checks (the batcher runs
+    them once)."""
 
     block_cls = PagedDecodeBlock
 
     def forward(self, tokens, pools: Pools, table, pos,
                 checked: bool = False) -> torch.Tensor:
-        x = self.embed_rows(tokens, pos.long()[:, None])
+        L = tokens.shape[1]
+        pos_rows = pos.long()[:, None]
+        if L > 1:
+            pos_rows = pos_rows + torch.arange(L, device=tokens.device)
+        x = self.embed_rows(tokens, pos_rows)
         for block, (kp, vp) in zip(self.blocks(), pools):
             x = block(x, kp, vp, table, pos, checked)
-        return self.head(x)[:, -1]
+        logits = self.head(x)
+        return logits if self.all_logits else logits[:, -1]
 
 
 class PrefixPageCache:
@@ -239,10 +266,12 @@ class _PrefillJob:
 
 @dataclass
 class _Inflight:
-    """One dispatched-but-unread decode step: ``toks`` is the host copy
-    of the step's tokens (valid once ``event`` has completed, or at once
-    on the CPU); ``cand`` maps slot -> its admission generation at
-    dispatch."""
+    """One dispatched-but-unread decode iteration: ``toks`` is the host
+    copy of its int32 results (valid once ``event`` has completed, or at
+    once on the CPU) — a plain step's tokens ``(slots,)``, or a
+    speculative iteration's ``(slots, k + 3)`` pack of the window's
+    choices, the emitted length and the ring-wrap flag; ``cand`` maps
+    slot -> its admission generation at dispatch."""
 
     cand: Dict[int, int]
     toks: torch.Tensor
@@ -255,7 +284,50 @@ def _not_ported(knob: str, arrives_with: str) -> NotImplementedError:
     )
 
 
-SPEC_SLICE = "the greedy paged speculation slice (kernel K2)"
+def _validate_speculation(k, draft_window, draft_params, draft_num_layers,
+                          draft_num_heads, draft_hidden, max_seq: int,
+                          prompt_pad: int) -> Optional[int]:
+    """The JAX batcher's speculation contract; returns the draft ring's
+    row count (None without speculation).  The ring defaults to the
+    lesser of ``max_seq`` and ``prompt_pad + 16 * (k + 1)`` and must hold
+    a full prompt plus one verify window."""
+    if k is None:
+        if draft_window is not None:
+            raise ValueError(
+                "draft_window requires speculate_k: only the speculative "
+                "draft has a ring cache to bound"
+            )
+        return None
+    if k < 1:
+        raise ValueError(f"speculate_k ({k}) must be >= 1 or None")
+    if draft_params is None or None in (
+        draft_num_layers, draft_num_heads, draft_hidden
+    ):
+        raise ValueError(
+            "speculate_k needs a draft model: pass draft_params "
+            "with draft_num_layers/draft_num_heads/draft_hidden"
+        )
+    if k + 1 > max_seq:
+        raise ValueError(
+            f"speculate_k ({k}) verify window exceeds max_seq ({max_seq})"
+        )
+    if draft_window is None:
+        draft_window = min(max_seq, prompt_pad + 16 * (k + 1))
+    if draft_window > max_seq:
+        raise ValueError(
+            f"draft_window ({draft_window}) exceeds max_seq "
+            f"({max_seq}): rows past the longest stream are waste"
+        )
+    floor = min(max_seq, prompt_pad + k + 1)
+    if draft_window < floor:
+        raise ValueError(
+            f"draft_window ({draft_window}) must cover a full "
+            f"prompt plus one verify window: >= {floor} "
+            f"(min(max_seq, prompt_pad + speculate_k + 1))"
+        )
+    return draft_window
+
+
 SAMPLING_SLICE = "the sampling slice"
 INT8_SLICE = "the int8 slice (QuantDense weights and the int8 page pool)"
 TP_SLICE = "the tensor-parallel slice"
@@ -284,12 +356,21 @@ class PagedContinuousBatcher:
     the synchronous loop (state uploaded from host mirrors every step),
     the oracle the pipelined loop must match token for token.
 
+    ``speculate_k`` with ``draft_params`` and its ``draft_num_layers``/
+    ``draft_num_heads``/``draft_hidden`` turns on greedy speculative
+    decoding: each iteration the draft proposes k tokens per active slot
+    (k+1 scan steps over a dense ``slots x draft_window`` ring), and one
+    verify window of k+1 rows per slot (K2) accepts the longest prefix
+    matching the target's greedy choices plus one token.  Each admitted
+    sequence reserves k more rows of pages, for the verify window's junk
+    tail; a token budget bills k+1 rows per active slot.
+
     The constructor keeps the JAX signature.  Knobs of later slices
-    (speculation, sampling, int8, tensor parallelism, prefill-only
-    serving, metrics/tracing) raise ``NotImplementedError`` naming the
-    slice; ``seed`` keys sampled streams only, and greedy serving ignores
-    it.  ``device`` defaults to ``"cuda"`` and raises without a card; the
-    CPU runs only when asked for (``device="cpu"``)."""
+    (sampling, sampled speculation, int8, tensor parallelism,
+    prefill-only serving, metrics/tracing) raise ``NotImplementedError``
+    naming the slice; ``seed`` keys sampled streams only, and greedy
+    serving ignores it.  ``device`` defaults to ``"cuda"`` and raises
+    without a card; the CPU runs only when asked for (``device="cpu"``)."""
 
     def __init__(
         self,
@@ -330,14 +411,9 @@ class PagedContinuousBatcher:
         prefill_only: bool = False,
         device="cuda",
     ) -> None:
-        if speculate_k is not None or draft_window is not None or (
-            draft_params is not None
-            or (draft_num_layers, draft_num_heads, draft_hidden)
-            != (None, None, None)
-        ):
-            raise _not_ported("speculate_k and the draft model", SPEC_SLICE)
         if sampling or top_k:
-            raise _not_ported("sampling/top_k", SAMPLING_SLICE)
+            raise _not_ported("sampling/top_k (and sampled speculation)",
+                              SAMPLING_SLICE)
         if quant:
             raise _not_ported("quant (int8 weights)", INT8_SLICE)
         if mesh is not None:
@@ -376,6 +452,11 @@ class PagedContinuousBatcher:
             )
         self.token_budget = token_budget
         resolve_kv_dtype(kv_dtype, dtype)
+        self.draft_window = _validate_speculation(
+            speculate_k, draft_window, draft_params, draft_num_layers,
+            draft_num_heads, draft_hidden, max_seq, prompt_pad,
+        )
+        self.speculate_k = speculate_k
         self.decode_page_cache = decode_page_cache
         resolve_decode_page_cache(decode_page_cache, dtype)
         self.device = dev = resolve_device(device)
@@ -441,14 +522,24 @@ class PagedContinuousBatcher:
         self._active_dev = torch.zeros((slots,), dtype=torch.bool, device=dev)
         self._remaining_dev = torch.zeros((slots,), dtype=torch.int32,
                                           device=dev)
+        if speculate_k is not None:
+            self._init_speculation(params, model_cfg, draft_params,
+                                   draft_num_layers, draft_num_heads,
+                                   draft_hidden)
         if dev.type == "cuda":
             # the step's attention operands keep this layout for the
             # batcher's life, so the kernel's checks run once here and
-            # the step passes checked=True
-            q = torch.empty((slots, num_heads, hd), dtype=dtype, device=dev)
+            # the step (or verify) passes checked=True
+            if speculate_k is None:
+                q = torch.empty((slots, num_heads, hd), dtype=dtype,
+                                device=dev)
+                check = check_kernel_args
+            else:
+                q = torch.empty((slots, speculate_k + 1, num_heads, hd),
+                                dtype=dtype, device=dev)
+                check = check_chunk_args
             for kp, vp in self.pools:
-                check_kernel_args(q, kp, vp, self._tables_dev,
-                                  self._pos_dev)
+                check(q, kp, vp, self._tables_dev, self._pos_dev)
         self._inflight: deque = deque()
         # the prefill station: one persistent dense cache of
         # station_slots slots x prompt_pad rows; _jobs is insertion-
@@ -463,9 +554,56 @@ class PagedContinuousBatcher:
         self._pending: deque = deque()
         self._reset_stats()
 
+    def _init_speculation(self, params, model_cfg, draft_params,
+                          draft_num_layers: int, draft_num_heads: int,
+                          draft_hidden: int) -> None:
+        """The speculative half of the batcher: the verify twin of the
+        target (shared weights, every window row's logits), the dense
+        draft model at the ring's row count, the draft ring (a dense
+        ``slots x draft_window`` cache) and its write head ``_d_pos``.
+        When a slot's next verify window would spill past the ring, the
+        draft restarts that slot's context at row 0: the accept rate
+        dips, the target's stream cannot change (greedy verification is
+        lossless for any draft)."""
+        dev, ring = self.device, self.draft_window
+        self.draft_num_layers = draft_num_layers
+        self.draft_num_heads = draft_num_heads
+        self.draft_hidden = draft_hidden
+        self.verify_model = bind_params(
+            PagedDecodeLM(max_seq=self.max_seq, all_logits=True,
+                          **model_cfg),
+            params,
+        )
+        dparams = tree_map(lambda t: t.to(dev), draft_params)
+        # the draft's position table is cut to the ring's rows, and its
+        # head kernel is cast to float32 once, as the target's is
+        dparams = dict(
+            dparams,
+            pos_embed={"embedding": dparams["pos_embed"]["embedding"][:ring]},
+            lm_head={"kernel": dparams["lm_head"]["kernel"].float()},
+        )
+        self.draft_model = bind_params(
+            DecodeLM(vocab_size=model_cfg["vocab_size"],
+                     num_layers=draft_num_layers, num_heads=draft_num_heads,
+                     hidden=draft_hidden, max_seq=ring,
+                     dtype=self.dtype),
+            dparams,
+        )
+        self.d_caches = init_caches(self.slots, draft_num_layers,
+                                    draft_num_heads, draft_hidden, ring,
+                                    self.dtype, dev)
+        self._d_pos = np.zeros((self.slots,), np.int32)   # host mirror
+        self._d_pos_dev = torch.zeros((self.slots,), dtype=torch.int32,
+                                      device=dev)
+
     # -- page accounting ---------------------------------------------------
     def _pages_for(self, plen: int, max_new: int) -> int:
-        return -(-(plen + max_new) // self.page)
+        # a verify window writes rows [pos, pos + k]; the last window
+        # before retirement starts at plen + max_new - 2, so the
+        # reservation carries k rows of write headroom: junk tail rows
+        # land in pages this sequence owns, never a neighbour's
+        extra = self.speculate_k or 0
+        return -(-(plen + max_new + extra) // self.page)
 
     def _available_pages(self, reserved: Set[int]) -> int:
         """Pages obtainable right now: free + evictable cache entries,
@@ -571,6 +709,19 @@ class PagedContinuousBatcher:
                 assert arr.numel() == st_bytes, (
                     f"station layer {li} {nm} bytes drifted"
                 )
+        if self.speculate_k is not None:
+            # the draft ring rests the compute dtype at exactly
+            # slots x draft_window rows
+            ring_elems = self.slots * self.draft_window * self.draft_hidden
+            for li, (ck, cv) in enumerate(self.d_caches):
+                for nm, arr in (("k", ck), ("v", cv)):
+                    assert arr.dtype == self.dtype, (
+                        f"draft ring layer {li} {nm} stores {arr.dtype}"
+                    )
+                    assert arr.numel() == ring_elems, (
+                        f"draft ring layer {li} {nm} rests {arr.numel()} "
+                        f"elements, the ring promises {ring_elems}"
+                    )
 
     # -- page moves between the station and the pool ------------------------
     def _write_pages(self, station: int, phys: List[int], base_row: int) -> None:
@@ -602,6 +753,16 @@ class PagedContinuousBatcher:
         plen = validate_request(prompt, max_new, self.prompt_pad,
                                 self.max_seq)
         if max_new > 0:
+            if (
+                self.speculate_k is not None
+                and plen + max_new + self.speculate_k > self.max_seq
+            ):
+                raise ValueError(
+                    f"prompt {plen} + max_new {max_new} + speculate_k "
+                    f"{self.speculate_k} exceeds max_seq {self.max_seq}: "
+                    "the speculative verify window needs k rows of cache "
+                    "headroom"
+                )
             need = self._pages_for(plen, max_new)
             if need > self.pool_pages - 1:  # page 0 is the dump page
                 raise ValueError(
@@ -712,6 +873,13 @@ class PagedContinuousBatcher:
         self._last_dev[slot] = last_tok
         self._active_dev[slot] = True
         self._remaining_dev[slot] = s.remaining
+        if self.speculate_k is not None:
+            # the draft needs rows [0, plen - 1) of its ring before the
+            # first window's scan consumes the last prompt token at row
+            # plen - 1; that window also emits the first token
+            self._draft_admit(slot, job.prompt[: job.plen])
+            self._d_pos[slot] = job.plen - 1
+            self._d_pos_dev[slot] = job.plen - 1
         s.prefilling, s.active = False, True
 
     def _chunk(self, rows: torch.Tensor, starts: torch.Tensor,
@@ -737,6 +905,9 @@ class PagedContinuousBatcher:
                 pages_left = None
             else:
                 n_active = sum(1 for s in self._seqs if s.active)
+                if self.speculate_k is not None:
+                    # a speculative slot's verify window is k+1 rows
+                    n_active *= self.speculate_k + 1
                 # at least one chunk always runs: a saturated decode
                 # batch may taper prefill but never starve it
                 pages_left = max(1, (self.token_budget - n_active) // self.page)
@@ -792,6 +963,13 @@ class PagedContinuousBatcher:
         advisory: prefix sharing is content-addressed."""
         if seq_id < 0:
             raise ValueError(f"seq_id must be >= 0, got {seq_id}")
+        if self.speculate_k is not None and temperature > 0.0:
+            raise ValueError(
+                "greedy-only speculative paged batcher: lossless "
+                "speculative SAMPLING needs per-position rejection "
+                f"sampling, which arrives with {SAMPLING_SLICE}; submit "
+                "with temperature=0"
+            )
         if temperature > 0.0 or seed is not None:
             raise _not_ported("sampled requests (temperature > 0, seed)",
                               SAMPLING_SLICE)
@@ -842,6 +1020,9 @@ class PagedContinuousBatcher:
         self._last_dev[i] = 0
         self._active_dev[i] = False
         self._remaining_dev[i] = 0
+        if self.speculate_k is not None:
+            self._d_pos[i] = 0
+            self._d_pos_dev[i] = 0
 
     def has_work(self) -> bool:
         return bool(self._pending) or any(s.seq_id >= 0 for s in self._seqs)
@@ -855,7 +1036,8 @@ class PagedContinuousBatcher:
         self.stats = {
             "steps": 0, "admits": 0, "peak_pages": 0, "prefill_chunks": 0,
             "prefix_hit_tokens": 0, "prefix_miss_tokens": 0,
-            "prompt_tokens": 0,
+            "prompt_tokens": 0, "spec_steps": 0, "spec_tokens": 0,
+            "draft_wraps": 0,
         }
         # seq_id -> seconds from submit to the first token's readback
         self.first_token_s: Dict[int, float] = {}
@@ -909,7 +1091,10 @@ class PagedContinuousBatcher:
         self._advance_prefill()
         n_active = sum(1 for s in self._seqs if s.active)
         if n_active:
-            self._dispatch_step()
+            if self.speculate_k is not None:
+                self._dispatch_spec()
+            else:
+                self._dispatch_step()
         keep = 1 if (
             self.pipeline_decode
             and n_active
@@ -926,17 +1111,22 @@ class PagedContinuousBatcher:
         return finished
 
     def _loop_state(self):
-        """The step's input state: the previous step's device outputs
-        (pipelined), or the host mirrors uploaded anew (synchronous)."""
+        """The step's input state — last tokens, tables, positions,
+        active mask, budgets and (speculation) the draft ring's write
+        heads: the previous step's device outputs (pipelined), or the
+        host mirrors uploaded anew (synchronous)."""
         if self.pipeline_decode:
             return (self._last_dev, self._tables_dev, self._pos_dev,
-                    self._active_dev, self._remaining_dev)
+                    self._active_dev, self._remaining_dev,
+                    self._d_pos_dev if self.speculate_k is not None
+                    else None)
         active = np.array([s.active for s in self._seqs], bool)
         remaining = np.array([s.remaining for s in self._seqs], np.int32)
-        return tuple(
-            torch.tensor(a, device=self.device)
-            for a in (self._last, self.tables, self.pos, active, remaining)
-        )
+        state = [torch.tensor(a, device=self.device) for a in
+                 (self._last, self.tables, self.pos, active, remaining)]
+        d_pos = (torch.tensor(self._d_pos, device=self.device)
+                 if self.speculate_k is not None else None)
+        return (*state, d_pos)
 
     def _step(self, last, table, pos, active, remaining):
         """The whole loop transition: emit a token for every slot, then
@@ -962,42 +1152,171 @@ class PagedContinuousBatcher:
         """Launch one decode step on the device state and start its
         token readback; the host reads it in ``_process_entry``."""
         cand = {i: s.gen for i, s in enumerate(self._seqs) if s.active}
-        last, table, pos, active, remaining = self._loop_state()
+        last, table, pos, active, remaining, _ = self._loop_state()
         (toks, self._last_dev, self._pos_dev, self._active_dev,
          self._remaining_dev) = self._step(last, table, pos, active,
                                            remaining)
-        event = None
-        if toks.is_cuda:
-            host = torch.empty(toks.shape, dtype=toks.dtype, pin_memory=True)
-            host.copy_(toks, non_blocking=True)
-            event = torch.cuda.Event()
-            event.record()
-            toks = host
         self.stats["steps"] += 1
-        self._inflight.append(_Inflight(cand=cand, toks=toks, event=event))
+        self._inflight.append(_Inflight(cand, *self._read_back(toks)))
+
+    @staticmethod
+    def _read_back(result: torch.Tensor):
+        """Start the one readback of a dispatched iteration: on the card a
+        ``non_blocking`` copy into pinned host memory plus an event, so
+        the host can enqueue the next iteration before it waits."""
+        if not result.is_cuda:
+            return result, None
+        host = torch.empty(result.shape, dtype=result.dtype, pin_memory=True)
+        host.copy_(result, non_blocking=True)
+        event = torch.cuda.Event()
+        event.record()
+        return host, event
+
+    # -- speculative decoding (greedy) ---------------------------------------
+    def _draft_admit(self, slot: int, prompt: np.ndarray) -> None:
+        """Prefill the prompt, padded to ``prompt_pad``, into the slot's
+        whole ring lane, zeros past it: a reused slot's stale rows go
+        wholesale.  Padding junk past the prompt is overwritten by the
+        draft scan's contiguous writes before any causal mask exposes
+        it.  The draft always recomputes the full prompt: prefix-cache
+        hits skip target pages only."""
+        row = np.zeros((1, self.prompt_pad), np.int32)
+        row[0, : len(prompt)] = prompt
+        lane = [(ck[slot: slot + 1], cv[slot: slot + 1])
+                for ck, cv in self.d_caches]
+        for ck, cv in lane:
+            ck.zero_()
+            cv.zero_()
+        self.draft_model.fill(torch.from_numpy(row).to(self.device), lane, 0)
+
+    def _spec_draft(self, last, d_pos, active):
+        """Draft k proposals per slot: k+1 greedy steps of the dense draft
+        over its ring, the extra step's proposal discarded but its ring
+        write load-bearing (it consumes p_k, so row d_pos + k is no hole
+        after a fully accepted window).  A slot whose window would spill
+        past the ring wraps to row 0 here; the flags come back so the
+        host mirror can replay the wrap."""
+        k = self.speculate_k
+        wrap = active & (d_pos + (k + 1) > self.draft_window)
+        d_pos_w = torch.where(wrap, 0, d_pos)
+        # inactive lanes scan from row 0 of their own (idle) ring lane:
+        # a row index past the ring would raise
+        p = torch.where(active, d_pos_w, 0)
+        tok, proposed = last, []
+        for _ in range(k + 1):
+            logits = self.draft_model(tok[:, None], self.d_caches, p)
+            tok = logits.argmax(-1).to(torch.int32)
+            proposed.append(tok)
+            p = p + 1
+        return torch.stack(proposed[:k], 1), d_pos_w, wrap
+
+    def _spec_verify(self, last, proposals, table, pos, d_pos, active,
+                     remaining):
+        """Score the window ``[last, p_1..p_k]`` of every slot in one
+        paged forward (K2), accept the longest prefix matching the
+        target's greedy choices, and commit on the device: cap at the
+        slot's budget, cut at the first EOS, retire on either, advance
+        pos and d_pos by the rows the window consumed.  Inactive lanes
+        are parked on the dump page (table 0, pos 0): a retired slot's
+        overhang window would otherwise write past its reservation, where
+        the table's padding points at its first page — which may be
+        sealed in the prefix cache."""
+        k = self.speculate_k
+        slots = torch.arange(last.shape[0], device=last.device)
+        table = torch.where(active[:, None], table, 0)
+        run_pos = torch.where(active, pos, 0)
+        window = torch.cat([last[:, None], proposals], 1)
+        logits = self.verify_model(window, self.pools, table, run_pos,
+                                   checked=True)
+        choices = logits.argmax(-1).to(torch.int32)        # (b, k + 1)
+        match = proposals == choices[:, :k]
+        # accepted proposals: the first mismatch (k if all match)
+        accepted = torch.cat(
+            [match, torch.zeros_like(match[:, :1])], 1
+        ).to(torch.int32).argmin(1).to(torch.int32)
+        emit_len = accepted + 1
+        next_last = choices[slots, accepted.long()]
+        act = active.to(torch.int32)
+        trunc = torch.minimum(emit_len, remaining)
+        if self.eos_id is not None:
+            cols = torch.arange(k + 1, device=last.device)
+            iseos = (choices == self.eos_id) & (cols[None, :] < trunc[:, None])
+            has_eos = iseos.any(1)
+            n_emit = torch.where(
+                has_eos, iseos.to(torch.int32).argmax(1).to(torch.int32) + 1,
+                trunc,
+            )
+        else:
+            has_eos = torch.zeros_like(active)
+            n_emit = trunc
+        new_rem = remaining - n_emit * act
+        done = (new_rem <= 0) | has_eos
+        return (choices, emit_len, torch.where(active, next_last, last),
+                pos + emit_len * act, d_pos + emit_len * act,
+                active & ~done, new_rem)
+
+    def _dispatch_spec(self) -> None:
+        """Launch one speculative iteration (draft scan, then the fused
+        verify), chaining device state exactly like ``_dispatch_step``;
+        its choices, emitted lengths and wrap flags come back packed in
+        one int32 tensor, the iteration's only readback."""
+        cand = {i: s.gen for i, s in enumerate(self._seqs) if s.active}
+        last, table, pos, active, remaining, d_pos = self._loop_state()
+        proposals, d_pos_w, wrapped = self._spec_draft(last, d_pos, active)
+        (choices, emit_len, self._last_dev, self._pos_dev, self._d_pos_dev,
+         self._active_dev, self._remaining_dev) = self._spec_verify(
+            last, proposals, table, pos, d_pos_w, active, remaining)
+        packed = torch.cat([choices, emit_len[:, None],
+                            wrapped.to(torch.int32)[:, None]], 1)
+        self.stats["steps"] += 1
+        self.stats["spec_steps"] += 1
+        self._inflight.append(_Inflight(cand, *self._read_back(packed)))
 
     def _process_entry(self, entry: _Inflight) -> None:
-        """The one readback point: wait for a dispatched step's tokens
-        and replay the step's integer arithmetic on the host mirrors —
-        token append, budget/EOS retirement.  Lanes whose slot changed
+        """The one readback point: wait for a dispatched iteration's
+        results and replay its integer arithmetic on the host mirrors —
+        token append, budget/EOS retirement (and, speculating, the
+        ring wrap and the window's truncation).  Lanes whose slot changed
         occupant since dispatch are junk and dropped."""
         if entry.event is not None:
             entry.event.synchronize()
         toks_h = entry.toks.numpy()
         now = time.monotonic()
+        k = self.speculate_k
         for i, s in enumerate(self._seqs):
             gen = entry.cand.get(i)
             if gen is None or s.gen != gen or not s.active:
                 continue
-            self.pos[i] += 1  # the step consumed one row
-            t = int(toks_h[i])
+            if k is None:
+                self.pos[i] += 1  # the step consumed one row
+                emitted = [int(toks_h[i])]
+                self._last[i] = emitted[0]
+            else:
+                if toks_h[i, k + 2]:
+                    # the draft restarted this slot's ring context
+                    self._d_pos[i] = 0
+                    self.stats["draft_wraps"] += 1
+                # the window consumed e rows: [pos, pos + e) now hold the
+                # committed continuation's K/V; rejected rows above are
+                # junk the next window overwrites
+                e = int(toks_h[i, k + 1])
+                self.pos[i] += e
+                self._d_pos[i] += e
+                self._last[i] = int(toks_h[i, e - 1])
+                # the window may run past the budget or an EOS: the
+                # surplus is junk
+                emitted = [int(t) for t in toks_h[i, :e]][: s.remaining]
+                if self.eos_id is not None and self.eos_id in emitted:
+                    emitted = emitted[: emitted.index(self.eos_id) + 1]
+                self.stats["spec_tokens"] += len(emitted)
             if not s.tokens:
                 self.first_token_s[s.seq_id] = now - s.submitted_at
-            s.tokens.append(t)
+            s.tokens.extend(emitted)
             s.last_emit_at = now
-            s.remaining -= 1
-            self._last[i] = t
-            if s.remaining <= 0 or (self.eos_id is not None and t == self.eos_id):
+            s.remaining -= len(emitted)
+            if s.remaining <= 0 or (
+                self.eos_id is not None and emitted[-1] == self.eos_id
+            ):
                 s.active = False
 
     # -- the batch convenience loop ----------------------------------------

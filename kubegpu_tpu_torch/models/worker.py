@@ -4,18 +4,21 @@ The port of ``kubegpu_tpu/models/worker.py``'s paged decode mode.  It
 builds the LM at the given widths with fresh weights drawn from a fixed
 seed, serves one warm-up wave of requests and one timed wave through
 :class:`PagedContinuousBatcher`, and prints the JAX worker's
-``FIRST_DECODE_DONE`` / ``DECODE_DONE`` lines plus the launch count of
-the paged decode kernel (K1).  A wave is the JAX worker's: ``2 x
+``FIRST_DECODE_DONE`` / ``DECODE_DONE`` lines plus the launch counts of
+the paged attention kernels (K1, K2).  A wave is the JAX worker's: ``2 x
 --batch-per-chip`` prompts of random length in ``[1, --prompt-len]``
 from ``np.random.RandomState(0)``, budgets cycling ``1/4 .. 1 x
---steps``.
+--steps``.  ``--speculate`` serves greedy speculative decoding through
+the same pool: a fresh draft of ``--draft-layers`` layers proposes
+``--spec-k`` tokens a step and one verify window (K2) scores them; the
+streams are the non-speculative ones, token for token, at fp32.
 
     python -m kubegpu_tpu_torch.models.worker --model decode --serving paged \\
         --vocab 32768 --hidden 4096 --heads 32 --layers 4 \\
-        --prompt-len 128 --batch-per-chip 8 --steps 64
+        --prompt-len 128 --batch-per-chip 8 --steps 64 [--speculate]
 
 Runs on the card by default; ``--device cpu`` runs the plain PyTorch
-path (K1 is then never launched).
+path (the kernels are then never launched).
 """
 
 from __future__ import annotations
@@ -29,9 +32,15 @@ import torch
 
 from kubegpu_tpu_torch.models.paging import PagedContinuousBatcher
 from kubegpu_tpu_torch.models.params import bf16_cast, init_params, resolve_device
-from kubegpu_tpu_torch.ops.paged_attention import paged_decode_attention
+from kubegpu_tpu_torch.ops.paged_attention import (
+    paged_chunk_attention,
+    paged_decode_attention,
+)
 
 WEIGHT_SEED = 0
+# the draft's weights come from their own seed (the JAX worker's draft
+# init uses PRNGKey(7))
+DRAFT_SEED = 7
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -57,6 +66,16 @@ def build_parser() -> argparse.ArgumentParser:
                     "128 when it divides, else the whole prompt pad")
     ap.add_argument("--serve-fp32", action="store_true",
                     help="serve float32 weights instead of the bf16 cast")
+    ap.add_argument("--speculate", action="store_true",
+                    help="greedy speculative decoding through the page "
+                    "pool: a draft proposes --spec-k tokens, one verify "
+                    "window scores them")
+    ap.add_argument("--spec-k", type=int, default=4,
+                    help="draft proposals per verify window")
+    ap.add_argument("--draft-layers", type=int, default=1)
+    ap.add_argument("--draft-hidden", type=int, default=0,
+                    help="draft width (0 = max(hidden // 4, 128)); its "
+                    "heads are draft-hidden // 128")
     ap.add_argument("--device", choices=["cuda", "cpu"], default="cuda")
     return ap
 
@@ -71,10 +90,41 @@ def wave_requests(rng: np.random.RandomState, n_req: int, vocab: int,
     ]
 
 
+def draft_for(args: argparse.Namespace, max_seq: int, device):
+    """The draft of ``--speculate``: fresh weights from ``DRAFT_SEED``
+    (bf16 unless ``--serve-fp32``), ``--draft-layers`` deep and
+    ``--draft-hidden`` wide with heads of 128, as the JAX worker sizes
+    it.  Also enforces the speculation headroom rule: a verify window
+    writes rows ``[pos, pos + k]``, so the cache needs k rows past
+    prompt plus budget.  Returns ``(params, heads, hidden)``."""
+    if args.prompt_len + args.steps + args.spec_k > max_seq:
+        raise SystemExit(
+            f"--prompt-len {args.prompt_len} + --steps {args.steps} + "
+            f"--spec-k {args.spec_k} exceeds --seq+1 = {max_seq}: the "
+            "speculative verify window needs k rows of cache headroom"
+        )
+    d_hidden = args.draft_hidden or max(args.hidden // 4, 128)
+    d_heads = max(d_hidden // 128, 1)
+    if d_hidden % d_heads:
+        raise SystemExit(
+            f"--draft-hidden {d_hidden} not divisible by its derived "
+            f"head count {d_heads} (heads are d_hidden//128; pick a "
+            "multiple of 128)"
+        )
+    cfg = dict(vocab_size=args.vocab, num_layers=args.draft_layers,
+               hidden=d_hidden, max_seq=max_seq)
+    gen = torch.Generator(device=device).manual_seed(DRAFT_SEED)
+    dparams = init_params(cfg, gen, torch.float32, device)
+    if not args.serve_fp32:
+        dparams = bf16_cast(dparams)
+    return dparams, d_heads, d_hidden
+
+
 def build_batcher(args: argparse.Namespace) -> PagedContinuousBatcher:
     """The worker's batcher: fresh weights from ``WEIGHT_SEED`` at the
     given widths (bf16 unless ``--serve-fp32``), a pool sized for
-    ``--batch-per-chip`` sequences of ``--prompt-len + --steps`` rows."""
+    ``--batch-per-chip`` sequences of ``--prompt-len + --steps`` rows
+    (plus ``--spec-k`` rows of verify headroom when speculating)."""
     device = resolve_device(args.device)
     max_seq = args.seq + 1
     if args.prompt_len + args.steps > max_seq:
@@ -98,11 +148,20 @@ def build_batcher(args: argparse.Namespace) -> PagedContinuousBatcher:
     params = init_params(cfg, gen, torch.float32, device)
     if not args.serve_fp32:
         params = bf16_cast(params)
+    spec_kw = {}
+    k_extra = 0
+    if args.speculate:
+        dparams, d_heads, d_hidden = draft_for(args, max_seq, device)
+        spec_kw = dict(draft_params=dparams, speculate_k=args.spec_k,
+                       draft_num_layers=args.draft_layers,
+                       draft_num_heads=d_heads, draft_hidden=d_hidden)
+        k_extra = args.spec_k  # per-sequence page-reservation headroom
     slots = args.batch_per_chip
-    pool = slots * -(-(args.prompt_len + args.steps) // page) + 1
+    pool = slots * -(-(args.prompt_len + args.steps + k_extra) // page) + 1
     return PagedContinuousBatcher(
         params, **cfg, slots=slots, prompt_pad=args.prompt_len,
         page_size=page, pool_pages=pool, dtype=dtype, device=device,
+        **spec_kw,
     )
 
 
@@ -117,6 +176,7 @@ def run_decode(args: argparse.Namespace) -> Dict[str, object]:
     n_req = 2 * slots
     budgets = [max(args.steps * (1 + i % 4) // 4, 1) for i in range(n_req)]
     launches0 = paged_decode_attention.launches
+    chunk_launches0 = paged_chunk_attention.launches
 
     def wave():
         prompts = wave_requests(rng, n_req, args.vocab, args.prompt_len)
@@ -128,9 +188,11 @@ def run_decode(args: argparse.Namespace) -> Dict[str, object]:
 
     out, _ = wave()  # warm-up: first-use costs (kernel build, allocator)
     steps = cb.stats["steps"]
+    spec_steps = cb.stats["spec_steps"]
     first_s = time.monotonic() - t0
     out, dt = wave()
     steps += cb.stats["steps"]
+    spec_steps += cb.stats["spec_steps"]
     ttft = sorted(cb.first_token_s.values())
     total = sum(len(v) for v in out.values())
     return {
@@ -144,6 +206,11 @@ def run_decode(args: argparse.Namespace) -> Dict[str, object]:
         "decode_steps_total": steps,
         "layers": args.layers,
         "k1_launches": paged_decode_attention.launches - launches0,
+        "k2_launches": paged_chunk_attention.launches - chunk_launches0,
+        "spec_steps": cb.stats["spec_steps"],
+        "spec_tokens": cb.stats["spec_tokens"],
+        "draft_wraps": cb.stats["draft_wraps"],
+        "spec_steps_total": spec_steps,
         "ttft_mean_s": float(np.mean(ttft)) if ttft else None,
         "ttft_max_s": ttft[-1] if ttft else None,
         "outputs": out,
@@ -167,6 +234,15 @@ def main(argv: Optional[List[str]] = None) -> int:
         f"device={r['device']}",
         flush=True,
     )
+    if args.speculate:
+        print(
+            f"SPEC_DONE spec_steps={r['spec_steps']} "
+            f"spec_tokens={r['spec_tokens']} "
+            f"draft_wraps={r['draft_wraps']} k={args.spec_k} "
+            f"K2_LAUNCHES paged_chunk_attention={r['k2_launches']} "
+            f"spec_steps_total={r['spec_steps_total']}",
+            flush=True,
+        )
     return 0
 
 

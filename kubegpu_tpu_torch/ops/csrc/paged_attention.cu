@@ -1,29 +1,38 @@
-// Paged decode attention for Hopper (sm_90a): one query token per slot
-// over a KV page pool shared by every slot.
+// Paged attention for Hopper (sm_90a) over a KV page pool shared by every
+// slot: one query token per slot (K1, the decode step) and a window of L
+// query tokens per slot (K2, the speculative verify).
 //
-// Replaces the TPU kernel kubegpu_tpu/ops/paged_attention.py::_paged_kernel
-// (called through paged_decode_attention).  It computes what that kernel
-// computes, not its grid: the Pallas kernel walks a (slot, page) grid in
-// order on one core and carries the online-softmax state in VMEM scratch
-// from one grid step to the next; here one thread block owns one
-// (slot, head) pair and walks the slot's page table in a loop, keeping
-// the state in registers.
+// K1 replaces the TPU kernel kubegpu_tpu/ops/paged_attention.py::_paged_kernel
+// (called through paged_decode_attention); K2 replaces
+// ::_paged_chunk_kernel (called through paged_chunk_attention).  They
+// compute what those kernels compute, not their grid: a Pallas kernel walks
+// a (slot, page) grid in order on one core and carries the online-softmax
+// state in VMEM scratch from one grid step to the next; here one thread
+// block owns one (slot, head) pair and walks the slot's page table in a
+// loop, keeping the state in registers.
 //
-// Bound: the kernel is bandwidth-bound.  It must read each live K/V row
+// Bound: both kernels are bandwidth-bound.  K1 must read each live K/V row
 // once, about 2 * sum_b len_b * h * hd * itemsize bytes, over the card's
 // 3.35 TB/s; the arithmetic is 4 flops per K/V element, far below the
-// card's rate for those bytes.  The design spends bytes only on live
-// pages: a block reads lengths[b], walks table[b, 0 : ceil(len/page)] and
-// never touches a page past the slot's length (the GPU form of the TPU
-// kernel's dead-page DMA elision), and within the last live page it
-// reads only rows below the length.  Loads are 16 bytes a thread with
-// neighbouring threads on neighbouring addresses: a group of
+// card's rate for those bytes.  K2 reads the rows of its widest query row
+// (len_b + L - 1) and does 4 * L flops per element, still below the
+// card's flops-to-bytes ratio for L <= 8.  The design spends bytes only on
+// live pages: a block reads lengths[b], walks table[b, 0 : ceil(len/page)]
+// (K2: the widest row's len + L - 1) and never touches a page past it (the
+// GPU form of the TPU kernels' dead-page DMA elision), and within the last
+// live page it reads only rows below the length.  Loads are 16 bytes a
+// thread with neighbouring threads on neighbouring addresses: a group of
 // HD * sizeof(T) / 16 threads reads one whole row, and the block reads
-// kRowGroups consecutive rows per pass.
+// kRowGroups consecutive rows per pass.  K2 folds each of its query rows
+// through K1's fold_page in turn, re-reading a page once per row that
+// reaches it (L1/L2 serve the repeats); that keeps its row j bit-identical
+// to K1 at length + j.
 //
-// Layouts (as in the JAX package): q (b, h, hd); pools (P, h, page, hd);
-// table (b, table_width) int32; lengths (b,) int32; out (b, h, hd) in q's
-// dtype.  Scores, softmax state and the accumulator are float32.
+// Layouts (as in the JAX package): q (b, h, hd) for K1, (b, L, h, hd) for
+// K2; pools (P, h, page, hd); table (b, table_width) int32; lengths (b,)
+// int32 (K2: rows attendable by query row 0, row j sees lengths + j); out
+// shaped as q, in q's dtype.  Scores, softmax state and the accumulator are
+// float32.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -112,9 +121,11 @@ struct FoldState {
 // point at this head's (page, HD) block; n_rows (>= 1) rows lie below the
 // slot's length — the rest of the page is masked, which leaves max and
 // sums as if its scores were -inf.  s_smem holds one float per page row.
-// Shared by every kernel that walks a page table (the multi-query verify
-// kernel folds each of its rows through this same routine, which is what
-// keeps its row j bit-identical to this kernel at length + j).
+// Shared by both kernels: K2 folds each of its query rows through this same
+// routine, which is what keeps its row j bit-identical to K1 at
+// length + j.  The multiply-adds are spelled as explicit round-to-nearest
+// intrinsics, which the compiler never contracts or reorders, so the two
+// kernels cannot round differently around the inlined copies.
 template <typename T, int HD>
 __device__ __forceinline__ void fold_page(
     const T* __restrict__ kpage, const T* __restrict__ vpage, int n_rows,
@@ -131,12 +142,12 @@ __device__ __forceinline__ void fold_page(
       float kf[L::kVec];
       load16(kpage + (size_t)r * HD + lane * L::kVec, kf);
 #pragma unroll
-      for (int i = 0; i < L::kVec; ++i) part += q[i] * kf[i];
+      for (int i = 0; i < L::kVec; ++i) part = __fmaf_rn(q[i], kf[i], part);
     }
 #pragma unroll
     for (int o = L::kLanes / 2; o > 0; o >>= 1)
-      part += __shfl_xor_sync(0xffffffffu, part, o);
-    if (lane == 0 && r < n_rows) s_smem[r] = part * sm_scale;
+      part = __fadd_rn(part, __shfl_xor_sync(0xffffffffu, part, o));
+    if (lane == 0 && r < n_rows) s_smem[r] = __fmul_rn(part, sm_scale);
   }
   __syncthreads();
   float mx = -INFINITY;
@@ -145,26 +156,59 @@ __device__ __forceinline__ void fold_page(
   const float m_cur = block_max(mx, red);
   const float m_new = fmaxf(st.m, m_cur);
   const float shift = isfinite(m_new) ? m_new : 0.f;
-  const float correction = isfinite(st.m) ? expf(st.m - shift) : 0.f;
+  const float correction =
+      isfinite(st.m) ? expf(__fsub_rn(st.m, shift)) : 0.f;
   float psum = 0.f;
   for (int r = threadIdx.x; r < n_rows; r += kThreads) {
-    const float p = expf(s_smem[r] - shift);
+    const float p = expf(__fsub_rn(s_smem[r], shift));
     s_smem[r] = p;
-    psum += p;
+    psum = __fadd_rn(psum, p);
   }
   // block_sum's barriers also publish the p values written above
-  st.l = correction * st.l + block_sum(psum, red);
+  st.l = __fmaf_rn(correction, st.l, block_sum(psum, red));
 #pragma unroll
-  for (int i = 0; i < L::kVec; ++i) st.acc[i] *= correction;
+  for (int i = 0; i < L::kVec; ++i) st.acc[i] = __fmul_rn(st.acc[i], correction);
   for (int r = group; r < n_rows; r += L::kRowGroups) {
     const float p = s_smem[r];
     float vf[L::kVec];
     load16(vpage + (size_t)r * HD + lane * L::kVec, vf);
 #pragma unroll
-    for (int i = 0; i < L::kVec; ++i) st.acc[i] += p * vf[i];
+    for (int i = 0; i < L::kVec; ++i) st.acc[i] = __fmaf_rn(p, vf[i], st.acc[i]);
   }
   st.m = m_new;
   __syncthreads();  // s_smem is rewritten by the next page
+}
+
+template <int VEC>
+__device__ __forceinline__ void init_state(FoldState<VEC>& st) {
+  st.m = -INFINITY;
+  st.l = 0.f;
+#pragma unroll
+  for (int i = 0; i < VEC; ++i) st.acc[i] = 0.f;
+}
+
+// Add up the row groups' partial accumulators of one query row, divide and
+// store its HD outputs at o; a row that attended nothing has l == 0 and
+// writes zeros.  accs holds kRowGroups * HD floats of shared memory; the
+// leading barrier lets a caller finish several rows through one buffer.
+template <typename T, int HD>
+__device__ __forceinline__ void finish_row(
+    const FoldState<Layout<T, HD>::kVec>& st, float* accs, T* o) {
+  using L = Layout<T, HD>;
+  const int lane = threadIdx.x % L::kLanes;
+  const int group = threadIdx.x / L::kLanes;
+  __syncthreads();
+#pragma unroll
+  for (int i = 0; i < L::kVec; ++i)
+    accs[group * HD + lane * L::kVec + i] = st.acc[i];
+  __syncthreads();
+  const float denom = st.l == 0.f ? 1.f : st.l;
+  for (int d = threadIdx.x; d < HD; d += kThreads) {
+    float a = 0.f;
+#pragma unroll
+    for (int g = 0; g < L::kRowGroups; ++g) a = __fadd_rn(a, accs[g * HD + d]);
+    store(o + d, __fdiv_rn(a, denom));
+  }
 }
 
 // grid (h, b); one block per (slot, head).
@@ -181,15 +225,11 @@ __global__ void __launch_bounds__(kThreads) paged_decode_kernel(
   const int h = blockIdx.x;
   const int b = blockIdx.y;
   const int lane = threadIdx.x % L::kLanes;
-  const int group = threadIdx.x / L::kLanes;
 
   float qf[L::kVec];
   load16(q + ((size_t)b * heads + h) * HD + lane * L::kVec, qf);
   FoldState<L::kVec> st;
-  st.m = -INFINITY;
-  st.l = 0.f;
-#pragma unroll
-  for (int i = 0; i < L::kVec; ++i) st.acc[i] = 0.f;
+  init_state(st);
 
   const int len = lengths[b];
   // pages past the table's width are never visited, as on the TPU grid
@@ -200,23 +240,91 @@ __global__ void __launch_bounds__(kThreads) paged_decode_kernel(
     fold_page<T, HD>(k_pool + base, v_pool + base, min(page, len - p * page),
                      qf, sm_scale, s_smem, red, st);
   }
+  // s_smem is free once the walk is done: it holds the row groups' sums
+  finish_row<T, HD>(st, s_smem, out + ((size_t)b * heads + h) * HD);
+}
 
-  // add up the row groups' partial accumulators, then divide; a length-0
-  // slot has l == 0 and writes zeros
-  float* accs = smem + 32;      // kRowGroups * HD floats
-  __syncthreads();
+// Most query rows K2 takes: the online-softmax states of a window sit in
+// registers, kMaxRows of them whatever the window's width.
+constexpr int kMaxRows = 8;
+
+// grid (h, b); one block per (slot, head), walking the pages of the
+// window's widest row (row rows-1, limit len + rows - 1).  On each page,
+// row j folds only if its own window reaches the page, and then exactly
+// the rows below len + j: the pages, row counts and fold K1 would see at
+// length len + j.
+template <typename T, int HD>
+__global__ void __launch_bounds__(kThreads) paged_chunk_kernel(
+    const T* __restrict__ q, const T* __restrict__ k_pool,
+    const T* __restrict__ v_pool, const int* __restrict__ table,
+    const int* __restrict__ lengths, T* __restrict__ out, int rows,
+    int heads, int page, int table_width, float sm_scale) {
+  using L = Layout<T, HD>;
+  extern __shared__ float smem[];
+  float* red = smem;                      // kWarps floats (padded to 32)
+  float* q_smem = smem + 32;              // rows * HD floats of q, widened
+  float* s_smem = q_smem + kMaxRows * HD; // page floats, then the row sums
+  const int h = blockIdx.x;
+  const int b = blockIdx.y;
+  const int lane = threadIdx.x % L::kLanes;
+
+  // stage the window's q rows in shared memory as float32: vector v of a
+  // row covers columns [v * kVec, (v + 1) * kVec)
+  for (int v = threadIdx.x; v < rows * L::kLanes; v += kThreads) {
+    const int j = v / L::kLanes;
+    const int c = (v % L::kLanes) * L::kVec;
+    float f[L::kVec];
+    load16(q + (((size_t)b * rows + j) * heads + h) * HD + c, f);
 #pragma unroll
-  for (int i = 0; i < L::kVec; ++i)
-    accs[group * HD + lane * L::kVec + i] = st.acc[i];
-  __syncthreads();
-  const float denom = st.l == 0.f ? 1.f : st.l;
-  T* o = out + ((size_t)b * heads + h) * HD;
-  for (int d = threadIdx.x; d < HD; d += kThreads) {
-    float a = 0.f;
-#pragma unroll
-    for (int g = 0; g < L::kRowGroups; ++g) a += accs[g * HD + d];
-    store(o + d, a / denom);
+    for (int i = 0; i < L::kVec; ++i) q_smem[j * HD + c + i] = f[i];
   }
+  __syncthreads();
+
+  FoldState<L::kVec> st[kMaxRows];
+#pragma unroll
+  for (int j = 0; j < kMaxRows; ++j) init_state(st[j]);
+
+  const int len = lengths[b];
+  const int widest = len + rows - 1;
+  const int n_live =
+      widest > 0 ? min((widest + page - 1) / page, table_width) : 0;
+  for (int p = 0; p < n_live; ++p) {
+    const int phys = table[(size_t)b * table_width + p];
+    const size_t base = (((size_t)phys * heads + h) * page) * HD;
+#pragma unroll
+    for (int j = 0; j < kMaxRows; ++j) {
+      const int limit = len + j;
+      // block-uniform: every thread takes the same branch to the barriers
+      if (j < rows && p * page < limit) {
+        float qf[L::kVec];
+#pragma unroll
+        for (int i = 0; i < L::kVec; ++i)
+          qf[i] = q_smem[j * HD + lane * L::kVec + i];
+        fold_page<T, HD>(k_pool + base, v_pool + base,
+                         min(page, limit - p * page), qf, sm_scale, s_smem,
+                         red, st[j]);
+      }
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < kMaxRows; ++j)
+    if (j < rows)
+      finish_row<T, HD>(st[j], s_smem,
+                        out + (((size_t)b * rows + j) * heads + h) * HD);
+}
+
+template <typename T, int HD>
+size_t smem_floats(int page, int q_floats) {
+  using L = Layout<T, HD>;
+  return 32 + q_floats
+         + (page > L::kRowGroups * HD ? page : L::kRowGroups * HD);
+}
+
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kernel, size_t bytes) {
+  if (bytes <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
 }
 
 template <typename T, int HD>
@@ -224,20 +332,31 @@ cudaError_t launch(const void* q, const void* kp, const void* vp,
                    const int* table, const int* lengths, void* out, int b,
                    int h, int page, int table_width, float sm_scale,
                    cudaStream_t stream) {
-  using L = Layout<T, HD>;
-  const int floats = 32 + (page > L::kRowGroups * HD ? page
-                                                     : L::kRowGroups * HD);
-  const size_t smem = (size_t)floats * sizeof(float);
+  const size_t smem = smem_floats<T, HD>(page, 0) * sizeof(float);
   auto kernel = paged_decode_kernel<T, HD>;
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return e;
-  }
+  cudaError_t e = allow_smem(kernel, smem);
+  if (e != cudaSuccess) return e;
   kernel<<<dim3(h, b), kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(kp),
       static_cast<const T*>(vp), table, lengths, static_cast<T*>(out), h,
       page, table_width, sm_scale);
+  return cudaGetLastError();
+}
+
+template <typename T, int HD>
+cudaError_t launch_chunk(const void* q, const void* kp, const void* vp,
+                         const int* table, const int* lengths, void* out,
+                         int b, int rows, int h, int page, int table_width,
+                         float sm_scale, cudaStream_t stream) {
+  const size_t smem =
+      smem_floats<T, HD>(page, kMaxRows * HD) * sizeof(float);
+  auto kernel = paged_chunk_kernel<T, HD>;
+  cudaError_t e = allow_smem(kernel, smem);
+  if (e != cudaSuccess) return e;
+  kernel<<<dim3(h, b), kThreads, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(kp),
+      static_cast<const T*>(vp), table, lengths, static_cast<T*>(out), rows,
+      h, page, table_width, sm_scale);
   return cudaGetLastError();
 }
 
@@ -265,6 +384,29 @@ int kg_paged_decode_attention(int dtype, const void* q, const void* k_pool,
     return (int)launch<__nv_bfloat16, 128>(q, k_pool, v_pool, tbl, len, out,
                                            b, h, page, table_width,
                                            sm_scale, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// K2: q and out (b, rows, h, hd), 1 <= rows <= 8; otherwise as above.
+int kg_paged_chunk_attention(int dtype, const void* q, const void* k_pool,
+                             const void* v_pool, const void* table,
+                             const void* lengths, void* out, int b, int rows,
+                             int h, int hd, int page, int table_width,
+                             float sm_scale, void* stream) {
+  const int* tbl = static_cast<const int*>(table);
+  const int* len = static_cast<const int*>(lengths);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (b <= 0 || h <= 0 || h > 65535 || b > 65535 || page <= 0 ||
+      rows < 1 || rows > kMaxRows)
+    return (int)cudaErrorInvalidValue;
+  if (dtype == 0 && hd == 128)
+    return (int)launch_chunk<float, 128>(q, k_pool, v_pool, tbl, len, out, b,
+                                         rows, h, page, table_width,
+                                         sm_scale, s);
+  if (dtype == 1 && hd == 128)
+    return (int)launch_chunk<__nv_bfloat16, 128>(q, k_pool, v_pool, tbl, len,
+                                                 out, b, rows, h, page,
+                                                 table_width, sm_scale, s);
   return (int)cudaErrorInvalidValue;
 }
 

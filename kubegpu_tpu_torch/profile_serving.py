@@ -1,7 +1,7 @@
 """Where a steady decode step's time goes on the card, at the flagship
 LM's full width (the configuration ``chip_smoke.py`` serves).
 
-    python -m kubegpu_tpu_torch.profile_serving
+    python -m kubegpu_tpu_torch.profile_serving [--speculate [--spec-k K]]
 
 Builds the worker's batcher (vocab 32768, hidden 4096, 4 layers, 32
 heads, bf16, page 128, 8 slots), fills every slot with a 128-token
@@ -9,7 +9,9 @@ prompt and a budget that outlasts the measurement, and once all eight
 are decoding:
 
 - times a window of serve_steps with the host clock around synchronized
-  ends: ms per step and tokens/s at 8 active slots;
+  ends: ms per step and tokens/s at 8 active slots (with
+  ``--speculate`` a step is a draft scan plus a verify window, and the
+  tokens are those the window committed);
 - profiles a second window of the same length with ``torch.profiler``:
   device time by kernel, the device's busy time and its idle share of
   the window's wall time.
@@ -35,8 +37,8 @@ FLAGSHIP = ["--vocab", "32768", "--hidden", "4096", "--layers", "4",
 WINDOW = 32
 
 
-def steady_batcher():
-    args = worker.build_parser().parse_args(FLAGSHIP)
+def steady_batcher(extra):
+    args = worker.build_parser().parse_args(FLAGSHIP + extra)
     cb = worker.build_batcher(args)
     rng = np.random.RandomState(0)
     for i in range(cb.slots):
@@ -52,13 +54,19 @@ def steady_batcher():
     return cb
 
 
-def timed_window(cb) -> float:
+def committed(cb) -> int:
+    return sum(len(t) for t in cb.live_tokens().values())
+
+
+def timed_window(cb):
+    """(wall seconds, tokens committed) over WINDOW serve_steps."""
     torch.cuda.synchronize()
+    n0 = committed(cb)
     t0 = time.perf_counter()
     for _ in range(WINDOW):
         cb.serve_step()
     torch.cuda.synchronize()
-    return time.perf_counter() - t0
+    return time.perf_counter() - t0, committed(cb) - n0
 
 
 def profiled_window(cb):
@@ -82,21 +90,25 @@ def profiled_window(cb):
     return wall, dict(by_name)
 
 
-def main() -> int:
+def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("profile_serving: no CUDA device available", file=sys.stderr)
         return 2
+    extra = sys.argv[1:] if argv is None else list(argv)
     torch.backends.cuda.matmul.allow_tf32 = False
     print(f"device: {torch.cuda.get_device_name(0)}", flush=True)
-    cb = steady_batcher()
-    wall = timed_window(cb)
+    cb = steady_batcher(extra)
+    wall, tokens = timed_window(cb)
     ms_step = wall / WINDOW * 1e3
-    print(f"steady decode: {cb.slots} active slots, {WINDOW} steps in "
-          f"{wall * 1e3:.2f} ms -> {ms_step:.3f} ms/step, "
-          f"{cb.slots * WINDOW / wall:.1f} tok/s", flush=True)
+    mode = f"speculative k={cb.speculate_k}" if cb.speculate_k else "decode"
+    print(f"steady {mode}: {cb.slots} active slots, {WINDOW} steps in "
+          f"{wall * 1e3:.2f} ms -> {ms_step:.3f} ms/step, {tokens} tokens "
+          f"({tokens / WINDOW:.2f} a step), {tokens / wall:.1f} tok/s",
+          flush=True)
     pwall, kernels = profiled_window(cb)
     busy = sum(ms for ms, _ in kernels.values())
-    summary = {"ms_per_step": ms_step, "tok_per_s": cb.slots * WINDOW / wall,
+    summary = {"mode": mode, "ms_per_step": ms_step,
+               "tok_per_s": tokens / wall, "tokens_per_step": tokens / WINDOW,
                "profiled_wall_ms": pwall * 1e3}
     if not kernels:
         print("profile: the profiler recorded no device events; busy time "
@@ -116,11 +128,16 @@ def main() -> int:
                   f"x{n / WINDOW:5.1f}/step  {name[:90]}", flush=True)
         k1 = sum(ms for name, (ms, _) in kernels.items()
                  if "paged_decode_kernel" in name)
+        k2 = sum(ms for name, (ms, _) in kernels.items()
+                 if "paged_chunk_kernel" in name)
         print(f"profile: K1 {k1 / WINDOW * 1e3:.1f} us/step "
-              f"({k1 / busy * 100:.1f}% of device time)", flush=True)
+              f"({k1 / busy * 100:.1f}% of device time), K2 "
+              f"{k2 / WINDOW * 1e3:.1f} us/step ({k2 / busy * 100:.1f}%)",
+              flush=True)
         summary.update(device_busy_ms_per_step=busy / WINDOW,
                        idle_share=idle, idle_share_unprofiled=idle_unprofiled,
-                       k1_us_per_step=k1 / WINDOW * 1e3)
+                       k1_us_per_step=k1 / WINDOW * 1e3,
+                       k2_us_per_step=k2 / WINDOW * 1e3)
     print(json.dumps(summary), flush=True)
     return 0
 

@@ -90,3 +90,21 @@ def test_chip_smoke_exits_nonzero_without_a_card():
                           timeout=300)
     assert proc.returncode != 0
     assert '"ok"' not in proc.stdout
+
+
+def test_speculative_entry_points_default_to_the_card(monkeypatch):
+    from kubegpu_tpu_torch.models import worker
+    from kubegpu_tpu_torch.models.params import init_params
+    from kubegpu_tpu_torch.models.speculative import speculative_generate
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = dict(vocab_size=16, num_layers=1, num_heads=2, hidden=16,
+               max_seq=16)
+    params = init_params(cfg, torch.Generator().manual_seed(0),
+                         torch.float32, "cpu")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        speculative_generate(params, params, np.zeros((1, 2), np.int32), 2,
+                             k=2, draft_num_layers=1, draft_num_heads=2,
+                             draft_hidden=16, **cfg)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        worker.run_decode(worker.build_parser().parse_args(["--speculate"]))

@@ -77,3 +77,39 @@ def test_worker_refuses_bad_geometry(bad, match):
     args = worker.build_parser().parse_args(TINY + ["--device", "cpu"] + bad)
     with pytest.raises(SystemExit, match=match):
         worker.run_decode(args)
+
+
+def test_worker_speculative_streams_equal_the_plain_workers():
+    """--speculate at fp32 serves the same wave token for token: greedy
+    verification is lossless for any draft (here a fresh 1-layer one)."""
+    base = TINY + ["--device", "cpu", "--serve-fp32"]
+    plain = worker.run_decode(worker.build_parser().parse_args(base))
+    spec = worker.run_decode(worker.build_parser().parse_args(
+        base + ["--speculate", "--spec-k", "2"]))
+    assert spec["outputs"] == plain["outputs"]
+    assert spec["spec_steps"] > 0 and plain["spec_steps"] == 0
+    assert spec["spec_tokens"] == spec["tokens"] == plain["tokens"]
+    assert spec["k1_launches"] == spec["k2_launches"] == 0
+
+
+def test_worker_speculative_subprocess_prints_spec_steps():
+    proc = run_worker("--device", "cpu", "--serve-fp32", "--speculate",
+                      "--spec-k", "2")
+    assert proc.returncode == 0, proc.stderr
+    spec = re.search(r"^SPEC_DONE spec_steps=(\d+) spec_tokens=(\d+) "
+                     r"draft_wraps=\d+ k=2 K2_LAUNCHES "
+                     r"paged_chunk_attention=0 spec_steps_total=\d+$",
+                     proc.stdout, re.M)
+    assert spec, proc.stdout
+    assert int(spec.group(1)) > 0 and int(spec.group(2)) > 0
+
+
+@pytest.mark.parametrize("bad, match", [
+    (["--steps", "47", "--spec-k", "4"], "headroom"),
+    (["--draft-hidden", "257"], "divisible"),
+])
+def test_worker_refuses_bad_speculation_geometry(bad, match):
+    args = worker.build_parser().parse_args(
+        TINY + ["--device", "cpu", "--speculate"] + bad)
+    with pytest.raises(SystemExit, match=match):
+        worker.run_decode(args)
