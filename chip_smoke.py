@@ -3,8 +3,9 @@
 
     python3 chip_smoke.py
 
-Builds every kernel of the port's serving paths from the sources in the
-checkout, then runs seven phases; any failure exits non-zero:
+Builds every kernel of the port's serving and training paths from the
+sources in the checkout, then runs ten phases; any failure exits
+non-zero:
 
 1. device: the card's name and power limit, TF32 off;
 2. K1 (paged decode attention, ``ops/csrc/paged_attention.cu``) against
@@ -36,7 +37,25 @@ checkout, then runs seven phases; any failure exits non-zero:
 7. speculation on the card at float32 on the same small model, k 2 and
    4, a hopeless and a perfect draft: pipelined and synchronous streams
    identical, streams equal to the card's plain streams under the
-   near-tie rule, and the perfect draft needs fewer verify steps.
+   near-tie rule, and the perfect draft needs fewer verify steps;
+8. K3, K4 and K5 (flash attention forward, dK/dV and dQ,
+   ``ops/csrc/flash_attention.cu``) against their plain versions at the
+   training path's shapes (b 16, s 1024, 32 heads of 128, causal) in
+   float32 (out and lse rtol=atol=2e-5, gradients 1e-4) and bfloat16
+   (one rounding step; lse 2e-5), and at two small shapes (causal over
+   an uneven 1000 rows; non-causal 640 queries over 1024 keys); each
+   kernel's device time (CUDA graph replay), its plain version's time,
+   its bound, and the time of PyTorch's scaled_dot_product_attention
+   forward and backward at the same shapes, with the backend it picked;
+9. full-width training through the worker's ``--model lm`` (the 1.08B
+   flagship, batch 16, seq 1024, 5 steps, bf16 compute): K3, K4 and K5
+   launched steps x layers times each, every loss finite; first step,
+   tokens/s and peak device memory;
+10. training card against CPU at float32 on a small model (vocab 256,
+   hidden 256, 2 layers, 4 heads of 64, seq 128, batch 4) from one
+   initial tree and one token stream: three losses within rtol 1e-4,
+   every gradient of step 1 within rtol=atol=1e-4, and the card's
+   ``einsum`` attention within 1e-4 of its ``flash`` on the losses.
 
 The line before the last is the per-kernel JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device the script
@@ -53,9 +72,14 @@ BF16_RTOL = 2 ** -7
 BF16_ATOL = 1e-5
 CARD_CPU_LOGIT_TOL = 1e-4
 NEAR_TIE_MARGIN = 1e-3
+GRAD_TOL = 1e-4
+TRAIN_TOL = 1e-4
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory
 F32_FLOPS_PER_S = 67e12     # H100 SXM float32 outside the tensor cores
+BF16_FLOPS_PER_S = 989e12   # H100 SXM bf16 dense tensor cores
 SPEC_K = 4
+# the training path's attention: batch, seq, heads, head_dim
+FLASH_SHAPE = (16, 1024, 32, 128)
 
 
 def log(msg: str) -> None:
@@ -114,7 +138,11 @@ def phase_device() -> str:
 
 
 def phase_build() -> None:
-    from kubegpu_tpu_torch.ops import _build, paged_attention  # noqa: F401
+    from kubegpu_tpu_torch.ops import (  # noqa: F401
+        _build,
+        attention,
+        paged_attention,
+    )
 
     t0 = time.monotonic()
     paths = _build.build()
@@ -531,6 +559,288 @@ def phase_spec_card(ctx: dict) -> None:
             f"verify steps, the hopeless one {verify_steps['hopeless']}")
 
 
+def max_err(got, want, rtol, atol) -> tuple:
+    """(max |got - want|, the worst element's share of its allowance);
+    raises if an element is outside ``atol + rtol * |want|``."""
+    import torch
+
+    diff = (got.float() - want.float()).abs()
+    share = (diff / (atol + rtol * want.float().abs())).max().item()
+    torch.testing.assert_close(got.float(), want.float(), rtol=rtol,
+                               atol=atol)
+    return diff.max().item(), share
+
+
+def flash_inputs(b, sq, sk, h, d, dtype, g):
+    import torch
+
+    dev = torch.device("cuda")
+    q = torch.randn((b, sq, h, d), generator=g, device=dev).to(dtype)
+    k = torch.randn((b, sk, h, d), generator=g, device=dev).to(dtype)
+    v = torch.randn((b, sk, h, d), generator=g, device=dev).to(dtype)
+    dout = torch.randn((b, sq, h, d), generator=g, device=dev).to(dtype)
+    return q, k, v, dout
+
+
+def check_flash(q, k, v, dout, causal) -> dict:
+    """K3, K4 and K5 against their plain versions on one input; the
+    backward kernels read the plain forward's out and lse, so both sides
+    of each check see the same operands.  Returns each kernel's max abs
+    error (K4: over dk and dv)."""
+    import torch
+
+    from kubegpu_tpu_torch.ops.attention import (
+        flash_backward_dkdv,
+        flash_backward_dkdv_plain,
+        flash_backward_dq,
+        flash_backward_dq_plain,
+        flash_forward,
+        flash_forward_plain,
+    )
+
+    bf16 = q.dtype == torch.bfloat16
+    rtol, atol = (BF16_RTOL, BF16_ATOL) if bf16 else (F32_TOL, F32_TOL)
+    g_rtol, g_atol = (BF16_RTOL, BF16_ATOL) if bf16 else (GRAD_TOL, GRAD_TOL)
+    out, lse = flash_forward(q, k, v, causal)
+    p_out, p_lse = flash_forward_plain(q, k, v, causal)
+    dk, dv = flash_backward_dkdv(q, k, v, p_out, p_lse, dout, causal)
+    p_dk, p_dv = flash_backward_dkdv_plain(q, k, v, p_out, p_lse, dout,
+                                           causal)
+    dq = flash_backward_dq(q, k, v, p_out, p_lse, dout, causal)
+    p_dq = flash_backward_dq_plain(q, k, v, p_out, p_lse, dout, causal)
+    torch.cuda.synchronize()
+    for t, ref in ((out, q), (dq, q), (dk, k), (dv, v)):
+        assert t.shape == ref.shape and t.dtype == ref.dtype
+        assert torch.isfinite(t.float()).all(), "a flash kernel gave non-finite"
+    assert lse.dtype == torch.float32 and torch.isfinite(lse).all()
+    errs = {
+        "out": max_err(out, p_out, rtol, atol),
+        "lse": max_err(lse, p_lse, F32_TOL, F32_TOL),
+        "dq": max_err(dq, p_dq, g_rtol, g_atol),
+        "dk": max_err(dk, p_dk, g_rtol, g_atol),
+        "dv": max_err(dv, p_dv, g_rtol, g_atol),
+    }
+    b, sq, h, d = q.shape
+    name = str(q.dtype).replace("torch.", "")
+    log(f"flash {name} b{b} sq{sq} sk{k.shape[1]} h{h} d{d} causal={causal}: "
+        + ", ".join(f"{n} {e:.3e} ({sh:.3f} of allowance)"
+                    for n, (e, sh) in errs.items()))
+    return {
+        "flash_forward": errs["out"][0],
+        "flash_backward_dkdv": max(errs["dk"][0], errs["dv"][0]),
+        "flash_backward_dq": errs["dq"][0],
+    }
+
+
+def flash_bound(kernel: str, b, sq, sk, h, d, causal, itemsize) -> tuple:
+    """(bound ms, "bytes" or "operations", bytes, flops) of one kernel:
+    each operand read once and each result written once over the card's
+    memory rate, against its matrix products (K3 2, K4 4, K5 3, over the
+    score pairs the causal mask leaves) over the peak rate of the
+    operands' type."""
+    pairs = sq * (sq + 1) // 2 if causal else sq * sk
+    products = {"flash_forward": 2, "flash_backward_dkdv": 4,
+                "flash_backward_dq": 3}[kernel]
+    flops = products * 2 * b * h * pairs * d
+    q_bytes = b * sq * h * d * itemsize
+    kv_bytes = b * sk * h * d * itemsize
+    lse_bytes = 4 * b * h * sq
+    if kernel == "flash_forward":      # q, k, v in; out, lse out
+        nbytes = 2 * q_bytes + 2 * kv_bytes + lse_bytes
+    elif kernel == "flash_backward_dkdv":  # q, k, v, out, dout, lse; dk, dv
+        nbytes = 3 * q_bytes + 4 * kv_bytes + lse_bytes
+    else:                              # q, k, v, out, dout, lse; dq
+        nbytes = 4 * q_bytes + 2 * kv_bytes + lse_bytes
+    peak = BF16_FLOPS_PER_S if itemsize == 2 else F32_FLOPS_PER_S
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    flops_ms = flops / peak * 1e3
+    return (max(bytes_ms, flops_ms),
+            "bytes" if bytes_ms >= flops_ms else "operations", nbytes, flops)
+
+
+def sdpa_times(q, k, v, dout) -> dict:
+    """PyTorch's fused attention on the same inputs (heads moved to dim
+    1 as views), as a yardstick: forward ms, backward ms (dq, dk, dv
+    together) and the backend torch picked."""
+    import torch
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend
+
+    qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
+                  for t in (q, k, v))
+    dot = dout.transpose(1, 2)
+    choice = torch._fused_sdp_choice(qt, kt, vt, None, 0.0, True)
+    backend = next((n for n, e in SDPBackend.__members__.items()
+                    if int(e.value) == int(choice)), str(choice))
+    with torch.no_grad():
+        fwd_ms = time_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True), 20)
+    out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+    bwd_ms = time_ms(lambda: torch.autograd.grad(
+        out, (qt, kt, vt), dot, retain_graph=True), 20)
+    return {"backend": backend, "fwd_ms": fwd_ms, "bwd_ms": bwd_ms}
+
+
+def phase_flash() -> dict:
+    import torch
+
+    from kubegpu_tpu_torch.ops.attention import (
+        flash_backward_dkdv,
+        flash_backward_dkdv_plain,
+        flash_backward_dq,
+        flash_backward_dq_plain,
+        flash_forward,
+        flash_forward_plain,
+    )
+
+    g = torch.Generator(device="cuda").manual_seed(4)
+    for dtype in (torch.float32, torch.bfloat16):
+        check_flash(*flash_inputs(2, 1000, 1000, 4, 128, dtype, g), True)
+        check_flash(*flash_inputs(2, 640, 1024, 4, 128, dtype, g), False)
+    b, s, h, d = FLASH_SHAPE
+    rec = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).replace("torch.", "")
+        q, k, v, dout = flash_inputs(b, s, s, h, d, dtype, g)
+        errs = check_flash(q, k, v, dout, True)
+        out, lse = flash_forward(q, k, v, True)
+        calls = {
+            "flash_forward": (lambda: flash_forward(q, k, v, True),
+                              lambda: flash_forward_plain(q, k, v, True)),
+            "flash_backward_dkdv": (
+                lambda: flash_backward_dkdv(q, k, v, out, lse, dout, True),
+                lambda: flash_backward_dkdv_plain(q, k, v, out, lse, dout,
+                                                  True)),
+            "flash_backward_dq": (
+                lambda: flash_backward_dq(q, k, v, out, lse, dout, True),
+                lambda: flash_backward_dq_plain(q, k, v, out, lse, dout,
+                                                True)),
+        }
+        lib = sdpa_times(q, k, v, dout)
+        log(f"SDPA {name} ({lib['backend']}): forward {lib['fwd_ms']:.3f} ms, "
+            f"backward (dq, dk, dv) {lib['bwd_ms']:.3f} ms")
+        for kname, (kernel, plain) in calls.items():
+            ms = graph_ms(kernel, 2, replays=5)
+            plain_ms = time_ms(plain, 2, warmup=1)
+            bound_ms, bound_by, nbytes, flops = flash_bound(
+                kname, b, s, s, h, d, True, q.element_size())
+            library_ms = {"flash_forward": lib["fwd_ms"],
+                          "flash_backward_dkdv": lib["bwd_ms"]}.get(kname)
+            log(f"{kname} {name}: kernel {ms:.3f} ms (graph replay), plain "
+                f"{plain_ms:.3f} ms, bound {bound_ms:.4f} ms by {bound_by} "
+                f"({nbytes} B, {flops} flop) -> {bound_ms / ms * 100:.2f}% "
+                "of bound; SDPA "
+                + (f"{library_ms:.3f} ms" if library_ms is not None else
+                   "n/a (its backward is one call for dq, dk and dv, "
+                   "counted under flash_backward_dkdv)"))
+            rec.setdefault(kname, {})[name] = dict(
+                max_abs_err=errs[kname], ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms,
+                sdpa_backend=lib["backend"])
+        del q, k, v, dout, out, lse
+        torch.cuda.empty_cache()
+    return rec
+
+
+TRAIN_ARGV = ["--model", "lm", "--vocab", "32768", "--hidden", "4096",
+              "--heads", "32", "--layers", "4", "--seq", "1024",
+              "--batch-per-chip", "16", "--steps", "5"]
+
+
+def flash_counts_to_zero() -> tuple:
+    from kubegpu_tpu_torch.ops.attention import (
+        flash_backward_dkdv,
+        flash_backward_dq,
+        flash_forward,
+    )
+
+    kernels = (flash_forward, flash_backward_dkdv, flash_backward_dq)
+    for fn in kernels:
+        fn.launches = 0
+    return kernels
+
+
+def phase_train_flagship() -> dict:
+    import math
+
+    from kubegpu_tpu_torch.models import worker
+
+    args = worker.build_parser().parse_args(TRAIN_ARGV)
+    kernels = flash_counts_to_zero()
+    r = worker.run_lm(args)
+    launches = {fn.__name__: fn.launches for fn in kernels}
+    peak = r["peak_bytes"]
+    log(f"training flagship: first step {r['first_step_s']:.2f} s, steady "
+        f"{r['tokens_per_sec']:.1f} tokens/s ({r['steady_s'] / (args.steps - 1) * 1e3:.1f} "
+        f"ms a step of {r['tokens_per_step']} tokens), losses "
+        f"{[round(x, 4) for x in r['losses']]}, peak device memory "
+        f"{peak / 2**30:.2f} GiB; launches {launches} for {args.steps} steps "
+        f"x {args.layers} layers")
+    assert len(r["losses"]) == args.steps
+    assert all(math.isfinite(x) for x in r["losses"]), r["losses"]
+    for n in launches.values():
+        assert n == args.steps * args.layers, launches
+    return dict(r, launches=launches)
+
+
+def phase_train_card_vs_cpu() -> None:
+    import numpy as np
+    import torch
+
+    from kubegpu_tpu_torch.models.data import synthetic_token_batches
+    from kubegpu_tpu_torch.models.params import init_params, tree_map
+    from kubegpu_tpu_torch.models.train import (
+        create_train_state,
+        lm_loss,
+        lm_step,
+    )
+    from kubegpu_tpu_torch.models.transformer import TransformerLM
+
+    cfg = dict(vocab_size=256, num_layers=2, hidden=256, max_seq=129)
+    params = init_params(cfg, torch.Generator().manual_seed(6),
+                         torch.float32, "cpu")
+    source = synthetic_token_batches(4, 129, cfg["vocab_size"], seed=1)
+    batches = [torch.from_numpy(next(source)) for _ in range(3)]
+    runs = {}
+    for device, impl in (("cpu", "flash"), ("cuda", "flash"),
+                         ("cuda", "einsum")):
+        kernels = flash_counts_to_zero()
+        model = TransformerLM(num_heads=4, dtype=torch.float32,
+                              attn_impl=impl, **cfg)
+        state = create_train_state(
+            model, tree_map(lambda t: t.to(device).clone(), params))
+        # step 1 by hand, to read its gradients before the optimizer
+        # (torch's multi-tensor nesterov SGD adds the momentum into them)
+        loss = lm_loss(model, batches[0].to(device))
+        loss.backward()
+        grads = {n: p.grad.detach().cpu().clone()
+                 for n, p in model.named_parameters()}
+        state.opt.step()
+        state.opt.zero_grad(set_to_none=True)
+        losses = [loss.item()] + [lm_step(state, tokens.to(device)).item()
+                                  for tokens in batches[1:]]
+        launches = [fn.launches for fn in kernels]
+        runs[(device, impl)] = (np.asarray(losses), grads)
+        log(f"training {device} {impl} fp32: losses {losses}; K3/K4/K5 "
+            f"launches {launches}")
+        want = 3 * cfg["num_layers"] if (device, impl) == ("cuda", "flash") else 0
+        assert launches == [want] * 3, launches
+    cpu_l, cpu_g = runs[("cpu", "flash")]
+    card_l, card_g = runs[("cuda", "flash")]
+    np.testing.assert_allclose(card_l, cpu_l, rtol=TRAIN_TOL, atol=0)
+    worst = 0.0
+    for n, want in cpu_g.items():
+        torch.testing.assert_close(card_g[n], want, rtol=TRAIN_TOL,
+                                   atol=TRAIN_TOL)
+        worst = max(worst, (card_g[n] - want).abs().max().item())
+    ein_l = runs[("cuda", "einsum")][0]
+    np.testing.assert_allclose(ein_l, card_l, rtol=TRAIN_TOL, atol=TRAIN_TOL)
+    log(f"training card vs cpu fp32: loss diffs "
+        f"{np.abs(card_l - cpu_l).tolist()}, worst step-1 gradient diff "
+        f"{worst:.3e} over {len(cpu_g)} leaves; card einsum vs flash loss "
+        f"diffs {np.abs(ein_l - card_l).tolist()}")
+
+
 def main() -> int:
     import torch
 
@@ -548,6 +858,9 @@ def main() -> int:
     flag = phase_flagship()
     spec = phase_spec_flagship()
     phase_spec_card(phase_card_vs_cpu())
+    flash = phase_flash()
+    train = phase_train_flagship()
+    phase_train_card_vs_cpu()
     log(f"chip_smoke: all phases passed in {time.monotonic() - t0:.1f} s")
     source = "kubegpu_tpu_torch/ops/csrc/paged_attention.cu"
     kernels = []
@@ -570,6 +883,25 @@ def main() -> int:
             "bound_ms": bf["bound_ms"],
             "bound_by": bf.get("bound_by", "bytes"),
             "library_ms": None,
+        })
+    for kname, replaces in (
+        ("flash_forward", "kubegpu_tpu/ops/attention.py:72"),
+        ("flash_backward_dkdv", "kubegpu_tpu/ops/attention.py:233"),
+        ("flash_backward_dq", "kubegpu_tpu/ops/attention.py:280"),
+    ):
+        bf = flash[kname]["bfloat16"]
+        kernels.append({
+            "name": kname,
+            "route": "cuda",
+            "source": "kubegpu_tpu_torch/ops/csrc/flash_attention.cu",
+            "replaces": replaces,
+            "launches": train["launches"][kname],
+            "max_abs_err": bf["max_abs_err"],
+            "ms": bf["ms"],
+            "plain_ms": bf["plain_ms"],
+            "bound_ms": bf["bound_ms"],
+            "bound_by": bf["bound_by"],
+            "library_ms": bf["library_ms"],
         })
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

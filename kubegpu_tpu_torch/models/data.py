@@ -1,0 +1,84 @@
+"""Token batches for LM training: the port of ``kubegpu_tpu/models/data.py``'s
+synthetic token source and its device side at one device.
+
+:func:`synthetic_token_batches` draws the same token bits as the JAX
+package's ``synthetic_token_batches_for_mesh`` on a one-device mesh (one
+data shard, seeded ``SeedSequence([seed, 0])``), which is also its
+``synthetic_token_batches`` of worker 0.  The device side has the JAX
+worker's three ``--data`` modes:
+
+- :func:`device_pool_batches` (``synthetic``): ``pool`` batches copied to
+  the card once and cycled, so a step reads distinct batches with no
+  host-to-device traffic;
+- :func:`prefetch_to_device` (``stream``): every batch copied from pinned
+  host memory with ``non_blocking=True``, ``depth`` copies in flight ahead
+  of the consumer;
+- ``resident``: one constant batch, which the worker keeps itself.
+"""
+
+from __future__ import annotations
+
+import collections
+from typing import Iterable, Iterator
+
+import numpy as np
+import torch
+
+
+def synthetic_token_batches(batch: int, seq_len: int, vocab_size: int,
+                            seed: int = 0, shard: int = 0) -> Iterator[np.ndarray]:
+    """Endless int32 token batches ``(batch, seq_len)``, uniform over the
+    vocabulary, from ``SeedSequence([seed, shard])``."""
+    rng = np.random.default_rng(np.random.SeedSequence([seed, shard]))
+    while True:
+        yield rng.integers(0, vocab_size, size=(batch, seq_len), dtype=np.int32)
+
+
+def _to_device(batch: np.ndarray, device: torch.device) -> torch.Tensor:
+    host = torch.from_numpy(batch)
+    if device.type == "cuda":
+        # a pinned source lets the copy run asynchronously to the host
+        return host.pin_memory().to(device, non_blocking=True)
+    return host.to(device)
+
+
+def device_pool_batches(batches: Iterable[np.ndarray], device,
+                        pool: int = 8) -> Iterator[torch.Tensor]:
+    """Copy ``pool`` batches to ``device`` once, then cycle them
+    forever."""
+    dev = torch.device(device)
+    it = iter(batches)
+    resident = []
+    for _ in range(pool):
+        try:
+            resident.append(_to_device(next(it), dev))
+        except StopIteration:
+            break  # a short source: cycle what exists
+    if not resident:
+        raise ValueError("device_pool_batches: source yielded no batches")
+    i = 0
+    while True:
+        yield resident[i % len(resident)]
+        i += 1
+
+
+def prefetch_to_device(batches: Iterable[np.ndarray], device,
+                       depth: int = 2) -> Iterator[torch.Tensor]:
+    """Yield the source's batches on ``device`` with ``depth`` copies in
+    flight: each batch's copy is issued before the consumer needs it, so
+    it overlaps the step before."""
+    dev = torch.device(device)
+    it = iter(batches)
+    queue: collections.deque = collections.deque()
+
+    def enqueue(n: int) -> None:
+        for _ in range(n):
+            try:
+                queue.append(_to_device(next(it), dev))
+            except StopIteration:
+                return
+
+    enqueue(depth)
+    while queue:
+        yield queue.popleft()
+        enqueue(1)

@@ -126,10 +126,17 @@ def meta_param(*shape: int) -> nn.Parameter:
                         requires_grad=False)
 
 
-def bind_params(module: nn.Module, tree: Mapping) -> nn.Module:
+def bind_params(module: nn.Module, tree: Mapping, *,
+                trainable: bool = False) -> nn.Module:
     """Point every parameter of ``module`` at the tensor under the same
     dotted path of ``tree`` — shared storage, no copy.  Raises on a
-    missing leaf or a shape that differs from the module's."""
+    missing leaf or a shape that differs from the module's.
+
+    Serving binds frozen parameters (the default).  ``trainable=True``
+    binds them with ``requires_grad=True`` for training: every leaf must
+    then be float32 (``Dense`` casts it to the compute dtype in the
+    forward, so gradients arrive in float32 as flax's do), and an
+    optimizer stepping the parameters in place updates the tree."""
     for path, param in list(module.named_parameters()):
         node = tree
         for part in path.split("."):
@@ -141,7 +148,10 @@ def bind_params(module: nn.Module, tree: Mapping) -> nn.Module:
                 f"{path}: tree leaf {tuple(node.shape)} != module "
                 f"{tuple(param.shape)}"
             )
+        if trainable and node.dtype != torch.float32:
+            raise ValueError(f"{path}: a trainable leaf must be float32, got "
+                             f"{node.dtype}")
         owner = module.get_submodule(path.rpartition(".")[0])
         setattr(owner, path.rpartition(".")[2],
-                nn.Parameter(node, requires_grad=False))
+                nn.Parameter(node, requires_grad=trainable))
     return module

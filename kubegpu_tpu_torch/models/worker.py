@@ -1,8 +1,10 @@
-"""Serving worker of the port: ``--model decode --serving paged``.
+"""Worker of the port: ``--model decode --serving paged`` (serving) and
+``--model lm`` (training).
 
-The port of ``kubegpu_tpu/models/worker.py``'s paged decode mode.  It
-builds the LM at the given widths with fresh weights drawn from a fixed
-seed, serves one warm-up wave of requests and one timed wave through
+The port of ``kubegpu_tpu/models/worker.py``'s paged decode mode and its
+single-device LM training.  In decode mode it builds the LM at the
+given widths with fresh weights drawn from a fixed seed, serves one
+warm-up wave of requests and one timed wave through
 :class:`PagedContinuousBatcher`, and prints the JAX worker's
 ``FIRST_DECODE_DONE`` / ``DECODE_DONE`` lines plus the launch counts of
 the paged attention kernels (K1, K2).  A wave is the JAX worker's: ``2 x
@@ -17,6 +19,21 @@ streams are the non-speculative ones, token for token, at fp32.
         --vocab 32768 --hidden 4096 --heads 32 --layers 4 \\
         --prompt-len 128 --batch-per-chip 8 --steps 64 [--speculate]
 
+``--model lm`` trains ``TransformerLM`` (bf16 compute over float32
+weights drawn fresh from seed 0, nesterov SGD) on the JAX worker's
+synthetic token stream, ``--batch-per-chip`` windows of ``--seq + 1``
+tokens a step.  It prints the JAX worker's ``FIRST_STEP_DONE`` and
+``steady_state tokens_per_sec=`` lines, then the launch counts of the
+flash-attention kernels (K3 forward, K4 and K5 backward; with ``--remat``
+K3 runs twice a layer) and the peak device memory.  ``--attn-impl flash``
+(the default) runs those kernels, ``einsum`` the model-dtype einsum
+attention.  One device only: ``--tp`` above 1 waits for the tensor-
+parallel slice, ``--attn-impl ring|ulysses`` for the long-context one.
+
+    python -m kubegpu_tpu_torch.models.worker --model lm --vocab 32768 \\
+        --hidden 4096 --heads 32 --layers 4 --seq 1024 \\
+        --batch-per-chip 16 --steps 5
+
 Runs on the card by default; ``--device cpu`` runs the plain PyTorch
 path (the kernels are then never launched).
 """
@@ -30,8 +47,20 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
+from kubegpu_tpu_torch.models.data import (
+    device_pool_batches,
+    prefetch_to_device,
+    synthetic_token_batches,
+)
 from kubegpu_tpu_torch.models.paging import PagedContinuousBatcher
 from kubegpu_tpu_torch.models.params import bf16_cast, init_params, resolve_device
+from kubegpu_tpu_torch.models.train import create_train_state, lm_step
+from kubegpu_tpu_torch.models.transformer import TransformerLM
+from kubegpu_tpu_torch.ops.attention import (
+    flash_backward_dkdv,
+    flash_backward_dq,
+    flash_forward,
+)
 from kubegpu_tpu_torch.ops.paged_attention import (
     paged_chunk_attention,
     paged_decode_attention,
@@ -45,20 +74,25 @@ DRAFT_SEED = 7
 
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--model", choices=["decode"], default="decode")
+    ap.add_argument("--model", choices=["decode", "lm"], default="decode",
+                    help="decode = paged serving; lm = LM training at one "
+                    "device")
     ap.add_argument("--serving", choices=["paged"], default="paged",
                     help="paged = continuous batching over a shared KV "
                     "page pool (the only serving mode ported so far)")
     ap.add_argument("--steps", type=int, default=20,
-                    help="decode budget of the longest request")
+                    help="decode: budget of the longest request; lm: "
+                    "training steps")
     ap.add_argument("--batch-per-chip", type=int, default=32,
-                    help="decode slots; a wave holds twice as many requests")
+                    help="decode: slots (a wave holds twice as many "
+                    "requests); lm: token windows a step")
     ap.add_argument("--vocab", type=int, default=32000)
     ap.add_argument("--layers", type=int, default=4)
     ap.add_argument("--heads", type=int, default=8)
     ap.add_argument("--hidden", type=int, default=512)
     ap.add_argument("--seq", type=int, default=1024,
-                    help="the LM's training window; the cache holds seq+1 rows")
+                    help="the LM's training window (lm trains on seq+1 "
+                    "token windows); the cache holds seq+1 rows")
     ap.add_argument("--prompt-len", type=int, default=32,
                     help="longest prompt (prompt-len + steps must fit seq + 1)")
     ap.add_argument("--page-size", type=int, default=None,
@@ -76,8 +110,32 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--draft-hidden", type=int, default=0,
                     help="draft width (0 = max(hidden // 4, 128)); its "
                     "heads are draft-hidden // 128")
+    ap.add_argument("--attn-impl", default="flash",
+                    choices=["einsum", "flash", "ring", "ulysses"],
+                    help="lm: flash = the hand-written flash-attention "
+                    "kernels, einsum = model-dtype einsum attention; ring "
+                    "and ulysses wait for the long-context slice")
+    ap.add_argument("--remat", action="store_true",
+                    help="lm: recompute each block in the backward")
+    ap.add_argument("--tp", type=int, default=0,
+                    help="tensor-parallel size: 0 (all devices) or 1; the "
+                    "port runs on one device until the tensor-parallel slice")
+    ap.add_argument("--data", default="synthetic",
+                    choices=["synthetic", "stream", "resident"],
+                    help="lm: synthetic = a pool of --data-pool distinct "
+                    "batches on the device; stream = pinned, prefetched "
+                    "host-to-device copies; resident = one constant batch")
+    ap.add_argument("--data-pool", type=int, default=8,
+                    help="lm --data synthetic: distinct batches to cycle")
     ap.add_argument("--device", choices=["cuda", "cpu"], default="cuda")
     return ap
+
+
+def check_one_device(args: argparse.Namespace) -> None:
+    if args.tp not in (0, 1):
+        raise SystemExit(
+            f"--tp {args.tp}: tensor parallelism arrives with the tensor-"
+            "parallel slice of the port; it runs on one device (--tp 0 or 1)")
 
 
 def wave_requests(rng: np.random.RandomState, n_req: int, vocab: int,
@@ -125,6 +183,7 @@ def build_batcher(args: argparse.Namespace) -> PagedContinuousBatcher:
     given widths (bf16 unless ``--serve-fp32``), a pool sized for
     ``--batch-per-chip`` sequences of ``--prompt-len + --steps`` rows
     (plus ``--spec-k`` rows of verify headroom when speculating)."""
+    check_one_device(args)
     device = resolve_device(args.device)
     max_seq = args.seq + 1
     if args.prompt_len + args.steps > max_seq:
@@ -218,8 +277,117 @@ def run_decode(args: argparse.Namespace) -> Dict[str, object]:
     }
 
 
+def make_batches(args: argparse.Namespace, source, device):
+    """The ``--data`` modes, as the JAX worker's ``_make_batches``:
+    returns ``(batches, first)`` with ``batches`` None in resident mode,
+    where ``first`` is the constant batch.  The JAX worker sizes its
+    init with the first batch of a pool or stream; taking it here too
+    keeps step i on the JAX worker's batch i."""
+    if args.data == "synthetic":
+        batches = device_pool_batches(source, device,
+                                      pool=max(args.data_pool, 1))
+        return batches, next(batches)
+    if args.data == "stream":
+        batches = prefetch_to_device(source, device, depth=2)
+        return batches, next(batches)
+    return None, torch.from_numpy(next(source)).to(device)
+
+
+def build_trainer(args: argparse.Namespace):
+    """The worker's training state and batch source at the given widths:
+    fresh float32 weights from ``WEIGHT_SEED``, bf16 compute, nesterov
+    SGD, the ``--data`` mode's batches.  Returns ``(state,
+    next_batch)``."""
+    check_one_device(args)
+    if args.attn_impl in ("ring", "ulysses"):
+        raise SystemExit(
+            f"--attn-impl {args.attn_impl}: context-parallel attention "
+            "arrives with the long-context slice of the port; use flash or "
+            "einsum")
+    if args.hidden % args.heads:
+        raise SystemExit(f"--hidden {args.hidden} not divisible by --heads "
+                         f"{args.heads}")
+    device = resolve_device(args.device)
+    cfg = dict(vocab_size=args.vocab, num_layers=args.layers,
+               hidden=args.hidden, max_seq=args.seq + 1)
+    gen = torch.Generator(device=device).manual_seed(WEIGHT_SEED)
+    model = TransformerLM(**cfg, num_heads=args.heads, dtype=torch.bfloat16,
+                          sequence_parallel=True, attn_impl=args.attn_impl,
+                          remat=args.remat)
+    state = create_train_state(model,
+                               init_params(cfg, gen, torch.float32, device))
+    source = synthetic_token_batches(max(args.batch_per_chip, 1),
+                                     args.seq + 1, args.vocab)
+    batches, const = make_batches(args, source, device)
+
+    def next_batch():
+        return const if batches is None else next(batches)
+
+    return state, next_batch
+
+
+def run_lm(args: argparse.Namespace,
+           t0: Optional[float] = None) -> Dict[str, object]:
+    """Train ``--steps`` steps and return what was measured.  Prints
+    ``FIRST_STEP_DONE`` once the first step's loss is read back (timed
+    from ``t0``, the caller's start) and ``steady_state`` after the
+    other steps, which are timed with one readback at their end."""
+    t0 = time.monotonic() if t0 is None else t0
+    device = resolve_device(args.device)
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+    state, next_batch = build_trainer(args)
+    batch = max(args.batch_per_chip, 1)
+    kernels = (flash_forward, flash_backward_dkdv, flash_backward_dq)
+    launches0 = [fn.launches for fn in kernels]
+
+    losses = [lm_step(state, next_batch())]
+    first_loss = float(losses[0])  # forces the step to completion
+    first_s = time.monotonic() - t0
+    print(f"FIRST_STEP_DONE seconds={first_s:.2f} loss={first_loss:.4f}",
+          flush=True)
+    t1 = time.monotonic()
+    for _ in range(args.steps - 1):
+        losses.append(lm_step(state, next_batch()))
+    losses = torch.stack(losses).tolist()  # forces the whole chain
+    dt = time.monotonic() - t1
+    rate = batch * args.seq * (args.steps - 1) / dt if args.steps > 1 else None
+    if rate is not None:
+        print(f"steady_state tokens_per_sec={rate:.1f} loss={losses[-1]:.4f}",
+              flush=True)
+    k3, k4, k5 = (fn.launches - n for fn, n in zip(kernels, launches0))
+    return {
+        "first_step_s": first_s,
+        "tokens_per_sec": rate,
+        "steady_s": dt,
+        "losses": losses,
+        "steps": args.steps,
+        "layers": args.layers,
+        "tokens_per_step": batch * args.seq,
+        "k3_launches": k3,
+        "k4_launches": k4,
+        "k5_launches": k5,
+        "peak_bytes": (torch.cuda.max_memory_allocated(device)
+                       if device.type == "cuda" else None),
+        "device": str(device),
+    }
+
+
 def main(argv: Optional[List[str]] = None) -> int:
+    t0 = time.monotonic()
     args = build_parser().parse_args(argv)
+    if args.model == "lm":
+        r = run_lm(args, t0)
+        for name, fn, key in (("K3", flash_forward, "k3_launches"),
+                              ("K4", flash_backward_dkdv, "k4_launches"),
+                              ("K5", flash_backward_dq, "k5_launches")):
+            print(f"{name}_LAUNCHES {fn.__name__}={r[key]} steps={r['steps']} "
+                  f"layers={r['layers']} device={r['device']}", flush=True)
+        peak = r["peak_bytes"]
+        print("PEAK_MEM_GIB "
+              + (f"{peak / 2**30:.2f}" if peak is not None else "not measured")
+              + f" device={r['device']}", flush=True)
+        return 0
     r = run_decode(args)
     print(f"FIRST_DECODE_DONE seconds={r['first_decode_s']:.2f}", flush=True)
     print(

@@ -1,0 +1,322 @@
+"""Flash attention, forward and backward: the port of
+``kubegpu_tpu/ops/attention.py``'s ``flash_attention``.
+
+Layouts as in the JAX package: q ``(b, sq, h, d)``, k and v
+``(b, sk, h, d)`` (BSHD); out has q's shape and dtype; the per-row
+logsumexp ``lse`` is dense float32 ``(b, h, sq)`` (the TPU kernel's
+``(b*h, nq, 8, block_q)`` is a tiling artifact of its layout).  Causal
+attention needs ``sq == sk``; non-causal takes any two lengths.
+
+Four roles, as in ``ops/paged_attention.py``:
+
+- :func:`reference_attention`: the einsum oracle (float32 scores, the
+  causal offset form ``kj <= qi + (sk - sq)``, softmax, cast to q's
+  dtype).
+- The kernels' plain twins, dense float32 with the Pallas kernels'
+  guards: :func:`flash_forward_plain` -> ``(out, lse)``;
+  :func:`flash_backward_dkdv_plain` -> ``(dk, dv)`` and
+  :func:`flash_backward_dq_plain` -> ``dq``, which recompute p from the
+  lse and take ``delta = rowsum(dO * O)`` from the STORED ``out`` (in
+  q's dtype, the residual the forward returned).
+- The kernel wrappers :func:`flash_forward` (K3),
+  :func:`flash_backward_dkdv` (K4) and :func:`flash_backward_dq` (K5):
+  CUDA tensors launch the hand-written Hopper kernels of
+  ``csrc/flash_attention.cu`` (built at first use) or raise; only CPU
+  tensors take the twins.  Each wrapper counts its launches in
+  ``.launches``.
+- :func:`flash_attention`: the ``torch.autograd.Function`` joining
+  them, the counterpart of the JAX ``custom_vjp``.  Its forward saves
+  ``(q, k, v, out, lse)`` and no ``s x s`` tensor; its backward runs K4
+  then K5 and returns gradients in the inputs' dtypes.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+
+import torch
+
+from kubegpu_tpu_torch.ops import _build
+
+NEG_INF = float("-inf")
+# the dtypes the kernels are instantiated for
+KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# head widths the kernels take: multiples of 8 up to MAX_HEAD_DIM
+MAX_HEAD_DIM = 128
+# the CUDA grid's y dimension carries b * h
+MAX_BATCH_HEADS = 65535
+
+
+def reference_attention(q, k, v, causal: bool = True):
+    """Plain einsum attention in float32, the numerics oracle: query row
+    i attends column j iff ``j <= i + (sk - sq)`` when causal."""
+    b, sq, h, d = q.shape
+    sk = k.shape[1]
+    scores = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) / math.sqrt(d)
+    if causal:
+        qi = torch.arange(sq, device=q.device)[:, None]
+        kj = torch.arange(sk, device=q.device)[None, :]
+        scores = torch.where(kj <= qi + (sk - sq), scores, NEG_INF)
+    probs = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bhqk,bkhd->bqhd", probs, v.float())
+    return out.to(q.dtype)
+
+
+def _check_causal(q, k, causal: bool) -> None:
+    if causal and q.shape[1] != k.shape[1]:
+        raise ValueError(f"causal flash requires sq == sk, got "
+                         f"({q.shape[1]}, {k.shape[1]})")
+
+
+def _scores(q, k, causal: bool):
+    """Float32 scores ``(b, h, sq, sk)`` = ``(q . k) * (1/sqrt(d))`` —
+    scaled AFTER the dot, as the Pallas kernels scale — and the causal
+    mask (None when not causal)."""
+    d = q.shape[-1]
+    scores = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * (
+        1.0 / math.sqrt(d))
+    if not causal:
+        return scores, None
+    sq, sk = q.shape[1], k.shape[1]
+    valid = (torch.arange(sk, device=q.device)[None, :]
+             <= torch.arange(sq, device=q.device)[:, None])
+    return scores, valid
+
+
+def flash_forward_plain(q, k, v, causal: bool = True):
+    """K3's plain twin: dense float32 attention with the Pallas kernel's
+    guards.  A row with nothing to attend (``l == 0``) gets out 0 and
+    lse -inf.  Returns ``(out, lse)``: out in q's dtype, lse float32
+    ``(b, h, sq)``."""
+    _check_causal(q, k, causal)
+    scores, valid = _scores(q, k, causal)
+    if valid is not None:
+        scores = torch.where(valid, scores, NEG_INF)
+    m = scores.amax(-1, keepdim=True)
+    shift = torch.where(torch.isfinite(m), m, 0.0)
+    p = torch.exp(scores - shift)
+    l = p.sum(-1, keepdim=True)
+    denom = torch.where(l == 0.0, 1.0, l)
+    out = torch.einsum("bhqk,bkhd->bhqd", p, v.float()) / denom
+    lse = torch.where(l > 0.0, torch.where(torch.isfinite(m), m, 0.0)
+                      + torch.log(denom), NEG_INF)
+    return _bshd(out.transpose(1, 2), q.dtype), lse[..., 0]
+
+
+def _bshd(x, dtype):
+    """A result in the kernels' layout: contiguous BSHD in ``dtype``."""
+    return x.to(dtype).contiguous()
+
+
+def _backward_probs(q, k, v, out, lse, dout, causal: bool):
+    """The Pallas ``_bwd_block`` algebra on whole tensors: p recomputed
+    from lse (0 where masked or where lse is -inf), ``delta =
+    rowsum(dO * O)`` from the stored out, ``ds = p * (dO . v - delta) *
+    scale``.  Returns ``(p, ds)`` float32 ``(b, h, sq, sk)``."""
+    _check_causal(q, k, causal)
+    sm_scale = 1.0 / math.sqrt(q.shape[-1])
+    scores, valid = _scores(q, k, causal)
+    lse_col = lse.float()[..., None]
+    finite = torch.isfinite(lse_col)
+    keep = finite if valid is None else valid & finite
+    p = torch.where(keep, torch.exp(scores - torch.where(finite, lse_col, 0.0)),
+                    0.0)
+    dof = dout.float()
+    dp = torch.einsum("bqhd,bkhd->bhqk", dof, v.float())
+    delta = (dof * out.float()).sum(-1).permute(0, 2, 1)[..., None]
+    ds = p * (dp - delta) * sm_scale
+    return p, ds
+
+
+def flash_backward_dkdv_plain(q, k, v, out, lse, dout, causal: bool = True):
+    """K4's plain twin: ``dv = p^T . dO``, ``dk = ds^T . q`` in float32,
+    returned in k's and v's dtypes."""
+    p, ds = _backward_probs(q, k, v, out, lse, dout, causal)
+    dv = torch.einsum("bhqk,bqhd->bkhd", p, dout.float())
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, q.float())
+    return _bshd(dk, k.dtype), _bshd(dv, v.dtype)
+
+
+def flash_backward_dq_plain(q, k, v, out, lse, dout, causal: bool = True):
+    """K5's plain twin: ``dq = ds . k`` in float32, returned in q's
+    dtype."""
+    _, ds = _backward_probs(q, k, v, out, lse, dout, causal)
+    return _bshd(torch.einsum("bhqk,bkhd->bqhd", ds, k.float()), q.dtype)
+
+
+def check_flash_args(q, k, v, causal: bool) -> None:
+    """Raise ``ValueError`` unless the kernels take these operands."""
+    if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
+        raise ValueError(f"q must be (b, sq, h, d) and k, v one (b, sk, h, d) "
+                         f"shape: {tuple(q.shape)} / {tuple(k.shape)} / "
+                         f"{tuple(v.shape)}")
+    b, sq, h, d = q.shape
+    if (k.shape[0], k.shape[2], k.shape[3]) != (b, h, d):
+        raise ValueError(f"k/v batch, heads or width {tuple(k.shape)} differ "
+                         f"from q's {tuple(q.shape)}")
+    _check_causal(q, k, causal)
+    if sq < 1 or k.shape[1] < 1 or b < 1 or h < 1:
+        raise ValueError(f"empty attention {tuple(q.shape)} / {tuple(k.shape)}")
+    if any(t.device != q.device for t in (k, v)):
+        raise ValueError("q, k and v must share a device")
+    if q.dtype not in KERNEL_DTYPES:
+        raise ValueError(f"kernel takes float32 or bfloat16, got {q.dtype}")
+    if k.dtype != q.dtype or v.dtype != q.dtype:
+        raise ValueError(f"k/v dtype {k.dtype}/{v.dtype} != q dtype {q.dtype}")
+    if d % 8 or not 8 <= d <= MAX_HEAD_DIM:
+        raise ValueError(f"kernel takes a head_dim that is a multiple of 8 "
+                         f"up to {MAX_HEAD_DIM}, got {d}")
+    if b * h > MAX_BATCH_HEADS:
+        raise ValueError(f"b * h = {b * h} exceeds {MAX_BATCH_HEADS}")
+    if not all(t.is_contiguous() for t in (q, k, v)):
+        raise ValueError("q, k and v must be contiguous BSHD")
+
+
+def _check_backward_args(q, k, v, out, lse, dout, causal: bool) -> None:
+    check_flash_args(q, k, v, causal)
+    b, sq, h, _ = q.shape
+    for name, t in (("out", out), ("dout", dout)):
+        if t.shape != q.shape or t.dtype != q.dtype or t.device != q.device:
+            raise ValueError(f"{name} {tuple(t.shape)} {t.dtype} must match q "
+                             f"{tuple(q.shape)} {q.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if (lse.shape != (b, h, sq) or lse.dtype != torch.float32
+            or lse.device != q.device or not lse.is_contiguous()):
+        raise ValueError(f"lse must be contiguous float32 {(b, h, sq)}, got "
+                         f"{tuple(lse.shape)} {lse.dtype}")
+
+
+def _kernel_args(q, k, causal: bool):
+    """The shape arguments every kernel entry takes after its pointers,
+    and the stream."""
+    b, sq, h, d = q.shape
+    return (b, h, sq, k.shape[1], d, 1.0 / math.sqrt(d), int(causal),
+            torch.cuda.current_stream(q.device).cuda_stream)
+
+
+def _require_card() -> None:
+    # a tensor off the CPU goes to a kernel, never to a twin
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device is available: flash attention "
+                           "launches its kernels for non-CPU tensors")
+
+
+def _raise_on(lib, rc: int, what: str) -> None:
+    if rc != 0:
+        raise RuntimeError(f"{what} kernel failed to launch: "
+                           + lib.kg_cuda_error_string(rc).decode())
+
+
+def flash_forward(q, k, v, causal: bool = True):
+    """Flash attention forward, ``(out, lse)`` (see the module docstring
+    for shapes).  CUDA tensors launch K3 or raise; CPU tensors take
+    :func:`flash_forward_plain`."""
+    if q.device.type == "cpu":
+        return flash_forward_plain(q, k, v, causal)
+    _require_card()
+    check_flash_args(q, k, v, causal)
+    lib = _build.load("flash_attention")
+    b, sq, h, _ = q.shape
+    out = torch.empty_like(q)
+    lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+    rc = lib.kg_flash_forward(
+        KERNEL_DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        out.data_ptr(), lse.data_ptr(), *_kernel_args(q, k, causal))
+    flash_forward.launches += 1
+    _raise_on(lib, rc, "flash forward")
+    return out, lse
+
+
+flash_forward.launches = 0
+
+
+def flash_backward_dkdv(q, k, v, out, lse, dout, causal: bool = True):
+    """``(dk, dv)`` of flash attention.  CUDA tensors launch K4 or
+    raise; CPU tensors take :func:`flash_backward_dkdv_plain`."""
+    if q.device.type == "cpu":
+        return flash_backward_dkdv_plain(q, k, v, out, lse, dout, causal)
+    _require_card()
+    _check_backward_args(q, k, v, out, lse, dout, causal)
+    lib = _build.load("flash_attention")
+    dk = torch.empty_like(k)
+    dv = torch.empty_like(v)
+    rc = lib.kg_flash_backward_dkdv(
+        KERNEL_DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        out.data_ptr(), dout.data_ptr(), lse.data_ptr(), dk.data_ptr(),
+        dv.data_ptr(), *_kernel_args(q, k, causal))
+    flash_backward_dkdv.launches += 1
+    _raise_on(lib, rc, "flash backward dK/dV")
+    return dk, dv
+
+
+flash_backward_dkdv.launches = 0
+
+
+def flash_backward_dq(q, k, v, out, lse, dout, causal: bool = True):
+    """``dq`` of flash attention.  CUDA tensors launch K5 or raise; CPU
+    tensors take :func:`flash_backward_dq_plain`."""
+    if q.device.type == "cpu":
+        return flash_backward_dq_plain(q, k, v, out, lse, dout, causal)
+    _require_card()
+    _check_backward_args(q, k, v, out, lse, dout, causal)
+    lib = _build.load("flash_attention")
+    dq = torch.empty_like(q)
+    rc = lib.kg_flash_backward_dq(
+        KERNEL_DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        out.data_ptr(), dout.data_ptr(), lse.data_ptr(), dq.data_ptr(),
+        *_kernel_args(q, k, causal))
+    flash_backward_dq.launches += 1
+    _raise_on(lib, rc, "flash backward dQ")
+    return dq
+
+
+flash_backward_dq.launches = 0
+
+
+class _FlashAttention(torch.autograd.Function):
+    """The JAX ``custom_vjp``: out + lse are the only softmax residuals;
+    the backward recomputes p blockwise inside K4 and K5."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal):
+        out, lse = flash_forward(q, k, v, causal)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.causal = causal
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        dout = dout.contiguous()
+        dk, dv = flash_backward_dkdv(q, k, v, out, lse, dout, ctx.causal)
+        dq = flash_backward_dq(q, k, v, out, lse, dout, ctx.causal)
+        return dq, dk, dv, None
+
+
+def flash_attention(q, k, v, causal: bool = True):
+    """Flash attention, BSHD, differentiable: O(seq) memory in both
+    directions (the forward keeps out and the lse; the backward
+    recomputes scores blockwise).  CUDA tensors run K3 forward and K4,
+    K5 backward, or raise; CPU tensors run the plain twins."""
+    return _FlashAttention.apply(q, k, v, causal)
+
+
+def _declare(lib: ctypes.CDLL) -> None:
+    ptr = ctypes.c_void_p
+    i32 = ctypes.c_int
+    shape = [i32, i32, i32, i32, i32, ctypes.c_float, i32, ptr]
+    lib.kg_flash_forward.argtypes = [i32, ptr, ptr, ptr, ptr, ptr] + shape
+    lib.kg_flash_forward.restype = ctypes.c_int
+    lib.kg_flash_backward_dkdv.argtypes = (
+        [i32, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr] + shape)
+    lib.kg_flash_backward_dkdv.restype = ctypes.c_int
+    lib.kg_flash_backward_dq.argtypes = (
+        [i32, ptr, ptr, ptr, ptr, ptr, ptr, ptr] + shape)
+    lib.kg_flash_backward_dq.restype = ctypes.c_int
+    lib.kg_cuda_error_string.argtypes = [ctypes.c_int]
+    lib.kg_cuda_error_string.restype = ctypes.c_char_p
+
+
+_build.register("flash_attention", "flash_attention.cu", _declare)

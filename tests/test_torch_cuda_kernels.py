@@ -1,5 +1,6 @@
-"""The port's hand-written CUDA kernels (K1, K2) against their plain
-PyTorch twins, on a card only (``-m cuda``; they skip without a CUDA device).
+"""The port's hand-written CUDA kernels (K1, K2; flash attention K3, K4,
+K5) against their plain PyTorch twins, on a card only (``-m cuda``; they
+skip without a CUDA device).
 
 This file imports no JAX, so it also runs where only PyTorch is
 installed:
@@ -13,6 +14,15 @@ import numpy as np
 import pytest
 import torch
 
+from kubegpu_tpu_torch.ops.attention import (
+    flash_attention,
+    flash_backward_dkdv,
+    flash_backward_dkdv_plain,
+    flash_backward_dq,
+    flash_backward_dq_plain,
+    flash_forward,
+    flash_forward_plain,
+)
 from kubegpu_tpu_torch.ops.paged_attention import (
     paged_chunk_attention,
     paged_chunk_attention_plain,
@@ -22,6 +32,8 @@ from kubegpu_tpu_torch.ops.paged_attention import (
 
 # the reference's own kernel tolerance (tests/test_paging.py)
 F32_TOL = 2e-5
+# flash gradients in float32: the reference's (tests/test_ops.py)
+GRAD_TOL = 1e-4
 # bfloat16: both sides compute in f32 and round once to bf16, so they
 # may differ by one bf16 rounding step (at most 2^-7 of the value); the
 # small atol covers outputs near zero, where f32 noise outgrows a step
@@ -191,3 +203,71 @@ def test_spec_batcher_on_the_card_matches_the_plain_cpu_batcher(cuda_device,
         card.stats["spec_steps"] * cfg["num_layers"])
     assert got == want
     card.assert_page_accounting()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal, sq, sk, d", [
+    (True, 200, 200, 128), (True, 100, 100, 64), (False, 72, 136, 40),
+    (True, 64, 64, 8),
+])
+def test_flash_kernels_match_their_twins(cuda_device, dtype, causal, sq, sk,
+                                         d):
+    """K3, K4 and K5 against the plain twins; the backward kernels read
+    the twin forward's out and lse, so both sides see one set of
+    operands.  bf16: one rounding step; f32: 2e-5 (out, lse), 1e-4
+    (gradients)."""
+    rng = np.random.RandomState(sq + d)
+    q, k, v = (torch.from_numpy(rng.randn(2, n, 3, d).astype(np.float32))
+               .to(cuda_device, dtype) for n in (sq, sk, sk))
+    dout = torch.from_numpy(rng.randn(2, sq, 3, d).astype(np.float32)).to(
+        cuda_device, dtype)
+    bf16 = dtype == torch.bfloat16
+    tol = dict(rtol=BF16_RTOL, atol=BF16_ATOL) if bf16 else dict(
+        rtol=F32_TOL, atol=F32_TOL)
+    gtol = tol if bf16 else dict(rtol=GRAD_TOL, atol=GRAD_TOL)
+    before = (flash_forward.launches, flash_backward_dkdv.launches,
+              flash_backward_dq.launches)
+    out, lse = flash_forward(q, k, v, causal)
+    p_out, p_lse = flash_forward_plain(q, k, v, causal)
+    dk, dv = flash_backward_dkdv(q, k, v, p_out, p_lse, dout, causal)
+    dq = flash_backward_dq(q, k, v, p_out, p_lse, dout, causal)
+    assert (flash_forward.launches, flash_backward_dkdv.launches,
+            flash_backward_dq.launches) == tuple(n + 1 for n in before)
+    p_dk, p_dv = flash_backward_dkdv_plain(q, k, v, p_out, p_lse, dout,
+                                           causal)
+    p_dq = flash_backward_dq_plain(q, k, v, p_out, p_lse, dout, causal)
+    torch.testing.assert_close(out.float(), p_out.float(), **tol)
+    torch.testing.assert_close(lse, p_lse, rtol=F32_TOL, atol=F32_TOL)
+    for got, want in ((dq, p_dq), (dk, p_dk), (dv, p_dv)):
+        assert got.dtype == dtype and got.is_contiguous()
+        torch.testing.assert_close(got.float(), want.float(), **gtol)
+
+
+@pytest.mark.cuda
+def test_flash_attention_function_runs_the_kernels(cuda_device):
+    """The autograd.Function launches K3 forward and K4, K5 backward,
+    and its gradients equal the CPU's at float32."""
+    rng = np.random.RandomState(1)
+    arrays = [rng.randn(2, 96, 2, 64).astype(np.float32) for _ in range(3)]
+    grads = {}
+    for dev in ("cpu", cuda_device):
+        q, k, v = (torch.from_numpy(a).to(dev).requires_grad_()
+                   for a in arrays)
+        before = (flash_forward.launches, flash_backward_dkdv.launches,
+                  flash_backward_dq.launches)
+        (flash_attention(q, k, v, True) ** 2).sum().backward()
+        after = (flash_forward.launches, flash_backward_dkdv.launches,
+                 flash_backward_dq.launches)
+        want = 1 if dev == cuda_device else 0
+        assert tuple(a - b for a, b in zip(after, before)) == (want,) * 3
+        grads[str(dev)] = [t.grad.cpu() for t in (q, k, v)]
+    for got, want in zip(grads[str(cuda_device)], grads["cpu"]):
+        torch.testing.assert_close(got, want, rtol=GRAD_TOL, atol=GRAD_TOL)
+
+
+@pytest.mark.cuda
+def test_flash_wrapper_raises_on_cuda_tensors_it_cannot_take(cuda_device):
+    q = torch.zeros((1, 16, 2, 12), device=cuda_device)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        flash_forward(q, q, q, True)

@@ -42,7 +42,7 @@ def test_importing_every_module_leaves_jax_out():
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     n_modules = int(proc.stdout.split()[0])
-    assert n_modules >= 8
+    assert n_modules >= 16
 
 
 def test_no_source_imports_jax_or_the_jax_package():
@@ -108,3 +108,37 @@ def test_speculative_entry_points_default_to_the_card(monkeypatch):
                              draft_hidden=16, **cfg)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         worker.run_decode(worker.build_parser().parse_args(["--speculate"]))
+
+
+def test_training_entry_points_default_to_the_card(monkeypatch):
+    """``--model lm`` and the training state run on the card unless
+    asked for the CPU, and flash attention on a tensor off the CPU
+    launches its kernels or raises — never the plain twin."""
+    from kubegpu_tpu_torch.models import worker
+    from kubegpu_tpu_torch.models.train import train_state_from_numpy
+    from kubegpu_tpu_torch.models.transformer import TransformerLM
+    from kubegpu_tpu_torch.ops.attention import (
+        flash_attention,
+        flash_backward_dkdv,
+        flash_backward_dq,
+        flash_forward,
+    )
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        worker.main(["--model", "lm"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        worker.run_lm(worker.build_parser().parse_args(["--model", "lm"]))
+    cfg = dict(vocab_size=16, num_layers=1, num_heads=2, hidden=16,
+               max_seq=16)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train_state_from_numpy(TransformerLM(**cfg), {})
+    q = torch.zeros((1, 8, 2, 8), device="meta")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        flash_attention(q, q, q, True)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        flash_forward(q, q, q, True)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        flash_backward_dkdv(q, q, q, q, q, q, True)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        flash_backward_dq(q, q, q, q, q, q, True)

@@ -1,8 +1,10 @@
-"""The port's serving worker (kubegpu_tpu_torch/models/worker.py) on the
-CPU at a tiny width: as a subprocess it prints the JAX worker's
-FIRST_DECODE_DONE / DECODE_DONE lines and a K1 launch count of 0 (the
-CPU takes the kernel's plain twin); in process it serves every request
-of a wave to its budget."""
+"""The port's worker (kubegpu_tpu_torch/models/worker.py) on the CPU at a
+tiny width: as a subprocess it prints the JAX worker's FIRST_DECODE_DONE
+/ DECODE_DONE lines and a K1 launch count of 0 (the CPU takes the
+kernel's plain twin); in process it serves every request of a wave to
+its budget.  ``--model lm`` trains and prints FIRST_STEP_DONE and
+steady_state with zero flash-kernel launches; what waits for a later
+slice (TP, context-parallel attention) fails naming it."""
 
 import os
 import re
@@ -113,3 +115,74 @@ def test_worker_refuses_bad_speculation_geometry(bad, match):
         TINY + ["--device", "cpu", "--speculate"] + bad)
     with pytest.raises(SystemExit, match=match):
         worker.run_decode(args)
+
+
+LM_TINY = ["--model", "lm", "--vocab", "61", "--hidden", "32", "--heads",
+           "4", "--layers", "2", "--seq", "16", "--batch-per-chip", "2",
+           "--steps", "3"]
+
+
+def test_lm_worker_subprocess_on_cpu_prints_step_lines():
+    env = dict(os.environ, PYTHONPATH=REPO)
+    proc = subprocess.run(
+        [sys.executable, "-m", "kubegpu_tpu_torch.models.worker", *LM_TINY,
+         "--device", "cpu"],
+        cwd=REPO, env=env, capture_output=True, text=True, timeout=300,
+    )
+    assert proc.returncode == 0, proc.stderr
+    out = proc.stdout
+    assert re.search(r"^FIRST_STEP_DONE seconds=[\d.]+ loss=[\d.]+$", out,
+                     re.M), out
+    assert re.search(r"^steady_state tokens_per_sec=[\d.]+ loss=[\d.]+$",
+                     out, re.M), out
+    for k, name in (("K3", "flash_forward"), ("K4", "flash_backward_dkdv"),
+                    ("K5", "flash_backward_dq")):
+        assert re.search(rf"^{k}_LAUNCHES {name}=0 steps=3 layers=2 "
+                         r"device=cpu$", out, re.M), out
+    assert re.search(r"^PEAK_MEM_GIB not measured device=cpu$", out, re.M)
+
+
+@pytest.mark.parametrize("extra", [
+    ["--data", "synthetic", "--data-pool", "2"],
+    ["--data", "stream", "--attn-impl", "einsum"],
+    ["--data", "resident", "--remat"],
+])
+def test_lm_worker_trains_in_every_data_mode(extra):
+    args = worker.build_parser().parse_args(LM_TINY + ["--device", "cpu"]
+                                            + extra)
+    r = worker.run_lm(args)
+    assert len(r["losses"]) == 3
+    assert all(0.0 < x < 10.0 for x in r["losses"])
+    assert r["tokens_per_step"] == 2 * 16
+    assert r["k3_launches"] == r["k4_launches"] == r["k5_launches"] == 0
+
+
+def test_lm_worker_draws_the_jax_workers_batches():
+    """The first batch of a pool sizes the JAX init; step i trains on
+    the source's batch i + 1, in the pool as in the stream."""
+    import numpy as np
+
+    from kubegpu_tpu_torch.models.data import synthetic_token_batches
+
+    args = worker.build_parser().parse_args(LM_TINY + ["--device", "cpu"])
+    for mode in ("synthetic", "stream"):
+        args.data = mode
+        source = synthetic_token_batches(2, 17, 61)
+        batches, first = worker.make_batches(args, source, "cpu")
+        ref = synthetic_token_batches(2, 17, 61)
+        np.testing.assert_array_equal(first.numpy(), next(ref))
+        for _ in range(3):
+            np.testing.assert_array_equal(next(batches).numpy(), next(ref))
+
+
+@pytest.mark.parametrize("bad, match", [
+    (["--tp", "2"], "tensor-parallel slice"),
+    (["--attn-impl", "ring"], "long-context slice"),
+    (["--attn-impl", "ulysses"], "long-context slice"),
+    (["--heads", "5"], "divisible"),
+])
+def test_lm_worker_refuses_what_waits_for_a_later_slice(bad, match):
+    args = worker.build_parser().parse_args(LM_TINY + ["--device", "cpu"]
+                                            + bad)
+    with pytest.raises(SystemExit, match=match):
+        worker.run_lm(args)
