@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Builds every kernel of the port's serving and training paths from the
-sources in the checkout, then runs ten phases; any failure exits
+sources in the checkout, then runs fifteen phases; any failure exits
 non-zero:
 
 1. device: the card's name and power limit, TF32 off;
@@ -55,7 +55,26 @@ non-zero:
    hidden 256, 2 layers, 4 heads of 64, seq 128, batch 4) from one
    initial tree and one token stream: three losses within rtol 1e-4,
    every gradient of step 1 within rtol=atol=1e-4, and the card's
-   ``einsum`` attention within 1e-4 of its ``flash`` on the losses.
+   ``einsum`` attention within 1e-4 of its ``flash`` on the losses;
+11. K1q (K1 over an int8 pool with (pages, heads) float32 scales) at
+   phase 2's shapes, pools from ``quantize_pages`` of random data: against
+   its plain version and the dense oracle over ``dequantize_pages``, in
+   float32 and bfloat16 q at phase 2's tolerances; its graph-replay time,
+   plain time and byte bound;
+12. K2q likewise at phase 3's shapes: row j equal to K1q at lengths + j
+   bit for bit, a 1-row window equal to K1q;
+13. the flagship wave of phase 4 with ``--kv-dtype int8`` (bf16 weights):
+   K1q launched decode steps x layers times, K1 never; the pool's bytes;
+14. the flagship wave with ``--kv-dtype int8 --int8 --speculate --spec-k
+   4`` (int8 pool and ring, weight-only int8): K2q launched verify steps
+   x layers times, K1, K1q and K2 never;
+15. card against CPU at float32 on phase 6's model and traffic with an
+   int8 pool and ``decode_page_cache="quantized"``: pipelined and
+   synchronous card streams identical, card and CPU streams under the
+   near-tie rule, pages requantized at sealing, every cache-owned page at
+   full int8 range on the card, and (where the streams agree) the card
+   and CPU pools equal except for at most one int8 step, whose share is
+   printed.
 
 The line before the last is the per-kernel JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device the script
@@ -154,7 +173,29 @@ def phase_build() -> None:
                 log(f"  ptxas[{name}]: {line.strip()}")
 
 
-def phase_k1() -> dict:
+def paged_operands(shape, dtype, g, quant: bool):
+    """Random K/V pools of ``shape`` for the paged kernels: ``dtype`` at
+    full width, or int8 from ``quantize_pages`` with their scales.
+    Returns (k, v, scale kwargs, the pools the dense oracle reads)."""
+    import torch
+
+    from kubegpu_tpu_torch.ops.paged_attention import (
+        dequantize_pages,
+        quantize_pages,
+    )
+
+    dev = torch.device("cuda")
+    kp, vp = ((torch.randn(shape, generator=g, device=dev) * 0.3)
+              for _ in range(2))
+    if not quant:
+        kp, vp = kp.to(dtype), vp.to(dtype)
+        return kp, vp, {}, (kp, vp)
+    (kd, ks), (vd, vs) = quantize_pages(kp), quantize_pages(vp)
+    return (kd, vd, dict(k_scale=ks, v_scale=vs),
+            (dequantize_pages(kd, ks), dequantize_pages(vd, vs)))
+
+
+def phase_k1(quant: bool = False) -> dict:
     import torch
 
     from kubegpu_tpu_torch.ops.paged_attention import (
@@ -164,11 +205,12 @@ def phase_k1() -> dict:
     )
 
     dev = torch.device("cuda")
+    label = "K1q" if quant else "K1"
     b, h, hd, page = 8, 32, 128, 128
     n_pages = 9          # the flagship's table width: ceil(1025 / 128)
     pool = b * n_pages + 8
     lengths_l = [0, 1, 127, 128, 200, 513, 1000, n_pages * page]
-    g = torch.Generator(device=dev).manual_seed(1)
+    g = torch.Generator(device=dev).manual_seed(11 if quant else 1)
     table = torch.stack([
         torch.randperm(pool, generator=g, device=dev)[:n_pages]
         for _ in range(b)
@@ -178,17 +220,15 @@ def phase_k1() -> dict:
     for dtype, rtol, atol in ((torch.float32, F32_TOL, F32_TOL),
                               (torch.bfloat16, BF16_RTOL, BF16_ATOL)):
         q = torch.randn((b, h, hd), generator=g, device=dev).to(dtype)
-        kp = (torch.randn((pool, h, page, hd), generator=g, device=dev)
-              * 0.3).to(dtype)
-        vp = (torch.randn((pool, h, page, hd), generator=g, device=dev)
-              * 0.3).to(dtype)
+        kp, vp, sc, full = paged_operands((pool, h, page, hd), dtype, g,
+                                          quant)
         args = (q, kp, vp, table, lengths)
-        out = paged_decode_attention(*args)
-        plain = paged_decode_attention_plain(*args)
-        dense = reference_paged_attention(*args)
+        out = paged_decode_attention(*args, **sc)
+        plain = paged_decode_attention_plain(*args, **sc)
+        dense = reference_paged_attention(q, *full, table, lengths)
         torch.cuda.synchronize()
         assert out.shape == q.shape and out.dtype == dtype
-        assert torch.isfinite(out.float()).all(), "K1 produced non-finite"
+        assert torch.isfinite(out.float()).all(), f"{label} gave non-finite"
         assert (out[0] == 0).all(), "length-0 slot must give zeros"
         diff = (out.float() - plain.float()).abs()
         err = diff.max().item()
@@ -200,20 +240,22 @@ def phase_k1() -> dict:
         torch.testing.assert_close(out.float(), dense.float(), rtol=rtol,
                                    atol=atol)
         name = str(dtype).replace("torch.", "")
-        log(f"K1 {name}: max|kernel - plain| = {err:.3e} ({share:.3f} of "
-            f"rtol {rtol:.3g} atol {atol:.3g}), max|kernel - dense oracle| "
-            f"= {err_dense:.3e}; mean |out| of the live slots "
+        log(f"{label} {name}: max|kernel - plain| = {err:.3e} ({share:.3f} "
+            f"of rtol {rtol:.3g} atol {atol:.3g}), max|kernel - dense "
+            f"oracle| = {err_dense:.3e}; mean |out| of the live slots "
             f"{out[1:].float().abs().mean().item():.3e}")
         itemsize = q.element_size()
         live_pages = sum(-(-n // page) for n in lengths_l)
-        nbytes = (2 * sum(lengths_l) * h * hd * itemsize   # live K/V rows
+        nbytes = (2 * sum(lengths_l) * h * hd * kp.element_size()  # K/V
+                  + 2 * live_pages * h * 4 * bool(quant)   # their scales
                   + 2 * b * h * hd * itemsize              # q in, out
                   + 4 * (live_pages + b))                  # table, lengths
         bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
-        ms = graph_ms(lambda: paged_decode_attention(*args), 50)
-        call_ms = time_ms(lambda: paged_decode_attention(*args), 200)
-        plain_ms = time_ms(lambda: paged_decode_attention_plain(*args), 20)
-        log(f"K1 {name}: kernel {ms * 1e3:.2f} us (graph replay; "
+        ms = graph_ms(lambda: paged_decode_attention(*args, **sc), 50)
+        call_ms = time_ms(lambda: paged_decode_attention(*args, **sc), 200)
+        plain_ms = time_ms(
+            lambda: paged_decode_attention_plain(*args, **sc), 20)
+        log(f"{label} {name}: kernel {ms * 1e3:.2f} us (graph replay; "
             f"{call_ms * 1e3:.2f} us a call from Python), plain "
             f"{plain_ms * 1e3:.2f} us, bound {bound_ms * 1e3:.2f} us "
             f"({nbytes} B over "
@@ -226,7 +268,7 @@ def phase_k1() -> dict:
     return rec
 
 
-def phase_k2() -> dict:
+def phase_k2(quant: bool = False) -> dict:
     import torch
 
     from kubegpu_tpu_torch.ops.paged_attention import (
@@ -237,13 +279,14 @@ def phase_k2() -> dict:
     )
 
     dev = torch.device("cuda")
+    label, k1_label = ("K2q", "K1q") if quant else ("K2", "K1")
     b, L, h, hd, page = 8, SPEC_K + 1, 32, 128, 128
     n_pages = 9          # the flagship's table width: ceil(1025 / 128)
     pool = b * n_pages + 8
     # windows crossing page boundaries (124..128), mid-table, and one
     # whose widest row reaches the full table (1148 + 4 = 1152 rows)
     lengths_l = [1, 124, 126, 127, 128, 513, 1000, n_pages * page - 4]
-    g = torch.Generator(device=dev).manual_seed(3)
+    g = torch.Generator(device=dev).manual_seed(13 if quant else 3)
     table = torch.stack([
         torch.randperm(pool, generator=g, device=dev)[:n_pages]
         for _ in range(b)
@@ -254,17 +297,15 @@ def phase_k2() -> dict:
     for dtype, rtol, atol in ((torch.float32, F32_TOL, F32_TOL),
                               (torch.bfloat16, BF16_RTOL, BF16_ATOL)):
         q = torch.randn((b, L, h, hd), generator=g, device=dev).to(dtype)
-        kp = (torch.randn((pool, h, page, hd), generator=g, device=dev)
-              * 0.3).to(dtype)
-        vp = (torch.randn((pool, h, page, hd), generator=g, device=dev)
-              * 0.3).to(dtype)
+        kp, vp, sc, full = paged_operands((pool, h, page, hd), dtype, g,
+                                          quant)
         args = (q, kp, vp, table, lengths)
-        out = paged_chunk_attention(*args)
-        plain = paged_chunk_attention_plain(*args)
-        dense = reference_paged_chunk_attention(*args)
+        out = paged_chunk_attention(*args, **sc)
+        plain = paged_chunk_attention_plain(*args, **sc)
+        dense = reference_paged_chunk_attention(q, *full, table, lengths)
         torch.cuda.synchronize()
         assert out.shape == q.shape and out.dtype == dtype
-        assert torch.isfinite(out.float()).all(), "K2 produced non-finite"
+        assert torch.isfinite(out.float()).all(), f"{label} gave non-finite"
         diff = (out.float() - plain.float()).abs()
         err = diff.max().item()
         share = (diff / (atol + rtol * plain.float().abs())).max().item()
@@ -277,23 +318,25 @@ def phase_k2() -> dict:
         # lengths + j, and a 1-row window is K1
         for j in range(L):
             single = paged_decode_attention(q[:, j].contiguous(), kp, vp,
-                                            table, lengths + j)
+                                            table, lengths + j, **sc)
             assert torch.equal(out[:, j], single), (
-                f"K2 row {j} differs from K1 at lengths + {j}")
+                f"{label} row {j} differs from {k1_label} at lengths + {j}")
         one = paged_chunk_attention(q[:, :1].contiguous(), kp, vp, table,
-                                    lengths)
+                                    lengths, **sc)
         assert torch.equal(one[:, 0], paged_decode_attention(
-            q[:, 0].contiguous(), kp, vp, table, lengths)), (
-            "a 1-row K2 window differs from K1")
+            q[:, 0].contiguous(), kp, vp, table, lengths, **sc)), (
+            f"a 1-row {label} window differs from {k1_label}")
         name = str(dtype).replace("torch.", "")
-        log(f"K2 {name}: max|kernel - plain| = {err:.3e} ({share:.3f} of "
-            f"rtol {rtol:.3g} atol {atol:.3g}), max|kernel - dense oracle| "
-            f"= {err_dense:.3e}; rows 0..{L - 1} equal K1 at lengths + j "
-            "bit for bit, and a 1-row window equals K1")
+        log(f"{label} {name}: max|kernel - plain| = {err:.3e} ({share:.3f} "
+            f"of rtol {rtol:.3g} atol {atol:.3g}), max|kernel - dense "
+            f"oracle| = {err_dense:.3e}; rows 0..{L - 1} equal {k1_label} "
+            f"at lengths + j bit for bit, and a 1-row window equals "
+            f"{k1_label}")
         itemsize = q.element_size()
         rows = [min(n + L - 1, n_pages * page) for n in lengths_l]
         live_pages = sum(-(-n // page) for n in rows)
-        nbytes = (2 * sum(rows) * h * hd * itemsize      # widest rows' K/V
+        nbytes = (2 * sum(rows) * h * hd * kp.element_size()  # widest K/V
+                  + 2 * live_pages * h * 4 * bool(quant)     # their scales
                   + 2 * b * L * h * hd * itemsize        # q in, out
                   + 4 * (live_pages + b))                # table, lengths
         # 2 flops for q.k and 2 for p.v per attended K/V row element
@@ -303,13 +346,14 @@ def phase_k2() -> dict:
         flops_ms = flops / F32_FLOPS_PER_S * 1e3
         bound_ms = max(bytes_ms, flops_ms)
         bound_by = "bytes" if bytes_ms >= flops_ms else "operations"
-        ms = graph_ms(lambda: paged_chunk_attention(*args), 50)
-        call_ms = time_ms(lambda: paged_chunk_attention(*args), 200)
+        ms = graph_ms(lambda: paged_chunk_attention(*args, **sc), 50)
+        call_ms = time_ms(lambda: paged_chunk_attention(*args, **sc), 200)
         k1_args = (q[:, -1].contiguous(), kp, vp, table, widest)
-        k1_ms = graph_ms(lambda: paged_decode_attention(*k1_args), 50)
-        plain_ms = time_ms(lambda: paged_chunk_attention_plain(*args), 5)
-        log(f"K2 {name}: kernel {ms * 1e3:.2f} us (graph replay; "
-            f"{call_ms * 1e3:.2f} us a call from Python), K1 at the same "
+        k1_ms = graph_ms(lambda: paged_decode_attention(*k1_args, **sc), 50)
+        plain_ms = time_ms(
+            lambda: paged_chunk_attention_plain(*args, **sc), 5)
+        log(f"{label} {name}: kernel {ms * 1e3:.2f} us (graph replay; "
+            f"{call_ms * 1e3:.2f} us a call from Python), {k1_label} at the same "
             f"widest contexts {k1_ms * 1e3:.2f} us, plain "
             f"{plain_ms * 1e3:.2f} us, bound {bound_ms * 1e3:.2f} us by "
             f"{bound_by} ({nbytes} B over {HBM_BYTES_PER_S / 1e12:.2f} "
@@ -344,8 +388,8 @@ def check_wave(r: dict, args) -> None:
 
 
 def run_wave(label: str, argv) -> tuple:
-    """Serve the worker's waves with both kernels' counts set to 0 just
-    before; returns (result, args, K1 launches, K2 launches, peak)."""
+    """Serve the worker's waves with every paged kernel's count set to 0
+    just before; returns (result, args, launches by kernel, peak)."""
     import torch
 
     from kubegpu_tpu_torch.models import worker
@@ -354,46 +398,61 @@ def run_wave(label: str, argv) -> tuple:
         paged_decode_attention,
     )
 
+    counters = {"K1": (paged_decode_attention, "launches"),
+                "K1q": (paged_decode_attention, "int8_launches"),
+                "K2": (paged_chunk_attention, "launches"),
+                "K2q": (paged_chunk_attention, "int8_launches")}
     args = worker.build_parser().parse_args(argv)
+    torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    paged_decode_attention.launches = 0
-    paged_chunk_attention.launches = 0
+    for fn, attr in counters.values():
+        setattr(fn, attr, 0)
     r = worker.run_decode(args)
-    k1, k2 = paged_decode_attention.launches, paged_chunk_attention.launches
+    launches = {k: getattr(fn, attr) for k, (fn, attr) in counters.items()}
     peak = torch.cuda.max_memory_allocated()
     log(f"{label}: {r['requests']} requests, {r['tokens']} tokens in "
         f"{r['wave_s']:.3f} s -> {r['tokens_per_sec']:.1f} tok/s; TTFT mean "
         f"{r['ttft_mean_s'] * 1e3:.1f} ms max {r['ttft_max_s'] * 1e3:.1f} ms; "
-        f"first wave done {r['first_decode_s']:.1f} s after start; peak "
-        f"device memory {peak / 2**30:.2f} GiB")
+        f"first wave done {r['first_decode_s']:.1f} s after start; pool "
+        f"({r['kv_dtype']}) {r['pool_bytes'] / 2**20:.1f} MiB; peak device "
+        f"memory {peak / 2**30:.2f} GiB; launches {launches}")
     check_wave(r, args)
-    return r, args, k1, k2, peak
+    return r, args, launches, peak
 
 
-def phase_flagship() -> dict:
-    r, args, launches, k2, peak = run_wave("flagship", FLAGSHIP_ARGV)
-    log(f"flagship: K1 launches {launches} = decode steps "
-        f"{r['decode_steps_total']} x layers {args.layers}; K2 launches "
-        f"{k2}")
-    assert launches > 0 and launches == r["decode_steps_total"] * args.layers
-    assert k2 == 0
-    return dict(r, launches=launches, peak_bytes=peak)
+def phase_flagship(int8: bool = False) -> dict:
+    argv = FLAGSHIP_ARGV + (["--kv-dtype", "int8"] if int8 else [])
+    label, kname = ("int8-pool flagship", "K1q") if int8 else ("flagship",
+                                                               "K1")
+    r, args, launches, peak = run_wave(label, argv)
+    n = launches.pop(kname)
+    log(f"{label}: {kname} launches {n} = decode steps "
+        f"{r['decode_steps_total']} x layers {args.layers}; others "
+        f"{launches}")
+    assert n > 0 and n == r["decode_steps_total"] * args.layers
+    assert not any(launches.values()), launches
+    return dict(r, launches=n, peak_bytes=peak)
 
 
-def phase_spec_flagship() -> dict:
-    r, args, k1, launches, peak = run_wave(
-        "speculative flagship",
-        FLAGSHIP_ARGV + ["--speculate", "--spec-k", str(SPEC_K)])
+def phase_spec_flagship(int8: bool = False) -> dict:
+    argv = FLAGSHIP_ARGV + ["--speculate", "--spec-k", str(SPEC_K)]
+    label, kname = "speculative flagship", "K2"
+    if int8:
+        argv += ["--kv-dtype", "int8", "--int8"]
+        label, kname = "int8 speculative flagship (int8 weights)", "K2q"
+    r, args, launches, peak = run_wave(label, argv)
     steps = r["spec_steps_total"]
-    log(f"speculative flagship: k={SPEC_K}, timed wave {r['spec_steps']} "
+    n = launches.pop(kname)
+    log(f"{label}: k={SPEC_K}, timed wave {r['spec_steps']} "
         f"verify steps for {r['spec_tokens']} tokens = "
         f"{r['spec_tokens'] / r['spec_steps']:.3f} tokens a verify; "
-        f"draft ring wraps {r['draft_wraps']}; K2 launches {launches} = "
-        f"verify steps {steps} x layers {args.layers}; K1 launches {k1}")
-    assert launches > 0 and launches == steps * args.layers
-    assert k1 == 0, "the speculative path must never run the plain step"
+        f"draft ring wraps {r['draft_wraps']}; {kname} launches {n} = "
+        f"verify steps {steps} x layers {args.layers}; others {launches}")
+    assert n > 0 and n == steps * args.layers
+    assert not any(launches.values()), (
+        "the speculative path must never run the plain step", launches)
     assert r["spec_tokens"] == r["tokens"]
-    return dict(r, launches=launches, peak_bytes=peak)
+    return dict(r, launches=n, peak_bytes=peak)
 
 
 def phase_card_vs_cpu() -> dict:
@@ -557,6 +616,62 @@ def phase_spec_card(ctx: dict) -> None:
         assert verify_steps["perfect"] < verify_steps["hopeless"], (
             f"k={k}: the perfect draft took {verify_steps['perfect']} "
             f"verify steps, the hopeless one {verify_steps['hopeless']}")
+
+
+def phase_int8_card_vs_cpu(ctx: dict) -> None:
+    """Phase 6's model and traffic over an int8 pool with quantized
+    sealing, card against CPU at float32."""
+    import torch
+
+    from kubegpu_tpu_torch.models.paging import PagedContinuousBatcher
+
+    kw = dict(ctx["kw"], kv_dtype="int8", decode_page_cache="quantized")
+    runs = {}
+    for d, pipe in (("cpu", True), ("cuda", True), ("cuda", False)):
+        cb = PagedContinuousBatcher(ctx["params"], device=d,
+                                    pipeline_decode=pipe, **kw)
+        runs[(d, pipe)] = (cb.run(ctx["prompts"], ctx["budgets"]), cb)
+        cb.assert_page_accounting()
+        log(f"int8 batcher {d} pipeline={pipe}: steps {cb.stats['steps']}, "
+            f"decode pages sealed {cb.stats['decode_pages_sealed']}, seal "
+            f"requantizations {cb.stats['seal_requants']}, prefix hit "
+            f"tokens {cb.stats['prefix_hit_tokens']}")
+        assert cb.stats["seal_requants"] > 0
+    (cpu, cpu_cb), (card, card_cb) = runs[("cpu", True)], runs[("cuda", True)]
+    assert card == runs[("cuda", False)][0], (
+        "pipelined and synchronous int8 card streams differ")
+    agree, total = near_tie_agreement("int8 card and cpu", ctx["cfg"],
+                                      ctx["dense"], ctx["prompts"], cpu, card)
+    log(f"int8 card vs cpu streams: {agree}/{total} tokens agree before any "
+        "near-tie divergence")
+    cached = sorted(card_cb.prefix_cache.pages())
+    assert cached
+    for kent, vent in card_cb.pools:
+        for data, scale in (kent, vent):
+            mx = data[cached].abs().amax(dim=(2, 3))
+            assert ((mx == 127) | (scale[cached] == 0)).all(), (
+                "a cache-owned page is not at full int8 range")
+    log(f"int8 card: all {len(cached)} cache-owned pages at full int8 range")
+    if card != cpu:
+        log("int8 card vs cpu: the streams part at a near-tie, so their "
+            "pools are not compared")
+        return
+    # page 0 is the dump page every idle lane writes, in no fixed order
+    differ = elems = 0
+    worst_scale = 0.0
+    for (ck, cv), (gk, gv) in zip(cpu_cb.pools, card_cb.pools):
+        for (cd, cs), (gd, gs) in ((ck, gk), (cv, gv)):
+            diff = (gd[1:].cpu().int() - cd[1:].int()).abs()
+            assert diff.max().item() <= 1, (
+                f"card and cpu int8 pools differ by {diff.max().item()}")
+            differ += int((diff != 0).sum())
+            elems += diff.numel()
+            rel = ((gs[1:].cpu() - cs[1:]).abs()
+                   / cs[1:].abs().clamp(min=1e-30)).max().item()
+            worst_scale = max(worst_scale, rel)
+    log(f"int8 card vs cpu pools: {differ}/{elems} int8 elements "
+        f"({differ / elems:.3e}) differ, each by one step; worst scale "
+        f"relative difference {worst_scale:.3e}")
 
 
 def max_err(got, want, rtol, atol) -> tuple:
@@ -857,10 +972,16 @@ def main() -> int:
     k2 = phase_k2()
     flag = phase_flagship()
     spec = phase_spec_flagship()
-    phase_spec_card(phase_card_vs_cpu())
+    small = phase_card_vs_cpu()
+    phase_spec_card(small)
     flash = phase_flash()
     train = phase_train_flagship()
     phase_train_card_vs_cpu()
+    k1q = phase_k1(quant=True)
+    k2q = phase_k2(quant=True)
+    flag_q = phase_flagship(int8=True)
+    spec_q = phase_spec_flagship(int8=True)
+    phase_int8_card_vs_cpu(small)
     log(f"chip_smoke: all phases passed in {time.monotonic() - t0:.1f} s")
     source = "kubegpu_tpu_torch/ops/csrc/paged_attention.cu"
     kernels = []
@@ -869,6 +990,10 @@ def main() -> int:
          k1, flag),
         ("paged_chunk_attention", "kubegpu_tpu/ops/paged_attention.py:390",
          k2, spec),
+        ("paged_decode_attention_int8",
+         "kubegpu_tpu/ops/paged_attention.py:135", k1q, flag_q),
+        ("paged_chunk_attention_int8",
+         "kubegpu_tpu/ops/paged_attention.py:390", k2q, spec_q),
     ):
         bf = rec["bfloat16"]
         kernels.append({

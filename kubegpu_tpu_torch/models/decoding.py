@@ -12,14 +12,16 @@ epsilon 1e-6), tanh-approximated GELU, and a float32 ``lm_head``.
 
 Caches are ``(b, max_seq, h, hd)`` per layer and are written IN PLACE
 (the JAX model returns new caches; updating them where they lie saves a
-copy of every cache per call).  Weight-only int8 (``QuantDense``) and
-sampling wait for later slices of the port.
+copy of every cache per call).  ``quant=True`` runs every Dense as the
+weight-only int8 ``QuantDense`` over a :func:`quantize_params_int8`
+tree, as the JAX package's ``quant`` flag does.  Sampling waits for a
+later slice of the port.
 """
 
 from __future__ import annotations
 
 import math
-from typing import List, Tuple, Union
+from typing import Dict, List, Mapping, Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -46,6 +48,50 @@ class Dense(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return x.to(self.dtype) @ self.kernel.to(self.dtype)
+
+
+class QuantDense(nn.Module):
+    """Weight-only int8 Dense (the JAX package's ``QuantDense``):
+    ``kernel_int8`` ``(in, out)`` int8 and ``qscale`` ``(out,)`` float32,
+    one symmetric scale per output channel.  The weight is dequantized in
+    the compute dtype (``w8.to(dtype) * scale.to(dtype)``, as the JAX
+    module multiplies) and the product is one ``torch.matmul``; the
+    activations stay in ``dtype``."""
+
+    def __init__(self, n_in: int, n_out: int, dtype: torch.dtype) -> None:
+        super().__init__()
+        self.kernel_int8 = meta_param(n_in, n_out)
+        self.qscale = meta_param(n_out)
+        self.dtype = dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        w = self.kernel_int8.to(self.dtype) * self.qscale.to(self.dtype)[None]
+        return x.to(self.dtype) @ w
+
+
+def dense_cls(quant: bool):
+    return QuantDense if quant else Dense
+
+
+def quantize_params_int8(tree: Mapping) -> Dict:
+    """A serving tree in the ``QuantDense`` layout (the JAX package's
+    ``quantize_params_int8``): every Dense kernel (a ``{"kernel": 2-D}``
+    node) becomes per-output-channel int8 ``kernel_int8`` with float32
+    ``qscale = amax / 127`` (1 where a column is all zero); embeddings
+    and LayerNorms pass through untouched."""
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, Mapping) and set(v) == {"kernel"} and v["kernel"].dim() == 2:
+            w = v["kernel"].float()
+            scale = w.abs().amax(0) / 127.0
+            scale = torch.where(scale == 0, 1.0, scale)
+            out[k] = {"kernel_int8": torch.round(w / scale[None]).to(torch.int8),
+                      "qscale": scale}
+        elif isinstance(v, Mapping):
+            out[k] = quantize_params_int8(v)
+        else:
+            out[k] = v
+    return out
 
 
 class LayerNorm(nn.Module):
@@ -93,12 +139,13 @@ class DecodeAttention(nn.Module):
     per sequence (a decode step) or a whole chunk (prefill in one causal
     pass)."""
 
-    def __init__(self, hidden: int, num_heads: int, dtype: torch.dtype) -> None:
+    def __init__(self, hidden: int, num_heads: int, dtype: torch.dtype,
+                 quant: bool = False) -> None:
         super().__init__()
         self.num_heads = num_heads
         self.dtype = dtype
         for name in ("q_proj", "k_proj", "v_proj", "o_proj"):
-            setattr(self, name, Dense(hidden, hidden, dtype))
+            setattr(self, name, dense_cls(quant)(hidden, hidden, dtype))
 
     def forward(self, x, cache_k, cache_v, pos):
         # x (b, L, d); cache_* (b, max_seq, h, hd), written in place at
@@ -130,13 +177,16 @@ class DecodeAttention(nn.Module):
 class DecodeBlock(nn.Module):
     attn_cls = DecodeAttention
 
-    def __init__(self, hidden: int, num_heads: int, dtype: torch.dtype) -> None:
+    def __init__(self, hidden: int, num_heads: int, dtype: torch.dtype,
+                 quant: bool = False) -> None:
         super().__init__()
         self.ln1 = LayerNorm(hidden, dtype)
-        self.attn = self.attn_cls(hidden, num_heads, dtype)
+        # only the decode attentions take quant (training never does)
+        self.attn = (self.attn_cls(hidden, num_heads, dtype, quant=True)
+                     if quant else self.attn_cls(hidden, num_heads, dtype))
         self.ln2 = LayerNorm(hidden, dtype)
-        self.mlp_up = Dense(hidden, 4 * hidden, dtype)
-        self.mlp_down = Dense(4 * hidden, hidden, dtype)
+        self.mlp_up = dense_cls(quant)(hidden, 4 * hidden, dtype)
+        self.mlp_down = dense_cls(quant)(4 * hidden, hidden, dtype)
 
     def forward(self, x, *cache_args):
         # cache_args: (cache_k, cache_v, pos) for the dense attention,
@@ -149,14 +199,16 @@ class DecodeBlock(nn.Module):
 
 class LMBase(nn.Module):
     """Embeddings, final norm and float32 head shared by the dense and
-    paged decode models (one parameter tree, two attention paths)."""
+    paged decode models (one parameter tree, two attention paths).
+    ``quant=True`` takes the ``QuantDense`` layout for every Dense, the
+    head included (run at float32)."""
 
     block_cls = DecodeBlock
 
     def __init__(self, *, vocab_size: int, num_layers: int, num_heads: int,
                  hidden: int, max_seq: int,
                  dtype: torch.dtype = torch.bfloat16,
-                 all_logits: bool = False) -> None:
+                 all_logits: bool = False, quant: bool = False) -> None:
         super().__init__()
         self.vocab_size, self.num_layers = vocab_size, num_layers
         self.num_heads, self.hidden, self.max_seq = num_heads, hidden, max_seq
@@ -168,9 +220,9 @@ class LMBase(nn.Module):
         self.pos_embed = Embed(max_seq, hidden, dtype)
         for i in range(num_layers):
             setattr(self, f"layer{i}",
-                    self.block_cls(hidden, num_heads, dtype))
+                    self.block_cls(hidden, num_heads, dtype, quant))
         self.ln_f = LayerNorm(hidden, dtype)
-        self.lm_head = Dense(hidden, vocab_size, torch.float32)
+        self.lm_head = dense_cls(quant)(hidden, vocab_size, torch.float32)
 
     def blocks(self):
         return [getattr(self, f"layer{i}") for i in range(self.num_layers)]

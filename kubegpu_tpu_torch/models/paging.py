@@ -1,5 +1,6 @@
 """Paged KV serving: continuous batching over a shared page pool — the
-port of ``kubegpu_tpu/models/paging.py`` for greedy, full-width serving.
+port of ``kubegpu_tpu/models/paging.py`` for greedy serving over a
+full-width or int8 pool.
 
 - ``PagedDecodeLM``: the paged twin of ``DecodeLM`` with the same
   parameter tree, whose per-layer cache is a
@@ -16,7 +17,22 @@ port of ``kubegpu_tpu/models/paging.py`` for greedy, full-width serving.
   every decode step runs ``PagedDecodeLM`` over all slots.  With
   ``speculate_k`` a dense draft proposes k tokens per slot from its own
   ring cache and one verify window scores them; greedy verification
-  makes the streams the non-speculative ones for any draft.
+  makes the streams the non-speculative ones for any draft.  With
+  ``decode_page_cache`` a retiring sequence's complete pages, prompt and
+  generated, seal into the prefix chain.
+
+The int8 pool (``kv_dtype="int8"``): each layer's K and V are ``(data,
+scale)`` pairs, int8 ``(pool_pages, heads, page, head_dim)`` pages and
+``(pool_pages, heads)`` float32 per-page, per-head scales; the kernels
+(K1q, K2q) dequantize as they read.  Three write rules keep the bytes a
+pure function of the traffic, as in the JAX package: station scatters
+quantize each page whole at its tight scale (rows past the prompt
+masked to zero); decode and verify rows commit one at a time through
+:func:`_quant_write_row` (grow-and-rescale); sealing requantizes a page
+to its tight scale before it enters the shared chain.  Fresh pages start
+at scale 0.  Under speculation the draft ring is int8 too, dequantized
+whole before each draft scan and requantized whole after.  ``quant=True``
+serves weight-only int8 weights (``QuantDense``).
 
 Numerics, as in the JAX package: the paged kernel scores and softmaxes
 in f32 while the dense station scores in the model dtype; at float32 the
@@ -59,11 +75,81 @@ from kubegpu_tpu_torch.models.serving import (
 from kubegpu_tpu_torch.ops.paged_attention import (
     check_chunk_args,
     check_kernel_args,
+    dequantize_pages,
     paged_chunk_attention,
     paged_decode_attention,
+    quantize_pages,
 )
 
 Pools = List[tuple]
+
+
+def pool_operands(k_entry, v_entry):
+    """``(k pool, v pool, k scales, v scales)`` of one layer's pool
+    entries: ``(data, scale)`` pairs for an int8 pool, plain pools with
+    scales None at full width."""
+    if isinstance(k_entry, tuple):
+        return k_entry[0], v_entry[0], k_entry[1], v_entry[1]
+    return k_entry, v_entry, None, None
+
+
+def _quant_write_row(data, scale, page_ids, offs, rows) -> None:
+    """Commit one row per slot into an int8 pool, in place: ``data``
+    (P, h, page, hd) int8, ``scale`` (P, h) float32, ``page_ids``/``offs``
+    (b,) the slot's page and row, ``rows`` (b, h, hd) the new K or V.
+    The grow-and-rescale rule of the JAX package's ``_quant_write_row``:
+    a page's scale only grows (``max(old, row_amax / 127)``), and when it
+    grows the page's int8 values are rescaled by old/new in the same
+    gather-rescale-scatter — so the same history of writes gives the
+    same bytes.  A zero scale (a fresh page) wipes whatever int8 the page
+    held.  Idle slots all write the dump page 0: their duplicate indices
+    land in no fixed order on the card, and page 0 is never read for a
+    live sequence."""
+    b = rows.shape[0]
+    rowf = rows.float()
+    amax = rowf.abs().amax(-1)                              # (b, h)
+    cur_s = scale[page_ids]                                 # (b, h)
+    new_s = torch.maximum(cur_s, amax / 127.0)
+    safe = torch.where(new_s > 0, new_s, 1.0)
+    ratio = cur_s / safe                                    # <= 1
+    cur = torch.round(data[page_ids].float() * ratio[:, :, None, None])
+    qrow = torch.clamp(torch.round(rowf / safe[:, :, None]), -127, 127)
+    cur[torch.arange(b, device=rows.device), :, offs, :] = qrow
+    data[page_ids] = cur.to(torch.int8)
+    scale[page_ids] = new_s
+
+
+def requantize_tight(data, scale) -> tuple:
+    """Seal-time requantization of int8 pages ``data`` (n, h, page, hd)
+    with scales (n, h): stretch each head's values back to full range,
+    ``round(x * 127 / max|x|)``, and shrink its scale by ``max|x| / 127``
+    — the dequantized values keep to rounding while the step tightens to
+    the page's content.  All-zero heads and pages already at 127 pass
+    through unchanged.  Returns the new ``(data, scale)``."""
+    blk = data.float()
+    mx = blk.abs().amax(dim=(2, 3))                         # (n, h)
+    mxs = torch.where(mx > 0, mx, 127.0)
+    newd = torch.clamp(torch.round(blk * (127.0 / mxs)[:, :, None, None]),
+                       -127, 127)
+    news = scale * mxs / 127.0
+    ok = mx > 0
+    return (torch.where(ok[:, :, None, None], newd, blk).to(torch.int8),
+            torch.where(ok, news, scale))
+
+
+def quantize_ring(full, cur_scale=None) -> tuple:
+    """An int8 draft ring lane set from full-width rows ``full`` (slots,
+    rows, h, hd): per-(slot, head) scales ``amax / 127``, grown from
+    ``cur_scale`` when given (the grow-and-rescale rule over the whole
+    ring: an unchanged scale round-trips every unchanged row).  Returns
+    ``(int8 data, (slots, h) float32 scales)``."""
+    f = full.float()
+    new_s = f.abs().amax(dim=(1, 3)) / 127.0
+    if cur_scale is not None:
+        new_s = torch.maximum(cur_scale, new_s)
+    safe = torch.where(new_s > 0, new_s, 1.0)
+    q = torch.clamp(torch.round(f / safe[:, None, :, None]), -127, 127)
+    return q.to(torch.int8), new_s
 
 
 class PagedDecodeAttention(DecodeAttention):
@@ -71,12 +157,17 @@ class PagedDecodeAttention(DecodeAttention):
     twin's).  The window's K/V rows are written to the slot's pages first
     (in place), then window row j attends rows ``< pos + 1 + j``: one
     token (L == 1) is a decode step through K1, a wider window a
-    speculative verify through K2."""
+    speculative verify through K2 — K1q and K2q over an int8 pool, whose
+    entries are ``(data, scale)`` pairs and whose rows commit one at a
+    time through :func:`_quant_write_row`."""
 
     def forward(self, x, k_pool, v_pool, table, pos, checked=False):
-        # x (b, L, d); pools (P, h, page, hd); table (b, n_pages) int32;
-        # pos (b,) int32 cache row of the window's first token; checked:
-        # the kernel's operand checks already ran on this layout
+        # x (b, L, d); pools (P, h, page, hd), or (data, scale) pairs;
+        # table (b, n_pages) int32; pos (b,) int32 cache row of the
+        # window's first token; checked: the kernel's operand checks
+        # already ran on this layout
+        if isinstance(k_pool, tuple):
+            return self._forward_int8(x, k_pool, v_pool, table, pos, checked)
         b, L, d = x.shape
         h = self.num_heads
         hd = d // h
@@ -109,6 +200,33 @@ class PagedDecodeAttention(DecodeAttention):
                                     checked=checked)
         return self.o_proj(out.reshape(b, L, d))
 
+    def _forward_int8(self, x, k_entry, v_entry, table, pos, checked):
+        b, L, d = x.shape
+        h = self.num_heads
+        hd = d // h
+        (kd, ks), (vd, vs) = k_entry, v_entry
+        page = kd.shape[2]
+        q = self.q_proj(x).view(b, L, h, hd)
+        k = self.k_proj(x).view(b, L, h, hd)
+        v = self.v_proj(x).view(b, L, h, hd)
+        # one row at a time: a scale growth mid-window rescales the rows
+        # written before it, as the JAX program's unrolled writes do
+        slots = torch.arange(b, device=x.device)
+        for j in range(L):
+            row = pos.long() + j
+            page_ids = table[slots, row // page]
+            _quant_write_row(kd, ks, page_ids, row % page, k[:, j])
+            _quant_write_row(vd, vs, page_ids, row % page, v[:, j])
+        if L == 1:
+            out = paged_decode_attention(q[:, 0], kd, vd, table, pos + 1,
+                                         k_scale=ks, v_scale=vs,
+                                         checked=checked)
+        else:
+            out = paged_chunk_attention(q, kd, vd, table, pos + 1,
+                                        k_scale=ks, v_scale=vs,
+                                        checked=checked)
+        return self.o_proj(out.reshape(b, L, d))
+
 
 class PagedDecodeBlock(DecodeBlock):
     attn_cls = PagedDecodeAttention
@@ -120,9 +238,10 @@ class PagedDecodeLM(LMBase):
     writes each slot's L K/V rows into its pages in place and returns
     the last row's float32 logits ``(b, vocab)``, or every row's
     ``(b, L, vocab)`` when built with ``all_logits=True`` (the verify).
-    ``pos`` is the cache row of the first token.  ``checked=True`` skips
-    the attention kernels' per-call operand checks (the batcher runs
-    them once)."""
+    ``pos`` is the cache row of the first token; each pool is a
+    ``(data, scale)`` pair for an int8 pool.  ``checked=True`` skips the
+    attention kernels' per-call operand checks (the batcher runs them
+    once)."""
 
     block_cls = PagedDecodeBlock
 
@@ -147,7 +266,8 @@ class PrefixPageCache:
     hit it — and becomes evictable in LRU order when the pool needs
     pages.  Host-side accounting only; the K/V bytes live in the pool.
     Every entry carries a ``kind`` (``"prompt"`` for station-sealed
-    pages; ``"decode"`` is reserved for retirement sealing)."""
+    pages, ``"decode"`` for pages sealed at retirement whose rows hold
+    decode-written K/V)."""
 
     def __init__(self) -> None:
         self._entries: "OrderedDict[bytes, int]" = OrderedDict()
@@ -241,6 +361,9 @@ class _Seq:
     active: bool = False
     prefilling: bool = False     # a _PrefillJob is feeding this slot
     tokens: List[int] = field(default_factory=list)
+    # the activated prompt, for retirement sealing's chain keys
+    prompt: Optional[np.ndarray] = None
+    plen: int = 0
     pages: List[int] = field(default_factory=list)  # reserved physical ids
     shared: Set[int] = field(default_factory=set)   # cache-owned subset
     submitted_at: float = 0.0
@@ -329,7 +452,6 @@ def _validate_speculation(k, draft_window, draft_params, draft_num_layers,
 
 
 SAMPLING_SLICE = "the sampling slice"
-INT8_SLICE = "the int8 slice (QuantDense weights and the int8 page pool)"
 TP_SLICE = "the tensor-parallel slice"
 MIGRATION_SLICE = "the migration slice (disaggregated prefill and handoff)"
 HTTP_SLICE = ("the HTTP replica slice (metrics, request tracing and the "
@@ -356,6 +478,15 @@ class PagedContinuousBatcher:
     the synchronous loop (state uploaded from host mirrors every step),
     the oracle the pipelined loop must match token for token.
 
+    ``kv_dtype="int8"`` stores the pool as int8 pages with per-page,
+    per-head float32 scales (the module docstring has the write rules);
+    ``quant=True`` takes a :func:`quantize_params_int8` tree.
+    ``decode_page_cache`` (``"off"``, ``"fp32"``, ``"quantized"``,
+    ``"all"``) lets retirement seal a sequence's complete pages, prompt
+    and generated, into the prefix chain when the policy trusts the
+    pool's numerics class (``models/serving.py``); an int8 pool
+    requantizes each page to its tight scale as it seals.
+
     ``speculate_k`` with ``draft_params`` and its ``draft_num_layers``/
     ``draft_num_heads``/``draft_hidden`` turns on greedy speculative
     decoding: each iteration the draft proposes k tokens per active slot
@@ -366,8 +497,8 @@ class PagedContinuousBatcher:
     tail; a token budget bills k+1 rows per active slot.
 
     The constructor keeps the JAX signature.  Knobs of later slices
-    (sampling, sampled speculation, int8, tensor parallelism,
-    prefill-only serving, metrics/tracing) raise ``NotImplementedError``
+    (sampling, sampled speculation, tensor parallelism, prefill-only
+    serving, metrics/tracing) raise ``NotImplementedError``
     naming the slice; ``seed`` keys sampled streams only, and greedy
     serving ignores it.  ``device`` defaults to ``"cuda"`` and raises
     without a card; the CPU runs only when asked for (``device="cpu"``)."""
@@ -414,8 +545,6 @@ class PagedContinuousBatcher:
         if sampling or top_k:
             raise _not_ported("sampling/top_k (and sampled speculation)",
                               SAMPLING_SLICE)
-        if quant:
-            raise _not_ported("quant (int8 weights)", INT8_SLICE)
         if mesh is not None:
             raise _not_ported("mesh", TP_SLICE)
         if prefill_only:
@@ -451,14 +580,19 @@ class PagedContinuousBatcher:
                 f"token_budget ({token_budget}) must be positive or None"
             )
         self.token_budget = token_budget
-        resolve_kv_dtype(kv_dtype, dtype)
+        self.kv_quant = resolve_kv_dtype(kv_dtype, dtype)
+        self.kv_dtype = ("int8" if self.kv_quant
+                         else str(dtype).replace("torch.", ""))
         self.draft_window = _validate_speculation(
             speculate_k, draft_window, draft_params, draft_num_layers,
             draft_num_heads, draft_hidden, max_seq, prompt_pad,
         )
         self.speculate_k = speculate_k
         self.decode_page_cache = decode_page_cache
-        resolve_decode_page_cache(decode_page_cache, dtype)
+        self._seal_decode = (
+            resolve_decode_page_cache(decode_page_cache, dtype, self.kv_quant)
+            and prefix_cache
+        )
         self.device = dev = resolve_device(device)
         self.slots = slots
         self.prompt_pad = prompt_pad
@@ -474,13 +608,15 @@ class PagedContinuousBatcher:
         hd = hidden // num_heads
 
         params = tree_map(lambda t: t.to(dev), params)
-        # the head computes in float32 whatever the weights' dtype: cast
-        # its kernel once here, not on every step
-        params = dict(
-            params, lm_head={"kernel": params["lm_head"]["kernel"].float()}
-        )
+        if not quant:
+            # the head computes in float32 whatever the weights' dtype:
+            # cast its kernel once here, not on every step (an int8 head
+            # is a QuantDense at float32 and keeps its tree)
+            params = dict(params, lm_head={
+                "kernel": params["lm_head"]["kernel"].float()})
         model_cfg = dict(vocab_size=vocab_size, num_layers=num_layers,
-                         num_heads=num_heads, hidden=hidden, dtype=dtype)
+                         num_heads=num_heads, hidden=hidden, dtype=dtype,
+                         quant=quant)
         self.model = bind_params(
             PagedDecodeLM(max_seq=max_seq, **model_cfg), params
         )
@@ -492,14 +628,24 @@ class PagedContinuousBatcher:
         self.dense_model = bind_params(
             DecodeLM(max_seq=prompt_pad, **model_cfg), station_params
         )
-        self.pools = [
-            tuple(
-                torch.zeros((pool_pages, num_heads, page_size, hd),
-                            dtype=dtype, device=dev)
-                for _ in range(2)
-            )
-            for _ in range(num_layers)
-        ]
+        def pool_side():
+            if self.kv_quant:
+                return (torch.zeros((pool_pages, num_heads, page_size, hd),
+                                    dtype=torch.int8, device=dev),
+                        torch.zeros((pool_pages, num_heads),
+                                    dtype=torch.float32, device=dev))
+            return torch.zeros((pool_pages, num_heads, page_size, hd),
+                               dtype=dtype, device=dev)
+
+        self.pools = [(pool_side(), pool_side()) for _ in range(num_layers)]
+        # the pool's resting bytes by storage dtype (int8 pages plus f32
+        # scales, or full width): what the accounting's bytes leg audits
+        kv_item = 1 if self.kv_quant else torch.empty(
+            (), dtype=dtype).element_size()
+        self.pool_kv_bytes = (2 * num_layers * pool_pages * num_heads
+                              * page_size * hd * kv_item)
+        self.pool_scale_bytes = (2 * num_layers * pool_pages * num_heads * 4
+                                 if self.kv_quant else 0)
         # page 0 is the permanent DUMP page, never allocated: the step
         # runs every slot, and an idle slot's K/V write must land where
         # it can never belong to a live sequence — its table points at
@@ -538,8 +684,9 @@ class PagedContinuousBatcher:
                 q = torch.empty((slots, speculate_k + 1, num_heads, hd),
                                 dtype=dtype, device=dev)
                 check = check_chunk_args
-            for kp, vp in self.pools:
-                check(q, kp, vp, self._tables_dev, self._pos_dev)
+            for kent, vent in self.pools:
+                kp, vp, ks, vs = pool_operands(kent, vent)
+                check(q, kp, vp, self._tables_dev, self._pos_dev, ks, vs)
         self._inflight: deque = deque()
         # the prefill station: one persistent dense cache of
         # station_slots slots x prompt_pad rows; _jobs is insertion-
@@ -589,9 +736,22 @@ class PagedContinuousBatcher:
                      dtype=self.dtype),
             dparams,
         )
-        self.d_caches = init_caches(self.slots, draft_num_layers,
-                                    draft_num_heads, draft_hidden, ring,
-                                    self.dtype, dev)
+        if self.kv_quant:
+            # an int8 replica rests an int8 ring: (slots, ring, h, hd)
+            # rows plus (slots, h) float32 per-(slot, head) scales
+            d_hd = draft_hidden // draft_num_heads
+            self.d_caches = [
+                tuple((torch.zeros((self.slots, ring, draft_num_heads, d_hd),
+                                   dtype=torch.int8, device=dev),
+                       torch.zeros((self.slots, draft_num_heads),
+                                   dtype=torch.float32, device=dev))
+                      for _ in range(2))
+                for _ in range(draft_num_layers)
+            ]
+        else:
+            self.d_caches = init_caches(self.slots, draft_num_layers,
+                                        draft_num_heads, draft_hidden, ring,
+                                        self.dtype, dev)
         self._d_pos = np.zeros((self.slots,), np.int32)   # host mirror
         self._d_pos_dev = torch.zeros((self.slots,), dtype=torch.int32,
                                       device=dev)
@@ -682,24 +842,45 @@ class PagedContinuousBatcher:
                     f"page {p} refcounted with no live holder"
                 )
             self.prefix_cache.assert_consistent()
-            # only the dense station registers pages in this slice
-            for p in cached:
-                assert self.prefix_cache.kind_of(p) == "prompt", (
-                    f"page {p} sealed as decode with "
-                    f"decode_page_cache={self.decode_page_cache!r}"
-                )
+            if not self._seal_decode:
+                # with sealing off only the dense station registers
+                # pages: nothing in the cache may claim decode numerics
+                for p in cached:
+                    assert self.prefix_cache.kind_of(p) == "prompt", (
+                        f"page {p} sealed as decode with "
+                        f"decode_page_cache={self.decode_page_cache!r}"
+                    )
+        # the bytes leg: the pool rests the declared storage format at
+        # exactly the promised bytes (an int8 label over a full-width
+        # allocation would pass every refcount check above)
         hd = self.hidden // self.num_heads
         itemsize = torch.empty((), dtype=self.dtype).element_size()
-        page_bytes = self.num_heads * self.page * hd * itemsize
-        for li, (kp, vp) in enumerate(self.pools):
-            for nm, arr in (("k", kp), ("v", vp)):
-                assert arr.dtype == self.dtype, (
-                    f"layer {li} {nm}_pool stores {arr.dtype}, declared "
-                    f"{self.dtype}"
-                )
-                assert arr.numel() * arr.element_size() == (
-                    self.pool_pages * page_bytes
-                ), f"layer {li} {nm}_pool bytes drifted"
+        page_elems = self.num_heads * self.page * hd
+        rest = 0
+        for li, (kent, vent) in enumerate(self.pools):
+            for nm, entry in (("k", kent), ("v", vent)):
+                if self.kv_quant:
+                    data, scale = entry
+                    assert data.dtype == torch.int8, (
+                        f"layer {li} {nm}_pool stores {data.dtype}, "
+                        "declared kv_dtype int8")
+                    assert scale.dtype == torch.float32, (
+                        f"layer {li} {nm}_pool scales are {scale.dtype}")
+                    assert tuple(scale.shape) == (self.pool_pages,
+                                                  self.num_heads), (
+                        f"layer {li} {nm}_pool scale shape drifted")
+                    arrs = (data, scale)
+                else:
+                    assert entry.dtype == self.dtype, (
+                        f"layer {li} {nm}_pool stores {entry.dtype}, "
+                        f"declared kv_dtype {self.kv_dtype}")
+                    arrs = (entry,)
+                assert arrs[0].numel() == self.pool_pages * page_elems, (
+                    f"layer {li} {nm}_pool rows drifted")
+                rest += sum(a.numel() * a.element_size() for a in arrs)
+        assert rest == self.pool_kv_bytes + self.pool_scale_bytes, (
+            f"pool rests {rest} B, {self.kv_dtype} pages promise "
+            f"{self.pool_kv_bytes + self.pool_scale_bytes}")
         st_bytes = self.station_slots * self.prompt_pad * self.num_heads * hd
         for li, (ck, cv) in enumerate(self._station):
             for nm, arr in (("k", ck), ("v", cv)):
@@ -710,43 +891,130 @@ class PagedContinuousBatcher:
                     f"station layer {li} {nm} bytes drifted"
                 )
         if self.speculate_k is not None:
-            # the draft ring rests the compute dtype at exactly
-            # slots x draft_window rows
+            # the draft ring rests the pool's storage format (int8 rows
+            # plus (slots, h) f32 scales, or the compute dtype) at
+            # exactly slots x draft_window rows
             ring_elems = self.slots * self.draft_window * self.draft_hidden
-            for li, (ck, cv) in enumerate(self.d_caches):
-                for nm, arr in (("k", ck), ("v", cv)):
-                    assert arr.dtype == self.dtype, (
-                        f"draft ring layer {li} {nm} stores {arr.dtype}"
-                    )
+            for li, (kent, vent) in enumerate(self.d_caches):
+                for nm, entry in (("k", kent), ("v", vent)):
+                    if self.kv_quant:
+                        arr, scale = entry
+                        assert arr.dtype == torch.int8, (
+                            f"draft ring layer {li} {nm} stores "
+                            f"{arr.dtype}, declared kv_dtype int8")
+                        assert scale.dtype == torch.float32 and tuple(
+                            scale.shape) == (self.slots,
+                                             self.draft_num_heads), (
+                            f"draft ring layer {li} {nm} scales drifted")
+                    else:
+                        arr = entry
+                        assert arr.dtype == self.dtype, (
+                            f"draft ring layer {li} {nm} stores {arr.dtype}"
+                        )
                     assert arr.numel() == ring_elems, (
                         f"draft ring layer {li} {nm} rests {arr.numel()} "
                         f"elements, the ring promises {ring_elems}"
                     )
 
     # -- page moves between the station and the pool ------------------------
-    def _write_pages(self, station: int, phys: List[int], base_row: int) -> None:
+    def _write_pages(self, station: int, phys: List[int], base_row: int,
+                     n_valid: int) -> None:
         """Scatter ``len(phys)`` consecutive station pages of slot
         ``station`` (rows ``base_row + j * page``) into pool pages
         ``phys[j]``: station rows are (row, h, hd), pool pages
-        (h, page, hd)."""
+        (h, page, hd).  An int8 pool quantizes each page at its tight
+        per-head scale over the rows below ``n_valid`` only: station rows
+        past the prompt still hold an earlier occupant's bytes, which
+        would inflate the scale and make the page depend on station
+        history, so they quantize to zeros."""
         n, page = len(phys), self.page
         idx = torch.tensor(phys, dtype=torch.long, device=self.device)
         rows = slice(base_row, base_row + n * page)
-        for (kp, vp), (ck, cv) in zip(self.pools, self._station):
-            for pool, cache in ((kp, ck), (vp, cv)):
-                blk = cache[station, rows].view(n, page, *cache.shape[2:])
-                pool[idx] = blk.transpose(1, 2)
+        if self.kv_quant:
+            valid = (torch.arange(n * page, device=self.device) + base_row
+                     < n_valid).view(n, 1, page, 1)
+        for (kent, vent), (ck, cv) in zip(self.pools, self._station):
+            for entry, cache in ((kent, ck), (vent, cv)):
+                blk = cache[station, rows].view(
+                    n, page, *cache.shape[2:]).transpose(1, 2)
+                if self.kv_quant:
+                    data, scale = entry
+                    data[idx], scale[idx] = quantize_pages(
+                        torch.where(valid, blk, 0))
+                else:
+                    entry[idx] = blk
 
     def _gather_pages(self, station: int, phys: List[int]) -> None:
         """The reverse copy: prefix-cache hit pages into station rows
-        ``[0, len(phys) * page)`` — the same bytes, no recompute."""
+        ``[0, len(phys) * page)`` — the same bytes, no recompute (an int8
+        pool's pages dequantized to the compute dtype)."""
         n = len(phys) * self.page
         idx = torch.tensor(phys, dtype=torch.long, device=self.device)
-        for (ck, cv), (kp, vp) in zip(self._station, self.pools):
-            for cache, pool in ((ck, kp), (cv, vp)):
-                cache[station, :n] = pool[idx].transpose(1, 2).reshape(
-                    n, *cache.shape[2:]
-                )
+        for (ck, cv), (kent, vent) in zip(self._station, self.pools):
+            kp, vp, ks, vs = pool_operands(kent, vent)
+            for cache, pool, scale in ((ck, kp, ks), (cv, vp, vs)):
+                blk = pool[idx] if scale is None else dequantize_pages(
+                    pool[idx], scale[idx], self.dtype)
+                cache[station, :n] = blk.transpose(1, 2).reshape(
+                    n, *cache.shape[2:])
+
+    def _zero_page_scales(self, phys: List[int]) -> None:
+        """Reset the scales of freshly allocated int8 pages.  A page off
+        the free list (or evicted from the cache) still carries its
+        previous occupant's scale, and grow-and-rescale only grows: left
+        alone, a new sequence's first decode row would quantize at an
+        inherited step, and the bytes would depend on allocation
+        history.  A zero scale makes the first row write behave as on a
+        fresh page."""
+        if not self.kv_quant or not phys:
+            return
+        idx = torch.tensor(sorted(set(phys)), dtype=torch.long,
+                           device=self.device)
+        for (_, ks), (_, vs) in self.pools:
+            ks[idx] = 0.0
+            vs[idx] = 0.0
+
+    def _seal_finished_pages(self, s: _Seq) -> None:
+        """Retirement sealing: register a retiring sequence's complete
+        pages, prompt and generated, in the prefix chain, so a later
+        prompt extending its stream (a session's next turn) hits through
+        the generated region.  Committed rows are ``plen + len(tokens) -
+        1`` (the last emitted token is never consumed; speculative rows
+        past the host-truncated stream are junk above the bound); only
+        the full pages below that bound seal, under the submit-time chain
+        keys of the whole stream.  An int8 pool first requantizes the
+        pages to their tight scales: a rejected speculative row may have
+        grown a scale that the committed rows never needed.  Policy-gated
+        by ``decode_page_cache``."""
+        if not self._seal_decode or s.plen == 0 or not s.tokens:
+            return
+        n_full = (s.plen + len(s.tokens) - 1) // self.page
+        if n_full == 0:
+            return
+        n_prompt = (s.plen - 1) // self.page   # dense-prefill-only pages
+        stream = np.concatenate([np.asarray(s.prompt, np.int32),
+                                 np.asarray(s.tokens, np.int32)])
+        keys = chain_keys(stream, self.page, n_full)
+        to_seal = [(s.pages[j], keys[j], "prompt" if j < n_prompt else "decode")
+                   for j in range(n_full)
+                   if s.pages[j] not in s.shared
+                   and self.prefix_cache.lookup(keys[j]) is None]
+        if not to_seal:
+            return
+        if self.kv_quant:
+            # the pages are private, so no reader sees the rewrite
+            idx = torch.tensor([p for p, _, _ in to_seal], dtype=torch.long,
+                               device=self.device)
+            for kent, vent in self.pools:
+                for data, scale in (kent, vent):
+                    data[idx], scale[idx] = requantize_tight(data[idx],
+                                                             scale[idx])
+            self.stats["seal_requants"] += len(to_seal)
+        for phys, key, kind in to_seal:
+            self.prefix_cache.insert(key, phys, kind=kind)
+            s.shared.add(phys)
+            if kind == "decode":
+                self.stats["decode_pages_sealed"] += 1
 
     # -- admission ---------------------------------------------------------
     def _validate(self, prompt: np.ndarray, max_new: int) -> int:
@@ -804,6 +1072,7 @@ class PagedContinuousBatcher:
             acquired = self.prefix_cache.acquire(key)
             assert acquired == hits[j]
         fresh = [self._alloc_page() for _ in range(need - len(hits))]
+        self._zero_page_scales(fresh)   # no inherited quantization state
         # the slot's table stays parked on the dump page until
         # activation: a prefilling slot's step writes must never land in
         # a real page — least of all a shared hit page
@@ -813,7 +1082,14 @@ class PagedContinuousBatcher:
         s.pages, s.shared = hits + fresh, set(hits)
         s.submitted_at = submitted_at
         hit_rows = len(hits) * self.page
+        # hits split by the hit page's kind: station-sealed prompt pages
+        # or retirement-sealed decode pages (a next turn reaching
+        # through an earlier turn's output)
+        decode_hit_rows = self.page * sum(
+            1 for p in hits if self.prefix_cache.kind_of(p) == "decode")
         self.stats["prefix_hit_tokens"] += hit_rows
+        self.stats["prefix_hit_tokens_prompt"] += hit_rows - decode_hit_rows
+        self.stats["prefix_hit_tokens_decode"] += decode_hit_rows
         self.stats["prefix_miss_tokens"] += (len(keys) - len(hits)) * self.page
         self.stats["prompt_tokens"] += plen
         # hit rows need station residency only if chunks run after them
@@ -841,7 +1117,8 @@ class PagedContinuousBatcher:
             hi += 1
         if hi == first:
             return
-        self._write_pages(job.station, s.pages[first:hi], first * self.page)
+        self._write_pages(job.station, s.pages[first:hi], first * self.page,
+                          job.pos)
         for j in range(first, hi):
             if (
                 self.prefix_cache is not None
@@ -873,6 +1150,8 @@ class PagedContinuousBatcher:
         self._last_dev[slot] = last_tok
         self._active_dev[slot] = True
         self._remaining_dev[slot] = s.remaining
+        # retirement sealing hashes the committed stream from its prompt
+        s.prompt, s.plen = job.prompt[: job.plen], job.plen
         if self.speculate_k is not None:
             # the draft needs rows [0, plen - 1) of its ring before the
             # first window's scan consumes the last prompt token at row
@@ -1006,10 +1285,16 @@ class PagedContinuousBatcher:
         return False
 
     def _teardown_slot(self, i: int, s: _Seq) -> None:
-        """The shared retirement/cancel epilogue: release the pages and
-        park the slot on the dump page, host mirror and device lane."""
+        """The shared retirement/cancel epilogue: seal the complete pages
+        (a policy-gated no-op unless the sequence committed tokens),
+        release the rest and park the slot on the dump page, host mirror
+        and device lane.  Sealing comes first: it turns complete private
+        pages cache-owned, so the release leaves them idle in the cache
+        instead of freeing them."""
+        self._seal_finished_pages(s)
         self._release_pages(s)
         s.seq_id = -1
+        s.prompt, s.plen = None, 0
         self.tables[i, :] = 0
         self.pos[i] = 0
         self._last[i] = 0
@@ -1035,8 +1320,10 @@ class PagedContinuousBatcher:
     def _reset_stats(self) -> None:
         self.stats = {
             "steps": 0, "admits": 0, "peak_pages": 0, "prefill_chunks": 0,
-            "prefix_hit_tokens": 0, "prefix_miss_tokens": 0,
-            "prompt_tokens": 0, "spec_steps": 0, "spec_tokens": 0,
+            "prefix_hit_tokens": 0, "prefix_hit_tokens_prompt": 0,
+            "prefix_hit_tokens_decode": 0, "prefix_miss_tokens": 0,
+            "prompt_tokens": 0, "decode_pages_sealed": 0,
+            "seal_requants": 0, "spec_steps": 0, "spec_tokens": 0,
             "draft_wraps": 0,
         }
         # seq_id -> seconds from submit to the first token's readback
@@ -1182,12 +1469,25 @@ class PagedContinuousBatcher:
         hits skip target pages only."""
         row = np.zeros((1, self.prompt_pad), np.int32)
         row[0, : len(prompt)] = prompt
+        tokens = torch.from_numpy(row).to(self.device)
+        if self.kv_quant:
+            # an int8 ring: prefill a fresh full-width lane, then splice it
+            # in at its own tight scale
+            fresh = init_caches(1, self.draft_num_layers,
+                                self.draft_num_heads, self.draft_hidden,
+                                self.draft_window, self.dtype, self.device)
+            self.draft_model.fill(tokens, fresh, 0)
+            for (kent, vent), (fk, fv) in zip(self.d_caches, fresh):
+                for (data, scale), full in ((kent, fk), (vent, fv)):
+                    data[slot: slot + 1], scale[slot: slot + 1] = (
+                        quantize_ring(full))
+            return
         lane = [(ck[slot: slot + 1], cv[slot: slot + 1])
                 for ck, cv in self.d_caches]
         for ck, cv in lane:
             ck.zero_()
             cv.zero_()
-        self.draft_model.fill(torch.from_numpy(row).to(self.device), lane, 0)
+        self.draft_model.fill(tokens, lane, 0)
 
     def _spec_draft(self, last, d_pos, active):
         """Draft k proposals per slot: k+1 greedy steps of the dense draft
@@ -1202,12 +1502,24 @@ class PagedContinuousBatcher:
         # inactive lanes scan from row 0 of their own (idle) ring lane:
         # a row index past the ring would raise
         p = torch.where(active, d_pos_w, 0)
+        # an int8 ring is dequantized whole for the scan and requantized
+        # whole after it (grow-and-rescale per slot and head)
+        caches = self.d_caches if not self.kv_quant else [
+            tuple((d.float() * sc[:, None, :, None]).to(self.dtype)
+                  for d, sc in (ke, ve))
+            for ke, ve in self.d_caches]
         tok, proposed = last, []
         for _ in range(k + 1):
-            logits = self.draft_model(tok[:, None], self.d_caches, p)
+            logits = self.draft_model(tok[:, None], caches, p)
             tok = logits.argmax(-1).to(torch.int32)
             proposed.append(tok)
             p = p + 1
+        if self.kv_quant:
+            for (kent, vent), (fk, fv) in zip(self.d_caches, caches):
+                for (data, scale), full in ((kent, fk), (vent, fv)):
+                    q, new_s = quantize_ring(full, scale)
+                    data.copy_(q)
+                    scale.copy_(new_s)
         return torch.stack(proposed[:k], 1), d_pos_w, wrap
 
     def _spec_verify(self, last, proposals, table, pos, d_pos, active,

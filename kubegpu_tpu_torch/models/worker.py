@@ -14,10 +14,16 @@ from ``np.random.RandomState(0)``, budgets cycling ``1/4 .. 1 x
 the same pool: a fresh draft of ``--draft-layers`` layers proposes
 ``--spec-k`` tokens a step and one verify window (K2) scores them; the
 streams are the non-speculative ones, token for token, at fp32.
+``--kv-dtype int8`` stores the pool (and the draft ring) as int8 pages
+with per-page, per-head scales, read by K1q/K2q; ``--int8`` serves
+weight-only int8 weights (printing ``SERVING_INT8``);
+``--decode-page-cache`` lets retirement seal decode-produced pages into
+the prefix chain.
 
     python -m kubegpu_tpu_torch.models.worker --model decode --serving paged \\
         --vocab 32768 --hidden 4096 --heads 32 --layers 4 \\
-        --prompt-len 128 --batch-per-chip 8 --steps 64 [--speculate]
+        --prompt-len 128 --batch-per-chip 8 --steps 64 [--speculate] \\
+        [--kv-dtype int8] [--int8] [--decode-page-cache quantized]
 
 ``--model lm`` trains ``TransformerLM`` (bf16 compute over float32
 weights drawn fresh from seed 0, nesterov SGD) on the JAX worker's
@@ -52,8 +58,14 @@ from kubegpu_tpu_torch.models.data import (
     prefetch_to_device,
     synthetic_token_batches,
 )
+from kubegpu_tpu_torch.models.decoding import quantize_params_int8
 from kubegpu_tpu_torch.models.paging import PagedContinuousBatcher
 from kubegpu_tpu_torch.models.params import bf16_cast, init_params, resolve_device
+from kubegpu_tpu_torch.models.serving import (
+    DECODE_PAGE_CACHE_POLICIES,
+    KV_DTYPES,
+    resolve_kv_dtype,
+)
 from kubegpu_tpu_torch.models.train import create_train_state, lm_step
 from kubegpu_tpu_torch.models.transformer import TransformerLM
 from kubegpu_tpu_torch.ops.attention import (
@@ -106,6 +118,20 @@ def build_parser() -> argparse.ArgumentParser:
                     "window scores them")
     ap.add_argument("--spec-k", type=int, default=4,
                     help="draft proposals per verify window")
+    ap.add_argument("--int8", action="store_true",
+                    help="decode: serve weight-only int8 (per-output-channel "
+                    "scales)")
+    ap.add_argument("--kv-dtype", default=None, choices=list(KV_DTYPES),
+                    help="decode: the page pool's storage; default full width "
+                    "at the serving dtype, int8 = per-page per-head scaled "
+                    "int8 pages read by K1q/K2q (bf16/fp32 must match the "
+                    "serving dtype)")
+    ap.add_argument("--decode-page-cache", default="off",
+                    choices=list(DECODE_PAGE_CACHE_POLICIES),
+                    help="decode: seal retired sequences' decode-produced "
+                    "pages into the prefix cache; off = prompt pages only, "
+                    "fp32 = only on a float32 full-width pool, quantized = "
+                    "only on an int8 pool, all = always")
     ap.add_argument("--draft-layers", type=int, default=1)
     ap.add_argument("--draft-hidden", type=int, default=0,
                     help="draft width (0 = max(hidden // 4, 128)); its "
@@ -203,10 +229,19 @@ def build_batcher(args: argparse.Namespace) -> PagedContinuousBatcher:
     cfg = dict(vocab_size=args.vocab, num_layers=args.layers,
                num_heads=args.heads, hidden=args.hidden, max_seq=max_seq)
     dtype = torch.float32 if args.serve_fp32 else torch.bfloat16
+    try:
+        # a contradictory pair (e.g. --kv-dtype bf16 with --serve-fp32)
+        # dies here, like the other geometry checks
+        resolve_kv_dtype(args.kv_dtype, dtype)
+    except ValueError as e:
+        raise SystemExit(str(e))
     gen = torch.Generator(device=device).manual_seed(WEIGHT_SEED)
     params = init_params(cfg, gen, torch.float32, device)
     if not args.serve_fp32:
         params = bf16_cast(params)
+    if args.int8:
+        params = quantize_params_int8(params)
+        print("SERVING_INT8 weight-only per-output-channel", flush=True)
     spec_kw = {}
     k_extra = 0
     if args.speculate:
@@ -220,7 +255,8 @@ def build_batcher(args: argparse.Namespace) -> PagedContinuousBatcher:
     return PagedContinuousBatcher(
         params, **cfg, slots=slots, prompt_pad=args.prompt_len,
         page_size=page, pool_pages=pool, dtype=dtype, device=device,
-        **spec_kw,
+        quant=args.int8, kv_dtype=args.kv_dtype,
+        decode_page_cache=args.decode_page_cache, **spec_kw,
     )
 
 
@@ -234,8 +270,11 @@ def run_decode(args: argparse.Namespace) -> Dict[str, object]:
     rng = np.random.RandomState(0)
     n_req = 2 * slots
     budgets = [max(args.steps * (1 + i % 4) // 4, 1) for i in range(n_req)]
-    launches0 = paged_decode_attention.launches
-    chunk_launches0 = paged_chunk_attention.launches
+    counters = ((paged_decode_attention, "launches"),
+                (paged_decode_attention, "int8_launches"),
+                (paged_chunk_attention, "launches"),
+                (paged_chunk_attention, "int8_launches"))
+    launches0 = [getattr(fn, attr) for fn, attr in counters]
 
     def wave():
         prompts = wave_requests(rng, n_req, args.vocab, args.prompt_len)
@@ -254,6 +293,8 @@ def run_decode(args: argparse.Namespace) -> Dict[str, object]:
     spec_steps += cb.stats["spec_steps"]
     ttft = sorted(cb.first_token_s.values())
     total = sum(len(v) for v in out.values())
+    k1, k1q, k2, k2q = (getattr(fn, attr) - n
+                        for (fn, attr), n in zip(counters, launches0))
     return {
         "first_decode_s": first_s,
         "tokens": total,
@@ -264,8 +305,12 @@ def run_decode(args: argparse.Namespace) -> Dict[str, object]:
         "admits": cb.stats["admits"],
         "decode_steps_total": steps,
         "layers": args.layers,
-        "k1_launches": paged_decode_attention.launches - launches0,
-        "k2_launches": paged_chunk_attention.launches - chunk_launches0,
+        "k1_launches": k1,
+        "k1q_launches": k1q,
+        "k2_launches": k2,
+        "k2q_launches": k2q,
+        "kv_dtype": cb.kv_dtype,
+        "pool_bytes": cb.pool_kv_bytes + cb.pool_scale_bytes,
         "spec_steps": cb.stats["spec_steps"],
         "spec_tokens": cb.stats["spec_tokens"],
         "draft_wraps": cb.stats["draft_wraps"],
@@ -399,7 +444,9 @@ def main(argv: Optional[List[str]] = None) -> int:
     print(
         f"K1_LAUNCHES paged_decode_attention={r['k1_launches']} "
         f"decode_steps={r['decode_steps_total']} layers={r['layers']} "
-        f"device={r['device']}",
+        f"device={r['device']} "
+        f"K1Q_LAUNCHES paged_decode_attention_int8={r['k1q_launches']} "
+        f"kv_dtype={r['kv_dtype']}",
         flush=True,
     )
     if args.speculate:
@@ -408,7 +455,8 @@ def main(argv: Optional[List[str]] = None) -> int:
             f"spec_tokens={r['spec_tokens']} "
             f"draft_wraps={r['draft_wraps']} k={args.spec_k} "
             f"K2_LAUNCHES paged_chunk_attention={r['k2_launches']} "
-            f"spec_steps_total={r['spec_steps_total']}",
+            f"spec_steps_total={r['spec_steps_total']} "
+            f"K2Q_LAUNCHES paged_chunk_attention_int8={r['k2q_launches']}",
             flush=True,
         )
     return 0

@@ -33,11 +33,26 @@
 // int32 (K2: rows attendable by query row 0, row j sees lengths + j); out
 // shaped as q, in q's dtype.  Scores, softmax state and the accumulator are
 // float32.
+//
+// K1q and K2q replace the same two Pallas bodies' quant=True branch: the
+// pools hold int8 and two (P, h) float32 arrays hold one scale per page per
+// head.  They are the same kernels instantiated with an int8 pool type TP:
+// each 16-byte load brings 16 int8 values of a row, which are cast to f32
+// and multiplied by the page's per-head scale (loaded once per page) before
+// the dot with q or the weighting by p -- the Pallas order; the scale is
+// never folded into q or the score.  A 16-byte int8 load covers 16 columns,
+// so 8 lanes read a 128-wide row and q (bf16 or f32) is loaded to the
+// pool's layout, two or four 16-byte loads a lane.  The bound halves with
+// the bytes: about 1 byte per live K/V element plus 8 bytes of scales per
+// live page and head.  The full-width instantiations (TP == T) compile as
+// before: the scale pointers are never read there.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -59,6 +74,45 @@ __device__ __forceinline__ void load16(const __nv_bfloat16* p,
     const float2 f = __bfloat1622float2(h2[i]);
     out[2 * i] = f.x;
     out[2 * i + 1] = f.y;
+  }
+}
+
+__device__ __forceinline__ void load16(const int8_t* p, float (&out)[16]) {
+  const int4 r = *reinterpret_cast<const int4*>(p);
+  const int8_t* v = reinterpret_cast<const int8_t*>(&r);
+#pragma unroll
+  for (int i = 0; i < 16; ++i) out[i] = static_cast<float>(v[i]);
+}
+
+// N consecutive elements widened to float32, in 16-byte loads: one load
+// when T is the pool's type, two or four when q (bf16 or f32) is read to an
+// int8 pool's layout.
+template <typename T, int N>
+__device__ __forceinline__ void load_floats(const T* p, float (&out)[N]) {
+  constexpr int kPer = 16 / sizeof(T);
+  static_assert(N % kPer == 0, "a lane reads whole 16-byte vectors");
+#pragma unroll
+  for (int c = 0; c < N / kPer; ++c) {
+    float f[kPer];
+    load16(p + c * kPer, f);
+#pragma unroll
+    for (int i = 0; i < kPer; ++i) out[c * kPer + i] = f[i];
+  }
+}
+
+template <typename TP>
+constexpr bool kQuantPool = std::is_same<TP, int8_t>::value;
+
+// One 16-byte vector of a pool row as float32; an int8 row is dequantized
+// by its page's per-head scale, cast first and multiplied after (the
+// explicitly rounded product keeps it from being contracted into the dot).
+template <typename TP, int N>
+__device__ __forceinline__ void load_pool(const TP* p, float scale,
+                                          float (&out)[N]) {
+  load16(p, out);
+  if constexpr (kQuantPool<TP>) {
+#pragma unroll
+    for (int i = 0; i < N; ++i) out[i] = __fmul_rn(out[i], scale);
   }
 }
 
@@ -93,12 +147,13 @@ __device__ __forceinline__ float block_sum(float v, float* red) {
   return r;
 }
 
-// Thread layout over one (page, HD) block: kLanes threads per row, each
-// holding kVec consecutive elements of the row; kRowGroups rows in
-// flight.  Thread t is lane t % kLanes of row group t / kLanes.
-template <typename T, int HD>
+// Thread layout over one (page, HD) block of a pool of element type TP:
+// kLanes threads per row, each holding kVec consecutive elements of the
+// row; kRowGroups rows in flight.  Thread t is lane t % kLanes of row group
+// t / kLanes.
+template <typename TP, int HD>
 struct Layout {
-  static constexpr int kVec = 16 / sizeof(T);
+  static constexpr int kVec = 16 / sizeof(TP);
   static constexpr int kLanes = HD / kVec;
   static constexpr int kRowGroups = kThreads / kLanes;
   static_assert(HD % kVec == 0 && kLanes <= 32 && 32 % kLanes == 0,
@@ -121,17 +176,19 @@ struct FoldState {
 // point at this head's (page, HD) block; n_rows (>= 1) rows lie below the
 // slot's length — the rest of the page is masked, which leaves max and
 // sums as if its scores were -inf.  s_smem holds one float per page row.
+// k_scale/v_scale dequantize an int8 page (unused at full width).
 // Shared by both kernels: K2 folds each of its query rows through this same
 // routine, which is what keeps its row j bit-identical to K1 at
 // length + j.  The multiply-adds are spelled as explicit round-to-nearest
 // intrinsics, which the compiler never contracts or reorders, so the two
 // kernels cannot round differently around the inlined copies.
-template <typename T, int HD>
+template <typename TP, int HD>
 __device__ __forceinline__ void fold_page(
-    const T* __restrict__ kpage, const T* __restrict__ vpage, int n_rows,
-    const float (&q)[Layout<T, HD>::kVec], float sm_scale, float* s_smem,
-    float* red, FoldState<Layout<T, HD>::kVec>& st) {
-  using L = Layout<T, HD>;
+    const TP* __restrict__ kpage, const TP* __restrict__ vpage,
+    float k_scale, float v_scale, int n_rows,
+    const float (&q)[Layout<TP, HD>::kVec], float sm_scale, float* s_smem,
+    float* red, FoldState<Layout<TP, HD>::kVec>& st) {
+  using L = Layout<TP, HD>;
   const int lane = threadIdx.x % L::kLanes;
   const int group = threadIdx.x / L::kLanes;
   // scores: each row group dots its rows with q across its kLanes lanes
@@ -140,7 +197,7 @@ __device__ __forceinline__ void fold_page(
     float part = 0.f;
     if (r < n_rows) {
       float kf[L::kVec];
-      load16(kpage + (size_t)r * HD + lane * L::kVec, kf);
+      load_pool(kpage + (size_t)r * HD + lane * L::kVec, k_scale, kf);
 #pragma unroll
       for (int i = 0; i < L::kVec; ++i) part = __fmaf_rn(q[i], kf[i], part);
     }
@@ -171,7 +228,7 @@ __device__ __forceinline__ void fold_page(
   for (int r = group; r < n_rows; r += L::kRowGroups) {
     const float p = s_smem[r];
     float vf[L::kVec];
-    load16(vpage + (size_t)r * HD + lane * L::kVec, vf);
+    load_pool(vpage + (size_t)r * HD + lane * L::kVec, v_scale, vf);
 #pragma unroll
     for (int i = 0; i < L::kVec; ++i) st.acc[i] = __fmaf_rn(p, vf[i], st.acc[i]);
   }
@@ -188,13 +245,14 @@ __device__ __forceinline__ void init_state(FoldState<VEC>& st) {
 }
 
 // Add up the row groups' partial accumulators of one query row, divide and
-// store its HD outputs at o; a row that attended nothing has l == 0 and
-// writes zeros.  accs holds kRowGroups * HD floats of shared memory; the
-// leading barrier lets a caller finish several rows through one buffer.
-template <typename T, int HD>
+// store its HD outputs at o (in q's type T); a row that attended nothing
+// has l == 0 and writes zeros.  accs holds kRowGroups * HD floats of shared
+// memory; the leading barrier lets a caller finish several rows through
+// one buffer.
+template <typename T, typename TP, int HD>
 __device__ __forceinline__ void finish_row(
-    const FoldState<Layout<T, HD>::kVec>& st, float* accs, T* o) {
-  using L = Layout<T, HD>;
+    const FoldState<Layout<TP, HD>::kVec>& st, float* accs, T* o) {
+  using L = Layout<TP, HD>;
   const int lane = threadIdx.x % L::kLanes;
   const int group = threadIdx.x / L::kLanes;
   __syncthreads();
@@ -211,14 +269,30 @@ __device__ __forceinline__ void finish_row(
   }
 }
 
-// grid (h, b); one block per (slot, head).
-template <typename T, int HD>
+// The per-head scales of one physical page: read once per page, by every
+// thread (one broadcast load each); 1 at full width, where nothing is read.
+template <typename TP>
+__device__ __forceinline__ void page_scales(const float* __restrict__ ks,
+                                            const float* __restrict__ vs,
+                                            size_t at, float& k, float& v) {
+  if constexpr (kQuantPool<TP>) {
+    k = ks[at];
+    v = vs[at];
+  } else {
+    k = v = 1.f;
+  }
+}
+
+// grid (h, b); one block per (slot, head).  T is q's and out's type, TP the
+// pool's (T at full width, int8 for K1q).
+template <typename T, typename TP, int HD>
 __global__ void __launch_bounds__(kThreads) paged_decode_kernel(
-    const T* __restrict__ q, const T* __restrict__ k_pool,
-    const T* __restrict__ v_pool, const int* __restrict__ table,
+    const T* __restrict__ q, const TP* __restrict__ k_pool,
+    const TP* __restrict__ v_pool, const float* __restrict__ k_scales,
+    const float* __restrict__ v_scales, const int* __restrict__ table,
     const int* __restrict__ lengths, T* __restrict__ out, int heads,
     int page, int table_width, float sm_scale) {
-  using L = Layout<T, HD>;
+  using L = Layout<TP, HD>;
   extern __shared__ float smem[];
   float* red = smem;            // kWarps floats (padded to 32)
   float* s_smem = smem + 32;    // page floats
@@ -227,7 +301,7 @@ __global__ void __launch_bounds__(kThreads) paged_decode_kernel(
   const int lane = threadIdx.x % L::kLanes;
 
   float qf[L::kVec];
-  load16(q + ((size_t)b * heads + h) * HD + lane * L::kVec, qf);
+  load_floats(q + ((size_t)b * heads + h) * HD + lane * L::kVec, qf);
   FoldState<L::kVec> st;
   init_state(st);
 
@@ -237,11 +311,14 @@ __global__ void __launch_bounds__(kThreads) paged_decode_kernel(
   for (int p = 0; p < n_live; ++p) {
     const int phys = table[(size_t)b * table_width + p];
     const size_t base = (((size_t)phys * heads + h) * page) * HD;
-    fold_page<T, HD>(k_pool + base, v_pool + base, min(page, len - p * page),
-                     qf, sm_scale, s_smem, red, st);
+    float ks, vs;
+    page_scales<TP>(k_scales, v_scales, (size_t)phys * heads + h, ks, vs);
+    fold_page<TP, HD>(k_pool + base, v_pool + base, ks, vs,
+                      min(page, len - p * page), qf, sm_scale, s_smem, red,
+                      st);
   }
   // s_smem is free once the walk is done: it holds the row groups' sums
-  finish_row<T, HD>(st, s_smem, out + ((size_t)b * heads + h) * HD);
+  finish_row<T, TP, HD>(st, s_smem, out + ((size_t)b * heads + h) * HD);
 }
 
 // Most query rows K2 takes: the online-softmax states of a window sit in
@@ -253,13 +330,14 @@ constexpr int kMaxRows = 8;
 // row j folds only if its own window reaches the page, and then exactly
 // the rows below len + j: the pages, row counts and fold K1 would see at
 // length len + j.
-template <typename T, int HD>
+template <typename T, typename TP, int HD>
 __global__ void __launch_bounds__(kThreads) paged_chunk_kernel(
-    const T* __restrict__ q, const T* __restrict__ k_pool,
-    const T* __restrict__ v_pool, const int* __restrict__ table,
+    const T* __restrict__ q, const TP* __restrict__ k_pool,
+    const TP* __restrict__ v_pool, const float* __restrict__ k_scales,
+    const float* __restrict__ v_scales, const int* __restrict__ table,
     const int* __restrict__ lengths, T* __restrict__ out, int rows,
     int heads, int page, int table_width, float sm_scale) {
-  using L = Layout<T, HD>;
+  using L = Layout<TP, HD>;
   extern __shared__ float smem[];
   float* red = smem;                      // kWarps floats (padded to 32)
   float* q_smem = smem + 32;              // rows * HD floats of q, widened
@@ -269,12 +347,12 @@ __global__ void __launch_bounds__(kThreads) paged_chunk_kernel(
   const int lane = threadIdx.x % L::kLanes;
 
   // stage the window's q rows in shared memory as float32: vector v of a
-  // row covers columns [v * kVec, (v + 1) * kVec)
+  // row covers columns [v * kVec, (v + 1) * kVec), the pool's layout
   for (int v = threadIdx.x; v < rows * L::kLanes; v += kThreads) {
     const int j = v / L::kLanes;
     const int c = (v % L::kLanes) * L::kVec;
     float f[L::kVec];
-    load16(q + (((size_t)b * rows + j) * heads + h) * HD + c, f);
+    load_floats(q + (((size_t)b * rows + j) * heads + h) * HD + c, f);
 #pragma unroll
     for (int i = 0; i < L::kVec; ++i) q_smem[j * HD + c + i] = f[i];
   }
@@ -291,6 +369,8 @@ __global__ void __launch_bounds__(kThreads) paged_chunk_kernel(
   for (int p = 0; p < n_live; ++p) {
     const int phys = table[(size_t)b * table_width + p];
     const size_t base = (((size_t)phys * heads + h) * page) * HD;
+    float ks, vs;
+    page_scales<TP>(k_scales, v_scales, (size_t)phys * heads + h, ks, vs);
 #pragma unroll
     for (int j = 0; j < kMaxRows; ++j) {
       const int limit = len + j;
@@ -300,22 +380,22 @@ __global__ void __launch_bounds__(kThreads) paged_chunk_kernel(
 #pragma unroll
         for (int i = 0; i < L::kVec; ++i)
           qf[i] = q_smem[j * HD + lane * L::kVec + i];
-        fold_page<T, HD>(k_pool + base, v_pool + base,
-                         min(page, limit - p * page), qf, sm_scale, s_smem,
-                         red, st[j]);
+        fold_page<TP, HD>(k_pool + base, v_pool + base, ks, vs,
+                          min(page, limit - p * page), qf, sm_scale, s_smem,
+                          red, st[j]);
       }
     }
   }
 #pragma unroll
   for (int j = 0; j < kMaxRows; ++j)
     if (j < rows)
-      finish_row<T, HD>(st[j], s_smem,
-                        out + (((size_t)b * rows + j) * heads + h) * HD);
+      finish_row<T, TP, HD>(st[j], s_smem,
+                            out + (((size_t)b * rows + j) * heads + h) * HD);
 }
 
-template <typename T, int HD>
+template <typename TP, int HD>
 size_t smem_floats(int page, int q_floats) {
-  using L = Layout<T, HD>;
+  using L = Layout<TP, HD>;
   return 32 + q_floats
          + (page > L::kRowGroups * HD ? page : L::kRowGroups * HD);
 }
@@ -327,37 +407,43 @@ cudaError_t allow_smem(Kernel kernel, size_t bytes) {
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
 }
 
-template <typename T, int HD>
+template <typename T, typename TP, int HD>
 cudaError_t launch(const void* q, const void* kp, const void* vp,
-                   const int* table, const int* lengths, void* out, int b,
-                   int h, int page, int table_width, float sm_scale,
-                   cudaStream_t stream) {
-  const size_t smem = smem_floats<T, HD>(page, 0) * sizeof(float);
-  auto kernel = paged_decode_kernel<T, HD>;
+                   const float* ks, const float* vs, const int* table,
+                   const int* lengths, void* out, int b, int h, int page,
+                   int table_width, float sm_scale, cudaStream_t stream) {
+  const size_t smem = smem_floats<TP, HD>(page, 0) * sizeof(float);
+  auto kernel = paged_decode_kernel<T, TP, HD>;
   cudaError_t e = allow_smem(kernel, smem);
   if (e != cudaSuccess) return e;
   kernel<<<dim3(h, b), kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(kp),
-      static_cast<const T*>(vp), table, lengths, static_cast<T*>(out), h,
-      page, table_width, sm_scale);
+      static_cast<const T*>(q), static_cast<const TP*>(kp),
+      static_cast<const TP*>(vp), ks, vs, table, lengths,
+      static_cast<T*>(out), h, page, table_width, sm_scale);
   return cudaGetLastError();
 }
 
-template <typename T, int HD>
+template <typename T, typename TP, int HD>
 cudaError_t launch_chunk(const void* q, const void* kp, const void* vp,
-                         const int* table, const int* lengths, void* out,
-                         int b, int rows, int h, int page, int table_width,
-                         float sm_scale, cudaStream_t stream) {
+                         const float* ks, const float* vs, const int* table,
+                         const int* lengths, void* out, int b, int rows,
+                         int h, int page, int table_width, float sm_scale,
+                         cudaStream_t stream) {
   const size_t smem =
-      smem_floats<T, HD>(page, kMaxRows * HD) * sizeof(float);
-  auto kernel = paged_chunk_kernel<T, HD>;
+      smem_floats<TP, HD>(page, kMaxRows * HD) * sizeof(float);
+  auto kernel = paged_chunk_kernel<T, TP, HD>;
   cudaError_t e = allow_smem(kernel, smem);
   if (e != cudaSuccess) return e;
   kernel<<<dim3(h, b), kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(kp),
-      static_cast<const T*>(vp), table, lengths, static_cast<T*>(out), rows,
-      h, page, table_width, sm_scale);
+      static_cast<const T*>(q), static_cast<const TP*>(kp),
+      static_cast<const TP*>(vp), ks, vs, table, lengths,
+      static_cast<T*>(out), rows, h, page, table_width, sm_scale);
   return cudaGetLastError();
+}
+
+bool bad_geometry(int b, int h, int hd, int page) {
+  return b <= 0 || h <= 0 || h > 65535 || b > 65535 || page <= 0 ||
+         hd != 128;
 }
 
 }  // namespace
@@ -375,15 +461,40 @@ int kg_paged_decode_attention(int dtype, const void* q, const void* k_pool,
   const int* tbl = static_cast<const int*>(table);
   const int* len = static_cast<const int*>(lengths);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (b <= 0 || h <= 0 || h > 65535 || b > 65535 || page <= 0)
-    return (int)cudaErrorInvalidValue;
-  if (dtype == 0 && hd == 128)
-    return (int)launch<float, 128>(q, k_pool, v_pool, tbl, len, out, b, h,
-                                   page, table_width, sm_scale, s);
-  if (dtype == 1 && hd == 128)
-    return (int)launch<__nv_bfloat16, 128>(q, k_pool, v_pool, tbl, len, out,
-                                           b, h, page, table_width,
+  if (bad_geometry(b, h, hd, page)) return (int)cudaErrorInvalidValue;
+  if (dtype == 0)
+    return (int)launch<float, float, 128>(q, k_pool, v_pool, nullptr,
+                                          nullptr, tbl, len, out, b, h, page,
+                                          table_width, sm_scale, s);
+  if (dtype == 1)
+    return (int)launch<__nv_bfloat16, __nv_bfloat16, 128>(
+        q, k_pool, v_pool, nullptr, nullptr, tbl, len, out, b, h, page,
+        table_width, sm_scale, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// K1q: int8 pools with (P, h) float32 k/v scales; dtype is q's and out's.
+int kg_paged_decode_attention_int8(int dtype, const void* q,
+                                   const void* k_pool, const void* v_pool,
+                                   const void* k_scale, const void* v_scale,
+                                   const void* table, const void* lengths,
+                                   void* out, int b, int h, int hd, int page,
+                                   int table_width, float sm_scale,
+                                   void* stream) {
+  const float* ks = static_cast<const float*>(k_scale);
+  const float* vs = static_cast<const float*>(v_scale);
+  const int* tbl = static_cast<const int*>(table);
+  const int* len = static_cast<const int*>(lengths);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (bad_geometry(b, h, hd, page)) return (int)cudaErrorInvalidValue;
+  if (dtype == 0)
+    return (int)launch<float, int8_t, 128>(q, k_pool, v_pool, ks, vs, tbl,
+                                           len, out, b, h, page, table_width,
                                            sm_scale, s);
+  if (dtype == 1)
+    return (int)launch<__nv_bfloat16, int8_t, 128>(
+        q, k_pool, v_pool, ks, vs, tbl, len, out, b, h, page, table_width,
+        sm_scale, s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -396,17 +507,42 @@ int kg_paged_chunk_attention(int dtype, const void* q, const void* k_pool,
   const int* tbl = static_cast<const int*>(table);
   const int* len = static_cast<const int*>(lengths);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (b <= 0 || h <= 0 || h > 65535 || b > 65535 || page <= 0 ||
-      rows < 1 || rows > kMaxRows)
+  if (bad_geometry(b, h, hd, page) || rows < 1 || rows > kMaxRows)
     return (int)cudaErrorInvalidValue;
-  if (dtype == 0 && hd == 128)
-    return (int)launch_chunk<float, 128>(q, k_pool, v_pool, tbl, len, out, b,
-                                         rows, h, page, table_width,
-                                         sm_scale, s);
-  if (dtype == 1 && hd == 128)
-    return (int)launch_chunk<__nv_bfloat16, 128>(q, k_pool, v_pool, tbl, len,
-                                                 out, b, rows, h, page,
-                                                 table_width, sm_scale, s);
+  if (dtype == 0)
+    return (int)launch_chunk<float, float, 128>(
+        q, k_pool, v_pool, nullptr, nullptr, tbl, len, out, b, rows, h, page,
+        table_width, sm_scale, s);
+  if (dtype == 1)
+    return (int)launch_chunk<__nv_bfloat16, __nv_bfloat16, 128>(
+        q, k_pool, v_pool, nullptr, nullptr, tbl, len, out, b, rows, h, page,
+        table_width, sm_scale, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// K2q: K2 over int8 pools with (P, h) float32 k/v scales.
+int kg_paged_chunk_attention_int8(int dtype, const void* q,
+                                  const void* k_pool, const void* v_pool,
+                                  const void* k_scale, const void* v_scale,
+                                  const void* table, const void* lengths,
+                                  void* out, int b, int rows, int h, int hd,
+                                  int page, int table_width, float sm_scale,
+                                  void* stream) {
+  const float* ks = static_cast<const float*>(k_scale);
+  const float* vs = static_cast<const float*>(v_scale);
+  const int* tbl = static_cast<const int*>(table);
+  const int* len = static_cast<const int*>(lengths);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (bad_geometry(b, h, hd, page) || rows < 1 || rows > kMaxRows)
+    return (int)cudaErrorInvalidValue;
+  if (dtype == 0)
+    return (int)launch_chunk<float, int8_t, 128>(
+        q, k_pool, v_pool, ks, vs, tbl, len, out, b, rows, h, page,
+        table_width, sm_scale, s);
+  if (dtype == 1)
+    return (int)launch_chunk<__nv_bfloat16, int8_t, 128>(
+        q, k_pool, v_pool, ks, vs, tbl, len, out, b, rows, h, page,
+        table_width, sm_scale, s);
   return (int)cudaErrorInvalidValue;
 }
 

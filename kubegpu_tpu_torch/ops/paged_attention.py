@@ -2,10 +2,10 @@
 decode step) or a window of L query tokens per slot (the speculative
 verify).
 
-The port of ``kubegpu_tpu/ops/paged_attention.py``'s full-width paths.
-A per-slot PAGE TABLE maps logical cache pages to physical pages of a
-pool shared by every slot; attention walks the table with an f32 online
-softmax and reads only the slot's live pages.
+The port of ``kubegpu_tpu/ops/paged_attention.py``.  A per-slot PAGE
+TABLE maps logical cache pages to physical pages of a pool shared by
+every slot; attention walks the table with an f32 online softmax and
+reads only the slot's live pages.
 
 Single query (K1), three functions that compute the same thing:
 
@@ -37,6 +37,18 @@ Layouts as in the JAX package: q ``(b, h, hd)`` (K1) or
 are never read); lengths ``(b,)`` int32 attendable rows (of query row 0
 for K2).  The result has q's shape and dtype; a row with nothing to
 attend returns zeros.
+
+Quantized pools (K1q, K2q): both entry points and both twins take
+optional ``k_scale``/``v_scale`` — ``(pool_pages, h)`` float32, one
+symmetric scale per page per head, given together or not at all.  The
+pools then hold int8 and each page block is cast to f32 and multiplied
+by its per-head scale before the fold, in the Pallas kernels' order
+(the twins and the CUDA kernels alike; the scale is never folded into q
+or the score).  :func:`quantize_pages` / :func:`dequantize_pages` are
+the pool's storage codec; the dense oracles take dequantized pools.
+The int8 variants count their launches apart:
+``paged_decode_attention.int8_launches`` and
+``paged_chunk_attention.int8_launches``.
 """
 
 from __future__ import annotations
@@ -49,7 +61,8 @@ import torch
 from kubegpu_tpu_torch.ops import _build
 
 NEG_INF = float("-inf")
-# the head width and dtypes the kernel is instantiated for
+# the head width and dtypes the kernel is instantiated for (q and out;
+# a full-width pool stores q's dtype, a quantized one int8)
 KERNEL_HEAD_DIM = 128
 KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # one f32 score per page row sits in shared memory
@@ -57,6 +70,27 @@ MAX_KERNEL_PAGE = 4096
 # K2 keeps one online-softmax state per query row in registers: a verify
 # window of k+1 rows, k <= 7
 MAX_KERNEL_ROWS = 8
+
+
+def dequantize_pages(data, scale, dtype=torch.float32):
+    """Expand a quantized pool to full width: ``data`` (P, h, page, hd)
+    int8 times ``scale`` (P, h) broadcast over (page, hd), in float32,
+    then cast to ``dtype``."""
+    return (data.float() * scale[:, :, None, None]).to(dtype)
+
+
+def quantize_pages(pages):
+    """Per-page, per-head symmetric int8 quantization of full-width pages
+    ``(n, h, page, hd)``: returns ``(int8 data, (n, h) float32 scales)``
+    with ``scale = amax / 127`` over each page's ``(page, hd)`` block per
+    head.  An all-zero block keeps scale 0 and dequantizes to exact
+    zeros.  ``torch.round`` rounds half to even, as ``jnp.round`` does;
+    the value is clipped before the cast."""
+    f = pages.float()
+    scale = f.abs().amax(dim=(2, 3)) / 127.0
+    safe = torch.where(scale > 0, scale, 1.0)
+    data = torch.clamp(torch.round(f / safe[:, :, None, None]), -127, 127)
+    return data.to(torch.int8), scale
 
 
 def reference_paged_attention(q, k_pool, v_pool, page_table, lengths):
@@ -129,7 +163,17 @@ def _fold_page(state, qf, k, v, first_col, limit, sm_scale):
             torch.where(live, acc_new, acc))
 
 
-def _fold_slots(q, k_pool, v_pool, tbl, limit):
+def _page_block(pool, scale, ids):
+    """The slots' page ``ids`` (b,) of a pool as f32 ``(b, h, page, hd)``,
+    dequantized by the per-head ``scale`` when the pool is int8 (cast,
+    then multiply: the Pallas kernels' order)."""
+    blk = pool[ids].float()
+    if scale is not None:
+        blk = blk * scale[ids][:, :, None, None]
+    return blk
+
+
+def _fold_slots(q, k_pool, v_pool, tbl, limit, k_scale=None, v_scale=None):
     """One query row per slot, ``q`` (b, h, hd), folded over the slot's
     pages below ``limit`` (b,) int64 in table order; returns the f32
     result ``acc / (l if l else 1)`` (zeros where nothing is
@@ -143,66 +187,97 @@ def _fold_slots(q, k_pool, v_pool, tbl, limit):
              torch.zeros((b, h, hd), device=q.device))
     n_live = int(((limit + page - 1) // page).clamp(min=0).max().item()) if b else 0
     for p_i in range(min(n_live, tbl.shape[1])):
-        state = _fold_page(state, qf, k_pool[tbl[:, p_i]].float(),
-                           v_pool[tbl[:, p_i]].float(), p_i * page, limit,
-                           sm_scale)
+        ids = tbl[:, p_i]
+        state = _fold_page(state, qf, _page_block(k_pool, k_scale, ids),
+                           _page_block(v_pool, v_scale, ids), p_i * page,
+                           limit, sm_scale)
     _, l, acc = state
     return acc / torch.where(l == 0.0, 1.0, l)
 
 
-def paged_decode_attention_plain(q, k_pool, v_pool, page_table, lengths):
-    """The K1 kernel's plain twin: fold each slot's live pages in table
-    order into f32 running max ``m``, denominator ``l`` and numerator
-    ``acc`` (:func:`_fold_page`) and finalize with
-    ``acc / (l if l else 1)``."""
-    return _fold_slots(q, k_pool, v_pool, page_table.long(),
-                       lengths.long()).to(q.dtype)
+def paged_decode_attention_plain(q, k_pool, v_pool, page_table, lengths,
+                                 k_scale=None, v_scale=None):
+    """The K1 (and, with scales, K1q) kernel's plain twin: fold each
+    slot's live pages in table order into f32 running max ``m``,
+    denominator ``l`` and numerator ``acc`` (:func:`_fold_page`) and
+    finalize with ``acc / (l if l else 1)``."""
+    _scales_paired(k_scale, v_scale)
+    return _fold_slots(q, k_pool, v_pool, page_table.long(), lengths.long(),
+                       k_scale, v_scale).to(q.dtype)
 
 
-def paged_chunk_attention_plain(q, k_pool, v_pool, page_table, lengths):
-    """The K2 kernel's plain twin: query row j goes through the K1 twin's
-    fold with limit ``lengths + j`` — so row j equals
+def paged_chunk_attention_plain(q, k_pool, v_pool, page_table, lengths,
+                                k_scale=None, v_scale=None):
+    """The K2 (K2q) kernel's plain twin: query row j goes through the K1
+    twin's fold with limit ``lengths + j`` — so row j equals
     :func:`paged_decode_attention_plain` at ``lengths + j`` bit for
     bit."""
+    _scales_paired(k_scale, v_scale)
     tbl, lengths = page_table.long(), lengths.long()
     rows = [_fold_slots(q[:, j].contiguous(), k_pool, v_pool, tbl,
-                        lengths + j) for j in range(q.shape[1])]
+                        lengths + j, k_scale, v_scale)
+            for j in range(q.shape[1])]
     return torch.stack(rows, 1).to(q.dtype)
 
 
-def check_kernel_args(q, k_pool, v_pool, page_table, lengths) -> None:
-    """Raise ``ValueError`` unless K1 takes these operands."""
+def _scales_paired(k_scale, v_scale) -> None:
+    if (k_scale is None) != (v_scale is None):
+        raise ValueError("k_scale and v_scale come together or not at all")
+
+
+def check_kernel_args(q, k_pool, v_pool, page_table, lengths,
+                      k_scale=None, v_scale=None) -> None:
+    """Raise ``ValueError`` unless K1 (K1q, with scales) takes these
+    operands."""
     if q.dim() != 3:
         raise ValueError(f"q must be (b, h, hd), got {tuple(q.shape)}")
     _check_operands(q, q.shape[0], *q.shape[1:], k_pool, v_pool,
-                    page_table, lengths)
+                    page_table, lengths, k_scale, v_scale)
 
 
-def check_chunk_args(q, k_pool, v_pool, page_table, lengths) -> None:
-    """Raise ``ValueError`` unless K2 takes these operands."""
+def check_chunk_args(q, k_pool, v_pool, page_table, lengths,
+                     k_scale=None, v_scale=None) -> None:
+    """Raise ``ValueError`` unless K2 (K2q, with scales) takes these
+    operands."""
     if q.dim() != 4:
         raise ValueError(f"q must be (b, L, h, hd), got {tuple(q.shape)}")
     if not 1 <= q.shape[1] <= MAX_KERNEL_ROWS:
         raise ValueError(f"window of {q.shape[1]} query rows outside "
                          f"[1, {MAX_KERNEL_ROWS}]")
     _check_operands(q, q.shape[0], *q.shape[2:], k_pool, v_pool,
-                    page_table, lengths)
+                    page_table, lengths, k_scale, v_scale)
 
 
-def _check_operands(q, b, h, hd, k_pool, v_pool, page_table, lengths) -> None:
+def _check_operands(q, b, h, hd, k_pool, v_pool, page_table, lengths,
+                    k_scale, v_scale) -> None:
+    _scales_paired(k_scale, v_scale)
     if k_pool.dim() != 4 or k_pool.shape != v_pool.shape:
         raise ValueError(f"pools must be (P, h, page, hd) pairs: "
                          f"{tuple(k_pool.shape)} / {tuple(v_pool.shape)}")
-    _, hp, page, hdp = k_pool.shape
+    n_pool, hp, page, hdp = k_pool.shape
     if (hp, hdp) != (h, hd):
         raise ValueError(f"pool heads/width {(hp, hdp)} != q's {(h, hd)}")
     tensors = (q, k_pool, v_pool, page_table, lengths)
+    if k_scale is not None:
+        tensors += (k_scale, v_scale)
     if any(t.device != q.device for t in tensors):
-        raise ValueError("q, pools, table and lengths must share a device")
+        raise ValueError("q, pools, scales, table and lengths must share a "
+                         "device")
     if q.dtype not in KERNEL_DTYPES:
         raise ValueError(f"kernel takes float32 or bfloat16, got {q.dtype}")
-    if k_pool.dtype != q.dtype or v_pool.dtype != q.dtype:
-        raise ValueError(f"pool dtype {k_pool.dtype} != q dtype {q.dtype}")
+    if k_scale is None:
+        if k_pool.dtype != q.dtype or v_pool.dtype != q.dtype:
+            raise ValueError(
+                f"pool dtype {k_pool.dtype} != q dtype {q.dtype}")
+    else:
+        if k_pool.dtype != torch.int8 or v_pool.dtype != torch.int8:
+            raise ValueError(f"a scaled pool must be int8, got "
+                             f"{k_pool.dtype} / {v_pool.dtype}")
+        for s in (k_scale, v_scale):
+            if s.dtype != torch.float32 or tuple(s.shape) != (n_pool, h):
+                raise ValueError(
+                    f"scales must be ({n_pool}, {h}) float32, got "
+                    f"{tuple(s.shape)} {s.dtype}")
     if hd != KERNEL_HEAD_DIM:
         raise ValueError(f"kernel takes head_dim {KERNEL_HEAD_DIM}, got {hd}")
     if not 1 <= page <= MAX_KERNEL_PAGE:
@@ -218,44 +293,56 @@ def _check_operands(q, b, h, hd, k_pool, v_pool, page_table, lengths) -> None:
         raise ValueError("q and pools must be 16-byte aligned")
 
 
-def _launch_kernel(q, k_pool, v_pool, page_table, lengths,
-                   checked: bool) -> torch.Tensor:
+def _launch_kernel(q, k_pool, v_pool, page_table, lengths, k_scale,
+                   v_scale, checked: bool) -> torch.Tensor:
     if not checked:
-        check_kernel_args(q, k_pool, v_pool, page_table, lengths)
+        check_kernel_args(q, k_pool, v_pool, page_table, lengths, k_scale,
+                          v_scale)
     lib = _build.load("paged_attention")
     b, h, hd = q.shape
     out = torch.empty_like(q)
     if b == 0:
         return out
-    rc = lib.kg_paged_decode_attention(
-        KERNEL_DTYPES[q.dtype], q.data_ptr(), k_pool.data_ptr(),
-        v_pool.data_ptr(), page_table.data_ptr(), lengths.data_ptr(),
-        out.data_ptr(), b, h, hd, k_pool.shape[2], page_table.shape[1],
-        1.0 / math.sqrt(hd),
-        torch.cuda.current_stream(q.device).cuda_stream,
-    )
-    paged_decode_attention.launches += 1
+    operands = (q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr())
+    tail = (page_table.data_ptr(), lengths.data_ptr(), out.data_ptr(), b, h,
+            hd, k_pool.shape[2], page_table.shape[1], 1.0 / math.sqrt(hd),
+            torch.cuda.current_stream(q.device).cuda_stream)
+    if k_scale is None:
+        rc = lib.kg_paged_decode_attention(KERNEL_DTYPES[q.dtype],
+                                           *operands, *tail)
+        paged_decode_attention.launches += 1
+    else:
+        rc = lib.kg_paged_decode_attention_int8(
+            KERNEL_DTYPES[q.dtype], *operands, k_scale.data_ptr(),
+            v_scale.data_ptr(), *tail)
+        paged_decode_attention.int8_launches += 1
     _raise_on(lib, rc, "paged decode attention")
     return out
 
 
-def _launch_chunk_kernel(q, k_pool, v_pool, page_table, lengths,
-                         checked: bool) -> torch.Tensor:
+def _launch_chunk_kernel(q, k_pool, v_pool, page_table, lengths, k_scale,
+                         v_scale, checked: bool) -> torch.Tensor:
     if not checked:
-        check_chunk_args(q, k_pool, v_pool, page_table, lengths)
+        check_chunk_args(q, k_pool, v_pool, page_table, lengths, k_scale,
+                         v_scale)
     lib = _build.load("paged_attention")
     b, L, h, hd = q.shape
     out = torch.empty_like(q)
     if b == 0:
         return out
-    rc = lib.kg_paged_chunk_attention(
-        KERNEL_DTYPES[q.dtype], q.data_ptr(), k_pool.data_ptr(),
-        v_pool.data_ptr(), page_table.data_ptr(), lengths.data_ptr(),
-        out.data_ptr(), b, L, h, hd, k_pool.shape[2], page_table.shape[1],
-        1.0 / math.sqrt(hd),
-        torch.cuda.current_stream(q.device).cuda_stream,
-    )
-    paged_chunk_attention.launches += 1
+    operands = (q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr())
+    tail = (page_table.data_ptr(), lengths.data_ptr(), out.data_ptr(), b, L,
+            h, hd, k_pool.shape[2], page_table.shape[1], 1.0 / math.sqrt(hd),
+            torch.cuda.current_stream(q.device).cuda_stream)
+    if k_scale is None:
+        rc = lib.kg_paged_chunk_attention(KERNEL_DTYPES[q.dtype],
+                                          *operands, *tail)
+        paged_chunk_attention.launches += 1
+    else:
+        rc = lib.kg_paged_chunk_attention_int8(
+            KERNEL_DTYPES[q.dtype], *operands, k_scale.data_ptr(),
+            v_scale.data_ptr(), *tail)
+        paged_chunk_attention.int8_launches += 1
     _raise_on(lib, rc, "paged chunk attention")
     return out
 
@@ -267,39 +354,45 @@ def _raise_on(lib, rc: int, what: str) -> None:
 
 
 def paged_decode_attention(q, k_pool, v_pool, page_table, lengths, *,
+                           k_scale=None, v_scale=None,
                            checked: bool = False):
     """Single-token attention over paged KV for every slot (see the
-    module docstring for shapes).  CUDA tensors launch the Hopper kernel
-    or raise; CPU tensors take :func:`paged_decode_attention_plain`.
-    ``checked=True`` skips :func:`check_kernel_args`, for a caller that
-    already ran it on the same layout."""
+    module docstring for shapes; ``k_scale``/``v_scale`` make it K1q over
+    an int8 pool).  CUDA tensors launch the Hopper kernel or raise; CPU
+    tensors take :func:`paged_decode_attention_plain`.  ``checked=True``
+    skips :func:`check_kernel_args`, for a caller that already ran it on
+    the same layout."""
     if q.is_cuda:
         return _launch_kernel(q, k_pool, v_pool, page_table, lengths,
-                              checked)
+                              k_scale, v_scale, checked)
     return paged_decode_attention_plain(q, k_pool, v_pool, page_table,
-                                        lengths)
+                                        lengths, k_scale, v_scale)
 
 
-paged_decode_attention.launches = 0
+paged_decode_attention.launches = 0        # K1
+paged_decode_attention.int8_launches = 0   # K1q
 
 
 def paged_chunk_attention(q, k_pool, v_pool, page_table, lengths, *,
+                          k_scale=None, v_scale=None,
                           checked: bool = False):
     """Multi-query attention over paged KV: L query rows per slot, row j
     attending columns ``< lengths + j`` — a speculative verify window
     whose L rows' K/V are already in the pool (see the module docstring
-    for shapes).  CUDA tensors launch the Hopper kernel or raise; CPU
-    tensors take :func:`paged_chunk_attention_plain`.  ``checked=True``
-    skips :func:`check_chunk_args`, for a caller that already ran it on
-    the same layout."""
+    for shapes; ``k_scale``/``v_scale`` make it K2q over an int8 pool).
+    CUDA tensors launch the Hopper kernel or raise; CPU tensors take
+    :func:`paged_chunk_attention_plain`.  ``checked=True`` skips
+    :func:`check_chunk_args`, for a caller that already ran it on the
+    same layout."""
     if q.is_cuda:
         return _launch_chunk_kernel(q, k_pool, v_pool, page_table, lengths,
-                                    checked)
+                                    k_scale, v_scale, checked)
     return paged_chunk_attention_plain(q, k_pool, v_pool, page_table,
-                                       lengths)
+                                       lengths, k_scale, v_scale)
 
 
-paged_chunk_attention.launches = 0
+paged_chunk_attention.launches = 0         # K2
+paged_chunk_attention.int8_launches = 0    # K2q
 
 
 def _declare(lib: ctypes.CDLL) -> None:
@@ -315,6 +408,17 @@ def _declare(lib: ctypes.CDLL) -> None:
         i32, i32, i32, i32, i32, i32, ctypes.c_float, ptr,
     ]
     lib.kg_paged_chunk_attention.restype = ctypes.c_int
+    # the int8 variants take the two scale pointers after the pools
+    lib.kg_paged_decode_attention_int8.argtypes = [
+        i32, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr,
+        i32, i32, i32, i32, i32, ctypes.c_float, ptr,
+    ]
+    lib.kg_paged_decode_attention_int8.restype = ctypes.c_int
+    lib.kg_paged_chunk_attention_int8.argtypes = [
+        i32, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr,
+        i32, i32, i32, i32, i32, i32, ctypes.c_float, ptr,
+    ]
+    lib.kg_paged_chunk_attention_int8.restype = ctypes.c_int
     lib.kg_cuda_error_string.argtypes = [ctypes.c_int]
     lib.kg_cuda_error_string.restype = ctypes.c_char_p
 

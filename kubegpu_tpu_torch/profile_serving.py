@@ -1,10 +1,13 @@
 """Where a steady decode step's time goes on the card, at the flagship
 LM's full width (the configuration ``chip_smoke.py`` serves).
 
-    python -m kubegpu_tpu_torch.profile_serving [--speculate [--spec-k K]]
+    python -m kubegpu_tpu_torch.profile_serving [--speculate [--spec-k K]] \
+        [--kv-dtype int8] [--int8]
 
 Builds the worker's batcher (vocab 32768, hidden 4096, 4 layers, 32
-heads, bf16, page 128, 8 slots), fills every slot with a 128-token
+heads, bf16, page 128, 8 slots; the extra arguments are the worker's, so
+``--kv-dtype int8`` profiles the int8 pool with K1q/K2q and ``--int8``
+weight-only int8), fills every slot with a 128-token
 prompt and a budget that outlasts the measurement, and once all eight
 are decoding:
 
@@ -130,8 +133,9 @@ def main(argv=None) -> int:
                  if "paged_decode_kernel" in name)
         k2 = sum(ms for name, (ms, _) in kernels.items()
                  if "paged_chunk_kernel" in name)
-        print(f"profile: K1 {k1 / WINDOW * 1e3:.1f} us/step "
-              f"({k1 / busy * 100:.1f}% of device time), K2 "
+        # the kernel names match the full-width and int8 instantiations
+        print(f"profile: K1/K1q {k1 / WINDOW * 1e3:.1f} us/step "
+              f"({k1 / busy * 100:.1f}% of device time), K2/K2q "
               f"{k2 / WINDOW * 1e3:.1f} us/step ({k2 / busy * 100:.1f}%)",
               flush=True)
         summary.update(device_busy_ms_per_step=busy / WINDOW,

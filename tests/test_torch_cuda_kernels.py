@@ -1,6 +1,7 @@
-"""The port's hand-written CUDA kernels (K1, K2; flash attention K3, K4,
-K5) against their plain PyTorch twins, on a card only (``-m cuda``; they
-skip without a CUDA device).
+"""The port's hand-written CUDA kernels (K1, K2 and their int8-scale
+variants K1q, K2q; flash attention K3, K4, K5) against their plain
+PyTorch twins, on a card only (``-m cuda``; they skip without a CUDA
+device).
 
 This file imports no JAX, so it also runs where only PyTorch is
 installed:
@@ -28,6 +29,7 @@ from kubegpu_tpu_torch.ops.paged_attention import (
     paged_chunk_attention_plain,
     paged_decode_attention,
     paged_decode_attention_plain,
+    quantize_pages,
 )
 
 # the reference's own kernel tolerance (tests/test_paging.py)
@@ -271,3 +273,123 @@ def test_flash_wrapper_raises_on_cuda_tensors_it_cannot_take(cuda_device):
     q = torch.zeros((1, 16, 2, 12), device=cuda_device)
     with pytest.raises(ValueError, match="multiple of 8"):
         flash_forward(q, q, q, True)
+
+
+def make_quant_case(seed, lengths, L, h=8, hd=128, page=128, n_pages=4,
+                    pool=30):
+    """K1q/K2q inputs: int8 pools with (pool, h) float32 scales from
+    :func:`quantize_pages` of random data, a window of L query rows (row
+    0 is K1q's query), shuffled tables."""
+    q, kp, vp, table, lengths = make_chunk_case(seed, lengths, L, h=h, hd=hd,
+                                                page=page, n_pages=n_pages,
+                                                pool=pool)
+    kd, ks = quantize_pages(torch.from_numpy(kp))
+    vd, vs = quantize_pages(torch.from_numpy(vp))
+    return q, kd, vd, ks, vs, table, lengths
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype, rtol, atol", [
+    (torch.float32, F32_TOL, F32_TOL),
+    (torch.bfloat16, BF16_RTOL, BF16_ATOL),
+])
+def test_quant_kernels_match_their_twins_on_the_card(cuda_device, dtype,
+                                                     rtol, atol):
+    """K1q and K2q within tolerance of their plain twins, counted apart
+    from K1 and K2; K2q's row j equal to K1q at lengths + j bit for bit,
+    and a one-row window equal to K1q."""
+    L = 5
+    q, kd, vd, ks, vs, table, lengths = make_quant_case(
+        11, [0, 1, 124, 127, 128, 300, 508], L)
+    qt = torch.from_numpy(q).to(cuda_device, dtype)
+    kd, vd, ks, vs = (t.to(cuda_device) for t in (kd, vd, ks, vs))
+    tbl = torch.from_numpy(table).to(cuda_device)
+    ln = torch.from_numpy(lengths).to(cuda_device)
+    scales = dict(k_scale=ks, v_scale=vs)
+    before = (paged_decode_attention.launches,
+              paged_decode_attention.int8_launches,
+              paged_chunk_attention.launches,
+              paged_chunk_attention.int8_launches)
+    one = paged_decode_attention(qt[:, 0].contiguous(), kd, vd, tbl, ln,
+                                 **scales)
+    out = paged_chunk_attention(qt, kd, vd, tbl, ln, **scales)
+    assert (paged_decode_attention.launches,
+            paged_decode_attention.int8_launches,
+            paged_chunk_attention.launches,
+            paged_chunk_attention.int8_launches) == (
+        before[0], before[1] + 1, before[2], before[3] + 1)
+    torch.testing.assert_close(
+        one.float(), paged_decode_attention_plain(
+            qt[:, 0].contiguous(), kd, vd, tbl, ln, ks, vs).float(),
+        rtol=rtol, atol=atol)
+    torch.testing.assert_close(
+        out.float(), paged_chunk_attention_plain(qt, kd, vd, tbl, ln, ks,
+                                                 vs).float(),
+        rtol=rtol, atol=atol)
+    assert (one[0] == 0).all() and (out[0, 0] == 0).all()
+    for j in range(L):
+        single = paged_decode_attention(qt[:, j].contiguous(), kd, vd, tbl,
+                                        ln + j, **scales)
+        assert torch.equal(out[:, j], single), f"window row {j} diverged"
+    window = paged_chunk_attention(qt[:, :1].contiguous(), kd, vd, tbl, ln,
+                                   **scales)
+    assert torch.equal(window[:, 0], one)
+
+
+@pytest.mark.cuda
+def test_quant_wrapper_raises_on_cuda_tensors_it_cannot_take(cuda_device):
+    q, kd, vd, ks, vs, table, lengths = make_quant_case(12, [3, 9], 1)
+    args = [torch.from_numpy(q[:, 0]).to(cuda_device), kd.to(cuda_device),
+            vd.to(cuda_device), torch.from_numpy(table).to(cuda_device),
+            torch.from_numpy(lengths).to(cuda_device)]
+    with pytest.raises(ValueError, match="scales must be"):
+        paged_decode_attention(*args, k_scale=ks[:3].to(cuda_device),
+                               v_scale=vs[:3].to(cuda_device))
+    with pytest.raises(ValueError, match="must be int8"):
+        paged_decode_attention(args[0], args[0].new_zeros(kd.shape),
+                               args[0].new_zeros(vd.shape), *args[3:],
+                               k_scale=ks.to(cuda_device),
+                               v_scale=vs.to(cuda_device))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("spec", [False, True], ids=["plain", "spec-k3"])
+def test_int8_batcher_on_the_card_matches_the_cpu_at_fp32(cuda_device, spec):
+    """The int8 pool with quantized sealing, plain (K1q) and speculative
+    (K2q, an int8 draft ring): card and CPU streams identical at fp32,
+    pipelined and synchronous, with the launch counts of the path."""
+    from kubegpu_tpu_torch.models.paging import PagedContinuousBatcher
+    from kubegpu_tpu_torch.models.params import init_params
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dict(vocab_size=97, num_layers=2, num_heads=2, hidden=256,
+               max_seq=64)
+    params = init_params(cfg, torch.Generator().manual_seed(0),
+                         torch.float32, "cpu")
+    rng = np.random.RandomState(0)
+    shared = rng.randint(0, 97, size=12).astype(np.int32)
+    prompts = [np.concatenate([shared, rng.randint(0, 97, size=n)])
+               .astype(np.int32) for n in (3, 8, 1, 5, 11)]
+    budgets = [20, 9, 15, 30, 12]
+    kw = dict(cfg, slots=2, prompt_pad=24, page_size=8, pool_pages=24,
+              token_budget=12, dtype=torch.float32, kv_dtype="int8",
+              decode_page_cache="quantized")
+    if spec:
+        kw.update(draft_params=params, speculate_k=3, draft_num_layers=2,
+                  draft_num_heads=2, draft_hidden=256)
+    want = PagedContinuousBatcher(params, device="cpu", **kw).run(prompts,
+                                                                  budgets)
+    for pipeline in (True, False):
+        card = PagedContinuousBatcher(params, device=cuda_device,
+                                      pipeline_decode=pipeline, **kw)
+        counts = (paged_decode_attention, paged_chunk_attention)
+        before = [(fn.launches, fn.int8_launches) for fn in counts]
+        assert card.run(prompts, budgets) == want
+        (k1, k1q), (k2, k2q) = [(fn.launches - a, fn.int8_launches - b)
+                                for fn, (a, b) in zip(counts, before)]
+        steps = card.stats["spec_steps" if spec else "steps"]
+        assert k1 == k2 == 0
+        assert (k2q if spec else k1q) == steps * cfg["num_layers"]
+        assert (k1q if spec else k2q) == 0
+        assert card.stats["seal_requants"] > 0
+        card.assert_page_accounting()

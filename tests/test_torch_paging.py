@@ -208,10 +208,7 @@ def test_pool_too_small_for_a_request_is_refused(torch_params):
     (dict(speculate_k=2, sampling=True), "speculation"),
     (dict(sampling=True), "sampling"),
     (dict(top_k=5), "sampling"),
-    (dict(quant=True), "int8"),
-    (dict(kv_dtype="int8"), "int8"),
     (dict(mesh=object()), "tensor-parallel"),
-    (dict(decode_page_cache="fp32"), "migration"),
     (dict(prefill_only=True), "migration"),
     (dict(metrics=object()), "HTTP replica"),
     (dict(tracer=object()), "HTTP replica"),
@@ -220,6 +217,25 @@ def test_knobs_of_later_slices_are_refused(torch_params, knob, slice_name):
     with pytest.raises(NotImplementedError, match=slice_name):
         PagedContinuousBatcher(torch_params, dtype=torch.float32,
                                device="cpu", **CFG, **BATCHER_KW, **knob)
+
+
+@pytest.mark.parametrize("knob", [
+    dict(quant=True), dict(kv_dtype="int8"), dict(decode_page_cache="fp32"),
+], ids=["int8-weights", "int8-pool", "decode-page-sealing"])
+def test_knobs_of_the_int8_slice_serve(torch_params, knob):
+    """Weight-only int8, the int8 pool and retirement sealing serve now
+    (tests/test_torch_quantized_pool.py holds them against the JAX
+    package)."""
+    params = torch_params
+    if knob.get("quant"):
+        from kubegpu_tpu_torch.models.decoding import quantize_params_int8
+        params = quantize_params_int8(torch_params)
+    tb = PagedContinuousBatcher(params, dtype=torch.float32, device="cpu",
+                                **CFG, **BATCHER_KW, **knob)
+    prompts, budgets = schedule()
+    out = tb.run(prompts[:2], budgets[:2])
+    assert [len(out[i]) for i in (0, 1)] == budgets[:2]
+    tb.assert_page_accounting()
 
 
 def test_malformed_knobs_raise_value_errors(torch_params):

@@ -41,9 +41,12 @@ def test_worker_subprocess_on_cpu_prints_done_lines():
         r"steps=(\d+) admits=4$", out, re.M)
     assert done and int(done.group(1)) > 0, out
     k1 = re.search(r"^K1_LAUNCHES paged_decode_attention=(\d+) "
-                   r"decode_steps=(\d+) layers=2 device=cpu$", out, re.M)
+                   r"decode_steps=(\d+) layers=2 device=cpu "
+                   r"K1Q_LAUNCHES paged_decode_attention_int8=(\d+) "
+                   r"kv_dtype=bfloat16$", out, re.M)
     assert k1, out
     assert int(k1.group(1)) == 0 and int(k1.group(2)) > 0
+    assert int(k1.group(3)) == 0
 
 
 def test_worker_run_decode_serves_every_request_to_its_budget():
@@ -100,7 +103,8 @@ def test_worker_speculative_subprocess_prints_spec_steps():
     assert proc.returncode == 0, proc.stderr
     spec = re.search(r"^SPEC_DONE spec_steps=(\d+) spec_tokens=(\d+) "
                      r"draft_wraps=\d+ k=2 K2_LAUNCHES "
-                     r"paged_chunk_attention=0 spec_steps_total=\d+$",
+                     r"paged_chunk_attention=0 spec_steps_total=\d+ "
+                     r"K2Q_LAUNCHES paged_chunk_attention_int8=0$",
                      proc.stdout, re.M)
     assert spec, proc.stdout
     assert int(spec.group(1)) > 0 and int(spec.group(2)) > 0
@@ -186,3 +190,45 @@ def test_lm_worker_refuses_what_waits_for_a_later_slice(bad, match):
                                             + bad)
     with pytest.raises(SystemExit, match=match):
         worker.run_lm(args)
+
+
+@pytest.mark.parametrize("bad", [
+    ["--serving", "continuous", "--kv-dtype", "int8"],
+    ["--serve-fp32", "--kv-dtype", "bf16"],
+], ids=["kv-dtype-off-the-paged-path", "contradictory-pair"])
+def test_worker_cli_rejects_bad_kv_dtype(bad):
+    """Mirror of tests/test_quantized_pool.py's worker refusals: the KV
+    storage knob belongs to the paged path, and a full-width name must
+    match the serving dtype."""
+    with pytest.raises(SystemExit):
+        worker.main(TINY + ["--device", "cpu"] + bad)
+
+
+def test_worker_cli_serves_paged_int8(capsys):
+    rc = worker.main(TINY + ["--device", "cpu", "--kv-dtype", "int8",
+                             "--int8", "--decode-page-cache", "quantized"])
+    assert rc == 0
+    out = capsys.readouterr().out
+    assert re.search(r"^SERVING_INT8 weight-only per-output-channel$", out,
+                     re.M), out
+    assert "DECODE_DONE" in out and "serving=paged" in out
+    assert re.search(r"K1Q_LAUNCHES paged_decode_attention_int8=0 "
+                     r"kv_dtype=int8$", out, re.M), out
+
+
+def test_worker_int8_speculation_serves_every_request():
+    """The int8 pool and ring under speculation, with int8 weights:
+    every request served to its budget, no kernel launched on the CPU."""
+    args = worker.build_parser().parse_args(
+        TINY + ["--device", "cpu", "--serve-fp32", "--kv-dtype", "int8",
+                "--int8", "--speculate", "--spec-k", "2"])
+    r = worker.run_decode(args)
+    budgets = [max(8 * (1 + i % 4) // 4, 1) for i in range(4)]
+    assert [len(r["outputs"][i]) for i in range(4)] == budgets
+    assert r["kv_dtype"] == "int8" and r["spec_steps"] > 0
+    assert r["k1_launches"] == r["k1q_launches"] == 0
+    assert r["k2_launches"] == r["k2q_launches"] == 0
+    # half the page bytes of the bf16 pool, plus the f32 scales
+    full = worker.run_decode(worker.build_parser().parse_args(
+        TINY + ["--device", "cpu"]))
+    assert r["pool_bytes"] < full["pool_bytes"] * 3 // 4
