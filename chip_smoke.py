@@ -38,24 +38,30 @@ non-zero:
    4, a hopeless and a perfect draft: pipelined and synchronous streams
    identical, streams equal to the card's plain streams under the
    near-tie rule, and the perfect draft needs fewer verify steps;
-8. K3, K4 and K5 (flash attention forward, dK/dV and dQ,
-   ``ops/csrc/flash_attention.cu``) against their plain versions at the
-   training path's shapes (b 16, s 1024, 32 heads of 128, causal) in
-   float32 (out and lse rtol=atol=2e-5, gradients 1e-4) and bfloat16
-   (one rounding step; lse 2e-5), and at two small shapes (causal over
-   an uneven 1000 rows; non-causal 640 queries over 1024 keys); each
-   kernel's device time (CUDA graph replay), its plain version's time,
-   its bound, and the time of PyTorch's scaled_dot_product_attention
-   forward and backward at the same shapes, with the backend it picked;
+8. K3, K4, K5 and the backward's delta pre-pass (flash attention
+   forward, dK/dV, dQ and rowsum(dO * O), ``ops/csrc/flash_attention.cu``)
+   against their plain versions at the training path's shapes (b 16,
+   s 1024, 32 heads of 128, causal) in float32 (out and lse
+   rtol=atol=2e-5, gradients 1e-4) and bfloat16 (out one rounding step,
+   lse 2e-5; the tensor-core gradients within twice the error of the
+   twins' bf16 emulation of p and ds, plus 1e-5, against the float32
+   twin), and at two small shapes (causal over an uneven 1000 rows;
+   non-causal 640 queries over 1024 keys); the bf16 K4 and K5 must hold
+   HGMMA instructions (``cuobjdump -sass``); each kernel's device time
+   (CUDA graph replay), its plain version's time, its bound, and the time
+   of PyTorch's scaled_dot_product_attention forward and backward at the
+   same shapes, with the backend it picked, and K4 + K5 + the pre-pass
+   against SDPA's backward;
 9. full-width training through the worker's ``--model lm`` (the 1.08B
-   flagship, batch 16, seq 1024, 5 steps, bf16 compute): K3, K4 and K5
-   launched steps x layers times each, every loss finite; first step,
-   tokens/s and peak device memory;
+   flagship, batch 16, seq 1024, 5 steps, bf16 compute): K3, K4, K5 and
+   the delta pre-pass launched steps x layers times each, every loss
+   finite; first step, tokens/s and peak device memory;
 10. training card against CPU at float32 on a small model (vocab 256,
    hidden 256, 2 layers, 4 heads of 64, seq 128, batch 4) from one
    initial tree and one token stream: three losses within rtol 1e-4,
    every gradient of step 1 within rtol=atol=1e-4, and the card's
-   ``einsum`` attention within 1e-4 of its ``flash`` on the losses;
+   ``einsum`` attention within 1e-4 of its ``flash`` on the losses (the
+   float32 kernels take delta from out: no pre-pass);
 11. K1q (K1 over an int8 pool with (pages, heads) float32 scales) at
    phase 2's shapes, pools from ``quantize_pages`` of random data: against
    its plain version and the dense oracle over ``dequantize_pages``, in
@@ -82,6 +88,7 @@ exits non-zero and prints no result.
 """
 
 import json
+import shutil
 import subprocess
 import sys
 import time
@@ -697,14 +704,66 @@ def flash_inputs(b, sq, sk, h, d, dtype, g):
     return q, k, v, dout
 
 
-def check_flash(q, k, v, dout, causal) -> dict:
-    """K3, K4 and K5 against their plain versions on one input; the
-    backward kernels read the plain forward's out and lse, so both sides
-    of each check see the same operands.  Returns each kernel's max abs
-    error (K4: over dk and dv)."""
+def bf16_gradient_errs(got, q, k, v, out, lse, dout, causal) -> dict:
+    """The bf16 gradient gate: for each of dq, dk, dv (``got``), the max
+    abs error against the float32 twin (fed the same bf16 values as
+    float32) must be at most ``bf16_gradient_allowance`` of the error of
+    the twins' bf16 emulation, which rounds p and ds as the kernels do;
+    and each element and each 64-row block must lie within
+    ``bf16_emulation_shares``'s allowances of the emulation itself.
+    Logs each gradient's median |value| beside its allowances.  Returns
+    name -> (kernel error, share of the allowance, emulation error);
+    raises past an allowance."""
     import torch
 
     from kubegpu_tpu_torch.ops.attention import (
+        bf16_emulation_shares,
+        bf16_gradient_allowance,
+        flash_backward_dkdv_plain,
+        flash_backward_dq_plain,
+    )
+
+    f32 = [t.float() for t in (q, k, v, out)]
+    ref = (flash_backward_dq_plain(*f32, lse, dout.float(), causal),
+           *flash_backward_dkdv_plain(*f32, lse, dout.float(), causal))
+    del f32
+    emu = (flash_backward_dq_plain(q, k, v, out, lse, dout, causal,
+                                   operand_dtype=torch.bfloat16),
+           *flash_backward_dkdv_plain(q, k, v, out, lse, dout, causal,
+                                      operand_dtype=torch.bfloat16))
+    errs = {}
+    for name, g, e, r in zip(("dq", "dk", "dv"), got, emu, ref):
+        err = (g.float() - r).abs().max().item()
+        emu_err = (e.float() - r).abs().max().item()
+        allow = bf16_gradient_allowance(emu_err)
+        element, block = bf16_emulation_shares(g, e)
+        log(f"  bf16 {name}: median |{name}| {e.float().abs().median():.3e}, "
+            f"rms {e.float().square().mean().sqrt():.3e}; against the f32 "
+            f"twin {err:.3e} of {allow:.3e} allowed; against the emulation "
+            f"max {(g.float() - e.float()).abs().max():.3e}, worst element "
+            f"{element:.3f} and worst 64-row block {block:.3f} of their "
+            f"allowances")
+        assert err <= allow, (
+            f"bf16 {name}: kernel error {err:.3e} exceeds {allow:.3e} (twice "
+            f"the emulation's {emu_err:.3e} plus {BF16_ATOL})")
+        assert element <= 1 and block <= 1, (
+            f"bf16 {name} strays from the emulation: element share "
+            f"{element:.3f}, block share {block:.3f}")
+        errs[name] = (err, err / allow, emu_err)
+    return errs
+
+
+def check_flash(q, k, v, dout, causal) -> dict:
+    """K3, K4, K5 and the delta pre-pass against their plain versions on
+    one input; the backward kernels read the plain forward's out and lse,
+    so both sides of each check see the same operands.  bf16 gradients
+    pass :func:`bf16_gradient_errs`.  Returns each kernel's max abs error
+    (K4: over dk and dv; bf16 gradients against the float32 twin)."""
+    import torch
+
+    from kubegpu_tpu_torch.ops.attention import (
+        flash_backward_delta,
+        flash_backward_delta_plain,
         flash_backward_dkdv,
         flash_backward_dkdv_plain,
         flash_backward_dq,
@@ -715,14 +774,12 @@ def check_flash(q, k, v, dout, causal) -> dict:
 
     bf16 = q.dtype == torch.bfloat16
     rtol, atol = (BF16_RTOL, BF16_ATOL) if bf16 else (F32_TOL, F32_TOL)
-    g_rtol, g_atol = (BF16_RTOL, BF16_ATOL) if bf16 else (GRAD_TOL, GRAD_TOL)
     out, lse = flash_forward(q, k, v, causal)
     p_out, p_lse = flash_forward_plain(q, k, v, causal)
-    dk, dv = flash_backward_dkdv(q, k, v, p_out, p_lse, dout, causal)
-    p_dk, p_dv = flash_backward_dkdv_plain(q, k, v, p_out, p_lse, dout,
-                                           causal)
-    dq = flash_backward_dq(q, k, v, p_out, p_lse, dout, causal)
-    p_dq = flash_backward_dq_plain(q, k, v, p_out, p_lse, dout, causal)
+    # the pre-pass and its delta are the bf16 backward's alone
+    delta = flash_backward_delta(p_out, dout) if bf16 else None
+    dk, dv = flash_backward_dkdv(q, k, v, p_out, p_lse, dout, causal, delta)
+    dq = flash_backward_dq(q, k, v, p_out, p_lse, dout, causal, delta)
     torch.cuda.synchronize()
     for t, ref in ((out, q), (dq, q), (dk, k), (dv, v)):
         assert t.shape == ref.shape and t.dtype == ref.dtype
@@ -731,20 +788,36 @@ def check_flash(q, k, v, dout, causal) -> dict:
     errs = {
         "out": max_err(out, p_out, rtol, atol),
         "lse": max_err(lse, p_lse, F32_TOL, F32_TOL),
-        "dq": max_err(dq, p_dq, g_rtol, g_atol),
-        "dk": max_err(dk, p_dk, g_rtol, g_atol),
-        "dv": max_err(dv, p_dv, g_rtol, g_atol),
     }
+    if bf16:
+        errs["delta"] = max_err(delta, flash_backward_delta_plain(p_out, dout),
+                                F32_TOL, F32_TOL)
+        gate = bf16_gradient_errs((dq, dk, dv), q, k, v, p_out, p_lse, dout,
+                                  causal)
+        errs.update((n, (e, sh)) for n, (e, sh, _) in gate.items())
+    else:
+        p_dk, p_dv = flash_backward_dkdv_plain(q, k, v, p_out, p_lse, dout,
+                                               causal)
+        p_dq = flash_backward_dq_plain(q, k, v, p_out, p_lse, dout, causal)
+        errs.update(dq=max_err(dq, p_dq, GRAD_TOL, GRAD_TOL),
+                    dk=max_err(dk, p_dk, GRAD_TOL, GRAD_TOL),
+                    dv=max_err(dv, p_dv, GRAD_TOL, GRAD_TOL))
     b, sq, h, d = q.shape
     name = str(q.dtype).replace("torch.", "")
     log(f"flash {name} b{b} sq{sq} sk{k.shape[1]} h{h} d{d} causal={causal}: "
         + ", ".join(f"{n} {e:.3e} ({sh:.3f} of allowance)"
                     for n, (e, sh) in errs.items()))
-    return {
+    if bf16:
+        log("  bf16 emulation of p and ds against the float32 twin: "
+            + ", ".join(f"{n} {emu:.3e}" for n, (_, _, emu) in gate.items()))
+    rec = {
         "flash_forward": errs["out"][0],
         "flash_backward_dkdv": max(errs["dk"][0], errs["dv"][0]),
         "flash_backward_dq": errs["dq"][0],
     }
+    if bf16:
+        rec["flash_backward_delta"] = errs["delta"][0]
+    return rec
 
 
 def flash_bound(kernel: str, b, sq, sk, h, d, causal, itemsize) -> tuple:
@@ -752,21 +825,32 @@ def flash_bound(kernel: str, b, sq, sk, h, d, causal, itemsize) -> tuple:
     each operand read once and each result written once over the card's
     memory rate, against its matrix products (K3 2, K4 4, K5 3, over the
     score pairs the causal mask leaves) over the peak rate of the
-    operands' type."""
+    operands' type; the delta pre-pass does one multiply-add per element
+    of dO on the CUDA cores.  The float32 K4 and K5 read out; the bf16
+    ones read the pre-pass's delta, the size of lse, instead."""
     pairs = sq * (sq + 1) // 2 if causal else sq * sk
-    products = {"flash_forward": 2, "flash_backward_dkdv": 4,
-                "flash_backward_dq": 3}[kernel]
-    flops = products * 2 * b * h * pairs * d
     q_bytes = b * sq * h * d * itemsize
     kv_bytes = b * sk * h * d * itemsize
     lse_bytes = 4 * b * h * sq
+    if kernel == "flash_backward_delta":  # out, dout in; delta out
+        flops = 2 * b * sq * h * d
+        nbytes = 2 * q_bytes + lse_bytes
+        peak = F32_FLOPS_PER_S
+    else:
+        products = {"flash_forward": 2, "flash_backward_dkdv": 4,
+                    "flash_backward_dq": 3}[kernel]
+        flops = products * 2 * b * h * pairs * d
+        peak = BF16_FLOPS_PER_S if itemsize == 2 else F32_FLOPS_PER_S
     if kernel == "flash_forward":      # q, k, v in; out, lse out
         nbytes = 2 * q_bytes + 2 * kv_bytes + lse_bytes
+    elif kernel == "flash_backward_dkdv" and itemsize == 2:
+        nbytes = 2 * q_bytes + 4 * kv_bytes + 2 * lse_bytes  # q, dout, delta
     elif kernel == "flash_backward_dkdv":  # q, k, v, out, dout, lse; dk, dv
         nbytes = 3 * q_bytes + 4 * kv_bytes + lse_bytes
-    else:                              # q, k, v, out, dout, lse; dq
+    elif kernel == "flash_backward_dq" and itemsize == 2:
+        nbytes = 3 * q_bytes + 2 * kv_bytes + 2 * lse_bytes  # q, dout, delta
+    elif kernel == "flash_backward_dq":  # q, k, v, out, dout, lse; dq
         nbytes = 4 * q_bytes + 2 * kv_bytes + lse_bytes
-    peak = BF16_FLOPS_PER_S if itemsize == 2 else F32_FLOPS_PER_S
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     flops_ms = flops / peak * 1e3
     return (max(bytes_ms, flops_ms),
@@ -796,10 +880,31 @@ def sdpa_times(q, k, v, dout) -> dict:
     return {"backend": backend, "fwd_ms": fwd_ms, "bwd_ms": bwd_ms}
 
 
+def hgmma_instructions(library) -> dict:
+    """The HGMMA (wgmma) instructions of each kernel function in a built
+    library, from ``cuobjdump -sass`` (which ships beside nvcc); raises
+    where the tool is missing or fails."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([tool, "-sass", str(library)], capture_output=True,
+                          text=True, timeout=120, check=True).stdout
+    found, fn = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :")[1].strip()
+            found[fn] = []
+        elif fn is not None and "HGMMA" in line:
+            # "/*2450*/  HGMMA.64x64x16.F32.BF16 R184, gdesc[UR8], RZ ;  /*..*/"
+            found[fn].append(line.split("*/", 1)[1].split(";")[0].strip())
+    return found
+
+
 def phase_flash() -> dict:
     import torch
 
+    from kubegpu_tpu_torch.ops import _build
     from kubegpu_tpu_torch.ops.attention import (
+        flash_backward_delta,
+        flash_backward_delta_plain,
         flash_backward_dkdv,
         flash_backward_dkdv_plain,
         flash_backward_dq,
@@ -808,6 +913,20 @@ def phase_flash() -> dict:
         flash_forward_plain,
     )
 
+    sass = hgmma_instructions(_build.library_path("flash_attention"))
+    for kname in ("flash_backward_dkdv_wgmma_kernel",
+                  "flash_backward_dq_wgmma_kernel"):
+        found = {fn: ins for fn, ins in sass.items() if kname in fn}
+        log(f"SASS {kname}: HGMMA per instantiation "
+            f"{sorted(len(ins) for ins in found.values())}")
+        assert found and all(found.values()), f"{kname} runs no HGMMA: {found}"
+        # one instruction of each form: operands from shared memory (S, dP)
+        # and with A from registers, B transposed (the sums)
+        forms = {}
+        for ins in (i for fn in sorted(found) for i in found[fn]):
+            forms.setdefault((ins.split()[0], ".tnspB" in ins), ins)
+        for ins in forms.values():
+            log(f"  {ins}")
     g = torch.Generator(device="cuda").manual_seed(4)
     for dtype in (torch.float32, torch.bfloat16):
         check_flash(*flash_inputs(2, 1000, 1000, 4, 128, dtype, g), True)
@@ -819,42 +938,66 @@ def phase_flash() -> dict:
         q, k, v, dout = flash_inputs(b, s, s, h, d, dtype, g)
         errs = check_flash(q, k, v, dout, True)
         out, lse = flash_forward(q, k, v, True)
+        bf16 = dtype == torch.bfloat16
+        # the bf16 kernels read the pre-pass's delta, timed on its own
+        delta = flash_backward_delta(out, dout) if bf16 else None
         calls = {
             "flash_forward": (lambda: flash_forward(q, k, v, True),
                               lambda: flash_forward_plain(q, k, v, True)),
             "flash_backward_dkdv": (
-                lambda: flash_backward_dkdv(q, k, v, out, lse, dout, True),
+                lambda: flash_backward_dkdv(q, k, v, out, lse, dout, True,
+                                            delta),
                 lambda: flash_backward_dkdv_plain(q, k, v, out, lse, dout,
                                                   True)),
             "flash_backward_dq": (
-                lambda: flash_backward_dq(q, k, v, out, lse, dout, True),
+                lambda: flash_backward_dq(q, k, v, out, lse, dout, True,
+                                          delta),
                 lambda: flash_backward_dq_plain(q, k, v, out, lse, dout,
                                                 True)),
         }
+        if bf16:
+            calls["flash_backward_delta"] = (
+                lambda: flash_backward_delta(out, dout),
+                lambda: flash_backward_delta_plain(out, dout))
         lib = sdpa_times(q, k, v, dout)
         log(f"SDPA {name} ({lib['backend']}): forward {lib['fwd_ms']:.3f} ms, "
             f"backward (dq, dk, dv) {lib['bwd_ms']:.3f} ms")
+        # one PyTorch call for delta: rowsum(dO * O) as a batched dot
+        vecdot_ms = time_ms(lambda: torch.linalg.vecdot(dout, out), 20)
         for kname, (kernel, plain) in calls.items():
             ms = graph_ms(kernel, 2, replays=5)
             plain_ms = time_ms(plain, 2, warmup=1)
             bound_ms, bound_by, nbytes, flops = flash_bound(
                 kname, b, s, s, h, d, True, q.element_size())
             library_ms = {"flash_forward": lib["fwd_ms"],
-                          "flash_backward_dkdv": lib["bwd_ms"]}.get(kname)
+                          "flash_backward_dkdv": lib["bwd_ms"],
+                          "flash_backward_delta": vecdot_ms}.get(kname)
             log(f"{kname} {name}: kernel {ms:.3f} ms (graph replay), plain "
                 f"{plain_ms:.3f} ms, bound {bound_ms:.4f} ms by {bound_by} "
-                f"({nbytes} B, {flops} flop) -> {bound_ms / ms * 100:.2f}% "
-                "of bound; SDPA "
-                + (f"{library_ms:.3f} ms" if library_ms is not None else
-                   "n/a (its backward is one call for dq, dk and dv, "
+                f"({nbytes} B, {flop_str(flops)}) -> "
+                f"{bound_ms / ms * 100:.2f}% of bound; library "
+                + (f"{library_ms:.3f} ms" if kname != "flash_backward_dq" else
+                   "n/a (SDPA's backward is one call for dq, dk and dv, "
                    "counted under flash_backward_dkdv)"))
             rec.setdefault(kname, {})[name] = dict(
                 max_abs_err=errs[kname], ms=ms, plain_ms=plain_ms,
                 bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms,
                 sdpa_backend=lib["backend"])
-        del q, k, v, dout, out, lse
+        backward = [k for k in ("flash_backward_delta", "flash_backward_dkdv",
+                                "flash_backward_dq") if name in rec.get(k, {})]
+        total = sum(rec[k][name]["ms"] for k in backward)
+        bound = sum(rec[k][name]["bound_ms"] for k in backward)
+        log(f"flash backward {name} ({' + '.join(backward)}): {total:.3f} ms "
+            f"against SDPA's backward {lib['bwd_ms']:.3f} ms "
+            f"({total / lib['bwd_ms']:.2f}x) and the summed bounds "
+            f"{bound:.4f} ms ({bound / total * 100:.2f}% of bound)")
+        del q, k, v, dout, out, lse, delta
         torch.cuda.empty_cache()
     return rec
+
+
+def flop_str(flops: int) -> str:
+    return f"{flops} flop ({flops / 1e9:.1f} GFLOP)"
 
 
 TRAIN_ARGV = ["--model", "lm", "--vocab", "32768", "--hidden", "4096",
@@ -863,13 +1006,16 @@ TRAIN_ARGV = ["--model", "lm", "--vocab", "32768", "--hidden", "4096",
 
 
 def flash_counts_to_zero() -> tuple:
+    """K3, K4, K5 and the delta pre-pass, their launch counts set to 0."""
     from kubegpu_tpu_torch.ops.attention import (
+        flash_backward_delta,
         flash_backward_dkdv,
         flash_backward_dq,
         flash_forward,
     )
 
-    kernels = (flash_forward, flash_backward_dkdv, flash_backward_dq)
+    kernels = (flash_forward, flash_backward_dkdv, flash_backward_dq,
+               flash_backward_delta)
     for fn in kernels:
         fn.launches = 0
     return kernels
@@ -936,10 +1082,11 @@ def phase_train_card_vs_cpu() -> None:
                                   for tokens in batches[1:]]
         launches = [fn.launches for fn in kernels]
         runs[(device, impl)] = (np.asarray(losses), grads)
-        log(f"training {device} {impl} fp32: losses {losses}; K3/K4/K5 "
-            f"launches {launches}")
+        log(f"training {device} {impl} fp32: losses {losses}; K3/K4/K5/"
+            f"delta launches {launches}")
         want = 3 * cfg["num_layers"] if (device, impl) == ("cuda", "flash") else 0
-        assert launches == [want] * 3, launches
+        # the float32 K4 and K5 take delta from out: no pre-pass
+        assert launches == [want] * 3 + [0], launches
     cpu_l, cpu_g = runs[("cpu", "flash")]
     card_l, card_g = runs[("cuda", "flash")]
     np.testing.assert_allclose(card_l, cpu_l, rtol=TRAIN_TOL, atol=0)
@@ -1013,6 +1160,8 @@ def main() -> int:
         ("flash_forward", "kubegpu_tpu/ops/attention.py:72"),
         ("flash_backward_dkdv", "kubegpu_tpu/ops/attention.py:233"),
         ("flash_backward_dq", "kubegpu_tpu/ops/attention.py:280"),
+        # delta = rowsum(dO * O), inside the Pallas backward's _bwd_block
+        ("flash_backward_delta", "kubegpu_tpu/ops/attention.py:212"),
     ):
         bf = flash[kname]["bfloat16"]
         kernels.append({

@@ -69,6 +69,7 @@ from kubegpu_tpu_torch.models.serving import (
 from kubegpu_tpu_torch.models.train import create_train_state, lm_step
 from kubegpu_tpu_torch.models.transformer import TransformerLM
 from kubegpu_tpu_torch.ops.attention import (
+    flash_backward_delta,
     flash_backward_dkdv,
     flash_backward_dq,
     flash_forward,
@@ -383,7 +384,8 @@ def run_lm(args: argparse.Namespace,
         torch.cuda.reset_peak_memory_stats(device)
     state, next_batch = build_trainer(args)
     batch = max(args.batch_per_chip, 1)
-    kernels = (flash_forward, flash_backward_dkdv, flash_backward_dq)
+    kernels = (flash_forward, flash_backward_dkdv, flash_backward_dq,
+               flash_backward_delta)
     launches0 = [fn.launches for fn in kernels]
 
     losses = [lm_step(state, next_batch())]
@@ -400,7 +402,7 @@ def run_lm(args: argparse.Namespace,
     if rate is not None:
         print(f"steady_state tokens_per_sec={rate:.1f} loss={losses[-1]:.4f}",
               flush=True)
-    k3, k4, k5 = (fn.launches - n for fn, n in zip(kernels, launches0))
+    k3, k4, k5, delta = (fn.launches - n for fn, n in zip(kernels, launches0))
     return {
         "first_step_s": first_s,
         "tokens_per_sec": rate,
@@ -412,6 +414,7 @@ def run_lm(args: argparse.Namespace,
         "k3_launches": k3,
         "k4_launches": k4,
         "k5_launches": k5,
+        "delta_launches": delta,
         "peak_bytes": (torch.cuda.max_memory_allocated(device)
                        if device.type == "cuda" else None),
         "device": str(device),
@@ -425,7 +428,9 @@ def main(argv: Optional[List[str]] = None) -> int:
         r = run_lm(args, t0)
         for name, fn, key in (("K3", flash_forward, "k3_launches"),
                               ("K4", flash_backward_dkdv, "k4_launches"),
-                              ("K5", flash_backward_dq, "k5_launches")):
+                              ("K5", flash_backward_dq, "k5_launches"),
+                              ("DELTA", flash_backward_delta,
+                               "delta_launches")):
             print(f"{name}_LAUNCHES {fn.__name__}={r[key]} steps={r['steps']} "
                   f"layers={r['layers']} device={r['device']}", flush=True)
         peak = r["peak_bytes"]

@@ -5,7 +5,8 @@ Each source is a shared library with a plain C interface, compiled by
 ``nvcc`` for Hopper (``sm_90a``) into ``build/kubegpu_tpu_torch/`` at the
 root of the checkout.  A library's file name carries a hash of its
 source and flags, so an edited kernel is rebuilt and a fresh checkout
-builds everything on its first call.  :func:`build` starts one ``nvcc``
+builds everything on its first call; the shared headers (``csrc/*.cuh``)
+count in every library's hash.  :func:`build` starts one ``nvcc``
 per missing library, all at once, and waits for them; a failed build
 raises with the compiler's output.  Nothing is built or imported when
 this module is imported.
@@ -54,11 +55,13 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    source = CSRC / _KERNELS[name][0]
-    digest = hashlib.sha256(
-        source.read_bytes() + " ".join(NVCC_FLAGS).encode()
-    ).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    """The library's path, named by a hash of its source, every header
+    under csrc (a source may include any of them) and the flags."""
+    digest = hashlib.sha256()
+    for path in [CSRC / _KERNELS[name][0], *sorted(CSRC.glob("*.cuh"))]:
+        digest.update(path.name.encode() + path.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
 
 def build(names: Optional[Sequence[str]] = None) -> Dict[str, Path]:

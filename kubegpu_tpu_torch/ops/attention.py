@@ -14,20 +14,32 @@ Four roles, as in ``ops/paged_attention.py``:
   dtype).
 - The kernels' plain twins, dense float32 with the Pallas kernels'
   guards: :func:`flash_forward_plain` -> ``(out, lse)``;
-  :func:`flash_backward_dkdv_plain` -> ``(dk, dv)`` and
+  :func:`flash_backward_delta_plain` -> ``delta = rowsum(dO * O)``
+  from the STORED ``out`` (in q's dtype, the residual the forward
+  returned); :func:`flash_backward_dkdv_plain` -> ``(dk, dv)`` and
   :func:`flash_backward_dq_plain` -> ``dq``, which recompute p from the
-  lse and take ``delta = rowsum(dO * O)`` from the STORED ``out`` (in
-  q's dtype, the residual the forward returned).
+  lse.  ``operand_dtype=torch.bfloat16`` makes the backward twins round
+  p and ds to bf16 before their products (f32 sums, one rounding of the
+  result): the function the bf16 kernels compute, and the emulation
+  their tolerance is derived from (:func:`bf16_gradient_allowance`
+  against the float32 twin, :func:`bf16_emulation_shares` element by
+  element and block by block against the emulation itself).
 - The kernel wrappers :func:`flash_forward` (K3),
+  :func:`flash_backward_delta` (delta's pre-pass),
   :func:`flash_backward_dkdv` (K4) and :func:`flash_backward_dq` (K5):
   CUDA tensors launch the hand-written Hopper kernels of
   ``csrc/flash_attention.cu`` (built at first use) or raise; only CPU
   tensors take the twins.  Each wrapper counts its launches in
-  ``.launches``.
+  ``.launches``.  In bf16, K4 and K5 run on the tensor cores and read a
+  precomputed delta (the pre-pass runs first when none is given), and an
+  operand whose data is not 16-byte aligned is copied first; in float32
+  they compute in f32 on the CUDA cores, take delta from out per tile
+  and refuse a ``delta=``, and the pre-pass takes bf16 only.
 - :func:`flash_attention`: the ``torch.autograd.Function`` joining
   them, the counterpart of the JAX ``custom_vjp``.  Its forward saves
-  ``(q, k, v, out, lse)`` and no ``s x s`` tensor; its backward runs K4
-  then K5 and returns gradients in the inputs' dtypes.
+  ``(q, k, v, out, lse)`` and no ``s x s`` tensor; its backward runs
+  the delta pre-pass once (bf16), then K4 and K5, and returns gradients
+  in the inputs' dtypes.
 """
 
 from __future__ import annotations
@@ -46,6 +58,8 @@ KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_HEAD_DIM = 128
 # the CUDA grid's y dimension carries b * h
 MAX_BATCH_HEADS = 65535
+# the absolute term of a bf16 tolerance: f32 noise near zero
+BF16_ATOL = 1e-5
 
 
 def reference_attention(q, k, v, causal: bool = True):
@@ -109,11 +123,18 @@ def _bshd(x, dtype):
     return x.to(dtype).contiguous()
 
 
-def _backward_probs(q, k, v, out, lse, dout, causal: bool):
+def flash_backward_delta_plain(out, dout):
+    """The pre-pass's plain twin: ``delta = rowsum(dO * O)`` in float32
+    from the stored out, contiguous ``(b, h, sq)``."""
+    return (dout.float() * out.float()).sum(-1).permute(0, 2, 1).contiguous()
+
+
+def _backward_probs(q, k, v, out, lse, dout, causal: bool, delta=None):
     """The Pallas ``_bwd_block`` algebra on whole tensors: p recomputed
     from lse (0 where masked or where lse is -inf), ``delta =
-    rowsum(dO * O)`` from the stored out, ``ds = p * (dO . v - delta) *
-    scale``.  Returns ``(p, ds)`` float32 ``(b, h, sq, sk)``."""
+    rowsum(dO * O)`` from the stored out (or as given), ``ds = p * (dO .
+    v - delta) * scale``.  Returns ``(p, ds)`` float32 ``(b, h, sq,
+    sk)``."""
     _check_causal(q, k, causal)
     sm_scale = 1.0 / math.sqrt(q.shape[-1])
     scores, valid = _scores(q, k, causal)
@@ -124,25 +145,86 @@ def _backward_probs(q, k, v, out, lse, dout, causal: bool):
                     0.0)
     dof = dout.float()
     dp = torch.einsum("bqhd,bkhd->bhqk", dof, v.float())
-    delta = (dof * out.float()).sum(-1).permute(0, 2, 1)[..., None]
-    ds = p * (dp - delta) * sm_scale
+    if delta is None:
+        delta = flash_backward_delta_plain(out, dout)
+    ds = p * (dp - delta.float()[..., None]) * sm_scale
     return p, ds
 
 
-def flash_backward_dkdv_plain(q, k, v, out, lse, dout, causal: bool = True):
+def _operands(x, operand_dtype):
+    """x as a product's operand: unchanged, or rounded to operand_dtype
+    (and read back in float32)."""
+    return x if operand_dtype is None else x.to(operand_dtype).float()
+
+
+def flash_backward_dkdv_plain(q, k, v, out, lse, dout, causal: bool = True,
+                              delta=None, operand_dtype=None):
     """K4's plain twin: ``dv = p^T . dO``, ``dk = ds^T . q`` in float32,
-    returned in k's and v's dtypes."""
-    p, ds = _backward_probs(q, k, v, out, lse, dout, causal)
+    returned in k's and v's dtypes.  ``operand_dtype`` (None or
+    ``torch.bfloat16``) rounds p and ds before their products."""
+    p, ds = _backward_probs(q, k, v, out, lse, dout, causal, delta)
+    p, ds = _operands(p, operand_dtype), _operands(ds, operand_dtype)
     dv = torch.einsum("bhqk,bqhd->bkhd", p, dout.float())
     dk = torch.einsum("bhqk,bqhd->bkhd", ds, q.float())
     return _bshd(dk, k.dtype), _bshd(dv, v.dtype)
 
 
-def flash_backward_dq_plain(q, k, v, out, lse, dout, causal: bool = True):
+def flash_backward_dq_plain(q, k, v, out, lse, dout, causal: bool = True,
+                            delta=None, operand_dtype=None):
     """K5's plain twin: ``dq = ds . k`` in float32, returned in q's
-    dtype."""
-    _, ds = _backward_probs(q, k, v, out, lse, dout, causal)
+    dtype.  ``operand_dtype`` as for :func:`flash_backward_dkdv_plain`."""
+    _, ds = _backward_probs(q, k, v, out, lse, dout, causal, delta)
+    ds = _operands(ds, operand_dtype)
     return _bshd(torch.einsum("bhqk,bkhd->bqhd", ds, k.float()), q.dtype)
+
+
+def bf16_gradient_allowance(emulation_err: float) -> float:
+    """The tolerance of a bf16 backward kernel's gradient against the
+    float32 twin: twice the error of the bf16 emulation (the twin at
+    ``operand_dtype=torch.bfloat16``, which rounds p and ds as the kernel
+    does) against that same twin, plus ``BF16_ATOL`` for gradients near
+    zero.  The kernel rounds the same values at the same points, its
+    sums in another order, so its error is the emulation's in size."""
+    return 2.0 * emulation_err + BF16_ATOL
+
+
+# A bf16 backward kernel against the emulation itself.  The two round the
+# same p and ds at the same points; where the f32 values they round differ
+# by sum-order noise, one p or ds lands a bf16 step away and moves its sums
+# by a step of that term, and the result's own rounding adds a step more.
+# So an element may differ by two steps of its value (2^-6) plus a small
+# share of the gradient's rms, and each block of EMULATION_BLOCK rows (per
+# batch and head, the rows one warpgroup owns) by 2^-7 of its norm.
+EMULATION_ELEMENT_RTOL = 2 ** -6
+EMULATION_ELEMENT_RMS = 2 ** -4
+EMULATION_BLOCK_RTOL = 2 ** -7
+EMULATION_BLOCK = 64
+
+
+def bf16_emulation_shares(got, emu) -> tuple:
+    """How far a bf16 gradient ``got`` (BSHD) lies from the emulation
+    ``emu``: ``(worst element's share, worst block's share)`` of the
+    allowances above, each at most 1 where the kernel passes.  An element
+    may differ by ``EMULATION_ELEMENT_RTOL * |emu| + EMULATION_ELEMENT_RMS
+    * rms(emu) + BF16_ATOL``; a block of ``EMULATION_BLOCK`` rows of one
+    batch and head by ``EMULATION_BLOCK_RTOL * ||emu block|| +
+    BF16_ATOL``."""
+    g, e = got.float(), emu.float()
+    diff = g - e
+    rms = e.square().mean().sqrt()
+    element = (diff.abs() / (EMULATION_ELEMENT_RTOL * e.abs()
+                             + EMULATION_ELEMENT_RMS * rms + BF16_ATOL)).max()
+    b, s, h, d = e.shape
+    blocks = -(-s // EMULATION_BLOCK)
+    pad = (0, 0, 0, 0, 0, blocks * EMULATION_BLOCK - s)
+
+    def norms(x):
+        x = torch.nn.functional.pad(x, pad)
+        return x.view(b, blocks, EMULATION_BLOCK, h, d).square().sum(
+            (2, 4)).sqrt()
+
+    block = (norms(diff) / (EMULATION_BLOCK_RTOL * norms(e) + BF16_ATOL)).max()
+    return element.item(), block.item()
 
 
 def check_flash_args(q, k, v, causal: bool) -> None:
@@ -173,7 +255,8 @@ def check_flash_args(q, k, v, causal: bool) -> None:
         raise ValueError("q, k and v must be contiguous BSHD")
 
 
-def _check_backward_args(q, k, v, out, lse, dout, causal: bool) -> None:
+def _check_backward_args(q, k, v, out, lse, dout, causal: bool,
+                         delta=None) -> None:
     check_flash_args(q, k, v, causal)
     b, sq, h, _ = q.shape
     for name, t in (("out", out), ("dout", dout)):
@@ -186,6 +269,11 @@ def _check_backward_args(q, k, v, out, lse, dout, causal: bool) -> None:
             or lse.device != q.device or not lse.is_contiguous()):
         raise ValueError(f"lse must be contiguous float32 {(b, h, sq)}, got "
                          f"{tuple(lse.shape)} {lse.dtype}")
+    if delta is not None and (
+            delta.shape != (b, h, sq) or delta.dtype != torch.float32
+            or delta.device != q.device or not delta.is_contiguous()):
+        raise ValueError(f"delta must be contiguous float32 {(b, h, sq)}, "
+                         f"got {tuple(delta.shape)} {delta.dtype}")
 
 
 def _kernel_args(q, k, causal: bool):
@@ -232,19 +320,86 @@ def flash_forward(q, k, v, causal: bool = True):
 flash_forward.launches = 0
 
 
-def flash_backward_dkdv(q, k, v, out, lse, dout, causal: bool = True):
-    """``(dk, dv)`` of flash attention.  CUDA tensors launch K4 or
-    raise; CPU tensors take :func:`flash_backward_dkdv_plain`."""
-    if q.device.type == "cpu":
-        return flash_backward_dkdv_plain(q, k, v, out, lse, dout, causal)
+def _aligned(t):
+    """t, or a copy of it where its data is not 16-byte aligned (a view
+    at an odd element offset): the bf16 kernels load 16 bytes at a time
+    and their TMA maps want aligned bases."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def _check_delta(q, delta) -> None:
+    if delta is not None and q.dtype != torch.bfloat16:
+        raise ValueError(f"delta= is for the bf16 kernels; the {q.dtype} "
+                         f"kernels take delta from out")
+
+
+def flash_backward_delta(out, dout):
+    """``delta = rowsum(dO * O)``, float32 ``(b, h, sq)``: the bf16
+    backward's pre-pass, which K4 and K5 read (other dtypes raise).  CUDA
+    tensors launch its kernel or raise; CPU tensors take
+    :func:`flash_backward_delta_plain`."""
+    if out.dtype != torch.bfloat16:
+        raise ValueError(f"the delta pre-pass takes bfloat16, got {out.dtype}")
+    if out.device.type == "cpu":
+        return flash_backward_delta_plain(out, dout)
     _require_card()
-    _check_backward_args(q, k, v, out, lse, dout, causal)
+    if (out.dim() != 4 or dout.shape != out.shape or dout.dtype != out.dtype
+            or dout.device != out.device):
+        raise ValueError(f"out and dout must be one (b, sq, h, d) shape and "
+                         f"dtype: {tuple(out.shape)} {out.dtype} / "
+                         f"{tuple(dout.shape)} {dout.dtype}")
+    # out stands in for q, k and v: the checks are on its shape and dtype
+    check_flash_args(out, out, out, False)
+    if not dout.is_contiguous():
+        raise ValueError("dout must be contiguous")
+    out, dout = _aligned(out), _aligned(dout)
+    lib = _build.load("flash_attention")
+    b, sq, h, d = out.shape
+    delta = torch.empty((b, h, sq), dtype=torch.float32, device=out.device)
+    rc = lib.kg_flash_backward_delta(
+        out.data_ptr(), dout.data_ptr(), delta.data_ptr(), b, h, sq, d,
+        torch.cuda.current_stream(out.device).cuda_stream)
+    flash_backward_delta.launches += 1
+    _raise_on(lib, rc, "flash backward delta")
+    return delta
+
+
+flash_backward_delta.launches = 0
+
+
+def _bf16_operands(q, k, v, out, dout, delta):
+    """The operands a bf16 backward kernel entry takes: each 16-byte
+    aligned, and delta (computed here when not given).  float32 operands
+    pass unchanged, with no delta: those kernels take it from out per
+    tile."""
+    if q.dtype != torch.bfloat16:
+        return q, k, v, out, dout, None
+    q, k, v, out, dout = (_aligned(t) for t in (q, k, v, out, dout))
+    if delta is None:
+        delta = flash_backward_delta(out, dout)
+    return q, k, v, out, dout, delta
+
+
+def flash_backward_dkdv(q, k, v, out, lse, dout, causal: bool = True,
+                        delta=None):
+    """``(dk, dv)`` of flash attention.  CUDA tensors launch K4 or
+    raise; CPU tensors take :func:`flash_backward_dkdv_plain`.  ``delta``
+    is :func:`flash_backward_delta`'s result where the caller has it (bf16
+    only)."""
+    _check_delta(q, delta)
+    if q.device.type == "cpu":
+        return flash_backward_dkdv_plain(q, k, v, out, lse, dout, causal,
+                                         delta)
+    _require_card()
+    _check_backward_args(q, k, v, out, lse, dout, causal, delta)
+    q, k, v, out, dout, delta = _bf16_operands(q, k, v, out, dout, delta)
     lib = _build.load("flash_attention")
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
     rc = lib.kg_flash_backward_dkdv(
         KERNEL_DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        out.data_ptr(), dout.data_ptr(), lse.data_ptr(), dk.data_ptr(),
+        out.data_ptr(), dout.data_ptr(), lse.data_ptr(),
+        None if delta is None else delta.data_ptr(), dk.data_ptr(),
         dv.data_ptr(), *_kernel_args(q, k, causal))
     flash_backward_dkdv.launches += 1
     _raise_on(lib, rc, "flash backward dK/dV")
@@ -254,18 +409,23 @@ def flash_backward_dkdv(q, k, v, out, lse, dout, causal: bool = True):
 flash_backward_dkdv.launches = 0
 
 
-def flash_backward_dq(q, k, v, out, lse, dout, causal: bool = True):
+def flash_backward_dq(q, k, v, out, lse, dout, causal: bool = True,
+                      delta=None):
     """``dq`` of flash attention.  CUDA tensors launch K5 or raise; CPU
-    tensors take :func:`flash_backward_dq_plain`."""
+    tensors take :func:`flash_backward_dq_plain`.  ``delta`` as for
+    :func:`flash_backward_dkdv`."""
+    _check_delta(q, delta)
     if q.device.type == "cpu":
-        return flash_backward_dq_plain(q, k, v, out, lse, dout, causal)
+        return flash_backward_dq_plain(q, k, v, out, lse, dout, causal, delta)
     _require_card()
-    _check_backward_args(q, k, v, out, lse, dout, causal)
+    _check_backward_args(q, k, v, out, lse, dout, causal, delta)
+    q, k, v, out, dout, delta = _bf16_operands(q, k, v, out, dout, delta)
     lib = _build.load("flash_attention")
     dq = torch.empty_like(q)
     rc = lib.kg_flash_backward_dq(
         KERNEL_DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        out.data_ptr(), dout.data_ptr(), lse.data_ptr(), dq.data_ptr(),
+        out.data_ptr(), dout.data_ptr(), lse.data_ptr(),
+        None if delta is None else delta.data_ptr(), dq.data_ptr(),
         *_kernel_args(q, k, causal))
     flash_backward_dq.launches += 1
     _raise_on(lib, rc, "flash backward dQ")
@@ -277,7 +437,8 @@ flash_backward_dq.launches = 0
 
 class _FlashAttention(torch.autograd.Function):
     """The JAX ``custom_vjp``: out + lse are the only softmax residuals;
-    the backward recomputes p blockwise inside K4 and K5."""
+    the backward recomputes p blockwise inside K4 and K5, which in bf16
+    share one delta pre-pass."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal):
@@ -290,8 +451,11 @@ class _FlashAttention(torch.autograd.Function):
     def backward(ctx, dout):
         q, k, v, out, lse = ctx.saved_tensors
         dout = dout.contiguous()
-        dk, dv = flash_backward_dkdv(q, k, v, out, lse, dout, ctx.causal)
-        dq = flash_backward_dq(q, k, v, out, lse, dout, ctx.causal)
+        delta = (flash_backward_delta(out, dout)
+                 if q.dtype == torch.bfloat16 else None)
+        dk, dv = flash_backward_dkdv(q, k, v, out, lse, dout, ctx.causal,
+                                     delta)
+        dq = flash_backward_dq(q, k, v, out, lse, dout, ctx.causal, delta)
         return dq, dk, dv, None
 
 
@@ -299,7 +463,8 @@ def flash_attention(q, k, v, causal: bool = True):
     """Flash attention, BSHD, differentiable: O(seq) memory in both
     directions (the forward keeps out and the lse; the backward
     recomputes scores blockwise).  CUDA tensors run K3 forward and K4,
-    K5 backward, or raise; CPU tensors run the plain twins."""
+    K5 backward (in bf16 after the delta pre-pass), or raise; CPU tensors
+    run the plain twins."""
     return _FlashAttention.apply(q, k, v, causal)
 
 
@@ -309,11 +474,14 @@ def _declare(lib: ctypes.CDLL) -> None:
     shape = [i32, i32, i32, i32, i32, ctypes.c_float, i32, ptr]
     lib.kg_flash_forward.argtypes = [i32, ptr, ptr, ptr, ptr, ptr] + shape
     lib.kg_flash_forward.restype = ctypes.c_int
+    lib.kg_flash_backward_delta.argtypes = [ptr, ptr, ptr, i32, i32, i32,
+                                            i32, ptr]
+    lib.kg_flash_backward_delta.restype = ctypes.c_int
     lib.kg_flash_backward_dkdv.argtypes = (
-        [i32, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr] + shape)
+        [i32, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr] + shape)
     lib.kg_flash_backward_dkdv.restype = ctypes.c_int
     lib.kg_flash_backward_dq.argtypes = (
-        [i32, ptr, ptr, ptr, ptr, ptr, ptr, ptr] + shape)
+        [i32, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr] + shape)
     lib.kg_flash_backward_dq.restype = ctypes.c_int
     lib.kg_cuda_error_string.argtypes = [ctypes.c_int]
     lib.kg_cuda_error_string.restype = ctypes.c_char_p

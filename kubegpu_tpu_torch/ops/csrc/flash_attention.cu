@@ -31,25 +31,57 @@
 // and K5 3, halved by the causal mask — 137 to 275 GFLOP against 0.5 to
 // 0.9 GB of operands.  In bf16 that puts them near the line where the
 // card's tensor cores (989 TFLOP/s) and its memory (3.35 TB/s) bound
-// alike.  This first design does not reach for either: it computes in
-// f32 on the CUDA cores, as the Pallas bodies compute in f32, because a
-// bf16 p or ds fed to the tensor cores rounds values the reference keeps
-// in f32.  Its limit is the f32 FMA rate (67 TFLOP/s) and the shared-
-// memory traffic of its inner products: tiles of 64 rows are staged in
-// shared memory as f32 (rows padded to 129 floats, so sixteen threads
-// reading one column of sixteen rows hit sixteen banks), and each of 256
-// threads holds a 4 x 4 block of a 64 x 64 score tile and a 4 x 8 block of
-// a 64 x d accumulator, which reuses every shared-memory value it reads
-// four or eight times.  wgmma, TMA and a bf16 p.v are the redesign.
+// alike.
+//
+// K3 in both types, and K4 and K5 in float32, are the first design: they
+// compute in f32 on the CUDA cores, as the Pallas bodies compute in f32.
+// Their limit is the f32 FMA rate (67 TFLOP/s) and the shared-memory
+// traffic of their inner products: tiles of 64 rows are staged in shared
+// memory as f32 (rows padded to 129 floats, so sixteen threads reading
+// one column of sixteen rows hit sixteen banks), and each of 256 threads
+// holds a 4 x 4 block of a 64 x 64 score tile and a 4 x 8 block of a
+// 64 x d accumulator, which reuses every shared-memory value it reads four
+// or eight times.
+//
+// K4 and K5 in bf16 (the training path's type) run their products on the
+// tensor cores with wgmma (hopper.cuh), f32 accumulation.  A block has two
+// warpgroups of 64 rows each.  One warp of the first also feeds a ring of
+// three stages by TMA, with a full and an empty mbarrier per stage, two
+// stages ahead of its own use, so loads overlap products and the two
+// warpgroups run apart rather than in lock step:
+//
+//   K4: a block per (b*h, 128 K/V rows); K and V stay in shared memory,
+//       and q, dO, lse and delta stream through in tiles of 64 rows.  Per
+//       tile a warpgroup takes S^T = K.q^T and dP^T = V.dO^T (both
+//       operands from shared memory), forms P^T and dS^T in registers,
+//       rounds them to bf16 and feeds them as the register A operand of
+//       dV += P^T.dO and dK += dS^T.q (B from shared memory, read
+//       MN-major).  Taking S^T, not S, puts P^T and dS^T in A's layout as
+//       they come out of the first products.
+//   K5: a block per (b*h, 128 q rows); q and dO stay, K and V stream in
+//       tiles of 64 rows; S = q.K^T, dP = dO.V^T, then dQ += dS.K with dS
+//       from registers.
+//
+// Rounding p and ds to bf16 before their products is the one departure
+// from the f32 algebra; the reference on its TPU (an f32 dot at JAX's
+// default precision is one bf16 pass) rounds them too.  delta =
+// rowsum(dO * O) comes precomputed from flash_backward_delta_kernel, once
+// per backward.  A row whose lse is -inf, and a padding row, gets the
+// shift +inf, so exp2 gives its p = 0 with no separate test; only tiles
+// that cross the diagonal or the last K/V row pay for the mask.
 //
 // Layouts: q, out, dout, dq (b, sq, h, d); k, v, dk, dv (b, sk, h, d), all
-// contiguous, float32 or bfloat16 alike; lse (b, h, sq) float32; d a
-// multiple of 8 up to 128.  Causal attention has sq == sk.
+// contiguous, float32 or bfloat16 alike; lse and delta (b, h, sq) float32;
+// d a multiple of 8 up to 128 (the bf16 kernels pad it to 64 or 128 with
+// zeros in shared memory).  Causal attention has sq == sk.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -437,6 +469,475 @@ __global__ void __launch_bounds__(kThreads) flash_backward_dq_kernel(
   store_rows(dq_acc, dq + qoff, q0, seq_q, row_stride, d);
 }
 
+// ---- delta = rowsum(dO * O), once per bf16 backward ----
+
+// One (b, row, h) vector of d bf16 values per warp, 16 bytes per lane
+// per load; delta lands as (b, h, seq).  grid (ceil(vectors / 8)).
+__global__ void __launch_bounds__(kThreads) flash_backward_delta_kernel(
+    const __nv_bfloat16* __restrict__ out,
+    const __nv_bfloat16* __restrict__ dout, float* __restrict__ delta,
+    int heads, int seq, int d, int vectors) {
+  const int vec = blockIdx.x * (kThreads / 32) + threadIdx.x / 32;
+  if (vec >= vectors) return;
+  const int lane = threadIdx.x % 32;
+  constexpr int kPer = 8;
+  const __nv_bfloat16* o = out + (size_t)vec * d;
+  const __nv_bfloat16* g = dout + (size_t)vec * d;
+  float part = 0.f;
+  for (int c = lane * kPer; c < d; c += 32 * kPer) {
+    const uint4 ov = *reinterpret_cast<const uint4*>(o + c);
+    const uint4 gv = *reinterpret_cast<const uint4*>(g + c);
+    const __nv_bfloat16* oe = reinterpret_cast<const __nv_bfloat16*>(&ov);
+    const __nv_bfloat16* ge = reinterpret_cast<const __nv_bfloat16*>(&gv);
+#pragma unroll
+    for (int j = 0; j < kPer; ++j)
+      part = fmaf(to_f32(ge[j]), to_f32(oe[j]), part);
+  }
+#pragma unroll
+  for (int s = 16; s > 0; s >>= 1)
+    part += __shfl_xor_sync(0xffffffffu, part, s);
+  if (lane == 0) {
+    const int bs = vec / heads;  // b * seq + row
+    const int h = vec - bs * heads;
+    const int b = bs / seq;
+    delta[((size_t)b * heads + h) * seq + (bs - b * seq)] = part;
+  }
+}
+
+// ---- K4 and K5 in bf16 on the tensor cores ----
+//
+// Two warpgroups per block, each owning 64 rows.  The first warp also
+// keeps a ring of kStages stages filled by TMA, kStages - 1 fills ahead
+// of its own use.  Each stage has a "full" mbarrier (its copies landed)
+// and an "empty" one (all 256 threads are done with it), so loads overlap
+// the products and the two warpgroups run apart, not in lock step.
+
+constexpr int kWgThreads = 2 * 128;      // two warpgroups
+constexpr int kWgRows = 64;              // rows a warpgroup owns (wgmma's m)
+constexpr int kBlockRows = 2 * kWgRows;  // K4's K/V tile, K5's q tile
+constexpr int kStreamRows = 64;          // K4's q tile, K5's K/V tile
+constexpr int kStages = 3;
+constexpr float kLog2e = 1.4426950408889634f;
+
+// Shared memory of K4 (byte offsets from a 1024-aligned base): the
+// resident K and V tiles; kStages stages of q, dO, lse and delta; the
+// barriers (K/V landed, then full and empty per stage).
+template <int kD>
+struct DkdvSmem {
+  static constexpr int kKv = kBlockRows * kD * 2;
+  static constexpr int kQ = kStreamRows * kD * 2;
+  static constexpr int k = 0, v = kKv, q = 2 * kKv, dout = q + kStages * kQ,
+                       lse = dout + kStages * kQ,
+                       delta = lse + kStages * kStreamRows * 4,
+                       bar = delta + kStages * kStreamRows * 4,
+                       bytes = bar + (1 + 2 * kStages) * 8 + 1024;
+};
+
+// Shared memory of K5: the resident q and dO tiles, kStages stages of K
+// and V, the barriers.
+template <int kD>
+struct DqSmem {
+  static constexpr int kQ = kBlockRows * kD * 2;
+  static constexpr int kKv = kStreamRows * kD * 2;
+  static constexpr int q = 0, dout = kQ, k = 2 * kQ, v = k + kStages * kKv,
+                       bar = v + kStages * kKv,
+                       bytes = bar + (1 + 2 * kStages) * 8 + 1024;
+};
+
+// The 1024-aligned base of a kernel's dynamic shared memory (the wgmma
+// swizzle repeats every 1024 bytes), as a shared address and a pointer.
+__device__ __forceinline__ uint32_t aligned_base(unsigned char* raw,
+                                                 unsigned char** ptr) {
+  const uint32_t at = hopper::smem_u32(raw);
+  const uint32_t base = (at + 1023u) & ~1023u;
+  *ptr = raw + (base - at);
+  return base;
+}
+
+// The ring's barriers at `bar`: [0] the resident tiles landed, [1 + s]
+// stage s full, [1 + kStages + s] stage s empty.  Thread 0 sets them up;
+// `full_arrivals` counts the filling warp's arrivals per fill.
+__device__ __forceinline__ void init_ring(uint32_t bar, int full_arrivals) {
+  using namespace hopper;
+  if (threadIdx.x == 0) {
+    mbar_init(bar, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(bar + 8 * (1 + s), full_arrivals);
+      mbar_init(bar + 8 * (1 + kStages + s), kWgThreads);
+    }
+    fence_mbar_init();
+  }
+  __syncthreads();
+}
+
+// The i-th fill of the ring uses stage i % kStages for the (i /
+// kStages)-th time; a fill's barriers complete the phase of that parity.
+__device__ __forceinline__ uint32_t full_bar(uint32_t bar, int i) {
+  return bar + 8 * (1 + i % kStages);
+}
+__device__ __forceinline__ uint32_t empty_bar(uint32_t bar, int i) {
+  return bar + 8 * (1 + kStages + i % kStages);
+}
+__device__ __forceinline__ uint32_t use_parity(int i) {
+  return (i / kStages) & 1;
+}
+
+// A tile of `rows` rows of one (b, h) from a BSHD map into the swizzled
+// slabs at dst, kD / 64 boxes of 64 columns.
+template <int kD>
+__device__ __forceinline__ void tma_tile(uint32_t dst, const CUtensorMap& map,
+                                         uint32_t bar, int rows, int h,
+                                         int row0, int b) {
+#pragma unroll
+  for (int j = 0; j < kD / 64; ++j)
+    hopper::tma_load_4d(dst + j * rows * 128, &map, bar, 64 * j, h, row0, b);
+}
+
+// The shift of a row's exp2: its lse in base 2, or +inf (p = 0) where the
+// lse is -inf or the row is padding.
+__device__ __forceinline__ float exp2_shift(float lse, bool row_valid) {
+  return row_valid && isfinite(lse) ? lse * kLog2e : INFINITY;
+}
+
+// Write a warpgroup's 64 x kD f32 accumulator as bf16 rows; row0 is this
+// thread's first accumulator row (the second is row0 + 8).  Rows at or
+// past n_rows and columns at or past d are padding.
+template <int kD>
+__device__ __forceinline__ void store_acc(const float (&acc)[kD / 2],
+                                          __nv_bfloat16* __restrict__ base,
+                                          int row0, int n_rows,
+                                          size_t row_stride, int d) {
+  const int n0 = 2 * (threadIdx.x % 4);
+#pragma unroll
+  for (int i = 0; i < kD / 8; ++i)
+#pragma unroll
+    for (int a = 0; a < 2; ++a) {
+      const int row = row0 + 8 * a;
+      const int col = 8 * i + n0;
+      if (row < n_rows && col < d)
+        *reinterpret_cast<__nv_bfloat162*>(base + (size_t)row * row_stride +
+                                           col) =
+            __floats2bfloat162_rn(acc[4 * i + 2 * a], acc[4 * i + 2 * a + 1]);
+    }
+}
+
+// Accumulator element e of a 64 x 64 tile sits in row half (e / 2) % 2
+// and column 8 (e / 4) + e % 2 of this thread's (plus 2 (lane % 4)).
+__device__ __forceinline__ constexpr int half_of(int e) { return (e / 2) % 2; }
+__device__ __forceinline__ constexpr int col_of(int e) {
+  return 8 * (e / 4) + e % 2;
+}
+
+// sc (scores before the scale) becomes p = exp2(sc * scale * log2 e -
+// shift), 0 where masked.  The caller's functors give a row's shift and
+// whether a (row half, column) pair is valid.
+template <typename Shift, typename Valid>
+__device__ __forceinline__ void probs(float (&sc)[32], float sm_scale,
+                                      bool masked, Shift shift, Valid valid) {
+  const float scale_log2 = sm_scale * kLog2e;
+#pragma unroll
+  for (int e = 0; e < 32; ++e) {
+    float p = hopper::exp2_ftz(
+        fmaf(sc[e], scale_log2, -shift(half_of(e), col_of(e))));
+    if (masked && !valid(half_of(e), col_of(e))) p = 0.f;
+    sc[e] = p;
+  }
+}
+
+// dp becomes ds = p * (dp - delta) * scale.
+template <typename Delta>
+__device__ __forceinline__ void grads(const float (&p)[32], float (&dp)[32],
+                                      float sm_scale, Delta delta) {
+#pragma unroll
+  for (int e = 0; e < 32; ++e)
+    dp[e] = p[e] * (dp[e] - delta(half_of(e), col_of(e))) * sm_scale;
+}
+
+// grid (ceil(seq_k / 128), b*h).  K4, bf16.
+template <int kD>
+__global__ void __launch_bounds__(kWgThreads, 1)
+    flash_backward_dkdv_wgmma_kernel(
+        const __grid_constant__ CUtensorMap q_map,
+        const __grid_constant__ CUtensorMap dout_map,
+        const __grid_constant__ CUtensorMap k_map,
+        const __grid_constant__ CUtensorMap v_map,
+        const float* __restrict__ lse, const float* __restrict__ delta,
+        __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv,
+        int heads, int seq_q, int seq_k, int d, float sm_scale, int causal) {
+  using namespace hopper;
+  using L = DkdvSmem<kD>;
+  extern __shared__ unsigned char dkdv_smem[];
+  unsigned char* sm;
+  const uint32_t base = aligned_base(dkdv_smem, &sm);
+  const uint32_t bar = base + L::bar;
+  const int bh = blockIdx.y;
+  const int b = bh / heads;
+  const int h = bh - b * heads;
+  const int k0 = blockIdx.x * kBlockRows;
+  // causal: a q tile reaches this block's rows once its last row does
+  const int qt0 = causal ? k0 / kStreamRows : 0;
+  const int fills = (seq_q + kStreamRows - 1) / kStreamRows - qt0;
+  const int lane = threadIdx.x % 32;
+  // q and dO by TMA (one arrival with their bytes); lse and delta by
+  // cp.async from the 32 lanes of the filling warp (32 arrivals)
+  init_ring(bar, 1 + 32);
+
+  // K and V, once; then fill i of the ring: q tile qt0 + i
+  auto load_resident = [&]() {
+    if (lane == 0) {
+      mbar_arrive_expect_tx(bar, 2 * L::kKv);
+      tma_tile<kD>(base + L::k, k_map, bar, kBlockRows, h, k0, b);
+      tma_tile<kD>(base + L::v, v_map, bar, kBlockRows, h, k0, b);
+    }
+  };
+  auto fill = [&](int i) {
+    const int s = i % kStages;
+    const int q0 = (qt0 + i) * kStreamRows;
+    mbar_wait(empty_bar(bar, i), use_parity(i) ^ 1);
+    const uint32_t full = full_bar(bar, i);
+    if (lane == 0) {
+      mbar_arrive_expect_tx(full, 2 * L::kQ);
+      tma_tile<kD>(base + L::q + s * L::kQ, q_map, full, kStreamRows, h, q0,
+                   b);
+      tma_tile<kD>(base + L::dout + s * L::kQ, dout_map, full, kStreamRows,
+                   h, q0, b);
+    }
+#pragma unroll
+    for (int j = 0; j < kStreamRows / 32; ++j) {
+      const int r = lane + 32 * j;
+      const bool valid = q0 + r < seq_q;
+      const size_t row = (size_t)bh * seq_q + (valid ? q0 + r : 0);
+      const uint32_t at = (s * kStreamRows + r) * 4;
+      cp_async_4(base + L::lse + at, lse + row, valid);
+      cp_async_4(base + L::delta + at, delta + row, valid);
+    }
+    cp_async_mbar_arrive(full);
+  };
+
+  const bool filler = threadIdx.x < 32;
+  if (filler) {
+    load_resident();
+    for (int i = 0; i < min(kStages - 1, fills); ++i) fill(i);
+  }
+  // this warpgroup owns K/V rows kv0 .. kv0 + 63
+  const int wg = threadIdx.x / 128;
+  const int m0 = 16 * ((threadIdx.x % 128) / 32) + lane / 4;
+  const int n0 = 2 * (lane % 4);
+  const int kv0 = k0 + wg * kWgRows;
+  const int kr = kv0 + m0;  // this thread's rows: kr, kr + 8
+  const uint32_t kb = base + L::k + wg * kWgRows * 128;
+  const uint32_t vb = base + L::v + wg * kWgRows * 128;
+  float dk_acc[kD / 2], dv_acc[kD / 2];
+#pragma unroll
+  for (int i = 0; i < kD / 2; ++i) dk_acc[i] = dv_acc[i] = 0.f;
+  mbar_wait(bar, 0);
+
+  for (int i = 0; i < fills; ++i) {
+    if (filler && i + kStages - 1 < fills) fill(i + kStages - 1);
+    const int s = i % kStages;
+    const int q0 = (qt0 + i) * kStreamRows;
+    mbar_wait(full_bar(bar, i), use_parity(i));
+    // causal: a tile wholly above this warpgroup's rows adds nothing
+    if (!causal || q0 + kStreamRows - 1 >= kv0) {
+      const uint32_t qb = base + L::q + s * L::kQ;
+      const uint32_t ob = base + L::dout + s * L::kQ;
+      // S^T = K.q^T, then dP^T = V.dO^T, over the head dim
+      float st[32], dpt[32];
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kD / 16; ++kk)
+        wgmma_m64n64k16_ss(
+            st,
+            desc_k_major(kb + (kk / 4) * (kBlockRows * 128) + (kk % 4) * 32),
+            desc_k_major(qb + (kk / 4) * (kStreamRows * 128) + (kk % 4) * 32),
+            kk);
+      wgmma_commit();
+#pragma unroll
+      for (int kk = 0; kk < kD / 16; ++kk)
+        wgmma_m64n64k16_ss(
+            dpt,
+            desc_k_major(vb + (kk / 4) * (kBlockRows * 128) + (kk % 4) * 32),
+            desc_k_major(ob + (kk / 4) * (kStreamRows * 128) + (kk % 4) * 32),
+            kk);
+      wgmma_commit();
+      // rows are K/V rows kr + 8a, columns q rows qc + c
+      const float* lse_s =
+          reinterpret_cast<const float*>(sm + L::lse) + s * kStreamRows + n0;
+      const float* delta_s = reinterpret_cast<const float*>(sm + L::delta) +
+                             s * kStreamRows + n0;
+      const int qc = q0 + n0;
+      wgmma_wait<1>();  // S^T is done; P^T while dP^T runs
+      fence_operands(st);
+      probs(st, sm_scale,
+            (causal && q0 < kv0 + kWgRows - 1) || kv0 + kWgRows > seq_k,
+            [&](int, int c) { return exp2_shift(lse_s[c], qc + c < seq_q); },
+            [&](int a, int c) {
+              return kr + 8 * a < seq_k && (!causal || kr + 8 * a <= qc + c);
+            });
+      wgmma_wait<0>();
+      fence_operands(dpt);
+      grads(st, dpt, sm_scale, [&](int, int c) { return delta_s[c]; });
+      uint32_t pf[16], dsf[16];
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        pf[j] = pack_bf16(st[2 * j], st[2 * j + 1]);
+        dsf[j] = pack_bf16(dpt[2 * j], dpt[2 * j + 1]);
+      }
+      // dV += P^T.dO and dK += dS^T.q over the tile's q rows
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kStreamRows / 16; ++kk) {
+        wgmma_rs<kD>(dv_acc, pf[4 * kk], pf[4 * kk + 1], pf[4 * kk + 2],
+                     pf[4 * kk + 3],
+                     desc_mn_major(ob + kk * 2048, kStreamRows * 128));
+        wgmma_rs<kD>(dk_acc, dsf[4 * kk], dsf[4 * kk + 1], dsf[4 * kk + 2],
+                     dsf[4 * kk + 3],
+                     desc_mn_major(qb + kk * 2048, kStreamRows * 128));
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_operands(dv_acc);
+      fence_operands(dk_acc);
+    }
+    mbar_arrive(empty_bar(bar, i));
+  }
+  const size_t koff = head_base(b, h, seq_k, heads, d);
+  store_acc<kD>(dk_acc, dk + koff, kr, seq_k, (size_t)heads * d, d);
+  store_acc<kD>(dv_acc, dv + koff, kr, seq_k, (size_t)heads * d, d);
+}
+
+// grid (ceil(seq_q / 128), b*h).  K5, bf16.
+template <int kD>
+__global__ void __launch_bounds__(kWgThreads, 1)
+    flash_backward_dq_wgmma_kernel(
+        const __grid_constant__ CUtensorMap q_map,
+        const __grid_constant__ CUtensorMap dout_map,
+        const __grid_constant__ CUtensorMap k_map,
+        const __grid_constant__ CUtensorMap v_map,
+        const float* __restrict__ lse, const float* __restrict__ delta,
+        __nv_bfloat16* __restrict__ dq, int heads, int seq_q, int seq_k,
+        int d, float sm_scale, int causal) {
+  using namespace hopper;
+  using L = DqSmem<kD>;
+  extern __shared__ unsigned char dq_smem[];
+  unsigned char* sm;  // unused: K5 reads shared memory only through wgmma
+  const uint32_t base = aligned_base(dq_smem, &sm);
+  const uint32_t bar = base + L::bar;
+  const int bh = blockIdx.y;
+  const int b = bh / heads;
+  const int h = bh - b * heads;
+  const int q0 = blockIdx.x * kBlockRows;
+  int fills = (seq_k + kStreamRows - 1) / kStreamRows;
+  if (causal) fills = min(fills, (q0 + kBlockRows - 1) / kStreamRows + 1);
+  init_ring(bar, 1);
+
+  // q and dO, once; then fill i of the ring: K/V tile i (one thread)
+  auto load_resident = [&]() {
+    mbar_arrive_expect_tx(bar, 2 * L::kQ);
+    tma_tile<kD>(base + L::q, q_map, bar, kBlockRows, h, q0, b);
+    tma_tile<kD>(base + L::dout, dout_map, bar, kBlockRows, h, q0, b);
+  };
+  auto fill = [&](int i) {
+    const int s = i % kStages;
+    mbar_wait(empty_bar(bar, i), use_parity(i) ^ 1);
+    const uint32_t full = full_bar(bar, i);
+    mbar_arrive_expect_tx(full, 2 * L::kKv);
+    tma_tile<kD>(base + L::k + s * L::kKv, k_map, full, kStreamRows, h,
+                 i * kStreamRows, b);
+    tma_tile<kD>(base + L::v + s * L::kKv, v_map, full, kStreamRows, h,
+                 i * kStreamRows, b);
+  };
+
+  const bool filler = threadIdx.x == 0;
+  if (filler) {
+    load_resident();
+    for (int i = 0; i < min(kStages - 1, fills); ++i) fill(i);
+  }
+  // this warpgroup owns q rows qw0 .. qw0 + 63
+  const int wg = threadIdx.x / 128;
+  const int m0 = 16 * ((threadIdx.x % 128) / 32) + (threadIdx.x % 32) / 4;
+  const int n0 = 2 * (threadIdx.x % 4);
+  const int qw0 = q0 + wg * kWgRows;
+  const int qr = qw0 + m0;  // this thread's rows: qr, qr + 8
+  float shift[2], dl[2];
+#pragma unroll
+  for (int a = 0; a < 2; ++a) {
+    const int row = qr + 8 * a;
+    const bool valid = row < seq_q;
+    shift[a] =
+        exp2_shift(valid ? lse[(size_t)bh * seq_q + row] : 0.f, valid);
+    dl[a] = valid ? delta[(size_t)bh * seq_q + row] : 0.f;
+  }
+  const uint32_t qb = base + L::q + wg * kWgRows * 128;
+  const uint32_t ob = base + L::dout + wg * kWgRows * 128;
+  float dq_acc[kD / 2];
+#pragma unroll
+  for (int i = 0; i < kD / 2; ++i) dq_acc[i] = 0.f;
+  mbar_wait(bar, 0);
+
+  for (int i = 0; i < fills; ++i) {
+    if (filler && i + kStages - 1 < fills) fill(i + kStages - 1);
+    const int s = i % kStages;
+    const int k0 = i * kStreamRows;
+    mbar_wait(full_bar(bar, i), use_parity(i));
+    // causal: a tile wholly right of this warpgroup's rows adds nothing
+    if (!causal || k0 <= qw0 + kWgRows - 1) {
+      const uint32_t kb = base + L::k + s * L::kKv;
+      const uint32_t vb = base + L::v + s * L::kKv;
+      // S = q.K^T, then dP = dO.V^T, over the head dim
+      float sc[32], dp[32];
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kD / 16; ++kk)
+        wgmma_m64n64k16_ss(
+            sc,
+            desc_k_major(qb + (kk / 4) * (kBlockRows * 128) + (kk % 4) * 32),
+            desc_k_major(kb + (kk / 4) * (kStreamRows * 128) + (kk % 4) * 32),
+            kk);
+      wgmma_commit();
+#pragma unroll
+      for (int kk = 0; kk < kD / 16; ++kk)
+        wgmma_m64n64k16_ss(
+            dp,
+            desc_k_major(ob + (kk / 4) * (kBlockRows * 128) + (kk % 4) * 32),
+            desc_k_major(vb + (kk / 4) * (kStreamRows * 128) + (kk % 4) * 32),
+            kk);
+      wgmma_commit();
+      // rows are q rows qr + 8a, columns K/V rows kc + c
+      const int kc = k0 + n0;
+      wgmma_wait<1>();  // S is done; P while dP runs
+      fence_operands(sc);
+      probs(sc, sm_scale,
+            (causal && k0 + kStreamRows - 1 > qw0) ||
+                k0 + kStreamRows > seq_k,
+            [&](int a, int) { return shift[a]; },
+            [&](int a, int c) {
+              return kc + c < seq_k && (!causal || kc + c <= qr + 8 * a);
+            });
+      wgmma_wait<0>();
+      fence_operands(dp);
+      grads(sc, dp, sm_scale, [&](int a, int) { return dl[a]; });
+      uint32_t dsf[16];
+#pragma unroll
+      for (int j = 0; j < 16; ++j)
+        dsf[j] = pack_bf16(dp[2 * j], dp[2 * j + 1]);
+      // dQ += dS.K over the tile's K/V rows
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kStreamRows / 16; ++kk)
+        wgmma_rs<kD>(dq_acc, dsf[4 * kk], dsf[4 * kk + 1], dsf[4 * kk + 2],
+                     dsf[4 * kk + 3],
+                     desc_mn_major(kb + kk * 2048, kStreamRows * 128));
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_operands(dq_acc);
+    }
+    mbar_arrive(empty_bar(bar, i));
+  }
+  store_acc<kD>(dq_acc, dq + head_base(b, h, seq_q, heads, d), qr, seq_q,
+                (size_t)heads * d, d);
+}
+
 constexpr size_t kForwardSmem = (3 * kTileFloats + kScoreFloats) * sizeof(float);
 constexpr size_t kDkdvSmem =
     (4 * kTileFloats + 2 * kScoreFloats + 2 * kTile) * sizeof(float);
@@ -473,6 +974,7 @@ cudaError_t forward(const void* q, const void* k, const void* v, void* out,
   return cudaGetLastError();
 }
 
+// The float32 K4 and K5: the first design (delta taken from out per tile).
 template <typename T>
 cudaError_t backward_dkdv(const void* q, const void* k, const void* v,
                           const void* out, const void* dout, const float* lse,
@@ -507,13 +1009,85 @@ cudaError_t backward_dq(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
+// The bf16 K4 and K5 on the tensor cores, the head dim padded to kD.
+// TMA maps of q and dout (rows_q-row boxes) and of k and v (rows_kv).
+struct BshdMaps {
+  CUtensorMap q, dout, k, v;
+};
+
+cudaError_t make_maps(BshdMaps* m, const void* q, const void* dout,
+                      const void* k, const void* v, int b, int h, int seq_q,
+                      int seq_k, int d, int rows_q, int rows_kv) {
+  if (hopper::encode_tiled() == nullptr) return cudaErrorNotSupported;
+  const bool ok = hopper::bshd_map(&m->q, q, b, seq_q, h, d, rows_q) &&
+                  hopper::bshd_map(&m->dout, dout, b, seq_q, h, d, rows_q) &&
+                  hopper::bshd_map(&m->k, k, b, seq_k, h, d, rows_kv) &&
+                  hopper::bshd_map(&m->v, v, b, seq_k, h, d, rows_kv);
+  return ok ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+template <int kD>
+cudaError_t backward_dkdv_wgmma(const void* q, const void* k, const void* v,
+                                const void* dout, const float* lse,
+                                const float* delta, void* dk, void* dv, int b,
+                                int h, int seq_q, int seq_k, int d,
+                                float sm_scale, int causal,
+                                cudaStream_t stream) {
+  auto kernel = flash_backward_dkdv_wgmma_kernel<kD>;
+  constexpr size_t smem = DkdvSmem<kD>::bytes;
+  static const cudaError_t smem_ok = allow_smem(kernel, smem);
+  if (smem_ok != cudaSuccess) return smem_ok;
+  BshdMaps m;
+  const cudaError_t maps_ok = make_maps(&m, q, dout, k, v, b, h, seq_q, seq_k,
+                                        d, kStreamRows, kBlockRows);
+  if (maps_ok != cudaSuccess) return maps_ok;
+  kernel<<<dim3((seq_k + kBlockRows - 1) / kBlockRows, b * h), kWgThreads,
+           smem, stream>>>(m.q, m.dout, m.k, m.v, lse, delta,
+                           static_cast<__nv_bfloat16*>(dk),
+                           static_cast<__nv_bfloat16*>(dv), h, seq_q, seq_k,
+                           d, sm_scale, causal);
+  return cudaGetLastError();
+}
+
+template <int kD>
+cudaError_t backward_dq_wgmma(const void* q, const void* k, const void* v,
+                              const void* dout, const float* lse,
+                              const float* delta, void* dq, int b, int h,
+                              int seq_q, int seq_k, int d, float sm_scale,
+                              int causal, cudaStream_t stream) {
+  auto kernel = flash_backward_dq_wgmma_kernel<kD>;
+  constexpr size_t smem = DqSmem<kD>::bytes;
+  static const cudaError_t smem_ok = allow_smem(kernel, smem);
+  if (smem_ok != cudaSuccess) return smem_ok;
+  BshdMaps m;
+  const cudaError_t maps_ok = make_maps(&m, q, dout, k, v, b, h, seq_q, seq_k,
+                                        d, kBlockRows, kStreamRows);
+  if (maps_ok != cudaSuccess) return maps_ok;
+  kernel<<<dim3((seq_q + kBlockRows - 1) / kBlockRows, b * h), kWgThreads,
+           smem, stream>>>(m.q, m.dout, m.k, m.v, lse, delta,
+                           static_cast<__nv_bfloat16*>(dq), h, seq_q, seq_k,
+                           d, sm_scale, causal);
+  return cudaGetLastError();
+}
+
+cudaError_t backward_delta(const void* out, const void* dout, float* delta,
+                           int b, int h, int seq, int d, cudaStream_t stream) {
+  const int vectors = b * seq * h;
+  constexpr int kPerBlock = kThreads / 32;
+  flash_backward_delta_kernel<<<(vectors + kPerBlock - 1) / kPerBlock,
+                                kThreads, 0, stream>>>(
+      static_cast<const __nv_bfloat16*>(out),
+      static_cast<const __nv_bfloat16*>(dout), delta, h, seq, d, vectors);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
 
-// dtype: 0 float32, 1 bfloat16 (every tensor but lse, which is float32).
-// Each entry returns the launch's cudaError_t (0 on success); the kernel
-// runs on `stream`.  causal requires seq_q == seq_k.
+// dtype: 0 float32, 1 bfloat16 (every tensor but lse and delta, which are
+// float32).  Each entry returns the launch's cudaError_t (0 on success);
+// the kernel runs on `stream`.  causal requires seq_q == seq_k.
 
 // K3: out (b, seq_q, h, d) and lse (b, h, seq_q).
 int kg_flash_forward(int dtype, const void* q, const void* k, const void* v,
@@ -532,44 +1106,59 @@ int kg_flash_forward(int dtype, const void* q, const void* k, const void* v,
   return (int)cudaErrorInvalidValue;
 }
 
+// delta (b, h, seq) = rowsum(dout * out) in f32, from bfloat16 out and
+// dout (b, seq, h, d), each 16-byte aligned.
+int kg_flash_backward_delta(const void* out, const void* dout, void* delta,
+                            int b, int h, int seq, int d, void* stream) {
+  if (bad_shape(b, h, seq, seq, d) ||
+      (long long)b * seq * h > INT_MAX - kThreads)
+    return (int)cudaErrorInvalidValue;
+  return (int)backward_delta(out, dout, static_cast<float*>(delta), b, h, seq,
+                             d, static_cast<cudaStream_t>(stream));
+}
+
 // K4: dk, dv (b, seq_k, h, d) from q, k, v, the forward's out and lse, and
-// dout.
+// dout.  bfloat16 reads delta (from kg_flash_backward_delta) and not out,
+// and wants every operand 16-byte aligned; float32 takes delta from out
+// and wants a null delta pointer.
 int kg_flash_backward_dkdv(int dtype, const void* q, const void* k,
                            const void* v, const void* out, const void* dout,
-                           const void* lse, void* dk, void* dv, int b, int h,
-                           int seq_q, int seq_k, int d, float sm_scale,
-                           int causal, void* stream) {
+                           const void* lse, const void* delta, void* dk,
+                           void* dv, int b, int h, int seq_q, int seq_k, int d,
+                           float sm_scale, int causal, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* l = static_cast<const float*>(lse);
+  const float* dl = static_cast<const float*>(delta);
   if (bad_shape(b, h, seq_q, seq_k, d) || (causal && seq_q != seq_k))
     return (int)cudaErrorInvalidValue;
-  if (dtype == 0)
+  if (dtype == 0 && dl == nullptr)
     return (int)backward_dkdv<float>(q, k, v, out, dout, l, dk, dv, b, h,
                                      seq_q, seq_k, d, sm_scale, causal, s);
-  if (dtype == 1)
-    return (int)backward_dkdv<__nv_bfloat16>(q, k, v, out, dout, l, dk, dv, b,
-                                             h, seq_q, seq_k, d, sm_scale,
-                                             causal, s);
+  if (dtype == 1 && dl != nullptr)
+    return (int)(d <= 64 ? backward_dkdv_wgmma<64>
+                         : backward_dkdv_wgmma<128>)(
+        q, k, v, dout, l, dl, dk, dv, b, h, seq_q, seq_k, d, sm_scale, causal,
+        s);
   return (int)cudaErrorInvalidValue;
 }
 
 // K5: dq (b, seq_q, h, d); otherwise as K4.
 int kg_flash_backward_dq(int dtype, const void* q, const void* k,
                          const void* v, const void* out, const void* dout,
-                         const void* lse, void* dq, int b, int h, int seq_q,
-                         int seq_k, int d, float sm_scale, int causal,
-                         void* stream) {
+                         const void* lse, const void* delta, void* dq, int b,
+                         int h, int seq_q, int seq_k, int d, float sm_scale,
+                         int causal, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* l = static_cast<const float*>(lse);
+  const float* dl = static_cast<const float*>(delta);
   if (bad_shape(b, h, seq_q, seq_k, d) || (causal && seq_q != seq_k))
     return (int)cudaErrorInvalidValue;
-  if (dtype == 0)
+  if (dtype == 0 && dl == nullptr)
     return (int)backward_dq<float>(q, k, v, out, dout, l, dq, b, h, seq_q,
                                    seq_k, d, sm_scale, causal, s);
-  if (dtype == 1)
-    return (int)backward_dq<__nv_bfloat16>(q, k, v, out, dout, l, dq, b, h,
-                                           seq_q, seq_k, d, sm_scale, causal,
-                                           s);
+  if (dtype == 1 && dl != nullptr)
+    return (int)(d <= 64 ? backward_dq_wgmma<64> : backward_dq_wgmma<128>)(
+        q, k, v, dout, l, dl, dq, b, h, seq_q, seq_k, d, sm_scale, causal, s);
   return (int)cudaErrorInvalidValue;
 }
 

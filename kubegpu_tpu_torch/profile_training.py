@@ -13,7 +13,7 @@ einsum`` or ``--remat`` override these), takes two warm-up steps, then:
 - profiles a second window of the same length with ``torch.profiler``:
   device time by kernel, the device's busy time and its idle share of
   the window's wall time, and the share of the flash-attention kernels
-  (K3, K4, K5).
+  (K3, K4, K5 and the backward's delta pre-pass).
 
 Needs one CUDA device; prints plain lines, the last a JSON summary.
 """
@@ -34,9 +34,13 @@ FLAGSHIP = ["--model", "lm", "--vocab", "32768", "--hidden", "4096",
             "--layers", "4", "--heads", "32", "--seq", "1024",
             "--batch-per-chip", "16"]
 WINDOW = 4
-# kernel-name fragments of K3, K4 and K5 in ops/csrc/flash_attention.cu
+# kernel-name fragments of K3, K4 and K5 in ops/csrc/flash_attention.cu:
+# K4 and K5 run as the float32 kernels or, in bf16, the tensor-core
+# (wgmma) kernels after the delta pre-pass
 FLASH_KERNELS = ("flash_forward_kernel", "flash_backward_dkdv_kernel",
-                 "flash_backward_dq_kernel")
+                 "flash_backward_dq_kernel", "flash_backward_dkdv_wgmma_kernel",
+                 "flash_backward_dq_wgmma_kernel",
+                 "flash_backward_delta_kernel")
 
 
 def timed_window(state, next_batch):

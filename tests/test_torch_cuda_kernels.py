@@ -1,7 +1,7 @@
 """The port's hand-written CUDA kernels (K1, K2 and their int8-scale
-variants K1q, K2q; flash attention K3, K4, K5) against their plain
-PyTorch twins, on a card only (``-m cuda``; they skip without a CUDA
-device).
+variants K1q, K2q; flash attention K3, K4, K5 and the backward's delta
+pre-pass) against their plain PyTorch twins, on a card only (``-m
+cuda``; they skip without a CUDA device).
 
 This file imports no JAX, so it also runs where only PyTorch is
 installed:
@@ -16,7 +16,11 @@ import pytest
 import torch
 
 from kubegpu_tpu_torch.ops.attention import (
+    bf16_emulation_shares,
+    bf16_gradient_allowance,
     flash_attention,
+    flash_backward_delta,
+    flash_backward_delta_plain,
     flash_backward_dkdv,
     flash_backward_dkdv_plain,
     flash_backward_dq,
@@ -207,27 +211,57 @@ def test_spec_batcher_on_the_card_matches_the_plain_cpu_batcher(cuda_device,
     card.assert_page_accounting()
 
 
+def flash_case(device, dtype, causal, sq, sk, d, h=3, seed=None):
+    rng = np.random.RandomState(sq + d if seed is None else seed)
+    q, k, v = (torch.from_numpy(rng.randn(2, n, h, d).astype(np.float32))
+               .to(device, dtype) for n in (sq, sk, sk))
+    dout = torch.from_numpy(rng.randn(2, sq, h, d).astype(np.float32)).to(
+        device, dtype)
+    return q, k, v, dout
+
+
+def assert_bf16_gradients_pass_the_gate(got, q, k, v, out, lse, dout, causal):
+    """dq, dk, dv of a bf16 kernel within ``bf16_gradient_allowance`` of
+    the float32 twin (fed the same bf16 values as float32): at most twice
+    the error of the twin's bf16 emulation, plus BF16_ATOL; and within
+    ``bf16_emulation_shares``'s allowances of the emulation itself, each
+    element and each 64-row block."""
+    f32 = [t.float() for t in (q, k, v, out)]
+    ref_dk, ref_dv = flash_backward_dkdv_plain(*f32, lse, dout.float(), causal)
+    ref_dq = flash_backward_dq_plain(*f32, lse, dout.float(), causal)
+    emu_dk, emu_dv = flash_backward_dkdv_plain(
+        q, k, v, out, lse, dout, causal, operand_dtype=torch.bfloat16)
+    emu_dq = flash_backward_dq_plain(q, k, v, out, lse, dout, causal,
+                                     operand_dtype=torch.bfloat16)
+    for name, g, emu, ref in zip(("dq", "dk", "dv"), got,
+                                 (emu_dq, emu_dk, emu_dv),
+                                 (ref_dq, ref_dk, ref_dv)):
+        assert g.dtype == torch.bfloat16 and g.is_contiguous()
+        err = (g.float() - ref).abs().max().item()
+        emu_err = (emu.float() - ref).abs().max().item()
+        assert err <= bf16_gradient_allowance(emu_err), (name, err, emu_err)
+        element, block = bf16_emulation_shares(g, emu)
+        assert element <= 1.0 and block <= 1.0, (name, element, block)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("causal, sq, sk, d", [
-    (True, 200, 200, 128), (True, 100, 100, 64), (False, 72, 136, 40),
-    (True, 64, 64, 8),
+@pytest.mark.parametrize("causal, sq, sk, d, h", [
+    (True, 200, 200, 128, 3), (True, 100, 100, 64, 3),
+    (False, 72, 136, 40, 3), (True, 64, 64, 8, 3), (True, 1024, 1024, 128, 4),
 ])
 def test_flash_kernels_match_their_twins(cuda_device, dtype, causal, sq, sk,
-                                         d):
+                                         d, h):
     """K3, K4 and K5 against the plain twins; the backward kernels read
     the twin forward's out and lse, so both sides see one set of
-    operands.  bf16: one rounding step; f32: 2e-5 (out, lse), 1e-4
-    (gradients)."""
-    rng = np.random.RandomState(sq + d)
-    q, k, v = (torch.from_numpy(rng.randn(2, n, 3, d).astype(np.float32))
-               .to(cuda_device, dtype) for n in (sq, sk, sk))
-    dout = torch.from_numpy(rng.randn(2, sq, 3, d).astype(np.float32)).to(
-        cuda_device, dtype)
+    operands.  f32: 2e-5 (out, lse), 1e-4 (gradients); bf16: one
+    rounding step for out, and the gradients within twice the error of
+    the twins' bf16 emulation (the kernels round p and ds to bf16 for
+    the tensor cores)."""
+    q, k, v, dout = flash_case(cuda_device, dtype, causal, sq, sk, d, h)
     bf16 = dtype == torch.bfloat16
     tol = dict(rtol=BF16_RTOL, atol=BF16_ATOL) if bf16 else dict(
         rtol=F32_TOL, atol=F32_TOL)
-    gtol = tol if bf16 else dict(rtol=GRAD_TOL, atol=GRAD_TOL)
     before = (flash_forward.launches, flash_backward_dkdv.launches,
               flash_backward_dq.launches)
     out, lse = flash_forward(q, k, v, causal)
@@ -236,14 +270,88 @@ def test_flash_kernels_match_their_twins(cuda_device, dtype, causal, sq, sk,
     dq = flash_backward_dq(q, k, v, p_out, p_lse, dout, causal)
     assert (flash_forward.launches, flash_backward_dkdv.launches,
             flash_backward_dq.launches) == tuple(n + 1 for n in before)
+    torch.testing.assert_close(out.float(), p_out.float(), **tol)
+    torch.testing.assert_close(lse, p_lse, rtol=F32_TOL, atol=F32_TOL)
+    if bf16:
+        assert_bf16_gradients_pass_the_gate((dq, dk, dv), q, k, v, p_out,
+                                            p_lse, dout, causal)
+        return
     p_dk, p_dv = flash_backward_dkdv_plain(q, k, v, p_out, p_lse, dout,
                                            causal)
     p_dq = flash_backward_dq_plain(q, k, v, p_out, p_lse, dout, causal)
-    torch.testing.assert_close(out.float(), p_out.float(), **tol)
-    torch.testing.assert_close(lse, p_lse, rtol=F32_TOL, atol=F32_TOL)
     for got, want in ((dq, p_dq), (dk, p_dk), (dv, p_dv)):
         assert got.dtype == dtype and got.is_contiguous()
-        torch.testing.assert_close(got.float(), want.float(), **gtol)
+        torch.testing.assert_close(got.float(), want.float(), rtol=GRAD_TOL,
+                                   atol=GRAD_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal, sq, sk, d", [
+    (True, 1000, 1000, 128), (False, 72, 136, 40),
+])
+def test_bf16_backward_kernels_are_deterministic(cuda_device, causal, sq, sk,
+                                                 d):
+    """One owner per gradient, no atomics: two launches on the same
+    inputs are bit-identical, with and without a precomputed delta; the
+    pre-pass matches its twin."""
+    q, k, v, dout = flash_case(cuda_device, torch.bfloat16, causal, sq, sk, d)
+    out, lse = flash_forward_plain(q, k, v, causal)
+    delta = flash_backward_delta(out, dout)
+    torch.testing.assert_close(delta, flash_backward_delta_plain(out, dout),
+                               rtol=F32_TOL, atol=F32_TOL)
+    runs = [(flash_backward_dq(q, k, v, out, lse, dout, causal, dl),
+             *flash_backward_dkdv(q, k, v, out, lse, dout, causal, dl))
+            for dl in (delta, delta, None)]
+    for run in runs[1:]:
+        assert all(torch.equal(a, b) for a, b in zip(runs[0], run))
+
+
+@pytest.mark.cuda
+def test_bf16_backward_takes_unaligned_views(cuda_device):
+    """Contiguous bf16 views at an odd element offset (not 16-byte
+    aligned) give the aligned tensors' gradients bit for bit; float32
+    refuses a precomputed delta and the pre-pass refuses float32."""
+    causal, sq, d = True, 136, 40
+    q, k, v, dout = flash_case(cuda_device, torch.bfloat16, causal, sq, sq, d)
+    out, lse = flash_forward_plain(q, k, v, causal)
+
+    def odd(t):
+        flat = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+        view = flat[1:].view(t.shape)
+        view.copy_(t)
+        assert view.is_contiguous() and view.data_ptr() % 16
+        return view
+
+    want = (flash_backward_dq(q, k, v, out, lse, dout, causal),
+            *flash_backward_dkdv(q, k, v, out, lse, dout, causal))
+    views = [odd(t) for t in (q, k, v, out)] + [lse, odd(dout)]
+    assert torch.equal(flash_backward_delta(views[3], views[5]),
+                       flash_backward_delta(out, dout))
+    got = (flash_backward_dq(*views, causal),
+           *flash_backward_dkdv(*views, causal))
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    f32 = [t.float() for t in (q, k, v, out)] + [lse, dout.float()]
+    with pytest.raises(ValueError, match="bfloat16"):
+        flash_backward_delta(f32[3], f32[5])
+    with pytest.raises(ValueError, match="delta= is for the bf16"):
+        flash_backward_dq(*f32, causal, flash_backward_delta_plain(out, dout))
+
+
+@pytest.mark.cuda
+def test_bf16_flash_attention_runs_the_delta_pre_pass_once(cuda_device):
+    """The autograd.Function's bf16 backward: one delta pre-pass, then K4
+    and K5, each once; gradients within the gate."""
+    q, k, v, dout = flash_case(cuda_device, torch.bfloat16, True, 256, 256,
+                               64, seed=9)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    counters = (flash_forward, flash_backward_delta, flash_backward_dkdv,
+                flash_backward_dq)
+    before = [fn.launches for fn in counters]
+    flash_attention(*leaves, True).backward(dout)
+    assert [fn.launches - n for fn, n in zip(counters, before)] == [1] * 4
+    out, lse = flash_forward(q, k, v, True)
+    assert_bf16_gradients_pass_the_gate([t.grad for t in leaves], q, k, v,
+                                        out, lse, dout, True)
 
 
 @pytest.mark.cuda

@@ -140,7 +140,8 @@ def test_lm_worker_subprocess_on_cpu_prints_step_lines():
     assert re.search(r"^steady_state tokens_per_sec=[\d.]+ loss=[\d.]+$",
                      out, re.M), out
     for k, name in (("K3", "flash_forward"), ("K4", "flash_backward_dkdv"),
-                    ("K5", "flash_backward_dq")):
+                    ("K5", "flash_backward_dq"),
+                    ("DELTA", "flash_backward_delta")):
         assert re.search(rf"^{k}_LAUNCHES {name}=0 steps=3 layers=2 "
                          r"device=cpu$", out, re.M), out
     assert re.search(r"^PEAK_MEM_GIB not measured device=cpu$", out, re.M)
@@ -159,6 +160,7 @@ def test_lm_worker_trains_in_every_data_mode(extra):
     assert all(0.0 < x < 10.0 for x in r["losses"])
     assert r["tokens_per_step"] == 2 * 16
     assert r["k3_launches"] == r["k4_launches"] == r["k5_launches"] == 0
+    assert r["delta_launches"] == 0
 
 
 def test_lm_worker_draws_the_jax_workers_batches():
