@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Builds every kernel of the port's serving and training paths from the
-sources in the checkout, then runs fifteen phases; any failure exits
+sources in the checkout, then runs eighteen phases; any failure exits
 non-zero:
 
 1. device: the card's name and power limit, TF32 off;
@@ -15,7 +15,8 @@ non-zero:
    (rtol=atol=2e-5) and bfloat16 (rtol=2^-7, atol=1e-5: both compute in
    f32 and round once to bf16, so they may differ by one rounding step);
    its device time (launches captured in a CUDA graph), the plain
-   version's time and its bandwidth bound;
+   version's time and its bandwidth bound; then the same at the worker's
+   defaults' geometry (8 heads of 64, pages of 32, 36-page tables);
 3. K2 (paged multi-query attention, the speculative verify, same
    source) at the verify's shapes (8 slots, a 5-row window, 32 heads,
    head_dim 128, page 128, a shuffled 9-page table, lengths whose windows
@@ -23,6 +24,8 @@ non-zero:
    version and the dense oracle at the same tolerances; its row j must
    equal K1 at lengths + j bit for bit, and a 1-row window K1; its
    time, K1's at the same widest contexts, the plain time and the bound;
+   then the same at the worker's defaults' geometry with a 9-row window
+   (``--spec-k 8``: two groups of rows);
 4. the serving path at the flagship's full width (vocab 32768, hidden
    4096, 4 layers, 32 heads, prompt 128, page 128, 8 slots, 16 requests
    per wave) in bfloat16 through the worker's entry point; K1 must have
@@ -42,16 +45,18 @@ non-zero:
    forward, dK/dV, dQ and rowsum(dO * O), ``ops/csrc/flash_attention.cu``)
    against their plain versions at the training path's shapes (b 16,
    s 1024, 32 heads of 128, causal) in float32 (out and lse
-   rtol=atol=2e-5, gradients 1e-4) and bfloat16 (out one rounding step,
-   lse 2e-5; the tensor-core gradients within twice the error of the
-   twins' bf16 emulation of p and ds, plus 1e-5, against the float32
-   twin), and at two small shapes (causal over an uneven 1000 rows;
-   non-causal 640 queries over 1024 keys); the bf16 K4 and K5 must hold
-   HGMMA instructions (``cuobjdump -sass``); each kernel's device time
-   (CUDA graph replay), its plain version's time, its bound, and the time
-   of PyTorch's scaled_dot_product_attention forward and backward at the
-   same shapes, with the backend it picked, and K4 + K5 + the pre-pass
-   against SDPA's backward;
+   rtol=atol=2e-5, gradients 1e-4) and bfloat16 (the tensor-core out and
+   gradients within twice the error of the twins' bf16 emulation of p
+   and ds, plus 1e-5, against the float32 twin, and within the
+   emulation's element and 64-row block allowances; lse 2e-5), and at two
+   small shapes (causal over an uneven 1000 rows; non-causal 640 queries
+   over 1024 keys); the bf16 K3, K4 and K5 must hold HGMMA instructions
+   of both forms, operands from shared memory and A from registers
+   (``cuobjdump -sass``); each kernel's device time (CUDA graph replay),
+   its plain version's time, its bound, and the time of PyTorch's
+   scaled_dot_product_attention forward and backward at the same shapes,
+   with the backend it picked, and K4 + K5 + the pre-pass against SDPA's
+   backward;
 9. full-width training through the worker's ``--model lm`` (the 1.08B
    flagship, batch 16, seq 1024, 5 steps, bf16 compute): K3, K4, K5 and
    the delta pre-pass launched steps x layers times each, every loss
@@ -63,12 +68,12 @@ non-zero:
    ``einsum`` attention within 1e-4 of its ``flash`` on the losses (the
    float32 kernels take delta from out: no pre-pass);
 11. K1q (K1 over an int8 pool with (pages, heads) float32 scales) at
-   phase 2's shapes, pools from ``quantize_pages`` of random data: against
-   its plain version and the dense oracle over ``dequantize_pages``, in
-   float32 and bfloat16 q at phase 2's tolerances; its graph-replay time,
-   plain time and byte bound;
-12. K2q likewise at phase 3's shapes: row j equal to K1q at lengths + j
-   bit for bit, a 1-row window equal to K1q;
+   phase 2's two geometries, pools from ``quantize_pages`` of random data:
+   against its plain version and the dense oracle over
+   ``dequantize_pages``, in float32 and bfloat16 q at phase 2's
+   tolerances; its graph-replay time, plain time and byte bound;
+12. K2q likewise at phase 3's shapes and windows: row j equal to K1q at
+   lengths + j bit for bit, a 1-row window equal to K1q;
 13. the flagship wave of phase 4 with ``--kv-dtype int8`` (bf16 weights):
    K1q launched decode steps x layers times, K1 never; the pool's bytes;
 14. the flagship wave with ``--kv-dtype int8 --int8 --speculate --spec-k
@@ -80,7 +85,14 @@ non-zero:
    near-tie rule, pages requantized at sealing, every cache-owned page at
    full int8 range on the card, and (where the streams agree) the card
    and CPU pools equal except for at most one int8 step, whose share is
-   printed.
+   printed;
+16. the worker at its own defaults (``--model decode``: 8 heads of 64,
+   pages of 32, 32 slots, 64 requests a wave): K1 launched decode steps x
+   layers times;
+17. the same with ``--speculate --spec-k 8``: K2 launched verify steps x
+   layers times over 9-row windows, K1 never;
+18. the same with ``--kv-dtype int8``: K1q launched decode steps x layers
+   times.
 
 The line before the last is the per-kernel JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device the script
@@ -104,8 +116,16 @@ HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory
 F32_FLOPS_PER_S = 67e12     # H100 SXM float32 outside the tensor cores
 BF16_FLOPS_PER_S = 989e12   # H100 SXM bf16 dense tensor cores
 SPEC_K = 4
+# the worker's defaults' verify window: --spec-k 8
+DEFAULT_SPEC_K = 8
 # the training path's attention: batch, seq, heads, head_dim
 FLASH_SHAPE = (16, 1024, 32, 128)
+# the paged kernels' shapes: the flagship's (32 heads of 128, pages of
+# 128) and the worker's defaults' (8 heads of 64, pages of 32), 8 slots
+# of up to CONTEXT_ROWS rows each
+FLAGSHIP_PAGED = dict(b=8, h=32, hd=128, page=128)
+DEFAULT_PAGED = dict(b=8, h=8, hd=64, page=32)
+CONTEXT_ROWS = 1152   # the flagship's table width: ceil(1025 / 128) pages
 
 
 def log(msg: str) -> None:
@@ -202,7 +222,11 @@ def paged_operands(shape, dtype, g, quant: bool):
             (dequantize_pages(kd, ks), dequantize_pages(vd, vs)))
 
 
-def phase_k1(quant: bool = False) -> dict:
+def geometry_label(geo: dict) -> str:
+    return f"hd {geo['hd']}, page {geo['page']}, {geo['h']} heads"
+
+
+def phase_k1(quant: bool = False, geo: dict = FLAGSHIP_PAGED) -> dict:
     import torch
 
     from kubegpu_tpu_torch.ops.paged_attention import (
@@ -212,12 +236,13 @@ def phase_k1(quant: bool = False) -> dict:
     )
 
     dev = torch.device("cuda")
-    label = "K1q" if quant else "K1"
-    b, h, hd, page = 8, 32, 128, 128
-    n_pages = 9          # the flagship's table width: ceil(1025 / 128)
+    b, h, hd, page = geo["b"], geo["h"], geo["hd"], geo["page"]
+    label = f"{'K1q' if quant else 'K1'} ({geometry_label(geo)})"
+    n_pages = CONTEXT_ROWS // page
     pool = b * n_pages + 8
-    lengths_l = [0, 1, 127, 128, 200, 513, 1000, n_pages * page]
-    g = torch.Generator(device=dev).manual_seed(11 if quant else 1)
+    lengths_l = [0, 1, page - 1, page, 200, 513, 1000, n_pages * page]
+    seed = (11 if quant else 1) + (0 if geo is FLAGSHIP_PAGED else 100)
+    g = torch.Generator(device=dev).manual_seed(seed)
     table = torch.stack([
         torch.randperm(pool, generator=g, device=dev)[:n_pages]
         for _ in range(b)
@@ -275,7 +300,8 @@ def phase_k1(quant: bool = False) -> dict:
     return rec
 
 
-def phase_k2(quant: bool = False) -> dict:
+def phase_k2(quant: bool = False, geo: dict = FLAGSHIP_PAGED,
+             spec_k: int = SPEC_K) -> dict:
     import torch
 
     from kubegpu_tpu_torch.ops.paged_attention import (
@@ -286,14 +312,18 @@ def phase_k2(quant: bool = False) -> dict:
     )
 
     dev = torch.device("cuda")
-    label, k1_label = ("K2q", "K1q") if quant else ("K2", "K1")
-    b, L, h, hd, page = 8, SPEC_K + 1, 32, 128, 128
-    n_pages = 9          # the flagship's table width: ceil(1025 / 128)
+    k1_label = "K1q" if quant else "K1"
+    b, L, h, hd, page = geo["b"], spec_k + 1, geo["h"], geo["hd"], geo["page"]
+    label = (f"{'K2q' if quant else 'K2'} ({geometry_label(geo)}, "
+             f"{L}-row window)")
+    n_pages = CONTEXT_ROWS // page
     pool = b * n_pages + 8
-    # windows crossing page boundaries (124..128), mid-table, and one
-    # whose widest row reaches the full table (1148 + 4 = 1152 rows)
-    lengths_l = [1, 124, 126, 127, 128, 513, 1000, n_pages * page - 4]
-    g = torch.Generator(device=dev).manual_seed(13 if quant else 3)
+    # windows crossing page boundaries (page - 4 .. page), mid-table, and
+    # one whose widest row reaches the full table
+    lengths_l = [1, page - 4, page - 2, page - 1, page, 513, 1000,
+                 n_pages * page - (L - 1)]
+    seed = (13 if quant else 3) + (0 if geo is FLAGSHIP_PAGED else 100)
+    g = torch.Generator(device=dev).manual_seed(seed)
     table = torch.stack([
         torch.randperm(pool, generator=g, device=dev)[:n_pages]
         for _ in range(b)
@@ -427,10 +457,14 @@ def run_wave(label: str, argv) -> tuple:
     return r, args, launches, peak
 
 
-def phase_flagship(int8: bool = False) -> dict:
-    argv = FLAGSHIP_ARGV + (["--kv-dtype", "int8"] if int8 else [])
-    label, kname = ("int8-pool flagship", "K1q") if int8 else ("flagship",
-                                                               "K1")
+# the worker at its defaults: 8 heads of 64, pages of 32, 32 slots
+DEFAULT_ARGV = ["--model", "decode"]
+
+
+def phase_flagship(int8: bool = False, base=FLAGSHIP_ARGV,
+                   name: str = "flagship") -> dict:
+    argv = base + (["--kv-dtype", "int8"] if int8 else [])
+    label, kname = (f"int8-pool {name}", "K1q") if int8 else (name, "K1")
     r, args, launches, peak = run_wave(label, argv)
     n = launches.pop(kname)
     log(f"{label}: {kname} launches {n} = decode steps "
@@ -441,16 +475,17 @@ def phase_flagship(int8: bool = False) -> dict:
     return dict(r, launches=n, peak_bytes=peak)
 
 
-def phase_spec_flagship(int8: bool = False) -> dict:
-    argv = FLAGSHIP_ARGV + ["--speculate", "--spec-k", str(SPEC_K)]
-    label, kname = "speculative flagship", "K2"
+def phase_spec_flagship(int8: bool = False, base=FLAGSHIP_ARGV,
+                        name: str = "flagship", spec_k: int = SPEC_K) -> dict:
+    argv = base + ["--speculate", "--spec-k", str(spec_k)]
+    label, kname = f"speculative {name}", "K2"
     if int8:
         argv += ["--kv-dtype", "int8", "--int8"]
-        label, kname = "int8 speculative flagship (int8 weights)", "K2q"
+        label, kname = f"int8 speculative {name} (int8 weights)", "K2q"
     r, args, launches, peak = run_wave(label, argv)
     steps = r["spec_steps_total"]
     n = launches.pop(kname)
-    log(f"{label}: k={SPEC_K}, timed wave {r['spec_steps']} "
+    log(f"{label}: k={spec_k}, timed wave {r['spec_steps']} "
         f"verify steps for {r['spec_tokens']} tokens = "
         f"{r['spec_tokens'] / r['spec_steps']:.3f} tokens a verify; "
         f"draft ring wraps {r['draft_wraps']}; {kname} launches {n} = "
@@ -753,12 +788,54 @@ def bf16_gradient_errs(got, q, k, v, out, lse, dout, causal) -> dict:
     return errs
 
 
+def bf16_forward_errs(out, q, k, v, causal) -> tuple:
+    """The bf16 K3 gate, as for the gradients: out's max abs error
+    against the float32 twin (fed the same bf16 values as float32) must
+    be at most ``bf16_gradient_allowance`` of the error of the twin's
+    bf16 emulation (p rounded before p . v, l from the f32 p), and each
+    element and each 64-row block of out must lie within
+    ``bf16_emulation_shares``'s allowances of the emulation.  Returns
+    (kernel error, its share of the allowance, emulation error); raises
+    past an allowance."""
+    import torch
+
+    from kubegpu_tpu_torch.ops.attention import (
+        bf16_emulation_shares,
+        bf16_gradient_allowance,
+        flash_forward_plain,
+    )
+
+    ref, _ = flash_forward_plain(*(t.float() for t in (q, k, v)), causal)
+    emu, _ = flash_forward_plain(q, k, v, causal,
+                                 operand_dtype=torch.bfloat16)
+    err = (out.float() - ref).abs().max().item()
+    emu_err = (emu.float() - ref).abs().max().item()
+    allow = bf16_gradient_allowance(emu_err)
+    element, block = bf16_emulation_shares(out, emu)
+    log(f"  bf16 out: median |out| {emu.float().abs().median():.3e}, rms "
+        f"{emu.float().square().mean().sqrt():.3e}; against the f32 twin "
+        f"{err:.3e} of {allow:.3e} allowed (emulation {emu_err:.3e}); "
+        f"against the emulation max "
+        f"{(out.float() - emu.float()).abs().max():.3e}, worst element "
+        f"{element:.3f} and worst 64-row block {block:.3f} of their "
+        "allowances")
+    assert err <= allow, (
+        f"bf16 out: kernel error {err:.3e} exceeds {allow:.3e} (twice the "
+        f"emulation's {emu_err:.3e} plus {BF16_ATOL})")
+    assert element <= 1 and block <= 1, (
+        f"bf16 out strays from the emulation: element share {element:.3f}, "
+        f"block share {block:.3f}")
+    return err, err / allow, emu_err
+
+
 def check_flash(q, k, v, dout, causal) -> dict:
     """K3, K4, K5 and the delta pre-pass against their plain versions on
     one input; the backward kernels read the plain forward's out and lse,
-    so both sides of each check see the same operands.  bf16 gradients
-    pass :func:`bf16_gradient_errs`.  Returns each kernel's max abs error
-    (K4: over dk and dv; bf16 gradients against the float32 twin)."""
+    so both sides of each check see the same operands.  bf16 out passes
+    :func:`bf16_forward_errs` and bf16 gradients
+    :func:`bf16_gradient_errs`; lse is within 2e-5 of the float32 twin in
+    both types.  Returns each kernel's max abs error (K4: over dk and dv;
+    bf16 out and gradients against the float32 twin)."""
     import torch
 
     from kubegpu_tpu_torch.ops.attention import (
@@ -773,7 +850,6 @@ def check_flash(q, k, v, dout, causal) -> dict:
     )
 
     bf16 = q.dtype == torch.bfloat16
-    rtol, atol = (BF16_RTOL, BF16_ATOL) if bf16 else (F32_TOL, F32_TOL)
     out, lse = flash_forward(q, k, v, causal)
     p_out, p_lse = flash_forward_plain(q, k, v, causal)
     # the pre-pass and its delta are the bf16 backward's alone
@@ -786,7 +862,8 @@ def check_flash(q, k, v, dout, causal) -> dict:
         assert torch.isfinite(t.float()).all(), "a flash kernel gave non-finite"
     assert lse.dtype == torch.float32 and torch.isfinite(lse).all()
     errs = {
-        "out": max_err(out, p_out, rtol, atol),
+        "out": (bf16_forward_errs(out, q, k, v, causal)[:2] if bf16
+                else max_err(out, p_out, F32_TOL, F32_TOL)),
         "lse": max_err(lse, p_lse, F32_TOL, F32_TOL),
     }
     if bf16:
@@ -914,7 +991,8 @@ def phase_flash() -> dict:
     )
 
     sass = hgmma_instructions(_build.library_path("flash_attention"))
-    for kname in ("flash_backward_dkdv_wgmma_kernel",
+    for kname in ("flash_forward_wgmma_kernel",
+                  "flash_backward_dkdv_wgmma_kernel",
                   "flash_backward_dq_wgmma_kernel"):
         found = {fn: ins for fn, ins in sass.items() if kname in fn}
         log(f"SASS {kname}: HGMMA per instantiation "
@@ -927,6 +1005,9 @@ def phase_flash() -> dict:
             forms.setdefault((ins.split()[0], ".tnspB" in ins), ins)
         for ins in forms.values():
             log(f"  {ins}")
+        assert any(rs for _, rs in forms) and not all(rs for _, rs in forms), (
+            f"{kname} lacks the shared-memory (SS) or the register-A (RS) "
+            f"form: {sorted(forms)}")
     g = torch.Generator(device="cuda").manual_seed(4)
     for dtype in (torch.float32, torch.bfloat16):
         check_flash(*flash_inputs(2, 1000, 1000, 4, 128, dtype, g), True)
@@ -1116,7 +1197,9 @@ def main() -> int:
     name = phase_device()
     phase_build()
     k1 = phase_k1()
+    phase_k1(geo=DEFAULT_PAGED)
     k2 = phase_k2()
+    phase_k2(geo=DEFAULT_PAGED, spec_k=DEFAULT_SPEC_K)
     flag = phase_flagship()
     spec = phase_spec_flagship()
     small = phase_card_vs_cpu()
@@ -1125,10 +1208,18 @@ def main() -> int:
     train = phase_train_flagship()
     phase_train_card_vs_cpu()
     k1q = phase_k1(quant=True)
+    phase_k1(quant=True, geo=DEFAULT_PAGED)
     k2q = phase_k2(quant=True)
+    phase_k2(quant=True, geo=DEFAULT_PAGED, spec_k=DEFAULT_SPEC_K)
     flag_q = phase_flagship(int8=True)
     spec_q = phase_spec_flagship(int8=True)
     phase_int8_card_vs_cpu(small)
+    # the worker at its own defaults: plain, speculative at k 8, int8 pool
+    phase_flagship(base=DEFAULT_ARGV, name="worker at its defaults")
+    phase_spec_flagship(base=DEFAULT_ARGV, name="worker at its defaults",
+                        spec_k=DEFAULT_SPEC_K)
+    phase_flagship(int8=True, base=DEFAULT_ARGV,
+                   name="worker at its defaults")
     log(f"chip_smoke: all phases passed in {time.monotonic() - t0:.1f} s")
     source = "kubegpu_tpu_torch/ops/csrc/paged_attention.cu"
     kernels = []

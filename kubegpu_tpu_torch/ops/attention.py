@@ -20,8 +20,9 @@ Four roles, as in ``ops/paged_attention.py``:
   :func:`flash_backward_dq_plain` -> ``dq``, which recompute p from the
   lse.  ``operand_dtype=torch.bfloat16`` makes the backward twins round
   p and ds to bf16 before their products (f32 sums, one rounding of the
-  result): the function the bf16 kernels compute, and the emulation
-  their tolerance is derived from (:func:`bf16_gradient_allowance`
+  result), and the forward twin p before ``p . v`` (``l`` from the
+  float32 p): the functions the bf16 kernels compute, and the emulations
+  their tolerances are derived from (:func:`bf16_gradient_allowance`
   against the float32 twin, :func:`bf16_emulation_shares` element by
   element and block by block against the emulation itself).
 - The kernel wrappers :func:`flash_forward` (K3),
@@ -30,11 +31,12 @@ Four roles, as in ``ops/paged_attention.py``:
   CUDA tensors launch the hand-written Hopper kernels of
   ``csrc/flash_attention.cu`` (built at first use) or raise; only CPU
   tensors take the twins.  Each wrapper counts its launches in
-  ``.launches``.  In bf16, K4 and K5 run on the tensor cores and read a
-  precomputed delta (the pre-pass runs first when none is given), and an
-  operand whose data is not 16-byte aligned is copied first; in float32
-  they compute in f32 on the CUDA cores, take delta from out per tile
-  and refuse a ``delta=``, and the pre-pass takes bf16 only.
+  ``.launches``.  In bf16, K3, K4 and K5 run on the tensor cores, K4
+  and K5 read a precomputed delta (the pre-pass runs first when none is
+  given), and an operand whose data is not 16-byte aligned is copied
+  first; in float32 they compute in f32 on the CUDA cores, K4 and K5
+  take delta from out per tile and refuse a ``delta=``, and the pre-pass
+  takes bf16 only.
 - :func:`flash_attention`: the ``torch.autograd.Function`` joining
   them, the counterpart of the JAX ``custom_vjp``.  Its forward saves
   ``(q, k, v, out, lse)`` and no ``s x s`` tensor; its backward runs
@@ -56,8 +58,6 @@ NEG_INF = float("-inf")
 KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # head widths the kernels take: multiples of 8 up to MAX_HEAD_DIM
 MAX_HEAD_DIM = 128
-# the CUDA grid's y dimension carries b * h
-MAX_BATCH_HEADS = 65535
 # the absolute term of a bf16 tolerance: f32 noise near zero
 BF16_ATOL = 1e-5
 
@@ -98,11 +98,14 @@ def _scores(q, k, causal: bool):
     return scores, valid
 
 
-def flash_forward_plain(q, k, v, causal: bool = True):
+def flash_forward_plain(q, k, v, causal: bool = True, operand_dtype=None):
     """K3's plain twin: dense float32 attention with the Pallas kernel's
     guards.  A row with nothing to attend (``l == 0``) gets out 0 and
     lse -inf.  Returns ``(out, lse)``: out in q's dtype, lse float32
-    ``(b, h, sq)``."""
+    ``(b, h, sq)``.  ``operand_dtype`` (None or ``torch.bfloat16``) rounds
+    p before ``p . v`` only, as the bf16 kernel feeds it to the tensor
+    cores: ``l`` is still summed from the float32 p, so lse is unchanged
+    bit for bit."""
     _check_causal(q, k, causal)
     scores, valid = _scores(q, k, causal)
     if valid is not None:
@@ -112,7 +115,8 @@ def flash_forward_plain(q, k, v, causal: bool = True):
     p = torch.exp(scores - shift)
     l = p.sum(-1, keepdim=True)
     denom = torch.where(l == 0.0, 1.0, l)
-    out = torch.einsum("bhqk,bkhd->bhqd", p, v.float()) / denom
+    out = torch.einsum("bhqk,bkhd->bhqd", _operands(p, operand_dtype),
+                       v.float()) / denom
     lse = torch.where(l > 0.0, torch.where(torch.isfinite(m), m, 0.0)
                       + torch.log(denom), NEG_INF)
     return _bshd(out.transpose(1, 2), q.dtype), lse[..., 0]
@@ -249,8 +253,6 @@ def check_flash_args(q, k, v, causal: bool) -> None:
     if d % 8 or not 8 <= d <= MAX_HEAD_DIM:
         raise ValueError(f"kernel takes a head_dim that is a multiple of 8 "
                          f"up to {MAX_HEAD_DIM}, got {d}")
-    if b * h > MAX_BATCH_HEADS:
-        raise ValueError(f"b * h = {b * h} exceeds {MAX_BATCH_HEADS}")
     if not all(t.is_contiguous() for t in (q, k, v)):
         raise ValueError("q, k and v must be contiguous BSHD")
 
@@ -305,6 +307,8 @@ def flash_forward(q, k, v, causal: bool = True):
         return flash_forward_plain(q, k, v, causal)
     _require_card()
     check_flash_args(q, k, v, causal)
+    if q.dtype == torch.bfloat16:
+        q, k, v = (_aligned(t) for t in (q, k, v))
     lib = _build.load("flash_attention")
     b, sq, h, _ = q.shape
     out = torch.empty_like(q)

@@ -33,8 +33,8 @@
 // card's tensor cores (989 TFLOP/s) and its memory (3.35 TB/s) bound
 // alike.
 //
-// K3 in both types, and K4 and K5 in float32, are the first design: they
-// compute in f32 on the CUDA cores, as the Pallas bodies compute in f32.
+// K3, K4 and K5 in float32 are the first design: they compute in f32 on
+// the CUDA cores, as the Pallas bodies compute in f32.
 // Their limit is the f32 FMA rate (67 TFLOP/s) and the shared-memory
 // traffic of their inner products: tiles of 64 rows are staged in shared
 // memory as f32 (rows padded to 129 floats, so sixteen threads reading
@@ -43,13 +43,22 @@
 // 64 x d accumulator, which reuses every shared-memory value it reads four
 // or eight times.
 //
-// K4 and K5 in bf16 (the training path's type) run their products on the
-// tensor cores with wgmma (hopper.cuh), f32 accumulation.  A block has two
-// warpgroups of 64 rows each.  One warp of the first also feeds a ring of
-// three stages by TMA, with a full and an empty mbarrier per stage, two
+// K3, K4 and K5 in bf16 (the training path's type) run their products on
+// the tensor cores with wgmma (hopper.cuh), f32 accumulation.  A block has
+// two warpgroups of 64 rows each.  One warp of the first also feeds a ring
+// of three stages by TMA, with a full and an empty mbarrier per stage, two
 // stages ahead of its own use, so loads overlap products and the two
 // warpgroups run apart rather than in lock step:
 //
+//   K3: a block per (b*h, 128 q rows); q stays, K and V stream in tiles of
+//       128 rows; S = q.K^T (64 x 128 a warpgroup) from shared memory,
+//       then an online softmax in registers in base 2 (scores times
+//       scale * log2 e, exp2 on the special-function unit, the Pallas
+//       guards for -inf), l summed from the unrounded p, the accumulator
+//       rescaled by the correction, and O += P.V with P rounded to bf16
+//       as the register A operand and V read MN-major.  out = O / l and
+//       lse = (m + log2 l) ln 2.  Causal blocks run a head's heaviest q
+//       tiles first.
 //   K4: a block per (b*h, 128 K/V rows); K and V stay in shared memory,
 //       and q, dO, lse and delta stream through in tiles of 64 rows.  Per
 //       tile a warpgroup takes S^T = K.q^T and dP^T = V.dO^T (both
@@ -62,9 +71,9 @@
 //       tiles of 64 rows; S = q.K^T, dP = dO.V^T, then dQ += dS.K with dS
 //       from registers.
 //
-// Rounding p and ds to bf16 before their products is the one departure
-// from the f32 algebra; the reference on its TPU (an f32 dot at JAX's
-// default precision is one bf16 pass) rounds them too.  delta =
+// Rounding p (and, backward, ds) to bf16 before their products is the one
+// departure from the f32 algebra; the reference on its TPU (an f32 dot at
+// JAX's default precision is one bf16 pass) rounds them too.  delta =
 // rowsum(dO * O) comes precomputed from flash_backward_delta_kernel, once
 // per backward.  A row whose lse is -inf, and a padding row, gets the
 // shift +inf, so exp2 gives its p = 0 with no separate test; only tiles
@@ -286,7 +295,17 @@ __device__ __forceinline__ size_t head_base(int b, int h, int seq, int heads,
   return ((size_t)b * seq * heads + h) * d;
 }
 
-// grid (q tiles, b*h).  K3.
+// Every kernel runs a 1-D grid of b*h x tiles blocks, one head's tiles
+// consecutive (neighbouring blocks share that head's K/V in L2): b*h rides
+// gridDim.x, which has no 65535 limit.  Returns this block's b*h index and
+// sets its tile.
+__device__ __forceinline__ int block_head(int tiles, int* tile) {
+  const int bh = blockIdx.x / tiles;
+  *tile = blockIdx.x - bh * tiles;
+  return bh;
+}
+
+// grid (b*h x q tiles).  K3 in float32.
 template <typename T>
 __global__ void __launch_bounds__(kThreads) flash_forward_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
@@ -297,10 +316,11 @@ __global__ void __launch_bounds__(kThreads) flash_forward_kernel(
   float* ks = qs + kTileFloats;
   float* vs = ks + kTileFloats;
   float* ps = vs + kTileFloats;
-  const int bh = blockIdx.y;
+  int qt;
+  const int bh = block_head((seq_q + kTile - 1) / kTile, &qt);
   const int b = bh / heads;
   const int h = bh - b * heads;
-  const int q0 = blockIdx.x * kTile;
+  const int q0 = qt * kTile;
   const size_t row_stride = (size_t)heads * d;
   const size_t qoff = head_base(b, h, seq_q, heads, d);
   const size_t koff = head_base(b, h, seq_k, heads, d);
@@ -371,7 +391,7 @@ __global__ void __launch_bounds__(kThreads) flash_forward_kernel(
   store_rows(acc, out + qoff, q0, seq_q, row_stride, d);
 }
 
-// grid (k tiles, b*h).  K4.
+// grid (b*h x k tiles).  K4 in float32.
 template <typename T>
 __global__ void __launch_bounds__(kThreads) flash_backward_dkdv_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
@@ -387,10 +407,11 @@ __global__ void __launch_bounds__(kThreads) flash_backward_dkdv_kernel(
   float* dss = ps + kScoreFloats;
   float* lse_s = dss + kScoreFloats;
   float* delta_s = lse_s + kTile;
-  const int bh = blockIdx.y;
+  int kt;
+  const int bh = block_head((seq_k + kTile - 1) / kTile, &kt);
   const int b = bh / heads;
   const int h = bh - b * heads;
-  const int k0 = blockIdx.x * kTile;
+  const int k0 = kt * kTile;
   const size_t row_stride = (size_t)heads * d;
   const size_t qoff = head_base(b, h, seq_q, heads, d);
   const size_t koff = head_base(b, h, seq_k, heads, d);
@@ -422,7 +443,7 @@ __global__ void __launch_bounds__(kThreads) flash_backward_dkdv_kernel(
   store_rows(dv_acc, dv + koff, k0, seq_k, row_stride, d);
 }
 
-// grid (q tiles, b*h).  K5.
+// grid (b*h x q tiles).  K5 in float32.
 template <typename T>
 __global__ void __launch_bounds__(kThreads) flash_backward_dq_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
@@ -437,10 +458,11 @@ __global__ void __launch_bounds__(kThreads) flash_backward_dq_kernel(
   float* dss = vs + kTileFloats;
   float* lse_s = dss + kScoreFloats;
   float* delta_s = lse_s + kTile;
-  const int bh = blockIdx.y;
+  int qt;
+  const int bh = block_head((seq_q + kTile - 1) / kTile, &qt);
   const int b = bh / heads;
   const int h = bh - b * heads;
-  const int q0 = blockIdx.x * kTile;
+  const int q0 = qt * kTile;
   const size_t row_stride = (size_t)heads * d;
   const size_t qoff = head_base(b, h, seq_q, heads, d);
   const size_t koff = head_base(b, h, seq_k, heads, d);
@@ -518,6 +540,7 @@ constexpr int kBlockRows = 2 * kWgRows;  // K4's K/V tile, K5's q tile
 constexpr int kStreamRows = 64;          // K4's q tile, K5's K/V tile
 constexpr int kStages = 3;
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
 // Shared memory of K4 (byte offsets from a 1024-aligned base): the
 // resident K and V tiles; kStages stages of q, dO, lse and delta; the
@@ -540,6 +563,22 @@ struct DqSmem {
   static constexpr int kQ = kBlockRows * kD * 2;
   static constexpr int kKv = kStreamRows * kD * 2;
   static constexpr int q = 0, dout = kQ, k = 2 * kQ, v = k + kStages * kKv,
+                       bar = v + kStages * kKv,
+                       bytes = bar + (1 + 2 * kStages) * 8 + 1024;
+};
+
+// K3's K/V tile: a warpgroup's score tile is 64 x 128, half the softmax
+// reductions and ring waits per product of 64 x 64 tiles
+// (kubegpu_tpu_torch/k3_variants.py times both).
+constexpr int kFwdKvRows = 128;
+
+// Shared memory of the bf16 K3: the resident q tile, kStages stages of K
+// and V, the barriers.
+template <int kD>
+struct FwdSmem {
+  static constexpr int kQ = kBlockRows * kD * 2;
+  static constexpr int kKv = kFwdKvRows * kD * 2;
+  static constexpr int q = 0, k = kQ, v = k + kStages * kKv,
                        bar = v + kStages * kKv,
                        bytes = bar + (1 + 2 * kStages) * 8 + 1024;
 };
@@ -653,7 +692,7 @@ __device__ __forceinline__ void grads(const float (&p)[32], float (&dp)[32],
     dp[e] = p[e] * (dp[e] - delta(half_of(e), col_of(e))) * sm_scale;
 }
 
-// grid (ceil(seq_k / 128), b*h).  K4, bf16.
+// grid (b*h x ceil(seq_k / 128)).  K4, bf16.
 template <int kD>
 __global__ void __launch_bounds__(kWgThreads, 1)
     flash_backward_dkdv_wgmma_kernel(
@@ -670,10 +709,11 @@ __global__ void __launch_bounds__(kWgThreads, 1)
   unsigned char* sm;
   const uint32_t base = aligned_base(dkdv_smem, &sm);
   const uint32_t bar = base + L::bar;
-  const int bh = blockIdx.y;
+  int kt;
+  const int bh = block_head((seq_k + kBlockRows - 1) / kBlockRows, &kt);
   const int b = bh / heads;
   const int h = bh - b * heads;
-  const int k0 = blockIdx.x * kBlockRows;
+  const int k0 = kt * kBlockRows;
   // causal: a q tile reaches this block's rows once its last row does
   const int qt0 = causal ? k0 / kStreamRows : 0;
   const int fills = (seq_q + kStreamRows - 1) / kStreamRows - qt0;
@@ -806,7 +846,7 @@ __global__ void __launch_bounds__(kWgThreads, 1)
   store_acc<kD>(dv_acc, dv + koff, kr, seq_k, (size_t)heads * d, d);
 }
 
-// grid (ceil(seq_q / 128), b*h).  K5, bf16.
+// grid (b*h x ceil(seq_q / 128)).  K5, bf16.
 template <int kD>
 __global__ void __launch_bounds__(kWgThreads, 1)
     flash_backward_dq_wgmma_kernel(
@@ -823,10 +863,11 @@ __global__ void __launch_bounds__(kWgThreads, 1)
   unsigned char* sm;  // unused: K5 reads shared memory only through wgmma
   const uint32_t base = aligned_base(dq_smem, &sm);
   const uint32_t bar = base + L::bar;
-  const int bh = blockIdx.y;
+  int qt;
+  const int bh = block_head((seq_q + kBlockRows - 1) / kBlockRows, &qt);
   const int b = bh / heads;
   const int h = bh - b * heads;
-  const int q0 = blockIdx.x * kBlockRows;
+  const int q0 = qt * kBlockRows;
   int fills = (seq_k + kStreamRows - 1) / kStreamRows;
   if (causal) fills = min(fills, (q0 + kBlockRows - 1) / kStreamRows + 1);
   init_ring(bar, 1);
@@ -938,6 +979,184 @@ __global__ void __launch_bounds__(kWgThreads, 1)
                 (size_t)heads * d, d);
 }
 
+// grid (b*h x ceil(seq_q / 128)).  K3, bf16: q stays, K and V stream in
+// tiles of kFwdKvRows rows; S = q.K^T from shared memory, an online
+// softmax in registers (base 2), then O += P.V with P rounded to bf16 as
+// the register A operand and V read MN-major.
+template <int kD>
+__global__ void __launch_bounds__(kWgThreads, 1)
+    flash_forward_wgmma_kernel(
+        const __grid_constant__ CUtensorMap q_map,
+        const __grid_constant__ CUtensorMap k_map,
+        const __grid_constant__ CUtensorMap v_map,
+        __nv_bfloat16* __restrict__ out, float* __restrict__ lse, int heads,
+        int seq_q, int seq_k, int d, float sm_scale, int causal) {
+  using namespace hopper;
+  using L = FwdSmem<kD>;
+  constexpr int kN = kFwdKvRows;  // a tile's K/V rows: S is 64 x kN
+  extern __shared__ unsigned char fwd_smem[];
+  unsigned char* sm;  // unused: K3 reads shared memory only through wgmma
+  const uint32_t base = aligned_base(fwd_smem, &sm);
+  const uint32_t bar = base + L::bar;
+  const int n_qt = (seq_q + kBlockRows - 1) / kBlockRows;
+  int qt;
+  const int bh = block_head(n_qt, &qt);
+  // causal: a head's last q tiles reach the most K/V tiles; launching
+  // them first leaves light blocks for the grid's tail
+  if (causal) qt = n_qt - 1 - qt;
+  const int b = bh / heads;
+  const int h = bh - b * heads;
+  const int q0 = qt * kBlockRows;
+  int fills = (seq_k + kN - 1) / kN;
+  if (causal) fills = min(fills, (q0 + kBlockRows - 1) / kN + 1);
+  init_ring(bar, 1);
+
+  // q, once; then fill i of the ring: K/V tile i (one thread)
+  auto fill = [&](int i) {
+    const int s = i % kStages;
+    mbar_wait(empty_bar(bar, i), use_parity(i) ^ 1);
+    const uint32_t full = full_bar(bar, i);
+    mbar_arrive_expect_tx(full, 2 * L::kKv);
+    tma_tile<kD>(base + L::k + s * L::kKv, k_map, full, kN, h, i * kN, b);
+    tma_tile<kD>(base + L::v + s * L::kKv, v_map, full, kN, h, i * kN, b);
+  };
+  const bool filler = threadIdx.x == 0;
+  if (filler) {
+    mbar_arrive_expect_tx(bar, L::kQ);
+    tma_tile<kD>(base + L::q, q_map, bar, kBlockRows, h, q0, b);
+    for (int i = 0; i < min(kStages - 1, fills); ++i) fill(i);
+  }
+  // this warpgroup owns q rows qw0 .. qw0 + 63
+  const int wg = threadIdx.x / 128;
+  const int m0 = 16 * ((threadIdx.x % 128) / 32) + (threadIdx.x % 32) / 4;
+  const int n0 = 2 * (threadIdx.x % 4);
+  const int qw0 = q0 + wg * kWgRows;
+  const int qr = qw0 + m0;  // this thread's rows: qr, qr + 8
+  const uint32_t qb = base + L::q + wg * kWgRows * 128;
+  const float scale_log2 = sm_scale * kLog2e;
+  // the running max (base 2, of the scaled scores) and denominator of
+  // rows qr and qr + 8, and their accumulator
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+  float o[kD / 2];
+#pragma unroll
+  for (int i = 0; i < kD / 2; ++i) o[i] = 0.f;
+  // causal: the tiles right of this warpgroup's rows add nothing; it
+  // passes them through the ring unread
+  const int n_wg = causal ? min(fills, (qw0 + kWgRows - 1) / kN + 1) : fills;
+
+  // issue S = q.K^T of tile i (one commit group)
+  auto scores = [&](int i, float (&sc)[kN / 2]) {
+    const uint32_t kb = base + L::k + (i % kStages) * L::kKv;
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kD / 16; ++kk)
+      wgmma_m64n128k16_ss(
+          sc, desc_k_major(qb + (kk / 4) * (kBlockRows * 128) + (kk % 4) * 32),
+          desc_k_major(kb + (kk / 4) * (kN * 128) + (kk % 4) * 32), kk);
+    wgmma_commit();
+  };
+  // issue O += P.V of tile i (one commit group)
+  auto weigh = [&](int i, const uint32_t (&pf)[kN / 4]) {
+    const uint32_t vb = base + L::v + (i % kStages) * L::kKv;
+    fence_operands(o);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kN / 16; ++kk)
+      wgmma_rs<kD>(o, pf[4 * kk], pf[4 * kk + 1], pf[4 * kk + 2],
+                   pf[4 * kk + 3], desc_mn_major(vb + kk * 2048, kN * 128));
+    wgmma_commit();
+  };
+  // tile i's scores (sc, before the scale) become P, rounded to bf16 pairs
+  // in the A operand's layout; m and l move on, and corr is the factor
+  // the accumulator takes before this tile's P.V
+  auto softmax = [&](int i, float (&sc)[kN / 2], uint32_t (&pf)[kN / 4],
+                     float (&corr)[2]) {
+    const int k0 = i * kN;
+    // only tiles that cross the diagonal or the last K row pay for the
+    // mask (-inf: p = 0)
+    const bool masked = (causal && k0 + kN - 1 > qw0) || k0 + kN > seq_k;
+    const int kc = k0 + n0;  // columns are K/V rows kc + c
+    float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int e = 0; e < kN / 2; ++e) {
+      const int a = half_of(e), c = col_of(e);
+      if (masked && !(kc + c < seq_k && (!causal || kc + c <= qr + 8 * a)))
+        sc[e] = -INFINITY;
+      mx[a] = fmaxf(mx[a], sc[e]);
+    }
+    // a row's kN columns lie in the four lanes of a quad; its max is
+    // taken before the scale (> 0), and m is in base 2 of the scaled
+    // scores
+    float shift[2];
+#pragma unroll
+    for (int a = 0; a < 2; ++a) {
+      mx[a] = fmaxf(mx[a], __shfl_xor_sync(0xffffffffu, mx[a], 1));
+      mx[a] = fmaxf(mx[a], __shfl_xor_sync(0xffffffffu, mx[a], 2));
+      const float m_new = fmaxf(m[a], mx[a] * scale_log2);
+      // the Pallas guards: m_new is -inf only on a row with nothing valid
+      // yet, where a zero shift keeps exp2(-inf - shift) at 0, and a -inf
+      // running max contributes nothing
+      shift[a] = m_new == -INFINITY ? 0.f : m_new;
+      corr[a] = m[a] == -INFINITY ? 0.f : exp2_ftz(m[a] - shift[a]);
+      m[a] = m_new;
+    }
+    // p = 2^(s * scale * log2 e - shift) in one multiply-add, and l summed
+    // from the unrounded p
+    float rs[2] = {0.f, 0.f};
+#pragma unroll
+    for (int e = 0; e < kN / 2; ++e) {
+      const float p = exp2_ftz(fmaf(sc[e], scale_log2, -shift[half_of(e)]));
+      sc[e] = p;
+      rs[half_of(e)] += p;
+    }
+#pragma unroll
+    for (int a = 0; a < 2; ++a) {
+      rs[a] += __shfl_xor_sync(0xffffffffu, rs[a], 1);
+      rs[a] += __shfl_xor_sync(0xffffffffu, rs[a], 2);
+      l[a] = fmaf(corr[a], l[a], rs[a]);
+    }
+#pragma unroll
+    for (int j = 0; j < kN / 4; ++j) pf[j] = pack_bf16(sc[2 * j], sc[2 * j + 1]);
+  };
+
+  mbar_wait(bar, 0);
+  for (int i = 0; i < fills; ++i) {
+    if (filler && i + kStages - 1 < fills) fill(i + kStages - 1);
+    mbar_wait(full_bar(bar, i), use_parity(i));
+    if (i < n_wg) {
+      float sc[kN / 2], corr[2];
+      uint32_t pf[kN / 4];
+      scores(i, sc);
+      wgmma_wait<0>();
+      fence_operands(sc);
+      softmax(i, sc, pf, corr);
+#pragma unroll
+      for (int e = 0; e < kD / 2; ++e) o[e] *= corr[half_of(e)];
+      weigh(i, pf);
+      wgmma_wait<0>();
+      fence_operands(o);
+    }
+    mbar_arrive(empty_bar(bar, i));
+  }
+  // out = O / l (0 where l == 0); lse = (m + log2 l) ln 2 (-inf there),
+  // written by the quad's first lane
+  float denom[2];
+#pragma unroll
+  for (int a = 0; a < 2; ++a) {
+    denom[a] = l[a] == 0.f ? 1.f : l[a];
+    const int row = qr + 8 * a;
+    if (n0 == 0 && row < seq_q)
+      lse[(size_t)bh * seq_q + row] =
+          l[a] > 0.f ? ((m[a] == -INFINITY ? 0.f : m[a]) + log2f(denom[a])) *
+                           kLn2
+                     : -INFINITY;
+  }
+#pragma unroll
+  for (int e = 0; e < kD / 2; ++e) o[e] = o[e] / denom[half_of(e)];
+  store_acc<kD>(o, out + head_base(b, h, seq_q, heads, d), qr, seq_q,
+                (size_t)heads * d, d);
+}
+
 constexpr size_t kForwardSmem = (3 * kTileFloats + kScoreFloats) * sizeof(float);
 constexpr size_t kDkdvSmem =
     (4 * kTileFloats + 2 * kScoreFloats + 2 * kTile) * sizeof(float);
@@ -953,13 +1172,16 @@ cudaError_t allow_smem(Kernel kernel, size_t bytes) {
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
 }
 
+// The grids' b*h x tiles blocks (tiles of kTile rows, the finest any
+// kernel takes) must fit gridDim.x.
 bool bad_shape(int b, int h, int seq_q, int seq_k, int d) {
+  const long long tiles =
+      ((long long)(seq_q > seq_k ? seq_q : seq_k) + kTile - 1) / kTile;
   return b <= 0 || h <= 0 || seq_q <= 0 || seq_k <= 0 || d <= 0 ||
-         d > kMaxD || d % 8 != 0 || (long long)b * h > 65535 ||
-         (seq_q + kTile - 1) / kTile > 65535 ||
-         (seq_k + kTile - 1) / kTile > 65535;
+         d > kMaxD || d % 8 != 0 || (long long)b * h * tiles > INT_MAX;
 }
 
+// The float32 K3: the first design.
 template <typename T>
 cudaError_t forward(const void* q, const void* k, const void* v, void* out,
                     float* lse, int b, int h, int seq_q, int seq_k, int d,
@@ -967,7 +1189,7 @@ cudaError_t forward(const void* q, const void* k, const void* v, void* out,
   auto kernel = flash_forward_kernel<T>;
   static const cudaError_t smem_ok = allow_smem(kernel, kForwardSmem);
   if (smem_ok != cudaSuccess) return smem_ok;
-  kernel<<<dim3((seq_q + kTile - 1) / kTile, b * h), kThreads, kForwardSmem,
+  kernel<<<b * h * ((seq_q + kTile - 1) / kTile), kThreads, kForwardSmem,
            stream>>>(static_cast<const T*>(q), static_cast<const T*>(k),
                      static_cast<const T*>(v), static_cast<T*>(out), lse, h,
                      seq_q, seq_k, d, sm_scale, causal);
@@ -984,7 +1206,7 @@ cudaError_t backward_dkdv(const void* q, const void* k, const void* v,
   auto kernel = flash_backward_dkdv_kernel<T>;
   static const cudaError_t smem_ok = allow_smem(kernel, kDkdvSmem);
   if (smem_ok != cudaSuccess) return smem_ok;
-  kernel<<<dim3((seq_k + kTile - 1) / kTile, b * h), kThreads, kDkdvSmem,
+  kernel<<<b * h * ((seq_k + kTile - 1) / kTile), kThreads, kDkdvSmem,
            stream>>>(static_cast<const T*>(q), static_cast<const T*>(k),
                      static_cast<const T*>(v), static_cast<const T*>(out),
                      static_cast<const T*>(dout), lse, static_cast<T*>(dk),
@@ -1001,7 +1223,7 @@ cudaError_t backward_dq(const void* q, const void* k, const void* v,
   auto kernel = flash_backward_dq_kernel<T>;
   static const cudaError_t smem_ok = allow_smem(kernel, kDqSmem);
   if (smem_ok != cudaSuccess) return smem_ok;
-  kernel<<<dim3((seq_q + kTile - 1) / kTile, b * h), kThreads, kDqSmem,
+  kernel<<<b * h * ((seq_q + kTile - 1) / kTile), kThreads, kDqSmem,
            stream>>>(static_cast<const T*>(q), static_cast<const T*>(k),
                      static_cast<const T*>(v), static_cast<const T*>(out),
                      static_cast<const T*>(dout), lse, static_cast<T*>(dq),
@@ -1009,7 +1231,7 @@ cudaError_t backward_dq(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
-// The bf16 K4 and K5 on the tensor cores, the head dim padded to kD.
+// The bf16 K3, K4 and K5 on the tensor cores, the head dim padded to kD.
 // TMA maps of q and dout (rows_q-row boxes) and of k and v (rows_kv).
 struct BshdMaps {
   CUtensorMap q, dout, k, v;
@@ -1020,10 +1242,30 @@ cudaError_t make_maps(BshdMaps* m, const void* q, const void* dout,
                       int seq_k, int d, int rows_q, int rows_kv) {
   if (hopper::encode_tiled() == nullptr) return cudaErrorNotSupported;
   const bool ok = hopper::bshd_map(&m->q, q, b, seq_q, h, d, rows_q) &&
-                  hopper::bshd_map(&m->dout, dout, b, seq_q, h, d, rows_q) &&
+                  (dout == nullptr ||  // the forward has none
+                   hopper::bshd_map(&m->dout, dout, b, seq_q, h, d, rows_q)) &&
                   hopper::bshd_map(&m->k, k, b, seq_k, h, d, rows_kv) &&
                   hopper::bshd_map(&m->v, v, b, seq_k, h, d, rows_kv);
   return ok ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+template <int kD>
+cudaError_t forward_wgmma(const void* q, const void* k, const void* v,
+                          void* out, float* lse, int b, int h, int seq_q,
+                          int seq_k, int d, float sm_scale, int causal,
+                          cudaStream_t stream) {
+  auto kernel = flash_forward_wgmma_kernel<kD>;
+  constexpr size_t smem = FwdSmem<kD>::bytes;
+  static const cudaError_t smem_ok = allow_smem(kernel, smem);
+  if (smem_ok != cudaSuccess) return smem_ok;
+  BshdMaps m;
+  const cudaError_t maps_ok = make_maps(&m, q, nullptr, k, v, b, h, seq_q,
+                                        seq_k, d, kBlockRows, kFwdKvRows);
+  if (maps_ok != cudaSuccess) return maps_ok;
+  kernel<<<b * h * ((seq_q + kBlockRows - 1) / kBlockRows), kWgThreads,
+           smem, stream>>>(m.q, m.k, m.v, static_cast<__nv_bfloat16*>(out),
+                           lse, h, seq_q, seq_k, d, sm_scale, causal);
+  return cudaGetLastError();
 }
 
 template <int kD>
@@ -1041,7 +1283,7 @@ cudaError_t backward_dkdv_wgmma(const void* q, const void* k, const void* v,
   const cudaError_t maps_ok = make_maps(&m, q, dout, k, v, b, h, seq_q, seq_k,
                                         d, kStreamRows, kBlockRows);
   if (maps_ok != cudaSuccess) return maps_ok;
-  kernel<<<dim3((seq_k + kBlockRows - 1) / kBlockRows, b * h), kWgThreads,
+  kernel<<<b * h * ((seq_k + kBlockRows - 1) / kBlockRows), kWgThreads,
            smem, stream>>>(m.q, m.dout, m.k, m.v, lse, delta,
                            static_cast<__nv_bfloat16*>(dk),
                            static_cast<__nv_bfloat16*>(dv), h, seq_q, seq_k,
@@ -1063,7 +1305,7 @@ cudaError_t backward_dq_wgmma(const void* q, const void* k, const void* v,
   const cudaError_t maps_ok = make_maps(&m, q, dout, k, v, b, h, seq_q, seq_k,
                                         d, kBlockRows, kStreamRows);
   if (maps_ok != cudaSuccess) return maps_ok;
-  kernel<<<dim3((seq_q + kBlockRows - 1) / kBlockRows, b * h), kWgThreads,
+  kernel<<<b * h * ((seq_q + kBlockRows - 1) / kBlockRows), kWgThreads,
            smem, stream>>>(m.q, m.dout, m.k, m.v, lse, delta,
                            static_cast<__nv_bfloat16*>(dq), h, seq_q, seq_k,
                            d, sm_scale, causal);
@@ -1089,7 +1331,8 @@ extern "C" {
 // float32).  Each entry returns the launch's cudaError_t (0 on success);
 // the kernel runs on `stream`.  causal requires seq_q == seq_k.
 
-// K3: out (b, seq_q, h, d) and lse (b, h, seq_q).
+// K3: out (b, seq_q, h, d) and lse (b, h, seq_q); bfloat16 wants q, k
+// and v 16-byte aligned.
 int kg_flash_forward(int dtype, const void* q, const void* k, const void* v,
                      void* out, void* lse, int b, int h, int seq_q, int seq_k,
                      int d, float sm_scale, int causal, void* stream) {
@@ -1101,8 +1344,8 @@ int kg_flash_forward(int dtype, const void* q, const void* k, const void* v,
     return (int)forward<float>(q, k, v, out, l, b, h, seq_q, seq_k, d,
                                sm_scale, causal, s);
   if (dtype == 1)
-    return (int)forward<__nv_bfloat16>(q, k, v, out, l, b, h, seq_q, seq_k, d,
-                                       sm_scale, causal, s);
+    return (int)(d <= 64 ? forward_wgmma<64> : forward_wgmma<128>)(
+        q, k, v, out, l, b, h, seq_q, seq_k, d, sm_scale, causal, s);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -2,7 +2,7 @@
 // bf16 tiles in shared memory in the 128-byte swizzled layout that wgmma
 // and TMA share; mbarriers for a producer / consumer ring; TMA copies;
 // wgmma shared-memory descriptors; the warpgroup matrix products the
-// flash-attention backward uses; and, on the host, TMA maps of BSHD
+// flash-attention kernels use; and, on the host, TMA maps of BSHD
 // tensors.
 //
 // The layout.  A tile of R rows and C columns (C a multiple of 64) is
@@ -190,6 +190,25 @@ __device__ __forceinline__ void wgmma_m64n64k16_ss(float (&d)[32], uint64_t a,
       "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, "
       "%29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
       : HOPPER_F8(d, 0), HOPPER_F8(d, 8), HOPPER_F8(d, 16), HOPPER_F8(d, 24)
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+// d[64 x 128] = A[64 x 16] . B[128 x 16]^T (+ d when accumulate != 0); A
+// and B K-major in shared memory.
+__device__ __forceinline__ void wgmma_m64n128k16_ss(float (&d)[64], uint64_t a,
+                                                    uint64_t b,
+                                                    int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, "
+      "%29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, "
+      "%43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, "
+      "%57, %58, %59, %60, %61, %62, %63}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : HOPPER_F8(d, 0), HOPPER_F8(d, 8), HOPPER_F8(d, 16), HOPPER_F8(d, 24),
+        HOPPER_F8(d, 32), HOPPER_F8(d, 40), HOPPER_F8(d, 48),
+        HOPPER_F8(d, 56)
       : "l"(a), "l"(b), "r"(accumulate));
 }
 

@@ -36,7 +36,9 @@ Layouts as in the JAX package: q ``(b, h, hd)`` (K1) or
 ``(b, n_pages)`` int32 (tail entries may point at any valid page — they
 are never read); lengths ``(b,)`` int32 attendable rows (of query row 0
 for K2).  The result has q's shape and dtype; a row with nothing to
-attend returns zeros.
+attend returns zeros.  The kernels take what the reference serves: any
+head width that is a multiple of 8 up to ``MAX_HEAD_DIM``, any window
+of ``L >= 1`` rows, and pages of up to ``MAX_KERNEL_PAGE`` rows.
 
 Quantized pools (K1q, K2q): both entry points and both twins take
 optional ``k_scale``/``v_scale`` — ``(pool_pages, h)`` float32, one
@@ -61,15 +63,16 @@ import torch
 from kubegpu_tpu_torch.ops import _build
 
 NEG_INF = float("-inf")
-# the head width and dtypes the kernel is instantiated for (q and out;
-# a full-width pool stores q's dtype, a quantized one int8)
-KERNEL_HEAD_DIM = 128
+# the dtypes the kernels are instantiated for (q and out; a full-width
+# pool stores q's dtype, a quantized one int8)
 KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-# one f32 score per page row sits in shared memory
-MAX_KERNEL_PAGE = 4096
-# K2 keeps one online-softmax state per query row in registers: a verify
-# window of k+1 rows, k <= 7
-MAX_KERNEL_ROWS = 8
+# head widths the kernels take: multiples of 8 up to MAX_HEAD_DIM
+MAX_HEAD_DIM = 128
+# A page's f32 scores sit in shared memory, one float per page row,
+# beside 32 floats of reductions and K2's q rows (8 rows of up to 128
+# floats), in the 232,448 bytes of shared memory an H100 block may opt in to
+OPTIN_SMEM_BYTES = 232448
+MAX_KERNEL_PAGE = OPTIN_SMEM_BYTES // 4 - 32 - 8 * MAX_HEAD_DIM
 
 
 def dequantize_pages(data, scale, dtype=torch.float32):
@@ -241,9 +244,9 @@ def check_chunk_args(q, k_pool, v_pool, page_table, lengths,
     operands."""
     if q.dim() != 4:
         raise ValueError(f"q must be (b, L, h, hd), got {tuple(q.shape)}")
-    if not 1 <= q.shape[1] <= MAX_KERNEL_ROWS:
-        raise ValueError(f"window of {q.shape[1]} query rows outside "
-                         f"[1, {MAX_KERNEL_ROWS}]")
+    if q.shape[1] < 1:
+        raise ValueError(f"a window needs at least 1 query row, got "
+                         f"{q.shape[1]} query rows")
     _check_operands(q, q.shape[0], *q.shape[2:], k_pool, v_pool,
                     page_table, lengths, k_scale, v_scale)
 
@@ -278,10 +281,13 @@ def _check_operands(q, b, h, hd, k_pool, v_pool, page_table, lengths,
                 raise ValueError(
                     f"scales must be ({n_pool}, {h}) float32, got "
                     f"{tuple(s.shape)} {s.dtype}")
-    if hd != KERNEL_HEAD_DIM:
-        raise ValueError(f"kernel takes head_dim {KERNEL_HEAD_DIM}, got {hd}")
+    if hd % 8 or not 8 <= hd <= MAX_HEAD_DIM:
+        raise ValueError(f"kernel takes a head_dim that is a multiple of 8 "
+                         f"up to {MAX_HEAD_DIM}, got {hd}")
     if not 1 <= page <= MAX_KERNEL_PAGE:
-        raise ValueError(f"page size {page} outside [1, {MAX_KERNEL_PAGE}]")
+        raise ValueError(f"page size {page} outside [1, {MAX_KERNEL_PAGE}]: "
+                         f"a page's f32 scores must fit the card's opt-in "
+                         f"shared memory ({OPTIN_SMEM_BYTES} bytes)")
     if page_table.dtype != torch.int32 or lengths.dtype != torch.int32:
         raise ValueError("page table and lengths must be int32")
     if page_table.dim() != 2 or page_table.shape[0] != b or lengths.shape != (b,):

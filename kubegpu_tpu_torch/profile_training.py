@@ -35,10 +35,11 @@ FLAGSHIP = ["--model", "lm", "--vocab", "32768", "--hidden", "4096",
             "--batch-per-chip", "16"]
 WINDOW = 4
 # kernel-name fragments of K3, K4 and K5 in ops/csrc/flash_attention.cu:
-# K4 and K5 run as the float32 kernels or, in bf16, the tensor-core
-# (wgmma) kernels after the delta pre-pass
-FLASH_KERNELS = ("flash_forward_kernel", "flash_backward_dkdv_kernel",
-                 "flash_backward_dq_kernel", "flash_backward_dkdv_wgmma_kernel",
+# each runs as the float32 kernel or, in bf16, the tensor-core (wgmma)
+# kernel (K4 and K5 after the delta pre-pass)
+FLASH_KERNELS = ("flash_forward_kernel", "flash_forward_wgmma_kernel",
+                 "flash_backward_dkdv_kernel", "flash_backward_dq_kernel",
+                 "flash_backward_dkdv_wgmma_kernel",
                  "flash_backward_dq_wgmma_kernel",
                  "flash_backward_delta_kernel")
 

@@ -1,7 +1,8 @@
 """The port's hand-written CUDA kernels (K1, K2 and their int8-scale
-variants K1q, K2q; flash attention K3, K4, K5 and the backward's delta
-pre-pass) against their plain PyTorch twins, on a card only (``-m
-cuda``; they skip without a CUDA device).
+variants K1q, K2q, at every head width and window they take; flash
+attention K3, K4, K5 and the backward's delta pre-pass) against their
+plain PyTorch twins, on a card only (``-m cuda``; they skip without a
+CUDA device).
 
 This file imports no JAX, so it also runs where only PyTorch is
 installed:
@@ -108,19 +109,111 @@ def test_kernel_matches_plain_twin_on_the_card(cuda_device, dtype, rtol,
 
 @pytest.mark.cuda
 def test_kernel_wrapper_raises_on_cuda_tensors_it_cannot_take(cuda_device):
-    case = make_case(6, [3, 9], b=2, h=4, hd=8, page=4, n_pages=3, pool=8)
+    case = make_case(6, [3, 9], b=2, h=4, hd=12, page=4, n_pages=3, pool=8)
     with pytest.raises(ValueError, match="head_dim"):
         run_torch(paged_decode_attention, case, torch.float32, cuda_device)
 
 
+def paged_operands(case, dtype, device, quant):
+    """A chunk case on the card: q in ``dtype``; pools in ``dtype``, or
+    int8 from :func:`quantize_pages` with their scales (as kwargs)."""
+    q, kp, vp, table, lengths = case
+    qt = torch.from_numpy(q).to(device, dtype)
+    if quant:
+        (kd, ks), (vd, vs) = (quantize_pages(torch.from_numpy(a))
+                              for a in (kp, vp))
+        pools = [kd.to(device), vd.to(device)]
+        scales = dict(k_scale=ks.to(device), v_scale=vs.to(device))
+    else:
+        pools = [torch.from_numpy(a).to(device, dtype) for a in (kp, vp)]
+        scales = {}
+    return (qt, *pools, torch.from_numpy(table).to(device),
+            torch.from_numpy(lengths).to(device)), scales
+
+
 @pytest.mark.cuda
+@pytest.mark.parametrize("quant", [False, True], ids=["full", "int8"])
+@pytest.mark.parametrize("hd", [8, 16, 40, 64, 128])
+@pytest.mark.parametrize("dtype, rtol, atol", [
+    (torch.float32, F32_TOL, F32_TOL),
+    (torch.bfloat16, BF16_RTOL, BF16_ATOL),
+])
+def test_paged_kernels_match_their_twins_at_every_width(cuda_device, dtype,
+                                                        rtol, atol, hd,
+                                                        quant):
+    """K1 and K2 (K1q and K2q over an int8 pool) against their plain
+    twins at the exact widths (64, 128) and padded ones (8, 16, 40), with
+    a 9-row window (two groups of rows); f32 at the reference's 2e-5,
+    bf16 within one rounding step.  K2's rows equal K1 at lengths + j."""
+    L = 9
+    case = make_chunk_case(21 + hd, [0, 1, 5, 31, 32, 33, 100], L, h=4,
+                           hd=hd, page=32, n_pages=4, pool=24)
+    (q, kp, vp, tbl, ln), sc = paged_operands(case, dtype, cuda_device, quant)
+    one = paged_decode_attention(q[:, 0].contiguous(), kp, vp, tbl, ln, **sc)
+    out = paged_chunk_attention(q, kp, vp, tbl, ln, **sc)
+    want_one = paged_decode_attention_plain(q[:, 0].contiguous(), kp, vp,
+                                            tbl, ln, **sc)
+    want = paged_chunk_attention_plain(q, kp, vp, tbl, ln, **sc)
+    assert one.shape == want_one.shape and out.shape == q.shape
+    torch.testing.assert_close(one.float(), want_one.float(), rtol=rtol,
+                               atol=atol)
+    torch.testing.assert_close(out.float(), want.float(), rtol=rtol,
+                               atol=atol)
+    assert (one[0] == 0).all() and (out[0, 0] == 0).all()
+    for j in range(L):
+        assert torch.equal(out[:, j], paged_decode_attention(
+            q[:, j].contiguous(), kp, vp, tbl, ln + j, **sc)), j
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quant", [False, True], ids=["full", "int8"])
+@pytest.mark.parametrize("L", [1, 5, 9, 17])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_chunk_rows_equal_k1_for_any_window(cuda_device, dtype, L, quant):
+    """Row j of a K2 (K2q) window of L rows equals K1 (K1q) at lengths + j
+    bit for bit, for windows inside one group of rows and across two or
+    three, at the worker's default head width (64) and pages of 16."""
+    case = make_chunk_case(31 + L, [0, 1, 15, 16, 17, 40, 47], L, h=4, hd=64,
+                           page=16, n_pages=4, pool=30)
+    (q, kp, vp, tbl, ln), sc = paged_operands(case, dtype, cuda_device, quant)
+    out = paged_chunk_attention(q, kp, vp, tbl, ln, **sc)
+    for j in range(L):
+        assert torch.equal(out[:, j], paged_decode_attention(
+            q[:, j].contiguous(), kp, vp, tbl, ln + j, **sc)), j
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype, rtol, atol", [
+    (torch.float32, F32_TOL, F32_TOL),
+    (torch.bfloat16, BF16_RTOL, BF16_ATOL),
+])
+def test_paged_kernels_take_a_page_beyond_4096_rows(cuda_device, dtype, rtol,
+                                                    atol):
+    """Pages of 5000 rows (their scores take 20 KB of shared memory, past
+    the old 4096-row limit): K1 and K2 against their twins."""
+    case = make_chunk_case(41, [0, 1, 4999, 5000, 7000, 9998], 3, h=2, hd=64,
+                           page=5000, n_pages=2, pool=4)
+    (q, kp, vp, tbl, ln), sc = paged_operands(case, dtype, cuda_device, False)
+    torch.testing.assert_close(
+        paged_decode_attention(q[:, 0].contiguous(), kp, vp, tbl, ln).float(),
+        paged_decode_attention_plain(q[:, 0].contiguous(), kp, vp, tbl,
+                                     ln).float(), rtol=rtol, atol=atol)
+    torch.testing.assert_close(
+        paged_chunk_attention(q, kp, vp, tbl, ln).float(),
+        paged_chunk_attention_plain(q, kp, vp, tbl, ln).float(), rtol=rtol,
+        atol=atol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("heads", [2, 4, 32], ids=["hd128", "hd64", "hd8"])
 @pytest.mark.parametrize("pipeline", [True, False])
-def test_batcher_on_the_card_matches_the_cpu_at_fp32(cuda_device, pipeline):
+def test_batcher_on_the_card_matches_the_cpu_at_fp32(cuda_device, pipeline,
+                                                     heads):
     from kubegpu_tpu_torch.models.paging import PagedContinuousBatcher
     from kubegpu_tpu_torch.models.params import init_params
 
     torch.backends.cuda.matmul.allow_tf32 = False
-    cfg = dict(vocab_size=97, num_layers=2, num_heads=2, hidden=256,
+    cfg = dict(vocab_size=97, num_layers=2, num_heads=heads, hidden=256,
                max_seq=64)
     params = init_params(cfg, torch.Generator().manual_seed(0),
                          torch.float32, "cpu")
@@ -220,6 +313,26 @@ def flash_case(device, dtype, causal, sq, sk, d, h=3, seed=None):
     return q, k, v, dout
 
 
+def assert_bf16_forward_passes_the_gate(out, lse, q, k, v, causal):
+    """bf16 K3's out within ``bf16_gradient_allowance`` of the float32
+    twin (fed the same bf16 values as float32): at most twice the error
+    of the twin's bf16 emulation (p rounded before p . v), plus
+    BF16_ATOL; within ``bf16_emulation_shares``'s allowances of the
+    emulation itself, each element and each 64-row block; and lse within
+    2e-5 of the float32 twin."""
+    ref, ref_lse = flash_forward_plain(*(t.float() for t in (q, k, v)),
+                                       causal)
+    emu, _ = flash_forward_plain(q, k, v, causal,
+                                 operand_dtype=torch.bfloat16)
+    assert out.dtype == torch.bfloat16 and out.is_contiguous()
+    err = (out.float() - ref).abs().max().item()
+    emu_err = (emu.float() - ref).abs().max().item()
+    assert err <= bf16_gradient_allowance(emu_err), (err, emu_err)
+    element, block = bf16_emulation_shares(out, emu)
+    assert element <= 1.0 and block <= 1.0, (element, block)
+    torch.testing.assert_close(lse, ref_lse, rtol=F32_TOL, atol=F32_TOL)
+
+
 def assert_bf16_gradients_pass_the_gate(got, q, k, v, out, lse, dout, causal):
     """dq, dk, dv of a bf16 kernel within ``bf16_gradient_allowance`` of
     the float32 twin (fed the same bf16 values as float32): at most twice
@@ -254,10 +367,10 @@ def test_flash_kernels_match_their_twins(cuda_device, dtype, causal, sq, sk,
                                          d, h):
     """K3, K4 and K5 against the plain twins; the backward kernels read
     the twin forward's out and lse, so both sides see one set of
-    operands.  f32: 2e-5 (out, lse), 1e-4 (gradients); bf16: one
-    rounding step for out, and the gradients within twice the error of
-    the twins' bf16 emulation (the kernels round p and ds to bf16 for
-    the tensor cores)."""
+    operands.  f32: 2e-5 (out, lse), 1e-4 (gradients); bf16: out and the
+    gradients within twice the error of the twins' bf16 emulation, and
+    within its element and block allowances (the kernels round p and ds
+    to bf16 for the tensor cores), lse 2e-5."""
     q, k, v, dout = flash_case(cuda_device, dtype, causal, sq, sk, d, h)
     bf16 = dtype == torch.bfloat16
     tol = dict(rtol=BF16_RTOL, atol=BF16_ATOL) if bf16 else dict(
@@ -270,12 +383,13 @@ def test_flash_kernels_match_their_twins(cuda_device, dtype, causal, sq, sk,
     dq = flash_backward_dq(q, k, v, p_out, p_lse, dout, causal)
     assert (flash_forward.launches, flash_backward_dkdv.launches,
             flash_backward_dq.launches) == tuple(n + 1 for n in before)
-    torch.testing.assert_close(out.float(), p_out.float(), **tol)
-    torch.testing.assert_close(lse, p_lse, rtol=F32_TOL, atol=F32_TOL)
     if bf16:
+        assert_bf16_forward_passes_the_gate(out, lse, q, k, v, causal)
         assert_bf16_gradients_pass_the_gate((dq, dk, dv), q, k, v, p_out,
                                             p_lse, dout, causal)
         return
+    torch.testing.assert_close(out.float(), p_out.float(), **tol)
+    torch.testing.assert_close(lse, p_lse, rtol=F32_TOL, atol=F32_TOL)
     p_dk, p_dv = flash_backward_dkdv_plain(q, k, v, p_out, p_lse, dout,
                                            causal)
     p_dq = flash_backward_dq_plain(q, k, v, p_out, p_lse, dout, causal)
@@ -304,6 +418,50 @@ def test_bf16_backward_kernels_are_deterministic(cuda_device, causal, sq, sk,
             for dl in (delta, delta, None)]
     for run in runs[1:]:
         assert all(torch.equal(a, b) for a, b in zip(runs[0], run))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal, sq, sk, d, h", [
+    (True, 1000, 1000, 128, 2), (False, 640, 1024, 128, 2),
+    (False, 72, 136, 40, 3), (True, 200, 200, 64, 3),
+])
+def test_bf16_forward_kernel_passes_the_gates_and_is_deterministic(
+        cuda_device, causal, sq, sk, d, h):
+    """The tensor-core K3 in bf16: out through both emulation gates, lse
+    within 2e-5 of the float32 twin, and two launches bit-identical."""
+    q, k, v, _ = flash_case(cuda_device, torch.bfloat16, causal, sq, sk, d, h)
+    out, lse = flash_forward(q, k, v, causal)
+    assert_bf16_forward_passes_the_gate(out, lse, q, k, v, causal)
+    again, again_lse = flash_forward(q, k, v, causal)
+    assert torch.equal(out, again) and torch.equal(lse, again_lse)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernels_take_more_than_65535_heads(cuda_device, dtype):
+    """b * h = 66,560 (b 1024, h 65, s 8, d 8): K3, K4 and K5 against the
+    twins (f32 at 2e-5 and 1e-4, bf16 through the emulation gates)."""
+    causal = True
+    rng = np.random.RandomState(3)
+    q, k, v, dout = (torch.from_numpy(
+        rng.randn(1024, 8, 65, 8).astype(np.float32)).to(cuda_device, dtype)
+        for _ in range(4))
+    out, lse = flash_forward(q, k, v, causal)
+    p_out, p_lse = flash_forward_plain(q, k, v, causal)
+    dk, dv = flash_backward_dkdv(q, k, v, p_out, p_lse, dout, causal)
+    dq = flash_backward_dq(q, k, v, p_out, p_lse, dout, causal)
+    if dtype == torch.bfloat16:
+        assert_bf16_forward_passes_the_gate(out, lse, q, k, v, causal)
+        assert_bf16_gradients_pass_the_gate((dq, dk, dv), q, k, v, p_out,
+                                            p_lse, dout, causal)
+        return
+    torch.testing.assert_close(out, p_out, rtol=F32_TOL, atol=F32_TOL)
+    torch.testing.assert_close(lse, p_lse, rtol=F32_TOL, atol=F32_TOL)
+    p_dk, p_dv = flash_backward_dkdv_plain(q, k, v, p_out, p_lse, dout,
+                                           causal)
+    p_dq = flash_backward_dq_plain(q, k, v, p_out, p_lse, dout, causal)
+    for got, want in ((dq, p_dq), (dk, p_dk), (dv, p_dv)):
+        torch.testing.assert_close(got, want, rtol=GRAD_TOL, atol=GRAD_TOL)
 
 
 @pytest.mark.cuda

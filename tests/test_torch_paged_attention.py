@@ -89,7 +89,7 @@ def test_cpu_tensors_take_the_plain_twin_without_a_launch():
 
 @pytest.mark.parametrize("bad, match", [
     (dict(dtype=torch.float16), "float32 or bfloat16"),
-    (dict(hd=8), "head_dim"),
+    (dict(hd=12), "head_dim"),
     (dict(table_dtype=torch.int64), "int32"),
     (dict(pool_heads=4), "heads/width"),
 ])

@@ -117,10 +117,10 @@ def test_cpu_tensors_take_the_plain_twin_without_a_launch():
 
 @pytest.mark.parametrize("bad, match", [
     (dict(dtype=torch.float16), "float32 or bfloat16"),
-    (dict(hd=32), "head_dim"),
+    (dict(hd=136), "head_dim"),
     (dict(table_dtype=torch.int64), "int32"),
     (dict(pool_heads=4), "heads/width"),
-    (dict(rows=9), "query rows"),
+    (dict(rows=0), "query rows"),
     (dict(q_dims=3), r"\(b, L, h, hd\)"),
     (dict(transposed=True), "contiguous"),
 ])
