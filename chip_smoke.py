@@ -23,9 +23,10 @@ non-zero:
    cross page boundaries and reach the full table) against its plain
    version and the dense oracle at the same tolerances; its row j must
    equal K1 at lengths + j bit for bit, and a 1-row window K1; its
-   time, K1's at the same widest contexts, the plain time and the bound;
-   then the same at the worker's defaults' geometry with a 9-row window
-   (``--spec-k 8``: two groups of rows);
+   launch plan (rows per walk, ring tiles and their rows, shared bytes),
+   its time, K1's at the same widest contexts and the ratio of the two,
+   the plain time and the bound; then the same at the worker's defaults'
+   geometry with a 9-row window (``--spec-k 8``: two walks);
 4. the serving path at the flagship's full width (vocab 32768, hidden
    4096, 4 layers, 32 heads, prompt 128, page 128, 8 slots, 16 requests
    per wave) in bfloat16 through the worker's entry point; K1 must have
@@ -196,8 +197,49 @@ def phase_build() -> None:
         f"{time.monotonic() - t0:.1f} s")
     for name, text in _build.BUILD_LOG.items():
         for line in text.splitlines():
-            if "registers" in line or "spill" in line or "error" in line:
-                log(f"  ptxas[{name}]: {line.strip()}")
+            if "error" in line:
+                log(f"  nvcc[{name}]: {line.strip()}")
+        for kernel, regs, stores, loads in ptxas_report(text):
+            log(f"  ptxas[{name}] {kernel}: {regs} registers, {stores} B "
+                f"spill stores, {loads} B spill loads")
+
+
+def ptxas_report(text: str) -> list:
+    """(kernel, registers, spill store bytes, spill load bytes) of each
+    entry function in ``ptxas -v`` output, the kernel's name demangled
+    (``cu++filt``) down to its template."""
+    import re
+
+    rows, name, spill = [], None, (0, 0)
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            name = m.group(1)
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            spill = (int(m.group(1)), int(m.group(2)))
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name is not None:
+            rows.append([name, int(m.group(1)), *spill])
+            name, spill = None, (0, 0)
+    filt = (shutil.which("cu++filt")
+            or shutil.which("/usr/local/cuda/bin/cu++filt")
+            or shutil.which("c++filt"))
+    if rows and filt is not None:
+        names = subprocess.run([filt], input="\n".join(r[0] for r in rows),
+                               capture_output=True, text=True,
+                               timeout=60).stdout.splitlines()
+        for row, full in zip(rows, names):
+            full = full[:full.index(">(") + 1] if ">(" in full else (
+                full.split("(")[0])
+            for noise in ("void ", "<unnamed>::", "(anonymous namespace)::",
+                          "(int)", "(bool)"):
+                full = full.replace(noise, "")
+            row[0] = full
+    return [tuple(r) for r in rows]
 
 
 def paged_operands(shape, dtype, g, quant: bool):
@@ -305,6 +347,7 @@ def phase_k2(quant: bool = False, geo: dict = FLAGSHIP_PAGED,
     import torch
 
     from kubegpu_tpu_torch.ops.paged_attention import (
+        chunk_plan,
         paged_chunk_attention,
         paged_chunk_attention_plain,
         paged_decode_attention,
@@ -364,6 +407,10 @@ def phase_k2(quant: bool = False, geo: dict = FLAGSHIP_PAGED,
             q[:, 0].contiguous(), kp, vp, table, lengths, **sc)), (
             f"a 1-row {label} window differs from {k1_label}")
         name = str(dtype).replace("torch.", "")
+        plan = chunk_plan(page, hd, dtype, quant)
+        log(f"{label} {name}: plan {plan[0]} rows per walk, a ring of "
+            f"{plan[2]} tiles of {plan[1]} rows, {plan[3]} B of shared "
+            "memory")
         log(f"{label} {name}: max|kernel - plain| = {err:.3e} ({share:.3f} "
             f"of rtol {rtol:.3g} atol {atol:.3g}), max|kernel - dense "
             f"oracle| = {err_dense:.3e}; rows 0..{L - 1} equal {k1_label} "
@@ -391,7 +438,8 @@ def phase_k2(quant: bool = False, geo: dict = FLAGSHIP_PAGED,
             lambda: paged_chunk_attention_plain(*args, **sc), 5)
         log(f"{label} {name}: kernel {ms * 1e3:.2f} us (graph replay; "
             f"{call_ms * 1e3:.2f} us a call from Python), {k1_label} at the same "
-            f"widest contexts {k1_ms * 1e3:.2f} us, plain "
+            f"widest contexts {k1_ms * 1e3:.2f} us ({label.split()[0]} / "
+            f"{k1_label} = {ms / k1_ms:.3f}), plain "
             f"{plain_ms * 1e3:.2f} us, bound {bound_ms * 1e3:.2f} us by "
             f"{bound_by} ({nbytes} B over {HBM_BYTES_PER_S / 1e12:.2f} "
             f"TB/s = {bytes_ms * 1e3:.2f} us; {flops} flop over "

@@ -1,8 +1,8 @@
-// Building blocks of the port's tensor-core kernels for Hopper (sm_90a):
-// bf16 tiles in shared memory in the 128-byte swizzled layout that wgmma
-// and TMA share; mbarriers for a producer / consumer ring; TMA copies;
-// wgmma shared-memory descriptors; the warpgroup matrix products the
-// flash-attention kernels use; and, on the host, TMA maps of BSHD
+// Building blocks of the port's Hopper (sm_90a) kernels: bf16 tiles in
+// shared memory in the 128-byte swizzled layout that wgmma and TMA share;
+// cp.async copies in groups; mbarriers for a producer / consumer ring; TMA
+// copies; wgmma shared-memory descriptors; the warpgroup matrix products
+// the flash-attention kernels use; and, on the host, TMA maps of BSHD
 // tensors.
 //
 // The layout.  A tile of R rows and C columns (C a multiple of 64) is
@@ -43,6 +43,31 @@ __device__ __forceinline__ void cp_async_4(uint32_t dst, const void* src,
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
                "l"(src), "r"(valid ? 4 : 0)
                : "memory");
+}
+
+// 16 bytes from global to shared memory by cp.async, around L1 (.cg)
+__device__ __forceinline__ void cp_async_16(uint32_t dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst),
+               "l"(src)
+               : "memory");
+}
+
+// 8 bytes by cp.async (.cg copies only 16, so this one goes through L1)
+__device__ __forceinline__ void cp_async_8(uint32_t dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(dst),
+               "l"(src)
+               : "memory");
+}
+
+// close the group of this thread's cp.async copies issued since the last
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// wait until at most N of this thread's groups are still in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 // --- mbarriers and TMA ---

@@ -23,13 +23,22 @@
 // live page it reads only rows below the length.  Loads are 16 bytes a
 // thread with neighbouring threads on neighbouring addresses: a group of
 // HD * sizeof(T) / 16 threads reads one whole row, and the block reads
-// kRowGroups consecutive rows per pass.  K2 folds each of its query rows
-// through K1's fold_page in turn, re-reading a page once per row that
-// reaches it (L1/L2 serve the repeats); that keeps its row j bit-identical
-// to K1 at length + j.  A window wider than kMaxRows rows is walked in
-// groups of kMaxRows rows, each group walking the pages of its own widest
-// row, so the states in registers and the q rows in shared memory stay
-// bounded whatever L is.
+// kRowGroups consecutive rows per pass.
+//
+// K1 waits on each row group's load in turn: 2 * page / kRowGroups
+// dependent trips to memory a page.  K2 reads each page once for all the
+// rows of a walk (up to kMaxRows rows of the window; a wider window takes
+// several walks, each a block of its own), as the Pallas body loads a page
+// once and folds every row from it.  The walk's pages stream through a
+// ring of tiles in shared memory filled by cp.async: every thread issues
+// all its copies of a tile at once, the ring's stages - 1 tiles ahead of
+// the fold, so a page costs a few tile waits instead of its dependent
+// trips.  Each row's arithmetic is K1's fold_page at length len + j,
+// operation for operation, so K2's row j is K1's bit for bit.  The launch
+// plan (rows per walk, tile rows, stages; ops/paged_attention.py::
+// chunk_plan) fits a walk's scores and the ring into shared memory.  On
+// the card K2 is bound by the fold's latency on its few blocks, not by its
+// bytes (PERF.md).
 //
 // Head widths.  The reference's blocks span any hd; these kernels take every
 // multiple of 8 up to 128.  The serving path's widths, 64 and 128, have
@@ -41,9 +50,10 @@
 // lane (its rows, hd bytes apart, are only 8-byte aligned when hd is an odd
 // multiple of 8).
 //
-// Pages.  A page's scores sit in shared memory, one f32 per page row, so
-// the page max comes first, as in the Pallas body; any page whose scores
-// (beside K2's q rows) fit the card's opt-in shared memory is taken.
+// Pages.  A page's scores sit in shared memory, one f32 per page row (K2:
+// per row of the walk), so the page max comes first, as in the Pallas
+// body; any page whose scores (beside K2's smallest ring) fit the card's
+// opt-in shared memory is taken.
 //
 // Layouts (as in the JAX package): q (b, h, hd) for K1, (b, L, h, hd) for
 // K2; pools (P, h, page, hd); table (b, table_width) int32; lengths (b,)
@@ -69,6 +79,8 @@
 #include <stdint.h>
 
 #include <type_traits>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -211,12 +223,12 @@ struct FoldState {
 // slot's length — the rest of the page is masked, which leaves max and
 // sums as if its scores were -inf.  s_smem holds one float per page row.
 // k_scale/v_scale dequantize an int8 page (unused at full width); q is
-// zero in an idle lane.  Shared by both kernels: K2 folds each of its
-// query rows through this same routine, which is what keeps its row j
-// bit-identical to K1 at length + j.  The multiply-adds are spelled as
-// explicit round-to-nearest intrinsics, which the compiler never contracts
-// or reorders, so the two kernels cannot round differently around the
-// inlined copies.
+// zero in an idle lane.  K1's fold; K2's fold_page_rows repeats its
+// operations in its order for each row of a walk, which is what keeps
+// K2's row j bit-identical to K1 at length + j.  The multiply-adds are
+// spelled as explicit round-to-nearest intrinsics, which the compiler
+// never contracts or reorders, so the two kernels cannot round
+// differently.
 template <typename TP, int HD, bool kPadded>
 __device__ __forceinline__ void fold_page(
     const TP* __restrict__ kpage, const TP* __restrict__ vpage,
@@ -381,94 +393,470 @@ __global__ void __launch_bounds__(kThreads) paged_decode_kernel(
                                  out + ((size_t)b * heads + h) * row);
 }
 
-// Query rows K2 folds in one walk of the pages: their online-softmax states
-// sit in registers and their q rows in shared memory; a wider window is
-// walked in groups of kMaxRows rows.
+// Query rows K2 folds in one walk of the pages, at most: their
+// online-softmax states sit in registers.  The launch plan's rows per walk
+// (chunk_plan in ops/paged_attention.py) may be fewer where a page's
+// scores for eight rows do not fit beside the ring.
 constexpr int kMaxRows = 8;
+// Rows of a walk an instantiation takes: kMaxRows, or half that where a lane
+// holds 16 columns (a full-width int8 pool): eight rows' states of 16
+// columns do not fit the registers and spill.
+template <typename L>
+constexpr int kWalkRows = L::kVec > 8 ? kMaxRows / 2 : kMaxRows;
+// floats of block reductions at the head of shared memory: one per warp
+// for each row of a walk
+constexpr int kRedFloats = kMaxRows * kWarps;
+// the most stages the ring of page tiles may have (the plan's stages lie
+// in [2, kMaxStages])
+constexpr int kMaxStages = 4;
+// the shared memory a block may opt in to on an H100
+constexpr size_t kOptinSmemBytes = 232448;
 
-// grid (h, b); one block per (slot, head).  Each group of up to kMaxRows
-// query rows walks the pages of its widest row (limit len + its last row).
-// On each page, row j folds only if its own window reaches the page, and
-// then exactly the rows below len + j: the pages, row counts and fold K1
-// would see at length len + j.
+// Wait until at most n (< kMaxStages - 1) of this thread's copy groups
+// are in flight: wait_group takes its count as an immediate.
+__device__ __forceinline__ void cp_async_wait_upto(int n) {
+  if (n == 0)
+    hopper::cp_async_wait<0>();
+  else if (n == 1)
+    hopper::cp_async_wait<1>();
+  else
+    hopper::cp_async_wait<2>();
+}
+
+// The ring through which a walk's pages reach the fold: `stages` slots of
+// tile_rows rows (HD pool elements apart) in shared memory.  A walk is one
+// sequence of tiles: for each live page, its K tiles up to the widest
+// row's count, then its V tiles; the page max comes before any exp, so
+// the next page's K tiles are in flight while this page's V is folded.
+// issue() copies the next tile of the sequence into the next slot, every
+// lane issuing all its copies at once (16 bytes a copy, 8 for a padded
+// int8 row), and commits them as one group (an empty one past the walk's
+// end); next() waits for the oldest tile, issues the one stages - 1 tiles
+// ahead into the slot the block has just finished with, and returns the
+// oldest.  A thread copies exactly the vectors it later reads (row group
+// g's rows, lane l's columns); the barrier in next() frees the slot for
+// the next copy.  Rows past the widest row's count and pages past its
+// last are never copied.
+template <typename TP, int HD, bool kPadded>
+struct PageRing {
+  using L = Layout<TP, HD, kPadded>;
+  const TP* k_pool;
+  const TP* v_pool;
+  const int* table;     // the slot's row of the page table
+  size_t page_elems;    // elements of one physical page (all heads)
+  size_t head_elems;    // offset of this head's block in a page
+  TP* slots;
+  int row, page, widest, n_live, tile_rows, stages;
+  // the issue cursor: page, first row of the tile, K or V, the page's
+  // physical index and the next page's, read one page early
+  int p, off, phys, phys_next;
+  bool v;
+  int put, take;  // slot of the next issue, of the next tile to fold
+
+  __device__ __forceinline__ void start() {
+    p = off = put = take = 0;
+    v = false;
+    phys = n_live > 0 ? table[0] : 0;
+    phys_next = n_live > 1 ? table[1] : 0;
+    for (int s = 0; s + 1 < stages; ++s) issue();
+  }
+
+  __device__ __forceinline__ void issue() {
+    if (p < n_live) {
+      const int lane = threadIdx.x % L::kLanes;
+      const int group = threadIdx.x / L::kLanes;
+      const int count = min(page, widest - p * page);
+      const int rows = min(tile_rows, count - off);
+      const TP* src = (v ? v_pool : k_pool) + (size_t)phys * page_elems +
+                      head_elems + (size_t)off * row + lane * L::kVec;
+      TP* dst = slots + (size_t)put * tile_rows * HD + lane * L::kVec;
+      if (L::active(lane, row)) {
+        for (int r = group; r < rows; r += L::kRowGroups) {
+          const uint32_t d = hopper::smem_u32(dst + r * HD);
+          if constexpr (L::kVec * sizeof(TP) == 16)
+            hopper::cp_async_16(d, src + (size_t)r * row);
+          else
+            hopper::cp_async_8(d, src + (size_t)r * row);
+        }
+      }
+      off += tile_rows;
+      if (off >= count) {
+        off = 0;
+        if (v) {
+          ++p;
+          phys = phys_next;
+          if (p + 1 < n_live) phys_next = table[p + 1];
+        }
+        v = !v;
+      }
+    }
+    hopper::cp_async_commit();
+    put = put + 1 == stages ? 0 : put + 1;
+  }
+
+  __device__ __forceinline__ const TP* next() {
+    cp_async_wait_upto(stages - 2);
+    __syncthreads();
+    issue();
+    const TP* tile = slots + (size_t)take * tile_rows * HD;
+    take = take + 1 == stages ? 0 : take + 1;
+    return tile;
+  }
+};
+
+// The xor trees of M rows at once.  v holds this lane's value of every
+// row; lanes O, O / 2, ..., 1 apart combine them with op.  Where fold_page
+// runs one shfl_xor tree per row (log2 of the lane count shuffles each),
+// lanes here trade halves of their rows: at each level a lane keeps half,
+// sends the other half to its partner and combines what it gets, until it
+// holds one row (then the levels left are a plain tree).  Every value a
+// lane holds is the one the row's own tree holds there -- op(own,
+// partner's), the two operands of fold_page's tree in either order, and op
+// commutes -- so each row ends with its tree's bits.  Called with N == M;
+// on return v[0 .. N') hold rows base .. base + N' - 1, N' the rows left
+// (M / the lanes, at least 1); base starts at 0.
+template <int N, int O, int M, typename Op>
+__device__ __forceinline__ void butterfly(float (&v)[M], int lane, int& base,
+                                          Op op) {
+  if constexpr (O > 0) {
+    if constexpr (N > 1) {
+      const bool upper = lane & O;
+#pragma unroll
+      for (int i = 0; i < N / 2; ++i) {
+        const float send = upper ? v[i] : v[i + N / 2];
+        const float keep = upper ? v[i + N / 2] : v[i];
+        v[i] = op(keep, __shfl_xor_sync(0xffffffffu, send, O));
+      }
+      if (upper) base += N / 2;
+      butterfly<N / 2, O / 2>(v, lane, base, op);
+    } else {
+      v[0] = op(v[0], __shfl_xor_sync(0xffffffffu, v[0], O));
+      butterfly<1, O / 2>(v, lane, base, op);
+    }
+  }
+}
+
+struct AddRn {
+  __device__ __forceinline__ float operator()(float a, float b) const {
+    return __fadd_rn(a, b);
+  }
+};
+struct Max {
+  __device__ __forceinline__ float operator()(float a, float b) const {
+    return fmaxf(a, b);
+  }
+};
+
+// Each of R rows' value of a block reduction, in block_max's / block_sum's
+// order: the warp's tree (as butterfly), red[j * kWarps + warp], a
+// barrier, then red over warps 0..3 in order.  The caller puts a barrier
+// between two uses of red.
+template <int R, typename Op>
+__device__ __forceinline__ void block_rows(float (&v)[R], float* red, Op op) {
+  const int lane = threadIdx.x & 31;
+  int base = 0;
+  butterfly<R, 16>(v, lane, base, op);
+  // 32 / R lanes hold each row after the splits; the first writes
+  if ((lane & (32 / R - 1)) == 0) red[base * kWarps + (threadIdx.x >> 5)] = v[0];
+  __syncthreads();
+#pragma unroll
+  for (int j = 0; j < R; ++j) {
+    v[j] = red[j * kWarps];
+#pragma unroll
+    for (int w = 1; w < kWarps; ++w) v[j] = op(v[j], red[j * kWarps + w]);
+  }
+}
+
+// Fold one live page into the states of the R rows of a walk (R a power of
+// two, n <= R of them real), reading each K and V row of the page once for
+// all of them.  Row j reaches the page rows below rel0 + j (rel0: row 0's
+// limit less the page's first column); a row with rel0 + j <= 0 does not
+// reach the page and keeps its state.  n_max (>= 1) is the widest row's
+// count in the page.  Row j's arithmetic is fold_page's at count
+// min(page, rel0 + j): the same intrinsics in the same order on the same
+// values (its q.k chain and shfl_xor tree, then block_max's and
+// block_sum's orders, one set of barriers shared by the rows, then its p.v
+// multiply-adds in fold_page's row order), so K2's row j is K1 at lengths
+// + j bit for bit.  The rows' chains run side by side without branches
+// around them: a score past a row's count, or of a row past the walk's n
+// (which stands in with row n - 1's q and scores), is computed with the
+// others and never read; an idle lane's q and K read in-bounds columns and
+// multiply zeros, as fold_page's idle lanes add zeros.  The weighting by V
+// covers the rows below every real row's count with no test, and tests
+// each row only past row 0's count (the window's last few rows).  The
+// page's K then V tiles come from the ring; q rows are read through L1
+// from q (row j at q_rows + j * q_stride).  s_smem holds n rows of page
+// floats, row j at j * page; red holds kRedFloats.
+template <typename T, typename TP, int HD, bool kPadded, int R>
+__device__ __forceinline__ void fold_page_rows(
+    PageRing<TP, HD, kPadded>& ring, float k_scale, float v_scale,
+    int n_max, int rel0, int n, int hd, int page,
+    const T* __restrict__ q_rows, size_t q_stride, float sm_scale,
+    float* s_smem, float* red, FoldState<Layout<TP, HD, kPadded>::kVec> (&st)[R]) {
+  using L = Layout<TP, HD, kPadded>;
+  // rows a lane holds after the score butterfly, and lanes holding each
+  constexpr int kHeld = R > L::kLanes ? R / L::kLanes : 1;
+  constexpr int kSharers = L::kLanes > R ? L::kLanes / R : 1;
+  const int lane = threadIdx.x % L::kLanes;
+  const int group = threadIdx.x / L::kLanes;
+  const int tile_rows = ring.tile_rows;
+  const bool active = L::active(lane, hd);
+  const int col = active ? lane * L::kVec : 0;
+  // each row's count in this page (0 past the walk's rows), and where its
+  // scores sit (row n - 1's past the walk's rows)
+  int count[R], at[R];
+#pragma unroll
+  for (int j = 0; j < R; ++j) {
+    count[j] = j < n ? max(0, min(page, rel0 + j)) : 0;
+    at[j] = (j < n ? j : n - 1) * page;
+  }
+
+  // scores: each K row is loaded once and dotted with every row
+  for (int off = 0; off < n_max; off += tile_rows) {
+    const TP* tile = ring.next();
+    const int end = min(tile_rows, n_max - off);
+    for (int r0 = 0; r0 < end; r0 += L::kRowGroups) {
+      const int r = r0 + group;
+      const bool live = r < end && active;
+      float kf[L::kVec];
+      load_pool(tile + min(r, end - 1) * HD + col, k_scale, kf);
+#pragma unroll
+      for (int i = 0; i < L::kVec; ++i) kf[i] = live ? kf[i] : 0.f;
+      float part[R];
+#pragma unroll
+      for (int j = 0; j < R; ++j) {
+        float qf[L::kVec];
+        load_floats(q_rows + (j < n ? j : n - 1) * q_stride + col, qf);
+        part[j] = 0.f;
+#pragma unroll
+        for (int i = 0; i < L::kVec; ++i)
+          part[j] = __fmaf_rn(qf[i], kf[i], part[j]);
+      }
+      int base = 0;
+      butterfly<R, L::kLanes / 2>(part, lane, base, AddRn{});
+      // a row past n holds row n - 1's very score: writing it there is a
+      // no-op
+      if (lane % kSharers == 0 && r < end) {
+#pragma unroll
+        for (int k = 0; k < kHeld; ++k)
+          s_smem[min(base + k, n - 1) * page + off + r] =
+              __fmul_rn(part[k], sm_scale);
+      }
+    }
+  }
+  __syncthreads();
+  // each row's page max (block_max's order)
+  float v[R];
+#pragma unroll
+  for (int j = 0; j < R; ++j) v[j] = -INFINITY;
+  for (int r = threadIdx.x; r < n_max; r += kThreads) {
+#pragma unroll
+    for (int j = 0; j < R; ++j) {
+      const float s = s_smem[at[j] + r];
+      v[j] = r < count[j] ? fmaxf(v[j], s) : v[j];
+    }
+  }
+  block_rows(v, red, Max{});
+  float shift[R], correction[R];
+#pragma unroll
+  for (int j = 0; j < R; ++j) {
+    const float m_new = fmaxf(st[j].m, v[j]);
+    shift[j] = isfinite(m_new) ? m_new : 0.f;
+    // fold_page's value, with no branch around the exp
+    const float e = expf(__fsub_rn(st[j].m, shift[j]));
+    correction[j] = isfinite(st[j].m) ? e : 0.f;
+    if (count[j] > 0) st[j].m = m_new;
+  }
+  __syncthreads();  // red is rewritten below
+  // p = exp(s - shift) in place, and each row's sum (block_sum's order;
+  // past a row's count, adding +0 to a sum that is >= +0 changes nothing)
+#pragma unroll
+  for (int j = 0; j < R; ++j) v[j] = 0.f;
+  for (int r = threadIdx.x; r < n_max; r += kThreads) {
+#pragma unroll
+    for (int j = 0; j < R; ++j) {
+      const float p = expf(__fsub_rn(s_smem[at[j] + r], shift[j]));
+      const bool in = r < count[j];
+      if (in) s_smem[at[j] + r] = p;
+      v[j] = __fadd_rn(v[j], in ? p : 0.f);
+    }
+  }
+  // block_rows's barrier also publishes the p values written above
+  block_rows(v, red, AddRn{});
+#pragma unroll
+  for (int j = 0; j < R; ++j) {
+    if (count[j] > 0) {
+      st[j].l = __fmaf_rn(correction[j], st[j].l, v[j]);
+#pragma unroll
+      for (int i = 0; i < L::kVec; ++i)
+        st[j].acc[i] = __fmul_rn(st[j].acc[i], correction[j]);
+    }
+  }
+  // weighting by V: each V row is loaded once and added into every row
+  // that reaches it.  Rows below count[0] reach every real row; a row past
+  // n adds into a state that is never finished.
+  const int all_rows = count[0];
+  for (int off = 0; off < n_max; off += tile_rows) {
+    const TP* tile = ring.next();
+    const int end = min(tile_rows, n_max - off);
+    if (active) {
+      int r = group;
+      for (; r < end && off + r < all_rows; r += L::kRowGroups) {
+        float vf[L::kVec];
+        load_pool(tile + r * HD + lane * L::kVec, v_scale, vf);
+#pragma unroll
+        for (int j = 0; j < R; ++j) {
+          const float p = s_smem[at[j] + off + r];
+#pragma unroll
+          for (int i = 0; i < L::kVec; ++i)
+            st[j].acc[i] = __fmaf_rn(p, vf[i], st[j].acc[i]);
+        }
+      }
+      for (; r < end; r += L::kRowGroups) {
+        float vf[L::kVec];
+        load_pool(tile + r * HD + lane * L::kVec, v_scale, vf);
+#pragma unroll
+        for (int j = 0; j < R; ++j) {
+          if (off + r < count[j]) {
+            const float p = s_smem[at[j] + off + r];
+#pragma unroll
+            for (int i = 0; i < L::kVec; ++i)
+              st[j].acc[i] = __fmaf_rn(p, vf[i], st[j].acc[i]);
+          }
+        }
+      }
+    }
+  }
+  // the next page's first tile (or finish_row) passes a barrier before
+  // s_smem and red are rewritten
+}
+
+// The floats of a walk's scores: rows_per_walk pages, at least finish_row's
+// row sums, rounded up to 16 bytes (the ring follows them).
+template <typename TP, int HD, bool kPadded>
+__host__ __device__ __forceinline__ size_t score_floats(int page,
+                                                        int rows_per_walk) {
+  using L = Layout<TP, HD, kPadded>;
+  size_t n = (size_t)rows_per_walk * page;
+  if (n < (size_t)L::kRowGroups * HD) n = L::kRowGroups * HD;
+  return n + (4 - n % 4) % 4;
+}
+
+// One walk: the n rows j0 .. j0 + n - 1 (n <= R) stream the pages of their
+// widest row (limit len + j0 + n - 1) once through the ring, fold them all
+// (fold_page_rows) and write their outputs.  Row j sees the pages, row
+// counts and fold K1 would see at length len + j.
+template <typename T, typename TP, int HD, bool kPadded, int R>
+__device__ __forceinline__ void walk_rows(
+    PageRing<TP, HD, kPadded>& ring, const T* __restrict__ q,
+    const float* __restrict__ k_scales, const float* __restrict__ v_scales,
+    T* __restrict__ out, int b, int h, int j0, int n, int len, int rows,
+    int heads, int hd, int page, int table_width, float sm_scale,
+    float* s_smem, float* red) {
+  using L = Layout<TP, HD, kPadded>;
+  const int row = L::row(hd);
+  FoldState<L::kVec> st[R];
+#pragma unroll
+  for (int j = 0; j < R; ++j) init_state(st[j]);
+  const T* q_rows = q + (((size_t)b * rows + j0) * heads + h) * row;
+  ring.widest = len + j0 + n - 1;
+  ring.n_live = ring.widest > 0
+      ? min((ring.widest + page - 1) / page, table_width) : 0;
+  ring.start();
+  for (int p = 0; p < ring.n_live; ++p) {
+    float ks, vs;
+    page_scales<TP>(k_scales, v_scales, (size_t)ring.table[p] * heads + h,
+                    ks, vs);
+    fold_page_rows<T, TP, HD, kPadded, R>(
+        ring, ks, vs, min(page, ring.widest - p * page), len + j0 - p * page,
+        n, hd, page, q_rows, (size_t)heads * row, sm_scale, s_smem, red, st);
+  }
+#pragma unroll
+  for (int j = 0; j < R; ++j)
+    if (j < n)
+      finish_row<T, TP, HD, kPadded>(
+          st[j], hd, s_smem,
+          out + (((size_t)b * rows + j0 + j) * heads + h) * row);
+}
+
+// grid (h, b, walks); one block per (slot, head, walk).  The window's rows
+// are walked in groups of rows_per_walk, each group by a block of its own
+// (see walk_rows): the walks of a wide window run side by side, and each
+// row's arithmetic is the same whichever block folds it.  A walk of n rows
+// runs the instantiation for the least power of two >= n, so the rows it
+// folds and reduces side by side are n or fewer than twice n.  Launch
+// bounds of one block an SM let ptxas give a thread up to 255 registers:
+// under its default occupancy target the float32 instantiations were held
+// to 168 and spilled.
 template <typename T, typename TP, int HD, bool kPadded>
-__global__ void __launch_bounds__(kThreads) paged_chunk_kernel(
+__global__ void __launch_bounds__(kThreads, 1) paged_chunk_kernel(
     const T* __restrict__ q, const TP* __restrict__ k_pool,
     const TP* __restrict__ v_pool, const float* __restrict__ k_scales,
     const float* __restrict__ v_scales, const int* __restrict__ table,
     const int* __restrict__ lengths, T* __restrict__ out, int rows,
-    int heads, int hd, int page, int table_width, float sm_scale) {
+    int heads, int hd, int page, int table_width, int rows_per_walk,
+    int tile_rows, int stages, float sm_scale) {
   using L = Layout<TP, HD, kPadded>;
   extern __shared__ float smem[];
-  float* red = smem;                      // kWarps floats (padded to 32)
-  float* q_smem = smem + 32;              // a group's q rows, widened
-  float* s_smem = q_smem + kMaxRows * HD; // page floats, then the row sums
+  float* red = smem;                   // kRedFloats
+  float* s_smem = smem + kRedFloats;   // a walk's scores, then the row sums
   const int h = blockIdx.x;
   const int b = blockIdx.y;
-  const int lane = threadIdx.x % L::kLanes;
   const int row = L::row(hd);
   const int len = lengths[b];
 
-  for (int j0 = 0; j0 < rows; j0 += kMaxRows) {
-    const int n = min(kMaxRows, rows - j0);
-    // stage the group's q rows in shared memory as float32: vector v of a
-    // row covers columns [v * kVec, (v + 1) * kVec), the pool's layout.
-    // The last group's folds and sums are done with both buffers: its
-    // finish_row ended past its barriers, and the folds below start after
-    // the barrier that follows.
-    for (int v = threadIdx.x; v < n * L::kLanes; v += kThreads) {
-      const int j = v / L::kLanes;
-      float f[L::kVec];
-      load_q<T, TP, HD, kPadded>(
-          q + (((size_t)b * rows + j0 + j) * heads + h) * row, v % L::kLanes,
-          hd, f);
-#pragma unroll
-      for (int i = 0; i < L::kVec; ++i)
-        q_smem[j * HD + (v % L::kLanes) * L::kVec + i] = f[i];
-    }
-    __syncthreads();
+  PageRing<TP, HD, kPadded> ring;
+  ring.k_pool = k_pool;
+  ring.v_pool = v_pool;
+  ring.table = table + (size_t)b * table_width;
+  ring.page_elems = (size_t)heads * page * row;
+  ring.head_elems = (size_t)h * page * row;
+  ring.slots = reinterpret_cast<TP*>(
+      s_smem + score_floats<TP, HD, kPadded>(page, rows_per_walk));
+  ring.row = row;
+  ring.page = page;
+  ring.tile_rows = tile_rows;
+  ring.stages = stages;
 
-    FoldState<L::kVec> st[kMaxRows];
-#pragma unroll
-    for (int j = 0; j < kMaxRows; ++j) init_state(st[j]);
-
-    const int widest = len + j0 + n - 1;
-    const int n_live =
-        widest > 0 ? min((widest + page - 1) / page, table_width) : 0;
-    for (int p = 0; p < n_live; ++p) {
-      const int phys = table[(size_t)b * table_width + p];
-      const size_t base = (((size_t)phys * heads + h) * page) * row;
-      float ks, vs;
-      page_scales<TP>(k_scales, v_scales, (size_t)phys * heads + h, ks, vs);
-#pragma unroll
-      for (int j = 0; j < kMaxRows; ++j) {
-        const int limit = len + j0 + j;
-        // block-uniform: every thread takes the same branch to the barriers
-        if (j < n && p * page < limit) {
-          float qf[L::kVec];
-#pragma unroll
-          for (int i = 0; i < L::kVec; ++i)
-            qf[i] = q_smem[j * HD + lane * L::kVec + i];
-          fold_page<TP, HD, kPadded>(k_pool + base, v_pool + base, ks, vs,
-                                     min(page, limit - p * page), hd, qf,
-                                     sm_scale, s_smem, red, st[j]);
-        }
-      }
+  const int j0 = blockIdx.z * rows_per_walk;
+  const int n = min(rows_per_walk, rows - j0);
+  if constexpr (kWalkRows<L> == 8) {
+    if (n > 4) {
+      walk_rows<T, TP, HD, kPadded, 8>(ring, q, k_scales, v_scales, out, b, h,
+                                       j0, n, len, rows, heads, hd, page,
+                                       table_width, sm_scale, s_smem, red);
+      return;
     }
-#pragma unroll
-    for (int j = 0; j < kMaxRows; ++j)
-      if (j < n)
-        finish_row<T, TP, HD, kPadded>(
-            st[j], hd, s_smem,
-            out + (((size_t)b * rows + j0 + j) * heads + h) * row);
   }
+  if (n > 2)
+    walk_rows<T, TP, HD, kPadded, 4>(ring, q, k_scales, v_scales, out, b, h,
+                                     j0, n, len, rows, heads, hd, page,
+                                     table_width, sm_scale, s_smem, red);
+  else if (n > 1)
+    walk_rows<T, TP, HD, kPadded, 2>(ring, q, k_scales, v_scales, out, b, h,
+                                     j0, n, len, rows, heads, hd, page,
+                                     table_width, sm_scale, s_smem, red);
+  else
+    walk_rows<T, TP, HD, kPadded, 1>(ring, q, k_scales, v_scales, out, b, h,
+                                     j0, n, len, rows, heads, hd, page,
+                                     table_width, sm_scale, s_smem, red);
 }
 
 template <typename TP, int HD, bool kPadded>
-size_t smem_floats(int page, int q_floats) {
+size_t smem_floats(int page) {
   using L = Layout<TP, HD, kPadded>;
-  return 32 + q_floats
-         + (page > L::kRowGroups * HD ? page : L::kRowGroups * HD);
+  return 32 + (page > L::kRowGroups * HD ? page : L::kRowGroups * HD);
+}
+
+// K2's shared memory under a launch plan (ops/paged_attention.py::
+// chunk_plan computes the same): the reductions, a walk's scores and the
+// ring's tiles.
+template <typename TP, int HD, bool kPadded>
+size_t chunk_smem_bytes(int page, int rows_per_walk, int tile_rows,
+                        int stages) {
+  return (kRedFloats + score_floats<TP, HD, kPadded>(page, rows_per_walk)) *
+             sizeof(float) +
+         (size_t)stages * tile_rows * HD * sizeof(TP);
 }
 
 template <typename Kernel>
@@ -484,7 +872,7 @@ cudaError_t launch(const void* q, const void* kp, const void* vp,
                    const int* lengths, void* out, int b, int h, int hd,
                    int page, int table_width, float sm_scale,
                    cudaStream_t stream) {
-  const size_t smem = smem_floats<TP, HD, kPadded>(page, 0) * sizeof(float);
+  const size_t smem = smem_floats<TP, HD, kPadded>(page) * sizeof(float);
   auto kernel = paged_decode_kernel<T, TP, HD, kPadded>;
   cudaError_t e = allow_smem(kernel, smem);
   if (e != cudaSuccess) return e;
@@ -500,16 +888,26 @@ cudaError_t launch_chunk(const void* q, const void* kp, const void* vp,
                          const float* ks, const float* vs, const int* table,
                          const int* lengths, void* out, int b, int rows,
                          int h, int hd, int page, int table_width,
+                         int rows_per_walk, int tile_rows, int stages,
                          float sm_scale, cudaStream_t stream) {
-  const size_t smem =
-      smem_floats<TP, HD, kPadded>(page, kMaxRows * HD) * sizeof(float);
+  using L = Layout<TP, HD, kPadded>;
+  // a plan this instantiation cannot run is refused, never adjusted
+  if (rows_per_walk < 1 || rows_per_walk > kWalkRows<L> || tile_rows < 1 ||
+      tile_rows % L::kRowGroups != 0 || stages < 2 || stages > kMaxStages)
+    return cudaErrorInvalidValue;
+  const size_t smem = chunk_smem_bytes<TP, HD, kPadded>(
+      page, rows_per_walk, tile_rows, stages);
+  if (smem > kOptinSmemBytes) return cudaErrorInvalidValue;
+  const int walks = (rows + rows_per_walk - 1) / rows_per_walk;
+  if (walks > 65535) return cudaErrorInvalidValue;
   auto kernel = paged_chunk_kernel<T, TP, HD, kPadded>;
   cudaError_t e = allow_smem(kernel, smem);
   if (e != cudaSuccess) return e;
-  kernel<<<dim3(h, b), kThreads, smem, stream>>>(
+  kernel<<<dim3(h, b, walks), kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const TP*>(kp),
       static_cast<const TP*>(vp), ks, vs, table, lengths,
-      static_cast<T*>(out), rows, h, hd, page, table_width, sm_scale);
+      static_cast<T*>(out), rows, h, hd, page, table_width, rows_per_walk,
+      tile_rows, stages, sm_scale);
   return cudaGetLastError();
 }
 
@@ -592,11 +990,15 @@ int kg_paged_decode_attention_int8(int dtype, const void* q,
   });
 }
 
-// K2: q and out (b, rows, h, hd), rows >= 1; otherwise as above.
+// K2: q and out (b, rows, h, hd), rows >= 1; rows_per_walk, tile_rows and
+// stages are the launch plan (ops/paged_attention.py::chunk_plan), refused with
+// cudaErrorInvalidValue if this instantiation cannot run it; otherwise as
+// above.
 int kg_paged_chunk_attention(int dtype, const void* q, const void* k_pool,
                              const void* v_pool, const void* table,
                              const void* lengths, void* out, int b, int rows,
                              int h, int hd, int page, int table_width,
+                             int rows_per_walk, int tile_rows, int stages,
                              float sm_scale, void* stream) {
   const int* tbl = static_cast<const int*>(table);
   const int* len = static_cast<const int*>(lengths);
@@ -608,11 +1010,11 @@ int kg_paged_chunk_attention(int dtype, const void* q, const void* k_pool,
     if (dtype == 0)
       return launch_chunk<float, float, W::hd, W::padded>(
           q, k_pool, v_pool, nullptr, nullptr, tbl, len, out, b, rows, h, hd,
-          page, table_width, sm_scale, s);
+          page, table_width, rows_per_walk, tile_rows, stages, sm_scale, s);
     if (dtype == 1)
       return launch_chunk<__nv_bfloat16, __nv_bfloat16, W::hd, W::padded>(
           q, k_pool, v_pool, nullptr, nullptr, tbl, len, out, b, rows, h, hd,
-          page, table_width, sm_scale, s);
+          page, table_width, rows_per_walk, tile_rows, stages, sm_scale, s);
     return cudaErrorInvalidValue;
   });
 }
@@ -623,8 +1025,9 @@ int kg_paged_chunk_attention_int8(int dtype, const void* q,
                                   const void* k_scale, const void* v_scale,
                                   const void* table, const void* lengths,
                                   void* out, int b, int rows, int h, int hd,
-                                  int page, int table_width, float sm_scale,
-                                  void* stream) {
+                                  int page, int table_width,
+                                  int rows_per_walk, int tile_rows,
+                                  int stages, float sm_scale, void* stream) {
   const float* ks = static_cast<const float*>(k_scale);
   const float* vs = static_cast<const float*>(v_scale);
   const int* tbl = static_cast<const int*>(table);
@@ -637,11 +1040,11 @@ int kg_paged_chunk_attention_int8(int dtype, const void* q,
     if (dtype == 0)
       return launch_chunk<float, int8_t, W::hd, W::padded>(
           q, k_pool, v_pool, ks, vs, tbl, len, out, b, rows, h, hd, page,
-          table_width, sm_scale, s);
+          table_width, rows_per_walk, tile_rows, stages, sm_scale, s);
     if (dtype == 1)
       return launch_chunk<__nv_bfloat16, int8_t, W::hd, W::padded>(
           q, k_pool, v_pool, ks, vs, tbl, len, out, b, rows, h, hd, page,
-          table_width, sm_scale, s);
+          table_width, rows_per_walk, tile_rows, stages, sm_scale, s);
     return cudaErrorInvalidValue;
   });
 }

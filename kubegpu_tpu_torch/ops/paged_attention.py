@@ -28,8 +28,11 @@ Multi query (K2): :func:`reference_paged_chunk_attention`,
 the same three roles.  Query row j of a window attends columns
 ``< lengths + j`` (intra-window causal).  Both twins fold every query
 row through one per-page helper, so plain K2 row j IS plain K1 at
-``lengths + j``, bit for bit; the two CUDA kernels share their fold the
-same way.
+``lengths + j``, bit for bit.  The CUDA K2 reads each page once for up
+to 8 rows of the window (a walk) through a ``cp.async`` ring and folds
+each row with K1's operations in K1's order, so its row j is the CUDA
+K1's at ``lengths + j`` bit for bit too; :func:`chunk_plan` is its
+launch plan.
 
 Layouts as in the JAX package: q ``(b, h, hd)`` (K1) or
 ``(b, L, h, hd)`` (K2); pools ``(pool_pages, h, page, hd)``; page table
@@ -56,6 +59,7 @@ The int8 variants count their launches apart:
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 
 import torch
@@ -68,11 +72,24 @@ NEG_INF = float("-inf")
 KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # head widths the kernels take: multiples of 8 up to MAX_HEAD_DIM
 MAX_HEAD_DIM = 128
-# A page's f32 scores sit in shared memory, one float per page row,
-# beside 32 floats of reductions and K2's q rows (8 rows of up to 128
-# floats), in the 232,448 bytes of shared memory an H100 block may opt in to
+# the 232,448 bytes of shared memory an H100 block may opt in to
 OPTIN_SMEM_BYTES = 232448
-MAX_KERNEL_PAGE = OPTIN_SMEM_BYTES // 4 - 32 - 8 * MAX_HEAD_DIM
+# the kernels' blocks: 128 threads in 4 warps
+THREADS = 128
+WARPS = THREADS // 32
+# K2 folds at most this many query rows in one walk of the pages (kMaxRows)
+MAX_ROWS_PER_WALK = 8
+# K2 streams its pages through a ring of 2 to MAX_STAGES tiles (kMaxStages)
+# of at most TILE_BYTES each, as many as RING_BYTES hold
+MIN_STAGES, MAX_STAGES = 2, 4
+TILE_BYTES = 32 * 1024
+RING_BYTES = 64 * 1024
+# A page's f32 scores sit in shared memory, one float per page row,
+# beside 32 floats of reductions (4 warps x MAX_ROWS_PER_WALK rows); K2
+# also keeps its ring there, whose least is two tiles of one 16-byte
+# copy a thread: 2 x 128 x 16 bytes, 1024 floats
+MAX_KERNEL_PAGE = (OPTIN_SMEM_BYTES // 4 - WARPS * MAX_ROWS_PER_WALK
+                   - MIN_STAGES * THREADS * 16 // 4)
 
 
 def dequantize_pages(data, scale, dtype=torch.float32):
@@ -299,6 +316,53 @@ def _check_operands(q, b, h, hd, k_pool, v_pool, page_table, lengths,
         raise ValueError("q and pools must be 16-byte aligned")
 
 
+@functools.lru_cache(maxsize=None)
+def chunk_plan(page: int, hd: int, dtype: torch.dtype, quant: bool):
+    """K2's (K2q's, ``quant``) launch plan for pages of ``page`` rows,
+    head width ``hd`` and q of ``dtype``: ``(rows_per_walk, tile_rows,
+    stages, smem_bytes)``.
+
+    It mirrors the kernel's instantiation (``Layout`` in
+    ``csrc/paged_attention.cu``): exact at head widths 64 and 128, padded
+    to HD 32 or 128 otherwise; 16 bytes of the pool a lane (8 for a padded
+    int8 row), HD / those lanes a row, 128 threads, so ``row_groups`` rows
+    in flight.  A block folds ``rows_per_walk`` query rows in one walk of
+    the pages: at most ``MAX_ROWS_PER_WALK``, or half that where a lane
+    holds 16 columns (a full-width int8 pool), whose eight rows' states
+    do not fit the registers (``kWalkRows``).  It streams the pages
+    through a ring of ``stages`` tiles of ``tile_rows`` rows (a multiple
+    of ``row_groups``).  Its shared memory holds 32 reduction floats, the
+    walk's f32 scores (``rows_per_walk`` pages of them, at least
+    ``row_groups * HD`` floats for the final sum of a row, rounded up to
+    16 bytes) and the ring.  The most rows that fit come first, then the
+    largest tile up to ``TILE_BYTES`` and the page, then as many stages as
+    ``RING_BYTES`` and the room left hold.  The C side recomputes the same
+    bytes and refuses a plan that does not fit.  Raises ``ValueError``
+    for a page past ``MAX_KERNEL_PAGE``."""
+    if not 1 <= page <= MAX_KERNEL_PAGE:
+        raise ValueError(f"page size {page} outside [1, {MAX_KERNEL_PAGE}]")
+    itemsize = 1 if quant else torch.empty((), dtype=dtype).element_size()
+    padded = hd not in (64, 128)
+    width = (32 if hd <= 32 else 128) if padded else hd
+    vec = 8 if quant and padded else 16 // itemsize
+    groups = THREADS // (width // vec)
+    row_bytes = width * itemsize
+    page_rows = -(-page // groups) * groups
+    most_rows = MAX_ROWS_PER_WALK // 2 if vec > 8 else MAX_ROWS_PER_WALK
+    for rows in range(most_rows, 0, -1):
+        scores = max(rows * page, groups * width)
+        fixed = 4 * (WARPS * MAX_ROWS_PER_WALK + scores + -scores % 4)
+        room = OPTIN_SMEM_BYTES - fixed
+        tile = (min(TILE_BYTES, room // MIN_STAGES, page_rows * row_bytes)
+                // row_bytes // groups * groups)
+        if tile >= groups:
+            tile_bytes = tile * row_bytes
+            stages = max(MIN_STAGES, min(MAX_STAGES, RING_BYTES // tile_bytes,
+                                         room // tile_bytes))
+            return rows, tile, stages, fixed + stages * tile_bytes
+    raise AssertionError("MAX_KERNEL_PAGE leaves room for one row")
+
+
 def _launch_kernel(q, k_pool, v_pool, page_table, lengths, k_scale,
                    v_scale, checked: bool) -> torch.Tensor:
     if not checked:
@@ -336,9 +400,13 @@ def _launch_chunk_kernel(q, k_pool, v_pool, page_table, lengths, k_scale,
     out = torch.empty_like(q)
     if b == 0:
         return out
+    page = k_pool.shape[2]
+    rows_per_walk, tile_rows, stages, _ = chunk_plan(page, hd, q.dtype,
+                                                     k_scale is not None)
     operands = (q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr())
     tail = (page_table.data_ptr(), lengths.data_ptr(), out.data_ptr(), b, L,
-            h, hd, k_pool.shape[2], page_table.shape[1], 1.0 / math.sqrt(hd),
+            h, hd, page, page_table.shape[1], rows_per_walk, tile_rows,
+            stages, 1.0 / math.sqrt(hd),
             torch.cuda.current_stream(q.device).cuda_stream)
     if k_scale is None:
         rc = lib.kg_paged_chunk_attention(KERNEL_DTYPES[q.dtype],
@@ -409,9 +477,11 @@ def _declare(lib: ctypes.CDLL) -> None:
         i32, i32, i32, i32, i32, ctypes.c_float, ptr,
     ]
     lib.kg_paged_decode_attention.restype = ctypes.c_int
+    # the chunk kernels take the plan (rows per walk, tile rows, stages)
+    # after the table width
     lib.kg_paged_chunk_attention.argtypes = [
         i32, ptr, ptr, ptr, ptr, ptr, ptr,
-        i32, i32, i32, i32, i32, i32, ctypes.c_float, ptr,
+        i32, i32, i32, i32, i32, i32, i32, i32, i32, ctypes.c_float, ptr,
     ]
     lib.kg_paged_chunk_attention.restype = ctypes.c_int
     # the int8 variants take the two scale pointers after the pools
@@ -422,7 +492,7 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.kg_paged_decode_attention_int8.restype = ctypes.c_int
     lib.kg_paged_chunk_attention_int8.argtypes = [
         i32, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr,
-        i32, i32, i32, i32, i32, i32, ctypes.c_float, ptr,
+        i32, i32, i32, i32, i32, i32, i32, i32, i32, ctypes.c_float, ptr,
     ]
     lib.kg_paged_chunk_attention_int8.restype = ctypes.c_int
     lib.kg_cuda_error_string.argtypes = [ctypes.c_int]

@@ -30,6 +30,8 @@ from kubegpu_tpu_torch.ops.attention import (
     flash_forward_plain,
 )
 from kubegpu_tpu_torch.ops.paged_attention import (
+    MAX_KERNEL_PAGE,
+    chunk_plan,
     paged_chunk_attention,
     paged_chunk_attention_plain,
     paged_decode_attention,
@@ -202,6 +204,75 @@ def test_paged_kernels_take_a_page_beyond_4096_rows(cuda_device, dtype, rtol,
         paged_chunk_attention(q, kp, vp, tbl, ln).float(),
         paged_chunk_attention_plain(q, kp, vp, tbl, ln).float(), rtol=rtol,
         atol=atol)
+
+
+def assert_chunk_rows_are_k1(q, kp, vp, tbl, ln, sc, rtol, atol):
+    """One K2 (K2q) launch: within tolerance of its plain twin, each row j
+    equal to K1 (K1q) at lengths + j bit for bit; returns the result."""
+    out = paged_chunk_attention(q, kp, vp, tbl, ln, **sc)
+    torch.testing.assert_close(
+        out.float(),
+        paged_chunk_attention_plain(q, kp, vp, tbl, ln, **sc).float(),
+        rtol=rtol, atol=atol)
+    for j in range(q.shape[1]):
+        assert torch.equal(out[:, j], paged_decode_attention(
+            q[:, j].contiguous(), kp, vp, tbl, ln + j, **sc)), j
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("L", [9, 17])
+@pytest.mark.parametrize("page", [20000, MAX_KERNEL_PAGE])
+def test_chunk_rows_equal_k1_where_the_plan_walks_fewer_rows(cuda_device,
+                                                           page, L):
+    """f32 at hd 128 over pages so large that the plan folds fewer than 8
+    rows a walk (2 at 20,000 rows, 1 at MAX_KERNEL_PAGE): windows of 9
+    and 17 rows take several walks, and each row stays K1 at lengths + j;
+    a length-0 slot's row 0 gives zeros."""
+    assert chunk_plan(page, 128, torch.float32, False)[0] < 8
+    case = make_chunk_case(51 + L, [0, 1, page - 3, page, 2 * page - L + 1],
+                           L, h=1, hd=128, page=page, n_pages=2, pool=3)
+    args, sc = paged_operands(case, torch.float32, cuda_device, False)
+    out = assert_chunk_rows_are_k1(*args, sc, F32_TOL, F32_TOL)
+    assert (out[0, 0] == 0).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quant", [False, True], ids=["full", "int8"])
+@pytest.mark.parametrize("dtype, rtol, atol", [
+    (torch.float32, F32_TOL, F32_TOL),
+    (torch.bfloat16, BF16_RTOL, BF16_ATOL),
+])
+def test_chunk_rows_equal_k1_at_tile_edges(cuda_device, dtype, rtol, atol,
+                                           quant):
+    """Lengths one short of, at and one past a ring tile's edge, in the
+    first page and the next, with a 5-row window whose rows cross them,
+    and a length-0 slot: pages of 512 rows at hd 128, several tiles a
+    page.  Row j equals K1 (K1q) at lengths + j; a length-0 slot's row 0
+    gives zeros."""
+    page = 512
+    tile = chunk_plan(page, 128, dtype, quant)[1]
+    assert tile < page
+    lengths = [0, tile - 1, tile, tile + 1, page + tile - 1, page + tile,
+               page + tile + 1]
+    case = make_chunk_case(61, lengths, 5, h=2, hd=128, page=page, n_pages=3,
+                           pool=24)
+    args, sc = paged_operands(case, dtype, cuda_device, quant)
+    out = assert_chunk_rows_are_k1(*args, sc, rtol, atol)
+    assert (out[0, 0] == 0).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quant", [False, True], ids=["full", "int8"])
+def test_chunk_kernel_is_deterministic(cuda_device, quant):
+    """Two launches on the same inputs give the same bits (no atomics, no
+    order that depends on timing)."""
+    case = make_chunk_case(71, [0, 1, 127, 128, 300, 508], 5, h=8, hd=128,
+                           page=128, n_pages=4, pool=30)
+    (q, kp, vp, tbl, ln), sc = paged_operands(case, torch.bfloat16,
+                                              cuda_device, quant)
+    first = paged_chunk_attention(q, kp, vp, tbl, ln, **sc)
+    assert torch.equal(first, paged_chunk_attention(q, kp, vp, tbl, ln, **sc))
 
 
 @pytest.mark.cuda

@@ -65,10 +65,10 @@ def test_check_functions_refuse_widths_off_the_rule(hd):
 
 
 def test_page_limit_is_the_cards_shared_memory():
-    """A page's f32 scores, 32 floats of reductions and K2's 8 q rows of
-    128 floats fill at most the 232,448 bytes an H100 block opts in to;
-    the limit takes pages far past the old 4096 rows and refuses one
-    more."""
+    """A page's f32 scores, 32 floats of reductions and K2's least ring
+    (two tiles of one 16-byte copy a thread: 1024 floats) fill at most the
+    232,448 bytes an H100 block opts in to; the limit takes pages far past
+    the old 4096 rows and refuses one more."""
     assert MAX_KERNEL_PAGE == 232448 // 4 - 32 - 8 * 128 == 57056
     q = torch.zeros((1, 1, 2, 64))
     table = torch.zeros((1, 1), dtype=torch.int32)
