@@ -8,22 +8,27 @@ sources in the checkout, then runs eighteen phases; any failure exits
 non-zero:
 
 1. device: the card's name and power limit, TF32 off;
-2. K1 (paged decode attention, ``ops/csrc/paged_attention.cu``) against
-   its plain PyTorch version at the serving path's shapes (8 slots, 32
-   heads, head_dim 128, page 128, a shuffled table, ragged lengths
-   including 0, 1, 127, 128 and a full table), in float32
-   (rtol=atol=2e-5) and bfloat16 (rtol=2^-7, atol=1e-5: both compute in
-   f32 and round once to bf16, so they may differ by one rounding step);
-   its device time (launches captured in a CUDA graph), the plain
-   version's time and its bandwidth bound; then the same at the worker's
-   defaults' geometry (8 heads of 64, pages of 32, 36-page tables);
+2. K1 (paged decode attention, ``ops/csrc/paged_attention.cu``: the
+   split walk, then the merge) against its plain PyTorch version at the
+   serving path's shapes (8 slots, 32 heads, head_dim 128, page 128, a
+   shuffled table, ragged lengths including 0, 1, 127, 128 and a full
+   table), in float32 (rtol=atol=2e-5) and bfloat16 (rtol=2^-7,
+   atol=1e-5: both compute in f32 and round once to bf16, so they may
+   differ by one rounding step); its split plan (pages a split, splits
+   a table, live walk blocks, ring tiles and stages), its device time
+   (launches captured in a CUDA graph), the plain version's time, its
+   bandwidth bound and the share of it, and at the flagship the ratio
+   to K2's 5-row walk to the same contexts; then the same at the
+   worker's defaults' geometry (8 heads of 64, pages of 32, 36-page
+   tables);
 3. K2 (paged multi-query attention, the speculative verify, same
    source) at the verify's shapes (8 slots, a 5-row window, 32 heads,
    head_dim 128, page 128, a shuffled 9-page table, lengths whose windows
    cross page boundaries and reach the full table) against its plain
    version and the dense oracle at the same tolerances; its row j must
-   equal K1 at lengths + j bit for bit, and a 1-row window K1; its
-   launch plan (rows per walk, ring tiles and their rows, shared bytes),
+   equal K1 at lengths + j bit for bit (also for windows across the
+   first and second split edges), and a 1-row window K1; its launch plan
+   (rows per walk, ring tiles and their rows, shared bytes, the split),
    its time, K1's at the same widest contexts and the ratio of the two,
    the plain time and the bound; then the same at the worker's defaults'
    geometry with a 9-row window (``--spec-k 8``: two walks);
@@ -72,9 +77,11 @@ non-zero:
    phase 2's two geometries, pools from ``quantize_pages`` of random data:
    against its plain version and the dense oracle over
    ``dequantize_pages``, in float32 and bfloat16 q at phase 2's
-   tolerances; its graph-replay time, plain time and byte bound;
+   tolerances; its split plan, graph-replay time, plain time and byte
+   bound, and at the flagship the ratio to K2q's 5-row walk;
 12. K2q likewise at phase 3's shapes and windows: row j equal to K1q at
-   lengths + j bit for bit, a 1-row window equal to K1q;
+   lengths + j bit for bit (across split edges too), a 1-row window
+   equal to K1q;
 13. the flagship wave of phase 4 with ``--kv-dtype int8`` (bf16 weights):
    K1q launched decode steps x layers times, K1 never; the pool's bytes;
 14. the flagship wave with ``--kv-dtype int8 --int8 --speculate --spec-k
@@ -272,9 +279,11 @@ def phase_k1(quant: bool = False, geo: dict = FLAGSHIP_PAGED) -> dict:
     import torch
 
     from kubegpu_tpu_torch.ops.paged_attention import (
+        paged_chunk_attention,
         paged_decode_attention,
         paged_decode_attention_plain,
         reference_paged_attention,
+        split_plan,
     )
 
     dev = torch.device("cuda")
@@ -314,6 +323,14 @@ def phase_k1(quant: bool = False, geo: dict = FLAGSHIP_PAGED) -> dict:
         torch.testing.assert_close(out.float(), dense.float(), rtol=rtol,
                                    atol=atol)
         name = str(dtype).replace("torch.", "")
+        split, tile, stages, smem = split_plan(page, hd, dtype, quant)
+        n_splits = -(-n_pages // split)
+        live_blocks = h * sum(-(-min(-(-n // page), n_pages) // split)
+                              for n in lengths_l)
+        log(f"{label} {name}: split plan {split} pages a split, {n_splits} "
+            f"splits a {n_pages}-page table, {live_blocks} live walk blocks "
+            f"(of {h * b * n_splits}), a ring of {stages} tiles of {tile} "
+            f"rows, {smem} B of shared memory; then the merge")
         log(f"{label} {name}: max|kernel - plain| = {err:.3e} ({share:.3f} "
             f"of rtol {rtol:.3g} atol {atol:.3g}), max|kernel - dense "
             f"oracle| = {err_dense:.3e}; mean |out| of the live slots "
@@ -329,16 +346,27 @@ def phase_k1(quant: bool = False, geo: dict = FLAGSHIP_PAGED) -> dict:
         call_ms = time_ms(lambda: paged_decode_attention(*args, **sc), 200)
         plain_ms = time_ms(
             lambda: paged_decode_attention_plain(*args, **sc), 20)
-        log(f"{label} {name}: kernel {ms * 1e3:.2f} us (graph replay; "
-            f"{call_ms * 1e3:.2f} us a call from Python), plain "
+        log(f"{label} {name}: kernel {ms * 1e3:.2f} us (graph replay, walk "
+            f"and merge; {call_ms * 1e3:.2f} us a call from Python), plain "
             f"{plain_ms * 1e3:.2f} us, bound {bound_ms * 1e3:.2f} us "
             f"({nbytes} B over "
             f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s) -> "
             f"{bound_ms / ms * 100:.1f}% of bound; no single PyTorch call "
             "computes paged attention, so library_ms is null")
+        if geo is FLAGSHIP_PAGED:
+            # K2's 5-row walk over the same widest contexts, same call
+            q5 = torch.randn((b, SPEC_K + 1, h, hd), generator=g,
+                             device=dev).to(dtype)
+            short = (lengths - SPEC_K).clamp(min=0)
+            k2_ms = graph_ms(lambda: paged_chunk_attention(
+                q5, kp, vp, table, short, **sc), 50)
+            log(f"{label} {name}: {'K2q' if quant else 'K2'}'s {SPEC_K + 1}"
+                f"-row walk to the same widest contexts {k2_ms * 1e3:.2f} us "
+                f"-> {label.split()[0]} / {'K2q' if quant else 'K2'} = "
+                f"{ms / k2_ms:.3f}")
         rec[name] = dict(max_abs_err=err, ms=ms, call_ms=call_ms,
                          plain_ms=plain_ms,
-                         bound_ms=bound_ms, bytes=nbytes)
+                         bound_ms=bound_ms, bytes=nbytes, split=split)
     return rec
 
 
@@ -352,6 +380,7 @@ def phase_k2(quant: bool = False, geo: dict = FLAGSHIP_PAGED,
         paged_chunk_attention_plain,
         paged_decode_attention,
         reference_paged_chunk_attention,
+        split_plan,
     )
 
     dev = torch.device("cuda")
@@ -406,16 +435,33 @@ def phase_k2(quant: bool = False, geo: dict = FLAGSHIP_PAGED,
         assert torch.equal(one[:, 0], paged_decode_attention(
             q[:, 0].contiguous(), kp, vp, table, lengths, **sc)), (
             f"a 1-row {label} window differs from {k1_label}")
+        # windows whose rows straddle the first and second split edges
+        split = split_plan(page, hd, dtype, quant)[0]
+        edge, full = split * page, n_pages * page - (L - 1)
+        edges = torch.tensor(
+            [min(max(n, 0), full) for n in (edge - L + 1, edge - L // 2,
+                                            edge - 1, edge, 2 * edge - L + 1,
+                                            2 * edge - L // 2, 2 * edge - 1,
+                                            full)],
+            dtype=torch.int32, device=dev)
+        across = paged_chunk_attention(q, kp, vp, table, edges, **sc)
+        for j in range(L):
+            assert torch.equal(across[:, j], paged_decode_attention(
+                q[:, j].contiguous(), kp, vp, table, edges + j, **sc)), (
+                f"{label} row {j} differs from {k1_label} at lengths + {j} "
+                "across a split edge")
         name = str(dtype).replace("torch.", "")
         plan = chunk_plan(page, hd, dtype, quant)
         log(f"{label} {name}: plan {plan[0]} rows per walk, a ring of "
             f"{plan[2]} tiles of {plan[1]} rows, {plan[3]} B of shared "
-            "memory")
+            f"memory; {split} pages a split (edges every {edge} rows), "
+            f"{-(-n_pages // split)} splits a table; then the merge")
         log(f"{label} {name}: max|kernel - plain| = {err:.3e} ({share:.3f} "
             f"of rtol {rtol:.3g} atol {atol:.3g}), max|kernel - dense "
             f"oracle| = {err_dense:.3e}; rows 0..{L - 1} equal {k1_label} "
-            f"at lengths + j bit for bit, and a 1-row window equals "
-            f"{k1_label}")
+            f"at lengths + j bit for bit, also for windows across the split "
+            f"edges at {edge} and {2 * edge} rows, and a 1-row window "
+            f"equals {k1_label}")
         itemsize = q.element_size()
         rows = [min(n + L - 1, n_pages * page) for n in lengths_l]
         live_pages = sum(-(-n // page) for n in rows)
@@ -449,7 +495,8 @@ def phase_k2(quant: bool = False, geo: dict = FLAGSHIP_PAGED,
             "attention, so library_ms is null")
         rec[name] = dict(max_abs_err=err, ms=ms, call_ms=call_ms,
                          k1_ms=k1_ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                         bound_by=bound_by, bytes=nbytes, flops=flops)
+                         bound_by=bound_by, bytes=nbytes, flops=flops,
+                         split=split)
     return rec
 
 
@@ -1271,15 +1318,19 @@ def main() -> int:
     log(f"chip_smoke: all phases passed in {time.monotonic() - t0:.1f} s")
     source = "kubegpu_tpu_torch/ops/csrc/paged_attention.cu"
     kernels = []
-    for kname, replaces, rec, run in (
+    # each paged entry point launches its walk and then the merge pass;
+    # its launches, times and bound cover both
+    for kname, replaces, rec, run, walk in (
         ("paged_decode_attention", "kubegpu_tpu/ops/paged_attention.py:135",
-         k1, flag),
+         k1, flag, "paged_decode_walk_kernel"),
         ("paged_chunk_attention", "kubegpu_tpu/ops/paged_attention.py:390",
-         k2, spec),
+         k2, spec, "paged_chunk_walk_kernel"),
         ("paged_decode_attention_int8",
-         "kubegpu_tpu/ops/paged_attention.py:135", k1q, flag_q),
+         "kubegpu_tpu/ops/paged_attention.py:135", k1q, flag_q,
+         "paged_decode_walk_kernel"),
         ("paged_chunk_attention_int8",
-         "kubegpu_tpu/ops/paged_attention.py:390", k2q, spec_q),
+         "kubegpu_tpu/ops/paged_attention.py:390", k2q, spec_q,
+         "paged_chunk_walk_kernel"),
     ):
         bf = rec["bfloat16"]
         kernels.append({
@@ -1294,6 +1345,8 @@ def main() -> int:
             "bound_ms": bf["bound_ms"],
             "bound_by": bf.get("bound_by", "bytes"),
             "library_ms": None,
+            "passes": [walk, "paged_merge_kernel"],
+            "pages_per_split": bf["split"],
         })
     for kname, replaces in (
         ("flash_forward", "kubegpu_tpu/ops/attention.py:72"),

@@ -7,9 +7,14 @@
 // ::_paged_chunk_kernel (called through paged_chunk_attention).  They
 // compute what those kernels compute, not their grid: a Pallas kernel walks
 // a (slot, page) grid in order on one core and carries the online-softmax
-// state in VMEM scratch from one grid step to the next; here one thread
-// block owns one (slot, head) pair and walks the slot's page table in a
-// loop, keeping the state in registers.
+// state in VMEM scratch from one grid step to the next.  Here a slot's page
+// table is cut into splits of a fixed number of pages (pages 0 .. S - 1,
+// S .. 2S - 1, ...); one thread block folds one split of one (slot, head)
+// pair in a loop, keeping the state in registers, and writes the split's
+// state (m, l and the undivided accumulator) to a float32 workspace; a
+// second kernel merges each row's splits in split order and divides.  K1
+// is K2's walk at one row: one code path, so K2's row j is K1 at lengths
+// + j bit for bit (below).
 //
 // Bound: both kernels are bandwidth-bound.  K1 must read each live K/V row
 // once, about 2 * sum_b len_b * h * hd * itemsize bytes, over the card's
@@ -17,28 +22,34 @@
 // card's rate for those bytes.  K2 reads the rows of its widest query row
 // (len_b + L - 1) and does 4 * L flops per element, still below the
 // card's flops-to-bytes ratio for L <= 8.  The design spends bytes only on
-// live pages: a block reads lengths[b], walks table[b, 0 : ceil(len/page)]
-// (K2: the widest row's len + L - 1) and never touches a page past it (the
-// GPU form of the TPU kernels' dead-page DMA elision), and within the last
-// live page it reads only rows below the length.  Loads are 16 bytes a
-// thread with neighbouring threads on neighbouring addresses: a group of
-// HD * sizeof(T) / 16 threads reads one whole row, and the block reads
-// kRowGroups consecutive rows per pass.
+// live pages: a block reads lengths[b], folds only the pages of its split
+// below ceil(len / page) (K2: the widest row's len + L - 1), and a split
+// past them exits before any load (the GPU form of the TPU kernels'
+// dead-page DMA elision); within the last live page it reads only rows
+// below the length.  The splits put a long slot's pages on several SMs at
+// once, so the card is not left to the few blocks of the longest slots.
 //
-// K1 waits on each row group's load in turn: 2 * page / kRowGroups
-// dependent trips to memory a page.  K2 reads each page once for all the
-// rows of a walk (up to kMaxRows rows of the window; a wider window takes
-// several walks, each a block of its own), as the Pallas body loads a page
-// once and folds every row from it.  The walk's pages stream through a
-// ring of tiles in shared memory filled by cp.async: every thread issues
-// all its copies of a tile at once, the ring's stages - 1 tiles ahead of
-// the fold, so a page costs a few tile waits instead of its dependent
-// trips.  Each row's arithmetic is K1's fold_page at length len + j,
-// operation for operation, so K2's row j is K1's bit for bit.  The launch
-// plan (rows per walk, tile rows, stages; ops/paged_attention.py::
-// chunk_plan) fits a walk's scores and the ring into shared memory.  On
-// the card K2 is bound by the fold's latency on its few blocks, not by its
-// bytes (PERF.md).
+// The walk.  A block reads each page of its split once for all the rows
+// of a walk (up to kMaxRows rows of the window; a wider window takes
+// several walks, each a block of its own; K1 walks one row), as the Pallas
+// body loads a page once and folds every row from it.  The pages stream
+// through a ring of tiles in shared memory filled by cp.async: every
+// thread issues all its copies of a tile at once, the ring's stages - 1
+// tiles ahead of the fold, so a page costs a few tile waits, not a trip to
+// memory per row group.  Copies are 16 bytes a thread with neighbouring
+// threads on neighbouring addresses: a group of HD * sizeof(T) / 16
+// threads copies one whole row, and the block kRowGroups consecutive rows.
+// The launch plans (ops/paged_attention.py: split_plan gives the pages of
+// a split and K1's ring; chunk_plan K2's rows per walk and ring) fit a
+// walk's scores and the ring into shared memory.
+//
+// Bit equality.  Row j of a walk folds the pages of each split with the
+// same operations, in the same order, as a one-row walk at length len + j
+// (fold_page_rows), and its split's state is written in the same order;
+// the merge reads row j's live splits from len + j, so K1 at len + j and
+// K2's row j merge the same parts.  The split plan depends on the page
+// geometry only, never on b, L, the table's width or the lengths, so a
+// slot's output does not depend on its batch either.
 //
 // Head widths.  The reference's blocks span any hd; these kernels take every
 // multiple of 8 up to 128.  The serving path's widths, 64 and 128, have
@@ -50,24 +61,25 @@
 // lane (its rows, hd bytes apart, are only 8-byte aligned when hd is an odd
 // multiple of 8).
 //
-// Pages.  A page's scores sit in shared memory, one f32 per page row (K2:
-// per row of the walk), so the page max comes first, as in the Pallas
-// body; any page whose scores (beside K2's smallest ring) fit the card's
-// opt-in shared memory is taken.
+// Pages.  A page's scores sit in shared memory, one f32 per page row and
+// row of the walk, so the page max comes first, as in the Pallas body; any
+// page whose scores (beside the smallest ring) fit the card's opt-in
+// shared memory is taken.  A page is never cut between splits.
 //
-// Layouts (as in the JAX package): q (b, h, hd) for K1, (b, L, h, hd) for
-// K2; pools (P, h, page, hd); table (b, table_width) int32; lengths (b,)
-// int32 (K2: rows attendable by query row 0, row j sees lengths + j); out
-// shaped as q, in q's dtype.  Scores, softmax state and the accumulator are
-// float32.
+// Layouts (as in the JAX package): q and out (b, rows, h, hd) (K1: rows =
+// 1, i.e. q (b, h, hd)); pools (P, h, page, hd); table (b, table_width)
+// int32; lengths (b,) int32 (K2: rows attendable by query row 0, row j
+// sees lengths + j); out in q's dtype.  The workspace is (b, rows, h,
+// n_splits, hd + 2) float32: each split's accumulator, then m, then l.
+// Scores, softmax state and the accumulator are float32.
 //
 // K1q and K2q replace the same two Pallas bodies' quant=True branch: the
 // pools hold int8 and two (P, h) float32 arrays hold one scale per page per
 // head.  They are the same kernels instantiated with an int8 pool type TP:
-// each load brings 16 (padded: 8) int8 values of a row, which are cast to
+// each copy brings 16 (padded: 8) int8 values of a row, which are cast to
 // f32 and multiplied by the page's per-head scale (loaded once per page)
 // before the dot with q or the weighting by p -- the Pallas order; the
-// scale is never folded into q or the score.  q (bf16 or f32) is loaded to
+// scale is never folded into q or the score.  q (bf16 or f32) is read to
 // the pool's layout, one to four 16-byte loads a lane.  The bound halves
 // with the bytes: about 1 byte per live K/V element plus 8 bytes of scales
 // per live page and head.  The full-width instantiations (TP == T) never
@@ -158,32 +170,6 @@ __device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
   *p = __float2bfloat16(v);  // round to nearest even, as a JAX cast
 }
 
-__device__ __forceinline__ float block_max(float v, float* red) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
-  __syncthreads();
-  float r = red[0];
-#pragma unroll
-  for (int w = 1; w < kWarps; ++w) r = fmaxf(r, red[w]);
-  __syncthreads();
-  return r;
-}
-
-__device__ __forceinline__ float block_sum(float v, float* red) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1)
-    v += __shfl_xor_sync(0xffffffffu, v, o);
-  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
-  __syncthreads();
-  float r = red[0];
-#pragma unroll
-  for (int w = 1; w < kWarps; ++w) r += red[w];
-  __syncthreads();
-  return r;
-}
-
 // Thread layout over one (page, HD) block of a pool of element type TP:
 // kLanes threads per row, each holding kVec consecutive elements of the
 // row; kRowGroups rows in flight.  Thread t is lane t % kLanes of row group
@@ -217,126 +203,12 @@ struct FoldState {
   float acc[VEC];
 };
 
-// Fold one live page into the state, in the order of the Pallas kernel:
-// page max, shift, p = exp(s - shift), correction, l, acc.  kpage/vpage
-// point at this head's (page, hd) block; n_rows (>= 1) rows lie below the
-// slot's length — the rest of the page is masked, which leaves max and
-// sums as if its scores were -inf.  s_smem holds one float per page row.
-// k_scale/v_scale dequantize an int8 page (unused at full width); q is
-// zero in an idle lane.  K1's fold; K2's fold_page_rows repeats its
-// operations in its order for each row of a walk, which is what keeps
-// K2's row j bit-identical to K1 at length + j.  The multiply-adds are
-// spelled as explicit round-to-nearest intrinsics, which the compiler
-// never contracts or reorders, so the two kernels cannot round
-// differently.
-template <typename TP, int HD, bool kPadded>
-__device__ __forceinline__ void fold_page(
-    const TP* __restrict__ kpage, const TP* __restrict__ vpage,
-    float k_scale, float v_scale, int n_rows, int hd,
-    const float (&q)[Layout<TP, HD, kPadded>::kVec], float sm_scale,
-    float* s_smem, float* red,
-    FoldState<Layout<TP, HD, kPadded>::kVec>& st) {
-  using L = Layout<TP, HD, kPadded>;
-  const int lane = threadIdx.x % L::kLanes;
-  const int group = threadIdx.x / L::kLanes;
-  const int row = L::row(hd);
-  const bool active = L::active(lane, hd);
-  // scores: each row group dots its rows with q across its kLanes lanes
-  for (int r0 = 0; r0 < n_rows; r0 += L::kRowGroups) {
-    const int r = r0 + group;
-    float part = 0.f;
-    if (r < n_rows && active) {
-      float kf[L::kVec];
-      load_pool(kpage + (size_t)r * row + lane * L::kVec, k_scale, kf);
-#pragma unroll
-      for (int i = 0; i < L::kVec; ++i) part = __fmaf_rn(q[i], kf[i], part);
-    }
-#pragma unroll
-    for (int o = L::kLanes / 2; o > 0; o >>= 1)
-      part = __fadd_rn(part, __shfl_xor_sync(0xffffffffu, part, o));
-    if (lane == 0 && r < n_rows) s_smem[r] = __fmul_rn(part, sm_scale);
-  }
-  __syncthreads();
-  float mx = -INFINITY;
-  for (int r = threadIdx.x; r < n_rows; r += kThreads)
-    mx = fmaxf(mx, s_smem[r]);
-  const float m_cur = block_max(mx, red);
-  const float m_new = fmaxf(st.m, m_cur);
-  const float shift = isfinite(m_new) ? m_new : 0.f;
-  const float correction =
-      isfinite(st.m) ? expf(__fsub_rn(st.m, shift)) : 0.f;
-  float psum = 0.f;
-  for (int r = threadIdx.x; r < n_rows; r += kThreads) {
-    const float p = expf(__fsub_rn(s_smem[r], shift));
-    s_smem[r] = p;
-    psum = __fadd_rn(psum, p);
-  }
-  // block_sum's barriers also publish the p values written above
-  st.l = __fmaf_rn(correction, st.l, block_sum(psum, red));
-#pragma unroll
-  for (int i = 0; i < L::kVec; ++i) st.acc[i] = __fmul_rn(st.acc[i], correction);
-  if (active) {
-    for (int r = group; r < n_rows; r += L::kRowGroups) {
-      const float p = s_smem[r];
-      float vf[L::kVec];
-      load_pool(vpage + (size_t)r * row + lane * L::kVec, v_scale, vf);
-#pragma unroll
-      for (int i = 0; i < L::kVec; ++i)
-        st.acc[i] = __fmaf_rn(p, vf[i], st.acc[i]);
-    }
-  }
-  st.m = m_new;
-  __syncthreads();  // s_smem is rewritten by the next page
-}
-
 template <int VEC>
 __device__ __forceinline__ void init_state(FoldState<VEC>& st) {
   st.m = -INFINITY;
   st.l = 0.f;
 #pragma unroll
   for (int i = 0; i < VEC; ++i) st.acc[i] = 0.f;
-}
-
-// This lane's kVec columns of a q row (at its first element) as float32,
-// zero in an idle lane.
-template <typename T, typename TP, int HD, bool kPadded>
-__device__ __forceinline__ void load_q(
-    const T* __restrict__ q_row, int lane, int hd,
-    float (&qf)[Layout<TP, HD, kPadded>::kVec]) {
-  using L = Layout<TP, HD, kPadded>;
-  if (L::active(lane, hd)) {
-    load_floats(q_row + lane * L::kVec, qf);
-  } else {
-#pragma unroll
-    for (int i = 0; i < L::kVec; ++i) qf[i] = 0.f;
-  }
-}
-
-// Add up the row groups' partial accumulators of one query row, divide and
-// store its hd outputs at o (in q's type T); a row that attended nothing
-// has l == 0 and writes zeros.  accs holds kRowGroups * HD floats of shared
-// memory; the leading barrier lets a caller finish several rows through
-// one buffer.
-template <typename T, typename TP, int HD, bool kPadded>
-__device__ __forceinline__ void finish_row(
-    const FoldState<Layout<TP, HD, kPadded>::kVec>& st, int hd, float* accs,
-    T* o) {
-  using L = Layout<TP, HD, kPadded>;
-  const int lane = threadIdx.x % L::kLanes;
-  const int group = threadIdx.x / L::kLanes;
-  const int width = L::row(hd);
-  __syncthreads();
-#pragma unroll
-  for (int i = 0; i < L::kVec; ++i)
-    accs[group * HD + lane * L::kVec + i] = st.acc[i];
-  __syncthreads();
-  const float denom = st.l == 0.f ? 1.f : st.l;
-  for (int d = threadIdx.x; d < width; d += kThreads) {
-    float a = 0.f;
-#pragma unroll
-    for (int g = 0; g < L::kRowGroups; ++g) a = __fadd_rn(a, accs[g * HD + d]);
-    store(o + d, __fdiv_rn(a, denom));
-  }
 }
 
 // The per-head scales of one physical page: read once per page, by every
@@ -353,50 +225,10 @@ __device__ __forceinline__ void page_scales(const float* __restrict__ ks,
   }
 }
 
-// grid (h, b); one block per (slot, head).  T is q's and out's type, TP the
-// pool's (T at full width, int8 for K1q).
-template <typename T, typename TP, int HD, bool kPadded>
-__global__ void __launch_bounds__(kThreads) paged_decode_kernel(
-    const T* __restrict__ q, const TP* __restrict__ k_pool,
-    const TP* __restrict__ v_pool, const float* __restrict__ k_scales,
-    const float* __restrict__ v_scales, const int* __restrict__ table,
-    const int* __restrict__ lengths, T* __restrict__ out, int heads, int hd,
-    int page, int table_width, float sm_scale) {
-  using L = Layout<TP, HD, kPadded>;
-  extern __shared__ float smem[];
-  float* red = smem;            // kWarps floats (padded to 32)
-  float* s_smem = smem + 32;    // page floats
-  const int h = blockIdx.x;
-  const int b = blockIdx.y;
-  const int lane = threadIdx.x % L::kLanes;
-  const int row = L::row(hd);
-
-  float qf[L::kVec];
-  load_q<T, TP, HD, kPadded>(q + ((size_t)b * heads + h) * row, lane, hd, qf);
-  FoldState<L::kVec> st;
-  init_state(st);
-
-  const int len = lengths[b];
-  // pages past the table's width are never visited, as on the TPU grid
-  const int n_live = len > 0 ? min((len + page - 1) / page, table_width) : 0;
-  for (int p = 0; p < n_live; ++p) {
-    const int phys = table[(size_t)b * table_width + p];
-    const size_t base = (((size_t)phys * heads + h) * page) * row;
-    float ks, vs;
-    page_scales<TP>(k_scales, v_scales, (size_t)phys * heads + h, ks, vs);
-    fold_page<TP, HD, kPadded>(k_pool + base, v_pool + base, ks, vs,
-                               min(page, len - p * page), hd, qf, sm_scale,
-                               s_smem, red, st);
-  }
-  // s_smem is free once the walk is done: it holds the row groups' sums
-  finish_row<T, TP, HD, kPadded>(st, hd, s_smem,
-                                 out + ((size_t)b * heads + h) * row);
-}
-
-// Query rows K2 folds in one walk of the pages, at most: their
-// online-softmax states sit in registers.  The launch plan's rows per walk
-// (chunk_plan in ops/paged_attention.py) may be fewer where a page's
-// scores for eight rows do not fit beside the ring.
+// Query rows one walk folds, at most: their online-softmax states sit in
+// registers.  The launch plan's rows per walk (chunk_plan in
+// ops/paged_attention.py) may be fewer where a page's scores for eight
+// rows do not fit beside the ring.
 constexpr int kMaxRows = 8;
 // Rows of a walk an instantiation takes: kMaxRows, or half that where a lane
 // holds 16 columns (a full-width int8 pool): eight rows' states of 16
@@ -411,6 +243,9 @@ constexpr int kRedFloats = kMaxRows * kWarps;
 constexpr int kMaxStages = 4;
 // the shared memory a block may opt in to on an H100
 constexpr size_t kOptinSmemBytes = 232448;
+// K1's one-row walk asks ptxas for registers that let this many blocks
+// share an SM (65,536 / (128 x 4) = 128 a thread)
+constexpr int kDecodeBlocksPerSm = 4;
 
 // Wait until at most n (< kMaxStages - 1) of this thread's copy groups
 // are in flight: wait_group takes its count as an immediate.
@@ -423,20 +258,20 @@ __device__ __forceinline__ void cp_async_wait_upto(int n) {
     hopper::cp_async_wait<2>();
 }
 
-// The ring through which a walk's pages reach the fold: `stages` slots of
+// The ring through which a split's pages reach the fold: `stages` slots of
 // tile_rows rows (HD pool elements apart) in shared memory.  A walk is one
-// sequence of tiles: for each live page, its K tiles up to the widest
-// row's count, then its V tiles; the page max comes before any exp, so
-// the next page's K tiles are in flight while this page's V is folded.
+// sequence of tiles: for each live page of the split, its K tiles up to the
+// widest row's count, then its V tiles; the page max comes before any exp,
+// so the next page's K tiles are in flight while this page's V is folded.
 // issue() copies the next tile of the sequence into the next slot, every
 // lane issuing all its copies at once (16 bytes a copy, 8 for a padded
-// int8 row), and commits them as one group (an empty one past the walk's
+// int8 row), and commits them as one group (an empty one past the split's
 // end); next() waits for the oldest tile, issues the one stages - 1 tiles
 // ahead into the slot the block has just finished with, and returns the
 // oldest.  A thread copies exactly the vectors it later reads (row group
 // g's rows, lane l's columns); the barrier in next() frees the slot for
-// the next copy.  Rows past the widest row's count and pages past its
-// last are never copied.
+// the next copy.  Rows past the widest row's count and pages past the
+// split's last are never copied.
 template <typename TP, int HD, bool kPadded>
 struct PageRing {
   using L = Layout<TP, HD, kPadded>;
@@ -446,23 +281,27 @@ struct PageRing {
   size_t page_elems;    // elements of one physical page (all heads)
   size_t head_elems;    // offset of this head's block in a page
   TP* slots;
-  int row, page, widest, n_live, tile_rows, stages;
+  int row, page, widest, tile_rows, stages;
   // the issue cursor: page, first row of the tile, K or V, the page's
-  // physical index and the next page's, read one page early
-  int p, off, phys, phys_next;
+  // physical index and the next page's, read one page early; end: one
+  // past the split's last live page
+  int p, off, phys, phys_next, end;
   bool v;
   int put, take;  // slot of the next issue, of the next tile to fold
 
-  __device__ __forceinline__ void start() {
-    p = off = put = take = 0;
+  // Start the sequence at page `first` (< last) and stop before `last`.
+  __device__ __forceinline__ void start(int first, int last) {
+    p = first;
+    end = last;
+    off = put = take = 0;
     v = false;
-    phys = n_live > 0 ? table[0] : 0;
-    phys_next = n_live > 1 ? table[1] : 0;
+    phys = table[first];
+    phys_next = first + 1 < end ? table[first + 1] : 0;
     for (int s = 0; s + 1 < stages; ++s) issue();
   }
 
   __device__ __forceinline__ void issue() {
-    if (p < n_live) {
+    if (p < end) {
       const int lane = threadIdx.x % L::kLanes;
       const int group = threadIdx.x / L::kLanes;
       const int count = min(page, widest - p * page);
@@ -485,7 +324,7 @@ struct PageRing {
         if (v) {
           ++p;
           phys = phys_next;
-          if (p + 1 < n_live) phys_next = table[p + 1];
+          if (p + 1 < end) phys_next = table[p + 1];
         }
         v = !v;
       }
@@ -505,16 +344,16 @@ struct PageRing {
 };
 
 // The xor trees of M rows at once.  v holds this lane's value of every
-// row; lanes O, O / 2, ..., 1 apart combine them with op.  Where fold_page
-// runs one shfl_xor tree per row (log2 of the lane count shuffles each),
-// lanes here trade halves of their rows: at each level a lane keeps half,
-// sends the other half to its partner and combines what it gets, until it
-// holds one row (then the levels left are a plain tree).  Every value a
-// lane holds is the one the row's own tree holds there -- op(own,
-// partner's), the two operands of fold_page's tree in either order, and op
-// commutes -- so each row ends with its tree's bits.  Called with N == M;
-// on return v[0 .. N') hold rows base .. base + N' - 1, N' the rows left
-// (M / the lanes, at least 1); base starts at 0.
+// row; lanes O, O / 2, ..., 1 apart combine them with op.  Where a one-row
+// walk runs one shfl_xor tree (log2 of the lane count shuffles), lanes
+// here trade halves of their rows: at each level a lane keeps half, sends
+// the other half to its partner and combines what it gets, until it holds
+// one row (then the levels left are a plain tree).  Every value a lane
+// holds is the one the row's own tree holds there -- op(own, partner's),
+// the two operands of the one-row tree in either order, and op commutes --
+// so each row ends with its tree's bits.  Called with N == M; on return
+// v[0 .. N') hold rows base .. base + N' - 1, N' the rows left (M / the
+// lanes, at least 1); base starts at 0.
 template <int N, int O, int M, typename Op>
 __device__ __forceinline__ void butterfly(float (&v)[M], int lane, int& base,
                                           Op op) {
@@ -547,10 +386,11 @@ struct Max {
   }
 };
 
-// Each of R rows' value of a block reduction, in block_max's / block_sum's
-// order: the warp's tree (as butterfly), red[j * kWarps + warp], a
-// barrier, then red over warps 0..3 in order.  The caller puts a barrier
-// between two uses of red.
+// Each of R rows' value of a block reduction: the warp's tree (as
+// butterfly), red[j * kWarps + warp], a barrier, then red over warps 0..3
+// in order -- the same order for every R, so a row's value does not depend
+// on the rows beside it.  The caller puts a barrier between two uses of
+// red.
 template <int R, typename Op>
 __device__ __forceinline__ void block_rows(float (&v)[R], float* red, Op op) {
   const int lane = threadIdx.x & 31;
@@ -569,24 +409,28 @@ __device__ __forceinline__ void block_rows(float (&v)[R], float* red, Op op) {
 
 // Fold one live page into the states of the R rows of a walk (R a power of
 // two, n <= R of them real), reading each K and V row of the page once for
-// all of them.  Row j reaches the page rows below rel0 + j (rel0: row 0's
-// limit less the page's first column); a row with rel0 + j <= 0 does not
-// reach the page and keeps its state.  n_max (>= 1) is the widest row's
-// count in the page.  Row j's arithmetic is fold_page's at count
-// min(page, rel0 + j): the same intrinsics in the same order on the same
-// values (its q.k chain and shfl_xor tree, then block_max's and
-// block_sum's orders, one set of barriers shared by the rows, then its p.v
-// multiply-adds in fold_page's row order), so K2's row j is K1 at lengths
-// + j bit for bit.  The rows' chains run side by side without branches
-// around them: a score past a row's count, or of a row past the walk's n
-// (which stands in with row n - 1's q and scores), is computed with the
-// others and never read; an idle lane's q and K read in-bounds columns and
-// multiply zeros, as fold_page's idle lanes add zeros.  The weighting by V
-// covers the rows below every real row's count with no test, and tests
-// each row only past row 0's count (the window's last few rows).  The
-// page's K then V tiles come from the ring; q rows are read through L1
-// from q (row j at q_rows + j * q_stride).  s_smem holds n rows of page
-// floats, row j at j * page; red holds kRedFloats.
+// all of them, in the order of the Pallas kernel: page max, shift, p =
+// exp(s - shift), correction, l, acc.  Row j reaches the page rows below
+// rel0 + j (rel0: row 0's limit less the page's first column); a row with
+// rel0 + j <= 0 does not reach the page and keeps its state.  n_max (>= 1)
+// is the widest row's count in the page.  Row j's arithmetic is that of a
+// one-row walk (R = 1, K1) at count min(page, rel0 + j): the same
+// intrinsics in the same order on the same values (its q.k chain and
+// shfl_xor tree, then block_rows' max and sum orders, one set of barriers
+// shared by the rows, then its p.v multiply-adds in row order, each
+// thread's rows group, group + kRowGroups, ... whatever the tile size), so
+// K2's row j is K1 at lengths + j bit for bit.  The multiply-adds are
+// spelled as explicit round-to-nearest intrinsics, which the compiler
+// never contracts or reorders.  The rows' chains run side by side without
+// branches around them: a score past a row's count, or of a row past the
+// walk's n (which stands in with row n - 1's q and scores), is computed
+// with the others and never read; an idle lane's q and K read in-bounds
+// columns and multiply zeros.  The weighting by V covers the rows below
+// every real row's count with no test, and tests each row only past row
+// 0's count (the window's last few rows).  The page's K then V tiles come
+// from the ring; q rows are read through L1 from q (row j at q_rows + j *
+// q_stride).  s_smem holds n rows of page floats, row j at j * page; red
+// holds kRedFloats.
 template <typename T, typename TP, int HD, bool kPadded, int R>
 __device__ __forceinline__ void fold_page_rows(
     PageRing<TP, HD, kPadded>& ring, float k_scale, float v_scale,
@@ -645,7 +489,7 @@ __device__ __forceinline__ void fold_page_rows(
     }
   }
   __syncthreads();
-  // each row's page max (block_max's order)
+  // each row's page max
   float v[R];
 #pragma unroll
   for (int j = 0; j < R; ++j) v[j] = -INFINITY;
@@ -662,14 +506,14 @@ __device__ __forceinline__ void fold_page_rows(
   for (int j = 0; j < R; ++j) {
     const float m_new = fmaxf(st[j].m, v[j]);
     shift[j] = isfinite(m_new) ? m_new : 0.f;
-    // fold_page's value, with no branch around the exp
+    // the Pallas guard, with no branch around the exp
     const float e = expf(__fsub_rn(st[j].m, shift[j]));
     correction[j] = isfinite(st[j].m) ? e : 0.f;
     if (count[j] > 0) st[j].m = m_new;
   }
   __syncthreads();  // red is rewritten below
-  // p = exp(s - shift) in place, and each row's sum (block_sum's order;
-  // past a row's count, adding +0 to a sum that is >= +0 changes nothing)
+  // p = exp(s - shift) in place, and each row's sum (past a row's count,
+  // adding +0 to a sum that is >= +0 changes nothing)
 #pragma unroll
   for (int j = 0; j < R; ++j) v[j] = 0.f;
   for (int r = threadIdx.x; r < n_max; r += kThreads) {
@@ -694,7 +538,7 @@ __device__ __forceinline__ void fold_page_rows(
   }
   // weighting by V: each V row is loaded once and added into every row
   // that reaches it.  Rows below count[0] reach every real row; a row past
-  // n adds into a state that is never finished.
+  // n adds into a state that is never written.
   const int all_rows = count[0];
   for (int off = 0; off < n_max; off += tile_rows) {
     const TP* tile = ring.next();
@@ -727,12 +571,12 @@ __device__ __forceinline__ void fold_page_rows(
       }
     }
   }
-  // the next page's first tile (or finish_row) passes a barrier before
+  // the next page's first tile (or write_part) passes a barrier before
   // s_smem and red are rewritten
 }
 
-// The floats of a walk's scores: rows_per_walk pages, at least finish_row's
-// row sums, rounded up to 16 bytes (the ring follows them).
+// The floats of a walk's scores: rows_per_walk pages, at least
+// write_part's row sums, rounded up to 16 bytes (the ring follows them).
 template <typename TP, int HD, bool kPadded>
 __host__ __device__ __forceinline__ size_t score_floats(int page,
                                                         int rows_per_walk) {
@@ -742,28 +586,55 @@ __host__ __device__ __forceinline__ size_t score_floats(int page,
   return n + (4 - n % 4) % 4;
 }
 
-// One walk: the n rows j0 .. j0 + n - 1 (n <= R) stream the pages of their
-// widest row (limit len + j0 + n - 1) once through the ring, fold them all
-// (fold_page_rows) and write their outputs.  Row j sees the pages, row
-// counts and fold K1 would see at length len + j.
+// Write one row's split state to its workspace record `part` (hd + 2
+// floats): the row groups' partial accumulators added up in group order,
+// undivided, then m, then l.  accs holds kRowGroups * HD floats of shared
+// memory; the leading barrier lets a walk write several rows through one
+// buffer.
+template <typename TP, int HD, bool kPadded>
+__device__ __forceinline__ void write_part(
+    const FoldState<Layout<TP, HD, kPadded>::kVec>& st, int hd, float* accs,
+    float* __restrict__ part) {
+  using L = Layout<TP, HD, kPadded>;
+  const int lane = threadIdx.x % L::kLanes;
+  const int group = threadIdx.x / L::kLanes;
+  __syncthreads();
+#pragma unroll
+  for (int i = 0; i < L::kVec; ++i)
+    accs[group * HD + lane * L::kVec + i] = st.acc[i];
+  __syncthreads();
+  for (int d = threadIdx.x; d < hd; d += kThreads) {
+    float a = 0.f;
+#pragma unroll
+    for (int g = 0; g < L::kRowGroups; ++g) a = __fadd_rn(a, accs[g * HD + d]);
+    part[d] = a;
+  }
+  if (threadIdx.x == 0) {
+    part[hd] = st.m;
+    part[hd + 1] = st.l;
+  }
+}
+
+// One walk of one split: the n rows j0 .. j0 + n - 1 (n <= R) stream the
+// split's pages [first, last) -- those below their widest row's limit,
+// len + j0 + n - 1 -- once through the ring, fold them all
+// (fold_page_rows) and write their split states.  Row j sees the pages,
+// row counts and fold K1 would see at length len + j.
 template <typename T, typename TP, int HD, bool kPadded, int R>
 __device__ __forceinline__ void walk_rows(
     PageRing<TP, HD, kPadded>& ring, const T* __restrict__ q,
     const float* __restrict__ k_scales, const float* __restrict__ v_scales,
-    T* __restrict__ out, int b, int h, int j0, int n, int len, int rows,
-    int heads, int hd, int page, int table_width, float sm_scale,
-    float* s_smem, float* red) {
+    float* __restrict__ parts, int b, int h, int j0, int n, int len,
+    int rows, int heads, int hd, int page, int first, int last, int split,
+    int n_splits, float sm_scale, float* s_smem, float* red) {
   using L = Layout<TP, HD, kPadded>;
   const int row = L::row(hd);
   FoldState<L::kVec> st[R];
 #pragma unroll
   for (int j = 0; j < R; ++j) init_state(st[j]);
   const T* q_rows = q + (((size_t)b * rows + j0) * heads + h) * row;
-  ring.widest = len + j0 + n - 1;
-  ring.n_live = ring.widest > 0
-      ? min((ring.widest + page - 1) / page, table_width) : 0;
-  ring.start();
-  for (int p = 0; p < ring.n_live; ++p) {
+  ring.start(first, last);
+  for (int p = first; p < last; ++p) {
     float ks, vs;
     page_scales<TP>(k_scales, v_scales, (size_t)ring.table[p] * heads + h,
                     ks, vs);
@@ -774,36 +645,46 @@ __device__ __forceinline__ void walk_rows(
 #pragma unroll
   for (int j = 0; j < R; ++j)
     if (j < n)
-      finish_row<T, TP, HD, kPadded>(
+      write_part<TP, HD, kPadded>(
           st[j], hd, s_smem,
-          out + (((size_t)b * rows + j0 + j) * heads + h) * row);
+          parts + ((((size_t)b * rows + j0 + j) * heads + h) * n_splits +
+                   split) * (hd + 2));
 }
 
-// grid (h, b, walks); one block per (slot, head, walk).  The window's rows
-// are walked in groups of rows_per_walk, each group by a block of its own
-// (see walk_rows): the walks of a wide window run side by side, and each
-// row's arithmetic is the same whichever block folds it.  A walk of n rows
-// runs the instantiation for the least power of two >= n, so the rows it
-// folds and reduces side by side are n or fewer than twice n.  Launch
-// bounds of one block an SM let ptxas give a thread up to 255 registers:
-// under its default occupancy target the float32 instantiations were held
-// to 168 and spilled.
-template <typename T, typename TP, int HD, bool kPadded>
-__global__ void __launch_bounds__(kThreads, 1) paged_chunk_kernel(
+// The block of grid (h, b, walks x n_splits) at blockIdx: (slot, head,
+// walk, split), z = walk * n_splits + split.  The window's rows are walked
+// in groups of rows_per_walk, each group by blocks of its own (see
+// walk_rows), one block per split of pages_per_split pages; a split with
+// no live page of its walk exits before any load.  A walk of n rows runs
+// the instantiation for the least power of two >= n (at most kRows), so
+// the rows it folds and reduces side by side are n or fewer than twice n.
+template <typename T, typename TP, int HD, bool kPadded, int kRows>
+__device__ __forceinline__ void walk_block(
     const T* __restrict__ q, const TP* __restrict__ k_pool,
     const TP* __restrict__ v_pool, const float* __restrict__ k_scales,
     const float* __restrict__ v_scales, const int* __restrict__ table,
-    const int* __restrict__ lengths, T* __restrict__ out, int rows,
+    const int* __restrict__ lengths, float* __restrict__ parts, int rows,
     int heads, int hd, int page, int table_width, int rows_per_walk,
-    int tile_rows, int stages, float sm_scale) {
+    int tile_rows, int stages, int pages_per_split, int n_splits,
+    float sm_scale) {
   using L = Layout<TP, HD, kPadded>;
   extern __shared__ float smem[];
   float* red = smem;                   // kRedFloats
   float* s_smem = smem + kRedFloats;   // a walk's scores, then the row sums
   const int h = blockIdx.x;
   const int b = blockIdx.y;
-  const int row = L::row(hd);
+  const int split = blockIdx.z % n_splits;
+  const int j0 = blockIdx.z / n_splits * rows_per_walk;
+  const int n = min(rows_per_walk, rows - j0);
   const int len = lengths[b];
+  // pages past the table's width are never visited, as on the TPU grid
+  const int widest = len + j0 + n - 1;
+  const int n_live = widest > 0
+      ? min((widest + page - 1) / page, table_width) : 0;
+  const int first = split * pages_per_split;
+  if (first >= n_live) return;
+  const int last = min(first + pages_per_split, n_live);
+  const int row = L::row(hd);
 
   PageRing<TP, HD, kPadded> ring;
   ring.k_pool = k_pool;
@@ -815,45 +696,151 @@ __global__ void __launch_bounds__(kThreads, 1) paged_chunk_kernel(
       s_smem + score_floats<TP, HD, kPadded>(page, rows_per_walk));
   ring.row = row;
   ring.page = page;
+  ring.widest = widest;
   ring.tile_rows = tile_rows;
   ring.stages = stages;
 
-  const int j0 = blockIdx.z * rows_per_walk;
-  const int n = min(rows_per_walk, rows - j0);
-  if constexpr (kWalkRows<L> == 8) {
-    if (n > 4) {
-      walk_rows<T, TP, HD, kPadded, 8>(ring, q, k_scales, v_scales, out, b, h,
-                                       j0, n, len, rows, heads, hd, page,
-                                       table_width, sm_scale, s_smem, red);
-      return;
+#define KG_WALK(R)                                                          \
+  walk_rows<T, TP, HD, kPadded, R>(ring, q, k_scales, v_scales, parts, b,   \
+                                   h, j0, n, len, rows, heads, hd, page,    \
+                                   first, last, split, n_splits, sm_scale,  \
+                                   s_smem, red)
+  if constexpr (kRows >= 8) {
+    if (n > 4) { KG_WALK(8); return; }
+  }
+  if constexpr (kRows >= 4) {
+    if (n > 2) { KG_WALK(4); return; }
+  }
+  if constexpr (kRows >= 2) {
+    if (n > 1) { KG_WALK(2); return; }
+  }
+  KG_WALK(1);
+#undef KG_WALK
+}
+
+// K2's walk: windows of any rows, up to kWalkRows a walk.  Launch bounds
+// of one block an SM let ptxas give a thread up to 255 registers: under
+// its default occupancy target the float32 instantiations were held to
+// 168 and spilled.
+template <typename T, typename TP, int HD, bool kPadded>
+__global__ void __launch_bounds__(kThreads, 1) paged_chunk_walk_kernel(
+    const T* __restrict__ q, const TP* __restrict__ k_pool,
+    const TP* __restrict__ v_pool, const float* __restrict__ k_scales,
+    const float* __restrict__ v_scales, const int* __restrict__ table,
+    const int* __restrict__ lengths, float* __restrict__ parts, int rows,
+    int heads, int hd, int page, int table_width, int rows_per_walk,
+    int tile_rows, int stages, int pages_per_split, int n_splits,
+    float sm_scale) {
+  constexpr int kRows = kWalkRows<Layout<TP, HD, kPadded> >;
+  walk_block<T, TP, HD, kPadded, kRows>(
+      q, k_pool, v_pool, k_scales, v_scales, table, lengths, parts, rows,
+      heads, hd, page, table_width, rows_per_walk, tile_rows, stages,
+      pages_per_split, n_splits, sm_scale);
+}
+
+// K1's walk (and any walk of one row): only the one-row instantiation, so
+// its few registers let kDecodeBlocksPerSm blocks share an SM.
+template <typename T, typename TP, int HD, bool kPadded>
+__global__ void __launch_bounds__(kThreads, kDecodeBlocksPerSm)
+    paged_decode_walk_kernel(
+        const T* __restrict__ q, const TP* __restrict__ k_pool,
+        const TP* __restrict__ v_pool, const float* __restrict__ k_scales,
+        const float* __restrict__ v_scales, const int* __restrict__ table,
+        const int* __restrict__ lengths, float* __restrict__ parts, int rows,
+        int heads, int hd, int page, int table_width, int rows_per_walk,
+        int tile_rows, int stages, int pages_per_split, int n_splits,
+        float sm_scale) {
+  walk_block<T, TP, HD, kPadded, 1>(
+      q, k_pool, v_pool, k_scales, v_scales, table, lengths, parts, rows,
+      heads, hd, page, table_width, rows_per_walk, tile_rows, stages,
+      pages_per_split, n_splits, sm_scale);
+}
+
+// The merge: one warp per (slot, row, head), item (b * rows + j) * heads +
+// h, kWarps a block.  Row j's live splits are those holding its live pages
+// (ceil(min(ceil((len + j) / page), table_width) / pages_per_split)), read
+// from lengths here, so K1 at len + j and K2's row j merge the same parts.
+// They merge in split order: m = max m_s, c_s = exp(m_s - m), l = sum c_s
+// l_s, acc = sum c_s acc_s, out = acc / (l == 0 ? 1 : l) in q's type.  A
+// split that folded nothing (l_s == 0, m_s = -inf) is skipped, never added
+// as +0; a row with no live split writes zeros.  A row whose live pages lie
+// in one split has c = exp(0) = 1: its output is that split's fold
+// divided once, as an unsplit walk would give.  The warp's work is a few
+// trips to memory, not one a split: lane t holds part s0 + t's m, l and
+// c (for 32 parts at a time; the max is exact in any order), and columns
+// t, t + 32, ... of the accumulators, whose loads go out kMergeBatch parts
+// at a time -- the first batch before the max is known, since it needs
+// only the count of parts -- and are added in split order.
+constexpr int kMergeBatch = 16;
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads) paged_merge_kernel(
+    const float* __restrict__ parts, const int* __restrict__ lengths,
+    T* __restrict__ out, int b, int rows, int heads, int hd, int page,
+    int table_width, int pages_per_split, int n_splits) {
+  constexpr int kCols = kMaxHeadDim / 32;
+  const int item = blockIdx.x * kWarps + threadIdx.x / 32;
+  if (item >= b * rows * heads) return;
+  const int lane = threadIdx.x & 31;
+  const int limit = lengths[item / (rows * heads)] + item / heads % rows;
+  const int n_live = limit > 0
+      ? min((limit + page - 1) / page, table_width) : 0;
+  const int n_parts = (n_live + pages_per_split - 1) / pages_per_split;
+  const int stride = hd + 2;
+  const float* part = parts + (size_t)item * n_splits * stride;
+  float a[kMergeBatch][kCols];
+  auto load_batch = [&](int s0) {
+#pragma unroll
+    for (int u = 0; u < kMergeBatch; ++u)
+#pragma unroll
+      for (int k = 0; k < kCols; ++k)
+        a[u][k] = s0 + u < n_parts && lane + 32 * k < hd
+            ? part[(size_t)(s0 + u) * stride + lane + 32 * k] : 0.f;
+  };
+  load_batch(0);
+  float m = -INFINITY;
+  for (int s0 = 0; s0 < n_parts; s0 += 32) {
+    const int s = s0 + lane;
+    const float l_s = s < n_parts ? part[(size_t)s * stride + hd + 1] : 0.f;
+    if (l_s != 0.f) m = fmaxf(m, part[(size_t)s * stride + hd]);
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1)
+    m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
+  float l = 0.f, acc[kCols];
+#pragma unroll
+  for (int k = 0; k < kCols; ++k) acc[k] = 0.f;
+  for (int s0 = 0; s0 < n_parts; s0 += 32) {
+    const int s = s0 + lane;
+    const float l_s = s < n_parts ? part[(size_t)s * stride + hd + 1] : 0.f;
+    const float c_s =
+        l_s != 0.f ? expf(__fsub_rn(part[(size_t)s * stride + hd], m)) : 0.f;
+    for (int u0 = 0; u0 < 32 && s0 + u0 < n_parts; u0 += kMergeBatch) {
+      if (s0 + u0 > 0) load_batch(s0 + u0);
+#pragma unroll
+      for (int u = 0; u < kMergeBatch; ++u) {
+        const float lu = __shfl_sync(0xffffffffu, l_s, u0 + u);
+        const float cu = __shfl_sync(0xffffffffu, c_s, u0 + u);
+        if (lu == 0.f) continue;  // past n_parts too: l_s is 0 there
+        l = __fmaf_rn(cu, lu, l);
+#pragma unroll
+        for (int k = 0; k < kCols; ++k) acc[k] = __fmaf_rn(cu, a[u][k], acc[k]);
+      }
     }
   }
-  if (n > 2)
-    walk_rows<T, TP, HD, kPadded, 4>(ring, q, k_scales, v_scales, out, b, h,
-                                     j0, n, len, rows, heads, hd, page,
-                                     table_width, sm_scale, s_smem, red);
-  else if (n > 1)
-    walk_rows<T, TP, HD, kPadded, 2>(ring, q, k_scales, v_scales, out, b, h,
-                                     j0, n, len, rows, heads, hd, page,
-                                     table_width, sm_scale, s_smem, red);
-  else
-    walk_rows<T, TP, HD, kPadded, 1>(ring, q, k_scales, v_scales, out, b, h,
-                                     j0, n, len, rows, heads, hd, page,
-                                     table_width, sm_scale, s_smem, red);
+  const float denom = l == 0.f ? 1.f : l;
+  T* o = out + (size_t)item * hd;
+#pragma unroll
+  for (int k = 0; k < kCols; ++k)
+    if (lane + 32 * k < hd) store(o + lane + 32 * k, __fdiv_rn(acc[k], denom));
 }
 
+// A walk's shared memory under a launch plan (ops/paged_attention.py::
+// chunk_plan and split_plan compute the same): the reductions, a walk's
+// scores and the ring's tiles.
 template <typename TP, int HD, bool kPadded>
-size_t smem_floats(int page) {
-  using L = Layout<TP, HD, kPadded>;
-  return 32 + (page > L::kRowGroups * HD ? page : L::kRowGroups * HD);
-}
-
-// K2's shared memory under a launch plan (ops/paged_attention.py::
-// chunk_plan computes the same): the reductions, a walk's scores and the
-// ring's tiles.
-template <typename TP, int HD, bool kPadded>
-size_t chunk_smem_bytes(int page, int rows_per_walk, int tile_rows,
-                        int stages) {
+size_t walk_smem_bytes(int page, int rows_per_walk, int tile_rows,
+                       int stages) {
   return (kRedFloats + score_floats<TP, HD, kPadded>(page, rows_per_walk)) *
              sizeof(float) +
          (size_t)stages * tile_rows * HD * sizeof(TP);
@@ -866,48 +853,44 @@ cudaError_t allow_smem(Kernel kernel, size_t bytes) {
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
 }
 
+// The walk, then the merge, on `stream`.  A window of one row (K1) or a
+// plan of one row a walk runs the one-row kernel.
 template <typename T, typename TP, int HD, bool kPadded>
 cudaError_t launch(const void* q, const void* kp, const void* vp,
                    const float* ks, const float* vs, const int* table,
-                   const int* lengths, void* out, int b, int h, int hd,
-                   int page, int table_width, float sm_scale,
-                   cudaStream_t stream) {
-  const size_t smem = smem_floats<TP, HD, kPadded>(page) * sizeof(float);
-  auto kernel = paged_decode_kernel<T, TP, HD, kPadded>;
-  cudaError_t e = allow_smem(kernel, smem);
-  if (e != cudaSuccess) return e;
-  kernel<<<dim3(h, b), kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const TP*>(kp),
-      static_cast<const TP*>(vp), ks, vs, table, lengths,
-      static_cast<T*>(out), h, hd, page, table_width, sm_scale);
-  return cudaGetLastError();
-}
-
-template <typename T, typename TP, int HD, bool kPadded>
-cudaError_t launch_chunk(const void* q, const void* kp, const void* vp,
-                         const float* ks, const float* vs, const int* table,
-                         const int* lengths, void* out, int b, int rows,
-                         int h, int hd, int page, int table_width,
-                         int rows_per_walk, int tile_rows, int stages,
-                         float sm_scale, cudaStream_t stream) {
+                   const int* lengths, float* parts, void* out, int b,
+                   int rows, int h, int hd, int page, int table_width,
+                   int rows_per_walk, int tile_rows, int stages,
+                   int pages_per_split, float sm_scale, cudaStream_t stream) {
   using L = Layout<TP, HD, kPadded>;
   // a plan this instantiation cannot run is refused, never adjusted
   if (rows_per_walk < 1 || rows_per_walk > kWalkRows<L> || tile_rows < 1 ||
-      tile_rows % L::kRowGroups != 0 || stages < 2 || stages > kMaxStages)
+      tile_rows % L::kRowGroups != 0 || stages < 2 || stages > kMaxStages ||
+      pages_per_split < 1 || table_width < 0)
     return cudaErrorInvalidValue;
-  const size_t smem = chunk_smem_bytes<TP, HD, kPadded>(
+  const size_t smem = walk_smem_bytes<TP, HD, kPadded>(
       page, rows_per_walk, tile_rows, stages);
   if (smem > kOptinSmemBytes) return cudaErrorInvalidValue;
-  const int walks = (rows + rows_per_walk - 1) / rows_per_walk;
-  if (walks > 65535) return cudaErrorInvalidValue;
-  auto kernel = paged_chunk_kernel<T, TP, HD, kPadded>;
+  const long walks = (rows + rows_per_walk - 1) / rows_per_walk;
+  const long n_splits = table_width > 0
+      ? (table_width + pages_per_split - 1) / pages_per_split : 1;
+  if (walks * n_splits > 65535) return cudaErrorInvalidValue;
+  auto kernel = rows == 1 || rows_per_walk == 1
+      ? paged_decode_walk_kernel<T, TP, HD, kPadded>
+      : paged_chunk_walk_kernel<T, TP, HD, kPadded>;
   cudaError_t e = allow_smem(kernel, smem);
   if (e != cudaSuccess) return e;
-  kernel<<<dim3(h, b, walks), kThreads, smem, stream>>>(
+  kernel<<<dim3(h, b, walks * n_splits), kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const TP*>(kp),
-      static_cast<const TP*>(vp), ks, vs, table, lengths,
-      static_cast<T*>(out), rows, h, hd, page, table_width, rows_per_walk,
-      tile_rows, stages, sm_scale);
+      static_cast<const TP*>(vp), ks, vs, table, lengths, parts, rows, h, hd,
+      page, table_width, rows_per_walk, tile_rows, stages, pages_per_split,
+      (int)n_splits, sm_scale);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  const long blocks = ((long)b * rows * h + kWarps - 1) / kWarps;
+  paged_merge_kernel<T><<<blocks, kThreads, 0, stream>>>(
+      parts, lengths, static_cast<T*>(out), b, rows, h, hd, page,
+      table_width, pages_per_split, (int)n_splits);
   return cudaGetLastError();
 }
 
@@ -927,124 +910,51 @@ cudaError_t by_width(int hd, F&& f) {
   return f(Width<128, true>{});
 }
 
-bool bad_geometry(int b, int h, int hd, int page) {
+bool bad_geometry(int b, int rows, int h, int hd, int page) {
   return b <= 0 || h <= 0 || h > 65535 || b > 65535 || page <= 0 ||
-         hd < 8 || hd > kMaxHeadDim || hd % 8 != 0;
+         rows < 1 || hd < 8 || hd > kMaxHeadDim || hd % 8 != 0;
 }
 
 }  // namespace
 
 extern "C" {
 
-// dtype: 0 float32, 1 bfloat16 (q, pools and out alike); hd a multiple of
-// 8 up to 128.  Returns the launch's cudaError_t (0 on success); the kernel
-// runs on `stream`.
-int kg_paged_decode_attention(int dtype, const void* q, const void* k_pool,
-                              const void* v_pool, const void* table,
-                              const void* lengths, void* out, int b, int h,
-                              int hd, int page, int table_width,
-                              float sm_scale, void* stream) {
-  const int* tbl = static_cast<const int*>(table);
-  const int* len = static_cast<const int*>(lengths);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (bad_geometry(b, h, hd, page)) return (int)cudaErrorInvalidValue;
-  return (int)by_width(hd, [&](auto w) {
-    using W = decltype(w);
-    if (dtype == 0)
-      return launch<float, float, W::hd, W::padded>(
-          q, k_pool, v_pool, nullptr, nullptr, tbl, len, out, b, h, hd, page,
-          table_width, sm_scale, s);
-    if (dtype == 1)
-      return launch<__nv_bfloat16, __nv_bfloat16, W::hd, W::padded>(
-          q, k_pool, v_pool, nullptr, nullptr, tbl, len, out, b, h, hd, page,
-          table_width, sm_scale, s);
-    return cudaErrorInvalidValue;
-  });
-}
-
-// K1q: int8 pools with (P, h) float32 k/v scales; dtype is q's and out's.
-int kg_paged_decode_attention_int8(int dtype, const void* q,
-                                   const void* k_pool, const void* v_pool,
-                                   const void* k_scale, const void* v_scale,
-                                   const void* table, const void* lengths,
-                                   void* out, int b, int h, int hd, int page,
-                                   int table_width, float sm_scale,
-                                   void* stream) {
+// K1, K1q, K2 and K2q: q and out (b, rows, h, hd), rows >= 1 (K1: 1);
+// dtype is q's and out's (0 float32, 1 bfloat16); quant 0 reads pools of
+// q's dtype (k_scale and v_scale unused), 1 int8 pools with (P, h) float32
+// scales; hd a multiple of 8 up to 128.  parts is the (b, rows, h,
+// ceil(table_width / pages_per_split), hd + 2) float32 workspace.
+// rows_per_walk, tile_rows, stages and pages_per_split are the launch plan
+// (ops/paged_attention.py::chunk_plan / split_plan), refused with
+// cudaErrorInvalidValue if this instantiation cannot run it.  Returns the
+// launches' cudaError_t (0 on success); both kernels run on `stream`.
+int kg_paged_attention(int dtype, int quant, const void* q,
+                       const void* k_pool, const void* v_pool,
+                       const void* k_scale, const void* v_scale,
+                       const void* table, const void* lengths, void* parts,
+                       void* out, int b, int rows, int h, int hd, int page,
+                       int table_width, int rows_per_walk, int tile_rows,
+                       int stages, int pages_per_split, float sm_scale,
+                       void* stream) {
   const float* ks = static_cast<const float*>(k_scale);
   const float* vs = static_cast<const float*>(v_scale);
   const int* tbl = static_cast<const int*>(table);
   const int* len = static_cast<const int*>(lengths);
+  float* ws = static_cast<float*>(parts);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (bad_geometry(b, h, hd, page)) return (int)cudaErrorInvalidValue;
+  if (bad_geometry(b, rows, h, hd, page)) return (int)cudaErrorInvalidValue;
   return (int)by_width(hd, [&](auto w) {
     using W = decltype(w);
-    if (dtype == 0)
-      return launch<float, int8_t, W::hd, W::padded>(
-          q, k_pool, v_pool, ks, vs, tbl, len, out, b, h, hd, page,
-          table_width, sm_scale, s);
-    if (dtype == 1)
-      return launch<__nv_bfloat16, int8_t, W::hd, W::padded>(
-          q, k_pool, v_pool, ks, vs, tbl, len, out, b, h, hd, page,
-          table_width, sm_scale, s);
-    return cudaErrorInvalidValue;
-  });
-}
-
-// K2: q and out (b, rows, h, hd), rows >= 1; rows_per_walk, tile_rows and
-// stages are the launch plan (ops/paged_attention.py::chunk_plan), refused with
-// cudaErrorInvalidValue if this instantiation cannot run it; otherwise as
-// above.
-int kg_paged_chunk_attention(int dtype, const void* q, const void* k_pool,
-                             const void* v_pool, const void* table,
-                             const void* lengths, void* out, int b, int rows,
-                             int h, int hd, int page, int table_width,
-                             int rows_per_walk, int tile_rows, int stages,
-                             float sm_scale, void* stream) {
-  const int* tbl = static_cast<const int*>(table);
-  const int* len = static_cast<const int*>(lengths);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (bad_geometry(b, h, hd, page) || rows < 1)
-    return (int)cudaErrorInvalidValue;
-  return (int)by_width(hd, [&](auto w) {
-    using W = decltype(w);
-    if (dtype == 0)
-      return launch_chunk<float, float, W::hd, W::padded>(
-          q, k_pool, v_pool, nullptr, nullptr, tbl, len, out, b, rows, h, hd,
-          page, table_width, rows_per_walk, tile_rows, stages, sm_scale, s);
-    if (dtype == 1)
-      return launch_chunk<__nv_bfloat16, __nv_bfloat16, W::hd, W::padded>(
-          q, k_pool, v_pool, nullptr, nullptr, tbl, len, out, b, rows, h, hd,
-          page, table_width, rows_per_walk, tile_rows, stages, sm_scale, s);
-    return cudaErrorInvalidValue;
-  });
-}
-
-// K2q: K2 over int8 pools with (P, h) float32 k/v scales.
-int kg_paged_chunk_attention_int8(int dtype, const void* q,
-                                  const void* k_pool, const void* v_pool,
-                                  const void* k_scale, const void* v_scale,
-                                  const void* table, const void* lengths,
-                                  void* out, int b, int rows, int h, int hd,
-                                  int page, int table_width,
-                                  int rows_per_walk, int tile_rows,
-                                  int stages, float sm_scale, void* stream) {
-  const float* ks = static_cast<const float*>(k_scale);
-  const float* vs = static_cast<const float*>(v_scale);
-  const int* tbl = static_cast<const int*>(table);
-  const int* len = static_cast<const int*>(lengths);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (bad_geometry(b, h, hd, page) || rows < 1)
-    return (int)cudaErrorInvalidValue;
-  return (int)by_width(hd, [&](auto w) {
-    using W = decltype(w);
-    if (dtype == 0)
-      return launch_chunk<float, int8_t, W::hd, W::padded>(
-          q, k_pool, v_pool, ks, vs, tbl, len, out, b, rows, h, hd, page,
-          table_width, rows_per_walk, tile_rows, stages, sm_scale, s);
-    if (dtype == 1)
-      return launch_chunk<__nv_bfloat16, int8_t, W::hd, W::padded>(
-          q, k_pool, v_pool, ks, vs, tbl, len, out, b, rows, h, hd, page,
-          table_width, rows_per_walk, tile_rows, stages, sm_scale, s);
+#define KG_LAUNCH(T, TP)                                                     \
+  launch<T, TP, W::hd, W::padded>(q, k_pool, v_pool, ks, vs, tbl, len, ws,   \
+                                  out, b, rows, h, hd, page, table_width,    \
+                                  rows_per_walk, tile_rows, stages,          \
+                                  pages_per_split, sm_scale, s)
+    if (dtype == 0 && !quant) return KG_LAUNCH(float, float);
+    if (dtype == 1 && !quant) return KG_LAUNCH(__nv_bfloat16, __nv_bfloat16);
+    if (dtype == 0 && quant) return KG_LAUNCH(float, int8_t);
+    if (dtype == 1 && quant) return KG_LAUNCH(__nv_bfloat16, int8_t);
+#undef KG_LAUNCH
     return cudaErrorInvalidValue;
   });
 }

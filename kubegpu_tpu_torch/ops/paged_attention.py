@@ -15,9 +15,9 @@ Single query (K1), three functions that compute the same thing:
   an f32 online-softmax fold over pages in table order — the same fold
   recipe as the kernel and the Pallas ``_paged_kernel``.
 - :func:`paged_decode_attention`: the entry point.  For CUDA tensors it
-  launches the hand-written Hopper kernel (``csrc/paged_attention.cu``,
+  launches the hand-written Hopper kernels (``csrc/paged_attention.cu``,
   built at first use) or raises; only CPU tensors take the plain twin.
-  ``paged_decode_attention.launches`` counts kernel launches.  A caller
+  ``paged_decode_attention.launches`` counts launches.  A caller
   that has run :func:`check_kernel_args` once on its operands' layout
   (the batcher, on its pools) passes ``checked=True`` to skip the
   per-call checks on the decode step.
@@ -28,11 +28,20 @@ Multi query (K2): :func:`reference_paged_chunk_attention`,
 the same three roles.  Query row j of a window attends columns
 ``< lengths + j`` (intra-window causal).  Both twins fold every query
 row through one per-page helper, so plain K2 row j IS plain K1 at
-``lengths + j``, bit for bit.  The CUDA K2 reads each page once for up
-to 8 rows of the window (a walk) through a ``cp.async`` ring and folds
-each row with K1's operations in K1's order, so its row j is the CUDA
-K1's at ``lengths + j`` bit for bit too; :func:`chunk_plan` is its
-launch plan.
+``lengths + j``, bit for bit.
+
+On the card both entry points run one code path: a slot's page table is
+cut into splits of a fixed number of pages (:func:`split_plan`, a
+function of the page geometry alone), one block folds one split of one
+(slot, head) for up to 8 rows of the window at once (a walk; K1 walks
+one row), streaming the pages through a ``cp.async`` ring, and a second
+kernel merges each row's splits in split order.  Every row folds with
+the one-row walk's operations in its order and merges the splits that
+its own length makes live, so the CUDA K2's row j is the CUDA K1's at
+``lengths + j`` bit for bit, and a slot's result does not depend on the
+batch around it.  :func:`chunk_plan` is K2's ring, :func:`split_plan`
+the split and K1's ring; :func:`paged_split_attention_plain` mirrors
+the split-and-merge on the CPU, for the tests.
 
 Layouts as in the JAX package: q ``(b, h, hd)`` (K1) or
 ``(b, L, h, hd)`` (K2); pools ``(pool_pages, h, page, hd)``; page table
@@ -79,15 +88,23 @@ THREADS = 128
 WARPS = THREADS // 32
 # K2 folds at most this many query rows in one walk of the pages (kMaxRows)
 MAX_ROWS_PER_WALK = 8
-# K2 streams its pages through a ring of 2 to MAX_STAGES tiles (kMaxStages)
-# of at most TILE_BYTES each, as many as RING_BYTES hold
+# A walk streams its pages through a ring of 2 to MAX_STAGES tiles
+# (kMaxStages): K2's of at most TILE_BYTES each, as many as RING_BYTES
+# hold; K1's (one row a walk, several blocks an SM) of DECODE_TILE_BYTES,
+# as many as DECODE_RING_BYTES hold
 MIN_STAGES, MAX_STAGES = 2, 4
 TILE_BYTES = 32 * 1024
 RING_BYTES = 64 * 1024
+DECODE_TILE_BYTES = 16 * 1024
+DECODE_RING_BYTES = 32 * 1024
+# A split holds MIN_SPLIT_PAGES whole pages, or as many as SPLIT_ROWS
+# rows fill where pages are small
+MIN_SPLIT_PAGES = 2
+SPLIT_ROWS = 64
 # A page's f32 scores sit in shared memory, one float per page row,
-# beside 32 floats of reductions (4 warps x MAX_ROWS_PER_WALK rows); K2
-# also keeps its ring there, whose least is two tiles of one 16-byte
-# copy a thread: 2 x 128 x 16 bytes, 1024 floats
+# beside 32 floats of reductions (4 warps x MAX_ROWS_PER_WALK rows), and
+# so does the ring, whose least is two tiles of one 16-byte copy a
+# thread: 2 x 128 x 16 bytes, 1024 floats
 MAX_KERNEL_PAGE = (OPTIN_SMEM_BYTES // 4 - WARPS * MAX_ROWS_PER_WALK
                    - MIN_STAGES * THREADS * 16 // 4)
 
@@ -193,25 +210,68 @@ def _page_block(pool, scale, ids):
     return blk
 
 
+def _n_live(limit, page: int, width: int) -> int:
+    """The most live pages of any slot under ``limit`` (b,) int64, at
+    most the table's ``width``."""
+    if not limit.numel():
+        return 0
+    return min(int(((limit + page - 1) // page).clamp(min=0).max().item()),
+               width)
+
+
+def _fold_state(qf, k_pool, v_pool, tbl, limit, pages, k_scale, v_scale):
+    """The f32 online-softmax state ``(m, l, acc)`` of one query row per
+    slot, ``qf`` (b, h, hd) float32, folded over the table's logical
+    ``pages`` in order (columns at or past ``limit`` masked)."""
+    b, h, hd = qf.shape
+    page = k_pool.shape[2]
+    sm_scale = 1.0 / math.sqrt(hd)
+    state = (torch.full((b, h, 1), NEG_INF, device=qf.device),
+             torch.zeros((b, h, 1), device=qf.device),
+             torch.zeros((b, h, hd), device=qf.device))
+    for p_i in pages:
+        ids = tbl[:, p_i]
+        state = _fold_page(state, qf, _page_block(k_pool, k_scale, ids),
+                           _page_block(v_pool, v_scale, ids), p_i * page,
+                           limit, sm_scale)
+    return state
+
+
 def _fold_slots(q, k_pool, v_pool, tbl, limit, k_scale=None, v_scale=None):
     """One query row per slot, ``q`` (b, h, hd), folded over the slot's
     pages below ``limit`` (b,) int64 in table order; returns the f32
     result ``acc / (l if l else 1)`` (zeros where nothing is
     attendable)."""
-    b, h, hd = q.shape
-    page = k_pool.shape[2]
-    sm_scale = 1.0 / math.sqrt(hd)
+    n_live = _n_live(limit, k_pool.shape[2], tbl.shape[1])
+    _, l, acc = _fold_state(q.float(), k_pool, v_pool, tbl, limit,
+                            range(n_live), k_scale, v_scale)
+    return acc / torch.where(l == 0.0, 1.0, l)
+
+
+def _fold_split_slots(q, k_pool, v_pool, tbl, limit, k_scale, v_scale,
+                      pages_per_split: int):
+    """:func:`_fold_slots` as the kernels compute it: each split of
+    ``pages_per_split`` logical pages folded on its own, then the splits
+    merged in split order — ``m = max m_s``, ``c_s = exp(m_s - m)``,
+    ``l = sum c_s l_s``, ``acc = sum c_s acc_s`` — skipping a split in
+    which a slot folded nothing (``l_s == 0``), and divided once."""
+    n_live = _n_live(limit, k_pool.shape[2], tbl.shape[1])
     qf = q.float()
-    state = (torch.full((b, h, 1), NEG_INF, device=q.device),
-             torch.zeros((b, h, 1), device=q.device),
-             torch.zeros((b, h, hd), device=q.device))
-    n_live = int(((limit + page - 1) // page).clamp(min=0).max().item()) if b else 0
-    for p_i in range(min(n_live, tbl.shape[1])):
-        ids = tbl[:, p_i]
-        state = _fold_page(state, qf, _page_block(k_pool, k_scale, ids),
-                           _page_block(v_pool, v_scale, ids), p_i * page,
-                           limit, sm_scale)
-    _, l, acc = state
+    parts = [_fold_state(qf, k_pool, v_pool, tbl, limit,
+                         range(s, min(s + pages_per_split, n_live)),
+                         k_scale, v_scale)
+             for s in range(0, n_live, pages_per_split)]
+    b, h, hd = q.shape
+    m = torch.full((b, h, 1), NEG_INF, device=q.device)
+    for m_s, l_s, _ in parts:
+        m = torch.where(l_s != 0.0, torch.maximum(m, m_s), m)
+    l = torch.zeros((b, h, 1), device=q.device)
+    acc = torch.zeros((b, h, hd), device=q.device)
+    for m_s, l_s, acc_s in parts:
+        live = l_s != 0.0
+        c = torch.exp(m_s - m)   # NaN only where the split is skipped
+        l = torch.where(live, c * l_s + l, l)
+        acc = torch.where(live, c * acc_s + acc, acc)
     return acc / torch.where(l == 0.0, 1.0, l)
 
 
@@ -236,6 +296,31 @@ def paged_chunk_attention_plain(q, k_pool, v_pool, page_table, lengths,
     tbl, lengths = page_table.long(), lengths.long()
     rows = [_fold_slots(q[:, j].contiguous(), k_pool, v_pool, tbl,
                         lengths + j, k_scale, v_scale)
+            for j in range(q.shape[1])]
+    return torch.stack(rows, 1).to(q.dtype)
+
+
+def paged_split_attention_plain(q, k_pool, v_pool, page_table, lengths,
+                                k_scale=None, v_scale=None, *,
+                                pages_per_split: int):
+    """The kernels' split-and-merge in torch ops, a CPU test helper: each
+    split of ``pages_per_split`` pages folded by the twins' per-page
+    fold, then merged in split order and divided once (see
+    :func:`_fold_split_slots`).  ``q`` (b, h, hd) is K1's (K1q's, with
+    scales) query; ``q`` (b, L, h, hd) a K2 window, row j folded at
+    ``lengths + j``.  With one split (``pages_per_split`` at least the
+    table's width) it is :func:`paged_decode_attention_plain` bit for
+    bit.  Nothing on the serving path calls it."""
+    _scales_paired(k_scale, v_scale)
+    if pages_per_split < 1:
+        raise ValueError(f"a split holds at least one page, got "
+                         f"{pages_per_split}")
+    tbl, lengths = page_table.long(), lengths.long()
+    if q.dim() == 3:
+        return _fold_split_slots(q, k_pool, v_pool, tbl, lengths, k_scale,
+                                 v_scale, pages_per_split).to(q.dtype)
+    rows = [_fold_split_slots(q[:, j].contiguous(), k_pool, v_pool, tbl,
+                              lengths + j, k_scale, v_scale, pages_per_split)
             for j in range(q.shape[1])]
     return torch.stack(rows, 1).to(q.dtype)
 
@@ -316,6 +401,35 @@ def _check_operands(q, b, h, hd, k_pool, v_pool, page_table, lengths,
         raise ValueError("q and pools must be 16-byte aligned")
 
 
+def _ring_plan(page: int, hd: int, dtype: torch.dtype, quant: bool,
+               most_rows: int, tile_bytes: int, ring_bytes: int):
+    """``(rows_per_walk, tile_rows, stages, smem_bytes)`` of a walk of at
+    most ``most_rows`` rows: see :func:`chunk_plan`."""
+    if not 1 <= page <= MAX_KERNEL_PAGE:
+        raise ValueError(f"page size {page} outside [1, {MAX_KERNEL_PAGE}]")
+    itemsize = 1 if quant else torch.empty((), dtype=dtype).element_size()
+    padded = hd not in (64, 128)
+    width = (32 if hd <= 32 else 128) if padded else hd
+    vec = 8 if quant and padded else 16 // itemsize
+    groups = THREADS // (width // vec)
+    row_bytes = width * itemsize
+    page_rows = -(-page // groups) * groups
+    most_rows = min(most_rows, MAX_ROWS_PER_WALK // 2 if vec > 8
+                    else MAX_ROWS_PER_WALK)
+    for rows in range(most_rows, 0, -1):
+        scores = max(rows * page, groups * width)
+        fixed = 4 * (WARPS * MAX_ROWS_PER_WALK + scores + -scores % 4)
+        room = OPTIN_SMEM_BYTES - fixed
+        tile = (min(tile_bytes, room // MIN_STAGES, page_rows * row_bytes)
+                // row_bytes // groups * groups)
+        if tile >= groups:
+            tile_bytes = tile * row_bytes
+            stages = max(MIN_STAGES, min(MAX_STAGES, ring_bytes // tile_bytes,
+                                         room // tile_bytes))
+            return rows, tile, stages, fixed + stages * tile_bytes
+    raise AssertionError("MAX_KERNEL_PAGE leaves room for one row")
+
+
 @functools.lru_cache(maxsize=None)
 def chunk_plan(page: int, hd: int, dtype: torch.dtype, quant: bool):
     """K2's (K2q's, ``quant``) launch plan for pages of ``page`` rows,
@@ -338,29 +452,68 @@ def chunk_plan(page: int, hd: int, dtype: torch.dtype, quant: bool):
     largest tile up to ``TILE_BYTES`` and the page, then as many stages as
     ``RING_BYTES`` and the room left hold.  The C side recomputes the same
     bytes and refuses a plan that does not fit.  Raises ``ValueError``
-    for a page past ``MAX_KERNEL_PAGE``."""
-    if not 1 <= page <= MAX_KERNEL_PAGE:
-        raise ValueError(f"page size {page} outside [1, {MAX_KERNEL_PAGE}]")
-    itemsize = 1 if quant else torch.empty((), dtype=dtype).element_size()
-    padded = hd not in (64, 128)
-    width = (32 if hd <= 32 else 128) if padded else hd
-    vec = 8 if quant and padded else 16 // itemsize
-    groups = THREADS // (width // vec)
-    row_bytes = width * itemsize
-    page_rows = -(-page // groups) * groups
-    most_rows = MAX_ROWS_PER_WALK // 2 if vec > 8 else MAX_ROWS_PER_WALK
-    for rows in range(most_rows, 0, -1):
-        scores = max(rows * page, groups * width)
-        fixed = 4 * (WARPS * MAX_ROWS_PER_WALK + scores + -scores % 4)
-        room = OPTIN_SMEM_BYTES - fixed
-        tile = (min(TILE_BYTES, room // MIN_STAGES, page_rows * row_bytes)
-                // row_bytes // groups * groups)
-        if tile >= groups:
-            tile_bytes = tile * row_bytes
-            stages = max(MIN_STAGES, min(MAX_STAGES, RING_BYTES // tile_bytes,
-                                         room // tile_bytes))
-            return rows, tile, stages, fixed + stages * tile_bytes
-    raise AssertionError("MAX_KERNEL_PAGE leaves room for one row")
+    for a page past ``MAX_KERNEL_PAGE``.  K2 splits its pages by
+    :func:`split_plan`."""
+    return _ring_plan(page, hd, dtype, quant, MAX_ROWS_PER_WALK, TILE_BYTES,
+                      RING_BYTES)
+
+
+@functools.lru_cache(maxsize=None)
+def split_plan(page: int, hd: int, dtype: torch.dtype, quant: bool):
+    """The split shared by K1 and K2 (K1q and K2q, ``quant``) and K1's
+    ring, for pages of ``page`` rows, head width ``hd`` and q of
+    ``dtype``: ``(pages_per_split, tile_rows, stages, smem_bytes)``.
+
+    A slot's page table is cut at logical pages ``0, S, 2S, ...``, S =
+    ``pages_per_split``: ``MIN_SPLIT_PAGES`` (2) whole pages, so the ring
+    fetches one page while the block folds the other, or as many as
+    ``SPLIT_ROWS`` (64) rows fill where that is more (a page is never
+    cut).  On the card two pages a split was the fastest K1 at both
+    serving geometries (pages of 128 and of 32; PERF.md, PR 9).  One
+    block folds one split; the merge adds the splits up in order.  The
+    plan takes the page geometry and nothing else — not the lengths (a
+    device tensor, never read on the host, so a call can be captured in
+    a CUDA graph), nor the batch, the window or the table's width — so
+    K1 at ``lengths + j`` and row j of a K2 window fold and merge the
+    same splits, and a slot's result does not depend on its batch.  K1's one-row walk streams its pages
+    through a ring of ``stages`` tiles of ``tile_rows`` rows (up to
+    ``DECODE_TILE_BYTES`` a tile, ``DECODE_RING_BYTES`` the ring), with
+    ``smem_bytes`` of shared memory, laid out as :func:`chunk_plan`'s at
+    one row a walk; the C side recomputes the bytes and refuses a plan
+    that does not fit.  Raises ``ValueError`` for a page past
+    ``MAX_KERNEL_PAGE``."""
+    _, tile, stages, smem = _ring_plan(page, hd, dtype, quant, 1,
+                                       DECODE_TILE_BYTES, DECODE_RING_BYTES)
+    return max(MIN_SPLIT_PAGES, SPLIT_ROWS // page), tile, stages, smem
+
+
+def _launch(q, k_pool, v_pool, page_table, lengths, k_scale, v_scale,
+            rows: int, ring) -> torch.Tensor:
+    """The split walk and the merge over q viewed as (b, rows, h, hd);
+    ``ring`` is the walk's (rows_per_walk, tile_rows, stages)."""
+    lib = _build.load("paged_attention")
+    b, h, hd = q.shape[0], q.shape[-2], q.shape[-1]
+    out = torch.empty_like(q)
+    if b == 0:
+        return out
+    page, width = k_pool.shape[2], page_table.shape[1]
+    quant = k_scale is not None
+    pages_per_split = split_plan(page, hd, q.dtype, quant)[0]
+    n_splits = max(1, -(-width // pages_per_split))
+    # each split's (acc, m, l) per (slot, row, head); allocated per call
+    # on q's stream, so a captured call takes it from the graph's pool
+    parts = torch.empty((b, rows, h, n_splits, hd + 2), dtype=torch.float32,
+                        device=q.device)
+    scales = (k_scale.data_ptr(), v_scale.data_ptr()) if quant else (None,
+                                                                      None)
+    rc = lib.kg_paged_attention(
+        KERNEL_DTYPES[q.dtype], int(quant), q.data_ptr(), k_pool.data_ptr(),
+        v_pool.data_ptr(), *scales, page_table.data_ptr(), lengths.data_ptr(),
+        parts.data_ptr(), out.data_ptr(), b, rows, h, hd, page, width, *ring,
+        pages_per_split, 1.0 / math.sqrt(hd),
+        torch.cuda.current_stream(q.device).cuda_stream)
+    _raise_on(lib, rc, "paged attention")
+    return out
 
 
 def _launch_kernel(q, k_pool, v_pool, page_table, lengths, k_scale,
@@ -368,25 +521,14 @@ def _launch_kernel(q, k_pool, v_pool, page_table, lengths, k_scale,
     if not checked:
         check_kernel_args(q, k_pool, v_pool, page_table, lengths, k_scale,
                           v_scale)
-    lib = _build.load("paged_attention")
-    b, h, hd = q.shape
-    out = torch.empty_like(q)
-    if b == 0:
-        return out
-    operands = (q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr())
-    tail = (page_table.data_ptr(), lengths.data_ptr(), out.data_ptr(), b, h,
-            hd, k_pool.shape[2], page_table.shape[1], 1.0 / math.sqrt(hd),
-            torch.cuda.current_stream(q.device).cuda_stream)
+    _, tile_rows, stages, _ = split_plan(k_pool.shape[2], q.shape[-1],
+                                         q.dtype, k_scale is not None)
+    out = _launch(q, k_pool, v_pool, page_table, lengths, k_scale, v_scale,
+                  1, (1, tile_rows, stages))
     if k_scale is None:
-        rc = lib.kg_paged_decode_attention(KERNEL_DTYPES[q.dtype],
-                                           *operands, *tail)
         paged_decode_attention.launches += 1
     else:
-        rc = lib.kg_paged_decode_attention_int8(
-            KERNEL_DTYPES[q.dtype], *operands, k_scale.data_ptr(),
-            v_scale.data_ptr(), *tail)
         paged_decode_attention.int8_launches += 1
-    _raise_on(lib, rc, "paged decode attention")
     return out
 
 
@@ -395,29 +537,14 @@ def _launch_chunk_kernel(q, k_pool, v_pool, page_table, lengths, k_scale,
     if not checked:
         check_chunk_args(q, k_pool, v_pool, page_table, lengths, k_scale,
                          v_scale)
-    lib = _build.load("paged_attention")
-    b, L, h, hd = q.shape
-    out = torch.empty_like(q)
-    if b == 0:
-        return out
-    page = k_pool.shape[2]
-    rows_per_walk, tile_rows, stages, _ = chunk_plan(page, hd, q.dtype,
-                                                     k_scale is not None)
-    operands = (q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr())
-    tail = (page_table.data_ptr(), lengths.data_ptr(), out.data_ptr(), b, L,
-            h, hd, page, page_table.shape[1], rows_per_walk, tile_rows,
-            stages, 1.0 / math.sqrt(hd),
-            torch.cuda.current_stream(q.device).cuda_stream)
+    ring = chunk_plan(k_pool.shape[2], q.shape[-1], q.dtype,
+                      k_scale is not None)[:3]
+    out = _launch(q, k_pool, v_pool, page_table, lengths, k_scale, v_scale,
+                  q.shape[1], ring)
     if k_scale is None:
-        rc = lib.kg_paged_chunk_attention(KERNEL_DTYPES[q.dtype],
-                                          *operands, *tail)
         paged_chunk_attention.launches += 1
     else:
-        rc = lib.kg_paged_chunk_attention_int8(
-            KERNEL_DTYPES[q.dtype], *operands, k_scale.data_ptr(),
-            v_scale.data_ptr(), *tail)
         paged_chunk_attention.int8_launches += 1
-    _raise_on(lib, rc, "paged chunk attention")
     return out
 
 
@@ -472,29 +599,15 @@ paged_chunk_attention.int8_launches = 0    # K2q
 def _declare(lib: ctypes.CDLL) -> None:
     ptr = ctypes.c_void_p
     i32 = ctypes.c_int
-    lib.kg_paged_decode_attention.argtypes = [
-        i32, ptr, ptr, ptr, ptr, ptr, ptr,
-        i32, i32, i32, i32, i32, ctypes.c_float, ptr,
+    # dtype, quant; q, pools, scales, table, lengths, workspace, out; b,
+    # rows, h, hd, page, table width, the plan (rows per walk, tile rows,
+    # stages, pages per split); the softmax scale; the stream
+    lib.kg_paged_attention.argtypes = [
+        i32, i32, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr,
+        i32, i32, i32, i32, i32, i32, i32, i32, i32, i32,
+        ctypes.c_float, ptr,
     ]
-    lib.kg_paged_decode_attention.restype = ctypes.c_int
-    # the chunk kernels take the plan (rows per walk, tile rows, stages)
-    # after the table width
-    lib.kg_paged_chunk_attention.argtypes = [
-        i32, ptr, ptr, ptr, ptr, ptr, ptr,
-        i32, i32, i32, i32, i32, i32, i32, i32, i32, ctypes.c_float, ptr,
-    ]
-    lib.kg_paged_chunk_attention.restype = ctypes.c_int
-    # the int8 variants take the two scale pointers after the pools
-    lib.kg_paged_decode_attention_int8.argtypes = [
-        i32, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr,
-        i32, i32, i32, i32, i32, ctypes.c_float, ptr,
-    ]
-    lib.kg_paged_decode_attention_int8.restype = ctypes.c_int
-    lib.kg_paged_chunk_attention_int8.argtypes = [
-        i32, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr,
-        i32, i32, i32, i32, i32, i32, i32, i32, i32, ctypes.c_float, ptr,
-    ]
-    lib.kg_paged_chunk_attention_int8.restype = ctypes.c_int
+    lib.kg_paged_attention.restype = ctypes.c_int
     lib.kg_cuda_error_string.argtypes = [ctypes.c_int]
     lib.kg_cuda_error_string.restype = ctypes.c_char_p
 

@@ -129,11 +129,15 @@ def main(argv=None) -> int:
         for name, (ms, n) in sorted(kernels.items(), key=lambda kv: -kv[1][0])[:15]:
             print(f"  {ms / WINDOW * 1e3:9.1f} us/step {ms / busy * 100:5.1f}% "
                   f"x{n / WINDOW:5.1f}/step  {name[:90]}", flush=True)
-        k1 = sum(ms for name, (ms, _) in kernels.items()
-                 if "paged_decode_kernel" in name)
-        k2 = sum(ms for name, (ms, _) in kernels.items()
-                 if "paged_chunk_kernel" in name)
-        # the kernel names match the full-width and int8 instantiations
+        def by_name(part):
+            return sum(ms for name, (ms, _) in kernels.items() if part in name)
+
+        # the kernel names match the full-width and int8 instantiations; a
+        # step runs K1's walk or K2's, each followed by the merge pass
+        merge = by_name("paged_merge_kernel")
+        k1 = by_name("paged_decode_walk_kernel")
+        k2 = by_name("paged_chunk_walk_kernel")
+        k1, k2 = (k1 + merge, k2) if k1 else (k1, k2 + merge)
         print(f"profile: K1/K1q {k1 / WINDOW * 1e3:.1f} us/step "
               f"({k1 / busy * 100:.1f}% of device time), K2/K2q "
               f"{k2 / WINDOW * 1e3:.1f} us/step ({k2 / busy * 100:.1f}%)",

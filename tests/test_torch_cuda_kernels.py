@@ -36,7 +36,9 @@ from kubegpu_tpu_torch.ops.paged_attention import (
     paged_chunk_attention_plain,
     paged_decode_attention,
     paged_decode_attention_plain,
+    paged_split_attention_plain,
     quantize_pages,
+    split_plan,
 )
 
 # the reference's own kernel tolerance (tests/test_paging.py)
@@ -74,6 +76,11 @@ def make_chunk_case(seed, lengths, L, b=None, h=4, hd=32, page=8,
                                           hd=hd, page=page, n_pages=n_pages,
                                           pool=pool)
     return q, kp, vp, table, lengths
+
+
+def split_edge(page, hd, dtype, quant):
+    """Rows of a split of the kernels' plan: the first split edge."""
+    return split_plan(page, hd, dtype, quant)[0] * page
 
 
 def run_torch(fn, case, dtype=torch.float32, device="cpu"):
@@ -148,8 +155,10 @@ def test_paged_kernels_match_their_twins_at_every_width(cuda_device, dtype,
     a 9-row window (two groups of rows); f32 at the reference's 2e-5,
     bf16 within one rounding step.  K2's rows equal K1 at lengths + j."""
     L = 9
-    case = make_chunk_case(21 + hd, [0, 1, 5, 31, 32, 33, 100], L, h=4,
-                           hd=hd, page=32, n_pages=4, pool=24)
+    edge = split_edge(32, hd, dtype, quant)
+    case = make_chunk_case(21 + hd, [0, 1, 5, 31, 32, 33, 100, edge - 4], L,
+                           h=4, hd=hd, page=32, n_pages=edge // 32 + 2,
+                           pool=edge // 32 + 20)
     (q, kp, vp, tbl, ln), sc = paged_operands(case, dtype, cuda_device, quant)
     one = paged_decode_attention(q[:, 0].contiguous(), kp, vp, tbl, ln, **sc)
     out = paged_chunk_attention(q, kp, vp, tbl, ln, **sc)
@@ -174,9 +183,13 @@ def test_paged_kernels_match_their_twins_at_every_width(cuda_device, dtype,
 def test_chunk_rows_equal_k1_for_any_window(cuda_device, dtype, L, quant):
     """Row j of a K2 (K2q) window of L rows equals K1 (K1q) at lengths + j
     bit for bit, for windows inside one group of rows and across two or
-    three, at the worker's default head width (64) and pages of 16."""
-    case = make_chunk_case(31 + L, [0, 1, 15, 16, 17, 40, 47], L, h=4, hd=64,
-                           page=16, n_pages=4, pool=30)
+    three, at the worker's default head width (64) and pages of 16, with
+    windows that straddle the first and second split edges."""
+    edge = split_edge(16, 64, dtype, quant)
+    case = make_chunk_case(31 + L, [0, 1, 15, 16, 17, 40, 47, edge - L + 2,
+                                    edge - 1, 2 * edge - L // 2], L, h=4,
+                           hd=64, page=16, n_pages=2 * edge // 16 + 2,
+                           pool=2 * edge // 16 + 10)
     (q, kp, vp, tbl, ln), sc = paged_operands(case, dtype, cuda_device, quant)
     out = paged_chunk_attention(q, kp, vp, tbl, ln, **sc)
     for j in range(L):
@@ -253,8 +266,9 @@ def test_chunk_rows_equal_k1_at_tile_edges(cuda_device, dtype, rtol, atol,
     page = 512
     tile = chunk_plan(page, 128, dtype, quant)[1]
     assert tile < page
-    lengths = [0, tile - 1, tile, tile + 1, page + tile - 1, page + tile,
-               page + tile + 1]
+    # page - 2: a window across the page's edge, which is a split's
+    lengths = [0, tile - 1, tile, tile + 1, page - 2, page + tile - 1,
+               page + tile, page + tile + 1]
     case = make_chunk_case(61, lengths, 5, h=2, hd=128, page=page, n_pages=3,
                            pool=24)
     args, sc = paged_operands(case, dtype, cuda_device, quant)
@@ -316,10 +330,11 @@ def test_chunk_kernel_matches_its_twin_and_k1_row_by_row(cuda_device, dtype,
                                                         rtol, atol):
     """K2 within tolerance of its plain twin; its row j equal to K1 at
     lengths + j bit for bit (both fold through one device routine); a
-    one-row window equal to K1."""
+    one-row window equal to K1; 253's window crosses a split edge."""
     L = 5
+    assert split_edge(128, 128, dtype, False) == 256
     q, kp, vp, table, lengths = make_chunk_case(
-        7, [0, 1, 124, 127, 128, 300, 508], L, h=8, hd=128, page=128,
+        7, [0, 1, 124, 127, 128, 253, 300, 508], L, h=8, hd=128, page=128,
         n_pages=4, pool=30)
     args = [torch.from_numpy(a).to(cuda_device, dtype) for a in (q, kp, vp)]
     tbl = torch.from_numpy(table).to(cuda_device)
@@ -373,6 +388,122 @@ def test_spec_batcher_on_the_card_matches_the_plain_cpu_batcher(cuda_device,
         card.stats["spec_steps"] * cfg["num_layers"])
     assert got == want
     card.assert_page_accounting()
+
+
+# the serving geometries of the split tests, at fewer heads: the
+# flagship's (hd 128, pages of 128) and the worker's defaults' (hd 64,
+# pages of 32)
+SPLIT_GEOMETRIES = {"flagship": dict(h=4, hd=128, page=128),
+                    "defaults": dict(h=8, hd=64, page=32)}
+
+
+def split_case(seed, geo, dtype, quant, device, L=1, n_pages=64):
+    """A 64-page table (several splits at either geometry), lengths 0, 1,
+    either side of the first split edge and the full table; q (b, h, hd)
+    for L = 1, else a window of L rows (lengths then leave it room)."""
+    h, hd, page = geo["h"], geo["hd"], geo["page"]
+    edge, full = split_edge(page, hd, dtype, quant), n_pages * page - L + 1
+    lengths = [0, 1, page - 1, edge - 1, edge, edge + 1, 3 * edge + 5,
+               full - 1, full]
+    case = make_chunk_case(seed, lengths, L, h=h, hd=hd, page=page,
+                           n_pages=n_pages, pool=n_pages + 8)
+    (q, kp, vp, tbl, ln), sc = paged_operands(case, dtype, device, quant)
+    return (q[:, 0].contiguous() if L == 1 else q, kp, vp, tbl, ln), sc
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quant", [False, True], ids=["full", "int8"])
+@pytest.mark.parametrize("geo", list(SPLIT_GEOMETRIES))
+@pytest.mark.parametrize("dtype, rtol, atol", [
+    (torch.float32, F32_TOL, F32_TOL),
+    (torch.bfloat16, BF16_RTOL, BF16_ATOL),
+])
+def test_decode_kernels_match_their_twins_over_many_splits(
+        cuda_device, dtype, rtol, atol, geo, quant):
+    """K1 (K1q) over 64-page tables, several splits a slot, against the
+    plain twin and the split-and-merge twin; a length-0 slot gives
+    zeros."""
+    args, sc = split_case(71, SPLIT_GEOMETRIES[geo], dtype, quant,
+                          cuda_device)
+    out = paged_decode_attention(*args, **sc)
+    torch.testing.assert_close(
+        out.float(), paged_decode_attention_plain(*args, **sc).float(),
+        rtol=rtol, atol=atol)
+    split = split_plan(args[1].shape[2], args[0].shape[-1], dtype, quant)[0]
+    torch.testing.assert_close(
+        out.float(), paged_split_attention_plain(
+            *args, **sc, pages_per_split=split).float(), rtol=rtol, atol=atol)
+    assert (out[0] == 0).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quant", [False, True], ids=["full", "int8"])
+def test_decode_kernels_take_a_page_of_the_most_rows(cuda_device, quant):
+    """K1 (K1q) at f32 over pages of MAX_KERNEL_PAGE rows, one page a
+    split: against the twin, rows either side of the page (and split)
+    edge."""
+    page = MAX_KERNEL_PAGE
+    case = make_chunk_case(72, [0, 1, page - 1, page, page + 1, 2 * page], 1,
+                           h=1, hd=128, page=page, n_pages=2, pool=4)
+    (q, kp, vp, tbl, ln), sc = paged_operands(case, torch.float32,
+                                              cuda_device, quant)
+    q = q[:, 0].contiguous()
+    torch.testing.assert_close(
+        paged_decode_attention(q, kp, vp, tbl, ln, **sc),
+        paged_decode_attention_plain(q, kp, vp, tbl, ln, **sc),
+        rtol=F32_TOL, atol=F32_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quant", [False, True], ids=["full", "int8"])
+@pytest.mark.parametrize("geo", list(SPLIT_GEOMETRIES))
+def test_paged_kernels_are_batch_invariant_and_deterministic(cuda_device,
+                                                             geo, quant):
+    """K1 (K1q) and a 5-row K2 (K2q) window in bf16: two launches give
+    the same bits, and each slot launched alone gives the bits it has in
+    the batch (the split plan does not see the batch)."""
+    for L in (1, 5):
+        args, sc = split_case(73 + L, SPLIT_GEOMETRIES[geo], torch.bfloat16,
+                              quant, cuda_device, L=L)
+        fn = paged_decode_attention if L == 1 else paged_chunk_attention
+        out = fn(*args, **sc)
+        assert torch.equal(out, fn(*args, **sc))
+        for i in range(out.shape[0]):
+            q, kp, vp, tbl, ln = args
+            alone = fn(q[i:i + 1].contiguous(), kp, vp,
+                       tbl[i:i + 1].contiguous(), ln[i:i + 1].contiguous(),
+                       **sc)
+            assert torch.equal(alone[0], out[i]), (L, i)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quant", [False, True], ids=["full", "int8"])
+def test_paged_kernels_replay_from_a_cuda_graph_with_new_lengths(cuda_device,
+                                                                 quant):
+    """K1 (K1q) and a 5-row K2 (K2q) window captured in a CUDA graph, then
+    replayed after the lengths tensor is changed in place: each replay
+    equals an eager call at the new lengths, so the launch reads no
+    length on the host."""
+    for L in (1, 5):
+        args, sc = split_case(75 + L, SPLIT_GEOMETRIES["defaults"],
+                              torch.bfloat16, quant, cuda_device, L=L)
+        fn = paged_decode_attention if L == 1 else paged_chunk_attention
+        ln = args[4]
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            fn(*args, **sc)
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            static = fn(*args, **sc)
+        full = int(ln.max())
+        for new in (ln.flip(0), torch.clamp(ln + 37, max=full),
+                    torch.zeros_like(ln)):
+            ln.copy_(new)
+            graph.replay()
+            torch.cuda.synchronize()
+            assert torch.equal(static, fn(*args, **sc)), (L, new.tolist())
 
 
 def flash_case(device, dtype, causal, sq, sk, d, h=3, seed=None):
@@ -634,10 +765,12 @@ def test_quant_kernels_match_their_twins_on_the_card(cuda_device, dtype,
                                                      rtol, atol):
     """K1q and K2q within tolerance of their plain twins, counted apart
     from K1 and K2; K2q's row j equal to K1q at lengths + j bit for bit,
-    and a one-row window equal to K1q."""
+    and a one-row window equal to K1q; 253's window crosses a split
+    edge."""
     L = 5
+    assert split_edge(128, 128, dtype, True) == 256
     q, kd, vd, ks, vs, table, lengths = make_quant_case(
-        11, [0, 1, 124, 127, 128, 300, 508], L)
+        11, [0, 1, 124, 127, 128, 253, 300, 508], L)
     qt = torch.from_numpy(q).to(cuda_device, dtype)
     kd, vd, ks, vs = (t.to(cuda_device) for t in (kd, vd, ks, vs))
     tbl = torch.from_numpy(table).to(cuda_device)

@@ -42,7 +42,7 @@ def test_plan_fits_the_card_at_every_width_and_page(hd, dtype, quant, page):
     rows, tile, stages, smem = chunk_plan(page, hd, dtype, quant)
     width, vec, groups, itemsize = instantiation(hd, dtype, quant)
     # 32 reduction floats, the walk's scores (at least the row sums of
-    # finish_row) rounded up to 16 bytes, and the ring
+    # write_part) rounded up to 16 bytes, and the ring
     scores = max(rows * page, groups * width)
     scores += -scores % 4
     assert smem == 4 * (32 + scores) + stages * tile * width * itemsize

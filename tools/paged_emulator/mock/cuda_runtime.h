@@ -45,6 +45,7 @@ inline float __fsub_rn(float a, float b) { return a - b; }
 inline float __fmul_rn(float a, float b) { return a * b; }
 inline float __fdiv_rn(float a, float b) { return a / b; }
 float __shfl_xor_sync(unsigned mask, float v, int lane_mask);
+float __shfl_sync(unsigned mask, float v, int src_lane);
 void __syncthreads();
 
 using std::max;
