@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Builds every kernel of the port's serving and training paths from the
-sources in the checkout, then runs eighteen phases; any failure exits
+sources in the checkout, then runs twenty-two phases; any failure exits
 non-zero:
 
 1. device: the card's name and power limit, TF32 off;
@@ -100,7 +100,29 @@ non-zero:
 17. the same with ``--speculate --spec-k 8``: K2 launched verify steps x
    layers times over 9-row windows, K1 never;
 18. the same with ``--kv-dtype int8``: K1q launched decode steps x layers
-   times.
+   times;
+19. the HTTP replica at the flagship's width: the worker's
+   ``build_batcher`` and ``warm_batcher`` on phase 4's argv behind an
+   in-process ``ReplicaServer`` on loopback, 16 requests posted at once
+   and read as they stream (http.client and a small SSE reader): every
+   stream's deltas concatenate to its ``done`` list of its full budget,
+   K1 launched ``stats["steps"]`` x layers times (counts set to 0 just
+   before the traffic, read after the server stopped); the client's
+   TTFT mean and max, tokens/s over the wire, ``/metrics``'
+   ``serve_ttft_seconds`` count and the ledger's host/device split are
+   printed, beside the same batcher serving the same requests in process
+   just before and, after, from a client in another process; then a long
+   request cancelled over the wire after two token events gives back its
+   pages (``/v1/state``'s free, live and cached counts back at their idle
+   values, ``assert_page_accounting``);
+20. the same with ``--speculate --spec-k 4``: K2 launched verify steps x
+   layers times, K1 never;
+21. phase 6's model and traffic through a card ``ReplicaServer`` over
+   loopback against the CPU batcher's streams, under the near-tie rule;
+22. the worker's entry point, ``python -m kubegpu_tpu_torch.models.worker
+   --model decode --serve-http 0`` at its defaults, in a subprocess: it
+   prints ``REPLICA_HTTP_SERVING`` (the seconds to it are printed),
+   answers one submit with a full ``done`` and exits 0 on SIGTERM.
 
 The line before the last is the per-kernel JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device the script
@@ -663,7 +685,7 @@ def phase_card_vs_cpu() -> dict:
     log(f"card vs cpu streams: {agree}/{total} tokens agree before any "
         "near-tie divergence")
     return dict(cfg=cfg, params=params, dense=dense, prompts=prompts,
-                budgets=budgets, kw=kw, card=card)
+                budgets=budgets, kw=kw, card=card, cpu=cpu)
 
 
 def near_tie_agreement(label: str, cfg: dict, dense, prompts, ref: dict,
@@ -809,6 +831,390 @@ def phase_int8_card_vs_cpu(ctx: dict) -> None:
     log(f"int8 card vs cpu pools: {differ}/{elems} int8 elements "
         f"({differ / elems:.3e}) differ, each by one step; worst scale "
         f"relative difference {worst_scale:.3e}")
+
+
+# -- the HTTP replica (phases 19-22) -----------------------------------------
+
+def sse_request(port: int, path: str, body: dict, on_event=None,
+                timeout: float = 300.0) -> list:
+    """POST ``body`` over loopback and read the answer as it streams:
+    returns ``[(event, payload, seconds since the request was sent)]``
+    for an SSE answer, or ``[("json", payload, s)]`` for a JSON one.
+    ``on_event(event, payload)`` is called as each event arrives."""
+    import http.client
+
+    t0 = time.monotonic()
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=timeout)
+    try:
+        conn.request("POST", path, json.dumps(body),
+                     {"Content-Type": "application/json"})
+        r = conn.getresponse()
+        if r.getheader("Content-Type") != "text/event-stream":
+            return [("json", json.loads(r.read()), time.monotonic() - t0)]
+        events, ev = [], None
+        while True:
+            line = r.readline()
+            if not line:
+                break
+            line = line.decode().strip()
+            if line.startswith("event:"):
+                ev = line[6:].strip()
+            elif line.startswith("data:") and ev:
+                payload = json.loads(line[5:].strip())
+                events.append((ev, payload, time.monotonic() - t0))
+                if on_event is not None:
+                    on_event(ev, payload)
+                if ev in ("done", "error"):
+                    break
+                ev = None
+        return events
+    finally:
+        conn.close()
+
+
+def http_get(port: int, path: str) -> str:
+    import http.client
+
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+    try:
+        conn.request("GET", path)
+        r = conn.getresponse()
+        body = r.read().decode()
+        assert r.status == 200, (path, r.status, body)
+        return body
+    finally:
+        conn.close()
+
+
+def post_concurrently(port: int, bodies: list) -> tuple:
+    """POST every body at once, one thread each; returns (events by
+    request index, wall seconds from the first send to the last
+    terminal event)."""
+    import threading
+
+    got = {}
+
+    def post(i):
+        got[i] = sse_request(port, "/v1/submit", bodies[i])
+
+    t0 = time.monotonic()
+    threads = [threading.Thread(target=post, args=(i,))
+               for i in range(len(bodies))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(600)
+    assert sorted(got) == list(range(len(bodies))), "a request did not end"
+    return got, time.monotonic() - t0
+
+
+def post_from_another_process(port: int, bodies: list) -> tuple:
+    """``post_concurrently`` run by a separate Python process, whose
+    threads do not share this process's interpreter lock with the
+    serving thread, as a gateway's would not."""
+    import os
+
+    code = ("import json, sys\n"
+            "import chip_smoke as c\n"
+            "a = json.load(sys.stdin)\n"
+            "got, wall = c.post_concurrently(a['port'], a['bodies'])\n"
+            "print(json.dumps({'got': got, 'wall': wall}))\n")
+    proc = subprocess.run(
+        [sys.executable, "-c", code], input=json.dumps(
+            {"port": port, "bodies": bodies}), capture_output=True,
+        text=True, timeout=600,
+        cwd=os.path.dirname(os.path.abspath(__file__)))
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    return ({int(i): [tuple(e) for e in events]
+             for i, events in out["got"].items()}, out["wall"])
+
+
+def check_streams(got: dict, budgets=None) -> tuple:
+    """Every stream ended with ``done`` and its deltas concatenate to
+    the done list (of its budget, when given); returns (streams,
+    client-side TTFTs: the first tokens event's arrival)."""
+    streams, ttfts = {}, []
+    for i, events in sorted(got.items()):
+        kind, done, _ = events[-1]
+        assert kind == "done", (i, events[-1][:2])
+        deltas = [t for k, e, _ in events[:-1] if k == "tokens"
+                  for t in e["tokens"]]
+        assert deltas == done["tokens"], (i, len(deltas), len(done["tokens"]))
+        if budgets is not None:
+            assert len(done["tokens"]) == budgets[i], (i, len(deltas))
+        streams[i] = done["tokens"]
+        ttfts.append(next(t for k, _, t in events if k == "tokens"))
+    return streams, ttfts
+
+
+def paged_counts() -> dict:
+    from kubegpu_tpu_torch.ops.paged_attention import (
+        paged_chunk_attention,
+        paged_decode_attention,
+    )
+
+    return {"K1": (paged_decode_attention, "launches"),
+            "K1q": (paged_decode_attention, "int8_launches"),
+            "K2": (paged_chunk_attention, "launches"),
+            "K2q": (paged_chunk_attention, "int8_launches")}
+
+
+def phase_http_flagship(speculate: bool = False) -> dict:
+    """The flagship behind an in-process ``ReplicaServer``: 16 requests
+    posted concurrently over loopback, a long request cancelled over the
+    wire mid-stream.  The batcher comes from the worker's own
+    ``build_batcher`` and ``warm_batcher``."""
+    import numpy as np
+    import torch
+
+    from kubegpu_tpu_torch.gateway.dataplane import ReplicaServer
+    from kubegpu_tpu_torch.models import worker
+    from kubegpu_tpu_torch.utils.metrics import Metrics
+
+    argv = FLAGSHIP_ARGV + (["--speculate", "--spec-k", str(SPEC_K)]
+                            if speculate else [])
+    label = "http speculative flagship" if speculate else "http flagship"
+    kname = "K2" if speculate else "K1"
+    args = worker.build_parser().parse_args(argv)
+    torch.cuda.empty_cache()
+    cb = worker.build_batcher(args)
+    worker.warm_batcher(cb)
+    metrics = Metrics()
+    cb.attach_metrics(metrics)
+    counters = paged_counts()
+    rng = np.random.RandomState(19)
+    n_req = 2 * args.batch_per_chip
+    prompts = worker.wave_requests(rng, n_req, args.vocab, args.prompt_len)
+    budgets = [max(args.steps * (1 + i % 4) // 4, 1) for i in range(n_req)]
+    bodies = [{"request_id": f"f{i}", "prompt": p.tolist(),
+               "max_new_tokens": budgets[i]} for i, p in enumerate(prompts)]
+    # the same batcher and traffic in process first, for a same-call
+    # comparison with the wire (its stats and ledger reset after)
+    cb.attach_metrics(None)
+    t_in = time.monotonic()
+    local = cb.run(prompts, budgets)
+    torch.cuda.synchronize()
+    t_in = time.monotonic() - t_in
+    in_ttft = list(cb.first_token_s.values())
+    in_rows = [r for r in cb.ledger_rows() if r["active"]]
+    in_tokens = sum(len(v) for v in local.values())
+    log(f"{label}: in process, the same batcher and traffic: {in_tokens} "
+        f"tokens in {t_in:.3f} s -> {in_tokens / t_in:.1f} tok/s; TTFT mean "
+        f"{np.mean(in_ttft) * 1e3:.1f} ms max {max(in_ttft) * 1e3:.1f} ms; "
+        f"{cb.stats['steps']} steps, decode rows' host_ms mean "
+        f"{np.mean([r['host_ms'] for r in in_rows]):.3f} device_ms mean "
+        f"{np.mean([r['device_ms'] for r in in_rows]):.3f}")
+    cb._reset_stats()
+    cb._ledger.clear()
+    cb.attach_metrics(metrics)
+    srv = ReplicaServer(cb, metrics=metrics).start()
+    try:
+        for fn, attr in counters.values():
+            setattr(fn, attr, 0)
+        got, wall = post_concurrently(srv.port, bodies)
+        state = json.loads(http_get(srv.port, "/v1/state?ledger=512"))
+        scrape = http_get(srv.port, "/metrics")
+    finally:
+        srv.stop()
+    # the counts are read once the serving thread has stopped
+    launches = {k: getattr(fn, attr) for k, (fn, attr) in counters.items()}
+    assert srv.loop.error is None, srv.loop.error
+    streams, ttfts = check_streams(got, budgets)
+    same = sum(streams[i] == local[i] for i in streams)
+    log(f"{label}: {same}/{n_req} streams over the wire equal the in-process "
+        "ones (bf16: a different admission order may flip near-ties)")
+    steps = cb.stats["spec_steps" if speculate else "steps"]
+    rows = state["ledger"]
+    ttft_count = next(
+        float(line.split()[-1]) for line in scrape.splitlines()
+        if line.startswith("serve_ttft_seconds_count"))
+    tokens = sum(len(v) for v in streams.values())
+    last = rows[-1]
+    host = [r["host_ms"] for r in rows if r["active"]]
+    device = [r["device_ms"] for r in rows if r["active"]]
+    log(f"{label}: {n_req} requests over loopback, {tokens} tokens in "
+        f"{wall:.3f} s -> {tokens / wall:.1f} tok/s over the wire; client "
+        f"TTFT mean {np.mean(ttfts) * 1e3:.1f} ms max "
+        f"{max(ttfts) * 1e3:.1f} ms; /metrics serve_ttft_seconds_count "
+        f"{ttft_count:.0f}; ledger rows {len(rows)}, decode rows' host_ms "
+        f"mean {np.mean(host):.3f} device_ms mean {np.mean(device):.3f}; "
+        f"last row host_ms {last['host_ms']} device_ms {last['device_ms']}; "
+        f"launches {launches}")
+    n = launches.pop(kname)
+    log(f"{label}: {kname} launches {n} = "
+        f"{'verify' if speculate else 'decode'} steps {steps} x layers "
+        f"{args.layers}; others {launches}")
+    assert n > 0 and n == steps * args.layers
+    assert not any(launches.values()), launches
+    assert ttft_count == n_req
+    # a second endpoint over the same batcher: the same traffic from a
+    # client in another process, then the wire cancel — a long request
+    # cancelled after its second token event, and a short probe request
+    # (one page, nothing sealed) to refresh the ledger row that
+    # /v1/state's page counts come from
+    cb._reset_stats()
+    cb._ledger.clear()
+    srv = ReplicaServer(cb, metrics=Metrics()).start()
+    try:
+        got_x, wall_x = post_from_another_process(srv.port, bodies)
+        state_x = json.loads(http_get(srv.port, "/v1/state?ledger=512"))
+        idle = state_x["pages"]
+        rows_x = [r for r in state_x["ledger"] if r["active"]]
+        _, ttfts_x = check_streams(got_x, budgets)
+        log(f"{label}: the same traffic from a client in another process: "
+            f"{tokens} tokens in {wall_x:.3f} s -> {tokens / wall_x:.1f} "
+            f"tok/s; client TTFT mean {np.mean(ttfts_x) * 1e3:.1f} ms max "
+            f"{max(ttfts_x) * 1e3:.1f} ms; {cb.stats['steps']} steps, "
+            f"decode rows' host_ms mean "
+            f"{np.mean([r['host_ms'] for r in rows_x]):.3f} device_ms mean "
+            f"{np.mean([r['device_ms'] for r in rows_x]):.3f}")
+        seen = []
+
+        def cancel_after_two(ev, payload):
+            if ev == "tokens":
+                seen.append(payload)
+                if len(seen) == 2:
+                    ans = sse_request(srv.port, "/v1/cancel",
+                                      {"request_id": "long"})
+                    assert ans[0][1] == {"cancelled": True}, ans
+
+        long_budget = args.seq + 1 - args.prompt_len - (
+            SPEC_K if speculate else 0) - 64
+        events = sse_request(srv.port, "/v1/submit", {
+            "request_id": "long", "prompt": prompts[0].tolist(),
+            "max_new_tokens": long_budget}, on_event=cancel_after_two)
+        kind, payload, _ = events[-1]
+        assert kind == "error" and payload["error"] == "cancelled", (
+            kind, payload)
+        streamed = sum(len(p["tokens"]) for p in seen)
+        probe = sse_request(srv.port, "/v1/submit", {
+            "request_id": "probe", "prompt": [1, 2, 3], "max_new_tokens": 1})
+        assert probe[-1][0] == "done"
+        after = json.loads(http_get(srv.port, "/v1/state"))
+    finally:
+        srv.stop()
+    assert srv.loop.error is None, srv.loop.error
+    log(f"{label}: wire cancel after {streamed} of {long_budget} tokens; "
+        f"pages idle {idle}, after the cancel {after['pages']}; active "
+        f"streams {after['active_streams']}")
+    assert streamed < long_budget
+    assert after["active_streams"] == 0
+    for key in ("free", "live", "cached"):
+        assert after["pages"][key] == idle[key], (key, idle, after)
+    cb.assert_page_accounting()
+    assert not cb.has_work()
+    result = dict(requests=n_req, tokens=tokens, wall_s=wall,
+                  tokens_per_sec=tokens / wall, ttft_mean_s=float(
+                      np.mean(ttfts)), ttft_max_s=max(ttfts), launches=n,
+                  steps=steps, host_ms_mean=float(np.mean(host)),
+                  device_ms_mean=float(np.mean(device)))
+    del cb, srv
+    torch.cuda.empty_cache()
+    return result
+
+
+def phase_http_card_vs_cpu(ctx: dict) -> None:
+    """Phase 6's model and traffic through a card ``ReplicaServer`` over
+    loopback, against the same weights' CPU batcher in process (phase
+    6's streams), under the near-tie rule."""
+    import torch
+
+    from kubegpu_tpu_torch.gateway.dataplane import ReplicaServer
+    from kubegpu_tpu_torch.models.paging import PagedContinuousBatcher
+
+    cb = PagedContinuousBatcher(ctx["params"], device="cuda", **ctx["kw"])
+    bodies = [{"request_id": f"c{i}", "prompt": p.tolist(),
+               "max_new_tokens": ctx["budgets"][i]}
+              for i, p in enumerate(ctx["prompts"])]
+    srv = ReplicaServer(cb).start()
+    try:
+        got, wall = post_concurrently(srv.port, bodies)
+    finally:
+        srv.stop()
+    assert srv.loop.error is None, srv.loop.error
+    wire, _ = check_streams(got, ctx["budgets"])
+    cb.assert_page_accounting()
+    agree, total = near_tie_agreement("card over the wire and cpu",
+                                      ctx["cfg"], ctx["dense"],
+                                      ctx["prompts"], ctx["cpu"], wire)
+    log(f"card over the wire vs cpu in process (fp32): {agree}/{total} "
+        f"tokens agree before any near-tie divergence; {len(wire)} streams "
+        f"in {wall:.3f} s")
+    del cb, srv
+    torch.cuda.empty_cache()
+
+
+def phase_http_worker() -> dict:
+    """The entry point: ``python -m kubegpu_tpu_torch.models.worker
+    --model decode --serve-http 0`` at the worker's defaults, in a
+    subprocess: it must advertise its port (room for a cold kernel
+    build), answer one submit with a full ``done`` and exit 0 on
+    SIGTERM.  The process is killed if anything fails."""
+    import os
+    import queue
+    import signal
+    import threading
+
+    cmd = [sys.executable, "-m", "kubegpu_tpu_torch.models.worker",
+           "--model", "decode", "--serve-http", "0"]
+    root = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.monotonic()
+    proc = subprocess.Popen(cmd, cwd=root, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    lines: "queue.Queue" = queue.Queue()
+
+    def pump():
+        for line in proc.stdout:
+            lines.put(line)
+        lines.put(None)
+
+    threading.Thread(target=pump, daemon=True).start()
+    out = []
+
+    def next_line(deadline):
+        try:
+            line = lines.get(timeout=max(0.0, deadline - time.monotonic()))
+        except queue.Empty:
+            raise AssertionError(f"worker timed out; output so far {out}")
+        if line is None:
+            raise AssertionError(f"worker exited {proc.wait()}: {out}")
+        out.append(line.rstrip())
+        return line
+
+    try:
+        deadline = t0 + 300
+        while True:
+            line = next_line(deadline)
+            if line.startswith("REPLICA_HTTP_SERVING"):
+                break
+        up_s = time.monotonic() - t0
+        fields = dict(f.split("=", 1) for f in line.split()[1:])
+        port = int(fields["port"])
+        events = sse_request(port, "/v1/submit", {
+            "request_id": "w", "prompt": [5, 6, 7, 8], "max_new_tokens": 8})
+        streams, _ = check_streams({0: events}, [8])
+        proc.send_signal(signal.SIGTERM)
+        rc = proc.wait(timeout=120)
+        while True:
+            try:
+                rest = lines.get(timeout=10)
+            except queue.Empty:
+                break
+            if rest is None:
+                break
+            out.append(rest.rstrip())
+        stopped = next(x for x in out if x.startswith("REPLICA_HTTP_STOPPED"))
+        log(f"worker --serve-http 0 at its defaults: {line.strip()}; "
+            f"REPLICA_HTTP_SERVING {up_s:.1f} s after the launch; one "
+            f"submit -> {len(streams[0])} tokens; {stopped}; exit {rc}")
+        assert rc == 0, out
+        assert "error=False" in stopped
+        return dict(serving_s=up_s)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
 
 
 def max_err(got, want, rtol, atol) -> tuple:
@@ -1315,6 +1721,12 @@ def main() -> int:
                         spec_k=DEFAULT_SPEC_K)
     phase_flagship(int8=True, base=DEFAULT_ARGV,
                    name="worker at its defaults")
+    # the HTTP replica: flagship plain and speculative over loopback, card
+    # against CPU over the wire, the worker's --serve-http entry point
+    phase_http_flagship()
+    phase_http_flagship(speculate=True)
+    phase_http_card_vs_cpu(small)
+    phase_http_worker()
     log(f"chip_smoke: all phases passed in {time.monotonic() - t0:.1f} s")
     source = "kubegpu_tpu_torch/ops/csrc/paged_attention.cu"
     kernels = []

@@ -53,6 +53,7 @@ from __future__ import annotations
 import hashlib
 import time
 from collections import OrderedDict, deque
+from contextlib import nullcontext
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Set
 
@@ -68,6 +69,9 @@ from kubegpu_tpu_torch.models.decoding import (
 )
 from kubegpu_tpu_torch.models.params import bind_params, resolve_device, tree_map
 from kubegpu_tpu_torch.models.serving import (
+    _observe_emit,
+    _SeqTrace,
+    _TracedBatcher,
     resolve_decode_page_cache,
     resolve_kv_dtype,
     validate_request,
@@ -267,13 +271,19 @@ class PrefixPageCache:
     pages.  Host-side accounting only; the K/V bytes live in the pool.
     Every entry carries a ``kind`` (``"prompt"`` for station-sealed
     pages, ``"decode"`` for pages sealed at retirement whose rows hold
-    decode-written K/V)."""
+    decode-written K/V), and the key of its chain predecessor, which
+    ``chains()`` counts for ``/v1/state``."""
 
     def __init__(self) -> None:
         self._entries: "OrderedDict[bytes, int]" = OrderedDict()
         self._refs: Dict[int, int] = {}
         self._key_of: Dict[int, bytes] = {}
         self._kind_of: Dict[int, str] = {}
+        # content-chain predecessor per entry (key j-1 of the same
+        # cumulative hash chain; None for a chain head).  Advisory:
+        # eviction can punch LRU holes mid-chain, which splits the chain
+        # in the count, exactly as admission sees it
+        self._prev: Dict[bytes, Optional[bytes]] = {}
 
     def lookup(self, key: bytes) -> Optional[int]:
         """Peek without taking a reference (admission feasibility)."""
@@ -287,8 +297,10 @@ class PrefixPageCache:
         self._refs[page] += 1
         return page
 
-    def insert(self, key: bytes, page: int, kind: str = "prompt") -> None:
-        """Register a freshly sealed page; the caller holds one ref."""
+    def insert(self, key: bytes, page: int, kind: str = "prompt",
+               prev: Optional[bytes] = None) -> None:
+        """Register a freshly sealed page; the caller holds one ref.
+        ``prev`` is the chain's preceding page key (None for page 0)."""
         assert key not in self._entries, "duplicate prefix key"
         assert page not in self._refs, "page already cached"
         assert kind in ("prompt", "decode"), f"unknown page kind {kind!r}"
@@ -296,6 +308,7 @@ class PrefixPageCache:
         self._refs[page] = 1
         self._key_of[page] = key
         self._kind_of[page] = kind
+        self._prev[key] = prev
 
     def release(self, page: int) -> None:
         self._refs[page] -= 1
@@ -319,11 +332,29 @@ class PrefixPageCache:
                 del self._refs[page]
                 del self._key_of[page]
                 del self._kind_of[page]
+                self._prev.pop(key, None)
                 return page
         return None
 
     def pages(self) -> Set[int]:
         return set(self._refs)
+
+    def chains(self) -> int:
+        """Distinct cached chains: entries no present entry names as its
+        predecessor (chain tails; divergent suffixes over one shared
+        prefix count once each, an LRU hole splits a chain in two — how
+        admission's longest-unbroken-prefix probe sees the cache)."""
+        referenced = {
+            p for k, p in self._prev.items()
+            if k in self._entries and p is not None and p in self._entries
+        }
+        return sum(1 for k in self._entries if k not in referenced)
+
+    def pages_by_kind(self) -> Dict[str, int]:
+        out = {"prompt": 0, "decode": 0}
+        for kind in self._kind_of.values():
+            out[kind] += 1
+        return out
 
     def assert_consistent(self) -> None:
         """entries/refs/keys/kinds describe exactly the same page set, and
@@ -371,6 +402,9 @@ class _Seq:
     # bumped every time the slot is (re)assigned, so a pipelined
     # in-flight step's results are never credited to a later occupant
     gen: int = 0
+    # slot-owned trace state from admission to retirement (see
+    # _TracedBatcher's ownership model); None when untraced
+    trace: Optional[_SeqTrace] = None
 
 
 @dataclass
@@ -385,6 +419,7 @@ class _PrefillJob:
     keys: List[bytes]        # chain hashes of sharable full prompt pages
     pos: int                 # prompt rows already prefilled (or cached)
     next_scatter: int        # next page index to scatter from the station
+    started: bool = False    # its first chunk ran (prefill wait observed)
 
 
 @dataclass
@@ -394,11 +429,16 @@ class _Inflight:
     once on the CPU) — a plain step's tokens ``(slots,)``, or a
     speculative iteration's ``(slots, k + 3)`` pack of the window's
     choices, the emitted length and the ring-wrap flag; ``cand`` maps
-    slot -> its admission generation at dispatch."""
+    slot -> its admission generation at dispatch; ``td0``/``tv0``/``tv1``
+    stamp a speculative iteration's draft and verify dispatch windows
+    (its trace spans)."""
 
     cand: Dict[int, int]
     toks: torch.Tensor
     event: Optional[torch.cuda.Event] = None
+    td0: float = 0.0
+    tv0: float = 0.0
+    tv1: float = 0.0
 
 
 def _not_ported(knob: str, arrives_with: str) -> NotImplementedError:
@@ -454,11 +494,9 @@ def _validate_speculation(k, draft_window, draft_params, draft_num_layers,
 SAMPLING_SLICE = "the sampling slice"
 TP_SLICE = "the tensor-parallel slice"
 MIGRATION_SLICE = "the migration slice (disaggregated prefill and handoff)"
-HTTP_SLICE = ("the HTTP replica slice (metrics, request tracing and the "
-              "ledger ride its data plane)")
 
 
-class PagedContinuousBatcher:
+class PagedContinuousBatcher(_TracedBatcher):
     """Greedy continuous batching with a shared KV page pool and prefix
     reuse — the JAX package's ``PagedContinuousBatcher`` at full width.
 
@@ -496,12 +534,23 @@ class PagedContinuousBatcher:
     sequence reserves k more rows of pages, for the verify window's junk
     tail; a token budget bills k+1 rows per active slot.
 
+    Observability, as in the JAX package: ``metrics`` (a
+    ``utils.metrics.Metrics``) receives the ``serve_*`` series of
+    ``utils/metric_names.py``; ``tracer`` (a ``utils.tracing.Tracer``),
+    or a ``trace`` context passed to ``submit``, gives each request a
+    ``serve`` subtree (queue, prefix_gather, station_wait, prefill with
+    its chunks, decode with its spec_draft/spec_verify children, one
+    retire); every ``serve_step`` appends a row to a ledger of the last
+    ``ledger_size`` iterations (``ledger_rows``), whose ``device_ms`` is
+    the time the loop blocked on its token readback and ``host_ms`` the
+    rest of the iteration.
+
     The constructor keeps the JAX signature.  Knobs of later slices
     (sampling, sampled speculation, tensor parallelism, prefill-only
-    serving, metrics/tracing) raise ``NotImplementedError``
-    naming the slice; ``seed`` keys sampled streams only, and greedy
-    serving ignores it.  ``device`` defaults to ``"cuda"`` and raises
-    without a card; the CPU runs only when asked for (``device="cpu"``)."""
+    serving) raise ``NotImplementedError`` naming the slice; ``seed``
+    keys sampled streams only, and greedy serving ignores it.
+    ``device`` defaults to ``"cuda"`` and raises without a card; the CPU
+    runs only when asked for (``device="cpu"``)."""
 
     def __init__(
         self,
@@ -549,8 +598,6 @@ class PagedContinuousBatcher:
             raise _not_ported("mesh", TP_SLICE)
         if prefill_only:
             raise _not_ported("prefill_only", MIGRATION_SLICE)
-        if metrics is not None or tracer is not None or ledger_size != 512:
-            raise _not_ported("metrics/tracer/ledger", HTTP_SLICE)
         if prompt_pad > max_seq:
             raise ValueError(
                 f"prompt_pad ({prompt_pad}) exceeds max_seq ({max_seq})"
@@ -594,6 +641,17 @@ class PagedContinuousBatcher:
             and prefix_cache
         )
         self.device = dev = resolve_device(device)
+        # the stream the batcher's work is ordered on; a serving thread
+        # other than this one binds it before it steps the batcher
+        self.stream = (torch.cuda.current_stream(dev)
+                       if dev.type == "cuda" else None)
+        self.metrics = None
+        self.tracer = tracer
+        self._traces: Dict[int, _SeqTrace] = {}
+        self._ledger: deque = deque(maxlen=ledger_size)
+        self.tp = 1
+        self._last_prefill_rows = 0
+        self._sync_wait_s = 0.0
         self.slots = slots
         self.prompt_pad = prompt_pad
         self.page = page_size
@@ -646,6 +704,9 @@ class PagedContinuousBatcher:
                               * page_size * hd * kv_item)
         self.pool_scale_bytes = (2 * num_layers * pool_pages * num_heads * 4
                                  if self.kv_quant else 0)
+        self.pool_bytes_per_device = (
+            (self.pool_kv_bytes + self.pool_scale_bytes) // self.tp)
+        self.attach_metrics(metrics)
         # page 0 is the permanent DUMP page, never allocated: the step
         # runs every slot, and an idle slot's K/V write must land where
         # it can never belong to a live sequence — its table points at
@@ -755,6 +816,36 @@ class PagedContinuousBatcher:
         self._d_pos = np.zeros((self.slots,), np.int32)   # host mirror
         self._d_pos_dev = torch.zeros((self.slots,), dtype=torch.int32,
                                       device=dev)
+
+    def attach_metrics(self, metrics) -> None:
+        """Send the batcher's ``serve_*`` series to ``metrics`` (None
+        stops them) — at construction, or after a warm-up whose requests
+        the registry should not count.  Sets the construction-constant
+        gauges once, off the step path."""
+        self.metrics = metrics
+        if metrics is not None:
+            metrics.set_gauge("serve_tp_devices", float(self.tp))
+            metrics.set_gauge("serve_tp_pool_bytes_per_device",
+                              float(self.pool_bytes_per_device))
+            self._set_pool_bytes_gauges()
+
+    def _set_pool_bytes_gauges(self) -> None:
+        """Resting pool bytes by storage dtype: an int8 pool reports its
+        int8 page bytes and its float32 scale bytes as two series, a
+        full-width pool one series at its compute dtype."""
+        if self.kv_quant:
+            self.metrics.set_gauge("serve_pool_kv_bytes",
+                                   float(self.pool_kv_bytes), dtype="int8")
+            self.metrics.set_gauge("serve_pool_kv_bytes",
+                                   float(self.pool_scale_bytes),
+                                   dtype="float32")
+        else:
+            self.metrics.set_gauge("serve_pool_kv_bytes",
+                                   float(self.pool_kv_bytes),
+                                   dtype=self.kv_dtype)
+
+    def _trace_holders(self):
+        return self._seqs
 
     # -- page accounting ---------------------------------------------------
     def _pages_for(self, plen: int, max_new: int) -> int:
@@ -995,7 +1086,8 @@ class PagedContinuousBatcher:
         stream = np.concatenate([np.asarray(s.prompt, np.int32),
                                  np.asarray(s.tokens, np.int32)])
         keys = chain_keys(stream, self.page, n_full)
-        to_seal = [(s.pages[j], keys[j], "prompt" if j < n_prompt else "decode")
+        to_seal = [(s.pages[j], keys[j], "prompt" if j < n_prompt else "decode",
+                    keys[j - 1] if j else None)
                    for j in range(n_full)
                    if s.pages[j] not in s.shared
                    and self.prefix_cache.lookup(keys[j]) is None]
@@ -1003,18 +1095,41 @@ class PagedContinuousBatcher:
             return
         if self.kv_quant:
             # the pages are private, so no reader sees the rewrite
-            idx = torch.tensor([p for p, _, _ in to_seal], dtype=torch.long,
-                               device=self.device)
+            idx = torch.tensor([p for p, _, _, _ in to_seal],
+                               dtype=torch.long, device=self.device)
             for kent, vent in self.pools:
                 for data, scale in (kent, vent):
                     data[idx], scale[idx] = requantize_tight(data[idx],
                                                              scale[idx])
             self.stats["seal_requants"] += len(to_seal)
-        for phys, key, kind in to_seal:
-            self.prefix_cache.insert(key, phys, kind=kind)
+        for phys, key, kind, prev in to_seal:
+            self.prefix_cache.insert(key, phys, kind=kind, prev=prev)
             s.shared.add(phys)
             if kind == "decode":
                 self.stats["decode_pages_sealed"] += 1
+                if self.metrics is not None:
+                    self.metrics.inc("serve_decode_pages_sealed_total")
+
+    def prefix_cache_stats(self) -> dict:
+        """The prefix-cache economy a replica exposes at ``/v1/state``:
+        cached chains, resident pages by kind, and the hit/miss token
+        counters split per ``prompt|decode`` kind."""
+        if self.prefix_cache is None:
+            chains, by_kind, idle = 0, {"prompt": 0, "decode": 0}, 0
+        else:
+            chains = self.prefix_cache.chains()
+            by_kind = self.prefix_cache.pages_by_kind()
+            idle = self.prefix_cache.idle_count()
+        return {
+            "chains": chains,
+            "pages": by_kind,
+            "idle_pages": idle,
+            "hit_tokens": {
+                "prompt": self.stats["prefix_hit_tokens_prompt"],
+                "decode": self.stats["prefix_hit_tokens_decode"],
+            },
+            "miss_tokens": self.stats["prefix_miss_tokens"],
+        }
 
     # -- admission ---------------------------------------------------------
     def _validate(self, prompt: np.ndarray, max_new: int) -> int:
@@ -1067,6 +1182,11 @@ class PagedContinuousBatcher:
                     return False
         if need - len(hits) > self._available_pages(set(hits)):
             return False  # defer until retirements/evictions free pages
+        tr = self._traces.pop(seq_id, None)
+        if tr is not None:
+            # the queue phase ends at admission commit (pool and station
+            # secured); gather and station residency get their own spans
+            self._trace_phase_end(tr, "queue")
         station = min(set(range(self.station_slots)) - set(self._jobs))
         for j, key in enumerate(keys[: len(hits)]):
             acquired = self.prefix_cache.acquire(key)
@@ -1081,6 +1201,7 @@ class PagedContinuousBatcher:
         s.tokens, s.remaining = [], max_new
         s.pages, s.shared = hits + fresh, set(hits)
         s.submitted_at = submitted_at
+        s.trace = tr
         hit_rows = len(hits) * self.page
         # hits split by the hit page's kind: station-sealed prompt pages
         # or retirement-sealed decode pages (a next turn reaching
@@ -1092,9 +1213,28 @@ class PagedContinuousBatcher:
         self.stats["prefix_hit_tokens_decode"] += decode_hit_rows
         self.stats["prefix_miss_tokens"] += (len(keys) - len(hits)) * self.page
         self.stats["prompt_tokens"] += plen
+        if self.metrics is not None:
+            # kind-labeled only: an unlabeled sibling series would double
+            # count every hit under a plain sum over the family
+            prompt_hit_rows = hit_rows - decode_hit_rows
+            if prompt_hit_rows:
+                self.metrics.inc("serve_prefix_hit_tokens_total",
+                                 prompt_hit_rows, kind="prompt")
+            if decode_hit_rows:
+                self.metrics.inc("serve_prefix_hit_tokens_total",
+                                 decode_hit_rows, kind="decode")
+            self.metrics.inc("serve_prompt_tokens_total", plen)
         # hit rows need station residency only if chunks run after them
         if hits and hit_rows < plen - 1:
+            gspan = (tr.serve.child("prefix_gather", pages=len(hits),
+                                    hit_rows=hit_rows)
+                     if tr is not None else None)
             self._gather_pages(station, hits)
+            if gspan is not None:
+                gspan.end()
+        if tr is not None:
+            self._trace_phase_start(tr, "station_wait", hit_rows=hit_rows,
+                                    pages=need)
         self._jobs[station] = _PrefillJob(
             slot=slot, station=station, seq_id=seq_id, prompt=prompt,
             plen=plen, keys=keys, pos=hit_rows, next_scatter=len(hits),
@@ -1126,8 +1266,9 @@ class PagedContinuousBatcher:
                 and (j + 1) * self.page <= job.pos
                 and self.prefix_cache.lookup(job.keys[j]) is None
             ):
-                self.prefix_cache.insert(job.keys[j], s.pages[j],
-                                         kind="prompt")
+                self.prefix_cache.insert(
+                    job.keys[j], s.pages[j], kind="prompt",
+                    prev=job.keys[j - 1] if j else None)
                 s.shared.add(s.pages[j])
         job.next_scatter = hi
 
@@ -1160,6 +1301,14 @@ class PagedContinuousBatcher:
             self._d_pos[slot] = job.plen - 1
             self._d_pos_dev[slot] = job.plen - 1
         s.prefilling, s.active = False, True
+        tr = s.trace
+        if tr is not None:
+            t = time.monotonic()
+            # full-prefix hits go straight station_wait -> decode (zero
+            # chunks); everyone else closes the prefill phase here
+            self._trace_phase_end(tr, "station_wait", t=t)
+            self._trace_phase_end(tr, "prefill", t=t)
+            self._trace_phase_start(tr, "decode", t=t)
 
     def _chunk(self, rows: torch.Tensor, starts: torch.Tensor,
                stations: List[int]) -> None:
@@ -1174,11 +1323,19 @@ class PagedContinuousBatcher:
             ck[idx] = sk
             cv[idx] = sv
 
+    def _observe_prefill_wait(self, job: _PrefillJob) -> None:
+        if self.metrics is not None:
+            self.metrics.observe(
+                "serve_prefill_wait_seconds",
+                time.monotonic() - self._seqs[job.slot].submitted_at,
+            )
+
     def _advance_prefill(self) -> None:
         """The token-budget step packer: rounds of one batched station
         chunk each, every round advancing each in-flight admission (FIFO
         order) one page, up to ``prefill_chunk`` rows per admission and
         ``token_budget`` rows (decode tokens included) per iteration."""
+        self._last_prefill_rows = 0
         if self._jobs:
             if self.token_budget is None:
                 pages_left = None
@@ -1208,15 +1365,33 @@ class PagedContinuousBatcher:
                 for i, (_, job, end) in enumerate(picked):
                     rows[i, : end - job.pos] = job.prompt[job.pos:end]
                 starts = np.array([job.pos for _, job, _ in picked], np.int32)
+                t0 = time.monotonic()
                 self._chunk(
                     torch.from_numpy(rows).to(self.device),
                     torch.from_numpy(starts).to(self.device),
                     [st for st, _, _ in picked],
                 )
+                t1 = time.monotonic()
                 for st, job, end in picked:
+                    if not job.started:
+                        job.started = True
+                        self._observe_prefill_wait(job)
+                    tr = self._seqs[job.slot].trace
+                    if tr is not None:
+                        if "prefill" not in tr.open:
+                            self._trace_phase_end(tr, "station_wait", t=t0)
+                            self._trace_phase_start(tr, "prefill", t=t0)
+                        # chunk spans share the batched chunk's dispatch
+                        # window: one call advanced every picked job
+                        tr.open["prefill"].child(
+                            "chunk", t=t0, rows_start=job.pos, rows_end=end,
+                        ).end(t=t1)
+                    self._last_prefill_rows += end - job.pos
                     job.pos = end
                     advanced[st] += 1
                     self.stats["prefill_chunks"] += 1
+                    if self.metrics is not None:
+                        self.metrics.inc("serve_prefill_chunks_total")
                     self._scatter_ready_pages(job)
                 if pages_left is not None:
                     pages_left -= len(picked)
@@ -1227,6 +1402,9 @@ class PagedContinuousBatcher:
         done = [st for st, j in self._jobs.items() if j.pos >= j.plen - 1]
         for st in done:
             job = self._jobs.pop(st)
+            if not job.started:
+                job.started = True
+                self._observe_prefill_wait(job)
             self._scatter_ready_pages(job)
             self._activate(job)
 
@@ -1239,7 +1417,10 @@ class PagedContinuousBatcher:
         """Queue one greedy request.  Validates shape and worst-case pool
         limits eagerly (a request that can never fit fails here, not
         mid-loop) and computes its prefix chain keys.  ``session_id`` is
-        advisory: prefix sharing is content-addressed."""
+        advisory: prefix sharing is content-addressed.  ``trace`` is an
+        optional caller span (the replica's request root, or a gateway's
+        dispatch span): the request's ``serve`` subtree nests under it;
+        otherwise the batcher's own ``tracer``, if any, roots one."""
         if seq_id < 0:
             raise ValueError(f"seq_id must be >= 0, got {seq_id}")
         if self.speculate_k is not None and temperature > 0.0:
@@ -1252,13 +1433,12 @@ class PagedContinuousBatcher:
         if temperature > 0.0 or seed is not None:
             raise _not_ported("sampled requests (temperature > 0, seed)",
                               SAMPLING_SLICE)
-        if trace is not None:
-            raise _not_ported("request tracing", HTTP_SLICE)
         prompt = np.asarray(prompt, np.int32)
         plen = self._validate(prompt, max_new)
         keys: List[bytes] = []
         if self.prefix_cache is not None and max_new > 0:
             keys = chain_keys(prompt, self.page, (plen - 1) // self.page)
+        self._trace_begin(seq_id, plen, max_new, trace)
         self._pending.append(
             (seq_id, prompt, max_new, time.monotonic(), keys)
         )
@@ -1270,6 +1450,7 @@ class PagedContinuousBatcher:
         for i, item in enumerate(self._pending):
             if item[0] == seq_id:
                 del self._pending[i]
+                self._trace_retire_queued(seq_id, "cancelled")
                 return True
         for i, s in enumerate(self._seqs):
             if s.seq_id == seq_id:
@@ -1278,19 +1459,22 @@ class PagedContinuousBatcher:
                         # the station rows become garbage; the next job
                         # there overwrites them before it attends
                         del self._jobs[st]
-                self._teardown_slot(i, s)
+                self._teardown_slot(i, s, reason="cancelled")
                 s.active, s.prefilling = False, False
                 s.tokens, s.remaining = [], 0
                 return True
         return False
 
-    def _teardown_slot(self, i: int, s: _Seq) -> None:
-        """The shared retirement/cancel epilogue: seal the complete pages
-        (a policy-gated no-op unless the sequence committed tokens),
-        release the rest and park the slot on the dump page, host mirror
-        and device lane.  Sealing comes first: it turns complete private
-        pages cache-owned, so the release leaves them idle in the cache
-        instead of freeing them."""
+    def _teardown_slot(self, i: int, s: _Seq,
+                       reason: str = "finished") -> None:
+        """The shared retirement/cancel epilogue: close the request's
+        trace (exactly one ``retire``), seal the complete pages (a
+        policy-gated no-op unless the sequence committed tokens), release
+        the rest and park the slot on the dump page, host mirror and
+        device lane.  Sealing comes before release: it turns complete
+        private pages cache-owned, so the release leaves them idle in the
+        cache instead of freeing them."""
+        self._trace_retire_slot(s, reason)
         self._seal_finished_pages(s)
         self._release_pages(s)
         s.seq_id = -1
@@ -1354,6 +1538,7 @@ class PagedContinuousBatcher:
                     s.seq_id, s.active = nxt[0], False
                     s.gen += 1
                     s.prefilling, s.tokens, s.remaining = False, [], 0
+                    s.trace = self._traces.pop(nxt[0], None)
                     self._pending.popleft()
                     self.stats["admits"] += 1
                     progress = True
@@ -1372,8 +1557,11 @@ class PagedContinuousBatcher:
         read tokens at the one readback point — one step late when
         ``pipeline_decode`` is on.  A slot awaiting its FIRST token reads
         back at once, so time to first token keeps synchronous
-        semantics."""
+        semantics.  The iteration's ledger row is recorded last."""
+        t_begin = time.monotonic()
+        self._sync_wait_s = 0.0
         finished: Dict[int, List[int]] = {}
+        spec_emitted = 0
         self._sweep(finished)
         self._advance_prefill()
         n_active = sum(1 for s in self._seqs if s.active)
@@ -1388,13 +1576,17 @@ class PagedContinuousBatcher:
             and not any(s.active and not s.tokens for s in self._seqs)
         ) else 0
         while len(self._inflight) > keep:
-            self._process_entry(self._inflight.popleft())
+            spec_emitted += self._process_entry(self._inflight.popleft())
         if n_active:
             self._sweep(finished)
             if not any(s.seq_id >= 0 for s in self._seqs):
                 # every sequence retired: the overhang step is all junk
                 while self._inflight:
-                    self._process_entry(self._inflight.popleft())
+                    spec_emitted += self._process_entry(
+                        self._inflight.popleft())
+        host_s = (time.monotonic() - t_begin) - self._sync_wait_s
+        self._ledger_record(n_active, spec_emitted, host_s,
+                            self._sync_wait_s)
         return finished
 
     def _loop_state(self):
@@ -1574,27 +1766,52 @@ class PagedContinuousBatcher:
         one int32 tensor, the iteration's only readback."""
         cand = {i: s.gen for i, s in enumerate(self._seqs) if s.active}
         last, table, pos, active, remaining, d_pos = self._loop_state()
-        proposals, d_pos_w, wrapped = self._spec_draft(last, d_pos, active)
-        (choices, emit_len, self._last_dev, self._pos_dev, self._d_pos_dev,
-         self._active_dev, self._remaining_dev) = self._spec_verify(
-            last, proposals, table, pos, d_pos_w, active, remaining)
+        if self.metrics is not None:
+            draft_ctx = self.metrics.timer("serve_spec_draft_seconds")
+            verify_ctx = self.metrics.timer("serve_spec_verify_seconds")
+        else:
+            draft_ctx = verify_ctx = nullcontext()
+        # pipelined, the timers measure dispatch windows; synchronous,
+        # each is fenced so it holds its own program's device time
+        fence = (self.metrics is not None and not self.pipeline_decode
+                 and self.stream is not None)
+        td0 = time.monotonic()
+        with draft_ctx:
+            proposals, d_pos_w, wrapped = self._spec_draft(last, d_pos,
+                                                           active)
+            if fence:
+                self.stream.synchronize()
+        tv0 = time.monotonic()
+        with verify_ctx:
+            (choices, emit_len, self._last_dev, self._pos_dev,
+             self._d_pos_dev, self._active_dev,
+             self._remaining_dev) = self._spec_verify(
+                last, proposals, table, pos, d_pos_w, active, remaining)
+            if fence:
+                self.stream.synchronize()
+        tv1 = time.monotonic()
         packed = torch.cat([choices, emit_len[:, None],
                             wrapped.to(torch.int32)[:, None]], 1)
         self.stats["steps"] += 1
         self.stats["spec_steps"] += 1
-        self._inflight.append(_Inflight(cand, *self._read_back(packed)))
+        self._inflight.append(_Inflight(cand, *self._read_back(packed),
+                                        td0=td0, tv0=tv0, tv1=tv1))
 
-    def _process_entry(self, entry: _Inflight) -> None:
+    def _process_entry(self, entry: _Inflight) -> int:
         """The one readback point: wait for a dispatched iteration's
         results and replay its integer arithmetic on the host mirrors —
         token append, budget/EOS retirement (and, speculating, the
-        ring wrap and the window's truncation).  Lanes whose slot changed
-        occupant since dispatch are junk and dropped."""
+        ring wrap and the window's truncation), tracing and metrics.
+        Lanes whose slot changed occupant since dispatch are junk and
+        dropped.  The wait counts as the iteration's ``device_ms``.
+        Returns the tokens a speculative iteration committed."""
+        t0 = time.monotonic()
         if entry.event is not None:
             entry.event.synchronize()
         toks_h = entry.toks.numpy()
-        now = time.monotonic()
+        self._sync_wait_s += time.monotonic() - t0
         k = self.speculate_k
+        spec_emitted = 0
         for i, s in enumerate(self._seqs):
             gen = entry.cand.get(i)
             if gen is None or s.gen != gen or not s.active:
@@ -1620,16 +1837,102 @@ class PagedContinuousBatcher:
                 emitted = [int(t) for t in toks_h[i, :e]][: s.remaining]
                 if self.eos_id is not None and self.eos_id in emitted:
                     emitted = emitted[: emitted.index(self.eos_id) + 1]
-                self.stats["spec_tokens"] += len(emitted)
-            if not s.tokens:
-                self.first_token_s[s.seq_id] = now - s.submitted_at
-            s.tokens.extend(emitted)
-            s.last_emit_at = now
+                spec_emitted += len(emitted)
+                tr = s.trace
+                if tr is not None and "decode" in tr.open:
+                    # one draft and one verify span per iteration per
+                    # traced slot, sharing the iteration's dispatch
+                    # windows (one draft scan and one verify covered
+                    # every slot)
+                    decode = tr.open["decode"]
+                    decode.child("spec_draft", t=entry.td0, k=k).end(
+                        t=entry.tv0)
+                    decode.child("spec_verify", t=entry.tv0, accepted=e,
+                                 emitted=len(emitted)).end(t=entry.tv1)
+                if self.metrics is not None:
+                    self.metrics.observe("serve_spec_accept_rate",
+                                         (e - 1) / k, mode="greedy")
+            for t in emitted:
+                first = not s.tokens
+                s.tokens.append(t)
+                _observe_emit(self.metrics, s, first=first)
+                if first:
+                    self.first_token_s[s.seq_id] = (s.last_emit_at
+                                                    - s.submitted_at)
+                    self._trace_first_token(s)
             s.remaining -= len(emitted)
             if s.remaining <= 0 or (
                 self.eos_id is not None and emitted[-1] == self.eos_id
             ):
                 s.active = False
+        if k is not None:
+            self.stats["spec_tokens"] += spec_emitted
+            if self.metrics is not None:
+                # tokens_per_step / steps_total is the mean multi-token
+                # yield per verify
+                self.metrics.inc("serve_spec_tokens_per_step", spec_emitted)
+                self.metrics.inc("serve_spec_steps_total")
+        return spec_emitted
+
+    # -- the step ledger -----------------------------------------------------
+    def _ledger_record(self, n_active: int, spec_emitted: int,
+                       host_s: float = 0.0, device_s: float = 0.0) -> None:
+        """Append this iteration's row to the bounded ledger and mirror it
+        as gauges: rows spent against the budget, station occupancy, the
+        page economy, speculation yield, and the host/device split —
+        ``host_ms`` is the iteration's host-side time, ``device_ms`` the
+        time it spent blocked on the token readback.  The row keys are
+        the JAX batcher's; at tensor-parallel width 1 ``tp`` is 1 and
+        ``collective_bytes`` 0."""
+        rows = self._last_prefill_rows + n_active * (
+            (self.speculate_k + 1) if self.speculate_k is not None else 1
+        )
+        cached = (
+            len(self.prefix_cache) if self.prefix_cache is not None else 0
+        )
+        row = {
+            "step": self.stats["steps"],
+            "t": time.monotonic(),
+            "rows": rows,
+            "budget": self.token_budget or 0,
+            "station_busy": len(self._jobs),
+            "station_slots": self.station_slots,
+            "active": n_active,
+            "pending": len(self._pending),
+            "pages_free": len(self.free_pages),
+            "pages_live": self.pages_in_use(),
+            "pages_cached": cached,
+            "cache_idle": (
+                self.prefix_cache.idle_count()
+                if self.prefix_cache is not None else 0
+            ),
+            "decode_pages_sealed": self.stats["decode_pages_sealed"],
+            "prefix_hit_tokens": self.stats["prefix_hit_tokens"],
+            "spec_tokens": spec_emitted,
+            "host_ms": round(host_s * 1e3, 3),
+            "device_ms": round(device_s * 1e3, 3),
+            "tp": self.tp,
+            "collective_bytes": 0,
+            "pool_bytes_per_device": self.pool_bytes_per_device,
+            "kv_dtype": self.kv_dtype,
+            "pool_kv_bytes": self.pool_kv_bytes,
+            "pool_scale_bytes": self.pool_scale_bytes,
+        }
+        self._ledger.append(row)
+        if self.metrics is not None:
+            self.metrics.set_gauge("serve_step_host_ms", row["host_ms"])
+            self.metrics.set_gauge("serve_step_device_ms", row["device_ms"])
+            self.metrics.set_gauge("serve_step_rows", float(rows))
+            self.metrics.set_gauge("serve_pool_pages_free",
+                                   float(row["pages_free"]))
+            self.metrics.set_gauge("serve_pool_pages_live",
+                                   float(row["pages_live"]))
+            self.metrics.set_gauge("serve_pool_pages_cached", float(cached))
+
+    def ledger_rows(self, limit: Optional[int] = None) -> List[dict]:
+        """The most recent ledger rows (oldest first), up to ``limit``."""
+        rows = list(self._ledger)
+        return rows[-limit:] if limit is not None else rows
 
     # -- the batch convenience loop ----------------------------------------
     @torch.no_grad()

@@ -18,12 +18,28 @@ streams are the non-speculative ones, token for token, at fp32.
 with per-page, per-head scales, read by K1q/K2q; ``--int8`` serves
 weight-only int8 weights (printing ``SERVING_INT8``);
 ``--decode-page-cache`` lets retirement seal decode-produced pages into
-the prefix chain.
+the prefix chain.  ``--serve`` replays waves forever after the timed
+one, printing ``SERVING tokens_per_sec=`` per wave.
 
     python -m kubegpu_tpu_torch.models.worker --model decode --serving paged \\
         --vocab 32768 --hidden 4096 --heads 32 --layers 4 \\
         --prompt-len 128 --batch-per-chip 8 --steps 64 [--speculate] \\
         [--kv-dtype int8] [--int8] [--decode-page-cache quantized]
+
+``--serve-http PORT`` serves the batcher as a replica HTTP endpoint
+instead (``gateway/dataplane.py``, the JAX replica's wire schema): it
+builds the batcher, warms every kernel and path it runs (the decode
+step or, with ``--speculate``, the draft scan and the verify; prefill,
+page scatter and gather), then prints ``REPLICA_HTTP_SERVING port=N
+serving=paged role=flex tls=0|1 seconds=S`` and serves ``POST
+/v1/submit`` (SSE), ``POST /v1/cancel``, ``GET /v1/state``, ``GET
+/healthz`` and ``GET /metrics`` until SIGTERM, when it prints
+``REPLICA_HTTP_STOPPED`` and exits 0.  ``--serve-http-tls-cert/-key``
+serve HTTPS, ``--serve-http-auth-token-file`` gates ``/v1/*`` behind a
+bearer token, ``--serve-http-step-delay`` slows the loop (a test knob).
+
+    python -m kubegpu_tpu_torch.models.worker --model decode --serving paged \\
+        --serve-http 0 [--speculate] [--kv-dtype int8]
 
 ``--model lm`` trains ``TransformerLM`` (bf16 compute over float32
 weights drawn fresh from seed 0, nesterov SGD) on the JAX worker's
@@ -68,6 +84,7 @@ from kubegpu_tpu_torch.models.serving import (
 )
 from kubegpu_tpu_torch.models.train import create_train_state, lm_step
 from kubegpu_tpu_torch.models.transformer import TransformerLM
+from kubegpu_tpu_torch.ops import _build
 from kubegpu_tpu_torch.ops.attention import (
     flash_backward_delta,
     flash_backward_dkdv,
@@ -78,6 +95,7 @@ from kubegpu_tpu_torch.ops.paged_attention import (
     paged_chunk_attention,
     paged_decode_attention,
 )
+from kubegpu_tpu_torch.utils.metrics import Metrics
 
 WEIGHT_SEED = 0
 # the draft's weights come from their own seed (the JAX worker's draft
@@ -154,6 +172,30 @@ def build_parser() -> argparse.ArgumentParser:
                     "host-to-device copies; resident = one constant batch")
     ap.add_argument("--data-pool", type=int, default=8,
                     help="lm --data synthetic: distinct batches to cycle")
+    ap.add_argument("--serve", action="store_true",
+                    help="decode: replay waves forever after the timed one "
+                    "(default: a warm-up wave and a timed wave, then exit)")
+    ap.add_argument("--serve-http", type=int, default=None, metavar="PORT",
+                    help="decode: serve as a replica HTTP endpoint on this "
+                    "port (0 = ephemeral; the chosen port prints as "
+                    "REPLICA_HTTP_SERVING) — POST /v1/submit streams "
+                    "committed token batches as SSE, /v1/cancel frees pages, "
+                    "/v1/state, /healthz and /metrics answer the gateway")
+    ap.add_argument("--serve-http-step-delay", type=float, default=0.0,
+                    metavar="S",
+                    help="--serve-http: sleep this long between serving "
+                    "iterations (0 = flat out); slows the loop so cancels "
+                    "land provably mid-stream")
+    ap.add_argument("--serve-http-tls-cert", default=None, metavar="PEM",
+                    help="--serve-http: serve HTTPS with this certificate "
+                    "(pair with --serve-http-tls-key)")
+    ap.add_argument("--serve-http-tls-key", default=None, metavar="PEM",
+                    help="PEM private key for --serve-http-tls-cert")
+    ap.add_argument("--serve-http-auth-token-file", default=None,
+                    metavar="FILE",
+                    help="--serve-http: require 'Authorization: Bearer "
+                    "<token>' (the file's contents) on every /v1/* verb; "
+                    "/healthz and /metrics stay open")
     ap.add_argument("--device", choices=["cuda", "cpu"], default="cuda")
     return ap
 
@@ -261,9 +303,36 @@ def build_batcher(args: argparse.Namespace) -> PagedContinuousBatcher:
     )
 
 
-def run_decode(args: argparse.Namespace) -> Dict[str, object]:
+def warm_batcher(cb: PagedContinuousBatcher) -> None:
+    """Pay every first-use cost before traffic: build the kernel
+    libraries, then serve two full-length prompts that share all their
+    full pages, one after the other, so the station prefill, the page
+    scatter, the prefix gather (where the prompt spans more than a page
+    past the hit), the decode step (K1) or the draft scan and verify
+    (K2), and retirement sealing all run once.  The batcher's stats and
+    step ledger are reset after, so they count served traffic only."""
+    if cb.device.type == "cuda":
+        _build.build()
+    prompt = (np.arange(cb.prompt_pad, dtype=np.int32) * 7 + 1) % (
+        cb.model.vocab_size)
+    budget = max(1, min(2, cb.max_seq - cb.prompt_pad
+                        - (cb.speculate_k or 0)))
+    for seq in (0, 1):
+        cb.submit(seq, prompt, budget)
+        while cb.has_work():
+            cb.serve_step()
+    if cb.device.type == "cuda":
+        torch.cuda.synchronize(cb.device)
+    cb._reset_stats()
+    cb._ledger.clear()
+
+
+def run_decode(args: argparse.Namespace,
+               report=None) -> Dict[str, object]:
     """Build the batcher, serve a warm-up wave and a timed wave, and
-    return what was measured (the CLI prints it)."""
+    return what was measured (the CLI prints it).  With ``--serve`` it
+    hands that to ``report`` and then replays waves forever, printing
+    ``SERVING tokens_per_sec=`` after each."""
     t0 = time.monotonic()
     cb = build_batcher(args)
     device = cb.device
@@ -296,7 +365,7 @@ def run_decode(args: argparse.Namespace) -> Dict[str, object]:
     total = sum(len(v) for v in out.values())
     k1, k1q, k2, k2q = (getattr(fn, attr) - n
                         for (fn, attr), n in zip(counters, launches0))
-    return {
+    result = {
         "first_decode_s": first_s,
         "tokens": total,
         "tokens_per_sec": total / dt,
@@ -321,6 +390,67 @@ def run_decode(args: argparse.Namespace) -> Dict[str, object]:
         "outputs": out,
         "device": str(device),
     }
+    if args.serve:
+        if report is not None:
+            report(result)
+        while True:
+            out, dt = wave()
+            total = sum(len(v) for v in out.values())
+            print(f"SERVING tokens_per_sec={total / dt:.1f}", flush=True)
+    return result
+
+
+def serve_http(args: argparse.Namespace, t0: float) -> int:
+    """``--serve-http``: expose the batcher as a replica HTTP endpoint
+    (``gateway/dataplane.py``) until SIGTERM.  The device is checked
+    (``build_batcher`` raises without a card unless ``--device cpu``)
+    and every kernel warmed before the port is bound and advertised."""
+    import signal
+    import threading
+
+    from kubegpu_tpu_torch.gateway.dataplane import ReplicaServer
+
+    if bool(args.serve_http_tls_cert) != bool(args.serve_http_tls_key):
+        raise SystemExit(
+            "--serve-http-tls-cert and --serve-http-tls-key must be given "
+            "together")
+    auth_token = None
+    if args.serve_http_auth_token_file:
+        with open(args.serve_http_auth_token_file) as f:
+            auth_token = f.read().strip()
+    cb = build_batcher(args)
+    warm_batcher(cb)
+    metrics = Metrics()
+    cb.attach_metrics(metrics)
+    counters = {"K1": (paged_decode_attention, "launches"),
+                "K1q": (paged_decode_attention, "int8_launches"),
+                "K2": (paged_chunk_attention, "launches"),
+                "K2q": (paged_chunk_attention, "int8_launches")}
+    launches0 = {k: getattr(fn, a) for k, (fn, a) in counters.items()}
+    server = ReplicaServer(
+        cb, listen=("0.0.0.0", args.serve_http), metrics=metrics,
+        step_delay_s=args.serve_http_step_delay,
+        tls_cert=args.serve_http_tls_cert, tls_key=args.serve_http_tls_key,
+        auth_token=auth_token,
+    ).start()
+    print(f"REPLICA_HTTP_SERVING port={server.port} serving={args.serving} "
+          f"role={server.loop.role} tls={int(server.tls)} "
+          f"seconds={time.monotonic() - t0:.2f}", flush=True)
+    shutdown = threading.Event()
+    signal.signal(signal.SIGTERM, lambda *_: shutdown.set())
+    try:
+        # a timed wait, so the main thread runs the signal handler
+        while not shutdown.wait(0.5):
+            pass
+    except KeyboardInterrupt:
+        pass
+    server.stop()
+    launches = " ".join(f"{k}_LAUNCHES={getattr(fn, a) - launches0[k]}"
+                        for k, (fn, a) in counters.items())
+    print(f"REPLICA_HTTP_STOPPED steps={cb.stats['steps']} "
+          f"admits={cb.stats['admits']} layers={args.layers} {launches} "
+          f"error={server.loop.error is not None}", flush=True)
+    return 0 if server.loop.error is None else 1
 
 
 def make_batches(args: argparse.Namespace, source, device):
@@ -438,7 +568,16 @@ def main(argv: Optional[List[str]] = None) -> int:
               + (f"{peak / 2**30:.2f}" if peak is not None else "not measured")
               + f" device={r['device']}", flush=True)
         return 0
-    r = run_decode(args)
+    if args.serve_http is not None:
+        return serve_http(args, t0)
+    if args.serve:
+        run_decode(args, report=lambda r: report_decode(args, r))
+    else:
+        report_decode(args, run_decode(args))
+    return 0
+
+
+def report_decode(args: argparse.Namespace, r: Dict[str, object]) -> None:
     print(f"FIRST_DECODE_DONE seconds={r['first_decode_s']:.2f}", flush=True)
     print(
         f"DECODE_DONE tokens_per_sec={r['tokens_per_sec']:.1f} "
@@ -464,7 +603,6 @@ def main(argv: Optional[List[str]] = None) -> int:
             f"K2Q_LAUNCHES paged_chunk_attention_int8={r['k2q_launches']}",
             flush=True,
         )
-    return 0
 
 
 if __name__ == "__main__":

@@ -863,3 +863,79 @@ def test_int8_batcher_on_the_card_matches_the_cpu_at_fp32(cuda_device, spec):
         assert (k1q if spec else k2q) == 0
         assert card.stats["seal_requants"] > 0
         card.assert_page_accounting()
+
+
+def _sse_submit(port, body):
+    """POST one /v1/submit over loopback; returns its SSE events."""
+    import http.client
+    import json
+
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=120)
+    try:
+        conn.request("POST", "/v1/submit", json.dumps(body),
+                     {"Content-Type": "application/json"})
+        raw = conn.getresponse().read().decode()
+    finally:
+        conn.close()
+    events, ev = [], None
+    for line in raw.splitlines():
+        if line.startswith("event:"):
+            ev = line[6:].strip()
+        elif line.startswith("data:") and ev:
+            events.append((ev, json.loads(line[5:].strip())))
+    return events
+
+
+@pytest.mark.cuda
+def test_replica_server_on_the_card_serves_over_loopback(cuda_device):
+    """A ReplicaServer over a card batcher, its requests posted
+    concurrently over loopback: every stream's deltas concatenate to its
+    ``done`` list, which equals the same batcher's in-process ``run``,
+    and K1 launched decode steps x layers times on the serving thread."""
+    import threading
+
+    from kubegpu_tpu_torch.gateway.dataplane import ReplicaServer
+    from kubegpu_tpu_torch.models.paging import PagedContinuousBatcher
+    from kubegpu_tpu_torch.models.params import init_params
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dict(vocab_size=97, num_layers=2, num_heads=2, hidden=256,
+               max_seq=64)
+    params = init_params(cfg, torch.Generator().manual_seed(0),
+                         torch.float32, "cpu")
+    rng = np.random.RandomState(1)
+    prompts = [rng.randint(0, 97, size=n).astype(np.int32)
+               for n in (5, 17, 9, 23)]
+    budgets = [12, 7, 20, 9]
+    cb = PagedContinuousBatcher(params, device=cuda_device, slots=3,
+                                prompt_pad=24, page_size=8, pool_pages=24,
+                                dtype=torch.float32, **cfg)
+    want = cb.run(prompts, budgets)
+    cb._reset_stats()
+    before = paged_decode_attention.launches
+    srv = ReplicaServer(cb).start()
+    got = {}
+
+    def post(i):
+        got[i] = _sse_submit(srv.port, {
+            "request_id": f"r{i}", "prompt": prompts[i].tolist(),
+            "max_new_tokens": budgets[i]})
+
+    try:
+        threads = [threading.Thread(target=post, args=(i,))
+                   for i in range(len(prompts))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(120)
+    finally:
+        srv.stop()
+    launches = paged_decode_attention.launches - before
+    for i, events in got.items():
+        kind, done = events[-1]
+        assert kind == "done", events[-1]
+        deltas = sum((e["tokens"] for k, e in events[:-1]), [])
+        assert deltas == done["tokens"] == want[i], i
+    assert sorted(got) == list(range(len(prompts)))
+    assert launches == cb.stats["steps"] * cfg["num_layers"] > 0
+    cb.assert_page_accounting()

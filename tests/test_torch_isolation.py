@@ -35,14 +35,21 @@ def test_importing_every_module_leaves_jax_out():
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         f"{FORBIDDEN_ROOTS!r})\n"
         "print(len(names), bad)\n"
+        "print(' '.join(names))\n"
         "sys.exit(1 if bad else 0)\n"
     )
     env = dict(os.environ, PYTHONPATH=REPO)
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stdout + proc.stderr
-    n_modules = int(proc.stdout.split()[0])
-    assert n_modules >= 16
+    first, imported = proc.stdout.splitlines()[:2]
+    n_modules = int(first.split()[0])
+    assert n_modules >= 25
+    # the HTTP replica slice's own copies of the JAX package's
+    # stdlib-only modules
+    for name in ("gateway", "gateway.client", "gateway.dataplane", "utils",
+                 "utils.metrics", "utils.tracing", "utils.metric_names"):
+        assert f"kubegpu_tpu_torch.{name}" in imported.split(), name
 
 
 def test_no_source_imports_jax_or_the_jax_package():
@@ -142,3 +149,26 @@ def test_training_entry_points_default_to_the_card(monkeypatch):
         flash_backward_dkdv(q, q, q, q, q, q, True)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         flash_backward_dq(q, q, q, q, q, q, True)
+
+
+def test_serve_http_without_a_card_raises_before_binding(monkeypatch):
+    """``--serve-http`` checks the device (and builds the batcher) before
+    any socket is bound: without a card it raises and listens nowhere."""
+    import socket
+
+    from kubegpu_tpu_torch.models import worker
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    bound = []
+    real_bind = socket.socket.bind
+
+    def bind(self, addr):
+        bound.append(addr)
+        return real_bind(self, addr)
+
+    monkeypatch.setattr(socket.socket, "bind", bind)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        worker.main(["--model", "decode", "--serve-http", "0"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        worker.main(["--model", "decode", "--serve-http", "0", "--speculate"])
+    assert bound == []

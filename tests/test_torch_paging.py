@@ -210,13 +210,31 @@ def test_pool_too_small_for_a_request_is_refused(torch_params):
     (dict(top_k=5), "sampling"),
     (dict(mesh=object()), "tensor-parallel"),
     (dict(prefill_only=True), "migration"),
-    (dict(metrics=object()), "HTTP replica"),
-    (dict(tracer=object()), "HTTP replica"),
 ])
 def test_knobs_of_later_slices_are_refused(torch_params, knob, slice_name):
     with pytest.raises(NotImplementedError, match=slice_name):
         PagedContinuousBatcher(torch_params, dtype=torch.float32,
                                device="cpu", **CFG, **BATCHER_KW, **knob)
+
+
+@pytest.mark.parametrize("knob", ["metrics", "tracer", "ledger_size"])
+def test_knobs_of_the_http_slice_serve(torch_params, knob):
+    """Metrics, request tracing and the step ledger serve now
+    (tests/test_torch_replica_batcher.py holds them against the JAX
+    package)."""
+    from kubegpu_tpu_torch.utils.metrics import Metrics
+    from kubegpu_tpu_torch.utils.tracing import Tracer
+
+    value = {"metrics": Metrics(), "tracer": Tracer(),
+             "ledger_size": 3}[knob]
+    tb = PagedContinuousBatcher(torch_params, dtype=torch.float32,
+                                device="cpu", **CFG, **BATCHER_KW,
+                                **{knob: value})
+    prompts, budgets = schedule()
+    out = tb.run(prompts[:2], budgets[:2])
+    assert [len(out[i]) for i in (0, 1)] == budgets[:2]
+    assert 0 < len(tb.ledger_rows()) <= (3 if knob == "ledger_size" else 512)
+    tb.assert_page_accounting()
 
 
 @pytest.mark.parametrize("knob", [

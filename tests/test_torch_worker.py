@@ -10,6 +10,7 @@ import os
 import re
 import subprocess
 import sys
+import time
 
 import pytest
 
@@ -234,3 +235,32 @@ def test_worker_int8_speculation_serves_every_request():
     full = worker.run_decode(worker.build_parser().parse_args(
         TINY + ["--device", "cpu"]))
     assert r["pool_bytes"] < full["pool_bytes"] * 3 // 4
+
+
+def test_worker_serve_replays_waves(tmp_path):
+    """``--serve`` prints the timed wave's lines, then one ``SERVING
+    tokens_per_sec=`` line per replayed wave, until it is stopped."""
+    env = dict(os.environ, PYTHONPATH=REPO)
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "kubegpu_tpu_torch.models.worker",
+         "--model", "decode", "--device", "cpu", "--serve", "--vocab", "61",
+         "--layers", "1", "--heads", "2", "--hidden", "16", "--seq", "47",
+         "--prompt-len", "12", "--page-size", "4", "--batch-per-chip", "2",
+         "--steps", "4", "--serve-fp32"],
+        cwd=str(tmp_path), env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True)
+    try:
+        seen = []
+        deadline = time.monotonic() + 60
+        while time.monotonic() < deadline:
+            line = proc.stdout.readline()
+            if not line:
+                break
+            seen.append(line.split()[0])
+            if seen.count("SERVING") >= 2:
+                break
+        assert "DECODE_DONE" in seen and seen.count("SERVING") >= 2, seen
+        assert seen.index("DECODE_DONE") < seen.index("SERVING")
+    finally:
+        proc.kill()
+        proc.communicate()
