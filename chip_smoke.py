@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Builds every kernel of the port's serving and training paths from the
-sources in the checkout, then runs twenty-two phases; any failure exits
+sources in the checkout, then runs twenty-five phases; any failure exits
 non-zero:
 
 1. device: the card's name and power limit, TF32 off;
@@ -122,9 +122,35 @@ non-zero:
 22. the worker's entry point, ``python -m kubegpu_tpu_torch.models.worker
    --model decode --serve-http 0`` at its defaults, in a subprocess: it
    prints ``REPLICA_HTTP_SERVING`` (the seconds to it are printed),
-   answers one submit with a full ``done`` and exits 0 on SIGTERM.
+   answers one submit with a full ``done`` and exits 0 on SIGTERM;
+23. the port's threefry PRNG (``ops/prng.py``) on the card: random bits,
+   uniforms, ``fold_in`` and ``split`` equal to the CPU port's bit for bit
+   at (8, 32768) and (8, 5, 32768), golden values computed once by JAX
+   held as literals, gumbel noise within 2 ulp of the CPU's (at the
+   noise's scale, the spacing of max(|g|, 1)), categorical draws equal
+   to JAX's but for near-ties (top-2 perturbed scores within 1e-4);
+24. sampled flagship serving in bfloat16 through the worker's entry
+   point: ``--sample-temperature 0.8``, with ``--sample-top-k 50``, and
+   ``--speculate --spec-k 4`` sampled; every budget met, K1 launched
+   decode steps x layers times (speculating: K2 verify steps x layers,
+   K1 once a layer for each sampled admission's first token), a second
+   run of the same seed-pinned waves byte-identical; ms a step and
+   tokens/s beside phases 4-5's greedy waves, and a steady window of 8
+   decoding slots (``profile_serving``) greedy against sampled, plain
+   and speculative: ms a step, tokens/s and device kernel launches a
+   step;
+25. phase 6's model and prompts as seed-pinned sampled traffic at
+   float32, card against CPU: plain (K1), speculative (K2, phase 7's
+   hopeless draft), an int8 pool plain (K1q) and speculative (K2q); each
+   stream compared up to its first difference, where the CPU must find a
+   near-tie (the target's top-2 perturbed scores, logit/T + gumbel,
+   within 1e-4; speculating also the draft proposal's and the accept
+   test's |u q - p|); then the plain traffic over the wire through a
+   card ``ReplicaServer`` against the card's in-process streams, under
+   the same rule (the keys depend on seed and position only).
 
-The line before the last is the per-kernel JSON record; the last line is
+The line before the last is the per-kernel JSON record, and the line
+before that the card's name and power limit again; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device the script
 exits non-zero and prints no result.
 """
@@ -196,7 +222,9 @@ def graph_ms(fn, n: int, replays: int = 10) -> float:
     return time_ms(graph.replay, replays) / n
 
 
-def phase_device() -> str:
+def phase_device() -> tuple:
+    """The card's name and its ``nvidia-smi`` name and power-limit line;
+    TF32 off."""
     import torch
 
     smi = subprocess.run(
@@ -210,7 +238,7 @@ def phase_device() -> str:
         f"{torch.__version__} cuda={torch.version.cuda}")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    return name
+    return name, smi
 
 
 def phase_build() -> None:
@@ -1217,6 +1245,351 @@ def phase_http_worker() -> dict:
             proc.wait()
 
 
+# -- sampling (phases 23-25) --------------------------------------------------
+
+# jax.random's values, computed once by JAX 0.9 (threefry, partitionable
+# layout) on the CPU: the card has no JAX, so these literals hold the
+# port's draws to the reference directly
+GOLDEN = {
+    "fold_in(PRNGKey(42), 7)": [2547012911, 1371500959],
+    "split(PRNGKey(42), 3)": [[1832780943, 270669613],
+                              [64467757, 2916123636],
+                              [2465931498, 255383827]],
+    # bits(fold_in(PRNGKey(42), 7), (8, 32768)) at [0, 0], [3, 1000],
+    # [7, 32767]; of shape (8, 5, 32768) at [0, 0, 0], [5, 2, 17],
+    # [7, 4, 32767]
+    "bits 8x32768": [2635269230, 2102076962, 276564076],
+    "bits 8x5x32768": [2635269230, 1593718684, 827050376],
+    "uniform(PRNGKey(7), (4,)) bits": [0x3F2C9128, 0x3F79807E, 0x3E9B0E50,
+                                       0x3EE34E88],
+    "position_key(PRNGKey(2**31 - 1), 4095, ACCEPT)": [1186638194,
+                                                       2970669281],
+    "PRNGKey(2**40 + 3), PRNGKey(-1)": [[0, 3], [0, 4294967295]],
+    # categorical(PRNGKey(5), (arange(32) % 5 * 0.25).reshape(2, 16))
+    "categorical 2x16": [4, 4],
+    # vmap(categorical)(split(PRNGKey(9), 8), RandomState(0).randn(8,
+    # 32768) as float32)
+    "categorical rows 8x32768": [10855, 18049, 24438, 27176, 3754, 14477,
+                                 14353, 19657],
+}
+SAMPLE_NEAR_TIE = 1e-4   # a draw whose deciding gap is smaller may flip
+SAMPLE_TEMP = "0.8"
+
+
+def gumbel_ulps(got, want):
+    """Largest |got - want| over the spacing of max(|want|, 1): gumbel's
+    ulp at its own scale."""
+    import torch
+
+    scale = torch.maximum(want.abs(), torch.ones_like(want))
+    spacing = torch.nextafter(scale, torch.full_like(scale, float("inf"))
+                              ) - scale
+    return ((got - want).abs() / spacing).max().item()
+
+
+def top2_gap(scores) -> float:
+    import torch
+
+    v = torch.topk(scores, 2, dim=-1).values
+    return (v[..., 0] - v[..., 1]).min().item()
+
+
+def phase_prng() -> None:
+    """The port's threefry draws on the card: equal to the CPU port's bit
+    for bit and to JAX's golden values; gumbel within 2 ulp of the
+    CPU's, categorical identical but for classified near-ties."""
+    import numpy as np
+    import torch
+
+    from kubegpu_tpu_torch.models.decoding import (
+        KEY_TAG_ACCEPT,
+        position_key,
+    )
+    from kubegpu_tpu_torch.ops import prng
+
+    key = prng.fold_in(prng.PRNGKey(42), 7)
+    for d in ("cpu", "cuda"):
+        k = prng.PRNGKey(42).to(d)
+        assert prng.fold_in(k, 7).tolist() == GOLDEN[
+            "fold_in(PRNGKey(42), 7)"], d
+        assert prng.split(k, 3).tolist() == GOLDEN["split(PRNGKey(42), 3)"]
+        b2 = prng.random_bits(key.to(d), (8, 32768))
+        b3 = prng.random_bits(key.to(d), (8, 5, 32768))
+        assert [b2[0, 0].item(), b2[3, 1000].item(), b2[7, 32767].item()] \
+            == GOLDEN["bits 8x32768"], d
+        assert [b3[0, 0, 0].item(), b3[5, 2, 17].item(),
+                b3[7, 4, 32767].item()] == GOLDEN["bits 8x5x32768"], d
+        u = prng.uniform(prng.PRNGKey(7).to(d), (4,))
+        assert (u.cpu().view(torch.int32).tolist()
+                == GOLDEN["uniform(PRNGKey(7), (4,)) bits"]), d
+        assert position_key(prng.PRNGKey(2 ** 31 - 1).to(d), 4095,
+                            KEY_TAG_ACCEPT).tolist() == GOLDEN[
+            "position_key(PRNGKey(2**31 - 1), 4095, ACCEPT)"], d
+    assert [prng.PRNGKey(2 ** 40 + 3).tolist(), prng.PRNGKey(-1).tolist()] \
+        == GOLDEN["PRNGKey(2**40 + 3), PRNGKey(-1)"]
+    # card against the CPU port, bit for bit, at the serving shapes: one
+    # key per row (or per row and window slot) drawing a vocabulary, and
+    # one key drawing the whole block
+    keys8 = prng.split(prng.PRNGKey(3), 8)                 # (8, 2)
+    keys85 = prng.split(prng.PRNGKey(4), (8, 5))           # (8, 5, 2)
+    for keys, shape in ((keys8, (32768,)), (keys85, (32768,)),
+                        (prng.PRNGKey(6), (8, 32768)),
+                        (prng.PRNGKey(6), (8, 5, 32768))):
+        for fn in (prng.random_bits, prng.uniform):
+            want = fn(keys, shape)
+            got = fn(keys.cuda(), shape).cpu()
+            assert torch.equal(got, want), (fn.__name__, tuple(want.shape))
+        want = prng.gumbel(keys, shape)
+        ulp = gumbel_ulps(prng.gumbel(keys.cuda(), shape).cpu(), want)
+        assert ulp <= 2, ("gumbel", ulp)
+    # split into (8, 32768) and (8, 5, 32768) keys, each folding its own
+    # datum
+    for shape in ((8, 32768), (8, 5, 32768)):
+        keys = prng.split(prng.PRNGKey(12), shape)
+        assert torch.equal(prng.split(prng.PRNGKey(12).cuda(), shape).cpu(),
+                           keys)
+        data = torch.arange(keys[..., 0].numel()).view(shape) * 977 - 3
+        assert torch.equal(prng.fold_in(keys.cuda(), data.cuda()).cpu(),
+                           prng.fold_in(keys, data))
+    # categorical: the golden draws and card against CPU
+    lg = (torch.arange(32, dtype=torch.float32).view(2, 16) % 5) * 0.25
+    rows = torch.from_numpy(
+        np.random.RandomState(0).randn(8, 32768).astype(np.float32))
+    rkeys = prng.split(prng.PRNGKey(9), 8)
+    flips = 0
+    for keys, logits, name in ((prng.PRNGKey(5), lg, "categorical 2x16"),
+                               (rkeys, rows, "categorical rows 8x32768")):
+        for d in ("cpu", "cuda"):
+            got = prng.categorical(keys.to(d), logits.to(d)).cpu()
+            scores = (prng.gumbel(keys, logits.shape[keys.dim() - 1:])
+                      + logits)
+            for r, (g, w) in enumerate(zip(got.tolist(), GOLDEN[name])):
+                if g != w:
+                    gap = top2_gap(scores[r])
+                    log(f"{name} row {r} on {d}: {g} against JAX's {w}, "
+                        f"top-2 perturbed gap {gap:.3e}")
+                    assert gap <= SAMPLE_NEAR_TIE, (name, r, d, gap)
+                    flips += 1
+    log(f"prng: threefry bits, uniforms, fold_in and split on the card "
+        f"equal the CPU port's bit for bit at (8, 32768) and (8, 5, 32768) "
+        f"and JAX's golden values; gumbel within 2 ulp; categorical draws "
+        f"equal JAX's but {flips} classified near-ties")
+
+
+SAMPLED_FLAGSHIP = (
+    ("sampled T 0.8", ["--sample-temperature", SAMPLE_TEMP]),
+    ("sampled T 0.8 top-k 50", ["--sample-temperature", SAMPLE_TEMP,
+                                "--sample-top-k", "50"]),
+    ("sampled speculative k 4 T 0.8", ["--speculate", "--spec-k",
+                                       str(SPEC_K), "--sample-temperature",
+                                       SAMPLE_TEMP]),
+)
+
+
+def steady_step_cost(flags) -> dict:
+    """A steady window of the flagship with 8 decoding slots
+    (``profile_serving``): ms a step and tokens/s from an unprofiled
+    window, device kernel launches a step from a profiled one."""
+    import torch
+
+    from kubegpu_tpu_torch import profile_serving as ps
+
+    cb = ps.steady_batcher(flags)
+    wall, tokens = ps.timed_window(cb)
+    _, kernels = ps.profiled_window(cb)
+    del cb
+    torch.cuda.empty_cache()
+    return dict(ms=wall / ps.WINDOW * 1e3, tok_s=tokens / wall,
+                launches=sum(n for _, n in kernels.values()) / ps.WINDOW)
+
+
+def phase_sampled_flagship(greedy: dict, greedy_spec: dict) -> dict:
+    """Sampled flagship serving, bf16, through the worker's entry point:
+    every budget met, K1 (K2 speculating) launched steps x layers times,
+    a second run of the same waves byte-identical; ms a step, tokens/s
+    and launches a step beside the greedy runs of this call."""
+    out = {}
+    for label, flags in SAMPLED_FLAGSHIP:
+        spec = "--speculate" in flags
+        runs = [run_wave(f"{label} (run {n})", FLAGSHIP_ARGV + flags)
+                for n in (1, 2)]
+        (r, args, _, _), (r2, _, _, _) = runs
+        assert r["outputs"] == r2["outputs"], (
+            f"{label}: the seed-pinned wave did not replay")
+        for rr, _, launches, _ in runs:
+            if spec:
+                # every sampled admission draws its first token through
+                # one b = 1 plain step (K1), then verifies through K2
+                admits = 2 * rr["requests"]
+                assert launches["K2"] == rr["spec_steps_total"] * args.layers
+                assert launches["K1"] == admits * args.layers, launches
+            else:
+                assert launches["K1"] == rr["decode_steps_total"] * args.layers
+                assert launches["K2"] == 0
+            assert launches["K1q"] == launches["K2q"] == 0
+        ref = greedy_spec if spec else greedy
+        ms, ref_ms = (r["wave_s"] / r["steps"] * 1e3,
+                      ref["wave_s"] / ref["steps"] * 1e3)
+        log(f"{label}: replay byte-identical; {ms:.3f} ms a step, "
+            f"{r['tokens_per_sec']:.1f} tok/s over {r['steps']} steps "
+            f"against the greedy wave's {ref_ms:.3f} ms a step, "
+            f"{ref['tokens_per_sec']:.1f} tok/s over {ref['steps']} steps "
+            f"(this call)")
+        out[label] = dict(ms_step=ms, tok_s=r["tokens_per_sec"])
+    spec = ["--speculate", "--spec-k", str(SPEC_K)]
+    sample = ["--sample-temperature", SAMPLE_TEMP]
+    for label, flags in (("greedy", []), ("sampled", sample),
+                         ("greedy speculative", spec),
+                         ("sampled speculative", spec + sample)):
+        cost = steady_step_cost(flags)
+        log(f"steady flagship step, 8 slots, {label}: {cost['ms']:.3f} ms "
+            f"a step, {cost['tok_s']:.1f} tok/s, {cost['launches']:.1f} "
+            "device kernel launches a step")
+        out[f"steady {label}"] = cost
+    return out
+
+
+def draw_gaps(ctx, seq, temp: float, seed: int, draft=None) -> list:
+    """The CPU's gaps deciding the token drawn after ``seq`` (at absolute
+    position len(seq)) of a seed-pinned request, at float32: the top-2
+    gap of the target's perturbed scores (logit/T + gumbel); speculating,
+    also the draft proposal's top-2 gap and the accept test's |u q - p|.
+    A token is a near-tie if the smallest is within SAMPLE_NEAR_TIE."""
+    import torch
+
+    from kubegpu_tpu_torch.models.decoding import (
+        KEY_TAG_ACCEPT,
+        KEY_TAG_DRAFT,
+        KEY_TAG_SAMPLE,
+        init_caches,
+        position_key,
+        warp_logits,
+    )
+    from kubegpu_tpu_torch.ops import prng
+
+    def last_logits(model):
+        caches = init_caches(1, model.num_layers, model.num_heads,
+                             model.hidden, model.max_seq, torch.float32)
+        with torch.no_grad():
+            return model(torch.from_numpy(seq)[None], caches, 0)[0]
+
+    pos, base = len(seq), prng.PRNGKey(seed)
+    t = torch.tensor(temp)
+    tw = warp_logits(last_logits(ctx["dense"]), t)
+    vocab = tw.shape[-1]
+    if draft is None:
+        return [top2_gap(tw + prng.gumbel(prng.fold_in(base, pos), vocab))]
+    gaps = [top2_gap(tw + prng.gumbel(
+        position_key(base, pos, KEY_TAG_SAMPLE), vocab))]
+    dw = warp_logits(last_logits(draft), t)
+    d_scores = dw + prng.gumbel(position_key(base, pos, KEY_TAG_DRAFT), vocab)
+    gaps.append(top2_gap(d_scores))
+    x = d_scores.argmax()
+    p, q = torch.softmax(tw, -1)[x], torch.softmax(dw, -1)[x]
+    u = prng.uniform(position_key(base, pos, KEY_TAG_ACCEPT))
+    gaps.append(abs((u * q - p).item()))
+    return gaps
+
+
+def sampled_agreement(label, ctx, ref, other, temps, seeds,
+                      draft=None) -> tuple:
+    """Compare two seed-pinned sampled stream sets request by request, up
+    to each first difference: there the CPU must find a near-tie
+    (``draw_gaps``), or the divergence is a fault.  Returns (tokens
+    agreeing before any divergence, tokens, near-ties)."""
+    import numpy as np
+
+    agree = total = ties = 0
+    for i in sorted(ref):
+        a, c = other[i], ref[i]
+        total += len(c)
+        t = next((j for j in range(len(c)) if a[j] != c[j]), None)
+        if t is None:
+            agree += len(c)
+            continue
+        agree += t
+        seq = np.concatenate([ctx["prompts"][i], np.asarray(c[:t], np.int32)])
+        gaps = draw_gaps(ctx, seq, temps[i], seeds[i], draft)
+        log(f"request {i}: {label} diverge at token {t}; the CPU's deciding "
+            f"gaps {', '.join(f'{g:.3e}' for g in gaps)}")
+        assert min(gaps) <= SAMPLE_NEAR_TIE, (
+            f"request {i} diverged at token {t}, no near-tie: {gaps}")
+        ties += 1
+    return agree, total, ties
+
+
+def phase_sampled_card_vs_cpu(ctx: dict) -> None:
+    """Phase 6's model and prompts as seed-pinned sampled traffic at
+    float32, card against CPU: plain (K1), speculative k 4 with phase 7's
+    hopeless draft (K2), an int8 pool plain (K1q) and speculative (K2q);
+    then the plain traffic over the wire through a card
+    ``ReplicaServer`` against the card's in-process streams."""
+    import torch
+
+    from kubegpu_tpu_torch.gateway.dataplane import ReplicaServer
+    from kubegpu_tpu_torch.models.decoding import DecodeLM
+    from kubegpu_tpu_torch.models.paging import PagedContinuousBatcher
+    from kubegpu_tpu_torch.models.params import bind_params, init_params
+
+    cfg, n = ctx["cfg"], len(ctx["prompts"])
+    temps = [0.8, 1.0, 0.7, 1.2, 0.9, 0.6, 1.1, 0.8][:n]
+    seeds = [100 + i for i in range(n)]
+    d_cfg = dict(vocab_size=cfg["vocab_size"], num_layers=1, hidden=64,
+                 max_seq=cfg["max_seq"])
+    dparams = init_params(d_cfg, torch.Generator().manual_seed(5),
+                          torch.float32, "cpu")
+    draft = bind_params(DecodeLM(num_heads=2, dtype=torch.float32, **d_cfg),
+                        dparams)
+    spec = dict(draft_params=dparams, speculate_k=SPEC_K, sampling=True,
+                draft_num_layers=1, draft_num_heads=2, draft_hidden=64)
+    configs = (("plain", {}, "K1"), ("speculative", spec, "K2"),
+               ("int8 pool", dict(kv_dtype="int8"), "K1q"),
+               ("int8 speculative", dict(spec, kv_dtype="int8"), "K2q"))
+    counters = paged_counts()
+    card_plain = None
+    for name, kw, kernel in configs:
+        streams = {}
+        for d in ("cpu", "cuda"):
+            for fn, attr in counters.values():
+                setattr(fn, attr, 0)
+            cb = PagedContinuousBatcher(ctx["params"], device=d,
+                                        **ctx["kw"], **kw)
+            streams[d] = cb.run(ctx["prompts"], ctx["budgets"],
+                                temperatures=temps, seeds=seeds)
+            cb.assert_page_accounting()
+        fn, attr = counters[kernel]
+        assert getattr(fn, attr) > 0, (name, kernel)
+        agree, total, ties = sampled_agreement(
+            f"sampled {name} card and cpu", ctx, streams["cpu"],
+            streams["cuda"], temps, seeds, draft if "speculate_k" in kw
+            else None)
+        log(f"sampled {name} card vs cpu (fp32, seed-pinned, {kernel} "
+            f"{getattr(fn, attr)} launches): {agree}/{total} tokens agree "
+            f"before any divergence, {ties} near-ties")
+        if name == "plain":
+            card_plain = streams["cuda"]
+    cb = PagedContinuousBatcher(ctx["params"], device="cuda", **ctx["kw"])
+    bodies = [{"request_id": f"s{i}", "prompt": p.tolist(),
+               "max_new_tokens": ctx["budgets"][i], "temperature": temps[i],
+               "seed": seeds[i]} for i, p in enumerate(ctx["prompts"])]
+    srv = ReplicaServer(cb).start()
+    try:
+        got, wall = post_concurrently(srv.port, bodies)
+    finally:
+        srv.stop()
+    assert srv.loop.error is None, srv.loop.error
+    wire, _ = check_streams(got, ctx["budgets"])
+    cb.assert_page_accounting()
+    agree, total, ties = sampled_agreement(
+        "sampled card over the wire and card in process", ctx, card_plain,
+        wire, temps, seeds)
+    log(f"sampled card over the wire vs in process (fp32, seed-pinned): "
+        f"{agree}/{total} tokens agree before any divergence, {ties} "
+        f"near-ties; {len(wire)} streams in {wall:.3f} s")
+    del cb, srv
+    torch.cuda.empty_cache()
+
+
 def max_err(got, want, rtol, atol) -> tuple:
     """(max |got - want|, the worst element's share of its allowance);
     raises if an element is outside ``atol + rtol * |want|``."""
@@ -1695,7 +2068,7 @@ def main() -> int:
     # this script without the repo fails here, with no result
     import kubegpu_tpu_torch.models.worker  # noqa: F401
     t0 = time.monotonic()
-    name = phase_device()
+    name, smi = phase_device()
     phase_build()
     k1 = phase_k1()
     phase_k1(geo=DEFAULT_PAGED)
@@ -1727,6 +2100,10 @@ def main() -> int:
     phase_http_flagship(speculate=True)
     phase_http_card_vs_cpu(small)
     phase_http_worker()
+    # sampling: the PRNG, the sampled flagship, card against CPU
+    phase_prng()
+    phase_sampled_flagship(flag, spec)
+    phase_sampled_card_vs_cpu(small)
     log(f"chip_smoke: all phases passed in {time.monotonic() - t0:.1f} s")
     source = "kubegpu_tpu_torch/ops/csrc/paged_attention.cu"
     kernels = []
@@ -1781,6 +2158,9 @@ def main() -> int:
             "bound_by": bf["bound_by"],
             "library_ms": bf["library_ms"],
         })
+    # the card and its power limit again beside the results, where the
+    # end of a long output still holds them
+    log(smi)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -14,8 +14,15 @@ Caches are ``(b, max_seq, h, hd)`` per layer and are written IN PLACE
 (the JAX model returns new caches; updating them where they lie saves a
 copy of every cache per call).  ``quant=True`` runs every Dense as the
 weight-only int8 ``QuantDense`` over a :func:`quantize_params_int8`
-tree, as the JAX package's ``quant`` flag does.  Sampling waits for a
-later slice of the port.
+tree, as the JAX package's ``quant`` flag does.
+
+Sampling draws the JAX package's random bits (``ops/prng.py``):
+``warp_logits`` scales by the temperature and truncates to the top k
+(ties at the k-th value keep more than k), ``pick_tokens`` takes a
+gumbel-max sample per row from that row's key or the argmax where the
+row's temperature is 0, and ``position_key``/``block_keys`` derive the
+seed-pinned keys ``fold_in(fold_in(PRNGKey(seed), position), tag)`` that
+make a sampled stream a function of (seed, emitted prefix) alone.
 """
 
 from __future__ import annotations
@@ -33,6 +40,7 @@ from kubegpu_tpu_torch.models.params import (
     resolve_device,
     tree_map,
 )
+from kubegpu_tpu_torch.ops import prng
 
 Caches = List[Tuple[torch.Tensor, torch.Tensor]]
 
@@ -279,20 +287,89 @@ def init_caches(batch: int, num_layers: int, num_heads: int, hidden: int,
     ]
 
 
+NEG_INF_LOGIT = -1e9  # large-negative in f32; -inf breaks gumbel-max
+
+# Seed-pinned key derivation: a request that pins a seed derives every
+# random draw as fold_in(fold_in(PRNGKey(seed), absolute position), tag),
+# a pure function of (seed, position, draw kind) — independent of batch
+# composition, slot, replica and restart.  The tags separate the up to
+# three draws speculative sampling makes at one position; plain sampled
+# decode folds the position alone.  Generated token n sits at absolute
+# position prompt_len + n.
+KEY_TAG_DRAFT = 1    # draft proposal draw for this position
+KEY_TAG_ACCEPT = 2   # accept-test uniform for this position
+KEY_TAG_SAMPLE = 3   # residual resample / bonus / first-token draw
+
+
+def position_key(base_keys, position, tag):
+    """``fold_in(fold_in(base_keys, position), tag)``: ``base_keys``
+    ``(*K, 2)``, ``position`` and ``tag`` ints or tensors broadcasting
+    against ``K``."""
+    return prng.fold_in(prng.fold_in(base_keys, position), tag)
+
+
+def block_keys(base_keys, start_pos, n: int, tag):
+    """``(b, n, 2)`` keys for the ``n`` positions from each row's
+    ``start_pos`` (b,): the speculative step's draft, accept and
+    resample key blocks.  ``tag`` may be a ``(T, 1, 1)`` tensor of tags,
+    giving ``(T, b, n, 2)`` blocks from one position fold."""
+    positions = start_pos[:, None] + torch.arange(n, device=start_pos.device)
+    return position_key(base_keys[:, None, :], positions, tag)
+
+
+def warp_logits(logits, temps, top_k: int = 0):
+    """Temperature-scale and top-k-truncate logits along the last axis:
+    the distribution sampled rows draw from.  Rejection-sampled
+    speculation warps the target's p and the draft's q alike, or the
+    accept ratio compares different measures.  ``temps`` broadcasts
+    against the leading axes; 0 entries divide by 1 (their rows take the
+    greedy path in the caller).  The top-k threshold keeps every logit
+    ``>=`` the k-th largest, so ties at the k-th value keep more than
+    k."""
+    safe_t = torch.where(temps > 0.0, temps, 1.0)
+    scaled = logits / safe_t[..., None]
+    if top_k > 0:
+        kth = torch.topk(scaled, top_k, dim=-1).values[..., -1:]
+        scaled = torch.where(scaled >= kth, scaled, NEG_INF_LOGIT)
+    return scaled
+
+
+def pick_with_noise(logits, temps, noise, top_k: int = 0):
+    """``pick_tokens`` with each row's gumbel noise drawn already:
+    ``noise`` (b, vocab) is ``prng.gumbel(keys, vocab)``."""
+    greedy = logits.argmax(-1)
+    sampled = torch.argmax(noise + warp_logits(logits, temps, top_k), -1)
+    return torch.where(temps > 0.0, sampled, greedy).to(torch.int32)
+
+
+def pick_tokens(logits, temps, keys, top_k: int = 0):
+    """The serving batchers' per-slot token choice: row i samples from
+    ``softmax(logits_i / temps_i)`` (top-k truncated when ``top_k``)
+    with its own key ``keys[i]`` where ``temps_i > 0``, and takes the
+    argmax otherwise — mixed greedy and sampled rows in one pass.
+    ``logits`` (b, vocab) float32, ``temps`` (b,) float32, ``keys``
+    (b, 2); returns (b,) int32."""
+    return pick_with_noise(logits, temps,
+                           prng.gumbel(keys, logits.shape[-1:]), top_k)
+
+
 @torch.no_grad()
 def generate(params, prompt, num_steps: int, *, vocab_size: int,
              num_layers: int, num_heads: int, hidden: int, max_seq: int,
-             dtype=torch.bfloat16, temperature: float = 0.0,
-             device="cuda") -> torch.Tensor:
+             dtype=torch.bfloat16, temperature: float = 0.0, top_k: int = 0,
+             rng=None, device="cuda") -> torch.Tensor:
     """Decode: prefill the whole prompt in one causal pass, then take
-    ``num_steps`` greedy steps.  ``prompt`` (b, prompt_len) int; returns
-    ``(b, prompt_len + num_steps)`` int32 on ``device``.  Sampling
-    (``temperature > 0``) arrives with the sampling slice of the port."""
-    if temperature > 0.0:
-        raise NotImplementedError(
-            "sampled decoding is not ported yet: it arrives with the "
-            "sampling slice (position-keyed draws); use temperature=0"
-        )
+    ``num_steps`` steps.  ``temperature=0`` is greedy argmax;
+    ``temperature > 0`` samples from ``softmax(logits / temperature)``,
+    truncated to the ``top_k`` largest when ``top_k > 0``, with step i
+    drawing the whole batch's noise from key i of ``split(rng,
+    num_steps)`` — the JAX package's draws.  ``rng`` is a ``(2,)`` key
+    (``prng.PRNGKey``).  ``prompt`` (b, prompt_len) int; returns ``(b,
+    prompt_len + num_steps)`` int32 on ``device``."""
+    if temperature > 0.0 and rng is None:
+        raise ValueError("sampling (temperature > 0) needs an rng key")
+    if top_k > vocab_size:
+        raise ValueError(f"top_k ({top_k}) exceeds vocab_size ({vocab_size})")
     dev = resolve_device(device)
     prompt = torch.as_tensor(prompt).to(dev, torch.int32)
     b, prompt_len = prompt.shape
@@ -307,10 +384,19 @@ def generate(params, prompt, num_steps: int, *, vocab_size: int,
     bind_params(model, tree_map(lambda t: t.to(dev), params))
     caches = init_caches(b, num_layers, num_heads, hidden, max_seq, dtype,
                          dev)
+    keys = (prng.split(torch.as_tensor(rng).to(dev, torch.int64), num_steps)
+            if temperature > 0.0 else None)
     logits = model(prompt, caches, 0)
     out = [prompt]
     for i in range(num_steps):
-        token = logits.argmax(-1).to(torch.int32)
+        if keys is None:
+            token = logits.argmax(-1).to(torch.int32)
+        else:
+            scaled = warp_logits(logits, logits.new_full((b,), temperature),
+                                 top_k)
+            # one key draws the whole batch's noise, as JAX's
+            # categorical does over a (b, vocab) array
+            token = prng.categorical(keys[i], scaled).to(torch.int32)
         out.append(token[:, None])
         if i + 1 < num_steps:
             logits = model(token[:, None], caches, prompt_len + i)
@@ -320,4 +406,3 @@ def generate(params, prompt, num_steps: int, *, vocab_size: int,
 def greedy_generate(params, prompt, num_steps: int, **kw) -> torch.Tensor:
     """Greedy decode (temperature 0) — see :func:`generate`."""
     return generate(params, prompt, num_steps, temperature=0.0, **kw)
-

@@ -1,6 +1,6 @@
 """Paged KV serving: continuous batching over a shared page pool — the
-port of ``kubegpu_tpu/models/paging.py`` for greedy serving over a
-full-width or int8 pool.
+port of ``kubegpu_tpu/models/paging.py`` for greedy and sampled serving
+over a full-width or int8 pool.
 
 - ``PagedDecodeLM``: the paged twin of ``DecodeLM`` with the same
   parameter tree, whose per-layer cache is a
@@ -20,6 +20,19 @@ full-width or int8 pool.
   makes the streams the non-speculative ones for any draft.  With
   ``decode_page_cache`` a retiring sequence's complete pages, prompt and
   generated, seal into the prefix chain.
+
+Sampling draws the JAX package's bits (``ops/prng.py``), so seed-pinned
+sampled streams equal the JAX batcher's at float32.  A request with
+``temperature > 0`` samples each token with the key ``fold_in(base,
+count + offset)``: a request pinning ``seed`` has base ``PRNGKey(seed)``
+and offset ``plen`` (the key folds the token's absolute position),
+others ``fold_in(PRNGKey(batcher seed), seq_id)`` and offset 0.  Under
+speculation with ``sampling=True`` a sampled slot's first token is a
+direct target sample, its draft proposals sample, and the verify runs
+per-position rejection sampling, every draw keyed by the absolute
+position and a tag (``decoding.position_key``).  The per-slot
+temperature, base key, key offset and count live in fixed device
+tensors written at admission; no step reads them on the host.
 
 The int8 pool (``kv_dtype="int8"``): each layer's K and V are ``(data,
 scale)`` pairs, int8 ``(pool_pages, heads, page, head_dim)`` pages and
@@ -61,11 +74,15 @@ import numpy as np
 import torch
 
 from kubegpu_tpu_torch.models.decoding import (
+    KEY_TAG_SAMPLE,
     DecodeAttention,
     DecodeBlock,
     DecodeLM,
     LMBase,
     init_caches,
+    pick_tokens,
+    pick_with_noise,
+    position_key,
 )
 from kubegpu_tpu_torch.models.params import bind_params, resolve_device, tree_map
 from kubegpu_tpu_torch.models.serving import (
@@ -76,6 +93,8 @@ from kubegpu_tpu_torch.models.serving import (
     resolve_kv_dtype,
     validate_request,
 )
+from kubegpu_tpu_torch.models.speculative import sampled_verify, window_keys
+from kubegpu_tpu_torch.ops import prng
 from kubegpu_tpu_torch.ops.paged_attention import (
     check_chunk_args,
     check_kernel_args,
@@ -391,6 +410,7 @@ class _Seq:
     remaining: int = 0
     active: bool = False
     prefilling: bool = False     # a _PrefillJob is feeding this slot
+    temperature: float = 0.0     # > 0: the slot samples
     tokens: List[int] = field(default_factory=list)
     # the activated prompt, for retirement sealing's chain keys
     prompt: Optional[np.ndarray] = None
@@ -420,6 +440,8 @@ class _PrefillJob:
     pos: int                 # prompt rows already prefilled (or cached)
     next_scatter: int        # next page index to scatter from the station
     started: bool = False    # its first chunk ran (prefill wait observed)
+    temperature: float = 0.0
+    seed: Optional[int] = None   # pins the request's sample stream
 
 
 @dataclass
@@ -491,7 +513,6 @@ def _validate_speculation(k, draft_window, draft_params, draft_num_layers,
     return draft_window
 
 
-SAMPLING_SLICE = "the sampling slice"
 TP_SLICE = "the tensor-parallel slice"
 MIGRATION_SLICE = "the migration slice (disaggregated prefill and handoff)"
 
@@ -534,6 +555,12 @@ class PagedContinuousBatcher(_TracedBatcher):
     sequence reserves k more rows of pages, for the verify window's junk
     tail; a token budget bills k+1 rows per active slot.
 
+    ``top_k`` truncates every sampled draw to the k largest logits.  A
+    request ``submit``-ted with ``temperature > 0`` samples (``seed``
+    pins its stream); a speculative batcher samples only when built with
+    ``sampling=True`` and refuses sampled requests otherwise.  ``seed``
+    roots the keys of requests that pin none.
+
     Observability, as in the JAX package: ``metrics`` (a
     ``utils.metrics.Metrics``) receives the ``serve_*`` series of
     ``utils/metric_names.py``; ``tracer`` (a ``utils.tracing.Tracer``),
@@ -546,11 +573,10 @@ class PagedContinuousBatcher(_TracedBatcher):
     rest of the iteration.
 
     The constructor keeps the JAX signature.  Knobs of later slices
-    (sampling, sampled speculation, tensor parallelism, prefill-only
-    serving) raise ``NotImplementedError`` naming the slice; ``seed``
-    keys sampled streams only, and greedy serving ignores it.
-    ``device`` defaults to ``"cuda"`` and raises without a card; the CPU
-    runs only when asked for (``device="cpu"``)."""
+    (tensor parallelism, prefill-only serving) raise
+    ``NotImplementedError`` naming the slice.  ``device`` defaults to
+    ``"cuda"`` and raises without a card; the CPU runs only when asked
+    for (``device="cpu"``)."""
 
     def __init__(
         self,
@@ -591,9 +617,6 @@ class PagedContinuousBatcher(_TracedBatcher):
         prefill_only: bool = False,
         device="cuda",
     ) -> None:
-        if sampling or top_k:
-            raise _not_ported("sampling/top_k (and sampled speculation)",
-                              SAMPLING_SLICE)
         if mesh is not None:
             raise _not_ported("mesh", TP_SLICE)
         if prefill_only:
@@ -601,6 +624,10 @@ class PagedContinuousBatcher(_TracedBatcher):
         if prompt_pad > max_seq:
             raise ValueError(
                 f"prompt_pad ({prompt_pad}) exceeds max_seq ({max_seq})"
+            )
+        if top_k > vocab_size:
+            raise ValueError(
+                f"top_k ({top_k}) exceeds vocab_size ({vocab_size})"
             )
         if prompt_pad % page_size:
             raise ValueError(
@@ -635,6 +662,14 @@ class PagedContinuousBatcher(_TracedBatcher):
             draft_num_heads, draft_hidden, max_seq, prompt_pad,
         )
         self.speculate_k = speculate_k
+        # rejection-sampled speculation; without speculate_k the flag is
+        # inert (plain paged decode samples any request with a
+        # temperature)
+        self.sampling = bool(sampling) and speculate_k is not None
+        self.top_k = top_k
+        # the root of unpinned requests' keys, kept on the host: a
+        # request's base key is derived at admission and copied once
+        self._root_key = prng.PRNGKey(seed)
         self.decode_page_cache = decode_page_cache
         self._seal_decode = (
             resolve_decode_page_cache(decode_page_cache, dtype, self.kv_quant)
@@ -706,7 +741,6 @@ class PagedContinuousBatcher(_TracedBatcher):
                                  if self.kv_quant else 0)
         self.pool_bytes_per_device = (
             (self.pool_kv_bytes + self.pool_scale_bytes) // self.tp)
-        self.attach_metrics(metrics)
         # page 0 is the permanent DUMP page, never allocated: the step
         # runs every slot, and an idle slot's K/V write must land where
         # it can never belong to a live sequence — its table points at
@@ -729,6 +763,16 @@ class PagedContinuousBatcher(_TracedBatcher):
         self._active_dev = torch.zeros((slots,), dtype=torch.bool, device=dev)
         self._remaining_dev = torch.zeros((slots,), dtype=torch.int32,
                                           device=dev)
+        # tokens emitted per slot, advanced by the step (the plain
+        # step's key index), and the sampling state written at admission:
+        # temperature (0 = greedy), base key and key-index offset
+        self._counts_dev = torch.zeros((slots,), dtype=torch.int32,
+                                       device=dev)
+        self._temps = torch.zeros((slots,), dtype=torch.float32, device=dev)
+        self._base_keys = torch.zeros((slots, 2), dtype=torch.int64,
+                                      device=dev)
+        self._key_offsets = torch.zeros((slots,), dtype=torch.int32,
+                                        device=dev)
         if speculate_k is not None:
             self._init_speculation(params, model_cfg, draft_params,
                                    draft_num_layers, draft_num_heads,
@@ -761,6 +805,7 @@ class PagedContinuousBatcher(_TracedBatcher):
         # admission's hashes
         self._pending: deque = deque()
         self._reset_stats()
+        self.attach_metrics(metrics)
 
     def _init_speculation(self, params, model_cfg, draft_params,
                           draft_num_layers: int, draft_num_heads: int,
@@ -816,18 +861,32 @@ class PagedContinuousBatcher(_TracedBatcher):
         self._d_pos = np.zeros((self.slots,), np.int32)   # host mirror
         self._d_pos_dev = torch.zeros((self.slots,), dtype=torch.int32,
                                       device=dev)
+        # the ring's resting bytes by storage dtype (serve_draft_ring_bytes)
+        d_hd = draft_hidden // draft_num_heads
+        ring_item = 1 if self.kv_quant else torch.empty(
+            (), dtype=self.dtype).element_size()
+        self.ring_kv_bytes = (2 * draft_num_layers * self.slots * ring
+                              * draft_num_heads * d_hd * ring_item)
+        self.ring_scale_bytes = (2 * draft_num_layers * self.slots
+                                 * draft_num_heads * 4
+                                 if self.kv_quant else 0)
 
     def attach_metrics(self, metrics) -> None:
         """Send the batcher's ``serve_*`` series to ``metrics`` (None
         stops them) — at construction, or after a warm-up whose requests
         the registry should not count.  Sets the construction-constant
-        gauges once, off the step path."""
+        gauges once, off the step path: the pool's, and under
+        speculation the draft ring's rows and resting bytes."""
         self.metrics = metrics
         if metrics is not None:
             metrics.set_gauge("serve_tp_devices", float(self.tp))
             metrics.set_gauge("serve_tp_pool_bytes_per_device",
                               float(self.pool_bytes_per_device))
             self._set_pool_bytes_gauges()
+            if self.speculate_k is not None:
+                metrics.set_gauge("serve_draft_cache_rows",
+                                  float(self.slots * self.draft_window))
+                self._set_draft_ring_bytes_gauges()
 
     def _set_pool_bytes_gauges(self) -> None:
         """Resting pool bytes by storage dtype: an int8 pool reports its
@@ -842,6 +901,21 @@ class PagedContinuousBatcher(_TracedBatcher):
         else:
             self.metrics.set_gauge("serve_pool_kv_bytes",
                                    float(self.pool_kv_bytes),
+                                   dtype=self.kv_dtype)
+
+    def _set_draft_ring_bytes_gauges(self) -> None:
+        """Resting draft-ring bytes by storage dtype, as the pool's: an
+        int8 ring reports its int8 row bytes and its float32 scale bytes,
+        a full-width ring one series at its compute dtype."""
+        if self.kv_quant:
+            self.metrics.set_gauge("serve_draft_ring_bytes",
+                                   float(self.ring_kv_bytes), dtype="int8")
+            self.metrics.set_gauge("serve_draft_ring_bytes",
+                                   float(self.ring_scale_bytes),
+                                   dtype="float32")
+        else:
+            self.metrics.set_gauge("serve_draft_ring_bytes",
+                                   float(self.ring_kv_bytes),
                                    dtype=self.kv_dtype)
 
     def _trace_holders(self):
@@ -1102,6 +1176,9 @@ class PagedContinuousBatcher(_TracedBatcher):
                     data[idx], scale[idx] = requantize_tight(data[idx],
                                                              scale[idx])
             self.stats["seal_requants"] += len(to_seal)
+            if self.metrics is not None:
+                self.metrics.inc("serve_kv_quant_seal_requants_total",
+                                 len(to_seal))
         for phys, key, kind, prev in to_seal:
             self.prefix_cache.insert(key, phys, kind=kind, prev=prev)
             s.shared.add(phys)
@@ -1155,8 +1232,9 @@ class PagedContinuousBatcher(_TracedBatcher):
         return plen
 
     def _try_begin_admit(self, slot: int, seq_id: int, prompt: np.ndarray,
-                         max_new: int, submitted_at: float,
-                         keys: List[bytes]) -> bool:
+                         max_new: int, temperature: float,
+                         submitted_at: float, keys: List[bytes],
+                         seed: Optional[int]) -> bool:
         """Reserve pages (prefix-cache hits first), gather hit pages into
         a free station slot, and open the prefill job.  Returns False to
         defer (pool pressure, or an in-flight admission is prefilling
@@ -1238,6 +1316,7 @@ class PagedContinuousBatcher(_TracedBatcher):
         self._jobs[station] = _PrefillJob(
             slot=slot, station=station, seq_id=seq_id, prompt=prompt,
             plen=plen, keys=keys, pos=hit_rows, next_scatter=len(hits),
+            temperature=temperature, seed=seed,
         )
         self.stats["admits"] += 1
         self.stats["peak_pages"] = max(
@@ -1277,6 +1356,18 @@ class PagedContinuousBatcher(_TracedBatcher):
         # token rides the ordinary step (write row plen-1, attend
         # <= plen-1), which emits the first generated token
         slot, s = job.slot, self._seqs[job.slot]
+        if job.seed is not None:
+            # seed-pinned: the step's key index starts at plen, so each
+            # key folds its token's absolute position — independent of
+            # slot, batch composition and replica
+            base_key, offset = prng.PRNGKey(job.seed), job.plen
+        else:
+            base_key, offset = prng.fold_in(self._root_key, job.seq_id), 0
+        self._temps[slot] = job.temperature
+        self._base_keys[slot] = base_key.to(self.device)
+        self._key_offsets[slot] = offset
+        self._counts_dev[slot] = 0
+        s.temperature = float(job.temperature)
         self.tables[slot, :] = s.pages[0]
         self.tables[slot, : len(s.pages)] = s.pages
         self.pos[slot] = job.plen - 1
@@ -1301,6 +1392,10 @@ class PagedContinuousBatcher(_TracedBatcher):
             self._d_pos[slot] = job.plen - 1
             self._d_pos_dev[slot] = job.plen - 1
         s.prefilling, s.active = False, True
+        if self.sampling and job.temperature > 0.0:
+            # a sampled slot's first token is a direct target sample at
+            # absolute position plen; its windows start at pos = plen
+            self._spec_first_token(slot, s, base_key, job.plen)
         tr = s.trace
         if tr is not None:
             t = time.monotonic()
@@ -1414,25 +1509,28 @@ class PagedContinuousBatcher(_TracedBatcher):
                session_id: Optional[str] = None,
                trace=None,
                seed: Optional[int] = None) -> None:
-        """Queue one greedy request.  Validates shape and worst-case pool
-        limits eagerly (a request that can never fit fails here, not
-        mid-loop) and computes its prefix chain keys.  ``session_id`` is
-        advisory: prefix sharing is content-addressed.  ``trace`` is an
-        optional caller span (the replica's request root, or a gateway's
-        dispatch span): the request's ``serve`` subtree nests under it;
-        otherwise the batcher's own ``tracer``, if any, roots one."""
+        """Queue one request.  Validates shape and worst-case pool limits
+        eagerly (a request that can never fit fails here, not mid-loop)
+        and computes its prefix chain keys.  ``temperature > 0`` samples;
+        ``seed`` pins the sample stream to (seed, absolute token
+        position), the same tokens on any replica, slot or batch.
+        ``session_id`` is advisory: prefix sharing is content-addressed.
+        ``trace`` is an optional caller span (the replica's request root,
+        or a gateway's dispatch span): the request's ``serve`` subtree
+        nests under it; otherwise the batcher's own ``tracer``, if any,
+        roots one."""
         if seq_id < 0:
             raise ValueError(f"seq_id must be >= 0, got {seq_id}")
-        if self.speculate_k is not None and temperature > 0.0:
+        if (self.speculate_k is not None and temperature > 0.0
+                and not self.sampling):
             raise ValueError(
                 "greedy-only speculative paged batcher: lossless "
                 "speculative SAMPLING needs per-position rejection "
-                f"sampling, which arrives with {SAMPLING_SLICE}; submit "
-                "with temperature=0"
+                "sampling against the target distribution — construct "
+                "PagedContinuousBatcher with sampling=True (the verify "
+                "then runs rejection_sample_block), or submit with "
+                "temperature=0"
             )
-        if temperature > 0.0 or seed is not None:
-            raise _not_ported("sampled requests (temperature > 0, seed)",
-                              SAMPLING_SLICE)
         prompt = np.asarray(prompt, np.int32)
         plen = self._validate(prompt, max_new)
         keys: List[bytes] = []
@@ -1440,7 +1538,8 @@ class PagedContinuousBatcher(_TracedBatcher):
             keys = chain_keys(prompt, self.page, (plen - 1) // self.page)
         self._trace_begin(seq_id, plen, max_new, trace)
         self._pending.append(
-            (seq_id, prompt, max_new, time.monotonic(), keys)
+            (seq_id, prompt, max_new, temperature, time.monotonic(), keys,
+             seed)
         )
 
     def cancel(self, seq_id: int) -> bool:
@@ -1564,6 +1663,9 @@ class PagedContinuousBatcher(_TracedBatcher):
         spec_emitted = 0
         self._sweep(finished)
         self._advance_prefill()
+        if self.metrics is not None:
+            self.metrics.set_gauge("serve_station_slots_busy",
+                                   float(len(self._jobs)))
         n_active = sum(1 for s in self._seqs if s.active)
         if n_active:
             if self.speculate_k is not None:
@@ -1591,33 +1693,48 @@ class PagedContinuousBatcher(_TracedBatcher):
 
     def _loop_state(self):
         """The step's input state — last tokens, tables, positions,
-        active mask, budgets and (speculation) the draft ring's write
-        heads: the previous step's device outputs (pipelined), or the
-        host mirrors uploaded anew (synchronous)."""
+        active mask, budgets, emitted counts and (speculation) the draft
+        ring's write heads: the previous step's device outputs
+        (pipelined), or the host mirrors uploaded anew (synchronous)."""
         if self.pipeline_decode:
             return (self._last_dev, self._tables_dev, self._pos_dev,
-                    self._active_dev, self._remaining_dev,
+                    self._active_dev, self._remaining_dev, self._counts_dev,
                     self._d_pos_dev if self.speculate_k is not None
                     else None)
         active = np.array([s.active for s in self._seqs], bool)
         remaining = np.array([s.remaining for s in self._seqs], np.int32)
+        counts = np.array([len(s.tokens) for s in self._seqs], np.int32)
         state = [torch.tensor(a, device=self.device) for a in
-                 (self._last, self.tables, self.pos, active, remaining)]
+                 (self._last, self.tables, self.pos, active, remaining,
+                  counts)]
         d_pos = (torch.tensor(self._d_pos, device=self.device)
                  if self.speculate_k is not None else None)
         return (*state, d_pos)
 
-    def _step(self, last, table, pos, active, remaining):
+    def _samples(self) -> bool:
+        """Whether a live slot samples: the host knows every slot's
+        temperature from its admission, so an all-greedy iteration skips
+        the draws (their rows would take the argmax anyway) without
+        reading the device's sampling state."""
+        return any(s.active and s.temperature > 0.0 for s in self._seqs)
+
+    def _step(self, last, table, pos, active, remaining, counts,
+              sampled: bool):
         """The whole loop transition: emit a token for every slot, then
-        advance last/pos and retire (budget/EOS) active slots on the
-        device.  Inactive lanes are parked on the dump page here, so
-        their K/V write lands on page 0 however late the host learns of
-        a retirement."""
+        advance last/pos/counts and retire (budget/EOS) active slots on
+        the device.  A sampled iteration draws each slot's token with the
+        key ``fold_in(base, count + offset)``.  Inactive lanes are parked
+        on the dump page here, so their K/V write lands on page 0 however
+        late the host learns of a retirement."""
         table = torch.where(active[:, None], table, 0)
         run_pos = torch.where(active, pos, 0)
         logits = self.model(last[:, None], self.pools, table, run_pos,
                             checked=True)
-        toks = logits.argmax(-1).to(torch.int32)
+        if sampled:
+            keys = prng.fold_in(self._base_keys, counts + self._key_offsets)
+            toks = pick_tokens(logits, self._temps, keys, self.top_k)
+        else:
+            toks = logits.argmax(-1).to(torch.int32)
         act = active.to(torch.int32)
         new_rem = remaining - act
         done = new_rem <= 0
@@ -1625,16 +1742,17 @@ class PagedContinuousBatcher(_TracedBatcher):
             done = done | (toks == self.eos_id)
         new_active = active & ~done
         new_last = torch.where(active, toks, last)
-        return toks, new_last, pos + act, new_active, new_rem
+        return (toks, new_last, pos + act, new_active, new_rem,
+                counts + act)
 
     def _dispatch_step(self) -> None:
         """Launch one decode step on the device state and start its
         token readback; the host reads it in ``_process_entry``."""
         cand = {i: s.gen for i, s in enumerate(self._seqs) if s.active}
-        last, table, pos, active, remaining, _ = self._loop_state()
+        last, table, pos, active, remaining, counts, _ = self._loop_state()
         (toks, self._last_dev, self._pos_dev, self._active_dev,
-         self._remaining_dev) = self._step(last, table, pos, active,
-                                           remaining)
+         self._remaining_dev, self._counts_dev) = self._step(
+            last, table, pos, active, remaining, counts, self._samples())
         self.stats["steps"] += 1
         self._inflight.append(_Inflight(cand, *self._read_back(toks)))
 
@@ -1658,17 +1776,28 @@ class PagedContinuousBatcher(_TracedBatcher):
         wholesale.  Padding junk past the prompt is overwritten by the
         draft scan's contiguous writes before any causal mask exposes
         it.  The draft always recomputes the full prompt: prefix-cache
-        hits skip target pages only."""
+        hits skip target pages only.  A sampling batcher then re-applies
+        the last prompt token as a one-token forward (row plen - 1
+        rewritten at the step's shapes), as the JAX batcher does: the
+        rejection sampler compares the draft's q bit for bit."""
         row = np.zeros((1, self.prompt_pad), np.int32)
         row[0, : len(prompt)] = prompt
         tokens = torch.from_numpy(row).to(self.device)
+
+        def fill(lane):
+            self.draft_model.fill(tokens, lane, 0)
+            if self.sampling:
+                plen = len(prompt)
+                self.draft_model.fill(tokens[:, plen - 1: plen], lane,
+                                      plen - 1)
+
         if self.kv_quant:
             # an int8 ring: prefill a fresh full-width lane, then splice it
             # in at its own tight scale
             fresh = init_caches(1, self.draft_num_layers,
                                 self.draft_num_heads, self.draft_hidden,
                                 self.draft_window, self.dtype, self.device)
-            self.draft_model.fill(tokens, fresh, 0)
+            fill(fresh)
             for (kent, vent), (fk, fv) in zip(self.d_caches, fresh):
                 for (data, scale), full in ((kent, fk), (vent, fv)):
                     data[slot: slot + 1], scale[slot: slot + 1] = (
@@ -1679,15 +1808,57 @@ class PagedContinuousBatcher(_TracedBatcher):
         for ck, cv in lane:
             ck.zero_()
             cv.zero_()
-        self.draft_model.fill(tokens, lane, 0)
+        fill(lane)
 
-    def _spec_draft(self, last, d_pos, active):
-        """Draft k proposals per slot: k+1 greedy steps of the dense draft
-        over its ring, the extra step's proposal discarded but its ring
-        write load-bearing (it consumes p_k, so row d_pos + k is no hole
-        after a fully accepted window).  A slot whose window would spill
-        past the ring wraps to row 0 here; the flags come back so the
-        host mirror can replay the wrap."""
+    def _spec_first_token(self, slot: int, s: _Seq, base_key,
+                          plen: int) -> None:
+        """A sampled speculative admission's first token, as the JAX
+        batcher draws it: the plain model consumes the last prompt token
+        at row plen - 1 (the row the first window would write) and the
+        token is a direct target sample at absolute position plen under
+        the SAMPLE tag, so the request's draft, accept and resample keys
+        from plen + 1 on line up with the dense reference.  One b = 1
+        forward (K1 on the card) per sampled admission, read back at
+        once."""
+        key = position_key(base_key, plen, KEY_TAG_SAMPLE).to(self.device)
+        logits = self.model(self._last_dev[slot: slot + 1, None], self.pools,
+                            self._tables_dev[slot: slot + 1],
+                            self._pos_dev[slot: slot + 1])
+        tok = int(pick_tokens(logits, self._temps[slot: slot + 1],
+                              key[None], self.top_k)[0])
+        s.tokens = [tok]
+        s.remaining -= 1
+        # the device lane sees the first token's budget debit too, or its
+        # budget truncation would retire one window late
+        self._remaining_dev[slot] = max(s.remaining, 0)
+        self.pos[slot] = plen
+        self._last[slot] = tok
+        self._pos_dev[slot] = plen
+        self._last_dev[slot] = tok
+        self._counts_dev[slot] = 1
+        self._d_pos[slot] = plen
+        self._d_pos_dev[slot] = plen
+        _observe_emit(self.metrics, s, first=True)
+        self.first_token_s[s.seq_id] = s.last_emit_at - s.submitted_at
+        self._trace_first_token(s)
+        if s.remaining <= 0 or (self.eos_id is not None
+                                and tok == self.eos_id):
+            # finished at admission: retire the device lane now; the next
+            # sweep reaps the slot
+            s.active = False
+            self._active_dev[slot] = False
+            self._remaining_dev[slot] = 0
+
+    def _spec_draft(self, last, d_pos, active, noise=None):
+        """Draft k proposals per slot: k+1 steps of the dense draft over
+        its ring, the extra step's proposal discarded but its ring write
+        load-bearing (it consumes p_k, so row d_pos + k is no hole after
+        a fully accepted window).  Steps are greedy, or with ``noise``
+        (b, k+1, vocab), the gumbel noise of the window's draft keys,
+        sampled rows draw their proposals and the step logits come back
+        for the verify's rejection sampler.  A slot whose window would
+        spill past the ring wraps to row 0 here; the flags come back so
+        the host mirror can replay the wrap."""
         k = self.speculate_k
         wrap = active & (d_pos + (k + 1) > self.draft_window)
         d_pos_w = torch.where(wrap, 0, d_pos)
@@ -1700,10 +1871,15 @@ class PagedContinuousBatcher(_TracedBatcher):
             tuple((d.float() * sc[:, None, :, None]).to(self.dtype)
                   for d, sc in (ke, ve))
             for ke, ve in self.d_caches]
-        tok, proposed = last, []
-        for _ in range(k + 1):
+        tok, proposed, d_logits = last, [], []
+        for j in range(k + 1):
             logits = self.draft_model(tok[:, None], caches, p)
-            tok = logits.argmax(-1).to(torch.int32)
+            if noise is None:
+                tok = logits.argmax(-1).to(torch.int32)
+            else:
+                tok = pick_with_noise(logits, self._temps, noise[:, j],
+                                      self.top_k)
+                d_logits.append(logits)
             proposed.append(tok)
             p = p + 1
         if self.kv_quant:
@@ -1712,19 +1888,23 @@ class PagedContinuousBatcher(_TracedBatcher):
                     q, new_s = quantize_ring(full, scale)
                     data.copy_(q)
                     scale.copy_(new_s)
-        return torch.stack(proposed[:k], 1), d_pos_w, wrap
+        d_logits = torch.stack(d_logits[:k], 1) if d_logits else None
+        return torch.stack(proposed[:k], 1), d_pos_w, wrap, d_logits
 
     def _spec_verify(self, last, proposals, table, pos, d_pos, active,
-                     remaining):
+                     remaining, sampled_in=None):
         """Score the window ``[last, p_1..p_k]`` of every slot in one
         paged forward (K2), accept the longest prefix matching the
         target's greedy choices, and commit on the device: cap at the
         slot's budget, cut at the first EOS, retire on either, advance
-        pos and d_pos by the rows the window consumed.  Inactive lanes
-        are parked on the dump page (table 0, pos 0): a retired slot's
-        overhang window would otherwise write past its reservation, where
-        the table's padding points at its first page — which may be
-        sealed in the prefix cache."""
+        pos and d_pos by the rows the window consumed.  With
+        ``sampled_in`` (the draft's logits and the window's accept and
+        resample keys) sampled rows take the rejection sampler's block
+        and accept count instead.  Inactive lanes are parked on the dump
+        page (table 0, pos 0): a retired slot's overhang window would
+        otherwise write past its reservation, where the table's padding
+        points at its first page — which may be sealed in the prefix
+        cache."""
         k = self.speculate_k
         slots = torch.arange(last.shape[0], device=last.device)
         table = torch.where(active[:, None], table, 0)
@@ -1738,6 +1918,11 @@ class PagedContinuousBatcher(_TracedBatcher):
         accepted = torch.cat(
             [match, torch.zeros_like(match[:, :1])], 1
         ).to(torch.int32).argmin(1).to(torch.int32)
+        if sampled_in is not None:
+            d_logits, a_keys, s_keys = sampled_in
+            choices, accepted = sampled_verify(
+                logits, d_logits, proposals, choices, accepted, self._temps,
+                a_keys, s_keys, self.top_k)
         emit_len = accepted + 1
         next_last = choices[slots, accepted.long()]
         act = active.to(torch.int32)
@@ -1765,7 +1950,8 @@ class PagedContinuousBatcher(_TracedBatcher):
         its choices, emitted lengths and wrap flags come back packed in
         one int32 tensor, the iteration's only readback."""
         cand = {i: s.gen for i, s in enumerate(self._seqs) if s.active}
-        last, table, pos, active, remaining, d_pos = self._loop_state()
+        last, table, pos, active, remaining, _, d_pos = self._loop_state()
+        sampled = self.sampling and self._samples()
         if self.metrics is not None:
             draft_ctx = self.metrics.timer("serve_spec_draft_seconds")
             verify_ctx = self.metrics.timer("serve_spec_verify_seconds")
@@ -1777,8 +1963,16 @@ class PagedContinuousBatcher(_TracedBatcher):
                  and self.stream is not None)
         td0 = time.monotonic()
         with draft_ctx:
-            proposals, d_pos_w, wrapped = self._spec_draft(last, d_pos,
-                                                           active)
+            noise = None
+            if sampled:
+                # the window's keys fold the absolute positions pos + 1 ..
+                # (the committed-row cursor, which survives ring wraps);
+                # the draft's noise is drawn for all k + 1 steps at once
+                d_keys, a_keys, s_keys = window_keys(
+                    self._base_keys, pos, self.speculate_k)
+                noise = prng.gumbel(d_keys, self.model.vocab_size)
+            proposals, d_pos_w, wrapped, d_logits = self._spec_draft(
+                last, d_pos, active, noise)
             if fence:
                 self.stream.synchronize()
         tv0 = time.monotonic()
@@ -1786,7 +1980,8 @@ class PagedContinuousBatcher(_TracedBatcher):
             (choices, emit_len, self._last_dev, self._pos_dev,
              self._d_pos_dev, self._active_dev,
              self._remaining_dev) = self._spec_verify(
-                last, proposals, table, pos, d_pos_w, active, remaining)
+                last, proposals, table, pos, d_pos_w, active, remaining,
+                (d_logits, a_keys, s_keys) if sampled else None)
             if fence:
                 self.stream.synchronize()
         tv1 = time.monotonic()
@@ -1850,8 +2045,9 @@ class PagedContinuousBatcher(_TracedBatcher):
                     decode.child("spec_verify", t=entry.tv0, accepted=e,
                                  emitted=len(emitted)).end(t=entry.tv1)
                 if self.metrics is not None:
-                    self.metrics.observe("serve_spec_accept_rate",
-                                         (e - 1) / k, mode="greedy")
+                    self.metrics.observe(
+                        "serve_spec_accept_rate", (e - 1) / k,
+                        mode="sampled" if s.temperature > 0.0 else "greedy")
             for t in emitted:
                 first = not s.tokens
                 s.tokens.append(t)

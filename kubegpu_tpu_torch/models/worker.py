@@ -18,13 +18,19 @@ streams are the non-speculative ones, token for token, at fp32.
 with per-page, per-head scales, read by K1q/K2q; ``--int8`` serves
 weight-only int8 weights (printing ``SERVING_INT8``);
 ``--decode-page-cache`` lets retirement seal decode-produced pages into
-the prefix chain.  ``--serve`` replays waves forever after the timed
-one, printing ``SERVING tokens_per_sec=`` per wave.
+the prefix chain.  ``--sample-temperature T`` samples instead of taking
+the argmax, as the JAX worker does: request i of a wave pins seed
+``--sample-seed + i`` (the same streams on every rerun and replica),
+``--sample-top-k`` truncates to the k most likely tokens, and with
+``--speculate`` the verify runs rejection-sampled speculation.
+``--serve`` replays waves forever after the timed one, printing
+``SERVING tokens_per_sec=`` per wave.
 
     python -m kubegpu_tpu_torch.models.worker --model decode --serving paged \\
         --vocab 32768 --hidden 4096 --heads 32 --layers 4 \\
         --prompt-len 128 --batch-per-chip 8 --steps 64 [--speculate] \\
-        [--kv-dtype int8] [--int8] [--decode-page-cache quantized]
+        [--kv-dtype int8] [--int8] [--decode-page-cache quantized] \\
+        [--sample-temperature 0.8 [--sample-top-k 50] [--sample-seed 0]]
 
 ``--serve-http PORT`` serves the batcher as a replica HTTP endpoint
 instead (``gateway/dataplane.py``, the JAX replica's wire schema): it
@@ -151,6 +157,17 @@ def build_parser() -> argparse.ArgumentParser:
                     "pages into the prefix cache; off = prompt pages only, "
                     "fp32 = only on a float32 full-width pool, quantized = "
                     "only on an int8 pool, all = always")
+    ap.add_argument("--sample-temperature", type=float, default=0.0,
+                    help="decode: sample with this temperature instead of "
+                    "the argmax (0 = greedy); with --speculate the verify "
+                    "runs rejection-sampled speculation")
+    ap.add_argument("--sample-top-k", type=int, default=0,
+                    help="decode --sample-temperature: sample from the k "
+                    "most likely tokens (0 = the full softmax)")
+    ap.add_argument("--sample-seed", type=int, default=0,
+                    help="decode --sample-temperature: request i of a wave "
+                    "pins seed sample-seed + i, so sampled streams repeat "
+                    "across reruns, replicas, slots and batches")
     ap.add_argument("--draft-layers", type=int, default=1)
     ap.add_argument("--draft-hidden", type=int, default=0,
                     help="draft width (0 = max(hidden // 4, 128)); its "
@@ -299,26 +316,41 @@ def build_batcher(args: argparse.Namespace) -> PagedContinuousBatcher:
         params, **cfg, slots=slots, prompt_pad=args.prompt_len,
         page_size=page, pool_pages=pool, dtype=dtype, device=device,
         quant=args.int8, kv_dtype=args.kv_dtype,
-        decode_page_cache=args.decode_page_cache, **spec_kw,
+        decode_page_cache=args.decode_page_cache,
+        # sampled traffic keeps speculation: the verify rejection-samples
+        sampling=args.sample_temperature > 0, top_k=args.sample_top_k,
+        **spec_kw,
     )
 
 
-def warm_batcher(cb: PagedContinuousBatcher) -> None:
+def sampled_wave_kw(args: argparse.Namespace, n_req: int) -> dict:
+    """The ``run`` arguments of a sampled wave, as the JAX worker's: every
+    request at ``--sample-temperature``, request i pinning seed
+    ``--sample-seed + i``; empty when the worker decodes greedily."""
+    if args.sample_temperature <= 0:
+        return {}
+    return dict(temperatures=[args.sample_temperature] * n_req,
+                seeds=[args.sample_seed + i for i in range(n_req)])
+
+
+def warm_batcher(cb: PagedContinuousBatcher,
+                 temperature: float = 0.0) -> None:
     """Pay every first-use cost before traffic: build the kernel
     libraries, then serve two full-length prompts that share all their
     full pages, one after the other, so the station prefill, the page
     scatter, the prefix gather (where the prompt spans more than a page
     past the hit), the decode step (K1) or the draft scan and verify
-    (K2), and retirement sealing all run once.  The batcher's stats and
-    step ledger are reset after, so they count served traffic only."""
+    (K2), and retirement sealing all run once; the second samples at
+    ``temperature`` when it is above 0.  The batcher's stats and step
+    ledger are reset after, so they count served traffic only."""
     if cb.device.type == "cuda":
         _build.build()
     prompt = (np.arange(cb.prompt_pad, dtype=np.int32) * 7 + 1) % (
         cb.model.vocab_size)
     budget = max(1, min(2, cb.max_seq - cb.prompt_pad
                         - (cb.speculate_k or 0)))
-    for seq in (0, 1):
-        cb.submit(seq, prompt, budget)
+    for seq, temp in ((0, 0.0), (1, temperature)):
+        cb.submit(seq, prompt, budget, temp, seed=0 if temp > 0 else None)
         while cb.has_work():
             cb.serve_step()
     if cb.device.type == "cuda":
@@ -340,6 +372,7 @@ def run_decode(args: argparse.Namespace,
     rng = np.random.RandomState(0)
     n_req = 2 * slots
     budgets = [max(args.steps * (1 + i % 4) // 4, 1) for i in range(n_req)]
+    run_kw = sampled_wave_kw(args, n_req)
     counters = ((paged_decode_attention, "launches"),
                 (paged_decode_attention, "int8_launches"),
                 (paged_chunk_attention, "launches"),
@@ -349,7 +382,7 @@ def run_decode(args: argparse.Namespace,
     def wave():
         prompts = wave_requests(rng, n_req, args.vocab, args.prompt_len)
         tw = time.monotonic()
-        out = cb.run(prompts, budgets)
+        out = cb.run(prompts, budgets, **run_kw)
         if device.type == "cuda":
             torch.cuda.synchronize(device)
         return out, time.monotonic() - tw
@@ -419,7 +452,7 @@ def serve_http(args: argparse.Namespace, t0: float) -> int:
         with open(args.serve_http_auth_token_file) as f:
             auth_token = f.read().strip()
     cb = build_batcher(args)
-    warm_batcher(cb)
+    warm_batcher(cb, args.sample_temperature)
     metrics = Metrics()
     cb.attach_metrics(metrics)
     counters = {"K1": (paged_decode_attention, "launches"),

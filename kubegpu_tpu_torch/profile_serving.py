@@ -2,12 +2,13 @@
 LM's full width (the configuration ``chip_smoke.py`` serves).
 
     python -m kubegpu_tpu_torch.profile_serving [--speculate [--spec-k K]] \
-        [--kv-dtype int8] [--int8]
+        [--kv-dtype int8] [--int8] [--sample-temperature T [--sample-top-k K]]
 
 Builds the worker's batcher (vocab 32768, hidden 4096, 4 layers, 32
 heads, bf16, page 128, 8 slots; the extra arguments are the worker's, so
-``--kv-dtype int8`` profiles the int8 pool with K1q/K2q and ``--int8``
-weight-only int8), fills every slot with a 128-token
+``--kv-dtype int8`` profiles the int8 pool with K1q/K2q, ``--int8``
+weight-only int8 and ``--sample-temperature`` sampled requests, slot i
+pinning seed ``--sample-seed + i``), fills every slot with a 128-token
 prompt and a budget that outlasts the measurement, and once all eight
 are decoding:
 
@@ -44,9 +45,11 @@ def steady_batcher(extra):
     args = worker.build_parser().parse_args(FLAGSHIP + extra)
     cb = worker.build_batcher(args)
     rng = np.random.RandomState(0)
+    temp = args.sample_temperature
     for i in range(cb.slots):
         cb.submit(i, rng.randint(0, args.vocab, size=128, dtype=np.int32),
-                  args.steps)
+                  args.steps, temp,
+                  seed=args.sample_seed + i if temp > 0 else None)
     # a sequence has a token only once its prefill finished
     live = {}
     while len(live) < cb.slots or not all(live.values()):

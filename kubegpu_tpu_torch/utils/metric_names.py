@@ -8,7 +8,7 @@ help text, so dashboards read a torch replica exactly as a JAX one.
 fails on a name missing here, on a catalog entry no code emits, and on
 an entry that differs from the reference's.  The names of slices still
 to come (the int8 pool's quality gauges, migration, tensor-parallel
-collectives, the draft ring's gauges) arrive with those slices.
+collectives) arrive with those slices.
 """
 
 from __future__ import annotations
@@ -71,6 +71,8 @@ CATALOG: Dict[str, MetricSpec] = {
         "when tracing is enabled"),
     "serve_prefill_wait_seconds": _h(
         (), "submit -> first prefill chunk (station wait included)"),
+    "serve_station_slots_busy": _g(
+        (), "prefill-station slots occupied by in-flight admissions"),
 
     # -- token and chunk counters (models/paging.py)
     "serve_prompt_tokens_total": _c((), "prompt tokens admitted"),
@@ -82,6 +84,12 @@ CATALOG: Dict[str, MetricSpec] = {
     "serve_decode_pages_sealed_total": _c(
         (), "decode-produced pages sealed into the prefix cache at "
         "retirement"),
+    "serve_kv_quant_seal_requants_total": _c(
+        (), "pool pages run through seal-time requantization before "
+        "entering the shared prefix chain (int8 pool: stretch int8 "
+        "range back to 127, shrink the scale — recovers precision a "
+        "rejected speculative row's grow-and-rescale inflation "
+        "squeezed out; a no-op for already-tight pages)"),
 
     # -- speculation (models/paging.py with speculate_k)
     "serve_spec_steps_total": _c((), "speculative verify iterations"),
@@ -94,6 +102,15 @@ CATALOG: Dict[str, MetricSpec] = {
         "(rejection-sampled lossless speculation)"),
     "serve_spec_draft_seconds": _h((), "draft proposal program wall time"),
     "serve_spec_verify_seconds": _h((), "verify program wall time"),
+    "serve_draft_cache_rows": _g(
+        (), "draft ring-cache rows resident (slots x draft_window)"),
+    "serve_draft_ring_bytes": _g(
+        ("dtype",), "draft ring-cache bytes RESTING by storage dtype "
+        "(mesh-wide aggregate, like serve_pool_kv_bytes).  A quantized "
+        "ring (kv_dtype=\"int8\") reports two series — int8 row bytes "
+        "and float32 per-(slot, head) scale bytes; a full-width ring "
+        "one series at its compute dtype.  The freed difference is "
+        "admission headroom the page pool gets back"),
 
     # -- per-iteration serving ledger (PagedContinuousBatcher.serve_step)
     "serve_step_rows": _g(

@@ -147,10 +147,17 @@ def test_greedy_generate_tokens_identical(jax_params, torch_params, plen,
 
 
 def test_generate_refuses_what_this_slice_does_not_serve(torch_params):
+    """Sampling is served (tests/test_torch_sampling.py); what generate
+    refuses, as the JAX function does, is a temperature without a key, a
+    top_k past the vocabulary and a decode past the cache."""
     prompt = torch.zeros((1, 4), dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="sampling slice"):
+    with pytest.raises(ValueError, match="rng key"):
         generate(torch_params, prompt, 2, temperature=0.7,
                  dtype=torch.float32, device="cpu", **CFG)
+    with pytest.raises(ValueError, match="top_k"):
+        generate(torch_params, prompt, 2, temperature=0.7, top_k=1000,
+                 rng=torch.tensor([0, 1]), dtype=torch.float32, device="cpu",
+                 **CFG)
     with pytest.raises(ValueError, match="max_seq"):
         greedy_generate(torch_params, prompt, 40, dtype=torch.float32,
                         device="cpu", **CFG)

@@ -4,9 +4,9 @@ fronted by the JAX package's unmodified gateway side: SSE framing, bearer
 auth, TLS, a JAX gateway over one JAX and one torch replica serving the
 in-memory JAX data plane's streams, wire cancel and disconnect freeing
 pages, shed-before-work, trace trees across the wire, ``/v1/state``
-parity with a JAX replica, the refusals of later slices (sampling: an
-``error`` event; migration verbs: 501), a batcher failure ending the
-streams, and the worker subprocess.  Tiny fp32 replicas on the CPU, as in
+parity with a JAX replica, sampled and seed-pinned requests streaming a
+JAX replica's tokens, the refusals of a later slice (migration verbs:
+501), a batcher failure ending the streams, and the worker subprocess.  Tiny fp32 replicas on the CPU, as in
 tests/test_http_data_plane.py; every wait is a bounded poll."""
 
 import http.client
@@ -44,6 +44,7 @@ from kubegpu_tpu.utils.tracing import serve_retire_violations, validate_trace
 from kubegpu_tpu_torch.gateway.dataplane import ReplicaServer
 from kubegpu_tpu_torch.models.paging import PagedContinuousBatcher
 from kubegpu_tpu_torch.models.params import params_from_numpy
+from kubegpu_tpu_torch.utils.metrics import Metrics
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TINY = dict(vocab_size=61, num_layers=1, num_heads=2, hidden=16, max_seq=48)
@@ -475,29 +476,86 @@ def test_trace_tree_spans_jax_gateway_and_torch_replica(torch_params):
 
 
 # ---------------------------------------------------------------------------
-# refusals of later slices, and failures
+# sampled requests
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("extra", [dict(temperature=0.8), dict(seed=3)],
-                         ids=["temperature", "seed"])
-def test_sampled_request_ends_in_an_error_naming_the_slice(torch_params,
-                                                           extra):
-    cb = _torch_cb(torch_params)
-    srv = ReplicaServer(cb).start()
+def _gateway_one(srv, request):
+    """Serve one ``GatewayRequest`` through a JAX gateway whose only
+    replica is ``srv``; returns the result."""
+    stack = build_fake_serving_stack(1)
+    stack.registry.refresh()
+    client = HttpReplicaClient()
+    rep, = stack.registry.live()
+    client.set_endpoint(rep.key, srv.endpoint)
+    stack.registry.subscribe(client.sync_live)
+    stack.registry.refresh()
+    gw = Gateway(stack.registry, client, metrics=JaxMetrics(),
+                 policy=FailoverPolicy(deadline_s=60.0, hedge_after_s=30.0))
+    gw.start()
     try:
-        status, events = _post(srv, "/v1/submit", dict({
-            "request_id": "s", "prompt": [1, 2, 3], "max_new_tokens": 4},
-            **extra))
-        assert status == 200
-        (kind, payload), = events
-        assert kind == "error" and "sampling slice" in payload["error"]
-        # the replica still serves greedy requests
-        _, events = _post(srv, "/v1/submit", {
-            "request_id": "g", "prompt": [1, 2, 3], "max_new_tokens": 4})
-        assert events[-1][0] == "done"
+        pending = gw.submit(request)
+        assert gw.drain(60.0)
+        return pending.result()
     finally:
-        srv.stop()
-    cb.assert_page_accounting()
+        gw.stop()
+        client.stop()
+
+
+SAMPLED_SPEC = dict(speculate_k=2, sampling=True, draft_num_layers=1,
+                    draft_num_heads=2, draft_hidden=16)
+
+
+@pytest.mark.parametrize("spec", [False, True], ids=["plain", "speculative"])
+@pytest.mark.parametrize("extra", [dict(temperature=0.8),
+                                   dict(temperature=1.1, seed=3)],
+                         ids=["temperature", "seed"])
+def test_sampled_request_streams_the_jax_replicas_tokens(
+        jax_params, torch_params, extra, spec):
+    """A sampled request — a temperature alone (keys from the replica's
+    root key and seq id) or pinned to a seed — through a JAX gateway to a
+    torch replica streams the tokens the same request streams from a JAX
+    replica at fp32; afterwards both replicas report the same
+    ``/v1/state``, and a speculative replica's verifies fill the
+    ``serve_spec_accept_rate{mode="sampled"}`` series of both alike."""
+    prompt, budget = [7, 1, 30, 2, 59, 11], 9
+    jover = tover = {}
+    if spec:
+        jover = dict(SAMPLED_SPEC, draft_params=jax_params)
+        tover = dict(SAMPLED_SPEC, draft_params=torch_params)
+    jm, tm = JaxMetrics(), Metrics()
+    servers = {"jax": JaxReplicaServer(_jax_cb(jax_params, metrics=jm,
+                                               **jover)),
+               "torch": ReplicaServer(_torch_cb(torch_params, metrics=tm,
+                                                **tover))}
+    results, states = {}, {}
+    for kind, srv in servers.items():
+        srv.start()
+        try:
+            results[kind] = _gateway_one(srv, GatewayRequest(
+                prompt=prompt, max_new_tokens=budget, request_id=kind,
+                **extra))
+            states[kind] = json.loads(_get(srv, "/v1/state")[1])
+        finally:
+            srv.stop()
+    for kind, r in results.items():
+        assert r.status == "ok", (kind, r.status, r.error)
+        assert len(r.tokens) == budget
+    assert results["torch"].tokens == results["jax"].tokens
+    for k in MIGRATION_STATS:
+        states["jax"]["stats"].pop(k)
+    for state in states.values():
+        state.pop("ledger", None)
+    assert states["torch"] == states["jax"]
+    for mode in ("sampled", "greedy"):
+        n = tm.histogram_count("serve_spec_accept_rate", mode=mode)
+        assert n == jm.histogram_count("serve_spec_accept_rate", mode=mode)
+        assert (n > 0) == (spec and mode == "sampled")
+    servers["torch"].loop.batcher.assert_page_accounting()
+
+
+# ---------------------------------------------------------------------------
+# refusals of a later slice, and failures
+# ---------------------------------------------------------------------------
 
 
 @pytest.mark.parametrize("verb", ["export", "import", "role"])

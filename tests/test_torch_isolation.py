@@ -46,9 +46,10 @@ def test_importing_every_module_leaves_jax_out():
     n_modules = int(first.split()[0])
     assert n_modules >= 25
     # the HTTP replica slice's own copies of the JAX package's
-    # stdlib-only modules
+    # stdlib-only modules, and the sampling slice's counter-based PRNG
     for name in ("gateway", "gateway.client", "gateway.dataplane", "utils",
-                 "utils.metrics", "utils.tracing", "utils.metric_names"):
+                 "utils.metrics", "utils.tracing", "utils.metric_names",
+                 "ops.prng"):
         assert f"kubegpu_tpu_torch.{name}" in imported.split(), name
 
 

@@ -37,7 +37,7 @@ _EMIT_RE = re.compile(
     re.S,
 )
 
-# the names the port's replica path emits (module 3 of the HTTP slice)
+# the names the port's replica path emits
 WANT_NAMES = {
     "replica_http_requests_total", "replica_http_stream_events_total",
     "replica_http_streams_active", "replica_http_cancels_total",
@@ -54,6 +54,10 @@ WANT_NAMES = {
     "serve_spec_accept_rate", "serve_spec_draft_seconds",
     "serve_spec_verify_seconds", "serve_pool_kv_bytes", "serve_tp_devices",
     "serve_tp_pool_bytes_per_device",
+    # the four series the batcher's station, seal-time requantization
+    # and draft ring report
+    "serve_station_slots_busy", "serve_kv_quant_seal_requants_total",
+    "serve_draft_cache_rows", "serve_draft_ring_bytes",
 }
 
 

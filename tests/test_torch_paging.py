@@ -204,12 +204,13 @@ def test_pool_too_small_for_a_request_is_refused(torch_params):
 
 
 @pytest.mark.parametrize("knob, slice_name", [
-    # greedy speculation is ported; sampled speculation is not
-    (dict(speculate_k=2, sampling=True), "speculation"),
-    (dict(sampling=True), "sampling"),
-    (dict(top_k=5), "sampling"),
+    # sampling and sampled speculation serve (tests/test_torch_spec_
+    # sampled.py); a later slice's knob refuses with them or without
     (dict(mesh=object()), "tensor-parallel"),
     (dict(prefill_only=True), "migration"),
+    (dict(mesh=object(), sampling=True, top_k=5), "tensor-parallel"),
+    (dict(prefill_only=True, speculate_k=2, sampling=True), "migration"),
+    (dict(prefill_only=True, top_k=5), "migration"),
 ])
 def test_knobs_of_later_slices_are_refused(torch_params, knob, slice_name):
     with pytest.raises(NotImplementedError, match=slice_name):
@@ -267,12 +268,27 @@ def test_malformed_knobs_raise_value_errors(torch_params):
 
 
 def test_sampled_requests_are_refused_at_submit(torch_params):
+    """Only a greedy-only speculative batcher refuses a sampled request,
+    as the JAX batcher does: a plain batcher samples (the streams are
+    held against JAX in tests/test_torch_spec_sampled.py), and a seed at
+    temperature 0 is a greedy request everywhere."""
+    prompt = np.arange(3, dtype=np.int32)
     tb = PagedContinuousBatcher(torch_params, dtype=torch.float32,
                                 device="cpu", **CFG, **BATCHER_KW)
-    with pytest.raises(NotImplementedError, match="sampling"):
-        tb.submit(0, np.arange(3, dtype=np.int32), 2, temperature=0.8)
-    with pytest.raises(NotImplementedError, match="sampling"):
-        tb.submit(0, np.arange(3, dtype=np.int32), 2, seed=1)
+    tb.submit(0, prompt, 2, temperature=0.8)
+    tb.submit(1, prompt, 2, seed=1)
+    done = {}
+    while tb.has_work():
+        done.update(tb.serve_step())
+    assert [len(done[i]) for i in (0, 1)] == [2, 2]
+    spec = PagedContinuousBatcher(
+        torch_params, dtype=torch.float32, device="cpu", **CFG,
+        **BATCHER_KW, draft_params=torch_params, speculate_k=2,
+        draft_num_layers=CFG["num_layers"], draft_num_heads=CFG["num_heads"],
+        draft_hidden=CFG["hidden"])
+    with pytest.raises(ValueError, match="greedy-only"):
+        spec.submit(0, prompt, 2, temperature=0.8)
+    spec.submit(1, prompt, 2, seed=1)
 
 
 def test_prefix_page_cache_refcounts_and_lru():

@@ -15,7 +15,9 @@ migration counters arrive with the migration slice); for every request
 the same span names in the same tree shape with one ``retire`` of the
 same reason, and no ``serve_retire_violations``; equal histogram counts
 of ``serve_ttft_seconds``, ``serve_itl_seconds`` and
-``serve_phase_seconds{phase}``, and equal counters.  The same holds
+``serve_phase_seconds{phase}``, equal counters and gauges — among them
+the station's busy slots after every step, the seal-time requant count
+and the draft ring's rows and bytes.  The same holds
 with ``speculate_k=2``, over an int8 pool with quantized sealing, and
 with the synchronous loop; ``trace_shutdown`` closes every live
 request's subtree with a ``died`` retire in both."""
@@ -123,11 +125,13 @@ def build(weights, mode, side):
     return cb, metrics, tracer
 
 
-def drive(cb, stop_after=None):
+def drive(cb, stop_after=None, busy=None):
     """Serve the schedule: each wave is submitted two iterations after
     the one before it; the queued cancel lands right after its submit,
     the live cancel after the request's second token.  ``stop_after``
-    stops serving after that many iterations (the shutdown case)."""
+    stops serving after that many iterations (the shutdown case);
+    ``busy`` collects the ``serve_station_slots_busy`` gauge after every
+    iteration."""
     prompts, budgets, waves = schedule()
     done, cut, it = {}, None, 0
     pending_waves = list(waves)
@@ -139,6 +143,8 @@ def drive(cb, stop_after=None):
                     assert cb.cancel(CANCEL_QUEUED)
         if cb.has_work():
             done.update(cb.serve_step())
+            if busy is not None:
+                busy.append(cb.metrics.gauge("serve_station_slots_busy"))
         live = cb.live_tokens()
         if cut is None and len(live.get(CANCEL_LIVE, [])) >= 2:
             cut = list(live[CANCEL_LIVE])
@@ -195,9 +201,11 @@ def test_schedule_reaches_every_path(weights):
 def test_observability_matches_jax(weights, mode):
     jb, jm, jtr = build(weights, mode, "jax")
     tb, tm, ttr = build(weights, mode, "torch")
-    want, want_cut = drive(jb)
-    got, got_cut = drive(tb)
+    jbusy, tbusy = [], []
+    want, want_cut = drive(jb, busy=jbusy)
+    got, got_cut = drive(tb, busy=tbusy)
     assert got == want and got_cut == want_cut
+    assert tbusy == jbusy and max(tbusy) > 0
     tb.assert_page_accounting()
     # the ledger, row for row
     jrows, trows = jb.ledger_rows(), tb.ledger_rows()
@@ -246,6 +254,7 @@ def test_observability_matches_jax(weights, mode):
                           {"kind": "decode"}),
                          ("serve_prefill_chunks_total", {}),
                          ("serve_decode_pages_sealed_total", {}),
+                         ("serve_kv_quant_seal_requants_total", {}),
                          ("serve_spec_steps_total", {}),
                          ("serve_spec_tokens_per_step", {})):
         assert tm.get(name, **labels) == jm.get(name, **labels), name
@@ -256,10 +265,17 @@ def test_observability_matches_jax(weights, mode):
                          ("serve_step_rows", {}),
                          ("serve_pool_pages_free", {}),
                          ("serve_pool_pages_live", {}),
-                         ("serve_pool_pages_cached", {})):
+                         ("serve_pool_pages_cached", {}),
+                         ("serve_draft_cache_rows", {}),
+                         ("serve_draft_ring_bytes", {"dtype": "float32"})):
         assert tm.gauge(name, **labels) == jm.gauge(name, **labels), name
+    if tb.kv_quant:
+        assert (tm.get("serve_kv_quant_seal_requants_total")
+                == tb.stats["seal_requants"] > 0)
     if tb.speculate_k:
         assert tm.get("serve_spec_steps_total") == tb.stats["spec_steps"]
+        assert tm.gauge("serve_draft_cache_rows") > 0
+        assert tm.gauge("serve_draft_ring_bytes", dtype="float32") > 0
         assert (tm.histogram_count("serve_spec_accept_rate", mode="greedy")
                 == jm.histogram_count("serve_spec_accept_rate",
                                       mode="greedy") > 0)

@@ -236,12 +236,14 @@ def test_speculative_generate_matches_jax_and_greedy(weights, k, perfect):
 
 
 def test_speculative_generate_refuses_sampling_and_tight_caches(weights):
+    """Sampling serves (tests/test_torch_sampling.py); temperatures that
+    are not one per row are refused, as JAX refuses them."""
     _, _, tparams, tdraft = weights
     prompt = np.zeros((1, 4), np.int32)
     kw = dict(dtype=torch.float32, device="cpu", **DRAFT, **CFG)
-    with pytest.raises(NotImplementedError, match="sampling slice"):
+    with pytest.raises(ValueError, match="temperatures must be shape"):
         speculative_generate(tparams, tdraft, prompt, 4,
-                             temperatures=[0.7], **kw)
+                             temperatures=[0.7, 0.9], **kw)
     with pytest.raises(ValueError, match="max_seq"):
         speculative_generate(tparams, tdraft, prompt, 25, k=4, **kw)
     with pytest.raises(ValueError, match="k must be"):
