@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Builds every kernel of the port's serving and training paths from the
-sources in the checkout, then runs twenty-five phases; any failure exits
+sources in the checkout, then runs twenty-eight phases; any failure exits
 non-zero:
 
 1. device: the card's name and power limit, TF32 off;
@@ -147,7 +147,33 @@ non-zero:
    within 1e-4; speculating also the draft proposal's and the accept
    test's |u q - p|); then the plain traffic over the wire through a
    card ``ReplicaServer`` against the card's in-process streams, under
-   the same rule (the keys depend on seed and position only).
+   the same rule (the keys depend on seed and position only);
+26. the reference's migration bench (``bench.py::serving_migration``) at
+   its full width (vocab 32768, 4 layers, hidden 4096, 32 heads, pages of
+   64, prompt_pad 320, max_seq 768) in bfloat16, three warm card
+   batchers sharing one set of weights, then the same with an int8
+   pool: turn 1 completes on A, A's sealed chain crosses the port's
+   codec into B, turn 2 runs on B (restored) and C (cold), min-of-3
+   TTFT with the orders interleaved; restored TTFT strictly below cold,
+   restored tokens equal to the turn 2 that never migrated (on A), cold
+   ones under the near-tie rule (the card's dense model puts the top two
+   logits within 0.125 at the first difference); pages moved, wire
+   bytes, bytes a page and pages/s through export and import, and the
+   int8 page's bytes exactly half the bf16 page's plus its scales;
+27. live mid-stream migration card to card through the codec at the
+   flagship serving width, plain (K1) and speculative k 4 (K2) on a
+   bfloat16 and an int8 pool (K1q, K2q): the continuation equals the
+   un-migrated stream but for printed near-ties, and each kernel's count,
+   set to 0 just before the import, is the importer's steps x layers;
+   then on phase 6's float32 model card to CPU and CPU to card under the
+   near-tie rule, and a seed-pinned sampled speculative sequence whose
+   draft ring ships, identical;
+28. the wire: two card ``ReplicaServer``s at the flagship width with
+   512-token prompts: a live ``POST /v1/export`` on A and ``POST
+   /v1/import`` on B, whose SSE continuation completes the budget; then
+   ``POST /v1/role`` prefill on A and a streamed handoff (deltas while A
+   prefills, ``reclaim``, the final export from the cursor into B);
+   export and import ms a page and the wire's MB/s.
 
 The line before the last is the per-kernel JSON record, and the line
 before that the card's name and power limit again; the last line is
@@ -1590,6 +1616,551 @@ def phase_sampled_card_vs_cpu(ctx: dict) -> None:
     torch.cuda.empty_cache()
 
 
+# -- migration and disaggregation (phases 26-28) ------------------------------
+
+# bench.py's serving_migration at full width: vocab 32768, 4 layers,
+# hidden 4096, 32 heads of 128, pages of 64, prompt_pad 320, max_seq 768
+MIGRATION_CFG = dict(vocab_size=32768, num_layers=4, num_heads=32,
+                     hidden=4096, max_seq=768)
+MIGRATION_KW = dict(slots=4, prompt_pad=320, page_size=64, pool_pages=64)
+MIGRATION_TURNS = dict(p1_len=128, t1_new=65, t2_new=32, probes=3)
+# a bfloat16 near-tie: the card's dense model puts the reference's top
+# two logits this close at the first differing token
+BF16_NEAR_TIE_MARGIN = 0.125
+
+
+def fresh_params(cfg: dict, dtype, device: str = "cuda", seed: int = 0):
+    """Weights drawn as the worker draws them (float32 from ``seed``, then
+    cast to ``dtype``), on ``device``."""
+    import torch
+
+    from kubegpu_tpu_torch.models.params import init_params, tree_map
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    params = init_params(cfg, gen, torch.float32, device)
+    return tree_map(lambda t: t.to(dtype), params)
+
+
+def dense_margin(params, cfg: dict, dtype, tokens, device: str) -> float:
+    """The top-2 logit margin of the dense model (``params`` at
+    ``dtype``, float32 head) after ``tokens``: how near a tie the next
+    token is."""
+    import numpy as np
+    import torch
+
+    from kubegpu_tpu_torch.models.decoding import DecodeLM, init_caches
+    from kubegpu_tpu_torch.models.params import bind_params
+
+    dense = bind_params(DecodeLM(dtype=dtype, **cfg), params)
+    caches = init_caches(1, cfg["num_layers"], cfg["num_heads"],
+                         cfg["hidden"], cfg["max_seq"], dtype, device)
+    with torch.no_grad():
+        row = dense(torch.from_numpy(np.asarray(tokens, np.int32))[None].to(
+            device), caches, 0)[0].float()
+    top2 = torch.topk(row, 2).values
+    return (top2[0] - top2[1]).item()
+
+
+def same_or_near_tie(label: str, got, want, prompt, margin_fn,
+                     limit: float) -> int:
+    """``got`` equals ``want`` up to its end, or parts from it where
+    ``margin_fn(prompt + want[:t])`` finds a near-tie (within ``limit``,
+    printed).  Returns the tokens agreeing before any divergence."""
+    t = next((j for j in range(len(want)) if got[j] != want[j]), None)
+    assert len(got) == len(want), (label, len(got), len(want))
+    if t is None:
+        return len(want)
+    margin = margin_fn(list(prompt) + list(want[:t]))
+    log(f"{label}: diverges at token {t} (margin {margin:.3e})")
+    assert margin <= limit, (f"{label} diverged at token {t} with margin "
+                             f"{margin}")
+    log(f"{label}: near-tie, not a fault")
+    return t
+
+
+def through_codec(payload: dict) -> tuple:
+    """A payload through the wire codec: (decoded payload, wire bytes,
+    encode seconds, decode seconds)."""
+    from kubegpu_tpu_torch.gateway.dataplane import (
+        decode_kv_payload,
+        encode_kv_payload,
+    )
+
+    t0 = time.perf_counter()
+    wire = json.dumps(encode_kv_payload(payload))
+    t1 = time.perf_counter()
+    back = decode_kv_payload(json.loads(wire))
+    return back, len(wire), t1 - t0, time.perf_counter() - t1
+
+
+def raw_page_bytes(payload: dict) -> int:
+    """Raw bytes of a payload's page and scale arrays."""
+    return sum(int(a.nbytes) for sect in ("layers", "scales")
+               for pair in payload.get(sect, []) for a in pair)
+
+
+def sync(device: str) -> None:
+    import torch
+
+    if device == "cuda":
+        torch.cuda.synchronize()
+
+
+def phase_migration_bench(cfg: dict = MIGRATION_CFG,
+                          kw: dict = MIGRATION_KW,
+                          turns: dict = MIGRATION_TURNS,
+                          device: str = "cuda") -> dict:
+    """bench.py's serving_migration at full width, bf16 then an int8
+    pool: turn 1 completes on A, A's sealed chain crosses the codec into
+    B, and turn 2 runs on B (restored) and C (cold), min-of-N TTFT with
+    the orders interleaved.  Restored TTFT strictly below cold; restored
+    tokens equal to the turn 2 that never migrated (on A), cold under
+    the near-tie rule; int8 bytes a page half of bf16's plus the
+    scales."""
+    import numpy as np
+    import torch
+
+    from kubegpu_tpu_torch.models.paging import PagedContinuousBatcher
+
+    params = fresh_params(cfg, torch.bfloat16, device)
+    out = {}
+    for pool in ("bfloat16", "int8"):
+        extra = dict(kv_dtype="int8") if pool == "int8" else {}
+        mk = (lambda: PagedContinuousBatcher(
+            params, dtype=torch.bfloat16, device=device,
+            decode_page_cache="all", **cfg, **kw, **extra))
+        home, restored, cold = mk(), mk(), mk()
+        rs = np.random.RandomState(17)
+        warm = rs.randint(0, cfg["vocab_size"],
+                          size=turns["p1_len"]).astype(np.int32)
+        for cb in (home, restored, cold):      # first use off the clock
+            cb.run([warm], [turns["t1_new"]])
+
+        def drive_ttft(cb, seq, prompt, budget):
+            t0 = time.perf_counter()
+            cb.submit(seq, prompt, budget)
+            t1, done = None, {}
+            while cb.has_work():
+                done.update(cb.serve_step())
+                if t1 is None and (cb.live_tokens().get(seq)
+                                   or done.get(seq)):
+                    t1 = time.perf_counter()
+            return t1 - t0, done[seq]
+
+        ttft = {"restored": [], "cold": []}
+        wire_bytes = raw = pages = 0
+        t_export = t_import = t_codec = 0.0
+        export_ms = []
+        agree = total = 0
+        margin_fn = (lambda toks: dense_margin(params, cfg, torch.bfloat16,
+                                               toks, device))
+        for p in range(turns["probes"]):
+            p1 = rs.randint(0, cfg["vocab_size"],
+                            size=turns["p1_len"]).astype(np.int32)
+            _, t1_toks = drive_ttft(home, 100 + p, p1, turns["t1_new"])
+            stream = [int(t) for t in p1] + t1_toks
+            p2 = np.asarray(stream + [int(rs.randint(0, cfg["vocab_size"]))],
+                            np.int32)
+            sync(device)
+            te0 = time.perf_counter()
+            payload = home.export_sealed_chain(stream)
+            te1 = time.perf_counter()
+            assert payload is not None, "turn 1 sealed nothing"
+            back, nbytes, enc_s, dec_s = through_codec(payload)
+            ti0 = time.perf_counter()
+            n = restored.import_sealed_chain(back)
+            sync(device)
+            t_import += time.perf_counter() - ti0
+            t_export += te1 - te0
+            export_ms.append(round((te1 - te0) * 1e3, 3))
+            t_codec += enc_s + dec_s
+            assert n == len(payload["page_keys"]) > 0, n
+            wire_bytes += nbytes
+            raw += raw_page_bytes(payload)
+            pages += n
+            lanes = [("restored", restored), ("cold", cold)]
+            if p % 2:
+                lanes = lanes[::-1]
+            toks = {}
+            for name, cb in lanes:
+                t, toks[name] = drive_ttft(cb, 200 + p, p2,
+                                           turns["t2_new"])
+                ttft[name].append(t)
+            _, ref = drive_ttft(home, 300 + p, p2, turns["t2_new"])
+            assert toks["restored"] == ref, (
+                "the restored turn 2 differs from the never-migrated one")
+            agree += same_or_near_tie(f"{pool} cold turn 2, probe {p}",
+                                      toks["cold"], ref, p2, margin_fn,
+                                      BF16_NEAR_TIE_MARGIN)
+            total += len(ref)
+            for cb in (home, restored, cold):
+                cb.assert_page_accounting()
+        best_r, best_c = min(ttft["restored"]), min(ttft["cold"])
+        moved_s = t_export + t_codec + t_import
+        rec = dict(ttft_restored_ms=best_r * 1e3, ttft_cold_ms=best_c * 1e3,
+                   pages=pages, wire_bytes=wire_bytes,
+                   wire_bytes_per_page=wire_bytes / pages,
+                   raw_bytes_per_page=raw / pages,
+                   export_ms_per_page=t_export * 1e3 / pages,
+                   import_ms_per_page=t_import * 1e3 / pages,
+                   codec_ms_per_page=t_codec * 1e3 / pages,
+                   pages_per_s=pages / moved_s)
+        log(f"migration bench ({pool} pool, {turns['probes']} probes, warm "
+            f"batchers): re-pin TTFT restored {rec['ttft_restored_ms']:.3f} "
+            f"ms vs cold {rec['ttft_cold_ms']:.3f} ms "
+            f"({best_c / best_r:.2f}x); {pages} pages moved, {wire_bytes} "
+            f"wire bytes ({rec['wire_bytes_per_page']:.0f} B/page on the "
+            f"wire, {rec['raw_bytes_per_page']:.0f} B/page raw); export "
+            f"{rec['export_ms_per_page']:.3f} ms/page, codec "
+            f"{rec['codec_ms_per_page']:.3f} ms/page, import "
+            f"{rec['import_ms_per_page']:.3f} ms/page -> "
+            f"{rec['pages_per_s']:.1f} pages/s through export and import "
+            f"(exports by probe {export_ms} ms); "
+            f"restored == never-migrated on every probe, cold "
+            f"{agree}/{total} tokens before any near-tie")
+        assert best_r < best_c, (
+            f"{pool}: restored TTFT {best_r} not below cold {best_c}")
+        out[pool] = rec
+        del home, restored, cold
+        if device == "cuda":
+            torch.cuda.empty_cache()
+    hd = cfg["hidden"] // cfg["num_heads"]
+    scale_bytes = 2 * cfg["num_layers"] * cfg["num_heads"] * 4
+    want = out["bfloat16"]["raw_bytes_per_page"] / 2 + scale_bytes
+    log(f"migration bench: int8 {out['int8']['raw_bytes_per_page']:.0f} "
+        f"B/page raw = bf16 {out['bfloat16']['raw_bytes_per_page']:.0f} / 2 "
+        f"+ {scale_bytes} B of scales (head_dim {hd})")
+    assert out["int8"]["raw_bytes_per_page"] == want
+    return out
+
+
+def lazy_margin(cfg: dict, dtype, device: str, params=None):
+    """``dense_margin`` over ``cfg``'s weights (drawn as the worker draws
+    them unless given), made only if a divergence asks for it."""
+    held = [params]
+
+    def margin(tokens):
+        if held[0] is None:
+            held[0] = fresh_params(cfg, dtype, device)
+        return dense_margin(held[0], cfg, dtype, tokens, device)
+
+    return margin
+
+
+def migrate_live(src, dst, prompt, budget, after: int, seq: int = 1,
+                 run_kw=None, before_import=None) -> tuple:
+    """Serve ``prompt`` on ``src`` until ``after`` tokens, export it mid
+    decode, pass the payload through the codec and finish it on
+    ``dst`` (``before_import()`` runs just before the import); returns
+    (tokens, payload, wire bytes, dst steps)."""
+    run_kw = run_kw or {}
+    src.submit(seq, prompt, budget, **run_kw)
+    for _ in range(10 * budget):
+        src.serve_step()
+        if len(src.live_tokens().get(seq, [])) >= after:
+            break
+    payload = src.export_pages(seq)
+    src.cancel(seq)
+    src.assert_page_accounting()
+    back, nbytes, _, _ = through_codec(payload)
+    steps0 = dst.stats["steps"]
+    if before_import is not None:
+        before_import()
+    dst.import_pages(seq, back)
+    done = {}
+    while dst.has_work():
+        done.update(dst.serve_step())
+    dst.assert_page_accounting()
+    return done[seq], payload, nbytes, dst.stats["steps"] - steps0
+
+
+def phase_live_migration(ctx: dict, device: str = "cuda",
+                         argv=FLAGSHIP_ARGV) -> dict:
+    """Live mid-stream migration card to card through the codec, at the
+    flagship serving width: plain (K1) and speculative k 4 (K2), on a
+    bf16 and an int8 pool (K1q, K2q); the continuation equals the
+    un-migrated stream but for printed near-ties, and each kernel's
+    launches (counted from 0 around the imported sequence's steps) are
+    its steps x layers.  Then on phase 6's float32 model: card to CPU and
+    CPU to card, and a seed-pinned sampled speculative sequence whose
+    draft ring ships through the codec."""
+    import numpy as np
+    import torch
+
+    from kubegpu_tpu_torch.models import worker
+    from kubegpu_tpu_torch.models.paging import PagedContinuousBatcher
+
+    args = worker.build_parser().parse_args(argv)
+    cfg = dict(vocab_size=args.vocab, num_layers=args.layers,
+               num_heads=args.heads, hidden=args.hidden,
+               max_seq=args.seq + 1)
+    d_hidden = max(args.hidden // 4, 128)
+    d_heads = max(d_hidden // 128, 1)
+    params = fresh_params(cfg, torch.bfloat16, device)
+    dparams = fresh_params(dict(cfg, num_layers=1, hidden=d_hidden),
+                           torch.bfloat16, device, seed=1)
+    rng = np.random.RandomState(27)
+    prompt = rng.randint(0, args.vocab, size=args.prompt_len).astype(
+        np.int32)
+    budget = args.steps
+    counters = paged_counts()
+    margin_fn = lazy_margin(cfg, torch.bfloat16, device, params)
+    out = {}
+    for kname, spec, quant in (("K1", False, False), ("K2", True, False),
+                               ("K1q", False, True), ("K2q", True, True)):
+        kw = dict(cfg, slots=args.batch_per_chip, prompt_pad=args.prompt_len,
+                  page_size=args.page_size, dtype=torch.bfloat16,
+                  device=device, pool_pages=2 * args.batch_per_chip * (
+                      -(-(args.prompt_len + budget + SPEC_K)
+                        // args.page_size)) + 1)
+        if quant:
+            kw["kv_dtype"] = "int8"
+        if spec:
+            kw.update(draft_params=dparams, speculate_k=SPEC_K,
+                      draft_num_layers=1, draft_num_heads=d_heads,
+                      draft_hidden=d_hidden)
+        src = PagedContinuousBatcher(params, **kw)
+        dst = PagedContinuousBatcher(params, **kw)
+        ref = src.run([prompt], [budget])[0]
+        dst.run([prompt[:8]], [2])              # first use off the count
+
+        def zero_counts():
+            for fn, attr in counters.values():
+                setattr(fn, attr, 0)
+
+        got, payload, nbytes, steps = migrate_live(
+            src, dst, prompt, budget, after=8, before_import=zero_counts)
+        # read once the importer drained: its steps alone ran since 0
+        launches = {k: getattr(fn, attr) for k, (fn, attr) in
+                    counters.items()}
+        agree = same_or_near_tie(f"live migration {kname}", got, ref,
+                                 prompt, margin_fn, BF16_NEAR_TIE_MARGIN)
+        n_src = len(payload["tokens"])
+        log(f"live migration {kname} ({'int8' if quant else 'bf16'} pool"
+            f"{', speculative k=%d' % SPEC_K if spec else ''}): exported "
+            f"after {n_src} tokens, {len(payload['page_keys'])} pages, "
+            f"{nbytes} wire bytes; continuation {agree}/{budget} tokens "
+            f"equal before any near-tie; the importer's steps {steps}, "
+            f"launches {launches}")
+        if device == "cuda":
+            n = launches.pop(kname)
+            assert n == steps * args.layers > 0, (kname, n, steps)
+            assert not any(launches.values()), launches
+            launches[kname] = n
+        out[kname] = dict(launches=launches[kname], steps=steps,
+                          pages=len(payload["page_keys"]), wire=nbytes)
+        del src, dst
+        if device == "cuda":
+            torch.cuda.empty_cache()
+    # phase 6's float32 model: card to CPU and CPU to card
+    small_kw = dict(ctx["kw"])
+    cpu_cb = PagedContinuousBatcher(ctx["params"], device="cpu", **small_kw)
+    card_cb = PagedContinuousBatcher(ctx["params"], device=device,
+                                     **small_kw)
+    i = max(range(len(ctx["prompts"])), key=lambda j: ctx["budgets"][j])
+    p, b = ctx["prompts"][i], ctx["budgets"][i]
+    for name, src, dst in (("card to cpu", card_cb, cpu_cb),
+                           ("cpu to card", cpu_cb, card_cb)):
+        ref = src.run([p], [b])[0]              # the source's own stream
+        got, payload, _, _ = migrate_live(src, dst, p, b, after=5)
+        agree, _ = near_tie_agreement(f"{name} migration", ctx["cfg"],
+                                      ctx["dense"], [p], {0: ref},
+                                      {0: got})
+        log(f"live migration {name} (float32): {agree}/{b} tokens equal "
+            "the source device's un-migrated stream before any near-tie")
+    # a seed-pinned sampled speculative sequence: its ring ships
+    spec_kw = dict(small_kw, speculate_k=2, sampling=True,
+                   draft_params=ctx["params"],
+                   draft_num_layers=ctx["cfg"]["num_layers"],
+                   draft_num_heads=ctx["cfg"]["num_heads"],
+                   draft_hidden=ctx["cfg"]["hidden"])
+    src = PagedContinuousBatcher(ctx["params"], device=device, **spec_kw)
+    dst = PagedContinuousBatcher(ctx["params"], device=device, **spec_kw)
+    ref = src.run([p], [b], temperatures=[0.8], seeds=[11])[0]
+    got, payload, _, _ = migrate_live(src, dst, p, b, after=5,
+                                      run_kw=dict(temperature=0.8, seed=11))
+    assert "draft" in payload, "the sampled ring did not ship"
+    same = "identical" if got == ref else "DIFFERS"
+    log(f"live migration, sampled speculative (seed 11, ring of "
+        f"{payload['draft']['window']} rows at d_pos "
+        f"{payload['draft']['d_pos']}): {same}")
+    assert got == ref, "the sampled speculative continuation differs"
+    return out
+
+
+def phase_wire_migration(device: str = "cuda", argv=None) -> dict:
+    """Two card ``ReplicaServer``s at the flagship width with 512-token
+    prompts (four 8 MiB bf16 pages a prompt): a live ``POST /v1/export``
+    on A and ``POST /v1/import`` on B whose SSE continuation completes
+    the budget; then ``POST /v1/role`` prefill on A and a streamed
+    handoff: deltas while A prefills, ``reclaim``, and the final export
+    from its cursor into B.  Prints export and import ms a page and the
+    wire's MB/s."""
+    import threading
+
+    import numpy as np
+    import torch
+
+    from kubegpu_tpu_torch.gateway.dataplane import ReplicaServer
+    from kubegpu_tpu_torch.models import worker
+
+    if argv is None:
+        argv = FLAGSHIP_ARGV + ["--prompt-len", "512", "--steps", "32"]
+    args = worker.build_parser().parse_args(argv)
+    cbs = [worker.build_batcher(args) for _ in range(2)]
+    for cb in cbs:
+        worker.warm_batcher(cb)
+    rng = np.random.RandomState(28)
+    prompt = rng.randint(0, args.vocab, size=args.prompt_len).astype(
+        np.int32)
+    # the handoff's prompt is a second one: B holds the first one's
+    # pages once the live migration has landed
+    prompt_h = rng.randint(0, args.vocab, size=args.prompt_len).astype(
+        np.int32)
+    budget = args.steps
+    ref, ref_h = (cbs[0].run([p], [budget])[0] for p in (prompt, prompt_h))
+    cbs[0]._reset_stats()
+    cfg = dict(vocab_size=args.vocab, num_layers=args.layers,
+               num_heads=args.heads, hidden=args.hidden,
+               max_seq=args.seq + 1)
+    margin_fn = lazy_margin(cfg, torch.bfloat16, device)
+    # a 10 ms pause between A's steps leaves room to export mid-stream
+    a = ReplicaServer(cbs[0], step_delay_s=0.01).start()
+    b = ReplicaServer(cbs[1]).start()
+    timings = {"export": [], "import": []}
+    try:
+        # the live migration
+        got_a = []       # (event, payload) as each arrives
+        t = threading.Thread(target=lambda: sse_request(
+            a.port, "/v1/submit", {"request_id": "live",
+                                   "prompt": prompt.tolist(),
+                                   "max_new_tokens": budget},
+            on_event=lambda ev, p: got_a.append((ev, p))))
+        t.start()
+        deadline = time.monotonic() + 120
+        while sum(1 for e in got_a if e[0] == "tokens") < 2:
+            assert time.monotonic() < deadline, "no tokens on A"
+            time.sleep(0.005)
+        t0 = time.perf_counter()
+        exp = sse_request(a.port, "/v1/export", {"request_id": "live"})
+        t_exp = time.perf_counter() - t0
+        t.join(60)
+        kind, body, _ = exp[0]
+        assert kind == "json" and "payload" in body, exp
+        assert body["payload"]["kind"] == "live", exp
+        wire_live = len(json.dumps({"request_id": "live",
+                                    "payload": body["payload"]}))
+        assert got_a[-1][0] == "error" and got_a[-1][1]["error"] == "migrated"
+        streamed_a = [x for k, e in got_a if k == "tokens"
+                      for x in e["tokens"]]
+        t0 = time.perf_counter()
+        cont = sse_request(b.port, "/v1/import", {
+            "request_id": "live", "payload": body["payload"]})
+        t_imp_stream = time.perf_counter() - t0
+        assert cont[-1][0] == "done", cont[-1][:2]
+        full = cont[-1][1]["tokens"]
+        deltas = [x for k, e, _ in cont[:-1] if k == "tokens"
+                  for x in e["tokens"]]
+        assert len(full) == budget and full[: len(streamed_a)] == streamed_a
+        assert streamed_a + deltas == full
+        n_live = body["pages"]
+        agree = same_or_near_tie("wire live migration", full, ref, prompt,
+                                 margin_fn, BF16_NEAR_TIE_MARGIN)
+        log(f"wire live migration: A streamed {len(streamed_a)} tokens, "
+            f"export of {n_live} pages in {t_exp * 1e3:.1f} ms "
+            f"({t_exp * 1e3 / n_live:.2f} ms/page, {wire_live} wire bytes, "
+            f"{wire_live / t_exp / 1e6:.1f} MB/s), B's continuation "
+            f"{len(deltas)} tokens in {t_imp_stream:.3f} s; {agree}/{budget} "
+            "tokens equal the un-migrated stream before any near-tie")
+        # the streamed handoff.  A keeps its 10 ms pause: a loop whose
+        # only sequence is parked steps without end, and with no pause it
+        # would hold this process's interpreter lock from both servers
+        # and the client (so each control op on A waits up to one pause)
+        role = sse_request(a.port, "/v1/role", {"role": "prefill"})
+        assert role[0][1] == {"role": "prefill"}, role
+        got_h = []
+        t = threading.Thread(target=lambda: sse_request(
+            a.port, "/v1/submit", {"request_id": "hand",
+                                   "prompt": prompt_h.tolist(),
+                                   "max_new_tokens": budget},
+            on_event=lambda ev, p: got_h.append((ev, p))))
+        t.start()
+        cursor = n_deltas = wire_deltas = 0
+        deadline = time.monotonic() + 120
+        while True:
+            assert time.monotonic() < deadline, "the handoff never sealed"
+            sealed = any(k == "sealed" for k, _ in got_h)
+            t0 = time.perf_counter()
+            d = sse_request(a.port, "/v1/export", {
+                "request_id": "hand", "delta": True, "cursor": cursor})
+            if "payload" not in d[0][1]:
+                # the submit has not reached A's serving loop, or its
+                # batcher's slots, yet
+                assert ("no live stream" in d[0][1]["error"]
+                        or "unknown sequence" in d[0][1]["error"]), d
+                time.sleep(0.002)
+                continue
+            payload = d[0][1]["payload"]
+            if payload is not None:
+                timings["export"].append(
+                    (time.perf_counter() - t0, len(payload["page_keys"])))
+                t0 = time.perf_counter()
+                ack = sse_request(b.port, "/v1/import", {"payload": payload})
+                timings["import"].append(
+                    (time.perf_counter() - t0, len(payload["page_keys"])))
+                assert ack[0][1]["staged"] == len(payload["page_keys"]), ack
+                wire_deltas += len(json.dumps({"payload": payload}))
+                cursor += len(payload["page_keys"])
+                n_deltas += 1
+            elif sealed:
+                break
+            else:
+                time.sleep(0.002)
+        rec = sse_request(a.port, "/v1/export", {"request_id": "hand",
+                                                 "reclaim": cursor})
+        assert rec[0][1]["reclaimed"] == cursor, rec
+        final = sse_request(a.port, "/v1/export", {"request_id": "hand",
+                                                   "cursor": cursor})
+        fbody = final[0][1]
+        assert fbody["payload"]["layer_base"] == cursor
+        t.join(60)
+        assert [k for k, _ in got_h] == ["sealed", "error"], got_h
+        cont = sse_request(b.port, "/v1/import", {
+            "request_id": "hand", "payload": fbody["payload"]})
+        assert cont[-1][0] == "done", cont[-1][:2]
+        hand = cont[-1][1]["tokens"]
+        agree_h = same_or_near_tie("wire streamed handoff", hand, ref_h,
+                                   prompt_h, margin_fn,
+                                   BF16_NEAR_TIE_MARGIN)
+        state_b = json.loads(http_get(b.port, "/v1/state"))
+    finally:
+        a.stop()
+        b.stop()
+    assert a.loop.error is None and b.loop.error is None
+    for cb in cbs:
+        cb.assert_page_accounting()
+    exp_s = sum(s for s, _ in timings["export"])
+    exp_n = sum(n for _, n in timings["export"])
+    imp_s = sum(s for s, _ in timings["import"])
+    log(f"wire streamed handoff: {n_deltas} deltas of {exp_n} pages "
+        f"({wire_deltas} wire bytes) while A prefilled; delta export "
+        f"{exp_s * 1e3 / max(exp_n, 1):.2f} ms/page, import "
+        f"{imp_s * 1e3 / max(exp_n, 1):.2f} ms/page, "
+        f"{wire_deltas / max(exp_s + imp_s, 1e-9) / 1e6:.1f} MB/s over the "
+        f"wire; reclaimed {cursor} pages; final export of "
+        f"{len(fbody['payload']['page_keys']) - cursor} page(s) past the "
+        f"cursor; B imports {state_b['stats']['imports']}, pages imported "
+        f"{state_b['stats']['pages_imported']}; {agree_h}/{budget} tokens "
+        "equal the co-located stream before any near-tie")
+    assert n_deltas >= 1 and cursor == (args.prompt_len - 1) // (
+        args.page_size or 128)
+    assert state_b["stats"]["imports"] == 2
+    return dict(live_export_ms_per_page=t_exp * 1e3 / n_live,
+                delta_export_ms_per_page=exp_s * 1e3 / max(exp_n, 1),
+                delta_import_ms_per_page=imp_s * 1e3 / max(exp_n, 1),
+                wire_mb_per_s=wire_deltas / max(exp_s + imp_s, 1e-9) / 1e6)
+
+
 def max_err(got, want, rtol, atol) -> tuple:
     """(max |got - want|, the worst element's share of its allowance);
     raises if an element is outside ``atol + rtol * |want|``."""
@@ -2104,6 +2675,11 @@ def main() -> int:
     phase_prng()
     phase_sampled_flagship(flag, spec)
     phase_sampled_card_vs_cpu(small)
+    # migration and disaggregation: the reference's migration bench, live
+    # migration card to card and card to CPU, and the wire verbs
+    phase_migration_bench()
+    phase_live_migration(small)
+    phase_wire_migration()
     log(f"chip_smoke: all phases passed in {time.monotonic() - t0:.1f} s")
     source = "kubegpu_tpu_torch/ops/csrc/paged_attention.cu"
     kernels = []

@@ -21,19 +21,43 @@ small HTTP endpoint, driven by ONE serving thread that owns the batcher:
           next write and its sequence is CANCELLED (pages freed).
     POST /v1/cancel   {"request_id"} → {"cancelled": bool}: the
           sequence's pages go back to the pool now.
+    POST /v1/export   {"request_id", "cursor"?}: export and detach a
+          live sequence (its stream ends with a ``migrated`` error); with
+          "delta": the pages sealed since "cursor", nothing detached;
+          with "reclaim": N, release a parked sequence's first N pages;
+          {"stream": [ints]}: the sealed-chain capture.  Answers
+          {"payload": <encoded or null>, "pages": n}.
+    POST /v1/import   {"payload"}: a sealed chain or a delta staged in
+          the prefix cache ({"imported"|"staged": n}); with
+          "request_id": a live import, whose response is the
+          continuation's SSE stream (tokens past the exporter's, then
+          ``done`` with the full list).
+    POST /v1/role     {"role": "prefill"|"decode"|"flex"}: flip the
+          serving role; "prefill" parks each sequence at its seal and
+          its stream announces a non-terminal ``sealed`` event.
     GET  /v1/state    the serving contract: tp, role, slots, sealing
           policy, active streams, the batcher's ``stats``, the prefix
           cache economy, ``kv_dtype`` and the page economy of the last
           ledger row; ``?ledger=K`` adds the last K ledger rows.
     GET  /healthz     liveness ("ok"); 503 once the serving loop has
           failed.
-    GET  /metrics     Prometheus text (``replica_http_*`` plus whatever
-          the batcher observed into the shared registry).
+    GET  /metrics     Prometheus text (``replica_http_*``,
+          ``replica_migrate_*`` plus whatever the batcher observed into
+          the shared registry).
 
-The migration verbs (``POST /v1/export``, ``/v1/import``, ``/v1/role``)
-answer 501 naming the migration slice, which brings them with the KV
-wire codec; the JAX client reads a non-200 export or role answer as "no
-payload" or "not flipped".  The role stays ``"flex"``.
+The KV wire codec (``encode_kv_payload``/``decode_kv_payload``) is the
+JAX package's byte for byte: each page array travels as base64 of its raw
+bytes plus its shape, its dtype named by the payload's geometry.  A
+bfloat16 pool's pages are their raw 16-bit patterns, so the codec needs
+no bfloat16 numpy type: it decodes them as ``np.uint16``, which the
+port's importer takes, and a JAX replica decodes the same bytes as its
+own bfloat16.  The codec also carries a sampled speculative payload's
+draft-ring lane, which the JAX codec cannot encode, under the wire key
+``draft_wire``: a JAX replica decodes a payload without a ring and
+re-admits the draft from the prompt (lossless in distribution), where a
+ring section it cannot read would fail its import.
+Exports and imports run on the serving thread as control ops; the
+base64 work stays on the handler threads.
 
 A batcher error on the serving thread is not carried past: the loop
 ends every stream with an ``error`` event naming it, refuses new
@@ -44,6 +68,7 @@ captured where it was built.
 
 from __future__ import annotations
 
+import base64
 import hmac
 import json
 import logging
@@ -63,7 +88,6 @@ from kubegpu_tpu_torch.gateway.client import (
     _sniff_takes_trace,
     sim_stream_seed,
 )
-from kubegpu_tpu_torch.models.paging import MIGRATION_SLICE
 from kubegpu_tpu_torch.utils.metrics import Metrics
 from kubegpu_tpu_torch.utils.tracing import SpanCtx, Tracer
 
@@ -72,6 +96,7 @@ log = logging.getLogger(__name__)
 # SSE keepalive cadence: a stream with no token progress writes a ping
 # comment this often, so a vanished client is detected within one frame
 PING_INTERVAL_S = 0.2
+ROLES = ("prefill", "decode", "flex")
 
 
 def sse_event(event: str, payload: dict) -> bytes:
@@ -110,6 +135,84 @@ def _bind_device(batcher) -> None:
         torch.cuda.set_stream(stream)
 
 
+# ---------------------------------------------------------------------------
+# KV transfer payload codec (the export/import wire schema)
+# ---------------------------------------------------------------------------
+
+def _np_dtype(name: str) -> np.dtype:
+    """The numpy dtype a payload's page bytes decode as: bfloat16, which
+    numpy lacks, as its raw 16-bit patterns."""
+    return np.dtype(np.uint16 if name == "bfloat16" else name)
+
+
+def _encode_pairs(pairs) -> list:
+    return [
+        {
+            "k": base64.b64encode(
+                np.ascontiguousarray(k).tobytes()).decode("ascii"),
+            "v": base64.b64encode(
+                np.ascontiguousarray(v).tobytes()).decode("ascii"),
+            "shape": [int(d) for d in np.shape(k)],
+        }
+        for k, v in pairs
+    ]
+
+
+def _decode_pairs(entries, dtype) -> list:
+    return [
+        (
+            np.frombuffer(base64.b64decode(e["k"]),
+                          dtype=dtype).reshape(e["shape"]),
+            np.frombuffer(base64.b64decode(e["v"]),
+                          dtype=dtype).reshape(e["shape"]),
+        )
+        for e in entries
+    ]
+
+
+def encode_kv_payload(payload: dict) -> dict:
+    """JSON-safe encoding of a KV transfer payload (identity on one
+    without page arrays): ``layers`` and ``scales`` as base64 pairs, as
+    the JAX codec writes them, and a draft-ring section as
+    ``draft_wire`` with its ``rows`` and ``scales`` likewise."""
+    out = {k: v for k, v in payload.items()
+           if k not in ("layers", "scales", "draft")}
+    if "layers" in payload:
+        out["layers"] = _encode_pairs(payload["layers"])
+    if "scales" in payload:
+        out["scales"] = _encode_pairs(payload["scales"])
+    draft = payload.get("draft")
+    if draft is not None:
+        out["draft_wire"] = {
+            k: (_encode_pairs(v) if k in ("rows", "scales") else v)
+            for k, v in draft.items()}
+    return out
+
+
+def decode_kv_payload(wire: dict) -> dict:
+    """The inverse: base64 page arrays back to host numpy, as the
+    geometry's storage dtype (``kv_dtype``, else ``dtype``; bfloat16 as
+    ``np.uint16``); scales are always float32."""
+    out = {k: v for k, v in wire.items()
+           if k not in ("layers", "scales", "draft_wire")}
+    if "layers" in wire:
+        geom = wire["geometry"]
+        out["layers"] = _decode_pairs(
+            wire["layers"], _np_dtype(geom.get("kv_dtype") or geom["dtype"]))
+    if "scales" in wire:
+        out["scales"] = _decode_pairs(wire["scales"], np.float32)
+    draft = wire.get("draft_wire")
+    if draft is not None:
+        out["draft"] = dict(draft)
+        if "rows" in draft:
+            out["draft"]["rows"] = _decode_pairs(
+                draft["rows"], _np_dtype(draft["dtype"]))
+        if "scales" in draft:
+            out["draft"]["scales"] = _decode_pairs(draft["scales"],
+                                                   np.float32)
+    return out
+
+
 class _Stream:
     """One in-flight request's server-side state: the event queue its
     HTTP handler drains, and the incremental-emit watermark."""
@@ -133,15 +236,25 @@ class ReplicaServingLoop:
     cancels, drives ``serve_step``, and pushes token-batch events into
     per-request stream queues.  Exactly one thread touches the batcher,
     so HTTP handler threads never race the decode loop; the step (and
-    its blocking token readback) runs outside the loop's lock."""
+    its blocking token readback) runs outside the loop's lock.
 
-    role = "flex"
+    ``role`` is the disaggregation role: a ``"prefill"`` replica parks
+    each sequence when its prompt pages seal, and its stream announces a
+    non-terminal ``sealed`` event for the gateway's handoff.
+    ``fail_migration`` (a chaos knob) refuses every import."""
 
     def __init__(self, batcher, metrics: Optional[Metrics] = None,
                  tracer: Optional[Tracer] = None,
-                 step_delay_s: float = 0.0) -> None:
+                 step_delay_s: float = 0.0,
+                 fail_migration: bool = False,
+                 role: str = "flex") -> None:
         self.batcher = batcher
         self.metrics = metrics
+        self.role = role if role in ROLES else "flex"
+        prefill_fn = getattr(batcher, "set_prefill_only", None)
+        if prefill_fn is not None:
+            prefill_fn(self.role == "prefill")
+        self.fail_migration = fail_migration
         # the replica's own tracer: every request serves under a local
         # root whose finished span dicts ride the terminal event back to
         # the gateway for grafting
@@ -228,6 +341,137 @@ class ReplicaServingLoop:
         if not ok:
             raise val
         return val
+
+    # -- migration verbs (control ops on the serving thread) --------------
+    def _live_stream(self, request_id: str) -> _Stream:
+        st = self._streams.get(request_id)
+        if st is None or st.closed or st.seq is None:
+            raise KeyError(f"no live stream {request_id!r}")
+        return st
+
+    def _refuse_if_armed(self, what: str = "migration") -> None:
+        if self.fail_migration:
+            raise RuntimeError(f"{what} refused (chaos knob)")
+
+    def _batcher_fn(self, name: str, verbs: str = "migration"):
+        fn = getattr(self.batcher, name, None)
+        if fn is None:
+            raise ValueError(f"batcher does not speak the {verbs} verbs")
+        return fn
+
+    def export_live(self, request_id: str, cursor: int = 0) -> dict:
+        """Export and detach one live stream's sequence: the payload is
+        taken, tokens the export's drain committed flush to the stream,
+        the sequence's pages free, and the stream ends with a
+        ``migrated`` error.  A nonzero ``cursor`` ships bytes only for
+        pages from ``cursor`` on (the streamed handoff's last hop)."""
+        def op():
+            st = self._live_stream(request_id)
+            export = self._batcher_fn("export_pages")
+            payload = export(st.seq, cursor) if cursor else export(st.seq)
+            self._flush({})   # the export's drain may have committed tokens
+            self.batcher.cancel(st.seq)
+            self._finish(st, "error", "migrated")
+            return payload
+
+        return self.control(op)
+
+    def export_sealed(self, stream) -> Optional[dict]:
+        def op():
+            fn = getattr(self.batcher, "export_sealed_chain", None)
+            return fn(stream) if fn is not None else None
+
+        return self.control(op)
+
+    def import_live(self, st: _Stream, payload: dict, trace_id: str = "",
+                    span_id: str = "0") -> None:
+        """Resume a migrated sequence here: import the payload, register
+        the stream under its request id (a duplicate id evicts the older
+        stream, as a submit does) and set its emit watermark past the
+        tokens the exporter already streamed."""
+        def op():
+            self._refuse_if_armed()
+            import_pages = self._batcher_fn("import_pages")
+            seq = self._next_seq
+            self._next_seq += 1
+            root = None
+            if self.tracer is not None:
+                root = self.tracer.start_trace(
+                    "replica_import", request_id=st.request_id,
+                    remote_trace=str(trace_id or ""),
+                    remote_span=_int_or(span_id, 0),
+                )
+            kwargs = ({"trace": root} if root is not None and
+                      _sniff_takes_trace(self.batcher, "import_pages")
+                      else {})
+            try:
+                import_pages(seq, payload, **kwargs)
+            except Exception:
+                if root is not None:
+                    root.end(status="refused")
+                raise
+            old = self._streams.get(st.request_id)
+            if old is not None and not old.closed:
+                old.cancelled = True
+                self._evicted.append(old)
+            self._streams[st.request_id] = st
+            st.seq = seq
+            st.trace = root
+            st.emitted = len(payload.get("tokens") or [])
+            self._by_seq[seq] = st
+
+        self.control(op)
+
+    def import_sealed(self, payload: dict) -> int:
+        def op():
+            self._refuse_if_armed()
+            return self._batcher_fn("import_sealed_chain")(payload)
+
+        return self.control(op)
+
+    def export_delta(self, request_id: str, cursor: int) -> Optional[dict]:
+        """The pages sealed since ``cursor`` of a live stream's sequence,
+        nothing detached; None when nothing new sealed."""
+        def op():
+            seq = self._live_stream(request_id).seq
+            fn = getattr(self.batcher, "export_sealed_delta", None)
+            return fn(seq, cursor) if fn is not None else None
+
+        return self.control(op)
+
+    def import_delta(self, payload: dict) -> int:
+        def op():
+            self._refuse_if_armed("delta import")
+            return self._batcher_fn("import_sealed_delta",
+                                    "streaming")(payload)
+
+        return self.control(op)
+
+    def reclaim(self, request_id: str, upto: int) -> int:
+        """Release a parked sequence's first ``upto`` pages (the importer
+        acked their deltas), so a queued prefill can admit during the
+        handoff."""
+        def op():
+            seq = self._live_stream(request_id).seq
+            fn = getattr(self.batcher, "reclaim_handoff_pages", None)
+            return fn(seq, upto) if fn is not None else 0
+
+        return self.control(op)
+
+    def set_role(self, role: str) -> bool:
+        """Flip the serving role on the serving thread (never mid-step).
+        Leaving "prefill" unparks every parked sequence locally."""
+        if role not in ROLES:
+            return False
+
+        def op():
+            self.role = role
+            fn = getattr(self.batcher, "set_prefill_only", None)
+            if fn is not None:
+                fn(role == "prefill")
+            return True
+
+        return bool(self.control(op))
 
     def state(self, ledger_limit: int = 0) -> dict:
         """The ``/v1/state`` body.  Runs on a handler thread while the
@@ -345,6 +589,15 @@ class ReplicaServingLoop:
                 self.batcher.serve_step() if self.batcher.has_work() else {}
             )
             self._flush(finished)
+            # prefill-only parking: a sequence whose prompt pages just
+            # sealed announces it on its stream (non-terminal), for the
+            # gateway's handoff
+            drain = getattr(self.batcher, "drain_sealed", None)
+            if drain is not None:
+                for seq in drain():
+                    st = self._by_seq.get(seq)
+                    if st is not None and not st.closed:
+                        st.q.put(("sealed",))
             if self.step_delay_s:
                 time.sleep(self.step_delay_s)
 
@@ -539,7 +792,9 @@ def make_replica_handler(loop: ReplicaServingLoop,
                 return None
 
         def _send_json(self, code: int, payload: dict) -> None:
-            body = json.dumps(payload).encode()
+            self._send_body(code, json.dumps(payload).encode())
+
+        def _send_body(self, code: int, body: bytes) -> None:
             self.send_response(code)
             self.send_header("Content-Type", "application/json")
             self.send_header("Content-Length", str(len(body)))
@@ -592,17 +847,23 @@ def make_replica_handler(loop: ReplicaServingLoop,
                 ok = loop.cancel(str(body["request_id"]))
                 self._send_json(200, {"cancelled": ok})
                 return
-            if self.path in ("/v1/export", "/v1/import", "/v1/role"):
-                verb = self.path[len("/v1/"):]
+            if self.path == "/v1/role":
                 if metrics is not None:
-                    metrics.inc("replica_http_requests_total", verb=verb)
-                # the body is read so a pooling client's next request
-                # parses cleanly off this connection
-                self._read_json()
-                self._send_json(501, {
-                    "error": f"POST {self.path} is not ported yet: it "
-                             f"arrives with {MIGRATION_SLICE}",
-                })
+                    metrics.inc("replica_http_requests_total", verb="role")
+                body = self._read_json()
+                role = str((body or {}).get("role") or "")
+                if role not in ROLES:
+                    self._send_json(
+                        400, {"error": "role must be prefill|decode|flex"})
+                    return
+                loop.set_role(role)
+                self._send_json(200, {"role": loop.role})
+                return
+            if self.path == "/v1/export":
+                self._handle_export()
+                return
+            if self.path == "/v1/import":
+                self._handle_import()
                 return
             if self.path != "/v1/submit":
                 self._send_json(404, {"error": f"no route {self.path}"})
@@ -619,9 +880,129 @@ def make_replica_handler(loop: ReplicaServingLoop,
             st = loop.submit(body, t_recv)
             self._serve_stream(st)
 
+        def _migrated(self, direction: str, t0: float, pages: int,
+                      wire_bytes: int) -> None:
+            if metrics is not None:
+                metrics.observe("replica_migrate_seconds",
+                                time.monotonic() - t0, dir=direction)
+                metrics.inc("replica_migrate_pages_total", pages,
+                            dir=direction)
+                metrics.inc("replica_migrate_wire_bytes_total", wire_bytes,
+                            dir=direction)
+
+        def _handle_export(self) -> None:
+            """POST /v1/export: a live export and detach, a delta, a
+            reclaim, or a sealed-chain capture (the module docstring has
+            the bodies)."""
+            if metrics is not None:
+                metrics.inc("replica_http_requests_total", verb="export")
+            body = self._read_json()
+            if body is None:
+                self._send_json(400, {"error": "malformed JSON body"})
+                return
+            t0 = time.monotonic()
+            rid = str(body.get("request_id") or "")
+            try:
+                if rid and body.get("reclaim") is not None:
+                    n = loop.reclaim(rid, int(body["reclaim"]))
+                    self._send_json(200, {"reclaimed": n})
+                    return
+                if rid and body.get("delta"):
+                    payload = loop.export_delta(
+                        rid, int(body.get("cursor") or 0))
+                    out = json.dumps({"payload": (
+                        encode_kv_payload(payload)
+                        if payload is not None else None)}).encode()
+                    if metrics is not None and payload is not None:
+                        metrics.inc("replica_migrate_wire_bytes_total",
+                                    len(out), dir="export")
+                    self._send_body(200, out)
+                    return
+                if rid:
+                    payload = loop.export_live(
+                        rid, int(body.get("cursor") or 0))
+                elif body.get("stream") is not None:
+                    payload = loop.export_sealed(
+                        [int(t) for t in body["stream"]])
+                else:
+                    self._send_json(
+                        400, {"error": "request_id or stream required"})
+                    return
+            except KeyError as e:
+                self._send_json(404, {"error": str(e)})
+                return
+            except (ValueError, RuntimeError) as e:
+                self._send_json(409, {"error": str(e)})
+                return
+            n_pages = len(payload.get("page_keys") or []) if payload else 0
+            out = json.dumps({
+                "payload": (encode_kv_payload(payload)
+                            if payload is not None else None),
+                "pages": n_pages}).encode()
+            if payload is not None:
+                self._migrated("export", t0, n_pages, len(out))
+            self._send_body(200, out)
+
+        def _handle_import(self) -> None:
+            """POST /v1/import: a sealed chain or a delta into the prefix
+            cache (JSON answer), or a live import whose answer is the
+            continuation's SSE stream."""
+            if metrics is not None:
+                metrics.inc("replica_http_requests_total", verb="import")
+            t_recv = time.monotonic()
+            wire_bytes = _int_or(self.headers.get("Content-Length"), 0)
+            body = self._read_json()
+            if body is None or not isinstance(body.get("payload"), dict):
+                self._send_json(400, {"error": "payload required"})
+                return
+            try:
+                payload = decode_kv_payload(body["payload"])
+            except Exception as e:  # noqa: BLE001 - wire junk is a 400
+                self._send_json(400,
+                                {"error": f"undecodable payload: {e}"})
+                return
+            t0 = time.monotonic()
+            if payload.get("kind") == "delta":
+                # the {"staged": n} ack licenses the source's reclaim
+                try:
+                    n = loop.import_delta(payload)
+                except (ValueError, RuntimeError) as e:
+                    self._send_json(503, {"error": str(e)})
+                    return
+                if metrics is not None:
+                    metrics.inc("replica_migrate_wire_bytes_total",
+                                wire_bytes, dir="import")
+                self._send_json(200, {"staged": n})
+                return
+            if not body.get("request_id"):
+                try:
+                    n = loop.import_sealed(payload)
+                except (ValueError, RuntimeError) as e:
+                    self._send_json(503, {"error": str(e)})
+                    return
+                self._migrated("import", t0, n, wire_bytes)
+                self._send_json(200, {"imported": n})
+                return
+            st = _Stream(str(body["request_id"]), t_recv)
+            try:
+                loop.import_live(
+                    st, payload,
+                    trace_id=self.headers.get("X-Trace-Id", ""),
+                    span_id=self.headers.get("X-Span-Id", "0"),
+                )
+            except (KeyError, ValueError) as e:
+                self._send_json(409, {"error": str(e)})
+                return
+            except RuntimeError as e:
+                self._send_json(503, {"error": str(e)})
+                return
+            self._migrated("import", t0,
+                           len(payload.get("page_keys") or []), wire_bytes)
+            self._serve_stream(st)
+
         def _serve_stream(self, st: _Stream) -> None:
-            """The chunked SSE stream of one submit; disconnect ⇒ cancel
-            pinned to THIS stream object."""
+            """The chunked SSE stream of a submit or a live import;
+            disconnect ⇒ cancel pinned to THIS stream object."""
             self.send_response(200)
             self.send_header("Content-Type", "text/event-stream")
             self.send_header("Cache-Control", "no-cache")
@@ -662,6 +1043,12 @@ def make_replica_handler(loop: ReplicaServingLoop,
                     write_chunk(self.wfile,
                                 sse_event("tokens", {"tokens": ev[1]}))
                     continue
+                if kind == "sealed":
+                    # non-terminal: the prompt's pages sealed on a
+                    # prefill-only replica and the sequence parked for
+                    # its handoff
+                    write_chunk(self.wfile, sse_event("sealed", {}))
+                    continue
                 if kind == "done":
                     write_chunk(self.wfile, sse_event("done", {
                         "tokens": ev[1], "spans": ev[2], "t_recv": ev[3],
@@ -691,15 +1078,18 @@ class ReplicaServer:
     ephemeral port; ``stop()`` ends the serving loop first (live streams
     get an explicit error event), then the listener.  ``tls_cert`` and
     ``tls_key`` (together) serve HTTPS; ``auth_token`` gates ``/v1/*``
-    behind a bearer token."""
+    behind a bearer token.  ``role`` and ``fail_migration`` go to the
+    serving loop."""
 
     def __init__(self, batcher, listen: Tuple[str, int] = ("127.0.0.1", 0),
                  metrics: Optional[Metrics] = None,
                  tracer: Optional[Tracer] = None,
                  step_delay_s: float = 0.0,
+                 fail_migration: bool = False,
                  tls_cert: Optional[str] = None,
                  tls_key: Optional[str] = None,
-                 auth_token: Optional[str] = None) -> None:
+                 auth_token: Optional[str] = None,
+                 role: str = "flex") -> None:
         if bool(tls_cert) != bool(tls_key):
             # checked before anything binds a socket, so the raise leaks
             # nothing
@@ -709,7 +1099,8 @@ class ReplicaServer:
         self.metrics = metrics if metrics is not None else Metrics()
         self.loop = ReplicaServingLoop(
             batcher, metrics=self.metrics, tracer=tracer,
-            step_delay_s=step_delay_s,
+            step_delay_s=step_delay_s, fail_migration=fail_migration,
+            role=role,
         )
         self.httpd = _ReplicaHTTPServer(
             listen,

@@ -59,16 +59,32 @@ step's tokens one iteration late: the readback is a ``non_blocking``
 copy into pinned host memory plus a CUDA event, so the next step is
 enqueued before the host waits.  Pools, station caches and the loop
 state are updated in place where they lie.
+
+Migration and disaggregation, as in the JAX package: ``export_pages``
+reads a live sequence's committed pages, chain keys and decode cursor
+to host numpy (read-only), ``import_pages`` resumes it in another
+batcher (atomic: every check runs before the first refcount moves);
+``export_sealed_chain``/``import_sealed_chain`` carry a finished
+stream's sealed pages, and ``export_sealed_delta``/``import_sealed_delta``
+/``reclaim_handoff_pages`` stream a prefill-only replica's sealed prompt
+pages while it still prefills.  ``prefill_only=True`` parks each
+sequence the moment its prompt pages seal: its lane stays inactive on
+the device and ``drain_sealed`` announces it once.  A payload's pages
+are host numpy in the JAX payload's layout: float32 and int8 pools as
+such, a bfloat16 pool's pages as their raw 16-bit patterns
+(``np.uint16``), which the importer also takes from any 2-byte array
+whose dtype is named ``bfloat16``.
 """
 
 from __future__ import annotations
 
 import hashlib
 import time
+import warnings
 from collections import OrderedDict, deque
 from contextlib import nullcontext
 from dataclasses import dataclass, field
-from typing import Dict, List, Optional, Set
+from typing import Dict, List, Optional, Set, Tuple
 
 import numpy as np
 import torch
@@ -425,6 +441,19 @@ class _Seq:
     # slot-owned trace state from admission to retirement (see
     # _TracedBatcher's ownership model); None when untraced
     trace: Optional[_SeqTrace] = None
+    # host copies of the slot's sampling keys, for export: the base key
+    # (two uint32 words) and the key-index offset
+    base_key: Tuple[int, int] = (0, 0)
+    key_offset: int = 0
+    # prefill-only serving: the prompt's pages sealed with zero tokens
+    # emitted and the lane is withheld from the step; it waits for an
+    # export (the handoff) or a local unpark
+    parked: bool = False
+    # streamed-handoff early reclaim: page indices [0, reclaimed_upto)
+    # went back to the pool once the importer acked their deltas; they
+    # stay in ``pages`` so the final export keeps absolute indexing, and
+    # release and accounting skip them
+    reclaimed_upto: int = 0
 
 
 @dataclass
@@ -461,6 +490,51 @@ class _Inflight:
     td0: float = 0.0
     tv0: float = 0.0
     tv1: float = 0.0
+
+
+def _dtype_name(dtype: torch.dtype) -> str:
+    """A torch dtype's name as the JAX package writes it ("float32",
+    "bfloat16")."""
+    return str(dtype).replace("torch.", "")
+
+
+def _host_pairs(t: torch.Tensor) -> List[tuple]:
+    """A ``(layers, 2, ...)`` device tensor as per-layer ``(k, v)`` host
+    numpy arrays, in one device-to-host copy.  bfloat16 has no numpy
+    dtype: its values cross as their raw 16-bit patterns (``np.uint16``)."""
+    if t.dtype == torch.bfloat16:
+        host = t.view(torch.int16).cpu().numpy().view(np.uint16)
+    else:
+        host = t.cpu().numpy()
+    return [(host[i, 0], host[i, 1]) for i in range(host.shape[0])]
+
+
+def _from_numpy(a: np.ndarray) -> torch.Tensor:
+    """``torch.from_numpy`` of a host array the caller only reads: a
+    decoded wire payload's arrays are read-only views of their bytes."""
+    with warnings.catch_warnings():
+        warnings.filterwarnings("ignore", message=".*not writable.*")
+        return torch.from_numpy(np.ascontiguousarray(a))
+
+
+def _host_tensor(arr, dtype: torch.dtype) -> torch.Tensor:
+    """A transferred host array as a CPU tensor of the storage ``dtype``.
+    A bfloat16 store takes raw 16-bit patterns (``uint16``/``int16``, or
+    any 2-byte dtype named ``bfloat16``) as they are and rounds float
+    values; an int8 store takes int8 only, a float32 store floats only.
+    Anything else raises ``ValueError``."""
+    a = np.asarray(arr)
+    if dtype == torch.bfloat16 and a.dtype.itemsize == 2 and (
+            a.dtype.name == "bfloat16" or a.dtype.kind in "iu"):
+        return _from_numpy(a.view(np.int16)).view(torch.bfloat16)
+    if dtype == torch.int8 and a.dtype == np.int8:
+        return _from_numpy(a)
+    if dtype != torch.int8 and a.dtype.kind == "f":
+        return _from_numpy(a.astype(np.float32, copy=False)).to(dtype)
+    raise ValueError(
+        f"malformed payload: a {a.dtype} array cannot hold this pool's "
+        f"{_dtype_name(dtype)} pages"
+    )
 
 
 def _not_ported(knob: str, arrives_with: str) -> NotImplementedError:
@@ -514,7 +588,6 @@ def _validate_speculation(k, draft_window, draft_params, draft_num_layers,
 
 
 TP_SLICE = "the tensor-parallel slice"
-MIGRATION_SLICE = "the migration slice (disaggregated prefill and handoff)"
 
 
 class PagedContinuousBatcher(_TracedBatcher):
@@ -572,11 +645,16 @@ class PagedContinuousBatcher(_TracedBatcher):
     the time the loop blocked on its token readback and ``host_ms`` the
     rest of the iteration.
 
-    The constructor keeps the JAX signature.  Knobs of later slices
-    (tensor parallelism, prefill-only serving) raise
-    ``NotImplementedError`` naming the slice.  ``device`` defaults to
-    ``"cuda"`` and raises without a card; the CPU runs only when asked
-    for (``device="cpu"``)."""
+    ``prefill_only=True`` (a disaggregated fleet's prefill replica)
+    parks every sequence the moment its prompt pages seal, with zero
+    tokens emitted; ``drain_sealed`` announces each once, the migration
+    verbs hand it to a decode replica, and ``set_prefill_only(False)``
+    unparks it locally.
+
+    The constructor keeps the JAX signature.  ``mesh`` (tensor
+    parallelism) raises ``NotImplementedError`` naming its slice.
+    ``device`` defaults to ``"cuda"`` and raises without a card; the CPU
+    runs only when asked for (``device="cpu"``)."""
 
     def __init__(
         self,
@@ -619,8 +697,6 @@ class PagedContinuousBatcher(_TracedBatcher):
     ) -> None:
         if mesh is not None:
             raise _not_ported("mesh", TP_SLICE)
-        if prefill_only:
-            raise _not_ported("prefill_only", MIGRATION_SLICE)
         if prompt_pad > max_seq:
             raise ValueError(
                 f"prompt_pad ({prompt_pad}) exceeds max_seq ({max_seq})"
@@ -800,6 +876,10 @@ class PagedContinuousBatcher(_TracedBatcher):
         self._station = init_caches(station_slots, num_layers, num_heads,
                                     hidden, prompt_pad, dtype, dev)
         self._jobs: "OrderedDict[int, _PrefillJob]" = OrderedDict()
+        # prefill-only serving: activations park instead of decoding, and
+        # _sealed_pending announces each seal once (drain_sealed)
+        self.prefill_only = bool(prefill_only)
+        self._sealed_pending: List[int] = []
         # each queued entry carries its own prefix chain keys (computed
         # at submit), so a seq_id queued twice never aliases another
         # admission's hashes
@@ -952,12 +1032,16 @@ class PagedContinuousBatcher(_TracedBatcher):
         return page
 
     def _release_pages(self, s: _Seq) -> None:
-        for p in s.pages:
+        # indices below reclaimed_upto went back to the pool already
+        # (reclaim_handoff_pages): releasing them twice would corrupt a
+        # refcount or free a page twice
+        for p in s.pages[s.reclaimed_upto:]:
             if p in s.shared:
                 self.prefix_cache.release(p)
             else:
                 self.free_pages.add(p)
         s.pages, s.shared = [], set()
+        s.reclaimed_upto = 0
 
     def pages_in_use(self) -> int:
         """Distinct pool pages held by live sequences (shared pages count
@@ -983,7 +1067,9 @@ class PagedContinuousBatcher(_TracedBatcher):
         for s in self._seqs:
             if s.seq_id < 0:
                 continue
-            for p in s.pages:
+            # early-reclaimed handoff pages are back in the pool: the
+            # slot no longer holds them, though ``pages`` keeps the index
+            for p in s.pages[s.reclaimed_upto:]:
                 if p in s.shared:
                     refs[p] = refs.get(p, 0) + 1
                 else:
@@ -1368,6 +1454,13 @@ class PagedContinuousBatcher(_TracedBatcher):
         self._key_offsets[slot] = offset
         self._counts_dev[slot] = 0
         s.temperature = float(job.temperature)
+        s.base_key = tuple(int(w) for w in base_key.tolist())
+        s.key_offset = offset
+        # prefill-only serving: the prompt's pages just sealed with zero
+        # tokens emitted; the slot parks (its device lane stays inactive)
+        # and announces the seal, for an export from exactly this cursor
+        # or a local unpark (set_prefill_only(False))
+        park = self.prefill_only and s.remaining > 0
         self.tables[slot, :] = s.pages[0]
         self.tables[slot, : len(s.pages)] = s.pages
         self.pos[slot] = job.plen - 1
@@ -1380,7 +1473,7 @@ class PagedContinuousBatcher(_TracedBatcher):
         )
         self._pos_dev[slot] = job.plen - 1
         self._last_dev[slot] = last_tok
-        self._active_dev[slot] = True
+        self._active_dev[slot] = not park
         self._remaining_dev[slot] = s.remaining
         # retirement sealing hashes the committed stream from its prompt
         s.prompt, s.plen = job.prompt[: job.plen], job.plen
@@ -1392,10 +1485,13 @@ class PagedContinuousBatcher(_TracedBatcher):
             self._d_pos[slot] = job.plen - 1
             self._d_pos_dev[slot] = job.plen - 1
         s.prefilling, s.active = False, True
-        if self.sampling and job.temperature > 0.0:
+        if self.sampling and job.temperature > 0.0 and not park:
             # a sampled slot's first token is a direct target sample at
             # absolute position plen; its windows start at pos = plen
             self._spec_first_token(slot, s, base_key, job.plen)
+        if park:
+            s.parked = True
+            self._sealed_pending.append(s.seq_id)
         tr = s.trace
         if tr is not None:
             t = time.monotonic()
@@ -1435,7 +1531,10 @@ class PagedContinuousBatcher(_TracedBatcher):
             if self.token_budget is None:
                 pages_left = None
             else:
-                n_active = sum(1 for s in self._seqs if s.active)
+                # parked slots run no decode rows: their share of the
+                # budget goes to prefill
+                n_active = sum(1 for s in self._seqs
+                               if s.active and not s.parked)
                 if self.speculate_k is not None:
                     # a speculative slot's verify window is k+1 rows
                     n_active *= self.speculate_k + 1
@@ -1576,6 +1675,12 @@ class PagedContinuousBatcher(_TracedBatcher):
         self._trace_retire_slot(s, reason)
         self._seal_finished_pages(s)
         self._release_pages(s)
+        if s.parked:
+            # a parked sequence leaving before its seal was drained must
+            # not announce a handoff of a dead cursor
+            s.parked = False
+            if s.seq_id in self._sealed_pending:
+                self._sealed_pending.remove(s.seq_id)
         s.seq_id = -1
         s.prompt, s.plen = None, 0
         self.tables[i, :] = 0
@@ -1595,6 +1700,746 @@ class PagedContinuousBatcher(_TracedBatcher):
     def has_work(self) -> bool:
         return bool(self._pending) or any(s.seq_id >= 0 for s in self._seqs)
 
+    # -- disaggregation verbs (prefill-only serving) -----------------------
+    def drain_sealed(self) -> List[int]:
+        """Seq ids whose prompts sealed (parked) since the last drain: the
+        serving loop announces each once, and the gateway hands it off
+        through ``export_pages``/``import_pages``."""
+        out, self._sealed_pending = self._sealed_pending, []
+        return out
+
+    def set_prefill_only(self, flag: bool) -> bool:
+        """Flip prefill-only serving live (the role actuator); returns
+        whether the mode changed.  Turning it off unparks every parked
+        slot into the step, except one whose handoff already reclaimed
+        pages (``reclaimed_upto > 0``): its early pages left the pool, so
+        it stays parked until its handoff completes or falls back through
+        ``import_pages``.  Call it on the thread that steps the batcher."""
+        flag = bool(flag)
+        changed = flag != self.prefill_only
+        self.prefill_only = flag
+        if not flag:
+            for i, s in enumerate(self._seqs):
+                if s.seq_id >= 0 and s.parked and not s.reclaimed_upto:
+                    s.parked = False
+                    self._active_dev[i] = True
+            self._sealed_pending = []
+        return changed
+
+    # -- live KV-page migration --------------------------------------------
+    # Export is read-only: the exporter keeps its pages until the caller
+    # detaches the sequence (``cancel``), so accounting holds on both
+    # ends mid-transfer.  Import is atomic: every check runs before the
+    # first refcount moves, so a refused import leaves pool, cache,
+    # refcounts and device tensors as they were.  A payload's page bytes
+    # are host numpy, read with one gather and one device-to-host copy,
+    # written with one host-to-device copy and an ``index_copy_`` per
+    # pool array, all on the batcher's stream.
+
+    def _slot_of(self, seq_id: int) -> int:
+        slot = next((i for i, s in enumerate(self._seqs)
+                     if s.seq_id == seq_id), None)
+        if slot is None:
+            raise KeyError(f"unknown sequence {seq_id}")
+        return slot
+
+    def _transfer_geometry(self) -> dict:
+        return {
+            "page": self.page, "layers": self.num_layers,
+            "heads": self.num_heads,
+            "head_dim": self.hidden // self.num_heads,
+            "dtype": _dtype_name(self.dtype),
+            # schema 2: the pool's storage format rides the geometry, and
+            # an int8 payload carries a "scales" section
+            "kv_dtype": self.kv_dtype, "schema": 2, "tp": self.tp,
+        }
+
+    def _check_geometry(self, g: dict) -> None:
+        want = self._transfer_geometry()
+        got = dict(g)
+        # schema-1 payloads stored full width at the compute dtype
+        got.setdefault("kv_dtype", got.get("dtype"))
+        for k in ("page", "layers", "heads", "head_dim", "dtype",
+                  "kv_dtype"):
+            if got.get(k) != want[k]:
+                raise ValueError(
+                    f"transfer geometry mismatch on {k}: payload "
+                    f"{got.get(k)!r} vs this batcher {want[k]!r} — KV pages "
+                    "move only between twins (same paged layout AND pool "
+                    "storage format)"
+                )
+
+    def _export_layers(self, phys: List[int]):
+        """Host copies of pool pages ``phys``: per-layer ``(k, v)`` arrays
+        ``(n, heads, page, head_dim)``, plus their ``(n, heads)`` float32
+        scales on an int8 pool (None at full width).  Every pool array is
+        gathered into one staging tensor, which crosses to the host in one
+        copy (an int8 pool's scales in a second)."""
+        dev, n, L = self.device, len(phys), self.num_layers
+        idx = torch.tensor(phys, dtype=torch.long, device=dev)
+        shape = (L, 2, n, self.num_heads, self.page,
+                 self.hidden // self.num_heads)
+        if self.kv_quant:
+            data = torch.empty(shape, dtype=torch.int8, device=dev)
+            scale = torch.empty(shape[:4], dtype=torch.float32, device=dev)
+            for li, (kent, vent) in enumerate(self.pools):
+                for side, (d, sc) in enumerate((kent, vent)):
+                    torch.index_select(d, 0, idx, out=data[li, side])
+                    torch.index_select(sc, 0, idx, out=scale[li, side])
+            return _host_pairs(data), _host_pairs(scale)
+        buf = torch.empty(shape, dtype=self.dtype, device=dev)
+        for li, (kp, vp) in enumerate(self.pools):
+            torch.index_select(kp, 0, idx, out=buf[li, 0])
+            torch.index_select(vp, 0, idx, out=buf[li, 1])
+        return _host_pairs(buf), None
+
+    def _check_page_arrays(self, layers, n_rows: int) -> None:
+        hd = self.hidden // self.num_heads
+        want = (n_rows, self.num_heads, self.page, hd)
+        for k_np, v_np in layers:
+            if (tuple(np.shape(k_np)) != want
+                    or tuple(np.shape(v_np)) != want):
+                raise ValueError(
+                    f"malformed payload: page array shape "
+                    f"{np.shape(k_np)} != {want}"
+                )
+
+    def _validate_scales(self, scales, n_pages: int) -> None:
+        """Shape-check an int8 transfer's ``scales`` section, before any
+        refcount moves."""
+        sshape = (n_pages, self.num_heads)
+        if not isinstance(scales, list) or len(scales) != self.num_layers:
+            raise ValueError(
+                "malformed payload: quantized transfer is missing "
+                "its per-layer scales"
+            )
+        for ks_np, vs_np in scales:
+            if (tuple(np.shape(ks_np)) != sshape
+                    or tuple(np.shape(vs_np)) != sshape):
+                raise ValueError(
+                    f"malformed payload: scale array shape "
+                    f"{np.shape(ks_np)} != {sshape}"
+                )
+
+    def _stage_imported(self, rows: List[int], layers, scales):
+        """Rows ``rows`` of each transferred layer array (and scale array)
+        as host tensors of the pool's storage dtype, stacked ``(layers,
+        2, n, ...)``: the import's host side, run before its commit line,
+        so a page array of the wrong type refuses the import
+        (``ValueError``) with nothing changed."""
+        sel = np.asarray(rows, np.intp)
+        store = torch.int8 if self.kv_quant else self.dtype
+        data = torch.stack([
+            torch.stack([_host_tensor(np.asarray(a)[sel], store)
+                         for a in pair])
+            for pair in layers])
+        if not self.kv_quant:
+            return data, None
+        scale = torch.stack([
+            torch.stack([_host_tensor(np.asarray(a)[sel], torch.float32)
+                         for a in pair])
+            for pair in scales])
+        return data, scale
+
+    def _write_staged(self, staged, phys: List[int]) -> None:
+        """Copy staged host pages to the device (one copy, two on an int8
+        pool) and scatter them into pool pages ``phys``."""
+        data, scale = staged
+        idx = torch.tensor(phys, dtype=torch.long, device=self.device)
+        data = data.to(self.device)
+        if scale is None:
+            for li, (kp, vp) in enumerate(self.pools):
+                kp.index_copy_(0, idx, data[li, 0])
+                vp.index_copy_(0, idx, data[li, 1])
+            return
+        scale = scale.to(self.device)
+        for li, (kent, vent) in enumerate(self.pools):
+            for side, (d, sc) in enumerate((kent, vent)):
+                d.index_copy_(0, idx, data[li, side])
+                sc.index_copy_(0, idx, scale[li, side])
+
+    def export_pages(self, seq_id: int, cursor: int = 0) -> dict:
+        """Serialize a live sequence for migration: its committed pages'
+        K/V bytes, the chain keys and kinds that let the importer replay
+        them into its prefix cache, and the decode cursor (tokens,
+        remaining budget, sampling state).  Read-only: the caller
+        detaches (``cancel``) once the importer acknowledged.  Drains the
+        pipelined in-flight iteration first, so the payload holds every
+        token the device committed.  ``cursor`` (streamed handoff): the
+        first ``cursor`` pages went ahead as acked deltas, so the payload
+        carries keys for every page but bytes only from page ``cursor``
+        on (``layer_base``).  Raises ``KeyError`` for an unknown
+        sequence and ``ValueError`` for one mid-prefill (nothing
+        committed), already finished, or a cursor below its reclaim
+        watermark."""
+        slot = self._slot_of(seq_id)
+        s = self._seqs[slot]
+        if s.prefilling:
+            raise ValueError(
+                f"sequence {seq_id} is mid-prefill: nothing committed "
+                "to move"
+            )
+        while self._inflight:
+            self._process_entry(self._inflight.popleft())
+        if not s.active:
+            raise ValueError(
+                f"sequence {seq_id} already finished: nothing to migrate"
+            )
+        committed = s.plen + len(s.tokens) - 1   # rows [0, committed)
+        n_pages = -(-committed // self.page) if committed else 0
+        n_full = committed // self.page
+        n_prompt = (s.plen - 1) // self.page
+        cursor = int(cursor)
+        if cursor < 0 or cursor > n_pages:
+            raise ValueError(
+                f"export cursor {cursor} outside [0, {n_pages}]"
+            )
+        if cursor < s.reclaimed_upto:
+            raise ValueError(
+                f"export cursor {cursor} below reclaim watermark "
+                f"{s.reclaimed_upto}: those pages left the pool"
+            )
+        stream = np.concatenate([np.asarray(s.prompt, np.int32),
+                                 np.asarray(s.tokens, np.int32)])
+        keys = chain_keys(stream, self.page, n_full)
+        layers, scales = self._export_layers(s.pages[cursor:n_pages])
+        self.stats["pages_exported"] += n_pages - cursor
+        payload = {
+            "kind": "live",
+            "geometry": self._transfer_geometry(),
+            "prompt": [int(t) for t in s.prompt],
+            "tokens": list(s.tokens),
+            "remaining": int(s.remaining),
+            # the value the device holds: the float32 temperature
+            "temperature": float(np.float32(s.temperature)),
+            "base_key": list(s.base_key),
+            "key_offset": int(s.key_offset),
+            "page_keys": [keys[j].hex() if j < n_full else None
+                          for j in range(n_pages)],
+            "page_kinds": [("prompt" if j < n_prompt else "decode")
+                           if j < n_full else None
+                           for j in range(n_pages)],
+            "layer_base": cursor,
+            "layers": layers,
+        }
+        if scales is not None:
+            payload["scales"] = scales
+        if (self.speculate_k is not None and self.sampling
+                and s.temperature > 0.0):
+            # sampled speculation: the importer's accept draws compare
+            # against the q this slot's ring produces, so a bit-identical
+            # continuation ships the resting ring lane with the pages
+            payload["draft"] = self._export_draft_ring(slot)
+        return payload
+
+    def _export_draft_ring(self, slot: int) -> dict:
+        """The slot's whole draft-ring lane, ``(window, heads, head_dim)``
+        rows per layer (plus ``(heads,)`` float32 scales on an int8
+        ring).  Every row ships, not just [0, d_pos): an int8 ring's
+        grow-only scale runs over the whole lane, junk rows included."""
+        d = {
+            "d_pos": int(self._d_pos[slot]),
+            "window": int(self.draft_window),
+            "layers": int(self.draft_num_layers),
+            "heads": int(self.draft_num_heads),
+            "head_dim": self.draft_hidden // self.draft_num_heads,
+            "dtype": "int8" if self.kv_quant else _dtype_name(self.dtype),
+        }
+        if self.kv_quant:
+            d["rows"] = _host_pairs(torch.stack([
+                torch.stack([kd[slot], vd[slot]])
+                for (kd, _), (vd, _) in self.d_caches]))
+            d["scales"] = _host_pairs(torch.stack([
+                torch.stack([ks[slot], vs[slot]])
+                for (_, ks), (_, vs) in self.d_caches]))
+        else:
+            d["rows"] = _host_pairs(torch.stack([
+                torch.stack([ck[slot], cv[slot]])
+                for ck, cv in self.d_caches]))
+        return d
+
+    def _try_import_draft_ring(self, slot: int, draft) -> bool:
+        """Splice an exported draft-ring lane into ``slot``.  Returns False,
+        with nothing changed, when the section is absent or does not
+        match this ring (the caller re-admits the prompt instead: safe,
+        since rejection sampling is lossless in distribution for any
+        draft, but not bit-stable).  It runs past the import's commit
+        line, so it never raises."""
+        if not isinstance(draft, dict):
+            return False
+        d_hd = self.draft_hidden // self.draft_num_heads
+        want_dtype = "int8" if self.kv_quant else _dtype_name(self.dtype)
+        if (draft.get("window") != self.draft_window
+                or draft.get("layers") != self.draft_num_layers
+                or draft.get("heads") != self.draft_num_heads
+                or draft.get("head_dim") != d_hd
+                or draft.get("dtype") != want_dtype):
+            return False
+        rows, scales = draft.get("rows"), draft.get("scales")
+        row_shape = (self.draft_window, self.draft_num_heads, d_hd)
+
+        def pairs_ok(pairs, shape) -> bool:
+            return (isinstance(pairs, list)
+                    and len(pairs) == self.draft_num_layers
+                    and all(tuple(np.shape(a)) == shape
+                            for pair in pairs for a in pair))
+
+        if not pairs_ok(rows, row_shape) or (
+                self.kv_quant
+                and not pairs_ok(scales, (self.draft_num_heads,))):
+            return False
+        store = torch.int8 if self.kv_quant else self.dtype
+        try:
+            host_rows = [[_host_tensor(a, store) for a in pair]
+                         for pair in rows]
+            host_scales = ([[_host_tensor(a, torch.float32) for a in pair]
+                            for pair in scales] if self.kv_quant else None)
+        except ValueError:
+            return False
+        for li, (kent, vent) in enumerate(self.d_caches):
+            for side, entry in enumerate((kent, vent)):
+                if self.kv_quant:
+                    entry[0][slot] = host_rows[li][side].to(self.device)
+                    entry[1][slot] = host_scales[li][side].to(self.device)
+                else:
+                    entry[slot] = host_rows[li][side].to(self.device)
+        return True
+
+    def import_pages(self, seq_id: int, payload: dict,
+                     trace=None) -> None:
+        """The inverse verb: take pool pages for a migrated sequence,
+        replay its prefix chain into the local cache (content addressing
+        dedups against pages held here: a double import shares), write
+        the transferred K/V and resume decode at the exported cursor.
+        Atomic: slot, pool and payload are checked before the first
+        refcount moves, so a refusal (``RuntimeError``) leaves this
+        batcher as it was.  ``ValueError`` means the payload cannot be
+        served here (geometry mismatch, seq_id in use, malformed).
+        ``trace`` is the caller's span: the sequence opens a fresh
+        ``serve`` subtree under it, marked ``imported``."""
+        if payload.get("kind") != "live" or "geometry" not in payload:
+            raise ValueError("not a live paged-KV payload")
+        self._check_geometry(payload["geometry"])
+        if seq_id < 0:
+            raise ValueError(f"seq_id must be >= 0, got {seq_id}")
+        if any(s.seq_id == seq_id for s in self._seqs) or any(
+            item[0] == seq_id for item in self._pending
+        ):
+            raise ValueError(f"seq_id {seq_id} already in use")
+        prompt = np.asarray(payload["prompt"], np.int32)
+        tokens = [int(t) for t in payload["tokens"]]
+        remaining = int(payload["remaining"])
+        if remaining <= 0:
+            raise ValueError("nothing left to decode")
+        temperature = float(payload.get("temperature", 0.0))
+        if (self.speculate_k is not None and temperature > 0.0
+                and not self.sampling):
+            raise ValueError(
+                "greedy-only speculative paged batcher: importing a "
+                "sampled sequence needs sampling=True"
+            )
+        base_key = [int(w) for w in (payload.get("base_key") or [0, 0])]
+        if len(base_key) != 2 or not all(0 <= w < 2 ** 32 for w in base_key):
+            raise ValueError(
+                f"malformed payload: base_key {base_key} is not two "
+                "uint32 words"
+            )
+        plen = self._validate(prompt, len(tokens) + remaining)
+        committed = plen + len(tokens) - 1
+        n_pages = -(-committed // self.page) if committed else 0
+        page_keys = list(payload.get("page_keys") or [None] * n_pages)
+        page_kinds = list(payload.get("page_kinds") or [None] * n_pages)
+        layers = payload["layers"]
+        # streamed handoff: the first layer_base pages went ahead as
+        # acked deltas; keys for all pages, bytes from layer_base on
+        layer_base = int(payload.get("layer_base") or 0)
+        if layer_base < 0 or layer_base > n_pages:
+            raise ValueError(
+                f"malformed payload: layer_base {layer_base} outside "
+                f"[0, {n_pages}]"
+            )
+        if (len(layers) != self.num_layers or len(page_keys) != n_pages
+                or len(page_kinds) != n_pages):
+            raise ValueError("malformed payload: layer/page counts drift")
+        self._check_page_arrays(layers, n_pages - layer_base)
+        scales = payload.get("scales")
+        if self.kv_quant:
+            self._validate_scales(scales, n_pages - layer_base)
+        slot = next(
+            (i for i, s in enumerate(self._seqs) if s.seq_id < 0), None
+        )
+        if slot is None:
+            raise RuntimeError("import refused: no free sequence slot")
+        need = self._pages_for(plen, len(tokens) + remaining)
+        # every transferred key is probed on its own (no stop at the
+        # first miss): LRU eviction can punch a hole in a cached chain,
+        # and a cached later page must be shared, never inserted twice
+        hits: Dict[int, int] = {}
+        if self.prefix_cache is not None:
+            for j in range(min(n_pages, need)):
+                key = page_keys[j]
+                if key is None:
+                    continue
+                page = self.prefix_cache.lookup(bytes.fromhex(key))
+                if page is not None:
+                    hits[j] = page
+        # a page below layer_base has no bytes here: it must resolve from
+        # the staged cache, or the import is refused (the handoff falls
+        # back) before anything moves
+        for j in range(min(layer_base, n_pages)):
+            if j not in hits:
+                raise RuntimeError(
+                    f"import refused: page {j} below layer_base "
+                    f"{layer_base} is neither staged here nor shipped "
+                    "(delta evicted or never arrived)"
+                )
+        if need - len(hits) > self._available_pages(set(hits.values())):
+            raise RuntimeError(
+                f"import refused: needs {need - len(hits)} fresh pages, "
+                f"{self._available_pages(set(hits.values()))} available"
+            )
+        to_write = [j for j in range(n_pages) if j not in hits]
+        staged = (self._stage_imported([j - layer_base for j in to_write],
+                                       layers, scales)
+                  if to_write else None)
+        # ---- commit: no failure path below this line ----
+        # acquire every hit before the first allocation: _alloc_page
+        # evicts idle entries, and a page this import shares must not be
+        # the one evicted
+        pages_by_j: Dict[int, int] = {}
+        shared: Set[int] = set()
+        for j, hit in hits.items():
+            got = self.prefix_cache.acquire(bytes.fromhex(page_keys[j]))
+            assert got == hit
+            pages_by_j[j] = got
+            shared.add(got)
+        for j in range(need):
+            if j not in pages_by_j:
+                pages_by_j[j] = self._alloc_page()
+        pages = [pages_by_j[j] for j in range(need)]
+        # fresh pages start at scale 0; the transferred ones get their
+        # real scales just below
+        self._zero_page_scales([pages_by_j[j] for j in range(need)
+                                if j not in hits])
+        # replay the chain: transferred full pages register under their
+        # keys (kind-gated as retirement sealing is), so the session's
+        # next prompt hits here too
+        if self.prefix_cache is not None:
+            for j in to_write:
+                key, kind = page_keys[j], page_kinds[j]
+                if key is None or kind is None:
+                    continue
+                if kind == "decode" and not self._seal_decode:
+                    continue
+                if self.prefix_cache.lookup(bytes.fromhex(key)) is not None:
+                    continue
+                prev = page_keys[j - 1] if j else None
+                self.prefix_cache.insert(
+                    bytes.fromhex(key), pages[j], kind=kind,
+                    prev=bytes.fromhex(prev) if prev else None,
+                )
+                shared.add(pages[j])
+        if staged is not None:
+            self._write_staged(staged, [pages[j] for j in to_write])
+        # the cursor: the slot resumes where the exporter stopped
+        s = self._seqs[slot]
+        now = time.monotonic()
+        s.seq_id, s.active, s.prefilling = seq_id, True, False
+        # an imported sequence always decodes, on a prefill-only replica
+        # too (the handoff's fallback resume)
+        s.parked = False
+        s.gen += 1
+        s.tokens, s.remaining = list(tokens), remaining
+        s.pages, s.shared = pages, shared
+        s.submitted_at = now
+        s.last_emit_at = now
+        s.prompt, s.plen = prompt[:plen], plen
+        s.temperature = temperature
+        s.base_key = (base_key[0], base_key[1])
+        s.key_offset = int(payload.get("key_offset", 0))
+        last = tokens[-1] if tokens else int(prompt[plen - 1])
+        self.tables[slot, :] = pages[0]
+        self.tables[slot, : len(pages)] = pages
+        self.pos[slot] = committed
+        self._last[slot] = last
+        # the loop state goes into the existing device tensors, in place;
+        # counts resume at len(tokens), so with the exported offset the
+        # key index stays the token's absolute position
+        key_host = torch.tensor(base_key, dtype=torch.int64)
+        self._temps[slot] = temperature
+        self._base_keys[slot] = key_host.to(self.device)
+        self._key_offsets[slot] = s.key_offset
+        self._tables_dev[slot] = torch.from_numpy(self.tables[slot]).to(
+            self.device)
+        self._pos_dev[slot] = committed
+        self._last_dev[slot] = last
+        self._active_dev[slot] = True
+        self._remaining_dev[slot] = remaining
+        self._counts_dev[slot] = len(tokens)
+        if self.speculate_k is not None:
+            if (self.sampling and temperature > 0.0
+                    and self._try_import_draft_ring(slot,
+                                                    payload.get("draft"))):
+                # the exporter's resting ring landed byte for byte: every
+                # accept draw matches the un-migrated stream
+                d_pos = int(payload["draft"]["d_pos"])
+            else:
+                # greedy (or no ring shipped): the ring is advisory; the
+                # draft gets the prompt back and its head parks at the
+                # real position (greedy verification is lossless for any
+                # draft, so the stream cannot change)
+                self._draft_admit(slot, prompt[:plen])
+                d_pos = committed
+            self._d_pos[slot] = d_pos
+            self._d_pos_dev[slot] = d_pos
+            if self.sampling and temperature > 0.0 and not tokens:
+                # a post-prefill handoff (zero tokens): the importer owes
+                # the first token, the direct sample at position plen
+                self._spec_first_token(slot, s, key_host, plen)
+        # a fresh serve subtree (the exporter's closed at detach), straight
+        # to the decode phase
+        self._trace_begin(seq_id, plen, len(tokens) + remaining, trace)
+        tr = self._traces.pop(seq_id, None)
+        if tr is not None:
+            tr.serve.annotate(imported=True, pages=len(pages),
+                              transferred=n_pages)
+            self._trace_phase_end(tr, "queue")
+            self._trace_phase_start(tr, "decode")
+            s.trace = tr
+        self.stats["imports"] += 1
+        self.stats["admits"] += 1
+        self.stats["pages_imported"] += len(to_write)
+        self.stats["peak_pages"] = max(self.stats["peak_pages"],
+                                       self.pages_in_use())
+
+    def export_sealed_chain(self, stream) -> Optional[dict]:
+        """Serialize the sealed prefix-chain pages of a finished stream
+        (prompt + generated tokens) out of the cache: the failover
+        insurance verb.  Read-only.  Returns None when the cache holds
+        nothing for the stream (the importer then prefills cold)."""
+        if self.prefix_cache is None:
+            return None
+        stream = np.asarray(stream, np.int32)
+        if stream.shape[0] < 2:
+            return None
+        n_full = (int(stream.shape[0]) - 1) // self.page  # sealing bound
+        phys: List[int] = []
+        page_keys: List[str] = []
+        page_kinds: List[str] = []
+        for key in chain_keys(stream, self.page, n_full):
+            page = self.prefix_cache.lookup(key)
+            if page is None:
+                break   # chain hits are prefix-contiguous
+            phys.append(page)
+            page_keys.append(key.hex())
+            page_kinds.append(self.prefix_cache.kind_of(page))
+        if not phys:
+            return None
+        layers, scales = self._export_layers(phys)
+        self.stats["pages_exported"] += len(phys)
+        payload = {
+            "kind": "sealed",
+            "geometry": self._transfer_geometry(),
+            "page_keys": page_keys,
+            "page_kinds": page_kinds,
+            "layers": layers,
+        }
+        if scales is not None:
+            payload["scales"] = scales
+        return payload
+
+    def _check_chain_payload(self, payload: dict, kind: str):
+        """The shared preamble of the sealed-chain and delta imports:
+        kind, geometry, counts, page array and scale shapes."""
+        if payload.get("kind") != kind or "geometry" not in payload:
+            raise ValueError(f"not a {kind} paged-KV payload")
+        self._check_geometry(payload["geometry"])
+        page_keys = list(payload.get("page_keys") or [])
+        page_kinds = list(payload.get("page_kinds")
+                          or (["prompt"] * len(page_keys)
+                              if kind == "delta" else []))
+        layers = payload["layers"]
+        if (len(layers) != self.num_layers
+                or len(page_kinds) != len(page_keys)):
+            raise ValueError("malformed payload: layer/page counts drift")
+        self._check_page_arrays(layers, len(page_keys))
+        scales = payload.get("scales")
+        if self.kv_quant:
+            self._validate_scales(scales, len(page_keys))
+        return page_keys, page_kinds, layers, scales
+
+    def import_sealed_chain(self, payload: dict) -> int:
+        """Warm the prefix cache from a sealed-chain export: pages enter
+        idle (refcount 0) under their chain keys, kind-gated as
+        retirement sealing is, deduplicated against keys cached here.
+        Imports the longest chain prefix the pool can hold, within a
+        budget fixed at entry: pages imported here land idle and would
+        count as available, so a live check would let the allocator evict
+        this chain's own head.  Returns the number of pages imported."""
+        page_keys, page_kinds, layers, scales = self._check_chain_payload(
+            payload, "sealed")
+        if self.prefix_cache is None:
+            return 0
+        budget = self._available_pages(set())
+        plan: List[int] = []
+        for j, keyhex in enumerate(page_keys):
+            if self.prefix_cache.lookup(bytes.fromhex(keyhex)) is not None:
+                continue             # already warm here
+            if page_kinds[j] == "decode" and not self._seal_decode:
+                break   # the policy gate: nothing past a skipped page hits
+            if budget < 1:
+                break   # partial warmth: the longest prefix that fits
+            budget -= 1
+            plan.append(j)
+        staged = self._stage_imported(plan, layers, scales) if plan else None
+        fresh: List[int] = []
+        for j in plan:
+            page = self._alloc_page()
+            self.prefix_cache.insert(
+                bytes.fromhex(page_keys[j]), page, kind=page_kinds[j],
+                prev=bytes.fromhex(page_keys[j - 1]) if j else None,
+            )
+            self.prefix_cache.release(page)   # idle from birth
+            fresh.append(page)
+        if staged is not None:
+            self._write_staged(staged, fresh)
+        self.stats["pages_imported"] += len(fresh)
+        return len(fresh)
+
+    # -- streamed seal-time handoff ----------------------------------------
+    # Chunked prefill seals sharable prompt pages one by one, so the pages
+    # can ship while the later chunks compute.  Deltas are read-only on
+    # the exporter; the importer stages them idle under their chain keys,
+    # where the final cursor import claims them as prefix hits.  Once a
+    # delta is acked, a parked exporter may release those pages early
+    # (``reclaim_handoff_pages``).
+
+    def export_sealed_delta(self, seq_id: int,
+                            cursor: int) -> Optional[dict]:
+        """The pages of ``seq_id``'s prompt chain sealed since page index
+        ``cursor``, with their chain keys.  Works mid-prefill: the bound
+        is the scattered sharable prefix, whose bytes are final.  Returns
+        None when nothing new sealed; the payload's ``sealed`` flag says
+        whether the sequence has parked (no later delta).  Raises
+        ``KeyError`` for an unknown sequence, ``ValueError`` for one
+        already decoding (``export_pages`` owns that phase)."""
+        slot = self._slot_of(seq_id)
+        s = self._seqs[slot]
+        if s.prefilling:
+            job = next((j for j in self._jobs.values()
+                        if j.seq_id == seq_id), None)
+            if job is None:
+                return None
+            sealed = min(job.next_scatter, len(job.keys))
+            keys = job.keys
+            parked = False
+        elif s.parked:
+            sealed = (s.plen - 1) // self.page
+            keys = chain_keys(np.asarray(s.prompt, np.int32), self.page,
+                              sealed)
+            parked = True
+        else:
+            raise ValueError(
+                f"sequence {seq_id} is decoding: use export_pages"
+            )
+        cursor = int(cursor)
+        if cursor < 0 or cursor > sealed:
+            raise ValueError(
+                f"delta cursor {cursor} outside sealed bound {sealed}"
+            )
+        if cursor < s.reclaimed_upto:
+            raise ValueError(
+                f"delta cursor {cursor} below reclaim watermark "
+                f"{s.reclaimed_upto}"
+            )
+        if cursor == sealed:
+            return None
+        layers, scales = self._export_layers(s.pages[cursor:sealed])
+        self.stats["pages_exported"] += sealed - cursor
+        payload = {
+            "kind": "delta",
+            "geometry": self._transfer_geometry(),
+            "cursor": cursor,
+            "page_keys": [k.hex() for k in keys[cursor:sealed]],
+            "page_kinds": ["prompt"] * (sealed - cursor),
+            "prev_key": keys[cursor - 1].hex() if cursor else None,
+            "sealed": parked,
+            "layers": layers,
+        }
+        if scales is not None:
+            payload["scales"] = scales
+        return payload
+
+    def import_sealed_delta(self, payload: dict) -> int:
+        """Stage one streamed-handoff delta in the prefix cache: each page
+        enters idle under its chain key.  Atomic per delta: dedup and
+        pool feasibility run before the first allocation, so a refusal
+        (``RuntimeError``) stages nothing and leaves earlier deltas
+        intact.  Returns the number of pages newly staged."""
+        page_keys, page_kinds, layers, scales = self._check_chain_payload(
+            payload, "delta")
+        if self.prefix_cache is None:
+            raise RuntimeError(
+                "delta import refused: no prefix cache to stage into"
+            )
+        prev_hex = payload.get("prev_key")
+        # staged pages enter most recent in the LRU, so this call's
+        # allocations never evict a page it staged; an earlier delta's
+        # idle pages may go under pressure, and the final import then
+        # refuses (a layer_base hole) and the handoff falls back
+        fresh = [j for j, keyhex in enumerate(page_keys)
+                 if self.prefix_cache.lookup(bytes.fromhex(keyhex)) is None]
+        if len(fresh) > self._available_pages(set()):
+            raise RuntimeError(
+                f"delta import refused: needs {len(fresh)} pages, "
+                f"{self._available_pages(set())} available"
+            )
+        staged = (self._stage_imported(fresh, layers, scales)
+                  if fresh else None)
+        pages: List[int] = []
+        for j in fresh:
+            page = self._alloc_page()
+            prev = page_keys[j - 1] if j else prev_hex
+            self.prefix_cache.insert(
+                bytes.fromhex(page_keys[j]), page, kind=page_kinds[j],
+                prev=bytes.fromhex(prev) if prev else None,
+            )
+            self.prefix_cache.release(page)   # staged idle
+            pages.append(page)
+        if staged is not None:
+            self._write_staged(staged, pages)
+        self.stats["pages_imported"] += len(pages)
+        return len(pages)
+
+    def reclaim_handoff_pages(self, seq_id: int, upto: int) -> int:
+        """Release ``seq_id``'s first ``upto`` pages to the pool once the
+        importer acked the deltas holding them.  Only a parked sequence
+        sheds pages: a prefilling one still attends over them and a
+        decoding one writes new rows.  Shared pages decref to idle (still
+        found by chain key, for the fallback re-import); private ones
+        free.  Raises ``KeyError`` for an unknown sequence; returns the
+        pages freed (0 when not parked)."""
+        slot = self._slot_of(seq_id)
+        s = self._seqs[slot]
+        if not s.parked:
+            return 0
+        upto = min(int(upto), (s.plen - 1) // self.page)
+        freed = 0
+        for p in s.pages[s.reclaimed_upto:upto]:
+            if p in s.shared:
+                self.prefix_cache.release(p)
+                s.shared.discard(p)
+            else:
+                self.free_pages.add(p)
+            freed += 1
+        s.reclaimed_upto = max(s.reclaimed_upto, upto)
+        if freed:
+            self.stats["pages_reclaimed"] += freed
+            if self.metrics is not None:
+                self.metrics.inc("serve_handoff_pages_reclaimed_total",
+                                 freed)
+        return freed
+
     def live_tokens(self) -> Dict[int, List[int]]:
         """Committed tokens of every live sequence (under the pipelined
         loop, each delta is a step the device can no longer change)."""
@@ -1607,7 +2452,8 @@ class PagedContinuousBatcher(_TracedBatcher):
             "prefix_hit_tokens_decode": 0, "prefix_miss_tokens": 0,
             "prompt_tokens": 0, "decode_pages_sealed": 0,
             "seal_requants": 0, "spec_steps": 0, "spec_tokens": 0,
-            "draft_wraps": 0,
+            "draft_wraps": 0, "pages_exported": 0, "pages_imported": 0,
+            "imports": 0, "pages_reclaimed": 0,
         }
         # seq_id -> seconds from submit to the first token's readback
         self.first_token_s: Dict[int, float] = {}
@@ -1666,7 +2512,7 @@ class PagedContinuousBatcher(_TracedBatcher):
         if self.metrics is not None:
             self.metrics.set_gauge("serve_station_slots_busy",
                                    float(len(self._jobs)))
-        n_active = sum(1 for s in self._seqs if s.active)
+        n_active = sum(1 for s in self._seqs if s.active and not s.parked)
         if n_active:
             if self.speculate_k is not None:
                 self._dispatch_spec()
@@ -1675,7 +2521,8 @@ class PagedContinuousBatcher(_TracedBatcher):
         keep = 1 if (
             self.pipeline_decode
             and n_active
-            and not any(s.active and not s.tokens for s in self._seqs)
+            and not any(s.active and not s.parked and not s.tokens
+                        for s in self._seqs)
         ) else 0
         while len(self._inflight) > keep:
             spec_emitted += self._process_entry(self._inflight.popleft())
@@ -1701,7 +2548,8 @@ class PagedContinuousBatcher(_TracedBatcher):
                     self._active_dev, self._remaining_dev, self._counts_dev,
                     self._d_pos_dev if self.speculate_k is not None
                     else None)
-        active = np.array([s.active for s in self._seqs], bool)
+        active = np.array([s.active and not s.parked for s in self._seqs],
+                          bool)
         remaining = np.array([s.remaining for s in self._seqs], np.int32)
         counts = np.array([len(s.tokens) for s in self._seqs], np.int32)
         state = [torch.tensor(a, device=self.device) for a in
@@ -1716,7 +2564,8 @@ class PagedContinuousBatcher(_TracedBatcher):
         temperature from its admission, so an all-greedy iteration skips
         the draws (their rows would take the argmax anyway) without
         reading the device's sampling state."""
-        return any(s.active and s.temperature > 0.0 for s in self._seqs)
+        return any(s.active and not s.parked and s.temperature > 0.0
+                   for s in self._seqs)
 
     def _step(self, last, table, pos, active, remaining, counts,
               sampled: bool):
@@ -1748,7 +2597,8 @@ class PagedContinuousBatcher(_TracedBatcher):
     def _dispatch_step(self) -> None:
         """Launch one decode step on the device state and start its
         token readback; the host reads it in ``_process_entry``."""
-        cand = {i: s.gen for i, s in enumerate(self._seqs) if s.active}
+        cand = {i: s.gen for i, s in enumerate(self._seqs)
+                if s.active and not s.parked}
         last, table, pos, active, remaining, counts, _ = self._loop_state()
         (toks, self._last_dev, self._pos_dev, self._active_dev,
          self._remaining_dev, self._counts_dev) = self._step(
@@ -1949,7 +2799,8 @@ class PagedContinuousBatcher(_TracedBatcher):
         verify), chaining device state exactly like ``_dispatch_step``;
         its choices, emitted lengths and wrap flags come back packed in
         one int32 tensor, the iteration's only readback."""
-        cand = {i: s.gen for i, s in enumerate(self._seqs) if s.active}
+        cand = {i: s.gen for i, s in enumerate(self._seqs)
+                if s.active and not s.parked}
         last, table, pos, active, remaining, _, d_pos = self._loop_state()
         sampled = self.sampling and self._samples()
         if self.metrics is not None:

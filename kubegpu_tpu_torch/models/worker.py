@@ -37,15 +37,19 @@ instead (``gateway/dataplane.py``, the JAX replica's wire schema): it
 builds the batcher, warms every kernel and path it runs (the decode
 step or, with ``--speculate``, the draft scan and the verify; prefill,
 page scatter and gather), then prints ``REPLICA_HTTP_SERVING port=N
-serving=paged role=flex tls=0|1 seconds=S`` and serves ``POST
-/v1/submit`` (SSE), ``POST /v1/cancel``, ``GET /v1/state``, ``GET
-/healthz`` and ``GET /metrics`` until SIGTERM, when it prints
-``REPLICA_HTTP_STOPPED`` and exits 0.  ``--serve-http-tls-cert/-key``
-serve HTTPS, ``--serve-http-auth-token-file`` gates ``/v1/*`` behind a
-bearer token, ``--serve-http-step-delay`` slows the loop (a test knob).
+serving=paged role=R tls=0|1 seconds=S`` and serves ``POST /v1/submit``
+(SSE), ``POST /v1/cancel``, the migration verbs ``POST /v1/export``,
+``/v1/import`` and ``/v1/role``, ``GET /v1/state``, ``GET /healthz`` and
+``GET /metrics`` until SIGTERM, when it prints ``REPLICA_HTTP_STOPPED``
+and exits 0.  ``--role prefill|decode|flex`` is the replica's
+disaggregation role (``prefill`` parks each sequence at its seal for the
+gateway's handoff), ``--serve-http-fail-migration`` refuses every import
+(a chaos knob), ``--serve-http-tls-cert/-key`` serve HTTPS,
+``--serve-http-auth-token-file`` gates ``/v1/*`` behind a bearer token,
+``--serve-http-step-delay`` slows the loop (a test knob).
 
     python -m kubegpu_tpu_torch.models.worker --model decode --serving paged \\
-        --serve-http 0 [--speculate] [--kv-dtype int8]
+        --serve-http 0 [--role prefill] [--speculate] [--kv-dtype int8]
 
 ``--model lm`` trains ``TransformerLM`` (bf16 compute over float32
 weights drawn fresh from seed 0, nesterov SGD) on the JAX worker's
@@ -198,11 +202,23 @@ def build_parser() -> argparse.ArgumentParser:
                     "REPLICA_HTTP_SERVING) — POST /v1/submit streams "
                     "committed token batches as SSE, /v1/cancel frees pages, "
                     "/v1/state, /healthz and /metrics answer the gateway")
+    ap.add_argument("--role", choices=("prefill", "decode", "flex"),
+                    default="flex",
+                    help="--serve-http: this replica's role in a "
+                    "disaggregated fleet: 'prefill' parks sequences when "
+                    "their prompt pages seal (the gateway hands them off "
+                    "over /v1/export -> /v1/import), 'decode' advertises a "
+                    "handoff target, 'flex' serves both phases; POST "
+                    "/v1/role changes it at run time")
     ap.add_argument("--serve-http-step-delay", type=float, default=0.0,
                     metavar="S",
                     help="--serve-http: sleep this long between serving "
                     "iterations (0 = flat out); slows the loop so cancels "
                     "land provably mid-stream")
+    ap.add_argument("--serve-http-fail-migration", action="store_true",
+                    help="--serve-http: refuse POST /v1/import (a chaos "
+                    "knob: a refused import leaves both pools as they "
+                    "were)")
     ap.add_argument("--serve-http-tls-cert", default=None, metavar="PEM",
                     help="--serve-http: serve HTTPS with this certificate "
                     "(pair with --serve-http-tls-key)")
@@ -463,8 +479,9 @@ def serve_http(args: argparse.Namespace, t0: float) -> int:
     server = ReplicaServer(
         cb, listen=("0.0.0.0", args.serve_http), metrics=metrics,
         step_delay_s=args.serve_http_step_delay,
+        fail_migration=args.serve_http_fail_migration,
         tls_cert=args.serve_http_tls_cert, tls_key=args.serve_http_tls_key,
-        auth_token=auth_token,
+        auth_token=auth_token, role=args.role,
     ).start()
     print(f"REPLICA_HTTP_SERVING port={server.port} serving={args.serving} "
           f"role={server.loop.role} tls={int(server.tls)} "

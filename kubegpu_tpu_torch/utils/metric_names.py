@@ -7,8 +7,8 @@ help text, so dashboards read a torch replica exactly as a JAX one.
 ``inc(``/``observe(``/``set_gauge(``/``timer(`` string literals and
 fails on a name missing here, on a catalog entry no code emits, and on
 an entry that differs from the reference's.  The names of slices still
-to come (the int8 pool's quality gauges, migration, tensor-parallel
-collectives) arrive with those slices.
+to come (the int8 pool's quality gauges, tensor-parallel collectives)
+arrive with those slices.
 """
 
 from __future__ import annotations
@@ -51,6 +51,16 @@ CATALOG: Dict[str, MetricSpec] = {
     "replica_http_disconnect_cancels_total": _c(
         (), "sequences cancelled because their stream's client "
         "vanished mid-stream (disconnect ⇒ cancel; pages freed)"),
+    "replica_migrate_pages_total": _c(
+        ("dir",), "KV pages moved through the migration verbs by "
+        "direction (export: serialized out of this pool; import: "
+        "written into it)"),
+    "replica_migrate_seconds": _h(
+        ("dir",), "wall time of one export/import verb (serialize + "
+        "detach, or allocate + chain-replay + resume)"),
+    "replica_migrate_wire_bytes_total": _c(
+        ("dir",), "encoded transfer payload bytes through the "
+        "migration verbs by direction"),
     "replica_http_expired_refusals_total": _c(
         (), "admissions the replica refused because the remaining "
         "deadline the gateway shipped on the wire elapsed while the "
@@ -84,6 +94,11 @@ CATALOG: Dict[str, MetricSpec] = {
     "serve_decode_pages_sealed_total": _c(
         (), "decode-produced pages sealed into the prefix cache at "
         "retirement"),
+    "serve_handoff_pages_reclaimed_total": _c(
+        (), "prompt pages freed EARLY on a parked prefill replica — "
+        "acked by the decode side's staged deltas, released before the "
+        "final handoff roundtrip (each reclaim raises prefill admission "
+        "headroom mid-schedule)"),
     "serve_kv_quant_seal_requants_total": _c(
         (), "pool pages run through seal-time requantization before "
         "entering the shared prefix chain (int8 pool: stretch int8 "

@@ -5,8 +5,10 @@ auth, TLS, a JAX gateway over one JAX and one torch replica serving the
 in-memory JAX data plane's streams, wire cancel and disconnect freeing
 pages, shed-before-work, trace trees across the wire, ``/v1/state``
 parity with a JAX replica, sampled and seed-pinned requests streaming a
-JAX replica's tokens, the refusals of a later slice (migration verbs:
-501), a batcher failure ending the streams, and the worker subprocess.  Tiny fp32 replicas on the CPU, as in
+JAX replica's tokens, the migration routes answering (export, import,
+role; tests/test_torch_migration_http.py holds them against the JAX
+package), a batcher failure ending the streams, and the worker
+subprocess.  Tiny fp32 replicas on the CPU, as in
 tests/test_http_data_plane.py; every wait is a bounded poll."""
 
 import http.client
@@ -49,8 +51,6 @@ from kubegpu_tpu_torch.utils.metrics import Metrics
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TINY = dict(vocab_size=61, num_layers=1, num_heads=2, hidden=16, max_seq=48)
 PAGED_KW = dict(slots=3, prompt_pad=12, page_size=4, pool_pages=32)
-MIGRATION_STATS = ("pages_exported", "pages_imported", "imports",
-                   "pages_reclaimed")
 TIMING = ("t", "host_ms", "device_ms")
 
 
@@ -346,8 +346,6 @@ def test_both_replicas_stream_alike_and_report_equal_state(jax_params,
         client.stop()
         jsrv.stop()
         tsrv.stop()
-    for k in MIGRATION_STATS:
-        want["stats"].pop(k)
     ledger_w, ledger_g = want.pop("ledger"), got.pop("ledger")
     assert got == want
     assert sum(got["prefix_cache"]["hit_tokens"].values()) > 0
@@ -541,8 +539,6 @@ def test_sampled_request_streams_the_jax_replicas_tokens(
         assert r.status == "ok", (kind, r.status, r.error)
         assert len(r.tokens) == budget
     assert results["torch"].tokens == results["jax"].tokens
-    for k in MIGRATION_STATS:
-        states["jax"]["stats"].pop(k)
     for state in states.values():
         state.pop("ledger", None)
     assert states["torch"] == states["jax"]
@@ -554,23 +550,53 @@ def test_sampled_request_streams_the_jax_replicas_tokens(
 
 
 # ---------------------------------------------------------------------------
-# refusals of a later slice, and failures
+# the migration routes, and failures
 # ---------------------------------------------------------------------------
 
 
 @pytest.mark.parametrize("verb", ["export", "import", "role"])
-def test_migration_verbs_answer_501(torch_params, verb):
-    srv = ReplicaServer(_torch_cb(torch_params)).start()
+def test_migration_routes_answer(torch_params, verb):
+    """The migration verbs serve: a live export detaches its stream
+    (``migrated``) and returns the payload, a live import streams the
+    continuation of that payload, the role flips; each refuses a
+    malformed body with a 4xx and the connection keeps working."""
+    src = ReplicaServer(_torch_cb(torch_params), step_delay_s=0.02).start()
+    dst = ReplicaServer(_torch_cb(torch_params)).start()
+    client = HttpReplicaClient(endpoints={"src": src.endpoint})
+    prompt, budget = np.array([4, 9, 16, 25, 36], np.int32), 14
+    want = _torch_cb(torch_params).run([prompt], [budget])[0]
     try:
-        status, body = _post(srv, f"/v1/{verb}", {"request_id": "x",
-                                                   "role": "prefill"})
-        assert status == 501
-        assert "migration slice" in body["error"]
-        assert json.loads(_get(srv, "/v1/state")[1])["role"] == "flex"
-        # the connection-level protocol still works after the refusal
-        assert _get(srv, "/healthz") == (200, "ok")
+        if verb == "role":
+            status, body = _post(src, "/v1/role", {"role": "prefill"})
+            assert (status, body) == (200, {"role": "prefill"})
+            assert json.loads(_get(src, "/v1/state")[1])["role"] == "prefill"
+            assert _post(src, "/v1/role", {"role": "x"})[0] == 400
+            assert _post(src, "/v1/role", {"role": "flex"})[1] == {
+                "role": "flex"}
+        else:
+            a = client.submit("src", _req("m", prompt, budget))
+            _wait(lambda: len(src.loop.control(
+                lambda: src.batcher.live_tokens()).get(0, [])) >= 2,
+                msg="tokens before the export")
+            status, body = _post(src, "/v1/export", {"request_id": "m"})
+            assert status == 200 and body["payload"]["kind"] == "live"
+            assert a.wait(30) and not a.result().ok
+            assert "migrated" in a.result().error
+            assert _post(src, "/v1/export", {"request_id": "m"})[0] == 404
+            if verb == "import":
+                status, events = _post(dst, "/v1/import", {
+                    "request_id": "m", "payload": body["payload"]})
+                assert status == 200 and events[-1][0] == "done"
+                assert events[-1][1]["tokens"] == want
+                assert _post(dst, "/v1/import", {"request_id": "m"})[0] \
+                    == 400
+        assert _get(src, "/healthz") == (200, "ok")
     finally:
-        srv.stop()
+        client.stop()
+        src.stop()
+        dst.stop()
+    src.batcher.assert_page_accounting()
+    dst.batcher.assert_page_accounting()
 
 
 def test_a_batcher_error_ends_every_stream(torch_params):

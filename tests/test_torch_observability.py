@@ -58,6 +58,11 @@ WANT_NAMES = {
     # and draft ring report
     "serve_station_slots_busy", "serve_kv_quant_seal_requants_total",
     "serve_draft_cache_rows", "serve_draft_ring_bytes",
+    # the migration verbs' series (gateway/dataplane.py) and the streamed
+    # handoff's early reclaim (models/paging.py)
+    "replica_migrate_pages_total", "replica_migrate_seconds",
+    "replica_migrate_wire_bytes_total",
+    "serve_handoff_pages_reclaimed_total",
 }
 
 

@@ -204,18 +204,49 @@ def test_pool_too_small_for_a_request_is_refused(torch_params):
 
 
 @pytest.mark.parametrize("knob, slice_name", [
-    # sampling and sampled speculation serve (tests/test_torch_spec_
-    # sampled.py); a later slice's knob refuses with them or without
+    # sampling, sampled speculation (tests/test_torch_spec_sampled.py) and
+    # prefill-only serving (tests/test_torch_disaggregation.py) serve; a
+    # later slice's knob refuses with them or without
     (dict(mesh=object()), "tensor-parallel"),
-    (dict(prefill_only=True), "migration"),
+    (dict(mesh=object(), prefill_only=True), "tensor-parallel"),
     (dict(mesh=object(), sampling=True, top_k=5), "tensor-parallel"),
-    (dict(prefill_only=True, speculate_k=2, sampling=True), "migration"),
-    (dict(prefill_only=True, top_k=5), "migration"),
+    (dict(mesh=object(), prefill_only=True, speculate_k=2, sampling=True),
+     "tensor-parallel"),
+    (dict(mesh=object(), prefill_only=True, top_k=5), "tensor-parallel"),
 ])
 def test_knobs_of_later_slices_are_refused(torch_params, knob, slice_name):
     with pytest.raises(NotImplementedError, match=slice_name):
         PagedContinuousBatcher(torch_params, dtype=torch.float32,
                                device="cpu", **CFG, **BATCHER_KW, **knob)
+
+
+@pytest.mark.parametrize("knob", [
+    dict(prefill_only=True),
+    dict(prefill_only=True, top_k=5),
+    dict(prefill_only=True, speculate_k=2, sampling=True),
+])
+def test_prefill_only_serves(torch_params, knob):
+    """``prefill_only`` no longer refuses: a request parks at its seal
+    with zero tokens, is announced once, and unparks locally."""
+    if "speculate_k" in knob:
+        knob = dict(knob, draft_params=torch_params,
+                    draft_num_layers=CFG["num_layers"],
+                    draft_num_heads=CFG["num_heads"],
+                    draft_hidden=CFG["hidden"])
+    tb = PagedContinuousBatcher(torch_params, dtype=torch.float32,
+                                device="cpu", **CFG, **BATCHER_KW, **knob)
+    tb.submit(0, np.arange(1, 6, dtype=np.int32), 4)
+    sealed = []
+    for _ in range(20):
+        tb.serve_step()
+        sealed += tb.drain_sealed()
+    assert sealed == [0] and tb.live_tokens() == {0: []}
+    assert tb.set_prefill_only(False)
+    out = {}
+    while tb.has_work():
+        out.update(tb.serve_step())
+    assert len(out[0]) == 4
+    tb.assert_page_accounting()
 
 
 @pytest.mark.parametrize("knob", ["metrics", "tracer", "ledger_size"])
