@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Builds every kernel of the port's serving and training paths from the
-sources in the checkout, then runs twenty-eight phases; any failure exits
+sources in the checkout, then runs thirty-four phases; any failure exits
 non-zero:
 
 1. device: the card's name and power limit, TF32 off;
@@ -173,7 +173,43 @@ non-zero:
    /v1/import`` on B, whose SSE continuation completes the budget; then
    ``POST /v1/role`` prefill on A and a streamed handoff (deltas while A
    prefills, ``reclaim``, the final export from the cursor into B);
-   export and import ms a page and the wire's MB/s.
+   export and import ms a page and the wire's MB/s;
+29. ``samples/jax-decode.yaml``'s decode replica (the 1.08B flagship, 8
+   prompts of 128 tokens, 256 steps, ``--seq 1023``) through the
+   worker's default mode, ``static``, in a subprocess, bf16 and then
+   ``--int8``: ``FIRST_DECODE_DONE``, tokens/s, ms a call and peak device
+   memory; the worker's launch counts of K1-K5 are all 0;
+30. bench.py's ``_serving_traffic`` (the flagship, 8 slots, prompt_pad
+   128, max_seq 512, 16 prompts of 16-127 tokens, budgets 32/64/96/256)
+   through the port's ``ContinuousBatcher`` in bf16: tokens, steps,
+   admits and the static batches' step count (``serving_continuous_
+   batching``), tokens/s and TTFT; then through the paged batcher (page
+   128, 25 pages): tokens/s, peak pages and cache bytes against the
+   dense cache's, and the bf16 agreement of the two, with the card's
+   dense top-2 margin at each first divergence (within 0.125);
+31. ``serving_prefill_latency`` part (a) at full width (6 slots,
+   prompt_pad 256, chunk 64, 4 runners, 8 long admits): the runners'
+   ITL p95 chunked against monolithic (min of 3 interleaved waves; a
+   warning, not a failure, when chunked is not below) and TTFT p95;
+32. the speculative batcher (k 4, the worker's fresh 1-layer draft of
+   hidden 1024 from seed 7) against the dense batcher on the
+   reference's 16 prompts of 16-63 tokens (budgets 32/64/96/192, 8
+   slots, prompt_pad 64): the step ratio, tokens/s and the bf16
+   agreement; at float32 equal token for token but for printed
+   near-ties (the CPU rule's 1e-3 on the card's dense model), the
+   reference's ``spec_serving_match_dense`` gate;
+33. phase 6's model and traffic at float32, card against CPU, through
+   ``ContinuousBatcher`` (chunked, monolithic, under a token budget)
+   and ``SpeculativeContinuousBatcher``, greedy and seed-pinned sampled,
+   under phases 6 and 25's near-tie rules;
+34. the worker at its defaults with ``--serving continuous`` and
+   ``--serving speculative --spec-k 8`` waves, then ``--serving
+   continuous --serve-http 0`` in a subprocess: four streamed requests,
+   a wire cancel, ``/v1/state`` and the export route answering as the
+   JAX dense replica does.
+
+Phases 29-34 set every kernel's launch count to 0 before each dense run
+and require it to be 0 after: the dense paths run none of K1-K5.
 
 The line before the last is the per-kernel JSON record, and the line
 before that the card's name and power limit again; the last line is
@@ -629,7 +665,7 @@ def run_wave(label: str, argv) -> tuple:
 
 
 # the worker at its defaults: 8 heads of 64, pages of 32, 32 slots
-DEFAULT_ARGV = ["--model", "decode"]
+DEFAULT_ARGV = ["--model", "decode", "--serving", "paged"]
 
 
 def phase_flagship(int8: bool = False, base=FLAGSHIP_ARGV,
@@ -1211,7 +1247,7 @@ def phase_http_worker() -> dict:
     import threading
 
     cmd = [sys.executable, "-m", "kubegpu_tpu_torch.models.worker",
-           "--model", "decode", "--serve-http", "0"]
+           "--model", "decode", "--serving", "paged", "--serve-http", "0"]
     root = os.path.dirname(os.path.abspath(__file__))
     t0 = time.monotonic()
     proc = subprocess.Popen(cmd, cwd=root, stdout=subprocess.PIPE,
@@ -2629,6 +2665,547 @@ def phase_train_card_vs_cpu() -> None:
         f"diffs {np.abs(ein_l - card_l).tolist()}")
 
 
+# -- the dense serving slice (phases 29-34) ------------------------------------
+
+# samples/jax-decode.yaml's decode replica (its --serve and --ckpt-dir
+# dropped: one timed run on fresh weights); no --serving, so the
+# worker's default, static, serves it
+DECODE_SAMPLE_ARGV = ["--model=decode", "--batch-per-chip=8",
+                      "--prompt-len=128", "--steps=256", "--vocab=32768",
+                      "--layers=4", "--heads=32", "--hidden=4096",
+                      "--seq=1023"]
+# bench.py's _serving_traffic (:977-1011): the flagship, 8 slots,
+# prompt_pad 128, max_seq 512
+SERVING_CFG = dict(vocab_size=32768, num_layers=4, num_heads=32,
+                   hidden=4096, max_seq=512)
+FLAGSHIP_DRAFT = dict(vocab_size=32768, num_layers=1, hidden=1024,
+                      max_seq=512)
+DRAFT_DIMS = dict(draft_num_layers=1, draft_num_heads=8, draft_hidden=1024)
+# the top-2 margin within which the card's bf16 dense model calls a
+# divergence a near-tie (phase 26's rule)
+BF16_NEAR_TIE = 0.125
+
+
+def kernel_counts() -> dict:
+    """Every kernel wrapper of the port by ID (the worker's K1-K5) and
+    the backward's pre-pass."""
+    from kubegpu_tpu_torch.models.worker import kernel_counters
+    from kubegpu_tpu_torch.ops.attention import flash_backward_delta
+
+    return dict(kernel_counters(), DELTA=(flash_backward_delta, "launches"))
+
+
+def zero_counts() -> None:
+    for fn, attr in kernel_counts().values():
+        setattr(fn, attr, 0)
+
+
+def assert_no_kernel(label: str) -> None:
+    """The dense paths run none of K1-K5: every count set to 0 before
+    the run is 0 after it."""
+    counts = {k: getattr(fn, a) for k, (fn, a) in kernel_counts().items()}
+    log(f"{label}: kernel launches {counts}")
+    assert not any(counts.values()), (label, counts)
+
+
+def run_worker_lines(argv: list, timeout: float = 600) -> dict:
+    """The worker's entry point in a subprocess; returns its output lines
+    keyed by their first word (the process is killed on a timeout)."""
+    import os
+
+    cmd = [sys.executable, "-m", "kubegpu_tpu_torch.models.worker", *argv]
+    proc = subprocess.Popen(cmd, cwd=os.path.dirname(os.path.abspath(
+        __file__)), stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True)
+    try:
+        out, _ = proc.communicate(timeout=timeout)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+    assert proc.returncode == 0, out[-3000:]
+    return {line.split()[0]: line for line in out.splitlines() if line}
+
+
+def fields(line: str) -> dict:
+    return dict(f.split("=", 1) for f in line.split()[1:] if "=" in f)
+
+
+def phase_static_sample() -> dict:
+    """Phase 29: samples/jax-decode.yaml's replica through the worker's
+    default mode, static, in a subprocess: bf16, then int8 weights."""
+    results = {}
+    for label, extra in (("bf16", []), ("int8 weights", ["--int8"])):
+        zero_counts()
+        lines = run_worker_lines(DECODE_SAMPLE_ARGV + extra)
+        assert_no_kernel(f"static {label} (this process)")
+        first = fields(lines["FIRST_DECODE_DONE"])
+        done = fields(lines["DECODE_DONE"])
+        launches = fields(lines["KERNEL_LAUNCHES"])
+        assert launches.pop("serving") == "static", lines["KERNEL_LAUNCHES"]
+        launches.pop("device")
+        assert set(launches.values()) == {"0"}, launches
+        peak = lines["PEAK_MEM_GIB"].split()[1]
+        if extra:
+            assert "SERVING_INT8" in lines
+        log(f"static decode sample, {label} (8 x 128-token prompts, 256 "
+            f"steps, 1.08B): first call done {first['seconds']} s after "
+            f"the launch; {done['tokens_per_sec']} tokens/s, "
+            f"{done['ms_per_call']} ms a call "
+            f"({float(done['ms_per_call']) / 256:.3f} ms a step); peak "
+            f"device memory {peak} GiB; worker kernel launches {launches}")
+        results[label] = dict(tok_s=float(done["tokens_per_sec"]),
+                              ms_call=float(done["ms_per_call"]),
+                              peak_gib=float(peak))
+    return results
+
+
+def serving_traffic():
+    """bench.py's _serving_traffic recipe: 16 prompts of 16-127 tokens
+    from RandomState(0), budgets 32/64/96/256."""
+    import numpy as np
+
+    rs = np.random.RandomState(0)
+    budgets = [(32, 64, 96, 256)[i % 4] for i in range(16)]
+    prompts = [rs.randint(0, SERVING_CFG["vocab_size"],
+                          size=rs.randint(16, 128)).astype(np.int32)
+               for _ in budgets]
+    return prompts, budgets
+
+
+def agreement(label: str, params, cfg: dict, dtype, prompts, ref: dict,
+              other: dict, limit: float) -> tuple:
+    """Tokens of ``other`` agreeing with ``ref`` before each request's
+    first difference, and the card's dense top-2 margin there (each
+    printed; the margin must be within ``limit``)."""
+    agree = total = 0
+    margins = []
+
+    def margin(toks):
+        margins.append(dense_margin(params, cfg, dtype, toks, "cuda"))
+        return margins[-1]
+
+    for i in sorted(ref):
+        total += len(ref[i])
+        agree += same_or_near_tie(f"{label} request {i}", other[i], ref[i],
+                                  prompts[i], margin, limit)
+    return agree, total, margins
+
+
+def timed_run(cb, prompts, budgets) -> tuple:
+    """A warm-up pass, then the timed one: (outputs, seconds)."""
+    import torch
+
+    cb.run(prompts[:cb.slots], [2] * min(len(prompts), cb.slots))
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    out = cb.run(prompts, budgets)
+    torch.cuda.synchronize()
+    return out, time.monotonic() - t0
+
+
+def phase_dense_serving() -> dict:
+    """Phase 30: bench.py's serving_continuous_batching and serving_paged
+    rows at full width in bf16: the same traffic through the port's
+    ContinuousBatcher, against static batching's step count and the
+    paged batcher."""
+    import numpy as np
+    import torch
+
+    from kubegpu_tpu_torch.models.paging import PagedContinuousBatcher
+    from kubegpu_tpu_torch.models.serving import ContinuousBatcher
+    from kubegpu_tpu_torch.models.worker import cache_bytes
+
+    prompts, budgets = serving_traffic()
+    params = fresh_params(SERVING_CFG, torch.bfloat16)
+    kw = dict(SERVING_CFG, slots=8, prompt_pad=128, dtype=torch.bfloat16,
+              device="cuda")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cb = ContinuousBatcher(params, **kw)
+    zero_counts()
+    dense, dense_s = timed_run(cb, prompts, budgets)
+    assert_no_kernel("continuous batching")
+    dense_peak = torch.cuda.max_memory_allocated()
+    total = sum(len(v) for v in dense.values())
+    assert total == sum(budgets)
+    assert all(0 <= t < SERVING_CFG["vocab_size"]
+               for v in dense.values() for t in v)
+    static_steps = sum(max(budgets[i:i + 8]) for i in range(0, 16, 8))
+    ttft = sorted(cb.first_token_s.values())
+    st = dict(cb.stats)
+    log(f"continuous batching (1.08B bf16, 8 slots, 16 prompts, budgets "
+        f"32..256, chunk {cb.prefill_chunk}): {total} tokens in "
+        f"{st['steps']} steps + {st['admits']} admits ({st['prefill_chunks']} "
+        f"chunks) vs {static_steps} static-batch steps -> "
+        f"{static_steps / st['steps']:.3f}x step efficiency; {dense_s:.3f} s "
+        f"-> {total / dense_s:.1f} tok/s, {dense_s / st['steps'] * 1e3:.3f} "
+        f"ms a step; TTFT mean {np.mean(ttft) * 1e3:.1f} ms max "
+        f"{ttft[-1] * 1e3:.1f} ms; dense cache {cache_bytes(cb) / 2**20:.1f} "
+        f"MiB; peak device memory {dense_peak / 2**30:.2f} GiB")
+    dense_bytes = cache_bytes(cb)
+    del cb
+    torch.cuda.empty_cache()
+    pb = PagedContinuousBatcher(params, **kw, page_size=128, pool_pages=25)
+    paged, paged_s = timed_run(pb, prompts, budgets)
+    pt = dict(pb.stats)
+    paged_bytes = cache_bytes(pb)
+    log(f"paged continuous batching (page 128, pool 25 pages): {total} "
+        f"tokens in {pt['steps']} steps + {pt['admits']} admits, peak "
+        f"{pt['peak_pages']} pages; {paged_s:.3f} s -> "
+        f"{total / paged_s:.1f} tok/s, {paged_s / pt['steps'] * 1e3:.3f} ms "
+        f"a step; cache {paged_bytes / 2**20:.1f} MiB vs dense "
+        f"{dense_bytes / 2**20:.1f} MiB ({dense_bytes / paged_bytes:.2f}x)")
+    del pb
+    torch.cuda.empty_cache()
+    agree, n, margins = agreement(
+        "bf16 paged vs dense", params, SERVING_CFG, torch.bfloat16, prompts,
+        dense, paged, BF16_NEAR_TIE)
+    log(f"bf16 paged vs dense streams: {agree}/{n} tokens agree before any "
+        f"divergence ({agree / n:.4f}); margins at first divergence "
+        f"{['%.3e' % m for m in margins]}")
+    return dict(tok_s=total / dense_s, steps=st["steps"],
+                static_steps=static_steps, paged_tok_s=total / paged_s,
+                ms_step=dense_s / st["steps"] * 1e3,
+                paged_ms_step=paged_s / pt["steps"] * 1e3)
+
+
+def phase_prefill_itl() -> dict:
+    """Phase 31: bench.py's serving_prefill_latency part (a) at full
+    width: 4 runners decode while 8 prompt_pad-long prompts arrive;
+    the runners' ITL p95, chunked (64) against monolithic, min of 3
+    interleaved waves a mode on warm batchers."""
+    import numpy as np
+    import torch
+
+    from kubegpu_tpu_torch.models.serving import ContinuousBatcher
+    from kubegpu_tpu_torch.utils.metrics import Metrics
+
+    vocab, prompt_pad, chunk = 32768, 256, 64
+    params = fresh_params(SERVING_CFG, torch.bfloat16)
+    cfg = dict(SERVING_CFG, slots=6, prompt_pad=prompt_pad,
+               dtype=torch.bfloat16, device="cuda")
+    rs = np.random.RandomState(0)
+    runner_budget, n_long, long_budget = 64, 8, 4
+
+    def build(prefill_chunk):
+        cb = ContinuousBatcher(params, prefill_chunk=prefill_chunk, **cfg)
+        cb.submit(90, rs.randint(0, vocab, size=prompt_pad).astype(
+            np.int32), 2)
+        while cb.has_work():
+            cb.serve_step()
+        cb.attach_metrics(Metrics())
+        return cb
+
+    waves = [0]
+
+    def itl_wave(cb):
+        base = 1000 * waves[0]
+        waves[0] += 1
+        runners = [base + i for i in range(4)]
+        for rid in runners:
+            cb.submit(rid, rs.randint(0, vocab, size=16).astype(np.int32),
+                      runner_budget)
+
+        def by_id():
+            return {s.seq_id: s for s in cb._slots if s.seq_id >= 0}
+
+        while not all(rid in by_id() and by_id()[rid].tokens
+                      for rid in runners):
+            cb.serve_step()
+        counts = {rid: len(by_id()[rid].tokens) for rid in runners}
+        now = time.perf_counter()
+        last = {rid: now for rid in runners}
+        long_ids = set()
+        for j in range(n_long):
+            long_ids.add(base + 100 + j)
+            cb.submit(base + 100 + j, rs.randint(
+                0, vocab, size=prompt_pad).astype(np.int32), long_budget)
+        gaps, done = [], {}
+        while not long_ids <= set(done):
+            done.update(cb.serve_step())
+            now = time.perf_counter()
+            sl = by_id()
+            for rid in runners:
+                s = sl.get(rid)
+                if s is not None and len(s.tokens) > counts[rid]:
+                    gaps.append(now - last[rid])
+                    last[rid] = now
+                    counts[rid] = len(s.tokens)
+        while cb.has_work():
+            cb.serve_step()
+        gaps.sort()
+        return gaps[min(len(gaps) - 1, int(0.95 * len(gaps)))]
+
+    zero_counts()
+    mono_cb, chunk_cb = build(None), build(chunk)
+    mono, chunked = [], []
+    for w in range(3):
+        order = ((mono_cb, mono), (chunk_cb, chunked))
+        for cb, out in (order if w % 2 == 0 else order[::-1]):
+            out.append(itl_wave(cb))
+    assert_no_kernel("chunked and monolithic prefill")
+    itl_mono, itl_chunk = min(mono), min(chunked)
+    ttft_p95 = chunk_cb.metrics.quantile("serve_ttft_seconds", 0.95)
+    mono_ttft_p95 = mono_cb.metrics.quantile("serve_ttft_seconds", 0.95)
+    log(f"serving ITL under long-prompt admits (1.08B bf16, 6 slots, "
+        f"prompt_pad {prompt_pad}, chunk {chunk}): runners' ITL p95 "
+        f"{itl_chunk * 1e3:.2f} ms chunked vs {itl_mono * 1e3:.2f} ms "
+        f"monolithic ({itl_mono / itl_chunk:.2f}x); waves "
+        f"{['%.2f' % (x * 1e3) for x in chunked]} vs "
+        f"{['%.2f' % (x * 1e3) for x in mono]} ms; "
+        f"{chunk_cb.stats['prefill_chunks']} chunks; TTFT p95 "
+        f"{ttft_p95 * 1e3:.1f} ms chunked, {mono_ttft_p95 * 1e3:.1f} ms "
+        f"monolithic")
+    if itl_chunk >= itl_mono:
+        log("serving ITL WARNING: chunked p95 not below monolithic")
+    del mono_cb, chunk_cb
+    torch.cuda.empty_cache()
+    return dict(itl_chunk_ms=itl_chunk * 1e3, itl_mono_ms=itl_mono * 1e3,
+                ttft_p95_ms=ttft_p95 * 1e3)
+
+
+def phase_spec_serving() -> dict:
+    """Phase 32: bench.py's speculative serving rows (:866-975) at full
+    width with the worker's fresh draft (1 layer, hidden 1024, seed 7),
+    k 4: the step ratio and tokens/s against the dense batcher and the
+    bf16 agreement; at float32 the reference's gate, speculative equal
+    to dense but for printed near-ties."""
+    import numpy as np
+    import torch
+
+    from kubegpu_tpu_torch.models.serving import ContinuousBatcher
+    from kubegpu_tpu_torch.models.spec_serving import (
+        SpeculativeContinuousBatcher,
+    )
+
+    rs = np.random.RandomState(1)
+    budgets = [(32, 64, 96, 192)[i % 4] for i in range(16)]
+    prompts = [rs.randint(0, SERVING_CFG["vocab_size"],
+                          size=rs.randint(16, 64)).astype(np.int32)
+               for _ in budgets]
+    out = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        name = str(dtype).replace("torch.", "")
+        params = fresh_params(SERVING_CFG, dtype)
+        dparams = fresh_params(FLAGSHIP_DRAFT, dtype, seed=7)
+        kw = dict(SERVING_CFG, slots=8, prompt_pad=64, dtype=dtype,
+                  device="cuda")
+        zero_counts()
+        dense_cb = ContinuousBatcher(params, **kw)
+        dense, dense_s = timed_run(dense_cb, prompts, budgets)
+        dense_steps = dense_cb.stats["steps"]
+        del dense_cb
+        spec_cb = SpeculativeContinuousBatcher(params, dparams, k=SPEC_K,
+                                               **DRAFT_DIMS, **kw)
+        spec, spec_s = timed_run(spec_cb, prompts, budgets)
+        st = dict(spec_cb.stats)
+        del spec_cb
+        torch.cuda.empty_cache()
+        assert_no_kernel(f"{name} dense and speculative batchers")
+        n = sum(len(v) for v in dense.values())
+        assert n == sum(budgets) == sum(len(v) for v in spec.values())
+        log(f"{name} speculative serving (k {SPEC_K}, fresh 1-layer draft): "
+            f"{n} tokens in {st['steps']} verify steps vs dense "
+            f"{dense_steps} steps ({dense_steps / st['steps']:.3f}x fewer); "
+            f"{spec_s:.3f} s ({n / spec_s:.1f} tok/s, "
+            f"{spec_s / st['steps'] * 1e3:.3f} ms a verify) vs dense "
+            f"{dense_s:.3f} s ({n / dense_s:.1f} tok/s)")
+        limit = BF16_NEAR_TIE if dtype == torch.bfloat16 else NEAR_TIE_MARGIN
+        agree, total, margins = agreement(
+            f"{name} speculative vs dense", params, SERVING_CFG, dtype,
+            prompts, dense, spec, limit)
+        log(f"{name} speculative vs dense streams: {agree}/{total} tokens "
+            f"agree before any divergence ({agree / total:.4f}); margins "
+            f"{['%.3e' % m for m in margins]}")
+        out[name] = dict(ratio=dense_steps / st["steps"], tok_s=n / spec_s,
+                         dense_tok_s=n / dense_s, agree=agree / total)
+        del params, dparams
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_dense_card_vs_cpu(ctx: dict) -> None:
+    """Phase 33: phase 6's model and traffic at float32, card against
+    CPU, through ContinuousBatcher (chunked, monolithic, under a token
+    budget) and SpeculativeContinuousBatcher (phase 7's hopeless draft,
+    k 4), greedy and seed-pinned sampled."""
+    import torch
+
+    from kubegpu_tpu_torch.models.decoding import DecodeLM
+    from kubegpu_tpu_torch.models.params import bind_params, init_params
+    from kubegpu_tpu_torch.models.serving import ContinuousBatcher
+    from kubegpu_tpu_torch.models.spec_serving import (
+        SpeculativeContinuousBatcher,
+    )
+
+    cfg, n = ctx["cfg"], len(ctx["prompts"])
+    temps = [0.8, 1.0, 0.7, 1.2, 0.9, 0.6, 1.1, 0.8][:n]
+    seeds = [100 + i for i in range(n)]
+    d_cfg = dict(vocab_size=cfg["vocab_size"], num_layers=1, hidden=64,
+                 max_seq=cfg["max_seq"])
+    dparams = init_params(d_cfg, torch.Generator().manual_seed(5),
+                          torch.float32, "cpu")
+    draft = bind_params(DecodeLM(num_heads=2, dtype=torch.float32, **d_cfg),
+                        dparams)
+    base = dict(cfg, slots=4, prompt_pad=32, dtype=torch.float32)
+    configs = (
+        ("chunked 8", ContinuousBatcher, dict(prefill_chunk=8)),
+        ("monolithic", ContinuousBatcher, dict(prefill_chunk=None)),
+        ("chunked 8, budget 12", ContinuousBatcher,
+         dict(prefill_chunk=8, token_budget=12)),
+        ("speculative k 4", SpeculativeContinuousBatcher,
+         dict(k=SPEC_K, draft_num_layers=1, draft_num_heads=2,
+              draft_hidden=64)),
+    )
+    for name, cls, kw in configs:
+        spec = cls is SpeculativeContinuousBatcher
+        args = (ctx["params"], dparams) if spec else (ctx["params"],)
+        for sampled in (False, True):
+            streams = {}
+            for d in ("cpu", "cuda"):
+                zero_counts()
+                cb = cls(*args, device=d, **base, **kw,
+                         **(dict(sampling=True) if spec and sampled else {}))
+                run_kw = (dict(temperatures=temps, seeds=seeds) if sampled
+                          else {})
+                streams[d] = cb.run(ctx["prompts"], ctx["budgets"], **run_kw)
+                assert_no_kernel(f"{name} on {d}")
+            if sampled:
+                agree, total, ties = sampled_agreement(
+                    f"sampled dense {name} card and cpu", ctx,
+                    streams["cpu"], streams["cuda"], temps, seeds,
+                    draft if spec else None)
+                log(f"sampled dense {name} card vs cpu (fp32, "
+                    f"seed-pinned): {agree}/{total} tokens agree before any "
+                    f"divergence, {ties} near-ties")
+            else:
+                agree, total = near_tie_agreement(
+                    f"dense {name} card and cpu", cfg, ctx["dense"],
+                    ctx["prompts"], streams["cpu"], streams["cuda"])
+                log(f"dense {name} card vs cpu (fp32): {agree}/{total} "
+                    "tokens agree before any near-tie divergence")
+                if name == "chunked 8":
+                    # the dense and paged batchers serve one model
+                    a2, t2 = near_tie_agreement(
+                        "dense and paged on the card", cfg, ctx["dense"],
+                        ctx["prompts"], ctx["card"], streams["cuda"])
+                    log(f"dense vs paged card streams (fp32): {a2}/{t2} "
+                        "tokens agree before any near-tie divergence")
+    torch.cuda.empty_cache()
+
+
+def phase_dense_worker() -> dict:
+    """Phase 34: the worker at its defaults in the dense modes: a
+    ``--serving continuous`` and a ``--serving speculative --spec-k 8``
+    wave in process, then ``--serving continuous --serve-http 0`` in a
+    subprocess: streamed requests, a wire cancel, ``/v1/state`` and the
+    migration routes answering as the JAX dense replica answers."""
+    import os
+    import queue
+    import signal
+    import threading
+
+    import torch
+
+    from kubegpu_tpu_torch.models import worker
+
+    for serving, extra in (("continuous", []),
+                           ("speculative", ["--spec-k", str(DEFAULT_SPEC_K)])):
+        args = worker.build_parser().parse_args(
+            ["--model", "decode", "--serving", serving] + extra)
+        zero_counts()
+        r = worker.run_decode(args)
+        assert_no_kernel(f"worker --serving {serving} at its defaults")
+        check_wave(r, args)
+        log(f"worker --serving {serving} {' '.join(extra)} at its "
+            f"defaults: {r['requests']} requests, {r['tokens']} tokens in "
+            f"{r['wave_s']:.3f} s -> {r['tokens_per_sec']:.1f} tok/s; "
+            f"{r['steps']} steps, {r['admits']} admits; cache "
+            f"{r['cache_bytes'] / 2**20:.1f} MiB")
+        torch.cuda.empty_cache()
+    cmd = [sys.executable, "-m", "kubegpu_tpu_torch.models.worker",
+           "--model", "decode", "--serving", "continuous", "--serve-http",
+           "0", "--serve-http-step-delay", "0.01"]
+    t0 = time.monotonic()
+    proc = subprocess.Popen(cmd, cwd=os.path.dirname(os.path.abspath(
+        __file__)), stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True)
+    lines: "queue.Queue" = queue.Queue()
+    out = []
+
+    def pump():
+        for line in proc.stdout:
+            lines.put(line)
+        lines.put(None)
+
+    threading.Thread(target=pump, daemon=True).start()
+    try:
+        deadline = t0 + 300
+        while True:
+            line = lines.get(timeout=max(0.0, deadline - time.monotonic()))
+            assert line is not None, f"worker exited {proc.wait()}: {out}"
+            out.append(line.rstrip())
+            if line.startswith("REPLICA_HTTP_SERVING"):
+                break
+        up_s = time.monotonic() - t0
+        port = int(fields(line)["port"])
+        assert fields(line)["serving"] == "continuous"
+        bodies = [{"request_id": f"d{i}", "prompt": [5 + i, 6, 7, 8],
+                   "max_new_tokens": 8 + 4 * i} for i in range(4)]
+        got, wall = post_concurrently(port, bodies)
+        streams, ttfts = check_streams(got, [b["max_new_tokens"]
+                                             for b in bodies])
+        # a long request cancelled over the wire after two token events
+        seen = []
+        cancelled = {}
+
+        def on_event(ev, payload):
+            seen.append(ev)
+            if seen.count("tokens") == 2 and not cancelled:
+                cancelled.update(sse_request(port, "/v1/cancel", {
+                    "request_id": "long"})[0][1])
+
+        events = sse_request(port, "/v1/submit", {
+            "request_id": "long", "prompt": [1, 2, 3],
+            "max_new_tokens": 900}, on_event=on_event)
+        assert cancelled == {"cancelled": True}, cancelled
+        assert events[-1][0] == "error", events[-1][:2]
+        state = json.loads(http_get(port, "/v1/state"))
+        deadline = time.monotonic() + 30
+        while state["active_streams"] and time.monotonic() < deadline:
+            time.sleep(0.05)
+            state = json.loads(http_get(port, "/v1/state"))
+        assert state["active_streams"] == 0, state
+        export = sse_request(port, "/v1/export", {"request_id": "gone"})
+        sealed = sse_request(port, "/v1/export", {"stream": [1, 2, 3]})
+        assert "no live stream" in export[0][1]["error"], export
+        assert sealed[0][1] == {"payload": None, "pages": 0}, sealed
+        proc.send_signal(signal.SIGTERM)
+        rc = proc.wait(timeout=120)
+        while True:
+            rest = lines.get(timeout=10)
+            if rest is None:
+                break
+            out.append(rest.rstrip())
+        stopped = next(x for x in out if x.startswith("REPLICA_HTTP_STOPPED"))
+        log(f"worker --serving continuous --serve-http 0: up in {up_s:.1f} "
+            f"s; 4 streams ({sum(len(s) for s in streams.values())} tokens) "
+            f"in {wall:.3f} s, client TTFT max {max(ttfts) * 1e3:.1f} ms; "
+            f"the long request cancelled after {seen.count('tokens')} token "
+            f"events; /v1/state stats {state['stats']}; export of an "
+            f"unknown stream -> {export[0][1]}, sealed capture -> "
+            f"{sealed[0][1]}; {stopped}; exit {rc}")
+        assert rc == 0 and "error=False" in stopped
+        assert all(f"{k}_LAUNCHES=0" in stopped
+                   for k in ("K1", "K1q", "K2", "K2q", "K3", "K4", "K5"))
+        return dict(serving_s=up_s)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+
+
 def main() -> int:
     import torch
 
@@ -2680,6 +3257,15 @@ def main() -> int:
     phase_migration_bench()
     phase_live_migration(small)
     phase_wire_migration()
+    # the dense serving slice: the decode sample's static mode, continuous
+    # against static and paged, chunked against monolithic ITL, the
+    # speculative batcher, card against CPU, the worker's dense modes
+    phase_static_sample()
+    phase_dense_serving()
+    phase_prefill_itl()
+    phase_spec_serving()
+    phase_dense_card_vs_cpu(small)
+    phase_dense_worker()
     log(f"chip_smoke: all phases passed in {time.monotonic() - t0:.1f} s")
     source = "kubegpu_tpu_torch/ops/csrc/paged_attention.cu"
     kernels = []

@@ -273,6 +273,17 @@ class DecodeLM(LMBase):
         return x
 
 
+def head_f32(params: Mapping, quant: bool = False) -> Dict:
+    """``params`` with the head's kernel cast to float32 once: the head
+    computes in float32 whatever the weights' dtype, so a bf16 kernel
+    would otherwise be cast on every call.  An int8 head (``quant``) is
+    a ``QuantDense`` at float32 and keeps its tree."""
+    if quant:
+        return dict(params)
+    return dict(params,
+                lm_head={"kernel": params["lm_head"]["kernel"].float()})
+
+
 def init_caches(batch: int, num_layers: int, num_heads: int, hidden: int,
                 max_seq: int, dtype=torch.bfloat16, device="cpu") -> Caches:
     hd = hidden // num_heads
@@ -357,9 +368,11 @@ def pick_tokens(logits, temps, keys, top_k: int = 0):
 def generate(params, prompt, num_steps: int, *, vocab_size: int,
              num_layers: int, num_heads: int, hidden: int, max_seq: int,
              dtype=torch.bfloat16, temperature: float = 0.0, top_k: int = 0,
-             rng=None, device="cuda") -> torch.Tensor:
+             rng=None, quant: bool = False, device="cuda") -> torch.Tensor:
     """Decode: prefill the whole prompt in one causal pass, then take
-    ``num_steps`` steps.  ``temperature=0`` is greedy argmax;
+    ``num_steps`` steps.  ``quant=True`` serves a
+    :func:`quantize_params_int8` tree through ``QuantDense``, as the JAX
+    function's ``quant`` does.  ``temperature=0`` is greedy argmax;
     ``temperature > 0`` samples from ``softmax(logits / temperature)``,
     truncated to the ``top_k`` largest when ``top_k > 0``, with step i
     drawing the whole batch's noise from key i of ``split(rng,
@@ -380,8 +393,8 @@ def generate(params, prompt, num_steps: int, *, vocab_size: int,
         )
     model = DecodeLM(vocab_size=vocab_size, num_layers=num_layers,
                      num_heads=num_heads, hidden=hidden, max_seq=max_seq,
-                     dtype=dtype)
-    bind_params(model, tree_map(lambda t: t.to(dev), params))
+                     dtype=dtype, quant=quant)
+    bind_params(model, head_f32(tree_map(lambda t: t.to(dev), params), quant))
     caches = init_caches(b, num_layers, num_heads, hidden, max_seq, dtype,
                          dev)
     keys = (prng.split(torch.as_tensor(rng).to(dev, torch.int64), num_steps)

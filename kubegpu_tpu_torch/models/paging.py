@@ -95,6 +95,7 @@ from kubegpu_tpu_torch.models.decoding import (
     DecodeBlock,
     DecodeLM,
     LMBase,
+    head_f32,
     init_caches,
     pick_tokens,
     pick_with_noise,
@@ -776,13 +777,7 @@ class PagedContinuousBatcher(_TracedBatcher):
         self.pipeline_decode = pipeline_decode
         hd = hidden // num_heads
 
-        params = tree_map(lambda t: t.to(dev), params)
-        if not quant:
-            # the head computes in float32 whatever the weights' dtype:
-            # cast its kernel once here, not on every step (an int8 head
-            # is a QuantDense at float32 and keeps its tree)
-            params = dict(params, lm_head={
-                "kernel": params["lm_head"]["kernel"].float()})
+        params = head_f32(tree_map(lambda t: t.to(dev), params), quant)
         model_cfg = dict(vocab_size=vocab_size, num_layers=num_layers,
                          num_heads=num_heads, hidden=hidden, dtype=dtype,
                          quant=quant)
@@ -907,14 +902,10 @@ class PagedContinuousBatcher(_TracedBatcher):
                           **model_cfg),
             params,
         )
-        dparams = tree_map(lambda t: t.to(dev), draft_params)
-        # the draft's position table is cut to the ring's rows, and its
-        # head kernel is cast to float32 once, as the target's is
-        dparams = dict(
-            dparams,
-            pos_embed={"embedding": dparams["pos_embed"]["embedding"][:ring]},
-            lm_head={"kernel": dparams["lm_head"]["kernel"].float()},
-        )
+        dparams = head_f32(tree_map(lambda t: t.to(dev), draft_params))
+        # the draft's position table is cut to the ring's rows
+        dparams = dict(dparams, pos_embed={
+            "embedding": dparams["pos_embed"]["embedding"][:ring]})
         self.draft_model = bind_params(
             DecodeLM(vocab_size=model_cfg["vocab_size"],
                      num_layers=draft_num_layers, num_heads=draft_num_heads,

@@ -35,6 +35,7 @@ from kubegpu_tpu_torch.models.decoding import (
     KEY_TAG_SAMPLE,
     DecodeLM,
     block_keys,
+    head_f32,
     init_caches,
     pick_tokens,
     pick_with_noise,
@@ -146,6 +147,7 @@ def speculative_generate(
     draft_num_heads: int,
     draft_hidden: int,
     dtype=torch.bfloat16,
+    quant: bool = False,
     temperatures=None,
     seeds=None,
     top_k: int = 0,
@@ -158,7 +160,9 @@ def speculative_generate(
     ``greedy_generate(target_params, ...)`` — and ``target_calls``
     counts verify iterations, the cost a draft is judged by.  The draft
     shares the target's vocab and ``max_seq`` with its own depth and
-    width.
+    width.  ``quant=True`` serves a :func:`quantize_params_int8` target
+    (the draft stays full width), as the JAX function does; greedy
+    output then equals ``greedy_generate(..., quant=True)``.
 
     Sampled (``temperatures`` a (b,) sequence, 0 entries greedy): sampled
     rows use per-position rejection sampling, lossless in distribution
@@ -191,14 +195,14 @@ def speculative_generate(
     target = bind_params(
         DecodeLM(vocab_size=vocab_size, num_layers=num_layers,
                  num_heads=num_heads, hidden=hidden, max_seq=max_seq,
-                 dtype=dtype, all_logits=True),
-        tree_map(lambda t: t.to(dev), target_params),
+                 dtype=dtype, all_logits=True, quant=quant),
+        head_f32(tree_map(lambda t: t.to(dev), target_params), quant),
     )
     draft = bind_params(
         DecodeLM(vocab_size=vocab_size, num_layers=draft_num_layers,
                  num_heads=draft_num_heads, hidden=draft_hidden,
                  max_seq=max_seq, dtype=dtype),
-        tree_map(lambda t: t.to(dev), draft_params),
+        head_f32(tree_map(lambda t: t.to(dev), draft_params)),
     )
     t_caches = init_caches(b, num_layers, num_heads, hidden, max_seq, dtype,
                            dev)

@@ -1,55 +1,79 @@
-"""Worker of the port: ``--model decode --serving paged`` (serving) and
-``--model lm`` (training).
+"""Worker of the port: ``--model decode`` (serving) and ``--model lm``
+(training).
 
-The port of ``kubegpu_tpu/models/worker.py``'s paged decode mode and its
-single-device LM training.  In decode mode it builds the LM at the
-given widths with fresh weights drawn from a fixed seed, serves one
-warm-up wave of requests and one timed wave through
-:class:`PagedContinuousBatcher`, and prints the JAX worker's
-``FIRST_DECODE_DONE`` / ``DECODE_DONE`` lines plus the launch counts of
-the paged attention kernels (K1, K2).  A wave is the JAX worker's: ``2 x
---batch-per-chip`` prompts of random length in ``[1, --prompt-len]``
-from ``np.random.RandomState(0)``, budgets cycling ``1/4 .. 1 x
---steps``.  ``--speculate`` serves greedy speculative decoding through
-the same pool: a fresh draft of ``--draft-layers`` layers proposes
-``--spec-k`` tokens a step and one verify window (K2) scores them; the
-streams are the non-speculative ones, token for token, at fp32.
-``--kv-dtype int8`` stores the pool (and the draft ring) as int8 pages
-with per-page, per-head scales, read by K1q/K2q; ``--int8`` serves
-weight-only int8 weights (printing ``SERVING_INT8``);
+The port of ``kubegpu_tpu/models/worker.py``'s decode modes and its
+single-device LM training.  In decode mode it builds the LM at the given
+widths with fresh weights drawn from a fixed seed (bf16 unless
+``--serve-fp32``; ``--int8`` serves weight-only int8 weights, printing
+``SERVING_INT8``) and serves them as ``--serving`` says:
+
+- ``static`` (the default, as in the JAX worker): ``greedy_generate``
+  over one aligned batch of ``--batch-per-chip`` prompts of
+  ``--prompt-len`` tokens drawn from ``np.random.RandomState(1)``,
+  ``--steps`` tokens each: one warm call, then ``FIRST_DECODE_DONE
+  seconds=``, three timed calls and ``DECODE_DONE tokens_per_sec=
+  ms_per_call=``; ``--serve`` repeats the call forever, printing
+  ``SERVING tokens_per_sec=`` every 50 calls;
+- ``continuous``: :class:`ContinuousBatcher`, slot-based continuous
+  batching over a dense per-slot cache (chunked prefill at 128 rows);
+- ``paged``: :class:`PagedContinuousBatcher`, continuous batching over a
+  shared KV page pool and the paged attention kernels (K1, K2);
+- ``speculative``: :class:`SpeculativeContinuousBatcher`, the dense slot
+  batcher with a fresh draft of ``--draft-layers`` layers proposing
+  ``--spec-k`` tokens a verify.
+
+The three batchers serve one warm-up wave and one timed wave of the JAX
+worker's requests: ``2 x --batch-per-chip`` prompts of random length in
+``[1, --prompt-len]`` from ``np.random.RandomState(0)``, budgets cycling
+``1/4 .. 1 x --steps``; then ``FIRST_DECODE_DONE`` and ``DECODE_DONE
+tokens_per_sec= serving= requests= steps= admits=``, and the kernels'
+launch counts (the dense modes launch none of them).  ``--serve``
+replays waves forever after the timed one, printing ``SERVING
+tokens_per_sec=`` per wave.  Paged-only knobs: ``--speculate`` serves
+greedy speculative decoding through the pool (a verify window, K2,
+scores the draft's tokens; the streams are the non-speculative ones at
+fp32); ``--kv-dtype int8`` stores the pool (and the draft ring) as int8
+pages with per-page, per-head scales, read by K1q/K2q;
 ``--decode-page-cache`` lets retirement seal decode-produced pages into
-the prefix chain.  ``--sample-temperature T`` samples instead of taking
-the argmax, as the JAX worker does: request i of a wave pins seed
-``--sample-seed + i`` (the same streams on every rerun and replica),
-``--sample-top-k`` truncates to the k most likely tokens, and with
-``--speculate`` the verify runs rejection-sampled speculation.
-``--serve`` replays waves forever after the timed one, printing
-``SERVING tokens_per_sec=`` per wave.
+the prefix chain.  ``--sample-temperature T`` samples the batchers'
+waves instead of taking the argmax, as the JAX worker does: request i of
+a wave pins seed ``--sample-seed + i``, ``--sample-top-k`` truncates to
+the k most likely tokens, and the speculative modes run
+rejection-sampled speculation.
 
-    python -m kubegpu_tpu_torch.models.worker --model decode --serving paged \\
-        --vocab 32768 --hidden 4096 --heads 32 --layers 4 \\
-        --prompt-len 128 --batch-per-chip 8 --steps 64 [--speculate] \\
-        [--kv-dtype int8] [--int8] [--decode-page-cache quantized] \\
+    python -m kubegpu_tpu_torch.models.worker --model decode \\
+        --vocab 32768 --hidden 4096 --heads 32 --layers 4 --seq 1023 \\
+        --prompt-len 128 --batch-per-chip 8 --steps 256 [--int8]
+    python -m kubegpu_tpu_torch.models.worker --model decode \\
+        --serving paged|continuous|speculative --prompt-len 128 \\
+        --batch-per-chip 8 --steps 64 [--speculate] [--kv-dtype int8] \\
         [--sample-temperature 0.8 [--sample-top-k 50] [--sample-seed 0]]
 
-``--serve-http PORT`` serves the batcher as a replica HTTP endpoint
-instead (``gateway/dataplane.py``, the JAX replica's wire schema): it
-builds the batcher, warms every kernel and path it runs (the decode
-step or, with ``--speculate``, the draft scan and the verify; prefill,
-page scatter and gather), then prints ``REPLICA_HTTP_SERVING port=N
-serving=paged role=R tls=0|1 seconds=S`` and serves ``POST /v1/submit``
+``--serve-http PORT`` (``--serving paged`` or ``continuous``) serves the
+batcher as a replica HTTP endpoint instead (``gateway/dataplane.py``,
+the JAX replica's wire schema): it builds the batcher, warms every
+kernel and path it runs, then prints ``REPLICA_HTTP_SERVING port=N
+serving=S role=R tls=0|1 seconds=S`` and serves ``POST /v1/submit``
 (SSE), ``POST /v1/cancel``, the migration verbs ``POST /v1/export``,
-``/v1/import`` and ``/v1/role``, ``GET /v1/state``, ``GET /healthz`` and
-``GET /metrics`` until SIGTERM, when it prints ``REPLICA_HTTP_STOPPED``
-and exits 0.  ``--role prefill|decode|flex`` is the replica's
-disaggregation role (``prefill`` parks each sequence at its seal for the
-gateway's handoff), ``--serve-http-fail-migration`` refuses every import
-(a chaos knob), ``--serve-http-tls-cert/-key`` serve HTTPS,
+``/v1/import`` and ``/v1/role`` (a dense batcher answers them as the JAX
+replica does, without migration), ``GET /v1/state``, ``GET /healthz``
+and ``GET /metrics`` until SIGTERM, when it prints
+``REPLICA_HTTP_STOPPED`` and exits 0.  ``--role prefill|decode|flex`` is
+the replica's disaggregation role (``prefill`` parks each sequence at its
+seal for the gateway's handoff), ``--serve-http-fail-migration`` refuses
+every import (a chaos knob), ``--serve-http-tls-cert/-key`` serve HTTPS,
 ``--serve-http-auth-token-file`` gates ``/v1/*`` behind a bearer token,
 ``--serve-http-step-delay`` slows the loop (a test knob).
 
     python -m kubegpu_tpu_torch.models.worker --model decode --serving paged \\
         --serve-http 0 [--role prefill] [--speculate] [--kv-dtype int8]
+
+The JAX worker's refusals hold: ``--kv-dtype`` and ``--tp`` above 1 need
+``--serving paged`` (the port runs on one device in every mode until the
+tensor-parallel slice), and ``--serve-http`` refuses ``static`` and
+``speculative``.  ``--ckpt-dir`` and ``--draft-ckpt-dir`` wait for the
+checkpoint slice: every mode serves fresh weights, as the JAX worker
+does when it finds no checkpoint.
 
 ``--model lm`` trains ``TransformerLM`` (bf16 compute over float32
 weights drawn fresh from seed 0, nesterov SGD) on the JAX worker's
@@ -84,14 +108,19 @@ from kubegpu_tpu_torch.models.data import (
     prefetch_to_device,
     synthetic_token_batches,
 )
-from kubegpu_tpu_torch.models.decoding import quantize_params_int8
+from kubegpu_tpu_torch.models.decoding import (
+    greedy_generate,
+    quantize_params_int8,
+)
 from kubegpu_tpu_torch.models.paging import PagedContinuousBatcher
 from kubegpu_tpu_torch.models.params import bf16_cast, init_params, resolve_device
 from kubegpu_tpu_torch.models.serving import (
     DECODE_PAGE_CACHE_POLICIES,
     KV_DTYPES,
+    ContinuousBatcher,
     resolve_kv_dtype,
 )
+from kubegpu_tpu_torch.models.spec_serving import SpeculativeContinuousBatcher
 from kubegpu_tpu_torch.models.train import create_train_state, lm_step
 from kubegpu_tpu_torch.models.transformer import TransformerLM
 from kubegpu_tpu_torch.ops import _build
@@ -116,11 +145,16 @@ DRAFT_SEED = 7
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--model", choices=["decode", "lm"], default="decode",
-                    help="decode = paged serving; lm = LM training at one "
-                    "device")
-    ap.add_argument("--serving", choices=["paged"], default="paged",
-                    help="paged = continuous batching over a shared KV "
-                    "page pool (the only serving mode ported so far)")
+                    help="decode = serving; lm = LM training at one device")
+    ap.add_argument("--serving",
+                    choices=["static", "continuous", "paged", "speculative"],
+                    default="static",
+                    help="decode: static = aligned-batch greedy generate "
+                    "(the default); continuous = slot-based continuous "
+                    "batching over a dense per-slot cache; paged = "
+                    "continuous batching over a shared KV page pool; "
+                    "speculative = draft-verified continuous batching over "
+                    "dense caches")
     ap.add_argument("--steps", type=int, default=20,
                     help="decode: budget of the longest request; lm: "
                     "training steps")
@@ -146,7 +180,8 @@ def build_parser() -> argparse.ArgumentParser:
                     "pool: a draft proposes --spec-k tokens, one verify "
                     "window scores them")
     ap.add_argument("--spec-k", type=int, default=4,
-                    help="draft proposals per verify window")
+                    help="--speculate and --serving speculative: draft "
+                    "proposals per verify window")
     ap.add_argument("--int8", action="store_true",
                     help="decode: serve weight-only int8 (per-output-channel "
                     "scales)")
@@ -280,37 +315,49 @@ def draft_for(args: argparse.Namespace, max_seq: int, device):
     return dparams, d_heads, d_hidden
 
 
-def build_batcher(args: argparse.Namespace) -> PagedContinuousBatcher:
-    """The worker's batcher: fresh weights from ``WEIGHT_SEED`` at the
-    given widths (bf16 unless ``--serve-fp32``), a pool sized for
-    ``--batch-per-chip`` sequences of ``--prompt-len + --steps`` rows
-    (plus ``--spec-k`` rows of verify headroom when speculating)."""
+def check_serving_knobs(args: argparse.Namespace) -> None:
+    """The JAX worker's refusals of knobs a serving mode does not take:
+    tensor parallelism and the KV storage format are the paged batcher's,
+    and the port runs on one device in every mode."""
+    if args.tp > 1 and args.serving == "static":
+        raise SystemExit(
+            f"--tp {args.tp} with --serving static: tensor-parallel "
+            "serving is the paged batcher's mesh (--serving paged)"
+        )
+    if args.tp > 1 and args.serving != "paged":
+        raise SystemExit(
+            f"--tp {args.tp} with --serving {args.serving}: tensor-"
+            "parallel serving is the PAGED batcher's mesh (--serving "
+            "paged); dense/speculative batchers are single-device"
+        )
+    if args.kv_dtype is not None and args.serving != "paged":
+        raise SystemExit(
+            f"--kv-dtype {args.kv_dtype} with --serving {args.serving}: "
+            "the KV storage format is the PAGED pool's knob "
+            "(--serving paged)"
+        )
     check_one_device(args)
-    device = resolve_device(args.device)
-    max_seq = args.seq + 1
-    if args.prompt_len + args.steps > max_seq:
+    if args.prompt_len + args.steps > args.seq + 1:
         raise SystemExit(
             f"--prompt-len {args.prompt_len} + --steps {args.steps} exceeds "
-            f"the cache size --seq+1 = {max_seq}"
+            f"the cache size --seq+1 = {args.seq + 1}"
         )
-    if args.page_size is not None:
-        if args.page_size < 1 or args.prompt_len % args.page_size:
-            raise SystemExit(
-                f"--page-size {args.page_size} must be positive and divide "
-                f"--prompt-len {args.prompt_len} (whole-page admit scatter)"
-            )
-        page = args.page_size
-    else:
-        page = 128 if args.prompt_len % 128 == 0 else args.prompt_len
-    cfg = dict(vocab_size=args.vocab, num_layers=args.layers,
-               num_heads=args.heads, hidden=args.hidden, max_seq=max_seq)
-    dtype = torch.float32 if args.serve_fp32 else torch.bfloat16
     try:
         # a contradictory pair (e.g. --kv-dtype bf16 with --serve-fp32)
         # dies here, like the other geometry checks
-        resolve_kv_dtype(args.kv_dtype, dtype)
+        resolve_kv_dtype(args.kv_dtype,
+                         torch.float32 if args.serve_fp32 else torch.bfloat16)
     except ValueError as e:
         raise SystemExit(str(e))
+
+
+def serving_params(args: argparse.Namespace, device):
+    """The served weights: fresh from ``WEIGHT_SEED`` at the given widths,
+    bf16 unless ``--serve-fp32``, int8 under ``--int8``.  Returns
+    ``(params, model config, dtype)``."""
+    cfg = dict(vocab_size=args.vocab, num_layers=args.layers,
+               num_heads=args.heads, hidden=args.hidden, max_seq=args.seq + 1)
+    dtype = torch.float32 if args.serve_fp32 else torch.bfloat16
     gen = torch.Generator(device=device).manual_seed(WEIGHT_SEED)
     params = init_params(cfg, gen, torch.float32, device)
     if not args.serve_fp32:
@@ -318,6 +365,49 @@ def build_batcher(args: argparse.Namespace) -> PagedContinuousBatcher:
     if args.int8:
         params = quantize_params_int8(params)
         print("SERVING_INT8 weight-only per-output-channel", flush=True)
+    return params, cfg, dtype
+
+
+def build_batcher(args: argparse.Namespace):
+    """The worker's batcher for ``--serving continuous|paged|speculative``
+    over :func:`serving_params`' weights, ``--batch-per-chip`` slots and
+    prompts up to ``--prompt-len``.  The paged pool holds every slot's
+    ``--prompt-len + --steps`` rows (plus ``--spec-k`` rows of verify
+    headroom when speculating)."""
+    check_serving_knobs(args)
+    if args.serving == "static":
+        raise SystemExit("--serving static decodes through greedy_generate "
+                         "and builds no batcher")
+    device = resolve_device(args.device)
+    max_seq = args.seq + 1
+    page = None
+    if args.serving == "paged":
+        if args.page_size is not None:
+            if args.page_size < 1 or args.prompt_len % args.page_size:
+                raise SystemExit(
+                    f"--page-size {args.page_size} must be positive and "
+                    f"divide --prompt-len {args.prompt_len} (whole-page "
+                    "admit scatter)"
+                )
+            page = args.page_size
+        else:
+            page = 128 if args.prompt_len % 128 == 0 else args.prompt_len
+    params, cfg, dtype = serving_params(args, device)
+    slots = args.batch_per_chip
+    common = dict(cfg, slots=slots, prompt_pad=args.prompt_len, dtype=dtype,
+                  device=device, quant=args.int8)
+    sample_kw = dict(sampling=args.sample_temperature > 0,
+                     top_k=args.sample_top_k)
+    if args.serving == "continuous":
+        return ContinuousBatcher(params, **common, top_k=args.sample_top_k)
+    if args.serving == "speculative":
+        # the draft is fresh weights: greedy output equals the dense
+        # batcher's for any draft, only the verify count moves
+        dparams, d_heads, d_hidden = draft_for(args, max_seq, device)
+        return SpeculativeContinuousBatcher(
+            params, dparams, **common, k=args.spec_k,
+            draft_num_layers=args.draft_layers, draft_num_heads=d_heads,
+            draft_hidden=d_hidden, **sample_kw)
     spec_kw = {}
     k_extra = 0
     if args.speculate:
@@ -326,16 +416,12 @@ def build_batcher(args: argparse.Namespace) -> PagedContinuousBatcher:
                        draft_num_layers=args.draft_layers,
                        draft_num_heads=d_heads, draft_hidden=d_hidden)
         k_extra = args.spec_k  # per-sequence page-reservation headroom
-    slots = args.batch_per_chip
     pool = slots * -(-(args.prompt_len + args.steps + k_extra) // page) + 1
     return PagedContinuousBatcher(
-        params, **cfg, slots=slots, prompt_pad=args.prompt_len,
-        page_size=page, pool_pages=pool, dtype=dtype, device=device,
-        quant=args.int8, kv_dtype=args.kv_dtype,
-        decode_page_cache=args.decode_page_cache,
+        params, **common, page_size=page, pool_pages=pool,
+        kv_dtype=args.kv_dtype, decode_page_cache=args.decode_page_cache,
         # sampled traffic keeps speculation: the verify rejection-samples
-        sampling=args.sample_temperature > 0, top_k=args.sample_top_k,
-        **spec_kw,
+        **sample_kw, **spec_kw,
     )
 
 
@@ -349,22 +435,24 @@ def sampled_wave_kw(args: argparse.Namespace, n_req: int) -> dict:
                 seeds=[args.sample_seed + i for i in range(n_req)])
 
 
-def warm_batcher(cb: PagedContinuousBatcher,
-                 temperature: float = 0.0) -> None:
-    """Pay every first-use cost before traffic: build the kernel
-    libraries, then serve two full-length prompts that share all their
-    full pages, one after the other, so the station prefill, the page
-    scatter, the prefix gather (where the prompt spans more than a page
-    past the hit), the decode step (K1) or the draft scan and verify
-    (K2), and retirement sealing all run once; the second samples at
-    ``temperature`` when it is above 0.  The batcher's stats and step
-    ledger are reset after, so they count served traffic only."""
-    if cb.device.type == "cuda":
+def warm_batcher(cb, temperature: float = 0.0) -> None:
+    """Pay every first-use cost before traffic: serve two full-length
+    prompts, one after the other, so every program the batcher runs
+    executes once (the second samples at ``temperature`` when it is
+    above 0).  For the paged batcher it builds the kernel libraries
+    first, and the two prompts share their full pages, so the station
+    prefill, the page scatter, the prefix gather, the decode step (K1)
+    or the draft scan and verify (K2) and retirement sealing all run;
+    for the dense batcher the chunked prefill and the step run.  The
+    batcher's stats (and step ledger) are reset after, so they count
+    served traffic only."""
+    paged = isinstance(cb, PagedContinuousBatcher)
+    if paged and cb.device.type == "cuda":
         _build.build()
     prompt = (np.arange(cb.prompt_pad, dtype=np.int32) * 7 + 1) % (
         cb.model.vocab_size)
     budget = max(1, min(2, cb.max_seq - cb.prompt_pad
-                        - (cb.speculate_k or 0)))
+                        - (getattr(cb, "speculate_k", None) or 0)))
     for seq, temp in ((0, 0.0), (1, temperature)):
         cb.submit(seq, prompt, budget, temp, seed=0 if temp > 0 else None)
         while cb.has_work():
@@ -372,15 +460,98 @@ def warm_batcher(cb: PagedContinuousBatcher,
     if cb.device.type == "cuda":
         torch.cuda.synchronize(cb.device)
     cb._reset_stats()
-    cb._ledger.clear()
+    if paged:
+        cb._ledger.clear()
+
+
+def kernel_counters() -> Dict[str, tuple]:
+    """Every kernel of the port by its ID, as (wrapper, launch counter
+    attribute): the paged attention kernels and the flash kernels."""
+    return {"K1": (paged_decode_attention, "launches"),
+            "K1q": (paged_decode_attention, "int8_launches"),
+            "K2": (paged_chunk_attention, "launches"),
+            "K2q": (paged_chunk_attention, "int8_launches"),
+            "K3": (flash_forward, "launches"),
+            "K4": (flash_backward_dkdv, "launches"),
+            "K5": (flash_backward_dq, "launches")}
+
+
+def read_counters() -> Dict[str, int]:
+    return {k: getattr(fn, a) for k, (fn, a) in kernel_counters().items()}
+
+
+def run_static(args: argparse.Namespace, report=None) -> Dict[str, object]:
+    """``--serving static``: the JAX worker's aligned-batch decode —
+    ``greedy_generate`` over one ``(--batch-per-chip, --prompt-len)``
+    prompt from ``np.random.RandomState(1)``, ``--steps`` tokens each.
+    One warm call (its end is ``first_decode_s`` after the start), then
+    three timed calls.  With ``--serve`` it hands the result to
+    ``report`` and then repeats the call forever, printing ``SERVING
+    tokens_per_sec=`` every 50 calls."""
+    t0 = time.monotonic()
+    check_serving_knobs(args)
+    device = resolve_device(args.device)
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+    params, cfg, dtype = serving_params(args, device)
+    batch = args.batch_per_chip
+    prompt = torch.from_numpy(np.random.RandomState(1).randint(
+        0, args.vocab, size=(batch, args.prompt_len)).astype(np.int32)).to(
+        device)
+    launches0 = read_counters()
+
+    def call():
+        return greedy_generate(params, prompt, args.steps, **cfg,
+                               dtype=dtype, quant=args.int8, device=device)
+
+    out = call()
+    int(out[0, -1])  # a value readback forces the call to its end
+    first_s = time.monotonic() - t0
+    n = 3
+    ts = time.monotonic()
+    for _ in range(n):
+        out = call()
+    int(out[0, -1])
+    dt = (time.monotonic() - ts) / n
+    launches = {k: v - launches0[k] for k, v in read_counters().items()}
+    result = {
+        "first_decode_s": first_s,
+        "tokens": batch * args.steps,
+        "tokens_per_sec": batch * args.steps / dt,
+        "ms_per_call": dt * 1e3,
+        "launches": launches,
+        "outputs": out,
+        "peak_bytes": (torch.cuda.max_memory_allocated(device)
+                       if device.type == "cuda" else None),
+        "device": str(device),
+    }
+    if args.serve:
+        if report is not None:
+            report(result)
+        calls = 0
+        ts = time.monotonic()
+        while True:
+            out = call()
+            int(out[0, -1])
+            calls += 1
+            if calls % 50 == 0:
+                now = time.monotonic()
+                print(f"SERVING tokens_per_sec="
+                      f"{50 * batch * args.steps / (now - ts):.1f}",
+                      flush=True)
+                ts = now
+    return result
 
 
 def run_decode(args: argparse.Namespace,
                report=None) -> Dict[str, object]:
-    """Build the batcher, serve a warm-up wave and a timed wave, and
-    return what was measured (the CLI prints it).  With ``--serve`` it
-    hands that to ``report`` and then replays waves forever, printing
+    """Serve ``--serving``'s decode and return what was measured (the
+    CLI prints it): ``static`` is :func:`run_static`; the batchers serve
+    a warm-up wave and a timed wave.  With ``--serve`` it hands the
+    result to ``report`` and then replays waves forever, printing
     ``SERVING tokens_per_sec=`` after each."""
+    if args.serving == "static":
+        return run_static(args, report)
     t0 = time.monotonic()
     cb = build_batcher(args)
     device = cb.device
@@ -389,11 +560,7 @@ def run_decode(args: argparse.Namespace,
     n_req = 2 * slots
     budgets = [max(args.steps * (1 + i % 4) // 4, 1) for i in range(n_req)]
     run_kw = sampled_wave_kw(args, n_req)
-    counters = ((paged_decode_attention, "launches"),
-                (paged_decode_attention, "int8_launches"),
-                (paged_chunk_attention, "launches"),
-                (paged_chunk_attention, "int8_launches"))
-    launches0 = [getattr(fn, attr) for fn, attr in counters]
+    launches0 = read_counters()
 
     def wave():
         prompts = wave_requests(rng, n_req, args.vocab, args.prompt_len)
@@ -405,15 +572,15 @@ def run_decode(args: argparse.Namespace,
 
     out, _ = wave()  # warm-up: first-use costs (kernel build, allocator)
     steps = cb.stats["steps"]
-    spec_steps = cb.stats["spec_steps"]
+    spec_steps = cb.stats.get("spec_steps", 0)
     first_s = time.monotonic() - t0
     out, dt = wave()
     steps += cb.stats["steps"]
-    spec_steps += cb.stats["spec_steps"]
-    ttft = sorted(cb.first_token_s.values())
+    spec_steps += cb.stats.get("spec_steps", 0)
+    ttft = sorted(getattr(cb, "first_token_s", {}).values())
     total = sum(len(v) for v in out.values())
-    k1, k1q, k2, k2q = (getattr(fn, attr) - n
-                        for (fn, attr), n in zip(counters, launches0))
+    launches = {k: v - launches0[k] for k, v in read_counters().items()}
+    paged = isinstance(cb, PagedContinuousBatcher)
     result = {
         "first_decode_s": first_s,
         "tokens": total,
@@ -424,19 +591,25 @@ def run_decode(args: argparse.Namespace,
         "admits": cb.stats["admits"],
         "decode_steps_total": steps,
         "layers": args.layers,
-        "k1_launches": k1,
-        "k1q_launches": k1q,
-        "k2_launches": k2,
-        "k2q_launches": k2q,
-        "kv_dtype": cb.kv_dtype,
-        "pool_bytes": cb.pool_kv_bytes + cb.pool_scale_bytes,
-        "spec_steps": cb.stats["spec_steps"],
-        "spec_tokens": cb.stats["spec_tokens"],
-        "draft_wraps": cb.stats["draft_wraps"],
+        "launches": launches,
+        "k1_launches": launches["K1"],
+        "k1q_launches": launches["K1q"],
+        "k2_launches": launches["K2"],
+        "k2q_launches": launches["K2q"],
+        "kv_dtype": (cb.kv_dtype if paged
+                     else str(cb.dtype).replace("torch.", "")),
+        "pool_bytes": (cb.pool_kv_bytes + cb.pool_scale_bytes if paged
+                       else None),
+        "cache_bytes": cache_bytes(cb),
+        "spec_steps": cb.stats.get("spec_steps", 0),
+        "spec_tokens": cb.stats.get("spec_tokens", 0),
+        "draft_wraps": cb.stats.get("draft_wraps", 0),
         "spec_steps_total": spec_steps,
         "ttft_mean_s": float(np.mean(ttft)) if ttft else None,
         "ttft_max_s": ttft[-1] if ttft else None,
         "outputs": out,
+        "peak_bytes": (torch.cuda.max_memory_allocated(device)
+                       if device.type == "cuda" else None),
         "device": str(device),
     }
     if args.serve:
@@ -449,6 +622,16 @@ def run_decode(args: argparse.Namespace,
     return result
 
 
+def cache_bytes(cb) -> int:
+    """The KV bytes a batcher rests: the paged pool (pages and scales),
+    or the dense per-slot caches (and a speculative batcher's draft
+    caches)."""
+    if isinstance(cb, PagedContinuousBatcher):
+        return cb.pool_kv_bytes + cb.pool_scale_bytes
+    caches = list(cb.caches) + list(getattr(cb, "d_caches", []))
+    return sum(t.numel() * t.element_size() for kv in caches for t in kv)
+
+
 def serve_http(args: argparse.Namespace, t0: float) -> int:
     """``--serve-http``: expose the batcher as a replica HTTP endpoint
     (``gateway/dataplane.py``) until SIGTERM.  The device is checked
@@ -459,6 +642,13 @@ def serve_http(args: argparse.Namespace, t0: float) -> int:
 
     from kubegpu_tpu_torch.gateway.dataplane import ReplicaServer
 
+    if args.serving not in ("continuous", "paged"):
+        raise SystemExit(
+            f"--serve-http with --serving {args.serving}: the replica "
+            "HTTP endpoint drives the incremental serving API "
+            "(submit/serve_step/cancel) — use --serving continuous or "
+            "--serving paged"
+        )
     if bool(args.serve_http_tls_cert) != bool(args.serve_http_tls_key):
         raise SystemExit(
             "--serve-http-tls-cert and --serve-http-tls-key must be given "
@@ -471,11 +661,7 @@ def serve_http(args: argparse.Namespace, t0: float) -> int:
     warm_batcher(cb, args.sample_temperature)
     metrics = Metrics()
     cb.attach_metrics(metrics)
-    counters = {"K1": (paged_decode_attention, "launches"),
-                "K1q": (paged_decode_attention, "int8_launches"),
-                "K2": (paged_chunk_attention, "launches"),
-                "K2q": (paged_chunk_attention, "int8_launches")}
-    launches0 = {k: getattr(fn, a) for k, (fn, a) in counters.items()}
+    launches0 = read_counters()
     server = ReplicaServer(
         cb, listen=("0.0.0.0", args.serve_http), metrics=metrics,
         step_delay_s=args.serve_http_step_delay,
@@ -495,8 +681,8 @@ def serve_http(args: argparse.Namespace, t0: float) -> int:
     except KeyboardInterrupt:
         pass
     server.stop()
-    launches = " ".join(f"{k}_LAUNCHES={getattr(fn, a) - launches0[k]}"
-                        for k, (fn, a) in counters.items())
+    launches = " ".join(f"{k}_LAUNCHES={v - launches0[k]}"
+                        for k, v in read_counters().items())
     print(f"REPLICA_HTTP_STOPPED steps={cb.stats['steps']} "
           f"admits={cb.stats['admits']} layers={args.layers} {launches} "
           f"error={server.loop.error is not None}", flush=True)
@@ -629,12 +815,26 @@ def main(argv: Optional[List[str]] = None) -> int:
 
 def report_decode(args: argparse.Namespace, r: Dict[str, object]) -> None:
     print(f"FIRST_DECODE_DONE seconds={r['first_decode_s']:.2f}", flush=True)
-    print(
-        f"DECODE_DONE tokens_per_sec={r['tokens_per_sec']:.1f} "
-        f"serving={args.serving} requests={r['requests']} "
-        f"steps={r['steps']} admits={r['admits']}",
-        flush=True,
-    )
+    if args.serving == "static":
+        print(f"DECODE_DONE tokens_per_sec={r['tokens_per_sec']:.1f} "
+              f"ms_per_call={r['ms_per_call']:.1f}", flush=True)
+    else:
+        print(
+            f"DECODE_DONE tokens_per_sec={r['tokens_per_sec']:.1f} "
+            f"serving={args.serving} requests={r['requests']} "
+            f"steps={r['steps']} admits={r['admits']}",
+            flush=True,
+        )
+    if args.serving != "paged":
+        # the dense modes run no kernel of the port: every count is 0
+        peak = r.get("peak_bytes")
+        print("KERNEL_LAUNCHES "
+              + " ".join(f"{k}={v}" for k, v in r["launches"].items())
+              + f" serving={args.serving} device={r['device']}", flush=True)
+        if peak is not None:
+            print(f"PEAK_MEM_GIB {peak / 2**30:.2f} device={r['device']}",
+                  flush=True)
+        return
     print(
         f"K1_LAUNCHES paged_decode_attention={r['k1_launches']} "
         f"decode_steps={r['decode_steps_total']} layers={r['layers']} "

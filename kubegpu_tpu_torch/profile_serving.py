@@ -3,14 +3,16 @@ LM's full width (the configuration ``chip_smoke.py`` serves).
 
     python -m kubegpu_tpu_torch.profile_serving [--speculate [--spec-k K]] \
         [--kv-dtype int8] [--int8] [--sample-temperature T [--sample-top-k K]]
+    python -m kubegpu_tpu_torch.profile_serving --serving continuous [--int8]
 
 Builds the worker's batcher (vocab 32768, hidden 4096, 4 layers, 32
 heads, bf16, page 128, 8 slots; the extra arguments are the worker's, so
 ``--kv-dtype int8`` profiles the int8 pool with K1q/K2q, ``--int8``
-weight-only int8 and ``--sample-temperature`` sampled requests, slot i
-pinning seed ``--sample-seed + i``), fills every slot with a 128-token
-prompt and a budget that outlasts the measurement, and once all eight
-are decoding:
+weight-only int8, ``--sample-temperature`` sampled requests, slot i
+pinning seed ``--sample-seed + i``, and ``--serving continuous`` the
+dense ``ContinuousBatcher``, whose cache holds ``--seq + 1`` = 1025 rows
+a slot), fills every slot with a 128-token prompt and a budget that
+outlasts the measurement, and once all eight are decoding:
 
 - times a window of serve_steps with the host clock around synchronized
   ends: ms per step and tokens/s at 8 active slots (with
@@ -18,7 +20,7 @@ are decoding:
   tokens are those the window committed);
 - profiles a second window of the same length with ``torch.profiler``:
   device time by kernel, the device's busy time and its idle share of
-  the window's wall time.
+  the window's wall time, and the device kernels launched a step.
 
 Needs one CUDA device; prints plain lines, the last a JSON summary.
 """
@@ -34,8 +36,9 @@ import numpy as np
 import torch
 
 from kubegpu_tpu_torch.models import worker
+from kubegpu_tpu_torch.models.paging import PagedContinuousBatcher
 
-FLAGSHIP = ["--vocab", "32768", "--hidden", "4096", "--layers", "4",
+FLAGSHIP = ["--serving", "paged", "--vocab", "32768", "--hidden", "4096", "--layers", "4",
             "--heads", "32", "--prompt-len", "128", "--page-size", "128",
             "--batch-per-chip", "8", "--steps", "512"]
 WINDOW = 32
@@ -106,7 +109,9 @@ def main(argv=None) -> int:
     cb = steady_batcher(extra)
     wall, tokens = timed_window(cb)
     ms_step = wall / WINDOW * 1e3
-    mode = f"speculative k={cb.speculate_k}" if cb.speculate_k else "decode"
+    k = getattr(cb, "speculate_k", None)
+    mode = (f"speculative k={k}" if k else "decode"
+            if isinstance(cb, PagedContinuousBatcher) else "dense decode")
     print(f"steady {mode}: {cb.slots} active slots, {WINDOW} steps in "
           f"{wall * 1e3:.2f} ms -> {ms_step:.3f} ms/step, {tokens} tokens "
           f"({tokens / WINDOW:.2f} a step), {tokens / wall:.1f} tok/s",
@@ -145,7 +150,11 @@ def main(argv=None) -> int:
               f"({k1 / busy * 100:.1f}% of device time), K2/K2q "
               f"{k2 / WINDOW * 1e3:.1f} us/step ({k2 / busy * 100:.1f}%)",
               flush=True)
+        launches = sum(n for _, n in kernels.values()) / WINDOW
+        print(f"profile: {launches:.1f} device kernel launches a step",
+              flush=True)
         summary.update(device_busy_ms_per_step=busy / WINDOW,
+                       launches_per_step=launches,
                        idle_share=idle, idle_share_unprofiled=idle_unprofiled,
                        k1_us_per_step=k1 / WINDOW * 1e3,
                        k2_us_per_step=k2 / WINDOW * 1e3)

@@ -105,6 +105,36 @@ CATALOG: Dict[str, MetricSpec] = {
         "range back to 127, shrink the scale — recovers precision a "
         "rejected speculative row's grow-and-rescale inflation "
         "squeezed out; a no-op for already-tight pages)"),
+    "serve_kv_quant_agreement": _g(
+        (), "measured token agreement of the int8 pool vs the "
+        "full-width pool on identical traffic (bench.py "
+        "serving_quantized_pool; models/serving.record_quant_quality)"),
+    "serve_kv_quant_divergence_margin": _g(
+        (), "top1-top2 logit margin at the first int8-vs-full-width "
+        "token divergence (near-tie ⇒ the expected quantization "
+        "rounding class; a wide margin would mean a real bug)"),
+    "serve_kv_quant_ppl_delta": _g(
+        (), "teacher-forced eval NLL delta of the int8-pool stream vs "
+        "the full-width pool's (the eval_ppl_delta_int8 discipline "
+        "applied to the page pool)"),
+
+    # -- sampled-speculation quality (models/serving.py
+    #    record_sampling_quality): per-position acceptance plus
+    #    distribution-agreement evidence for lossless rejection sampling
+    "serve_sampled_accept_rate": _g(
+        ("lane",), "mean accepted-draft fraction of the sampled-"
+        "speculation bench lane ((emitted-1)/k averaged over verifies); "
+        "lane=dense (slot batcher) or lane=paged (page-pool batcher)"),
+    "serve_sampled_nll_delta": _g(
+        ("lane",), "teacher-forced target-model NLL of the spec-sampled "
+        "streams minus the plain-sampled streams' (same seeds; ~0 "
+        "within sampling noise when rejection sampling is lossless); "
+        "lane=dense|paged"),
+    "serve_sampled_unigram_agreement": _g(
+        ("lane",), "L1 overlap of the unigram token histograms of the "
+        "spec-sampled vs plain-sampled streams (1.0 = identical "
+        "marginal distributions; a distribution-level lossless check); "
+        "lane=dense|paged"),
 
     # -- speculation (models/paging.py with speculate_k)
     "serve_spec_steps_total": _c((), "speculative verify iterations"),

@@ -161,3 +161,64 @@ def test_generate_refuses_what_this_slice_does_not_serve(torch_params):
     with pytest.raises(ValueError, match="max_seq"):
         greedy_generate(torch_params, prompt, 40, dtype=torch.float32,
                         device="cpu", **CFG)
+
+
+@pytest.mark.parametrize("plen, steps", [(5, 10), (1, 12)])
+def test_int8_greedy_generate_equals_jax(jax_params, torch_params, plen,
+                                         steps):
+    """``quant=True`` over a ``quantize_params_int8`` tree: the JAX
+    function's weight-only int8 decode, token for token."""
+    from kubegpu_tpu.models.decoding import (
+        quantize_params_int8 as jax_quantize_params_int8,
+    )
+    from kubegpu_tpu_torch.models.decoding import quantize_params_int8
+
+    prompt = (np.arange(2 * plen, dtype=np.int32)
+              % CFG["vocab_size"]).reshape(2, plen)
+    want = np.asarray(jax_greedy_generate(
+        jax_quantize_params_int8(jax_params), jnp.asarray(prompt), steps,
+        dtype=jnp.float32, quant=True, **CFG))
+    got = greedy_generate(quantize_params_int8(torch_params),
+                          torch.from_numpy(prompt), steps,
+                          dtype=torch.float32, quant=True, device="cpu",
+                          **CFG)
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_speculative_decode_composes_with_int8_target(jax_params,
+                                                      torch_params):
+    """tests/test_generate.py:557: an int8 target verified against a
+    full-width draft emits plain int8 greedy's tokens, and JAX's
+    speculative tokens and verify count."""
+    from kubegpu_tpu.models.decoding import (
+        quantize_params_int8 as jax_quantize_params_int8,
+    )
+    from kubegpu_tpu.models.speculative import (
+        speculative_generate as jax_speculative_generate,
+    )
+    from kubegpu_tpu_torch.models.decoding import quantize_params_int8
+    from kubegpu_tpu_torch.models.speculative import speculative_generate
+
+    draft = TransformerLM(dtype=jnp.float32, vocab_size=CFG["vocab_size"],
+                          max_seq=CFG["max_seq"], num_layers=1, num_heads=2,
+                          hidden=16)
+    jd = draft.init(jax.random.PRNGKey(7),
+                    jnp.ones((2, 8), jnp.int32))["params"]
+    td = params_from_numpy(jax.tree.map(np.asarray, jd))
+    prompt = (np.arange(2 * 5, dtype=np.int32)
+              % CFG["vocab_size"]).reshape(2, 5)
+    dims = dict(draft_num_layers=1, draft_num_heads=2, draft_hidden=16)
+    qj = jax_quantize_params_int8(jax_params)
+    qt = quantize_params_int8(torch_params)
+    want, want_calls = jax_speculative_generate(
+        qj, jd, jnp.asarray(prompt), 10, k=3, dtype=jnp.float32, quant=True,
+        **CFG, **dims)
+    got, calls = speculative_generate(
+        qt, td, torch.from_numpy(prompt), 10, k=3, dtype=torch.float32,
+        quant=True, device="cpu", **CFG, **dims)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    assert calls == int(want_calls)
+    plain = greedy_generate(qt, torch.from_numpy(prompt), 10,
+                            dtype=torch.float32, quant=True, device="cpu",
+                            **CFG)
+    np.testing.assert_array_equal(got.numpy(), plain.numpy())

@@ -8,7 +8,10 @@ parity with a JAX replica, sampled and seed-pinned requests streaming a
 JAX replica's tokens, the migration routes answering (export, import,
 role; tests/test_torch_migration_http.py holds them against the JAX
 package), a batcher failure ending the streams, and the worker
-subprocess.  Tiny fp32 replicas on the CPU, as in
+subprocess; and the same gateway over the dense ``ContinuousBatcher``
+replicas of both packages (streams, wire cancel, ``/v1/state`` and the
+migration routes answering as the JAX dense replica answers, the
+worker's ``--serving continuous --serve-http``).  Tiny fp32 replicas on the CPU, as in
 tests/test_http_data_plane.py; every wait is a bounded poll."""
 
 import http.client
@@ -39,6 +42,9 @@ from kubegpu_tpu.models import TransformerLM
 from kubegpu_tpu.models.paging import (
     PagedContinuousBatcher as JaxPagedContinuousBatcher,
 )
+from kubegpu_tpu.models.serving import (
+    ContinuousBatcher as JaxContinuousBatcher,
+)
 from kubegpu_tpu.testing.fake_serving import build_fake_serving_stack
 from kubegpu_tpu.testing.tlsutil import make_self_signed
 from kubegpu_tpu.utils.metrics import Metrics as JaxMetrics
@@ -46,6 +52,7 @@ from kubegpu_tpu.utils.tracing import serve_retire_violations, validate_trace
 from kubegpu_tpu_torch.gateway.dataplane import ReplicaServer
 from kubegpu_tpu_torch.models.paging import PagedContinuousBatcher
 from kubegpu_tpu_torch.models.params import params_from_numpy
+from kubegpu_tpu_torch.models.serving import ContinuousBatcher
 from kubegpu_tpu_torch.utils.metrics import Metrics
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -639,10 +646,11 @@ def test_worker_serve_http_subprocess(tmp_path):
     token.write_text("sekrit\n")
     proc = subprocess.Popen(
         [sys.executable, "-m", "kubegpu_tpu_torch.models.worker",
-         "--model", "decode", "--device", "cpu", "--serve-http", "0",
-         "--vocab", "61", "--layers", "1", "--heads", "2", "--hidden", "16",
-         "--seq", "47", "--prompt-len", "12", "--page-size", "4",
-         "--batch-per-chip", "3", "--steps", "8", "--serve-fp32",
+         "--model", "decode", "--serving", "paged", "--device", "cpu",
+         "--serve-http", "0", "--vocab", "61", "--layers", "1", "--heads",
+         "2", "--hidden", "16", "--seq", "47", "--prompt-len", "12",
+         "--page-size", "4", "--batch-per-chip", "3", "--steps", "8",
+         "--serve-fp32",
          "--serve-http-auth-token-file", str(token)],
         cwd=str(tmp_path), env=env, stdout=subprocess.PIPE,
         stderr=subprocess.STDOUT, text=True)
@@ -673,3 +681,179 @@ def test_worker_serve_http_subprocess(tmp_path):
             proc.kill()
             proc.communicate()
 
+
+
+# ---------------------------------------------------------------------------
+# the dense ContinuousBatcher behind the replica
+# ---------------------------------------------------------------------------
+
+DENSE_KW = dict(slots=3, prompt_pad=12, prefill_chunk=4)
+
+
+def _torch_dense(torch_params):
+    return ContinuousBatcher(torch_params, dtype=torch.float32, device="cpu",
+                             **TINY, **DENSE_KW)
+
+
+def _jax_dense(jax_params):
+    return JaxContinuousBatcher(jax_params, dtype=jnp.float32, **TINY,
+                                **DENSE_KW)
+
+
+def test_jax_gateway_fronts_dense_jax_and_torch_replicas(jax_params,
+                                                         torch_params):
+    """A JAX gateway over one JAX and one torch ContinuousBatcher replica
+    serves the streams of the in-memory JAX data plane over JAX dense
+    batchers, both replicas taking traffic."""
+    prompts, budgets = _prompts()
+    states = {}
+
+    def mixed(registry):
+        client = HttpReplicaClient()
+        made = []
+        for rep, kind in zip(registry.live(), ("jax", "torch")):
+            srv = (JaxReplicaServer(_jax_dense(jax_params), step_delay_s=0.02)
+                   if kind == "jax" else
+                   ReplicaServer(_torch_dense(torch_params),
+                                 step_delay_s=0.02)).start()
+            made.append((kind, srv))
+            client.set_endpoint(rep.key, srv.endpoint)
+        orig_stop = client.stop
+
+        def stop():
+            for kind, srv in made:
+                states[kind] = json.loads(_get(srv, "/v1/state")[1])
+            orig_stop()
+
+        client.stop = stop
+        return client, [srv for _, srv in made]
+
+    def inmemory(registry):
+        client = InMemoryReplicaClient(
+            batcher_factory=lambda key: _jax_dense(jax_params))
+        for rep in registry.live():
+            client.add_replica(rep.key)
+        return client, []
+
+    assert (_drive_gateway(mixed, prompts, budgets)
+            == _drive_gateway(inmemory, prompts, budgets))
+    for kind in ("jax", "torch"):
+        assert states[kind]["stats"]["admits"] >= 1, (kind, states)
+    assert (states["jax"]["stats"]["admits"]
+            + states["torch"]["stats"]["admits"]) == len(prompts)
+
+
+def test_dense_replica_answers_like_the_jax_dense_replica(jax_params,
+                                                          torch_params):
+    """The same requests, one at a time, to a JAX and a torch dense
+    replica: equal streams; then ``/v1/state`` and the migration routes
+    (a live export, a sealed-chain capture, a sealed import, a role
+    flip) answer alike — a dense batcher speaks no migration verb."""
+    prompts, budgets = _prompts()
+    srvs = {"jax": JaxReplicaServer(_jax_dense(jax_params),
+                                    step_delay_s=0.02).start(),
+            "torch": ReplicaServer(_torch_dense(torch_params),
+                                   step_delay_s=0.02).start()}
+    client = HttpReplicaClient(endpoints={k: s.endpoint
+                                          for k, s in srvs.items()})
+    answers = {}
+    try:
+        for key, srv in srvs.items():
+            got = []
+            for i, (p, m) in enumerate(zip(prompts, budgets)):
+                a = client.submit(key, _req(f"{key}-{i}", p, m))
+                assert a.wait(45) and a.result().ok, (key, a.result())
+                got.append(a.result().tokens)
+            long = client.submit(key, _req(f"{key}-live", [1, 2, 3], 30))
+            _wait(lambda: srv.loop.control(
+                lambda: srv.batcher.live_tokens()), msg="a live stream")
+            answers[key] = dict(
+                streams=got,
+                export=_post(srv, "/v1/export",
+                             {"request_id": f"{key}-live"}),
+                missing=_post(srv, "/v1/export", {"request_id": "nope"}),
+                sealed=_post(srv, "/v1/export", {"stream": [1, 2, 3]}),
+                empty=_post(srv, "/v1/export", {}),
+                role=_post(srv, "/v1/role", {"role": "decode"}),
+            )
+            client.cancel(long)
+            assert long.wait(30)
+            _wait(lambda: srv.loop.active_streams() == 0)
+            state = json.loads(_get(srv, "/v1/state")[1])
+            answers[key]["state"] = state
+    finally:
+        client.stop()
+        for srv in srvs.values():
+            srv.stop()
+    jax_side, torch_side = answers["jax"], answers["torch"]
+    assert torch_side == jax_side
+    assert torch_side["export"][0] == 409
+    assert "migration verbs" in torch_side["export"][1]["error"]
+    assert torch_side["missing"][0] == 404
+    assert torch_side["sealed"] == (200, {"payload": None, "pages": 0})
+    assert torch_side["state"]["stats"]["admits"] == len(prompts) + 1
+
+
+def test_dense_wire_cancel_frees_the_slot(torch_params):
+    cb = _torch_dense(torch_params)
+    srv = ReplicaServer(cb, step_delay_s=0.03).start()
+    client = HttpReplicaClient(endpoints={"r0": srv.endpoint})
+    try:
+        deltas = []
+        a = client.submit("r0", _req(
+            "long", [1, 2, 3], 40, on_tokens=lambda at, d: deltas.append(d)))
+        _wait(lambda: deltas, msg="first streamed tokens")
+        client.cancel(a)
+        assert a.wait(30) and not a.result().ok
+        _wait(lambda: not cb.has_work(), msg="replica idle after cancel")
+        assert sum(len(d) for d in deltas) < 40
+        assert all(s.seq_id < 0 for s in cb._slots)
+        _wait(lambda: srv.metrics.get("replica_http_cancels_total") >= 1,
+              msg="the wire cancel counted")
+        status, events = _post(srv, "/v1/submit", {
+            "request_id": "next", "prompt": [4, 5], "max_new_tokens": 3})
+        assert status == 200 and events[-1][0] == "done"
+        assert events[-1][1]["tokens"] == _torch_dense(torch_params).run(
+            [np.array([4, 5], np.int32)], [3])[0]
+    finally:
+        srv.stop()
+        client.stop()
+
+
+def test_worker_serves_continuous_over_http(tmp_path):
+    env = dict(os.environ, PYTHONPATH=REPO)
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "kubegpu_tpu_torch.models.worker",
+         "--model", "decode", "--serving", "continuous", "--device", "cpu",
+         "--serve-http", "0", "--vocab", "61", "--layers", "1", "--heads",
+         "2", "--hidden", "16", "--seq", "47", "--prompt-len", "12",
+         "--batch-per-chip", "3", "--steps", "8", "--serve-fp32"],
+        cwd=str(tmp_path), env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True)
+    try:
+        line = ""
+        deadline = time.monotonic() + 60
+        while time.monotonic() < deadline:
+            line = proc.stdout.readline()
+            if line.startswith("REPLICA_HTTP_SERVING") or not line:
+                break
+        assert line.startswith("REPLICA_HTTP_SERVING"), line
+        fields = dict(f.split("=", 1) for f in line.split()[1:])
+        assert fields["serving"] == "continuous"
+        srv = types.SimpleNamespace(address=("127.0.0.1",
+                                             int(fields["port"])))
+        status, events = _post(srv, "/v1/submit", {
+            "request_id": "w", "prompt": [1, 2, 3], "max_new_tokens": 6})
+        assert status == 200 and events[-1][0] == "done"
+        assert len(events[-1][1]["tokens"]) == 6
+        state = json.loads(_get(srv, "/v1/state")[1])
+        assert state["stats"]["admits"] == 1 and "pages" not in state
+        proc.send_signal(signal.SIGTERM)
+        out, _ = proc.communicate(timeout=60)
+        assert proc.returncode == 0, out
+        assert "REPLICA_HTTP_STOPPED" in out and "error=False" in out
+        assert "K1_LAUNCHES=0" in out
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()

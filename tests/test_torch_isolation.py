@@ -46,10 +46,11 @@ def test_importing_every_module_leaves_jax_out():
     n_modules = int(first.split()[0])
     assert n_modules >= 25
     # the HTTP replica slice's own copies of the JAX package's
-    # stdlib-only modules, and the sampling slice's counter-based PRNG
+    # stdlib-only modules, the sampling slice's counter-based PRNG and
+    # the dense serving slice's batchers
     for name in ("gateway", "gateway.client", "gateway.dataplane", "utils",
                  "utils.metrics", "utils.tracing", "utils.metric_names",
-                 "ops.prng"):
+                 "ops.prng", "models.serving", "models.spec_serving"):
         assert f"kubegpu_tpu_torch.{name}" in imported.split(), name
 
 
@@ -115,7 +116,8 @@ def test_speculative_entry_points_default_to_the_card(monkeypatch):
                              k=2, draft_num_layers=1, draft_num_heads=2,
                              draft_hidden=16, **cfg)
     with pytest.raises(RuntimeError, match="no CUDA device"):
-        worker.run_decode(worker.build_parser().parse_args(["--speculate"]))
+        worker.run_decode(worker.build_parser().parse_args(
+            ["--serving", "paged", "--speculate"]))
 
 
 def test_training_entry_points_default_to_the_card(monkeypatch):
@@ -169,7 +171,47 @@ def test_serve_http_without_a_card_raises_before_binding(monkeypatch):
 
     monkeypatch.setattr(socket.socket, "bind", bind)
     with pytest.raises(RuntimeError, match="no CUDA device"):
-        worker.main(["--model", "decode", "--serve-http", "0"])
+        worker.main(["--model", "decode", "--serving", "paged",
+                     "--serve-http", "0"])
     with pytest.raises(RuntimeError, match="no CUDA device"):
-        worker.main(["--model", "decode", "--serve-http", "0", "--speculate"])
+        worker.main(["--model", "decode", "--serving", "paged",
+                     "--serve-http", "0", "--speculate"])
     assert bound == []
+
+
+def test_dense_batchers_default_to_the_card(monkeypatch):
+    """The dense serving slice's entry points run on the card unless asked
+    for the CPU: both batchers, ``generate(quant=True)`` and the worker's
+    ``static``, ``continuous`` and ``speculative`` modes raise without
+    one."""
+    from kubegpu_tpu_torch.models import worker
+    from kubegpu_tpu_torch.models.decoding import (
+        generate,
+        quantize_params_int8,
+    )
+    from kubegpu_tpu_torch.models.params import init_params
+    from kubegpu_tpu_torch.models.serving import ContinuousBatcher
+    from kubegpu_tpu_torch.models.spec_serving import (
+        SpeculativeContinuousBatcher,
+    )
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = dict(vocab_size=16, num_layers=1, num_heads=2, hidden=16,
+               max_seq=16)
+    params = init_params(cfg, torch.Generator().manual_seed(0),
+                         torch.float32, "cpu")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ContinuousBatcher(params, **cfg, prompt_pad=8)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        SpeculativeContinuousBatcher(params, params, **cfg, prompt_pad=8,
+                                     draft_num_layers=1, draft_num_heads=2,
+                                     draft_hidden=16)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        generate(quantize_params_int8(params), np.zeros((1, 2), np.int32),
+                 2, quant=True, **cfg)
+    for serving in ("static", "continuous", "speculative"):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            worker.run_decode(worker.build_parser().parse_args(
+                ["--serving", serving]))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        worker.main(["--serving", "continuous", "--serve-http", "0"])

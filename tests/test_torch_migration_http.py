@@ -504,10 +504,11 @@ def test_worker_role_and_fail_migration_flags(tmp_path):
     env = dict(os.environ, PYTHONPATH=REPO)
     proc = subprocess.Popen(
         [sys.executable, "-m", "kubegpu_tpu_torch.models.worker",
-         "--model", "decode", "--device", "cpu", "--serve-http", "0",
-         "--vocab", "61", "--layers", "1", "--heads", "2", "--hidden", "16",
-         "--seq", "47", "--prompt-len", "12", "--page-size", "4",
-         "--batch-per-chip", "3", "--steps", "8", "--serve-fp32",
+         "--model", "decode", "--serving", "paged", "--device", "cpu",
+         "--serve-http", "0", "--vocab", "61", "--layers", "1", "--heads",
+         "2", "--hidden", "16", "--seq", "47", "--prompt-len", "12",
+         "--page-size", "4", "--batch-per-chip", "3", "--steps", "8",
+         "--serve-fp32",
          "--role", "prefill", "--serve-http-fail-migration"],
         cwd=str(tmp_path), env=env, stdout=subprocess.PIPE,
         stderr=subprocess.STDOUT, text=True)

@@ -63,6 +63,11 @@ WANT_NAMES = {
     "replica_migrate_pages_total", "replica_migrate_seconds",
     "replica_migrate_wire_bytes_total",
     "serve_handoff_pages_reclaimed_total",
+    # the measured-quality gauges (models/serving.py's
+    # record_quant_quality and record_sampling_quality)
+    "serve_kv_quant_agreement", "serve_kv_quant_divergence_margin",
+    "serve_kv_quant_ppl_delta", "serve_sampled_accept_rate",
+    "serve_sampled_nll_delta", "serve_sampled_unigram_agreement",
 }
 
 

@@ -243,7 +243,8 @@ def test_worker_serve_replays_waves(tmp_path):
     env = dict(os.environ, PYTHONPATH=REPO)
     proc = subprocess.Popen(
         [sys.executable, "-m", "kubegpu_tpu_torch.models.worker",
-         "--model", "decode", "--device", "cpu", "--serve", "--vocab", "61",
+         "--model", "decode", "--serving", "paged", "--device", "cpu",
+         "--serve", "--vocab", "61",
          "--layers", "1", "--heads", "2", "--hidden", "16", "--seq", "47",
          "--prompt-len", "12", "--page-size", "4", "--batch-per-chip", "2",
          "--steps", "4", "--serve-fp32"],
@@ -264,3 +265,105 @@ def test_worker_serve_replays_waves(tmp_path):
     finally:
         proc.kill()
         proc.communicate()
+
+
+# tests/test_worker_modes.py's tiny decode geometry
+MODES_TINY = ["--model", "decode", "--steps", "4", "--batch-per-chip", "2",
+              "--vocab", "64", "--layers", "1", "--heads", "2", "--hidden",
+              "16", "--seq", "16", "--prompt-len", "4", "--device", "cpu"]
+
+
+def test_worker_serves_static_by_default(capsys):
+    """tests/test_worker_modes.py:138: with no --serving the worker runs
+    the aligned-batch static decode, as the JAX worker does, and prints
+    its lines; the dense path launches no kernel of the port."""
+    assert worker.build_parser().parse_args([]).serving == "static"
+    assert worker.main(MODES_TINY) == 0
+    out = capsys.readouterr().out
+    assert re.search(r"^FIRST_DECODE_DONE seconds=[\d.]+$", out, re.M)
+    assert re.search(r"^DECODE_DONE tokens_per_sec=[\d.]+ "
+                     r"ms_per_call=[\d.]+$", out, re.M), out
+    launches = re.search(r"^KERNEL_LAUNCHES (.*) serving=static "
+                         r"device=cpu$", out, re.M)
+    assert launches, out
+    counts = dict(kv.split("=") for kv in launches.group(1).split())
+    assert sorted(counts) == ["K1", "K1q", "K2", "K2q", "K3", "K4", "K5"]
+    assert set(counts.values()) == {"0"}
+
+
+def test_worker_static_serves_int8(capsys):
+    """tests/test_worker_modes.py:149."""
+    assert worker.main(MODES_TINY + ["--int8"]) == 0
+    out = capsys.readouterr().out
+    assert "SERVING_INT8" in out and "DECODE_DONE" in out
+
+
+def test_worker_static_decodes_greedy_generate_of_the_jax_prompt():
+    """The static batch is ``np.random.RandomState(1)``'s (batch,
+    prompt_len) draw, decoded by ``greedy_generate`` over the served
+    weights (int8 ones under --int8)."""
+    import numpy as np
+    import torch
+
+    from kubegpu_tpu_torch.models.decoding import greedy_generate
+
+    for extra in ([], ["--int8"]):
+        args = worker.build_parser().parse_args(MODES_TINY + ["--serve-fp32"]
+                                                + extra)
+        r = worker.run_static(args)
+        params, cfg, dtype = worker.serving_params(args, "cpu")
+        prompt = np.random.RandomState(1).randint(0, 64, size=(2, 4))
+        want = greedy_generate(params, torch.from_numpy(prompt).int(), 4,
+                               **cfg, dtype=dtype, quant=bool(extra),
+                               device="cpu")
+        assert torch.equal(r["outputs"], want)
+        assert r["tokens"] == 8 and r["ms_per_call"] > 0
+
+
+@pytest.mark.parametrize("serving", ["continuous", "paged", "speculative"])
+def test_worker_serves_batched_strategies(capsys, serving):
+    """tests/test_worker_modes.py:170."""
+    assert worker.main(MODES_TINY + ["--serving", serving]) == 0
+    out = capsys.readouterr().out
+    assert f"serving={serving}" in out and "DECODE_DONE" in out
+    assert "admits=4" in out  # 2 slots x 2 = 4 requests through the wave
+
+
+def test_worker_dense_waves_equal_the_paged_wave():
+    """At fp32 the three batchers serve the worker's wave token for
+    token, greedy and seed-pinned sampled; the dense modes launch no
+    kernel of the port."""
+    for extra in ([], ["--sample-temperature", "0.9", "--sample-top-k",
+                       "5"]):
+        outs = {}
+        for serving in ("paged", "continuous", "speculative"):
+            args = worker.build_parser().parse_args(
+                TINY + ["--device", "cpu", "--serve-fp32", "--serving",
+                        serving] + extra)
+            r = worker.run_decode(args)
+            outs[serving] = r["outputs"]
+            assert set(r["launches"].values()) == {0}
+            assert r["cache_bytes"] > 0
+        assert outs["continuous"] == outs["paged"]
+        if not extra:
+            # sampled speculation is lossless in distribution only
+            assert outs["speculative"] == outs["paged"]
+
+
+@pytest.mark.parametrize("argv, match", [
+    (["--serving", "continuous", "--kv-dtype", "int8"], "PAGED pool's knob"),
+    (["--serving", "speculative", "--kv-dtype", "int8"], "PAGED pool's knob"),
+    (["--serving", "static", "--kv-dtype", "int8"], "PAGED pool's knob"),
+    (["--serving", "continuous", "--tp", "2"], "single-device"),
+    (["--serving", "speculative", "--tp", "2"], "single-device"),
+    (["--serving", "static", "--tp", "2"], "paged batcher's mesh"),
+    (["--serving", "static", "--serve-http", "0"], "incremental serving"),
+    (["--serving", "speculative", "--serve-http", "0"],
+     "incremental serving"),
+    (["--steps", "60"], "exceeds"),
+], ids=["kv-continuous", "kv-speculative", "kv-static", "tp-continuous",
+        "tp-speculative", "tp-static", "http-static", "http-speculative",
+        "static-oversized"])
+def test_worker_keeps_the_jax_workers_refusals(argv, match):
+    with pytest.raises(SystemExit, match=match):
+        worker.main(MODES_TINY + argv)
