@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Builds every kernel of the port's serving and training paths from the
-sources in the checkout, then runs thirty-four phases; any failure exits
+sources in the checkout, then runs forty phases; any failure exits
 non-zero:
 
 1. device: the card's name and power limit, TF32 off;
@@ -207,6 +207,34 @@ non-zero:
    continuous --serve-http 0`` in a subprocess: four streamed requests,
    a wire cancel, ``/v1/state`` and the export route answering as the
    JAX dense replica does.
+
+35. K1, K1q, K2 and K2q through their head-sharded wrappers on each of
+   two ranks' halves of the flagship's heads (16 of 32 heads of 128,
+   pages of 128, phases 2-3's tables, lengths and windows), float32 and
+   bfloat16: within phases 2-3's tolerances of the plain version on the
+   same half and bit for bit the unsharded kernel's heads; each kernel's
+   time at one rank's shape (graph replay), its plain time and bound;
+36. tensor-parallel serving, a gang of two ranks, both on the card over
+   gloo (NCCL refuses two ranks on one GPU; gloo copies each collective
+   through the host, so no time here is a TP speed): phase 6's float32
+   model at TP 2 against the card's TP 1 batcher, plain, speculative and
+   int8 pool, token for token; each rank rests exactly half the pool,
+   station and draft ring, and launched its kernel steps x layers times
+   (counts set to 0 in each rank just before its wave);
+37. the flagship's full width in bfloat16 (vocab 32768, hidden 4096, 4
+   layers, 32 heads: 16 a rank, pages of 128, 8 slots, 8 requests):
+   TP 2 plain, speculative (k 4), int8 pool and int8 pool speculative
+   against TP 1 under the near-tie rule (the card's dense model puts
+   the top two logits within 0.125 at a first difference), the bytes and
+   each rank's launches as in 36, and the wave's seconds beside TP 1's;
+38. a TP 2 sequence exported mid-stream continues in a card TP 1
+   batcher as the stream that never migrated (float32);
+39. a TP 2 replica (rank 0 runs the ``ReplicaServer``) answers four
+   requests over loopback with the card TP 1 streams; ``/v1/state``
+   reports ``tp`` 2;
+40. the worker's ``--tp 2``: refused on a one-card machine ("exceeds the
+   visible device count"), and the NCCL path reported as not exercised;
+   with two cards or more, the same wave over NCCL.
 
 Phases 29-34 set every kernel's launch count to 0 before each dense run
 and require it to be 0 after: the dense paths run none of K1-K5.
@@ -3206,6 +3234,337 @@ def phase_dense_worker() -> dict:
             proc.wait()
 
 
+# tensor parallelism: two ranks, each with half the flagship's 32 heads
+TP = 2
+TP_PAGED = dict(b=8, h=32 // TP, hd=128, page=128)
+TP_FLAGSHIP = dict(vocab_size=32768, num_layers=4, num_heads=32,
+                   hidden=4096, max_seq=1025)
+TP_FLAGSHIP_KW = dict(slots=8, prompt_pad=128, page_size=128, pool_pages=25)
+TP_DRAFT = dict(draft_num_layers=1, draft_num_heads=8, draft_hidden=1024)
+
+
+def phase_tp_kernels() -> dict:
+    """Phase 35: K1, K1q, K2 and K2q through their head-sharded wrappers
+    on each rank's half of the flagship's heads (8 slots, 16 of 32 heads
+    of 128, pages of 128, phases 2-3's tables and lengths), float32 and
+    bfloat16: within phases 2-3's tolerances of the plain version on the
+    same half, and bit for bit the unsharded kernel's result for those
+    heads.  Each kernel's time at the rank's shape (graph replay), the
+    plain time and the bound."""
+    import torch
+
+    from kubegpu_tpu_torch.ops import paged_attention as pa
+    from kubegpu_tpu_torch.parallel.mesh import Mesh
+
+    dev = torch.device("cuda")
+    b, h, hd, page = TP_PAGED["b"], TP_PAGED["h"] * TP, TP_PAGED["hd"], (
+        TP_PAGED["page"])
+    n_pages = CONTEXT_ROWS // page
+    pool = b * n_pages + 8
+    meshes = [Mesh(size=TP, rank=r, device=dev, backend="gloo")
+              for r in range(TP)]
+    rec = {}
+    for name, L, quant in (("paged_decode_attention", 1, False),
+                           ("paged_decode_attention_int8", 1, True),
+                           ("paged_chunk_attention", SPEC_K + 1, False),
+                           ("paged_chunk_attention_int8", SPEC_K + 1, True)):
+        kernel, plain, sharded = (
+            (pa.paged_decode_attention, pa.paged_decode_attention_plain,
+             pa.paged_decode_attention_sharded) if L == 1 else
+            (pa.paged_chunk_attention, pa.paged_chunk_attention_plain,
+             pa.paged_chunk_attention_sharded))
+        lengths_l = ([0, 1, page - 1, page, 200, 513, 1000, n_pages * page]
+                     if L == 1 else
+                     [1, page - 4, page - 2, page - 1, page, 513, 1000,
+                      n_pages * page - (L - 1)])
+        g = torch.Generator(device=dev).manual_seed(41 + L + 2 * quant)
+        table = torch.stack([torch.randperm(pool, generator=g,
+                                            device=dev)[:n_pages]
+                             for _ in range(b)]).to(torch.int32)
+        lengths = torch.tensor(lengths_l, dtype=torch.int32, device=dev)
+        for dtype, rtol, atol in ((torch.float32, F32_TOL, F32_TOL),
+                                  (torch.bfloat16, BF16_RTOL, BF16_ATOL)):
+            shape = (b, h, hd) if L == 1 else (b, L, h, hd)
+            q = torch.randn(shape, generator=g, device=dev).to(dtype)
+            kp, vp, sc, _ = paged_operands((pool, h, page, hd), dtype, g,
+                                           quant)
+            whole = kernel(q, kp, vp, table, lengths, **sc)
+            w, err, shards = h // TP, 0.0, []
+            for rank in range(TP):
+                heads = slice(rank * w, (rank + 1) * w)
+                args = (q[..., heads, :].contiguous(),
+                        kp[:, heads].contiguous(), vp[:, heads].contiguous(),
+                        table, lengths)
+                scs = {k: v[:, heads].contiguous() for k, v in sc.items()}
+                out = sharded(*args, meshes[rank], h, **scs)
+                want = plain(*args, **scs)
+                torch.testing.assert_close(out.float(), want.float(),
+                                           rtol=rtol, atol=atol)
+                assert torch.equal(out, whole[..., heads, :]), (
+                    f"{name} rank {rank} differs from the unsharded kernel")
+                err = max(err, (out.float() - want.float()).abs().max()
+                          .item())
+                shards.append((args, scs))
+            dname = str(dtype).replace("torch.", "")
+            log(f"TP {name} {dname} ({w} of {h} heads a rank): "
+                f"max|kernel - plain| = {err:.3e}, each rank's heads equal "
+                "the unsharded kernel's bit for bit")
+            if dtype != torch.bfloat16:
+                continue
+            args, scs = shards[0]
+            rows = [min(n + L - 1, n_pages * page) for n in lengths_l]
+            live_pages = sum(-(-n // page) for n in rows)
+            nbytes = (2 * sum(rows) * w * hd * args[1].element_size()
+                      + 2 * live_pages * w * 4 * quant
+                      + 2 * b * L * w * hd * q.element_size()
+                      + 4 * (live_pages + b))
+            flops = 4 * sum(min(n + j, n_pages * page) for n in lengths_l
+                            for j in range(L)) * w * hd
+            bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+            flops_ms = flops / F32_FLOPS_PER_S * 1e3
+            bound_ms = max(bytes_ms, flops_ms)
+            ms = graph_ms(lambda: sharded(*args, meshes[0], h, **scs), 50)
+            plain_ms = time_ms(lambda: plain(*args, **scs), 5)
+            log(f"TP {name} bfloat16 at one rank's {w} heads: kernel "
+                f"{ms * 1e3:.2f} us (graph replay), plain "
+                f"{plain_ms * 1e3:.2f} us, bound {bound_ms * 1e3:.2f} us by "
+                f"{'bytes' if bytes_ms >= flops_ms else 'operations'} -> "
+                f"{bound_ms / ms * 100:.1f}% of bound")
+            rec[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                             max_abs_err=err)
+    return rec
+
+
+def _np_tree(tree):
+    return {k: _np_tree(v) if isinstance(v, dict) else v.cpu().numpy()
+            for k, v in tree.items()}
+
+
+def tp_gang(tmp: str, device: str):
+    """Two ranks on the one card over gloo (NCCL refuses two ranks on
+    one GPU): gloo copies each collective's tensors through the host."""
+    from kubegpu_tpu_torch.parallel.launch import Gang
+
+    dev = "cuda:0" if device == "cuda" else device
+    return Gang(TP, tmp, backend="gloo", devices=[dev] * TP,
+                timeout_s=600.0)
+
+
+def tp_cases():
+    """The rank bodies the port's tensor-parallel tests share
+    (``tests/torch_tp_cases.py``); the gang's processes inherit the
+    path."""
+    import os
+
+    tests = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                         "tests")
+    if tests not in sys.path:
+        sys.path.insert(0, tests)
+    import torch_tp_cases
+
+    return torch_tp_cases
+
+
+def tp_check_ranks(label: str, got: dict, ref_cb, key: str,
+                   layers: int) -> None:
+    """(c) each rank rests half the unsharded batcher's pool, station and
+    ring; (d) each rank launched ``key`` steps x layers times (on the
+    card; the CPU launches none)."""
+    full = tp_cases().rank_bytes(ref_cb)
+    steps = got["stats"]["steps"]
+    if ref_cb.device.type != "cuda":
+        layers = 0
+    for rank, (sizes, launches) in enumerate(zip(got["rank_bytes"],
+                                                 got["rank_launches"])):
+        assert {k: TP * v for k, v in sizes.items()} == full, (
+            label, rank, sizes, full)
+        assert launches[key] == steps * layers, (label, rank, launches)
+        others = {k: v for k, v in launches.items() if k != key}
+        assert not any(others.values()), (label, rank, launches)
+        log(f"TP {label}: rank {rank} rests {sizes} B (unsharded {full}), "
+            f"launched {key} {launches[key]} = {steps} steps x {layers} "
+            "layers")
+
+
+def phase_tp(ctx: dict, device: str = "cuda", flagship: dict = TP_FLAGSHIP,
+             flagship_kw: dict = TP_FLAGSHIP_KW,
+             draft: dict = TP_DRAFT) -> dict:
+    """Phases 36-40: tensor-parallel serving, a two-rank gloo gang with
+    both ranks on the card (host-staged collectives: its times are no
+    tensor-parallel speed).  ``device="cpu"`` with a small ``flagship``
+    rehearses it on the CPU."""
+    import os
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from kubegpu_tpu_torch.models.paging import PagedContinuousBatcher
+
+    cases = tp_cases()
+    tmp = tempfile.mkdtemp(prefix="chip-smoke-tp-")
+    cfg, small_kw = ctx["cfg"], ctx["kw"]
+    np_small = _np_tree(ctx["params"])
+    prompts, budgets = ctx["prompts"], ctx["budgets"]
+    batch_kw = {k: v for k, v in small_kw.items()
+                if k not in cfg and k != "dtype"}
+    out = {"launches": {}}
+    t_gang = time.monotonic()
+    with tp_gang(tmp, device) as gang:
+        # phase 36: the small float32 model, card TP 2 against card TP 1
+        small_spec = dict(speculate_k=SPEC_K,
+                          draft_num_layers=cfg["num_layers"],
+                          draft_num_heads=cfg["num_heads"],
+                          draft_hidden=cfg["hidden"])
+        for mode, kw in (("plain", {}),
+                         ("speculative", small_spec),
+                         ("int8-pool", dict(kv_dtype="int8")),
+                         ("int8-pool speculative",
+                          dict(small_spec, kv_dtype="int8"))):
+            spec = "speculate_k" in kw
+            ref_cb = PagedContinuousBatcher(
+                ctx["params"], device=device, **small_kw, **kw,
+                **(dict(draft_params=ctx["params"]) if spec else {}))
+            ref = ref_cb.run(prompts, budgets)
+            got = gang.run(cases.serve, dict(
+                params=np_small, cfg=cfg, kw=dict(batch_kw, **kw),
+                draft=np_small if spec else None), prompts, budgets)
+            assert got["streams"] == ref, f"TP 2 {mode} fp32 differs"
+            n = sum(len(v) for v in ref.values())
+            log(f"TP small fp32 {mode}: card TP 2 == card TP 1, {n}/{n} "
+                "tokens")
+            if mode == "plain":
+                assert ref == ctx["card"]
+            tp_check_ranks(f"small fp32 {mode}", got, ref_cb,
+                           ("K2" if spec else "K1")
+                           + ("q" if "kv_dtype" in kw else ""),
+                           cfg["num_layers"])
+        # phase 37: the flagship's full width in bf16, TP 2 against TP 1
+        rng = np.random.RandomState(9)
+        pad = flagship_kw["prompt_pad"]
+        f_prompts = [rng.randint(0, flagship["vocab_size"],
+                                 size=min(n, pad)).astype(np.int32)
+                     for n in (16, 128, 64, 100, 33, 127, 90, 50)]
+        f_budgets = [24, 16, 32, 8, 20, 28, 12, 30]
+        init = dict(init=flagship, seed=0, dtype=torch.bfloat16)
+        draft_cfg = dict(vocab_size=flagship["vocab_size"], num_layers=1,
+                         hidden=draft["draft_hidden"],
+                         max_seq=flagship["max_seq"])
+        dinit = dict(init=draft_cfg, seed=7, dtype=torch.bfloat16)
+        params = cases.weights(init, device)
+        dparams = cases.weights(dinit, device)
+        margin = lazy_margin(flagship, torch.bfloat16, device, params)
+        for mode, kw, key in (
+                ("plain", {}, "K1"),
+                ("speculative", dict(speculate_k=SPEC_K, **draft), "K2"),
+                ("int8-pool", dict(kv_dtype="int8"), "K1q"),
+                ("int8-pool speculative", dict(kv_dtype="int8",
+                                               speculate_k=SPEC_K,
+                                               **draft), "K2q")):
+            spec = "speculate_k" in kw
+            ref_cb = PagedContinuousBatcher(
+                params, dtype=torch.bfloat16, device=device, **flagship,
+                **flagship_kw, **kw,
+                **(dict(draft_params=dparams) if spec else {}))
+            t0 = time.monotonic()
+            ref = ref_cb.run(f_prompts, f_budgets)
+            sync(device)
+            tp1_s = time.monotonic() - t0
+            got = gang.run(cases.serve, dict(
+                params=init, cfg=flagship, dtype=torch.bfloat16,
+                kw=dict(flagship_kw, **kw),
+                draft=dinit if spec else None), f_prompts, f_budgets,
+                None, False, False)
+            agree = sum(same_or_near_tie(
+                f"TP flagship {mode} request {i}", got["streams"][i],
+                ref[i], f_prompts[i], margin, BF16_NEAR_TIE_MARGIN)
+                for i in ref)
+            total = sum(len(v) for v in ref.values())
+            log(f"TP flagship bf16 {mode}: TP 2 agrees with TP 1 on "
+                f"{agree}/{total} tokens before any near-tie; wave "
+                f"{got['seconds']:.3f} s at TP 2 (gloo, host-staged on one "
+                f"card: not a TP speed) against {tp1_s:.3f} s at TP 1")
+            tp_check_ranks(f"flagship bf16 {mode}", got, ref_cb, key,
+                           flagship["num_layers"])
+            out["launches"][key] = [n[key] for n in got["rank_launches"]]
+            del ref_cb
+        del params, dparams
+        # phase 38: a TP 2 export imported into a TP 1 batcher on the card
+        prompt = prompts[1]
+        tp1 = PagedContinuousBatcher(ctx["params"], device=device,
+                                     **small_kw)
+        whole = tp1.run([prompt], [30])[0]
+        payload = gang.run(cases.export_mid_stream, dict(
+            params=np_small, cfg=cfg, kw=batch_kw), prompt, 30, 6)
+        assert payload["geometry"]["tp"] == TP
+        dst = PagedContinuousBatcher(ctx["params"], device=device,
+                                     **small_kw)
+        dst.import_pages(10, payload)
+        cont = {}
+        while dst.has_work():
+            cont.update(dst.serve_step())
+        dst.assert_page_accounting()
+        assert cont[10] == whole, "TP 2 -> TP 1 continuation differs"
+        log(f"TP export: a TP 2 sequence exported after "
+            f"{len(payload['tokens'])} tokens continues in a card TP 1 "
+            f"batcher as the stream that never migrated ({len(whole)} "
+            "tokens)")
+        # phase 39: a TP 2 replica over loopback HTTP
+        ctrl = os.path.join(tmp, "http")
+        os.makedirs(ctrl)
+        import concurrent.futures
+
+        with concurrent.futures.ThreadPoolExecutor(1) as ex:
+            served = ex.submit(gang.run, cases.serve_http, dict(
+                params=np_small, cfg=cfg, kw=batch_kw), ctrl, 0.0)
+            endpoint = os.path.join(ctrl, "endpoint")
+            deadline = time.monotonic() + 300
+            while not os.path.exists(endpoint) and not served.done():
+                assert time.monotonic() < deadline, "no TP replica endpoint"
+                time.sleep(0.05)
+            try:
+                port = int(open(endpoint).read().rsplit(":", 1)[1])
+                bodies = [{"request_id": f"tp{i}",
+                           "prompt": [int(t) for t in prompts[i]],
+                           "max_new_tokens": budgets[i]} for i in range(4)]
+                got, wall = post_concurrently(port, bodies)
+                state = json.loads(http_get(port, "/v1/state"))
+            finally:
+                open(os.path.join(ctrl, "stop"), "w").close()
+            result = served.result(timeout=300)
+        streams, _ = check_streams(got, budgets[:4])
+        for i in range(4):
+            assert streams[i] == ctx["card"][i], f"TP replica request {i}"
+        assert state["tp"] == TP and result["tp"] == TP
+        assert result["error"] is None
+        log(f"TP replica: 4 requests over loopback in {wall:.3f} s equal "
+            f"the card TP 1 streams; /v1/state tp={state['tp']}")
+    out["gang_s"] = time.monotonic() - t_gang
+    # phase 40: the worker's --tp 2 on this machine
+    n_cards = torch.cuda.device_count() if device == "cuda" else 0
+    argv = ["--model", "decode", "--serving", "paged", "--tp", str(TP),
+            "--vocab", "512", "--hidden", "256", "--heads", "2", "--layers",
+            "2", "--seq", "96", "--prompt-len", "32", "--page-size", "16",
+            "--batch-per-chip", "4", "--steps", "16", "--serve-fp32"]
+    if n_cards < TP:
+        proc = subprocess.run(
+            [sys.executable, "-m", "kubegpu_tpu_torch.models.worker", *argv],
+            cwd=os.path.dirname(os.path.abspath(__file__)),
+            capture_output=True, text=True, timeout=300)
+        want = f"exceeds the visible device count {n_cards}"
+        assert proc.returncode != 0 and want in proc.stderr, (
+            proc.returncode, proc.stderr[-2000:])
+        log(f"TP worker: --tp {TP} refused on {n_cards} card(s): {want}")
+        log("TP over NCCL: not exercised (one card visible); the NCCL "
+            "path is unverified on this machine")
+    else:
+        # with two cards or more, the same wave over NCCL, one rank a card
+        lines = run_worker_lines(argv)
+        assert fields(lines["SERVING_TP"])["backend"] == "nccl"
+        log(f"TP over NCCL: {lines['SERVING_TP']} / {lines['DECODE_DONE']}")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -3266,22 +3625,26 @@ def main() -> int:
     phase_spec_serving()
     phase_dense_card_vs_cpu(small)
     phase_dense_worker()
+    # tensor-parallel serving: the sharded kernels at one rank's heads,
+    # then a two-rank gang on the card
+    tp_k = phase_tp_kernels()
+    tp = phase_tp(small)
     log(f"chip_smoke: all phases passed in {time.monotonic() - t0:.1f} s")
     source = "kubegpu_tpu_torch/ops/csrc/paged_attention.cu"
     kernels = []
     # each paged entry point launches its walk and then the merge pass;
     # its launches, times and bound cover both
-    for kname, replaces, rec, run, walk in (
+    for kname, replaces, rec, run, walk, tp_key in (
         ("paged_decode_attention", "kubegpu_tpu/ops/paged_attention.py:135",
-         k1, flag, "paged_decode_walk_kernel"),
+         k1, flag, "paged_decode_walk_kernel", "K1"),
         ("paged_chunk_attention", "kubegpu_tpu/ops/paged_attention.py:390",
-         k2, spec, "paged_chunk_walk_kernel"),
+         k2, spec, "paged_chunk_walk_kernel", "K2"),
         ("paged_decode_attention_int8",
          "kubegpu_tpu/ops/paged_attention.py:135", k1q, flag_q,
-         "paged_decode_walk_kernel"),
+         "paged_decode_walk_kernel", "K1q"),
         ("paged_chunk_attention_int8",
          "kubegpu_tpu/ops/paged_attention.py:390", k2q, spec_q,
-         "paged_chunk_walk_kernel"),
+         "paged_chunk_walk_kernel", "K2q"),
     ):
         bf = rec["bfloat16"]
         kernels.append({
@@ -3298,6 +3661,11 @@ def main() -> int:
             "library_ms": None,
             "passes": [walk, "paged_merge_kernel"],
             "pages_per_split": bf["split"],
+            # tensor parallelism: each rank's launches in the flagship TP 2
+            # wave, and the kernel at one rank's 16 heads
+            "tp_launches": tp["launches"][tp_key],
+            "tp_ms": tp_k[kname]["ms"],
+            "tp_bound_ms": tp_k[kname]["bound_ms"],
         })
     for kname, replaces in (
         ("flash_forward", "kubegpu_tpu/ops/attention.py:72"),

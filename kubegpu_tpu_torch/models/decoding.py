@@ -16,6 +16,17 @@ copy of every cache per call).  ``quant=True`` runs every Dense as the
 weight-only int8 ``QuantDense`` over a :func:`quantize_params_int8`
 tree, as the JAX package's ``quant`` flag does.
 
+Tensor parallelism (``mesh``, a ``parallel.mesh.Mesh``): every rank
+holds its Megatron shard of the tree (``parallel.sharding.shard_params``)
+and runs the same model on it.  ``q/k/v_proj`` and ``mlp_up`` are
+column-parallel (this rank's ``heads / tp`` heads, its quarter of the
+MLP), ``o_proj`` and ``mlp_down`` row-parallel, each followed by one sum
+all-reduce; the embeddings hold ``hidden / tp`` columns and their sum is
+gathered along hidden, the head ``vocab / tp`` columns, gathered along
+the vocab in rank order (still float32).  Caches hold the local heads.
+LayerNorms and the residual stream are replicated, and every rank ends
+each collective with the same bits, so every rank takes the same pick.
+
 Sampling draws the JAX package's random bits (``ops/prng.py``):
 ``warp_logits`` scales by the temperature and truncates to the top k
 (ties at the k-th value keep more than k), ``pick_tokens`` takes a
@@ -41,21 +52,34 @@ from kubegpu_tpu_torch.models.params import (
     tree_map,
 )
 from kubegpu_tpu_torch.ops import prng
+from kubegpu_tpu_torch.parallel.collectives import all_gather, all_reduce_sum
+from kubegpu_tpu_torch.parallel.mesh import tp_size
 
 Caches = List[Tuple[torch.Tensor, torch.Tensor]]
 
 
 class Dense(nn.Module):
     """flax ``nn.Dense(use_bias=False, dtype=dtype)``: ``kernel`` is
-    ``(in, out)``; input and kernel are promoted to ``dtype``."""
+    ``(in, out)``; input and kernel are promoted to ``dtype``.  With
+    ``reduce_over`` (a mesh) the layer is row-parallel: its product is
+    this rank's partial sum, added over the mesh's ranks."""
 
-    def __init__(self, n_in: int, n_out: int, dtype: torch.dtype) -> None:
+    def __init__(self, n_in: int, n_out: int, dtype: torch.dtype,
+                 reduce_over=None) -> None:
         super().__init__()
         self.kernel = meta_param(n_in, n_out)
         self.dtype = dtype
+        self.reduce_over = reduce_over
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return x.to(self.dtype) @ self.kernel.to(self.dtype)
+        return _row_sum(x.to(self.dtype) @ self.kernel.to(self.dtype),
+                        self.reduce_over)
+
+
+def _row_sum(y: torch.Tensor, mesh) -> torch.Tensor:
+    """A row-parallel layer's partial product summed over ``mesh`` (as
+    it is without one)."""
+    return y if mesh is None else all_reduce_sum(y, mesh)
 
 
 class QuantDense(nn.Module):
@@ -64,17 +88,20 @@ class QuantDense(nn.Module):
     one symmetric scale per output channel.  The weight is dequantized in
     the compute dtype (``w8.to(dtype) * scale.to(dtype)``, as the JAX
     module multiplies) and the product is one ``torch.matmul``; the
-    activations stay in ``dtype``."""
+    activations stay in ``dtype``.  ``reduce_over`` as for
+    :class:`Dense`."""
 
-    def __init__(self, n_in: int, n_out: int, dtype: torch.dtype) -> None:
+    def __init__(self, n_in: int, n_out: int, dtype: torch.dtype,
+                 reduce_over=None) -> None:
         super().__init__()
         self.kernel_int8 = meta_param(n_in, n_out)
         self.qscale = meta_param(n_out)
         self.dtype = dtype
+        self.reduce_over = reduce_over
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         w = self.kernel_int8.to(self.dtype) * self.qscale.to(self.dtype)[None]
-        return x.to(self.dtype) @ w
+        return _row_sum(x.to(self.dtype) @ w, self.reduce_over)
 
 
 def dense_cls(quant: bool):
@@ -145,23 +172,30 @@ def attn_scale(hd: int, dtype: torch.dtype, device) -> torch.Tensor:
 class DecodeAttention(nn.Module):
     """Chunked attention against a running KV cache: ``x`` is one token
     per sequence (a decode step) or a whole chunk (prefill in one causal
-    pass)."""
+    pass).  Over a ``mesh`` it runs this rank's ``num_heads / tp`` heads
+    (``num_heads`` is the local count, ``total_heads`` the model's)."""
 
     def __init__(self, hidden: int, num_heads: int, dtype: torch.dtype,
-                 quant: bool = False) -> None:
+                 quant: bool = False, mesh=None) -> None:
         super().__init__()
-        self.num_heads = num_heads
+        tp = tp_size(mesh)
+        self.mesh = mesh
+        self.total_heads = num_heads
+        self.num_heads = num_heads // tp
+        self.head_dim = hidden // num_heads
         self.dtype = dtype
-        for name in ("q_proj", "k_proj", "v_proj", "o_proj"):
-            setattr(self, name, dense_cls(quant)(hidden, hidden, dtype))
+        cls = dense_cls(quant)
+        for name in ("q_proj", "k_proj", "v_proj"):
+            setattr(self, name, cls(hidden, hidden // tp, dtype))
+        self.o_proj = cls(hidden // tp, hidden, dtype, reduce_over=mesh)
 
     def forward(self, x, cache_k, cache_v, pos):
         # x (b, L, d); cache_* (b, max_seq, h, hd), written in place at
         # rows pos + [0, L); pos (1,) when every sequence is aligned or
         # (b,) per-sequence positions (continuous batching)
-        b, L, d = x.shape
-        h = self.num_heads
-        hd = d // h
+        b, L, _ = x.shape
+        h, hd = self.num_heads, self.head_dim
+        d = h * hd
         q = self.q_proj(x).view(b, L, h, hd)
         k = self.k_proj(x).view(b, L, h, hd)
         v = self.v_proj(x).view(b, L, h, hd)
@@ -186,15 +220,20 @@ class DecodeBlock(nn.Module):
     attn_cls = DecodeAttention
 
     def __init__(self, hidden: int, num_heads: int, dtype: torch.dtype,
-                 quant: bool = False) -> None:
+                 quant: bool = False, mesh=None) -> None:
         super().__init__()
+        tp = tp_size(mesh)
         self.ln1 = LayerNorm(hidden, dtype)
-        # only the decode attentions take quant (training never does)
-        self.attn = (self.attn_cls(hidden, num_heads, dtype, quant=True)
-                     if quant else self.attn_cls(hidden, num_heads, dtype))
+        # only the decode attentions take quant and a mesh (training
+        # runs one device)
+        extra = {"quant": True} if quant else {}
+        if mesh is not None:
+            extra["mesh"] = mesh
+        self.attn = self.attn_cls(hidden, num_heads, dtype, **extra)
         self.ln2 = LayerNorm(hidden, dtype)
-        self.mlp_up = dense_cls(quant)(hidden, 4 * hidden, dtype)
-        self.mlp_down = dense_cls(quant)(4 * hidden, hidden, dtype)
+        self.mlp_up = dense_cls(quant)(hidden, 4 * hidden // tp, dtype)
+        self.mlp_down = dense_cls(quant)(4 * hidden // tp, hidden, dtype,
+                                         reduce_over=mesh)
 
     def forward(self, x, *cache_args):
         # cache_args: (cache_k, cache_v, pos) for the dense attention,
@@ -209,37 +248,45 @@ class LMBase(nn.Module):
     """Embeddings, final norm and float32 head shared by the dense and
     paged decode models (one parameter tree, two attention paths).
     ``quant=True`` takes the ``QuantDense`` layout for every Dense, the
-    head included (run at float32)."""
+    head included (run at float32).  ``mesh`` makes it this rank's
+    tensor-parallel shard of the model (the module docstring)."""
 
     block_cls = DecodeBlock
 
     def __init__(self, *, vocab_size: int, num_layers: int, num_heads: int,
                  hidden: int, max_seq: int,
                  dtype: torch.dtype = torch.bfloat16,
-                 all_logits: bool = False, quant: bool = False) -> None:
+                 all_logits: bool = False, quant: bool = False,
+                 mesh=None) -> None:
         super().__init__()
+        tp = tp_size(mesh)
+        self.mesh = mesh
         self.vocab_size, self.num_layers = vocab_size, num_layers
         self.num_heads, self.hidden, self.max_seq = num_heads, hidden, max_seq
         self.dtype = dtype
         # every row's logits, not just the last: a speculative verify
         # scores all k+1 window positions from one forward
         self.all_logits = all_logits
-        self.embed = Embed(vocab_size, hidden, dtype)
-        self.pos_embed = Embed(max_seq, hidden, dtype)
+        self.embed = Embed(vocab_size, hidden // tp, dtype)
+        self.pos_embed = Embed(max_seq, hidden // tp, dtype)
+        extra = {"mesh": mesh} if mesh is not None else {}
         for i in range(num_layers):
             setattr(self, f"layer{i}",
-                    self.block_cls(hidden, num_heads, dtype, quant))
+                    self.block_cls(hidden, num_heads, dtype, quant, **extra))
         self.ln_f = LayerNorm(hidden, dtype)
-        self.lm_head = dense_cls(quant)(hidden, vocab_size, torch.float32)
+        self.lm_head = dense_cls(quant)(hidden, vocab_size // tp,
+                                        torch.float32)
 
     def blocks(self):
         return [getattr(self, f"layer{i}") for i in range(self.num_layers)]
 
     def embed_rows(self, tokens: torch.Tensor, pos_rows: torch.Tensor):
-        return self.embed(tokens) + self.pos_embed(pos_rows)
+        x = self.embed(tokens) + self.pos_embed(pos_rows)
+        return x if self.mesh is None else all_gather(x, self.mesh)
 
     def head(self, x: torch.Tensor) -> torch.Tensor:
-        return self.lm_head(self.ln_f(x))
+        logits = self.lm_head(self.ln_f(x))
+        return logits if self.mesh is None else all_gather(logits, self.mesh)
 
 
 class DecodeLM(LMBase):
@@ -285,15 +332,15 @@ def head_f32(params: Mapping, quant: bool = False) -> Dict:
 
 
 def init_caches(batch: int, num_layers: int, num_heads: int, hidden: int,
-                max_seq: int, dtype=torch.bfloat16, device="cpu") -> Caches:
+                max_seq: int, dtype=torch.bfloat16, device="cpu",
+                tp: int = 1) -> Caches:
+    """Zeroed ``(batch, max_seq, heads, head_dim)`` K and V caches per
+    layer; at ``tp`` > 1 one rank's ``num_heads / tp`` heads."""
     hd = hidden // num_heads
+    shape = (batch, max_seq, num_heads // tp, hd)
     return [
-        (
-            torch.zeros((batch, max_seq, num_heads, hd), dtype=dtype,
-                        device=device),
-            torch.zeros((batch, max_seq, num_heads, hd), dtype=dtype,
-                        device=device),
-        )
+        (torch.zeros(shape, dtype=dtype, device=device),
+         torch.zeros(shape, dtype=dtype, device=device))
         for _ in range(num_layers)
     ]
 

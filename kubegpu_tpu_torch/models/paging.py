@@ -74,6 +74,26 @@ are host numpy in the JAX payload's layout: float32 and int8 pools as
 such, a bfloat16 pool's pages as their raw 16-bit patterns
 (``np.uint16``), which the importer also takes from any 2-byte array
 whose dtype is named ``bfloat16``.
+
+Tensor parallelism (``mesh``, a ``parallel.mesh.Mesh`` with a
+``"model"`` axis), as the JAX package's ``mesh``: one process per rank,
+each holding the batcher's Megatron shard of the weights
+(``parallel.sharding.shard_params``) and ``heads / tp`` heads of every
+pool page, int8 scale, station row and draft-ring row; page tables,
+lengths, positions, masks and every host structure are the same on
+every rank.  The paged kernels run per head shard
+(``paged_*_attention_sharded``), the row-parallel projections all-reduce
+once each, the embeddings gather along hidden and the head along the
+vocab, so every rank picks the same token from the whole logits.  Rank 0
+is the batcher the caller drives: its mutating verbs (``submit``,
+``cancel``, ``serve_step``, ``run``, the migration and prefill-only
+verbs, ``assert_page_accounting``) broadcast themselves to the other
+ranks before they run (``parallel/replay.py``), which run ``follow()``
+until rank 0's ``close()``; read-only queries and ``drain_sealed`` (only
+rank 0 records seals) run on rank 0 alone.  An
+export gathers the head shards in head order, so a payload does not
+depend on the layout: it imports at any ``tp``, each rank taking its
+heads.
 """
 
 from __future__ import annotations
@@ -84,6 +104,7 @@ import warnings
 from collections import OrderedDict, deque
 from contextlib import nullcontext
 from dataclasses import dataclass, field
+from functools import partial
 from typing import Dict, List, Optional, Set, Tuple
 
 import numpy as np
@@ -117,8 +138,19 @@ from kubegpu_tpu_torch.ops.paged_attention import (
     check_kernel_args,
     dequantize_pages,
     paged_chunk_attention,
+    paged_chunk_attention_sharded,
     paged_decode_attention,
+    paged_decode_attention_sharded,
     quantize_pages,
+)
+from kubegpu_tpu_torch.parallel.collectives import all_gather, gather_objects
+from kubegpu_tpu_torch.parallel.mesh import MODEL_AXIS, Mesh, tp_size
+from kubegpu_tpu_torch.parallel.replay import Replay, follow, replicated
+from kubegpu_tpu_torch.parallel.sharding import (
+    POOL_HEADS_DIM,
+    shard_params,
+    shard_slice,
+    tp_all_reduce_wire_bytes,
 )
 
 Pools = List[tuple]
@@ -199,7 +231,19 @@ class PagedDecodeAttention(DecodeAttention):
     token (L == 1) is a decode step through K1, a wider window a
     speculative verify through K2 — K1q and K2q over an int8 pool, whose
     entries are ``(data, scale)`` pairs and whose rows commit one at a
-    time through :func:`_quant_write_row`."""
+    time through :func:`_quant_write_row`.  Over a mesh the pools hold
+    this rank's heads and the kernels run through their head-sharded
+    wrappers."""
+
+    def _kernels(self):
+        """The decode and verify attention for this layout: the sharded
+        wrappers over a mesh (bound to it), the plain entry points
+        without one."""
+        if self.mesh is None:
+            return paged_decode_attention, paged_chunk_attention
+        bind = dict(mesh=self.mesh, num_heads=self.total_heads)
+        return (partial(paged_decode_attention_sharded, **bind),
+                partial(paged_chunk_attention_sharded, **bind))
 
     def forward(self, x, k_pool, v_pool, table, pos, checked=False):
         # x (b, L, d); pools (P, h, page, hd), or (data, scale) pairs;
@@ -208,10 +252,11 @@ class PagedDecodeAttention(DecodeAttention):
         # already ran on this layout
         if isinstance(k_pool, tuple):
             return self._forward_int8(x, k_pool, v_pool, table, pos, checked)
-        b, L, d = x.shape
-        h = self.num_heads
-        hd = d // h
+        b, L, _ = x.shape
+        h, hd = self.num_heads, self.head_dim
+        d = h * hd
         page = k_pool.shape[2]
+        decode_attn, chunk_attn = self._kernels()
         if L == 1:
             q = self.q_proj(x).view(b, h, hd)
             k = self.k_proj(x).view(b, h, hd)
@@ -221,8 +266,8 @@ class PagedDecodeAttention(DecodeAttention):
             offs = pos % page
             k_pool[page_ids, :, offs, :] = k
             v_pool[page_ids, :, offs, :] = v
-            out = paged_decode_attention(q, k_pool, v_pool, table, pos + 1,
-                                         checked=checked)
+            out = decode_attn(q, k_pool, v_pool, table, pos + 1,
+                              checked=checked)
             return self.o_proj(out.reshape(b, 1, d))
         q = self.q_proj(x).view(b, L, h, hd)
         k = self.k_proj(x).view(b, L, h, hd)
@@ -236,14 +281,14 @@ class PagedDecodeAttention(DecodeAttention):
         offs = cache_rows % page
         k_pool[page_ids, :, offs, :] = k
         v_pool[page_ids, :, offs, :] = v
-        out = paged_chunk_attention(q, k_pool, v_pool, table, pos + 1,
-                                    checked=checked)
+        out = chunk_attn(q, k_pool, v_pool, table, pos + 1, checked=checked)
         return self.o_proj(out.reshape(b, L, d))
 
     def _forward_int8(self, x, k_entry, v_entry, table, pos, checked):
-        b, L, d = x.shape
-        h = self.num_heads
-        hd = d // h
+        b, L, _ = x.shape
+        h, hd = self.num_heads, self.head_dim
+        d = h * hd
+        decode_attn, chunk_attn = self._kernels()
         (kd, ks), (vd, vs) = k_entry, v_entry
         page = kd.shape[2]
         q = self.q_proj(x).view(b, L, h, hd)
@@ -258,13 +303,11 @@ class PagedDecodeAttention(DecodeAttention):
             _quant_write_row(kd, ks, page_ids, row % page, k[:, j])
             _quant_write_row(vd, vs, page_ids, row % page, v[:, j])
         if L == 1:
-            out = paged_decode_attention(q[:, 0], kd, vd, table, pos + 1,
-                                         k_scale=ks, v_scale=vs,
-                                         checked=checked)
+            out = decode_attn(q[:, 0], kd, vd, table, pos + 1, k_scale=ks,
+                              v_scale=vs, checked=checked)
         else:
-            out = paged_chunk_attention(q, kd, vd, table, pos + 1,
-                                        k_scale=ks, v_scale=vs,
-                                        checked=checked)
+            out = chunk_attn(q, kd, vd, table, pos + 1, k_scale=ks,
+                             v_scale=vs, checked=checked)
         return self.o_proj(out.reshape(b, L, d))
 
 
@@ -538,12 +581,6 @@ def _host_tensor(arr, dtype: torch.dtype) -> torch.Tensor:
     )
 
 
-def _not_ported(knob: str, arrives_with: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{knob} is not ported yet: it arrives with {arrives_with}"
-    )
-
-
 def _validate_speculation(k, draft_window, draft_params, draft_num_layers,
                           draft_num_heads, draft_hidden, max_seq: int,
                           prompt_pad: int) -> Optional[int]:
@@ -588,7 +625,39 @@ def _validate_speculation(k, draft_window, draft_params, draft_num_layers,
     return draft_window
 
 
-TP_SLICE = "the tensor-parallel slice"
+def _check_mesh(mesh, num_heads: int, vocab_size: int, speculate_k,
+                draft_num_heads) -> int:
+    """The JAX batcher's tensor-parallel contract; returns the width.
+    A mesh must be a :class:`Mesh` with a ``"model"`` axis, and the
+    heads, the vocab and the draft's heads must split into whole
+    shards."""
+    if mesh is None:
+        return 1
+    if not isinstance(mesh, Mesh):
+        raise ValueError(
+            f"mesh must be a kubegpu_tpu_torch.parallel.mesh.Mesh, got "
+            f"{type(mesh).__name__}")
+    if MODEL_AXIS not in mesh.axis_names:
+        raise ValueError(
+            f"tensor-parallel serving needs a mesh with a {MODEL_AXIS!r} "
+            f"axis, got {mesh.axis_names}")
+    tp = tp_size(mesh)
+    if num_heads % tp:
+        raise ValueError(
+            f"num_heads ({num_heads}) not divisible by the mesh's "
+            f"tensor-parallel width ({tp}): the pool shards whole heads")
+    if vocab_size % tp:
+        raise ValueError(
+            f"vocab_size ({vocab_size}) not divisible by the "
+            f"tensor-parallel width ({tp}): lm_head is column-parallel "
+            "over the vocab (TRANSFORMER_TP_RULES)")
+    if (speculate_k is not None and draft_num_heads is not None
+            and draft_num_heads % tp):
+        raise ValueError(
+            f"draft_num_heads ({draft_num_heads}) not divisible by the "
+            f"tensor-parallel width ({tp}): the draft ring shards whole "
+            "heads too")
+    return tp
 
 
 class PagedContinuousBatcher(_TracedBatcher):
@@ -652,10 +721,17 @@ class PagedContinuousBatcher(_TracedBatcher):
     verbs hand it to a decode replica, and ``set_prefill_only(False)``
     unparks it locally.
 
-    The constructor keeps the JAX signature.  ``mesh`` (tensor
-    parallelism) raises ``NotImplementedError`` naming its slice.
-    ``device`` defaults to ``"cuda"`` and raises without a card; the CPU
-    runs only when asked for (``device="cpu"``)."""
+    ``mesh`` (a ``parallel.mesh.Mesh`` with a ``"model"`` axis) serves
+    tensor-parallel, one batcher per rank (the module docstring): every
+    rank constructs it with the same arguments and the whole weights,
+    rank 0 is driven and the others run :meth:`follow` until rank 0's
+    :meth:`close`.  The refusals of the JAX constructor hold: a mesh
+    without ``"model"``, heads, vocab or draft heads that do not split
+    into whole shards.
+
+    The constructor keeps the JAX signature.  ``device`` defaults to
+    ``"cuda"`` and raises without a card; the CPU runs only when asked
+    for (``device="cpu"``).  Over a mesh the device is the mesh's."""
 
     def __init__(
         self,
@@ -696,8 +772,9 @@ class PagedContinuousBatcher(_TracedBatcher):
         prefill_only: bool = False,
         device="cuda",
     ) -> None:
-        if mesh is not None:
-            raise _not_ported("mesh", TP_SLICE)
+        self.tp = _check_mesh(mesh, num_heads, vocab_size, speculate_k,
+                              draft_num_heads)
+        self.mesh = mesh
         if prompt_pad > max_seq:
             raise ValueError(
                 f"prompt_pad ({prompt_pad}) exceeds max_seq ({max_seq})"
@@ -752,7 +829,8 @@ class PagedContinuousBatcher(_TracedBatcher):
             resolve_decode_page_cache(decode_page_cache, dtype, self.kv_quant)
             and prefix_cache
         )
-        self.device = dev = resolve_device(device)
+        self.device = dev = resolve_device(
+            device if mesh is None else mesh.device)
         # the stream the batcher's work is ordered on; a serving thread
         # other than this one binds it before it steps the batcher
         self.stream = (torch.cuda.current_stream(dev)
@@ -761,7 +839,8 @@ class PagedContinuousBatcher(_TracedBatcher):
         self.tracer = tracer
         self._traces: Dict[int, _SeqTrace] = {}
         self._ledger: deque = deque(maxlen=ledger_size)
-        self.tp = 1
+        # the replay of rank 0's calls on the other ranks (tp > 1 only)
+        self._replay = Replay(mesh) if self.tp > 1 else None
         self._last_prefill_rows = 0
         self._sync_wait_s = 0.0
         self.slots = slots
@@ -776,11 +855,14 @@ class PagedContinuousBatcher(_TracedBatcher):
         self.dtype = dtype
         self.pipeline_decode = pipeline_decode
         hd = hidden // num_heads
+        h_local = num_heads // self.tp
 
-        params = head_f32(tree_map(lambda t: t.to(dev), params), quant)
+        params = head_f32(tree_map(lambda t: t.to(dev),
+                                   shard_params(params, self._rank(),
+                                                self.tp)), quant)
         model_cfg = dict(vocab_size=vocab_size, num_layers=num_layers,
                          num_heads=num_heads, hidden=hidden, dtype=dtype,
-                         quant=quant)
+                         quant=quant, mesh=mesh)
         self.model = bind_params(
             PagedDecodeLM(max_seq=max_seq, **model_cfg), params
         )
@@ -793,17 +875,19 @@ class PagedContinuousBatcher(_TracedBatcher):
             DecodeLM(max_seq=prompt_pad, **model_cfg), station_params
         )
         def pool_side():
+            # this rank's heads of every page (all of them at tp 1)
             if self.kv_quant:
-                return (torch.zeros((pool_pages, num_heads, page_size, hd),
+                return (torch.zeros((pool_pages, h_local, page_size, hd),
                                     dtype=torch.int8, device=dev),
-                        torch.zeros((pool_pages, num_heads),
+                        torch.zeros((pool_pages, h_local),
                                     dtype=torch.float32, device=dev))
-            return torch.zeros((pool_pages, num_heads, page_size, hd),
+            return torch.zeros((pool_pages, h_local, page_size, hd),
                                dtype=dtype, device=dev)
 
         self.pools = [(pool_side(), pool_side()) for _ in range(num_layers)]
         # the pool's resting bytes by storage dtype (int8 pages plus f32
-        # scales, or full width): what the accounting's bytes leg audits
+        # scales, or full width), over the whole mesh: what the
+        # accounting's bytes leg audits; each rank rests 1/tp of them
         kv_item = 1 if self.kv_quant else torch.empty(
             (), dtype=dtype).element_size()
         self.pool_kv_bytes = (2 * num_layers * pool_pages * num_heads
@@ -812,6 +896,8 @@ class PagedContinuousBatcher(_TracedBatcher):
                                  if self.kv_quant else 0)
         self.pool_bytes_per_device = (
             (self.pool_kv_bytes + self.pool_scale_bytes) // self.tp)
+        self._init_collective_bytes(station_slots, draft_num_layers,
+                                    draft_hidden)
         # page 0 is the permanent DUMP page, never allocated: the step
         # runs every slot, and an idle slot's K/V write must land where
         # it can never belong to a live sequence — its table points at
@@ -853,11 +939,11 @@ class PagedContinuousBatcher(_TracedBatcher):
             # batcher's life, so the kernel's checks run once here and
             # the step (or verify) passes checked=True
             if speculate_k is None:
-                q = torch.empty((slots, num_heads, hd), dtype=dtype,
+                q = torch.empty((slots, h_local, hd), dtype=dtype,
                                 device=dev)
                 check = check_kernel_args
             else:
-                q = torch.empty((slots, speculate_k + 1, num_heads, hd),
+                q = torch.empty((slots, speculate_k + 1, h_local, hd),
                                 dtype=dtype, device=dev)
                 check = check_chunk_args
             for kent, vent in self.pools:
@@ -869,7 +955,7 @@ class PagedContinuousBatcher(_TracedBatcher):
         # ordered (station slot -> job), so iterating it IS admission
         # order — the FIFO the chunk packer serves
         self._station = init_caches(station_slots, num_layers, num_heads,
-                                    hidden, prompt_pad, dtype, dev)
+                                    hidden, prompt_pad, dtype, dev, self.tp)
         self._jobs: "OrderedDict[int, _PrefillJob]" = OrderedDict()
         # prefill-only serving: activations park instead of decoding, and
         # _sealed_pending announces each seal once (drain_sealed)
@@ -902,7 +988,9 @@ class PagedContinuousBatcher(_TracedBatcher):
                           **model_cfg),
             params,
         )
-        dparams = head_f32(tree_map(lambda t: t.to(dev), draft_params))
+        dparams = head_f32(tree_map(
+            lambda t: t.to(dev),
+            shard_params(draft_params, self._rank(), self.tp)))
         # the draft's position table is cut to the ring's rows
         dparams = dict(dparams, pos_embed={
             "embedding": dparams["pos_embed"]["embedding"][:ring]})
@@ -910,17 +998,19 @@ class PagedContinuousBatcher(_TracedBatcher):
             DecodeLM(vocab_size=model_cfg["vocab_size"],
                      num_layers=draft_num_layers, num_heads=draft_num_heads,
                      hidden=draft_hidden, max_seq=ring,
-                     dtype=self.dtype),
+                     dtype=self.dtype, mesh=self.mesh),
             dparams,
         )
         if self.kv_quant:
             # an int8 replica rests an int8 ring: (slots, ring, h, hd)
-            # rows plus (slots, h) float32 per-(slot, head) scales
+            # rows plus (slots, h) float32 per-(slot, head) scales, this
+            # rank's heads of them
             d_hd = draft_hidden // draft_num_heads
+            d_local = draft_num_heads // self.tp
             self.d_caches = [
-                tuple((torch.zeros((self.slots, ring, draft_num_heads, d_hd),
+                tuple((torch.zeros((self.slots, ring, d_local, d_hd),
                                    dtype=torch.int8, device=dev),
-                       torch.zeros((self.slots, draft_num_heads),
+                       torch.zeros((self.slots, d_local),
                                    dtype=torch.float32, device=dev))
                       for _ in range(2))
                 for _ in range(draft_num_layers)
@@ -928,11 +1018,12 @@ class PagedContinuousBatcher(_TracedBatcher):
         else:
             self.d_caches = init_caches(self.slots, draft_num_layers,
                                         draft_num_heads, draft_hidden, ring,
-                                        self.dtype, dev)
+                                        self.dtype, dev, self.tp)
         self._d_pos = np.zeros((self.slots,), np.int32)   # host mirror
         self._d_pos_dev = torch.zeros((self.slots,), dtype=torch.int32,
                                       device=dev)
-        # the ring's resting bytes by storage dtype (serve_draft_ring_bytes)
+        # the ring's resting bytes by storage dtype, over the whole mesh
+        # (serve_draft_ring_bytes)
         d_hd = draft_hidden // draft_num_heads
         ring_item = 1 if self.kv_quant else torch.empty(
             (), dtype=self.dtype).element_size()
@@ -941,6 +1032,71 @@ class PagedContinuousBatcher(_TracedBatcher):
         self.ring_scale_bytes = (2 * draft_num_layers * self.slots
                                  * draft_num_heads * 4
                                  if self.kv_quant else 0)
+
+    def _rank(self) -> int:
+        return 0 if self.mesh is None else self.mesh.rank
+
+    def _init_collective_bytes(self, station_slots: int, draft_num_layers,
+                               draft_hidden) -> None:
+        """The JAX batcher's model of the all-reduce wire bytes a rank
+        pays per program (``tp_all_reduce_wire_bytes`` of the activations
+        each row-parallel matmul sums: two a block), which the ledger's
+        ``collective_bytes`` adds up per iteration; 0 at tp 1.  The
+        gathers of the embeddings and the head are not in the model."""
+        tp, L, h = self.tp, self.num_layers, self.hidden
+        dsize = torch.empty((), dtype=self.dtype).element_size()
+        self._step_psum_bytes = tp_all_reduce_wire_bytes(
+            tp, 2 * L * self.slots * h * dsize)
+        self._spec_psum_bytes = self._admit_psum_bytes = 0
+        self._first_psum_bytes = 0
+        if self.speculate_k is not None:
+            window = self.speculate_k + 1
+            self._spec_psum_bytes = tp_all_reduce_wire_bytes(
+                tp, 2 * draft_num_layers * self.slots * draft_hidden * dsize
+                * window + 2 * L * self.slots * window * h * dsize)
+            self._admit_psum_bytes = tp_all_reduce_wire_bytes(
+                tp, 2 * draft_num_layers * self.prompt_pad * draft_hidden
+                * dsize)
+            # the sampled admission's b = 1 first-token forward
+            self._first_psum_bytes = tp_all_reduce_wire_bytes(
+                tp, 2 * L * h * dsize)
+        self._chunk_psum_bytes = tp_all_reduce_wire_bytes(
+            tp, 2 * L * station_slots * self.page * h * dsize)
+        self._step_collective_bytes = 0
+
+    # -- tensor-parallel ranks ---------------------------------------------
+    def follow(self) -> None:
+        """Every rank but 0 of a mesh: run rank 0's calls on this batcher
+        until rank 0 calls :meth:`close` (``parallel/replay.py``)."""
+        if self._replay is None:
+            raise RuntimeError("follow() is for the ranks of a mesh")
+        follow(self)
+
+    def close(self) -> None:
+        """Rank 0: release the other ranks from :meth:`follow`.  A no-op
+        without a mesh."""
+        if self._replay is not None:
+            self._replay.close()
+
+    def _host_state(self) -> tuple:
+        """What every rank must hold alike: tables, positions, the free
+        list, the prefix cache's refcounts and keys, every slot's
+        sequence and pages, the queue and the station's jobs."""
+        cache = self.prefix_cache
+        return (
+            self.tables.tobytes(), self.pos.tobytes(), self._last.tobytes(),
+            sorted(self.free_pages),
+            None if cache is None else sorted(
+                (p, cache.refcount(p), cache._key_of[p], cache.kind_of(p))
+                for p in cache.pages()),
+            [(s.seq_id, s.active, s.prefilling, s.parked, s.remaining,
+              list(s.tokens), list(s.pages), sorted(s.shared),
+              s.reclaimed_upto) for s in self._seqs],
+            [item[0] for item in self._pending],
+            [(st, j.seq_id, j.pos, j.next_scatter)
+             for st, j in self._jobs.items()],
+            None if self.speculate_k is None else self._d_pos.tobytes(),
+        )
 
     def attach_metrics(self, metrics) -> None:
         """Send the batcher's ``serve_*`` series to ``metrics`` (None
@@ -1043,11 +1199,15 @@ class PagedContinuousBatcher(_TracedBatcher):
         )
         return self.pool_pages - 1 - len(self.free_pages) - idle
 
+    @replicated
     def assert_page_accounting(self) -> None:
         """Invariant check: every allocatable page is exactly one of free /
         cache-resident / privately live, refcounts equal the number of
         live sequences sharing each page, and the pool and station rest
-        the declared dtype and bytes."""
+        the declared dtype and bytes.  Over a mesh (the sharded leg) each
+        rank's pool, scales, station and draft ring hold exactly its
+        ``heads / tp`` heads, so a rank rests ``pool_bytes_per_device``,
+        and every rank's host state equals rank 0's."""
         all_pages = set(range(1, self.pool_pages))
         cached = (
             self.prefix_cache.pages()
@@ -1096,8 +1256,8 @@ class PagedContinuousBatcher(_TracedBatcher):
         # exactly the promised bytes (an int8 label over a full-width
         # allocation would pass every refcount check above)
         hd = self.hidden // self.num_heads
-        itemsize = torch.empty((), dtype=self.dtype).element_size()
-        page_elems = self.num_heads * self.page * hd
+        h_local = self.num_heads // self.tp
+        page_elems = h_local * self.page * hd
         rest = 0
         for li, (kent, vent) in enumerate(self.pools):
             for nm, entry in (("k", kent), ("v", vent)):
@@ -1109,7 +1269,7 @@ class PagedContinuousBatcher(_TracedBatcher):
                     assert scale.dtype == torch.float32, (
                         f"layer {li} {nm}_pool scales are {scale.dtype}")
                     assert tuple(scale.shape) == (self.pool_pages,
-                                                  self.num_heads), (
+                                                  h_local), (
                         f"layer {li} {nm}_pool scale shape drifted")
                     arrs = (data, scale)
                 else:
@@ -1120,10 +1280,10 @@ class PagedContinuousBatcher(_TracedBatcher):
                 assert arrs[0].numel() == self.pool_pages * page_elems, (
                     f"layer {li} {nm}_pool rows drifted")
                 rest += sum(a.numel() * a.element_size() for a in arrs)
-        assert rest == self.pool_kv_bytes + self.pool_scale_bytes, (
-            f"pool rests {rest} B, {self.kv_dtype} pages promise "
-            f"{self.pool_kv_bytes + self.pool_scale_bytes}")
-        st_bytes = self.station_slots * self.prompt_pad * self.num_heads * hd
+        assert rest == self.pool_bytes_per_device, (
+            f"pool rests {rest} B on this rank, {self.kv_dtype} pages "
+            f"promise {self.pool_bytes_per_device} a rank of {self.tp}")
+        st_bytes = self.station_slots * self.prompt_pad * h_local * hd
         for li, (ck, cv) in enumerate(self._station):
             for nm, arr in (("k", ck), ("v", cv)):
                 assert arr.dtype == self.dtype, (
@@ -1136,7 +1296,9 @@ class PagedContinuousBatcher(_TracedBatcher):
             # the draft ring rests the pool's storage format (int8 rows
             # plus (slots, h) f32 scales, or the compute dtype) at
             # exactly slots x draft_window rows
-            ring_elems = self.slots * self.draft_window * self.draft_hidden
+            ring_elems = (self.slots * self.draft_window * self.draft_hidden
+                          // self.tp)
+            d_local = self.draft_num_heads // self.tp
             for li, (kent, vent) in enumerate(self.d_caches):
                 for nm, entry in (("k", kent), ("v", vent)):
                     if self.kv_quant:
@@ -1145,8 +1307,7 @@ class PagedContinuousBatcher(_TracedBatcher):
                             f"draft ring layer {li} {nm} stores "
                             f"{arr.dtype}, declared kv_dtype int8")
                         assert scale.dtype == torch.float32 and tuple(
-                            scale.shape) == (self.slots,
-                                             self.draft_num_heads), (
+                            scale.shape) == (self.slots, d_local), (
                             f"draft ring layer {li} {nm} scales drifted")
                     else:
                         arr = entry
@@ -1157,6 +1318,14 @@ class PagedContinuousBatcher(_TracedBatcher):
                         f"draft ring layer {li} {nm} rests {arr.numel()} "
                         f"elements, the ring promises {ring_elems}"
                     )
+        if self.mesh is not None:
+            # every rank took the same host decisions: a rank whose
+            # tables, free list or refcounts drifted would write its
+            # heads of a page another rank gave to someone else
+            states = gather_objects(self._host_state(), self.mesh)
+            for r, st in enumerate(states):
+                assert st == states[0], (
+                    f"rank {r}'s host state differs from rank 0's")
 
     # -- page moves between the station and the pool ------------------------
     def _write_pages(self, station: int, phys: List[int], base_row: int,
@@ -1473,6 +1642,7 @@ class PagedContinuousBatcher(_TracedBatcher):
             # first window's scan consumes the last prompt token at row
             # plen - 1; that window also emits the first token
             self._draft_admit(slot, job.prompt[: job.plen])
+            self._step_collective_bytes += self._admit_psum_bytes
             self._d_pos[slot] = job.plen - 1
             self._d_pos_dev[slot] = job.plen - 1
         s.prefilling, s.active = False, True
@@ -1482,7 +1652,9 @@ class PagedContinuousBatcher(_TracedBatcher):
             self._spec_first_token(slot, s, base_key, job.plen)
         if park:
             s.parked = True
-            self._sealed_pending.append(s.seq_id)
+            # rank 0 alone announces seals: drain_sealed is rank 0's query
+            if self._rank() == 0:
+                self._sealed_pending.append(s.seq_id)
         tr = s.trace
         if tr is not None:
             t = time.monotonic()
@@ -1556,6 +1728,7 @@ class PagedContinuousBatcher(_TracedBatcher):
                     torch.from_numpy(starts).to(self.device),
                     [st for st, _, _ in picked],
                 )
+                self._step_collective_bytes += self._chunk_psum_bytes
                 t1 = time.monotonic()
                 for st, job, end in picked:
                     if not job.started:
@@ -1594,6 +1767,7 @@ class PagedContinuousBatcher(_TracedBatcher):
             self._activate(job)
 
     # -- incremental serving API -------------------------------------------
+    @replicated
     def submit(self, seq_id: int, prompt: np.ndarray, max_new: int,
                temperature: float = 0.0,
                session_id: Optional[str] = None,
@@ -1632,6 +1806,7 @@ class PagedContinuousBatcher(_TracedBatcher):
              seed)
         )
 
+    @replicated
     def cancel(self, seq_id: int) -> bool:
         """Withdraw a request from the queue, mid-prefill, or mid-decode;
         its pages go back to the pool (shared ones decref).  Returns
@@ -1695,10 +1870,13 @@ class PagedContinuousBatcher(_TracedBatcher):
     def drain_sealed(self) -> List[int]:
         """Seq ids whose prompts sealed (parked) since the last drain: the
         serving loop announces each once, and the gateway hands it off
-        through ``export_pages``/``import_pages``."""
+        through ``export_pages``/``import_pages``.  Host-only and rank 0's
+        alone on a mesh (the other ranks record no seal), so it issues no
+        collective."""
         out, self._sealed_pending = self._sealed_pending, []
         return out
 
+    @replicated
     def set_prefill_only(self, flag: bool) -> bool:
         """Flip prefill-only serving live (the role actuator); returns
         whether the mode changed.  Turning it off unparks every parked
@@ -1757,18 +1935,25 @@ class PagedContinuousBatcher(_TracedBatcher):
                     f"transfer geometry mismatch on {k}: payload "
                     f"{got.get(k)!r} vs this batcher {want[k]!r} — KV pages "
                     "move only between twins (same paged layout AND pool "
-                    "storage format)"
+                    "storage format; tp may differ, the payload is "
+                    "layout-agnostic host bytes)"
                 )
+
+    def _heads(self, t: torch.Tensor, dim: int) -> torch.Tensor:
+        """A staged tensor of this rank's heads along ``dim`` as the
+        whole heads, in head order (gathered over the mesh)."""
+        return t if self.tp == 1 else all_gather(t, self.mesh, dim)
 
     def _export_layers(self, phys: List[int]):
         """Host copies of pool pages ``phys``: per-layer ``(k, v)`` arrays
         ``(n, heads, page, head_dim)``, plus their ``(n, heads)`` float32
         scales on an int8 pool (None at full width).  Every pool array is
         gathered into one staging tensor, which crosses to the host in one
-        copy (an int8 pool's scales in a second)."""
+        copy (an int8 pool's scales in a second); over a mesh the ranks'
+        head shards are gathered first, in head order."""
         dev, n, L = self.device, len(phys), self.num_layers
         idx = torch.tensor(phys, dtype=torch.long, device=dev)
-        shape = (L, 2, n, self.num_heads, self.page,
+        shape = (L, 2, n, self.num_heads // self.tp, self.page,
                  self.hidden // self.num_heads)
         if self.kv_quant:
             data = torch.empty(shape, dtype=torch.int8, device=dev)
@@ -1777,12 +1962,13 @@ class PagedContinuousBatcher(_TracedBatcher):
                 for side, (d, sc) in enumerate((kent, vent)):
                     torch.index_select(d, 0, idx, out=data[li, side])
                     torch.index_select(sc, 0, idx, out=scale[li, side])
-            return _host_pairs(data), _host_pairs(scale)
+            return (_host_pairs(self._heads(data, 3)),
+                    _host_pairs(self._heads(scale, 3)))
         buf = torch.empty(shape, dtype=self.dtype, device=dev)
         for li, (kp, vp) in enumerate(self.pools):
             torch.index_select(kp, 0, idx, out=buf[li, 0])
             torch.index_select(vp, 0, idx, out=buf[li, 1])
-        return _host_pairs(buf), None
+        return _host_pairs(self._heads(buf, 3)), None
 
     def _check_page_arrays(self, layers, n_rows: int) -> None:
         hd = self.hidden // self.num_heads
@@ -1812,25 +1998,31 @@ class PagedContinuousBatcher(_TracedBatcher):
                     f"{np.shape(ks_np)} != {sshape}"
                 )
 
+    def _my_heads(self, a: np.ndarray, dim: int) -> np.ndarray:
+        """This rank's ``heads / tp`` of a transferred array's heads
+        ``dim`` (all of it at tp 1)."""
+        return a if self.tp == 1 else shard_slice(a, dim, self._rank(),
+                                                  self.tp)
+
     def _stage_imported(self, rows: List[int], layers, scales):
         """Rows ``rows`` of each transferred layer array (and scale array)
         as host tensors of the pool's storage dtype, stacked ``(layers,
-        2, n, ...)``: the import's host side, run before its commit line,
-        so a page array of the wrong type refuses the import
-        (``ValueError``) with nothing changed."""
+        2, n, ...)``, this rank's heads only: the import's host side, run
+        before its commit line, so a page array of the wrong type refuses
+        the import (``ValueError``) with nothing changed."""
         sel = np.asarray(rows, np.intp)
         store = torch.int8 if self.kv_quant else self.dtype
-        data = torch.stack([
-            torch.stack([_host_tensor(np.asarray(a)[sel], store)
-                         for a in pair])
-            for pair in layers])
-        if not self.kv_quant:
-            return data, None
-        scale = torch.stack([
-            torch.stack([_host_tensor(np.asarray(a)[sel], torch.float32)
-                         for a in pair])
-            for pair in scales])
-        return data, scale
+
+        def stage(pairs, dtype):
+            return torch.stack([
+                torch.stack([_host_tensor(self._my_heads(
+                    np.asarray(a)[sel], POOL_HEADS_DIM), dtype)
+                    for a in pair])
+                for pair in pairs])
+
+        data = stage(layers, store)
+        return data, (stage(scales, torch.float32) if self.kv_quant
+                      else None)
 
     def _write_staged(self, staged, phys: List[int]) -> None:
         """Copy staged host pages to the device (one copy, two on an int8
@@ -1849,6 +2041,7 @@ class PagedContinuousBatcher(_TracedBatcher):
                 d.index_copy_(0, idx, data[li, side])
                 sc.index_copy_(0, idx, scale[li, side])
 
+    @replicated
     def export_pages(self, seq_id: int, cursor: int = 0) -> dict:
         """Serialize a live sequence for migration: its committed pages'
         K/V bytes, the chain keys and kinds that let the importer replay
@@ -1926,8 +2119,9 @@ class PagedContinuousBatcher(_TracedBatcher):
     def _export_draft_ring(self, slot: int) -> dict:
         """The slot's whole draft-ring lane, ``(window, heads, head_dim)``
         rows per layer (plus ``(heads,)`` float32 scales on an int8
-        ring).  Every row ships, not just [0, d_pos): an int8 ring's
-        grow-only scale runs over the whole lane, junk rows included."""
+        ring), gathered over the mesh in head order.  Every row ships,
+        not just [0, d_pos): an int8 ring's grow-only scale runs over the
+        whole lane, junk rows included."""
         d = {
             "d_pos": int(self._d_pos[slot]),
             "window": int(self.draft_window),
@@ -1936,17 +2130,19 @@ class PagedContinuousBatcher(_TracedBatcher):
             "head_dim": self.draft_hidden // self.draft_num_heads,
             "dtype": "int8" if self.kv_quant else _dtype_name(self.dtype),
         }
+        # (layers, 2, window, heads, head_dim) rows, (layers, 2, heads)
+        # scales: heads are dim 3 and dim 2
         if self.kv_quant:
-            d["rows"] = _host_pairs(torch.stack([
+            d["rows"] = _host_pairs(self._heads(torch.stack([
                 torch.stack([kd[slot], vd[slot]])
-                for (kd, _), (vd, _) in self.d_caches]))
-            d["scales"] = _host_pairs(torch.stack([
+                for (kd, _), (vd, _) in self.d_caches]), 3))
+            d["scales"] = _host_pairs(self._heads(torch.stack([
                 torch.stack([ks[slot], vs[slot]])
-                for (_, ks), (_, vs) in self.d_caches]))
+                for (_, ks), (_, vs) in self.d_caches]), 2))
         else:
-            d["rows"] = _host_pairs(torch.stack([
+            d["rows"] = _host_pairs(self._heads(torch.stack([
                 torch.stack([ck[slot], cv[slot]])
-                for ck, cv in self.d_caches]))
+                for ck, cv in self.d_caches]), 3))
         return d
 
     def _try_import_draft_ring(self, slot: int, draft) -> bool:
@@ -1981,9 +2177,13 @@ class PagedContinuousBatcher(_TracedBatcher):
             return False
         store = torch.int8 if self.kv_quant else self.dtype
         try:
-            host_rows = [[_host_tensor(a, store) for a in pair]
+            # this rank's heads: dim 1 of the (window, heads, hd) rows,
+            # dim 0 of the (heads,) scales
+            host_rows = [[_host_tensor(self._my_heads(np.asarray(a), 1),
+                                       store) for a in pair]
                          for pair in rows]
-            host_scales = ([[_host_tensor(a, torch.float32) for a in pair]
+            host_scales = ([[_host_tensor(self._my_heads(np.asarray(a), 0),
+                                          torch.float32) for a in pair]
                             for pair in scales] if self.kv_quant else None)
         except ValueError:
             return False
@@ -1996,6 +2196,7 @@ class PagedContinuousBatcher(_TracedBatcher):
                     entry[slot] = host_rows[li][side].to(self.device)
         return True
 
+    @replicated
     def import_pages(self, seq_id: int, payload: dict,
                      trace=None) -> None:
         """The inverse verb: take pool pages for a migrated sequence,
@@ -2180,6 +2381,7 @@ class PagedContinuousBatcher(_TracedBatcher):
                 # real position (greedy verification is lossless for any
                 # draft, so the stream cannot change)
                 self._draft_admit(slot, prompt[:plen])
+                self._step_collective_bytes += self._admit_psum_bytes
                 d_pos = committed
             self._d_pos[slot] = d_pos
             self._d_pos_dev[slot] = d_pos
@@ -2203,6 +2405,7 @@ class PagedContinuousBatcher(_TracedBatcher):
         self.stats["peak_pages"] = max(self.stats["peak_pages"],
                                        self.pages_in_use())
 
+    @replicated
     def export_sealed_chain(self, stream) -> Optional[dict]:
         """Serialize the sealed prefix-chain pages of a finished stream
         (prompt + generated tokens) out of the cache: the failover
@@ -2259,6 +2462,7 @@ class PagedContinuousBatcher(_TracedBatcher):
             self._validate_scales(scales, len(page_keys))
         return page_keys, page_kinds, layers, scales
 
+    @replicated
     def import_sealed_chain(self, payload: dict) -> int:
         """Warm the prefix cache from a sealed-chain export: pages enter
         idle (refcount 0) under their chain keys, kind-gated as
@@ -2305,6 +2509,7 @@ class PagedContinuousBatcher(_TracedBatcher):
     # delta is acked, a parked exporter may release those pages early
     # (``reclaim_handoff_pages``).
 
+    @replicated
     def export_sealed_delta(self, seq_id: int,
                             cursor: int) -> Optional[dict]:
         """The pages of ``seq_id``'s prompt chain sealed since page index
@@ -2361,6 +2566,7 @@ class PagedContinuousBatcher(_TracedBatcher):
             payload["scales"] = scales
         return payload
 
+    @replicated
     def import_sealed_delta(self, payload: dict) -> int:
         """Stage one streamed-handoff delta in the prefix cache: each page
         enters idle under its chain key.  Atomic per delta: dedup and
@@ -2402,6 +2608,7 @@ class PagedContinuousBatcher(_TracedBatcher):
         self.stats["pages_imported"] += len(pages)
         return len(pages)
 
+    @replicated
     def reclaim_handoff_pages(self, seq_id: int, upto: int) -> int:
         """Release ``seq_id``'s first ``upto`` pages to the pool once the
         importer acked the deltas holding them.  Only a parked sequence
@@ -2486,6 +2693,7 @@ class PagedContinuousBatcher(_TracedBatcher):
                 self._pending.popleft()
                 progress = True
 
+    @replicated
     @torch.no_grad()
     def serve_step(self) -> Dict[int, List[int]]:
         """One serving iteration: retire + admit, advance every in-flight
@@ -2496,6 +2704,7 @@ class PagedContinuousBatcher(_TracedBatcher):
         semantics.  The iteration's ledger row is recorded last."""
         t_begin = time.monotonic()
         self._sync_wait_s = 0.0
+        self._step_collective_bytes = 0
         finished: Dict[int, List[int]] = {}
         spec_emitted = 0
         self._sweep(finished)
@@ -2595,6 +2804,7 @@ class PagedContinuousBatcher(_TracedBatcher):
          self._remaining_dev, self._counts_dev) = self._step(
             last, table, pos, active, remaining, counts, self._samples())
         self.stats["steps"] += 1
+        self._step_collective_bytes += self._step_psum_bytes
         self._inflight.append(_Inflight(cand, *self._read_back(toks)))
 
     @staticmethod
@@ -2637,7 +2847,8 @@ class PagedContinuousBatcher(_TracedBatcher):
             # in at its own tight scale
             fresh = init_caches(1, self.draft_num_layers,
                                 self.draft_num_heads, self.draft_hidden,
-                                self.draft_window, self.dtype, self.device)
+                                self.draft_window, self.dtype, self.device,
+                                self.tp)
             fill(fresh)
             for (kent, vent), (fk, fv) in zip(self.d_caches, fresh):
                 for (data, scale), full in ((kent, fk), (vent, fv)):
@@ -2667,6 +2878,7 @@ class PagedContinuousBatcher(_TracedBatcher):
                             self._pos_dev[slot: slot + 1])
         tok = int(pick_tokens(logits, self._temps[slot: slot + 1],
                               key[None], self.top_k)[0])
+        self._step_collective_bytes += self._first_psum_bytes
         s.tokens = [tok]
         s.remaining -= 1
         # the device lane sees the first token's budget debit too, or its
@@ -2831,6 +3043,7 @@ class PagedContinuousBatcher(_TracedBatcher):
                             wrapped.to(torch.int32)[:, None]], 1)
         self.stats["steps"] += 1
         self.stats["spec_steps"] += 1
+        self._step_collective_bytes += self._spec_psum_bytes
         self._inflight.append(_Inflight(cand, *self._read_back(packed),
                                         td0=td0, tv0=tv0, tv1=tv1))
 
@@ -2920,8 +3133,9 @@ class PagedContinuousBatcher(_TracedBatcher):
         page economy, speculation yield, and the host/device split —
         ``host_ms`` is the iteration's host-side time, ``device_ms`` the
         time it spent blocked on the token readback.  The row keys are
-        the JAX batcher's; at tensor-parallel width 1 ``tp`` is 1 and
-        ``collective_bytes`` 0."""
+        the JAX batcher's: page counts are mesh-wide, and the per-rank
+        economy is ``pool_bytes_per_device`` and the iteration's modeled
+        all-reduce wire bytes, ``collective_bytes`` (0 at tp 1)."""
         rows = self._last_prefill_rows + n_active * (
             (self.speculate_k + 1) if self.speculate_k is not None else 1
         )
@@ -2950,7 +3164,7 @@ class PagedContinuousBatcher(_TracedBatcher):
             "host_ms": round(host_s * 1e3, 3),
             "device_ms": round(device_s * 1e3, 3),
             "tp": self.tp,
-            "collective_bytes": 0,
+            "collective_bytes": self._step_collective_bytes,
             "pool_bytes_per_device": self.pool_bytes_per_device,
             "kv_dtype": self.kv_dtype,
             "pool_kv_bytes": self.pool_kv_bytes,
@@ -2966,6 +3180,9 @@ class PagedContinuousBatcher(_TracedBatcher):
             self.metrics.set_gauge("serve_pool_pages_live",
                                    float(row["pages_live"]))
             self.metrics.set_gauge("serve_pool_pages_cached", float(cached))
+            if self._step_collective_bytes:
+                self.metrics.inc("serve_tp_collective_bytes_total",
+                                 self._step_collective_bytes)
 
     def ledger_rows(self, limit: Optional[int] = None) -> List[dict]:
         """The most recent ledger rows (oldest first), up to ``limit``."""
@@ -2973,6 +3190,7 @@ class PagedContinuousBatcher(_TracedBatcher):
         return rows[-limit:] if limit is not None else rows
 
     # -- the batch convenience loop ----------------------------------------
+    @replicated
     @torch.no_grad()
     def run(self, prompts: List[np.ndarray], max_new_tokens: List[int],
             temperatures: Optional[List[float]] = None,

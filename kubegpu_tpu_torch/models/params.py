@@ -9,6 +9,10 @@ tree carries over leaf for leaf and the parity tests hand both packages
 the same weights.  Modules are built with parameters on the ``meta``
 device and :func:`bind_params` points them at a tree's tensors without a
 copy, so the prefill and decode models of one batcher share storage.
+A tensor-parallel rank takes the whole tree, JAX's carried over with
+:func:`params_from_numpy` too, and cuts its own part
+(``parallel.sharding.shard_params``), so both packages serve the same
+weights at any width.
 """
 
 from __future__ import annotations

@@ -68,10 +68,23 @@ every import (a chaos knob), ``--serve-http-tls-cert/-key`` serve HTTPS,
     python -m kubegpu_tpu_torch.models.worker --model decode --serving paged \\
         --serve-http 0 [--role prefill] [--speculate] [--kv-dtype int8]
 
+``--tp N`` (``--serving paged``, N above 1) serves tensor-parallel, as
+the JAX worker's mesh: it prints ``SERVING_TP tp=N devices=...
+backend=...``, starts ranks 1..N-1 as processes and is rank 0 itself,
+on ``cuda:0..N-1`` over NCCL, or on the CPU over gloo with ``--device
+cpu``; each rank holds ``1/N`` of every page's heads and its Megatron
+shard of the weights, rank 0 drives the wave or the HTTP replica and
+the other ranks replay its calls (``parallel/replay.py``).  The counts
+it prints are rank 0's.  It refuses N above the visible card count, and
+heads, vocab or draft heads that do not split N ways.
+
+    python -m kubegpu_tpu_torch.models.worker --model decode \\
+        --serving paged --tp 2 [--serve-http 0] [--device cpu]
+
 The JAX worker's refusals hold: ``--kv-dtype`` and ``--tp`` above 1 need
-``--serving paged`` (the port runs on one device in every mode until the
-tensor-parallel slice), and ``--serve-http`` refuses ``static`` and
-``speculative``.  ``--ckpt-dir`` and ``--draft-ckpt-dir`` wait for the
+``--serving paged`` (the dense batchers run on one device), and
+``--serve-http`` refuses ``static`` and ``speculative``.  ``--ckpt-dir``
+and ``--draft-ckpt-dir`` wait for the
 checkpoint slice: every mode serves fresh weights, as the JAX worker
 does when it finds no checkpoint.
 
@@ -83,8 +96,9 @@ tokens a step.  It prints the JAX worker's ``FIRST_STEP_DONE`` and
 flash-attention kernels (K3 forward, K4 and K5 backward; with ``--remat``
 K3 runs twice a layer) and the peak device memory.  ``--attn-impl flash``
 (the default) runs those kernels, ``einsum`` the model-dtype einsum
-attention.  One device only: ``--tp`` above 1 waits for the tensor-
-parallel slice, ``--attn-impl ring|ulysses`` for the long-context one.
+attention.  One device only: ``--tp`` above 1 waits for the data x
+tensor-parallel training slice, ``--attn-impl ring|ulysses`` for the
+long-context one.
 
     python -m kubegpu_tpu_torch.models.worker --model lm --vocab 32768 \\
         --hidden 4096 --heads 32 --layers 4 --seq 1024 \\
@@ -97,6 +111,9 @@ path (the kernels are then never launched).
 from __future__ import annotations
 
 import argparse
+import os
+import shutil
+import tempfile
 import time
 from typing import Dict, List, Optional
 
@@ -134,6 +151,12 @@ from kubegpu_tpu_torch.ops.paged_attention import (
     paged_chunk_attention,
     paged_decode_attention,
 )
+from kubegpu_tpu_torch.parallel.launch import (
+    join_ranks,
+    open_store,
+    start_ranks,
+)
+from kubegpu_tpu_torch.parallel.mesh import close_mesh, device_mesh
 from kubegpu_tpu_torch.utils.metrics import Metrics
 
 WEIGHT_SEED = 0
@@ -219,8 +242,9 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--remat", action="store_true",
                     help="lm: recompute each block in the backward")
     ap.add_argument("--tp", type=int, default=0,
-                    help="tensor-parallel size: 0 (all devices) or 1; the "
-                    "port runs on one device until the tensor-parallel slice")
+                    help="decode --serving paged: tensor-parallel ranks (0 "
+                    "or 1: one device; N: cuda:0..N-1 over NCCL, or N CPU "
+                    "processes over gloo with --device cpu); lm: 0 or 1")
     ap.add_argument("--data", default="synthetic",
                     choices=["synthetic", "stream", "resident"],
                     help="lm: synthetic = a pool of --data-pool distinct "
@@ -271,8 +295,9 @@ def build_parser() -> argparse.ArgumentParser:
 def check_one_device(args: argparse.Namespace) -> None:
     if args.tp not in (0, 1):
         raise SystemExit(
-            f"--tp {args.tp}: tensor parallelism arrives with the tensor-"
-            "parallel slice of the port; it runs on one device (--tp 0 or 1)")
+            f"--tp {args.tp}: tensor-parallel training arrives with the "
+            "data x tensor-parallel training slice of the port; --model lm "
+            "runs on one device (--tp 0 or 1)")
 
 
 def wave_requests(rng: np.random.RandomState, n_req: int, vocab: int,
@@ -283,6 +308,13 @@ def wave_requests(rng: np.random.RandomState, n_req: int, vocab: int,
                     dtype=np.int32)
         for _ in range(n_req)
     ]
+
+
+def draft_shape(args: argparse.Namespace) -> tuple:
+    """The draft's ``(hidden, heads)``: ``--draft-hidden`` (0 =
+    ``max(hidden // 4, 128)``) in heads of 128."""
+    d_hidden = args.draft_hidden or max(args.hidden // 4, 128)
+    return d_hidden, max(d_hidden // 128, 1)
 
 
 def draft_for(args: argparse.Namespace, max_seq: int, device):
@@ -298,8 +330,7 @@ def draft_for(args: argparse.Namespace, max_seq: int, device):
             f"--spec-k {args.spec_k} exceeds --seq+1 = {max_seq}: the "
             "speculative verify window needs k rows of cache headroom"
         )
-    d_hidden = args.draft_hidden or max(args.hidden // 4, 128)
-    d_heads = max(d_hidden // 128, 1)
+    d_hidden, d_heads = draft_shape(args)
     if d_hidden % d_heads:
         raise SystemExit(
             f"--draft-hidden {d_hidden} not divisible by its derived "
@@ -318,7 +349,8 @@ def draft_for(args: argparse.Namespace, max_seq: int, device):
 def check_serving_knobs(args: argparse.Namespace) -> None:
     """The JAX worker's refusals of knobs a serving mode does not take:
     tensor parallelism and the KV storage format are the paged batcher's,
-    and the port runs on one device in every mode."""
+    and ``--tp`` must fit the visible cards and split the heads and the
+    vocab."""
     if args.tp > 1 and args.serving == "static":
         raise SystemExit(
             f"--tp {args.tp} with --serving static: tensor-parallel "
@@ -336,7 +368,8 @@ def check_serving_knobs(args: argparse.Namespace) -> None:
             "the KV storage format is the PAGED pool's knob "
             "(--serving paged)"
         )
-    check_one_device(args)
+    if args.tp > 1:
+        check_tp(args)
     if args.prompt_len + args.steps > args.seq + 1:
         raise SystemExit(
             f"--prompt-len {args.prompt_len} + --steps {args.steps} exceeds "
@@ -351,10 +384,103 @@ def check_serving_knobs(args: argparse.Namespace) -> None:
         raise SystemExit(str(e))
 
 
-def serving_params(args: argparse.Namespace, device):
+def check_tp(args: argparse.Namespace) -> None:
+    """``--tp N``'s refusals, as the JAX worker's: no more ranks than
+    visible cards (on the card), heads and vocab split N ways."""
+    if args.device == "cuda":
+        n = torch.cuda.device_count()
+        if args.tp > n:
+            raise SystemExit(
+                f"--tp {args.tp} exceeds the visible device count {n}")
+    if args.heads % args.tp:
+        raise SystemExit(f"--heads {args.heads} not divisible by "
+                         f"tp={args.tp}")
+    if args.vocab % args.tp:
+        raise SystemExit(
+            f"--vocab {args.vocab} not divisible by tp={args.tp} (lm_head "
+            "is column-parallel over the vocab)")
+    d_hidden, d_heads = draft_shape(args)
+    if args.speculate and d_heads % args.tp:
+        raise SystemExit(
+            f"draft head count {d_heads} (derived from --draft-hidden "
+            f"{d_hidden} // 128) not divisible by tp={args.tp}: pick "
+            f"--draft-hidden = a multiple of {128 * args.tp}")
+
+
+def tp_devices(args: argparse.Namespace) -> List[str]:
+    """Each rank's device: ``cuda:r``, or the CPU for every rank."""
+    if args.device == "cpu":
+        return ["cpu"] * args.tp
+    return [f"cuda:{r}" for r in range(args.tp)]
+
+
+# an HTTP replica's ranks wait for rank 0's next call as long as it idles
+TP_IDLE_TIMEOUT_S = 30 * 24 * 3600.0
+
+
+def join_tp_mesh(args: argparse.Namespace, rank: int, store_path: str):
+    """Rank ``rank``'s mesh of ``--tp`` ranks: NCCL between cards, gloo
+    on the CPU."""
+    devices = tp_devices(args)
+    return device_mesh(args.tp, rank,
+                       backend="gloo" if args.device == "cpu" else "nccl",
+                       device=devices[rank],
+                       store=open_store(store_path, args.tp),
+                       idle_timeout_s=TP_IDLE_TIMEOUT_S,
+                       devices=tuple(devices))
+
+
+def _tp_follower(rank: int, args: argparse.Namespace,
+                 store_path: str) -> None:
+    """Rank ``rank`` (> 0) of ``--tp``: build the same batcher and replay
+    rank 0's calls on it until rank 0 closes it."""
+    if args.device == "cpu":
+        torch.set_num_threads(1)
+    mesh = join_tp_mesh(args, rank, store_path)
+    try:
+        build_batcher(args, mesh).follow()
+    finally:
+        close_mesh(mesh)
+
+
+def open_batcher(args: argparse.Namespace):
+    """:func:`build_batcher` after the knob checks, with ``--tp``'s
+    other ranks started first (:class:`TPRanks`, None at one device).
+    Returns ``(batcher, ranks)``."""
+    check_serving_knobs(args)
+    ranks = TPRanks(args) if args.tp > 1 else None
+    return build_batcher(args, ranks and ranks.mesh), ranks
+
+
+class TPRanks:
+    """``--tp N``'s ranks 1..N-1, started as processes, and rank 0's
+    mesh (this process).  ``close`` releases the followers of ``cb``,
+    joins them, leaves the mesh, and raises if a rank failed."""
+
+    def __init__(self, args: argparse.Namespace) -> None:
+        self._dir = tempfile.mkdtemp(prefix="kubegpu-tp-")
+        store = os.path.join(self._dir, "store")
+        self.procs = start_ranks(_tp_follower, range(1, args.tp), args, store)
+        self.mesh = join_tp_mesh(args, 0, store)
+        print(f"SERVING_TP tp={args.tp} devices="
+              + ",".join(self.mesh.devices)
+              + f" backend={self.mesh.backend}", flush=True)
+
+    def close(self, cb) -> None:
+        cb.close()
+        codes = join_ranks(self.procs)
+        close_mesh(self.mesh)
+        shutil.rmtree(self._dir, ignore_errors=True)
+        if any(codes):
+            raise RuntimeError(f"tensor-parallel ranks 1..{len(codes)} "
+                               f"exited with {codes}")
+
+
+def serving_params(args: argparse.Namespace, device, announce: bool = True):
     """The served weights: fresh from ``WEIGHT_SEED`` at the given widths,
-    bf16 unless ``--serve-fp32``, int8 under ``--int8``.  Returns
-    ``(params, model config, dtype)``."""
+    bf16 unless ``--serve-fp32``, int8 under ``--int8`` (quantized whole,
+    before any tensor-parallel sharding).  ``announce`` prints the int8
+    line.  Returns ``(params, model config, dtype)``."""
     cfg = dict(vocab_size=args.vocab, num_layers=args.layers,
                num_heads=args.heads, hidden=args.hidden, max_seq=args.seq + 1)
     dtype = torch.float32 if args.serve_fp32 else torch.bfloat16
@@ -364,21 +490,23 @@ def serving_params(args: argparse.Namespace, device):
         params = bf16_cast(params)
     if args.int8:
         params = quantize_params_int8(params)
-        print("SERVING_INT8 weight-only per-output-channel", flush=True)
+        if announce:
+            print("SERVING_INT8 weight-only per-output-channel", flush=True)
     return params, cfg, dtype
 
 
-def build_batcher(args: argparse.Namespace):
+def build_batcher(args: argparse.Namespace, mesh=None):
     """The worker's batcher for ``--serving continuous|paged|speculative``
     over :func:`serving_params`' weights, ``--batch-per-chip`` slots and
     prompts up to ``--prompt-len``.  The paged pool holds every slot's
     ``--prompt-len + --steps`` rows (plus ``--spec-k`` rows of verify
-    headroom when speculating)."""
+    headroom when speculating).  ``mesh``: this rank's share of a
+    ``--tp`` batcher, on the mesh's device."""
     check_serving_knobs(args)
     if args.serving == "static":
         raise SystemExit("--serving static decodes through greedy_generate "
                          "and builds no batcher")
-    device = resolve_device(args.device)
+    device = resolve_device(args.device if mesh is None else mesh.device)
     max_seq = args.seq + 1
     page = None
     if args.serving == "paged":
@@ -392,7 +520,8 @@ def build_batcher(args: argparse.Namespace):
             page = args.page_size
         else:
             page = 128 if args.prompt_len % 128 == 0 else args.prompt_len
-    params, cfg, dtype = serving_params(args, device)
+    params, cfg, dtype = serving_params(
+        args, device, announce=mesh is None or mesh.rank == 0)
     slots = args.batch_per_chip
     common = dict(cfg, slots=slots, prompt_pad=args.prompt_len, dtype=dtype,
                   device=device, quant=args.int8)
@@ -420,6 +549,7 @@ def build_batcher(args: argparse.Namespace):
     return PagedContinuousBatcher(
         params, **common, page_size=page, pool_pages=pool,
         kv_dtype=args.kv_dtype, decode_page_cache=args.decode_page_cache,
+        mesh=mesh,
         # sampled traffic keeps speculation: the verify rejection-samples
         **sample_kw, **spec_kw,
     )
@@ -553,7 +683,16 @@ def run_decode(args: argparse.Namespace,
     if args.serving == "static":
         return run_static(args, report)
     t0 = time.monotonic()
-    cb = build_batcher(args)
+    cb, ranks = open_batcher(args)
+    try:
+        return _serve_waves(args, cb, t0, report)
+    finally:
+        if ranks is not None:
+            ranks.close(cb)
+
+
+def _serve_waves(args: argparse.Namespace, cb, t0: float,
+                 report) -> Dict[str, object]:
     device = cb.device
     slots = args.batch_per_chip
     rng = np.random.RandomState(0)
@@ -601,6 +740,8 @@ def run_decode(args: argparse.Namespace,
         "pool_bytes": (cb.pool_kv_bytes + cb.pool_scale_bytes if paged
                        else None),
         "cache_bytes": cache_bytes(cb),
+        "tp": getattr(cb, "tp", 1),
+        "pool_bytes_per_device": getattr(cb, "pool_bytes_per_device", None),
         "spec_steps": cb.stats.get("spec_steps", 0),
         "spec_tokens": cb.stats.get("spec_tokens", 0),
         "draft_wraps": cb.stats.get("draft_wraps", 0),
@@ -657,7 +798,7 @@ def serve_http(args: argparse.Namespace, t0: float) -> int:
     if args.serve_http_auth_token_file:
         with open(args.serve_http_auth_token_file) as f:
             auth_token = f.read().strip()
-    cb = build_batcher(args)
+    cb, ranks = open_batcher(args)
     warm_batcher(cb, args.sample_temperature)
     metrics = Metrics()
     cb.attach_metrics(metrics)
@@ -681,6 +822,8 @@ def serve_http(args: argparse.Namespace, t0: float) -> int:
     except KeyboardInterrupt:
         pass
     server.stop()
+    if ranks is not None:
+        ranks.close(cb)
     launches = " ".join(f"{k}_LAUNCHES={v - launches0[k]}"
                         for k, v in read_counters().items())
     print(f"REPLICA_HTTP_STOPPED steps={cb.stats['steps']} "

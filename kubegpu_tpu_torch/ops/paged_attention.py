@@ -63,6 +63,15 @@ the pool's storage codec; the dense oracles take dequantized pools.
 The int8 variants count their launches apart:
 ``paged_decode_attention.int8_launches`` and
 ``paged_chunk_attention.int8_launches``.
+
+Tensor parallelism: :func:`paged_decode_attention_sharded` and
+:func:`paged_chunk_attention_sharded` take one rank's head shard — q
+``(b, h/tp, hd)`` or ``(b, L, h/tp, hd)``, pools ``(P, h/tp, page, hd)``
+and scales ``(P, h/tp)`` — with the page table and lengths whole, check
+that the shard holds ``h/tp`` heads, and run the same kernels (or, on
+the CPU, their twins) on it.  Every head's walk is independent, so the
+shard's result is the unsharded result's heads, bit for bit, and no
+collective runs here.
 """
 
 from __future__ import annotations
@@ -74,6 +83,7 @@ import math
 import torch
 
 from kubegpu_tpu_torch.ops import _build
+from kubegpu_tpu_torch.parallel.mesh import tp_size
 
 NEG_INF = float("-inf")
 # the dtypes the kernels are instantiated for (q and out; a full-width
@@ -594,6 +604,47 @@ def paged_chunk_attention(q, k_pool, v_pool, page_table, lengths, *,
 
 paged_chunk_attention.launches = 0         # K2
 paged_chunk_attention.int8_launches = 0    # K2q
+
+
+def _check_head_shard(q, k_pool, k_scale, num_heads: int, tp: int) -> None:
+    """One rank's operands must hold exactly ``num_heads / tp`` heads:
+    q's heads dim, the pools' and their scales'."""
+    if num_heads % tp:
+        raise ValueError(f"num_heads ({num_heads}) not divisible by the "
+                         f"tensor-parallel width ({tp})")
+    local = num_heads // tp
+    dims = {"q": q.shape[-2], "pool": k_pool.shape[1]}
+    if k_scale is not None:
+        dims["scale"] = k_scale.shape[1]
+    for what, n in dims.items():
+        if n != local:
+            raise ValueError(
+                f"{what} holds {n} heads; a rank of a {tp}-wide mesh holds "
+                f"{num_heads} // {tp} = {local}")
+
+
+def paged_decode_attention_sharded(q, k_pool, v_pool, page_table, lengths,
+                                   mesh, num_heads: int, *, k_scale=None,
+                                   v_scale=None, checked: bool = False):
+    """:func:`paged_decode_attention` on this rank's head shard of a
+    ``num_heads``-head model over ``mesh`` (the module docstring): K1, or
+    K1q over an int8 pool, at ``num_heads / tp`` heads."""
+    _check_head_shard(q, k_pool, k_scale, num_heads, tp_size(mesh))
+    return paged_decode_attention(q, k_pool, v_pool, page_table, lengths,
+                                  k_scale=k_scale, v_scale=v_scale,
+                                  checked=checked)
+
+
+def paged_chunk_attention_sharded(q, k_pool, v_pool, page_table, lengths,
+                                  mesh, num_heads: int, *, k_scale=None,
+                                  v_scale=None, checked: bool = False):
+    """:func:`paged_chunk_attention` (the verify window) on this rank's
+    head shard, as :func:`paged_decode_attention_sharded`: K2 or K2q at
+    ``num_heads / tp`` heads."""
+    _check_head_shard(q, k_pool, k_scale, num_heads, tp_size(mesh))
+    return paged_chunk_attention(q, k_pool, v_pool, page_table, lengths,
+                                 k_scale=k_scale, v_scale=v_scale,
+                                 checked=checked)
 
 
 def _declare(lib: ctypes.CDLL) -> None:

@@ -7,8 +7,7 @@ help text, so dashboards read a torch replica exactly as a JAX one.
 ``inc(``/``observe(``/``set_gauge(``/``timer(`` string literals and
 fails on a name missing here, on a catalog entry no code emits, and on
 an entry that differs from the reference's.  The names of slices still
-to come (the int8 pool's quality gauges, tensor-parallel collectives)
-arrive with those slices.
+to come (the int8 pool's quality gauges) arrive with those slices.
 """
 
 from __future__ import annotations
@@ -178,7 +177,9 @@ CATALOG: Dict[str, MetricSpec] = {
         (), "KV pool pages resident in the prefix cache (shared or "
         "idle-evictable; mesh-wide count under tensor parallelism)"),
 
-    # -- pool bytes and tensor parallelism at width 1
+    # -- pool bytes and tensor-parallel serving (models/paging.py with a
+    #    mesh): the per-device half of the pool economy plus the
+    #    collective traffic the Megatron all-reduces cost per iteration
     "serve_pool_kv_bytes": _g(
         ("dtype",), "KV page pool bytes RESTING by storage dtype "
         "(mesh-wide aggregate, like the page counts; per-device is "
@@ -193,4 +194,8 @@ CATALOG: Dict[str, MetricSpec] = {
         (), "KV pool bytes RESTING per device (the aggregate pool "
         "divided by the tensor-parallel width — heads shard 1/tp of "
         "every page)"),
+    "serve_tp_collective_bytes_total": _c(
+        (), "modeled per-device all-reduce wire bytes of the serving "
+        "iterations' TP psums (2 per transformer block: o_proj + "
+        "mlp_down; ring cost 2*(tp-1)/tp of the payload; 0 at tp=1)"),
 }

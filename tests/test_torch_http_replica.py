@@ -233,8 +233,8 @@ def test_tls_and_auth_stream_token_identical(torch_params, tmp_path):
 # the gate: a JAX gateway over a JAX and a torch replica
 # ---------------------------------------------------------------------------
 
-def _drive_gateway(make_client, prompts, budgets):
-    stack = build_fake_serving_stack(2)
+def _drive_gateway(make_client, prompts, budgets, n_replicas=2):
+    stack = build_fake_serving_stack(n_replicas)
     registry = stack.registry
     registry.refresh()
     client, servers = make_client(registry)
@@ -681,6 +681,125 @@ def test_worker_serve_http_subprocess(tmp_path):
             proc.kill()
             proc.communicate()
 
+
+
+# ---------------------------------------------------------------------------
+# a tensor-parallel replica: two gloo ranks behind one endpoint
+# ---------------------------------------------------------------------------
+
+# TINY with a vocab that splits over two ranks
+TINY_TP = dict(TINY, vocab_size=62)
+
+
+def test_jax_gateway_fronts_a_torch_tp2_replica(tmp_path):
+    """A JAX gateway over one torch replica served by a two-rank gang
+    (rank 0 runs the ``ReplicaServer``, rank 1 replays its batcher's
+    calls) serves the in-memory JAX data plane's streams at fp32, and
+    the replica's ``/v1/state`` says ``tp`` 2."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import torch_tp_cases as cases
+    from kubegpu_tpu_torch.parallel.launch import Gang
+
+    jp = TransformerLM(dtype=jnp.float32, **TINY_TP).init(
+        jax.random.PRNGKey(0), jnp.ones((1, 4), jnp.int32))["params"]
+    prompts, budgets = _prompts()
+    spec = dict(params=jax.tree.map(np.asarray, jp), cfg=TINY_TP,
+                kw=PAGED_KW)
+    ctrl = tmp_path / "ctrl"
+    ctrl.mkdir()
+    states = []
+    with Gang(2, str(tmp_path), backend="gloo", devices=["cpu"] * 2,
+              timeout_s=240.0) as gang, \
+            ThreadPoolExecutor(1) as pool:
+        served = pool.submit(gang.run, cases.serve_http, spec, str(ctrl))
+        endpoint = ctrl / "endpoint"
+        _wait(lambda: endpoint.exists() or served.done(), 120.0,
+              "the TP replica's endpoint")
+        assert endpoint.exists(), served.result()
+        try:
+            def over_wire(registry):
+                client = HttpReplicaClient()
+                client.set_endpoint(registry.live()[0].key,
+                                    endpoint.read_text())
+                orig_stop = client.stop
+
+                def stop():
+                    host, port = endpoint.read_text().rsplit(":", 1)
+                    srv = types.SimpleNamespace(address=(host, int(port)))
+                    states.append(json.loads(_get(srv, "/v1/state")[1]))
+                    orig_stop()
+
+                client.stop = stop
+                return client, []
+
+            got = _drive_gateway(over_wire, prompts, budgets, n_replicas=1)
+        finally:
+            (ctrl / "stop").write_text("")
+        result = served.result(timeout=120)
+
+    def inmemory(registry):
+        client = InMemoryReplicaClient(
+            batcher_factory=lambda key: JaxPagedContinuousBatcher(
+                jp, dtype=jnp.float32, **TINY_TP, **PAGED_KW))
+        for rep in registry.live():
+            client.add_replica(rep.key)
+        return client, []
+
+    assert got == _drive_gateway(inmemory, prompts, budgets, n_replicas=1)
+    assert states[0]["tp"] == 2
+    assert states[0]["stats"]["admits"] == len(prompts)
+    assert result["tp"] == 2 and result["error"] is None
+
+
+def test_worker_serve_http_tp2_subprocess(tmp_path):
+    """``--serve-http 0 --tp 2 --device cpu``: the worker prints
+    ``SERVING_TP``, serves a JAX gateway's request to its budget,
+    reports ``tp`` 2 at ``/v1/state``, and on SIGTERM stops both ranks
+    and exits 0."""
+    env = dict(os.environ, PYTHONPATH=REPO)
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "kubegpu_tpu_torch.models.worker",
+         "--model", "decode", "--serving", "paged", "--device", "cpu",
+         "--serve-http", "0", "--tp", "2", "--vocab", "62", "--layers", "1",
+         "--heads", "2", "--hidden", "16", "--seq", "47", "--prompt-len",
+         "12", "--page-size", "4", "--batch-per-chip", "3", "--steps", "8",
+         "--serve-fp32"],
+        cwd=str(tmp_path), env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True)
+    try:
+        lines = []
+        deadline = time.monotonic() + 120
+        while time.monotonic() < deadline:
+            lines.append(proc.stdout.readline())
+            if lines[-1].startswith("REPLICA_HTTP_SERVING") or not lines[-1]:
+                break
+        assert lines[-1].startswith("REPLICA_HTTP_SERVING"), lines
+        assert any(ln.startswith("SERVING_TP tp=2 devices=cpu,cpu")
+                   for ln in lines), lines
+        fields = dict(f.split("=", 1) for f in lines[-1].split()[1:])
+        endpoint = f"127.0.0.1:{fields['port']}"
+
+        def over_wire(registry):
+            client = HttpReplicaClient()
+            client.set_endpoint(registry.live()[0].key, endpoint)
+            return client, []
+
+        got = _drive_gateway(over_wire, [np.arange(1, 6, dtype=np.int32)],
+                             [6], n_replicas=1)
+        assert len(got[0]) == 6
+        srv = types.SimpleNamespace(address=("127.0.0.1",
+                                             int(fields["port"])))
+        state = json.loads(_get(srv, "/v1/state")[1])
+        assert state["tp"] == 2 and state["stats"]["admits"] >= 1
+        proc.send_signal(signal.SIGTERM)
+        out, _ = proc.communicate(timeout=60)
+        assert proc.returncode == 0, out
+        assert "REPLICA_HTTP_STOPPED" in out and "error=False" in out
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
 
 
 # ---------------------------------------------------------------------------

@@ -1,6 +1,8 @@
-"""The port stands alone: no module of kubegpu_tpu_torch, and not
-chip_smoke.py, imports jax, flax or the JAX package; its entry points
-run on the card unless the caller asks for the CPU."""
+"""The port stands alone: no module of kubegpu_tpu_torch, not
+chip_smoke.py and not the tensor-parallel rank bodies
+(tests/torch_tp_cases.py, whose processes must run without JAX) imports
+jax, flax or the JAX package; its entry points run on the card unless
+the caller asks for the CPU."""
 
 import ast
 import os
@@ -13,6 +15,7 @@ import torch
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(REPO, "kubegpu_tpu_torch")
+TP_CASES = os.path.join(REPO, "tests", "torch_tp_cases.py")
 FORBIDDEN_ROOTS = ("jax", "jaxlib", "flax", "kubegpu_tpu")
 
 
@@ -22,6 +25,7 @@ def port_sources():
             if f.endswith(".py"):
                 yield os.path.join(root, f)
     yield os.path.join(REPO, "chip_smoke.py")
+    yield TP_CASES
 
 
 def test_importing_every_module_leaves_jax_out():
@@ -32,13 +36,15 @@ def test_importing_every_module_leaves_jax_out():
         "'kubegpu_tpu_torch.')]\n"
         "for n in names: importlib.import_module(n)\n"
         "import chip_smoke\n"
+        "import torch_tp_cases\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         f"{FORBIDDEN_ROOTS!r})\n"
         "print(len(names), bad)\n"
         "print(' '.join(names))\n"
         "sys.exit(1 if bad else 0)\n"
     )
-    env = dict(os.environ, PYTHONPATH=REPO)
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [REPO, os.path.dirname(TP_CASES)]))
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stdout + proc.stderr
@@ -46,11 +52,15 @@ def test_importing_every_module_leaves_jax_out():
     n_modules = int(first.split()[0])
     assert n_modules >= 25
     # the HTTP replica slice's own copies of the JAX package's
-    # stdlib-only modules, the sampling slice's counter-based PRNG and
-    # the dense serving slice's batchers
+    # stdlib-only modules, the sampling slice's counter-based PRNG, the
+    # dense serving slice's batchers and the tensor-parallel slice's
+    # modules
     for name in ("gateway", "gateway.client", "gateway.dataplane", "utils",
                  "utils.metrics", "utils.tracing", "utils.metric_names",
-                 "ops.prng", "models.serving", "models.spec_serving"):
+                 "ops.prng", "models.serving", "models.spec_serving",
+                 "parallel.mesh", "parallel.sharding",
+                 "parallel.collectives", "parallel.launch",
+                 "parallel.replay"):
         assert f"kubegpu_tpu_torch.{name}" in imported.split(), name
 
 

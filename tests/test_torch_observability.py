@@ -68,6 +68,9 @@ WANT_NAMES = {
     "serve_kv_quant_agreement", "serve_kv_quant_divergence_margin",
     "serve_kv_quant_ppl_delta", "serve_sampled_accept_rate",
     "serve_sampled_nll_delta", "serve_sampled_unigram_agreement",
+    # tensor-parallel serving's modeled all-reduce bytes (models/paging.py
+    # over a mesh)
+    "serve_tp_collective_bytes_total",
 }
 
 

@@ -22,6 +22,7 @@ from kubegpu_tpu_torch.models.paging import (
     PrefixPageCache,
 )
 from kubegpu_tpu_torch.models.params import bind_params, params_from_numpy
+from kubegpu_tpu_torch.parallel.mesh import Mesh
 
 CFG = dict(vocab_size=61, num_layers=2, num_heads=4, hidden=32, max_seq=32)
 LOGIT_TOL = 1e-5
@@ -203,21 +204,32 @@ def test_pool_too_small_for_a_request_is_refused(torch_params):
                                page_size=8)
 
 
-@pytest.mark.parametrize("knob, slice_name", [
-    # sampling, sampled speculation (tests/test_torch_spec_sampled.py) and
-    # prefill-only serving (tests/test_torch_disaggregation.py) serve; a
-    # later slice's knob refuses with them or without
-    (dict(mesh=object()), "tensor-parallel"),
-    (dict(mesh=object(), prefill_only=True), "tensor-parallel"),
-    (dict(mesh=object(), sampling=True, top_k=5), "tensor-parallel"),
-    (dict(mesh=object(), prefill_only=True, speculate_k=2, sampling=True),
-     "tensor-parallel"),
-    (dict(mesh=object(), prefill_only=True, top_k=5), "tensor-parallel"),
+def _mesh(size, axis="model"):
+    """A mesh object for the constructor's refusals, which run before any
+    collective (tests/test_torch_tp_serving.py serves real meshes)."""
+    return Mesh(size=size, rank=0, device=torch.device("cpu"),
+                backend="gloo", axis_names=(axis,))
+
+
+@pytest.mark.parametrize("knob, match", [
+    # tensor parallelism serves (tests/test_torch_tp_serving.py); a mesh
+    # the JAX batcher refuses is refused at construction, with or
+    # without the other knobs
+    (dict(mesh=object()), "parallel.mesh.Mesh"),
+    (dict(mesh=_mesh(2, "data"), prefill_only=True), "'model' axis"),
+    (dict(mesh=_mesh(3), sampling=True, top_k=5), "num_heads"),
+    (dict(mesh=_mesh(2), prefill_only=True, speculate_k=2, sampling=True),
+     "vocab_size"),
+    (dict(mesh=_mesh(2), vocab_size=62, speculate_k=2, draft_num_layers=1,
+          draft_num_heads=3, draft_hidden=24), "draft_num_heads"),
 ])
-def test_knobs_of_later_slices_are_refused(torch_params, knob, slice_name):
-    with pytest.raises(NotImplementedError, match=slice_name):
+def test_knobs_of_later_slices_are_refused(torch_params, knob, match):
+    kw = dict(CFG, **BATCHER_KW, **knob)
+    if "speculate_k" in kw:
+        kw["draft_params"] = torch_params
+    with pytest.raises(ValueError, match=match):
         PagedContinuousBatcher(torch_params, dtype=torch.float32,
-                               device="cpu", **CFG, **BATCHER_KW, **knob)
+                               device="cpu", **kw)
 
 
 @pytest.mark.parametrize("knob", [

@@ -2,9 +2,12 @@
 tiny width: as a subprocess it prints the JAX worker's FIRST_DECODE_DONE
 / DECODE_DONE lines and a K1 launch count of 0 (the CPU takes the
 kernel's plain twin); in process it serves every request of a wave to
-its budget.  ``--model lm`` trains and prints FIRST_STEP_DONE and
-steady_state with zero flash-kernel launches; what waits for a later
-slice (TP, context-parallel attention) fails naming it."""
+its budget.  ``--tp 2 --device cpu`` serves the same wave over two
+gloo ranks (``SERVING_TP``), and refuses what the JAX worker refuses.
+``--model lm`` trains and prints FIRST_STEP_DONE and steady_state with
+zero flash-kernel launches; what waits for a later slice (data x
+tensor-parallel training, context-parallel attention) fails naming
+it."""
 
 import os
 import re
@@ -183,7 +186,7 @@ def test_lm_worker_draws_the_jax_workers_batches():
 
 
 @pytest.mark.parametrize("bad, match", [
-    (["--tp", "2"], "tensor-parallel slice"),
+    (["--tp", "2"], "data x tensor-parallel training slice"),
     (["--attn-impl", "ring"], "long-context slice"),
     (["--attn-impl", "ulysses"], "long-context slice"),
     (["--heads", "5"], "divisible"),
@@ -367,3 +370,62 @@ def test_worker_dense_waves_equal_the_paged_wave():
 def test_worker_keeps_the_jax_workers_refusals(argv, match):
     with pytest.raises(SystemExit, match=match):
         worker.main(MODES_TINY + argv)
+
+
+# --tp N: N ranks serve one wave (rank 0 is the worker itself)
+TP_WAVE = """
+import json, sys
+from kubegpu_tpu_torch.models import worker
+r = worker.run_decode(worker.build_parser().parse_args(sys.argv[1:]))
+print("WAVE " + json.dumps({"outputs": {str(k): v for k, v in
+                                        r["outputs"].items()},
+                            "tp": r["tp"], "steps": r["steps"],
+                            "pool_bytes_per_device":
+                            r["pool_bytes_per_device"],
+                            "pool_bytes": r["pool_bytes"]}), flush=True)
+"""
+
+
+@pytest.mark.parametrize("extra", [
+    [],
+    ["--speculate", "--spec-k", "2", "--draft-hidden", "256",
+     "--kv-dtype", "int8"],
+], ids=["plain", "speculative-int8"])
+def test_worker_tp2_on_cpu_serves_the_tp1_wave(extra):
+    """``--tp 2 --device cpu``: two gloo ranks serve the wave the
+    unsharded worker serves, token for token at fp32, each resting half
+    the pool; the worker prints ``SERVING_TP tp=2`` and exits 0."""
+    import json
+
+    argv = TINY + ["--device", "cpu", "--serve-fp32"] + extra
+    env = dict(os.environ, PYTHONPATH=REPO)
+    proc = subprocess.run([sys.executable, "-c", TP_WAVE, *argv, "--tp", "2"],
+                          cwd=REPO, env=env, capture_output=True, text=True,
+                          timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert re.search(r"^SERVING_TP tp=2 devices=cpu,cpu backend=gloo$",
+                     proc.stdout, re.M), proc.stdout
+    got = json.loads(re.search(r"^WAVE (.*)$", proc.stdout, re.M).group(1))
+    ref = worker.run_decode(worker.build_parser().parse_args(argv))
+    assert got["outputs"] == {str(k): v for k, v in ref["outputs"].items()}
+    assert got["tp"] == 2 and got["steps"] == ref["steps"]
+    assert got["pool_bytes"] == ref["pool_bytes"]
+    assert got["pool_bytes_per_device"] * 2 == ref["pool_bytes"]
+
+
+@pytest.mark.parametrize("argv, match", [
+    (["--tp", "2"], "exceeds the visible device count"),
+    (["--tp", "3", "--device", "cpu"], "--heads 4 not divisible by tp=3"),
+    (["--tp", "2", "--vocab", "63", "--device", "cpu"],
+     "--vocab 63 not divisible by tp=2"),
+    (["--tp", "2", "--speculate", "--device", "cpu"],
+     "draft head count 1"),
+    (["--tp", "2", "--serving", "continuous", "--device", "cpu"],
+     "single-device"),
+], ids=["above-card-count", "heads", "vocab", "draft-heads", "dense"])
+def test_worker_tp_refusals(argv, match):
+    """The JAX worker's ``--tp`` refusals, before any rank starts: more
+    ranks than visible cards (this machine has none), heads, vocab or
+    draft heads that do not split, a dense batcher."""
+    with pytest.raises(SystemExit, match=match):
+        worker.main(TINY + argv)
