@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Builds every kernel of the port's serving and training paths from the
-sources in the checkout, then runs forty phases; any failure exits
+sources in the checkout, then runs forty-four phases; any failure exits
 non-zero:
 
 1. device: the card's name and power limit, TF32 off;
@@ -235,6 +235,32 @@ non-zero:
 40. the worker's ``--tp 2``: refused on a one-card machine ("exceeds the
    visible device count"), and the NCCL path reported as not exercised;
    with two cards or more, the same wave over NCCL.
+
+41. K3, K4, K5 and the delta pre-pass at one tp 2 rank's 16 of the
+   flagship's 32 heads (b 16, s 1024, d 128, causal, bf16) against their
+   plain twins under phase 8's bf16 gates; each kernel's graph-replay
+   time, plain time, bound and SDPA's time;
+42. data x tensor-parallel training, a gang of four ranks on the card
+   over gloo (host-staged collectives: no time here is a TP speed):
+   phase 10's small float32 model at dp 2 x tp 2 with sequence
+   parallelism and flash attention, remat off and on: one step's loss
+   and every gradient, gathered whole, within rtol=atol 1e-4 of the
+   card's one-device step on the same global batch, K3 launched once a
+   layer on every rank (twice with remat), K4 and K5 once; three steps'
+   losses, weights and momentum within 1e-4;
+43. the flagship at full width (vocab 32768, hidden 4096, 32 heads, 4
+   layers, seq 1024, bf16 compute over float32 weights) at dp 2 x tp 2,
+   2 rows a data rank, three steps from ``synthetic_token_batches_for_
+   mesh``: finite losses that fall, the first within 1e-2 of the card's
+   one-device loss on the same global batch, K3, K4, K5 and the pre-pass
+   launched steps x layers times on every rank (counts set to 0 in each
+   rank just before the steps), each rank's parameter and momentum bytes
+   1/tp of the whole but for the LayerNorms; seconds a step, one more
+   step's parts (forward and backward, ``sync_grads``, the optimizer)
+   and each rank's peak memory;
+44. the worker's ``--model lm --tp 2``: refused on a one-card machine
+   ("exceeds the visible device count"), NCCL reported as not
+   exercised; with two cards or more, three small steps over NCCL.
 
 Phases 29-34 set every kernel's launch count to 0 before each dense run
 and require it to be 0 after: the dense paths run none of K1-K5.
@@ -2484,10 +2510,13 @@ def hgmma_instructions(library) -> dict:
     return found
 
 
-def phase_flash() -> dict:
+def time_flash(q, k, v, dout, errs: dict, rec: dict) -> dict:
+    """K3, K4, K5 (and in bf16 the delta pre-pass) on one causal input:
+    each kernel's graph-replay time, its plain twin's time, its bound and
+    the library call's time, with ``errs`` (from :func:`check_flash`),
+    into ``rec[kernel][dtype name]``.  Returns SDPA's times."""
     import torch
 
-    from kubegpu_tpu_torch.ops import _build
     from kubegpu_tpu_torch.ops.attention import (
         flash_backward_delta,
         flash_backward_delta_plain,
@@ -2498,6 +2527,60 @@ def phase_flash() -> dict:
         flash_forward,
         flash_forward_plain,
     )
+
+    b, s, h, d = q.shape
+    name = str(q.dtype).replace("torch.", "")
+    out, lse = flash_forward(q, k, v, True)
+    bf16 = q.dtype == torch.bfloat16
+    # the bf16 kernels read the pre-pass's delta, timed on its own
+    delta = flash_backward_delta(out, dout) if bf16 else None
+    calls = {
+        "flash_forward": (lambda: flash_forward(q, k, v, True),
+                          lambda: flash_forward_plain(q, k, v, True)),
+        "flash_backward_dkdv": (
+            lambda: flash_backward_dkdv(q, k, v, out, lse, dout, True,
+                                        delta),
+            lambda: flash_backward_dkdv_plain(q, k, v, out, lse, dout,
+                                              True)),
+        "flash_backward_dq": (
+            lambda: flash_backward_dq(q, k, v, out, lse, dout, True, delta),
+            lambda: flash_backward_dq_plain(q, k, v, out, lse, dout, True)),
+    }
+    if bf16:
+        calls["flash_backward_delta"] = (
+            lambda: flash_backward_delta(out, dout),
+            lambda: flash_backward_delta_plain(out, dout))
+    lib = sdpa_times(q, k, v, dout)
+    log(f"SDPA {name} h{h} ({lib['backend']}): forward {lib['fwd_ms']:.3f} "
+        f"ms, backward (dq, dk, dv) {lib['bwd_ms']:.3f} ms")
+    # one PyTorch call for delta: rowsum(dO * O) as a batched dot
+    vecdot_ms = time_ms(lambda: torch.linalg.vecdot(dout, out), 20)
+    for kname, (kernel, plain) in calls.items():
+        ms = graph_ms(kernel, 2, replays=5)
+        plain_ms = time_ms(plain, 2, warmup=1)
+        bound_ms, bound_by, nbytes, flops = flash_bound(
+            kname, b, s, s, h, d, True, q.element_size())
+        library_ms = {"flash_forward": lib["fwd_ms"],
+                      "flash_backward_dkdv": lib["bwd_ms"],
+                      "flash_backward_delta": vecdot_ms}.get(kname)
+        log(f"{kname} {name} h{h}: kernel {ms:.3f} ms (graph replay), plain "
+            f"{plain_ms:.3f} ms, bound {bound_ms:.4f} ms by {bound_by} "
+            f"({nbytes} B, {flop_str(flops)}) -> "
+            f"{bound_ms / ms * 100:.2f}% of bound; library "
+            + (f"{library_ms:.3f} ms" if kname != "flash_backward_dq" else
+               "n/a (SDPA's backward is one call for dq, dk and dv, "
+               "counted under flash_backward_dkdv)"))
+        rec.setdefault(kname, {})[name] = dict(
+            max_abs_err=errs[kname], ms=ms, plain_ms=plain_ms,
+            bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms,
+            sdpa_backend=lib["backend"])
+    return lib
+
+
+def phase_flash() -> dict:
+    import torch
+
+    from kubegpu_tpu_torch.ops import _build
 
     sass = hgmma_instructions(_build.library_path("flash_attention"))
     for kname in ("flash_forward_wgmma_kernel",
@@ -2527,52 +2610,7 @@ def phase_flash() -> dict:
         name = str(dtype).replace("torch.", "")
         q, k, v, dout = flash_inputs(b, s, s, h, d, dtype, g)
         errs = check_flash(q, k, v, dout, True)
-        out, lse = flash_forward(q, k, v, True)
-        bf16 = dtype == torch.bfloat16
-        # the bf16 kernels read the pre-pass's delta, timed on its own
-        delta = flash_backward_delta(out, dout) if bf16 else None
-        calls = {
-            "flash_forward": (lambda: flash_forward(q, k, v, True),
-                              lambda: flash_forward_plain(q, k, v, True)),
-            "flash_backward_dkdv": (
-                lambda: flash_backward_dkdv(q, k, v, out, lse, dout, True,
-                                            delta),
-                lambda: flash_backward_dkdv_plain(q, k, v, out, lse, dout,
-                                                  True)),
-            "flash_backward_dq": (
-                lambda: flash_backward_dq(q, k, v, out, lse, dout, True,
-                                          delta),
-                lambda: flash_backward_dq_plain(q, k, v, out, lse, dout,
-                                                True)),
-        }
-        if bf16:
-            calls["flash_backward_delta"] = (
-                lambda: flash_backward_delta(out, dout),
-                lambda: flash_backward_delta_plain(out, dout))
-        lib = sdpa_times(q, k, v, dout)
-        log(f"SDPA {name} ({lib['backend']}): forward {lib['fwd_ms']:.3f} ms, "
-            f"backward (dq, dk, dv) {lib['bwd_ms']:.3f} ms")
-        # one PyTorch call for delta: rowsum(dO * O) as a batched dot
-        vecdot_ms = time_ms(lambda: torch.linalg.vecdot(dout, out), 20)
-        for kname, (kernel, plain) in calls.items():
-            ms = graph_ms(kernel, 2, replays=5)
-            plain_ms = time_ms(plain, 2, warmup=1)
-            bound_ms, bound_by, nbytes, flops = flash_bound(
-                kname, b, s, s, h, d, True, q.element_size())
-            library_ms = {"flash_forward": lib["fwd_ms"],
-                          "flash_backward_dkdv": lib["bwd_ms"],
-                          "flash_backward_delta": vecdot_ms}.get(kname)
-            log(f"{kname} {name}: kernel {ms:.3f} ms (graph replay), plain "
-                f"{plain_ms:.3f} ms, bound {bound_ms:.4f} ms by {bound_by} "
-                f"({nbytes} B, {flop_str(flops)}) -> "
-                f"{bound_ms / ms * 100:.2f}% of bound; library "
-                + (f"{library_ms:.3f} ms" if kname != "flash_backward_dq" else
-                   "n/a (SDPA's backward is one call for dq, dk and dv, "
-                   "counted under flash_backward_dkdv)"))
-            rec.setdefault(kname, {})[name] = dict(
-                max_abs_err=errs[kname], ms=ms, plain_ms=plain_ms,
-                bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms,
-                sdpa_backend=lib["backend"])
+        lib = time_flash(q, k, v, dout, errs, rec)
         backward = [k for k in ("flash_backward_delta", "flash_backward_dkdv",
                                 "flash_backward_dq") if name in rec.get(k, {})]
         total = sum(rec[k][name]["ms"] for k in backward)
@@ -2581,7 +2619,7 @@ def phase_flash() -> dict:
             f"against SDPA's backward {lib['bwd_ms']:.3f} ms "
             f"({total / lib['bwd_ms']:.2f}x) and the summed bounds "
             f"{bound:.4f} ms ({bound / total * 100:.2f}% of bound)")
-        del q, k, v, dout, out, lse, delta
+        del q, k, v, dout
         torch.cuda.empty_cache()
     return rec
 
@@ -3565,6 +3603,278 @@ def phase_tp(ctx: dict, device: str = "cuda", flagship: dict = TP_FLAGSHIP,
     return out
 
 
+# data x tensor-parallel training: a ("data", "model") mesh of four ranks
+TRAIN_AXES = {"data": 2, "model": 2}
+TRAIN_TP_SHAPE = (16, 1024, 32 // TRAIN_AXES["model"], 128)
+TRAIN_SMALL = dict(vocab_size=256, num_layers=2, num_heads=4, hidden=256,
+                   max_seq=129)
+TRAIN_FLAGSHIP = dict(vocab_size=32768, num_layers=4, num_heads=32,
+                      hidden=4096, max_seq=1025)
+TRAIN_FLAGSHIP_RUN = dict(seq=1024, batch_per_chip=2, steps=3)
+# bf16 compute: the mesh's row-parallel sums and reduce-scatters round
+# differently from one device's GEMMs
+FLAGSHIP_LOSS_TOL = 1e-2
+
+
+def phase_tp_flash() -> dict:
+    """Phase 41: K3, K4, K5 and the delta pre-pass at one tp 2 rank's 16
+    of the flagship's 32 heads (b 16, s 1024, d 128, causal, bf16):
+    against their plain twins as in phase 8, each kernel's graph-replay
+    time, bound, plain time and SDPA's time."""
+    import torch
+
+    g = torch.Generator(device="cuda").manual_seed(8)
+    b, s, h, d = TRAIN_TP_SHAPE
+    q, k, v, dout = flash_inputs(b, s, s, h, d, torch.bfloat16, g)
+    errs = check_flash(q, k, v, dout, True)
+    rec: dict = {}
+    time_flash(q, k, v, dout, errs, rec)
+    del q, k, v, dout
+    torch.cuda.empty_cache()
+    return {k: v["bfloat16"] for k, v in rec.items()}
+
+
+def train_gang(tmp: str, device: str):
+    """The four ranks of the training mesh on the one card over gloo
+    (NCCL refuses two ranks on one GPU): every collective is copied
+    through the host."""
+    from kubegpu_tpu_torch.parallel.launch import Gang
+
+    dev = "cuda:0" if device == "cuda" else device
+    return Gang(TRAIN_AXES, tmp, backend="gloo", devices=[dev] * 4,
+                timeout_s=900.0)
+
+
+def tree_close(label: str, got: dict, want: dict, tol: float) -> float:
+    """Every leaf of ``got`` within rtol=atol ``tol`` of ``want``;
+    returns the largest difference."""
+    import numpy as np
+
+    worst = 0.0
+    for k, w in want.items():
+        if isinstance(w, dict):
+            worst = max(worst, tree_close(f"{label}/{k}", got[k], w, tol))
+            continue
+        np.testing.assert_allclose(got[k], w, rtol=tol, atol=tol,
+                                   err_msg=f"{label}/{k}")
+        worst = max(worst, float(np.abs(got[k] - w).max()))
+    return worst
+
+
+def phase_tp_train_small(gang, device: str = "cuda",
+                         cfg: dict = TRAIN_SMALL) -> None:
+    """Phase 42: phase 10's small float32 model at dp 2 x tp 2 with
+    sequence parallelism in the gang, flash attention with remat off and
+    on: one step's loss and every gradient leaf, gathered whole, within
+    rtol=atol 1e-4 of the card's one-device step on the same global batch,
+    K3 launched once a layer a rank (twice with remat) and K4, K5 once;
+    then three steps' losses, weights and momentum within 1e-4."""
+    import numpy as np
+    import torch
+
+    from kubegpu_tpu_torch.models.params import init_params, tree_map
+    from kubegpu_tpu_torch.models.train import (
+        create_train_state,
+        gather_state,
+        grad_tree,
+        lm_grads,
+        lm_step,
+    )
+    from kubegpu_tpu_torch.models.transformer import TransformerLM
+
+    cases = tp_cases()
+    params = init_params(cfg, torch.Generator().manual_seed(6),
+                         torch.float32, "cpu")
+    np_params = _np_tree(params)
+    seq = cfg["max_seq"] - 1
+    rng = np.random.RandomState(1)
+    batches = [rng.randint(0, cfg["vocab_size"], size=(4, seq + 1))
+               .astype(np.int32) for _ in range(3)]
+    layers = cfg["num_layers"]
+    kernels = device == "cuda"
+    for remat in (False, True):
+        def one_device():
+            model = TransformerLM(dtype=torch.float32, attn_impl="flash",
+                                  remat=remat, **cfg)
+            return create_train_state(
+                model, tree_map(lambda t: t.to(device).clone(), params))
+
+        state = one_device()
+        loss = lm_grads(state, torch.from_numpy(batches[0]).to(device))
+        grads = _np_tree(grad_tree(state))
+        state = one_device()
+        losses = [lm_step(state, torch.from_numpy(t).to(device)).item()
+                  for t in batches]
+        whole, moments = (_np_tree(t) for t in gather_state(state))
+        spec = dict(params=np_params, cfg=cfg, tokens=batches,
+                    model=dict(attn_impl="flash", sequence_parallel=True,
+                               remat=remat))
+        got = gang.run(cases.train_grads, spec)
+        steps = gang.run(cases.train_steps, spec)
+        np.testing.assert_allclose(got["loss"], loss.item(), rtol=TRAIN_TOL,
+                                   atol=TRAIN_TOL)
+        g_worst = tree_close("grad", got["grads"], grads, TRAIN_TOL)
+        want = dict(flash_forward=(1 + remat) * layers * kernels,
+                    flash_backward_dkdv=layers * kernels,
+                    flash_backward_dq=layers * kernels,
+                    flash_backward_delta=0)
+        assert got["launches"] == want, (got["launches"], want)
+        np.testing.assert_allclose(steps["losses"], losses, rtol=TRAIN_TOL,
+                                   atol=TRAIN_TOL)
+        p_worst = tree_close("param", steps["params"], whole, TRAIN_TOL)
+        m_worst = tree_close("momentum", steps["momentum"], moments,
+                             TRAIN_TOL)
+        log(f"train dp 2 x tp 2 fp32 remat={remat}: loss {got['loss']:.6f} "
+            f"against one device {loss.item():.6f}, worst gradient diff "
+            f"{g_worst:.3e}; three steps {steps['losses']} against "
+            f"{losses}, worst weight diff {p_worst:.3e}, momentum "
+            f"{m_worst:.3e}; launches a rank {got['launches']}")
+
+
+def expected_rank_bytes(cfg: dict, tp: int) -> tuple:
+    """(one rank's parameter bytes at tp, the whole model's) in float32,
+    from the model's own shapes (built on the meta device): a leaf the
+    rules shard holds 1/tp, the LayerNorms whole."""
+    from kubegpu_tpu_torch.models.transformer import TransformerLM
+    from kubegpu_tpu_torch.parallel.sharding import shard_dim
+
+    mine = whole = 0
+    for name, p in TransformerLM(**cfg).named_parameters():
+        n = p.numel() * 4
+        whole += n
+        mine += n if shard_dim(name.replace(".", "/")) is None else n // tp
+    return mine, whole
+
+
+def phase_tp_train_flagship(gang, device: str = "cuda",
+                            cfg: dict = TRAIN_FLAGSHIP,
+                            run: dict = TRAIN_FLAGSHIP_RUN) -> dict:
+    """Phase 43: the flagship at full width (bf16 compute over float32
+    weights, flash attention, sequence parallelism) at dp 2 x tp 2 in the
+    gang for three steps on ``synthetic_token_batches_for_mesh``: finite
+    losses that fall, a first loss within 1e-2 of the card's one-device
+    loss on the same global batch, K3, K4, K5 and the pre-pass launched
+    steps x layers times on every rank, each rank's parameter and
+    momentum bytes 1/tp of the whole but for the LayerNorms.  Prints the
+    seconds a step (host-staged gloo on one card: no TP speed) and each
+    rank's peak memory."""
+    import math
+
+    import numpy as np
+    import torch
+
+    from kubegpu_tpu_torch.models.data import synthetic_token_batches
+    from kubegpu_tpu_torch.models.params import init_params
+    from kubegpu_tpu_torch.models.train import create_train_state, lm_loss
+    from kubegpu_tpu_torch.models.transformer import TransformerLM
+
+    cases = tp_cases()
+    dp, tp = TRAIN_AXES["data"], TRAIN_AXES["model"]
+    seq, bpc, steps = run["seq"], run["batch_per_chip"], run["steps"]
+    # the global batch of the first step: each data shard's first rows
+    tokens = np.concatenate([next(synthetic_token_batches(
+        bpc, seq + 1, cfg["vocab_size"], shard=d)) for d in range(dp)])
+    model = TransformerLM(dtype=torch.bfloat16, attn_impl="flash",
+                          sequence_parallel=True, **cfg)
+    gen = torch.Generator(device=device).manual_seed(0)
+    state = create_train_state(model, init_params(cfg, gen, torch.float32,
+                                                  device))
+    with torch.no_grad():
+        ref = lm_loss(state.model, torch.from_numpy(tokens).to(device)).item()
+    del state, model
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    t0 = time.monotonic()
+    every = gang.run(cases.train_flagship, dict(
+        params=dict(init=cfg, seed=0, dtype=torch.float32), cfg=cfg,
+        dtype=torch.bfloat16, batch=bpc * dp, seq=seq, steps=steps,
+        model=dict(attn_impl="flash", sequence_parallel=True)))
+    wall = time.monotonic() - t0
+    mine, whole = expected_rank_bytes(cfg, tp)
+    kernels = device == "cuda"
+    for rank, r in enumerate(every):
+        losses = r["losses"]
+        assert all(math.isfinite(x) for x in losses), (rank, losses)
+        assert losses[-1] < losses[0], (rank, losses)
+        assert abs(losses[0] - ref) <= FLAGSHIP_LOSS_TOL, (rank, losses, ref)
+        assert r["param_bytes"] == r["momentum_bytes"] == mine, (
+            rank, r["param_bytes"], r["momentum_bytes"], mine)
+        want = steps * cfg["num_layers"] * kernels
+        assert r["launches"] == {k: want for k in r["launches"]}, (
+            rank, r["launches"])
+        peak = r["peak_bytes"]
+        log(f"train flagship dp {dp} x tp {tp} rank {rank} (data, model) "
+            f"{r['coords']}: losses {[round(x, 4) for x in losses]} (one "
+            f"device's first {ref:.4f}); seconds a step "
+            f"{[round(x, 3) for x in r['seconds']]} (gloo, host-staged on "
+            f"one card: not a TP speed); parameters {r['param_bytes']} B "
+            f"and momentum {r['momentum_bytes']} B of {whole} B whole; "
+            f"launches {r['launches']}; peak device memory "
+            + (f"{peak / 2**30:.2f} GiB" if peak is not None else
+               "not measured"))
+        parts = r["parts"]
+        log(f"train flagship rank {rank}, one more step in parts: forward "
+            f"and backward {parts['forward_backward_s']:.3f} s, sync_grads "
+            f"(LayerNorm sum over model, flat mean of "
+            f"{parts['grad_bytes']} B over data) "
+            f"{parts['sync_grads_s']:.3f} s, optimizer "
+            f"{parts['optimizer_s']:.3f} s")
+    log(f"train flagship dp {dp} x tp {tp}: {steps} steps of "
+        f"{bpc * dp} x {seq} tokens, the gang's call {wall:.1f} s")
+    return dict(launches=[r["launches"] for r in every],
+                seconds=[r["seconds"] for r in every],
+                parts=[r["parts"] for r in every],
+                peak=[r["peak_bytes"] for r in every])
+
+
+def phase_tp_train_worker(device: str = "cuda") -> None:
+    """Phase 44: the worker's ``--model lm --tp 2`` on this machine:
+    refused on one card ("exceeds the visible device count"); with two
+    cards or more, a few small steps over NCCL."""
+    import os
+
+    import torch
+
+    n_cards = torch.cuda.device_count() if device == "cuda" else 0
+    argv = ["--model", "lm", "--tp", "2", "--vocab", "512", "--hidden",
+            "256", "--heads", "4", "--layers", "2", "--seq", "128",
+            "--batch-per-chip", "2", "--steps", "3"]
+    if n_cards < 2:
+        proc = subprocess.run(
+            [sys.executable, "-m", "kubegpu_tpu_torch.models.worker", *argv],
+            cwd=os.path.dirname(os.path.abspath(__file__)),
+            capture_output=True, text=True, timeout=300)
+        want = f"exceeds the visible device count {n_cards}"
+        assert proc.returncode != 0 and want in proc.stderr, (
+            proc.returncode, proc.stderr[-2000:])
+        log(f"train worker: --model lm --tp 2 refused on {n_cards} card(s): "
+            f"{want}; data x tensor-parallel training over NCCL: not "
+            "exercised (one card visible)")
+    else:
+        lines = run_worker_lines(argv)
+        assert fields(lines["TRAINING_MESH"])["backend"] == "nccl"
+        log(f"train worker over NCCL: {lines['TRAINING_MESH']} / "
+            f"{lines['FIRST_STEP_DONE']}")
+
+
+def phase_tp_train(device: str = "cuda", small: dict = TRAIN_SMALL,
+                   flagship: dict = TRAIN_FLAGSHIP,
+                   run: dict = TRAIN_FLAGSHIP_RUN) -> dict:
+    """Phases 42-44 in one four-rank gang (``device="cpu"`` with small
+    configs rehearses them on the CPU)."""
+    import tempfile
+
+    with train_gang(tempfile.mkdtemp(prefix="chip-smoke-train-"),
+                    device) as gang:
+        t0 = time.monotonic()
+        phase_tp_train_small(gang, device, small)
+        log(f"train small phase {time.monotonic() - t0:.1f} s (the gang's "
+            "start included)")
+        out = phase_tp_train_flagship(gang, device, flagship, run)
+    phase_tp_train_worker(device)
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -3629,6 +3939,10 @@ def main() -> int:
     # then a two-rank gang on the card
     tp_k = phase_tp_kernels()
     tp = phase_tp(small)
+    # data x tensor-parallel training: the flash kernels at one rank's
+    # heads, then a four-rank gang on the card
+    tp_flash = phase_tp_flash()
+    tp_train = phase_tp_train()
     log(f"chip_smoke: all phases passed in {time.monotonic() - t0:.1f} s")
     source = "kubegpu_tpu_torch/ops/csrc/paged_attention.cu"
     kernels = []
@@ -3675,6 +3989,7 @@ def main() -> int:
         ("flash_backward_delta", "kubegpu_tpu/ops/attention.py:212"),
     ):
         bf = flash[kname]["bfloat16"]
+        shard = tp_flash[kname]
         kernels.append({
             "name": kname,
             "route": "cuda",
@@ -3687,6 +4002,15 @@ def main() -> int:
             "bound_ms": bf["bound_ms"],
             "bound_by": bf["bound_by"],
             "library_ms": bf["library_ms"],
+            # data x tensor parallelism: each rank's launches in the
+            # flagship dp 2 x tp 2 run, and the kernel at one rank's 16
+            # heads
+            "tp_launches": [n[kname] for n in tp_train["launches"]],
+            "tp_ms": shard["ms"],
+            "tp_plain_ms": shard["plain_ms"],
+            "tp_bound_ms": shard["bound_ms"],
+            "tp_library_ms": shard["library_ms"],
+            "tp_max_abs_err": shard["max_abs_err"],
         })
     # the card and its power limit again beside the results, where the
     # end of a long output still holds them

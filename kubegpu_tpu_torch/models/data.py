@@ -1,10 +1,15 @@
 """Token batches for LM training: the port of ``kubegpu_tpu/models/data.py``'s
-synthetic token source and its device side at one device.
+synthetic token source and its device side.
 
 :func:`synthetic_token_batches` draws the same token bits as the JAX
 package's ``synthetic_token_batches_for_mesh`` on a one-device mesh (one
 data shard, seeded ``SeedSequence([seed, 0])``), which is also its
-``synthetic_token_batches`` of worker 0.  The device side has the JAX
+``synthetic_token_batches`` of worker 0.
+:func:`synthetic_token_batches_for_mesh` is the per-rank source of a
+``("data", "model")`` mesh: each data rank draws its ``batch / dp`` rows
+from ``SeedSequence([seed, data_coord])``, so the ranks of one data
+shard (its ``"model"`` ranks) draw byte-identical rows, as JAX's
+processes do.  The device side has the JAX
 worker's three ``--data`` modes:
 
 - :func:`device_pool_batches` (``synthetic``): ``pool`` batches copied to
@@ -24,6 +29,8 @@ from typing import Iterable, Iterator
 import numpy as np
 import torch
 
+from kubegpu_tpu_torch.parallel.mesh import DATA_AXIS
+
 
 def synthetic_token_batches(batch: int, seq_len: int, vocab_size: int,
                             seed: int = 0, shard: int = 0) -> Iterator[np.ndarray]:
@@ -32,6 +39,20 @@ def synthetic_token_batches(batch: int, seq_len: int, vocab_size: int,
     rng = np.random.default_rng(np.random.SeedSequence([seed, shard]))
     while True:
         yield rng.integers(0, vocab_size, size=(batch, seq_len), dtype=np.int32)
+
+
+def synthetic_token_batches_for_mesh(batch: int, seq_len: int,
+                                     vocab_size: int, mesh,
+                                     seed: int = 0) -> Iterator[np.ndarray]:
+    """This rank's rows of endless global ``(batch, seq_len)`` int32 token
+    batches over ``mesh`` (the JAX function, one process per device):
+    ``batch / dp`` rows a step from ``SeedSequence([seed, d])``, ``d``
+    this rank's ``"data"`` coordinate."""
+    dp = mesh.axis_size(DATA_AXIS)
+    if batch % dp:
+        raise ValueError(f"batch {batch} not divisible by data axis {dp}")
+    return synthetic_token_batches(batch // dp, seq_len, vocab_size, seed,
+                                   shard=mesh.coord(DATA_AXIS))
 
 
 def _to_device(batch: np.ndarray, device: torch.device) -> torch.Tensor:

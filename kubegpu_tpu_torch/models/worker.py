@@ -96,13 +96,28 @@ tokens a step.  It prints the JAX worker's ``FIRST_STEP_DONE`` and
 flash-attention kernels (K3 forward, K4 and K5 backward; with ``--remat``
 K3 runs twice a layer) and the peak device memory.  ``--attn-impl flash``
 (the default) runs those kernels, ``einsum`` the model-dtype einsum
-attention.  One device only: ``--tp`` above 1 waits for the data x
-tensor-parallel training slice, ``--attn-impl ring|ulysses`` for the
-long-context one.
+attention; ``--attn-impl ring|ulysses`` waits for the long-context slice.
 
     python -m kubegpu_tpu_torch.models.worker --model lm --vocab 32768 \\
         --hidden 4096 --heads 32 --layers 4 --seq 1024 \\
         --batch-per-chip 16 --steps 5
+
+Over several devices ``--model lm`` trains data x tensor-parallel, as
+the JAX worker's ``_split_mesh``: of the n visible devices (the cards,
+or with ``--device cpu`` the ``--cpu-ranks`` it is told to stand in for
+them, default 1) ``--tp`` (0: all n) make the ``"model"`` axis and n /
+tp the ``"data"`` axis, one process a rank (rank 0 is the worker, which
+starts the others), over NCCL on ``cuda:0..n-1`` or gloo on the CPU,
+with sequence parallelism.  Each data rank trains on its
+``--batch-per-chip`` rows of the global batch (``--batch-per-chip`` x
+dp rows) from its own data shard's stream.  Rank 0 prints a
+``TRAINING_MESH data=.. model=.. devices=.. backend=..`` line, the
+global tokens/s and each rank's launch counts and peak memory.  The JAX
+refusals hold: ``--tp`` must divide n, and heads and vocab split tp ways
+(and, with sequence parallelism, ``--seq``).
+
+    python -m kubegpu_tpu_torch.models.worker --model lm --tp 2 \\
+        --cpu-ranks 4 --device cpu [--vocab 64 --hidden 32 --heads 4 ...]
 
 Runs on the card by default; ``--device cpu`` runs the plain PyTorch
 path (the kernels are then never launched).
@@ -115,7 +130,7 @@ import os
 import shutil
 import tempfile
 import time
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -124,6 +139,7 @@ from kubegpu_tpu_torch.models.data import (
     device_pool_batches,
     prefetch_to_device,
     synthetic_token_batches,
+    synthetic_token_batches_for_mesh,
 )
 from kubegpu_tpu_torch.models.decoding import (
     greedy_generate,
@@ -138,7 +154,11 @@ from kubegpu_tpu_torch.models.serving import (
     resolve_kv_dtype,
 )
 from kubegpu_tpu_torch.models.spec_serving import SpeculativeContinuousBatcher
-from kubegpu_tpu_torch.models.train import create_train_state, lm_step
+from kubegpu_tpu_torch.models.train import (
+    create_train_state,
+    lm_step,
+    place_lm,
+)
 from kubegpu_tpu_torch.models.transformer import TransformerLM
 from kubegpu_tpu_torch.ops import _build
 from kubegpu_tpu_torch.ops.attention import (
@@ -156,6 +176,7 @@ from kubegpu_tpu_torch.parallel.launch import (
     open_store,
     start_ranks,
 )
+from kubegpu_tpu_torch.parallel.collectives import gather_objects
 from kubegpu_tpu_torch.parallel.mesh import close_mesh, device_mesh
 from kubegpu_tpu_torch.utils.metrics import Metrics
 
@@ -244,7 +265,13 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--tp", type=int, default=0,
                     help="decode --serving paged: tensor-parallel ranks (0 "
                     "or 1: one device; N: cuda:0..N-1 over NCCL, or N CPU "
-                    "processes over gloo with --device cpu); lm: 0 or 1")
+                    "processes over gloo with --device cpu); lm: the "
+                    "'model' axis of a (data, model) mesh over the visible "
+                    "devices (0: all of them), data = devices / tp")
+    ap.add_argument("--cpu-ranks", type=int, default=1,
+                    help="lm --device cpu: the CPU's stand-in for the "
+                    "visible device count (ranks of the training mesh, "
+                    "processes over gloo); only with --device cpu")
     ap.add_argument("--data", default="synthetic",
                     choices=["synthetic", "stream", "resident"],
                     help="lm: synthetic = a pool of --data-pool distinct "
@@ -292,12 +319,38 @@ def build_parser() -> argparse.ArgumentParser:
     return ap
 
 
-def check_one_device(args: argparse.Namespace) -> None:
-    if args.tp not in (0, 1):
+def training_mesh(args: argparse.Namespace) -> Tuple[int, int]:
+    """``(dp, tp)`` of ``--model lm``, the JAX worker's ``_split_mesh``
+    over the visible devices (the cards, or ``--cpu-ranks`` with
+    ``--device cpu``) and its refusals."""
+    if args.device == "cuda":
+        resolve_device("cuda")  # raises without a card
+        if args.cpu_ranks != 1:
+            raise SystemExit(
+                f"--cpu-ranks {args.cpu_ranks}: the CPU's stand-in for the "
+                "visible device count, only with --device cpu (the card "
+                "machine counts its cards)")
+        n = torch.cuda.device_count()
+    else:
+        n = args.cpu_ranks
+    if n < 1:
+        raise SystemExit(f"--cpu-ranks {n}: at least one rank")
+    tp = args.tp or n
+    if tp > n:
+        raise SystemExit(f"--tp {tp} exceeds the visible device count {n}")
+    if n % tp:
+        raise SystemExit(f"--tp {tp} does not divide the device count {n}")
+    if args.heads % tp:
+        raise SystemExit(f"--heads {args.heads} not divisible by tp={tp}")
+    if args.vocab % tp:
         raise SystemExit(
-            f"--tp {args.tp}: tensor-parallel training arrives with the "
-            "data x tensor-parallel training slice of the port; --model lm "
-            "runs on one device (--tp 0 or 1)")
+            f"--vocab {args.vocab} not divisible by tp={tp} (lm_head is "
+            "column-parallel over the vocab)")
+    if args.seq % tp:
+        raise SystemExit(
+            f"--seq {args.seq} not divisible by tp={tp} (sequence "
+            "parallelism puts seq / tp positions on each rank)")
+    return n // tp, tp
 
 
 def wave_requests(rng: np.random.RandomState, n_req: int, vocab: int,
@@ -407,11 +460,14 @@ def check_tp(args: argparse.Namespace) -> None:
             f"--draft-hidden = a multiple of {128 * args.tp}")
 
 
-def tp_devices(args: argparse.Namespace) -> List[str]:
-    """Each rank's device: ``cuda:r``, or the CPU for every rank."""
+def tp_devices(args: argparse.Namespace,
+               n: Optional[int] = None) -> List[str]:
+    """Each of ``n`` (default ``--tp``) ranks' device: ``cuda:r``, or the
+    CPU for every rank."""
+    n = args.tp if n is None else n
     if args.device == "cpu":
-        return ["cpu"] * args.tp
-    return [f"cuda:{r}" for r in range(args.tp)]
+        return ["cpu"] * n
+    return [f"cuda:{r}" for r in range(n)]
 
 
 # an HTTP replica's ranks wait for rank 0's next call as long as it idles
@@ -848,12 +904,13 @@ def make_batches(args: argparse.Namespace, source, device):
     return None, torch.from_numpy(next(source)).to(device)
 
 
-def build_trainer(args: argparse.Namespace):
+def build_trainer(args: argparse.Namespace, mesh=None):
     """The worker's training state and batch source at the given widths:
     fresh float32 weights from ``WEIGHT_SEED``, bf16 compute, nesterov
-    SGD, the ``--data`` mode's batches.  Returns ``(state,
-    next_batch)``."""
-    check_one_device(args)
+    SGD, the ``--data`` mode's batches.  Over a ``mesh`` every rank draws
+    the whole tree on its device and keeps its shard (``place_lm``), so
+    every width trains the weights one device trains, and draws its data
+    shard's rows.  Returns ``(state, next_batch)``."""
     if args.attn_impl in ("ring", "ulysses"):
         raise SystemExit(
             f"--attn-impl {args.attn_impl}: context-parallel attention "
@@ -862,17 +919,24 @@ def build_trainer(args: argparse.Namespace):
     if args.hidden % args.heads:
         raise SystemExit(f"--hidden {args.hidden} not divisible by --heads "
                          f"{args.heads}")
-    device = resolve_device(args.device)
+    device = resolve_device(args.device if mesh is None else mesh.device)
     cfg = dict(vocab_size=args.vocab, num_layers=args.layers,
                hidden=args.hidden, max_seq=args.seq + 1)
     gen = torch.Generator(device=device).manual_seed(WEIGHT_SEED)
     model = TransformerLM(**cfg, num_heads=args.heads, dtype=torch.bfloat16,
                           sequence_parallel=True, attn_impl=args.attn_impl,
-                          remat=args.remat)
-    state = create_train_state(model,
-                               init_params(cfg, gen, torch.float32, device))
-    source = synthetic_token_batches(max(args.batch_per_chip, 1),
-                                     args.seq + 1, args.vocab)
+                          remat=args.remat, mesh=mesh)
+    tree = init_params(cfg, gen, torch.float32, device)
+    if mesh is None:
+        state = create_train_state(model, tree)
+        source = synthetic_token_batches(max(args.batch_per_chip, 1),
+                                         args.seq + 1, args.vocab)
+    else:
+        state = place_lm(model, tree)
+        del tree  # the whole tree: only this rank's shard stays
+        source = synthetic_token_batches_for_mesh(
+            max(args.batch_per_chip, 1) * mesh.axis_size("data"),
+            args.seq + 1, args.vocab, mesh)
     batches, const = make_batches(args, source, device)
 
     def next_batch():
@@ -881,45 +945,40 @@ def build_trainer(args: argparse.Namespace):
     return state, next_batch
 
 
-def run_lm(args: argparse.Namespace,
-           t0: Optional[float] = None) -> Dict[str, object]:
-    """Train ``--steps`` steps and return what was measured.  Prints
-    ``FIRST_STEP_DONE`` once the first step's loss is read back (timed
-    from ``t0``, the caller's start) and ``steady_state`` after the
-    other steps, which are timed with one readback at their end."""
-    t0 = time.monotonic() if t0 is None else t0
-    device = resolve_device(args.device)
+FLASH_KERNELS = (flash_forward, flash_backward_dkdv, flash_backward_dq,
+                 flash_backward_delta)
+
+
+def _train(args: argparse.Namespace, mesh, t0: float) -> Dict[str, object]:
+    """Train ``--steps`` steps on this rank (the only one without a
+    mesh).  Rank 0 prints ``FIRST_STEP_DONE`` and ``steady_state``."""
+    device = resolve_device(args.device if mesh is None else mesh.device)
+    lead = mesh is None or mesh.rank == 0
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
-    state, next_batch = build_trainer(args)
-    batch = max(args.batch_per_chip, 1)
-    kernels = (flash_forward, flash_backward_dkdv, flash_backward_dq,
-               flash_backward_delta)
-    launches0 = [fn.launches for fn in kernels]
+    state, next_batch = build_trainer(args, mesh)
+    dp = 1 if mesh is None else mesh.axis_size("data")
+    batch = max(args.batch_per_chip, 1) * dp
+    launches0 = [fn.launches for fn in FLASH_KERNELS]
 
     losses = [lm_step(state, next_batch())]
     first_loss = float(losses[0])  # forces the step to completion
     first_s = time.monotonic() - t0
-    print(f"FIRST_STEP_DONE seconds={first_s:.2f} loss={first_loss:.4f}",
-          flush=True)
+    if lead:
+        print(f"FIRST_STEP_DONE seconds={first_s:.2f} loss={first_loss:.4f}",
+              flush=True)
     t1 = time.monotonic()
     for _ in range(args.steps - 1):
         losses.append(lm_step(state, next_batch()))
     losses = torch.stack(losses).tolist()  # forces the whole chain
     dt = time.monotonic() - t1
     rate = batch * args.seq * (args.steps - 1) / dt if args.steps > 1 else None
-    if rate is not None:
+    if rate is not None and lead:
         print(f"steady_state tokens_per_sec={rate:.1f} loss={losses[-1]:.4f}",
               flush=True)
-    k3, k4, k5, delta = (fn.launches - n for fn, n in zip(kernels, launches0))
-    return {
-        "first_step_s": first_s,
-        "tokens_per_sec": rate,
-        "steady_s": dt,
-        "losses": losses,
-        "steps": args.steps,
-        "layers": args.layers,
-        "tokens_per_step": batch * args.seq,
+    k3, k4, k5, delta = (fn.launches - n
+                         for fn, n in zip(FLASH_KERNELS, launches0))
+    mine = {
         "k3_launches": k3,
         "k4_launches": k4,
         "k5_launches": k5,
@@ -928,24 +987,83 @@ def run_lm(args: argparse.Namespace,
                        if device.type == "cuda" else None),
         "device": str(device),
     }
+    r = dict(mine, first_step_s=first_s, tokens_per_sec=rate, steady_s=dt,
+             losses=losses, steps=args.steps, layers=args.layers,
+             tokens_per_step=batch * args.seq)
+    if mesh is not None:
+        r["mesh"] = dict(mesh.shape)
+        r["ranks"] = gather_objects(mine, mesh)
+    return r
+
+
+def _train_rank(rank: int, args: argparse.Namespace, axes: dict,
+                store_path: str) -> None:
+    """Rank ``rank`` (> 0) of the training mesh: the same steps as rank
+    0, in lock-step through the collectives."""
+    if args.device == "cpu":
+        torch.set_num_threads(1)
+    mesh = join_training_mesh(args, axes, rank, store_path)
+    try:
+        _train(args, mesh, time.monotonic())
+    finally:
+        close_mesh(mesh)
+
+
+def join_training_mesh(args: argparse.Namespace, axes: dict, rank: int,
+                       store_path: str):
+    """Rank ``rank``'s ``(data, model)`` mesh: NCCL between cards, gloo
+    on the CPU."""
+    n = axes["data"] * axes["model"]
+    devices = tp_devices(args, n)
+    return device_mesh(axes, rank,
+                       backend="gloo" if args.device == "cpu" else "nccl",
+                       device=devices[rank], store=open_store(store_path, n),
+                       devices=tuple(devices))
+
+
+def run_lm(args: argparse.Namespace,
+           t0: Optional[float] = None) -> Dict[str, object]:
+    """Train ``--steps`` steps and return what was measured (rank 0's,
+    with every rank's launches and peak memory under ``ranks`` over a
+    mesh).  Prints ``FIRST_STEP_DONE`` once the first step's loss is read
+    back (timed from ``t0``, the caller's start) and ``steady_state``
+    after the other steps, which are timed with one readback at their
+    end.  Over several devices (:func:`training_mesh`) it starts ranks
+    1..n-1 and is rank 0 itself."""
+    t0 = time.monotonic() if t0 is None else t0
+    dp, tp = training_mesh(args)
+    if dp * tp == 1:
+        return _train(args, None, t0)
+    axes = {"data": dp, "model": tp}
+    tmp = tempfile.mkdtemp(prefix="kubegpu-train-")
+    store = os.path.join(tmp, "store")
+    procs = start_ranks(_train_rank, range(1, dp * tp), args, axes, store)
+    try:
+        mesh = join_training_mesh(args, axes, 0, store)
+        print(f"TRAINING_MESH data={dp} model={tp} devices="
+              + ",".join(mesh.devices) + f" backend={mesh.backend}",
+              flush=True)
+        try:
+            r = _train(args, mesh, t0)
+        finally:
+            close_mesh(mesh)
+    finally:
+        codes = join_ranks(procs)
+        shutil.rmtree(tmp, ignore_errors=True)
+    if any(codes):
+        raise RuntimeError(f"training ranks 1..{len(codes)} exited with "
+                           f"{codes}")
+    return r
 
 
 def main(argv: Optional[List[str]] = None) -> int:
     t0 = time.monotonic()
     args = build_parser().parse_args(argv)
+    if args.model != "lm" and args.cpu_ranks != 1:
+        raise SystemExit("--cpu-ranks stands in for the training mesh's "
+                         "devices: --model lm --device cpu only")
     if args.model == "lm":
-        r = run_lm(args, t0)
-        for name, fn, key in (("K3", flash_forward, "k3_launches"),
-                              ("K4", flash_backward_dkdv, "k4_launches"),
-                              ("K5", flash_backward_dq, "k5_launches"),
-                              ("DELTA", flash_backward_delta,
-                               "delta_launches")):
-            print(f"{name}_LAUNCHES {fn.__name__}={r[key]} steps={r['steps']} "
-                  f"layers={r['layers']} device={r['device']}", flush=True)
-        peak = r["peak_bytes"]
-        print("PEAK_MEM_GIB "
-              + (f"{peak / 2**30:.2f}" if peak is not None else "not measured")
-              + f" device={r['device']}", flush=True)
+        report_lm(run_lm(args, t0))
         return 0
     if args.serve_http is not None:
         return serve_http(args, t0)
@@ -954,6 +1072,26 @@ def main(argv: Optional[List[str]] = None) -> int:
     else:
         report_decode(args, run_decode(args))
     return 0
+
+
+def report_lm(r: Dict[str, object]) -> None:
+    """The launch and peak-memory lines of a training run: rank 0's,
+    or over a mesh each rank's, marked ``rank=r``."""
+    ranks = r.get("ranks") or [r]
+    for rank, mine in enumerate(ranks):
+        tag = f" rank={rank}" if "ranks" in r else ""
+        for name, fn, key in (("K3", flash_forward, "k3_launches"),
+                              ("K4", flash_backward_dkdv, "k4_launches"),
+                              ("K5", flash_backward_dq, "k5_launches"),
+                              ("DELTA", flash_backward_delta,
+                               "delta_launches")):
+            print(f"{name}_LAUNCHES {fn.__name__}={mine[key]} "
+                  f"steps={r['steps']} layers={r['layers']} "
+                  f"device={mine['device']}{tag}", flush=True)
+        peak = mine["peak_bytes"]
+        print("PEAK_MEM_GIB "
+              + (f"{peak / 2**30:.2f}" if peak is not None else "not measured")
+              + f" device={mine['device']}{tag}", flush=True)
 
 
 def report_decode(args: argparse.Namespace, r: Dict[str, object]) -> None:

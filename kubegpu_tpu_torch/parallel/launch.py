@@ -1,6 +1,6 @@
-"""Start the ranks of a tensor-parallel mesh as processes.
+"""Start the ranks of a mesh as processes.
 
-- :class:`Gang` keeps ``tp`` ranks alive in child processes and runs a
+- :class:`Gang` keeps a mesh's ranks alive in child processes and runs a
   function on all of them at once, returning rank 0's result: the CPU
   tests and the card smoke start one gang and run their cases in it.
 - :func:`start_ranks` starts chosen ranks of a mesh whose other ranks
@@ -16,12 +16,13 @@ has the process group's timeout as well."""
 
 from __future__ import annotations
 
+import math
 import multiprocessing as mp
 import os
 import queue
 import time
 import traceback
-from typing import Callable, List, Optional, Sequence
+from typing import Callable, List, Mapping, Optional, Sequence, Union
 
 import torch
 import torch.distributed as dist
@@ -34,11 +35,11 @@ def open_store(path: str, size: int):
     return dist.FileStore(path, size)
 
 
-def _rank_main(rank: int, size: int, backend: str, devices: Sequence[str],
+def _rank_main(rank: int, axes, backend: str, devices: Sequence[str],
                store_path: str, timeout_s: float, inbox, results) -> None:
     torch.set_num_threads(1)
-    mesh = device_mesh(size, rank, backend=backend, device=devices[rank],
-                       store=open_store(store_path, size),
+    mesh = device_mesh(axes, rank, backend=backend, device=devices[rank],
+                       store=open_store(store_path, len(devices)),
                        timeout_s=timeout_s, devices=tuple(devices))
     try:
         while True:
@@ -57,22 +58,27 @@ def _rank_main(rank: int, size: int, backend: str, devices: Sequence[str],
 
 
 class Gang:
-    """``tp`` ranks of one mesh in child processes, on ``devices`` (one
-    per rank, e.g. ``cuda:0..tp-1`` over ``"nccl"``, or ``"cpu"`` for
-    each over ``"gloo"``) over ``backend``: the caller names both, as
-    :func:`device_mesh` needs them.  :meth:`run` calls
+    """The ranks of one mesh in child processes: ``axes`` is the mesh's
+    shape (``{"data": 2, "model": 2}``, or an int: that many ranks on one
+    ``"model"`` axis, as :func:`device_mesh` takes it), on ``devices``
+    (one per rank, e.g. ``cuda:0..n-1`` over ``"nccl"``, or ``"cpu"``
+    for each over ``"gloo"``) over ``backend``: the caller names both,
+    as :func:`device_mesh` needs them.  :meth:`run` calls
     ``fn(mesh, *args)`` on every rank and returns rank 0's value.  A call
     that fails (a rank raised, died or passed ``timeout_s``) kills the
     gang and raises; the next call starts a fresh one."""
 
-    def __init__(self, tp: int, store_dir: str, *, backend: str,
-                 devices: Sequence[str], timeout_s: float = 120.0) -> None:
-        self.tp = tp
+    def __init__(self, axes: Union[int, Mapping[str, int]], store_dir: str,
+                 *, backend: str, devices: Sequence[str],
+                 timeout_s: float = 120.0) -> None:
+        self.axes = axes if isinstance(axes, int) else dict(axes)
+        self.size = (axes if isinstance(axes, int)
+                     else math.prod(self.axes.values()))
         self.backend = backend
         self.devices = tuple(devices)
-        if len(self.devices) != tp:
-            raise ValueError(f"{tp} ranks need {tp} devices, got "
-                             f"{self.devices}")
+        if len(self.devices) != self.size:
+            raise ValueError(f"{self.size} ranks need {self.size} devices, "
+                             f"got {self.devices}")
         self.store_dir = store_dir
         self.timeout_s = timeout_s
         self._ctx = mp.get_context("spawn")
@@ -82,14 +88,14 @@ class Gang:
     def _start(self) -> None:
         self._generation += 1
         store = os.path.join(self.store_dir, f"gang-{self._generation}")
-        self._inboxes = [self._ctx.Queue() for _ in range(self.tp)]
+        self._inboxes = [self._ctx.Queue() for _ in range(self.size)]
         self._results = self._ctx.Queue()
         procs = [
             self._ctx.Process(
                 target=_rank_main, daemon=True,
-                args=(r, self.tp, self.backend, self.devices, store,
+                args=(r, self.axes, self.backend, self.devices, store,
                       self.timeout_s, self._inboxes[r], self._results))
-            for r in range(self.tp)
+            for r in range(self.size)
         ]
         for p in procs:
             p.start()
@@ -102,7 +108,7 @@ class Gang:
             q.put((fn, args))
         deadline = time.monotonic() + (timeout_s or self.timeout_s)
         got, failures = {}, []
-        while len(got) + len(failures) < self.tp:
+        while len(got) + len(failures) < self.size:
             try:
                 rank, ok, value = self._results.get(timeout=0.5)
             except queue.Empty:

@@ -1,7 +1,7 @@
-"""The Megatron sharding rules of tensor-parallel serving: the port's own
-copy of ``TRANSFORMER_TP_RULES``, ``param_shardings``, the pool and
-dense-cache specs and ``tp_all_reduce_wire_bytes`` of
-``kubegpu_tpu/parallel/sharding.py``.
+"""The Megatron sharding rules of tensor-parallel serving and training:
+the port's own copy of ``TRANSFORMER_TP_RULES``, ``param_shardings``,
+``state_shardings``, ``batch_axes``, the pool and dense-cache specs and
+``tp_all_reduce_wire_bytes`` of ``kubegpu_tpu/parallel/sharding.py``.
 
 A rule maps a parameter's ``/``-joined tree path to the dim it shards
 over the ``"model"`` axis (None: every rank holds it whole).  The first
@@ -11,7 +11,12 @@ each row-parallel matmul.  The embeddings shard their hidden dim and the
 head its vocab dim.  An int8 kernel shards like its float twin, and its
 per-output-channel ``qscale`` follows the output dim: split where the
 output dim is (column-parallel), whole where the input dim is
-(row-parallel)."""
+(row-parallel).
+
+A training state shards its momentum like its parameters
+(:func:`shard_state`, the JAX ``state_shardings``: the trace mirrors the
+parameter tree, so the same rules cut it), and :func:`gather_params`
+puts a tree back together from every ``"model"`` rank's shards."""
 
 from __future__ import annotations
 
@@ -20,6 +25,10 @@ from typing import Mapping, Optional, Tuple
 
 import numpy as np
 import torch
+
+from kubegpu_tpu_torch.models.params import tree_map
+from kubegpu_tpu_torch.parallel.collectives import all_gather
+from kubegpu_tpu_torch.parallel.mesh import DATA_AXIS, MODEL_AXIS, tp_size
 
 TRANSFORMER_TP_RULES: Tuple[Tuple[str, Optional[int]], ...] = (
     (r".*embed.*/embedding$", 1),
@@ -84,6 +93,46 @@ def shard_params(tree: Mapping, rank: int, tp: int,
         dim = shard_dim(path, rules) if tp > 1 and v.ndim else None
         out[k] = v if dim is None else shard_slice(v, dim, rank, tp)
     return out
+
+
+def shard_state(tree: Mapping, mesh, rules=TRANSFORMER_TP_RULES) -> dict:
+    """This rank's part of a whole training tree of tensors (parameters,
+    or the momentum that mirrors them) on ``mesh``: every leaf a rule shards
+    cut to this rank's ``1/tp`` along ``"model"`` and copied, so the
+    whole leaf can be freed; the rest copied whole (every ``"data"``
+    rank holds the same shards)."""
+    tp = tp_size(mesh)
+    part = shard_params(tree, mesh.coord(MODEL_AXIS) if tp > 1 else 0, tp,
+                        rules)
+    return tree_map(torch.clone, part)
+
+
+def gather_params(tree: Mapping, mesh, rules=TRANSFORMER_TP_RULES,
+                  _path: str = "") -> dict:
+    """The whole tree from every ``"model"`` rank's shards of ``tree``
+    (tensors), concatenated in rank order along each rule's dim: the
+    inverse of :func:`shard_params`.  Every rank of the ``"model"`` group
+    calls it (it all-gathers) and gets the whole tree."""
+    tp = tp_size(mesh)
+    out = {}
+    for k, v in tree.items():
+        path = f"{_path}/{k}" if _path else str(k)
+        if isinstance(v, Mapping):
+            out[k] = gather_params(v, mesh, rules, path)
+            continue
+        dim = shard_dim(path, rules) if tp > 1 and v.ndim else None
+        v = v.detach()
+        out[k] = v.clone() if dim is None else all_gather(v, mesh, dim)
+    return out
+
+
+def batch_axes(mesh) -> Optional[str]:
+    """The axis the batch dim shards over: ``"data"`` where the mesh has
+    it, else None (the JAX ``batch_axes`` without multislice's
+    ``"dcn"``)."""
+    if mesh is not None and DATA_AXIS in mesh.axis_names:
+        return DATA_AXIS
+    return None
 
 
 def tp_all_reduce_wire_bytes(tp: int, payload_bytes: int) -> int:

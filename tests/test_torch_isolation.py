@@ -53,14 +53,15 @@ def test_importing_every_module_leaves_jax_out():
     assert n_modules >= 25
     # the HTTP replica slice's own copies of the JAX package's
     # stdlib-only modules, the sampling slice's counter-based PRNG, the
-    # dense serving slice's batchers and the tensor-parallel slice's
-    # modules
+    # dense serving slice's batchers, the tensor-parallel slice's
+    # modules and the data x tensor-parallel training they carry
     for name in ("gateway", "gateway.client", "gateway.dataplane", "utils",
                  "utils.metrics", "utils.tracing", "utils.metric_names",
                  "ops.prng", "models.serving", "models.spec_serving",
                  "parallel.mesh", "parallel.sharding",
                  "parallel.collectives", "parallel.launch",
-                 "parallel.replay"):
+                 "parallel.replay", "models.train", "models.transformer",
+                 "models.data"):
         assert f"kubegpu_tpu_torch.{name}" in imported.split(), name
 
 
@@ -135,8 +136,12 @@ def test_training_entry_points_default_to_the_card(monkeypatch):
     asked for the CPU, and flash attention on a tensor off the CPU
     launches its kernels or raises — never the plain twin."""
     from kubegpu_tpu_torch.models import worker
-    from kubegpu_tpu_torch.models.train import train_state_from_numpy
+    from kubegpu_tpu_torch.models.train import (
+        place_lm,
+        train_state_from_numpy,
+    )
     from kubegpu_tpu_torch.models.transformer import TransformerLM
+    from kubegpu_tpu_torch.parallel.mesh import Mesh
     from kubegpu_tpu_torch.ops.attention import (
         flash_attention,
         flash_backward_dkdv,
@@ -153,6 +158,14 @@ def test_training_entry_points_default_to_the_card(monkeypatch):
                max_seq=16)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         train_state_from_numpy(TransformerLM(**cfg), {})
+    # the data x tensor-parallel path: the mesh is the cards' unless the
+    # CPU is asked for, and a mesh on a card places nothing without one
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        worker.main(["--model", "lm", "--tp", "2"])
+    mesh = Mesh(size=4, rank=0, device=torch.device("cuda"), backend="nccl",
+                axis_names=("data", "model"), axis_sizes=(2, 2))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        place_lm(TransformerLM(mesh=mesh, **cfg), {})
     q = torch.zeros((1, 8, 2, 8), device="meta")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         flash_attention(q, q, q, True)

@@ -5,9 +5,10 @@ kernel's plain twin); in process it serves every request of a wave to
 its budget.  ``--tp 2 --device cpu`` serves the same wave over two
 gloo ranks (``SERVING_TP``), and refuses what the JAX worker refuses.
 ``--model lm`` trains and prints FIRST_STEP_DONE and steady_state with
-zero flash-kernel launches; what waits for a later slice (data x
-tensor-parallel training, context-parallel attention) fails naming
-it."""
+zero flash-kernel launches; ``--tp 2 --cpu-ranks 4 --device cpu`` trains
+on a ``("data", "model")`` mesh of four gloo ranks (``TRAINING_MESH
+data=2 model=2``) and the JAX worker's mesh refusals hold; what waits
+for a later slice (context-parallel attention) fails naming it."""
 
 import os
 import re
@@ -16,6 +17,7 @@ import sys
 import time
 
 import pytest
+import torch
 
 from kubegpu_tpu_torch.models import worker
 
@@ -186,7 +188,11 @@ def test_lm_worker_draws_the_jax_workers_batches():
 
 
 @pytest.mark.parametrize("bad, match", [
-    (["--tp", "2"], "data x tensor-parallel training slice"),
+    # --tp 2 now trains over a mesh, so on one CPU rank it exceeds the
+    # device count; the case keeps the name it had when it waited for
+    # its slice
+    pytest.param(["--tp", "2"], "exceeds the visible device count 1",
+                 id="bad0-data x tensor-parallel training slice"),
     (["--attn-impl", "ring"], "long-context slice"),
     (["--attn-impl", "ulysses"], "long-context slice"),
     (["--heads", "5"], "divisible"),
@@ -196,6 +202,74 @@ def test_lm_worker_refuses_what_waits_for_a_later_slice(bad, match):
                                             + bad)
     with pytest.raises(SystemExit, match=match):
         worker.run_lm(args)
+
+
+def test_lm_worker_trains_dp2_tp2_over_four_cpu_ranks():
+    env = dict(os.environ, PYTHONPATH=REPO)
+    proc = subprocess.run(
+        [sys.executable, "-m", "kubegpu_tpu_torch.models.worker", "--model",
+         "lm", "--vocab", "64", "--hidden", "32", "--heads", "4", "--layers",
+         "2", "--seq", "16", "--batch-per-chip", "2", "--steps", "3",
+         "--tp", "2", "--cpu-ranks", "4", "--device", "cpu"],
+        cwd=REPO, env=env, capture_output=True, text=True, timeout=300,
+    )
+    assert proc.returncode == 0, proc.stderr
+    out = proc.stdout
+    assert re.search(r"^TRAINING_MESH data=2 model=2 devices=cpu,cpu,cpu,cpu "
+                     r"backend=gloo$", out, re.M), out
+    assert re.search(r"^FIRST_STEP_DONE seconds=[\d.]+ loss=[\d.]+$", out,
+                     re.M), out
+    # global tokens: 2 rows a data rank x 2 data ranks x 16 positions
+    assert re.search(r"^steady_state tokens_per_sec=[\d.]+ loss=[\d.]+$",
+                     out, re.M), out
+    for rank in range(4):
+        assert re.search(rf"^K3_LAUNCHES flash_forward=0 steps=3 layers=2 "
+                         rf"device=cpu rank={rank}$", out, re.M), out
+        assert re.search(rf"^PEAK_MEM_GIB not measured device=cpu "
+                         rf"rank={rank}$", out, re.M), out
+
+
+def test_lm_worker_mesh_run_returns_every_rank():
+    args = worker.build_parser().parse_args(
+        LM_TINY + ["--device", "cpu", "--cpu-ranks", "2", "--vocab", "64",
+                   "--data", "resident"])
+    r = worker.run_lm(args)
+    # --tp 0: every rank on the "model" axis
+    assert r["mesh"] == {"data": 1, "model": 2}
+    assert len(r["ranks"]) == 2 and len(r["losses"]) == 3
+    assert r["tokens_per_step"] == 2 * 16
+    assert all(0.0 < x < 10.0 for x in r["losses"])
+
+
+@pytest.mark.parametrize("bad, match", [
+    (["--tp", "3", "--cpu-ranks", "4"], "does not divide the device count 4"),
+    (["--tp", "8", "--cpu-ranks", "4"], "exceeds the visible device count 4"),
+    (["--tp", "2", "--cpu-ranks", "2", "--heads", "5", "--hidden", "40"],
+     "--heads 5 not divisible by tp=2"),
+    (["--tp", "2", "--cpu-ranks", "2"], "--vocab 61 not divisible by tp=2"),
+    (["--tp", "2", "--cpu-ranks", "2", "--vocab", "64", "--seq", "15"],
+     "--seq 15 not divisible by tp=2"),
+    (["--cpu-ranks", "0"], "at least one rank"),
+])
+def test_lm_worker_mesh_refusals(bad, match):
+    args = worker.build_parser().parse_args(LM_TINY + ["--device", "cpu"]
+                                            + bad)
+    with pytest.raises(SystemExit, match=match):
+        worker.run_lm(args)
+
+
+def test_cpu_ranks_is_the_cpus_stand_in_only(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    args = worker.build_parser().parse_args(LM_TINY + ["--cpu-ranks", "4"])
+    with pytest.raises(SystemExit, match="only with --device cpu"):
+        worker.training_mesh(args)
+    # on the card the device count is the cards': --tp 2 on one card
+    args = worker.build_parser().parse_args(LM_TINY + ["--tp", "2"])
+    with pytest.raises(SystemExit, match="exceeds the visible device count 1"):
+        worker.training_mesh(args)
+    with pytest.raises(SystemExit, match="--model lm --device cpu only"):
+        worker.main(TINY + ["--device", "cpu", "--cpu-ranks", "2"])
 
 
 @pytest.mark.parametrize("bad", [

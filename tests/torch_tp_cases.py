@@ -1,13 +1,17 @@
-"""Rank bodies that drive tensor-parallel batchers: the CPU tests
-(``tests/test_torch_tp_*.py``, ``tests/test_torch_http_replica.py``),
-the card tests (``tests/test_torch_cuda_tp.py``) and ``chip_smoke.py``.
+"""Rank bodies that drive tensor-parallel batchers and data x
+tensor-parallel training: the CPU tests (``tests/test_torch_tp_*.py``,
+``tests/test_torch_http_replica.py``), the card tests
+(``tests/test_torch_cuda_tp*.py``) and ``chip_smoke.py``.
 
 Each function runs on every rank of a gang
-(``kubegpu_tpu_torch.parallel.launch.Gang``) as ``fn(mesh, *args)``:
-every rank builds the same batcher, rank 0 drives it and returns what
-the caller compares, the other ranks replay rank 0's calls.  Weights and
-payloads cross as numpy.  Every body checks that its process never
-imported JAX."""
+(``kubegpu_tpu_torch.parallel.launch.Gang``) as ``fn(mesh, *args)``.
+Serving: every rank builds the same batcher, rank 0 drives it and
+returns what the caller compares, the other ranks replay rank 0's calls.
+Training: every rank builds the same model over the mesh, keeps its
+shard of the whole weights and trains on its data rows of each global
+batch; rank 0 returns the whole trees (after checking every rank's
+equal to its own).  Weights and payloads cross as numpy.  Every body
+checks that its process never imported JAX."""
 
 from __future__ import annotations
 
@@ -409,3 +413,232 @@ def forward_logits(mesh, params, cfg: dict, inputs: dict) -> dict:
                              torch.float32, "cpu", tp)
         out["prefill"] = dense(prompt, caches, 0).numpy()
     return out if rank == 0 else None
+
+
+# -- data x tensor-parallel training ------------------------------------------
+
+
+def _train_state(mesh, spec: dict):
+    """This rank's train state from ``spec``: ``params`` (whole weights,
+    see :func:`weights`; float32), optional ``trace`` (the whole momentum
+    as numpy) and ``step``, ``cfg`` (the model's widths), ``model``
+    (``attn_impl``, ``remat``, ``sequence_parallel``), ``dtype`` (the
+    compute type, default float32)."""
+    from kubegpu_tpu_torch.models.train import place_lm
+    from kubegpu_tpu_torch.models.transformer import TransformerLM
+
+    _jax_free()
+    model = TransformerLM(mesh=mesh, dtype=spec.get("dtype", torch.float32),
+                          **spec["cfg"], **spec.get("model", {}))
+    trace = spec.get("trace")
+    return place_lm(model, weights(spec["params"], mesh.device),
+                    None if trace is None else weights(trace, mesh.device),
+                    step=spec.get("step", 0))
+
+
+def data_rows(mesh, tokens: np.ndarray) -> torch.Tensor:
+    """This rank's ``"data"`` rows of a global token batch, on its
+    device."""
+    dp, d = mesh.axis_size("data"), mesh.coord("data")
+    n = len(tokens) // dp
+    return torch.from_numpy(np.ascontiguousarray(
+        tokens[d * n:(d + 1) * n])).to(mesh.device)
+
+
+def _np(tree):
+    return tree_map(lambda t: t.detach().float().cpu().numpy(), tree)
+
+
+def _agreed(mesh, obj):
+    """``obj`` (a dict of floats, lists and numpy trees) as rank 0 made
+    it, after checking that every rank made the same, bit for bit."""
+    def same(a, b, where):
+        if isinstance(a, dict):
+            assert a.keys() == b.keys(), where
+            for k in a:
+                same(a[k], b[k], f"{where}/{k}")
+        elif isinstance(a, np.ndarray):
+            assert np.array_equal(a, b), where
+        else:
+            assert a == b, (where, a, b)
+
+    every = gather_objects(obj, mesh)
+    for rank, other in enumerate(every[1:], 1):
+        same(every[0], other, f"rank {rank}")
+    return every[0] if mesh.rank == 0 else None
+
+
+FLASH_COUNTERS = ("flash_forward", "flash_backward_dkdv", "flash_backward_dq",
+                  "flash_backward_delta")
+
+
+def flash_counts(zero: bool = False) -> dict:
+    """This process's K3, K4, K5 and delta pre-pass launch counts (set to
+    0 first when asked)."""
+    from kubegpu_tpu_torch.ops import attention
+
+    out = {}
+    for name in FLASH_COUNTERS:
+        fn = getattr(attention, name)
+        if zero:
+            fn.launches = 0
+        out[name] = fn.launches
+    return out
+
+
+def train_grads(mesh, spec: dict) -> dict:
+    """One step's loss and gradients, no update (``lm_grads``) on
+    ``spec["tokens"][0]``: rank 0 returns the loss, every gradient leaf
+    whole and the flash launches, equal on every rank."""
+    from kubegpu_tpu_torch.models.train import grad_tree, lm_grads
+    from kubegpu_tpu_torch.parallel.sharding import gather_params
+
+    state = _train_state(mesh, spec)
+    flash_counts(zero=True)
+    loss = lm_grads(state, data_rows(mesh, spec["tokens"][0]))
+    grads = gather_params(grad_tree(state), mesh)
+    return _agreed(mesh, dict(loss=loss.item(), grads=_np(grads),
+                              launches=flash_counts()))
+
+
+def train_steps(mesh, spec: dict) -> dict:
+    """``lm_step`` on each of ``spec["tokens"]``: rank 0 returns the
+    losses, the whole weights and momentum after the last step and the
+    step count, equal on every rank."""
+    from kubegpu_tpu_torch.models.train import gather_state, lm_step
+
+    state = _train_state(mesh, spec)
+    losses = [lm_step(state, data_rows(mesh, t)).item()
+              for t in spec["tokens"]]
+    params, moments = gather_state(state)
+    return _agreed(mesh, dict(losses=losses, params=_np(params),
+                              momentum=_np(moments), step=state.step))
+
+
+def layernorm_grads(mesh, spec: dict) -> list:
+    """The replicated parameters' gradients on every rank straight after
+    ``backward()`` and after ``sync_grads``: rank 0 returns, in rank
+    order, ``(data coord, model coord, before, after)``."""
+    from kubegpu_tpu_torch.models.train import (
+        lm_loss,
+        replicated_params,
+        sync_grads,
+    )
+
+    state = _train_state(mesh, spec)
+    state.opt.zero_grad(set_to_none=True)
+    lm_loss(state.model, data_rows(mesh, spec["tokens"][0])).backward()
+    names = {id(p): n for n, p in state.model.named_parameters()}
+    ln = replicated_params(state.model)
+    before = {names[id(p)]: p.grad.clone().numpy() for p in ln}
+    sync_grads(state)
+    after = {names[id(p)]: p.grad.clone().numpy() for p in ln}
+    every = gather_objects((mesh.coord("data"), mesh.coord("model"), before,
+                            after), mesh)
+    return every if mesh.rank == 0 else None
+
+
+def train_flagship(mesh, spec: dict) -> dict:
+    """``spec["steps"]`` steps at a full width (weights drawn on every
+    rank from ``spec["params"]``'s seed, each rank keeping its shard)
+    on ``synthetic_token_batches_for_mesh`` rows, then this rank's
+    numbers: rank 0 returns, in rank order, each rank's losses, seconds
+    a step, resting parameter and momentum bytes, flash launches, peak
+    device memory and mesh coordinates, and the seconds of one more
+    step's parts (``parts``), timed after the launches are read."""
+    from kubegpu_tpu_torch.models.data import (
+        synthetic_token_batches_for_mesh,
+    )
+    from kubegpu_tpu_torch.models.train import (
+        lm_loss,
+        lm_step,
+        momentum_tree,
+        sync_grads,
+    )
+
+    dev = mesh.device
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    state = _train_state(mesh, spec)
+    cfg = spec["cfg"]
+    source = synthetic_token_batches_for_mesh(
+        spec["batch"], spec["seq"] + 1, cfg["vocab_size"], mesh,
+        seed=spec.get("seed", 0))
+    flash_counts(zero=True)
+    losses, seconds = [], []
+    for _ in range(spec["steps"]):
+        tokens = torch.from_numpy(next(source)).to(dev)
+        t0 = time.monotonic()
+        losses.append(lm_step(state, tokens).item())
+        seconds.append(time.monotonic() - t0)
+    launches = flash_counts()
+    # where a step's time goes, timed after the counts are read: the
+    # forward and backward, sync_grads (the LayerNorm sum over "model"
+    # and the flat mean over "data"), the optimizer
+    t0 = _synced(dev)
+    state.opt.zero_grad(set_to_none=True)
+    lm_loss(state.model, tokens).backward()
+    t1 = _synced(dev)
+    sync_grads(state)
+    t2 = _synced(dev)
+    state.opt.step()
+    t3 = _synced(dev)
+    parts = dict(forward_backward_s=t1 - t0, sync_grads_s=t2 - t1,
+                 optimizer_s=t3 - t2,
+                 grad_bytes=sum(p.grad.numel() * p.grad.element_size()
+                                for p in state.model.parameters()))
+
+    def nbytes(tree):
+        return sum(t.numel() * t.element_size()
+                   for t in _leaves(tree))
+
+    mine = dict(losses=losses, seconds=seconds,
+                param_bytes=nbytes(state.params),
+                momentum_bytes=nbytes(momentum_tree(state)),
+                launches=launches, parts=parts,
+                peak_bytes=(torch.cuda.max_memory_allocated(dev)
+                            if dev.type == "cuda" else None),
+                coords=(mesh.coord("data"), mesh.coord("model")))
+    every = gather_objects(mine, mesh)
+    return every if mesh.rank == 0 else None
+
+
+def _synced(dev) -> float:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    return time.monotonic()
+
+
+def _leaves(tree):
+    for v in tree.values():
+        if isinstance(v, dict):
+            yield from _leaves(v)
+        else:
+            yield v
+
+
+def collective_grads(mesh) -> list:
+    """Each training collective's forward and backward on this rank's
+    inputs (a ``(2, 4, 3)`` tensor filled from the rank number), plus the
+    rank's coordinates and the ranks of its ``"data"`` and ``"model"``
+    groups: rank 0 returns every rank's, in rank order."""
+    import torch.distributed as dist
+
+    from kubegpu_tpu_torch.parallel import collectives as c
+
+    _jax_free()
+    base = torch.arange(24, dtype=torch.float64).reshape(2, 4, 3)
+    x_in = base + 100.0 * mesh.rank
+    out = {"coords": (mesh.coord("data"), mesh.coord("model")),
+           "groups": {a: dist.get_process_group_ranks(mesh.axis_group(a))
+                      for a in ("data", "model")}}
+    for name in ("copy_to_model", "reduce_from_model", "gather_seq",
+                 "scatter_seq", "split_seq", "gather_hidden", "data_mean"):
+        x = x_in.clone().requires_grad_()
+        y = getattr(c, name)(x, mesh)
+        # a rank-dependent upstream gradient
+        g = torch.ones_like(y) * (mesh.rank + 1)
+        y.backward(g)
+        out[name] = (y.detach().numpy(), x.grad.numpy())
+    every = gather_objects(out, mesh)
+    return every if mesh.rank == 0 else None
