@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Builds every kernel of the port's serving and training paths from the
-sources in the checkout, then runs forty-four phases; any failure exits
+sources in the checkout, then runs forty-seven phases; any failure exits
 non-zero:
 
 1. device: the card's name and power limit, TF32 off;
@@ -262,6 +262,34 @@ non-zero:
    ("exceeds the visible device count"), NCCL reported as not
    exercised; with two cards or more, three small steps over NCCL.
 
+45. checkpoints, in a temporary directory outside the checkout (its
+   ``df`` printed; the flagship's 4 layers when two steps fit with a
+   tenth to spare, else depth 1, printed as a cut): the flagship
+   (vocab 32768, hidden 4096, 32 heads of 128, ``--seq 1024``, batch 4)
+   trains 2 steps through the worker's ``--model lm --ckpt-dir`` and
+   saves step 2 (``CHECKPOINT_SAVED step=2``); a second run resumes
+   (``RESUMED step=2``) and saves step 4; K3, K4, K5 and the pre-pass
+   launched steps x layers times in each run; a step's bytes are the
+   parameters' and the momentum's (4,312,055,808 B each at 4 layers)
+   plus under 1 MiB of headers; each save's and the restore's seconds
+   and GB/s; phase 5's draft (1 layer, hidden 1024) trains 2 steps into
+   its own directory;
+46. phase 45's step 4 served through ``--model decode --serving paged
+   --ckpt-dir`` at phase 4's widths (``RESTORED_FOR_SERVING step=4``):
+   K1 launched decode steps x layers times, the served bf16 weights bit
+   for bit a bf16 cast of what phase 45 saved, the serving restore's
+   seconds; then ``--speculate --spec-k 4 --draft-ckpt-dir`` with the
+   trained draft (``RESTORED_DRAFT_FOR_SERVING``): K2 launched verify
+   steps x layers times, K1 never, tokens a verify;
+47. resume against an uninterrupted run at float32 on phase 10's small
+   model with flash attention: "2 steps, save, restore into fresh
+   weights, 2 steps" against "4 steps" at one device (SGD and Adam) and
+   in phases 42-44's dp 2 x tp 2 gang (SGD): losses, weights and
+   optimizer state within 1e-6, the largest difference printed (0 when
+   the bits are equal: the kernels are deterministic); the gang's step
+   2 restored onto one device is the saved bits, and one device trains
+   on from it within 1e-4 of the gang.
+
 Phases 29-34 set every kernel's launch count to 0 before each dense run
 and require it to be 0 after: the dense paths run none of K1-K5.
 
@@ -275,6 +303,7 @@ import json
 import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 F32_TOL = 2e-5
@@ -3705,7 +3734,8 @@ def phase_tp_train_small(gang, device: str = "cuda",
         state = one_device()
         losses = [lm_step(state, torch.from_numpy(t).to(device)).item()
                   for t in batches]
-        whole, moments = (_np_tree(t) for t in gather_state(state))
+        whole, opt_state = gather_state(state)
+        whole, moments = _np_tree(whole), _np_tree(opt_state["trace"])
         spec = dict(params=np_params, cfg=cfg, tokens=batches,
                     model=dict(attn_impl="flash", sequence_parallel=True,
                                remat=remat))
@@ -3859,9 +3889,11 @@ def phase_tp_train_worker(device: str = "cuda") -> None:
 
 def phase_tp_train(device: str = "cuda", small: dict = TRAIN_SMALL,
                    flagship: dict = TRAIN_FLAGSHIP,
-                   run: dict = TRAIN_FLAGSHIP_RUN) -> dict:
+                   run: dict = TRAIN_FLAGSHIP_RUN,
+                   ckpt_root: str = None) -> dict:
     """Phases 42-44 in one four-rank gang (``device="cpu"`` with small
-    configs rehearses them on the CPU)."""
+    configs rehearses them on the CPU); with ``ckpt_root``, phase 47's
+    mesh half runs in the same gang."""
     import tempfile
 
     with train_gang(tempfile.mkdtemp(prefix="chip-smoke-train-"),
@@ -3871,8 +3903,341 @@ def phase_tp_train(device: str = "cuda", small: dict = TRAIN_SMALL,
         log(f"train small phase {time.monotonic() - t0:.1f} s (the gang's "
             "start included)")
         out = phase_tp_train_flagship(gang, device, flagship, run)
+        if ckpt_root is not None:
+            phase_ckpt_gang(gang, ckpt_root, device, small)
     phase_tp_train_worker(device)
     return out
+
+
+# -- checkpoints (phases 45-47) -------------------------------------------------
+
+# the flagship's full width; --layers and --ckpt-dir are added per run
+CKPT_TRAIN = ["--model", "lm", "--vocab", "32768", "--hidden", "4096",
+              "--heads", "32", "--seq", "1024", "--batch-per-chip", "4",
+              "--steps", "2"]
+# the speculative draft of phase 5 (1 layer, hidden 1024 in 8 heads of 128)
+CKPT_DRAFT = ["--model", "lm", "--vocab", "32768", "--hidden", "1024",
+              "--heads", "8", "--layers", "1", "--seq", "1024",
+              "--batch-per-chip", "4", "--steps", "2"]
+CKPT_LAYERS = 4
+# a resumed run against an uninterrupted one: the kernels are
+# deterministic, so equal bits are expected; the gate
+RESUME_TOL = 1e-6
+
+
+def captured(fn, *args):
+    """``fn(*args)`` with its standard output captured, then echoed;
+    returns (value, output)."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        value = fn(*args)
+    out = buf.getvalue()
+    sys.stdout.write(out)
+    sys.stdout.flush()
+    return value, out
+
+
+def lm_param_bytes(cfg: dict) -> int:
+    """The float32 bytes of the LM's parameters, from its shapes."""
+    return expected_rank_bytes(cfg, 1)[1]
+
+
+def ckpt_layers(root: str, flagship_cfg: dict) -> int:
+    """``df`` of the checkpoint directory; the flagship's depth when two
+    steps of parameters and momentum (the second save's temporary copy
+    beside the first) fit with a tenth to spare, else depth 1."""
+    usage = shutil.disk_usage(root)
+    step = 2 * lm_param_bytes(dict(flagship_cfg, num_layers=CKPT_LAYERS))
+    layers = CKPT_LAYERS if usage.free >= 2.2 * step else 1
+    log(f"checkpoint disk {root}: total {usage.total / 1e9:.1f} GB, free "
+        f"{usage.free / 1e9:.1f} GB; a {CKPT_LAYERS}-layer step holds "
+        f"{step} B; training at {layers} layer(s)"
+        + ("" if layers == CKPT_LAYERS else
+           " (depth cut: two steps do not fit)"))
+    return layers
+
+
+def train_with_checkpoints(label: str, argv: list, device: str) -> tuple:
+    """``worker.run_lm`` with the flash kernels' counts set to 0 just
+    before; returns (result, output, launches)."""
+    from kubegpu_tpu_torch.models import worker
+
+    args = worker.build_parser().parse_args(argv + ["--device", device])
+    kernels = flash_counts_to_zero()
+    r, out = captured(worker.run_lm, args)
+    launches = {fn.__name__: fn.launches for fn in kernels}
+    want = args.steps * args.layers * (device == "cuda")
+    assert all(n == want for n in launches.values()), (label, launches)
+    ck = r["checkpoint"]
+    log(f"{label}: losses {[round(x, 4) for x in r['losses']]}; launches "
+        f"{launches} = {args.steps} steps x {args.layers} layers each; "
+        f"restore {ck['restore_s']} s, saves {ck['save_s']} s; step "
+        f"{ck['ckpt_step']} holds {ck['ckpt_bytes']} B")
+    return r, out, launches
+
+
+def phase_ckpt_train(root: str, device: str = "cuda",
+                     base: list = CKPT_TRAIN, draft: list = CKPT_DRAFT,
+                     cfg: dict = TRAIN_FLAGSHIP) -> dict:
+    """Phase 45: the flagship trains 2 steps through the worker's ``--model
+    lm --ckpt-dir`` and saves step 2 (``CHECKPOINT_SAVED step=2``), then a
+    second run resumes (``RESUMED step=2``) and saves step 4; each run's
+    K3, K4, K5 and pre-pass launches are steps x layers; each step's bytes
+    are the parameters' and the momentum's (plus the npz headers); the
+    seconds of each save and of the restore.  The 1-layer draft of
+    phase 5 trains 2 steps into its own directory the same way."""
+    import os
+
+    layers = ckpt_layers(root, cfg)
+    target, draft_dir = os.path.join(root, "target"), os.path.join(root,
+                                                                   "draft")
+    argv = base + ["--layers", str(layers), "--ckpt-dir", target]
+    r1, out1, _ = train_with_checkpoints("checkpoint train", argv, device)
+    assert "CHECKPOINT_SAVED step=2" in out1 and "RESUMED" not in out1
+    r2, out2, _ = train_with_checkpoints("checkpoint resume", argv, device)
+    assert "RESUMED step=2" in out2 and "CHECKPOINT_SAVED step=4" in out2
+    params = lm_param_bytes(dict(cfg, num_layers=layers))
+    ck1, ck2 = r1["checkpoint"], r2["checkpoint"]
+    for ck in (ck1, ck2):
+        # parameters and momentum, float32, plus the npz headers and json
+        assert 0 <= ck["ckpt_bytes"] - 2 * params < 2**20, (ck, params)
+    save_s = ck1["save_s"] + ck2["save_s"]
+    log(f"checkpoint flagship ({layers} layers): parameters {params} B, "
+        f"momentum {params} B, a step {ck2['ckpt_bytes']} B; saves "
+        f"{[round(x, 3) for x in save_s]} s "
+        f"({[round(ck2['ckpt_bytes'] / x / 1e9, 3) for x in save_s]} GB/s), "
+        f"restore {ck2['restore_s']:.3f} s "
+        f"({ck2['ckpt_bytes'] / ck2['restore_s'] / 1e9:.3f} GB/s)")
+    rd, outd, _ = train_with_checkpoints(
+        "checkpoint draft", draft + ["--ckpt-dir", draft_dir], device)
+    assert "CHECKPOINT_SAVED step=2" in outd
+    return dict(target=target, draft=draft_dir, layers=layers,
+                params_bytes=params, step_bytes=ck2["ckpt_bytes"],
+                save_s=save_s, restore_s=ck2["restore_s"],
+                draft_bytes=rd["checkpoint"]["ckpt_bytes"])
+
+
+def serve_restored(label: str, argv: list, device: str) -> tuple:
+    """The worker's waves with every paged kernel's count set to 0 just
+    before; returns (result, args, launches, output)."""
+    from kubegpu_tpu_torch.models import worker
+
+    args = worker.build_parser().parse_args(argv + ["--device", device])
+    zero_counts()
+    r, out = captured(worker.run_decode, args)
+    launches = {k: getattr(fn, a) for k, (fn, a) in kernel_counts().items()}
+    log(f"{label}: {r['requests']} requests, {r['tokens']} tokens in "
+        f"{r['wave_s']:.3f} s -> {r['tokens_per_sec']:.1f} tok/s; first "
+        f"wave done {r['first_decode_s']:.1f} s after start (the restore "
+        f"included); launches {launches}")
+    check_wave(r, args)
+    return r, args, launches, out
+
+
+def phase_ckpt_serve(ck: dict, device: str = "cuda",
+                     base: list = FLAGSHIP_ARGV) -> None:
+    """Phase 46: phase 45's step 4 served through the worker's
+    ``--model decode --serving paged --ckpt-dir`` (``RESTORED_FOR_SERVING
+    step=4``): K1 launched decode steps x layers times; the served bf16
+    weights are bit for bit a bf16 cast of what phase 45 saved.  Then
+    ``--speculate --spec-k 4 --draft-ckpt-dir`` with phase 45's draft
+    (``RESTORED_DRAFT_FOR_SERVING``): K2 launched verify steps x layers
+    times, K1 never."""
+    import os
+
+    import numpy as np
+    import torch
+
+    from kubegpu_tpu_torch.models import worker
+
+    argv = base + ["--layers", str(ck["layers"]), "--ckpt-dir", ck["target"]]
+    r, args, launches, out = serve_restored("restored flagship", argv, device)
+    assert "RESTORED_FOR_SERVING step=4" in out, out[-2000:]
+    kernels = device == "cuda"
+    assert launches["K1"] == r["decode_steps_total"] * args.layers * kernels
+    assert not any(v for k, v in launches.items() if k != "K1"), launches
+    t0 = time.monotonic()
+    params, _, dtype = worker.serving_params(args, device, announce=False)
+    restore_s = time.monotonic() - t0
+    n = 0
+    with np.load(os.path.join(ck["target"], "lm", "4", "state.npz")) as z:
+        for path, got in _leaves_by_path(params):
+            want = torch.from_numpy(z[f"params/{path}"]).to(device).to(dtype)
+            assert got.dtype == dtype and torch.equal(got, want), path
+            n += 1
+    log(f"restored flagship: K1 launches {launches['K1']} = decode steps "
+        f"{r['decode_steps_total']} x layers {args.layers}; the {n} served "
+        f"{str(dtype).replace('torch.', '')} leaves equal the bf16 cast of "
+        f"the saved float32 bit for bit; the serving restore (parameters "
+        f"only, {ck['params_bytes']} B read) took {restore_s:.3f} s")
+    del params
+    spec = argv + ["--speculate", "--spec-k", str(SPEC_K),
+                   "--draft-ckpt-dir", ck["draft"]]
+    r, args, launches, out = serve_restored("restored speculative flagship",
+                                            spec, device)
+    assert "RESTORED_DRAFT_FOR_SERVING" in out
+    assert "RESTORED_FOR_SERVING step=4" in out
+    assert launches["K2"] == r["spec_steps_total"] * args.layers * kernels
+    assert not any(v for k, v in launches.items() if k != "K2"), launches
+    assert r["spec_tokens"] == r["tokens"]
+    log(f"restored speculative flagship: k={SPEC_K}, timed wave "
+        f"{r['spec_steps']} verify steps for {r['spec_tokens']} tokens = "
+        f"{r['spec_tokens'] / r['spec_steps']:.3f} tokens a verify (the "
+        f"trained draft); K2 launches {launches['K2']} = verify steps "
+        f"{r['spec_steps_total']} x layers {args.layers}")
+
+
+def _leaves_by_path(tree: dict, prefix: str = ""):
+    for k, v in tree.items():
+        path = f"{prefix}/{k}" if prefix else k
+        if isinstance(v, dict):
+            yield from _leaves_by_path(v, path)
+        else:
+            yield path, v
+
+
+def _tree_diff(got: dict, want: dict) -> float:
+    """The largest difference between two trees of tensors."""
+    fg, fw = dict(_leaves_by_path(got)), dict(_leaves_by_path(want))
+    assert fg.keys() == fw.keys()
+    return max(float((fg[k].detach().cpu().double()
+                      - fw[k].detach().cpu().double()).abs().max())
+               for k in fw)
+
+
+def phase_ckpt_resume(root: str, device: str = "cuda",
+                      cfg: dict = TRAIN_SMALL) -> None:
+    """Phase 47 at one device: phase 10's small float32 model (flash
+    attention: K3, K4, K5) trained "2 steps, save, restore into fresh
+    weights, 2 steps" against "4 steps", SGD and Adam: losses, weights and
+    optimizer state equal (the largest difference printed, 0 when the
+    bits are equal), within 1e-6."""
+    import os
+
+    import numpy as np
+    import torch
+
+    from kubegpu_tpu_torch.models.checkpoint import (
+        make_manager,
+        restore_checkpoint,
+        save_checkpoint,
+    )
+    from kubegpu_tpu_torch.models.params import init_params, tree_map
+    from kubegpu_tpu_torch.models.train import (
+        adam,
+        create_train_state,
+        gather_state,
+        lm_step,
+        sgd,
+    )
+    from kubegpu_tpu_torch.models.transformer import TransformerLM
+
+    widths = {k: v for k, v in cfg.items() if k != "num_heads"}
+    seq = cfg["max_seq"] - 1
+    rng = np.random.RandomState(1)
+    data = [torch.from_numpy(rng.randint(0, cfg["vocab_size"],
+                                         size=(4, seq + 1)).astype(np.int32))
+            .to(device) for _ in range(4)]
+
+    def state_of(seed, optimizer):
+        tree = init_params(widths, torch.Generator().manual_seed(seed),
+                           torch.float32, "cpu")
+        model = TransformerLM(dtype=torch.float32, attn_impl="flash", **cfg)
+        return create_train_state(model, tree_map(lambda t: t.to(device),
+                                                  tree), optimizer=optimizer)
+
+    for optimizer in (sgd(), adam(lr=1e-3)):
+        straight = state_of(6, optimizer)
+        want = [lm_step(straight, t).item() for t in data]
+        state = state_of(6, optimizer)
+        got = [lm_step(state, t).item() for t in data[:2]]
+        mgr = make_manager(os.path.join(root, f"resume-{optimizer.name}"))
+        save_checkpoint(mgr, state)
+        fresh = state_of(7, optimizer)
+        restore_checkpoint(mgr, fresh)
+        got += [lm_step(fresh, t).item() for t in data[2:]]
+        np.testing.assert_allclose(got, want, rtol=RESUME_TOL,
+                                   atol=RESUME_TOL)
+        wp, wo = gather_state(straight)
+        gp, go = gather_state(fresh)
+        p_diff, o_diff = _tree_diff(gp, wp), _tree_diff(go, wo)
+        assert p_diff <= RESUME_TOL and o_diff <= RESUME_TOL
+        log(f"resume fp32 one device {optimizer.name}: losses equal "
+            f"{got == want}, largest weight difference {p_diff}, optimizer "
+            f"state {o_diff} (0: the same bits) against 4 uninterrupted "
+            "steps")
+
+
+def phase_ckpt_gang(gang, root: str, device: str = "cuda",
+                    cfg: dict = TRAIN_SMALL) -> None:
+    """Phase 47 over the mesh, in phases 42-44's dp 2 x tp 2 gang: the
+    same model "2 steps, save, restore, 2 steps" against "4 steps" on
+    the mesh (SGD), equal within 1e-6 (the largest difference printed);
+    the gang's step 2 restores onto one device with every leaf the saved
+    bits, and one device trains on from it within 1e-4 of the gang."""
+    import os
+
+    import numpy as np
+    import torch
+
+    from kubegpu_tpu_torch.models.checkpoint import (
+        make_manager,
+        restore_checkpoint,
+    )
+    from kubegpu_tpu_torch.models.params import init_params, tree_map
+    from kubegpu_tpu_torch.models.train import (
+        create_train_state,
+        gather_state,
+        lm_step,
+    )
+    from kubegpu_tpu_torch.models.transformer import TransformerLM
+
+    cases = tp_cases()
+    widths = {k: v for k, v in cfg.items() if k != "num_heads"}
+
+    def init(seed):
+        return init_params(widths, torch.Generator().manual_seed(seed),
+                           torch.float32, "cpu")
+
+    seq = cfg["max_seq"] - 1
+    rng = np.random.RandomState(1)
+    tokens = [rng.randint(0, cfg["vocab_size"], size=(4, seq + 1))
+              .astype(np.int32) for _ in range(4)]
+    d = os.path.join(root, "gang")
+    got = gang.run(cases.train_save_resume, dict(
+        params=_np_tree(init(6)), fresh=_np_tree(init(7)), cfg=cfg,
+        model=dict(attn_impl="flash", sequence_parallel=True),
+        tokens=tokens, save_after=2, dir=d))
+    straight, resumed = got["straight"], got["resumed"]
+    np.testing.assert_allclose(resumed["losses"], straight["losses"],
+                               rtol=RESUME_TOL, atol=RESUME_TOL)
+    p_diff = tree_close("gang resume param", resumed["params"],
+                        straight["params"], RESUME_TOL)
+    o_diff = tree_close("gang resume trace", resumed["opt_state"]["trace"],
+                        straight["opt_state"]["trace"], RESUME_TOL)
+    model = TransformerLM(dtype=torch.float32, attn_impl="flash", **cfg)
+    state = create_train_state(model, tree_map(lambda t: t.to(device),
+                                               init(8)))
+    restore_checkpoint(make_manager(d), state)
+    whole, opt = gather_state(state)
+    with np.load(os.path.join(d, "2", "state.npz")) as z:
+        for path, t in _leaves_by_path(whole):
+            assert np.array_equal(t.cpu().numpy(), z[f"params/{path}"]), path
+        for path, t in _leaves_by_path(opt):
+            assert np.array_equal(t.cpu().numpy(),
+                                  z[f"opt_state/{path}"]), path
+    losses = [lm_step(state, torch.from_numpy(t).to(device)).item()
+              for t in tokens[2:]]
+    np.testing.assert_allclose(losses, resumed["losses"][2:], rtol=TRAIN_TOL,
+                               atol=TRAIN_TOL)
+    log(f"resume fp32 dp 2 x tp 2 (gloo on one card): losses equal "
+        f"{resumed['losses'] == straight['losses']}, largest weight "
+        f"difference {p_diff}, momentum {o_diff} (0: the same bits); the "
+        f"gang's step 2 restored onto one device bit for bit, and its two "
+        f"steps on {losses} against the gang's {resumed['losses'][2:]}")
 
 
 def main() -> int:
@@ -3942,7 +4307,18 @@ def main() -> int:
     # data x tensor-parallel training: the flash kernels at one rank's
     # heads, then a four-rank gang on the card
     tp_flash = phase_tp_flash()
-    tp_train = phase_tp_train()
+    # checkpoints: phase 47's mesh half in the training gang, then the
+    # flagship trained, saved, resumed and served from its checkpoint
+    ckpt_root = tempfile.mkdtemp(prefix="chip-smoke-ckpt-")
+    try:
+        tp_train = phase_tp_train(ckpt_root=ckpt_root)
+        t1 = time.monotonic()
+        ck = phase_ckpt_train(ckpt_root)
+        phase_ckpt_serve(ck)
+        phase_ckpt_resume(ckpt_root)
+        log(f"checkpoint phases {time.monotonic() - t1:.1f} s")
+    finally:
+        shutil.rmtree(ckpt_root, ignore_errors=True)
     log(f"chip_smoke: all phases passed in {time.monotonic() - t0:.1f} s")
     source = "kubegpu_tpu_torch/ops/csrc/paged_attention.cu"
     kernels = []

@@ -9,7 +9,8 @@ data shard, seeded ``SeedSequence([seed, 0])``), which is also its
 ``("data", "model")`` mesh: each data rank draws its ``batch / dp`` rows
 from ``SeedSequence([seed, data_coord])``, so the ranks of one data
 shard (its ``"model"`` ranks) draw byte-identical rows, as JAX's
-processes do.  The device side has the JAX
+processes do.  :func:`structured_token_batches` is the JAX package's
+learnable stream, bit for bit.  The device side has the JAX
 worker's three ``--data`` modes:
 
 - :func:`device_pool_batches` (``synthetic``): ``pool`` batches copied to
@@ -24,7 +25,7 @@ worker's three ``--data`` modes:
 from __future__ import annotations
 
 import collections
-from typing import Iterable, Iterator
+from typing import Iterable, Iterator, Tuple
 
 import numpy as np
 import torch
@@ -39,6 +40,38 @@ def synthetic_token_batches(batch: int, seq_len: int, vocab_size: int,
     rng = np.random.default_rng(np.random.SeedSequence([seed, shard]))
     while True:
         yield rng.integers(0, vocab_size, size=(batch, seq_len), dtype=np.int32)
+
+
+def structured_token_batches(batch: int, seq_len: int,
+                             vocab_size: int = 32000, seed: int = 0,
+                             worker_id: int = 0,
+                             branch_probs: Tuple[float, ...] = (0.7, 0.2, 0.1),
+                             ) -> Iterator[np.ndarray]:
+    """Endless int32 batches ``(batch, seq_len)`` of LEARNABLE synthetic
+    text, bit for bit the JAX package's ``structured_token_batches``:
+    each next token is one of three fixed affine successors ``t -> (a_i
+    t + b_i) mod vocab`` of the current one, drawn with ``branch_probs``
+    (per-token entropy ~0.80 nats at the default).  The successor maps
+    come from ``SeedSequence([seed, 104729])`` only, so every worker and
+    every held-out stream samples the same language; the trajectories
+    come from ``SeedSequence([seed, worker_id, 7])``.  The uniform stream
+    (:func:`synthetic_token_batches`) is unlearnable; quality runs use
+    this one."""
+    rng = np.random.default_rng(np.random.SeedSequence([seed, worker_id, 7]))
+    maps = np.random.default_rng(np.random.SeedSequence([seed, 104729]))
+    a = (maps.integers(1, vocab_size, size=3) | 1).astype(np.int64)
+    b = maps.integers(0, vocab_size, size=3).astype(np.int64)
+    probs = np.asarray(branch_probs, np.float64)
+    probs = probs / probs.sum()
+    k = len(probs)
+    while True:
+        toks = np.empty((batch, seq_len), np.int64)
+        toks[:, 0] = rng.integers(0, vocab_size, size=batch)
+        choice = rng.choice(k, size=(batch, seq_len - 1), p=probs)
+        for t in range(1, seq_len):
+            c = choice[:, t - 1]
+            toks[:, t] = (a[c] * toks[:, t - 1] + b[c]) % vocab_size
+        yield toks.astype(np.int32)
 
 
 def synthetic_token_batches_for_mesh(batch: int, seq_len: int,

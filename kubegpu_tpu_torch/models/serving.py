@@ -3,8 +3,9 @@ the dense slot batcher: the port of ``kubegpu_tpu/models/serving.py``.
 
 Own copies of ``resolve_kv_dtype``, ``resolve_decode_page_cache``,
 ``_validate_request``, ``_Slot``, ``_SeqTrace``, ``_TracedBatcher``,
-``_observe_emit``, ``record_quant_quality`` and
-``record_sampling_quality`` from the JAX module, with their semantics:
+``_observe_emit``, ``record_quant_quality``,
+``record_sampling_quality`` and ``load_draft_checkpoint`` from the JAX
+module, with their semantics:
 the pool stores the serving dtype at full width or int8 with per-page
 scales, and retirement sealing of decode pages follows the policy's
 numerics class (``"quantized"`` seals only on an int8 pool, ``"fp32"``
@@ -162,6 +163,32 @@ def record_sampling_quality(metrics, *, accept_rate: float,
     if unigram_agreement is not None:
         metrics.set_gauge("serve_sampled_unigram_agreement",
                           float(unigram_agreement), lane=lane)
+
+
+def load_draft_checkpoint(ckpt_dir: str, *, vocab_size: int,
+                          num_layers: int, num_heads: int, hidden: int,
+                          max_seq: int, device="cuda",
+                          dtype=torch.bfloat16):
+    """A DRAFT model's weights for speculative serving from the latest
+    step under ``<ckpt_dir>/lm`` (the worker's layout; parameter leaves
+    only, checked against the draft's dims), cast to bf16 on ``device``
+    as the JAX package's ``load_draft_checkpoint`` casts it, whatever
+    the target's serving dtype.  Returns None when the directory holds no
+    checkpoint: callers fall back to a fresh draft (lossless either way;
+    only the accept rate changes)."""
+    import os
+
+    from kubegpu_tpu_torch.models.checkpoint import (
+        make_manager,
+        restore_params,
+    )
+
+    mgr = make_manager(os.path.join(os.path.abspath(ckpt_dir), "lm"))
+    restored = restore_params(
+        mgr, dict(vocab_size=vocab_size, num_layers=num_layers,
+                  num_heads=num_heads, hidden=hidden, max_seq=max_seq),
+        device=device, dtype=dtype)
+    return None if restored is None else restored[0]
 
 
 @dataclass

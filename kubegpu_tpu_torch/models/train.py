@@ -1,8 +1,11 @@
 """LM training at one device and over a ``("data", "model")`` mesh: the
 port of ``kubegpu_tpu/models/train.py``'s ``TrainState``,
-``cross_entropy``, ``lm_loss``, ``make_lm_train_step`` and ``place_lm``.
+``create_train_state(tx=)``, ``cross_entropy``, ``lm_loss``,
+``make_lm_train_step``, ``place_lm``, ``draft_distill_loss`` and
+``make_draft_distill_step``.
 
-The optimizer is the JAX package's default, ``optax.sgd(0.1,
+The optimizer is an :class:`Optimizer`: :func:`sgd` or :func:`adam`.  The
+default is the JAX package's, ``optax.sgd(0.1,
 momentum=0.9, nesterov=True)``, as ``torch.optim.SGD(lr=0.1,
 momentum=0.9, nesterov=True)``.  The two compute the same update.  optax
 chains ``trace(decay=0.9, nesterov=True)`` with a scale by ``-lr``: from
@@ -19,7 +22,8 @@ Parameters are float32 leaves bound to the model with
 tree is always the current weights.
 
 Over a mesh (the model built with ``mesh=``) every rank holds its
-Megatron shard of the parameters and of the momentum (:func:`place_lm`,
+Megatron shard of the parameters and of the optimizer state
+(:func:`place_lm`,
 the JAX ``place_lm``/``state_shardings``) and its ``batch / dp`` rows of
 the global batch.  The head is vocab-parallel, so :func:`cross_entropy`
 takes the max, the sum of exponentials and the target logit by
@@ -35,9 +39,10 @@ step with the same bits.
 
 from __future__ import annotations
 
-from dataclasses import dataclass
-from typing import List, Mapping, Optional, Tuple
+from dataclasses import dataclass, field
+from typing import Dict, Iterator, List, Mapping, Optional, Tuple
 
+import numpy as np
 import torch
 import torch.distributed as dist
 from torch import nn
@@ -50,30 +55,108 @@ from kubegpu_tpu_torch.models.params import (
     tree_map,
 )
 from kubegpu_tpu_torch.parallel.collectives import (
+    all_gather,
     data_mean,
     flat_all_reduce,
     mean_grads_over_data,
 )
 from kubegpu_tpu_torch.parallel.mesh import MODEL_AXIS, tp_size
 from kubegpu_tpu_torch.parallel.sharding import (
-    gather_params,
     shard_dim,
     shard_state,
 )
 
 LEARNING_RATE = 0.1
 MOMENTUM = 0.9
+# the reference's quality runs train with optax.adam(3e-4)
+ADAM_LEARNING_RATE = 3e-4
+
+
+@dataclass(frozen=True)
+class Optimizer:
+    """An optax optimizer by name and hyperparameters, built over a
+    model's parameters as its torch counterpart:
+
+    - ``"sgd"``: ``optax.sgd(lr, momentum, nesterov)`` is
+      ``torch.optim.SGD``; optax's ``trace`` is SGD's ``momentum_buffer``
+      (see the module docstring);
+    - ``"adam"``: ``optax.adam(lr, b1, b2, eps)`` (``eps_root`` 0) is
+      ``torch.optim.Adam``: both take ``m' = b1 m + (1 - b1) g``,
+      ``v' = b2 v + (1 - b2) g^2`` and
+      ``p' = p - lr (m' / (1 - b1^t)) / (sqrt(v' / (1 - b2^t)) + eps)``
+      at step ``t``; optax's ``mu``, ``nu`` and ``count`` are Adam's
+      ``exp_avg``, ``exp_avg_sq`` and ``step``.  They round in another
+      order (torch folds ``1 - b1`` into a lerp and divides the square
+      root by ``sqrt(1 - b2^t)``), so the two agree to float32 rounding,
+      not bit for bit.
+
+    The state's tree (:func:`opt_state_tree`) is optax's: ``{"trace":
+    tree}`` for sgd, ``{"count": (), "mu": tree, "nu": tree}`` for adam,
+    each ``tree`` in the parameter tree's layout."""
+
+    name: str = "sgd"
+    lr: float = LEARNING_RATE
+    momentum: float = MOMENTUM
+    nesterov: bool = True
+    b1: float = 0.9
+    b2: float = 0.999
+    eps: float = 1e-8
+
+    def build(self, parameters) -> torch.optim.Optimizer:
+        if self.name == "sgd":
+            return torch.optim.SGD(parameters, lr=self.lr,
+                                   momentum=self.momentum,
+                                   nesterov=self.nesterov)
+        if self.name == "adam":
+            return torch.optim.Adam(parameters, lr=self.lr,
+                                    betas=(self.b1, self.b2), eps=self.eps)
+        raise ValueError(f"optimizer {self.name!r}: one of {OPTIMIZERS}")
+
+    @property
+    def slots(self) -> Dict[str, str]:
+        """optax's per-parameter state trees by name, each with the
+        torch optimizer's state key."""
+        return dict(_SLOTS[self.name])
+
+    def config(self) -> dict:
+        """The hyperparameters that define the update (a checkpoint
+        records them)."""
+        if self.name == "sgd":
+            return dict(name="sgd", lr=self.lr, momentum=self.momentum,
+                        nesterov=self.nesterov)
+        return dict(name="adam", lr=self.lr, b1=self.b1, b2=self.b2,
+                    eps=self.eps)
+
+
+OPTIMIZERS = ("sgd", "adam")
+_SLOTS = {"sgd": (("trace", "momentum_buffer"),),
+          "adam": (("mu", "exp_avg"), ("nu", "exp_avg_sq"))}
+
+
+def sgd(lr: float = LEARNING_RATE, momentum: float = MOMENTUM,
+        nesterov: bool = True) -> Optimizer:
+    """``optax.sgd(lr, momentum=momentum, nesterov=nesterov)``, the JAX
+    package's default optimizer at its defaults."""
+    return Optimizer("sgd", lr=lr, momentum=momentum, nesterov=nesterov)
+
+
+def adam(lr: float = ADAM_LEARNING_RATE, b1: float = 0.9, b2: float = 0.999,
+         eps: float = 1e-8) -> Optimizer:
+    """``optax.adam(lr, b1, b2, eps)``."""
+    return Optimizer("adam", lr=lr, b1=b1, b2=b2, eps=eps)
 
 
 @dataclass
 class TrainState:
-    """The model bound to its float32 tree, the optimizer over it, and
-    the number of steps taken (the JAX ``TrainState.step``)."""
+    """The model bound to its float32 tree, the optimizer over it (built
+    from ``optimizer``), and the number of steps taken (the JAX
+    ``TrainState.step``)."""
 
     model: nn.Module
     params: Tree
-    opt: torch.optim.SGD
+    opt: torch.optim.Optimizer
     step: int = 0
+    optimizer: Optimizer = field(default_factory=Optimizer)
 
     @property
     def mesh(self):
@@ -82,68 +165,127 @@ class TrainState:
 
 
 def create_train_state(model: nn.Module, params: Tree, *,
+                       optimizer: Optional[Optimizer] = None,
                        step: int = 0) -> TrainState:
     """Bind ``params`` (float32 leaves, on the device to train on) to
-    ``model`` as trainable parameters and build nesterov SGD over them
-    with an empty momentum (optax's zero trace)."""
+    ``model`` as trainable parameters and build ``optimizer`` (default
+    :func:`sgd`, the JAX ``create_train_state``'s nesterov SGD) over
+    them with an empty state (optax's zero trace or moments)."""
+    optimizer = optimizer or sgd()
     bind_params(model, params, trainable=True)
-    opt = torch.optim.SGD(model.parameters(), lr=LEARNING_RATE,
-                          momentum=MOMENTUM, nesterov=True)
-    return TrainState(model=model, params=params, opt=opt, step=step)
+    return TrainState(model=model, params=params,
+                      opt=optimizer.build(model.parameters()), step=step,
+                      optimizer=optimizer)
 
 
-def _set_momentum(state: TrainState, trace: Tree) -> None:
+def _leaf(tree: Mapping, dotted: str):
+    for part in dotted.split("."):
+        tree = tree[part]
+    return tree
+
+
+def set_param_opt_state(state: TrainState, param: nn.Parameter,
+                        slots: Mapping[str, torch.Tensor],
+                        count: Optional[int] = None,
+                        copy: bool = True) -> None:
+    """One parameter's optimizer state from optax-layout leaves (``slots``
+    by name, this rank's shard; Adam's ``count``), on the parameter's
+    device; ``copy=False`` lets a leaf already there become the state."""
+    slot_state = state.opt.state[param]
+    slot_state.clear()
+    for name, key in state.optimizer.slots.items():
+        slot_state[key] = slots[name].to(device=param.device,
+                                         dtype=torch.float32, copy=copy)
+    if state.optimizer.name == "adam":
+        # torch keeps Adam's step count as a float32 host tensor per
+        # parameter; optax one int32 count
+        slot_state["step"] = torch.tensor(float(count), dtype=torch.float32)
+
+
+def set_opt_state(state: TrainState, opt_state: Mapping) -> None:
+    """Load an optimizer state tree in optax's layout
+    (:func:`opt_state_tree`; over a mesh, this rank's shards) into the
+    torch optimizer, copied onto each parameter's device."""
+    need = set(state.optimizer.slots) | (
+        {"count"} if state.optimizer.name == "adam" else set())
+    if need - set(opt_state):
+        raise KeyError(f"{state.optimizer.name} state needs {sorted(need)}, "
+                       f"got {sorted(opt_state)}")
+    count = opt_state.get("count")
     for path, param in state.model.named_parameters():
-        node = trace
-        for part in path.split("."):
-            node = node[part]
-        state.opt.state[param]["momentum_buffer"] = node.float().clone()
+        set_param_opt_state(
+            state, param,
+            {name: _leaf(opt_state[name], path)
+             for name in state.optimizer.slots},
+            None if count is None else int(count))
 
 
 def train_state_from_numpy(model: nn.Module, params: Mapping,
-                           trace: Optional[Mapping] = None, *, step: int = 0,
-                           device="cuda", mesh=None) -> TrainState:
+                           trace: Optional[Mapping] = None, *,
+                           opt_state: Optional[Mapping] = None,
+                           optimizer: Optional[Optimizer] = None,
+                           step: int = 0, device="cuda",
+                           mesh=None) -> TrainState:
     """A JAX train state carried across: ``params`` is the flax tree and
-    ``trace`` optax's momentum trace (``opt_state[0].trace``), both as
-    numpy (``jax.tree.map(np.asarray, ...)``).  SGD's ``momentum_buffer``
-    of each parameter is set to its trace leaf, so a state taken mid-
-    training continues as the JAX step would.  Over a mesh (``mesh``, or
-    the model's) both trees are whole and this rank keeps its shard of
-    each (:func:`place_lm`), on the mesh's device."""
+    ``opt_state`` optax's state in its layout (``{"trace": ...}`` of
+    ``opt_state[0].trace`` for sgd, ``{"count", "mu", "nu"}`` of
+    ``opt_state[0]`` for adam), or for sgd ``trace`` alone, all as numpy
+    (``jax.tree.map(np.asarray, ...)``).  The torch optimizer's state is
+    set from it (:func:`set_opt_state`), so a state taken mid-training
+    continues as the JAX step would.  Over a mesh (``mesh``, or the
+    model's) the trees are whole and this rank keeps its shard of each
+    (:func:`place_lm`), on the mesh's device."""
+    if trace is not None:
+        opt_state = {"trace": trace}
     mesh = mesh if mesh is not None else getattr(model, "mesh", None)
     if mesh is not None:
         # the whole trees wait on the host; the rank keeps its shards
         return place_lm(model, params_from_numpy(params),
-                        None if trace is None else params_from_numpy(trace),
-                        step=step, mesh=mesh)
+                        opt_state=(None if opt_state is None
+                                   else _opt_from_numpy(opt_state)),
+                        optimizer=optimizer, step=step, mesh=mesh)
     dev = resolve_device(device)
     state = create_train_state(model, params_from_numpy(params, dev),
-                               step=step)
-    if trace is not None:
-        _set_momentum(state, params_from_numpy(trace, dev))
+                               optimizer=optimizer, step=step)
+    if opt_state is not None:
+        set_opt_state(state, _opt_from_numpy(opt_state, dev))
     return state
 
 
+def _opt_from_numpy(opt_state: Mapping, device="cpu") -> Tree:
+    return {k: (params_from_numpy(v, device) if isinstance(v, Mapping)
+                else torch.as_tensor(np.asarray(v)))
+            for k, v in opt_state.items()}
+
+
 def place_lm(model: nn.Module, params: Mapping,
-             trace: Optional[Mapping] = None, *, step: int = 0,
+             trace: Optional[Mapping] = None, *,
+             opt_state: Optional[Mapping] = None,
+             optimizer: Optional[Optimizer] = None, step: int = 0,
              mesh=None) -> TrainState:
     """The JAX ``place_lm``: a train state over ``mesh`` (default the
     model's) from WHOLE trees of tensors on any device, ``params`` and
-    optionally the momentum ``trace``: this rank keeps its shard of each
-    by the Megatron rules (``shard_state``), copied onto the mesh's
-    device, so the whole tree can be freed once the caller drops it.
-    Every rank of a ``"data"`` group gets the same shards."""
+    optionally the optimizer state ``opt_state`` in optax's layout (or
+    SGD's ``trace`` alone): this rank keeps its shard of each tree by the
+    Megatron rules (``shard_state``: a moment shards like its parameter,
+    Adam's ``count`` is replicated), copied onto the mesh's device, so
+    the whole tree can be freed once the caller drops it.  Every rank of
+    a ``"data"`` group gets the same shards."""
     mesh = mesh if mesh is not None else getattr(model, "mesh", None)
     if mesh is None:
         raise ValueError("place_lm needs a mesh (the model's or mesh=)")
+    if trace is not None:
+        opt_state = {"trace": trace}
     dev = resolve_device(mesh.device)
 
     def shards(tree):
         return tree_map(lambda t: t.to(dev), shard_state(tree, mesh))
 
-    state = create_train_state(model, shards(params), step=step)
-    if trace is not None:
-        _set_momentum(state, shards(trace))
+    state = create_train_state(model, shards(params), optimizer=optimizer,
+                               step=step)
+    if opt_state is not None:
+        set_opt_state(state, {k: shards(v) if isinstance(v, Mapping) else v
+                              for k, v in opt_state.items()})
     return state
 
 
@@ -158,15 +300,42 @@ def _param_tree(state: TrainState, leaf) -> Tree:
     return tree
 
 
+def _slot_tree(state: TrainState, key: str) -> Tree:
+    def buffer(param):
+        buf = state.opt.state.get(param, {}).get(key)
+        return torch.zeros_like(param) if buf is None else buf.detach()
+
+    return _param_tree(state, buffer)
+
+
+def step_count(state: TrainState) -> torch.Tensor:
+    """Adam's step count as optax's ``count`` (an int32 scalar; 0 before
+    the first step)."""
+    steps = {int(s["step"]) for s in state.opt.state.values() if "step" in s}
+    if len(steps) > 1:
+        raise RuntimeError(f"parameters at different step counts {steps}")
+    return torch.tensor(steps.pop() if steps else 0, dtype=torch.int32)
+
+
+def opt_state_tree(state: TrainState) -> Tree:
+    """The optimizer's state in optax's layout (:class:`Optimizer`):
+    each per-parameter state in the parameter tree's layout (over a
+    mesh, this rank's shards of it), zeros before the first step."""
+    out: Tree = {name: _slot_tree(state, key)
+                 for name, key in state.optimizer.slots.items()}
+    if state.optimizer.name == "adam":
+        out["count"] = step_count(state)
+    return out
+
+
 def momentum_tree(state: TrainState) -> Tree:
     """SGD's momentum buffers in the parameter tree's layout (the optax
     trace's counterpart; over a mesh, this rank's shards of it); zeros
     before the first step."""
-    def buffer(param):
-        buf = state.opt.state.get(param, {}).get("momentum_buffer")
-        return torch.zeros_like(param) if buf is None else buf.detach()
-
-    return _param_tree(state, buffer)
+    if state.optimizer.name != "sgd":
+        raise ValueError(f"{state.optimizer.name} keeps no momentum trace; "
+                         "read opt_state_tree")
+    return _slot_tree(state, "momentum_buffer")
 
 
 def grad_tree(state: TrainState) -> Tree:
@@ -175,12 +344,55 @@ def grad_tree(state: TrainState) -> Tree:
     return _param_tree(state, lambda param: param.grad)
 
 
+def _path(name: str) -> str:
+    return name.replace(".", "/")
+
+
+def iter_whole_state(state: TrainState) -> Iterator[Tuple[str, torch.Tensor]]:
+    """The whole training tree one leaf at a time, as ``(path, tensor)``
+    with ``/``-joined paths: ``params/...``, then each optimizer tree
+    ``opt_state/<name>/...`` (and Adam's ``opt_state/count``).  Over a
+    mesh each sharded leaf is all-gathered over ``"model"`` as it comes
+    (every rank of a ``"model"`` group iterates it in step); at one
+    device the leaves are the state's own tensors, detached, not
+    copies.  One leaf at a time keeps a save's extra memory to one
+    leaf."""
+    mesh = state.mesh
+    tp = tp_size(mesh)
+
+    def whole(path: str, t: torch.Tensor) -> torch.Tensor:
+        t = t.detach()
+        dim = shard_dim(path) if tp > 1 and t.ndim else None
+        return t if dim is None else all_gather(t, mesh, dim)
+
+    named = list(state.model.named_parameters())
+    for name, param in named:
+        yield f"params/{_path(name)}", whole(_path(name), param)
+    for slot, key in state.optimizer.slots.items():
+        for name, param in named:
+            buf = state.opt.state.get(param, {}).get(key)
+            if buf is None:
+                buf = torch.zeros_like(param)
+            yield f"opt_state/{slot}/{_path(name)}", whole(_path(name), buf)
+    if state.optimizer.name == "adam":
+        yield "opt_state/count", step_count(state)
+
+
 def gather_state(state: TrainState) -> Tuple[Tree, Tree]:
-    """The whole parameter and momentum trees from every ``"model"``
-    rank's shards (every rank of a ``"model"`` group calls it); at one
-    device, copies of both."""
-    return (gather_params(state.params, state.mesh),
-            gather_params(momentum_tree(state), state.mesh))
+    """The whole parameter tree and optimizer state (optax's layout:
+    ``{"trace": tree}`` for sgd) from every ``"model"`` rank's shards
+    (every rank of a ``"model"`` group calls it); at one device, copies
+    of both."""
+    params: Tree = {}
+    opt: Tree = {}
+    for path, t in iter_whole_state(state):
+        root, _, rest = path.partition("/")
+        node = params if root == "params" else opt
+        parts = rest.split("/")
+        for part in parts[:-1]:
+            node = node.setdefault(part, {})
+        node[parts[-1]] = t.clone()
+    return params, opt
 
 
 class _VocabParallelCrossEntropy(torch.autograd.Function):
@@ -239,10 +451,6 @@ def lm_loss(model: nn.Module, tokens: torch.Tensor) -> torch.Tensor:
     return loss if mesh is None else data_mean(loss, mesh)
 
 
-def _path(name: str) -> str:
-    return name.replace(".", "/")
-
-
 def replicated_params(model: nn.Module) -> List[nn.Parameter]:
     """The parameters every ``"model"`` rank holds whole (no rule shards
     them: the LayerNorms), in the model's order."""
@@ -279,10 +487,61 @@ def lm_grads(state: TrainState, tokens: torch.Tensor) -> torch.Tensor:
 
 def lm_step(state: TrainState, tokens: torch.Tensor) -> torch.Tensor:
     """One training step, the JAX ``make_lm_train_step``'s: loss,
-    gradients (:func:`lm_grads`), one nesterov-SGD update in place on
-    this rank's shards.  Returns the step's loss as a 0-d tensor on the
-    device (no host sync)."""
+    gradients (:func:`lm_grads`), one update of the state's optimizer in
+    place on this rank's shards.  Returns the step's loss as a 0-d
+    tensor on the device (no host sync)."""
     loss = lm_grads(state, tokens)
     state.opt.step()
     state.step += 1
     return loss
+
+
+# -- draft distillation (speculative decoding) --------------------------------
+#
+# The port of the JAX ``draft_distill_loss`` and ``make_draft_distill_step``:
+# the draft learns to match the target's conditionals on target rollouts,
+# since the speculative accept rate at a position is 1 - TV(p, q).  Forward
+# KL(teacher || draft) bounds the rejection rate; a small hard-label term
+# keeps the draft's argmax on the teacher's for the greedy lane.
+
+
+def draft_distill_loss(model: nn.Module, tokens: torch.Tensor,
+                       teacher_logits: torch.Tensor,
+                       temperature: float = 1.0,
+                       hard_weight: float = 0.1) -> torch.Tensor:
+    """Distillation loss of a draft ``model`` on rollouts ``tokens``
+    ``(b, L + 1)`` with the teacher's logits ``(b, L, V)`` at each
+    next-token position: ``KL(teacher || draft) * T^2 + hard_weight *
+    CE(draft, tokens)`` at temperature ``T``, in float32.  No gradient
+    reaches ``teacher_logits``.  One device only (the KL would need the
+    vocab-parallel head's collectives over a mesh)."""
+    if getattr(model, "mesh", None) is not None:
+        raise NotImplementedError("draft distillation runs at one device")
+    logits = model(tokens[:, :-1])
+    t = float(temperature)
+    t_logp = torch.log_softmax(teacher_logits.detach().float() / t, dim=-1)
+    s_logp = torch.log_softmax(logits.float() / t, dim=-1)
+    # forward KL: mass where the teacher puts it, the measure the
+    # rejection sampler scores the draft against
+    kl = (t_logp.exp() * (t_logp - s_logp)).sum(-1).mean() * t * t
+    return kl + hard_weight * cross_entropy(logits, tokens[:, 1:])
+
+
+def draft_distill_step(state: TrainState, teacher: nn.Module,
+                       tokens: torch.Tensor, temperature: float = 1.0,
+                       hard_weight: float = 0.1) -> torch.Tensor:
+    """One distillation step of the draft ``state`` against the frozen
+    ``teacher`` (a model bound to the target's weights): the teacher's
+    logits under ``torch.no_grad()``, the gradient of
+    :func:`draft_distill_loss`, one update of the draft's optimizer.
+    Returns the loss as a 0-d tensor on the device."""
+    with torch.no_grad():
+        t_logits = teacher(tokens[:, :-1])
+    state.opt.zero_grad(set_to_none=True)
+    loss = draft_distill_loss(state.model, tokens, t_logits,
+                              temperature=temperature,
+                              hard_weight=hard_weight)
+    loss.backward()
+    state.opt.step()
+    state.step += 1
+    return loss.detach()

@@ -83,15 +83,31 @@ heads, vocab or draft heads that do not split N ways.
 
 The JAX worker's refusals hold: ``--kv-dtype`` and ``--tp`` above 1 need
 ``--serving paged`` (the dense batchers run on one device), and
-``--serve-http`` refuses ``static`` and ``speculative``.  ``--ckpt-dir``
-and ``--draft-ckpt-dir`` wait for the
-checkpoint slice: every mode serves fresh weights, as the JAX worker
-does when it finds no checkpoint.
+``--serve-http`` refuses ``static`` and ``speculative``.
+
+``--ckpt-dir DIR`` serves what ``--model lm --ckpt-dir DIR`` trained:
+the parameters of the latest ``DIR/lm`` step (``models/checkpoint.py``;
+``tools/orbax_to_torch_checkpoint.py`` converts the JAX worker's Orbax
+steps), cast on the device, printing ``RESTORED_FOR_SERVING step=N``;
+``--int8`` quantizes them and ``--tp`` shards them after the restore.
+``--draft-ckpt-dir`` restores the speculative draft the same way, in
+bf16 as the JAX worker casts it (``RESTORED_DRAFT_FOR_SERVING``).  With
+no checkpoint there the worker warns and serves fresh weights, as the
+JAX worker does; a checkpoint of another width or depth raises.
+
+    python -m kubegpu_tpu_torch.models.worker --model decode \
+        --serving paged --ckpt-dir /ckpt [--speculate --draft-ckpt-dir /draft]
 
 ``--model lm`` trains ``TransformerLM`` (bf16 compute over float32
-weights drawn fresh from seed 0, nesterov SGD) on the JAX worker's
+weights drawn fresh from seed 0; ``--optimizer sgd``, nesterov SGD at
+lr 0.1, the default, or ``adam`` at 3e-4) on the JAX worker's
 synthetic token stream, ``--batch-per-chip`` windows of ``--seq + 1``
-tokens a step.  It prints the JAX worker's ``FIRST_STEP_DONE`` and
+tokens a step.  With ``--ckpt-dir DIR`` it resumes from the latest
+``DIR/lm`` step (``RESUMED step=N``; every rank of a mesh restores its
+own shard, and the stream skips the batches already trained on, so a
+resumed run continues as the uninterrupted run would), saves every
+``--ckpt-every`` steps (the seconds left out of ``steady_state``) and
+saves the last step at the end (``CHECKPOINT_SAVED step=N``).  It prints the JAX worker's ``FIRST_STEP_DONE`` and
 ``steady_state tokens_per_sec=`` lines, then the launch counts of the
 flash-attention kernels (K3 forward, K4 and K5 backward; with ``--remat``
 K3 runs twice a layer) and the peak device memory.  ``--attn-impl flash``
@@ -126,6 +142,7 @@ path (the kernels are then never launched).
 from __future__ import annotations
 
 import argparse
+import logging
 import os
 import shutil
 import tempfile
@@ -151,13 +168,23 @@ from kubegpu_tpu_torch.models.serving import (
     DECODE_PAGE_CACHE_POLICIES,
     KV_DTYPES,
     ContinuousBatcher,
+    load_draft_checkpoint,
     resolve_kv_dtype,
 )
 from kubegpu_tpu_torch.models.spec_serving import SpeculativeContinuousBatcher
+from kubegpu_tpu_torch.models.checkpoint import (
+    make_manager,
+    restore_checkpoint,
+    restore_params,
+    save_checkpoint,
+)
 from kubegpu_tpu_torch.models.train import (
+    OPTIMIZERS,
+    adam,
     create_train_state,
     lm_step,
     place_lm,
+    sgd,
 )
 from kubegpu_tpu_torch.models.transformer import TransformerLM
 from kubegpu_tpu_torch.ops import _build
@@ -180,6 +207,8 @@ from kubegpu_tpu_torch.parallel.collectives import gather_objects
 from kubegpu_tpu_torch.parallel.mesh import close_mesh, device_mesh
 from kubegpu_tpu_torch.utils.metrics import Metrics
 
+log = logging.getLogger("kubegpu_tpu_torch.worker")
+
 WEIGHT_SEED = 0
 # the draft's weights come from their own seed (the JAX worker's draft
 # init uses PRNGKey(7))
@@ -189,7 +218,7 @@ DRAFT_SEED = 7
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--model", choices=["decode", "lm"], default="decode",
-                    help="decode = serving; lm = LM training at one device")
+                    help="decode = serving; lm = LM training")
     ap.add_argument("--serving",
                     choices=["static", "continuous", "paged", "speculative"],
                     default="static",
@@ -315,6 +344,22 @@ def build_parser() -> argparse.ArgumentParser:
                     help="--serve-http: require 'Authorization: Bearer "
                     "<token>' (the file's contents) on every /v1/* verb; "
                     "/healthz and /metrics stay open")
+    ap.add_argument("--ckpt-dir",
+                    default=os.environ.get("KUBEGPU_CKPT_DIR", ""),
+                    help="checkpoint/resume root (shared across the gang); "
+                    "empty disables.  Checkpoints are written under "
+                    "<dir>/<model> so variants with different param "
+                    "layouts never collide on resume; decode serves the "
+                    "latest <dir>/lm step")
+    ap.add_argument("--ckpt-every", type=int, default=10,
+                    help="steps between saves")
+    ap.add_argument("--draft-ckpt-dir", default="",
+                    help="checkpoint root for the DRAFT model (<dir>/lm "
+                    "layout, like --ckpt-dir); empty = fresh-init draft")
+    ap.add_argument("--optimizer", choices=list(OPTIMIZERS), default="sgd",
+                    help="lm: sgd = nesterov SGD at lr 0.1 (momentum 0.9, "
+                    "the JAX default), adam = Adam at lr 3e-4 (b1 0.9, b2 "
+                    "0.999, eps 1e-8)")
     ap.add_argument("--device", choices=["cuda", "cpu"], default="cuda")
     return ap
 
@@ -370,13 +415,18 @@ def draft_shape(args: argparse.Namespace) -> tuple:
     return d_hidden, max(d_hidden // 128, 1)
 
 
-def draft_for(args: argparse.Namespace, max_seq: int, device):
-    """The draft of ``--speculate``: fresh weights from ``DRAFT_SEED``
-    (bf16 unless ``--serve-fp32``), ``--draft-layers`` deep and
+def draft_for(args: argparse.Namespace, max_seq: int, device,
+              announce: bool = True):
+    """The draft of ``--speculate``, ``--draft-layers`` deep and
     ``--draft-hidden`` wide with heads of 128, as the JAX worker sizes
-    it.  Also enforces the speculation headroom rule: a verify window
-    writes rows ``[pos, pos + k]``, so the cache needs k rows past
-    prompt plus budget.  Returns ``(params, heads, hidden)``."""
+    it: restored from ``--draft-ckpt-dir`` when it holds a checkpoint
+    (:func:`load_draft_checkpoint`, bf16 as the JAX worker casts it,
+    printing ``RESTORED_DRAFT_FOR_SERVING`` when ``announce``), else
+    fresh weights from ``DRAFT_SEED`` (bf16 unless ``--serve-fp32``;
+    with ``--draft-ckpt-dir`` a warning says so).  Also enforces the
+    speculation headroom rule: a verify window writes rows ``[pos, pos +
+    k]``, so the cache needs k rows past prompt plus budget.  Returns
+    ``(params, heads, hidden)``."""
     if args.prompt_len + args.steps + args.spec_k > max_seq:
         raise SystemExit(
             f"--prompt-len {args.prompt_len} + --steps {args.steps} + "
@@ -390,6 +440,18 @@ def draft_for(args: argparse.Namespace, max_seq: int, device):
             f"head count {d_heads} (heads are d_hidden//128; pick a "
             "multiple of 128)"
         )
+    if args.draft_ckpt_dir:
+        dparams = load_draft_checkpoint(
+            args.draft_ckpt_dir, vocab_size=args.vocab,
+            num_layers=args.draft_layers, num_heads=d_heads,
+            hidden=d_hidden, max_seq=max_seq, device=device)
+        if dparams is not None:
+            if announce:
+                print("RESTORED_DRAFT_FOR_SERVING", flush=True)
+            return dparams, d_heads, d_hidden
+        log.warning("no draft checkpoint under %s; speculating with a fresh "
+                    "draft init (lossless, but accept rate will be ~0)",
+                    args.draft_ckpt_dir)
     cfg = dict(vocab_size=args.vocab, num_layers=args.draft_layers,
                hidden=d_hidden, max_seq=max_seq)
     gen = torch.Generator(device=device).manual_seed(DRAFT_SEED)
@@ -533,17 +595,35 @@ class TPRanks:
 
 
 def serving_params(args: argparse.Namespace, device, announce: bool = True):
-    """The served weights: fresh from ``WEIGHT_SEED`` at the given widths,
-    bf16 unless ``--serve-fp32``, int8 under ``--int8`` (quantized whole,
-    before any tensor-parallel sharding).  ``announce`` prints the int8
-    line.  Returns ``(params, model config, dtype)``."""
+    """The served weights at the given widths, bf16 unless
+    ``--serve-fp32``: with ``--ckpt-dir``, the parameter leaves of the
+    latest ``<dir>/lm`` step (written by ``--model lm``; the optimizer
+    state is not read), cast leaf by leaf on the device, printing
+    ``RESTORED_FOR_SERVING step=N``; without one, or when ``<dir>/lm``
+    holds no checkpoint (a warning says so), fresh from ``WEIGHT_SEED``.
+    The checkpoint's ``pos_embed`` is sized ``--seq + 1``; another width
+    or depth raises.  ``--int8`` quantizes after the restore (whole,
+    before any tensor-parallel sharding).  ``announce`` prints the
+    lines.  Returns ``(params, model config, dtype)``."""
     cfg = dict(vocab_size=args.vocab, num_layers=args.layers,
                num_heads=args.heads, hidden=args.hidden, max_seq=args.seq + 1)
     dtype = torch.float32 if args.serve_fp32 else torch.bfloat16
-    gen = torch.Generator(device=device).manual_seed(WEIGHT_SEED)
-    params = init_params(cfg, gen, torch.float32, device)
-    if not args.serve_fp32:
-        params = bf16_cast(params)
+    params = None
+    if args.ckpt_dir:
+        mgr = make_manager(os.path.join(os.path.abspath(args.ckpt_dir), "lm"))
+        restored = restore_params(mgr, cfg, device=device, dtype=dtype)
+        if restored is not None:
+            params, step = restored
+            if announce:
+                print(f"RESTORED_FOR_SERVING step={step}", flush=True)
+        else:
+            log.warning("no lm checkpoint under %s; serving fresh weights",
+                        args.ckpt_dir)
+    if params is None:
+        gen = torch.Generator(device=device).manual_seed(WEIGHT_SEED)
+        params = init_params(cfg, gen, torch.float32, device)
+        if not args.serve_fp32:
+            params = bf16_cast(params)
     if args.int8:
         params = quantize_params_int8(params)
         if announce:
@@ -585,9 +665,10 @@ def build_batcher(args: argparse.Namespace, mesh=None):
                      top_k=args.sample_top_k)
     if args.serving == "continuous":
         return ContinuousBatcher(params, **common, top_k=args.sample_top_k)
+    announce = mesh is None or mesh.rank == 0
     if args.serving == "speculative":
-        # the draft is fresh weights: greedy output equals the dense
-        # batcher's for any draft, only the verify count moves
+        # greedy output equals the dense batcher's for any draft, only
+        # the verify count moves
         dparams, d_heads, d_hidden = draft_for(args, max_seq, device)
         return SpeculativeContinuousBatcher(
             params, dparams, **common, k=args.spec_k,
@@ -596,7 +677,8 @@ def build_batcher(args: argparse.Namespace, mesh=None):
     spec_kw = {}
     k_extra = 0
     if args.speculate:
-        dparams, d_heads, d_hidden = draft_for(args, max_seq, device)
+        dparams, d_heads, d_hidden = draft_for(args, max_seq, device,
+                                               announce)
         spec_kw = dict(draft_params=dparams, speculate_k=args.spec_k,
                        draft_num_layers=args.draft_layers,
                        draft_num_heads=d_heads, draft_hidden=d_hidden)
@@ -906,8 +988,8 @@ def make_batches(args: argparse.Namespace, source, device):
 
 def build_trainer(args: argparse.Namespace, mesh=None):
     """The worker's training state and batch source at the given widths:
-    fresh float32 weights from ``WEIGHT_SEED``, bf16 compute, nesterov
-    SGD, the ``--data`` mode's batches.  Over a ``mesh`` every rank draws
+    fresh float32 weights from ``WEIGHT_SEED``, bf16 compute,
+    ``--optimizer``, the ``--data`` mode's batches.  Over a ``mesh`` every rank draws
     the whole tree on its device and keeps its shard (``place_lm``), so
     every width trains the weights one device trains, and draws its data
     shard's rows.  Returns ``(state, next_batch)``."""
@@ -927,12 +1009,13 @@ def build_trainer(args: argparse.Namespace, mesh=None):
                           sequence_parallel=True, attn_impl=args.attn_impl,
                           remat=args.remat, mesh=mesh)
     tree = init_params(cfg, gen, torch.float32, device)
+    optimizer = sgd() if args.optimizer == "sgd" else adam()
     if mesh is None:
-        state = create_train_state(model, tree)
+        state = create_train_state(model, tree, optimizer=optimizer)
         source = synthetic_token_batches(max(args.batch_per_chip, 1),
                                          args.seq + 1, args.vocab)
     else:
-        state = place_lm(model, tree)
+        state = place_lm(model, tree, optimizer=optimizer)
         del tree  # the whole tree: only this rank's shard stays
         source = synthetic_token_batches_for_mesh(
             max(args.batch_per_chip, 1) * mesh.axis_size("data"),
@@ -949,6 +1032,73 @@ FLASH_KERNELS = (flash_forward, flash_backward_dkdv, flash_backward_dq,
                  flash_backward_delta)
 
 
+class CheckpointHooks:
+    """``--ckpt-dir``'s checkpoints of ``--model lm`` (the JAX worker's
+    ``_CheckpointHooks``), under ``<dir>/<model>`` so other layouts never
+    collide.  Building it warns of legacy step directories at the root
+    (never restored), restores the latest step into the fresh ``state``
+    (every rank its own shard) and prints ``RESUMED step=N``;
+    :meth:`maybe_save` saves every ``--ckpt-every`` steps and
+    :meth:`finish` saves the final step unless it was just saved, then
+    prints ``CHECKPOINT_SAVED step=N``.  Over a mesh every rank calls
+    every method; ``lead`` (rank 0) prints.  The seconds of the restore
+    and of each save, and the last step's bytes, are kept for the
+    report."""
+
+    def __init__(self, args: argparse.Namespace, state, lead: bool) -> None:
+        root = os.path.abspath(args.ckpt_dir)
+        self.lead = lead
+        try:
+            legacy = sorted(
+                d for d in os.listdir(root)
+                if d.isdigit() and os.path.isdir(os.path.join(root, d)))
+        except OSError:
+            legacy = []
+        if legacy and lead:
+            # checkpoints at the root predate per-model namespacing; their
+            # layout may not match this model, so they are not restored,
+            # but silence would look like a silent restart from step 0
+            log.warning(
+                "ignoring legacy checkpoints at %s (steps %s); checkpoints "
+                "now live under %s — restore manually if the layouts match",
+                root, ",".join(legacy), os.path.join(root, args.model))
+        self.mgr = make_manager(os.path.join(root, args.model))
+        self.last_saved = -1
+        self.save_s: List[float] = []
+        ts = time.monotonic()
+        restored = restore_checkpoint(self.mgr, state)
+        self.restore_s = time.monotonic() - ts if restored else None
+        self.start_step = state.step if restored else 0
+        if restored is not None and lead:
+            print(f"RESUMED step={self.start_step}", flush=True)
+
+    def save(self, state) -> float:
+        ts = time.monotonic()
+        self.last_saved = save_checkpoint(self.mgr, state)
+        self.save_s.append(time.monotonic() - ts)
+        return self.save_s[-1]
+
+    def maybe_save(self, state, done: int, every: int) -> float:
+        if every <= 0 or done % every != 0:
+            return 0.0
+        return self.save(state)
+
+    def finish(self, state) -> None:
+        if state.step != self.last_saved:
+            self.save(state)
+        if self.lead:
+            print(f"CHECKPOINT_SAVED step={state.step}", flush=True)
+
+    def report(self) -> Dict[str, object]:
+        step = self.mgr.latest_step()
+        return dict(resumed_step=self.start_step or None,
+                    restore_s=self.restore_s, save_s=list(self.save_s),
+                    ckpt_step=step,
+                    ckpt_bytes=(self.mgr.nbytes(step) if self.lead
+                                and step is not None else None),
+                    ckpt_dir=self.mgr.directory)
+
+
 def _train(args: argparse.Namespace, mesh, t0: float) -> Dict[str, object]:
     """Train ``--steps`` steps on this rank (the only one without a
     mesh).  Rank 0 prints ``FIRST_STEP_DONE`` and ``steady_state``."""
@@ -957,6 +1107,11 @@ def _train(args: argparse.Namespace, mesh, t0: float) -> Dict[str, object]:
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
     state, next_batch = build_trainer(args, mesh)
+    ckpt = CheckpointHooks(args, state, lead) if args.ckpt_dir else None
+    # a resumed run reads the batches the uninterrupted run would have
+    # read from here on (the JAX worker restarts its stream instead)
+    for _ in range(state.step):
+        next_batch()
     dp = 1 if mesh is None else mesh.axis_size("data")
     batch = max(args.batch_per_chip, 1) * dp
     launches0 = [fn.launches for fn in FLASH_KERNELS]
@@ -968,16 +1123,22 @@ def _train(args: argparse.Namespace, mesh, t0: float) -> Dict[str, object]:
         print(f"FIRST_STEP_DONE seconds={first_s:.2f} loss={first_loss:.4f}",
               flush=True)
     t1 = time.monotonic()
+    save_s = 0.0
     for _ in range(args.steps - 1):
         losses.append(lm_step(state, next_batch()))
+        if ckpt is not None:
+            save_s += ckpt.maybe_save(state, state.step, args.ckpt_every)
     losses = torch.stack(losses).tolist()  # forces the whole chain
-    dt = time.monotonic() - t1
+    # the saves are not training: they are left out of the rate
+    dt = time.monotonic() - t1 - save_s
     rate = batch * args.seq * (args.steps - 1) / dt if args.steps > 1 else None
     if rate is not None and lead:
         print(f"steady_state tokens_per_sec={rate:.1f} loss={losses[-1]:.4f}",
               flush=True)
     k3, k4, k5, delta = (fn.launches - n
                          for fn, n in zip(FLASH_KERNELS, launches0))
+    if ckpt is not None:
+        ckpt.finish(state)
     mine = {
         "k3_launches": k3,
         "k4_launches": k4,
@@ -989,7 +1150,9 @@ def _train(args: argparse.Namespace, mesh, t0: float) -> Dict[str, object]:
     }
     r = dict(mine, first_step_s=first_s, tokens_per_sec=rate, steady_s=dt,
              losses=losses, steps=args.steps, layers=args.layers,
-             tokens_per_step=batch * args.seq)
+             tokens_per_step=batch * args.seq, step=state.step)
+    if ckpt is not None:
+        r["checkpoint"] = ckpt.report()
     if mesh is not None:
         r["mesh"] = dict(mesh.shape)
         r["ranks"] = gather_objects(mine, mesh)

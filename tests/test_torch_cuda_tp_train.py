@@ -77,7 +77,8 @@ def test_dp2_tp2_gang_on_one_card_equals_the_one_device_step(cuda_device,
     state = one_device()
     losses = [lm_step(state, torch.from_numpy(t).to(cuda_device)).item()
               for t in batches]
-    whole, moments = (_numpy(t) for t in gather_state(state))
+    whole, opt_state = gather_state(state)
+    whole, moments = _numpy(whole), _numpy(opt_state["trace"])
     with Gang(AXES, str(tmp_path), backend="gloo", devices=["cuda:0"] * 4,
               timeout_s=600.0) as gang:
         got = gang.run(cases.train_grads, spec)

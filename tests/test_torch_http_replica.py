@@ -862,12 +862,40 @@ def test_jax_gateway_fronts_dense_jax_and_torch_replicas(jax_params,
             + states["torch"]["stats"]["admits"]) == len(prompts)
 
 
+class _FreezeAtFirstToken:
+    """Stops a replica's batcher right after the step that commits the
+    first token of a live stream: from then on ``has_work`` answers
+    False, so the serving loop keeps running control ops and cancels but
+    takes no step until :meth:`release`.  A cancel then lands at the
+    same step on every run, whatever the machine's load."""
+
+    def __init__(self, batcher):
+        self.batcher = batcher
+        self.frozen = False
+        self._step = batcher.serve_step
+        self._has_work = batcher.has_work
+        batcher.serve_step = self.serve_step
+        batcher.has_work = lambda: not self.frozen and self._has_work()
+
+    def serve_step(self):
+        out = self._step()
+        self.frozen = any(self.batcher.live_tokens().values())
+        return out
+
+    def release(self):
+        del self.batcher.serve_step, self.batcher.has_work
+        self.frozen = False
+
+
 def test_dense_replica_answers_like_the_jax_dense_replica(jax_params,
                                                           torch_params):
     """The same requests, one at a time, to a JAX and a torch dense
     replica: equal streams; then ``/v1/state`` and the migration routes
     (a live export, a sealed-chain capture, a sealed import, a role
-    flip) answer alike — a dense batcher speaks no migration verb."""
+    flip) answer alike — a dense batcher speaks no migration verb.  The
+    live stream is held at its first token while the routes answer and
+    is cancelled there, so ``stats["steps"]`` does not hang on when the
+    cancel lands."""
     prompts, budgets = _prompts()
     srvs = {"jax": JaxReplicaServer(_jax_dense(jax_params),
                                     step_delay_s=0.02).start(),
@@ -883,9 +911,9 @@ def test_dense_replica_answers_like_the_jax_dense_replica(jax_params,
                 a = client.submit(key, _req(f"{key}-{i}", p, m))
                 assert a.wait(45) and a.result().ok, (key, a.result())
                 got.append(a.result().tokens)
+            freeze = _FreezeAtFirstToken(srv.batcher)
             long = client.submit(key, _req(f"{key}-live", [1, 2, 3], 30))
-            _wait(lambda: srv.loop.control(
-                lambda: srv.batcher.live_tokens()), msg="a live stream")
+            _wait(lambda: freeze.frozen, msg="a live stream")
             answers[key] = dict(
                 streams=got,
                 export=_post(srv, "/v1/export",
@@ -898,6 +926,7 @@ def test_dense_replica_answers_like_the_jax_dense_replica(jax_params,
             client.cancel(long)
             assert long.wait(30)
             _wait(lambda: srv.loop.active_streams() == 0)
+            srv.loop.control(freeze.release)
             state = json.loads(_get(srv, "/v1/state")[1])
             answers[key]["state"] = state
     finally:

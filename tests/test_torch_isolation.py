@@ -1,8 +1,9 @@
 """The port stands alone: no module of kubegpu_tpu_torch, not
 chip_smoke.py and not the tensor-parallel rank bodies
 (tests/torch_tp_cases.py, whose processes must run without JAX) imports
-jax, flax or the JAX package; its entry points run on the card unless
-the caller asks for the CPU."""
+jax, flax, orbax or the JAX package, nor the Orbax converter
+(tools/orbax_to_torch_checkpoint.py); its entry points run on the card
+unless the caller asks for the CPU."""
 
 import ast
 import os
@@ -16,7 +17,8 @@ import torch
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(REPO, "kubegpu_tpu_torch")
 TP_CASES = os.path.join(REPO, "tests", "torch_tp_cases.py")
-FORBIDDEN_ROOTS = ("jax", "jaxlib", "flax", "kubegpu_tpu")
+FORBIDDEN_ROOTS = ("jax", "jaxlib", "flax", "orbax", "kubegpu_tpu",
+                   "orbax_to_torch_checkpoint", "tools")
 
 
 def port_sources():
@@ -61,7 +63,7 @@ def test_importing_every_module_leaves_jax_out():
                  "parallel.mesh", "parallel.sharding",
                  "parallel.collectives", "parallel.launch",
                  "parallel.replay", "models.train", "models.transformer",
-                 "models.data"):
+                 "models.data", "models.checkpoint"):
         assert f"kubegpu_tpu_torch.{name}" in imported.split(), name
 
 
@@ -175,6 +177,56 @@ def test_training_entry_points_default_to_the_card(monkeypatch):
         flash_backward_dkdv(q, q, q, q, q, q, True)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         flash_backward_dq(q, q, q, q, q, q, True)
+
+
+def test_checkpoint_entry_points_default_to_the_card(monkeypatch, tmp_path):
+    """A checkpoint restores onto the card unless the CPU is asked for:
+    the serving restore, the draft's and the worker's ``--ckpt-dir``
+    raise without one, even where the checkpoint exists."""
+    from kubegpu_tpu_torch.models import worker
+    from kubegpu_tpu_torch.models.checkpoint import (
+        make_manager,
+        restore_params,
+        save_checkpoint,
+    )
+    from kubegpu_tpu_torch.models.params import init_params
+    from kubegpu_tpu_torch.models.serving import load_draft_checkpoint
+    from kubegpu_tpu_torch.models.train import create_train_state
+    from kubegpu_tpu_torch.models.transformer import TransformerLM
+
+    cfg = dict(vocab_size=16, num_layers=1, hidden=16, max_seq=16)
+    state = create_train_state(
+        TransformerLM(num_heads=2, **cfg),
+        init_params(cfg, torch.Generator().manual_seed(0), torch.float32,
+                    "cpu"))
+    mgr = make_manager(str(tmp_path / "lm"))
+    save_checkpoint(mgr, state)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        restore_params(mgr, dict(cfg, num_heads=2))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        load_draft_checkpoint(str(tmp_path), num_heads=2, **cfg)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        worker.main(["--model", "decode", "--vocab", "16", "--layers", "1",
+                     "--heads", "2", "--hidden", "16", "--seq", "15",
+                     "--prompt-len", "4", "--steps", "2",
+                     "--ckpt-dir", str(tmp_path)])
+
+
+def test_the_orbax_converter_stands_outside_the_port():
+    """tools/orbax_to_torch_checkpoint.py reads Orbax (JAX) and writes
+    the port's format: it imports the port, never the other way round."""
+    converter = os.path.join(REPO, "tools", "orbax_to_torch_checkpoint.py")
+    assert os.path.exists(converter)
+    for path in port_sources():
+        assert "orbax_to_torch_checkpoint import" not in open(path).read()
+    tree = ast.parse(open(converter).read(), converter)
+    imported = {a.name if isinstance(node, ast.Import) else node.module
+                for node in ast.walk(tree)
+                if isinstance(node, (ast.Import, ast.ImportFrom))
+                for a in getattr(node, "names", [])}
+    assert "orbax.checkpoint" in imported
+    assert "kubegpu_tpu_torch.models.checkpoint" in imported
 
 
 def test_serve_http_without_a_card_raises_before_binding(monkeypatch):

@@ -241,7 +241,8 @@ def test_three_steps_match_the_ports_one_device_steps(jax_params, gang):
     model = TransformerLM(dtype=torch.float32, attn_impl="einsum", **CFG)
     state = create_train_state(model, params_from_numpy(np_tree(jax_params)))
     losses = [lm_step(state, torch.from_numpy(t)).item() for t in batches]
-    params, moments = gather_state(state)
+    params, opt_state = gather_state(state)
+    moments = opt_state["trace"]
     np.testing.assert_allclose(got["losses"], losses, rtol=STEP_TOL,
                                atol=STEP_TOL)
     assert_trees_close(got["params"], tree_map(lambda t: t.numpy(), params),

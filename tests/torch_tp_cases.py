@@ -421,9 +421,10 @@ def forward_logits(mesh, params, cfg: dict, inputs: dict) -> dict:
 def _train_state(mesh, spec: dict):
     """This rank's train state from ``spec``: ``params`` (whole weights,
     see :func:`weights`; float32), optional ``trace`` (the whole momentum
-    as numpy) and ``step``, ``cfg`` (the model's widths), ``model``
-    (``attn_impl``, ``remat``, ``sequence_parallel``), ``dtype`` (the
-    compute type, default float32)."""
+    as numpy), ``optimizer`` (a ``train.Optimizer``, default SGD) and
+    ``step``, ``cfg`` (the model's widths), ``model`` (``attn_impl``,
+    ``remat``, ``sequence_parallel``), ``dtype`` (the compute type,
+    default float32)."""
     from kubegpu_tpu_torch.models.train import place_lm
     from kubegpu_tpu_torch.models.transformer import TransformerLM
 
@@ -433,6 +434,7 @@ def _train_state(mesh, spec: dict):
     trace = spec.get("trace")
     return place_lm(model, weights(spec["params"], mesh.device),
                     None if trace is None else weights(trace, mesh.device),
+                    optimizer=spec.get("optimizer"),
                     step=spec.get("step", 0))
 
 
@@ -510,9 +512,70 @@ def train_steps(mesh, spec: dict) -> dict:
     state = _train_state(mesh, spec)
     losses = [lm_step(state, data_rows(mesh, t)).item()
               for t in spec["tokens"]]
-    params, moments = gather_state(state)
+    params, opt_state = gather_state(state)
     return _agreed(mesh, dict(losses=losses, params=_np(params),
-                              momentum=_np(moments), step=state.step))
+                              momentum=_np(opt_state["trace"]),
+                              step=state.step))
+
+
+def _np_opt(opt_state: dict) -> dict:
+    return {k: _np(v) if isinstance(v, dict) else v.cpu().numpy()
+            for k, v in opt_state.items()}
+
+
+def train_save_resume(mesh, spec: dict) -> dict:
+    """Checkpointed training against an uninterrupted run on this mesh:
+    ``lm_step`` on all of ``spec["tokens"]`` from the initial state; then
+    from the same state the first ``spec["save_after"]`` batches, a save
+    into ``spec["dir"]`` (every rank calls ``save_checkpoint``), a fresh
+    state (weights drawn from ``spec["fresh"]``, see :func:`weights`)
+    restored from that directory and the remaining batches.  Rank 0
+    returns both runs' losses, whole weights, optimizer states and steps,
+    equal on every rank."""
+    from kubegpu_tpu_torch.models.checkpoint import (
+        make_manager,
+        restore_checkpoint,
+        save_checkpoint,
+    )
+    from kubegpu_tpu_torch.models.train import gather_state, lm_step
+
+    tokens, k = spec["tokens"], spec["save_after"]
+
+    def run(state, batches):
+        return [lm_step(state, data_rows(mesh, t)).item() for t in batches]
+
+    def whole(state, losses):
+        params, opt_state = gather_state(state)
+        return dict(losses=losses, params=_np(params),
+                    opt_state=_np_opt(opt_state), step=state.step)
+
+    state = _train_state(mesh, spec)
+    straight = whole(state, run(state, tokens))
+    state = _train_state(mesh, spec)
+    first = run(state, tokens[:k])
+    mgr = make_manager(spec["dir"])
+    save_checkpoint(mgr, state)
+    fresh = _train_state(mesh, dict(spec, params=spec["fresh"]))
+    assert restore_checkpoint(mgr, fresh) is fresh and fresh.step == k
+    resumed = whole(fresh, first + run(fresh, tokens[k:]))
+    return _agreed(mesh, dict(straight=straight, resumed=resumed))
+
+
+def restore_whole(mesh, spec: dict) -> dict:
+    """A fresh state on this mesh (weights from ``spec["params"]``)
+    restored from ``spec["dir"]``, gathered whole: rank 0 returns its
+    weights, optimizer state and step, equal on every rank."""
+    from kubegpu_tpu_torch.models.checkpoint import (
+        make_manager,
+        restore_checkpoint,
+    )
+    from kubegpu_tpu_torch.models.train import gather_state
+
+    state = _train_state(mesh, spec)
+    restore_checkpoint(make_manager(spec["dir"]), state)
+    params, opt_state = gather_state(state)
+    return _agreed(mesh, dict(params=_np(params),
+                              opt_state=_np_opt(opt_state), step=state.step))
 
 
 def layernorm_grads(mesh, spec: dict) -> list:
