@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Builds every kernel of the port's serving and training paths from the
-sources in the checkout, then runs forty-seven phases; any failure exits
+sources in the checkout, then runs fifty-one phases; any failure exits
 non-zero:
 
 1. device: the card's name and power limit, TF32 off;
@@ -289,6 +289,38 @@ non-zero:
    the bits are equal: the kernels are deterministic); the gang's step
    2 restored onto one device is the saved bits, and one device trains
    on from it within 1e-4 of the gang.
+
+48. K3 unmasked (a block owned by an earlier rank) and causal (the
+   diagonal), K4, K5 and the delta pre-pass at one ring block of the
+   flagship at cp 2 (b 1, 4096 rows, 32 heads of 128, bf16) against
+   their plain twins under phase 8's gates; then K4 and K5 on both
+   blocks from the global out and lse the two fold into, as the ring's
+   backward runs them; each kernel's graph-replay time, plain time,
+   bound and SDPA's time, unmasked and causal;
+49. context-parallel training in gloo gangs on the card (the ring's hops
+   and the all-to-alls staged through pinned host buffers; no time here
+   is a CP speed): phase 10's small float32 model at cp 2 (two ranks) and
+   dp 2 x cp 2 (four), ring through its flash body (64 rows a rank),
+   ring through its einsum body (136 rows, which ``ring_block_sizes``
+   does not tile), Ulysses, ring with remat: one step's loss and every
+   gradient within rtol=atol 1e-4 of the card's one-device flash step on
+   the same global batch; K3, K4 and K5 launched (r + 1) times a layer
+   on the rank at "seq" coordinate r under the ring's flash body (K3
+   twice with remat), once under Ulysses, never under the einsum body;
+50. the flagship at full width (vocab 32768, hidden 4096, 4 layers, 32
+   heads, bf16 compute over float32 weights) at cp 2, seq 8192, batch 1,
+   in a two-rank gang: two steps with ring attention, then two with
+   Ulysses: finite losses, the first within 1e-2 of the card's
+   one-device loss on the same tokens, each rank's launches as in 49
+   (with the pre-pass once a layer); each rank's seconds a step, bytes
+   sent along "seq" a step, peak memory, and (ring) one more step's
+   parts (forward and backward, ``sync_grads``' mean over data x seq,
+   the optimizer);
+51. the worker's ``--model lm-cp --cp 2``: refused on a one-card machine,
+   NCCL reported as not exercised (with two cards or more, three small
+   steps over NCCL); then ``samples/jax-lm-cp.yaml``'s argv at ``--cp
+   1`` (the worker's default widths, seq 8192, 8 windows, 3 steps) in a
+   subprocess: K3, K4, K5 and the pre-pass launched steps x layers times.
 
 Phases 29-34 set every kernel's launch count to 0 before each dense run
 and require it to be 0 after: the dense paths run none of K1-K5.
@@ -2498,7 +2530,7 @@ def flash_bound(kernel: str, b, sq, sk, h, d, causal, itemsize) -> tuple:
             "bytes" if bytes_ms >= flops_ms else "operations", nbytes, flops)
 
 
-def sdpa_times(q, k, v, dout) -> dict:
+def sdpa_times(q, k, v, dout, causal: bool = True) -> dict:
     """PyTorch's fused attention on the same inputs (heads moved to dim
     1 as views), as a yardstick: forward ms, backward ms (dq, dk, dv
     together) and the backend torch picked."""
@@ -2509,13 +2541,13 @@ def sdpa_times(q, k, v, dout) -> dict:
     qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
                   for t in (q, k, v))
     dot = dout.transpose(1, 2)
-    choice = torch._fused_sdp_choice(qt, kt, vt, None, 0.0, True)
+    choice = torch._fused_sdp_choice(qt, kt, vt, None, 0.0, causal)
     backend = next((n for n, e in SDPBackend.__members__.items()
                     if int(e.value) == int(choice)), str(choice))
     with torch.no_grad():
         fwd_ms = time_ms(lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=True), 20)
-    out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+            qt, kt, vt, is_causal=causal), 20)
+    out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal)
     bwd_ms = time_ms(lambda: torch.autograd.grad(
         out, (qt, kt, vt), dot, retain_graph=True), 20)
     return {"backend": backend, "fwd_ms": fwd_ms, "bwd_ms": bwd_ms}
@@ -2539,11 +2571,13 @@ def hgmma_instructions(library) -> dict:
     return found
 
 
-def time_flash(q, k, v, dout, errs: dict, rec: dict) -> dict:
-    """K3, K4, K5 (and in bf16 the delta pre-pass) on one causal input:
-    each kernel's graph-replay time, its plain twin's time, its bound and
-    the library call's time, with ``errs`` (from :func:`check_flash`),
-    into ``rec[kernel][dtype name]``.  Returns SDPA's times."""
+def time_flash(q, k, v, dout, errs: dict, rec: dict,
+               causal: bool = True) -> dict:
+    """K3, K4, K5 (and in bf16 the delta pre-pass) on one input, causal
+    unless asked: each kernel's graph-replay time, its plain twin's time,
+    its bound and the library call's time, with ``errs`` (from
+    :func:`check_flash`), into ``rec[kernel][dtype name]``.  Returns
+    SDPA's times."""
     import torch
 
     from kubegpu_tpu_torch.ops.attention import (
@@ -2559,28 +2593,31 @@ def time_flash(q, k, v, dout, errs: dict, rec: dict) -> dict:
 
     b, s, h, d = q.shape
     name = str(q.dtype).replace("torch.", "")
-    out, lse = flash_forward(q, k, v, True)
+    out, lse = flash_forward(q, k, v, causal)
     bf16 = q.dtype == torch.bfloat16
     # the bf16 kernels read the pre-pass's delta, timed on its own
     delta = flash_backward_delta(out, dout) if bf16 else None
     calls = {
-        "flash_forward": (lambda: flash_forward(q, k, v, True),
-                          lambda: flash_forward_plain(q, k, v, True)),
+        "flash_forward": (lambda: flash_forward(q, k, v, causal),
+                          lambda: flash_forward_plain(q, k, v, causal)),
         "flash_backward_dkdv": (
-            lambda: flash_backward_dkdv(q, k, v, out, lse, dout, True,
+            lambda: flash_backward_dkdv(q, k, v, out, lse, dout, causal,
                                         delta),
             lambda: flash_backward_dkdv_plain(q, k, v, out, lse, dout,
-                                              True)),
+                                              causal)),
         "flash_backward_dq": (
-            lambda: flash_backward_dq(q, k, v, out, lse, dout, True, delta),
-            lambda: flash_backward_dq_plain(q, k, v, out, lse, dout, True)),
+            lambda: flash_backward_dq(q, k, v, out, lse, dout, causal,
+                                      delta),
+            lambda: flash_backward_dq_plain(q, k, v, out, lse, dout,
+                                            causal)),
     }
     if bf16:
         calls["flash_backward_delta"] = (
             lambda: flash_backward_delta(out, dout),
             lambda: flash_backward_delta_plain(out, dout))
-    lib = sdpa_times(q, k, v, dout)
-    log(f"SDPA {name} h{h} ({lib['backend']}): forward {lib['fwd_ms']:.3f} "
+    lib = sdpa_times(q, k, v, dout, causal)
+    log(f"SDPA {name} h{h} causal={causal} ({lib['backend']}): forward "
+        f"{lib['fwd_ms']:.3f} "
         f"ms, backward (dq, dk, dv) {lib['bwd_ms']:.3f} ms")
     # one PyTorch call for delta: rowsum(dO * O) as a batched dot
     vecdot_ms = time_ms(lambda: torch.linalg.vecdot(dout, out), 20)
@@ -2588,11 +2625,12 @@ def time_flash(q, k, v, dout, errs: dict, rec: dict) -> dict:
         ms = graph_ms(kernel, 2, replays=5)
         plain_ms = time_ms(plain, 2, warmup=1)
         bound_ms, bound_by, nbytes, flops = flash_bound(
-            kname, b, s, s, h, d, True, q.element_size())
+            kname, b, s, s, h, d, causal, q.element_size())
         library_ms = {"flash_forward": lib["fwd_ms"],
                       "flash_backward_dkdv": lib["bwd_ms"],
                       "flash_backward_delta": vecdot_ms}.get(kname)
-        log(f"{kname} {name} h{h}: kernel {ms:.3f} ms (graph replay), plain "
+        log(f"{kname} {name} h{h} s{s} causal={causal}: kernel {ms:.3f} ms "
+            f"(graph replay), plain "
             f"{plain_ms:.3f} ms, bound {bound_ms:.4f} ms by {bound_by} "
             f"({nbytes} B, {flop_str(flops)}) -> "
             f"{bound_ms / ms * 100:.2f}% of bound; library "
@@ -4240,6 +4278,318 @@ def phase_ckpt_gang(gang, root: str, device: str = "cuda",
         f"steps on {losses} against the gang's {resumed['losses'][2:]}")
 
 
+# -- context-parallel training (phases 48-51) --------------------------------
+
+CP = 2
+# one ring block of the flagship at cp 2: b 1, 8192 / 2 rows, 32 heads of 128
+CP_BLOCK = (1, 8192 // CP, 32, 128)
+# phase 10's small model, with room for the einsum body's 2 x 136 rows
+CP_SMALL = dict(TRAIN_SMALL, max_seq=273)
+# 64 rows a rank at cp 2, which ring_block_sizes tiles (the flash body),
+# and 136, which it does not (the einsum body)
+CP_SMALL_SEQS = dict(flash=128, einsum=272)
+CP_FLAGSHIP = dict(vocab_size=32768, num_layers=4, num_heads=32,
+                   hidden=4096, max_seq=8193)
+CP_FLAGSHIP_RUN = dict(seq=8192, batch=1, steps=2)
+# samples/jax-lm-cp.yaml's argv at --cp 1 and 3 steps, at the worker's
+# default widths; --batch-per-chip 8 holds the sample's tokens a chip
+# (its default 32 rows x 8192 / 4)
+CP_SAMPLE_ARGV = ["--model", "lm-cp", "--cp", "1", "--seq", "8192",
+                  "--attn-impl", "ring", "--steps", "3",
+                  "--batch-per-chip", "8"]
+
+
+def cp_cases():
+    """The rank bodies the port's context-parallel tests share
+    (``tests/torch_cp_cases.py``)."""
+    tp_cases()   # puts tests/ on the path
+    import torch_cp_cases
+
+    return torch_cp_cases
+
+
+def cp_gang(axes: dict, tmp: str, device: str):
+    """The ranks of a ("data", "seq") mesh on the one card over gloo: the
+    ring's hops and the all-to-alls are staged through pinned host
+    buffers, the other collectives through gloo's own host copies."""
+    import math
+
+    from kubegpu_tpu_torch.parallel.launch import Gang
+
+    dev = "cuda:0" if device == "cuda" else device
+    return Gang(axes, tmp, backend="gloo",
+                devices=[dev] * math.prod(axes.values()), timeout_s=900.0)
+
+
+def phase_cp_kernels() -> dict:
+    """Phase 48: K3 unmasked and causal, K4, K5 and the delta pre-pass at
+    one ring block of the flagship at cp 2 (b 1, 4096 rows, 32 heads of
+    128, bf16) against their plain twins under phase 8's gates; then K4
+    and K5 on both blocks from the global (out, lse) the two fold into,
+    which neither block's K3 computed; each kernel's graph-replay time,
+    bound, plain time and SDPA's time, unmasked and causal."""
+    import torch
+
+    from kubegpu_tpu_torch.ops.attention import (
+        _fold,
+        flash_backward_delta,
+        flash_backward_dkdv,
+        flash_backward_dq,
+        flash_forward,
+    )
+
+    g = torch.Generator(device="cuda").manual_seed(9)
+    b, s, h, d = CP_BLOCK
+    q, k, v, dout = flash_inputs(b, s, s, h, d, torch.bfloat16, g)
+    k0, v0 = (torch.randn(k.shape, generator=g, device="cuda")
+              .to(torch.bfloat16) for _ in range(2))
+    rec: dict = {}
+    for causal in (False, True):
+        errs = check_flash(q, k0 if not causal else k,
+                           v0 if not causal else v, dout, causal)
+        got: dict = {}
+        time_flash(q, k0 if not causal else k, v0 if not causal else v,
+                   dout, errs, got, causal)
+        for kname, by_dtype in got.items():
+            rec.setdefault(kname, {})["causal" if causal else "unmasked"] = (
+                by_dtype["bfloat16"])
+    # the ring's fold: an earlier rank's block (unmasked), then the
+    # diagonal; K4 and K5 read the global out and lse
+    o = torch.zeros(q.shape, device="cuda")
+    lse = torch.full((b, h, s), float("-inf"), device="cuda")
+    for kb, vb, causal in ((k0, v0, False), (k, v, True)):
+        o_blk, lse_blk = flash_forward(q, kb, vb, causal)
+        o, lse = _fold(o, lse, o_blk.float(), lse_blk)
+    out = o.to(torch.bfloat16)
+    delta = flash_backward_delta(out, dout)
+    for kb, vb, causal in ((k0, v0, False), (k, v, True)):
+        dk, dv = flash_backward_dkdv(q, kb, vb, out, lse, dout, causal,
+                                     delta)
+        dq = flash_backward_dq(q, kb, vb, out, lse, dout, causal, delta)
+        gate = bf16_gradient_errs((dq, dk, dv), q, kb, vb, out, lse, dout,
+                                  causal)
+        log(f"ring block causal={causal} from the global lse: "
+            + ", ".join(f"{n} {e:.3e} ({sh:.3f} of allowance)"
+                        for n, (e, sh, _) in gate.items()))
+    del q, k, v, dout, k0, v0, o, out
+    torch.cuda.empty_cache()
+    return rec
+
+
+def cp_want_launches(impl: str, seq_coord: int, layers: int, steps: int,
+                     remat: bool, bf16: bool, flash_body: bool = True) -> dict:
+    """Each rank's launches, causal: the ring's flash body runs K3, K4 and
+    K5 (r + 1) times a layer at "seq" coordinate r (K3 twice with remat),
+    Ulysses once, the einsum body never; the bf16 pre-pass once a layer."""
+    if impl == "ring" and not flash_body:
+        n = 0
+    else:
+        n = layers * steps * (seq_coord + 1 if impl == "ring" else 1)
+    return dict(flash_forward=n * (1 + remat), flash_backward_dkdv=n,
+                flash_backward_dq=n,
+                flash_backward_delta=layers * steps if bf16 and n else 0)
+
+
+def phase_cp_small(device: str = "cuda", cfg: dict = CP_SMALL,
+                   seqs: dict = CP_SMALL_SEQS) -> None:
+    """Phase 49: phase 10's small float32 model in gloo gangs on the card
+    at cp 2 (two ranks) and dp 2 x cp 2 (four): ring through its flash
+    body, ring through its einsum body (136 rows a rank), Ulysses, and
+    ring with remat: one step's loss and every gradient leaf within
+    rtol=atol 1e-4 of the card's one-device flash step on the same
+    global batch, and each rank's K3, K4 and K5 launches."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from kubegpu_tpu_torch.models.params import init_params, tree_map
+    from kubegpu_tpu_torch.models.train import (
+        create_train_state,
+        grad_tree,
+        lm_grads,
+    )
+    from kubegpu_tpu_torch.models.transformer import TransformerLM
+
+    cases = cp_cases()
+    params = init_params(cfg, torch.Generator().manual_seed(6),
+                         torch.float32, "cpu")
+    np_params = _np_tree(params)
+    rng = np.random.RandomState(1)
+    batches = {body: rng.randint(0, cfg["vocab_size"], size=(4, seq + 1))
+               .astype(np.int32) for body, seq in seqs.items()}
+    ref = {}
+    for body, tokens in batches.items():
+        model = TransformerLM(dtype=torch.float32, attn_impl="flash", **cfg)
+        state = create_train_state(
+            model, tree_map(lambda t: t.to(device).clone(), params))
+        loss = lm_grads(state, torch.from_numpy(tokens).to(device))
+        ref[body] = (loss.item(), _np_tree(grad_tree(state)))
+    runs = (("ring", "flash", False), ("ring", "einsum", False),
+            ("ulysses", "flash", False), ("ring", "flash", True))
+    layers = cfg["num_layers"]
+    for axes in ({"data": 1, "seq": CP}, {"data": 2, "seq": CP}):
+        t0 = time.monotonic()
+        with cp_gang(axes, tempfile.mkdtemp(prefix="chip-smoke-cp-"),
+                     device) as gang:
+            for impl, body, remat in runs:
+                got = gang.run(cases.cp_grads, dict(
+                    params=np_params, cfg=cfg, tokens=[batches[body]],
+                    model=dict(attn_impl=impl, remat=remat)))
+                loss, grads = ref[body]
+                np.testing.assert_allclose(got["loss"], loss, rtol=TRAIN_TOL,
+                                           atol=TRAIN_TOL)
+                worst = tree_close("grad", got["grads"], grads, TRAIN_TOL)
+                for rank, launches in enumerate(got["launches"]):
+                    want = cp_want_launches(impl, rank % CP, layers, 1,
+                                            remat, False, body == "flash")
+                    if device != "cuda":
+                        want = {k: 0 for k in want}
+                    assert launches == want, (axes, impl, body, rank,
+                                              launches, want)
+                log(f"cp small fp32 {axes} {impl} ({body} body, "
+                    f"{batches[body].shape[1] - 1} rows, remat={remat}): "
+                    f"loss {got['loss']:.6f} against one device "
+                    f"{loss:.6f}, worst gradient diff {worst:.3e}; "
+                    f"launches by rank {got['launches']}")
+        log(f"cp small gang {axes}: {time.monotonic() - t0:.1f} s")
+
+
+def phase_cp_flagship(device: str = "cuda", cfg: dict = CP_FLAGSHIP,
+                      run: dict = CP_FLAGSHIP_RUN) -> dict:
+    """Phase 50: the flagship at full width (bf16 compute over float32
+    weights) at cp 2 in a two-rank gloo gang on the card, seq 8192,
+    batch 1: two steps with ring attention, then two with Ulysses, on
+    ``synthetic_token_batches_for_mesh``: finite losses, the first within
+    1e-2 of the card's one-device loss on the same tokens (computed
+    before the gang starts, then freed), each rank's launches as
+    ``cp_want_launches`` says; each rank's peak memory, seconds a step,
+    bytes sent along "seq" a step and (ring) one more step's parts."""
+    import math
+    import tempfile
+
+    import torch
+
+    from kubegpu_tpu_torch.models.data import synthetic_token_batches
+    from kubegpu_tpu_torch.models.params import init_params
+    from kubegpu_tpu_torch.models.train import create_train_state, lm_loss
+    from kubegpu_tpu_torch.models.transformer import TransformerLM
+
+    cases = cp_cases()
+    seq, batch, steps = run["seq"], run["batch"], run["steps"]
+    tokens = next(synthetic_token_batches(batch, seq + 1, cfg["vocab_size"],
+                                          shard=0))
+    model = TransformerLM(dtype=torch.bfloat16, attn_impl="flash", **cfg)
+    gen = torch.Generator(device=device).manual_seed(0)
+    state = create_train_state(model, init_params(cfg, gen, torch.float32,
+                                                  device))
+    with torch.no_grad():
+        ref = lm_loss(state.model, torch.from_numpy(tokens).to(device)).item()
+    del state, model
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    layers = cfg["num_layers"]
+    out = {}
+    with cp_gang({"data": 1, "seq": CP},
+                 tempfile.mkdtemp(prefix="chip-smoke-cp-flagship-"),
+                 device) as gang:
+        for impl in ("ring", "ulysses"):
+            t0 = time.monotonic()
+            every = gang.run(cases.cp_flagship, dict(
+                params=dict(init=cfg, seed=0, dtype=torch.float32), cfg=cfg,
+                dtype=torch.bfloat16, batch=batch, seq=seq, steps=steps,
+                model=dict(attn_impl=impl), parts=impl == "ring"))
+            wall = time.monotonic() - t0
+            for rank, r in enumerate(every):
+                losses = r["losses"]
+                assert all(math.isfinite(x) for x in losses), (rank, losses)
+                assert abs(losses[0] - ref) <= FLAGSHIP_LOSS_TOL, (
+                    impl, rank, losses, ref)
+                want = cp_want_launches(impl, r["coords"][1], layers, steps,
+                                        False, True)
+                if device != "cuda":
+                    want = {k: 0 for k in want}
+                assert r["launches"] == want, (impl, rank, r["launches"])
+                peak = r["peak_bytes"]
+                log(f"cp flagship {impl} cp {CP} rank {rank} (data, seq) "
+                    f"{r['coords']}: losses {[round(x, 4) for x in losses]} "
+                    f"(one device's first {ref:.4f}); seconds a step "
+                    f"{[round(x, 3) for x in r['seconds']]} (gloo, "
+                    f"host-staged on one card: not a CP speed); bytes sent "
+                    f"a step {r['traffic_per_step']}; launches "
+                    f"{r['launches']}; peak device memory "
+                    + (f"{peak / 2**30:.2f} GiB" if peak is not None else
+                       "not measured"))
+                parts = r["parts"]
+                if parts is not None:
+                    log(f"cp flagship {impl} rank {rank}, one more step in "
+                        f"parts: forward and backward "
+                        f"{parts['forward_backward_s']:.3f} s, sync_grads "
+                        f"(flat mean of {parts['grad_bytes']} B over data x "
+                        f"seq) {parts['sync_grads_s']:.3f} s, optimizer "
+                        f"{parts['optimizer_s']:.3f} s")
+            log(f"cp flagship {impl}: {steps} steps of {batch} x {seq} "
+                f"tokens, the gang's call {wall:.1f} s")
+            out[impl] = every
+    return dict(launches={impl: [r["launches"] for r in every]
+                          for impl, every in out.items()},
+                peak={impl: [r["peak_bytes"] for r in every]
+                      for impl, every in out.items()})
+
+
+def phase_cp_worker(device: str = "cuda", sample=CP_SAMPLE_ARGV) -> dict:
+    """Phase 51: the worker's ``--model lm-cp``: ``--cp 2`` refused on a
+    one-card machine ("exceeds the visible device count"), NCCL reported
+    as not exercised (with two cards or more, three small steps over
+    NCCL); then ``samples/jax-lm-cp.yaml``'s argv at ``--cp 1`` in a
+    subprocess: a {"data": 1, "seq": 1} mesh whose ring runs one
+    diagonal block, K3, K4, K5 and the pre-pass launched steps x layers
+    times."""
+    import os
+
+    import torch
+
+    n_cards = torch.cuda.device_count() if device == "cuda" else 0
+    argv = ["--model", "lm-cp", "--cp", "2", "--vocab", "512", "--hidden",
+            "256", "--heads", "4", "--layers", "2", "--seq", "128",
+            "--batch-per-chip", "2", "--steps", "3"]
+    if device == "cuda" and n_cards < 2:
+        proc = subprocess.run(
+            [sys.executable, "-m", "kubegpu_tpu_torch.models.worker", *argv],
+            cwd=os.path.dirname(os.path.abspath(__file__)),
+            capture_output=True, text=True, timeout=300)
+        want = f"exceeds the visible device count {n_cards}"
+        assert proc.returncode != 0 and want in proc.stderr, (
+            proc.returncode, proc.stderr[-2000:])
+        log(f"cp worker: --model lm-cp --cp 2 refused on {n_cards} card(s): "
+            f"{want}; context-parallel training over NCCL: not exercised "
+            "(one card visible)")
+    elif device == "cuda":
+        lines = run_worker_lines(argv)
+        assert fields(lines["TRAINING_MESH"])["backend"] == "nccl"
+        log(f"cp worker over NCCL: {lines['TRAINING_MESH']} / "
+            f"{lines['FIRST_STEP_DONE']}")
+    t0 = time.monotonic()
+    lines = run_worker_lines(sample + (["--device", "cpu"]
+                                       if device != "cuda" else []))
+    args = {a.lstrip("-"): b for a, b in zip(sample[::2], sample[1::2])}
+    mesh = fields(lines["TRAINING_MESH"])
+    assert mesh["data"] == "1" and mesh["seq"] == "1", mesh
+    steps, layers = int(args["steps"]), int(args.get("layers", 4))
+    for key in ("K3_LAUNCHES", "K4_LAUNCHES", "K5_LAUNCHES",
+                "DELTA_LAUNCHES"):
+        n = int(next(v for k, v in fields(lines[key]).items()
+                     if k.startswith("flash_")))
+        assert n == (steps * layers if device == "cuda" else 0), lines[key]
+    for key in ("TRAINING_MESH", "FIRST_STEP_DONE", "steady_state",
+                "K3_LAUNCHES", "K4_LAUNCHES", "K5_LAUNCHES",
+                "DELTA_LAUNCHES", "PEAK_MEM_GIB", "CP_BYTES"):
+        log(f"cp sample: {lines[key]}")
+    log(f"cp sample ({' '.join(sample)}): {time.monotonic() - t0:.1f} s")
+    return {k: lines[k] for k in ("FIRST_STEP_DONE", "steady_state",
+                                  "PEAK_MEM_GIB")}
+
+
 def main() -> int:
     import torch
 
@@ -4319,6 +4669,15 @@ def main() -> int:
         log(f"checkpoint phases {time.monotonic() - t1:.1f} s")
     finally:
         shutil.rmtree(ckpt_root, ignore_errors=True)
+    # context-parallel training: the ring block's kernels, the small
+    # float32 gangs, the flagship at seq 8192 in a two-rank gang, the
+    # worker's lm-cp
+    t2 = time.monotonic()
+    cp_k = phase_cp_kernels()
+    phase_cp_small()
+    cp_flag = phase_cp_flagship()
+    phase_cp_worker()
+    log(f"context-parallel phases {time.monotonic() - t2:.1f} s")
     log(f"chip_smoke: all phases passed in {time.monotonic() - t0:.1f} s")
     source = "kubegpu_tpu_torch/ops/csrc/paged_attention.cu"
     kernels = []
@@ -4387,6 +4746,20 @@ def main() -> int:
             "tp_bound_ms": shard["bound_ms"],
             "tp_library_ms": shard["library_ms"],
             "tp_max_abs_err": shard["max_abs_err"],
+            # context parallelism: each rank's launches in the flagship cp
+            # 2 gang (ring, then Ulysses), and the kernel at one ring block
+            # of it (4096 rows), unmasked (an earlier rank's block) and
+            # causal (the diagonal)
+            "cp_launches": [n[kname] for n in cp_flag["launches"]["ring"]],
+            "cp_ulysses_launches": [
+                n[kname] for n in cp_flag["launches"]["ulysses"]],
+            "cp_ms": cp_k[kname]["unmasked"]["ms"],
+            "cp_bound_ms": cp_k[kname]["unmasked"]["bound_ms"],
+            "cp_plain_ms": cp_k[kname]["unmasked"]["plain_ms"],
+            "cp_library_ms": cp_k[kname]["unmasked"]["library_ms"],
+            "cp_max_abs_err": cp_k[kname]["unmasked"]["max_abs_err"],
+            "cp_causal_ms": cp_k[kname]["causal"]["ms"],
+            "cp_causal_bound_ms": cp_k[kname]["causal"]["bound_ms"],
         })
     # the card and its power limit again beside the results, where the
     # end of a long output still holds them

@@ -35,6 +35,16 @@ replicated over ``"model"`` (the LayerNorms: each rank saw its own rows),
 (b) averages every gradient over ``"data"`` in one flat all-reduce, and
 (c) steps the local shards.  Every rank of a ``"data"`` group ends a
 step with the same bits.
+
+Over a ``("data", "seq")`` mesh (the context-parallel model,
+:func:`place_cp_lm`, the JAX ``place_cp_lm``) every rank holds the whole
+parameters and optimizer state.  A rank's ``(b, s + 1)`` window feeds
+the model its ``"seq"`` coordinate's ``s / cp`` consecutive rows and
+takes the next token of each as its label (:func:`lm_loss`); the loss it
+returns is the mean over ``"data"`` x ``"seq"``, and :func:`sync_grads`
+averages every gradient over all dp x cp ranks in one flat all-reduce
+(the attention's collectives have already carried each rank's share of
+another rank's K/V gradient home).
 """
 
 from __future__ import annotations
@@ -59,8 +69,15 @@ from kubegpu_tpu_torch.parallel.collectives import (
     data_mean,
     flat_all_reduce,
     mean_grads_over_data,
+    mean_grads_over_mesh,
+    mesh_mean,
 )
-from kubegpu_tpu_torch.parallel.mesh import MODEL_AXIS, tp_size
+from kubegpu_tpu_torch.parallel.mesh import (
+    MODEL_AXIS,
+    SEQ_AXIS,
+    cp_size,
+    tp_size,
+)
 from kubegpu_tpu_torch.parallel.sharding import (
     shard_dim,
     shard_state,
@@ -289,6 +306,32 @@ def place_lm(model: nn.Module, params: Mapping,
     return state
 
 
+def place_cp_lm(model: nn.Module, params: Mapping, *,
+                opt_state: Optional[Mapping] = None,
+                optimizer: Optional[Optimizer] = None, step: int = 0,
+                mesh=None) -> TrainState:
+    """The JAX ``place_cp_lm``: a train state over a ``("data", "seq")``
+    mesh (default the model's, built with ``context_parallel=True``)
+    from WHOLE trees of tensors on any device, ``params`` and optionally
+    the optimizer state in optax's layout: every rank keeps all of both,
+    copied onto the mesh's device (the activations, not the weights, are
+    split over ``"seq"``)."""
+    mesh = mesh if mesh is not None else getattr(model, "mesh", None)
+    if mesh is None or SEQ_AXIS not in mesh.axis_names:
+        raise ValueError("place_cp_lm needs a mesh with a 'seq' axis")
+    dev = resolve_device(mesh.device)
+
+    def whole(tree):
+        return tree_map(lambda t: t.to(dev, copy=True), tree)
+
+    state = create_train_state(model, whole(params), optimizer=optimizer,
+                               step=step)
+    if opt_state is not None:
+        set_opt_state(state, {k: whole(v) if isinstance(v, Mapping) else v
+                              for k, v in opt_state.items()})
+    return state
+
+
 def _param_tree(state: TrainState, leaf) -> Tree:
     tree: Tree = {}
     for path, param in state.model.named_parameters():
@@ -445,8 +488,23 @@ def lm_loss(model: nn.Module, tokens: torch.Tensor) -> torch.Tensor:
     """Next-token loss of a ``(b, s + 1)`` token window: the model reads
     ``tokens[:, :-1]`` and predicts ``tokens[:, 1:]``.  Over a mesh
     ``tokens`` are this data rank's rows: the value is the mean over the
-    ``"data"`` ranks, the gradient that of this rank's own mean."""
+    ``"data"`` ranks, the gradient that of this rank's own mean.  Over a
+    ``"seq"`` axis of cp ranks the model reads this rank's ``s / cp``
+    rows, ``tokens[:, i * s / cp:(i + 1) * s / cp]`` at coordinate i,
+    and predicts the token after each; the value is the mean over
+    ``"data"`` x ``"seq"``."""
     mesh = getattr(model, "mesh", None)
+    if getattr(model, "cp_mesh", None) is not None:
+        cp = cp_size(mesh)
+        s = tokens.shape[1] - 1
+        if s % cp:
+            raise ValueError(f"context parallelism: {s} positions do not "
+                             f"divide over cp={cp}")
+        s_loc = s // cp
+        first = mesh.coord(SEQ_AXIS) * s_loc
+        rows = tokens[:, first:first + s_loc + 1]
+        loss = cross_entropy(model(rows[:, :-1]), rows[:, 1:])
+        return mesh_mean(loss, mesh)
     loss = cross_entropy(model(tokens[:, :-1]), tokens[:, 1:], mesh)
     return loss if mesh is None else data_mean(loss, mesh)
 
@@ -462,10 +520,15 @@ def sync_grads(state: TrainState) -> None:
     """After ``backward()`` over a mesh: (a) under sequence parallelism
     sum the replicated parameters' gradients over ``"model"`` (each rank
     differentiated its own rows of the LayerNorms), then (b) average all
-    gradients over ``"data"`` in one flat all-reduce.  Nothing at one
-    device."""
+    gradients over ``"data"`` in one flat all-reduce.  Context parallel,
+    every gradient is averaged over all ranks (``"data"`` x ``"seq"``)
+    in one flat all-reduce.  Nothing at one device."""
     mesh = state.mesh
     if mesh is None:
+        return
+    if getattr(state.model, "cp_mesh", None) is not None:
+        mean_grads_over_mesh([p.grad for p in state.model.parameters()],
+                             mesh)
         return
     if getattr(state.model, "seq_sharded", False):
         flat_all_reduce([p.grad for p in replicated_params(state.model)],

@@ -1,6 +1,6 @@
 """The decoder-only LM the trainer runs: the port of
-``kubegpu_tpu/models/transformer.py`` at one device and over a
-``("data", "model")`` mesh.
+``kubegpu_tpu/models/transformer.py`` at one device, over a
+``("data", "model")`` mesh and over a ``("data", "seq")`` mesh.
 
 ``TransformerLM`` has the flax model's parameter tree (the tree
 ``models/params.py`` describes, shared with the decode models) and its
@@ -18,7 +18,8 @@ Attention is one of two paths, as in JAX:
   backward; scores in float32 times ``1/sqrt(hd)`` and a -inf mask.
 
 The two differ in the last bits, as they do in JAX.  ``"ring"`` and
-``"ulysses"`` (context parallelism) wait for the long-context slice.
+``"ulysses"`` are context-parallel attention over a ``"seq"`` mesh axis;
+without one they run flash, as the JAX model does.
 ``remat=True`` recomputes each block in the backward
 (``torch.utils.checkpoint``), the counterpart of ``nn.remat(Block)``.
 
@@ -48,6 +49,22 @@ model are written out as autograd functions
 The LayerNorm parameters are replicated; under sequence parallelism each
 rank's gradient covers its rows only and ``train.lm_step`` sums them.
 At one device ``sequence_parallel`` does nothing, in JAX as here.
+
+With ``context_parallel=True`` over a mesh with a ``"seq"`` axis of cp
+ranks (the JAX ``constrain_ctx_sharded`` layout) every parameter is
+whole on every rank, and ``forward`` takes this rank's ``s / cp``
+consecutive token rows (``train.lm_loss`` cuts them): they are embedded
+at their global positions (``my * s / cp`` on), and the LayerNorms, the
+MLPs, ``ln_f`` and the head run on them alone; nothing gathers the
+sequence between blocks.  Attention crosses the ranks:
+``attn_impl="ring"`` and ``"ulysses"`` run ``ops.attention``'s
+``ring_attention`` and ``ulysses_attention``; ``"einsum"`` computes the
+full attention GSPMD computes for the JAX model, this rank's query rows
+against K/V gathered over ``"seq"`` (``gather_axis``, reduce-scattered
+backward) under the causal mask offset by ``my * s / cp``.  ``"flash"``
+is refused there (the worker turns it into ``"ring"``, as the JAX
+worker does).  A mesh with both ``"model"`` and ``"seq"`` (JAX's DP x TP
+x CP) waits for a later slice.
 """
 
 from __future__ import annotations
@@ -63,26 +80,28 @@ from kubegpu_tpu_torch.models.decoding import (
     LMBase,
     attn_scale,
 )
-from kubegpu_tpu_torch.ops.attention import flash_attention
+from kubegpu_tpu_torch.ops.attention import (
+    flash_attention,
+    ring_attention,
+    ulysses_attention,
+)
 from kubegpu_tpu_torch.parallel.collectives import (
     copy_to_model,
+    gather_axis,
     gather_hidden,
     gather_seq,
     reduce_from_model,
     scatter_seq,
     split_seq,
 )
-from kubegpu_tpu_torch.parallel.mesh import tp_size
+from kubegpu_tpu_torch.parallel.mesh import MODEL_AXIS, SEQ_AXIS, tp_size
 
-ATTN_IMPLS = ("einsum", "flash")
+ATTN_IMPLS = ("einsum", "flash", "ring", "ulysses")
+# context-parallel attention; without a "seq" axis it runs flash
+CP_IMPLS = ("ring", "ulysses")
 
 
 def check_attn_impl(attn_impl: str) -> None:
-    if attn_impl in ("ring", "ulysses"):
-        raise NotImplementedError(
-            f"attn_impl={attn_impl!r} is context-parallel attention over a "
-            "sequence mesh axis: it arrives with the long-context slice of "
-            "the port; use 'flash' or 'einsum'")
     if attn_impl not in ATTN_IMPLS:
         raise ValueError(f"attn_impl {attn_impl!r}: one of {ATTN_IMPLS}")
 
@@ -100,6 +119,8 @@ class CausalSelfAttention(nn.Module):
         self.head_dim = hidden // num_heads
         self.dtype = dtype
         self.attn_impl = attn_impl
+        # the ("data", "seq") mesh under context parallelism, else None
+        self.cp_mesh = None
         for name in ("q_proj", "k_proj", "v_proj"):
             setattr(self, name, Dense(hidden, hidden // tp, dtype))
         self.o_proj = Dense(hidden // tp, hidden, dtype)
@@ -110,13 +131,23 @@ class CausalSelfAttention(nn.Module):
         q = self.q_proj(x).view(b, s, h, hd)
         k = self.k_proj(x).view(b, s, h, hd)
         v = self.v_proj(x).view(b, s, h, hd)
-        if self.attn_impl == "flash":
+        mesh = self.cp_mesh
+        if mesh is not None and self.attn_impl == "ring":
+            out = ring_attention(q, k, v, mesh, True)
+        elif mesh is not None and self.attn_impl == "ulysses":
+            out = ulysses_attention(q, k, v, mesh, True)
+        elif self.attn_impl in ("flash",) + CP_IMPLS:
             out = flash_attention(q, k, v, True)
         else:
+            offset = 0
+            if mesh is not None:
+                # this rank's query rows against the whole sequence's K/V
+                offset = mesh.coord(SEQ_AXIS) * s
+                k, v = gather_axis(k, mesh), gather_axis(v, mesh)
             scores = torch.einsum("bqhd,bkhd->bhqk", q, k) / attn_scale(
                 hd, self.dtype, x.device)
-            mask = torch.ones((s, s), dtype=torch.bool,
-                              device=x.device).tril()
+            mask = (torch.arange(k.shape[1], device=x.device)[None, :]
+                    <= offset + torch.arange(s, device=x.device)[:, None])
             scores = torch.where(mask, scores, torch.finfo(self.dtype).min)
             probs = torch.softmax(scores.float(), dim=-1).to(self.dtype)
             out = torch.einsum("bhqk,bkhd->bqhd", probs, v)
@@ -171,7 +202,9 @@ class TransformerLM(LMBase):
     """flax ``TransformerLM``: ``forward(tokens)`` with tokens ``(b, s)``,
     ``s <= max_seq``, returns float32 logits ``(b, s, vocab)``, or over
     a mesh with a ``"model"`` axis this rank's ``(b, s, vocab / tp)``
-    (under sequence parallelism ``s`` must divide by tp)."""
+    (under sequence parallelism ``s`` must divide by tp).  Context
+    parallel over a ``"seq"`` axis, ``tokens`` are this rank's
+    ``(b, s / cp)`` rows and the logits theirs."""
 
     block_cls = Block
 
@@ -179,9 +212,26 @@ class TransformerLM(LMBase):
                  num_heads: int = 8, hidden: int = 512, max_seq: int = 2048,
                  dtype: torch.dtype = torch.bfloat16,
                  sequence_parallel: bool = False, attn_impl: str = "einsum",
-                 remat: bool = False, mesh=None) -> None:
+                 remat: bool = False, context_parallel: bool = False,
+                 mesh=None) -> None:
         check_attn_impl(attn_impl)
         tp = tp_size(mesh)
+        if mesh is not None and SEQ_AXIS in mesh.axis_names:
+            if MODEL_AXIS in mesh.axis_names:
+                raise NotImplementedError(
+                    f"a mesh of {tuple(mesh.axis_names)}: data x tensor x "
+                    "context parallelism (JAX's 3-D DP x TP x CP mesh) "
+                    "arrives with a later slice of the port; use a "
+                    "('data', 'model') or a ('data', 'seq') mesh")
+            if not context_parallel:
+                raise ValueError("a mesh with a 'seq' axis trains the "
+                                 "context-parallel model: "
+                                 "context_parallel=True")
+            if attn_impl == "flash":
+                raise ValueError(
+                    "attn_impl='flash' over a 'seq' axis: context-parallel "
+                    "attention is 'ring', 'ulysses' or 'einsum' (the "
+                    "worker runs --attn-impl flash as ring)")
         for what, n in (("num_heads", num_heads), ("vocab_size", vocab_size)):
             if n % tp:
                 raise ValueError(f"{what} {n} does not divide over tp={tp}")
@@ -194,8 +244,12 @@ class TransformerLM(LMBase):
         self.tp = tp
         # the residual stream lives on s / tp rows a rank
         self.seq_sharded = sequence_parallel and tp > 1
+        # context parallel over the mesh: s / cp rows a rank throughout
+        self.cp_mesh = (mesh if context_parallel and mesh is not None
+                        and SEQ_AXIS in mesh.axis_names else None)
         for block in self.blocks():
             block.attn.attn_impl = attn_impl
+            block.attn.cp_mesh = self.cp_mesh
             block.sequence_parallel = self.seq_sharded
 
     def forward(self, tokens: torch.Tensor) -> torch.Tensor:
@@ -203,8 +257,11 @@ class TransformerLM(LMBase):
         if self.seq_sharded and s % self.tp:
             raise ValueError(f"sequence parallelism: {s} positions do not "
                              f"divide over tp={self.tp}")
+        # this rank's rows sit at their global positions
+        first = (0 if self.cp_mesh is None
+                 else self.cp_mesh.coord(SEQ_AXIS) * s)
         x = self.embed(tokens) + self.pos_embed(
-            torch.arange(s, device=tokens.device)[None, :])
+            torch.arange(first, first + s, device=tokens.device)[None, :])
         if self.tp > 1:
             x = gather_hidden(x, self.mesh)
         if self.seq_sharded:

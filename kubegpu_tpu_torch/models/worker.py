@@ -1,5 +1,5 @@
-"""Worker of the port: ``--model decode`` (serving) and ``--model lm``
-(training).
+"""Worker of the port: ``--model decode`` (serving), ``--model lm`` and
+``--model lm-cp`` (training).
 
 The port of ``kubegpu_tpu/models/worker.py``'s decode modes and its
 single-device LM training.  In decode mode it builds the LM at the given
@@ -112,7 +112,8 @@ saves the last step at the end (``CHECKPOINT_SAVED step=N``).  It prints the JAX
 flash-attention kernels (K3 forward, K4 and K5 backward; with ``--remat``
 K3 runs twice a layer) and the peak device memory.  ``--attn-impl flash``
 (the default) runs those kernels, ``einsum`` the model-dtype einsum
-attention; ``--attn-impl ring|ulysses`` waits for the long-context slice.
+attention; ``ring`` and ``ulysses`` run flash too (no ``"seq"`` axis
+here), as in the JAX worker.
 
     python -m kubegpu_tpu_torch.models.worker --model lm --vocab 32768 \\
         --hidden 4096 --heads 32 --layers 4 --seq 1024 \\
@@ -134,6 +135,25 @@ refusals hold: ``--tp`` must divide n, and heads and vocab split tp ways
 
     python -m kubegpu_tpu_torch.models.worker --model lm --tp 2 \\
         --cpu-ranks 4 --device cpu [--vocab 64 --hidden 32 --heads 4 ...]
+
+``--model lm-cp`` trains the context-parallel LM, as the JAX worker
+does: ``--cp`` (0: all n devices) ranks make the ``"seq"`` axis and n /
+cp the ``"data"`` axis of a ``("data", "seq")`` mesh, one process a rank
+even at one device (the ``{"data": 1, "seq": 1}`` mesh, whose ring has
+one diagonal block), NCCL between cards, gloo on the CPU.  Every rank
+holds the whole weights; each of a data row's cp ranks trains on its
+``--seq / cp`` rows of that row's ``--batch-per-chip`` windows.
+``--attn-impl flash`` (the default) runs ring attention, ``ring``,
+``ulysses`` and ``einsum`` run as named.  Rank 0 prints
+``TRAINING_MESH data=.. seq=.. devices=.. backend=.. attn_impl=..``,
+then the lines of ``--model lm`` and each rank's ``CP_BYTES`` (the
+bytes its ring hops and all-to-alls sent, and those staged through the
+host).  ``--cp`` must divide n, and ``--seq`` must divide by cp
+(Ulysses: ``--heads`` too); ``--tp`` is not read.  ``--ckpt-dir``
+checkpoints under ``DIR/lm-cp``.
+
+    python -m kubegpu_tpu_torch.models.worker --model lm-cp --cp 2 \\
+        --seq 64 --cpu-ranks 4 --device cpu [--attn-impl ulysses ...]
 
 Runs on the card by default; ``--device cpu`` runs the plain PyTorch
 path (the kernels are then never launched).
@@ -183,6 +203,7 @@ from kubegpu_tpu_torch.models.train import (
     adam,
     create_train_state,
     lm_step,
+    place_cp_lm,
     place_lm,
     sgd,
 )
@@ -203,7 +224,7 @@ from kubegpu_tpu_torch.parallel.launch import (
     open_store,
     start_ranks,
 )
-from kubegpu_tpu_torch.parallel.collectives import gather_objects
+from kubegpu_tpu_torch.parallel.collectives import CP_TRAFFIC, gather_objects
 from kubegpu_tpu_torch.parallel.mesh import close_mesh, device_mesh
 from kubegpu_tpu_torch.utils.metrics import Metrics
 
@@ -217,8 +238,10 @@ DRAFT_SEED = 7
 
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--model", choices=["decode", "lm"], default="decode",
-                    help="decode = serving; lm = LM training")
+    ap.add_argument("--model", choices=["decode", "lm", "lm-cp"],
+                    default="decode",
+                    help="decode = serving; lm = LM training; lm-cp = "
+                    "context-parallel LM training (ring/ulysses)")
     ap.add_argument("--serving",
                     choices=["static", "continuous", "paged", "speculative"],
                     default="static",
@@ -287,8 +310,10 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--attn-impl", default="flash",
                     choices=["einsum", "flash", "ring", "ulysses"],
                     help="lm: flash = the hand-written flash-attention "
-                    "kernels, einsum = model-dtype einsum attention; ring "
-                    "and ulysses wait for the long-context slice")
+                    "kernels, einsum = model-dtype einsum attention, ring "
+                    "and ulysses = flash (no 'seq' axis); lm-cp: ring (the "
+                    "default, as flash), ulysses or einsum over the 'seq' "
+                    "axis")
     ap.add_argument("--remat", action="store_true",
                     help="lm: recompute each block in the backward")
     ap.add_argument("--tp", type=int, default=0,
@@ -297,6 +322,10 @@ def build_parser() -> argparse.ArgumentParser:
                     "processes over gloo with --device cpu); lm: the "
                     "'model' axis of a (data, model) mesh over the visible "
                     "devices (0: all of them), data = devices / tp")
+    ap.add_argument("--cp", type=int, default=0,
+                    help="lm-cp: the 'seq' axis of a (data, seq) mesh over "
+                    "the visible devices (0: all of them), data = devices "
+                    "/ cp")
     ap.add_argument("--cpu-ranks", type=int, default=1,
                     help="lm --device cpu: the CPU's stand-in for the "
                     "visible device count (ranks of the training mesh, "
@@ -365,9 +394,10 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def training_mesh(args: argparse.Namespace) -> Tuple[int, int]:
-    """``(dp, tp)`` of ``--model lm``, the JAX worker's ``_split_mesh``
-    over the visible devices (the cards, or ``--cpu-ranks`` with
-    ``--device cpu``) and its refusals."""
+    """``(dp, tp)`` of ``--model lm`` or ``(dp, cp)`` of ``--model
+    lm-cp``, the JAX worker's ``_split_mesh`` over the visible devices
+    (the cards, or ``--cpu-ranks`` with ``--device cpu``) and its
+    refusals."""
     if args.device == "cuda":
         resolve_device("cuda")  # raises without a card
         if args.cpu_ranks != 1:
@@ -380,6 +410,9 @@ def training_mesh(args: argparse.Namespace) -> Tuple[int, int]:
         n = args.cpu_ranks
     if n < 1:
         raise SystemExit(f"--cpu-ranks {n}: at least one rank")
+    if args.model == "lm-cp":
+        cp = _cp_width(args, n)
+        return n // cp, cp
     tp = args.tp or n
     if tp > n:
         raise SystemExit(f"--tp {tp} exceeds the visible device count {n}")
@@ -396,6 +429,28 @@ def training_mesh(args: argparse.Namespace) -> Tuple[int, int]:
             f"--seq {args.seq} not divisible by tp={tp} (sequence "
             "parallelism puts seq / tp positions on each rank)")
     return n // tp, tp
+
+
+def _cp_width(args: argparse.Namespace, n: int) -> int:
+    """``--cp`` over ``n`` devices and the JAX worker's refusals."""
+    cp = args.cp or n
+    if cp > n:
+        raise SystemExit(f"--cp {cp} exceeds the visible device count {n}")
+    if n % cp:
+        raise SystemExit(f"--cp {cp} does not divide the device count {n}")
+    if args.seq % cp:
+        raise SystemExit(f"--seq {args.seq} not divisible by cp={cp}")
+    if args.attn_impl == "ulysses" and args.heads % cp:
+        raise SystemExit(
+            f"--heads {args.heads} not divisible by cp={cp} (ulysses "
+            "scatters the heads over the 'seq' axis)")
+    return cp
+
+
+def cp_attn_impl(args: argparse.Namespace) -> str:
+    """The attention of ``--model lm-cp``: ``flash`` runs as ``ring``,
+    as in the JAX worker."""
+    return "ring" if args.attn_impl == "flash" else args.attn_impl
 
 
 def wave_requests(rng: np.random.RandomState, n_req: int, vocab: int,
@@ -992,12 +1047,9 @@ def build_trainer(args: argparse.Namespace, mesh=None):
     ``--optimizer``, the ``--data`` mode's batches.  Over a ``mesh`` every rank draws
     the whole tree on its device and keeps its shard (``place_lm``), so
     every width trains the weights one device trains, and draws its data
-    shard's rows.  Returns ``(state, next_batch)``."""
-    if args.attn_impl in ("ring", "ulysses"):
-        raise SystemExit(
-            f"--attn-impl {args.attn_impl}: context-parallel attention "
-            "arrives with the long-context slice of the port; use flash or "
-            "einsum")
+    shard's rows.  ``--model lm-cp`` builds the context-parallel model over
+    its ``("data", "seq")`` mesh, every rank keeping the whole tree
+    (``place_cp_lm``).  Returns ``(state, next_batch)``."""
     if args.hidden % args.heads:
         raise SystemExit(f"--hidden {args.hidden} not divisible by --heads "
                          f"{args.heads}")
@@ -1005,9 +1057,12 @@ def build_trainer(args: argparse.Namespace, mesh=None):
     cfg = dict(vocab_size=args.vocab, num_layers=args.layers,
                hidden=args.hidden, max_seq=args.seq + 1)
     gen = torch.Generator(device=device).manual_seed(WEIGHT_SEED)
+    cp = args.model == "lm-cp"
     model = TransformerLM(**cfg, num_heads=args.heads, dtype=torch.bfloat16,
-                          sequence_parallel=True, attn_impl=args.attn_impl,
-                          remat=args.remat, mesh=mesh)
+                          sequence_parallel=not cp,
+                          attn_impl=cp_attn_impl(args) if cp
+                          else args.attn_impl,
+                          remat=args.remat, context_parallel=cp, mesh=mesh)
     tree = init_params(cfg, gen, torch.float32, device)
     optimizer = sgd() if args.optimizer == "sgd" else adam()
     if mesh is None:
@@ -1015,8 +1070,9 @@ def build_trainer(args: argparse.Namespace, mesh=None):
         source = synthetic_token_batches(max(args.batch_per_chip, 1),
                                          args.seq + 1, args.vocab)
     else:
-        state = place_lm(model, tree, optimizer=optimizer)
-        del tree  # the whole tree: only this rank's shard stays
+        place = place_cp_lm if cp else place_lm
+        state = place(model, tree, optimizer=optimizer)
+        del tree  # the whole tree: only this rank's copy or shard stays
         source = synthetic_token_batches_for_mesh(
             max(args.batch_per_chip, 1) * mesh.axis_size("data"),
             args.seq + 1, args.vocab, mesh)
@@ -1115,6 +1171,7 @@ def _train(args: argparse.Namespace, mesh, t0: float) -> Dict[str, object]:
     dp = 1 if mesh is None else mesh.axis_size("data")
     batch = max(args.batch_per_chip, 1) * dp
     launches0 = [fn.launches for fn in FLASH_KERNELS]
+    traffic0 = dict(CP_TRAFFIC)
 
     losses = [lm_step(state, next_batch())]
     first_loss = float(losses[0])  # forces the step to completion
@@ -1147,6 +1204,7 @@ def _train(args: argparse.Namespace, mesh, t0: float) -> Dict[str, object]:
         "peak_bytes": (torch.cuda.max_memory_allocated(device)
                        if device.type == "cuda" else None),
         "device": str(device),
+        "cp_traffic": {k: v - traffic0[k] for k, v in CP_TRAFFIC.items()},
     }
     r = dict(mine, first_step_s=first_s, tokens_per_sec=rate, steady_s=dt,
              losses=losses, steps=args.steps, layers=args.layers,
@@ -1174,9 +1232,9 @@ def _train_rank(rank: int, args: argparse.Namespace, axes: dict,
 
 def join_training_mesh(args: argparse.Namespace, axes: dict, rank: int,
                        store_path: str):
-    """Rank ``rank``'s ``(data, model)`` mesh: NCCL between cards, gloo
-    on the CPU."""
-    n = axes["data"] * axes["model"]
+    """Rank ``rank``'s ``(data, model)`` or ``(data, seq)`` mesh: NCCL
+    between cards, gloo on the CPU."""
+    n = int(np.prod(list(axes.values())))
     devices = tp_devices(args, n)
     return device_mesh(axes, rank,
                        backend="gloo" if args.device == "cpu" else "nccl",
@@ -1192,19 +1250,23 @@ def run_lm(args: argparse.Namespace,
     back (timed from ``t0``, the caller's start) and ``steady_state``
     after the other steps, which are timed with one readback at their
     end.  Over several devices (:func:`training_mesh`) it starts ranks
-    1..n-1 and is rank 0 itself."""
+    1..n-1 and is rank 0 itself; ``--model lm-cp`` always runs over its
+    mesh, of one rank at one device."""
     t0 = time.monotonic() if t0 is None else t0
-    dp, tp = training_mesh(args)
-    if dp * tp == 1:
+    dp, width = training_mesh(args)
+    cp = args.model == "lm-cp"
+    if dp * width == 1 and not cp:
         return _train(args, None, t0)
-    axes = {"data": dp, "model": tp}
+    axes = {"data": dp, "seq" if cp else "model": width}
     tmp = tempfile.mkdtemp(prefix="kubegpu-train-")
     store = os.path.join(tmp, "store")
-    procs = start_ranks(_train_rank, range(1, dp * tp), args, axes, store)
+    procs = start_ranks(_train_rank, range(1, dp * width), args, axes, store)
     try:
         mesh = join_training_mesh(args, axes, 0, store)
-        print(f"TRAINING_MESH data={dp} model={tp} devices="
-              + ",".join(mesh.devices) + f" backend={mesh.backend}",
+        print("TRAINING_MESH " + " ".join(f"{k}={v}" for k, v in axes.items())
+              + " devices=" + ",".join(mesh.devices)
+              + f" backend={mesh.backend}"
+              + (f" attn_impl={cp_attn_impl(args)}" if cp else ""),
               flush=True)
         try:
             r = _train(args, mesh, t0)
@@ -1222,10 +1284,10 @@ def run_lm(args: argparse.Namespace,
 def main(argv: Optional[List[str]] = None) -> int:
     t0 = time.monotonic()
     args = build_parser().parse_args(argv)
-    if args.model != "lm" and args.cpu_ranks != 1:
+    if args.model not in ("lm", "lm-cp") and args.cpu_ranks != 1:
         raise SystemExit("--cpu-ranks stands in for the training mesh's "
                          "devices: --model lm --device cpu only")
-    if args.model == "lm":
+    if args.model in ("lm", "lm-cp"):
         report_lm(run_lm(args, t0))
         return 0
     if args.serve_http is not None:
@@ -1255,6 +1317,10 @@ def report_lm(r: Dict[str, object]) -> None:
         print("PEAK_MEM_GIB "
               + (f"{peak / 2**30:.2f}" if peak is not None else "not measured")
               + f" device={mine['device']}{tag}", flush=True)
+        if "seq" in r.get("mesh", {}):
+            print("CP_BYTES " + " ".join(
+                f"{k}={v}" for k, v in mine["cp_traffic"].items())
+                + f" steps={r['steps']}{tag}", flush=True)
 
 
 def report_decode(args: argparse.Namespace, r: Dict[str, object]) -> None:

@@ -42,16 +42,44 @@ Four roles, as in ``ops/paged_attention.py``:
   ``(q, k, v, out, lse)`` and no ``s x s`` tensor; its backward runs
   the delta pre-pass once (bf16), then K4 and K5, and returns gradients
   in the inputs' dtypes.
+
+Context parallelism, the port of the JAX ``ring_attention`` and
+``ulysses_attention``: q, k and v are this rank's ``(b, s / n, h, d)``
+rows of a sequence split in order over the mesh's ``"seq"`` axis of n
+ranks (``parallel.collectives`` carries the hops).
+
+- :func:`ring_attention`: K/V blocks rotate one rank a step
+  (``ring_shift``) while each resident block folds into this rank's
+  softmax state, causal by global position.  Where
+  :func:`ring_block_sizes` tiles the shard and q and k have one shape
+  the flash body runs (:class:`_RingFlashAttention`): the block owned by
+  ``src = (my - step) % n`` runs K3 unmasked (``src < my``), K3 causal
+  (the diagonal) or nothing (``src > my``), the partial (out, lse) pairs
+  fold by logaddexp, and the backward re-rotates K/V with float32 dK/dV
+  travelling beside them, K4 and K5 per block from the global lse after
+  one delta pre-pass (bf16).  Other shards take the einsum body
+  (:func:`ring_attention_einsum`, float32 online softmax, differentiated
+  by autograd through the autograd ``ring_shift``), as in JAX.
+- :func:`ulysses_attention`: an all-to-all from rows to heads, flash
+  attention (K3, K4, K5) on this rank's ``h / n`` heads over the whole
+  sequence, an all-to-all back.
 """
 
 from __future__ import annotations
 
 import ctypes
 import math
+from typing import Optional
 
 import torch
 
 from kubegpu_tpu_torch.ops import _build
+from kubegpu_tpu_torch.parallel.collectives import (
+    heads_to_seq,
+    ring_shift,
+    seq_to_heads,
+)
+from kubegpu_tpu_torch.parallel.mesh import SEQ_AXIS
 
 NEG_INF = float("-inf")
 # the dtypes the kernels are instantiated for
@@ -470,6 +498,203 @@ def flash_attention(q, k, v, causal: bool = True):
     K5 backward (in bf16 after the delta pre-pass), or raise; CPU tensors
     run the plain twins."""
     return _FlashAttention.apply(q, k, v, causal)
+
+
+# -- context parallelism: ring and Ulysses attention --------------------------
+
+
+def ring_block_sizes(s_loc: int) -> Optional[tuple]:
+    """The JAX ``_ring_block_sizes``: the Pallas blocks of a ring shard
+    of ``s_loc`` rows, or None where the shard does not tile without
+    padding (those shards take the einsum body).  The port's kernels take
+    any shard; the rule is kept so that each shape takes the reference's
+    numerics."""
+    if s_loc <= 128 or (s_loc <= 512 and s_loc % 128 == 0):
+        return s_loc, s_loc
+    for b in (512, 256, 128):
+        if s_loc % b == 0:
+            return b, b
+    return None
+
+
+def ring_attention_einsum(q, k, v, mesh, causal: bool = True):
+    """The JAX ``_ring_attention_einsum``: the float32 online softmax
+    over K/V blocks rotating along ``"seq"``, masked by global position
+    when causal; ``n - 1`` rotations, the last block folded after them.
+    Differentiated by autograd (each hop's gradient shifts back).  An
+    ``(s / n)^2`` float32 score tensor a step."""
+    size, my = mesh.axis_size(SEQ_AXIS), mesh.coord(SEQ_AXIS)
+    b, s_loc, h, d = q.shape
+    sm_scale = 1.0 / math.sqrt(d)
+    qf = q.float()
+    rows = torch.arange(s_loc, device=q.device)
+    q_pos = my * s_loc + rows
+
+    def fold_block(o, m, l, k_cur, v_cur, step):
+        src = (my - step) % size                  # the block's owner
+        scores = torch.einsum("bqhd,bkhd->bhqk", qf,
+                              k_cur.float()) * sm_scale
+        if causal:
+            k_pos = src * s_loc + rows
+            scores = torch.where(k_pos[None, :] <= q_pos[:, None], scores,
+                                 NEG_INF)
+        m_new = torch.maximum(m, scores.amax(-1))
+        shift = torch.where(torch.isfinite(m_new), m_new, 0.0)
+        p = torch.exp(scores - shift[..., None])
+        correction = torch.where(torch.isfinite(m), torch.exp(m - shift),
+                                 0.0)
+        l_new = correction * l + p.sum(-1)
+        o_new = o * correction[..., None] + torch.einsum(
+            "bhqk,bkhd->bhqd", p, v_cur.float())
+        return o_new, m_new, l_new
+
+    o = torch.zeros((b, h, s_loc, d), dtype=torch.float32, device=q.device)
+    m = torch.full((b, h, s_loc), NEG_INF, device=q.device)
+    l = torch.zeros((b, h, s_loc), device=q.device)
+    k_cur, v_cur = k, v
+    for step in range(size - 1):
+        o, m, l = fold_block(o, m, l, k_cur, v_cur, step)
+        k_cur = ring_shift(k_cur, mesh)
+        v_cur = ring_shift(v_cur, mesh)
+    o, m, l = fold_block(o, m, l, k_cur, v_cur, size - 1)
+    denom = torch.where(l == 0.0, 1.0, l)
+    return (o / denom[..., None]).transpose(1, 2).to(q.dtype).contiguous()
+
+
+def _ring_block(my: int, size: int, step: int, causal: bool):
+    """The JAX ``_ring_causal_dispatch``: how the block resident at
+    ``step`` (owned by ``src = (my - step) % size``) is attended:
+    ``False`` unmasked (``src < my``, or not causal), ``True`` causal
+    (the diagonal), None skipped (``src > my``: every key lies after
+    every query)."""
+    if not causal:
+        return False
+    src = (my - step) % size
+    if src == my:
+        return True
+    return False if src < my else None
+
+
+def _bshd_weight(w):
+    """A ``(b, h, s)`` weight as a ``(b, s, h, 1)`` factor of BSHD."""
+    return w.transpose(1, 2)[..., None]
+
+
+def _fold(o, lse, o_blk, lse_blk):
+    """Fold a block's float32 (out, lse) into the running pair: the JAX
+    ring's guarded logaddexp algebra."""
+    lse_new = torch.logaddexp(lse, lse_blk)
+    shift = torch.where(torch.isfinite(lse_new), lse_new, 0.0)
+    w_acc = torch.where(torch.isfinite(lse), torch.exp(lse - shift), 0.0)
+    w_blk = torch.where(torch.isfinite(lse_blk), torch.exp(lse_blk - shift),
+                        0.0)
+    return o * _bshd_weight(w_acc) + o_blk * _bshd_weight(w_blk), lse_new
+
+
+class _RingFlashAttention(torch.autograd.Function):
+    """The JAX ``_ring_attention_flash`` custom VJP over K3, K4 and K5.
+
+    Forward: each resident block runs K3 (unmasked or causal) or is
+    skipped (:func:`_ring_block`); its out, in q's dtype, is read as
+    float32 and folds with its lse into the state (:func:`_fold`).  Only
+    ``(q, k, v, out, lse)`` are saved, lse being the global one.
+
+    Backward: K/V rotate again with float32 dK/dV accumulators beside
+    them; each non-skipped block runs K4 and K5 from the global out and
+    lse (in bf16 from one delta pre-pass of the global out and dO), dQ
+    accumulating here; after the last block only dK/dV take the hop
+    that brings them home."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, mesh, causal):
+        size, my = mesh.axis_size(SEQ_AXIS), mesh.coord(SEQ_AXIS)
+        b, s_loc, h, d = q.shape
+        o = torch.zeros((b, s_loc, h, d), dtype=torch.float32,
+                        device=q.device)
+        lse = torch.full((b, h, s_loc), NEG_INF, device=q.device)
+        k_cur, v_cur = k, v
+        for step in range(size):
+            if step:
+                k_cur, v_cur = ring_shift([k_cur, v_cur], mesh)
+            block = _ring_block(my, size, step, causal)
+            if block is not None:
+                o_blk, lse_blk = flash_forward(q, k_cur, v_cur, block)
+                o, lse = _fold(o, lse, o_blk.float(), lse_blk)
+        out = o.to(q.dtype)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.mesh, ctx.causal = mesh, causal
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        mesh = ctx.mesh
+        size, my = mesh.axis_size(SEQ_AXIS), mesh.coord(SEQ_AXIS)
+        dout = dout.contiguous()
+        delta = (flash_backward_delta(out, dout)
+                 if q.dtype == torch.bfloat16 else None)
+        dq = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
+        dk = torch.zeros(k.shape, dtype=torch.float32, device=q.device)
+        dv = torch.zeros(v.shape, dtype=torch.float32, device=q.device)
+        k_cur, v_cur = k, v
+        for step in range(size):
+            if step:
+                # the gradients travel with their blocks
+                k_cur, v_cur, dk, dv = ring_shift([k_cur, v_cur, dk, dv],
+                                                  mesh)
+            block = _ring_block(my, size, step, ctx.causal)
+            if block is None:
+                continue
+            dk_c, dv_c = flash_backward_dkdv(q, k_cur, v_cur, out, lse, dout,
+                                             block, delta)
+            dq_c = flash_backward_dq(q, k_cur, v_cur, out, lse, dout, block,
+                                     delta)
+            dq = dq + dq_c.float()
+            dk = dk + dk_c.float()
+            dv = dv + dv_c.float()
+        # the homing hop: each dK/dV lands on its block's owner
+        dk, dv = ring_shift([dk, dv], mesh)
+        return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), None, None
+
+
+def ring_attention(q, k, v, mesh, causal: bool = True, impl: str = "flash"):
+    """Ring attention over this rank's ``(b, s / n, h, d)`` shards of a
+    sequence split over ``"seq"`` (the JAX ``ring_attention``): equal to
+    attention over the whole sequence, causal by global position.
+    ``impl="flash"`` runs the flash body (K3 forward, K4 and K5 backward,
+    O(s / n) memory both ways) where :func:`ring_block_sizes` tiles the
+    shard and q and k share a shape, else the einsum body, which
+    ``impl="einsum"`` always takes."""
+    if impl not in ("flash", "einsum"):
+        raise ValueError(f"ring impl {impl!r}: 'flash' or 'einsum'")
+    if (impl == "flash" and ring_block_sizes(q.shape[1]) is not None
+            and q.shape == k.shape):
+        return _RingFlashAttention.apply(q, k, v, mesh, causal)
+    return ring_attention_einsum(q, k, v, mesh, causal)
+
+
+def ulysses_attention(q, k, v, mesh, causal: bool = True,
+                      use_flash: bool = True):
+    """All-to-all sequence parallelism (the JAX ``ulysses_attention``):
+    rows -> heads (:func:`seq_to_heads`: every rank's rows of this rank's
+    ``h / n`` heads), attention over the whole sequence on those heads
+    (:func:`flash_attention`, or :func:`reference_attention` with
+    ``use_flash=False``), heads -> rows.  The local head count must
+    divide by the axis."""
+    size = mesh.axis_size(SEQ_AXIS)
+    h = q.shape[2]
+    if h % size:
+        raise ValueError(
+            f"ulysses needs the LOCAL (per-shard) head count ({h}) divisible "
+            f"by the '{SEQ_AXIS}' axis size ({size}); with TP-sharded heads "
+            f"this is global_heads/tp — replicate heads over TP (heads_axis="
+            f"None) or adjust the mesh")
+    qg, kg, vg = (seq_to_heads(t, mesh) for t in (q, k, v))
+    if use_flash:
+        out = flash_attention(qg, kg, vg, causal)
+    else:
+        out = reference_attention(qg, kg, vg, causal)
+    return heads_to_seq(out, mesh)
 
 
 def _declare(lib: ctypes.CDLL) -> None:

@@ -28,11 +28,36 @@ written out, since GSPMD inserts these for the JAX package):
   identity backward (the reported loss), and :func:`mean_grads_over_data`,
   the gradients' mean over ``"data"`` in one flat all-reduce.
 
-Gloo carries CUDA tensors through its own host copies; NCCL keeps them
-on the card.  Every rank runs the same collectives in the same order,
-and each result is bit-identical on every rank of the group: an
-all-reduce computes each element's sum once and hands it to every
-rank."""
+Context parallelism, along the ``"seq"`` axis (the JAX collectives
+``ppermute``, ``all_to_all`` and GSPMD's gathers, written out):
+
+- :func:`ring_shift`: rank i's tensor to rank (i + 1) % n, rank
+  (i - 1) % n's received, one ``batch_isend_irecv`` with the sends and
+  receives posted together; as an autograd function its gradient
+  shifts the other way (the transpose of ``ppermute``); a list of
+  tensors shifts in one batch, outside autograd;
+- :func:`seq_to_heads` / :func:`heads_to_seq`: the Ulysses all-to-alls
+  (``all_to_all_single`` on a contiguous repack), each the other's
+  backward;
+- :func:`gather_axis`: all-gather of the sequence dim forward,
+  reduce-scatter backward, over any axis (the einsum attention's K/V
+  under CP);
+- :func:`mesh_mean` and :func:`mean_grads_over_mesh`: the loss's and the
+  gradients' mean over every rank (``"data"`` x ``"seq"``), the
+  parameters being replicated on each.
+
+Gloo carries CUDA tensors through its own host copies for its
+collectives; NCCL keeps them on the card.  Gloo's point-to-point and
+all-to-all ops take CPU tensors only, so on gloo a CUDA tensor crossing
+:func:`ring_shift` or the all-to-alls is staged explicitly: copied into
+a pinned host buffer, exchanged, and copied back (the transport of a
+gang whose ranks share one card).  :data:`CP_TRAFFIC` counts the bytes
+this process sent through the ring hops and the all-to-alls, and the
+bytes it staged through the host.
+
+Every rank runs the same collectives in the same order, and each result
+is bit-identical on every rank of the group: an all-reduce computes
+each element's sum once and hands it to every rank."""
 
 from __future__ import annotations
 
@@ -44,11 +69,16 @@ import torch.distributed as dist
 from kubegpu_tpu_torch.parallel.mesh import (
     DATA_AXIS,
     MODEL_AXIS,
+    SEQ_AXIS,
     Mesh,
     tp_size,
 )
 
 SEQ_DIM = 1
+# bytes this process sent along the "seq" axis since import: through
+# ring hops, through all-to-alls (the slices for other ranks), and those
+# of both staged through pinned host buffers (gloo with CUDA tensors)
+CP_TRAFFIC = {"ring_shift": 0, "all_to_all": 0, "host_staged": 0}
 
 
 def _no_grad_input(x: torch.Tensor, what: str) -> None:
@@ -110,13 +140,21 @@ def _slice(x: torch.Tensor, mesh: Mesh, dim: int) -> torch.Tensor:
     return x.chunk(tp_size(mesh), dim=dim)[mesh.coord(MODEL_AXIS)].contiguous()
 
 
+def _reduce_scatter_over(x: torch.Tensor, group, n: int, i: int,
+                         dim: int) -> torch.Tensor:
+    """Slice ``i`` of ``n`` along ``dim`` of the sum of every rank of
+    ``group``'s ``x``."""
+    parts = [p.contiguous() for p in x.chunk(n, dim=dim)]
+    out = torch.empty_like(parts[i])
+    dist.reduce_scatter(out, parts, group=group)
+    return out
+
+
 def _reduce_scatter(x: torch.Tensor, mesh: Mesh, dim: int) -> torch.Tensor:
     """This rank's slice along ``dim`` of the sum of every ``"model"``
     rank's ``x``."""
-    parts = [p.contiguous() for p in x.chunk(tp_size(mesh), dim=dim)]
-    out = torch.empty_like(parts[mesh.coord(MODEL_AXIS)])
-    dist.reduce_scatter(out, parts, group=mesh.group)
-    return out
+    return _reduce_scatter_over(x, mesh.group, tp_size(mesh),
+                                mesh.coord(MODEL_AXIS), dim)
 
 
 class _CopyToModel(torch.autograd.Function):
@@ -267,3 +305,209 @@ def mean_grads_over_data(grads: Sequence[torch.Tensor], mesh: Mesh) -> None:
     dp = mesh.axis_size(DATA_AXIS)
     if dp > 1:
         flat_all_reduce(grads, mesh.axis_group(DATA_AXIS), 1.0 / dp)
+
+
+# -- context parallelism: the "seq" axis -------------------------------------
+
+
+def _staged(mesh: Mesh, x: torch.Tensor) -> bool:
+    """Whether ``x`` crosses gloo from a card: then through pinned host
+    buffers (gloo's point-to-point and all-to-all take CPU tensors)."""
+    return mesh.backend == "gloo" and x.device.type != "cpu"
+
+
+def _to_host(x: torch.Tensor) -> torch.Tensor:
+    buf = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
+    buf.copy_(x)
+    CP_TRAFFIC["host_staged"] += _nbytes(x)
+    return buf
+
+
+def _nbytes(x: torch.Tensor) -> int:
+    return x.numel() * x.element_size()
+
+
+def _empty_like(x: torch.Tensor, staged: bool) -> torch.Tensor:
+    if staged:
+        return torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
+    return torch.empty_like(x)
+
+
+def _shift(tensors: Sequence[torch.Tensor], mesh: Mesh, axis: str,
+           step: int) -> List[torch.Tensor]:
+    """Each tensor of ``tensors`` sent ``step`` ranks on along ``axis``
+    (to ``(i + step) % n``) and the one from ``(i - step) % n``
+    received: every send and receive posted in one
+    ``batch_isend_irecv``, one tag a tensor."""
+    n = mesh.axis_size(axis)
+    if n == 1:
+        return list(tensors)
+    group = mesh.axis_group(axis)
+    i = mesh.coord(axis)
+    dst = dist.get_global_rank(group, (i + step) % n)
+    src = dist.get_global_rank(group, (i - step) % n)
+    staged = _staged(mesh, tensors[0])
+    sends = [t.contiguous() for t in tensors]
+    CP_TRAFFIC["ring_shift"] += sum(_nbytes(t) for t in sends)
+    if staged:
+        sends = [_to_host(t) for t in sends]
+    recvs = [_empty_like(t, staged) for t in sends]
+    ops = []
+    for tag, (s, r) in enumerate(zip(sends, recvs)):
+        ops.append(dist.P2POp(dist.isend, s, dst, group, tag))
+        ops.append(dist.P2POp(dist.irecv, r, src, group, tag))
+    for work in dist.batch_isend_irecv(ops):
+        work.wait()
+    if staged:
+        recvs = [r.to(t.device) for r, t in zip(recvs, tensors)]
+    return recvs
+
+
+class _RingShift(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis):
+        ctx.mesh, ctx.axis = mesh, axis
+        return _shift([x], mesh, axis, 1)[0]
+
+    @staticmethod
+    def backward(ctx, g):
+        return _shift([g], ctx.mesh, ctx.axis, -1)[0], None, None
+
+
+def ring_shift(x, mesh: Mesh, axis: str = SEQ_AXIS):
+    """``jax.lax.ppermute`` with ``perm = [(i, (i + 1) % n)]`` along
+    ``axis``: rank i's ``x`` goes to rank (i + 1) % n and rank
+    (i - 1) % n's arrives.  A tensor goes through the autograd form,
+    whose gradient shifts the other way; a list or tuple of tensors
+    shifts in one batch outside autograd and comes back as a list.  One
+    rank on the axis: ``x`` itself."""
+    if isinstance(x, (list, tuple)):
+        return _shift(x, mesh, axis, 1)
+    return _RingShift.apply(x, mesh, axis)
+
+
+def _all_to_all(x: torch.Tensor, mesh: Mesh, axis: str) -> torch.Tensor:
+    """``x`` ``(n, ...)``: slice j goes to rank j of ``axis``; returns
+    ``(n, ...)`` whose slice j came from rank j."""
+    n = mesh.axis_size(axis)
+    if n == 1:
+        return x
+    staged = _staged(mesh, x)
+    CP_TRAFFIC["all_to_all"] += _nbytes(x) * (n - 1) // n
+    src = _to_host(x) if staged else x.contiguous()
+    out = _empty_like(src, staged)
+    dist.all_to_all_single(out, src, group=mesh.axis_group(axis))
+    return out.to(x.device) if staged else out
+
+
+def _seq_to_heads(x: torch.Tensor, mesh: Mesh, axis: str) -> torch.Tensor:
+    b, s, h, d = x.shape
+    n = mesh.axis_size(axis)
+    parts = x.reshape(b, s, n, h // n, d).permute(2, 0, 1, 3, 4).contiguous()
+    got = _all_to_all(parts, mesh, axis)   # slice j: rank j's rows
+    return got.permute(1, 0, 2, 3, 4).reshape(b, n * s, h // n, d)
+
+
+def _heads_to_seq(y: torch.Tensor, mesh: Mesh, axis: str) -> torch.Tensor:
+    b, s_all, hl, d = y.shape
+    n = mesh.axis_size(axis)
+    s = s_all // n
+    parts = y.reshape(b, n, s, hl, d).permute(1, 0, 2, 3, 4).contiguous()
+    got = _all_to_all(parts, mesh, axis)   # slice j: rank j's heads
+    return got.permute(1, 2, 0, 3, 4).reshape(b, s, n * hl, d)
+
+
+class _SeqToHeads(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis):
+        ctx.mesh, ctx.axis = mesh, axis
+        return _seq_to_heads(x, mesh, axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _heads_to_seq(g, ctx.mesh, ctx.axis), None, None
+
+
+class _HeadsToSeq(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, y, mesh, axis):
+        ctx.mesh, ctx.axis = mesh, axis
+        return _heads_to_seq(y, mesh, axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _seq_to_heads(g, ctx.mesh, ctx.axis), None, None
+
+
+def seq_to_heads(x: torch.Tensor, mesh: Mesh,
+                 axis: str = SEQ_AXIS) -> torch.Tensor:
+    """``jax.lax.all_to_all(x, axis, split_axis=2, concat_axis=1,
+    tiled=True)``: this rank's ``(b, s / n, h, d)`` rows of every head
+    -> every rank's rows, in rank order, of this rank's ``h / n`` heads,
+    ``(b, s, h / n, d)``, contiguous.  The gradient goes back through
+    :func:`heads_to_seq`."""
+    return _SeqToHeads.apply(x, mesh, axis)
+
+
+def heads_to_seq(y: torch.Tensor, mesh: Mesh,
+                 axis: str = SEQ_AXIS) -> torch.Tensor:
+    """The inverse of :func:`seq_to_heads` (``split_axis=1,
+    concat_axis=2``): ``(b, s, h / n, d)`` -> this rank's ``(b, s / n,
+    h, d)`` rows of every head; the gradient goes back through
+    :func:`seq_to_heads`."""
+    return _HeadsToSeq.apply(y, mesh, axis)
+
+
+class _GatherAxis(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis):
+        ctx.mesh, ctx.axis = mesh, axis
+        return _gather(x, mesh.axis_group(axis), mesh.axis_size(axis),
+                       SEQ_DIM)
+
+    @staticmethod
+    def backward(ctx, g):
+        m = ctx.mesh
+        return (_reduce_scatter_over(g, m.axis_group(ctx.axis),
+                                     m.axis_size(ctx.axis),
+                                     m.coord(ctx.axis), SEQ_DIM),
+                None, None)
+
+
+def gather_axis(x: torch.Tensor, mesh: Mesh,
+                axis: str = SEQ_AXIS) -> torch.Tensor:
+    """Every ``axis`` rank's ``(b, s, ...)`` ``x`` concatenated along the
+    sequence in rank order; the gradient is reduce-scattered back (each
+    rank's rows of the sum of every rank's gradient)."""
+    if mesh.axis_size(axis) == 1:
+        return x
+    return _GatherAxis.apply(x, mesh, axis)
+
+
+class _MeshMean(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh):
+        y = x.detach().clone()
+        dist.all_reduce(y)
+        return y / mesh.size
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def mesh_mean(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    """The mean of ``x`` over every rank of the mesh; the gradient passes
+    through unchanged (each rank differentiates its own rows and
+    :func:`mean_grads_over_mesh` averages the gradients)."""
+    if mesh.size == 1:
+        return x
+    return _MeshMean.apply(x, mesh)
+
+
+def mean_grads_over_mesh(grads: Sequence[torch.Tensor], mesh: Mesh) -> None:
+    """Average ``grads`` over every rank of the mesh in place, one
+    all-reduce of all of them flattened, divided by the mesh's size: the
+    gradients of parameters every rank holds whole."""
+    if mesh.size > 1:
+        flat_all_reduce(grads, dist.group.WORLD, 1.0 / mesh.size)

@@ -1,8 +1,10 @@
 """The process mesh: the port of ``device_mesh``
 (``kubegpu_tpu/parallel/mesh.py``) for the ``"model"`` mesh of
-tensor-parallel serving and the ``("data", "model")`` mesh of data x
-tensor-parallel training, and of ``tp_size``
-(``kubegpu_tpu/parallel/sharding.py``).
+tensor-parallel serving, the ``("data", "model")`` mesh of data x
+tensor-parallel training and the ``("data", "seq")`` mesh of
+context-parallel training, and of ``tp_size``
+(``kubegpu_tpu/parallel/sharding.py``) and its ``"seq"`` counterpart
+``cp_size``.
 
 The JAX package runs one controller over every device; the port runs one
 process per rank.  A :class:`Mesh` is what one rank knows of the mesh:
@@ -35,6 +37,7 @@ from kubegpu_tpu_torch.models.params import resolve_device
 
 DATA_AXIS = "data"
 MODEL_AXIS = "model"
+SEQ_AXIS = "seq"
 BACKENDS = ("nccl", "gloo")
 
 
@@ -89,6 +92,14 @@ def tp_size(mesh: Optional[Mesh]) -> int:
     if mesh is None or MODEL_AXIS not in mesh.axis_names:
         return 1
     return int(mesh.shape[MODEL_AXIS])
+
+
+def cp_size(mesh: Optional[Mesh]) -> int:
+    """The context-parallel width a mesh carries (1 without a mesh or a
+    ``"seq"`` axis)."""
+    if mesh is None or SEQ_AXIS not in mesh.axis_names:
+        return 1
+    return int(mesh.shape[SEQ_AXIS])
 
 
 def _axis_lines(axes: Mapping[str, int], axis: str):

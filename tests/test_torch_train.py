@@ -247,6 +247,30 @@ def test_trainable_binding_takes_float32_leaves_only(jax_state):
 
 
 @pytest.mark.parametrize("attn_impl", ["ring", "ulysses"])
-def test_context_parallel_attention_waits_for_its_slice(attn_impl):
-    with pytest.raises(NotImplementedError, match="long-context slice"):
-        torch_model(attn_impl)
+def test_context_parallel_attention_waits_for_its_slice(jax_state, attn_impl):
+    """Context-parallel attention with no ``"seq"`` mesh axis runs flash,
+    in JAX (``transformer.py:90``) as in the port: the loss and every
+    gradient equal JAX's ``attn_impl`` model's with no mesh, and the
+    port's flash model's bit for bit.  (The case kept its name from when
+    the port refused these modes.)"""
+    tokens = tokens_np(2)
+    state = jax_state.replace(apply_fn=jax_model(attn_impl).apply)
+    loss_j, grads_j = jax.jit(jax.value_and_grad(
+        lambda p, t: jax_lm_loss(state, p, t)))(state.params,
+                                                jnp.asarray(tokens))
+    runs = {}
+    for impl in (attn_impl, "flash"):
+        ts = create_train_state(torch_model(impl),
+                                params_from_numpy(np_tree(jax_state.params)))
+        loss = lm_loss(ts.model, torch.from_numpy(tokens))
+        loss.backward()
+        runs[impl] = (loss.item(), {n: p.grad for n, p in
+                                    ts.model.named_parameters()})
+    loss, grads = runs[attn_impl]
+    np.testing.assert_allclose(loss, float(loss_j), rtol=LOGIT_TOL,
+                               atol=LOGIT_TOL)
+    assert loss == runs["flash"][0]
+    for path, want in leaves_by_path(grads_j):
+        np.testing.assert_allclose(grads[path].numpy(), want, rtol=GRAD_RTOL,
+                                   atol=GRAD_ATOL, err_msg=path)
+        assert torch.equal(grads[path], runs["flash"][1][path]), path

@@ -7,8 +7,9 @@ gloo ranks (``SERVING_TP``), and refuses what the JAX worker refuses.
 ``--model lm`` trains and prints FIRST_STEP_DONE and steady_state with
 zero flash-kernel launches; ``--tp 2 --cpu-ranks 4 --device cpu`` trains
 on a ``("data", "model")`` mesh of four gloo ranks (``TRAINING_MESH
-data=2 model=2``) and the JAX worker's mesh refusals hold; what waits
-for a later slice (context-parallel attention) fails naming it."""
+data=2 model=2``) and the JAX worker's mesh refusals hold;
+``--attn-impl ring|ulysses`` train as flash (``--model lm-cp`` is in
+``tests/test_torch_cp_train.py``)."""
 
 import os
 import re
@@ -193,8 +194,15 @@ def test_lm_worker_draws_the_jax_workers_batches():
     # its slice
     pytest.param(["--tp", "2"], "exceeds the visible device count 1",
                  id="bad0-data x tensor-parallel training slice"),
-    (["--attn-impl", "ring"], "long-context slice"),
-    (["--attn-impl", "ulysses"], "long-context slice"),
+    # --attn-impl ring|ulysses now train as flash (no "seq" axis), as in
+    # JAX; these cases keep their names and hold the refusals of the
+    # context-parallel slice that arrived instead
+    pytest.param(["--model", "lm-cp", "--cp", "2"],
+                 "--cp 2 exceeds the visible device count 1",
+                 id="bad1-long-context slice"),
+    pytest.param(["--model", "lm-cp", "--cpu-ranks", "2", "--seq", "15"],
+                 "--seq 15 not divisible by cp=2",
+                 id="bad2-long-context slice"),
     (["--heads", "5"], "divisible"),
 ])
 def test_lm_worker_refuses_what_waits_for_a_later_slice(bad, match):
