@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Builds every kernel of the port's serving and training paths from the
-sources in the checkout, then runs fifty-one phases; any failure exits
+sources in the checkout, then runs fifty-six phases; any failure exits
 non-zero:
 
 1. device: the card's name and power limit, TF32 off;
@@ -322,8 +322,45 @@ non-zero:
    1`` (the worker's default widths, seq 8192, 8 windows, 3 steps) in a
    subprocess: K3, K4, K5 and the pre-pass launched steps x layers times.
 
-Phases 29-34 set every kernel's launch count to 0 before each dense run
-and require it to be 0 after: the dense paths run none of K1-K5.
+52. ResNet data-parallel training (no kernel of the port is on its
+   path: its convolutions are cuDNN's, as XLA's are the JAX ResNet's):
+   ``resnet-tiny`` at float32, card against CPU, TF32 off for the phase
+   (PyTorch lets cuDNN run float32 convolutions in TF32 by default) and
+   restored after: three carried nesterov SGD steps on 8 images from one
+   fresh tree, at 32 px and at an odd 37 px: losses within rtol 1e-4,
+   the first step's gradients within rtol=atol 1e-4 and its new
+   ``batch_stats`` within 1e-5;
+53. ``samples/jax-resnet.yaml``'s worker command, ``--steps 100`` (no
+   ``--model``: the default, the scan-rolled ResNet-50, batch 32, 224
+   px, 1000 classes), through the port's entry point in a subprocess:
+   ``FIRST_STEP_DONE`` (the worker's seconds from its start, and this
+   phase's from the spawn), steady images/s, peak memory, every kernel
+   count 0; cuDNN autotuning is PyTorch's default, off, and the worker
+   sets nothing;
+54. the reference's steady state (``bench.py`` ``steady_state_resnet``):
+   the unrolled ResNet-50 at batch 256 on a device pool of 3 synthetic
+   batches, 5 warm-up and 30 timed steps: ms a step, images/s, and the
+   share of the card's dense bf16 peak (989 TFLOP/s) that the convs' and
+   head's FLOPs (3 x the forward's 2 x MACs, counted from their shapes)
+   make; then the same with cuDNN autotuning on (its first step and its
+   steady step), and a profile of 3 steps with it off: device time by
+   operation (convolutions, BatchNorm/ReLU/elementwise passes, casts,
+   pooling, the head's matmul, the optimizer) and the idle share;
+55. a two-rank gloo gang on the card (``{"data": 2}``; the gradient mean
+   and every BatchNorm's sums are copied through the host, so no time
+   here is a data-parallel speed): ``resnet-tiny`` at float32 against
+   one device at the global batch (losses, first-step gradients and
+   ``batch_stats`` within 1e-4); ResNet-50 at 32 images a rank: the
+   first loss within 1e-2 of one device's at 64, seconds a step and the
+   gradient mean's share;
+56. ResNet-50 checkpoints through the worker's ``--ckpt-dir`` (batch 32,
+   cuDNN deterministic for the phase): 2 steps, a resumed 2, against 4
+   uninterrupted: every leaf, the ``batch_stats`` included, within 1e-6;
+   the step's bytes, each save's and the restore's seconds.
+
+Phases 29-34 and 53-54 set every kernel's launch count to 0 before each
+run and require it to be 0 after: the dense paths and the ResNet run
+none of K1-K5.
 
 The line before the last is the per-kernel JSON record, and the line
 before that the card's name and power limit again; the last line is
@@ -4590,6 +4627,379 @@ def phase_cp_worker(device: str = "cuda", sample=CP_SAMPLE_ARGV) -> dict:
                                   "PEAK_MEM_GIB")}
 
 
+# -- ResNet data-parallel training (phases 52-56) -----------------------------
+
+RESNET_TINY = dict(layout="unrolled", stage_sizes=(1, 1, 1, 1), num_filters=8,
+                   num_classes=10, dtype="float32")
+RESNET50 = dict(layout="scan", stage_sizes=(3, 4, 6, 3), num_filters=64,
+                num_classes=1000, dtype="bfloat16")
+# samples/jax-resnet.yaml's worker command (no --model: the default)
+RESNET_SAMPLE_ARGV = ["--steps", "100"]
+# NVIDIA's data sheet, H100 SXM, dense bf16
+BF16_PEAK_FLOPS = 989e12
+RESNET_STATS_TOL = 1e-5
+
+
+def resnet_cases():
+    """The rank bodies the port's ResNet tests share
+    (``tests/torch_resnet_cases.py``)."""
+    tp_cases()   # puts tests/ on the path
+    import torch_resnet_cases
+
+    return torch_resnet_cases
+
+
+def resnet_tree(cfg: dict, seed: int) -> tuple:
+    """Fresh float32 ``(params, batch_stats)`` of ``cfg`` as numpy."""
+    import torch
+
+    from kubegpu_tpu_torch.models.params import init_resnet_params
+
+    cases = resnet_cases()
+    params, stats = init_resnet_params(
+        cases.make_model(cfg), torch.Generator().manual_seed(seed), "cpu")
+    return cases.numpy_tree(params), cases.numpy_tree(stats)
+
+
+def resnet_batches(size: int, batch: int, steps: int = 3,
+                   classes: int = 10) -> tuple:
+    import numpy as np
+
+    rng = np.random.default_rng(size)
+    return (rng.standard_normal((steps, batch, size, size, 3),
+                                dtype=np.float32),
+            rng.integers(0, classes, (steps, batch), dtype=np.int32))
+
+
+def phase_resnet_card_vs_cpu(device: str = "cuda") -> None:
+    """Phase 52: ``resnet-tiny`` at float32, card against CPU (TF32 off
+    inside ``torch_resnet_cases.train`` and restored after), 3 carried
+    SGD steps at 32 and 37 px."""
+    import numpy as np
+
+    cases = resnet_cases()
+    params, stats = resnet_tree(RESNET_TINY, seed=3)
+    for size in (32, 37):
+        images, labels = resnet_batches(size, 8)
+        cpu = cases.train(None, RESNET_TINY, params, stats, images, labels,
+                          device="cpu")
+        card = cases.train(None, RESNET_TINY, params, stats, images, labels,
+                           device=device)
+        np.testing.assert_allclose(card["losses"], cpu["losses"],
+                                   rtol=TRAIN_TOL, atol=0)
+        grads = tree_close(f"resnet-tiny {size}px gradients", card["grads"],
+                           cpu["grads"], TRAIN_TOL)
+        stats1 = tree_close(f"resnet-tiny {size}px batch_stats",
+                            card["stats1"], cpu["stats1"], RESNET_STATS_TOL)
+        log(f"resnet-tiny fp32 {size}px card vs cpu: losses "
+            f"{[round(x, 6) for x in card['losses']]}, diffs "
+            f"{np.abs(np.subtract(card['losses'], cpu['losses'])).tolist()}"
+            f"; worst step-1 gradient diff {grads:.3e}, batch_stats "
+            f"{stats1:.3e}")
+
+
+def read_worker(argv: list, timeout: float = 600) -> tuple:
+    """The worker's entry point in a subprocess: ``(lines by first word,
+    seconds from the spawn to the FIRST_STEP_DONE line)``; killed on a
+    timeout."""
+    import os
+    import threading
+
+    cmd = [sys.executable, "-m", "kubegpu_tpu_torch.models.worker", *argv]
+    t0 = time.monotonic()
+    proc = subprocess.Popen(cmd, cwd=os.path.dirname(os.path.abspath(
+        __file__)), stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True)
+    watchdog = threading.Timer(timeout, proc.kill)
+    watchdog.start()
+    lines, out, first_at = {}, [], None
+    try:
+        for line in proc.stdout:
+            out.append(line)
+            if line.startswith("FIRST_STEP_DONE") and first_at is None:
+                first_at = time.monotonic() - t0
+            if line.strip():
+                lines.setdefault(line.split()[0], line.strip())
+        proc.wait()
+    finally:
+        watchdog.cancel()
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    assert proc.returncode == 0, "".join(out)[-3000:]
+    return lines, first_at
+
+
+def phase_resnet_sample(device: str = "cuda",
+                        argv=RESNET_SAMPLE_ARGV) -> dict:
+    """Phase 53: ``samples/jax-resnet.yaml``'s command through the port's
+    worker in a subprocess, at its defaults."""
+    import torch
+
+    zero_counts()
+    lines, spawn_s = read_worker(
+        argv + (["--device", "cpu"] if device != "cuda" else []))
+    assert_no_kernel("resnet sample (this process)")
+    first = fields(lines["FIRST_STEP_DONE"])
+    steady = fields(lines["steady_state"])
+    launches = fields(lines["KERNEL_LAUNCHES"])
+    model = argv[argv.index("--model") + 1] if "--model" in argv else \
+        "resnet50"
+    assert launches.pop("model") == model, lines["KERNEL_LAUNCHES"]
+    launches.pop("device")
+    assert set(launches.values()) == {"0"}, launches
+    peak = lines["PEAK_MEM_GIB"].split()[1]
+    log(f"resnet sample ({' '.join(argv)}: {model} at the worker's "
+        f"defaults): FIRST_STEP_DONE {first['seconds']} s after the worker's "
+        f"start ({spawn_s:.2f} s after the spawn), first loss "
+        f"{first['loss']}; steady {steady['images_per_sec']} images/s, "
+        f"loss {steady['loss']}; peak device memory {peak} GiB; worker "
+        f"kernel launches {launches}; cuDNN autotuning "
+        f"{'on' if torch.backends.cudnn.benchmark else 'off'} "
+        "(PyTorch's default; the worker sets nothing, so no first step "
+        "waits on an algorithm search)")
+    return dict(first_s=float(first["seconds"]), spawn_s=spawn_s,
+                images_per_sec=float(steady["images_per_sec"]),
+                peak_gib=None if peak == "not" else float(peak))
+
+
+def resnet_breakdown(prof) -> dict:
+    """Device time (ms) of a profile by operation: convolutions,
+    BatchNorm/ReLU/elementwise passes, casts and copies, pooling, the
+    head's matmul, the optimizer's foreach passes."""
+    cats = dict(conv=0.0, bn_relu_elementwise=0.0, cast_copy=0.0, pool=0.0,
+                head_matmul=0.0, optimizer=0.0)
+    for ev in prof.key_averages():
+        if not ev.key.startswith("aten::"):
+            continue
+        us = getattr(ev, "self_device_time_total", None)
+        if us is None:
+            us = getattr(ev, "self_cuda_time_total", 0)
+        name = ev.key
+        if "conv" in name:
+            cat = "conv"
+        elif "_foreach" in name:
+            cat = "optimizer"
+        elif "copy_" in name or "_to_copy" in name:
+            cat = "cast_copy"
+        elif "max_pool" in name:
+            cat = "pool"
+        elif name in ("aten::mm", "aten::addmm", "aten::bmm"):
+            cat = "head_matmul"
+        else:
+            cat = "bn_relu_elementwise"
+        cats[cat] += us / 1e3
+    return cats
+
+
+def phase_resnet_steady(device: str = "cuda", batch: int = 256,
+                        size: int = 224, warm: int = 5, timed: int = 30,
+                        pool: int = 3, profiled: int = 3,
+                        stages=(3, 4, 6, 3)) -> dict:
+    """Phase 54: ``bench.py``'s ``steady_state_resnet`` on the port: the
+    unrolled ResNet-50 at ``batch`` on a device pool of ``pool``
+    synthetic batches; cuDNN autotuning off (the worker's setting), then
+    on; a profile of ``profiled`` steps with it off."""
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from kubegpu_tpu_torch.models.data import (
+        device_pool_batches,
+        synthetic_image_batches,
+    )
+    from kubegpu_tpu_torch.models.params import init_resnet_params
+    from kubegpu_tpu_torch.models.resnet import ResNet50
+    from kubegpu_tpu_torch.models.train import (
+        create_train_state,
+        resnet_step,
+    )
+
+    zero_counts()
+    model = ResNet50(num_classes=1000, stage_sizes=stages)
+    params, stats = init_resnet_params(
+        model, torch.Generator(device=device).manual_seed(0), device)
+    state = create_train_state(model, params, batch_stats=stats)
+    batches = device_pool_batches(synthetic_image_batches(batch, size=size),
+                                  device, pool=pool)
+    # torch's flop counter over one image's forward (2 x the MACs of
+    # every conv and of the head); a step is 3 forwards of the batch
+    counter = FlopCounterMode(display=False)
+    with counter, torch.no_grad():
+        model(torch.zeros((1, size, size, 3), device=device), train=False)
+    step_flops = 3 * counter.get_total_flops() * batch
+
+    def run(n: int) -> tuple:
+        if device == "cuda":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            loss = resnet_step(state, *next(batches))
+        value = loss.item()   # forces the chain
+        return (time.perf_counter() - t0) / n, value
+
+    if device == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    out = {}
+    old = torch.backends.cudnn.benchmark
+    try:
+        for autotune in (False, True):
+            torch.backends.cudnn.benchmark = autotune
+            first_s, _ = run(1)
+            run(warm - 1)
+            dt, loss = run(timed)
+            out[autotune] = dict(first_s=first_s, step_s=dt, loss=loss)
+            log(f"resnet50-unrolled b{batch} {size}px steady (cuDNN "
+                f"autotuning {'on' if autotune else 'off'}): first step "
+                f"in this mode {first_s * 1e3:.1f} ms; {dt * 1e3:.2f} ms a "
+                f"step over {timed} ({batch / dt:.1f} images/s), "
+                f"{flop_str(step_flops)} a step -> "
+                f"{step_flops / dt / BF16_PEAK_FLOPS * 100:.1f}% of the "
+                f"dense bf16 peak; loss {loss:.4f}")
+        torch.backends.cudnn.benchmark = False
+        if device == "cuda":
+            from torch.profiler import ProfilerActivity, profile
+
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                run(profiled)
+            wall_ms = (time.perf_counter() - t0) * 1e3 / profiled
+            cats = {k: v / profiled for k, v in resnet_breakdown(prof).items()}
+            busy = sum(cats.values())
+            log(f"resnet50-unrolled b{batch} profile ({profiled} steps, "
+                f"autotuning off): {wall_ms:.2f} ms a step profiled, device "
+                f"busy {busy:.2f} ms (idle {100 - busy / wall_ms * 100:.1f}%"
+                "); by operation, ms a step: " + ", ".join(
+                    f"{k} {v:.2f} ({v / busy * 100:.1f}%)"
+                    for k, v in sorted(cats.items(), key=lambda kv: -kv[1])))
+            out["profile"] = dict(wall_ms=wall_ms, busy_ms=busy, **cats)
+            out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+            log(f"resnet50-unrolled b{batch}: peak device memory "
+                f"{out['peak_gib']:.2f} GiB")
+    finally:
+        torch.backends.cudnn.benchmark = old
+    assert_no_kernel("resnet steady state")
+    out["step_flops"] = step_flops
+    return out
+
+
+def resnet_gang(tmp: str, device: str):
+    """The two ranks of a {"data": 2} mesh on the one card over gloo:
+    the gradient mean and the BatchNorms' sums are copied through the
+    host."""
+    from kubegpu_tpu_torch.parallel.launch import Gang
+
+    dev = "cuda:0" if device == "cuda" else device
+    return Gang({"data": 2}, tmp, backend="gloo", devices=[dev] * 2,
+                timeout_s=900.0)
+
+
+def phase_resnet_gang(device: str = "cuda", flagship: dict = RESNET50,
+                      rows: int = 32, size: int = 224,
+                      steps: int = 3) -> dict:
+    """Phase 55: resnet-tiny at float32 in a two-rank gang against one
+    device; ResNet-50 at ``rows`` a rank against one device at twice
+    that."""
+    import numpy as np
+
+    cases = resnet_cases()
+    params, stats = resnet_tree(RESNET_TINY, seed=4)
+    images, labels = resnet_batches(32, 8)
+    one = cases.train(None, RESNET_TINY, params, stats, images, labels,
+                      device=device)
+    ref = cases.timed_steps(None, flagship, 2 * rows, 1, size, device=device)
+    with tempfile.TemporaryDirectory() as tmp:
+        with resnet_gang(tmp, device) as gang:
+            two = gang.run(cases.train, RESNET_TINY, params, stats, images,
+                           labels)
+            big = gang.run(cases.timed_steps, flagship, rows, steps, size)
+    np.testing.assert_allclose(two["losses"], one["losses"], rtol=TRAIN_TOL,
+                               atol=TRAIN_TOL)
+    grads = tree_close("resnet-tiny dp 2 gradients", two["grads"],
+                       one["grads"], TRAIN_TOL)
+    stats1 = tree_close("resnet-tiny dp 2 batch_stats", two["stats1"],
+                        one["stats1"], TRAIN_TOL)
+    log(f"resnet-tiny fp32 dp 2 (gloo on the card) vs one device: loss "
+        f"diffs {np.abs(np.subtract(two['losses'], one['losses'])).tolist()}"
+        f", worst step-1 gradient diff {grads:.3e}, batch_stats "
+        f"{stats1:.3e}")
+    first, want = big["losses"][0], ref["losses"][0]
+    assert all(np.isfinite(big["losses"])), big["losses"]
+    assert abs(first - want) <= FLAGSHIP_LOSS_TOL, (first, want)
+    step = np.median(big["step_s"][1:] or big["step_s"])
+    mean = np.median(big["mean_s"][1:] or big["mean_s"])
+    log(f"resnet50 dp 2 (gloo on the card, {rows} images a rank): losses "
+        f"{[round(x, 4) for x in big['losses']]}, first against one "
+        f"device's at {2 * rows}: {want:.4f} (diff {abs(first - want):.2e})"
+        f"; steps {[round(x, 3) for x in big['step_s']]} s, median "
+        f"{step:.3f} s, of which the gradient mean of "
+        f"{big['mean_bytes']} B a rank {mean:.3f} s "
+        f"({mean / step * 100:.1f}%), forward and backward "
+        f"{np.median(big['grad_s']):.3f} s, optimizer "
+        f"{np.median(big['opt_s']):.3f} s (host-staged: not a "
+        f"data-parallel speed); one device at {2 * rows}: "
+        f"{ref['step_s'][0]:.3f} s (its first step)")
+    return dict(step_s=float(step), mean_s=float(mean))
+
+
+RESNET_CKPT_ARGV = ["--model", "resnet50", "--batch-per-chip", "32",
+                    "--ckpt-every", "0"]
+
+
+def phase_resnet_ckpt(device: str = "cuda", argv=RESNET_CKPT_ARGV) -> dict:
+    """Phase 56: ResNet-50 trained 2 steps with ``--ckpt-dir``, resumed
+    for 2 more, against 4 uninterrupted steps (cuDNN deterministic for
+    the phase, restored after)."""
+    import os
+
+    import numpy as np
+    import torch
+
+    from kubegpu_tpu_torch.models import worker
+
+    model = argv[argv.index("--model") + 1]
+
+    def run(extra):
+        return worker.run_resnet(worker.build_parser().parse_args(
+            argv + ["--device", device] + extra))
+
+    old = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    root = tempfile.mkdtemp(prefix="chip-smoke-resnet-ckpt-")
+    try:
+        a, b = os.path.join(root, "resumed"), os.path.join(root, "whole")
+        first = run(["--steps", "2", "--ckpt-dir", a])
+        resumed = run(["--steps", "2", "--ckpt-dir", a])
+        whole = run(["--steps", "4", "--ckpt-dir", b])
+        assert resumed["checkpoint"]["resumed_step"] == 2
+        assert resumed["step"] == whole["step"] == 4
+        worst, n_stats = 0.0, 0
+        with np.load(os.path.join(a, model, "4", "state.npz")) as got, \
+                np.load(os.path.join(b, model, "4", "state.npz")) as want:
+            assert sorted(got.files) == sorted(want.files)
+            n_leaves = len(want.files)
+            for key in want.files:
+                n_stats += key.startswith("batch_stats/")
+                worst = max(worst, float(np.abs(
+                    got[key].astype(np.float64) - want[key]).max(initial=0)))
+        assert n_stats > 0 and worst <= RESUME_TOL, (n_stats, worst)
+        ck = resumed["checkpoint"]
+        log(f"{model} checkpoint ({' '.join(argv)}): step 4 resumed vs "
+            f"uninterrupted, largest leaf difference {worst:.3e} over "
+            f"{n_leaves} leaves ({n_stats} batch_stats); a step "
+            f"{ck['ckpt_bytes']} B; saves "
+            f"{[round(x, 3) for x in first['checkpoint']['save_s']]} and "
+            f"{[round(x, 3) for x in ck['save_s']]} s, the resume's restore "
+            f"{ck['restore_s']:.3f} s; losses {first['losses']} then "
+            f"{resumed['losses']} (uninterrupted {whole['losses']})")
+        return dict(bytes=ck["ckpt_bytes"], restore_s=ck["restore_s"],
+                    save_s=ck["save_s"])
+    finally:
+        torch.backends.cudnn.deterministic = old
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def main() -> int:
     import torch
 
@@ -4678,6 +5088,15 @@ def main() -> int:
     cp_flag = phase_cp_flagship()
     phase_cp_worker()
     log(f"context-parallel phases {time.monotonic() - t2:.1f} s")
+    # ResNet data-parallel training: card vs CPU at fp32, the sample's
+    # command, the reference's steady state, a two-rank gang, checkpoints
+    t3 = time.monotonic()
+    phase_resnet_card_vs_cpu()
+    phase_resnet_sample()
+    phase_resnet_steady()
+    phase_resnet_gang()
+    phase_resnet_ckpt()
+    log(f"resnet phases {time.monotonic() - t3:.1f} s")
     log(f"chip_smoke: all phases passed in {time.monotonic() - t0:.1f} s")
     source = "kubegpu_tpu_torch/ops/csrc/paged_attention.cu"
     kernels = []

@@ -11,11 +11,15 @@ wrote.  Each saved step is one directory ``<root>/<step>/`` holding:
   member a leaf of the WHOLE training tree, named by its ``/``-joined
   path: ``params/...``, the optimizer state in optax's layout under
   ``opt_state/`` (``trace/...`` for SGD; ``mu/...``, ``nu/...`` and
-  ``count`` for Adam; see ``train.Optimizer``) and ``step``.  Parameters
-  and moments are float32, as the reference's training state is;
-  ``batch_stats`` is an empty subtree and stores nothing;
+  ``count`` for Adam; see ``train.Optimizer``), a ResNet's BatchNorm
+  statistics under ``batch_stats/`` (``.../mean``, ``.../var``; the LM
+  has none) and ``step``.  Parameters, moments and statistics are
+  float32, as the reference's training state is;
 - ``checkpoint.json``: the format's name and version, the step, the
-  optimizer's name and hyperparameters and the model's dims.
+  optimizer's name and hyperparameters, the model's dims (the LM's
+  widths, or a ResNet's ``family``, ``layout``, ``stage_sizes``,
+  ``num_filters``, ``num_classes`` and ``image_size``) and the list of
+  ``batch_stats`` leaves.
 
 A save writes a temporary directory (a name that is not a number, so no
 reader takes it for a step) and renames it into place: a half-written
@@ -304,11 +308,18 @@ def latest_step(mgr: CheckpointManager) -> Optional[int]:
     return mgr.latest_step()
 
 
-def model_dims(model) -> Dict[str, Optional[int]]:
-    """The LM's dims, as a checkpoint records them."""
+def model_dims(model) -> Dict[str, object]:
+    """The model's dims, as a checkpoint records them: a ResNet's own
+    (``dims()``), else the LM's widths."""
+    if hasattr(model, "dims"):
+        return model.dims()
     return {k: getattr(model, k, None)
             for k in ("vocab_size", "num_layers", "num_heads", "hidden",
                       "max_seq")}
+
+
+def _stats_keys(model) -> List[str]:
+    return [f"batch_stats/{_path(n)}" for n, _ in model.named_buffers()]
 
 
 def save_checkpoint(mgr: CheckpointManager, state: TrainState) -> int:
@@ -323,7 +334,8 @@ def save_checkpoint(mgr: CheckpointManager, state: TrainState) -> int:
         if mesh is None or mesh.rank == 0:
             mgr.write(step, _with_step(leaves, step), dict(
                 optimizer=state.optimizer.config(),
-                model=model_dims(state.model), batch_stats={}))
+                model=model_dims(state.model),
+                batch_stats=_stats_keys(state.model)))
         else:
             for _ in leaves:   # this rank's part of each gather
                 pass
@@ -355,10 +367,11 @@ def restore_checkpoint(mgr: CheckpointManager, template: TrainState,
                        step: Optional[int] = None) -> Optional[TrainState]:
     """Restore step ``step`` (default the latest) INTO ``template``, a
     state built as for a fresh run (model, placement, optimizer): its
-    parameters are overwritten in place, its optimizer state and step
-    set.  Over a mesh every rank calls it and keeps its shard of each
-    leaf on its own device.  Returns the template, or None when the
-    directory holds no checkpoint."""
+    parameters and BatchNorm statistics are overwritten in place, its
+    optimizer state and step set.  Over a mesh every rank calls it and
+    keeps its shard of each leaf on its own device (a ResNet's every
+    leaf whole, on any ``"data"`` size).  Returns the template, or None
+    when the directory holds no checkpoint."""
     step = mgr.latest_step() if step is None else step
     if step is None:
         return None
@@ -383,6 +396,7 @@ def restore_checkpoint(mgr: CheckpointManager, template: TrainState,
     with mgr.open(step) as ckpt:
         _check_optimizer(ckpt, optimizer)
         ckpt.check_keys("params/", (f"params/{_path(n)}" for n, _ in named))
+        ckpt.check_keys("batch_stats/", _stats_keys(template.model))
         for slot in optimizer.slots:
             ckpt.check_keys(f"opt_state/{slot}/",
                             (f"opt_state/{slot}/{_path(n)}" for n, _ in named))
@@ -400,6 +414,10 @@ def restore_checkpoint(mgr: CheckpointManager, template: TrainState,
                     slot: mine(path, ckpt.leaf(f"opt_state/{slot}/{path}",
                                                shape, np.float32))
                     for slot in optimizer.slots}, count, copy=False)
+            for name, buf in template.model.named_buffers():
+                buf.copy_(torch.from_numpy(ckpt.leaf(
+                    f"batch_stats/{_path(name)}", tuple(buf.shape),
+                    np.float32)))
         template.step = int(ckpt.leaf("step", ()))
     log.info("restored checkpoint step=%d", template.step)
     return template

@@ -1,5 +1,9 @@
-"""Token batches for LM training: the port of ``kubegpu_tpu/models/data.py``'s
-synthetic token source and its device side.
+"""Training batches: the port of ``kubegpu_tpu/models/data.py``'s
+synthetic image and token sources and their device side.
+
+:func:`synthetic_image_batches` is the JAX package's ResNet source bit
+for bit: ``(images, labels)`` pairs, NHWC float32 images and int32
+labels, from ``SeedSequence([seed, worker_id])``.
 
 :func:`synthetic_token_batches` draws the same token bits as the JAX
 package's ``synthetic_token_batches_for_mesh`` on a one-device mesh (one
@@ -31,6 +35,21 @@ import numpy as np
 import torch
 
 from kubegpu_tpu_torch.parallel.mesh import DATA_AXIS
+
+
+def synthetic_image_batches(batch: int, size: int = 224,
+                            num_classes: int = 1000, seed: int = 0,
+                            worker_id: int = 0,
+                            ) -> Iterator[Tuple[np.ndarray, np.ndarray]]:
+    """Endless ``(images, labels)`` host batches: ``(batch, size, size,
+    3)`` standard-normal float32 images and ``(batch,)`` int32 labels in
+    ``[0, num_classes)``, from ``SeedSequence([seed, worker_id])``, so
+    workers draw disjoint streams.  ``batch`` is one worker's rows."""
+    rng = np.random.default_rng(np.random.SeedSequence([seed, worker_id]))
+    while True:
+        images = rng.standard_normal((batch, size, size, 3), dtype=np.float32)
+        labels = rng.integers(0, num_classes, size=(batch,), dtype=np.int32)
+        yield images, labels
 
 
 def synthetic_token_batches(batch: int, seq_len: int, vocab_size: int,
@@ -88,7 +107,11 @@ def synthetic_token_batches_for_mesh(batch: int, seq_len: int,
                                    shard=mesh.coord(DATA_AXIS))
 
 
-def _to_device(batch: np.ndarray, device: torch.device) -> torch.Tensor:
+def _to_device(batch, device: torch.device):
+    """A host batch on ``device``: an array, or a tuple of arrays (an
+    image source's ``(images, labels)``) as a tuple of tensors."""
+    if isinstance(batch, tuple):
+        return tuple(_to_device(b, device) for b in batch)
     host = torch.from_numpy(batch)
     if device.type == "cuda":
         # a pinned source lets the copy run asynchronously to the host
@@ -96,10 +119,10 @@ def _to_device(batch: np.ndarray, device: torch.device) -> torch.Tensor:
     return host.to(device)
 
 
-def device_pool_batches(batches: Iterable[np.ndarray], device,
-                        pool: int = 8) -> Iterator[torch.Tensor]:
-    """Copy ``pool`` batches to ``device`` once, then cycle them
-    forever."""
+def device_pool_batches(batches: Iterable, device,
+                        pool: int = 8) -> Iterator:
+    """Copy ``pool`` batches (arrays, or tuples of arrays) to ``device``
+    once, then cycle them forever."""
     dev = torch.device(device)
     it = iter(batches)
     resident = []
@@ -116,11 +139,12 @@ def device_pool_batches(batches: Iterable[np.ndarray], device,
         i += 1
 
 
-def prefetch_to_device(batches: Iterable[np.ndarray], device,
-                       depth: int = 2) -> Iterator[torch.Tensor]:
-    """Yield the source's batches on ``device`` with ``depth`` copies in
-    flight: each batch's copy is issued before the consumer needs it, so
-    it overlaps the step before."""
+def prefetch_to_device(batches: Iterable, device,
+                       depth: int = 2) -> Iterator:
+    """Yield the source's batches (arrays, or tuples of arrays) on
+    ``device`` with ``depth`` copies in flight: each batch's copy is
+    issued before the consumer needs it, so it overlaps the step
+    before."""
     dev = torch.device(device)
     it = iter(batches)
     queue: collections.deque = collections.deque()

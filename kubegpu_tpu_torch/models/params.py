@@ -1,4 +1,5 @@
-"""The LM weight tree of the port.
+"""The weight trees of the port: the LM's, and the ResNet's
+(:func:`init_resnet_params`, :func:`bind_buffers`).
 
 The JAX package's ``TransformerLM``, ``DecodeLM`` and ``PagedDecodeLM``
 share one flax parameter tree (``layer{i}/attn/q_proj/kernel`` ...).
@@ -18,7 +19,7 @@ weights at any width.
 from __future__ import annotations
 
 import math
-from typing import Callable, Dict, Mapping
+from typing import Callable, Dict, Mapping, Tuple
 
 import numpy as np
 import torch
@@ -124,6 +125,49 @@ def init_params(cfg: Mapping, generator: torch.Generator,
     return tree
 
 
+def init_resnet_params(model: nn.Module, generator: torch.Generator,
+                       device="cuda") -> Tuple[Tree, Tree]:
+    """Fresh float32 ``(params, batch_stats)`` trees for a ResNet of the
+    port (``models/resnet.py``), shaped by its parameters and buffers,
+    with flax's initializers (the same distributions as the JAX
+    package's, not its bits): conv and Dense kernels lecun-normal
+    (truncated normal, std ``1/sqrt(fan_in)``, ``fan_in = kh kw in`` for
+    a conv, ``in`` for the head; a scanned body's leading block axis is
+    not part of it), zero biases, BatchNorm scales of one (zero for each
+    block's ``bn3``), running ``mean`` 0 and ``var`` 1.  Drawn in
+    parameter order on ``device`` from ``generator`` (which must live
+    there)."""
+    dev = resolve_device(device)
+
+    def leaf(path: str, shape: Tuple[int, ...]) -> torch.Tensor:
+        name = path.rpartition(".")[2]
+        if name == "kernel":
+            fan_in = (math.prod(shape[-4:-1]) if len(shape) >= 4
+                      else shape[0])
+            std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
+            w = torch.empty(shape, dtype=torch.float32, device=dev)
+            nn.init.trunc_normal_(w, 0.0, std, -2.0 * std, 2.0 * std,
+                                  generator=generator)
+            return w
+        owner = model.get_submodule(path.rpartition(".")[0])
+        one = name == "var" or (name == "scale"
+                                and not getattr(owner, "zero_scale", False))
+        return (torch.ones if one else torch.zeros)(
+            shape, dtype=torch.float32, device=dev)
+
+    def tree(named) -> Tree:
+        out: Tree = {}
+        for path, t in named:
+            node = out
+            parts = path.split(".")
+            for part in parts[:-1]:
+                node = node.setdefault(part, {})
+            node[parts[-1]] = leaf(path, tuple(t.shape))
+        return out
+
+    return tree(model.named_parameters()), tree(model.named_buffers())
+
+
 def meta_param(*shape: int) -> nn.Parameter:
     """A placeholder parameter on the meta device, bound later."""
     return nn.Parameter(torch.empty(shape, device="meta"),
@@ -158,4 +202,24 @@ def bind_params(module: nn.Module, tree: Mapping, *,
         owner = module.get_submodule(path.rpartition(".")[0])
         setattr(owner, path.rpartition(".")[2],
                 nn.Parameter(node, requires_grad=trainable))
+    return module
+
+
+def bind_buffers(module: nn.Module, tree: Mapping) -> nn.Module:
+    """Point every buffer of ``module`` (a ResNet's BatchNorm statistics)
+    at the tensor under the same dotted path of ``tree``, without a copy,
+    so an in-place update of a buffer updates the tree.  Raises on a
+    missing leaf or a shape that differs from the module's."""
+    for path, buf in list(module.named_buffers()):
+        node = tree
+        for part in path.split("."):
+            if not isinstance(node, Mapping) or part not in node:
+                raise KeyError(f"statistics tree has no leaf {path!r}")
+            node = node[part]
+        if tuple(node.shape) != tuple(buf.shape):
+            raise ValueError(
+                f"{path}: tree leaf {tuple(node.shape)} != module "
+                f"{tuple(buf.shape)}")
+        owner = module.get_submodule(path.rpartition(".")[0])
+        owner.register_buffer(path.rpartition(".")[2], node)
     return module

@@ -1,6 +1,7 @@
-"""LM training at one device and over a ``("data", "model")`` mesh: the
-port of ``kubegpu_tpu/models/train.py``'s ``TrainState``,
-``create_train_state(tx=)``, ``cross_entropy``, ``lm_loss``,
+"""Training at one device and over a mesh: the port of
+``kubegpu_tpu/models/train.py``'s ``TrainState``,
+``create_train_state(tx=)``, ``cross_entropy``, ``resnet_loss``,
+``make_resnet_train_step``, ``place_resnet``, ``lm_loss``,
 ``make_lm_train_step``, ``place_lm``, ``draft_distill_loss`` and
 ``make_draft_distill_step``.
 
@@ -36,6 +37,16 @@ replicated over ``"model"`` (the LayerNorms: each rank saw its own rows),
 (c) steps the local shards.  Every rank of a ``"data"`` group ends a
 step with the same bits.
 
+A ResNet (``models/resnet.py``) trains data-parallel over a ``{"data":
+n}`` mesh (:func:`place_resnet`, the JAX ``place_resnet``): every rank
+holds the whole parameters, optimizer state and BatchNorm statistics
+(the state's ``batch_stats``, bound to the model's buffers) and its
+``batch / n`` rows.  Its BatchNorms reduce over the global batch
+(``parallel.collectives.global_batch_norm``), so the new statistics are
+the same on every rank and every rank's loss and gradients are one
+device's at the global batch once :func:`sync_grads` averages the
+gradients over ``"data"``.
+
 Over a ``("data", "seq")`` mesh (the context-parallel model,
 :func:`place_cp_lm`, the JAX ``place_cp_lm``) every rank holds the whole
 parameters and optimizer state.  A rank's ``(b, s + 1)`` window feeds
@@ -59,6 +70,7 @@ from torch import nn
 
 from kubegpu_tpu_torch.models.params import (
     Tree,
+    bind_buffers,
     bind_params,
     params_from_numpy,
     resolve_device,
@@ -166,14 +178,16 @@ def adam(lr: float = ADAM_LEARNING_RATE, b1: float = 0.9, b2: float = 0.999,
 @dataclass
 class TrainState:
     """The model bound to its float32 tree, the optimizer over it (built
-    from ``optimizer``), and the number of steps taken (the JAX
-    ``TrainState.step``)."""
+    from ``optimizer``), the number of steps taken (the JAX
+    ``TrainState.step``) and the model's BatchNorm statistics
+    (``batch_stats``, bound to its buffers; empty for the LM)."""
 
     model: nn.Module
     params: Tree
     opt: torch.optim.Optimizer
     step: int = 0
     optimizer: Optimizer = field(default_factory=Optimizer)
+    batch_stats: Tree = field(default_factory=dict)
 
     @property
     def mesh(self):
@@ -183,16 +197,21 @@ class TrainState:
 
 def create_train_state(model: nn.Module, params: Tree, *,
                        optimizer: Optional[Optimizer] = None,
-                       step: int = 0) -> TrainState:
+                       step: int = 0,
+                       batch_stats: Optional[Tree] = None) -> TrainState:
     """Bind ``params`` (float32 leaves, on the device to train on) to
-    ``model`` as trainable parameters and build ``optimizer`` (default
-    :func:`sgd`, the JAX ``create_train_state``'s nesterov SGD) over
-    them with an empty state (optax's zero trace or moments)."""
+    ``model`` as trainable parameters, and ``batch_stats`` (a ResNet's
+    BatchNorm statistics) to its buffers, and build ``optimizer``
+    (default :func:`sgd`, the JAX ``create_train_state``'s nesterov SGD)
+    over the parameters with an empty state (optax's zero trace or
+    moments)."""
     optimizer = optimizer or sgd()
     bind_params(model, params, trainable=True)
+    if batch_stats:
+        bind_buffers(model, batch_stats)
     return TrainState(model=model, params=params,
                       opt=optimizer.build(model.parameters()), step=step,
-                      optimizer=optimizer)
+                      optimizer=optimizer, batch_stats=batch_stats or {})
 
 
 def _leaf(tree: Mapping, dotted: str):
@@ -332,6 +351,33 @@ def place_cp_lm(model: nn.Module, params: Mapping, *,
     return state
 
 
+def place_resnet(model: nn.Module, params: Mapping, batch_stats: Mapping,
+                 *, opt_state: Optional[Mapping] = None,
+                 optimizer: Optional[Optimizer] = None, step: int = 0,
+                 mesh=None) -> TrainState:
+    """The JAX ``place_resnet``'s state half: a ResNet's train state from
+    WHOLE trees of tensors on any device (``params``, ``batch_stats`` and
+    optionally the optimizer state in optax's layout), every rank keeping
+    a copy of all of them on the mesh's device (default the model's; at
+    one device, ``mesh`` None, on the device the trees are on).  The
+    batch half is the caller's: each rank feeds the model its own
+    rows."""
+    mesh = mesh if mesh is not None else getattr(model, "mesh", None)
+
+    def whole(tree):
+        if mesh is None:
+            return tree_map(lambda t: t.clone(), tree)
+        dev = resolve_device(mesh.device)
+        return tree_map(lambda t: t.to(dev, copy=True), tree)
+
+    state = create_train_state(model, whole(params), optimizer=optimizer,
+                               step=step, batch_stats=whole(batch_stats))
+    if opt_state is not None:
+        set_opt_state(state, {k: whole(v) if isinstance(v, Mapping) else v
+                              for k, v in opt_state.items()})
+    return state
+
+
 def _param_tree(state: TrainState, leaf) -> Tree:
     tree: Tree = {}
     for path, param in state.model.named_parameters():
@@ -394,7 +440,9 @@ def _path(name: str) -> str:
 def iter_whole_state(state: TrainState) -> Iterator[Tuple[str, torch.Tensor]]:
     """The whole training tree one leaf at a time, as ``(path, tensor)``
     with ``/``-joined paths: ``params/...``, then each optimizer tree
-    ``opt_state/<name>/...`` (and Adam's ``opt_state/count``).  Over a
+    ``opt_state/<name>/...`` (and Adam's ``opt_state/count``), then a
+    ResNet's statistics ``batch_stats/...`` (replicated: never
+    gathered).  Over a
     mesh each sharded leaf is all-gathered over ``"model"`` as it comes
     (every rank of a ``"model"`` group iterates it in step); at one
     device the leaves are the state's own tensors, detached, not
@@ -419,17 +467,21 @@ def iter_whole_state(state: TrainState) -> Iterator[Tuple[str, torch.Tensor]]:
             yield f"opt_state/{slot}/{_path(name)}", whole(_path(name), buf)
     if state.optimizer.name == "adam":
         yield "opt_state/count", step_count(state)
+    for name, buf in state.model.named_buffers():
+        yield f"batch_stats/{_path(name)}", buf.detach()
 
 
 def gather_state(state: TrainState) -> Tuple[Tree, Tree]:
     """The whole parameter tree and optimizer state (optax's layout:
     ``{"trace": tree}`` for sgd) from every ``"model"`` rank's shards
     (every rank of a ``"model"`` group calls it); at one device, copies
-    of both."""
+    of both.  (A ResNet's statistics are the state's ``batch_stats``.)"""
     params: Tree = {}
     opt: Tree = {}
     for path, t in iter_whole_state(state):
         root, _, rest = path.partition("/")
+        if root == "batch_stats":
+            continue
         node = params if root == "params" else opt
         parts = rest.split("/")
         for part in parts[:-1]:
@@ -482,6 +534,43 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
         return _VocabParallelCrossEntropy.apply(logits, labels, mesh)
     logp = torch.log_softmax(logits, dim=-1)
     return -logp.gather(-1, labels.long()[..., None]).mean()
+
+
+def resnet_loss(state: TrainState, images: torch.Tensor,
+                labels: torch.Tensor) -> Tuple[torch.Tensor, Tree]:
+    """The JAX ``resnet_loss``: a training-mode forward of this rank's
+    NHWC ``images`` and the mean cross-entropy of ``labels``, with the
+    new BatchNorm statistics from the same forward, which updates the
+    state's ``batch_stats`` in place (returned).  Over a mesh the value
+    is the mean over ``"data"`` and the gradient that of this rank's own
+    mean, as :func:`lm_loss`'s."""
+    loss = cross_entropy(state.model(images, train=True), labels)
+    if state.mesh is not None:
+        loss = data_mean(loss, state.mesh)
+    return loss, state.batch_stats
+
+
+def resnet_grads(state: TrainState, images: torch.Tensor,
+                 labels: torch.Tensor) -> torch.Tensor:
+    """The step's loss and gradients without the update: zero the
+    gradients, differentiate :func:`resnet_loss` (the statistics move),
+    :func:`sync_grads`."""
+    state.opt.zero_grad(set_to_none=True)
+    loss, _ = resnet_loss(state, images, labels)
+    loss.backward()
+    sync_grads(state)
+    return loss.detach()
+
+
+def resnet_step(state: TrainState, images: torch.Tensor,
+                labels: torch.Tensor) -> torch.Tensor:
+    """One training step, the JAX ``make_resnet_train_step``'s: loss,
+    gradients and new statistics (:func:`resnet_grads`), one update of
+    the optimizer.  Returns the loss as a 0-d tensor on the device."""
+    loss = resnet_grads(state, images, labels)
+    state.opt.step()
+    state.step += 1
+    return loss
 
 
 def lm_loss(model: nn.Module, tokens: torch.Tensor) -> torch.Tensor:

@@ -1,8 +1,34 @@
-"""Worker of the port: ``--model decode`` (serving), ``--model lm`` and
-``--model lm-cp`` (training).
+"""Worker of the port: ``--model resnet50`` (the default),
+``resnet50-unrolled`` and ``resnet-tiny`` (data-parallel ResNet
+training), ``--model decode`` (serving), ``--model lm`` and ``--model
+lm-cp`` (LM training).
 
-The port of ``kubegpu_tpu/models/worker.py``'s decode modes and its
-single-device LM training.  In decode mode it builds the LM at the given
+The port of ``kubegpu_tpu/models/worker.py``.  ``--model resnet50``
+trains the scan-rolled ResNet-50 (``resnet50-unrolled``: every block its
+own module; ``resnet-tiny``: one bottleneck a stage, 8 filters, 10
+classes at 32 px, the CI twin), as the JAX worker's ``_run_resnet``:
+bf16 compute over float32 weights drawn fresh from ``WEIGHT_SEED``
+(flax's initializers), nesterov SGD (``--optimizer adam`` too), on
+``--batch-per-chip`` ``--image-size`` images of ``--num-classes``
+classes a step from the JAX worker's synthetic image stream (``--data
+synthetic|stream|resident``).  Over n devices (the cards, or
+``--cpu-ranks`` with ``--device cpu``) it trains over a ``{"data": n}``
+mesh, one process a rank, NCCL between cards or gloo on the CPU: the
+global batch is ``--batch-per-chip`` x n, every BatchNorm reduces over
+it, and step i takes the rows the JAX worker's step i takes on a host
+of n devices (each rank draws that host's batch and keeps its rows).
+The mesh spans one host: a pod that the env makes one of a gang of pods
+(``JAX_NUM_PROCESSES`` above 1) is refused, for LM training too.
+It prints ``FIRST_STEP_DONE seconds= loss=`` and ``steady_state
+images_per_sec= loss=``, the kernels' launch counts (all 0: no kernel of
+the port is on this path) and the peak device memory; ``--ckpt-dir``
+checkpoints under ``DIR/<model>``, the BatchNorm statistics included.
+
+    python -m kubegpu_tpu_torch.models.worker --steps 100
+    python -m kubegpu_tpu_torch.models.worker --model resnet-tiny \
+        --cpu-ranks 2 --device cpu --steps 3
+
+In decode mode it builds the LM at the given
 widths with fresh weights drawn from a fixed seed (bf16 unless
 ``--serve-fp32``; ``--int8`` serves weight-only int8 weights, printing
 ``SERVING_INT8``) and serves them as ``--serving`` says:
@@ -175,6 +201,7 @@ import torch
 from kubegpu_tpu_torch.models.data import (
     device_pool_batches,
     prefetch_to_device,
+    synthetic_image_batches,
     synthetic_token_batches,
     synthetic_token_batches_for_mesh,
 )
@@ -183,7 +210,13 @@ from kubegpu_tpu_torch.models.decoding import (
     quantize_params_int8,
 )
 from kubegpu_tpu_torch.models.paging import PagedContinuousBatcher
-from kubegpu_tpu_torch.models.params import bf16_cast, init_params, resolve_device
+from kubegpu_tpu_torch.models.params import (
+    bf16_cast,
+    init_params,
+    init_resnet_params,
+    resolve_device,
+)
+from kubegpu_tpu_torch.models.resnet import ResNet, ResNet50, ScanResNet50
 from kubegpu_tpu_torch.models.serving import (
     DECODE_PAGE_CACHE_POLICIES,
     KV_DTYPES,
@@ -205,6 +238,8 @@ from kubegpu_tpu_torch.models.train import (
     lm_step,
     place_cp_lm,
     place_lm,
+    place_resnet,
+    resnet_step,
     sgd,
 )
 from kubegpu_tpu_torch.models.transformer import TransformerLM
@@ -231,6 +266,10 @@ from kubegpu_tpu_torch.utils.metrics import Metrics
 log = logging.getLogger("kubegpu_tpu_torch.worker")
 
 WEIGHT_SEED = 0
+RESNET_MODELS = ("resnet50", "resnet50-unrolled", "resnet-tiny")
+TRAINING_MODELS = RESNET_MODELS + ("lm", "lm-cp")
+# the ResNets' compute dtype (the JAX ResNet's default)
+RESNET_DTYPE = torch.bfloat16
 # the draft's weights come from their own seed (the JAX worker's draft
 # init uses PRNGKey(7))
 DRAFT_SEED = 7
@@ -238,10 +277,13 @@ DRAFT_SEED = 7
 
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--model", choices=["decode", "lm", "lm-cp"],
-                    default="decode",
-                    help="decode = serving; lm = LM training; lm-cp = "
-                    "context-parallel LM training (ring/ulysses)")
+    ap.add_argument("--model", choices=list(RESNET_MODELS)
+                    + ["decode", "lm", "lm-cp"], default="resnet50",
+                    help="resnet50 (the default: scan-rolled), "
+                    "resnet50-unrolled, resnet-tiny = data-parallel "
+                    "ResNet training; decode = serving; lm = LM "
+                    "training; lm-cp = context-parallel LM training "
+                    "(ring/ulysses)")
     ap.add_argument("--serving",
                     choices=["static", "continuous", "paged", "speculative"],
                     default="static",
@@ -252,11 +294,18 @@ def build_parser() -> argparse.ArgumentParser:
                     "speculative = draft-verified continuous batching over "
                     "dense caches")
     ap.add_argument("--steps", type=int, default=20,
-                    help="decode: budget of the longest request; lm: "
-                    "training steps")
+                    help="decode: budget of the longest request; "
+                    "training: steps")
     ap.add_argument("--batch-per-chip", type=int, default=32,
                     help="decode: slots (a wave holds twice as many "
-                    "requests); lm: token windows a step")
+                    "requests); lm: token windows a step; resnet: images "
+                    "a step a device")
+    ap.add_argument("--image-size", type=int, default=224,
+                    help="resnet50, resnet50-unrolled: image side "
+                    "(resnet-tiny trains at 32)")
+    ap.add_argument("--num-classes", type=int, default=1000,
+                    help="resnet50, resnet50-unrolled: classes "
+                    "(resnet-tiny has 10)")
     ap.add_argument("--vocab", type=int, default=32000)
     ap.add_argument("--layers", type=int, default=4)
     ap.add_argument("--heads", type=int, default=8)
@@ -327,16 +376,18 @@ def build_parser() -> argparse.ArgumentParser:
                     "the visible devices (0: all of them), data = devices "
                     "/ cp")
     ap.add_argument("--cpu-ranks", type=int, default=1,
-                    help="lm --device cpu: the CPU's stand-in for the "
-                    "visible device count (ranks of the training mesh, "
-                    "processes over gloo); only with --device cpu")
+                    help="training --device cpu: the CPU's stand-in for "
+                    "the visible device count (ranks of the training "
+                    "mesh, processes over gloo); only with --device cpu")
     ap.add_argument("--data", default="synthetic",
                     choices=["synthetic", "stream", "resident"],
-                    help="lm: synthetic = a pool of --data-pool distinct "
-                    "batches on the device; stream = pinned, prefetched "
-                    "host-to-device copies; resident = one constant batch")
+                    help="training: synthetic = a pool of --data-pool "
+                    "distinct batches on the device; stream = pinned, "
+                    "prefetched host-to-device copies; resident = one "
+                    "constant batch (resnet: images of ones, labels 0)")
     ap.add_argument("--data-pool", type=int, default=8,
-                    help="lm --data synthetic: distinct batches to cycle")
+                    help="training --data synthetic: distinct batches to "
+                    "cycle")
     ap.add_argument("--serve", action="store_true",
                     help="decode: replay waves forever after the timed one "
                     "(default: a warm-up wave and a timed wave, then exit)")
@@ -386,18 +437,17 @@ def build_parser() -> argparse.ArgumentParser:
                     help="checkpoint root for the DRAFT model (<dir>/lm "
                     "layout, like --ckpt-dir); empty = fresh-init draft")
     ap.add_argument("--optimizer", choices=list(OPTIMIZERS), default="sgd",
-                    help="lm: sgd = nesterov SGD at lr 0.1 (momentum 0.9, "
+                    help="training: sgd = nesterov SGD at lr 0.1 "
+                    "(momentum 0.9, "
                     "the JAX default), adam = Adam at lr 3e-4 (b1 0.9, b2 "
                     "0.999, eps 1e-8)")
     ap.add_argument("--device", choices=["cuda", "cpu"], default="cuda")
     return ap
 
 
-def training_mesh(args: argparse.Namespace) -> Tuple[int, int]:
-    """``(dp, tp)`` of ``--model lm`` or ``(dp, cp)`` of ``--model
-    lm-cp``, the JAX worker's ``_split_mesh`` over the visible devices
-    (the cards, or ``--cpu-ranks`` with ``--device cpu``) and its
-    refusals."""
+def training_devices(args: argparse.Namespace) -> int:
+    """The visible device count a training mesh spans: the cards, or
+    ``--cpu-ranks`` with ``--device cpu`` (refused on the card)."""
     if args.device == "cuda":
         resolve_device("cuda")  # raises without a card
         if args.cpu_ranks != 1:
@@ -410,6 +460,14 @@ def training_mesh(args: argparse.Namespace) -> Tuple[int, int]:
         n = args.cpu_ranks
     if n < 1:
         raise SystemExit(f"--cpu-ranks {n}: at least one rank")
+    return n
+
+
+def training_mesh(args: argparse.Namespace) -> Tuple[int, int]:
+    """``(dp, tp)`` of ``--model lm`` or ``(dp, cp)`` of ``--model
+    lm-cp``, the JAX worker's ``_split_mesh`` over the visible devices
+    (:func:`training_devices`) and its refusals."""
+    n = training_devices(args)
     if args.model == "lm-cp":
         cp = _cp_width(args, n)
         return n // cp, cp
@@ -1025,12 +1083,13 @@ def serve_http(args: argparse.Namespace, t0: float) -> int:
     return 0 if server.loop.error is None else 1
 
 
-def make_batches(args: argparse.Namespace, source, device):
+def make_batches(args: argparse.Namespace, source, device, resident=None):
     """The ``--data`` modes, as the JAX worker's ``_make_batches``:
     returns ``(batches, first)`` with ``batches`` None in resident mode,
-    where ``first`` is the constant batch.  The JAX worker sizes its
-    init with the first batch of a pool or stream; taking it here too
-    keeps step i on the JAX worker's batch i."""
+    where ``first`` is the constant batch (``resident()``, default the
+    source's first batch).  The JAX worker sizes its init with the first
+    batch of a pool or stream; taking it here too keeps step i on the
+    JAX worker's batch i."""
     if args.data == "synthetic":
         batches = device_pool_batches(source, device,
                                       pool=max(args.data_pool, 1))
@@ -1038,7 +1097,88 @@ def make_batches(args: argparse.Namespace, source, device):
     if args.data == "stream":
         batches = prefetch_to_device(source, device, depth=2)
         return batches, next(batches)
+    if resident is not None:
+        return None, resident()
     return None, torch.from_numpy(next(source)).to(device)
+
+
+def worker_id() -> int:
+    """This worker's index in its gang, read as the JAX worker reads it
+    from the injected env (``JAX_PROCESS_ID``, else ``TPU_WORKER_ID``,
+    else 0): it seeds the worker's image stream."""
+    return int(os.environ.get("JAX_PROCESS_ID",
+                              os.environ.get("TPU_WORKER_ID", "0")) or 0)
+
+
+def refuse_pod_gang() -> None:
+    """Raise SystemExit when the injected env makes this process one of a
+    gang of pods (``JAX_NUM_PROCESSES`` above 1).  The port's training
+    mesh spans the cards of one host, whose ranks the worker starts
+    itself; it cannot yet join the ranks of other pods (ROADMAP Queue 1
+    item 9, the rendezvous of a gang of pods), and training alone would
+    report one pod's run as the gang's."""
+    raw = os.environ.get("JAX_NUM_PROCESSES", "1") or "1"
+    try:
+        num = int(raw)
+    except ValueError:
+        raise SystemExit(f"JAX_NUM_PROCESSES={raw!r} is not a count")
+    if num > 1:
+        raise SystemExit(
+            f"JAX_NUM_PROCESSES={num}: this worker would be one of a gang "
+            "of pods, and the port trains over the cards of one host "
+            "only (ROADMAP Queue 1 item 9: the gang rendezvous is not "
+            "ported yet)")
+
+
+def resnet_model(args: argparse.Namespace, mesh=None):
+    """The ``--model``'s ResNet at ``RESNET_DTYPE``, as the JAX worker
+    builds it: ``resnet50`` scan-rolled, ``resnet50-unrolled``, and
+    ``resnet-tiny`` (one bottleneck a stage, 8 filters) forcing 10
+    classes at 32 px, so its labels come from the head's label space.
+    The model records its image size (``image_size``)."""
+    if args.model == "resnet-tiny":
+        return ResNet(stage_sizes=(1, 1, 1, 1), num_filters=8,
+                      num_classes=10, dtype=RESNET_DTYPE, mesh=mesh,
+                      image_size=32)
+    cls = ScanResNet50 if args.model == "resnet50" else ResNet50
+    return cls(num_classes=args.num_classes, dtype=RESNET_DTYPE, mesh=mesh,
+               image_size=args.image_size)
+
+
+def build_resnet_trainer(args: argparse.Namespace, mesh=None):
+    """The ResNet's training state and batch source: fresh float32
+    weights and statistics from ``WEIGHT_SEED`` (every rank of a mesh
+    draws the same ones), ``--optimizer``, the ``--data`` mode's
+    ``(images, labels)`` batches.  Each of n ``"data"`` ranks draws the
+    host batch of ``--batch-per-chip`` x n rows from the worker's stream
+    (a host of n devices in the JAX worker) and keeps its own rows; the
+    resident batch is the JAX worker's images of ones and labels 0.
+    Returns ``(state, next_batch)``, a batch an ``(images, labels)``
+    pair."""
+    device = resolve_device(args.device if mesh is None else mesh.device)
+    model = resnet_model(args, mesh)
+    size, classes = model.image_size, model.num_classes
+    gen = torch.Generator(device=device).manual_seed(WEIGHT_SEED)
+    params, stats = init_resnet_params(model, gen, device)
+    optimizer = sgd() if args.optimizer == "sgd" else adam()
+    state = place_resnet(model, params, stats, optimizer=optimizer,
+                         mesh=mesh)
+    del params, stats  # the state holds its own copies
+    rows = max(args.batch_per_chip, 1)
+    n = 1 if mesh is None else mesh.axis_size("data")
+    first = rows * (0 if mesh is None else mesh.coord("data"))
+    host = synthetic_image_batches(rows * n, size=size, num_classes=classes,
+                                   worker_id=worker_id())
+    source = ((im[first:first + rows], lb[first:first + rows])
+              for im, lb in host)
+    batches, const = make_batches(args, source, device, resident=lambda: (
+        torch.ones((rows, size, size, 3), device=device),
+        torch.zeros((rows,), dtype=torch.int32, device=device)))
+
+    def next_batch():
+        return const if batches is None else next(batches)
+
+    return state, next_batch
 
 
 def build_trainer(args: argparse.Namespace, mesh=None):
@@ -1082,10 +1222,6 @@ def build_trainer(args: argparse.Namespace, mesh=None):
         return const if batches is None else next(batches)
 
     return state, next_batch
-
-
-FLASH_KERNELS = (flash_forward, flash_backward_dkdv, flash_backward_dq,
-                 flash_backward_delta)
 
 
 class CheckpointHooks:
@@ -1162,7 +1298,15 @@ def _train(args: argparse.Namespace, mesh, t0: float) -> Dict[str, object]:
     lead = mesh is None or mesh.rank == 0
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
-    state, next_batch = build_trainer(args, mesh)
+    resnet = args.model in RESNET_MODELS
+    if resnet:
+        state, next_batch = build_resnet_trainer(args, mesh)
+
+        def step(state, batch):
+            return resnet_step(state, *batch)
+    else:
+        state, next_batch = build_trainer(args, mesh)
+        step = lm_step
     ckpt = CheckpointHooks(args, state, lead) if args.ckpt_dir else None
     # a resumed run reads the batches the uninterrupted run would have
     # read from here on (the JAX worker restarts its stream instead)
@@ -1170,10 +1314,14 @@ def _train(args: argparse.Namespace, mesh, t0: float) -> Dict[str, object]:
         next_batch()
     dp = 1 if mesh is None else mesh.axis_size("data")
     batch = max(args.batch_per_chip, 1) * dp
-    launches0 = [fn.launches for fn in FLASH_KERNELS]
+    # images a step, or tokens
+    items, unit = ((batch, "images_per_sec") if resnet
+                   else (batch * args.seq, "tokens_per_sec"))
+    counts0 = read_counters()
+    delta0 = flash_backward_delta.launches
     traffic0 = dict(CP_TRAFFIC)
 
-    losses = [lm_step(state, next_batch())]
+    losses = [step(state, next_batch())]
     first_loss = float(losses[0])  # forces the step to completion
     first_s = time.monotonic() - t0
     if lead:
@@ -1182,33 +1330,37 @@ def _train(args: argparse.Namespace, mesh, t0: float) -> Dict[str, object]:
     t1 = time.monotonic()
     save_s = 0.0
     for _ in range(args.steps - 1):
-        losses.append(lm_step(state, next_batch()))
+        losses.append(step(state, next_batch()))
         if ckpt is not None:
             save_s += ckpt.maybe_save(state, state.step, args.ckpt_every)
     losses = torch.stack(losses).tolist()  # forces the whole chain
     # the saves are not training: they are left out of the rate
     dt = time.monotonic() - t1 - save_s
-    rate = batch * args.seq * (args.steps - 1) / dt if args.steps > 1 else None
+    rate = items * (args.steps - 1) / dt if args.steps > 1 else None
     if rate is not None and lead:
-        print(f"steady_state tokens_per_sec={rate:.1f} loss={losses[-1]:.4f}",
+        print(f"steady_state {unit}={rate:.1f} loss={losses[-1]:.4f}",
               flush=True)
-    k3, k4, k5, delta = (fn.launches - n
-                         for fn, n in zip(FLASH_KERNELS, launches0))
+    launches = {k: n - counts0[k] for k, n in read_counters().items()}
+    launches["DELTA"] = flash_backward_delta.launches - delta0
     if ckpt is not None:
         ckpt.finish(state)
     mine = {
-        "k3_launches": k3,
-        "k4_launches": k4,
-        "k5_launches": k5,
-        "delta_launches": delta,
+        "launches": launches,
+        "k3_launches": launches["K3"],
+        "k4_launches": launches["K4"],
+        "k5_launches": launches["K5"],
+        "delta_launches": launches["DELTA"],
         "peak_bytes": (torch.cuda.max_memory_allocated(device)
                        if device.type == "cuda" else None),
         "device": str(device),
         "cp_traffic": {k: v - traffic0[k] for k, v in CP_TRAFFIC.items()},
     }
-    r = dict(mine, first_step_s=first_s, tokens_per_sec=rate, steady_s=dt,
-             losses=losses, steps=args.steps, layers=args.layers,
-             tokens_per_step=batch * args.seq, step=state.step)
+    r = dict(mine, first_step_s=first_s, steady_s=dt, losses=losses,
+             steps=args.steps, step=state.step, **{unit: rate})
+    if resnet:
+        r.update(images_per_step=batch, model=args.model)
+    else:
+        r.update(layers=args.layers, tokens_per_step=batch * args.seq)
     if ckpt is not None:
         r["checkpoint"] = ckpt.report()
     if mesh is not None:
@@ -1253,14 +1405,38 @@ def run_lm(args: argparse.Namespace,
     1..n-1 and is rank 0 itself; ``--model lm-cp`` always runs over its
     mesh, of one rank at one device."""
     t0 = time.monotonic() if t0 is None else t0
+    refuse_pod_gang()
     dp, width = training_mesh(args)
     cp = args.model == "lm-cp"
     if dp * width == 1 and not cp:
         return _train(args, None, t0)
-    axes = {"data": dp, "seq" if cp else "model": width}
+    return _train_over_mesh(
+        args, {"data": dp, "seq" if cp else "model": width}, t0)
+
+
+def run_resnet(args: argparse.Namespace,
+               t0: Optional[float] = None) -> Dict[str, object]:
+    """Train the ``--model`` ResNet ``--steps`` steps and return what was
+    measured, as :func:`run_lm`: at one device in this process; over n
+    devices (:func:`training_devices`) on a ``{"data": n}`` mesh whose
+    ranks 1..n-1 it starts, being rank 0 itself."""
+    t0 = time.monotonic() if t0 is None else t0
+    refuse_pod_gang()
+    n = training_devices(args)
+    if n == 1:
+        return _train(args, None, t0)
+    return _train_over_mesh(args, {"data": n}, t0)
+
+
+def _train_over_mesh(args: argparse.Namespace, axes: dict,
+                     t0: float) -> Dict[str, object]:
+    """Rank 0 of a training mesh of ``axes``: start ranks 1..n-1, print
+    ``TRAINING_MESH``, train, join the ranks (raising if one failed)."""
+    cp = args.model == "lm-cp"
+    size = int(np.prod(list(axes.values())))
     tmp = tempfile.mkdtemp(prefix="kubegpu-train-")
     store = os.path.join(tmp, "store")
-    procs = start_ranks(_train_rank, range(1, dp * width), args, axes, store)
+    procs = start_ranks(_train_rank, range(1, size), args, axes, store)
     try:
         mesh = join_training_mesh(args, axes, 0, store)
         print("TRAINING_MESH " + " ".join(f"{k}={v}" for k, v in axes.items())
@@ -1284,9 +1460,13 @@ def run_lm(args: argparse.Namespace,
 def main(argv: Optional[List[str]] = None) -> int:
     t0 = time.monotonic()
     args = build_parser().parse_args(argv)
-    if args.model not in ("lm", "lm-cp") and args.cpu_ranks != 1:
+    if args.model not in TRAINING_MODELS and args.cpu_ranks != 1:
         raise SystemExit("--cpu-ranks stands in for the training mesh's "
-                         "devices: --model lm --device cpu only")
+                         "devices: --model " + "|".join(TRAINING_MODELS)
+                         + " --device cpu only")
+    if args.model in RESNET_MODELS:
+        report_resnet(run_resnet(args, t0))
+        return 0
     if args.model in ("lm", "lm-cp"):
         report_lm(run_lm(args, t0))
         return 0
@@ -1321,6 +1501,23 @@ def report_lm(r: Dict[str, object]) -> None:
             print("CP_BYTES " + " ".join(
                 f"{k}={v}" for k, v in mine["cp_traffic"].items())
                 + f" steps={r['steps']}{tag}", flush=True)
+
+
+def report_resnet(r: Dict[str, object]) -> None:
+    """The launch and peak-memory lines of a ResNet run: every kernel of
+    the port by ID (none is on this path, so every count is 0), then the
+    peak memory; over a mesh each rank's, marked ``rank=r``."""
+    ranks = r.get("ranks") or [r]
+    for rank, mine in enumerate(ranks):
+        tag = f" rank={rank}" if "ranks" in r else ""
+        print("KERNEL_LAUNCHES "
+              + " ".join(f"{k}={v}" for k, v in mine["launches"].items())
+              + f" model={r['model']} device={mine['device']}{tag}",
+              flush=True)
+        peak = mine["peak_bytes"]
+        print("PEAK_MEM_GIB "
+              + (f"{peak / 2**30:.2f}" if peak is not None else "not measured")
+              + f" device={mine['device']}{tag}", flush=True)
 
 
 def report_decode(args: argparse.Namespace, r: Dict[str, object]) -> None:

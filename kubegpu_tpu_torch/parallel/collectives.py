@@ -26,7 +26,12 @@ written out, since GSPMD inserts these for the JAX package):
   backward;
 - :func:`data_mean`: the mean over the ``"data"`` group forward,
   identity backward (the reported loss), and :func:`mean_grads_over_data`,
-  the gradients' mean over ``"data"`` in one flat all-reduce.
+  the gradients' mean over ``"data"`` in one flat all-reduce;
+- :func:`global_batch_norm`: training-mode BatchNorm whose statistics
+  are the global batch's, as GSPMD reduces them for the JAX ResNet: the
+  f32 ``[sum x, sum x^2]`` of each channel summed over ``"data"`` in one
+  all-reduce forward, the two sums the input gradient needs (``sum dy``
+  and ``sum dy * xhat``) in one all-reduce backward.
 
 Context parallelism, along the ``"seq"`` axis (the JAX collectives
 ``ppermute``, ``all_to_all`` and GSPMD's gathers, written out):
@@ -305,6 +310,69 @@ def mean_grads_over_data(grads: Sequence[torch.Tensor], mesh: Mesh) -> None:
     dp = mesh.axis_size(DATA_AXIS)
     if dp > 1:
         flat_all_reduce(grads, mesh.axis_group(DATA_AXIS), 1.0 / dp)
+
+
+BN_DIMS = (0, 2, 3)   # N, H, W of an NCHW (channels_last) activation
+
+
+def _channel(v: torch.Tensor) -> torch.Tensor:
+    return v.view(1, -1, 1, 1)
+
+
+class _GlobalBatchNorm(torch.autograd.Function):
+    """flax's BatchNorm in training mode (``_compute_stats`` and
+    ``_normalize`` of flax 0.12): f32 statistics over N, H and W,
+    ``var = max(E[x^2] - E[x]^2, 0)`` (biased), and
+    ``y = (x - mean) * (scale * rsqrt(var + eps)) + bias`` in f32, cast to
+    ``x``'s dtype.  Over a ``"data"`` axis the sums are the global
+    batch's; the backward's sums too, so each rank's input gradient is
+    that of every rank's loss.  The parameter gradients are this rank's
+    own sums, which ``mean_grads_over_data`` then averages with the
+    rest."""
+
+    @staticmethod
+    def forward(ctx, x, scale, bias, eps, mesh):
+        dp = 1 if mesh is None else mesh.axis_size(DATA_AXIS)
+        c = x.shape[1]
+        xf = x.float()
+        sums = torch.cat([xf.sum(BN_DIMS), (xf * xf).sum(BN_DIMS)])
+        if dp > 1:
+            dist.all_reduce(sums, group=mesh.axis_group(DATA_AXIS))
+        count = x.numel() // c * dp
+        mean = sums[:c] / count
+        var = torch.clamp_min(sums[c:] / count - mean * mean, 0.0)
+        inv = torch.rsqrt(var + eps)
+        y = (xf - _channel(mean)) * _channel(inv * scale) + _channel(bias)
+        ctx.save_for_backward(x, mean, inv, scale)
+        ctx.mesh, ctx.dp, ctx.count = mesh, dp, count
+        ctx.mark_non_differentiable(mean, var)
+        return y.to(x.dtype), mean, var
+
+    @staticmethod
+    def backward(ctx, gy, _gmean, _gvar):
+        x, mean, inv, scale = ctx.saved_tensors
+        c = x.shape[1]
+        g = gy.float()
+        xhat = (x.float() - _channel(mean)) * _channel(inv)
+        mine = torch.cat([g.sum(BN_DIMS), (g * xhat).sum(BN_DIMS)])
+        sums = mine
+        if ctx.dp > 1:
+            sums = mine.clone()
+            dist.all_reduce(sums, group=ctx.mesh.axis_group(DATA_AXIS))
+        sums = sums / ctx.count
+        gx = (g - _channel(sums[:c]) - xhat * _channel(sums[c:])) \
+            * _channel(inv * scale)
+        return gx.to(x.dtype), mine[c:], mine[:c], None, None
+
+
+def global_batch_norm(x: torch.Tensor, scale: torch.Tensor,
+                      bias: torch.Tensor, eps: float,
+                      mesh=None) -> tuple:
+    """Training-mode BatchNorm of ``x`` (``(N, C, H, W)``) over the
+    global batch: ``(y, mean, var)``, ``mean`` and ``var`` the batch's
+    f32 statistics (biased variance; no gradient).  ``mesh`` None (or a
+    ``"data"`` axis of 1) reduces this rank's rows only."""
+    return _GlobalBatchNorm.apply(x, scale, bias, eps, mesh)
 
 
 # -- context parallelism: the "seq" axis -------------------------------------

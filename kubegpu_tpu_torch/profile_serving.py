@@ -38,8 +38,9 @@ import torch
 from kubegpu_tpu_torch.models import worker
 from kubegpu_tpu_torch.models.paging import PagedContinuousBatcher
 
-FLAGSHIP = ["--serving", "paged", "--vocab", "32768", "--hidden", "4096", "--layers", "4",
-            "--heads", "32", "--prompt-len", "128", "--page-size", "128",
+FLAGSHIP = ["--model", "decode", "--serving", "paged", "--vocab", "32768",
+            "--hidden", "4096", "--layers", "4", "--heads", "32",
+            "--prompt-len", "128", "--page-size", "128",
             "--batch-per-chip", "8", "--steps", "512"]
 WINDOW = 32
 

@@ -1,6 +1,7 @@
 """The port stands alone: no module of kubegpu_tpu_torch, not
-chip_smoke.py and not the tensor-parallel rank bodies
-(tests/torch_tp_cases.py, whose processes must run without JAX) imports
+chip_smoke.py and not the rank bodies of the gangs
+(tests/torch_tp_cases.py, tests/torch_resnet_cases.py, whose processes
+must run without JAX) imports
 jax, flax, orbax or the JAX package, nor the Orbax converter
 (tools/orbax_to_torch_checkpoint.py); its entry points run on the card
 unless the caller asks for the CPU."""
@@ -17,6 +18,7 @@ import torch
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(REPO, "kubegpu_tpu_torch")
 TP_CASES = os.path.join(REPO, "tests", "torch_tp_cases.py")
+RESNET_CASES = os.path.join(REPO, "tests", "torch_resnet_cases.py")
 FORBIDDEN_ROOTS = ("jax", "jaxlib", "flax", "orbax", "kubegpu_tpu",
                    "orbax_to_torch_checkpoint", "tools")
 
@@ -28,6 +30,7 @@ def port_sources():
                 yield os.path.join(root, f)
     yield os.path.join(REPO, "chip_smoke.py")
     yield TP_CASES
+    yield RESNET_CASES
 
 
 def test_importing_every_module_leaves_jax_out():
@@ -39,6 +42,7 @@ def test_importing_every_module_leaves_jax_out():
         "for n in names: importlib.import_module(n)\n"
         "import chip_smoke\n"
         "import torch_tp_cases\n"
+        "import torch_resnet_cases\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         f"{FORBIDDEN_ROOTS!r})\n"
         "print(len(names), bad)\n"
@@ -56,10 +60,11 @@ def test_importing_every_module_leaves_jax_out():
     # the HTTP replica slice's own copies of the JAX package's
     # stdlib-only modules, the sampling slice's counter-based PRNG, the
     # dense serving slice's batchers, the tensor-parallel slice's
-    # modules and the data x tensor-parallel training they carry
-    for name in ("gateway", "gateway.client", "gateway.dataplane", "utils",
-                 "utils.metrics", "utils.tracing", "utils.metric_names",
-                 "ops.prng", "models.serving", "models.spec_serving",
+    # modules, the data x tensor-parallel training they carry and the
+    # ResNet
+    for name in ("models.resnet", "gateway", "gateway.client",
+                 "gateway.dataplane", "utils", "utils.metrics",
+                 "utils.tracing", "utils.metric_names", "ops.prng", "models.serving", "models.spec_serving",
                  "parallel.mesh", "parallel.sharding",
                  "parallel.collectives", "parallel.launch",
                  "parallel.replay", "models.train", "models.transformer",
@@ -102,7 +107,8 @@ def test_entry_points_default_to_the_card_and_raise_without_one(
     with pytest.raises(RuntimeError, match="no CUDA device"):
         init_params(cfg, torch.Generator().manual_seed(0))
     with pytest.raises(RuntimeError, match="no CUDA device"):
-        worker.run_decode(worker.build_parser().parse_args([]))
+        worker.run_decode(worker.build_parser().parse_args(
+            ["--model", "decode"]))
 
 
 def test_chip_smoke_exits_nonzero_without_a_card():
@@ -130,7 +136,7 @@ def test_speculative_entry_points_default_to_the_card(monkeypatch):
                              draft_hidden=16, **cfg)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         worker.run_decode(worker.build_parser().parse_args(
-            ["--serving", "paged", "--speculate"]))
+            ["--model", "decode", "--serving", "paged", "--speculate"]))
 
 
 def test_training_entry_points_default_to_the_card(monkeypatch):
@@ -177,6 +183,28 @@ def test_training_entry_points_default_to_the_card(monkeypatch):
         flash_backward_dkdv(q, q, q, q, q, q, True)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         flash_backward_dq(q, q, q, q, q, q, True)
+
+
+def test_resnet_entry_points_default_to_the_card(monkeypatch):
+    """The worker's default model, ResNet-50, and the ResNet's fresh
+    weights run on the card unless asked for the CPU: without one they
+    raise, never fall back."""
+    from kubegpu_tpu_torch.models import worker
+    from kubegpu_tpu_torch.models.params import init_resnet_params
+    from kubegpu_tpu_torch.models.resnet import ResNet
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert worker.build_parser().parse_args([]).model == "resnet50"
+    for argv in ([], ["--model", "resnet-tiny"],
+                 ["--model", "resnet50-unrolled", "--steps", "1"]):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            worker.main(argv)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        worker.run_resnet(worker.build_parser().parse_args(
+            ["--model", "resnet-tiny"]))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        init_resnet_params(ResNet(stage_sizes=(1,), num_filters=4),
+                           torch.Generator())
 
 
 def test_checkpoint_entry_points_default_to_the_card(monkeypatch, tmp_path):
@@ -287,6 +315,7 @@ def test_dense_batchers_default_to_the_card(monkeypatch):
     for serving in ("static", "continuous", "speculative"):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             worker.run_decode(worker.build_parser().parse_args(
-                ["--serving", serving]))
+                ["--model", "decode", "--serving", serving]))
     with pytest.raises(RuntimeError, match="no CUDA device"):
-        worker.main(["--serving", "continuous", "--serve-http", "0"])
+        worker.main(["--model", "decode", "--serving", "continuous",
+                     "--serve-http", "0"])

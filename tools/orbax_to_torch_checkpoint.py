@@ -5,19 +5,24 @@ PyTorch port's format (``kubegpu_tpu_torch/models/checkpoint.py``).
     python tools/orbax_to_torch_checkpoint.py --src JAX_CKPT_DIR \\
         --dst PORT_CKPT_DIR
 
-``--src`` is the ``--ckpt-dir`` the JAX worker was given: its latest
-step ``<src>/lm/<step>`` is read and written as ``<dst>/lm/<step>``,
-so the port's worker takes ``--ckpt-dir
-PORT_CKPT_DIR`` to resume it (``--model lm``) or serve it (``--model
-decode``).  What is carried: the parameters, the optimizer state in
-optax's layout (SGD's ``TraceState.trace``; Adam's ``mu``, ``nu`` and
-``count``) and the step.  Orbax restores the tree without a template
-here: its own metadata gives every leaf's shape and dtype, and the
-arrays are read onto one host device whatever mesh wrote them.
+``--src`` is the ``--ckpt-dir`` the JAX worker was given; the worker
+namespaces its checkpoints by ``--model``.  For each of ``lm``,
+``resnet50``, ``resnet50-unrolled`` and ``resnet-tiny`` found under
+``--src``, its latest step
+``<src>/<model>/<step>`` is read and written as ``<dst>/<model>/<step>``,
+so the port's worker takes ``--ckpt-dir PORT_CKPT_DIR`` to resume it
+(``--model lm`` or a ResNet) or serve it (``--model decode``).  What is
+carried: the parameters, a ResNet's BatchNorm statistics
+(``batch_stats``), the optimizer state in optax's layout (SGD's
+``TraceState.trace``; Adam's ``mu``, ``nu`` and ``count``) and the
+step.  Orbax restores the tree without a template here: its own
+metadata gives every leaf's shape and dtype, and the arrays are read
+onto one host device whatever mesh wrote them.
 
-The Orbax checkpoint holds no hyperparameters and its shapes do not
-give the head count: the record names the optimizer (SGD's trace or
-Adam's moments), and its learning rate and the heads are null.
+The Orbax checkpoint holds no hyperparameters, and its shapes give
+neither the LM's head count nor a ResNet's image size: the record names
+the optimizer (SGD's trace or Adam's moments), and its learning rate,
+the heads and the image size are null.
 
 Needs JAX and Orbax (the JAX package's environment); the port itself
 never imports this script.
@@ -76,7 +81,28 @@ def optimizer_of(opt_state) -> Tuple[dict, Dict[str, object]]:
                      f"{sorted(first) if isinstance(first, dict) else ''}")
 
 
+MODELS = ("lm", "resnet50", "resnet50-unrolled", "resnet-tiny")
+
+
 def model_dims(params: dict) -> dict:
+    """The dims the port's record holds, from the parameter shapes: the
+    LM's widths, or a ResNet's layout, stages, filters and classes."""
+    if "conv_init" in params:
+        stages: dict = {}
+        for name, sub in params.items():
+            stage, _, part = name.partition("_")
+            if stage.startswith("stage"):
+                i = int(stage[len("stage"):])
+                n = (np.shape(sub["block"]["conv1"]["kernel"])[0]
+                     if part == "body" else 1)
+                stages[i] = stages.get(i, 0) + int(n)
+        scan = any(k.endswith("_body") or k.endswith("_head")
+                   for k in params)
+        return dict(family="resnet", layout="scan" if scan else "unrolled",
+                    stage_sizes=[stages[i] for i in sorted(stages)],
+                    num_filters=int(params["conv_init"]["kernel"].shape[-1]),
+                    num_classes=int(params["head"]["kernel"].shape[1]),
+                    image_size=None)
     vocab, hidden = params["embed"]["embedding"].shape
     return dict(vocab_size=int(vocab), hidden=int(hidden),
                 max_seq=int(params["pos_embed"]["embedding"].shape[0]),
@@ -84,14 +110,14 @@ def model_dims(params: dict) -> dict:
                 num_heads=None)
 
 
-def convert(src: str, dst: str) -> str:
-    """Convert the latest ``<src>/lm/<step>`` into ``<dst>/lm/<step>``;
-    returns the written directory."""
+def convert(src: str, dst: str, model: str = "lm") -> str:
+    """Convert the latest ``<src>/<model>/<step>`` into
+    ``<dst>/<model>/<step>``; returns the written directory."""
     import orbax.checkpoint as ocp
 
     from kubegpu_tpu_torch.models.checkpoint import make_manager
 
-    root = os.path.join(os.path.abspath(src), "lm")
+    root = os.path.join(os.path.abspath(src), model)
     step = ocp.CheckpointManager(root).latest_step()
     if step is None:
         raise SystemExit(f"no Orbax checkpoint under {root}")
@@ -101,6 +127,7 @@ def convert(src: str, dst: str) -> str:
         raise SystemExit(f"{root}/{step} holds step {saved_step}")
     record, opt = optimizer_of(tree["opt_state"])
     params = tree["params"]
+    stats = list(flat(tree.get("batch_stats") or {}, "batch_stats"))
 
     def leaves():
         yield from flat(params, "params")
@@ -109,12 +136,14 @@ def convert(src: str, dst: str) -> str:
                 yield from flat(opt[name], f"opt_state/{name}")
             else:
                 yield f"opt_state/{name}", np.asarray(opt[name], np.int32)
+        yield from stats
         yield "step", np.asarray(saved_step, np.int32)
 
-    return make_manager(os.path.join(os.path.abspath(dst), "lm")).write(
+    return make_manager(os.path.join(os.path.abspath(dst), model)).write(
         saved_step, leaves(), dict(
             optimizer=record, model=model_dims(params),
-            batch_stats={}, converted_from=os.path.join(root, str(step))))
+            batch_stats=[k for k, _ in stats],
+            converted_from=os.path.join(root, str(step))))
 
 
 def main(argv=None) -> int:
@@ -124,8 +153,13 @@ def main(argv=None) -> int:
     ap.add_argument("--dst", required=True,
                     help="the port's --ckpt-dir to write into")
     args = ap.parse_args(argv)
-    out = convert(args.src, args.dst)
-    print(f"CONVERTED {out}", flush=True)
+    models = [m for m in MODELS if os.path.isdir(
+        os.path.join(os.path.abspath(args.src), m))]
+    if not models:
+        raise SystemExit(f"no checkpoint of {', '.join(MODELS)} under "
+                         f"{args.src}")
+    for model in models:
+        print(f"CONVERTED {convert(args.src, args.dst, model)}", flush=True)
     return 0
 
 
