@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Builds every kernel of the port's serving and training paths from the
-sources in the checkout, then runs fifty-six phases; any failure exits
+sources in the checkout, then runs sixty phases; any failure exits
 non-zero:
 
 1. device: the card's name and power limit, TF32 off;
@@ -358,9 +358,45 @@ non-zero:
    uninterrupted: every leaf, the ``batch_stats`` included, within 1e-6;
    the step's bytes, each save's and the restore's seconds.
 
-Phases 29-34 and 53-54 set every kernel's launch count to 0 before each
-run and require it to be 0 after: the dense paths and the ResNet run
-none of K1-K5.
+57. the MoE transformer (``models/moe.py``) at float32 with flash
+   attention, card against CPU (2 layers, hidden 64, 4 heads of 16, 4
+   experts, vocab 256, batch 4, seq 128), each router with each dispatch
+   (top1 and top2 einsum and gather, expert choice): three carried
+   nesterov SGD steps from one tree, losses within rtol 1e-4, the first
+   step's gradients within rtol=atol 1e-4, drop rates equal unless a
+   printed near-tie (the CPU's closest gates within 1e-5), K3/K4/K5
+   launched steps x layers times on the card;
+58. the reference's MoE bench row (``bench.py`` ``steady_state_moe``:
+   b8, s1024, vocab 32768, hidden 2048, 16 heads of 128, 4 layers, 4
+   experts, capacity factor 2, flash attention, bf16) on one card: the
+   dense twin (``TransformerLM``) and the six MoE rows (top1 fp32- and
+   fast-dispatch, top2, expert choice, top1 and top2 gather), each 2 warm
+   and 10 timed steps on a device pool of 2 batches of the reference's
+   stream: ms a step, tokens/s, aux and drop rate (after the steps, on
+   the first batch, as the reference reads them), peak memory, and the
+   share of the dense bf16 peak (FLOPs counted by ``FlopCounterMode``
+   over the first step, plus the flash kernels' from their shapes); K3,
+   K4, K5 and the pre-pass launched 4 times a step each; one more step
+   of the default row (top1 fast-dispatch) profiled, device time by
+   class (router, dispatch and combine, experts, flash kernels,
+   attention projections, head, optimizer, other) and the idle share;
+59. expert meshes in gloo gangs on the card (host-staged: no time here
+   is an expert-parallel speed): phase 57's float32 model at dp 2 x ep 2
+   and ep 2 x tp 2 (four ranks each) against the card's one device, top1
+   einsum, top2 gather and expert choice: loss, aux and every gradient
+   within 1e-4; the bench width at ep 2 (two ranks, two experts each):
+   the first bf16 loss within 1e-2 of phase 58's default row, each
+   rank's expert bytes half of the whole, seconds a step;
+60. the worker's ``--model moe --num-experts 4 --steps 20`` at its
+   defaults (vocab 32000, hidden 512, 8 heads, 4 layers, seq 1024, b32,
+   einsum attention) and with ``--moe-router top2 --moe-dispatch
+   gather``: ``FIRST_STEP_DONE``, tokens/s, the router's line, no flash
+   kernel launched; then ``--ckpt-dir``: 2 steps and a resumed 2 against
+   4, every leaf within 1e-6.
+
+Phases 29-34, 53-54 and 60 set every kernel's launch count to 0 before
+each run and require it to be 0 after: the dense paths, the ResNet and
+the worker's einsum-attention MoE run none of K1-K5.
 
 The line before the last is the per-kernel JSON record, and the line
 before that the card's name and power limit again; the last line is
@@ -5000,6 +5036,601 @@ def phase_resnet_ckpt(device: str = "cuda", argv=RESNET_CKPT_ARGV) -> dict:
         shutil.rmtree(root, ignore_errors=True)
 
 
+# -- the MoE family (phases 57-60) ----------------------------------------------
+
+# phase 57's small model: 2 layers, hidden 64 (4 heads of 16), 4 experts
+MOE_SMALL = dict(vocab_size=256, num_layers=2, num_heads=4, hidden=64,
+                 max_seq=129, num_experts=4)
+MOE_SMALL_RUN = dict(batch=4, seq=128)
+MOE_ROUTES = (("top1", "einsum"), ("top1", "gather"), ("top2", "einsum"),
+              ("top2", "gather"), ("expert_choice", "einsum"))
+# bench.py's steady_state_moe (bench.py:5009-5054): b8, s1024, vocab
+# 32768, hidden 2048, 16 heads of 128, 4 layers, 4 experts, capacity
+# factor 2, flash attention on both the MoE rows and the dense twin
+MOE_BENCH = dict(vocab_size=32768, num_layers=4, num_heads=16, hidden=2048,
+                 max_seq=1025, num_experts=4)
+MOE_BENCH_RUN = dict(batch=8, seq=1024, warm=2, timed=10, pool=2)
+# its six MoE rows: (label, router, fast_dispatch, dispatch)
+MOE_ROWS = (("top1 fp32-dispatch", "top1", False, "einsum"),
+            ("top1 fast-dispatch", "top1", True, "einsum"),
+            ("top2 fast-dispatch", "top2", True, "einsum"),
+            ("expert-choice fast-dispatch", "expert_choice", True, "einsum"),
+            ("top1 gather-dispatch", "top1", True, "gather"),
+            ("top2 gather-dispatch", "top2", True, "gather"))
+MOE_DEFAULT_ROW = "top1 fast-dispatch"
+# a routing decision whose deciding gates lie closer than this may flip
+# between two devices' float32 rounding
+MOE_NEAR_TIE = 1e-5
+MOE_WORKER_ARGV = ["--model", "moe", "--num-experts", "4", "--steps", "20"]
+MOE_CKPT_ARGV = ["--model", "moe", "--num-experts", "4",
+                 "--batch-per-chip", "8", "--ckpt-every", "100"]
+MOE_CKPT_TOL = 1e-6
+
+
+def moe_cases():
+    """The rank bodies of the port's MoE tests
+    (``tests/torch_moe_cases.py``)."""
+    tp_cases()   # puts tests/ on the path
+    import torch_moe_cases
+
+    return torch_moe_cases
+
+
+def moe_init_cfg(cfg: dict) -> dict:
+    """``init_moe_params``' cfg of a model cfg (no head count)."""
+    return {k: v for k, v in cfg.items() if k != "num_heads"}
+
+
+def moe_gate_margin(model, tokens) -> float:
+    """The closest routing decision of a forward of ``tokens``: the
+    smallest gap between a token's two largest gates and, under expert
+    choice, between the gates at each expert's capacity edge."""
+    import torch
+
+    from kubegpu_tpu_torch.models.moe import capacity_of
+
+    gaps = []
+
+    def hook(mlp, _inputs, logits):
+        gates = torch.softmax(logits.float(), dim=-1)
+        top = gates.topk(2, dim=-1).values
+        gaps.append((top[..., 0] - top[..., 1]).min().item())
+        if model.router_type == "expert_choice":
+            s = gates.shape[1]
+            c = capacity_of(s, model.num_experts, model.capacity_factor)
+            if c < s:
+                ranked = gates.transpose(1, 2).sort(-1, descending=True).values
+                gaps.append((ranked[..., c - 1] - ranked[..., c]).min().item())
+
+    hooks = [blk.moe_mlp.router.register_forward_hook(hook)
+             for blk in model.blocks()]
+    try:
+        with torch.no_grad():
+            model(tokens)
+    finally:
+        for h in hooks:
+            h.remove()
+    return min(gaps)
+
+
+def phase_moe_card_vs_cpu(device: str = "cuda", cfg: dict = MOE_SMALL,
+                          run: dict = MOE_SMALL_RUN) -> None:
+    """Phase 57: the small MoE model at float32 with flash attention,
+    card against CPU, each router with each dispatch: three carried
+    nesterov SGD steps from one fresh tree on one token stream."""
+    import numpy as np
+    import torch
+
+    from kubegpu_tpu_torch.models.data import synthetic_token_batches
+    from kubegpu_tpu_torch.models.moe import MoeTransformerLM, moe_router_stats
+    from kubegpu_tpu_torch.models.params import init_moe_params, tree_map
+    from kubegpu_tpu_torch.models.train import (
+        create_train_state,
+        moe_loss,
+        moe_step,
+    )
+
+    t0 = time.monotonic()
+    params = init_moe_params(moe_init_cfg(cfg),
+                             torch.Generator().manual_seed(7), "cpu")
+    source = synthetic_token_batches(run["batch"], run["seq"] + 1,
+                                     cfg["vocab_size"], seed=2)
+    batches = [torch.from_numpy(next(source)) for _ in range(3)]
+    for router, dispatch in MOE_ROUTES:
+        runs = {}
+        for dev in ("cpu", device):
+            kernels = flash_counts_to_zero()
+            model = MoeTransformerLM(dtype=torch.float32, attn_impl="flash",
+                                     router_type=router,
+                                     dispatch_impl=dispatch, **cfg)
+            state = create_train_state(
+                model, tree_map(lambda t: t.to(dev).clone(), params))
+            # step 1 by hand, to read its gradients before the optimizer
+            # (torch's multi-tensor nesterov SGD adds the momentum into
+            # them)
+            loss, aux = moe_loss(model, batches[0].to(dev))
+            loss.backward()
+            grads = {n: p.grad.detach().cpu().clone()
+                     for n, p in model.named_parameters()}
+            state.opt.step()
+            state.opt.zero_grad(set_to_none=True)
+            state.step += 1
+            steps = [moe_step(state, t.to(dev)) for t in batches[1:]]
+            losses = [loss.item()] + [v[0].item() for v in steps]
+            auxes = [aux.item()] + [v[1].item() for v in steps]
+            launches = [fn.launches for fn in kernels]
+            _, drop = moe_router_stats(model, batches[0][:, :-1].to(dev))
+            runs[dev] = dict(losses=np.asarray(losses), auxes=auxes,
+                             grads=grads, drop=drop.item(), model=model)
+            want = 3 * cfg["num_layers"] if dev != "cpu" else 0
+            # the float32 K4 and K5 take delta from out: no pre-pass
+            assert launches == [want] * 3 + [0], (router, dispatch, dev,
+                                                  launches)
+        cpu, card = runs["cpu"], runs[device]
+        label = f"moe {router}/{dispatch} fp32"
+        np.testing.assert_allclose(card["losses"], cpu["losses"],
+                                   rtol=TRAIN_TOL, atol=0, err_msg=label)
+        np.testing.assert_allclose(card["auxes"], cpu["auxes"],
+                                   rtol=TRAIN_TOL, atol=TRAIN_TOL,
+                                   err_msg=label)
+        worst = 0.0
+        for n, want in cpu["grads"].items():
+            torch.testing.assert_close(card["grads"][n], want,
+                                       rtol=TRAIN_TOL, atol=TRAIN_TOL,
+                                       msg=lambda m: f"{label} {n}: {m}")
+            worst = max(worst, (card["grads"][n] - want).abs().max().item())
+        tie = ""
+        if card["drop"] != cpu["drop"]:
+            margin = moe_gate_margin(cpu["model"], batches[0][:, :-1])
+            assert margin < MOE_NEAR_TIE, (label, card["drop"], cpu["drop"],
+                                           margin)
+            tie = (f"; drop rates differ at a near-tie (closest gate gap "
+                   f"{margin:.2e})")
+        log(f"{label} card vs cpu: losses "
+            f"{[round(float(x), 6) for x in card['losses']]}, diffs "
+            f"{np.abs(card['losses'] - cpu['losses']).tolist()}; aux "
+            f"{[round(x, 6) for x in card['auxes']]}; worst step-1 gradient "
+            f"diff {worst:.3e} over {len(cpu['grads'])} leaves; drop card "
+            f"{card['drop']:.6f} cpu {cpu['drop']:.6f}{tie}; K3/K4/K5 "
+            f"launched {3 * cfg['num_layers']} times each on the card")
+    log(f"moe card vs cpu: {time.monotonic() - t0:.1f} s")
+
+
+def moe_flash_flops(cfg: dict, batch: int, seq: int) -> int:
+    """The flash kernels' FLOPs in one training step, from their shapes
+    (``FlopCounterMode`` does not see a kernel launched through ctypes):
+    causal, so half the score matrix: the forward's two products 2 b h
+    s^2 d, the backward's five (recomputed scores, dV, dP, dQ, dK)
+    5 b h s^2 d, over every layer."""
+    hd = cfg["hidden"] // cfg["num_heads"]
+    return (7 * batch * cfg["num_heads"] * seq * seq * hd
+            * cfg["num_layers"])
+
+
+MOE_CLASSES = ("router", "dispatch_combine", "experts", "attention_kernels",
+               "attention", "head", "optimizer", "other")
+
+
+def moe_labelled(model, state):
+    """A profiling label around each part of a MoE step: each method
+    and module forward wrapped in ``record_function("moe::<class>")``
+    for the time of the ``with``; returns the context manager."""
+    import contextlib
+
+    from torch.profiler import record_function
+
+    from kubegpu_tpu_torch.models import moe, train
+    from kubegpu_tpu_torch.models.transformer import CausalSelfAttention
+
+    def wrap(fn, label):
+        def run(*a, **kw):
+            with record_function(f"moe::{label}"):
+                return fn(*a, **kw)
+        return run
+
+    targets = [(moe.MoEMLP, name, "router")
+               for name in ("_gates", "_top1", "_top2", "_expert_choice")]
+    targets += [(moe.MoEMLP, "_dense", "dispatch_combine"),
+                (moe.MoEMLP, "_gather", "dispatch_combine"),
+                (moe.MoEMLP, "_experts", "experts"),
+                (CausalSelfAttention, "forward", "attention"),
+                (train, "cross_entropy", "head"),
+                (model.lm_head, "forward", "head"),
+                (model.ln_f, "forward", "head"),
+                (state.opt, "step", "optimizer")]
+
+    @contextlib.contextmanager
+    def labelled():
+        saved = [(obj, name, getattr(obj, name)) for obj, name, _ in targets]
+        try:
+            for obj, name, label in targets:
+                setattr(obj, name, wrap(getattr(obj, name), label))
+            yield
+        finally:
+            for obj, name, fn in saved:
+                if isinstance(obj, type) or obj is train:
+                    setattr(obj, name, fn)
+                else:
+                    delattr(obj, name)   # the instance's own wrapper
+
+    return labelled()
+
+
+def moe_breakdown(prof) -> tuple:
+    """Device time (ms) of a profile of labelled MoE steps by class
+    (:data:`MOE_CLASSES`), and the device's busy time: each kernel goes
+    to its name's class (the flash kernels), else to the label of the
+    forward op it ran under, and a backward kernel to the label of the
+    forward op whose autograd node ran it (the same sequence number)."""
+    from collections import defaultdict
+
+    from torch.autograd import DeviceType
+
+    flash = ("flash_forward", "flash_backward")
+    evs = list(prof.events())
+
+    def ancestor(e, test):
+        while e is not None:
+            if test(e.name):
+                return e
+            e = e.cpu_parent
+        return None
+
+    def label(e):
+        a = ancestor(e, lambda n: n.startswith("moe::"))
+        return a.name[len("moe::"):] if a is not None else None
+
+    def backward_node(e):
+        return ancestor(e, lambda n: n.startswith(
+            "autograd::engine::evaluate_function"))
+
+    fwd = {}
+    for e in evs:
+        if (e.device_type == DeviceType.CPU
+                and getattr(e, "sequence_nr", -1) >= 0
+                and backward_node(e) is None):
+            lab = label(e)
+            if lab is not None:
+                fwd.setdefault(e.sequence_nr, lab)
+    cats = defaultdict(float)
+    busy = 0.0
+    for e in evs:
+        if e.device_type == DeviceType.CUDA and not getattr(
+                e, "is_user_annotation", False):
+            busy += e.time_range.elapsed_us() / 1e3
+        if e.device_type != DeviceType.CPU:
+            continue
+        for k in e.kernels:
+            if any(f in k.name for f in flash):
+                cat = "attention_kernels"
+            else:
+                node = backward_node(e)
+                cat = (fwd.get(node.sequence_nr, "other") if node is not None
+                       else label(e) or "other")
+            cats[cat] += k.duration / 1e3
+    return {c: cats.get(c, 0.0) for c in MOE_CLASSES}, busy
+
+
+def moe_row(label: str, model, params, step_fn, batches, run: dict,
+            flash_flops: int, device: str, profile_step: bool = False
+            ) -> dict:
+    """One row of the reference's MoE bench on the card: a fresh train
+    state, the warm-up steps (the first under ``FlopCounterMode``), the
+    timed steps with K3/K4/K5 counted from 0, the peak memory; with
+    ``profile_step`` one more step profiled by class."""
+    import numpy as np
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from kubegpu_tpu_torch.models.train import create_train_state
+
+    card = device != "cpu"
+    if card:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    state = create_train_state(model, params)
+    i = 0
+
+    def step():
+        nonlocal i
+        out = step_fn(state, batches[i % len(batches)])
+        i += 1
+        return out[0] if isinstance(out, tuple) else out
+
+    counter = FlopCounterMode(display=False)
+    with counter:
+        first = step().item()
+    flops = counter.get_total_flops() + flash_flops
+    for _ in range(run["warm"] - 1):
+        step()
+    sync(device)
+    kernels = flash_counts_to_zero()
+    t0 = time.perf_counter()
+    for _ in range(run["timed"]):
+        loss = step()
+    last = loss.item()   # forces the chain
+    sync(device)
+    dt = (time.perf_counter() - t0) / run["timed"]
+    launches = {fn.__name__: fn.launches for fn in kernels}
+    peak = torch.cuda.max_memory_allocated() / 2**30 if card else 0.0
+    tokens = run["batch"] * run["seq"]
+    out = dict(first_loss=first, last_loss=last, step_s=dt,
+               tokens_per_s=tokens / dt, flops=flops,
+               peak_share=flops / dt / BF16_PEAK_FLOPS, peak_gib=peak,
+               launches=launches, state=state)
+    want = model.num_layers * run["timed"] if card else 0
+    for name in ("flash_forward", "flash_backward_dkdv", "flash_backward_dq",
+                 "flash_backward_delta"):
+        assert launches[name] == want, (label, launches, want)
+    assert np.isfinite([first, last]).all(), (label, first, last)
+    if profile_step and card:
+        from torch.profiler import ProfilerActivity, profile
+
+        torch.cuda.synchronize()
+        with moe_labelled(model, state):
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA],
+                         acc_events=True) as prof:
+                t1 = time.perf_counter()
+                step()
+                torch.cuda.synchronize()
+                wall = (time.perf_counter() - t1) * 1e3
+        cats, busy = moe_breakdown(prof)
+        out["profile"] = dict(wall_ms=wall, busy_ms=busy, **cats)
+        shown = sum(cats.values())
+        log(f"moe [{label}] one profiled step: {wall:.2f} ms wall, device "
+            f"busy {busy:.2f} ms (idle {100 - busy / wall * 100:.1f}%); by "
+            f"class, ms: " + ", ".join(
+                f"{k} {v:.2f} ({v / max(shown, 1e-9) * 100:.1f}%)"
+                for k, v in sorted(cats.items(), key=lambda kv: -kv[1]))
+            + f"; classified {shown:.2f} ms of {busy:.2f}")
+    return out
+
+
+def phase_moe_bench(device: str = "cuda", cfg: dict = MOE_BENCH,
+                    run: dict = MOE_BENCH_RUN, rows=MOE_ROWS) -> dict:
+    """Phase 58: ``bench.py``'s ``steady_state_moe`` on one card: the
+    dense twin and the six MoE rows in bf16 with flash attention, each
+    ``run["warm"]`` warm and ``run["timed"]`` timed steps on a device
+    pool of ``run["pool"]`` batches of the reference's stream; one
+    profiled step of the default row."""
+    import torch
+
+    from kubegpu_tpu_torch.models.data import synthetic_token_batches
+    from kubegpu_tpu_torch.models.moe import MoeTransformerLM, moe_router_stats
+    from kubegpu_tpu_torch.models.params import init_moe_params, init_params
+    from kubegpu_tpu_torch.models.train import lm_step, moe_step
+    from kubegpu_tpu_torch.models.transformer import TransformerLM
+
+    t0 = time.monotonic()
+    b, s = run["batch"], run["seq"]
+    source = synthetic_token_batches(b, s + 1, cfg["vocab_size"])
+    host = [next(source) for _ in range(run["pool"])]
+    batches = [torch.from_numpy(t).to(device) for t in host]
+    flash_flops = moe_flash_flops(cfg, b, s)
+    dims = {k: v for k, v in cfg.items() if k != "num_experts"}
+    dense = TransformerLM(dtype=torch.bfloat16, attn_impl="flash", **dims)
+    gen = torch.Generator(device=device).manual_seed(0)
+    init = moe_init_cfg(dims)
+    out = {"dense": moe_row("dense twin", dense,
+                            init_params(init, gen, torch.float32, device),
+                            lm_step, batches, run, flash_flops, device)}
+    dense_s = out["dense"]["step_s"]
+    del dense
+    out["dense"].pop("state")
+    log(f"moe bench dense twin (h{cfg['hidden']} L{cfg['num_layers']} "
+        f"b{b} s{s} bf16 flash): {dense_s * 1e3:.2f} ms a step, "
+        f"{out['dense']['tokens_per_s']:.1f} tokens/s, "
+        f"{flop_str(out['dense']['flops'])} a step -> "
+        f"{out['dense']['peak_share'] * 100:.1f}% of the dense bf16 peak; "
+        f"peak {out['dense']['peak_gib']:.2f} GiB; first loss "
+        f"{out['dense']['first_loss']:.4f}")
+    for label, router, fast, dispatch in rows:
+        model = MoeTransformerLM(dtype=torch.bfloat16, attn_impl="flash",
+                                 router_type=router, fast_dispatch=fast,
+                                 dispatch_impl=dispatch,
+                                 capacity_factor=2.0, **cfg)
+        params = init_moe_params(moe_init_cfg(cfg), torch.Generator(
+            device=device).manual_seed(0), device)
+        r = moe_row(label, model, params, moe_step, batches, run,
+                    flash_flops, device,
+                    profile_step=label == MOE_DEFAULT_ROW)
+        # the reference reads the router's health after its steps, on its
+        # first sample
+        aux, drop = moe_router_stats(model, batches[0][:, :-1])
+        r.update(aux=aux.item(), drop=drop.item())
+        r.pop("state")
+        del model, params
+        out[label] = r
+        log(f"moe bench [{label}] ({cfg['num_experts']} local experts, "
+            f"h{cfg['hidden']} L{cfg['num_layers']}) b{b} s{s}: "
+            f"{r['step_s'] * 1e3:.2f} ms a step, {r['tokens_per_s']:.1f} "
+            f"tokens/s, {flop_str(r['flops'])} a step -> "
+            f"{r['peak_share'] * 100:.1f}% of the dense bf16 peak, "
+            f"overhead vs dense {(r['step_s'] / dense_s - 1) * 100:+.1f}%; "
+            f"aux {r['aux']:.4f}, token drop {r['drop'] * 100:.2f}%; peak "
+            f"{r['peak_gib']:.2f} GiB; K3/K4/K5/pre-pass launched "
+            f"{r['launches']['flash_forward']} times each in "
+            f"{run['timed']} steps; first loss {r['first_loss']:.4f}")
+    if device != "cpu":
+        # the flash kernels at the shape the rows gave them, against their
+        # plain versions; outside the counted steps
+        heads = cfg["num_heads"]
+        out["flash_errs"] = check_flash(*flash_inputs(
+            b, s, s, heads, cfg["hidden"] // heads, torch.bfloat16,
+            torch.Generator(device=device).manual_seed(58)), True)
+        torch.cuda.empty_cache()
+    log(f"moe bench: {time.monotonic() - t0:.1f} s")
+    out["tokens"] = host
+    return out
+
+
+def moe_gang(axes: dict, tmp: str, device: str):
+    """The ranks of an expert mesh on the one card over gloo: every
+    collective's tensors are copied through the host."""
+    import math
+
+    from kubegpu_tpu_torch.parallel.launch import Gang
+
+    dev = "cuda:0" if device == "cuda" else device
+    return Gang(axes, tmp, backend="gloo",
+                devices=[dev] * math.prod(axes.values()), timeout_s=900.0)
+
+
+def phase_moe_gang(bench: dict, device: str = "cuda",
+                   small: dict = MOE_SMALL, run: dict = MOE_SMALL_RUN,
+                   wide: dict = MOE_BENCH, wide_steps: int = 3) -> dict:
+    """Phase 59: fp32 dp 2 x ep 2 and ep 2 x tp 2 gangs on the card
+    against one device at the small size, each route; the bench width at
+    ep 2 in a two-rank gang against phase 58's first loss."""
+    import numpy as np
+    import torch
+
+    from kubegpu_tpu_torch.models.data import synthetic_token_batches
+    from kubegpu_tpu_torch.models.params import init_moe_params, tree_map
+
+    cases = moe_cases()
+    t0 = time.monotonic()
+    params = init_moe_params(moe_init_cfg(small),
+                             torch.Generator().manual_seed(8), "cpu")
+    tree = tree_map(lambda t: t.numpy(), params)
+    tokens = next(synthetic_token_batches(run["batch"], run["seq"] + 1,
+                                          small["vocab_size"], seed=3))
+    routes = [dict(router_type=r, dispatch_impl=d, attn_impl="flash")
+              for r, d in (("top1", "einsum"), ("top2", "gather"),
+                           ("expert_choice", "einsum"))]
+    # one device on the card, through the gangs' own body
+    ones = [cases.moe_grads(None, dict(params=tree, cfg=small, model=route,
+                                       tokens=[tokens], device=device))
+            for route in routes]
+    for axes in ({"data": 2, "expert": 2},
+                 {"data": 1, "expert": 2, "model": 2}):
+        with tempfile.TemporaryDirectory() as tmp:
+            with moe_gang(axes, tmp, device) as gang:
+                for route, one in zip(routes, ones):
+                    got = gang.run(cases.moe_grads, dict(
+                        params=tree, cfg=small, model=route,
+                        tokens=[tokens]))
+                    label = (f"moe {axes} {route['router_type']}/"
+                             f"{route['dispatch_impl']} fp32")
+                    np.testing.assert_allclose(got["loss"], one["loss"],
+                                               rtol=TRAIN_TOL,
+                                               atol=TRAIN_TOL, err_msg=label)
+                    np.testing.assert_allclose(got["aux"], one["aux"],
+                                               rtol=TRAIN_TOL,
+                                               atol=TRAIN_TOL, err_msg=label)
+                    worst = tree_close(label, got["grads"], one["grads"],
+                                       TRAIN_TOL)
+                    n = small["num_layers"] * (device != "cpu")
+                    assert all(v == (0 if k == "flash_backward_delta" else n)
+                               for k, v in got["launches"].items()), (
+                        label, got["launches"])
+                    log(f"{label} (gloo on the card) vs one device: loss "
+                        f"diff {abs(got['loss'] - one['loss']):.2e}, aux "
+                        f"diff {abs(got['aux'] - one['aux']):.2e}, worst "
+                        f"gradient diff {worst:.3e}; each rank launched "
+                        f"K3/K4/K5 {n} times")
+    # the bench width at ep 2: each rank holds two of the four experts
+    spec = dict(params={"init": moe_init_cfg(wide), "seed": 0}, cfg=wide,
+                model=dict(attn_impl="flash"), dtype=torch.bfloat16,
+                tokens=bench["tokens"], steps=wide_steps)
+    with tempfile.TemporaryDirectory() as tmp:
+        with moe_gang({"data": 1, "expert": 2}, tmp, device) as gang:
+            ranks = gang.run(cases.moe_bench_width, spec)
+    want = bench[MOE_DEFAULT_ROW]["first_loss"]
+    whole = 2 * wide["num_layers"] * wide["num_experts"] * 4 * \
+        wide["hidden"] ** 2 * 4   # w_up and w_down, float32
+    for r, mine in enumerate(ranks):
+        first = mine["losses"][0]
+        assert np.isfinite(mine["losses"]).all(), mine["losses"]
+        assert abs(first - want) <= FLAGSHIP_LOSS_TOL, (r, first, want)
+        assert 2 * mine["expert_bytes"] == whole, (mine["expert_bytes"],
+                                                   whole)
+        n = wide["num_layers"] * wide_steps * (device != "cpu")
+        assert all(v == n for v in mine["launches"].values()), mine
+        log(f"moe bench width ep 2 rank {r} (gloo on the card, "
+            f"{mine['coords']}): losses "
+            f"{[round(x, 4) for x in mine['losses']]}, first against one "
+            f"device's {want:.4f} (diff {abs(first - want):.2e}); expert "
+            f"bytes {mine['expert_bytes']} of {whole} (half), all "
+            f"parameters {mine['param_bytes']} B; steps "
+            f"{[round(x, 3) for x in mine['seconds']]} s (host-staged: not "
+            f"an expert-parallel speed); peak "
+            f"{(mine['peak_bytes'] or 0) / 2**30:.2f} GiB")
+    log(f"moe gangs: {time.monotonic() - t0:.1f} s")
+    return dict(ranks=ranks)
+
+
+def moe_worker(label: str, argv: list, device: str) -> tuple:
+    """``worker.main`` in this process with every kernel count (K1-K5 and
+    the pre-pass) set to 0 just before; returns its output and the
+    counts after it."""
+    from kubegpu_tpu_torch.models import worker
+
+    zero_counts()
+    code, out = captured(worker.main, argv + ["--device", device])
+    assert code == 0, (label, code)
+    return out, {k: getattr(fn, a) for k, (fn, a) in kernel_counts().items()}
+
+
+def moe_npz(root: str, step: int) -> dict:
+    import os
+
+    import numpy as np
+
+    with np.load(os.path.join(root, "moe", str(step), "state.npz")) as z:
+        return {k: z[k] for k in z.files}
+
+
+def phase_moe_worker(device: str = "cuda", base: list = MOE_WORKER_ARGV,
+                     ckpt: list = MOE_CKPT_ARGV) -> dict:
+    """Phase 60: the worker's ``--model moe`` at its defaults (einsum
+    attention: no kernel of the port), with ``--moe-router top2
+    --moe-dispatch gather``, and a ``--ckpt-dir`` run resumed against an
+    uninterrupted one."""
+    import numpy as np
+
+    t0 = time.monotonic()
+    out = {}
+    for label, extra in (("default", []),
+                         ("top2-gather", ["--moe-router", "top2",
+                                          "--moe-dispatch", "gather"])):
+        text, launches = moe_worker(label, base + extra, device)
+        lines = {ln.split()[0]: ln for ln in text.splitlines() if ln}
+        first = fields(lines["FIRST_STEP_DONE"])
+        steady = fields(lines["steady_state"])
+        assert not any(launches.values()), (label, launches)
+        assert np.isfinite(float(steady["loss"])), steady
+        out[label] = dict(first_s=float(first["seconds"]),
+                          tokens_per_s=float(steady["tokens_per_sec"]))
+        log(f"moe worker [{label}] (--model moe at its defaults, "
+            f"{' '.join(extra) or 'top1 einsum'}): FIRST_STEP_DONE "
+            f"{first['seconds']} s, steady {steady['tokens_per_sec']} "
+            f"tokens/s, loss {steady['loss']}; "
+            f"{lines['PEAK_MEM_GIB']}; kernel launches {launches} (einsum "
+            "attention)")
+    with tempfile.TemporaryDirectory() as root:
+        straight, resumed = f"{root}/straight", f"{root}/resumed"
+        moe_worker("ckpt straight", ckpt + ["--steps", "4", "--ckpt-dir",
+                                            straight], device)
+        moe_worker("ckpt first", ckpt + ["--steps", "2", "--ckpt-dir",
+                                         resumed], device)
+        text, launches = moe_worker("ckpt resumed", ckpt + [
+            "--steps", "2", "--ckpt-dir", resumed], device)
+        assert not any(launches.values()), launches
+        assert "RESUMED step=2" in text and "CHECKPOINT_SAVED step=4" in text
+        a, b = moe_npz(resumed, 4), moe_npz(straight, 4)
+        assert a.keys() == b.keys()
+        worst = max(float(np.abs(a[k].astype(np.float64)
+                                 - b[k].astype(np.float64)).max())
+                    for k in a)
+        assert worst <= MOE_CKPT_TOL, worst
+        log(f"moe worker --ckpt-dir: 2 steps, a resumed 2, against 4: "
+            f"{len(a)} leaves, largest difference {worst:.3e}")
+    log(f"moe worker: {time.monotonic() - t0:.1f} s")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -5097,6 +5728,14 @@ def main() -> int:
     phase_resnet_gang()
     phase_resnet_ckpt()
     log(f"resnet phases {time.monotonic() - t3:.1f} s")
+    # the MoE family: card against CPU at fp32, the reference's MoE bench
+    # row on one card, expert meshes in gloo gangs on the card, the worker
+    t4 = time.monotonic()
+    phase_moe_card_vs_cpu()
+    moe = phase_moe_bench()
+    phase_moe_gang(moe)
+    phase_moe_worker()
+    log(f"moe phases {time.monotonic() - t4:.1f} s")
     log(f"chip_smoke: all phases passed in {time.monotonic() - t0:.1f} s")
     source = "kubegpu_tpu_torch/ops/csrc/paged_attention.cu"
     kernels = []
@@ -5179,6 +5818,10 @@ def main() -> int:
             "cp_max_abs_err": cp_k[kname]["unmasked"]["max_abs_err"],
             "cp_causal_ms": cp_k[kname]["causal"]["ms"],
             "cp_causal_bound_ms": cp_k[kname]["causal"]["bound_ms"],
+            # the MoE bench row (phase 58): the default row's launches in
+            # its timed steps, 4 layers x 10 steps
+            "moe_launches": moe[MOE_DEFAULT_ROW]["launches"][kname],
+            "moe_max_abs_err": moe["flash_errs"][kname],
         })
     # the card and its power limit again beside the results, where the
     # end of a long output still holds them

@@ -17,9 +17,11 @@ wrote.  Each saved step is one directory ``<root>/<step>/`` holding:
   float32, as the reference's training state is;
 - ``checkpoint.json``: the format's name and version, the step, the
   optimizer's name and hyperparameters, the model's dims (the LM's
-  widths, or a ResNet's ``family``, ``layout``, ``stage_sizes``,
-  ``num_filters``, ``num_classes`` and ``image_size``) and the list of
-  ``batch_stats`` leaves.
+  widths; a ResNet's ``family``, ``layout``, ``stage_sizes``,
+  ``num_filters``, ``num_classes`` and ``image_size``; the MoE
+  transformer's widths with ``family`` "moe", ``num_experts``,
+  ``capacity_factor``, ``mlp_ratio``, ``router_type`` and
+  ``dispatch_impl``) and the list of ``batch_stats`` leaves.
 
 A save writes a temporary directory (a name that is not a number, so no
 reader takes it for a step) and renames it into place: a half-written
@@ -30,9 +32,11 @@ Because the checkpoint holds the whole tree, it restores on any mesh, as
 Orbax restores into the template's shardings: every rank opens the file
 and reads it one leaf at a time (a member is read, and its CRC checked,
 when it is asked for), keeps its Megatron shard of the leaf on its own
-device and drops the rest, so a rank's host memory peaks at one leaf.  Saving gathers one
-leaf at a time over the ``"model"`` ranks of data shard 0 and global rank
-0 writes; every rank then meets at a barrier.
+device and drops the rest, so a rank's host memory peaks at one leaf
+(the MoE transformer's expert leaves cut along ``"expert"`` and, under
+EP x TP, ``"model"``, by the model's ``shard_rules``).  Saving gathers
+one leaf at a time over the ranks of data shard 0 and global rank 0
+writes; every rank then meets at a barrier.
 
 A leaf whose shape or dtype differs from the model's raises and names
 the leaf, as does a missing or an extra leaf.  A step directory that is
@@ -63,8 +67,14 @@ from kubegpu_tpu_torch.models.train import (
     iter_whole_state,
     set_param_opt_state,
 )
-from kubegpu_tpu_torch.parallel.mesh import DATA_AXIS, MODEL_AXIS, tp_size
-from kubegpu_tpu_torch.parallel.sharding import shard_dim, shard_slice
+from kubegpu_tpu_torch.parallel.mesh import DATA_AXIS
+from kubegpu_tpu_torch.parallel.sharding import (
+    mesh_place,
+    place_slice,
+    placed_dims,
+    rules_of,
+    whole_shape,
+)
 
 log = logging.getLogger(__name__)
 
@@ -309,8 +319,8 @@ def latest_step(mgr: CheckpointManager) -> Optional[int]:
 
 
 def model_dims(model) -> Dict[str, object]:
-    """The model's dims, as a checkpoint records them: a ResNet's own
-    (``dims()``), else the LM's widths."""
+    """The model's dims, as a checkpoint records them: a ResNet's or the
+    MoE transformer's own (``dims()``), else the LM's widths."""
     if hasattr(model, "dims"):
         return model.dims()
     return {k: getattr(model, k, None)
@@ -370,28 +380,20 @@ def restore_checkpoint(mgr: CheckpointManager, template: TrainState,
     parameters and BatchNorm statistics are overwritten in place, its
     optimizer state and step set.  Over a mesh every rank calls it and
     keeps its shard of each leaf on its own device (a ResNet's every
-    leaf whole, on any ``"data"`` size).  Returns the template, or None
+    leaf whole, on any ``"data"`` size; the MoE transformer's on any
+    ``("data", "expert"[, "model"])`` mesh).  Returns the template, or None
     when the directory holds no checkpoint."""
     step = mgr.latest_step() if step is None else step
     if step is None:
         return None
-    mesh = template.mesh
-    tp = tp_size(mesh)
-    rank = mesh.coord(MODEL_AXIS) if tp > 1 else 0
+    place = mesh_place(template.mesh)
+    rules = rules_of(template.model)
     optimizer = template.optimizer
     named = list(template.model.named_parameters())
 
-    def whole_shape(path: str, t: torch.Tensor) -> Tuple[int, ...]:
-        shape = list(t.shape)
-        dim = shard_dim(path) if tp > 1 and t.ndim else None
-        if dim is not None:
-            shape[dim] *= tp
-        return tuple(shape)
-
     def mine(path: str, a: np.ndarray) -> torch.Tensor:
-        dim = shard_dim(path) if tp > 1 and a.ndim else None
-        return torch.from_numpy(a if dim is None
-                                else shard_slice(a, dim, rank, tp))
+        return torch.from_numpy(
+            place_slice(a, placed_dims(path, a.ndim, place, rules), place))
 
     with mgr.open(step) as ckpt:
         _check_optimizer(ckpt, optimizer)
@@ -406,7 +408,9 @@ def restore_checkpoint(mgr: CheckpointManager, template: TrainState,
         with torch.no_grad():
             for name, param in named:
                 path = _path(name)
-                shape = whole_shape(path, param)
+                shape = whole_shape(
+                    param.shape, placed_dims(path, param.ndim, place, rules),
+                    place)
                 a = ckpt.leaf(f"params/{path}", shape, np.float32)
                 param.copy_(mine(path, a))
                 # each leaf was read fresh: it becomes the state uncopied

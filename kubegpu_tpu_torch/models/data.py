@@ -10,10 +10,11 @@ package's ``synthetic_token_batches_for_mesh`` on a one-device mesh (one
 data shard, seeded ``SeedSequence([seed, 0])``), which is also its
 ``synthetic_token_batches`` of worker 0.
 :func:`synthetic_token_batches_for_mesh` is the per-rank source of a
-``("data", "model")`` mesh: each data rank draws its ``batch / dp`` rows
-from ``SeedSequence([seed, data_coord])``, so the ranks of one data
-shard (its ``"model"`` ranks) draw byte-identical rows, as JAX's
-processes do.  :func:`structured_token_batches` is the JAX package's
+``("data", "model")``, ``("data", "seq")`` or ``("data", "expert"[,
+"model"])`` mesh: each data rank draws its ``batch / dp`` rows from
+``SeedSequence([seed, data_coord])``, so the ranks of one data shard
+(the ranks that differ only along ``"model"``, ``"seq"`` or
+``"expert"``) draw byte-identical rows, as JAX's processes do.  :func:`structured_token_batches` is the JAX package's
 learnable stream, bit for bit.  The device side has the JAX
 worker's three ``--data`` modes:
 
@@ -99,7 +100,9 @@ def synthetic_token_batches_for_mesh(batch: int, seq_len: int,
     """This rank's rows of endless global ``(batch, seq_len)`` int32 token
     batches over ``mesh`` (the JAX function, one process per device):
     ``batch / dp`` rows a step from ``SeedSequence([seed, d])``, ``d``
-    this rank's ``"data"`` coordinate."""
+    this rank's ``"data"`` coordinate, whatever its other axes (every
+    ``"expert"``, ``"model"`` or ``"seq"`` rank of a data shard draws
+    the same bytes)."""
     dp = mesh.axis_size(DATA_AXIS)
     if batch % dp:
         raise ValueError(f"batch {batch} not divisible by data axis {dp}")

@@ -1,5 +1,6 @@
-"""The weight trees of the port: the LM's, and the ResNet's
-(:func:`init_resnet_params`, :func:`bind_buffers`).
+"""The weight trees of the port: the LM's, the MoE transformer's
+(:func:`init_moe_params`) and the ResNet's (:func:`init_resnet_params`,
+:func:`bind_buffers`).
 
 The JAX package's ``TransformerLM``, ``DecodeLM`` and ``PagedDecodeLM``
 share one flax parameter tree (``layer{i}/attn/q_proj/kernel`` ...).
@@ -122,6 +123,44 @@ def init_params(cfg: Mapping, generator: torch.Generator,
         }
     tree["ln_f"] = norm()
     tree["lm_head"] = dense(hidden, vocab)
+    return tree
+
+
+def init_moe_params(cfg: Mapping, generator: torch.Generator,
+                    device="cuda") -> Tree:
+    """Fresh float32 weights of the MoE transformer
+    (``models/moe.py``) with the JAX init's distributions (not its
+    bits): the LM's leaves as :func:`init_params` draws them, and each
+    layer's ``moe_mlp`` in place of its MLP: the router a float32 Dense
+    ``(hidden, e)`` (lecun-normal), and the stacked expert kernels
+    ``w_up`` ``(e, hidden, h)`` and ``w_down`` ``(e, h, hidden)`` drawn
+    as flax's ``variance_scaling(1.0, "fan_in", "truncated_normal",
+    in_axis=-2, out_axis=-1, batch_axis=(0,))``: each expert's matrix a
+    truncated normal of std ``1/sqrt(fan_in)``, ``fan_in`` its input
+    dim.  ``cfg`` carries ``vocab_size, num_layers, hidden, max_seq,
+    num_experts`` and optionally ``mlp_ratio`` (default 4)."""
+    dev = resolve_device(device)
+    hidden, e = cfg["hidden"], cfg["num_experts"]
+    h = hidden * cfg.get("mlp_ratio", 4)
+    tree = init_params(cfg, generator, torch.float32, dev)
+
+    def stacked(n_in: int, n_out: int) -> torch.Tensor:
+        std = math.sqrt(1.0 / n_in) / 0.87962566103423978
+        w = torch.empty((e, n_in, n_out), dtype=torch.float32, device=dev)
+        nn.init.trunc_normal_(w, 0.0, std, -2.0 * std, 2.0 * std,
+                              generator=generator)
+        return w
+
+    for i in range(cfg["num_layers"]):
+        layer = tree[f"layer{i}"]
+        del layer["mlp_up"], layer["mlp_down"]
+        router = torch.empty((hidden, e), dtype=torch.float32, device=dev)
+        std = math.sqrt(1.0 / hidden) / 0.87962566103423978
+        nn.init.trunc_normal_(router, 0.0, std, -2.0 * std, 2.0 * std,
+                              generator=generator)
+        layer["moe_mlp"] = {"router": {"kernel": router},
+                            "w_up": stacked(hidden, h),
+                            "w_down": stacked(h, hidden)}
     return tree
 
 

@@ -2,8 +2,9 @@
 ``kubegpu_tpu/models/train.py``'s ``TrainState``,
 ``create_train_state(tx=)``, ``cross_entropy``, ``resnet_loss``,
 ``make_resnet_train_step``, ``place_resnet``, ``lm_loss``,
-``make_lm_train_step``, ``place_lm``, ``draft_distill_loss`` and
-``make_draft_distill_step``.
+``make_lm_train_step``, ``place_lm``, ``draft_distill_loss``,
+``make_draft_distill_step``, ``moe_loss``, ``make_moe_train_step`` and
+``place_moe``.
 
 The optimizer is an :class:`Optimizer`: :func:`sgd` or :func:`adam`.  The
 default is the JAX package's, ``optax.sgd(0.1,
@@ -56,6 +57,20 @@ returns is the mean over ``"data"`` x ``"seq"``, and :func:`sync_grads`
 averages every gradient over all dp x cp ranks in one flat all-reduce
 (the attention's collectives have already carried each rank's share of
 another rank's K/V gradient home).
+
+The MoE transformer (``models/moe.py``) trains over a ``("data",
+"expert"[, "model"])`` mesh (:func:`place_moe`, the JAX ``place_moe``):
+each rank keeps its experts' slices of ``w_up``/``w_down`` (and under
+EP x TP its Megatron shard of those and of the attention, embeddings and
+head), the rest whole, its optimizer state sharded alike, and its
+``batch / dp`` rows (every rank of one data shard the same rows).
+:func:`moe_loss` adds ``aux_weight`` times the layers' mean aux loss to
+the cross-entropy; the aux is the whole batch's (its sums are added over
+``"data"`` with a gradient summed back, so the mean over ``"data"``
+that :func:`sync_grads` takes leaves each rank's share once), and
+:func:`sync_grads` averages every gradient over ``"data"``: the experts'
+collectives have already summed what crosses ``"expert"`` and
+``"model"``.
 """
 
 from __future__ import annotations
@@ -68,6 +83,7 @@ import torch
 import torch.distributed as dist
 from torch import nn
 
+from kubegpu_tpu_torch.models.moe import layer_mean
 from kubegpu_tpu_torch.models.params import (
     Tree,
     bind_buffers,
@@ -77,7 +93,6 @@ from kubegpu_tpu_torch.models.params import (
     tree_map,
 )
 from kubegpu_tpu_torch.parallel.collectives import (
-    all_gather,
     data_mean,
     flat_all_reduce,
     mean_grads_over_data,
@@ -85,13 +100,20 @@ from kubegpu_tpu_torch.parallel.collectives import (
     mesh_mean,
 )
 from kubegpu_tpu_torch.parallel.mesh import (
+    EXPERT_AXIS,
     MODEL_AXIS,
     SEQ_AXIS,
     cp_size,
     tp_size,
 )
 from kubegpu_tpu_torch.parallel.sharding import (
-    shard_dim,
+    MOE_EP_RULES,
+    MOE_EP_TP_RULES,
+    mesh_gather,
+    mesh_place,
+    placed_dims,
+    rules_of,
+    shard_dims,
     shard_state,
 )
 
@@ -312,10 +334,18 @@ def place_lm(model: nn.Module, params: Mapping,
         raise ValueError("place_lm needs a mesh (the model's or mesh=)")
     if trace is not None:
         opt_state = {"trace": trace}
+    return _place_shards(model, params, opt_state, optimizer, step, mesh,
+                         rules_of(model))
+
+
+def _place_shards(model: nn.Module, params: Mapping,
+                  opt_state: Optional[Mapping],
+                  optimizer: Optional[Optimizer], step: int, mesh,
+                  rules) -> TrainState:
     dev = resolve_device(mesh.device)
 
     def shards(tree):
-        return tree_map(lambda t: t.to(dev), shard_state(tree, mesh))
+        return tree_map(lambda t: t.to(dev), shard_state(tree, mesh, rules))
 
     state = create_train_state(model, shards(params), optimizer=optimizer,
                                step=step)
@@ -323,6 +353,37 @@ def place_lm(model: nn.Module, params: Mapping,
         set_opt_state(state, {k: shards(v) if isinstance(v, Mapping) else v
                               for k, v in opt_state.items()})
     return state
+
+
+def place_moe(model: nn.Module, params: Mapping, *,
+              opt_state: Optional[Mapping] = None,
+              optimizer: Optional[Optimizer] = None, step: int = 0,
+              mesh=None) -> TrainState:
+    """The JAX ``place_moe``: the MoE transformer's train state over a
+    ``("data", "expert"[, "model"])`` mesh (default the model's; at one
+    device, ``mesh`` None, on the device the trees are on) from WHOLE
+    trees of tensors, ``params`` and optionally the optimizer state in
+    optax's layout: ``MOE_EP_TP_RULES`` where the mesh has ``"model"``,
+    else ``MOE_EP_RULES``, cut each leaf and each optimizer slot alike,
+    this rank's shards copied onto the mesh's device.  The batch half is
+    the caller's: each rank feeds the model its ``"data"`` rows."""
+    mesh = mesh if mesh is not None else getattr(model, "mesh", None)
+    if mesh is None:
+        state = create_train_state(
+            model, tree_map(lambda t: t.clone(), params),
+            optimizer=optimizer, step=step)
+        if opt_state is not None:
+            set_opt_state(state, opt_state)
+        return state
+    if EXPERT_AXIS not in mesh.axis_names:
+        raise ValueError(f"place_moe needs an 'expert' axis, got "
+                         f"{tuple(mesh.axis_names)}")
+    rules = MOE_EP_TP_RULES if MODEL_AXIS in mesh.axis_names else MOE_EP_RULES
+    if rules is not rules_of(model):
+        raise ValueError("the model was built for another mesh: its "
+                         "shard rules are not place_moe's")
+    return _place_shards(model, params, opt_state, optimizer, step, mesh,
+                         rules)
 
 
 def place_cp_lm(model: nn.Module, params: Mapping, *,
@@ -449,12 +510,13 @@ def iter_whole_state(state: TrainState) -> Iterator[Tuple[str, torch.Tensor]]:
     copies.  One leaf at a time keeps a save's extra memory to one
     leaf."""
     mesh = state.mesh
-    tp = tp_size(mesh)
+    place = mesh_place(mesh)
+    rules = rules_of(state.model)
 
     def whole(path: str, t: torch.Tensor) -> torch.Tensor:
         t = t.detach()
-        dim = shard_dim(path) if tp > 1 and t.ndim else None
-        return t if dim is None else all_gather(t, mesh, dim)
+        dims = placed_dims(path, t.ndim, place, rules)
+        return mesh_gather(t, dims, mesh) if dims else t
 
     named = list(state.model.named_parameters())
     for name, param in named:
@@ -600,9 +662,10 @@ def lm_loss(model: nn.Module, tokens: torch.Tensor) -> torch.Tensor:
 
 def replicated_params(model: nn.Module) -> List[nn.Parameter]:
     """The parameters every ``"model"`` rank holds whole (no rule shards
-    them: the LayerNorms), in the model's order."""
+    them over ``"model"``: the LayerNorms), in the model's order."""
+    rules = rules_of(model)
     return [p for n, p in model.named_parameters()
-            if shard_dim(_path(n)) is None]
+            if MODEL_AXIS not in shard_dims(_path(n), rules)]
 
 
 def sync_grads(state: TrainState) -> None:
@@ -646,6 +709,57 @@ def lm_step(state: TrainState, tokens: torch.Tensor) -> torch.Tensor:
     state.opt.step()
     state.step += 1
     return loss
+
+
+# -- the MoE transformer -------------------------------------------------------
+
+
+MOE_AUX_WEIGHT = 0.01
+
+
+def moe_loss(model: nn.Module, tokens: torch.Tensor,
+             aux_weight: float = MOE_AUX_WEIGHT
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The JAX ``moe_loss`` of a ``(b, s + 1)`` token window:
+    ``(cross_entropy + aux_weight * aux, aux)``, ``aux`` the mean over
+    layers of each MoE layer's aux loss (the whole batch's).  Over a mesh
+    ``tokens`` are this data rank's rows; the cross-entropy is the mean
+    over ``"data"`` (the gradient that of this rank's own mean, as in
+    :func:`lm_loss`); the aux is the same on every rank.  The returned
+    aux carries no gradient."""
+    mesh = getattr(model, "mesh", None)
+    logits, sown = model.apply(tokens[:, :-1])
+    aux = layer_mean(sown["aux_loss"])
+    ce = cross_entropy(logits, tokens[:, 1:], mesh)
+    if mesh is not None:
+        ce = data_mean(ce, mesh)
+    return ce + aux_weight * aux, aux.detach()
+
+
+def moe_grads(state: TrainState, tokens: torch.Tensor,
+              aux_weight: float = MOE_AUX_WEIGHT
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The step's ``(loss, aux)`` and gradients without the update:
+    zero the gradients, differentiate :func:`moe_loss`,
+    :func:`sync_grads`."""
+    state.opt.zero_grad(set_to_none=True)
+    loss, aux = moe_loss(state.model, tokens, aux_weight)
+    loss.backward()
+    sync_grads(state)
+    return loss.detach(), aux
+
+
+def moe_step(state: TrainState, tokens: torch.Tensor,
+             aux_weight: float = MOE_AUX_WEIGHT
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One training step, the JAX ``make_moe_train_step``'s: loss, aux
+    and gradients (:func:`moe_grads`), one update of the optimizer in
+    place on this rank's shards.  Returns ``(loss, aux)`` as 0-d tensors
+    on the device."""
+    loss, aux = moe_grads(state, tokens, aux_weight)
+    state.opt.step()
+    state.step += 1
+    return loss, aux
 
 
 # -- draft distillation (speculative decoding) --------------------------------

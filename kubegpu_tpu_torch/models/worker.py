@@ -1,7 +1,8 @@
 """Worker of the port: ``--model resnet50`` (the default),
 ``resnet50-unrolled`` and ``resnet-tiny`` (data-parallel ResNet
 training), ``--model decode`` (serving), ``--model lm`` and ``--model
-lm-cp`` (LM training).
+lm-cp`` (LM training) and ``--model moe`` (expert-parallel MoE
+training).
 
 The port of ``kubegpu_tpu/models/worker.py``.  ``--model resnet50``
 trains the scan-rolled ResNet-50 (``resnet50-unrolled``: every block its
@@ -181,6 +182,29 @@ checkpoints under ``DIR/lm-cp``.
     python -m kubegpu_tpu_torch.models.worker --model lm-cp --cp 2 \\
         --seq 64 --cpu-ranks 4 --device cpu [--attn-impl ulysses ...]
 
+``--model moe`` trains the MoE transformer (``models/moe.py``) as the
+JAX worker does: capacity factor 2.0, einsum attention (the JAX worker
+passes no ``--attn-impl`` to it), ``--moe-router top1|top2|
+expert_choice`` and ``--moe-dispatch einsum|gather``, ``--num-experts``
+experts (0: one a ``"expert"`` rank), weights drawn fresh from seed 0
+with flax's initializers.  Of the n visible devices ``--tp`` (0: no
+tensor parallelism) make the ``"model"`` axis, and of the n / tp left
+``--ep`` (0: all of them) the ``"expert"`` axis and the rest ``"data"``:
+a ``{"data": dp, "expert": ep[, "model": tp]}`` mesh, one process a
+rank, over NCCL between cards or gloo on the CPU (``--cpu-ranks``).
+Each rank holds its experts (and under ``--tp`` its Megatron shard of
+them and of the attention, embeddings and head); every rank of a data
+row trains on that row's ``--batch-per-chip`` windows.  Rank 0 prints
+``TRAINING_MESH data=.. expert=.. model=.. devices=.. backend=..`` and
+the lines of ``--model lm``.  The JAX refusals
+hold: ``--tp`` and ``--ep`` must divide, heads split tp ways (and here
+vocab and hidden too), and the experts ep ways.  ``--ckpt-dir``
+checkpoints under ``DIR/moe``.
+
+    python -m kubegpu_tpu_torch.models.worker --model moe --ep 2 \
+        --cpu-ranks 2 --device cpu [--tp 2 --cpu-ranks 4] \
+        [--moe-router top2 --moe-dispatch gather]
+
 Runs on the card by default; ``--device cpu`` runs the plain PyTorch
 path (the kernels are then never launched).
 """
@@ -209,9 +233,15 @@ from kubegpu_tpu_torch.models.decoding import (
     greedy_generate,
     quantize_params_int8,
 )
+from kubegpu_tpu_torch.models.moe import (
+    DISPATCH_IMPLS,
+    ROUTERS,
+    MoeTransformerLM,
+)
 from kubegpu_tpu_torch.models.paging import PagedContinuousBatcher
 from kubegpu_tpu_torch.models.params import (
     bf16_cast,
+    init_moe_params,
     init_params,
     init_resnet_params,
     resolve_device,
@@ -236,8 +266,10 @@ from kubegpu_tpu_torch.models.train import (
     adam,
     create_train_state,
     lm_step,
+    moe_step,
     place_cp_lm,
     place_lm,
+    place_moe,
     place_resnet,
     resnet_step,
     sgd,
@@ -267,7 +299,9 @@ log = logging.getLogger("kubegpu_tpu_torch.worker")
 
 WEIGHT_SEED = 0
 RESNET_MODELS = ("resnet50", "resnet50-unrolled", "resnet-tiny")
-TRAINING_MODELS = RESNET_MODELS + ("lm", "lm-cp")
+TRAINING_MODELS = RESNET_MODELS + ("moe", "lm", "lm-cp")
+# the JAX worker's MoE capacity factor
+MOE_CAPACITY_FACTOR = 2.0
 # the ResNets' compute dtype (the JAX ResNet's default)
 RESNET_DTYPE = torch.bfloat16
 # the draft's weights come from their own seed (the JAX worker's draft
@@ -278,12 +312,12 @@ DRAFT_SEED = 7
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--model", choices=list(RESNET_MODELS)
-                    + ["decode", "lm", "lm-cp"], default="resnet50",
+                    + ["decode", "lm", "lm-cp", "moe"], default="resnet50",
                     help="resnet50 (the default: scan-rolled), "
                     "resnet50-unrolled, resnet-tiny = data-parallel "
                     "ResNet training; decode = serving; lm = LM "
                     "training; lm-cp = context-parallel LM training "
-                    "(ring/ulysses)")
+                    "(ring/ulysses); moe = expert-parallel MoE training")
     ap.add_argument("--serving",
                     choices=["static", "continuous", "paged", "speculative"],
                     default="static",
@@ -370,7 +404,22 @@ def build_parser() -> argparse.ArgumentParser:
                     "or 1: one device; N: cuda:0..N-1 over NCCL, or N CPU "
                     "processes over gloo with --device cpu); lm: the "
                     "'model' axis of a (data, model) mesh over the visible "
-                    "devices (0: all of them), data = devices / tp")
+                    "devices (0: all of them), data = devices / tp; moe: 0 "
+                    "= no TP, N > 1 Megatron-shards each expert's FFN (and "
+                    "the attention, embeddings, head) over N devices")
+    ap.add_argument("--ep", type=int, default=0,
+                    help="moe: the 'expert' axis over the devices left "
+                    "after --tp (0: all of them), data = the rest")
+    ap.add_argument("--num-experts", type=int, default=0,
+                    help="moe: expert count (0 = one per ep shard)")
+    ap.add_argument("--moe-router", default="top1", choices=list(ROUTERS),
+                    help="moe: routing (top2 drops far fewer tokens under "
+                    "imbalance; expert_choice is dropless by construction "
+                    "but not causal)")
+    ap.add_argument("--moe-dispatch", default="einsum",
+                    choices=list(DISPATCH_IMPLS),
+                    help="moe: token movement, dense one-hot einsums or "
+                    "index-form gathers (expert_choice always einsum)")
     ap.add_argument("--cp", type=int, default=0,
                     help="lm-cp: the 'seq' axis of a (data, seq) mesh over "
                     "the visible devices (0: all of them), data = devices "
@@ -463,19 +512,33 @@ def training_devices(args: argparse.Namespace) -> int:
     return n
 
 
+def _split_mesh(n: int, parallel: int, axis: str) -> Tuple[int, int]:
+    """``(data, parallel)`` axis sizes for ``n`` devices with
+    ``parallel``-way model/expert/seq parallelism (0: all of them), the
+    JAX worker's, which also refuses a width above ``n`` as such."""
+    p = parallel or n
+    if p > n:
+        raise SystemExit(f"--{axis} {p} exceeds the visible device count {n}")
+    if n % p:
+        raise SystemExit(f"--{axis} {p} does not divide the device count {n}")
+    return n // p, p
+
+
 def training_mesh(args: argparse.Namespace) -> Tuple[int, int]:
     """``(dp, tp)`` of ``--model lm`` or ``(dp, cp)`` of ``--model
-    lm-cp``, the JAX worker's ``_split_mesh`` over the visible devices
-    (:func:`training_devices`) and its refusals."""
+    lm-cp``: :func:`_split_mesh` of the visible devices
+    (:func:`training_devices`) and the JAX worker's refusals."""
     n = training_devices(args)
     if args.model == "lm-cp":
-        cp = _cp_width(args, n)
-        return n // cp, cp
-    tp = args.tp or n
-    if tp > n:
-        raise SystemExit(f"--tp {tp} exceeds the visible device count {n}")
-    if n % tp:
-        raise SystemExit(f"--tp {tp} does not divide the device count {n}")
+        dp, cp = _split_mesh(n, args.cp, "cp")
+        if args.seq % cp:
+            raise SystemExit(f"--seq {args.seq} not divisible by cp={cp}")
+        if args.attn_impl == "ulysses" and args.heads % cp:
+            raise SystemExit(
+                f"--heads {args.heads} not divisible by cp={cp} (ulysses "
+                "scatters the heads over the 'seq' axis)")
+        return dp, cp
+    dp, tp = _split_mesh(n, args.tp, "tp")
     if args.heads % tp:
         raise SystemExit(f"--heads {args.heads} not divisible by tp={tp}")
     if args.vocab % tp:
@@ -486,23 +549,29 @@ def training_mesh(args: argparse.Namespace) -> Tuple[int, int]:
         raise SystemExit(
             f"--seq {args.seq} not divisible by tp={tp} (sequence "
             "parallelism puts seq / tp positions on each rank)")
-    return n // tp, tp
+    return dp, tp
 
 
-def _cp_width(args: argparse.Namespace, n: int) -> int:
-    """``--cp`` over ``n`` devices and the JAX worker's refusals."""
-    cp = args.cp or n
-    if cp > n:
-        raise SystemExit(f"--cp {cp} exceeds the visible device count {n}")
-    if n % cp:
-        raise SystemExit(f"--cp {cp} does not divide the device count {n}")
-    if args.seq % cp:
-        raise SystemExit(f"--seq {args.seq} not divisible by cp={cp}")
-    if args.attn_impl == "ulysses" and args.heads % cp:
-        raise SystemExit(
-            f"--heads {args.heads} not divisible by cp={cp} (ulysses "
-            "scatters the heads over the 'seq' axis)")
-    return cp
+def moe_mesh(args: argparse.Namespace) -> Dict[str, int]:
+    """The axes of ``--model moe``'s mesh, the JAX worker's: ``--tp``
+    (0: none) of the visible devices (:func:`training_devices`), then
+    :func:`_split_mesh` of the rest by ``--ep`` (0: all of them), with
+    its refusals; ``{"data": dp, "expert": ep}`` plus ``"model": tp``
+    under ``--tp``."""
+    n = training_devices(args)
+    _, tp = _split_mesh(n, max(args.tp, 1), "tp")
+    dp, ep = _split_mesh(n // tp, args.ep, "ep")
+    experts = args.num_experts or ep
+    if experts % ep:
+        raise SystemExit(f"--num-experts {experts} not divisible by ep={ep}")
+    axes = {"data": dp, "expert": ep}
+    if tp > 1:
+        for flag, v in (("heads", args.heads), ("vocab", args.vocab),
+                        ("hidden", args.hidden)):
+            if v % tp:
+                raise SystemExit(f"--{flag} {v} not divisible by tp={tp}")
+        axes["model"] = tp
+    return axes
 
 
 def cp_attn_impl(args: argparse.Namespace) -> str:
@@ -1181,6 +1250,48 @@ def build_resnet_trainer(args: argparse.Namespace, mesh=None):
     return state, next_batch
 
 
+def build_moe_trainer(args: argparse.Namespace, mesh=None):
+    """``--model moe``'s training state and batch source, as
+    :func:`build_trainer`'s: fresh float32 weights from ``WEIGHT_SEED``
+    (every rank of a mesh draws the whole tree and keeps its shard,
+    ``place_moe``), bf16 compute, einsum attention, ``--num-experts``
+    (0: the mesh's ``"expert"`` width), the JAX worker's capacity factor,
+    ``--moe-router``/``--moe-dispatch``, ``--optimizer``, this data
+    shard's rows of the ``--data`` mode's batches.  Returns ``(state,
+    next_batch)``."""
+    if args.hidden % args.heads:
+        raise SystemExit(f"--hidden {args.hidden} not divisible by --heads "
+                         f"{args.heads}")
+    device = resolve_device(args.device if mesh is None else mesh.device)
+    experts = args.num_experts or (1 if mesh is None
+                                   else mesh.axis_size("expert"))
+    cfg = dict(vocab_size=args.vocab, num_layers=args.layers,
+               hidden=args.hidden, max_seq=args.seq + 1,
+               num_experts=experts)
+    model = MoeTransformerLM(**cfg, num_heads=args.heads,
+                             capacity_factor=MOE_CAPACITY_FACTOR,
+                             dtype=torch.bfloat16, remat=args.remat,
+                             router_type=args.moe_router,
+                             dispatch_impl=args.moe_dispatch, mesh=mesh)
+    gen = torch.Generator(device=device).manual_seed(WEIGHT_SEED)
+    tree = init_moe_params(cfg, gen, device)
+    optimizer = sgd() if args.optimizer == "sgd" else adam()
+    state = place_moe(model, tree, optimizer=optimizer, mesh=mesh)
+    del tree  # the state holds its own copies or shards
+    rows = max(args.batch_per_chip, 1)
+    if mesh is None:
+        source = synthetic_token_batches(rows, args.seq + 1, args.vocab)
+    else:
+        source = synthetic_token_batches_for_mesh(
+            rows * mesh.axis_size("data"), args.seq + 1, args.vocab, mesh)
+    batches, const = make_batches(args, source, device)
+
+    def next_batch():
+        return const if batches is None else next(batches)
+
+    return state, next_batch
+
+
 def build_trainer(args: argparse.Namespace, mesh=None):
     """The worker's training state and batch source at the given widths:
     fresh float32 weights from ``WEIGHT_SEED``, bf16 compute,
@@ -1304,6 +1415,11 @@ def _train(args: argparse.Namespace, mesh, t0: float) -> Dict[str, object]:
 
         def step(state, batch):
             return resnet_step(state, *batch)
+    elif args.model == "moe":
+        state, next_batch = build_moe_trainer(args, mesh)
+
+        def step(state, batch):
+            return moe_step(state, batch)[0]
     else:
         state, next_batch = build_trainer(args, mesh)
         step = lm_step
@@ -1428,6 +1544,19 @@ def run_resnet(args: argparse.Namespace,
     return _train_over_mesh(args, {"data": n}, t0)
 
 
+def run_moe(args: argparse.Namespace,
+            t0: Optional[float] = None) -> Dict[str, object]:
+    """Train ``--model moe`` ``--steps`` steps and return what was
+    measured, as :func:`run_lm`: at one device in this process, else
+    over :func:`moe_mesh`'s mesh, whose ranks 1..n-1 it starts."""
+    t0 = time.monotonic() if t0 is None else t0
+    refuse_pod_gang()
+    axes = moe_mesh(args)
+    if int(np.prod(list(axes.values()))) == 1:
+        return _train(args, None, t0)
+    return _train_over_mesh(args, axes, t0)
+
+
 def _train_over_mesh(args: argparse.Namespace, axes: dict,
                      t0: float) -> Dict[str, object]:
     """Rank 0 of a training mesh of ``axes``: start ranks 1..n-1, print
@@ -1437,9 +1566,12 @@ def _train_over_mesh(args: argparse.Namespace, axes: dict,
     tmp = tempfile.mkdtemp(prefix="kubegpu-train-")
     store = os.path.join(tmp, "store")
     procs = start_ranks(_train_rank, range(1, size), args, axes, store)
+    # a MoE mesh without tensor parallelism still names its model width
+    shown = (dict(axes, model=1) if args.model == "moe"
+             and "model" not in axes else axes)
     try:
         mesh = join_training_mesh(args, axes, 0, store)
-        print("TRAINING_MESH " + " ".join(f"{k}={v}" for k, v in axes.items())
+        print("TRAINING_MESH " + " ".join(f"{k}={v}" for k, v in shown.items())
               + " devices=" + ",".join(mesh.devices)
               + f" backend={mesh.backend}"
               + (f" attn_impl={cp_attn_impl(args)}" if cp else ""),
@@ -1469,6 +1601,9 @@ def main(argv: Optional[List[str]] = None) -> int:
         return 0
     if args.model in ("lm", "lm-cp"):
         report_lm(run_lm(args, t0))
+        return 0
+    if args.model == "moe":
+        report_lm(run_moe(args, t0))
         return 0
     if args.serve_http is not None:
         return serve_http(args, t0)

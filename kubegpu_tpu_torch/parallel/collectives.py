@@ -14,7 +14,14 @@ written out, since GSPMD inserts these for the JAX package):
   summed over the ``"model"`` group backward;
 - :func:`reduce_from_model`, *g*: the sum over ``"model"`` forward,
   identity backward (``torch.distributed.nn.functional.all_reduce``
-  sums the gradient too, which would multiply it by tp);
+  sums the gradient too, which would multiply it by tp).  Both take an
+  ``axis``: over ``"expert"`` they are expert parallelism's pair (each
+  rank runs its own experts on the replicated tokens, and the combine's
+  contraction over the experts is the sum);
+- :func:`psum`: the sum over an axis forward and the sum of the
+  gradient backward (``jax.lax.psum``'s pair), for a value that every
+  rank of the axis goes on to use whole (the MoE router's batch
+  statistics over ``"data"``);
 - :func:`gather_seq`: all-gather of the sequence dim forward,
   reduce-scatter backward; :func:`scatter_seq`: reduce-scatter forward,
   all-gather backward (sequence parallelism around each block's pair of
@@ -110,12 +117,14 @@ def _gather(x: torch.Tensor, group, n: int, dim: int) -> torch.Tensor:
     return torch.cat(parts, dim=dim)
 
 
-def all_gather(x: torch.Tensor, mesh: Mesh, dim: int = -1) -> torch.Tensor:
-    """Every ``"model"`` rank's ``x`` concatenated along ``dim`` in rank
-    order: the whole tensor of which each rank holds ``1/tp`` along
-    ``dim``.  Refuses a tensor that requires grad."""
+def all_gather(x: torch.Tensor, mesh: Mesh, dim: int = -1,
+               axis: str = MODEL_AXIS) -> torch.Tensor:
+    """Every ``axis`` rank's ``x`` (default the ``"model"`` ranks')
+    concatenated along ``dim`` in rank order: the whole tensor of which
+    each rank holds ``1/n`` along ``dim``.  Refuses a tensor that
+    requires grad."""
     _no_grad_input(x, "all_gather")
-    return _gather(x, mesh.group, tp_size(mesh), dim)
+    return _gather(x, mesh.axis_group(axis), mesh.axis_size(axis), dim)
 
 
 def broadcast_object(obj: Any, mesh: Mesh) -> Any:
@@ -135,9 +144,9 @@ def gather_objects(obj: Any, mesh: Mesh) -> List[Any]:
 # -- training: the autograd collectives over the "model" group ---------------
 
 
-def _sum(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+def _sum(x: torch.Tensor, mesh: Mesh, axis: str = MODEL_AXIS) -> torch.Tensor:
     y = x.contiguous().clone()
-    dist.all_reduce(y, group=mesh.group)
+    dist.all_reduce(y, group=mesh.axis_group(axis))
     return y
 
 
@@ -164,23 +173,23 @@ def _reduce_scatter(x: torch.Tensor, mesh: Mesh, dim: int) -> torch.Tensor:
 
 class _CopyToModel(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, mesh):
-        ctx.mesh = mesh
+    def forward(ctx, x, mesh, axis):
+        ctx.mesh, ctx.axis = mesh, axis
         return x.view_as(x)
 
     @staticmethod
     def backward(ctx, g):
-        return _sum(g, ctx.mesh), None
+        return _sum(g, ctx.mesh, ctx.axis), None, None
 
 
 class _ReduceFromModel(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, mesh):
-        return _sum(x, mesh)
+    def forward(ctx, x, mesh, axis):
+        return _sum(x, mesh, axis)
 
     @staticmethod
     def backward(ctx, g):
-        return g, None
+        return g, None, None
 
 
 class _GatherSeq(torch.autograd.Function):
@@ -239,17 +248,31 @@ class _DataMean(torch.autograd.Function):
         return g, None
 
 
-def copy_to_model(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
-    """*f*: ``x`` (replicated over ``"model"``) as it is; its gradient is
-    summed over the ``"model"`` ranks, each of which saw one shard's
-    contribution."""
-    return _CopyToModel.apply(x, mesh)
+def copy_to_model(x: torch.Tensor, mesh: Mesh,
+                  axis: str = MODEL_AXIS) -> torch.Tensor:
+    """*f*: ``x`` (replicated over ``axis``, default ``"model"``) as it
+    is; its gradient is summed over the ``axis`` ranks, each of which saw
+    one shard's contribution."""
+    return _CopyToModel.apply(x, mesh, axis)
 
 
-def reduce_from_model(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
-    """*g*: the sum of every ``"model"`` rank's partial ``x``; the
-    gradient passes through unchanged."""
-    return _ReduceFromModel.apply(x, mesh)
+def reduce_from_model(x: torch.Tensor, mesh: Mesh,
+                      axis: str = MODEL_AXIS) -> torch.Tensor:
+    """*g*: the sum of every ``axis`` rank's partial ``x`` (default the
+    ``"model"`` ranks'); the gradient passes through unchanged."""
+    return _ReduceFromModel.apply(x, mesh, axis)
+
+
+def psum(x: torch.Tensor, mesh: Mesh, axis: str) -> torch.Tensor:
+    """The sum of every ``axis`` rank's ``x``, which each rank then uses
+    whole; backward, each rank's gradient is the sum of every rank's
+    (``jax.lax.psum`` and its transpose).  Where each rank's loss
+    carries the same function of the sum and the gradients are then
+    averaged over ``axis`` (``mean_grads_over_data``), this gives every
+    rank's share of it exactly once."""
+    if mesh.axis_size(axis) == 1:
+        return x
+    return reduce_from_model(copy_to_model(x, mesh, axis), mesh, axis)
 
 
 def gather_seq(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:

@@ -1,10 +1,11 @@
 """The process mesh: the port of ``device_mesh``
 (``kubegpu_tpu/parallel/mesh.py``) for the ``"model"`` mesh of
 tensor-parallel serving, the ``("data", "model")`` mesh of data x
-tensor-parallel training and the ``("data", "seq")`` mesh of
-context-parallel training, and of ``tp_size``
-(``kubegpu_tpu/parallel/sharding.py``) and its ``"seq"`` counterpart
-``cp_size``.
+tensor-parallel training, the ``("data", "seq")`` mesh of
+context-parallel training and the ``("data", "expert"[, "model"])``
+mesh of expert-parallel MoE training, and of ``tp_size``
+(``kubegpu_tpu/parallel/sharding.py``) and its ``"seq"`` and
+``"expert"`` counterparts ``cp_size`` and ``ep_size``.
 
 The JAX package runs one controller over every device; the port runs one
 process per rank.  A :class:`Mesh` is what one rank knows of the mesh:
@@ -38,6 +39,7 @@ from kubegpu_tpu_torch.models.params import resolve_device
 DATA_AXIS = "data"
 MODEL_AXIS = "model"
 SEQ_AXIS = "seq"
+EXPERT_AXIS = "expert"
 BACKENDS = ("nccl", "gloo")
 
 
@@ -100,6 +102,14 @@ def cp_size(mesh: Optional[Mesh]) -> int:
     if mesh is None or SEQ_AXIS not in mesh.axis_names:
         return 1
     return int(mesh.shape[SEQ_AXIS])
+
+
+def ep_size(mesh: Optional[Mesh]) -> int:
+    """The expert-parallel width a mesh carries (1 without a mesh or an
+    ``"expert"`` axis)."""
+    if mesh is None or EXPERT_AXIS not in mesh.axis_names:
+        return 1
+    return int(mesh.shape[EXPERT_AXIS])
 
 
 def _axis_lines(axes: Mapping[str, int], axis: str):

@@ -1,7 +1,7 @@
 """The port stands alone: no module of kubegpu_tpu_torch, not
 chip_smoke.py and not the rank bodies of the gangs
-(tests/torch_tp_cases.py, tests/torch_resnet_cases.py, whose processes
-must run without JAX) imports
+(tests/torch_tp_cases.py, tests/torch_resnet_cases.py,
+tests/torch_moe_cases.py, whose processes must run without JAX) imports
 jax, flax, orbax or the JAX package, nor the Orbax converter
 (tools/orbax_to_torch_checkpoint.py); its entry points run on the card
 unless the caller asks for the CPU."""
@@ -19,6 +19,7 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(REPO, "kubegpu_tpu_torch")
 TP_CASES = os.path.join(REPO, "tests", "torch_tp_cases.py")
 RESNET_CASES = os.path.join(REPO, "tests", "torch_resnet_cases.py")
+MOE_CASES = os.path.join(REPO, "tests", "torch_moe_cases.py")
 FORBIDDEN_ROOTS = ("jax", "jaxlib", "flax", "orbax", "kubegpu_tpu",
                    "orbax_to_torch_checkpoint", "tools")
 
@@ -31,6 +32,7 @@ def port_sources():
     yield os.path.join(REPO, "chip_smoke.py")
     yield TP_CASES
     yield RESNET_CASES
+    yield MOE_CASES
 
 
 def test_importing_every_module_leaves_jax_out():
@@ -43,6 +45,7 @@ def test_importing_every_module_leaves_jax_out():
         "import chip_smoke\n"
         "import torch_tp_cases\n"
         "import torch_resnet_cases\n"
+        "import torch_moe_cases\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         f"{FORBIDDEN_ROOTS!r})\n"
         "print(len(names), bad)\n"
@@ -60,9 +63,9 @@ def test_importing_every_module_leaves_jax_out():
     # the HTTP replica slice's own copies of the JAX package's
     # stdlib-only modules, the sampling slice's counter-based PRNG, the
     # dense serving slice's batchers, the tensor-parallel slice's
-    # modules, the data x tensor-parallel training they carry and the
-    # ResNet
-    for name in ("models.resnet", "gateway", "gateway.client",
+    # modules, the data x tensor-parallel training they carry, the
+    # ResNet and the MoE transformer
+    for name in ("models.resnet", "models.moe", "gateway", "gateway.client",
                  "gateway.dataplane", "utils", "utils.metrics",
                  "utils.tracing", "utils.metric_names", "ops.prng", "models.serving", "models.spec_serving",
                  "parallel.mesh", "parallel.sharding",
@@ -205,6 +208,33 @@ def test_resnet_entry_points_default_to_the_card(monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         init_resnet_params(ResNet(stage_sizes=(1,), num_filters=4),
                            torch.Generator())
+
+
+def test_moe_entry_points_default_to_the_card(monkeypatch):
+    """``--model moe`` and the MoE weights run on the card unless asked
+    for the CPU: without one they raise, never fall back; the worker
+    lists the model."""
+    from kubegpu_tpu_torch.models import worker
+    from kubegpu_tpu_torch.models.moe import MoeTransformerLM
+    from kubegpu_tpu_torch.models.params import init_moe_params
+    from kubegpu_tpu_torch.models.train import place_moe
+    from kubegpu_tpu_torch.parallel.mesh import Mesh
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert "moe" in worker.build_parser()._option_string_actions[
+        "--model"].choices
+    for argv in (["--model", "moe"], ["--model", "moe", "--ep", "2"],
+                 ["--model", "moe", "--tp", "2"]):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            worker.main(argv)
+    cfg = dict(vocab_size=16, num_layers=1, hidden=16, max_seq=16,
+               num_experts=2)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        init_moe_params(cfg, torch.Generator())
+    mesh = Mesh(size=4, rank=0, device=torch.device("cuda"), backend="nccl",
+                axis_names=("data", "expert"), axis_sizes=(2, 2))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        place_moe(MoeTransformerLM(num_heads=2, mesh=mesh, **cfg), {})
 
 
 def test_checkpoint_entry_points_default_to_the_card(monkeypatch, tmp_path):

@@ -7,11 +7,12 @@ PyTorch port's format (``kubegpu_tpu_torch/models/checkpoint.py``).
 
 ``--src`` is the ``--ckpt-dir`` the JAX worker was given; the worker
 namespaces its checkpoints by ``--model``.  For each of ``lm``,
-``resnet50``, ``resnet50-unrolled`` and ``resnet-tiny`` found under
-``--src``, its latest step
+``moe``, ``resnet50``, ``resnet50-unrolled`` and ``resnet-tiny`` found
+under ``--src``, its latest step
 ``<src>/<model>/<step>`` is read and written as ``<dst>/<model>/<step>``,
 so the port's worker takes ``--ckpt-dir PORT_CKPT_DIR`` to resume it
-(``--model lm`` or a ResNet) or serve it (``--model decode``).  What is
+(``--model lm``, ``moe`` or a ResNet) or serve it (``--model
+decode``).  What is
 carried: the parameters, a ResNet's BatchNorm statistics
 (``batch_stats``), the optimizer state in optax's layout (SGD's
 ``TraceState.trace``; Adam's ``mu``, ``nu`` and ``count``) and the
@@ -20,9 +21,10 @@ metadata gives every leaf's shape and dtype, and the arrays are read
 onto one host device whatever mesh wrote them.
 
 The Orbax checkpoint holds no hyperparameters, and its shapes give
-neither the LM's head count nor a ResNet's image size: the record names
-the optimizer (SGD's trace or Adam's moments), and its learning rate,
-the heads and the image size are null.
+neither the LM's head count nor a ResNet's image size, nor a MoE
+model's router, dispatch or capacity factor: the record names the
+optimizer (SGD's trace or Adam's moments), and its learning rate, the
+heads, the image size and those three are null.
 
 Needs JAX and Orbax (the JAX package's environment); the port itself
 never imports this script.
@@ -81,12 +83,13 @@ def optimizer_of(opt_state) -> Tuple[dict, Dict[str, object]]:
                      f"{sorted(first) if isinstance(first, dict) else ''}")
 
 
-MODELS = ("lm", "resnet50", "resnet50-unrolled", "resnet-tiny")
+MODELS = ("lm", "moe", "resnet50", "resnet50-unrolled", "resnet-tiny")
 
 
 def model_dims(params: dict) -> dict:
     """The dims the port's record holds, from the parameter shapes: the
-    LM's widths, or a ResNet's layout, stages, filters and classes."""
+    LM's widths (a MoE model's with its experts), or a ResNet's layout,
+    stages, filters and classes."""
     if "conv_init" in params:
         stages: dict = {}
         for name, sub in params.items():
@@ -104,10 +107,17 @@ def model_dims(params: dict) -> dict:
                     num_classes=int(params["head"]["kernel"].shape[1]),
                     image_size=None)
     vocab, hidden = params["embed"]["embedding"].shape
-    return dict(vocab_size=int(vocab), hidden=int(hidden),
+    dims = dict(vocab_size=int(vocab), hidden=int(hidden),
                 max_seq=int(params["pos_embed"]["embedding"].shape[0]),
                 num_layers=sum(1 for k in params if k.startswith("layer")),
                 num_heads=None)
+    moe = params.get("layer0", {}).get("moe_mlp")
+    if moe is not None:
+        e, d, h = np.shape(moe["w_up"])
+        dims.update(family="moe", num_experts=int(e),
+                    mlp_ratio=int(h) // int(d), capacity_factor=None,
+                    router_type=None, dispatch_impl=None)
+    return dims
 
 
 def convert(src: str, dst: str, model: str = "lm") -> str:
