@@ -4,8 +4,8 @@
     python3 chip_smoke.py
 
 Builds every kernel of the port's serving and training paths from the
-sources in the checkout, then runs sixty phases; any failure exits
-non-zero:
+sources in the checkout, then runs sixty-three phases; any failure
+exits non-zero:
 
 1. device: the card's name and power limit, TF32 off;
 2. K1 (paged decode attention, ``ops/csrc/paged_attention.cu``: the
@@ -394,9 +394,31 @@ non-zero:
    kernel launched; then ``--ckpt-dir``: 2 steps and a resumed 2 against
    4, every leaf within 1e-6.
 
-Phases 29-34, 53-54 and 60 set every kernel's launch count to 0 before
-each run and require it to be 0 after: the dense paths, the ResNet and
-the worker's einsum-attention MoE run none of K1-K5.
+61. the pipelined LM (``models/pipeline_lm.py``, no kernel of the port:
+   its attention is einsum) at float32, card against CPU: a small
+   pipeline (vocab 512, hidden 64, 4 heads, 2 layers a stage, seq 64, 4
+   microbatches of 2), three carried non-Nesterov SGD steps on one
+   device, in a ``{"pipe": 2}`` gloo gang on ``cuda:0`` (GPipe, and
+   circular V 2 at twice the depth) and a ``{"pipe": 2, "model": 2}``
+   gang: every loss, first-step gradient leaf, weight and momentum
+   within 1e-5 of the CPU's one device at the same depth;
+62. the worker's ``--model pp --steps 5`` at its defaults (one card, one
+   stage: vocab 32000, hidden 512, 8 heads, 4 layers, seq 1024, 4
+   microbatches of 32): ``FIRST_STEP_DONE``, tokens/s, peak memory,
+   every kernel count 0; where the defaults do not fit the card, the
+   peak they reached, then the same at ``--batch-per-chip 16``;
+63. a ``{"pipe": 2}`` gloo gang on ``cuda:0`` at the worker's width
+   (hidden 512, 8 heads, vocab 32000, seq 1024, 4 layers a stage, 4
+   microbatches of 8), GPipe and circular V 2, three steps each: each
+   rank holds exactly half the block bytes, the first loss within 1e-5
+   of one device's on the same weights, seconds a step and the seconds
+   of it in the hops, and the bytes the hops sent and staged through the
+   host (host-staged: no time here is a pipeline speed).
+
+Phases 29-34, 53-54, 60 and 61-63 set every kernel's launch count to 0
+before each run and require it to be 0 after: the dense paths, the
+ResNet, the worker's einsum-attention MoE and the pipeline run none of
+K1-K5.
 
 The line before the last is the per-kernel JSON record, and the line
 before that the card's name and power limit again; the last line is
@@ -5631,6 +5653,282 @@ def phase_moe_worker(device: str = "cuda", base: list = MOE_WORKER_ARGV,
     return out
 
 
+# pipeline-parallel LM training (models/pipeline_lm.py): phase 61's small
+# pipeline, the worker's defaults (62) and its width in a gang (63)
+PP_SMALL = dict(vocab_size=512, hidden=64, num_heads=4, layers_per_stage=2,
+                max_seq=65, num_microbatches=4)
+PP_SMALL_RUN = dict(batch=8, seq=64, steps=3)
+PP_TOL = 1e-5
+PP_WORKER_ARGV = ["--model", "pp", "--steps", "5"]
+# phase 62's windows a microbatch where the worker's defaults (32) do not
+# fit the card
+PP_FIT_BATCH = 16
+PP_WIDTH = dict(vocab_size=32000, hidden=512, num_heads=8,
+                layers_per_stage=4, max_seq=1025, num_microbatches=4)
+PP_WIDTH_RUN = dict(batch_per_chip=8, seq=1024, steps=3)
+# the flash kernels' IDs in kernel_counts()
+FLASH_IDS = {"flash_forward": "K3", "flash_backward_dkdv": "K4",
+             "flash_backward_dq": "K5", "flash_backward_delta": "DELTA"}
+
+
+def pp_cases():
+    """The rank bodies of the port's pipeline tests
+    (``tests/torch_pp_cases.py``)."""
+    tp_cases()   # puts tests/ on the path
+    import torch_pp_cases
+
+    return torch_pp_cases
+
+
+def pp_gang(axes: dict, tmp: str, device: str):
+    """The ranks of a pipeline mesh on the one card over gloo: each hop
+    is staged through pinned host buffers, each all-reduce through
+    gloo's host copies."""
+    import math
+
+    from kubegpu_tpu_torch.parallel.launch import Gang
+
+    dev = "cuda:0" if device == "cuda" else device
+    return Gang(axes, tmp, backend="gloo",
+                devices=[dev] * math.prod(axes.values()), timeout_s=900.0)
+
+
+def pp_widths(cfg: dict) -> dict:
+    """``init_pipeline_lm``'s widths of a model cfg."""
+    return {k: v for k, v in cfg.items()
+            if k not in ("num_heads", "num_microbatches")}
+
+
+def pp_tree(cfg: dict, stages: int, lead: tuple) -> dict:
+    """A whole float32 tree of ``stages`` stages drawn on the CPU from
+    seed 3, as numpy, its blocks re-stacked to lead with ``lead``."""
+    import torch
+
+    from kubegpu_tpu_torch.models.params import tree_map
+    from kubegpu_tpu_torch.models.pipeline_lm import init_pipeline_lm
+
+    tree = tree_map(lambda t: t.numpy(), init_pipeline_lm(
+        torch.Generator().manual_seed(3), num_stages=stages, device="cpu",
+        **pp_widths(cfg)))
+    tree["blocks"] = {k: a.reshape(lead + a.shape[1:])
+                      for k, a in tree["blocks"].items()}
+    return tree
+
+
+def pp_worst(label: str, got: dict, want: dict, tol: float) -> float:
+    """The largest difference of two results' losses, first-step
+    gradients, weights and momentum (each leaf in ``want``'s layout);
+    fails past ``tol`` (rtol = atol)."""
+    import numpy as np
+
+    worst = 0.0
+
+    def walk(path, g, w):
+        nonlocal worst
+        if isinstance(w, dict):
+            assert g.keys() == w.keys(), (label, path)
+            for k in w:
+                walk(f"{path}/{k}", g[k], w[k])
+            return
+        w = np.asarray(w, dtype=np.float64)
+        g = np.asarray(g, dtype=np.float64).reshape(w.shape)
+        np.testing.assert_allclose(g, w, rtol=tol, atol=tol,
+                                   err_msg=f"{label} {path}")
+        worst = max(worst, float(np.abs(g - w).max()))
+
+    for key in ("losses", "grads", "params", "trace"):
+        walk(key, got[key], want[key])
+    assert got["step"] == want["step"] and not any(got["launches"].values())
+    return worst
+
+
+def phase_pp_card_vs_cpu(gang2, device: str = "cuda", cfg: dict = PP_SMALL,
+                         run: dict = PP_SMALL_RUN) -> None:
+    """Phase 61: the small pipeline at float32, three carried SGD steps
+    on the card, at one device and in gloo gangs on ``cuda:0``
+    (``gang2`` is the ``{"pipe": 2}`` one), against the CPU's one device
+    at the same depth."""
+    from kubegpu_tpu_torch.models.data import synthetic_token_batches
+
+    cases = pp_cases()
+    t0 = time.monotonic()
+    source = synthetic_token_batches(run["batch"], run["seq"] + 1,
+                                     cfg["vocab_size"], seed=5)
+    tokens = [next(source) for _ in range(run["steps"])]
+
+    def one(stages: int, dev: str) -> dict:
+        # the stack as `stages` rounds over one stage
+        return cases.pp_steps(None, dict(
+            params=pp_tree(cfg, stages, (stages, 1)), tokens=tokens,
+            device=dev, cfg=dict(cfg, num_stages=stages,
+                                 num_rounds=stages)))
+
+    cpu = {2: one(2, "cpu"), 4: one(4, "cpu")}
+    worst = pp_worst("pp one device", one(2, device), cpu[2], PP_TOL)
+    log(f"pp one device card vs cpu (fp32): losses "
+        f"{[round(x, 6) for x in cpu[2]['losses']]}, worst difference "
+        f"{worst:.3e} over losses, step-1 gradients, weights and momentum")
+    for label, axes, rounds, model_axis in (
+            ("gpipe", {"pipe": 2}, 1, None),
+            ("circular v2", {"pipe": 2}, 2, None),
+            ("pp x tp", {"pipe": 2, "model": 2}, 1, "model")):
+        stages = 2 * rounds
+        spec = dict(params=pp_tree(cfg, stages,
+                                   (rounds, 2) if rounds > 1 else (stages,)),
+                    tokens=tokens,
+                    cfg=dict(cfg, num_stages=stages, num_rounds=rounds,
+                             model_axis=model_axis))
+        if "model" in axes:
+            with tempfile.TemporaryDirectory() as tmp:
+                with pp_gang(axes, tmp, device) as gang:
+                    got = gang.run(cases.pp_steps, spec)
+        else:
+            got = gang2.run(cases.pp_steps, spec)
+        worst = pp_worst(f"pp {label}", got, cpu[stages], PP_TOL)
+        log(f"pp {label} {axes} (gloo on the card) vs the cpu's one device "
+            f"at {stages} stages: losses "
+            f"{[round(x, 6) for x in got['losses']]}, worst difference "
+            f"{worst:.3e}; no kernel launched")
+    log(f"pp card vs cpu: {time.monotonic() - t0:.1f} s")
+
+
+def pp_worker(label: str, argv: list, device: str) -> dict:
+    """``worker.main`` in this process with every kernel count set to 0
+    just before: its lines, the counts after it (all 0) and the peak
+    device memory of the run."""
+    import numpy as np
+    import torch
+
+    from kubegpu_tpu_torch.models import worker
+
+    zero_counts()
+    code, out = captured(worker.main, argv + ["--device", device])
+    assert code == 0, (label, code)
+    launches = {k: getattr(fn, a) for k, (fn, a) in kernel_counts().items()}
+    assert not any(launches.values()), (label, launches)
+    lines = {ln.split()[0]: ln for ln in out.splitlines() if ln}
+    first = fields(lines["FIRST_STEP_DONE"])
+    steady = fields(lines["steady_state"])
+    assert np.isfinite(float(steady["loss"])), steady
+    peak = (torch.cuda.max_memory_allocated() if device == "cuda" else None)
+    log(f"pp worker [{label}]: FIRST_STEP_DONE {first['seconds']} s, "
+        f"steady {steady['tokens_per_sec']} tokens/s, loss {steady['loss']}; "
+        f"peak {peak} B; kernel launches {launches} (einsum attention)")
+    return dict(first_s=float(first["seconds"]),
+                tokens_per_s=float(steady["tokens_per_sec"]),
+                peak_bytes=peak, launches=launches)
+
+
+def phase_pp_worker(device: str = "cuda", argv: list = PP_WORKER_ARGV,
+                    fit_batch: int = PP_FIT_BATCH) -> dict:
+    """Phase 62: the worker's ``--model pp`` at its defaults on one card.
+    Where they do not fit, the peak they reached (the worker resets the
+    peak at its start) and the run at ``--batch-per-chip fit_batch``."""
+    import gc
+
+    import torch
+
+    t0 = time.monotonic()
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated() if device == "cuda" else 0
+    out = {"held_bytes": held}
+    try:
+        out["defaults"] = pp_worker("defaults", argv, device)
+    except torch.cuda.OutOfMemoryError as e:
+        reason = str(e).splitlines()[0]
+        out["defaults"] = None
+    if out["defaults"] is None:
+        peak = torch.cuda.max_memory_allocated()
+        out["defaults_peak_bytes"] = peak
+        log(f"pp worker at its defaults does NOT fit the card: the run "
+            f"reached {peak} B ({peak / 2**30:.2f} GiB, {held} B of it held "
+            f"by this process before) and then: {reason}")
+        gc.collect()
+        torch.cuda.empty_cache()
+        out["fit"] = pp_worker(f"--batch-per-chip {fit_batch}",
+                               argv + ["--batch-per-chip", str(fit_batch)],
+                               device)
+    log(f"pp worker: {time.monotonic() - t0:.1f} s")
+    return out
+
+
+def phase_pp_width(gang2, device: str = "cuda", cfg: dict = PP_WIDTH,
+                   run: dict = PP_WIDTH_RUN) -> dict:
+    """Phase 63: the worker's width in the ``{"pipe": 2}`` gang on the
+    card, GPipe and circular V 2: each rank's block bytes, the first
+    loss against one device's on the same weights (drawn from seed 0 on
+    the card), seconds a step and the hops' bytes."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    from kubegpu_tpu_torch.models.data import synthetic_token_batches
+    from kubegpu_tpu_torch.models.params import bind_params
+    from kubegpu_tpu_torch.models.pipeline_lm import (
+        PipelineLM,
+        leaf_shapes,
+        pipeline_lm_loss,
+    )
+
+    cases = pp_cases()
+    t0 = time.monotonic()
+    batch = run["batch_per_chip"] * cfg["num_microbatches"]
+    source = synthetic_token_batches(batch, run["seq"] + 1,
+                                     cfg["vocab_size"], seed=6)
+    tokens = [next(source) for _ in range(run["steps"])]
+    dev = "cuda:0" if device == "cuda" else device
+    out = {}
+    for label, rounds in (("gpipe", 1), ("circular v2", 2)):
+        stages = 2 * rounds
+        init = dict(pp_widths(cfg), num_stages=stages)
+        # one device: the same draw, as `stages` rounds over one stage
+        with torch.no_grad():
+            model = PipelineLM(**dict(cfg, num_stages=stages,
+                                      num_rounds=stages))
+            bind_params(model, cases.weights(
+                {"init": dict(init, devices=1, num_rounds=stages),
+                 "seed": 0}, torch.device(dev)))
+            want = pipeline_lm_loss(model, torch.from_numpy(tokens[0]).to(
+                dev)).item()
+        del model
+        gc.collect()
+        if device == "cuda":
+            torch.cuda.empty_cache()
+        ranks = gang2.run(cases.pp_width, dict(
+            params={"init": dict(init, devices=2, num_rounds=rounds),
+                    "seed": 0},
+            cfg=dict(cfg, num_stages=stages, num_rounds=rounds),
+            tokens=tokens, steps=run["steps"]))
+        whole = 4 * sum(int(np.prod(shape)) for path, shape in leaf_shapes(
+            **init).items() if path.startswith("blocks/"))
+        for r, mine in enumerate(ranks):
+            assert np.isfinite(mine["losses"]).all(), mine["losses"]
+            assert abs(mine["losses"][0] - want) <= PP_TOL * (1 + abs(want)), (
+                label, r, mine["losses"][0], want)
+            assert 2 * mine["block_bytes"] == whole, (mine["block_bytes"],
+                                                      whole)
+            assert not any(mine["launches"].values()), mine["launches"]
+            log(f"pp width {label} rank {r} (gloo on the card, "
+                f"{mine['coords']}): losses "
+                f"{[round(x, 5) for x in mine['losses']]}, first against one "
+                f"device's {want:.6f} (diff "
+                f"{abs(mine['losses'][0] - want):.2e}); block bytes "
+                f"{mine['block_bytes']} of {whole} (half), all parameters "
+                f"{mine['param_bytes']} B; steps "
+                f"{[round(x, 3) for x in mine['seconds']]} s, of which in "
+                f"the hops {[round(x, 3) for x in mine['hop_seconds']]} s "
+                f"(host-staged: not a pipeline speed); hops sent "
+                f"{mine['hop_bytes']} B, "
+                f"staged through the host {mine['staged_bytes']} B in "
+                f"{run['steps']} steps; peak "
+                f"{(mine['peak_bytes'] or 0) / 2**30:.2f} GiB")
+        out[label] = dict(ranks=ranks, one_device_loss=want)
+    log(f"pp width: {time.monotonic() - t0:.1f} s")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -5736,7 +6034,17 @@ def main() -> int:
     phase_moe_gang(moe)
     phase_moe_worker()
     log(f"moe phases {time.monotonic() - t4:.1f} s")
+    # pipeline-parallel LM training: card against CPU at fp32 (gangs on
+    # the card), the worker at its defaults, its width in a two-stage gang
+    t5 = time.monotonic()
+    with tempfile.TemporaryDirectory() as tmp:
+        with pp_gang({"pipe": 2}, tmp, "cuda") as gang2:
+            phase_pp_card_vs_cpu(gang2)
+            pp = phase_pp_worker()
+            phase_pp_width(gang2)
+    log(f"pipeline phases {time.monotonic() - t5:.1f} s")
     log(f"chip_smoke: all phases passed in {time.monotonic() - t0:.1f} s")
+    pp_launches = (pp["defaults"] or pp["fit"])["launches"]
     source = "kubegpu_tpu_torch/ops/csrc/paged_attention.cu"
     kernels = []
     # each paged entry point launches its walk and then the merge pass;
@@ -5771,6 +6079,8 @@ def main() -> int:
             # tensor parallelism: each rank's launches in the flagship TP 2
             # wave, and the kernel at one rank's 16 heads
             "tp_launches": tp["launches"][tp_key],
+            # the pipeline (phase 62's worker): einsum attention, none
+            "pp_launches": pp_launches[tp_key],
             "tp_ms": tp_k[kname]["ms"],
             "tp_bound_ms": tp_k[kname]["bound_ms"],
         })
@@ -5821,6 +6131,7 @@ def main() -> int:
             # the MoE bench row (phase 58): the default row's launches in
             # its timed steps, 4 layers x 10 steps
             "moe_launches": moe[MOE_DEFAULT_ROW]["launches"][kname],
+            "pp_launches": pp_launches[FLASH_IDS[kname]],
             "moe_max_abs_err": moe["flash_errs"][kname],
         })
     # the card and its power limit again beside the results, where the

@@ -334,14 +334,18 @@ def place_lm(model: nn.Module, params: Mapping,
         raise ValueError("place_lm needs a mesh (the model's or mesh=)")
     if trace is not None:
         opt_state = {"trace": trace}
-    return _place_shards(model, params, opt_state, optimizer, step, mesh,
-                         rules_of(model))
+    return place_shards(model, params, opt_state, optimizer, step, mesh,
+                        rules_of(model))
 
 
-def _place_shards(model: nn.Module, params: Mapping,
-                  opt_state: Optional[Mapping],
-                  optimizer: Optional[Optimizer], step: int, mesh,
-                  rules) -> TrainState:
+def place_shards(model: nn.Module, params: Mapping,
+                 opt_state: Optional[Mapping],
+                 optimizer: Optional[Optimizer], step: int, mesh,
+                 rules) -> TrainState:
+    """A train state over ``mesh`` from WHOLE trees: this rank's part of
+    ``params`` and of each optimizer slot by ``rules``
+    (``shard_state``), copied onto the mesh's device; Adam's ``count``
+    as it is."""
     dev = resolve_device(mesh.device)
 
     def shards(tree):
@@ -382,8 +386,8 @@ def place_moe(model: nn.Module, params: Mapping, *,
     if rules is not rules_of(model):
         raise ValueError("the model was built for another mesh: its "
                          "shard rules are not place_moe's")
-    return _place_shards(model, params, opt_state, optimizer, step, mesh,
-                         rules)
+    return place_shards(model, params, opt_state, optimizer, step, mesh,
+                        rules)
 
 
 def place_cp_lm(model: nn.Module, params: Mapping, *,

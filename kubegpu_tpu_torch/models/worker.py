@@ -1,8 +1,8 @@
 """Worker of the port: ``--model resnet50`` (the default),
 ``resnet50-unrolled`` and ``resnet-tiny`` (data-parallel ResNet
 training), ``--model decode`` (serving), ``--model lm`` and ``--model
-lm-cp`` (LM training) and ``--model moe`` (expert-parallel MoE
-training).
+lm-cp`` (LM training), ``--model moe`` (expert-parallel MoE training)
+and ``--model pp`` (pipeline-parallel LM training).
 
 The port of ``kubegpu_tpu/models/worker.py``.  ``--model resnet50``
 trains the scan-rolled ResNet-50 (``resnet50-unrolled``: every block its
@@ -205,6 +205,28 @@ checkpoints under ``DIR/moe``.
         --cpu-ranks 2 --device cpu [--tp 2 --cpu-ranks 4] \
         [--moe-router top2 --moe-dispatch gather]
 
+``--model pp`` trains the pipelined LM (``models/pipeline_lm.py``) as
+the JAX worker's ``_run_pp``: ``--pp-stages`` (0: every visible device)
+stages on a ``{"pipe": stages}`` mesh of the first devices, one process
+a stage (rank 0 the worker, which starts the others; NCCL between
+cards, gloo on the CPU with ``--cpu-ranks``), ``--pp-rounds`` rounds of
+the circular schedule (1: GPipe), ``--microbatches`` microbatches a
+step; ``--layers`` counts layers a STAGE, so the model has ``stages x
+rounds x layers`` layers.  Float32 weights drawn fresh from seed 0 (no
+dtype: float32 compute), SGD at lr 0.1 with momentum 0.9 and no
+Nesterov whatever ``--optimizer`` says, ``--batch-per-chip`` x
+``--microbatches`` windows a step, the same on every stage (the worker
+id does not enter the seed).  Rank 0 prints ``TRAINING_MESH pipe=..
+devices=.. backend=..`` over a mesh, the lines of ``--model lm`` (every
+kernel count 0: the blocks' attention is einsum) and each stage's
+``PP_BYTES`` (the bytes its hops sent and staged through the host).
+The JAX refusals hold: ``--pp-stages`` must divide the devices, and the
+circular schedule needs ``--microbatches`` >= stages; ``--ckpt-dir`` is
+ignored with a warning, and nothing is saved.
+
+    python -m kubegpu_tpu_torch.models.worker --model pp --cpu-ranks 2 \
+        --device cpu [--pp-rounds 2 --microbatches 4] [--vocab 64 ...]
+
 Runs on the card by default; ``--device cpu`` runs the plain PyTorch
 path (the kernels are then never launched).
 """
@@ -239,6 +261,13 @@ from kubegpu_tpu_torch.models.moe import (
     MoeTransformerLM,
 )
 from kubegpu_tpu_torch.models.paging import PagedContinuousBatcher
+from kubegpu_tpu_torch.models.pipeline_lm import (
+    PipelineLM,
+    init_pipeline_lm,
+    pipeline_lm_step,
+    place_pipeline_lm,
+    to_circular_layout,
+)
 from kubegpu_tpu_torch.models.params import (
     bf16_cast,
     init_moe_params,
@@ -299,7 +328,7 @@ log = logging.getLogger("kubegpu_tpu_torch.worker")
 
 WEIGHT_SEED = 0
 RESNET_MODELS = ("resnet50", "resnet50-unrolled", "resnet-tiny")
-TRAINING_MODELS = RESNET_MODELS + ("moe", "lm", "lm-cp")
+TRAINING_MODELS = RESNET_MODELS + ("moe", "pp", "lm", "lm-cp")
 # the JAX worker's MoE capacity factor
 MOE_CAPACITY_FACTOR = 2.0
 # the ResNets' compute dtype (the JAX ResNet's default)
@@ -312,12 +341,14 @@ DRAFT_SEED = 7
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--model", choices=list(RESNET_MODELS)
-                    + ["decode", "lm", "lm-cp", "moe"], default="resnet50",
+                    + ["decode", "lm", "lm-cp", "moe", "pp"],
+                    default="resnet50",
                     help="resnet50 (the default: scan-rolled), "
                     "resnet50-unrolled, resnet-tiny = data-parallel "
                     "ResNet training; decode = serving; lm = LM "
                     "training; lm-cp = context-parallel LM training "
-                    "(ring/ulysses); moe = expert-parallel MoE training")
+                    "(ring/ulysses); moe = expert-parallel MoE training; "
+                    "pp = GPipe-pipelined LM training")
     ap.add_argument("--serving",
                     choices=["static", "continuous", "paged", "speculative"],
                     default="static",
@@ -332,8 +363,8 @@ def build_parser() -> argparse.ArgumentParser:
                     "training: steps")
     ap.add_argument("--batch-per-chip", type=int, default=32,
                     help="decode: slots (a wave holds twice as many "
-                    "requests); lm: token windows a step; resnet: images "
-                    "a step a device")
+                    "requests); lm: token windows a step; pp: token "
+                    "windows a microbatch; resnet: images a step a device")
     ap.add_argument("--image-size", type=int, default=224,
                     help="resnet50, resnet50-unrolled: image side "
                     "(resnet-tiny trains at 32)")
@@ -341,7 +372,8 @@ def build_parser() -> argparse.ArgumentParser:
                     help="resnet50, resnet50-unrolled: classes "
                     "(resnet-tiny has 10)")
     ap.add_argument("--vocab", type=int, default=32000)
-    ap.add_argument("--layers", type=int, default=4)
+    ap.add_argument("--layers", type=int, default=4,
+                    help="LM layers (pp: layers PER STAGE)")
     ap.add_argument("--heads", type=int, default=8)
     ap.add_argument("--hidden", type=int, default=512)
     ap.add_argument("--seq", type=int, default=1024,
@@ -424,6 +456,15 @@ def build_parser() -> argparse.ArgumentParser:
                     help="lm-cp: the 'seq' axis of a (data, seq) mesh over "
                     "the visible devices (0: all of them), data = devices "
                     "/ cp")
+    ap.add_argument("--pp-stages", type=int, default=0,
+                    help="pp: pipeline stages (0 = all devices)")
+    ap.add_argument("--pp-rounds", type=int, default=1,
+                    help="pp: rounds of the circular/interleaved schedule "
+                    "(1 = GPipe; V > 1 holds V stage slices per device, "
+                    "bubble (P-1)/(V*M+P-1))")
+    ap.add_argument("--microbatches", type=int, default=4,
+                    help="pp: microbatches per step (circular needs >= "
+                    "stages)")
     ap.add_argument("--cpu-ranks", type=int, default=1,
                     help="training --device cpu: the CPU's stand-in for "
                     "the visible device count (ranks of the training "
@@ -489,7 +530,8 @@ def build_parser() -> argparse.ArgumentParser:
                     help="training: sgd = nesterov SGD at lr 0.1 "
                     "(momentum 0.9, "
                     "the JAX default), adam = Adam at lr 3e-4 (b1 0.9, b2 "
-                    "0.999, eps 1e-8)")
+                    "0.999, eps 1e-8); pp trains with SGD at lr 0.1, "
+                    "momentum 0.9, no Nesterov, as the JAX worker")
     ap.add_argument("--device", choices=["cuda", "cpu"], default="cuda")
     return ap
 
@@ -572,6 +614,22 @@ def moe_mesh(args: argparse.Namespace) -> Dict[str, int]:
                 raise SystemExit(f"--{flag} {v} not divisible by tp={tp}")
         axes["model"] = tp
     return axes
+
+
+def pp_stages(args: argparse.Namespace) -> int:
+    """``--model pp``'s stage count, the JAX worker's: ``--pp-stages``
+    (0: all of them) of the visible devices (:func:`training_devices`),
+    with its refusals."""
+    n = training_devices(args)
+    stages = args.pp_stages or n
+    if n % stages:
+        raise SystemExit(f"--pp-stages {stages} does not divide {n} devices")
+    rounds = max(args.pp_rounds, 1)
+    if rounds > 1 and args.microbatches < stages:
+        raise SystemExit(
+            f"--pp-rounds {rounds} (circular schedule) needs "
+            f"--microbatches >= stages ({args.microbatches} < {stages})")
+    return stages
 
 
 def cp_attn_impl(args: argparse.Namespace) -> str:
@@ -1292,6 +1350,45 @@ def build_moe_trainer(args: argparse.Namespace, mesh=None):
     return state, next_batch
 
 
+def build_pp_trainer(args: argparse.Namespace, mesh=None):
+    """``--model pp``'s training state and batch source, as the JAX
+    worker's ``_run_pp``: ``stages x --pp-rounds`` stages of ``--layers``
+    layers (``stages`` the mesh's ``"pipe"`` width, 1 without a mesh),
+    ``max_seq`` ``--seq + 1``, fresh float32 weights from ``WEIGHT_SEED``
+    (every rank draws the whole tree and keeps its stage,
+    ``place_pipeline_lm``; circular layout under ``--pp-rounds``),
+    non-Nesterov SGD, and ``--batch-per-chip`` x ``--microbatches``
+    windows a step, the same on every rank.  Returns ``(state,
+    next_batch)``."""
+    if args.hidden % args.heads:
+        raise SystemExit(f"--hidden {args.hidden} not divisible by --heads "
+                         f"{args.heads}")
+    device = resolve_device(args.device if mesh is None else mesh.device)
+    stages = 1 if mesh is None else mesh.axis_size("pipe")
+    rounds = max(args.pp_rounds, 1)
+    micro = max(args.microbatches, 1)
+    cfg = dict(vocab_size=args.vocab, num_stages=stages * rounds,
+               layers_per_stage=args.layers, hidden=args.hidden,
+               max_seq=args.seq + 1)
+    gen = torch.Generator(device=device).manual_seed(WEIGHT_SEED)
+    tree = init_pipeline_lm(gen, **cfg, device=device)
+    if rounds > 1:
+        tree = to_circular_layout(tree, stages)
+    model = PipelineLM(**cfg, num_heads=args.heads, num_microbatches=micro,
+                       num_rounds=rounds, mesh=mesh)
+    state = place_pipeline_lm(model, tree, optimizer=sgd(nesterov=False))
+    del tree  # the state holds its own copies or stages
+    # the stream is replicated over "pipe": every rank draws the same bytes
+    source = synthetic_token_batches(max(args.batch_per_chip, 1) * micro,
+                                     args.seq + 1, args.vocab)
+    batches, const = make_batches(args, source, device)
+
+    def next_batch():
+        return const if batches is None else next(batches)
+
+    return state, next_batch
+
+
 def build_trainer(args: argparse.Namespace, mesh=None):
     """The worker's training state and batch source at the given widths:
     fresh float32 weights from ``WEIGHT_SEED``, bf16 compute,
@@ -1420,16 +1517,23 @@ def _train(args: argparse.Namespace, mesh, t0: float) -> Dict[str, object]:
 
         def step(state, batch):
             return moe_step(state, batch)[0]
+    elif args.model == "pp":
+        state, next_batch = build_pp_trainer(args, mesh)
+        step = pipeline_lm_step
     else:
         state, next_batch = build_trainer(args, mesh)
         step = lm_step
-    ckpt = CheckpointHooks(args, state, lead) if args.ckpt_dir else None
+    # the pipeline declines checkpoints, as in JAX (run_pp warns)
+    ckpt = (CheckpointHooks(args, state, lead)
+            if args.ckpt_dir and args.model != "pp" else None)
     # a resumed run reads the batches the uninterrupted run would have
     # read from here on (the JAX worker restarts its stream instead)
     for _ in range(state.step):
         next_batch()
     dp = 1 if mesh is None else mesh.axis_size("data")
-    batch = max(args.batch_per_chip, 1) * dp
+    # a pipeline step takes --microbatches windows of --batch-per-chip
+    batch = max(args.batch_per_chip, 1) * (
+        max(args.microbatches, 1) if args.model == "pp" else dp)
     # images a step, or tokens
     items, unit = ((batch, "images_per_sec") if resnet
                    else (batch * args.seq, "tokens_per_sec"))
@@ -1557,6 +1661,22 @@ def run_moe(args: argparse.Namespace,
     return _train_over_mesh(args, axes, t0)
 
 
+def run_pp(args: argparse.Namespace,
+           t0: Optional[float] = None) -> Dict[str, object]:
+    """Train ``--model pp`` ``--steps`` steps and return what was
+    measured, as :func:`run_lm`: at one stage in this process, else over
+    a ``{"pipe": stages}`` mesh (:func:`pp_stages`) whose ranks 1..n-1
+    it starts.  ``--ckpt-dir`` is ignored with a warning, as in JAX."""
+    t0 = time.monotonic() if t0 is None else t0
+    refuse_pod_gang()
+    if args.ckpt_dir:
+        log.warning("--ckpt-dir is not supported for --model pp; ignoring")
+    stages = pp_stages(args)
+    if stages == 1:
+        return _train(args, None, t0)
+    return _train_over_mesh(args, {"pipe": stages}, t0)
+
+
 def _train_over_mesh(args: argparse.Namespace, axes: dict,
                      t0: float) -> Dict[str, object]:
     """Rank 0 of a training mesh of ``axes``: start ranks 1..n-1, print
@@ -1605,6 +1725,9 @@ def main(argv: Optional[List[str]] = None) -> int:
     if args.model == "moe":
         report_lm(run_moe(args, t0))
         return 0
+    if args.model == "pp":
+        report_lm(run_pp(args, t0))
+        return 0
     if args.serve_http is not None:
         return serve_http(args, t0)
     if args.serve:
@@ -1636,6 +1759,11 @@ def report_lm(r: Dict[str, object]) -> None:
             print("CP_BYTES " + " ".join(
                 f"{k}={v}" for k, v in mine["cp_traffic"].items())
                 + f" steps={r['steps']}{tag}", flush=True)
+        if "pipe" in r.get("mesh", {}):
+            sent = mine["cp_traffic"]
+            print(f"PP_BYTES hops={sent['ring_shift']} "
+                  f"host_staged={sent['host_staged']} steps={r['steps']}"
+                  f"{tag}", flush=True)
 
 
 def report_resnet(r: Dict[str, object]) -> None:

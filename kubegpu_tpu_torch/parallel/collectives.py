@@ -58,14 +58,37 @@ Context parallelism, along the ``"seq"`` axis (the JAX collectives
   gradients' mean over every rank (``"data"`` x ``"seq"``), the
   parameters being replicated on each.
 
+Pipeline parallelism, along the ``"pipe"`` axis (the three crossings of
+the JAX ``pipeline_apply``'s ``shard_map``):
+
+- :func:`pipe_enter`: the microbatch stream, replicated, enters the
+  pipeline (``in_specs`` ``P()``; only the first stage reads it):
+  identity forward, the gradient summed over ``"pipe"`` backward
+  (Megatron's *f* over ``"pipe"``), which is how the embeddings get
+  their gradient on every stage;
+- :func:`pipe_hop`: ``ppermute`` one stage on, the point-to-point shift
+  of :func:`ring_shift` with or without the edge from the last stage to
+  the first (GPipe leaves it unused, the circular schedule carries its
+  wrap over it); the schedule (``parallel/pipeline.py``) writes its own
+  backward, which hops each cotangent one stage back, so the hop is not
+  an autograd function;
+- :func:`pipe_broadcast_last`: ``psum(where(stage == last, out, 0))``,
+  the last stage's outputs on every stage: the sum forward, each rank's
+  own gradient backward, not summed (Megatron's *g* over ``"pipe"``):
+  every stage computes the same head and loss from the sum, so a
+  summing backward would scale the last stage's gradients by the stage
+  count.
+
 Gloo carries CUDA tensors through its own host copies for its
 collectives; NCCL keeps them on the card.  Gloo's point-to-point and
 all-to-all ops take CPU tensors only, so on gloo a CUDA tensor crossing
-:func:`ring_shift` or the all-to-alls is staged explicitly: copied into
-a pinned host buffer, exchanged, and copied back (the transport of a
-gang whose ranks share one card).  :data:`CP_TRAFFIC` counts the bytes
-this process sent through the ring hops and the all-to-alls, and the
-bytes it staged through the host.
+:func:`ring_shift`, :func:`pipe_hop` or the all-to-alls is staged
+explicitly: copied into a pinned host buffer, exchanged, and copied back
+(the transport of a gang whose ranks share one card).
+:data:`CP_TRAFFIC` counts the bytes this process sent through the
+point-to-point shifts (the ring's hops along ``"seq"`` and the
+pipeline's along ``"pipe"``, under ``"ring_shift"``) and the
+all-to-alls, and the bytes it staged through the host.
 
 Every rank runs the same collectives in the same order, and each result
 is bit-identical on every rank of the group: an all-reduce computes
@@ -81,15 +104,17 @@ import torch.distributed as dist
 from kubegpu_tpu_torch.parallel.mesh import (
     DATA_AXIS,
     MODEL_AXIS,
+    PIPE_AXIS,
     SEQ_AXIS,
     Mesh,
     tp_size,
 )
 
 SEQ_DIM = 1
-# bytes this process sent along the "seq" axis since import: through
-# ring hops, through all-to-alls (the slices for other ranks), and those
-# of both staged through pinned host buffers (gloo with CUDA tensors)
+# bytes this process sent since import: through point-to-point shifts
+# (the "seq" ring's hops and the "pipe" hops), through all-to-alls (the
+# slices for other ranks), and those staged through pinned host buffers
+# (gloo with CUDA tensors)
 CP_TRAFFIC = {"ring_shift": 0, "all_to_all": 0, "host_staged": 0}
 
 
@@ -425,30 +450,39 @@ def _empty_like(x: torch.Tensor, staged: bool) -> torch.Tensor:
 
 
 def _shift(tensors: Sequence[torch.Tensor], mesh: Mesh, axis: str,
-           step: int) -> List[torch.Tensor]:
+           step: int, wrap: bool = True) -> List[torch.Tensor]:
     """Each tensor of ``tensors`` sent ``step`` ranks on along ``axis``
     (to ``(i + step) % n``) and the one from ``(i - step) % n``
     received: every send and receive posted in one
-    ``batch_isend_irecv``, one tag a tensor."""
+    ``batch_isend_irecv``, one tag a tensor.  ``wrap=False`` leaves out
+    the edge between the axis' two ends: a rank whose peer lies past an
+    end sends nothing, and one whose source does receives zeros."""
     n = mesh.axis_size(axis)
-    if n == 1:
-        return list(tensors)
-    group = mesh.axis_group(axis)
     i = mesh.coord(axis)
+    send = wrap or 0 <= i + step < n
+    recv = wrap or 0 <= i - step < n
+    if n == 1:
+        return [t if recv else torch.zeros_like(t) for t in tensors]
+    group = mesh.axis_group(axis)
     dst = dist.get_global_rank(group, (i + step) % n)
     src = dist.get_global_rank(group, (i - step) % n)
     staged = _staged(mesh, tensors[0])
     sends = [t.contiguous() for t in tensors]
-    CP_TRAFFIC["ring_shift"] += sum(_nbytes(t) for t in sends)
-    if staged:
-        sends = [_to_host(t) for t in sends]
+    if send:
+        CP_TRAFFIC["ring_shift"] += sum(_nbytes(t) for t in sends)
+        if staged:
+            sends = [_to_host(t) for t in sends]
     recvs = [_empty_like(t, staged) for t in sends]
     ops = []
     for tag, (s, r) in enumerate(zip(sends, recvs)):
-        ops.append(dist.P2POp(dist.isend, s, dst, group, tag))
-        ops.append(dist.P2POp(dist.irecv, r, src, group, tag))
+        if send:
+            ops.append(dist.P2POp(dist.isend, s, dst, group, tag))
+        if recv:
+            ops.append(dist.P2POp(dist.irecv, r, src, group, tag))
     for work in dist.batch_isend_irecv(ops):
         work.wait()
+    if not recv:
+        return [torch.zeros_like(t) for t in tensors]
     if staged:
         recvs = [r.to(t.device) for r, t in zip(recvs, tensors)]
     return recvs
@@ -602,3 +636,36 @@ def mean_grads_over_mesh(grads: Sequence[torch.Tensor], mesh: Mesh) -> None:
     gradients of parameters every rank holds whole."""
     if mesh.size > 1:
         flat_all_reduce(grads, dist.group.WORLD, 1.0 / mesh.size)
+
+
+# -- pipeline parallelism: the "pipe" axis -----------------------------------
+
+
+def pipe_enter(stream: torch.Tensor, mesh: Mesh,
+               axis: str = PIPE_AXIS) -> torch.Tensor:
+    """The microbatch stream, replicated over ``axis``, as it enters the
+    pipeline: ``stream`` itself; backward, the sum over ``axis`` of every
+    stage's gradient of it (only the first stage's is not zero)."""
+    if mesh.axis_size(axis) == 1:
+        return stream
+    return copy_to_model(stream, mesh, axis)
+
+
+def pipe_hop(x: torch.Tensor, mesh: Mesh, axis: str = PIPE_AXIS, *,
+             step: int = 1, wrap: bool) -> torch.Tensor:
+    """``jax.lax.ppermute`` one stage along ``axis``: this rank's ``x`` to
+    stage ``i + step``, stage ``i - step``'s received (``step`` -1 is the
+    transpose, a cotangent sent one stage back).  ``wrap=False`` (GPipe)
+    leaves the edge between the last stage and the first unused: the
+    stage at the receiving end gets zeros.  Outside autograd."""
+    return _shift([x], mesh, axis, step, wrap)[0]
+
+
+def pipe_broadcast_last(out: torch.Tensor, mesh: Mesh,
+                        axis: str = PIPE_AXIS) -> torch.Tensor:
+    """The sum over ``axis`` of every stage's ``out`` (zeros but on the
+    last stage: its outputs on every stage); the gradient passes through
+    unchanged, each stage's own (they are all the same)."""
+    if mesh.axis_size(axis) == 1:
+        return out
+    return reduce_from_model(out, mesh, axis)

@@ -2,16 +2,18 @@
 (``kubegpu_tpu/parallel/mesh.py``) for the ``"model"`` mesh of
 tensor-parallel serving, the ``("data", "model")`` mesh of data x
 tensor-parallel training, the ``("data", "seq")`` mesh of
-context-parallel training and the ``("data", "expert"[, "model"])``
-mesh of expert-parallel MoE training, and of ``tp_size``
-(``kubegpu_tpu/parallel/sharding.py``) and its ``"seq"`` and
-``"expert"`` counterparts ``cp_size`` and ``ep_size``.
+context-parallel training, the ``("data", "expert"[, "model"])`` mesh
+of expert-parallel MoE training and the ``("pipe"[, "model"])`` mesh of
+pipeline-parallel training, and of ``tp_size``
+(``kubegpu_tpu/parallel/sharding.py``) and its ``"seq"``, ``"expert"``
+and ``"pipe"`` counterparts ``cp_size``, ``ep_size`` and ``pp_size``.
 
 The JAX package runs one controller over every device; the port runs one
 process per rank.  A :class:`Mesh` is what one rank knows of the mesh:
 its rank in the world and the world's size, the axes and this rank's
 coordinate on each (row-major, the trailing axis fastest, as JAX lays
 devices out: on ``{"data": dp, "model": tp}`` rank r sits at data
+``r // tp``, model ``r % tp``; on ``{"pipe": pp, "model": tp}`` at pipe
 ``r // tp``, model ``r % tp``), one process group per axis (the ranks
 that differ from this one only along that axis), a gloo group for host
 objects (the replay of a batcher's calls), this rank's device and the
@@ -40,6 +42,7 @@ DATA_AXIS = "data"
 MODEL_AXIS = "model"
 SEQ_AXIS = "seq"
 EXPERT_AXIS = "expert"
+PIPE_AXIS = "pipe"
 BACKENDS = ("nccl", "gloo")
 
 
@@ -110,6 +113,14 @@ def ep_size(mesh: Optional[Mesh]) -> int:
     if mesh is None or EXPERT_AXIS not in mesh.axis_names:
         return 1
     return int(mesh.shape[EXPERT_AXIS])
+
+
+def pp_size(mesh: Optional[Mesh]) -> int:
+    """The pipeline's stage count a mesh carries (1 without a mesh or a
+    ``"pipe"`` axis)."""
+    if mesh is None or PIPE_AXIS not in mesh.axis_names:
+        return 1
+    return int(mesh.shape[PIPE_AXIS])
 
 
 def _axis_lines(axes: Mapping[str, int], axis: str):

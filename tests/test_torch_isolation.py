@@ -1,7 +1,8 @@
 """The port stands alone: no module of kubegpu_tpu_torch, not
 chip_smoke.py and not the rank bodies of the gangs
 (tests/torch_tp_cases.py, tests/torch_resnet_cases.py,
-tests/torch_moe_cases.py, whose processes must run without JAX) imports
+tests/torch_moe_cases.py, tests/torch_pp_cases.py, whose processes must
+run without JAX) imports
 jax, flax, orbax or the JAX package, nor the Orbax converter
 (tools/orbax_to_torch_checkpoint.py); its entry points run on the card
 unless the caller asks for the CPU."""
@@ -20,6 +21,7 @@ PKG = os.path.join(REPO, "kubegpu_tpu_torch")
 TP_CASES = os.path.join(REPO, "tests", "torch_tp_cases.py")
 RESNET_CASES = os.path.join(REPO, "tests", "torch_resnet_cases.py")
 MOE_CASES = os.path.join(REPO, "tests", "torch_moe_cases.py")
+PP_CASES = os.path.join(REPO, "tests", "torch_pp_cases.py")
 FORBIDDEN_ROOTS = ("jax", "jaxlib", "flax", "orbax", "kubegpu_tpu",
                    "orbax_to_torch_checkpoint", "tools")
 
@@ -33,6 +35,7 @@ def port_sources():
     yield TP_CASES
     yield RESNET_CASES
     yield MOE_CASES
+    yield PP_CASES
 
 
 def test_importing_every_module_leaves_jax_out():
@@ -46,6 +49,7 @@ def test_importing_every_module_leaves_jax_out():
         "import torch_tp_cases\n"
         "import torch_resnet_cases\n"
         "import torch_moe_cases\n"
+        "import torch_pp_cases\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         f"{FORBIDDEN_ROOTS!r})\n"
         "print(len(names), bad)\n"
@@ -64,8 +68,9 @@ def test_importing_every_module_leaves_jax_out():
     # stdlib-only modules, the sampling slice's counter-based PRNG, the
     # dense serving slice's batchers, the tensor-parallel slice's
     # modules, the data x tensor-parallel training they carry, the
-    # ResNet and the MoE transformer
-    for name in ("models.resnet", "models.moe", "gateway", "gateway.client",
+    # ResNet, the MoE transformer and the pipeline
+    for name in ("models.resnet", "models.moe", "models.pipeline_lm",
+                 "parallel.pipeline", "gateway", "gateway.client",
                  "gateway.dataplane", "utils", "utils.metrics",
                  "utils.tracing", "utils.metric_names", "ops.prng", "models.serving", "models.spec_serving",
                  "parallel.mesh", "parallel.sharding",
