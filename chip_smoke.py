@@ -1,11 +1,15 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--group all|serving|training|gang]
 
 Builds every kernel of the port's serving and training paths from the
-sources in the checkout, then runs sixty-three phases; any failure
-exits non-zero:
+sources in the checkout, then runs sixty-five phases; any failure
+exits non-zero.  ``--group`` (default ``all``, every phase in the order
+below, as a bare call runs them) runs phases 1 and the build, then only
+the serving phases (2-7, 11-40), the training phases (8-10, 41-63) or
+the gang phases (64-65), and prints no per-kernel record; each phase's
+seconds are printed after it as ``[phase_name N s]``:
 
 1. device: the card's name and power limit, TF32 off;
 2. K1 (paged decode attention, ``ops/csrc/paged_attention.cu``: the
@@ -263,15 +267,15 @@ exits non-zero:
    exercised; with two cards or more, three small steps over NCCL.
 
 45. checkpoints, in a temporary directory outside the checkout (its
-   ``df`` printed; the flagship's 4 layers when two steps fit with a
-   tenth to spare, else depth 1, printed as a cut): the flagship
+   ``df`` printed; 2 of the flagship's 4 layers when two steps fit with
+   a tenth to spare, else depth 1, printed as a cut): the flagship
    (vocab 32768, hidden 4096, 32 heads of 128, ``--seq 1024``, batch 4)
    trains 2 steps through the worker's ``--model lm --ckpt-dir`` and
    saves step 2 (``CHECKPOINT_SAVED step=2``); a second run resumes
    (``RESUMED step=2``) and saves step 4; K3, K4, K5 and the pre-pass
    launched steps x layers times in each run; a step's bytes are the
-   parameters' and the momentum's (4,312,055,808 B each at 4 layers)
-   plus under 1 MiB of headers; each save's and the restore's seconds
+   parameters' and the momentum's (at the trained depth) plus under
+   1 MiB of headers; each save's and the restore's seconds
    and GB/s; phase 5's draft (1 layer, hidden 1024) trains 2 steps into
    its own directory;
 46. phase 45's step 4 served through ``--model decode --serving paged
@@ -309,10 +313,11 @@ exits non-zero:
    twice with remat), once under Ulysses, never under the einsum body;
 50. the flagship at full width (vocab 32768, hidden 4096, 4 layers, 32
    heads, bf16 compute over float32 weights) at cp 2, seq 8192, batch 1,
-   in a two-rank gang: two steps with ring attention, then two with
+   in a two-rank gang: one step with ring attention, then one with
    Ulysses: finite losses, the first within 1e-2 of the card's
    one-device loss on the same tokens, each rank's launches as in 49
-   (with the pre-pass once a layer); each rank's seconds a step, bytes
+   (with the pre-pass once a layer); each rank's seconds for its one
+   step (a first step: warm-up included, not a steady step), bytes
    sent along "seq" a step, peak memory, and (ring) one more step's
    parts (forward and backward, ``sync_grads``' mean over data x seq,
    the optimizer);
@@ -330,13 +335,18 @@ exits non-zero:
    fresh tree, at 32 px and at an odd 37 px: losses within rtol 1e-4,
    the first step's gradients within rtol=atol 1e-4 and its new
    ``batch_stats`` within 1e-5;
-53. ``samples/jax-resnet.yaml``'s worker command, ``--steps 100`` (no
-   ``--model``: the default, the scan-rolled ResNet-50, batch 32, 224
+53. ``samples/jax-resnet.yaml``'s worker command at ``--steps 30``
+   instead of its 100 (no ``--model``: the default, the scan-rolled ResNet-50, batch 32, 224
    px, 1000 classes), through the port's entry point in a subprocess:
    ``FIRST_STEP_DONE`` (the worker's seconds from its start, and this
    phase's from the spawn), steady images/s, peak memory, every kernel
    count 0; cuDNN autotuning is PyTorch's default, off, and the worker
-   sets nothing;
+   sets nothing.  Then what a window's length does to that rate: the
+   same model and batches (the worker's builder) stepped 60 times in
+   this process with no sync between steps, as the worker steps them:
+   images/s on the device's clock over steps 2-30 (this phase's window),
+   31-60 and 2-60; then 5 more steps profiled: the device's busy ms a
+   step against a step of 2-60, and its idle share;
 54. the reference's steady state (``bench.py`` ``steady_state_resnet``):
    the unrolled ResNet-50 at batch 256 on a device pool of 3 synthetic
    batches, 5 warm-up and 30 timed steps: ms a step, images/s, and the
@@ -371,7 +381,7 @@ exits non-zero:
    experts, capacity factor 2, flash attention, bf16) on one card: the
    dense twin (``TransformerLM``) and the six MoE rows (top1 fp32- and
    fast-dispatch, top2, expert choice, top1 and top2 gather), each 2 warm
-   and 10 timed steps on a device pool of 2 batches of the reference's
+   and 5 timed steps on a device pool of 2 batches of the reference's
    stream: ms a step, tokens/s, aux and drop rate (after the steps, on
    the first batch, as the reference reads them), peak memory, and the
    share of the dense bf16 peak (FLOPs counted by ``FlopCounterMode``
@@ -415,7 +425,31 @@ exits non-zero:
    of it in the hops, and the bytes the hops sent and staged through the
    host (host-staged: no time here is a pipeline speed).
 
-Phases 29-34, 53-54, 60 and 61-63 set every kernel's launch count to 0
+64. ``samples/jax-resnet.yaml``'s gang on the card: 4 pods as OS
+   processes, each the sample's worker command (the default ResNet-50,
+   batch 32 a pod, 224 px, 1000 classes) at ``--steps 5`` instead of
+   100, with exactly the shim's rendezvous env (``worker_env``'s five
+   variables, the coordinator on 127.0.0.1) and ``CUDA_VISIBLE_DEVICES``
+   0: one world of 4 ranks on ``cuda:0`` over gloo (host-staged: no time
+   here is a data-parallel speed); every pod prints ``TRAINING_MESH
+   data=4 process=p/4``, ``FIRST_STEP_DONE`` and ``steady_state`` with
+   the same losses, and every kernel count 0 (each pod's counts are the
+   paged kernels' ``gang_launches``); the first loss within 1e-2 of one
+   device's step from the same initial weights on the gang's global
+   batch (each pod's 32 rows of its own process id's stream, in process
+   order), and nearer to it than to one device's on 128 rows of stream
+   0 alone (one process of 4 devices); each pod's seconds to its first
+   step and peak memory, and the gang's seconds a step;
+65. an LM gang on the card (``samples/jax-lm-tp.yaml``'s shape at phase
+   10's small widths: 2 pods of 1 rank, ``--model lm --tp 2``, flash
+   attention, float32 compute), each pod a script calling
+   ``worker.run_lm`` under the shim's env: every step's loss within 1e-5
+   of the same gang on the CPU (one process, ``--device cpu --cpu-ranks
+   2``), and each pod's K3, K4 and K5 launched steps x layers times (its
+   float32 instantiation; no pre-pass at float32), the per-kernel
+   record's ``gang_launches``.
+
+Phases 29-34, 53-54, 60, 61-63 and 64 set every kernel's launch count to 0
 before each run and require it to be 0 after: the dense paths, the
 ResNet, the worker's einsum-attention MoE and the pipeline run none of
 K1-K5.
@@ -426,6 +460,8 @@ before that the card's name and power limit again; the last line is
 exits non-zero and prints no result.
 """
 
+import argparse
+import functools
 import json
 import shutil
 import subprocess
@@ -523,7 +559,9 @@ def phase_build() -> None:
     t0 = time.monotonic()
     paths = _build.build()
     log(f"build: {len(paths)} kernel libraries in "
-        f"{time.monotonic() - t0:.1f} s")
+        f"{time.monotonic() - t0:.1f} s, one nvcc each, started together ("
+        + ", ".join(f"{n} {s:.1f} s"
+                    for n, s in _build.BUILD_SECONDS.items()) + ")")
     for name, text in _build.BUILD_LOG.items():
         for line in text.splitlines():
             if "error" in line:
@@ -4052,7 +4090,9 @@ CKPT_TRAIN = ["--model", "lm", "--vocab", "32768", "--hidden", "4096",
 CKPT_DRAFT = ["--model", "lm", "--vocab", "32768", "--hidden", "1024",
               "--heads", "8", "--layers", "1", "--seq", "1024",
               "--batch-per-chip", "4", "--steps", "2"]
-CKPT_LAYERS = 4
+# 2 of the flagship's 4 layers: the smoke's time limit (a 4-layer step's
+# two saves and restore took 41-50 s)
+CKPT_LAYERS = 2
 # a resumed run against an uninterrupted one: the kernels are
 # deterministic, so equal bits are expected; the gate
 RESUME_TOL = 1e-6
@@ -4385,7 +4425,9 @@ CP_SMALL = dict(TRAIN_SMALL, max_seq=273)
 CP_SMALL_SEQS = dict(flash=128, einsum=272)
 CP_FLAGSHIP = dict(vocab_size=32768, num_layers=4, num_heads=32,
                    hidden=4096, max_seq=8193)
-CP_FLAGSHIP_RUN = dict(seq=8192, batch=1, steps=2)
+# one step of each attention; the steady step is the one timed in parts
+# after it
+CP_FLAGSHIP_RUN = dict(seq=8192, batch=1, steps=1)
 # samples/jax-lm-cp.yaml's argv at --cp 1 and 3 steps, at the worker's
 # default widths; --batch-per-chip 8 holds the sample's tokens a chip
 # (its default 32 rows x 8192 / 4)
@@ -4554,7 +4596,7 @@ def phase_cp_flagship(device: str = "cuda", cfg: dict = CP_FLAGSHIP,
                       run: dict = CP_FLAGSHIP_RUN) -> dict:
     """Phase 50: the flagship at full width (bf16 compute over float32
     weights) at cp 2 in a two-rank gloo gang on the card, seq 8192,
-    batch 1: two steps with ring attention, then two with Ulysses, on
+    batch 1: one step with ring attention, then one with Ulysses, on
     ``synthetic_token_batches_for_mesh``: finite losses, the first within
     1e-2 of the card's one-device loss on the same tokens (computed
     before the gang starts, then freed), each rank's launches as
@@ -4609,7 +4651,9 @@ def phase_cp_flagship(device: str = "cuda", cfg: dict = CP_FLAGSHIP,
                 log(f"cp flagship {impl} cp {CP} rank {rank} (data, seq) "
                     f"{r['coords']}: losses {[round(x, 4) for x in losses]} "
                     f"(one device's first {ref:.4f}); seconds a step "
-                    f"{[round(x, 3) for x in r['seconds']]} (gloo, "
+                    f"{[round(x, 3) for x in r['seconds']]}"
+                    + (" (a first step, warm-up included)" if steps == 1
+                       else "") + " (gloo, "
                     f"host-staged on one card: not a CP speed); bytes sent "
                     f"a step {r['traffic_per_step']}; launches "
                     f"{r['launches']}; peak device memory "
@@ -4691,8 +4735,9 @@ RESNET_TINY = dict(layout="unrolled", stage_sizes=(1, 1, 1, 1), num_filters=8,
                    num_classes=10, dtype="float32")
 RESNET50 = dict(layout="scan", stage_sizes=(3, 4, 6, 3), num_filters=64,
                 num_classes=1000, dtype="bfloat16")
-# samples/jax-resnet.yaml's worker command (no --model: the default)
-RESNET_SAMPLE_ARGV = ["--steps", "100"]
+# samples/jax-resnet.yaml's worker command (no --model: the default) at
+# 30 of its 100 steps: the smoke's time limit
+RESNET_SAMPLE_ARGV = ["--steps", "30"]
 # NVIDIA's data sheet, H100 SXM, dense bf16
 BF16_PEAK_FLOPS = 989e12
 RESNET_STATS_TOL = 1e-5
@@ -4816,9 +4861,67 @@ def phase_resnet_sample(device: str = "cuda",
         f"{'on' if torch.backends.cudnn.benchmark else 'off'} "
         "(PyTorch's default; the worker sets nothing, so no first step "
         "waits on an algorithm search)")
+    window = resnet_window(argv) if device == "cuda" else None
     return dict(first_s=float(first["seconds"]), spawn_s=spawn_s,
                 images_per_sec=float(steady["images_per_sec"]),
-                peak_gib=None if peak == "not" else float(peak))
+                peak_gib=None if peak == "not" else float(peak),
+                window=window)
+
+
+def resnet_window(argv: list, steps: int = 60, split: int = 30,
+                  profiled: int = 5) -> dict:
+    """Phase 53's model and batches (the worker's builder on ``argv``)
+    stepped ``steps`` times in this process on the card, with no sync
+    between steps but the first, as the worker's ``_train`` steps them:
+    images/s on the device's clock (CUDA events at each step's end) over
+    steps 2..``split``, ``split``+1..``steps`` and 2..``steps``; then
+    ``profiled`` more steps under the profiler (the card's activity
+    only, so the host is not slowed): the device's busy ms a step (its
+    kernels' and copies' device time) against a step of 2..``steps``,
+    and so its idle share."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from kubegpu_tpu_torch.models import worker
+    from kubegpu_tpu_torch.models.train import resnet_step
+
+    args = worker.build_parser().parse_args(argv)
+    state, next_batch = worker.build_resnet_trainer(args)
+    rows = max(args.batch_per_chip, 1)
+    ends = [torch.cuda.Event(enable_timing=True) for _ in range(steps)]
+    losses = []
+    for i in range(steps):
+        losses.append(resnet_step(state, *next_batch()))
+        ends[i].record()
+        if i == 0:
+            float(losses[0])  # the worker waits for its first step
+    losses = torch.stack(losses).tolist()
+    out = {}
+    for a, b in ((1, split), (split, steps), (1, steps)):
+        span = ends[a - 1].elapsed_time(ends[b - 1])
+        out[f"{a + 1}-{b}"] = dict(images_per_sec=rows * (b - a) / span * 1e3,
+                                   loss=losses[b - 1])
+    step_ms = rows / out[f"2-{steps}"]["images_per_sec"] * 1e3
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(profiled):
+            loss = resnet_step(state, *next_batch())
+        float(loss)
+    busy = sum(getattr(ev, "self_device_time_total", None)
+               or getattr(ev, "self_cuda_time_total", 0)
+               for ev in prof.key_averages()) / 1e3 / profiled
+    out["profile"] = dict(step_ms=step_ms, busy_ms=busy,
+                          idle=1 - busy / step_ms)
+    log(f"resnet sample's window (its model and batches, {steps} steps in "
+        f"this process, no sync between them; {rows} images a step): "
+        + "; ".join(f"steps {k}: {v['images_per_sec']:.1f} images/s on the "
+                    f"device's clock, loss {v['loss']:.4f}"
+                    for k, v in out.items() if k != "profile")
+        + f"; {profiled} more steps profiled: the device busy {busy:.2f} ms "
+        f"a step of {step_ms:.2f} (idle {out['profile']['idle'] * 100:.1f}%"
+        ")")
+    del state
+    torch.cuda.empty_cache()
+    return out
 
 
 def resnet_breakdown(prof) -> dict:
@@ -5071,7 +5174,7 @@ MOE_ROUTES = (("top1", "einsum"), ("top1", "gather"), ("top2", "einsum"),
 # factor 2, flash attention on both the MoE rows and the dense twin
 MOE_BENCH = dict(vocab_size=32768, num_layers=4, num_heads=16, hidden=2048,
                  max_seq=1025, num_experts=4)
-MOE_BENCH_RUN = dict(batch=8, seq=1024, warm=2, timed=10, pool=2)
+MOE_BENCH_RUN = dict(batch=8, seq=1024, warm=2, timed=5, pool=2)
 # its six MoE rows: (label, router, fast_dispatch, dispatch)
 MOE_ROWS = (("top1 fp32-dispatch", "top1", False, "einsum"),
             ("top1 fast-dispatch", "top1", True, "einsum"),
@@ -5929,120 +6032,370 @@ def phase_pp_width(gang2, device: str = "cuda", cfg: dict = PP_WIDTH,
     return out
 
 
-def main() -> int:
+def gang_cases():
+    """The pods of a gang as OS processes (``tests/torch_gang_cases.py``,
+    shared with the CPU tests)."""
+    tp_cases()   # puts tests/ on the path
+    import torch_gang_cases
+
+    return torch_gang_cases
+
+
+def pod_env(hostnames: list, i: int, port: int) -> dict:
+    """The CRI shim's rendezvous env (``worker_env``) for pod ``i`` of a
+    gang whose pods' hostnames are ``hostnames`` (in the shim's sorted
+    order), with the coordinator on loopback at ``port``."""
+    return {
+        "TPU_WORKER_ID": str(i),
+        "TPU_WORKER_HOSTNAMES": ",".join(hostnames),
+        "JAX_COORDINATOR_ADDRESS": f"127.0.0.1:{port}",
+        "JAX_NUM_PROCESSES": str(len(hostnames)),
+        "JAX_PROCESS_ID": str(i),
+    }
+
+
+def gang_pod_envs(name: str, pods: int, device: str) -> list:
+    """The env of each of ``pods`` pods of the sample ``name`` (pods
+    ``name-i`` under the headless service ``name``), the coordinator on
+    a free loopback port; on the card every pod sees card 0 only, as a
+    device plugin would hand each pod its card."""
+    hosts = [f"{name}-{i}.{name}.default.svc" for i in range(pods)]
+    port = gang_cases().free_port()
+    envs = [pod_env(hosts, i, port) for i in range(pods)]
+    if device == "cuda":
+        for env in envs:
+            env["CUDA_VISIBLE_DEVICES"] = "0"
+    return envs
+
+
+def pod_lines(out: str) -> dict:
+    """A pod's output lines by their first word (the last of each)."""
+    return {ln.split()[0]: ln for ln in out.splitlines() if ln.strip()}
+
+
+# samples/jax-resnet.yaml: 4 pods of the worker's command, 5 of its 100
+# steps
+GANG_PODS = 4
+GANG_RESNET_ARGV = ["--steps", "5"]
+# samples/jax-lm-tp.yaml's shape at phase 10's small widths
+GANG_LM_ARGV = ["--model", "lm", "--tp", "2", "--vocab", "256", "--hidden",
+                "256", "--heads", "4", "--layers", "2", "--seq", "128",
+                "--batch-per-chip", "4", "--steps", "3"]
+GANG_LM_TOL = 1e-5
+
+
+def phase_gang_resnet(device: str = "cuda", argv=GANG_RESNET_ARGV,
+                      pods: int = GANG_PODS) -> dict:
+    """Phase 64: the north star's gang, ``pods`` pods of the sample's
+    worker command on one card."""
+    g = gang_cases()
+    zero_counts()
+    extra = [] if device == "cuda" else ["--device", "cpu"]
+    t0 = time.monotonic()
+    outs = g.run_commands([g.worker_command(argv + extra)] * pods,
+                          gang_pod_envs("jax-resnet", pods, device),
+                          timeout_s=900)
+    wall = time.monotonic() - t0
+    assert_no_kernel("resnet gang (this process)")
+    rows = []
+    for p, (_, out, _, secs) in enumerate(outs):
+        lines = pod_lines(out)
+        mesh = fields(lines["TRAINING_MESH"])
+        assert (mesh["data"], mesh["process"], mesh["backend"]) == (
+            str(pods), f"{p}/{pods}", "gloo"), lines["TRAINING_MESH"]
+        launches = fields(lines["KERNEL_LAUNCHES"])
+        assert launches.pop("rank") == str(p), lines["KERNEL_LAUNCHES"]
+        for key in ("model", "device"):
+            launches.pop(key)
+        launches = {k: int(v) for k, v in launches.items()}
+        assert not any(launches.values()), launches
+        first = fields(lines["FIRST_STEP_DONE"])
+        steady = fields(lines["steady_state"])
+        peak = lines["PEAK_MEM_GIB"].split()[1]
+        rows.append(dict(first_s=float(first["seconds"]), wall_s=secs,
+                         launches=launches,
+                         first_loss=first["loss"], last_loss=steady["loss"],
+                         images_per_sec=float(steady["images_per_sec"]),
+                         peak_gib=None if peak == "not" else float(peak)))
+    losses = {(r["first_loss"], r["last_loss"]) for r in rows}
+    assert len(losses) == 1, losses
+    ref = gang_reference_losses(argv + extra, pods)
+    first = float(rows[0]["first_loss"])
+    near, alone = abs(first - ref["gang"]), abs(first - ref["stream0"])
+    assert near <= FLAGSHIP_LOSS_TOL and near < alone, (first, ref)
+    log(f"resnet gang's first loss {first} against one device's step from "
+        f"the same weights: on the gang's global batch (each pod's rows of "
+        f"its own stream) {ref['gang']:.6f} (diff {near:.2e}, tolerance "
+        f"{FLAGSHIP_LOSS_TOL}); on as many rows of stream 0 alone "
+        f"{ref['stream0']:.6f} (diff {alone:.2e})")
+    steps = int(argv[argv.index("--steps") + 1])
+    batch = 32 if "--batch-per-chip" not in argv else int(
+        argv[argv.index("--batch-per-chip") + 1])
+    rate = rows[0]["images_per_sec"]
+    step_s = batch * pods / rate
+    for p, r in enumerate(rows):
+        log(f"resnet gang pod {p}/{pods}: FIRST_STEP_DONE {r['first_s']:.2f}"
+            f" s after the worker's start, the pod's process {r['wall_s']:.1f}"
+            f" s in all; peak device memory {r['peak_gib']} GiB; steady "
+            f"{r['images_per_sec']} images/s")
+    log(f"resnet gang ({pods} pods of `{' '.join(argv)}` on one card over "
+        f"gloo, host-staged): losses {rows[0]['first_loss']} -> "
+        f"{rows[0]['last_loss']} on every pod; {step_s:.3f} s a step of "
+        f"{batch * pods} images over {steps - 1} steady steps; phase "
+        f"{wall:.1f} s")
+    return dict(pods=rows, step_s=step_s, wall_s=wall, reference=ref)
+
+
+def gang_reference_losses(argv: list, pods: int) -> dict:
+    """One device's first loss (the worker's builder: its initial weights,
+    here on ``argv``'s device) on the global batch of a gang of ``pods``
+    pods of one device on ``argv`` (``gang``: each pod's first step's
+    rows from its own process id's stream, in process order) and on as
+    many rows of stream 0 (``stream0``: one process of ``pods``
+    devices)."""
+    import numpy as np
     import torch
 
+    from kubegpu_tpu_torch.models import worker
+    from kubegpu_tpu_torch.models.data import synthetic_image_batches
+    from kubegpu_tpu_torch.models.train import resnet_step
+
+    # a resident batch: the state without drawing the worker's pool
+    args = worker.build_parser().parse_args(argv + ["--data", "resident"])
+    rows = max(args.batch_per_chip, 1)
+    device = worker.resolve_device(args.device)
+    out = {}
+    for name in ("gang", "stream0"):
+        state, _ = worker.build_resnet_trainer(args)
+        # the first draw sizes the worker's init; its step 0 takes the
+        # next
+        draws = []
+        for stream, n in ([(p, rows) for p in range(pods)] if name == "gang"
+                          else [(0, rows * pods)]):
+            source = synthetic_image_batches(
+                n, size=state.model.image_size,
+                num_classes=state.model.num_classes, worker_id=stream)
+            next(source)
+            draws.append(next(source))
+        images, labels = (torch.from_numpy(np.concatenate(x)).to(device)
+                          for x in zip(*draws))
+        out[name] = float(resnet_step(state, images, labels))
+        del state, images, labels
+    if torch.cuda.is_available():
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_gang_lm(device: str = "cuda", argv=GANG_LM_ARGV) -> dict:
+    """Phase 65: an LM gang of 2 pods of 1 rank on the card, float32,
+    against the same gang on the CPU in one process."""
+    g = gang_cases()
+    pods = 2
+    t0 = time.monotonic()
+    pod_argv = argv + ([] if device == "cuda" else ["--device", "cpu"])
+    outs = g.run_commands(
+        [g.pod_script("run_lm", pod_argv, fp32=True)] * pods,
+        gang_pod_envs("jax-lm-tp", pods, device),
+        g.pod_script("run_lm", argv + ["--device", "cpu", "--cpu-ranks",
+                                       str(pods)], fp32=True),
+        timeout_s=900)
+    wall = time.monotonic() - t0
+    cpu = g.losses_of(outs[pods][1])
+    steps = int(argv[argv.index("--steps") + 1])
+    layers = int(argv[argv.index("--layers") + 1])
+    launches, worst = [], 0.0
+    for p, (_, out, _, _) in enumerate(outs[:pods]):
+        got = g.losses_of(out)
+        worst = max([worst] + [abs(a - b) for a, b in zip(got, cpu)])
+        assert len(got) == len(cpu) == steps and worst <= GANG_LM_TOL, (
+            got, cpu)
+        lines = pod_lines(out)
+        assert fields(lines["TRAINING_MESH"])["process"] == f"{p}/{pods}"
+        assert "FIRST_STEP_DONE" in lines, out
+        mine = {}
+        for kname, key in FLASH_IDS.items():
+            line = fields(lines[f"{key}_LAUNCHES"])
+            assert line["rank"] == str(p), lines[f"{key}_LAUNCHES"]
+            mine[kname] = int(line[kname])
+        if device == "cuda":
+            for kname in ("flash_forward", "flash_backward_dkdv",
+                          "flash_backward_dq"):
+                assert mine[kname] == steps * layers, (p, mine)
+        launches.append(mine)
+    log(f"lm gang ({pods} pods, `{' '.join(argv)}`, float32, flash, "
+        f"{device} over gloo) vs the CPU's --cpu-ranks {pods}: losses "
+        f"{cpu}, worst diff {worst:.3e} (tolerance {GANG_LM_TOL}); each "
+        f"pod's launches {launches}; phase {wall:.1f} s")
+    return dict(launches=launches, worst=worst, wall_s=wall)
+
+
+def _timed(fn):
+    """``fn`` that prints its seconds after it, as ``[name N s]``."""
+    @functools.wraps(fn)
+    def run(*args, **kwargs):
+        t = time.monotonic()
+        try:
+            return fn(*args, **kwargs)
+        finally:
+            log(f"[{fn.__name__} {time.monotonic() - t:.1f} s]")
+    return run
+
+
+GROUPS = ("all", "serving", "training", "gang")
+
+
+def main(argv=None) -> int:
+    import torch
+
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--group", choices=GROUPS, default="all",
+                    help="the phases to run (default: every one)")
+    group = ap.parse_args(argv).group
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 2
     # the port must be importable before anything is printed: a copy of
     # this script without the repo fails here, with no result
     import kubegpu_tpu_torch.models.worker  # noqa: F401
+    mod = sys.modules[__name__]
+    for fname in [n for n in vars(mod) if n.startswith("phase_")]:
+        setattr(mod, fname, _timed(getattr(mod, fname)))
+    return _run(group, torch)
+
+
+def _run(group: str, torch) -> int:
+    serving = group in ("all", "serving")
+    training = group in ("all", "training")
     t0 = time.monotonic()
     name, smi = phase_device()
     phase_build()
-    k1 = phase_k1()
-    phase_k1(geo=DEFAULT_PAGED)
-    k2 = phase_k2()
-    phase_k2(geo=DEFAULT_PAGED, spec_k=DEFAULT_SPEC_K)
-    flag = phase_flagship()
-    spec = phase_spec_flagship()
-    small = phase_card_vs_cpu()
-    phase_spec_card(small)
-    flash = phase_flash()
-    train = phase_train_flagship()
-    phase_train_card_vs_cpu()
-    k1q = phase_k1(quant=True)
-    phase_k1(quant=True, geo=DEFAULT_PAGED)
-    k2q = phase_k2(quant=True)
-    phase_k2(quant=True, geo=DEFAULT_PAGED, spec_k=DEFAULT_SPEC_K)
-    flag_q = phase_flagship(int8=True)
-    spec_q = phase_spec_flagship(int8=True)
-    phase_int8_card_vs_cpu(small)
-    # the worker at its own defaults: plain, speculative at k 8, int8 pool
-    phase_flagship(base=DEFAULT_ARGV, name="worker at its defaults")
-    phase_spec_flagship(base=DEFAULT_ARGV, name="worker at its defaults",
-                        spec_k=DEFAULT_SPEC_K)
-    phase_flagship(int8=True, base=DEFAULT_ARGV,
-                   name="worker at its defaults")
-    # the HTTP replica: flagship plain and speculative over loopback, card
-    # against CPU over the wire, the worker's --serve-http entry point
-    phase_http_flagship()
-    phase_http_flagship(speculate=True)
-    phase_http_card_vs_cpu(small)
-    phase_http_worker()
-    # sampling: the PRNG, the sampled flagship, card against CPU
-    phase_prng()
-    phase_sampled_flagship(flag, spec)
-    phase_sampled_card_vs_cpu(small)
-    # migration and disaggregation: the reference's migration bench, live
-    # migration card to card and card to CPU, and the wire verbs
-    phase_migration_bench()
-    phase_live_migration(small)
-    phase_wire_migration()
-    # the dense serving slice: the decode sample's static mode, continuous
-    # against static and paged, chunked against monolithic ITL, the
-    # speculative batcher, card against CPU, the worker's dense modes
-    phase_static_sample()
-    phase_dense_serving()
-    phase_prefill_itl()
-    phase_spec_serving()
-    phase_dense_card_vs_cpu(small)
-    phase_dense_worker()
-    # tensor-parallel serving: the sharded kernels at one rank's heads,
-    # then a two-rank gang on the card
-    tp_k = phase_tp_kernels()
-    tp = phase_tp(small)
-    # data x tensor-parallel training: the flash kernels at one rank's
-    # heads, then a four-rank gang on the card
-    tp_flash = phase_tp_flash()
-    # checkpoints: phase 47's mesh half in the training gang, then the
-    # flagship trained, saved, resumed and served from its checkpoint
-    ckpt_root = tempfile.mkdtemp(prefix="chip-smoke-ckpt-")
-    try:
-        tp_train = phase_tp_train(ckpt_root=ckpt_root)
-        t1 = time.monotonic()
-        ck = phase_ckpt_train(ckpt_root)
-        phase_ckpt_serve(ck)
-        phase_ckpt_resume(ckpt_root)
-        log(f"checkpoint phases {time.monotonic() - t1:.1f} s")
-    finally:
-        shutil.rmtree(ckpt_root, ignore_errors=True)
-    # context-parallel training: the ring block's kernels, the small
-    # float32 gangs, the flagship at seq 8192 in a two-rank gang, the
-    # worker's lm-cp
-    t2 = time.monotonic()
-    cp_k = phase_cp_kernels()
-    phase_cp_small()
-    cp_flag = phase_cp_flagship()
-    phase_cp_worker()
-    log(f"context-parallel phases {time.monotonic() - t2:.1f} s")
-    # ResNet data-parallel training: card vs CPU at fp32, the sample's
-    # command, the reference's steady state, a two-rank gang, checkpoints
-    t3 = time.monotonic()
-    phase_resnet_card_vs_cpu()
-    phase_resnet_sample()
-    phase_resnet_steady()
-    phase_resnet_gang()
-    phase_resnet_ckpt()
-    log(f"resnet phases {time.monotonic() - t3:.1f} s")
-    # the MoE family: card against CPU at fp32, the reference's MoE bench
-    # row on one card, expert meshes in gloo gangs on the card, the worker
-    t4 = time.monotonic()
-    phase_moe_card_vs_cpu()
-    moe = phase_moe_bench()
-    phase_moe_gang(moe)
-    phase_moe_worker()
-    log(f"moe phases {time.monotonic() - t4:.1f} s")
-    # pipeline-parallel LM training: card against CPU at fp32 (gangs on
-    # the card), the worker at its defaults, its width in a two-stage gang
-    t5 = time.monotonic()
-    with tempfile.TemporaryDirectory() as tmp:
-        with pp_gang({"pipe": 2}, tmp, "cuda") as gang2:
-            phase_pp_card_vs_cpu(gang2)
-            pp = phase_pp_worker()
-            phase_pp_width(gang2)
-    log(f"pipeline phases {time.monotonic() - t5:.1f} s")
+    if serving:
+        k1 = phase_k1()
+        phase_k1(geo=DEFAULT_PAGED)
+        k2 = phase_k2()
+        phase_k2(geo=DEFAULT_PAGED, spec_k=DEFAULT_SPEC_K)
+        flag = phase_flagship()
+        spec = phase_spec_flagship()
+        small = phase_card_vs_cpu()
+        phase_spec_card(small)
+    if training:
+        flash = phase_flash()
+        train = phase_train_flagship()
+        phase_train_card_vs_cpu()
+    if serving:
+        k1q = phase_k1(quant=True)
+        phase_k1(quant=True, geo=DEFAULT_PAGED)
+        k2q = phase_k2(quant=True)
+        phase_k2(quant=True, geo=DEFAULT_PAGED, spec_k=DEFAULT_SPEC_K)
+        flag_q = phase_flagship(int8=True)
+        spec_q = phase_spec_flagship(int8=True)
+        phase_int8_card_vs_cpu(small)
+        # the worker at its own defaults: plain, speculative at k 8, int8
+        # pool
+        phase_flagship(base=DEFAULT_ARGV, name="worker at its defaults")
+        phase_spec_flagship(base=DEFAULT_ARGV, name="worker at its defaults",
+                            spec_k=DEFAULT_SPEC_K)
+        phase_flagship(int8=True, base=DEFAULT_ARGV,
+                       name="worker at its defaults")
+        # the HTTP replica: flagship plain and speculative over loopback,
+        # card against CPU over the wire, the worker's --serve-http entry
+        # point
+        phase_http_flagship()
+        phase_http_flagship(speculate=True)
+        phase_http_card_vs_cpu(small)
+        phase_http_worker()
+        # sampling: the PRNG, the sampled flagship, card against CPU
+        phase_prng()
+        phase_sampled_flagship(flag, spec)
+        phase_sampled_card_vs_cpu(small)
+        # migration and disaggregation: the reference's migration bench,
+        # live migration card to card and card to CPU, and the wire verbs
+        phase_migration_bench()
+        phase_live_migration(small)
+        phase_wire_migration()
+        # the dense serving slice: the decode sample's static mode,
+        # continuous against static and paged, chunked against monolithic
+        # ITL, the speculative batcher, card against CPU, the worker's
+        # dense modes
+        phase_static_sample()
+        phase_dense_serving()
+        phase_prefill_itl()
+        phase_spec_serving()
+        phase_dense_card_vs_cpu(small)
+        phase_dense_worker()
+        # tensor-parallel serving: the sharded kernels at one rank's heads,
+        # then a two-rank gang on the card
+        tp_k = phase_tp_kernels()
+        tp = phase_tp(small)
+    if training:
+        # data x tensor-parallel training: the flash kernels at one rank's
+        # heads, then a four-rank gang on the card
+        tp_flash = phase_tp_flash()
+        # checkpoints: phase 47's mesh half in the training gang, then the
+        # flagship trained, saved, resumed and served from its checkpoint
+        ckpt_root = tempfile.mkdtemp(prefix="chip-smoke-ckpt-")
+        try:
+            tp_train = phase_tp_train(ckpt_root=ckpt_root)
+            t1 = time.monotonic()
+            ck = phase_ckpt_train(ckpt_root)
+            phase_ckpt_serve(ck)
+            phase_ckpt_resume(ckpt_root)
+            log(f"checkpoint phases {time.monotonic() - t1:.1f} s")
+        finally:
+            shutil.rmtree(ckpt_root, ignore_errors=True)
+        # context-parallel training: the ring block's kernels, the small
+        # float32 gangs, the flagship at seq 8192 in a two-rank gang, the
+        # worker's lm-cp
+        t2 = time.monotonic()
+        cp_k = phase_cp_kernels()
+        phase_cp_small()
+        cp_flag = phase_cp_flagship()
+        phase_cp_worker()
+        log(f"context-parallel phases {time.monotonic() - t2:.1f} s")
+        # ResNet data-parallel training: card vs CPU at fp32, the sample's
+        # command, the reference's steady state, a two-rank gang,
+        # checkpoints
+        t3 = time.monotonic()
+        phase_resnet_card_vs_cpu()
+        phase_resnet_sample()
+        phase_resnet_steady()
+        phase_resnet_gang()
+        phase_resnet_ckpt()
+        log(f"resnet phases {time.monotonic() - t3:.1f} s")
+        # the MoE family: card against CPU at fp32, the reference's MoE
+        # bench row on one card, expert meshes in gloo gangs on the card,
+        # the worker
+        t4 = time.monotonic()
+        phase_moe_card_vs_cpu()
+        moe = phase_moe_bench()
+        phase_moe_gang(moe)
+        phase_moe_worker()
+        log(f"moe phases {time.monotonic() - t4:.1f} s")
+        # pipeline-parallel LM training: card against CPU at fp32 (gangs
+        # on the card), the worker at its defaults, its width in a
+        # two-stage gang
+        t5 = time.monotonic()
+        with tempfile.TemporaryDirectory() as tmp:
+            with pp_gang({"pipe": 2}, tmp, "cuda") as gang2:
+                phase_pp_card_vs_cpu(gang2)
+                pp = phase_pp_worker()
+                phase_pp_width(gang2)
+        log(f"pipeline phases {time.monotonic() - t5:.1f} s")
+    if group in ("all", "gang"):
+        # the rendezvous of a gang of pods: the north star's 4 ResNet-50
+        # pods on the card, then an LM gang against the CPU
+        t6 = time.monotonic()
+        gang_resnet = phase_gang_resnet()
+        gang_lm = phase_gang_lm()
+        log(f"gang phases {time.monotonic() - t6:.1f} s")
+    if group != "all":
+        log(f"chip_smoke: the {group} phases passed in "
+            f"{time.monotonic() - t0:.1f} s (no per-kernel record)")
+        log(smi)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": name,
+            "count": torch.cuda.device_count()}}), flush=True)
+        return 0
     log(f"chip_smoke: all phases passed in {time.monotonic() - t0:.1f} s")
     pp_launches = (pp["defaults"] or pp["fit"])["launches"]
     source = "kubegpu_tpu_torch/ops/csrc/paged_attention.cu"
@@ -6079,6 +6432,9 @@ def main() -> int:
             # tensor parallelism: each rank's launches in the flagship TP 2
             # wave, and the kernel at one rank's 16 heads
             "tp_launches": tp["launches"][tp_key],
+            # the north star's gang of pods (phase 64): each pod's launches
+            "gang_launches": [p["launches"][tp_key]
+                              for p in gang_resnet["pods"]],
             # the pipeline (phase 62's worker): einsum attention, none
             "pp_launches": pp_launches[tp_key],
             "tp_ms": tp_k[kname]["ms"],
@@ -6129,10 +6485,12 @@ def main() -> int:
             "cp_causal_ms": cp_k[kname]["causal"]["ms"],
             "cp_causal_bound_ms": cp_k[kname]["causal"]["bound_ms"],
             # the MoE bench row (phase 58): the default row's launches in
-            # its timed steps, 4 layers x 10 steps
+            # its timed steps, 4 layers x 5 steps
             "moe_launches": moe[MOE_DEFAULT_ROW]["launches"][kname],
             "pp_launches": pp_launches[FLASH_IDS[kname]],
             "moe_max_abs_err": moe["flash_errs"][kname],
+            # the LM gang of pods (phase 65): each pod's launches, float32
+            "gang_launches": [n[kname] for n in gang_lm["launches"]],
         })
     # the card and its power limit again beside the results, where the
     # end of a long output still holds them

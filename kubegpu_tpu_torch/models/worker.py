@@ -18,8 +18,21 @@ mesh, one process a rank, NCCL between cards or gloo on the CPU: the
 global batch is ``--batch-per-chip`` x n, every BatchNorm reduces over
 it, and step i takes the rows the JAX worker's step i takes on a host
 of n devices (each rank draws that host's batch and keeps its rows).
-The mesh spans one host: a pod that the env makes one of a gang of pods
-(``JAX_NUM_PROCESSES`` above 1) is refused, for LM training too.
+
+A pod that the CRI shim's env makes one of a gang of P pods
+(``JAX_NUM_PROCESSES`` above 1, ``JAX_COORDINATOR_ADDRESS``,
+``JAX_PROCESS_ID``) joins one world with the other pods in every
+training mode, as the JAX worker joins ``jax.distributed``: its L local
+devices are global ranks ``process_id x L .. + L - 1`` of a mesh over
+all P x L devices, met at the coordinator's store (gloo when two ranks
+share a card or sit on the CPU, NCCL otherwise).  Each pod's ResNet
+draws its own ``--batch-per-chip`` x L rows from its process id's
+stream, as a JAX process does; the LM family draws per data shard.
+Each pod's first rank prints its ``TRAINING_MESH``, ``FIRST_STEP_DONE``
+and ``steady_state`` lines and its ranks' launch and peak lines; only
+the gang's rank 0 writes checkpoints.  A malformed table, or a count
+above 1 with no coordinator, raises SystemExit.  The serving modes
+ignore the table: a replica serves alone.
 It prints ``FIRST_STEP_DONE seconds= loss=`` and ``steady_state
 images_per_sec= loss=``, the kernels' launch counts (all 0: no kernel of
 the port is on this path) and the peak device memory; ``--ckpt-dir``
@@ -316,12 +329,21 @@ from kubegpu_tpu_torch.ops.paged_attention import (
     paged_decode_attention,
 )
 from kubegpu_tpu_torch.parallel.launch import (
+    check_local_counts,
+    gang_backend,
     join_ranks,
+    open_gang_store,
+    open_host_gang,
     open_store,
     start_ranks,
 )
 from kubegpu_tpu_torch.parallel.collectives import CP_TRAFFIC, gather_objects
-from kubegpu_tpu_torch.parallel.mesh import close_mesh, device_mesh
+from kubegpu_tpu_torch.parallel.mesh import (
+    GangTable,
+    close_mesh,
+    device_mesh,
+    distributed_init_from_env,
+)
 from kubegpu_tpu_torch.utils.metrics import Metrics
 
 log = logging.getLogger("kubegpu_tpu_torch.worker")
@@ -537,8 +559,16 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def training_devices(args: argparse.Namespace) -> int:
-    """The visible device count a training mesh spans: the cards, or
-    ``--cpu-ranks`` with ``--device cpu`` (refused on the card)."""
+    """The device count a training mesh spans: this pod's
+    (:func:`local_devices`), times the pods of its gang
+    (:func:`pod_gang`)."""
+    gang = pod_gang()
+    return local_devices(args) * (1 if gang is None else gang.num_processes)
+
+
+def local_devices(args: argparse.Namespace) -> int:
+    """The visible device count of this pod: the cards, or ``--cpu-ranks``
+    with ``--device cpu`` (refused on the card)."""
     if args.device == "cuda":
         resolve_device("cuda")  # raises without a card
         if args.cpu_ranks != 1:
@@ -624,6 +654,11 @@ def pp_stages(args: argparse.Namespace) -> int:
     stages = args.pp_stages or n
     if n % stages:
         raise SystemExit(f"--pp-stages {stages} does not divide {n} devices")
+    if pod_gang() is not None and stages != n:
+        # a sub-mesh would leave some pods of the gang with no stage
+        raise SystemExit(
+            f"--pp-stages {stages} != device count {n}: in a multi-process "
+            "gang the pipeline must span every device")
     rounds = max(args.pp_rounds, 1)
     if rounds > 1 and args.microbatches < stages:
         raise SystemExit(
@@ -1237,24 +1272,26 @@ def worker_id() -> int:
                               os.environ.get("TPU_WORKER_ID", "0")) or 0)
 
 
-def refuse_pod_gang() -> None:
-    """Raise SystemExit when the injected env makes this process one of a
-    gang of pods (``JAX_NUM_PROCESSES`` above 1).  The port's training
-    mesh spans the cards of one host, whose ranks the worker starts
-    itself; it cannot yet join the ranks of other pods (ROADMAP Queue 1
-    item 9, the rendezvous of a gang of pods), and training alone would
-    report one pod's run as the gang's."""
+def pod_gang() -> Optional[GangTable]:
+    """The gang of pods the injected env makes this training worker one
+    of (:func:`distributed_init_from_env`), or None when it runs alone.
+    Raises SystemExit where the JAX worker's rendezvous fails: a
+    ``JAX_NUM_PROCESSES`` that is not a count, a count above 1 with no
+    ``JAX_COORDINATOR_ADDRESS``, a mangled table beside a
+    coordinator."""
     raw = os.environ.get("JAX_NUM_PROCESSES", "1") or "1"
     try:
         num = int(raw)
     except ValueError:
         raise SystemExit(f"JAX_NUM_PROCESSES={raw!r} is not a count")
-    if num > 1:
+    if num > 1 and not os.environ.get("JAX_COORDINATOR_ADDRESS"):
         raise SystemExit(
-            f"JAX_NUM_PROCESSES={num}: this worker would be one of a gang "
-            "of pods, and the port trains over the cards of one host "
-            "only (ROADMAP Queue 1 item 9: the gang rendezvous is not "
-            "ported yet)")
+            f"JAX_NUM_PROCESSES={num} with no JAX_COORDINATOR_ADDRESS: a "
+            "gang of pods needs its coordinator")
+    try:
+        return distributed_init_from_env()
+    except ValueError as e:
+        raise SystemExit(str(e))
 
 
 def resnet_model(args: argparse.Namespace, mesh=None):
@@ -1276,12 +1313,13 @@ def build_resnet_trainer(args: argparse.Namespace, mesh=None):
     """The ResNet's training state and batch source: fresh float32
     weights and statistics from ``WEIGHT_SEED`` (every rank of a mesh
     draws the same ones), ``--optimizer``, the ``--data`` mode's
-    ``(images, labels)`` batches.  Each of n ``"data"`` ranks draws the
-    host batch of ``--batch-per-chip`` x n rows from the worker's stream
-    (a host of n devices in the JAX worker) and keeps its own rows; the
-    resident batch is the JAX worker's images of ones and labels 0.
-    Returns ``(state, next_batch)``, a batch an ``(images, labels)``
-    pair."""
+    ``(images, labels)`` batches.  Each of a pod's L ranks draws the
+    pod's batch of ``--batch-per-chip`` x L rows from the worker's
+    stream (a process of L devices in the JAX worker, seeded by its
+    process id) and keeps the rows of its local rank: on one host the
+    host's batch, in a gang each pod's its own.  The resident batch is
+    the JAX worker's images of ones and labels 0.  Returns ``(state,
+    next_batch)``, a batch an ``(images, labels)`` pair."""
     device = resolve_device(args.device if mesh is None else mesh.device)
     model = resnet_model(args, mesh)
     size, classes = model.image_size, model.num_classes
@@ -1292,8 +1330,8 @@ def build_resnet_trainer(args: argparse.Namespace, mesh=None):
                          mesh=mesh)
     del params, stats  # the state holds its own copies
     rows = max(args.batch_per_chip, 1)
-    n = 1 if mesh is None else mesh.axis_size("data")
-    first = rows * (0 if mesh is None else mesh.coord("data"))
+    n = 1 if mesh is None else mesh.local_size
+    first = rows * (0 if mesh is None else mesh.local_rank)
     host = synthetic_image_batches(rows * n, size=size, num_classes=classes,
                                    worker_id=worker_id())
     source = ((im[first:first + rows], lb[first:first + rows])
@@ -1441,7 +1479,8 @@ class CheckpointHooks:
     :meth:`maybe_save` saves every ``--ckpt-every`` steps and
     :meth:`finish` saves the final step unless it was just saved, then
     prints ``CHECKPOINT_SAVED step=N``.  Over a mesh every rank calls
-    every method; ``lead`` (rank 0) prints.  The seconds of the restore
+    every method; ``lead`` (the global rank 0, the one that writes)
+    prints.  The seconds of the restore
     and of each save, and the last step's bytes, are kept for the
     report."""
 
@@ -1501,9 +1540,14 @@ class CheckpointHooks:
 
 def _train(args: argparse.Namespace, mesh, t0: float) -> Dict[str, object]:
     """Train ``--steps`` steps on this rank (the only one without a
-    mesh).  Rank 0 prints ``FIRST_STEP_DONE`` and ``steady_state``."""
+    mesh).  Each pod's first rank (the reporter; rank 0 on one host)
+    prints ``FIRST_STEP_DONE`` and ``steady_state``; the global rank 0
+    alone writes checkpoints.  Over a mesh the result's ``ranks`` are
+    the pod's own ranks' launches and peaks, each with its global
+    ``rank``."""
     device = resolve_device(args.device if mesh is None else mesh.device)
-    lead = mesh is None or mesh.rank == 0
+    writer = mesh is None or mesh.rank == 0
+    reporter = mesh is None or mesh.local_rank == 0
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
     resnet = args.model in RESNET_MODELS
@@ -1524,7 +1568,7 @@ def _train(args: argparse.Namespace, mesh, t0: float) -> Dict[str, object]:
         state, next_batch = build_trainer(args, mesh)
         step = lm_step
     # the pipeline declines checkpoints, as in JAX (run_pp warns)
-    ckpt = (CheckpointHooks(args, state, lead)
+    ckpt = (CheckpointHooks(args, state, writer)
             if args.ckpt_dir and args.model != "pp" else None)
     # a resumed run reads the batches the uninterrupted run would have
     # read from here on (the JAX worker restarts its stream instead)
@@ -1544,7 +1588,7 @@ def _train(args: argparse.Namespace, mesh, t0: float) -> Dict[str, object]:
     losses = [step(state, next_batch())]
     first_loss = float(losses[0])  # forces the step to completion
     first_s = time.monotonic() - t0
-    if lead:
+    if reporter:
         print(f"FIRST_STEP_DONE seconds={first_s:.2f} loss={first_loss:.4f}",
               flush=True)
     t1 = time.monotonic()
@@ -1557,7 +1601,7 @@ def _train(args: argparse.Namespace, mesh, t0: float) -> Dict[str, object]:
     # the saves are not training: they are left out of the rate
     dt = time.monotonic() - t1 - save_s
     rate = items * (args.steps - 1) / dt if args.steps > 1 else None
-    if rate is not None and lead:
+    if rate is not None and reporter:
         print(f"steady_state {unit}={rate:.1f} loss={losses[-1]:.4f}",
               flush=True)
     launches = {k: n - counts0[k] for k, n in read_counters().items()}
@@ -1574,6 +1618,7 @@ def _train(args: argparse.Namespace, mesh, t0: float) -> Dict[str, object]:
                        if device.type == "cuda" else None),
         "device": str(device),
         "cp_traffic": {k: v - traffic0[k] for k, v in CP_TRAFFIC.items()},
+        "rank": 0 if mesh is None else mesh.rank,
     }
     r = dict(mine, first_step_s=first_s, steady_s=dt, losses=losses,
              steps=args.steps, step=state.step, **{unit: rate})
@@ -1585,17 +1630,20 @@ def _train(args: argparse.Namespace, mesh, t0: float) -> Dict[str, object]:
         r["checkpoint"] = ckpt.report()
     if mesh is not None:
         r["mesh"] = dict(mesh.shape)
-        r["ranks"] = gather_objects(mine, mesh)
+        first = mesh.rank - mesh.local_rank
+        r["ranks"] = gather_objects(mine, mesh)[
+            first:first + mesh.local_size]
     return r
 
 
 def _train_rank(rank: int, args: argparse.Namespace, axes: dict,
-                store_path: str) -> None:
-    """Rank ``rank`` (> 0) of the training mesh: the same steps as rank
-    0, in lock-step through the collectives."""
+                gang: GangTable) -> None:
+    """Rank ``rank`` of the training mesh, started by its pod's first
+    rank: the same steps as every rank, in lock-step through the
+    collectives."""
     if args.device == "cpu":
         torch.set_num_threads(1)
-    mesh = join_training_mesh(args, axes, rank, store_path)
+    mesh = join_training_mesh(args, axes, rank, gang)
     try:
         _train(args, mesh, time.monotonic())
     finally:
@@ -1603,15 +1651,25 @@ def _train_rank(rank: int, args: argparse.Namespace, axes: dict,
 
 
 def join_training_mesh(args: argparse.Namespace, axes: dict, rank: int,
-                       store_path: str):
-    """Rank ``rank``'s ``(data, model)`` or ``(data, seq)`` mesh: NCCL
-    between cards, gloo on the CPU."""
+                       gang: GangTable, store=None):
+    """Rank ``rank``'s training mesh of ``axes`` over the pods of
+    ``gang`` (one on a host alone, :func:`_train_over_mesh`): the rank
+    meets the others at the gang's store (``store``, the one its pod's
+    first rank opened, else a new client), on its local device
+    (``cuda:i`` for its local rank i), over the backend every rank's
+    published device decides (:func:`gang_backend`: NCCL between cards,
+    gloo on the CPU or on a shared card)."""
     n = int(np.prod(list(axes.values())))
-    devices = tp_devices(args, n)
-    return device_mesh(axes, rank,
-                       backend="gloo" if args.device == "cpu" else "nccl",
-                       device=devices[rank], store=open_store(store_path, n),
-                       devices=tuple(devices))
+    local = n // gang.num_processes
+    devices = tp_devices(args, local)
+    device = resolve_device(devices[rank % local])
+    if store is None:
+        store = open_gang_store(gang, is_master=False)
+    backend = gang_backend(store, gang, rank, n, device)
+    return device_mesh(axes, rank, backend=backend, device=device,
+                       store=store,
+                       devices=tuple(devices) * gang.num_processes,
+                       local_size=local)
 
 
 def run_lm(args: argparse.Namespace,
@@ -1625,7 +1683,6 @@ def run_lm(args: argparse.Namespace,
     1..n-1 and is rank 0 itself; ``--model lm-cp`` always runs over its
     mesh, of one rank at one device."""
     t0 = time.monotonic() if t0 is None else t0
-    refuse_pod_gang()
     dp, width = training_mesh(args)
     cp = args.model == "lm-cp"
     if dp * width == 1 and not cp:
@@ -1641,7 +1698,6 @@ def run_resnet(args: argparse.Namespace,
     devices (:func:`training_devices`) on a ``{"data": n}`` mesh whose
     ranks 1..n-1 it starts, being rank 0 itself."""
     t0 = time.monotonic() if t0 is None else t0
-    refuse_pod_gang()
     n = training_devices(args)
     if n == 1:
         return _train(args, None, t0)
@@ -1654,7 +1710,6 @@ def run_moe(args: argparse.Namespace,
     measured, as :func:`run_lm`: at one device in this process, else
     over :func:`moe_mesh`'s mesh, whose ranks 1..n-1 it starts."""
     t0 = time.monotonic() if t0 is None else t0
-    refuse_pod_gang()
     axes = moe_mesh(args)
     if int(np.prod(list(axes.values()))) == 1:
         return _train(args, None, t0)
@@ -1668,7 +1723,6 @@ def run_pp(args: argparse.Namespace,
     a ``{"pipe": stages}`` mesh (:func:`pp_stages`) whose ranks 1..n-1
     it starts.  ``--ckpt-dir`` is ignored with a warning, as in JAX."""
     t0 = time.monotonic() if t0 is None else t0
-    refuse_pod_gang()
     if args.ckpt_dir:
         log.warning("--ckpt-dir is not supported for --model pp; ignoring")
     stages = pp_stages(args)
@@ -1679,19 +1733,32 @@ def run_pp(args: argparse.Namespace,
 
 def _train_over_mesh(args: argparse.Namespace, axes: dict,
                      t0: float) -> Dict[str, object]:
-    """Rank 0 of a training mesh of ``axes``: start ranks 1..n-1, print
-    ``TRAINING_MESH``, train, join the ranks (raising if one failed)."""
+    """This pod's half of a training mesh of ``axes``: in a gang of P
+    pods of L ranks (:func:`pod_gang`; a pod alone is a gang of one on
+    :func:`open_host_gang`'s store) rank pL, starting ranks
+    pL+1..pL+L-1 once every pod has said it holds L.  Prints
+    ``TRAINING_MESH``, trains, joins its ranks (raising if one
+    failed)."""
     cp = args.model == "lm-cp"
     size = int(np.prod(list(axes.values())))
-    tmp = tempfile.mkdtemp(prefix="kubegpu-train-")
-    store = os.path.join(tmp, "store")
-    procs = start_ranks(_train_rank, range(1, size), args, axes, store)
+    gang = pod_gang()
+    if gang is None:
+        store, gang = open_host_gang()
+    else:
+        store = open_gang_store(gang, is_master=gang.process_id == 0)
+    local = size // gang.num_processes
+    first = gang.process_id * local
+    check_local_counts(store, gang, local)
+    procs = start_ranks(_train_rank, range(first + 1, first + local), args,
+                        axes, gang)
     # a MoE mesh without tensor parallelism still names its model width
     shown = (dict(axes, model=1) if args.model == "moe"
              and "model" not in axes else axes)
     try:
-        mesh = join_training_mesh(args, axes, 0, store)
+        mesh = join_training_mesh(args, axes, first, gang, store)
         print("TRAINING_MESH " + " ".join(f"{k}={v}" for k, v in shown.items())
+              + ("" if gang.num_processes == 1 else
+                 f" process={gang.process_id}/{gang.num_processes}")
               + " devices=" + ",".join(mesh.devices)
               + f" backend={mesh.backend}"
               + (f" attn_impl={cp_attn_impl(args)}" if cp else ""),
@@ -1702,10 +1769,9 @@ def _train_over_mesh(args: argparse.Namespace, axes: dict,
             close_mesh(mesh)
     finally:
         codes = join_ranks(procs)
-        shutil.rmtree(tmp, ignore_errors=True)
     if any(codes):
-        raise RuntimeError(f"training ranks 1..{len(codes)} exited with "
-                           f"{codes}")
+        raise RuntimeError(f"training ranks {first + 1}..{first + local - 1}"
+                           f" exited with {codes}")
     return r
 
 
@@ -1739,10 +1805,11 @@ def main(argv: Optional[List[str]] = None) -> int:
 
 def report_lm(r: Dict[str, object]) -> None:
     """The launch and peak-memory lines of a training run: rank 0's,
-    or over a mesh each rank's, marked ``rank=r``."""
+    or over a mesh each of the pod's ranks', marked ``rank=r`` (its
+    global rank)."""
     ranks = r.get("ranks") or [r]
-    for rank, mine in enumerate(ranks):
-        tag = f" rank={rank}" if "ranks" in r else ""
+    for mine in ranks:
+        tag = f" rank={mine['rank']}" if "ranks" in r else ""
         for name, fn, key in (("K3", flash_forward, "k3_launches"),
                               ("K4", flash_backward_dkdv, "k4_launches"),
                               ("K5", flash_backward_dq, "k5_launches"),
@@ -1769,10 +1836,11 @@ def report_lm(r: Dict[str, object]) -> None:
 def report_resnet(r: Dict[str, object]) -> None:
     """The launch and peak-memory lines of a ResNet run: every kernel of
     the port by ID (none is on this path, so every count is 0), then the
-    peak memory; over a mesh each rank's, marked ``rank=r``."""
+    peak memory; over a mesh each of the pod's ranks', marked ``rank=r``
+    (its global rank)."""
     ranks = r.get("ranks") or [r]
-    for rank, mine in enumerate(ranks):
-        tag = f" rank={rank}" if "ranks" in r else ""
+    for mine in ranks:
+        tag = f" rank={mine['rank']}" if "ranks" in r else ""
         print("KERNEL_LAUNCHES "
               + " ".join(f"{k}={v}" for k, v in mine["launches"].items())
               + f" model={r['model']} device={mine['device']}{tag}",

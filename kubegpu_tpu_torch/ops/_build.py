@@ -7,8 +7,10 @@ root of the checkout.  A library's file name carries a hash of its
 source and flags, so an edited kernel is rebuilt and a fresh checkout
 builds everything on its first call; the shared headers (``csrc/*.cuh``)
 count in every library's hash.  :func:`build` starts one ``nvcc``
-per missing library, all at once, and waits for them; a failed build
-raises with the compiler's output.  Nothing is built or imported when
+per missing library, all at once, and waits for them; each splits its
+device code's optimisation over the host's cores (``--split-compile``,
+CUDA 12.1 and later), which leaves every kernel's registers as they
+were.  A failed build raises with the compiler's output.  Nothing is built or imported when
 this module is imported.
 """
 
@@ -19,6 +21,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import time
 from pathlib import Path
 from typing import Callable, Dict, List, Optional, Sequence
 
@@ -26,7 +29,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kubegpu_tpu_torch"
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "--split-compile=0",
 ]
 
 # name -> (source file under csrc, ctypes declarations)
@@ -35,6 +38,8 @@ _LOADED: Dict[str, ctypes.CDLL] = {}
 # name -> the compiler's output of this process's build (ptxas
 # registers / shared memory / spills per kernel)
 BUILD_LOG: Dict[str, str] = {}
+# name -> seconds from this process's start of its nvcc to its end
+BUILD_SECONDS: Dict[str, float] = {}
 
 
 def register(name: str, source: str,
@@ -78,14 +83,15 @@ def build(names: Optional[Sequence[str]] = None) -> Dict[str, Path]:
             tmp = targets[n].with_suffix(f".{os.getpid()}.tmp")
             cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp),
                    str(CSRC / _KERNELS[n][0])]
-            procs.append((n, tmp, subprocess.Popen(
+            procs.append((n, tmp, time.monotonic(), subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                 text=True,
             )))
         failed = []
-        for n, tmp, proc in procs:
+        for n, tmp, t0, proc in procs:
             log, _ = proc.communicate()
             BUILD_LOG[n] = log
+            BUILD_SECONDS[n] = time.monotonic() - t0
             if proc.returncode != 0:
                 failed.append(f"{n} (nvcc exit {proc.returncode}):\n{log}")
                 continue

@@ -5,9 +5,18 @@
   tests and the card smoke start one gang and run their cases in it.
 - :func:`start_ranks` starts chosen ranks of a mesh whose other ranks
   live elsewhere: the worker is rank 0 itself and starts the rest.
+- :func:`open_gang_store`, :func:`check_local_counts` and
+  :func:`gang_backend` join the ranks of a gang of pods: every pod
+  starts its own ranks, and all of them meet at the coordinator the
+  shim's env names (``mesh.distributed_init_from_env``), or, for a pod
+  that trains alone, at :func:`open_host_gang`'s store.
 
-Ranks meet through a ``FileStore`` in a directory the caller gives (a
-test's temporary directory), never a fixed TCP port.  Children are
+A :class:`Gang` meets through a ``FileStore`` in a directory the caller
+gives (a test's temporary directory), never a fixed TCP port.  A gang
+of pods meets through a ``TCPStore`` at the coordinator's address,
+served by process 0's first rank, and a pod alone through one on a
+loopback port the system picks; every wait there is bounded by the
+gang table's ``timeout_s``.  Children are
 started with ``spawn``, set one CPU thread each and run functions that
 their modules must import without JAX.  Nothing waits without end: a
 gang's call fails when a rank raises, dies or does not answer within
@@ -22,17 +31,99 @@ import os
 import queue
 import time
 import traceback
+from datetime import timedelta
 from typing import Callable, List, Mapping, Optional, Sequence, Union
 
 import torch
 import torch.distributed as dist
 
-from kubegpu_tpu_torch.parallel.mesh import close_mesh, device_mesh
+from kubegpu_tpu_torch.parallel.mesh import (
+    RENDEZVOUS_TIMEOUT_S,
+    GangTable,
+    close_mesh,
+    device_mesh,
+)
+
+GANG_PREFIX = "kubegpu/gang/"
 
 
 def open_store(path: str, size: int):
     """The rendezvous store of a ``size``-rank mesh at ``path``."""
     return dist.FileStore(path, size)
+
+
+def open_gang_store(table: GangTable, *, is_master: bool):
+    """The store of a gang of pods at the coordinator's address: served
+    (``is_master``) by process 0's first rank, joined as a client by
+    every other rank of every pod, a client retrying its connection for
+    up to ``table.timeout_s``."""
+    return dist.TCPStore(table.host, table.port, is_master=is_master,
+                         timeout=timedelta(seconds=table.timeout_s),
+                         wait_for_workers=False)
+
+
+def open_host_gang(timeout_s: float = RENDEZVOUS_TIMEOUT_S):
+    """A pod that trains alone as a gang of one: a ``TCPStore`` served on
+    a loopback port the system picks (none is fixed), and its table.
+    Returns ``(store, table)``."""
+    store = dist.TCPStore("127.0.0.1", 0, is_master=True,
+                          timeout=timedelta(seconds=timeout_s),
+                          wait_for_workers=False)
+    return store, GangTable(host="127.0.0.1", port=store.port,
+                            num_processes=1, process_id=0,
+                            timeout_s=float(timeout_s))
+
+
+def _wait(store, keys: List[str], table: GangTable, what: str) -> None:
+    try:
+        store.wait(keys, timedelta(seconds=table.timeout_s))
+    except Exception as e:  # noqa: BLE001 - the store's timeout error
+        missing = [k for k in keys if not store.check([k])]
+        raise RuntimeError(
+            f"gang rendezvous at {table.host}:{table.port}: {what} did not "
+            f"arrive within {table.timeout_s} s (missing {missing})") from e
+
+
+def check_local_counts(store, table: GangTable, local: int) -> None:
+    """Publish this pod's rank count ``local`` and wait for every pod's:
+    the world is ``num_processes x local`` only if every pod holds as
+    many ranks, so a pod that differs makes every pod raise, naming both
+    counts.  Each pod's first rank calls it before starting its other
+    ranks."""
+    store.set(f"{GANG_PREFIX}local/{table.process_id}", str(int(local)))
+    keys = [f"{GANG_PREFIX}local/{p}" for p in range(table.num_processes)]
+    _wait(store, keys, table, "every pod's rank count")
+    counts = [int(store.get(k)) for k in keys]
+    for p, n in enumerate(counts):
+        if n != local:
+            raise RuntimeError(
+                f"gang of {table.num_processes} pods: process "
+                f"{table.process_id} holds {local} rank(s) and process {p} "
+                f"holds {n}; every pod must hold as many ({counts})")
+
+
+def device_identity(device: torch.device) -> str:
+    """What a rank publishes of its device: the card's UUID, or "cpu"."""
+    if device.type != "cuda":
+        return "cpu"
+    return "cuda:" + str(torch.cuda.get_device_properties(device).uuid)
+
+
+def gang_backend(store, table: GangTable, rank: int, size: int,
+                 device: torch.device) -> str:
+    """The backend of a gang's world, the same on every rank because it
+    comes from what every rank publishes: its device's identity
+    (:func:`device_identity`).  NCCL when every rank has a card of its
+    own, gloo when any rank is on the CPU or two share a card (NCCL
+    refuses two ranks on one GPU).  Nothing is tried and fallen back
+    from."""
+    store.set(f"{GANG_PREFIX}device/{rank}", device_identity(device))
+    keys = [f"{GANG_PREFIX}device/{r}" for r in range(size)]
+    _wait(store, keys, table, "every rank's device")
+    ids = [store.get(k).decode() for k in keys]
+    cards = [i for i in ids if i.startswith("cuda:")]
+    return ("nccl" if len(cards) == size and len(set(cards)) == size
+            else "gloo")
 
 
 def _rank_main(rank: int, axes, backend: str, devices: Sequence[str],

@@ -1,5 +1,5 @@
-"""The process mesh: the port of ``device_mesh``
-(``kubegpu_tpu/parallel/mesh.py``) for the ``"model"`` mesh of
+"""The process mesh: the port of ``distributed_init_from_env`` and
+``device_mesh`` (``kubegpu_tpu/parallel/mesh.py``) for the ``"model"`` mesh of
 tensor-parallel serving, the ``("data", "model")`` mesh of data x
 tensor-parallel training, the ``("data", "seq")`` mesh of
 context-parallel training, the ``("data", "expert"[, "model"])`` mesh
@@ -24,13 +24,22 @@ The caller chooses the backend: NCCL for ranks on distinct cards, gloo
 on the CPU, and gloo for ranks that share one card (NCCL refuses two
 ranks on one GPU).  Nothing is chosen by probing.  The mesh is built
 from an explicit group and device, not through ``init_device_mesh``,
-which sets each rank's device from its local rank."""
+which sets each rank's device from its local rank.
+
+A pod that the CRI shim makes one of a gang of pods reads its place in
+the gang from the injected ``JAX_*`` env (:func:`distributed_init_from_env`,
+a :class:`GangTable`); its ranks then join the other pods' in one
+world through the coordinator's store (``parallel/launch.py``), global
+rank ``process_id x L + i`` for its local rank i of L, the process-major
+device order of JAX's gang.  ``Mesh.local_size`` records L."""
 
 from __future__ import annotations
 
 from dataclasses import dataclass, field
 from datetime import timedelta
 from typing import Dict, Mapping, Optional, Tuple, Union
+
+import os
 
 import numpy as np
 import torch
@@ -44,6 +53,58 @@ SEQ_AXIS = "seq"
 EXPERT_AXIS = "expert"
 PIPE_AXIS = "pipe"
 BACKENDS = ("nccl", "gloo")
+# the longest any wait of a gang's rendezvous lasts by default: a pod
+# that never arrives makes the others fail after it
+RENDEZVOUS_TIMEOUT_S = 300.0
+
+
+@dataclass(frozen=True)
+class GangTable:
+    """One pod's place in a gang of pods, from the shim's env: the
+    coordinator's ``host`` and ``port`` (where process 0 serves the
+    gang's store), the number of processes (pods) and this one's id;
+    ``timeout_s`` bounds every wait of the rendezvous."""
+
+    host: str
+    port: int
+    num_processes: int
+    process_id: int
+    timeout_s: float = RENDEZVOUS_TIMEOUT_S
+
+
+def distributed_init_from_env(env: Optional[Mapping[str, str]] = None, *,
+                              timeout_s: float = RENDEZVOUS_TIMEOUT_S
+                              ) -> Optional[GangTable]:
+    """The gang this process is one of, read from the injected rendezvous
+    env (``kubegpu_tpu/crishim/inject.py::worker_env``), as the JAX
+    function reads it: None when the job runs alone (no
+    ``JAX_COORDINATOR_ADDRESS``, or ``JAX_NUM_PROCESSES`` <= 1, or a
+    mangled process table without a coordinator), a :class:`GangTable`
+    otherwise.  The process id is ``JAX_PROCESS_ID``, else
+    ``TPU_WORKER_ID``, as the JAX worker reads it.  With a coordinator
+    set, a mangled ``JAX_NUM_PROCESSES``/``JAX_PROCESS_ID`` raises
+    ValueError: running alone would leave the other pods waiting at the
+    rendezvous.  Joining the gang is ``parallel/launch.py``'s."""
+    env = dict(os.environ if env is None else env)
+    coord = env.get("JAX_COORDINATOR_ADDRESS")
+    try:
+        n = int(env.get("JAX_NUM_PROCESSES", "1"))
+        pid = int(env.get("JAX_PROCESS_ID", env.get("TPU_WORKER_ID", "0")))
+    except ValueError as e:
+        if coord:
+            raise ValueError(
+                f"malformed JAX_NUM_PROCESSES/JAX_PROCESS_ID with "
+                f"JAX_COORDINATOR_ADDRESS={coord!r} set") from e
+        return None
+    if not coord or n <= 1:
+        return None
+    host, sep, port = coord.rpartition(":")
+    if not sep or not host or not port.isdigit():
+        raise ValueError(f"JAX_COORDINATOR_ADDRESS={coord!r}: host:port")
+    if not 0 <= pid < n:
+        raise ValueError(f"JAX_PROCESS_ID={pid} outside a gang of {n}")
+    return GangTable(host=host, port=int(port), num_processes=n,
+                     process_id=pid, timeout_s=float(timeout_s))
 
 
 @dataclass
@@ -53,7 +114,9 @@ class Mesh:
     axis of ``size``).  ``group`` carries the ``"model"`` axis's tensor
     collectives (its backend is ``backend``), ``axis_groups`` every
     axis's group of this rank, ``control`` the host objects (always
-    gloo), ``device`` is where this rank's tensors live."""
+    gloo), ``device`` is where this rank's tensors live.  ``local_size``
+    is the number of ranks in this rank's pod (default ``size``: one
+    host holds them all)."""
 
     size: int
     rank: int
@@ -65,6 +128,16 @@ class Mesh:
     devices: Tuple[str, ...] = field(default_factory=tuple)
     axis_sizes: Tuple[int, ...] = ()
     axis_groups: Dict[str, object] = field(default_factory=dict)
+    local_size: Optional[int] = None
+
+    def __post_init__(self) -> None:
+        if self.local_size is None:
+            self.local_size = self.size
+
+    @property
+    def local_rank(self) -> int:
+        """This rank's index among its pod's ranks."""
+        return self.rank % self.local_size
 
     @property
     def shape(self) -> dict:
@@ -136,7 +209,8 @@ def _axis_lines(axes: Mapping[str, int], axis: str):
 def device_mesh(axes: Union[int, Mapping[str, int]], rank: int, *,
                 backend: str, device, store, timeout_s: float = 300.0,
                 idle_timeout_s: Optional[float] = None,
-                devices: Tuple[str, ...] = ()) -> Mesh:
+                devices: Tuple[str, ...] = (),
+                local_size: Optional[int] = None) -> Mesh:
     """Join the process group of ``axes`` (a mapping of axis name to
     width, e.g. ``{"data": 2, "model": 2}``, or an int: a one-axis
     ``"model"`` mesh of that many ranks) as ``rank`` through ``store``
@@ -145,7 +219,8 @@ def device_mesh(axes: Union[int, Mapping[str, int]], rank: int, *,
     bounds every collective of the tensors; ``idle_timeout_s`` (default
     the same) bounds the wait of a rank that replays rank 0's calls, so a
     server that idles longer needs a longer one.  ``devices`` names every
-    rank's device, for the record.
+    rank's device, for the record; ``local_size`` is the ranks a pod of a
+    gang holds (default: all of them, on one host).
 
     On a mesh of more than one axis every rank creates every axis's
     groups, its own and the others', in one order
@@ -181,7 +256,7 @@ def device_mesh(axes: Union[int, Mapping[str, int]], rank: int, *,
                 group=group, control=control, axis_names=tuple(axes),
                 devices=tuple(devices),
                 axis_sizes=tuple(axes.values()) if len(axes) > 1 else (),
-                axis_groups=groups)
+                axis_groups=groups, local_size=local_size)
 
 
 def close_mesh(mesh: Mesh) -> None:

@@ -1,8 +1,8 @@
 """The port stands alone: no module of kubegpu_tpu_torch, not
 chip_smoke.py and not the rank bodies of the gangs
 (tests/torch_tp_cases.py, tests/torch_resnet_cases.py,
-tests/torch_moe_cases.py, tests/torch_pp_cases.py, whose processes must
-run without JAX) imports
+tests/torch_moe_cases.py, tests/torch_pp_cases.py, and the pods of
+tests/torch_gang_cases.py, whose processes must run without JAX) imports
 jax, flax, orbax or the JAX package, nor the Orbax converter
 (tools/orbax_to_torch_checkpoint.py); its entry points run on the card
 unless the caller asks for the CPU."""
@@ -22,6 +22,7 @@ TP_CASES = os.path.join(REPO, "tests", "torch_tp_cases.py")
 RESNET_CASES = os.path.join(REPO, "tests", "torch_resnet_cases.py")
 MOE_CASES = os.path.join(REPO, "tests", "torch_moe_cases.py")
 PP_CASES = os.path.join(REPO, "tests", "torch_pp_cases.py")
+GANG_CASES = os.path.join(REPO, "tests", "torch_gang_cases.py")
 FORBIDDEN_ROOTS = ("jax", "jaxlib", "flax", "orbax", "kubegpu_tpu",
                    "orbax_to_torch_checkpoint", "tools")
 
@@ -36,6 +37,7 @@ def port_sources():
     yield RESNET_CASES
     yield MOE_CASES
     yield PP_CASES
+    yield GANG_CASES
 
 
 def test_importing_every_module_leaves_jax_out():
@@ -50,6 +52,7 @@ def test_importing_every_module_leaves_jax_out():
         "import torch_resnet_cases\n"
         "import torch_moe_cases\n"
         "import torch_pp_cases\n"
+        "import torch_gang_cases\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         f"{FORBIDDEN_ROOTS!r})\n"
         "print(len(names), bad)\n"

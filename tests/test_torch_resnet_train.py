@@ -286,11 +286,18 @@ def test_resnet50_is_the_default_model():
     ["--model", "lm", "--steps", "1"],
 ], ids=["resnet50", "resnet-tiny-dp2", "lm"])
 def test_training_refuses_a_gang_of_pods(monkeypatch, argv):
-    """The shim's env for one pod of a 4-pod gang: the port's mesh spans
-    one host's devices and cannot join other pods, so the training modes
-    refuse rather than train one pod alone as if it were the gang."""
-    monkeypatch.setenv("JAX_NUM_PROCESSES", "4")
+    """A training pod joins its gang from the shim's env (tests/
+    test_torch_gang.py), but refuses a table it cannot join, where the
+    JAX worker's rendezvous fails too: a ``JAX_NUM_PROCESSES`` that is
+    not a count, and a count above 1 with no coordinator to meet at."""
+    monkeypatch.setenv("JAX_NUM_PROCESSES", "four")
     monkeypatch.setenv("JAX_PROCESS_ID", "1")
     monkeypatch.setenv("JAX_COORDINATOR_ADDRESS", "localhost:8476")
-    with pytest.raises(SystemExit, match="JAX_NUM_PROCESSES=4.*item 9"):
+    with pytest.raises(SystemExit, match="JAX_NUM_PROCESSES='four' is not "
+                       "a count"):
+        worker.main(argv + ["--device", "cpu"])
+    monkeypatch.setenv("JAX_NUM_PROCESSES", "4")
+    monkeypatch.delenv("JAX_COORDINATOR_ADDRESS")
+    with pytest.raises(SystemExit, match="JAX_NUM_PROCESSES=4 with no "
+                       "JAX_COORDINATOR_ADDRESS"):
         worker.main(argv + ["--device", "cpu"])
