@@ -4,12 +4,17 @@
     python3 chip_smoke.py [--group all|serving|training|gang]
 
 Builds every kernel of the port's serving and training paths from the
-sources in the checkout, then runs sixty-five phases; any failure
+sources in the checkout, then runs sixty-eight phases; any failure
 exits non-zero.  ``--group`` (default ``all``, every phase in the order
-below, as a bare call runs them) runs phases 1 and the build, then only
-the serving phases (2-7, 11-40), the training phases (8-10, 41-63) or
-the gang phases (64-65), and prints no per-kernel record; each phase's
-seconds are printed after it as ``[phase_name N s]``:
+below, but 66-68, which run right after 50 in the gangs of 49-50, and
+55-57, 59, 61 and 63, which run after 62 beside the gangs they share,
+so that 53-54, 58, 60 and 62 time the card with no other process on
+it; a bare call runs them so) runs phases 1 and the build, then only
+the serving phases (2-7, 11-40), the training phases (8-10, 41-63,
+66-68) or the gang phases (64-65), and prints no per-kernel record;
+each phase's seconds are printed after it as ``[phase_name N s]``.
+Gangs of ranks boot while other work runs (``Gang.start()``), and one
+gang serves several meshes by laying its world out anew (``remesh``):
 
 1. device: the card's name and power limit, TF32 off;
 2. K1 (paged decode attention, ``ops/csrc/paged_attention.cu``: the
@@ -324,7 +329,7 @@ seconds are printed after it as ``[phase_name N s]``:
 51. the worker's ``--model lm-cp --cp 2``: refused on a one-card machine,
    NCCL reported as not exercised (with two cards or more, three small
    steps over NCCL); then ``samples/jax-lm-cp.yaml``'s argv at ``--cp
-   1`` (the worker's default widths, seq 8192, 8 windows, 3 steps) in a
+   1`` (the worker's default widths, seq 8192, 8 windows, 2 steps) in a
    subprocess: K3, K4, K5 and the pre-pass launched steps x layers times.
 
 52. ResNet data-parallel training (no kernel of the port is on its
@@ -335,21 +340,21 @@ seconds are printed after it as ``[phase_name N s]``:
    fresh tree, at 32 px and at an odd 37 px: losses within rtol 1e-4,
    the first step's gradients within rtol=atol 1e-4 and its new
    ``batch_stats`` within 1e-5;
-53. ``samples/jax-resnet.yaml``'s worker command at ``--steps 30``
+53. ``samples/jax-resnet.yaml``'s worker command at ``--steps 15``
    instead of its 100 (no ``--model``: the default, the scan-rolled ResNet-50, batch 32, 224
    px, 1000 classes), through the port's entry point in a subprocess:
    ``FIRST_STEP_DONE`` (the worker's seconds from its start, and this
    phase's from the spawn), steady images/s, peak memory, every kernel
    count 0; cuDNN autotuning is PyTorch's default, off, and the worker
    sets nothing.  Then what a window's length does to that rate: the
-   same model and batches (the worker's builder) stepped 60 times in
+   same model and batches (the worker's builder) stepped 40 times in
    this process with no sync between steps, as the worker steps them:
-   images/s on the device's clock over steps 2-30 (this phase's window),
-   31-60 and 2-60; then 5 more steps profiled: the device's busy ms a
-   step against a step of 2-60, and its idle share;
+   images/s on the device's clock over steps 2-20, 21-40 and 2-40; then
+   5 more steps profiled: the device's busy ms a step against a step of
+   2-40, and its idle share;
 54. the reference's steady state (``bench.py`` ``steady_state_resnet``):
    the unrolled ResNet-50 at batch 256 on a device pool of 3 synthetic
-   batches, 5 warm-up and 30 timed steps: ms a step, images/s, and the
+   batches, 5 warm-up and 15 timed steps: ms a step, images/s, and the
    share of the card's dense bf16 peak (989 TFLOP/s) that the convs' and
    head's FLOPs (3 x the forward's 2 x MACs, counted from their shapes)
    make; then the same with cuDNN autotuning on (its first step and its
@@ -397,7 +402,7 @@ seconds are printed after it as ``[phase_name N s]``:
    within 1e-4; the bench width at ep 2 (two ranks, two experts each):
    the first bf16 loss within 1e-2 of phase 58's default row, each
    rank's expert bytes half of the whole, seconds a step;
-60. the worker's ``--model moe --num-experts 4 --steps 20`` at its
+60. the worker's ``--model moe --num-experts 4 --steps 10`` at its
    defaults (vocab 32000, hidden 512, 8 heads, 4 layers, seq 1024, b32,
    einsum attention) and with ``--moe-router top2 --moe-dispatch
    gather``: ``FIRST_STEP_DONE``, tokens/s, the router's line, no flash
@@ -427,7 +432,7 @@ seconds are printed after it as ``[phase_name N s]``:
 
 64. ``samples/jax-resnet.yaml``'s gang on the card: 4 pods as OS
    processes, each the sample's worker command (the default ResNet-50,
-   batch 32 a pod, 224 px, 1000 classes) at ``--steps 5`` instead of
+   batch 32 a pod, 224 px, 1000 classes) at ``--steps 3`` instead of
    100, with exactly the shim's rendezvous env (``worker_env``'s five
    variables, the coordinator on 127.0.0.1) and ``CUDA_VISIBLE_DEVICES``
    0: one world of 4 ranks on ``cuda:0`` over gloo (host-staged: no time
@@ -447,7 +452,34 @@ seconds are printed after it as ``[phase_name N s]``:
    of the same gang on the CPU (one process, ``--device cpu --cpu-ranks
    2``), and each pod's K3, K4 and K5 launched steps x layers times (its
    float32 instantiation; no pre-pass at float32), the per-kernel
-   record's ``gang_launches``.
+   record's ``gang_launches``;
+66. data x tensor x context parallelism: phase 49's small float32 model
+   in a gloo gang of eight ranks on the card over ``{"data": 2, "model":
+   2, "seq": 2}`` (``tests/torch_3d_cases.py``), ring through its flash
+   body and Ulysses, each rank on its 2 of the 4 heads: one step's loss
+   and every gradient leaf, gathered whole, within rtol=atol 1e-4 of the
+   card's one-device flash step on the same global batch, and each rank's
+   K3, K4 and K5 launches as ``cp_want_launches`` gives them by its "seq"
+   coordinate (the per-kernel record's ``cp3d_small_launches`` and
+   ``cp3d_small_ulysses_launches``);
+67. the flagship at full width over ``{"data": 1, "model": 2, "seq":
+   2}`` in a four-rank gang on the card, seq 8192, batch 1, one step of
+   ring and one of Ulysses (16 of the 32 heads a rank): finite losses,
+   the first within 1e-2 of phase 50's one-device loss, each rank's
+   launches as phase 50's (the per-kernel record's ``cp3d_launches`` and
+   ``cp3d_ulysses_launches``), its peak memory and seconds (host-staged
+   gloo: not a speed);
+68. ZeRO-1 (``parallel/zero.py``) at the flagship's width, dp 2 in a
+   two-rank gang on the card, adam, seq 1024, b 2 a rank: two steps with
+   replicated moments, then two with ZeRO-1 from the same weights: finite
+   losses, every step's equal within 1e-4 and each parameter's
+   position-weighted checksum after the last update within 1e-6 of its
+   weighted magnitude (the host-staged reduce-scatter, the sliced adam
+   step and the all-gather on the card), every parameter's moments cut
+   over "data" (``state_bytes_per_device``: 4,312,055,812 B of optimizer
+   state a rank against 8,624,111,620), K3, K4, K5 and the pre-pass
+   launched steps x layers times a rank (``zero1_launches``), each rank's
+   peak device memory in both runs.
 
 Phases 29-34, 53-54, 60, 61-63 and 64 set every kernel's launch count to 0
 before each run and require it to be 0 after: the dense paths, the
@@ -461,6 +493,7 @@ exits non-zero and prints no result.
 """
 
 import argparse
+import contextlib
 import functools
 import json
 import shutil
@@ -3840,6 +3873,7 @@ def train_gang(tmp: str, device: str):
     through the host."""
     from kubegpu_tpu_torch.parallel.launch import Gang
 
+    tp_cases()   # tests/ on the path before the ranks inherit it
     dev = "cuda:0" if device == "cuda" else device
     return Gang(TRAIN_AXES, tmp, backend="gloo", devices=[dev] * 4,
                 timeout_s=900.0)
@@ -4067,8 +4101,9 @@ def phase_tp_train(device: str = "cuda", small: dict = TRAIN_SMALL,
     mesh half runs in the same gang."""
     import tempfile
 
+    # the gang boots beside phase 42's one-device steps
     with train_gang(tempfile.mkdtemp(prefix="chip-smoke-train-"),
-                    device) as gang:
+                    device).start() as gang:
         t0 = time.monotonic()
         phase_tp_train_small(gang, device, small)
         log(f"train small phase {time.monotonic() - t0:.1f} s (the gang's "
@@ -4428,11 +4463,11 @@ CP_FLAGSHIP = dict(vocab_size=32768, num_layers=4, num_heads=32,
 # one step of each attention; the steady step is the one timed in parts
 # after it
 CP_FLAGSHIP_RUN = dict(seq=8192, batch=1, steps=1)
-# samples/jax-lm-cp.yaml's argv at --cp 1 and 3 steps, at the worker's
+# samples/jax-lm-cp.yaml's argv at --cp 1 and 2 steps, at the worker's
 # default widths; --batch-per-chip 8 holds the sample's tokens a chip
 # (its default 32 rows x 8192 / 4)
 CP_SAMPLE_ARGV = ["--model", "lm-cp", "--cp", "1", "--seq", "8192",
-                  "--attn-impl", "ring", "--steps", "3",
+                  "--attn-impl", "ring", "--steps", "2",
                   "--batch-per-chip", "8"]
 
 
@@ -4446,13 +4481,15 @@ def cp_cases():
 
 
 def cp_gang(axes: dict, tmp: str, device: str):
-    """The ranks of a ("data", "seq") mesh on the one card over gloo: the
-    ring's hops and the all-to-alls are staged through pinned host
-    buffers, the other collectives through gloo's own host copies."""
+    """The ranks of a mesh of ``axes`` on the one card over gloo: the
+    ring's hops, the all-to-alls and ZeRO-1's reduce-scatters are staged
+    through pinned host buffers, the other collectives through gloo's
+    own host copies."""
     import math
 
     from kubegpu_tpu_torch.parallel.launch import Gang
 
+    tp_cases()   # tests/ on the path before the ranks inherit it
     dev = "cuda:0" if device == "cuda" else device
     return Gang(axes, tmp, backend="gloo",
                 devices=[dev] * math.prod(axes.values()), timeout_s=900.0)
@@ -4527,10 +4564,19 @@ def cp_want_launches(impl: str, seq_coord: int, layers: int, steps: int,
                 flash_backward_delta=layers * steps if bf16 and n else 0)
 
 
+def shared_gang(gang, axes: dict, device: str, prefix: str):
+    """``gang`` as it is (its owner closes it), else a new ``cp_gang`` of
+    ``axes`` closed after the ``with``."""
+    if gang is not None:
+        return contextlib.nullcontext(gang)
+    return cp_gang(axes, tempfile.mkdtemp(prefix=prefix), device)
+
+
 def phase_cp_small(device: str = "cuda", cfg: dict = CP_SMALL,
-                   seqs: dict = CP_SMALL_SEQS) -> None:
+                   seqs: dict = CP_SMALL_SEQS, gangs=(None, None)) -> None:
     """Phase 49: phase 10's small float32 model in gloo gangs on the card
-    at cp 2 (two ranks) and dp 2 x cp 2 (four): ring through its flash
+    at cp 2 (two ranks) and dp 2 x cp 2 (four; ``gangs`` of two and four
+    ranks, else its own): ring through its flash
     body, ring through its einsum body (136 rows a rank), Ulysses, and
     ring with remat: one step's loss and every gradient leaf within
     rtol=atol 1e-4 of the card's one-device flash step on the same
@@ -4565,14 +4611,14 @@ def phase_cp_small(device: str = "cuda", cfg: dict = CP_SMALL,
     runs = (("ring", "flash", False), ("ring", "einsum", False),
             ("ulysses", "flash", False), ("ring", "flash", True))
     layers = cfg["num_layers"]
-    for axes in ({"data": 1, "seq": CP}, {"data": 2, "seq": CP}):
+    for axes, shared in zip(({"data": 1, "seq": CP}, {"data": 2, "seq": CP}),
+                            gangs):
         t0 = time.monotonic()
-        with cp_gang(axes, tempfile.mkdtemp(prefix="chip-smoke-cp-"),
-                     device) as gang:
+        with shared_gang(shared, axes, device, "chip-smoke-cp-") as gang:
             for impl, body, remat in runs:
                 got = gang.run(cases.cp_grads, dict(
                     params=np_params, cfg=cfg, tokens=[batches[body]],
-                    model=dict(attn_impl=impl, remat=remat)))
+                    axes=axes, model=dict(attn_impl=impl, remat=remat)))
                 loss, grads = ref[body]
                 np.testing.assert_allclose(got["loss"], loss, rtol=TRAIN_TOL,
                                            atol=TRAIN_TOL)
@@ -4592,8 +4638,34 @@ def phase_cp_small(device: str = "cuda", cfg: dict = CP_SMALL,
         log(f"cp small gang {axes}: {time.monotonic() - t0:.1f} s")
 
 
+def flagship_first_loss(cfg: dict, run: dict, device: str) -> float:
+    """One device's loss (bf16 compute, flash attention, weights from seed
+    0 drawn on ``device``) on the first ``synthetic_token_batches`` batch
+    of shard 0 at ``run``'s batch and seq: the first loss of a gang whose
+    single data shard draws the same rows; the model is freed after."""
+    import torch
+
+    from kubegpu_tpu_torch.models.data import synthetic_token_batches
+    from kubegpu_tpu_torch.models.params import init_params
+    from kubegpu_tpu_torch.models.train import create_train_state, lm_loss
+    from kubegpu_tpu_torch.models.transformer import TransformerLM
+
+    tokens = next(synthetic_token_batches(run["batch"], run["seq"] + 1,
+                                          cfg["vocab_size"], shard=0))
+    model = TransformerLM(dtype=torch.bfloat16, attn_impl="flash", **cfg)
+    gen = torch.Generator(device=device).manual_seed(0)
+    state = create_train_state(model, init_params(cfg, gen, torch.float32,
+                                                  device))
+    with torch.no_grad():
+        ref = lm_loss(state.model, torch.from_numpy(tokens).to(device)).item()
+    del state, model
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    return ref
+
+
 def phase_cp_flagship(device: str = "cuda", cfg: dict = CP_FLAGSHIP,
-                      run: dict = CP_FLAGSHIP_RUN) -> dict:
+                      run: dict = CP_FLAGSHIP_RUN, gang=None) -> dict:
     """Phase 50: the flagship at full width (bf16 compute over float32
     weights) at cp 2 in a two-rank gloo gang on the card, seq 8192,
     batch 1: one step with ring attention, then one with Ulysses, on
@@ -4607,35 +4679,20 @@ def phase_cp_flagship(device: str = "cuda", cfg: dict = CP_FLAGSHIP,
 
     import torch
 
-    from kubegpu_tpu_torch.models.data import synthetic_token_batches
-    from kubegpu_tpu_torch.models.params import init_params
-    from kubegpu_tpu_torch.models.train import create_train_state, lm_loss
-    from kubegpu_tpu_torch.models.transformer import TransformerLM
-
     cases = cp_cases()
     seq, batch, steps = run["seq"], run["batch"], run["steps"]
-    tokens = next(synthetic_token_batches(batch, seq + 1, cfg["vocab_size"],
-                                          shard=0))
-    model = TransformerLM(dtype=torch.bfloat16, attn_impl="flash", **cfg)
-    gen = torch.Generator(device=device).manual_seed(0)
-    state = create_train_state(model, init_params(cfg, gen, torch.float32,
-                                                  device))
-    with torch.no_grad():
-        ref = lm_loss(state.model, torch.from_numpy(tokens).to(device)).item()
-    del state, model
-    if device == "cuda":
-        torch.cuda.empty_cache()
+    ref = flagship_first_loss(cfg, run, device)
     layers = cfg["num_layers"]
     out = {}
-    with cp_gang({"data": 1, "seq": CP},
-                 tempfile.mkdtemp(prefix="chip-smoke-cp-flagship-"),
-                 device) as gang:
+    axes = {"data": 1, "seq": CP}
+    with shared_gang(gang, axes, device, "chip-smoke-cp-flagship-") as gang:
         for impl in ("ring", "ulysses"):
             t0 = time.monotonic()
             every = gang.run(cases.cp_flagship, dict(
                 params=dict(init=cfg, seed=0, dtype=torch.float32), cfg=cfg,
                 dtype=torch.bfloat16, batch=batch, seq=seq, steps=steps,
-                model=dict(attn_impl=impl), parts=impl == "ring"))
+                axes=axes, model=dict(attn_impl=impl),
+                parts=impl == "ring"))
             wall = time.monotonic() - t0
             for rank, r in enumerate(every):
                 losses = r["losses"]
@@ -4673,7 +4730,8 @@ def phase_cp_flagship(device: str = "cuda", cfg: dict = CP_FLAGSHIP,
     return dict(launches={impl: [r["launches"] for r in every]
                           for impl, every in out.items()},
                 peak={impl: [r["peak_bytes"] for r in every]
-                      for impl, every in out.items()})
+                      for impl, every in out.items()},
+                ref=ref)
 
 
 def phase_cp_worker(device: str = "cuda", sample=CP_SAMPLE_ARGV) -> dict:
@@ -4729,6 +4787,272 @@ def phase_cp_worker(device: str = "cuda", sample=CP_SAMPLE_ARGV) -> dict:
                                   "PEAK_MEM_GIB")}
 
 
+# -- data x tensor x context parallelism and ZeRO-1 (phases 66-68) -----------
+
+AXES_3D = {"data": 2, "model": 2, "seq": 2}
+# the flagship's 3-D gang: four ranks, tp 2 x cp 2, one data shard
+FLAGSHIP_3D_AXES = {"data": 1, "model": 2, "seq": 2}
+# ZeRO-1 at the flagship's width: dp 2, adam, b 2 a rank, seq 1024; two
+# steps plain, then two with ZeRO-1 from the same weights
+ZERO1_RUN = dict(seq=1024, batch=4, steps=2)
+ZERO1_AXES = {"data": 2}
+# ZeRO-1 against plain data parallelism: every step's loss (the same
+# math: the reduce-scatter's sum and the all-reduce's agree on two ranks,
+# and adam is elementwise), and each parameter's position-weighted sum
+# after the last step, relative to its weighted sum of magnitudes
+ZERO1_LOSS_TOL = 1e-4
+ZERO1_SUM_TOL = 1e-6
+
+
+def cases_3d():
+    """The rank bodies of the 3-D tests (``tests/torch_3d_cases.py``)."""
+    cp_cases()   # puts tests/ on the path
+    import torch_3d_cases
+
+    return torch_3d_cases
+
+
+def zero_cases():
+    """The rank bodies of the ZeRO-1 tests (``tests/torch_zero_cases.py``)."""
+    tp_cases()   # puts tests/ on the path
+    import torch_zero_cases
+
+    return torch_zero_cases
+
+
+def phase_3d_small(device: str = "cuda", cfg: dict = CP_SMALL,
+                   seq: int = CP_SMALL_SEQS["flash"], gang=None) -> dict:
+    """Phase 66: phase 49's small float32 model in a gloo gang of eight
+    ranks on the card over ``{"data": 2, "model": 2, "seq": 2}``
+    (``gang``, else its own), ring
+    (flash body) and Ulysses, heads sharded over "model": one step's loss
+    and every gradient leaf, gathered whole, within rtol=atol 1e-4 of the
+    card's one-device flash step on the same global batch, and each
+    rank's K3, K4 and K5 launches as ``cp_want_launches`` gives them by
+    its "seq" coordinate; returns them by attention, in rank order."""
+    import numpy as np
+    import torch
+
+    from kubegpu_tpu_torch.models.params import init_params, tree_map
+    from kubegpu_tpu_torch.models.train import (
+        create_train_state,
+        grad_tree,
+        lm_grads,
+    )
+    from kubegpu_tpu_torch.models.transformer import TransformerLM
+
+    cases = cases_3d()
+    params = init_params(cfg, torch.Generator().manual_seed(6),
+                         torch.float32, "cpu")
+    tokens = np.random.RandomState(3).randint(
+        0, cfg["vocab_size"], size=(4, seq + 1)).astype(np.int32)
+    model = TransformerLM(dtype=torch.float32, attn_impl="flash", **cfg)
+    state = create_train_state(
+        model, tree_map(lambda t: t.to(device).clone(), params))
+    loss = lm_grads(state, torch.from_numpy(tokens).to(device)).item()
+    grads = _np_tree(grad_tree(state))
+    del state, model
+    layers = cfg["num_layers"]
+    t0 = time.monotonic()
+    out = {}
+    with shared_gang(gang, AXES_3D, device, "chip-smoke-3d-") as gang:
+        for impl in ("ring", "ulysses"):
+            got = gang.run(cases.grads_3d, dict(
+                params=_np_tree(params), cfg=cfg, tokens=[tokens],
+                model=dict(attn_impl=impl)))
+            np.testing.assert_allclose(got["loss"], loss, rtol=TRAIN_TOL,
+                                       atol=TRAIN_TOL)
+            worst = tree_close("grad", got["grads"], grads, TRAIN_TOL)
+            assert not got["heads_replicated"], impl
+            for rank, (launches, coords) in enumerate(
+                    zip(got["launches"], got["coords"])):
+                want = cp_want_launches(impl, coords[2], layers, 1, False,
+                                        False)
+                if device != "cuda":
+                    want = {k: 0 for k in want}
+                assert launches == want, (impl, rank, coords, launches, want)
+            log(f"3-D small fp32 {AXES_3D} {impl} (flash body, {seq} rows, "
+                f"{cfg['num_heads'] // AXES_3D['model']} heads a rank): loss "
+                f"{got['loss']:.6f} against one device {loss:.6f}, worst "
+                f"gradient diff {worst:.3e}; launches by rank (data, model, "
+                f"seq) {list(zip(got['coords'], got['launches']))}")
+            out[impl] = got["launches"]
+    log(f"3-D small gang of 8: {time.monotonic() - t0:.1f} s")
+    return out
+
+
+def phase_3d_flagship(ref=None, device: str = "cuda",
+                      cfg: dict = CP_FLAGSHIP, run: dict = CP_FLAGSHIP_RUN,
+                      axes: dict = FLAGSHIP_3D_AXES, gang=None) -> dict:
+    """Phase 67: the flagship at full width (bf16 compute over float32
+    weights) over ``{"data": 1, "model": 2, "seq": 2}`` in a four-rank
+    gloo gang on the card (``gang``'s world laid out so, else its own),
+    seq 8192, batch 1: one step with ring
+    attention, then one with Ulysses, each rank holding its tp 2 shards
+    and 16 of the 32 heads: finite losses, the first within
+    ``FLAGSHIP_LOSS_TOL`` of one device's on the same tokens (``ref``,
+    phase 50's, else computed here), each rank's K3/K4/K5 and pre-pass
+    launches as ``cp_want_launches`` says; each rank's peak memory,
+    seconds a step (host-staged gloo: not a speed) and bytes sent along
+    "seq"."""
+    import math
+    import tempfile
+
+    import torch
+
+    cases = cp_cases()
+    seq, batch, steps = run["seq"], run["batch"], run["steps"]
+    if ref is None:
+        ref = flagship_first_loss(cfg, run, device)
+    layers = cfg["num_layers"]
+    out = {}
+    with shared_gang(gang, axes, device, "chip-smoke-3d-flagship-") as gang:
+        for impl in ("ring", "ulysses"):
+            t0 = time.monotonic()
+            every = gang.run(cases.cp_flagship, dict(
+                params=dict(init=cfg, seed=0, dtype=torch.float32), cfg=cfg,
+                dtype=torch.bfloat16, batch=batch, seq=seq, steps=steps,
+                axes=axes, model=dict(attn_impl=impl), parts=False))
+            wall = time.monotonic() - t0
+            for rank, r in enumerate(every):
+                losses = r["losses"]
+                assert all(math.isfinite(x) for x in losses), (rank, losses)
+                assert abs(losses[0] - ref) <= FLAGSHIP_LOSS_TOL, (
+                    impl, rank, losses, ref)
+                want = cp_want_launches(impl, r["coords"][1], layers, steps,
+                                        False, True)
+                if device != "cuda":
+                    want = {k: 0 for k in want}
+                assert r["launches"] == want, (impl, rank, r["launches"])
+                peak = r["peak_bytes"]
+                log(f"3-D flagship {impl} {axes} rank {rank} (data, seq) "
+                    f"{r['coords']}: losses {[round(x, 4) for x in losses]} "
+                    f"(one device's first {ref:.4f}); seconds a step "
+                    f"{[round(x, 3) for x in r['seconds']]} (a first step, "
+                    "warm-up included; gloo, host-staged on one card: not a "
+                    f"speed); bytes sent a step {r['traffic_per_step']}; "
+                    f"launches {r['launches']}; peak device memory "
+                    + (f"{peak / 2**30:.2f} GiB" if peak is not None else
+                       "not measured"))
+            log(f"3-D flagship {impl}: {steps} step(s) of {batch} x {seq} "
+                f"tokens over {axes}, the gang's call {wall:.1f} s")
+            out[impl] = every
+    return dict(launches={impl: [r["launches"] for r in every]
+                          for impl, every in out.items()},
+                peak={impl: [r["peak_bytes"] for r in every]
+                      for impl, every in out.items()})
+
+
+def phase_zero1_flagship(device: str = "cuda", cfg: dict = TRAIN_FLAGSHIP,
+                         run: dict = ZERO1_RUN, axes: dict = ZERO1_AXES,
+                         gang=None) -> dict:
+    """Phase 68: ZeRO-1 at the flagship's full width (bf16 compute over
+    float32 weights, flash attention, adam) at dp 2 in a two-rank gloo
+    gang on the card (``gang``'s world laid out as ``{"data": 2}``, else
+    its own), seq 1024, b 2 a rank: two steps with the moments
+    replicated (plain data parallelism), then two with ZeRO-1, from the
+    same weights on the same batches: finite losses, every step's equal
+    between the two runs within ``ZERO1_LOSS_TOL`` (the second reads the
+    first update: the host-staged reduce-scatter, the sliced adam step
+    and the all-gather), and each parameter's checksum after the last
+    update (``torch_zero_cases.param_sums``) within ``ZERO1_SUM_TOL``
+    of the plain run's, relative; every parameter cut over "data",
+    so each rank's moment bytes (``state_bytes_per_device``, and the
+    tensors its optimizer really holds) are half the plain run's but
+    Adam's count; K3/K4/K5 and the pre-pass launched steps x layers times
+    a rank; each rank's peak device memory, seconds a step (host-staged
+    gloo: not a speed) and bytes staged through the host."""
+    import math
+
+    import torch
+
+    from kubegpu_tpu_torch.models.train import adam
+
+    cases = zero_cases()
+    layers = cfg["num_layers"]
+    res = {}
+    with shared_gang(gang, axes, device, "chip-smoke-zero1-") as gang:
+        for zero1 in (False, True):
+            t0 = time.monotonic()
+            every = gang.run(cases.zero1_flagship, dict(
+                params=dict(init=cfg, seed=0, dtype=torch.float32), cfg=cfg,
+                axes=axes, dtype=torch.bfloat16, optimizer=adam(),
+                zero1=zero1,
+                model=dict(attn_impl="flash"), batch=run["batch"],
+                seq=run["seq"],
+                steps=run["steps"]))
+            label = "ZeRO-1" if zero1 else "plain"
+            for rank, r in enumerate(every):
+                assert all(math.isfinite(x) for x in r["losses"]), r
+                want = {k: layers * run["steps"] for k in
+                        ("flash_forward", "flash_backward_dkdv",
+                         "flash_backward_dq", "flash_backward_delta")}
+                if device != "cuda":
+                    want = {k: 0 for k in want}
+                assert r["launches"] == want, (label, rank, r["launches"])
+                # the optimizer's tensors are what the reckoning says
+                assert r["held_opt"] == r["bytes"][1] - 4, r
+                peak = r["peak_bytes"]
+                log(f"zero1 flagship {label} rank {rank}: losses "
+                    f"{[round(x, 4) for x in r['losses']]}; "
+                    f"state_bytes_per_device (params, opt) {r['bytes']}; "
+                    f"parameters cut over data {r['cut']}; seconds a step "
+                    f"{[round(x, 3) for x in r['seconds']]} (gloo, "
+                    "host-staged on one card: not a speed); staged through "
+                    f"the host a step {r['staged_per_step']} B; launches "
+                    f"{r['launches']}; peak device memory "
+                    + (f"{peak / 2**30:.2f} GiB ({peak} B)"
+                       if peak is not None else "not measured"))
+            log(f"zero1 flagship {label}: the gang's call "
+                f"{time.monotonic() - t0:.1f} s")
+            res[zero1] = every
+    plain, zero = res[False], res[True]
+    worst_loss = worst_sum = 0.0
+    for rank, (p, z) in enumerate(zip(plain, zero)):
+        assert len(p["losses"]) == len(z["losses"]) == run["steps"]
+        worst_loss = max([worst_loss] + [
+            abs(a - b) for a, b in zip(p["losses"], z["losses"])])
+        assert [n for n, _, _ in p["sums"]] == [n for n, _, _ in z["sums"]]
+        for (name, ps, pa), (_, zs, _) in zip(p["sums"], z["sums"]):
+            rel = abs(ps - zs) / pa
+            assert rel <= ZERO1_SUM_TOL, (rank, name, ps, zs, pa)
+            worst_sum = max(worst_sum, rel)
+    assert worst_loss <= ZERO1_LOSS_TOL, (plain[0]["losses"],
+                                          zero[0]["losses"])
+    log(f"zero1 flagship against plain: worst loss diff over "
+        f"{run['steps']} steps and both ranks {worst_loss:.3e} (gate "
+        f"{ZERO1_LOSS_TOL}); worst parameter checksum diff after the last "
+        f"update {worst_sum:.3e} of its weighted magnitude (gate "
+        f"{ZERO1_SUM_TOL})")
+    n_params = sum(p.numel() for p in _lm_shapes(cfg))
+    for p, z in zip(plain, zero):
+        assert p["bytes"][1] == 8 * n_params + 4, p["bytes"]
+        assert z["bytes"][1] == 4 * n_params + 4, z["bytes"]
+        assert z["bytes"][0] == p["bytes"][0] == 4 * n_params
+        assert z["cut"] == len(_lm_shapes(cfg)), z["cut"]
+    drops = [None if p["peak_bytes"] is None else
+             p["peak_bytes"] - z["peak_bytes"] for p, z in zip(plain, zero)]
+    log(f"zero1 flagship: {n_params} parameters; moments a rank "
+        f"{plain[0]['bytes'][1] - 4} B plain, {zero[0]['bytes'][1] - 4} B "
+        f"ZeRO-1; peak drop a rank "
+        + ", ".join("not measured" if d is None else
+                    f"{d / 2**30:.2f} GiB ({d} B)" for d in drops))
+    return dict(launches={label: [r["launches"] for r in every]
+                          for label, every in (("plain", plain),
+                                               ("zero1", zero))},
+                peak_drop=drops, worst_loss_diff=worst_loss,
+                worst_sum_diff=worst_sum)
+
+
+def _lm_shapes(cfg: dict) -> list:
+    """The LM's parameters at ``cfg``, on the meta device."""
+    import torch
+
+    from kubegpu_tpu_torch.models.transformer import TransformerLM
+
+    return list(TransformerLM(dtype=torch.float32, **cfg).parameters())
+
+
 # -- ResNet data-parallel training (phases 52-56) -----------------------------
 
 RESNET_TINY = dict(layout="unrolled", stage_sizes=(1, 1, 1, 1), num_filters=8,
@@ -4736,8 +5060,8 @@ RESNET_TINY = dict(layout="unrolled", stage_sizes=(1, 1, 1, 1), num_filters=8,
 RESNET50 = dict(layout="scan", stage_sizes=(3, 4, 6, 3), num_filters=64,
                 num_classes=1000, dtype="bfloat16")
 # samples/jax-resnet.yaml's worker command (no --model: the default) at
-# 30 of its 100 steps: the smoke's time limit
-RESNET_SAMPLE_ARGV = ["--steps", "30"]
+# 15 of its 100 steps: the smoke's time limit
+RESNET_SAMPLE_ARGV = ["--steps", "15"]
 # NVIDIA's data sheet, H100 SXM, dense bf16
 BF16_PEAK_FLOPS = 989e12
 RESNET_STATS_TOL = 1e-5
@@ -4868,7 +5192,7 @@ def phase_resnet_sample(device: str = "cuda",
                 window=window)
 
 
-def resnet_window(argv: list, steps: int = 60, split: int = 30,
+def resnet_window(argv: list, steps: int = 40, split: int = 20,
                   profiled: int = 5) -> dict:
     """Phase 53's model and batches (the worker's builder on ``argv``)
     stepped ``steps`` times in this process on the card, with no sync
@@ -4954,7 +5278,7 @@ def resnet_breakdown(prof) -> dict:
 
 
 def phase_resnet_steady(device: str = "cuda", batch: int = 256,
-                        size: int = 224, warm: int = 5, timed: int = 30,
+                        size: int = 224, warm: int = 5, timed: int = 15,
                         pool: int = 3, profiled: int = 3,
                         stages=(3, 4, 6, 3)) -> dict:
     """Phase 54: ``bench.py``'s ``steady_state_resnet`` on the port: the
@@ -5045,36 +5369,28 @@ def phase_resnet_steady(device: str = "cuda", batch: int = 256,
     return out
 
 
-def resnet_gang(tmp: str, device: str):
-    """The two ranks of a {"data": 2} mesh on the one card over gloo:
-    the gradient mean and the BatchNorms' sums are copied through the
-    host."""
-    from kubegpu_tpu_torch.parallel.launch import Gang
-
-    dev = "cuda:0" if device == "cuda" else device
-    return Gang({"data": 2}, tmp, backend="gloo", devices=[dev] * 2,
-                timeout_s=900.0)
-
-
 def phase_resnet_gang(device: str = "cuda", flagship: dict = RESNET50,
                       rows: int = 32, size: int = 224,
-                      steps: int = 3) -> dict:
-    """Phase 55: resnet-tiny at float32 in a two-rank gang against one
-    device; ResNet-50 at ``rows`` a rank against one device at twice
-    that."""
+                      steps: int = 3, gang=None) -> dict:
+    """Phase 55: resnet-tiny at float32 in a two-rank ``{"data": 2}``
+    gang (``gang``, else its own) against one device; ResNet-50 at
+    ``rows`` a rank against one device at twice that."""
     import numpy as np
 
     cases = resnet_cases()
-    params, stats = resnet_tree(RESNET_TINY, seed=4)
-    images, labels = resnet_batches(32, 8)
-    one = cases.train(None, RESNET_TINY, params, stats, images, labels,
-                      device=device)
-    ref = cases.timed_steps(None, flagship, 2 * rows, 1, size, device=device)
-    with tempfile.TemporaryDirectory() as tmp:
-        with resnet_gang(tmp, device) as gang:
-            two = gang.run(cases.train, RESNET_TINY, params, stats, images,
-                           labels)
-            big = gang.run(cases.timed_steps, flagship, rows, steps, size)
+    # a gang of its own boots beside the one-device runs
+    with shared_gang(gang, {"data": 2}, device,
+                     "chip-smoke-resnet-") as gang:
+        gang.start()
+        params, stats = resnet_tree(RESNET_TINY, seed=4)
+        images, labels = resnet_batches(32, 8)
+        one = cases.train(None, RESNET_TINY, params, stats, images,
+                          labels, device=device)
+        ref = cases.timed_steps(None, flagship, 2 * rows, 1, size,
+                                device=device)
+        two = gang.run(cases.train, RESNET_TINY, params, stats, images,
+                       labels)
+        big = gang.run(cases.timed_steps, flagship, rows, steps, size)
     np.testing.assert_allclose(two["losses"], one["losses"], rtol=TRAIN_TOL,
                                atol=TRAIN_TOL)
     grads = tree_close("resnet-tiny dp 2 gradients", two["grads"],
@@ -5186,7 +5502,7 @@ MOE_DEFAULT_ROW = "top1 fast-dispatch"
 # a routing decision whose deciding gates lie closer than this may flip
 # between two devices' float32 rounding
 MOE_NEAR_TIE = 1e-5
-MOE_WORKER_ARGV = ["--model", "moe", "--num-experts", "4", "--steps", "20"]
+MOE_WORKER_ARGV = ["--model", "moe", "--num-experts", "4", "--steps", "10"]
 MOE_CKPT_ARGV = ["--model", "moe", "--num-experts", "4",
                  "--batch-per-chip", "8", "--ckpt-every", "100"]
 MOE_CKPT_TOL = 1e-6
@@ -5590,24 +5906,15 @@ def phase_moe_bench(device: str = "cuda", cfg: dict = MOE_BENCH,
     return out
 
 
-def moe_gang(axes: dict, tmp: str, device: str):
-    """The ranks of an expert mesh on the one card over gloo: every
-    collective's tensors are copied through the host."""
-    import math
-
-    from kubegpu_tpu_torch.parallel.launch import Gang
-
-    dev = "cuda:0" if device == "cuda" else device
-    return Gang(axes, tmp, backend="gloo",
-                devices=[dev] * math.prod(axes.values()), timeout_s=900.0)
-
-
 def phase_moe_gang(bench: dict, device: str = "cuda",
                    small: dict = MOE_SMALL, run: dict = MOE_SMALL_RUN,
-                   wide: dict = MOE_BENCH, wide_steps: int = 3) -> dict:
+                   wide: dict = MOE_BENCH, wide_steps: int = 2,
+                   gangs=(None, None)) -> dict:
     """Phase 59: fp32 dp 2 x ep 2 and ep 2 x tp 2 gangs on the card
     against one device at the small size, each route; the bench width at
-    ep 2 in a two-rank gang against phase 58's first loss."""
+    ep 2 in a two-rank gang against phase 58's first loss.  ``gangs``
+    (four ranks, two ranks) are laid out as each mesh; without them the
+    phase starts its own."""
     import numpy as np
     import torch
 
@@ -5616,52 +5923,60 @@ def phase_moe_gang(bench: dict, device: str = "cuda",
 
     cases = moe_cases()
     t0 = time.monotonic()
-    params = init_moe_params(moe_init_cfg(small),
-                             torch.Generator().manual_seed(8), "cpu")
-    tree = tree_map(lambda t: t.numpy(), params)
-    tokens = next(synthetic_token_batches(run["batch"], run["seq"] + 1,
-                                          small["vocab_size"], seed=3))
-    routes = [dict(router_type=r, dispatch_impl=d, attn_impl="flash")
-              for r, d in (("top1", "einsum"), ("top2", "gather"),
-                           ("expert_choice", "einsum"))]
-    # one device on the card, through the gangs' own body
-    ones = [cases.moe_grads(None, dict(params=tree, cfg=small, model=route,
-                                       tokens=[tokens], device=device))
-            for route in routes]
-    for axes in ({"data": 2, "expert": 2},
-                 {"data": 1, "expert": 2, "model": 2}):
-        with tempfile.TemporaryDirectory() as tmp:
-            with moe_gang(axes, tmp, device) as gang:
-                for route, one in zip(routes, ones):
-                    got = gang.run(cases.moe_grads, dict(
-                        params=tree, cfg=small, model=route,
-                        tokens=[tokens]))
-                    label = (f"moe {axes} {route['router_type']}/"
-                             f"{route['dispatch_impl']} fp32")
-                    np.testing.assert_allclose(got["loss"], one["loss"],
-                                               rtol=TRAIN_TOL,
-                                               atol=TRAIN_TOL, err_msg=label)
-                    np.testing.assert_allclose(got["aux"], one["aux"],
-                                               rtol=TRAIN_TOL,
-                                               atol=TRAIN_TOL, err_msg=label)
-                    worst = tree_close(label, got["grads"], one["grads"],
-                                       TRAIN_TOL)
-                    n = small["num_layers"] * (device != "cpu")
-                    assert all(v == (0 if k == "flash_backward_delta" else n)
-                               for k, v in got["launches"].items()), (
-                        label, got["launches"])
-                    log(f"{label} (gloo on the card) vs one device: loss "
-                        f"diff {abs(got['loss'] - one['loss']):.2e}, aux "
-                        f"diff {abs(got['aux'] - one['aux']):.2e}, worst "
-                        f"gradient diff {worst:.3e}; each rank launched "
-                        f"K3/K4/K5 {n} times")
-    # the bench width at ep 2: each rank holds two of the four experts
-    spec = dict(params={"init": moe_init_cfg(wide), "seed": 0}, cfg=wide,
-                model=dict(attn_impl="flash"), dtype=torch.bfloat16,
-                tokens=bench["tokens"], steps=wide_steps)
-    with tempfile.TemporaryDirectory() as tmp:
-        with moe_gang({"data": 1, "expert": 2}, tmp, device) as gang:
-            ranks = gang.run(cases.moe_bench_width, spec)
+    # two meshes of four ranks, one of two for the bench width; gangs of
+    # its own boot at once, beside the one-device runs
+    mesh_axes = ({"data": 2, "expert": 2},
+                 {"data": 1, "expert": 2, "model": 2},
+                 {"data": 1, "expert": 2})
+    four, two = gangs
+    with contextlib.ExitStack() as stack:
+        four, two = (stack.enter_context(shared_gang(
+            gang, axes, device, "chip-smoke-moe-")).start()
+            for gang, axes in ((four, mesh_axes[0]), (two, mesh_axes[2])))
+        params = init_moe_params(moe_init_cfg(small),
+                                 torch.Generator().manual_seed(8), "cpu")
+        tree = tree_map(lambda t: t.numpy(), params)
+        tokens = next(synthetic_token_batches(run["batch"], run["seq"] + 1,
+                                              small["vocab_size"], seed=3))
+        routes = [dict(router_type=r, dispatch_impl=d, attn_impl="flash")
+                  for r, d in (("top1", "einsum"), ("top2", "gather"),
+                               ("expert_choice", "einsum"))]
+        # one device on the card, through the gangs' own body
+        ones = [cases.moe_grads(None, dict(params=tree, cfg=small,
+                                           model=route, tokens=[tokens],
+                                           device=device))
+                for route in routes]
+        # the two meshes of four ranks, each route against one device
+        for axes in mesh_axes[:2]:
+            for route, one in zip(routes, ones):
+                got = four.run(cases.moe_grads, dict(
+                    params=tree, cfg=small, model=route, axes=axes,
+                    tokens=[tokens]))
+                label = (f"moe {axes} {route['router_type']}/"
+                         f"{route['dispatch_impl']} fp32")
+                np.testing.assert_allclose(got["loss"], one["loss"],
+                                           rtol=TRAIN_TOL,
+                                           atol=TRAIN_TOL, err_msg=label)
+                np.testing.assert_allclose(got["aux"], one["aux"],
+                                           rtol=TRAIN_TOL,
+                                           atol=TRAIN_TOL, err_msg=label)
+                worst = tree_close(label, got["grads"], one["grads"],
+                                   TRAIN_TOL)
+                n = small["num_layers"] * (device != "cpu")
+                assert all(v == (0 if k == "flash_backward_delta" else n)
+                           for k, v in got["launches"].items()), (
+                    label, got["launches"])
+                log(f"{label} (gloo on the card) vs one device: loss "
+                    f"diff {abs(got['loss'] - one['loss']):.2e}, aux "
+                    f"diff {abs(got['aux'] - one['aux']):.2e}, worst "
+                    f"gradient diff {worst:.3e}; each rank launched "
+                    f"K3/K4/K5 {n} times")
+        # the bench width at ep 2: each rank holds two of the four experts
+        spec = dict(params={"init": moe_init_cfg(wide), "seed": 0}, cfg=wide,
+                    model=dict(attn_impl="flash"), dtype=torch.bfloat16,
+                    axes=mesh_axes[2], tokens=bench["tokens"],
+                    steps=wide_steps)
+        ranks = two.run(cases.moe_bench_width, spec)
     want = bench[MOE_DEFAULT_ROW]["first_loss"]
     whole = 2 * wide["num_layers"] * wide["num_experts"] * 4 * \
         wide["hidden"] ** 2 * 4   # w_up and w_down, float32
@@ -5783,19 +6098,6 @@ def pp_cases():
     return torch_pp_cases
 
 
-def pp_gang(axes: dict, tmp: str, device: str):
-    """The ranks of a pipeline mesh on the one card over gloo: each hop
-    is staged through pinned host buffers, each all-reduce through
-    gloo's host copies."""
-    import math
-
-    from kubegpu_tpu_torch.parallel.launch import Gang
-
-    dev = "cuda:0" if device == "cuda" else device
-    return Gang(axes, tmp, backend="gloo",
-                devices=[dev] * math.prod(axes.values()), timeout_s=900.0)
-
-
 def pp_widths(cfg: dict) -> dict:
     """``init_pipeline_lm``'s widths of a model cfg."""
     return {k: v for k, v in cfg.items()
@@ -5846,52 +6148,54 @@ def pp_worst(label: str, got: dict, want: dict, tol: float) -> float:
 
 
 def phase_pp_card_vs_cpu(gang2, device: str = "cuda", cfg: dict = PP_SMALL,
-                         run: dict = PP_SMALL_RUN) -> None:
+                         run: dict = PP_SMALL_RUN, gang4=None) -> None:
     """Phase 61: the small pipeline at float32, three carried SGD steps
-    on the card, at one device and in gloo gangs on ``cuda:0``
-    (``gang2`` is the ``{"pipe": 2}`` one), against the CPU's one device
-    at the same depth."""
+    on the card, at one device and in gloo gangs on ``cuda:0`` (two
+    ranks, ``gang2``, laid out as ``{"pipe": 2}``; four, ``gang4`` or
+    its own, as ``{"pipe": 2, "model": 2}``), against the CPU's one
+    device at the same depth."""
     from kubegpu_tpu_torch.models.data import synthetic_token_batches
 
     cases = pp_cases()
     t0 = time.monotonic()
-    source = synthetic_token_batches(run["batch"], run["seq"] + 1,
-                                     cfg["vocab_size"], seed=5)
-    tokens = [next(source) for _ in range(run["steps"])]
+    # a four-rank gang of its own boots beside the one-device runs
+    with shared_gang(gang4, {"pipe": 2, "model": 2}, device,
+                     "chip-smoke-pp4-") as gang4:
+        gang4.start()
+        source = synthetic_token_batches(run["batch"], run["seq"] + 1,
+                                         cfg["vocab_size"], seed=5)
+        tokens = [next(source) for _ in range(run["steps"])]
 
-    def one(stages: int, dev: str) -> dict:
-        # the stack as `stages` rounds over one stage
-        return cases.pp_steps(None, dict(
-            params=pp_tree(cfg, stages, (stages, 1)), tokens=tokens,
-            device=dev, cfg=dict(cfg, num_stages=stages,
-                                 num_rounds=stages)))
+        def one(stages: int, dev: str) -> dict:
+            # the stack as `stages` rounds over one stage
+            return cases.pp_steps(None, dict(
+                params=pp_tree(cfg, stages, (stages, 1)), tokens=tokens,
+                device=dev, cfg=dict(cfg, num_stages=stages,
+                                     num_rounds=stages)))
 
-    cpu = {2: one(2, "cpu"), 4: one(4, "cpu")}
-    worst = pp_worst("pp one device", one(2, device), cpu[2], PP_TOL)
-    log(f"pp one device card vs cpu (fp32): losses "
-        f"{[round(x, 6) for x in cpu[2]['losses']]}, worst difference "
-        f"{worst:.3e} over losses, step-1 gradients, weights and momentum")
-    for label, axes, rounds, model_axis in (
-            ("gpipe", {"pipe": 2}, 1, None),
-            ("circular v2", {"pipe": 2}, 2, None),
-            ("pp x tp", {"pipe": 2, "model": 2}, 1, "model")):
-        stages = 2 * rounds
-        spec = dict(params=pp_tree(cfg, stages,
-                                   (rounds, 2) if rounds > 1 else (stages,)),
-                    tokens=tokens,
-                    cfg=dict(cfg, num_stages=stages, num_rounds=rounds,
-                             model_axis=model_axis))
-        if "model" in axes:
-            with tempfile.TemporaryDirectory() as tmp:
-                with pp_gang(axes, tmp, device) as gang:
-                    got = gang.run(cases.pp_steps, spec)
-        else:
-            got = gang2.run(cases.pp_steps, spec)
-        worst = pp_worst(f"pp {label}", got, cpu[stages], PP_TOL)
-        log(f"pp {label} {axes} (gloo on the card) vs the cpu's one device "
-            f"at {stages} stages: losses "
-            f"{[round(x, 6) for x in got['losses']]}, worst difference "
-            f"{worst:.3e}; no kernel launched")
+        cpu = {2: one(2, "cpu"), 4: one(4, "cpu")}
+        worst = pp_worst("pp one device", one(2, device), cpu[2], PP_TOL)
+        log(f"pp one device card vs cpu (fp32): losses "
+            f"{[round(x, 6) for x in cpu[2]['losses']]}, worst difference "
+            f"{worst:.3e} over losses, step-1 gradients, weights and "
+            "momentum")
+        for label, axes, rounds, model_axis in (
+                ("gpipe", {"pipe": 2}, 1, None),
+                ("circular v2", {"pipe": 2}, 2, None),
+                ("pp x tp", {"pipe": 2, "model": 2}, 1, "model")):
+            stages = 2 * rounds
+            lead = (rounds, 2) if rounds > 1 else (stages,)
+            spec = dict(params=pp_tree(cfg, stages, lead), tokens=tokens,
+                        axes=axes,
+                        cfg=dict(cfg, num_stages=stages, num_rounds=rounds,
+                                 model_axis=model_axis))
+            got = (gang4 if "model" in axes else gang2).run(cases.pp_steps,
+                                                            spec)
+            worst = pp_worst(f"pp {label}", got, cpu[stages], PP_TOL)
+            log(f"pp {label} {axes} (gloo on the card) vs the cpu's one "
+                f"device at {stages} stages: losses "
+                f"{[round(x, 6) for x in got['losses']]}, worst difference "
+                f"{worst:.3e}; no kernel launched")
     log(f"pp card vs cpu: {time.monotonic() - t0:.1f} s")
 
 
@@ -5958,10 +6262,11 @@ def phase_pp_worker(device: str = "cuda", argv: list = PP_WORKER_ARGV,
 
 def phase_pp_width(gang2, device: str = "cuda", cfg: dict = PP_WIDTH,
                    run: dict = PP_WIDTH_RUN) -> dict:
-    """Phase 63: the worker's width in the ``{"pipe": 2}`` gang on the
-    card, GPipe and circular V 2: each rank's block bytes, the first
-    loss against one device's on the same weights (drawn from seed 0 on
-    the card), seconds a step and the hops' bytes."""
+    """Phase 63: the worker's width in a gang of two ranks on the card
+    (``gang2``, laid out as ``{"pipe": 2}``), GPipe and circular V 2:
+    each rank's block bytes, the first loss against one device's on the
+    same weights (drawn from seed 0 on the card), seconds a step and the
+    hops' bytes."""
     import gc
 
     import numpy as np
@@ -6003,7 +6308,7 @@ def phase_pp_width(gang2, device: str = "cuda", cfg: dict = PP_WIDTH,
             params={"init": dict(init, devices=2, num_rounds=rounds),
                     "seed": 0},
             cfg=dict(cfg, num_stages=stages, num_rounds=rounds),
-            tokens=tokens, steps=run["steps"]))
+            axes={"pipe": 2}, tokens=tokens, steps=run["steps"]))
         whole = 4 * sum(int(np.prod(shape)) for path, shape in leaf_shapes(
             **init).items() if path.startswith("blocks/"))
         for r, mine in enumerate(ranks):
@@ -6073,10 +6378,10 @@ def pod_lines(out: str) -> dict:
     return {ln.split()[0]: ln for ln in out.splitlines() if ln.strip()}
 
 
-# samples/jax-resnet.yaml: 4 pods of the worker's command, 5 of its 100
+# samples/jax-resnet.yaml: 4 pods of the worker's command, 3 of its 100
 # steps
 GANG_PODS = 4
-GANG_RESNET_ARGV = ["--steps", "5"]
+GANG_RESNET_ARGV = ["--steps", "3"]
 # samples/jax-lm-tp.yaml's shape at phase 10's small widths
 GANG_LM_ARGV = ["--model", "lm", "--tp", "2", "--vocab", "256", "--hidden",
                 "256", "--heads", "4", "--layers", "2", "--seq", "128",
@@ -6348,39 +6653,61 @@ def _run(group: str, torch) -> int:
         # worker's lm-cp
         t2 = time.monotonic()
         cp_k = phase_cp_kernels()
-        phase_cp_small()
-        cp_flag = phase_cp_flagship()
+        # gangs of two, four and eight ranks, started together: the two
+        # and four serve phases 49-50 and then, laid out anew, the
+        # flagship's 3-D mesh (67) and ZeRO-1 (68); the eight phase 66
+        with cp_gang({"data": 1, "seq": CP},
+                     tempfile.mkdtemp(prefix="chip-smoke-cp2-"),
+                     "cuda") as gang2, \
+                cp_gang({"data": 2, "seq": CP},
+                        tempfile.mkdtemp(prefix="chip-smoke-cp4-"),
+                        "cuda") as gang4, \
+                cp_gang(AXES_3D, tempfile.mkdtemp(prefix="chip-smoke-3d-"),
+                        "cuda") as gang8:
+            for gang in (gang2, gang4, gang8):
+                gang.start()
+            phase_cp_small(gangs=(gang2, gang4))
+            cp_flag = phase_cp_flagship(gang=gang2)
+            flag_3d = phase_3d_flagship(cp_flag["ref"], gang=gang4)
+            zero1 = phase_zero1_flagship(gang=gang2)
+            small_3d = phase_3d_small(gang=gang8)
         phase_cp_worker()
-        log(f"context-parallel phases {time.monotonic() - t2:.1f} s")
-        # ResNet data-parallel training: card vs CPU at fp32, the sample's
-        # command, the reference's steady state, a two-rank gang,
-        # checkpoints
+        log(f"context-parallel, 3-D and ZeRO-1 phases "
+            f"{time.monotonic() - t2:.1f} s")
+        # ResNet, MoE and pipeline training.  First the phases that time
+        # the card or read its memory, each with no other process on it:
+        # ResNet card vs CPU at fp32, the sample's command, the
+        # reference's steady state, the reference's MoE bench row, the
+        # MoE worker, the pipeline worker at its defaults
         t3 = time.monotonic()
         phase_resnet_card_vs_cpu()
         phase_resnet_sample()
         phase_resnet_steady()
-        phase_resnet_gang()
-        phase_resnet_ckpt()
-        log(f"resnet phases {time.monotonic() - t3:.1f} s")
-        # the MoE family: card against CPU at fp32, the reference's MoE
-        # bench row on one card, expert meshes in gloo gangs on the card,
-        # the worker
-        t4 = time.monotonic()
-        phase_moe_card_vs_cpu()
         moe = phase_moe_bench()
-        phase_moe_gang(moe)
         phase_moe_worker()
-        log(f"moe phases {time.monotonic() - t4:.1f} s")
-        # pipeline-parallel LM training: card against CPU at fp32 (gangs
-        # on the card), the worker at its defaults, its width in a
-        # two-stage gang
-        t5 = time.monotonic()
-        with tempfile.TemporaryDirectory() as tmp:
-            with pp_gang({"pipe": 2}, tmp, "cuda") as gang2:
-                phase_pp_card_vs_cpu(gang2)
-                pp = phase_pp_worker()
-                phase_pp_width(gang2)
-        log(f"pipeline phases {time.monotonic() - t5:.1f} s")
+        pp = phase_pp_worker()
+        log(f"resnet, moe and pipeline phases alone on the card "
+            f"{time.monotonic() - t3:.1f} s")
+        # then a gang of two ranks and one of four, booted together
+        # beside the ResNet checkpoints and the MoE card vs CPU, serve
+        # the ResNet gang (55), the expert meshes (59) and the
+        # pipeline's (61, 63), each laid out anew
+        t4 = time.monotonic()
+        with cp_gang({"data": 2},
+                     tempfile.mkdtemp(prefix="chip-smoke-gang2-"),
+                     "cuda") as gang2, \
+                cp_gang({"data": 2, "expert": 2},
+                        tempfile.mkdtemp(prefix="chip-smoke-gang4-"),
+                        "cuda") as gang4:
+            gang2.start(), gang4.start()
+            phase_resnet_ckpt()
+            phase_moe_card_vs_cpu()
+            phase_resnet_gang(gang=gang2)
+            phase_moe_gang(moe, gangs=(gang4, gang2))
+            phase_pp_card_vs_cpu(gang2, gang4=gang4)
+            phase_pp_width(gang2)
+        log(f"resnet, moe and pipeline phases beside the shared gangs "
+            f"{time.monotonic() - t4:.1f} s")
     if group in ("all", "gang"):
         # the rendezvous of a gang of pods: the north star's 4 ResNet-50
         # pods on the card, then an LM gang against the CPU
@@ -6491,6 +6818,19 @@ def _run(group: str, torch) -> int:
             "moe_max_abs_err": moe["flash_errs"][kname],
             # the LM gang of pods (phase 65): each pod's launches, float32
             "gang_launches": [n[kname] for n in gang_lm["launches"]],
+            # data x tensor x context parallelism: each rank's launches
+            # in the flagship's tp 2 x cp 2 gang (phase 67) and in the
+            # float32 dp 2 x tp 2 x cp 2 gang of eight (phase 66), ring
+            # then Ulysses
+            "cp3d_launches": [n[kname] for n in flag_3d["launches"]["ring"]],
+            "cp3d_ulysses_launches": [
+                n[kname] for n in flag_3d["launches"]["ulysses"]],
+            "cp3d_small_launches": [n[kname] for n in small_3d["ring"]],
+            "cp3d_small_ulysses_launches": [
+                n[kname] for n in small_3d["ulysses"]],
+            # ZeRO-1 at the flagship's width (phase 68): each rank's
+            # launches in the ZeRO-1 run
+            "zero1_launches": [n[kname] for n in zero1["launches"]["zero1"]],
         })
     # the card and its power limit again beside the results, where the
     # end of a long output still holds them

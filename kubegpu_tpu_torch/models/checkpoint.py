@@ -28,8 +28,9 @@ reader takes it for a step) and renames it into place: a half-written
 step is never the latest.  The manager keeps the last ``max_to_keep``
 steps.  Saving a step that exists replaces it.
 
-Because the checkpoint holds the whole tree, it restores on any mesh, as
-Orbax restores into the template's shardings: every rank opens the file
+Because the checkpoint holds the whole tree, it restores on any mesh (a
+ZeRO-1 state's too: its optimizer slices are saved whole), as Orbax
+restores into the template's shardings: every rank opens the file
 and reads it one leaf at a time (a member is read, and its CRC checked,
 when it is asked for), keeps its Megatron shard of the leaf on its own
 device and drops the rest, so a rank's host memory peaks at one leaf
@@ -65,6 +66,7 @@ from kubegpu_tpu_torch.models.train import (
     Optimizer,
     TrainState,
     iter_whole_state,
+    refresh_slices,
     set_param_opt_state,
 )
 from kubegpu_tpu_torch.parallel.mesh import DATA_AXIS
@@ -335,11 +337,13 @@ def _stats_keys(model) -> List[str]:
 def save_checkpoint(mgr: CheckpointManager, state: TrainState) -> int:
     """Save the whole training tree at its current step; returns the
     step.  Over a mesh every rank calls it: the ``"model"`` ranks of data
-    shard 0 gather each leaf in turn, global rank 0 writes, and every
-    rank waits at a barrier until the step is in place."""
+    shard 0 (under ZeRO-1 every rank) gather each leaf in turn, global
+    rank 0 writes, and every rank waits at a barrier until the step is
+    in place."""
     step = int(state.step)
     mesh = state.mesh
-    if mesh is None or mesh.coord(DATA_AXIS) == 0:
+    # ZeRO-1's optimizer slices are gathered over "data": every rank
+    if mesh is None or mesh.coord(DATA_AXIS) == 0 or state.zero1:
         leaves = ((k, t.cpu().numpy()) for k, t in iter_whole_state(state))
         if mesh is None or mesh.rank == 0:
             mgr.write(step, _with_step(leaves, step), dict(
@@ -381,8 +385,9 @@ def restore_checkpoint(mgr: CheckpointManager, template: TrainState,
     optimizer state and step set.  Over a mesh every rank calls it and
     keeps its shard of each leaf on its own device (a ResNet's every
     leaf whole, on any ``"data"`` size; the MoE transformer's on any
-    ``("data", "expert"[, "model"])`` mesh).  Returns the template, or None
-    when the directory holds no checkpoint."""
+    ``("data", "expert"[, "model"])`` mesh; under ZeRO-1 each optimizer
+    leaf's ``"data"`` slice).  Returns the template, or None when the
+    directory holds no checkpoint."""
     step = mgr.latest_step() if step is None else step
     if step is None:
         return None
@@ -422,6 +427,7 @@ def restore_checkpoint(mgr: CheckpointManager, template: TrainState,
                 buf.copy_(torch.from_numpy(ckpt.leaf(
                     f"batch_stats/{_path(name)}", tuple(buf.shape),
                     np.float32)))
+        refresh_slices(template)
         template.step = int(ckpt.leaf("step", ()))
     log.info("restored checkpoint step=%d", template.step)
     return template

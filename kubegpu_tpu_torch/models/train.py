@@ -58,6 +58,17 @@ averages every gradient over all dp x cp ranks in one flat all-reduce
 (the attention's collectives have already carried each rank's share of
 another rank's K/V gradient home).
 
+Over a ``("data", "model", "seq")`` mesh (the context-parallel model
+placed by :func:`place_lm`, each rank its Megatron shards, whole over
+``"seq"``) the logits are vocab-parallel, :func:`cross_entropy` reduces
+them over ``"model"``, and the loss and :func:`sync_grads` average over
+this rank's ``"data"`` x ``"seq"`` plane.  ZeRO-1
+(``parallel/zero.py``) cuts optimizer state over ``"data"``: the state's
+``zero1`` names each cut parameter's slice, which the optimizer steps;
+:func:`sync_grads` reduce-scatters its gradient, :func:`lm_step`
+all-gathers the new slices (:func:`gather_slices`), and the whole-tree
+readers and writers gather and cut the slices.
+
 The MoE transformer (``models/moe.py``) trains over a ``("data",
 "expert"[, "model"])`` mesh (:func:`place_moe`, the JAX ``place_moe``):
 each rank keeps its experts' slices of ``w_up``/``w_down`` (and under
@@ -93,13 +104,18 @@ from kubegpu_tpu_torch.models.params import (
     tree_map,
 )
 from kubegpu_tpu_torch.parallel.collectives import (
+    all_gather,
     data_mean,
+    data_seq_mean,
     flat_all_reduce,
     mean_grads_over_data,
+    mean_grads_over_data_seq,
     mean_grads_over_mesh,
     mesh_mean,
+    reduce_scatter,
 )
 from kubegpu_tpu_torch.parallel.mesh import (
+    DATA_AXIS,
     EXPERT_AXIS,
     MODEL_AXIS,
     SEQ_AXIS,
@@ -114,6 +130,7 @@ from kubegpu_tpu_torch.parallel.sharding import (
     placed_dims,
     rules_of,
     shard_dims,
+    shard_slice,
     shard_state,
 )
 
@@ -202,7 +219,13 @@ class TrainState:
     """The model bound to its float32 tree, the optimizer over it (built
     from ``optimizer``), the number of steps taken (the JAX
     ``TrainState.step``) and the model's BatchNorm statistics
-    (``batch_stats``, bound to its buffers; empty for the LM)."""
+    (``batch_stats``, bound to its buffers; empty for the LM).
+
+    Under ZeRO-1 (``parallel/zero.py``) ``zero1`` maps each parameter
+    whose optimizer state is cut over ``"data"`` to ``(dim, part)``:
+    ``part`` is this rank's slice of it along ``dim``, a tensor of its
+    own that the optimizer steps in the parameter's place (empty: every
+    parameter is stepped itself)."""
 
     model: nn.Module
     params: Tree
@@ -210,6 +233,8 @@ class TrainState:
     step: int = 0
     optimizer: Optimizer = field(default_factory=Optimizer)
     batch_stats: Tree = field(default_factory=dict)
+    zero1: Dict[nn.Parameter, Tuple[int, torch.Tensor]] = field(
+        default_factory=dict)
 
     @property
     def mesh(self):
@@ -242,18 +267,41 @@ def _leaf(tree: Mapping, dotted: str):
     return tree
 
 
+def stepped(state: TrainState, param: nn.Parameter) -> torch.Tensor:
+    """The tensor the optimizer steps for ``param``: its ZeRO-1 slice
+    (``state.zero1``), else the parameter itself."""
+    owned = state.zero1.get(param)
+    return param if owned is None else owned[1]
+
+
+def _data_part(state: TrainState, param: nn.Parameter,
+               t: torch.Tensor) -> torch.Tensor:
+    """This rank's ZeRO-1 slice of ``t`` (a leaf in ``param``'s shape),
+    or ``t`` where ``param``'s state is not cut over ``"data"``."""
+    owned = state.zero1.get(param)
+    if owned is None:
+        return t
+    mesh = state.mesh
+    return shard_slice(t, owned[0], mesh.coord(DATA_AXIS),
+                       mesh.axis_size(DATA_AXIS))
+
+
 def set_param_opt_state(state: TrainState, param: nn.Parameter,
                         slots: Mapping[str, torch.Tensor],
                         count: Optional[int] = None,
                         copy: bool = True) -> None:
     """One parameter's optimizer state from optax-layout leaves (``slots``
     by name, this rank's shard; Adam's ``count``), on the parameter's
-    device; ``copy=False`` lets a leaf already there become the state."""
-    slot_state = state.opt.state[param]
+    device; ``copy=False`` lets a leaf already there become the state.
+    Under ZeRO-1 the state is this rank's ``"data"`` slice of each leaf,
+    always copied (a slice would keep the whole leaf alive)."""
+    target = stepped(state, param)
+    slot_state = state.opt.state[target]
     slot_state.clear()
+    cut = target is not param
     for name, key in state.optimizer.slots.items():
-        slot_state[key] = slots[name].to(device=param.device,
-                                         dtype=torch.float32, copy=copy)
+        slot_state[key] = _data_part(state, param, slots[name]).to(
+            device=target.device, dtype=torch.float32, copy=copy or cut)
     if state.optimizer.name == "adam":
         # torch keeps Adam's step count as a float32 host tensor per
         # parameter; optax one int32 count
@@ -328,7 +376,8 @@ def place_lm(model: nn.Module, params: Mapping,
     Megatron rules (``shard_state``: a moment shards like its parameter,
     Adam's ``count`` is replicated), copied onto the mesh's device, so
     the whole tree can be freed once the caller drops it.  Every rank of
-    a ``"data"`` group gets the same shards."""
+    a ``"data"`` group gets the same shards (on a 3-D mesh, every rank of
+    a ``"data"`` x ``"seq"`` plane)."""
     mesh = mesh if mesh is not None else getattr(model, "mesh", None)
     if mesh is None:
         raise ValueError("place_lm needs a mesh (the model's or mesh=)")
@@ -454,12 +503,17 @@ def _param_tree(state: TrainState, leaf) -> Tree:
     return tree
 
 
-def _slot_tree(state: TrainState, key: str) -> Tree:
-    def buffer(param):
-        buf = state.opt.state.get(param, {}).get(key)
-        return torch.zeros_like(param) if buf is None else buf.detach()
+def _slot_buffer(state: TrainState, param: nn.Parameter,
+                 key: str) -> torch.Tensor:
+    """``param``'s optimizer buffer ``key`` (its ZeRO-1 slice's), zeros
+    before the first step."""
+    target = stepped(state, param)
+    buf = state.opt.state.get(target, {}).get(key)
+    return torch.zeros_like(target) if buf is None else buf.detach()
 
-    return _param_tree(state, buffer)
+
+def _slot_tree(state: TrainState, key: str) -> Tree:
+    return _param_tree(state, lambda param: _slot_buffer(state, param, key))
 
 
 def step_count(state: TrainState) -> torch.Tensor:
@@ -474,7 +528,8 @@ def step_count(state: TrainState) -> torch.Tensor:
 def opt_state_tree(state: TrainState) -> Tree:
     """The optimizer's state in optax's layout (:class:`Optimizer`):
     each per-parameter state in the parameter tree's layout (over a
-    mesh, this rank's shards of it), zeros before the first step."""
+    mesh, this rank's shards of it, ZeRO-1's ``"data"`` slices
+    included), zeros before the first step."""
     out: Tree = {name: _slot_tree(state, key)
                  for name, key in state.optimizer.slots.items()}
     if state.optimizer.name == "adam":
@@ -509,10 +564,11 @@ def iter_whole_state(state: TrainState) -> Iterator[Tuple[str, torch.Tensor]]:
     ResNet's statistics ``batch_stats/...`` (replicated: never
     gathered).  Over a
     mesh each sharded leaf is all-gathered over ``"model"`` as it comes
-    (every rank of a ``"model"`` group iterates it in step); at one
-    device the leaves are the state's own tensors, detached, not
-    copies.  One leaf at a time keeps a save's extra memory to one
-    leaf."""
+    (every rank of a ``"model"`` group iterates it in step), and under
+    ZeRO-1 each optimizer slice over ``"data"`` first (then every rank
+    iterates it); at one device the leaves are the state's own tensors,
+    detached, not copies.  One leaf at a time keeps a save's extra
+    memory to one leaf."""
     mesh = state.mesh
     place = mesh_place(mesh)
     rules = rules_of(state.model)
@@ -527,9 +583,10 @@ def iter_whole_state(state: TrainState) -> Iterator[Tuple[str, torch.Tensor]]:
         yield f"params/{_path(name)}", whole(_path(name), param)
     for slot, key in state.optimizer.slots.items():
         for name, param in named:
-            buf = state.opt.state.get(param, {}).get(key)
-            if buf is None:
-                buf = torch.zeros_like(param)
+            buf = _slot_buffer(state, param, key)
+            owned = state.zero1.get(param)
+            if owned is not None:
+                buf = all_gather(buf, mesh, owned[0], axis=DATA_AXIS)
             yield f"opt_state/{slot}/{_path(name)}", whole(_path(name), buf)
     if state.optimizer.name == "adam":
         yield "opt_state/count", step_count(state)
@@ -540,8 +597,9 @@ def iter_whole_state(state: TrainState) -> Iterator[Tuple[str, torch.Tensor]]:
 def gather_state(state: TrainState) -> Tuple[Tree, Tree]:
     """The whole parameter tree and optimizer state (optax's layout:
     ``{"trace": tree}`` for sgd) from every ``"model"`` rank's shards
-    (every rank of a ``"model"`` group calls it); at one device, copies
-    of both.  (A ResNet's statistics are the state's ``batch_stats``.)"""
+    (every rank of a ``"model"`` group calls it; under ZeRO-1 every
+    rank); at one device, copies of both.  (A ResNet's statistics are
+    the state's ``batch_stats``.)"""
     params: Tree = {}
     opt: Tree = {}
     for path, t in iter_whole_state(state):
@@ -647,7 +705,10 @@ def lm_loss(model: nn.Module, tokens: torch.Tensor) -> torch.Tensor:
     ``"seq"`` axis of cp ranks the model reads this rank's ``s / cp``
     rows, ``tokens[:, i * s / cp:(i + 1) * s / cp]`` at coordinate i,
     and predicts the token after each; the value is the mean over
-    ``"data"`` x ``"seq"``."""
+    ``"data"`` x ``"seq"``.  With a ``"model"`` axis too (the 3-D mesh)
+    the logits are this rank's vocab columns, reduced over ``"model"``
+    by the vocab-parallel :func:`cross_entropy`, and the mean is taken
+    over this rank's ``"data"`` x ``"seq"`` plane."""
     mesh = getattr(model, "mesh", None)
     if getattr(model, "cp_mesh", None) is not None:
         cp = cp_size(mesh)
@@ -658,7 +719,9 @@ def lm_loss(model: nn.Module, tokens: torch.Tensor) -> torch.Tensor:
         s_loc = s // cp
         first = mesh.coord(SEQ_AXIS) * s_loc
         rows = tokens[:, first:first + s_loc + 1]
-        loss = cross_entropy(model(rows[:, :-1]), rows[:, 1:])
+        loss = cross_entropy(model(rows[:, :-1]), rows[:, 1:], mesh)
+        if MODEL_AXIS in mesh.axis_names:
+            return data_seq_mean(loss, mesh)
         return mesh_mean(loss, mesh)
     loss = cross_entropy(model(tokens[:, :-1]), tokens[:, 1:], mesh)
     return loss if mesh is None else data_mean(loss, mesh)
@@ -678,25 +741,58 @@ def sync_grads(state: TrainState) -> None:
     differentiated its own rows of the LayerNorms), then (b) average all
     gradients over ``"data"`` in one flat all-reduce.  Context parallel,
     every gradient is averaged over all ranks (``"data"`` x ``"seq"``)
-    in one flat all-reduce.  Nothing at one device."""
+    in one flat all-reduce; on a 3-D mesh over this rank's ``"data"`` x
+    ``"seq"`` plane (the LayerNorms need no sum over ``"model"``: the
+    stream is replicated there).  Nothing at one device.
+
+    Under ZeRO-1 (``state.zero1``) each cut parameter's gradient is
+    instead reduce-scattered over ``"data"`` onto its slice (divided by
+    dp) and dropped from the parameter."""
     mesh = state.mesh
     if mesh is None:
         return
     if getattr(state.model, "cp_mesh", None) is not None:
-        mean_grads_over_mesh([p.grad for p in state.model.parameters()],
-                             mesh)
+        grads = [p.grad for p in state.model.parameters()]
+        if MODEL_AXIS in mesh.axis_names:
+            mean_grads_over_data_seq(grads, mesh)
+        else:
+            mean_grads_over_mesh(grads, mesh)
         return
     if getattr(state.model, "seq_sharded", False):
         flat_all_reduce([p.grad for p in replicated_params(state.model)],
                         mesh.group)
-    mean_grads_over_data([p.grad for p in state.model.parameters()], mesh)
+    mean_grads_over_data([p.grad for p in state.model.parameters()
+                          if p not in state.zero1], mesh)
+    dp = mesh.axis_size(DATA_AXIS)
+    for param, (dim, part) in state.zero1.items():
+        part.grad = reduce_scatter(param.grad, mesh, DATA_AXIS,
+                                   dim).mul_(1.0 / dp)
+        param.grad = None
+
+
+def refresh_slices(state: TrainState) -> None:
+    """Each ZeRO-1 slice copied from its parameter, after the parameters
+    were set in place (a restore); nothing without ZeRO-1."""
+    with torch.no_grad():
+        for param, (_, part) in state.zero1.items():
+            part.copy_(_data_part(state, param, param))
+
+
+def gather_slices(state: TrainState) -> None:
+    """After a ZeRO-1 update: each parameter cut over ``"data"`` becomes
+    the all-gather of every data rank's new slice (nothing without
+    ZeRO-1)."""
+    with torch.no_grad():
+        for param, (dim, part) in state.zero1.items():
+            param.copy_(all_gather(part, state.mesh, dim, axis=DATA_AXIS))
 
 
 def lm_grads(state: TrainState, tokens: torch.Tensor) -> torch.Tensor:
     """The step's loss and gradients, without the update: zero the
     gradients, differentiate :func:`lm_loss`, :func:`sync_grads`.  Each
     parameter's ``.grad`` is then the gradient of the global mean loss
-    for this rank's shard."""
+    for this rank's shard (under ZeRO-1 its slice's, for a parameter
+    cut over ``"data"``)."""
     state.opt.zero_grad(set_to_none=True)
     loss = lm_loss(state.model, tokens)
     loss.backward()
@@ -707,10 +803,12 @@ def lm_grads(state: TrainState, tokens: torch.Tensor) -> torch.Tensor:
 def lm_step(state: TrainState, tokens: torch.Tensor) -> torch.Tensor:
     """One training step, the JAX ``make_lm_train_step``'s: loss,
     gradients (:func:`lm_grads`), one update of the state's optimizer in
-    place on this rank's shards.  Returns the step's loss as a 0-d
-    tensor on the device (no host sync)."""
+    place on this rank's shards (under ZeRO-1 on its slices, then
+    :func:`gather_slices`).  Returns the step's loss as a 0-d tensor on
+    the device (no host sync)."""
     loss = lm_grads(state, tokens)
     state.opt.step()
+    gather_slices(state)
     state.step += 1
     return loss
 

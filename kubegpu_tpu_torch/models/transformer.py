@@ -1,6 +1,7 @@
 """The decoder-only LM the trainer runs: the port of
 ``kubegpu_tpu/models/transformer.py`` at one device, over a
-``("data", "model")`` mesh and over a ``("data", "seq")`` mesh.
+``("data", "model")`` mesh, over a ``("data", "seq")`` mesh and over a
+``("data", "model", "seq")`` mesh.
 
 ``TransformerLM`` has the flax model's parameter tree (the tree
 ``models/params.py`` describes, shared with the decode models) and its
@@ -63,8 +64,25 @@ full attention GSPMD computes for the JAX model, this rank's query rows
 against K/V gathered over ``"seq"`` (``gather_axis``, reduce-scattered
 backward) under the causal mask offset by ``my * s / cp``.  ``"flash"``
 is refused there (the worker turns it into ``"ring"``, as the JAX
-worker does).  A mesh with both ``"model"`` and ``"seq"`` (JAX's DP x TP
-x CP) waits for a later slice.
+worker does).
+
+Over a mesh with both ``"model"`` and ``"seq"`` (JAX's DP x TP x CP,
+``context_parallel=True``) the two compose.  Every rank holds its
+Megatron shard of the tree (whole over ``"seq"``) and its ``s / cp``
+rows; the residual stream is ``(data, seq)``-sharded and replicated over
+``"model"`` (JAX's ``constrain_ctx_sharded``; ``sequence_parallel``
+changes nothing, as in JAX, whose ``Block`` checks ``context_parallel``
+first), so *f* and *g* surround each pair of matmuls.  The attention
+follows the JAX rule (:func:`cp_heads_sharded`): where ``heads % tp ==
+0`` (and, for Ulysses, ``(heads / tp) % cp == 0``) each rank runs the CP
+attention on its own ``heads / tp`` heads; otherwise the heads are
+replicated over ``"model"``: q, k and v are gathered over ``"model"``
+along their columns (``gather_axis``, reduce-scattered backward), the CP
+attention runs on every head, and the rank keeps its ``hidden / tp``
+columns of the result for the row-parallel ``o_proj`` (a column shard,
+not whole heads: 2 heads over tp 4 put half a head on a rank).  The head
+stays vocab-parallel; ``train.lm_loss`` reduces its logits over
+``"model"`` and averages over ``"data"`` x ``"seq"``.
 """
 
 from __future__ import annotations
@@ -94,7 +112,12 @@ from kubegpu_tpu_torch.parallel.collectives import (
     scatter_seq,
     split_seq,
 )
-from kubegpu_tpu_torch.parallel.mesh import MODEL_AXIS, SEQ_AXIS, tp_size
+from kubegpu_tpu_torch.parallel.mesh import (
+    MODEL_AXIS,
+    SEQ_AXIS,
+    cp_size,
+    tp_size,
+)
 
 ATTN_IMPLS = ("einsum", "flash", "ring", "ulysses")
 # context-parallel attention; without a "seq" axis it runs flash
@@ -106,31 +129,59 @@ def check_attn_impl(attn_impl: str) -> None:
         raise ValueError(f"attn_impl {attn_impl!r}: one of {ATTN_IMPLS}")
 
 
+def cp_heads_sharded(num_heads: int, tp: int, cp: int,
+                     attn_impl: str) -> bool:
+    """Whether heads stay sharded over ``"model"`` through the attention
+    of a TP x CP mesh (``kubegpu_tpu/models/transformer.py:71-83``): the
+    heads must divide by tp and, for Ulysses' head scatter, this rank's
+    ``heads / tp`` by cp.  Otherwise they are replicated over
+    ``"model"``."""
+    return num_heads % tp == 0 and (
+        attn_impl != "ulysses" or (num_heads // tp) % cp == 0)
+
+
 class CausalSelfAttention(nn.Module):
     """This rank's ``num_heads / tp`` heads (all of them at ``tp`` 1):
     column-parallel q/k/v, and ``o_proj``'s partial product, which the
-    block sums over the ``"model"`` ranks."""
+    block sums over the ``"model"`` ranks.  With ``heads_mesh`` set (TP
+    x CP with heads replicated over ``"model"``) it gathers q, k and v's
+    columns over ``"model"``, attends on every head and keeps this
+    rank's columns of the result."""
 
     def __init__(self, hidden: int, num_heads: int, dtype: torch.dtype,
                  attn_impl: str = "einsum", tp: int = 1) -> None:
         super().__init__()
         check_attn_impl(attn_impl)
-        self.num_heads = num_heads // tp
         self.head_dim = hidden // num_heads
         self.dtype = dtype
         self.attn_impl = attn_impl
-        # the ("data", "seq") mesh under context parallelism, else None
+        # the mesh with a "seq" axis under context parallelism, else None
         self.cp_mesh = None
+        # the mesh whose "model" ranks replicate the heads, else None
+        self.heads_mesh = None
         for name in ("q_proj", "k_proj", "v_proj"):
             setattr(self, name, Dense(hidden, hidden // tp, dtype))
         self.o_proj = Dense(hidden // tp, hidden, dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         b, s, _ = x.shape
-        h, hd = self.num_heads, self.head_dim
-        q = self.q_proj(x).view(b, s, h, hd)
-        k = self.k_proj(x).view(b, s, h, hd)
-        v = self.v_proj(x).view(b, s, h, hd)
+        q, k, v = self.q_proj(x), self.k_proj(x), self.v_proj(x)
+        whole = self.heads_mesh
+        if whole is not None:
+            q, k, v = (gather_axis(t, whole, MODEL_AXIS, dim=-1)
+                       for t in (q, k, v))
+        hd = self.head_dim
+        h = q.shape[-1] // hd
+        out = self._attend(*(t.view(b, s, h, hd) for t in (q, k, v)))
+        out = out.reshape(b, s, h * hd)
+        if whole is not None:
+            cols = out.shape[-1] // tp_size(whole)
+            out = out.narrow(-1, whole.coord(MODEL_AXIS) * cols, cols)
+        return self.o_proj(out)
+
+    def _attend(self, q: torch.Tensor, k: torch.Tensor,
+                v: torch.Tensor) -> torch.Tensor:
+        s, hd = q.shape[1], self.head_dim
         mesh = self.cp_mesh
         if mesh is not None and self.attn_impl == "ring":
             out = ring_attention(q, k, v, mesh, True)
@@ -144,14 +195,15 @@ class CausalSelfAttention(nn.Module):
                 # this rank's query rows against the whole sequence's K/V
                 offset = mesh.coord(SEQ_AXIS) * s
                 k, v = gather_axis(k, mesh), gather_axis(v, mesh)
+            dev = q.device
             scores = torch.einsum("bqhd,bkhd->bhqk", q, k) / attn_scale(
-                hd, self.dtype, x.device)
-            mask = (torch.arange(k.shape[1], device=x.device)[None, :]
-                    <= offset + torch.arange(s, device=x.device)[:, None])
+                hd, self.dtype, dev)
+            mask = (torch.arange(k.shape[1], device=dev)[None, :]
+                    <= offset + torch.arange(s, device=dev)[:, None])
             scores = torch.where(mask, scores, torch.finfo(self.dtype).min)
             probs = torch.softmax(scores.float(), dim=-1).to(self.dtype)
             out = torch.einsum("bhqk,bkhd->bqhd", probs, v)
-        return self.o_proj(out.reshape(b, s, h * hd))
+        return out
 
 
 class Block(nn.Module):
@@ -204,7 +256,8 @@ class TransformerLM(LMBase):
     a mesh with a ``"model"`` axis this rank's ``(b, s, vocab / tp)``
     (under sequence parallelism ``s`` must divide by tp).  Context
     parallel over a ``"seq"`` axis, ``tokens`` are this rank's
-    ``(b, s / cp)`` rows and the logits theirs."""
+    ``(b, s / cp)`` rows and the logits theirs (with a ``"model"`` axis
+    too, their ``vocab / tp`` columns)."""
 
     block_cls = Block
 
@@ -216,13 +269,10 @@ class TransformerLM(LMBase):
                  mesh=None) -> None:
         check_attn_impl(attn_impl)
         tp = tp_size(mesh)
+        # context parallel over the mesh: s / cp rows a rank throughout
+        cp_mesh = None
+        heads_sharded = True
         if mesh is not None and SEQ_AXIS in mesh.axis_names:
-            if MODEL_AXIS in mesh.axis_names:
-                raise NotImplementedError(
-                    f"a mesh of {tuple(mesh.axis_names)}: data x tensor x "
-                    "context parallelism (JAX's 3-D DP x TP x CP mesh) "
-                    "arrives with a later slice of the port; use a "
-                    "('data', 'model') or a ('data', 'seq') mesh")
             if not context_parallel:
                 raise ValueError("a mesh with a 'seq' axis trains the "
                                  "context-parallel model: "
@@ -232,7 +282,11 @@ class TransformerLM(LMBase):
                     "attn_impl='flash' over a 'seq' axis: context-parallel "
                     "attention is 'ring', 'ulysses' or 'einsum' (the "
                     "worker runs --attn-impl flash as ring)")
-        for what, n in (("num_heads", num_heads), ("vocab_size", vocab_size)):
+            cp_mesh = mesh
+            heads_sharded = tp == 1 or cp_heads_sharded(
+                num_heads, tp, cp_size(mesh), attn_impl)
+        for what, n in (("num_heads", num_heads if heads_sharded else 0),
+                        ("vocab_size", vocab_size), ("hidden", hidden)):
             if n % tp:
                 raise ValueError(f"{what} {n} does not divide over tp={tp}")
         super().__init__(vocab_size=vocab_size, num_layers=num_layers,
@@ -242,14 +296,14 @@ class TransformerLM(LMBase):
         self.attn_impl = attn_impl
         self.remat = remat
         self.tp = tp
-        # the residual stream lives on s / tp rows a rank
-        self.seq_sharded = sequence_parallel and tp > 1
-        # context parallel over the mesh: s / cp rows a rank throughout
-        self.cp_mesh = (mesh if context_parallel and mesh is not None
-                        and SEQ_AXIS in mesh.axis_names else None)
+        self.cp_mesh = cp_mesh
+        # the residual stream lives on s / tp rows a rank (under context
+        # parallelism it lives on the "seq" rows instead, as in JAX)
+        self.seq_sharded = sequence_parallel and tp > 1 and cp_mesh is None
         for block in self.blocks():
             block.attn.attn_impl = attn_impl
-            block.attn.cp_mesh = self.cp_mesh
+            block.attn.cp_mesh = cp_mesh
+            block.attn.heads_mesh = None if heads_sharded else mesh
             block.sequence_parallel = self.seq_sharded
 
     def forward(self, tokens: torch.Tensor) -> torch.Tensor:

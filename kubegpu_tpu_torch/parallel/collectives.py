@@ -51,12 +51,19 @@ Context parallelism, along the ``"seq"`` axis (the JAX collectives
 - :func:`seq_to_heads` / :func:`heads_to_seq`: the Ulysses all-to-alls
   (``all_to_all_single`` on a contiguous repack), each the other's
   backward;
-- :func:`gather_axis`: all-gather of the sequence dim forward,
-  reduce-scatter backward, over any axis (the einsum attention's K/V
-  under CP);
+- :func:`gather_axis`: all-gather forward, reduce-scatter backward,
+  over any axis and along any dim (the einsum attention's K/V under CP,
+  and under TP x CP the q, k and v of heads replicated over
+  ``"model"``);
 - :func:`mesh_mean` and :func:`mean_grads_over_mesh`: the loss's and the
   gradients' mean over every rank (``"data"`` x ``"seq"``), the
-  parameters being replicated on each.
+  parameters being replicated on each; on a 3-D mesh
+  :func:`data_seq_mean` and :func:`mean_grads_over_data_seq` take them
+  over this rank's ``"data"`` x ``"seq"`` plane, since a parameter
+  sharded over ``"model"`` must be averaged with its own shard only.
+
+ZeRO-1 (``parallel/zero.py``) reduce-scatters a gradient over ``"data"``
+onto this rank's slice with :func:`reduce_scatter`, outside autograd.
 
 Pipeline parallelism, along the ``"pipe"`` axis (the three crossings of
 the JAX ``pipeline_apply``'s ``shard_map``):
@@ -82,13 +89,15 @@ the JAX ``pipeline_apply``'s ``shard_map``):
 Gloo carries CUDA tensors through its own host copies for its
 collectives; NCCL keeps them on the card.  Gloo's point-to-point and
 all-to-all ops take CPU tensors only, so on gloo a CUDA tensor crossing
-:func:`ring_shift`, :func:`pipe_hop` or the all-to-alls is staged
-explicitly: copied into a pinned host buffer, exchanged, and copied back
-(the transport of a gang whose ranks share one card).
+:func:`ring_shift`, :func:`pipe_hop`, the all-to-alls or
+:func:`reduce_scatter` is staged explicitly: copied into a pinned host
+buffer, exchanged, and copied back (the transport of a gang whose ranks
+share one card).
 :data:`CP_TRAFFIC` counts the bytes this process sent through the
 point-to-point shifts (the ring's hops along ``"seq"`` and the
 pipeline's along ``"pipe"``, under ``"ring_shift"``) and the
-all-to-alls, and the bytes it staged through the host.
+all-to-alls, and the bytes it staged through the host (those of the
+ZeRO-1 reduce-scatters too).
 
 Every rank runs the same collectives in the same order, and each result
 is bit-identical on every rank of the group: an all-reduce computes
@@ -103,6 +112,7 @@ import torch.distributed as dist
 
 from kubegpu_tpu_torch.parallel.mesh import (
     DATA_AXIS,
+    DATA_SEQ,
     MODEL_AXIS,
     PIPE_AXIS,
     SEQ_AXIS,
@@ -261,16 +271,16 @@ class _GatherHidden(torch.autograd.Function):
         return _slice(g, ctx.mesh, -1), None
 
 
-class _DataMean(torch.autograd.Function):
+class _GroupMean(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, mesh):
+    def forward(ctx, x, group, n):
         y = x.detach().clone()
-        dist.all_reduce(y, group=mesh.axis_group(DATA_AXIS))
-        return y / mesh.axis_size(DATA_AXIS)
+        dist.all_reduce(y, group=group)
+        return y / n
 
     @staticmethod
     def backward(ctx, g):
-        return g, None
+        return g, None, None
 
 
 def copy_to_model(x: torch.Tensor, mesh: Mesh,
@@ -329,9 +339,10 @@ def data_mean(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
     """The mean of ``x`` over the ``"data"`` ranks; the gradient passes
     through unchanged (each data rank differentiates its own rows, and
     :func:`mean_grads_over_data` averages the gradients)."""
-    if mesh.axis_size(DATA_AXIS) == 1:
+    dp = mesh.axis_size(DATA_AXIS)
+    if dp == 1:
         return x
-    return _DataMean.apply(x, mesh)
+    return _GroupMean.apply(x, mesh.axis_group(DATA_AXIS), dp)
 
 
 def flat_all_reduce(tensors: Sequence[torch.Tensor], group,
@@ -585,40 +596,44 @@ def heads_to_seq(y: torch.Tensor, mesh: Mesh,
 
 class _GatherAxis(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, mesh, axis):
-        ctx.mesh, ctx.axis = mesh, axis
-        return _gather(x, mesh.axis_group(axis), mesh.axis_size(axis),
-                       SEQ_DIM)
+    def forward(ctx, x, mesh, axis, dim):
+        ctx.mesh, ctx.axis, ctx.dim = mesh, axis, dim
+        return _gather(x, mesh.axis_group(axis), mesh.axis_size(axis), dim)
 
     @staticmethod
     def backward(ctx, g):
-        m = ctx.mesh
-        return (_reduce_scatter_over(g, m.axis_group(ctx.axis),
-                                     m.axis_size(ctx.axis),
-                                     m.coord(ctx.axis), SEQ_DIM),
-                None, None)
+        return reduce_scatter(g, ctx.mesh, ctx.axis, ctx.dim), None, None, None
 
 
-def gather_axis(x: torch.Tensor, mesh: Mesh,
-                axis: str = SEQ_AXIS) -> torch.Tensor:
-    """Every ``axis`` rank's ``(b, s, ...)`` ``x`` concatenated along the
-    sequence in rank order; the gradient is reduce-scattered back (each
-    rank's rows of the sum of every rank's gradient)."""
+def gather_axis(x: torch.Tensor, mesh: Mesh, axis: str = SEQ_AXIS,
+                dim: int = SEQ_DIM) -> torch.Tensor:
+    """Every ``axis`` rank's ``x`` concatenated along ``dim`` (default
+    the sequence of a ``(b, s, ...)`` tensor) in rank order; the gradient
+    is reduce-scattered back (each rank's slice of the sum of every
+    rank's gradient): every rank goes on to use the whole tensor for a
+    part of the result (the einsum attention's K/V under CP; q, k and v
+    gathered over ``"model"`` where TP x CP replicates the heads)."""
     if mesh.axis_size(axis) == 1:
         return x
-    return _GatherAxis.apply(x, mesh, axis)
+    return _GatherAxis.apply(x, mesh, axis, dim)
 
 
-class _MeshMean(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, x, mesh):
-        y = x.detach().clone()
-        dist.all_reduce(y)
-        return y / mesh.size
-
-    @staticmethod
-    def backward(ctx, g):
-        return g, None
+def reduce_scatter(x: torch.Tensor, mesh: Mesh, axis: str,
+                   dim: int) -> torch.Tensor:
+    """This rank's slice along ``dim`` (one of ``n`` equal ones, by its
+    ``axis`` coordinate) of the sum of every ``axis`` rank's ``x``, a new
+    tensor.  Outside autograd.  On gloo a CUDA ``x`` is staged through
+    pinned host buffers (counted in ``CP_TRAFFIC["host_staged"]``), as
+    the point-to-point shifts are."""
+    n, i = mesh.axis_size(axis), mesh.coord(axis)
+    if n == 1:
+        return x.clone()
+    if not _staged(mesh, x):
+        return _reduce_scatter_over(x, mesh.axis_group(axis), n, i, dim)
+    parts = [_to_host(p) for p in x.chunk(n, dim=dim)]
+    out = _empty_like(parts[i], True)
+    dist.reduce_scatter(out, parts, group=mesh.axis_group(axis))
+    return out.to(x.device)
 
 
 def mesh_mean(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
@@ -627,7 +642,7 @@ def mesh_mean(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
     :func:`mean_grads_over_mesh` averages the gradients)."""
     if mesh.size == 1:
         return x
-    return _MeshMean.apply(x, mesh)
+    return _GroupMean.apply(x, dist.group.WORLD, mesh.size)
 
 
 def mean_grads_over_mesh(grads: Sequence[torch.Tensor], mesh: Mesh) -> None:
@@ -636,6 +651,33 @@ def mean_grads_over_mesh(grads: Sequence[torch.Tensor], mesh: Mesh) -> None:
     gradients of parameters every rank holds whole."""
     if mesh.size > 1:
         flat_all_reduce(grads, dist.group.WORLD, 1.0 / mesh.size)
+
+
+def _data_seq(mesh: Mesh) -> tuple:
+    """This rank's ``"data"`` x ``"seq"`` plane: its group and size."""
+    n = mesh.axis_size(DATA_AXIS) * mesh.axis_size(SEQ_AXIS)
+    return mesh.axis_group(DATA_SEQ), n
+
+
+def data_seq_mean(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    """:func:`mesh_mean` over this rank's ``"data"`` x ``"seq"`` plane
+    (the ranks of its ``"model"`` coordinate) on a 3-D mesh, where every
+    ``"model"`` rank of a plane's line holds the same value."""
+    group, n = _data_seq(mesh)
+    if n == 1:
+        return x
+    return _GroupMean.apply(x, group, n)
+
+
+def mean_grads_over_data_seq(grads: Sequence[torch.Tensor],
+                             mesh: Mesh) -> None:
+    """:func:`mean_grads_over_mesh` over this rank's ``"data"`` x
+    ``"seq"`` plane: on a 3-D mesh a parameter sharded over ``"model"``
+    is averaged with the same shard on the other ranks of its
+    ``"model"`` coordinate, never with another shard."""
+    group, n = _data_seq(mesh)
+    if n > 1:
+        flat_all_reduce(grads, group, 1.0 / n)
 
 
 # -- pipeline parallelism: the "pipe" axis -----------------------------------

@@ -192,9 +192,15 @@ class Gang:
             p.start()
             self._procs.append(p)
 
-    def run(self, fn: Callable, *args, timeout_s: Optional[float] = None):
+    def start(self) -> "Gang":
+        """Start the ranks now, if they are not running (:meth:`run`
+        starts them otherwise), so that several gangs start together."""
         if not self._procs:
             self._start()
+        return self
+
+    def run(self, fn: Callable, *args, timeout_s: Optional[float] = None):
+        self.start()
         for q in self._inboxes:
             q.put((fn, args))
         deadline = time.monotonic() + (timeout_s or self.timeout_s)

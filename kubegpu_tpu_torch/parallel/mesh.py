@@ -31,7 +31,15 @@ the gang from the injected ``JAX_*`` env (:func:`distributed_init_from_env`,
 a :class:`GangTable`); its ranks then join the other pods' in one
 world through the coordinator's store (``parallel/launch.py``), global
 rank ``process_id x L + i`` for its local rank i of L, the process-major
-device order of JAX's gang.  ``Mesh.local_size`` records L."""
+device order of JAX's gang.  ``Mesh.local_size`` records L.
+
+A mesh with both ``"model"`` and ``"seq"`` (data x tensor x context
+parallelism) also has a group for each ``"model"`` coordinate: the
+ranks that differ from this one only along ``"data"`` and ``"seq"``
+(:data:`DATA_SEQ`), over which the loss and the gradients are averaged.
+:func:`remesh` lays the same world out as a mesh of another shape (new
+groups over the same ranks), so one gang of processes can run several
+meshes of its size in turn."""
 
 from __future__ import annotations
 
@@ -52,6 +60,8 @@ MODEL_AXIS = "model"
 SEQ_AXIS = "seq"
 EXPERT_AXIS = "expert"
 PIPE_AXIS = "pipe"
+# the plane a 3-D mesh averages over: every rank of one "model" coordinate
+DATA_SEQ = (DATA_AXIS, SEQ_AXIS)
 BACKENDS = ("nccl", "gloo")
 # the longest any wait of a gang's rendezvous lasts by default: a pod
 # that never arrives makes the others fail after it
@@ -116,7 +126,9 @@ class Mesh:
     axis's group of this rank, ``control`` the host objects (always
     gloo), ``device`` is where this rank's tensors live.  ``local_size``
     is the number of ranks in this rank's pod (default ``size``: one
-    host holds them all)."""
+    host holds them all).  On a mesh with ``"model"`` and ``"seq"``,
+    ``axis_groups[DATA_SEQ]`` is this rank's ``"data"`` x ``"seq"``
+    plane."""
 
     size: int
     rank: int
@@ -127,8 +139,10 @@ class Mesh:
     axis_names: Tuple[str, ...] = (MODEL_AXIS,)
     devices: Tuple[str, ...] = field(default_factory=tuple)
     axis_sizes: Tuple[int, ...] = ()
-    axis_groups: Dict[str, object] = field(default_factory=dict)
+    axis_groups: Dict[Union[str, Tuple[str, ...]], object] = field(
+        default_factory=dict)
     local_size: Optional[int] = None
+    timeout_s: float = 300.0
 
     def __post_init__(self) -> None:
         if self.local_size is None:
@@ -155,8 +169,9 @@ class Mesh:
         coords = np.unravel_index(self.rank, tuple(self.shape.values()))
         return int(coords[self.axis_names.index(axis)])
 
-    def axis_group(self, axis: str):
-        """The process group of this rank's line along ``axis``."""
+    def axis_group(self, axis: Union[str, Tuple[str, ...]]):
+        """The process group of this rank's line along ``axis`` (or of
+        its plane along a tuple of axes, :data:`DATA_SEQ`)."""
         if axis in self.axis_groups:
             return self.axis_groups[axis]
         if self.axis_names == (axis,):
@@ -196,14 +211,48 @@ def pp_size(mesh: Optional[Mesh]) -> int:
     return int(mesh.shape[PIPE_AXIS])
 
 
-def _axis_lines(axes: Mapping[str, int], axis: str):
-    """The ranks of every line of the mesh along ``axis``, each line in
-    coordinate order, the lines in the order of the other coordinates:
-    the groups every rank creates, in the same order."""
+def _axis_lines(axes: Mapping[str, int], *along: str):
+    """The ranks of every line of the mesh along ``along`` (one axis, or
+    the plane of several, those the mesh lacks left out), each in
+    coordinate order (row-major over ``along``), the lines in the order
+    of the other coordinates: the groups every rank creates, in the same
+    order."""
+    along = [a for a in along if a in axes]
     sizes = tuple(axes.values())
     grid = np.arange(int(np.prod(sizes))).reshape(sizes)
-    grid = np.moveaxis(grid, list(axes).index(axis), -1)
-    return [list(map(int, line)) for line in grid.reshape(-1, axes[axis])]
+    names = list(axes)
+    grid = np.moveaxis(grid, [names.index(a) for a in along],
+                       range(-len(along), 0))
+    width = int(np.prod([axes[a] for a in along]))
+    return [list(map(int, line)) for line in grid.reshape(-1, width)]
+
+
+def _mesh_groups(axes: Mapping[str, int], rank: int, timeout: timedelta
+                 ) -> Dict[Union[str, Tuple[str, ...]], object]:
+    """Create every group of a mesh of ``axes`` (every rank calls it, in
+    one order: ``new_group`` is collective over the world) and return
+    this rank's: one a line along each axis of a mesh of more than one,
+    and on a mesh with ``"model"`` and ``"seq"`` the ``"data"`` x
+    ``"seq"`` planes (:data:`DATA_SEQ`)."""
+    groups: Dict[Union[str, Tuple[str, ...]], object] = {}
+    along = [(axis,) for axis in axes] if len(axes) > 1 else []
+    if MODEL_AXIS in axes and SEQ_AXIS in axes:
+        along.append(DATA_SEQ)
+    for names in along:
+        for line in _axis_lines(axes, *names):
+            g = dist.new_group(ranks=line, timeout=timeout)
+            if rank in line:
+                groups[names[0] if len(names) == 1 else names] = g
+    return groups
+
+
+def _axes(axes: Union[int, Mapping[str, int]]) -> Dict[str, int]:
+    if isinstance(axes, int):
+        axes = {MODEL_AXIS: axes}
+    axes = {str(k): int(v) for k, v in axes.items()}
+    if any(v < 1 for v in axes.values()):
+        raise ValueError(f"mesh axes {axes}: every width must be >= 1")
+    return axes
 
 
 def device_mesh(axes: Union[int, Mapping[str, int]], rank: int, *,
@@ -224,12 +273,8 @@ def device_mesh(axes: Union[int, Mapping[str, int]], rank: int, *,
 
     On a mesh of more than one axis every rank creates every axis's
     groups, its own and the others', in one order
-    (:func:`_axis_lines`): ``new_group`` is collective over the world."""
-    if isinstance(axes, int):
-        axes = {MODEL_AXIS: axes}
-    axes = {str(k): int(v) for k, v in axes.items()}
-    if any(v < 1 for v in axes.values()):
-        raise ValueError(f"mesh axes {axes}: every width must be >= 1")
+    (:func:`_mesh_groups`): ``new_group`` is collective over the world."""
+    axes = _axes(axes)
     size = int(np.prod(list(axes.values())))
     if backend not in BACKENDS:
         raise ValueError(f"backend {backend!r}: one of {BACKENDS}")
@@ -244,19 +289,36 @@ def device_mesh(axes: Union[int, Mapping[str, int]], rank: int, *,
     control = dist.new_group(
         backend="gloo",
         timeout=timedelta(seconds=idle_timeout_s or timeout_s))
-    groups: Dict[str, object] = {}
-    if len(axes) > 1:
-        for axis in axes:
-            for line in _axis_lines(axes, axis):
-                g = dist.new_group(ranks=line, timeout=timeout)
-                if rank in line:
-                    groups[axis] = g
-    group = groups.get(MODEL_AXIS, dist.group.WORLD)
+    groups = _mesh_groups(axes, rank, timeout)
     return Mesh(size=size, rank=rank, device=dev, backend=backend,
-                group=group, control=control, axis_names=tuple(axes),
+                group=groups.get(MODEL_AXIS, dist.group.WORLD),
+                control=control, axis_names=tuple(axes),
                 devices=tuple(devices),
                 axis_sizes=tuple(axes.values()) if len(axes) > 1 else (),
-                axis_groups=groups, local_size=local_size)
+                axis_groups=groups, local_size=local_size,
+                timeout_s=timeout_s)
+
+
+def remesh(mesh: Mesh, axes: Union[int, Mapping[str, int]]) -> Mesh:
+    """The world of ``mesh`` laid out as a mesh of ``axes`` (as many
+    ranks): the same rank, device, backend and control group, new
+    groups for the new axes (every rank calls it, in one order).  One
+    gang of processes then runs a mesh of another shape without
+    starting again."""
+    axes = _axes(axes)
+    size = int(np.prod(list(axes.values())))
+    if size != mesh.size:
+        raise ValueError(f"mesh axes {axes} hold {size} ranks; the world "
+                         f"holds {mesh.size}")
+    groups = _mesh_groups(axes, mesh.rank, timedelta(seconds=mesh.timeout_s))
+    return Mesh(size=size, rank=mesh.rank, device=mesh.device,
+                backend=mesh.backend,
+                group=groups.get(MODEL_AXIS, dist.group.WORLD),
+                control=mesh.control, axis_names=tuple(axes),
+                devices=mesh.devices,
+                axis_sizes=tuple(axes.values()) if len(axes) > 1 else (),
+                axis_groups=groups, local_size=mesh.local_size,
+                timeout_s=mesh.timeout_s)
 
 
 def close_mesh(mesh: Mesh) -> None:

@@ -23,8 +23,10 @@ here on four of the 8 CPU devices of ``tests/conftest.py`` under
   refusals (the JAX worker's ``_split_mesh`` and ``--seq``), and a run
   resumed from ``--ckpt-dir`` (under ``DIR/lm-cp``) equal to an
   uninterrupted one bit for bit.
-- The model's refusals: a mesh with ``"model"`` and ``"seq"`` waits for
-  a later slice; ``"flash"`` over a ``"seq"`` axis is refused.
+- The model's refusals: a 3-D mesh (``"model"`` and ``"seq"``, trained
+  in ``tests/test_torch_3d_train.py``) without ``context_parallel=True``
+  or with a vocab that does not divide by tp; ``"flash"`` over a
+  ``"seq"`` axis.
 """
 
 import re
@@ -251,9 +253,13 @@ def cp_mesh(axes, rank=0):
 
 
 def test_the_model_refuses_what_this_slice_does_not_run():
-    with pytest.raises(NotImplementedError, match="later slice"):
-        TransformerLM(mesh=cp_mesh({"data": 1, "model": 2, "seq": 2}),
-                      context_parallel=True, attn_impl="ring", **CFG)
+    mesh_3d = cp_mesh({"data": 1, "model": 2, "seq": 2})
+    with pytest.raises(ValueError, match="context_parallel=True"):
+        TransformerLM(mesh=mesh_3d, attn_impl="ring", **CFG)
+    with pytest.raises(ValueError, match="vocab_size 63 does not divide "
+                                         "over tp=2"):
+        TransformerLM(mesh=mesh_3d, context_parallel=True, attn_impl="ring",
+                      **dict(CFG, vocab_size=63))
     with pytest.raises(ValueError, match="'flash' over a 'seq' axis"):
         TransformerLM(mesh=cp_mesh(AXES), context_parallel=True,
                       attn_impl="flash", **CFG)

@@ -1,8 +1,10 @@
 """The port stands alone: no module of kubegpu_tpu_torch, not
 chip_smoke.py and not the rank bodies of the gangs
 (tests/torch_tp_cases.py, tests/torch_resnet_cases.py,
-tests/torch_moe_cases.py, tests/torch_pp_cases.py, and the pods of
-tests/torch_gang_cases.py, whose processes must run without JAX) imports
+tests/torch_moe_cases.py, tests/torch_pp_cases.py,
+tests/torch_cp_cases.py, tests/torch_3d_cases.py,
+tests/torch_zero_cases.py, and the pods of tests/torch_gang_cases.py,
+whose processes must run without JAX) imports
 jax, flax, orbax or the JAX package, nor the Orbax converter
 (tools/orbax_to_torch_checkpoint.py); its entry points run on the card
 unless the caller asks for the CPU."""
@@ -23,6 +25,9 @@ RESNET_CASES = os.path.join(REPO, "tests", "torch_resnet_cases.py")
 MOE_CASES = os.path.join(REPO, "tests", "torch_moe_cases.py")
 PP_CASES = os.path.join(REPO, "tests", "torch_pp_cases.py")
 GANG_CASES = os.path.join(REPO, "tests", "torch_gang_cases.py")
+CP_CASES = os.path.join(REPO, "tests", "torch_cp_cases.py")
+CASES_3D = os.path.join(REPO, "tests", "torch_3d_cases.py")
+ZERO_CASES = os.path.join(REPO, "tests", "torch_zero_cases.py")
 FORBIDDEN_ROOTS = ("jax", "jaxlib", "flax", "orbax", "kubegpu_tpu",
                    "orbax_to_torch_checkpoint", "tools")
 
@@ -38,6 +43,9 @@ def port_sources():
     yield MOE_CASES
     yield PP_CASES
     yield GANG_CASES
+    yield CP_CASES
+    yield CASES_3D
+    yield ZERO_CASES
 
 
 def test_importing_every_module_leaves_jax_out():
@@ -53,6 +61,9 @@ def test_importing_every_module_leaves_jax_out():
         "import torch_moe_cases\n"
         "import torch_pp_cases\n"
         "import torch_gang_cases\n"
+        "import torch_cp_cases\n"
+        "import torch_3d_cases\n"
+        "import torch_zero_cases\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         f"{FORBIDDEN_ROOTS!r})\n"
         "print(len(names), bad)\n"
@@ -71,9 +82,9 @@ def test_importing_every_module_leaves_jax_out():
     # stdlib-only modules, the sampling slice's counter-based PRNG, the
     # dense serving slice's batchers, the tensor-parallel slice's
     # modules, the data x tensor-parallel training they carry, the
-    # ResNet, the MoE transformer and the pipeline
+    # ResNet, the MoE transformer, the pipeline and ZeRO-1
     for name in ("models.resnet", "models.moe", "models.pipeline_lm",
-                 "parallel.pipeline", "gateway", "gateway.client",
+                 "parallel.pipeline", "parallel.zero", "gateway", "gateway.client",
                  "gateway.dataplane", "utils", "utils.metrics",
                  "utils.tracing", "utils.metric_names", "ops.prng", "models.serving", "models.spec_serving",
                  "parallel.mesh", "parallel.sharding",
@@ -194,6 +205,28 @@ def test_training_entry_points_default_to_the_card(monkeypatch):
         flash_backward_dkdv(q, q, q, q, q, q, True)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         flash_backward_dq(q, q, q, q, q, q, True)
+
+
+def test_3d_and_zero1_placement_default_to_the_card(monkeypatch):
+    """The 3-D mesh's model and ZeRO-1's placement put nothing on a
+    card that is not there: they raise, never fall back to the CPU."""
+    from kubegpu_tpu_torch.models.train import place_lm
+    from kubegpu_tpu_torch.models.transformer import TransformerLM
+    from kubegpu_tpu_torch.parallel.mesh import Mesh
+    from kubegpu_tpu_torch.parallel.zero import place_zero1_lm
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = dict(vocab_size=16, num_layers=1, num_heads=2, hidden=16,
+               max_seq=16)
+    mesh = Mesh(size=8, rank=0, device=torch.device("cuda"), backend="gloo",
+                axis_names=("data", "model", "seq"), axis_sizes=(2, 2, 2))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        place_lm(TransformerLM(mesh=mesh, context_parallel=True,
+                               attn_impl="ring", **cfg), {})
+    mesh = Mesh(size=2, rank=0, device=torch.device("cuda"), backend="gloo",
+                axis_names=("data",))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        place_zero1_lm(TransformerLM(mesh=mesh, **cfg), {})
 
 
 def test_resnet_entry_points_default_to_the_card(monkeypatch):

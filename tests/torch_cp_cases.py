@@ -30,6 +30,7 @@ from torch_tp_cases import (
     _synced,
     data_rows,
     flash_counts,
+    on_mesh,
     weights,
 )
 
@@ -108,8 +109,10 @@ def _cp_state(mesh, spec: dict):
     ``params`` (whole weights, see ``torch_tp_cases.weights``), optional
     ``trace`` (the whole momentum as numpy), ``optimizer``, ``step``,
     ``cfg`` (the model's widths), ``model`` (``attn_impl``, ``remat``),
-    ``dtype`` (the compute type, default float32)."""
-    from kubegpu_tpu_torch.models.train import place_cp_lm
+    ``dtype`` (the compute type, default float32).  On a mesh with a
+    ``"model"`` axis too (the 3-D mesh) the rank keeps its Megatron
+    shards (``place_lm``), else the whole trees (``place_cp_lm``)."""
+    from kubegpu_tpu_torch.models.train import place_cp_lm, place_lm
     from kubegpu_tpu_torch.models.transformer import TransformerLM
 
     _jax_free()
@@ -117,20 +120,22 @@ def _cp_state(mesh, spec: dict):
                           context_parallel=True, **spec["cfg"],
                           **spec.get("model", {}))
     trace = spec.get("trace")
-    return place_cp_lm(model, weights(spec["params"], mesh.device),
-                       opt_state=(None if trace is None else
-                                  {"trace": weights(trace, mesh.device)}),
-                       optimizer=spec.get("optimizer"),
-                       step=spec.get("step", 0))
+    place = place_lm if "model" in mesh.axis_names else place_cp_lm
+    return place(model, weights(spec["params"], mesh.device),
+                 opt_state=(None if trace is None else
+                            {"trace": weights(trace, mesh.device)}),
+                 optimizer=spec.get("optimizer"), step=spec.get("step", 0))
 
 
 def cp_grads(mesh, spec: dict) -> dict:
     """One step's loss and gradients, no update (``lm_grads``), on
     ``spec["tokens"][0]``: rank 0 returns the loss and every gradient
     leaf (equal on every rank) and each rank's flash launches, by
-    rank."""
+    rank.  ``spec["axes"]`` lays the gang's world out as that mesh
+    (``torch_tp_cases.on_mesh``)."""
     from kubegpu_tpu_torch.models.train import grad_tree, lm_grads
 
+    mesh = on_mesh(mesh, spec)
     state = _cp_state(mesh, spec)
     flash_counts(zero=True)
     loss = lm_grads(state, data_rows(mesh, spec["tokens"][0]))
@@ -156,8 +161,9 @@ def cp_steps(mesh, spec: dict) -> dict:
 
 def cp_flagship(mesh, spec: dict) -> dict:
     """``spec["steps"]`` steps at a full width (weights drawn on every
-    rank from ``spec["params"]``'s seed) on
-    ``synthetic_token_batches_for_mesh`` rows, then this rank's numbers:
+    rank from ``spec["params"]``'s seed; on a 3-D mesh each rank keeps its
+    shards) on ``synthetic_token_batches_for_mesh`` rows, then this
+    rank's numbers:
     rank 0 returns, in rank order, each rank's losses, seconds a step,
     flash launches, bytes sent along ``"seq"`` a step, peak device
     memory and coordinates, and unless ``spec["parts"]`` is False the
@@ -168,6 +174,7 @@ def cp_flagship(mesh, spec: dict) -> dict:
     )
     from kubegpu_tpu_torch.models.train import lm_loss, lm_step, sync_grads
 
+    mesh = on_mesh(mesh, spec)
     dev = mesh.device
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
@@ -206,6 +213,10 @@ def cp_flagship(mesh, spec: dict) -> dict:
                 peak_bytes=(torch.cuda.max_memory_allocated(dev)
                             if dev.type == "cuda" else None),
                 coords=(mesh.coord("data"), mesh.coord("seq")))
+    # the card's memory back for the next call in a shared gang
+    del state, tokens
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
     every = gather_objects(mine, mesh)
     return every if mesh.rank == 0 else None
 

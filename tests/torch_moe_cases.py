@@ -20,7 +20,14 @@ import time
 import numpy as np
 import torch
 
-from torch_tp_cases import _agreed, _jax_free, _np, data_rows, flash_counts
+from torch_tp_cases import (
+    _agreed,
+    _jax_free,
+    _np,
+    data_rows,
+    flash_counts,
+    on_mesh,
+)
 
 from kubegpu_tpu_torch.models.params import (
     init_moe_params,
@@ -95,11 +102,13 @@ def moe_grads(mesh, spec: dict) -> dict:
     """One step's loss, aux and gradients, no update (``moe_grads``) on
     ``spec["tokens"][0]``, and the layers' mean drop rate: rank 0
     returns them, every gradient leaf whole, and the flash launches,
-    equal on every rank (``mesh`` None: one device's)."""
+    equal on every rank (``mesh`` None: one device's).  ``spec["axes"]``
+    lays the gang's world out as that mesh (``torch_tp_cases.on_mesh``)."""
     from kubegpu_tpu_torch.models.moe import moe_router_stats
     from kubegpu_tpu_torch.models.train import grad_tree, moe_grads as grads
     from kubegpu_tpu_torch.parallel.sharding import gather_params, rules_of
 
+    mesh = on_mesh(mesh, spec)
     state = moe_state(mesh, spec)
     tokens = _rows(mesh, spec["tokens"][0], _device(mesh, spec))
     flash_counts(zero=True)
@@ -197,9 +206,12 @@ def moe_bench_width(mesh, spec: dict) -> dict:
     rank's numbers: rank 0 returns, in rank order, each rank's losses,
     seconds a step, the bytes of its expert leaves and of all its
     parameters, its flash launches, peak device memory and mesh
-    coordinates."""
+    coordinates.  ``spec["axes"]`` lays the gang's world out as that mesh
+    (``torch_tp_cases.on_mesh``); the card's memory is given back at the
+    end (a shared gang)."""
     from kubegpu_tpu_torch.models.train import moe_step
 
+    mesh = on_mesh(mesh, spec)
     dev = mesh.device
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
@@ -224,6 +236,9 @@ def moe_bench_width(mesh, spec: dict) -> dict:
                 peak_bytes=(torch.cuda.max_memory_allocated(dev)
                             if dev.type == "cuda" else None),
                 coords={a: mesh.coord(a) for a in mesh.axis_names})
+    del state, tokens
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
     every = gather_objects(mine, mesh)
     return every if mesh.rank == 0 else None
 

@@ -22,7 +22,7 @@ import time
 import numpy as np
 import torch
 
-from torch_tp_cases import _agreed, _jax_free, _np, flash_counts
+from torch_tp_cases import _agreed, _jax_free, _np, flash_counts, on_mesh
 
 from kubegpu_tpu_torch.models.params import params_from_numpy, tree_map
 
@@ -122,13 +122,16 @@ def pp_steps(mesh, spec: dict) -> dict:
     """``pipeline_lm_step`` on each of ``spec["tokens"]``: rank 0 returns
     the losses, the first step's whole gradients, the whole weights and
     momentum after the last step, the step count and the flash launches
-    (none: the blocks' attention is einsum), equal on every rank."""
+    (none: the blocks' attention is einsum), equal on every rank.
+    ``spec["axes"]`` lays the gang's world out as that mesh
+    (``torch_tp_cases.on_mesh``)."""
     from kubegpu_tpu_torch.models.pipeline_lm import (
         pipeline_lm_grads,
         pipeline_lm_step,
     )
     from kubegpu_tpu_torch.models.train import gather_state
 
+    mesh = on_mesh(mesh, spec)
     state = pp_state(mesh, spec)
     dev = _device(mesh, spec)
     batches = [torch.from_numpy(t).to(dev) for t in spec["tokens"]]
@@ -183,7 +186,9 @@ def pp_width(mesh, spec: dict) -> dict:
     synchronised card to its result on the card: the host staging and
     the wait for the peer), the bytes of its block leaves and of all its
     parameters, the bytes its hops sent and staged through the host, the
-    flash launches, its peak device memory and mesh coordinates."""
+    flash launches, its peak device memory and mesh coordinates.
+    ``spec["axes"]`` lays the gang's world out as that mesh
+    (``torch_tp_cases.on_mesh``)."""
     from kubegpu_tpu_torch.models.pipeline_lm import pipeline_lm_step
     from kubegpu_tpu_torch.parallel import pipeline
     from kubegpu_tpu_torch.parallel.collectives import (
@@ -191,6 +196,7 @@ def pp_width(mesh, spec: dict) -> dict:
         gather_objects,
     )
 
+    mesh = on_mesh(mesh, spec)
     dev = mesh.device
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)

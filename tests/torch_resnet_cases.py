@@ -176,4 +176,8 @@ def timed_steps(mesh, cfg: dict, rows: int, steps: int, size: int,
                             for p in model.parameters())
     out["peak_bytes"] = (torch.cuda.max_memory_allocated(dev)
                          if dev.type == "cuda" else None)
+    # the card's memory back for the next call in a shared gang
+    del state, model, params, stats, im, lb, loss
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
     return out

@@ -438,6 +438,19 @@ def _train_state(mesh, spec: dict):
                     step=spec.get("step", 0))
 
 
+def on_mesh(mesh, spec: dict):
+    """The gang's world laid out as ``spec["axes"]`` (``mesh.remesh``: new
+    groups over the same ranks), or ``mesh`` itself where ``spec`` names
+    no other shape (or ``mesh`` is None: one device): one gang runs
+    meshes of several shapes in turn."""
+    from kubegpu_tpu_torch.parallel.mesh import remesh
+
+    axes = spec.get("axes")
+    if mesh is None or axes is None or dict(axes) == mesh.shape:
+        return mesh
+    return remesh(mesh, axes)
+
+
 def data_rows(mesh, tokens: np.ndarray) -> torch.Tensor:
     """This rank's ``"data"`` rows of a global token batch, on its
     device."""
