@@ -1,20 +1,27 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--group all|serving|training|gang]
+    python3 chip_smoke.py [--group all|serving|training|gang|device]
 
 Builds every kernel of the port's serving and training paths from the
-sources in the checkout, then runs sixty-eight phases; any failure
+sources in the checkout, then runs sixty-nine phases; any failure
 exits non-zero.  ``--group`` (default ``all``, every phase in the order
-below, but 66-68, which run right after 50 in the gangs of 49-50, and
-55-57, 59, 61 and 63, which run after 62 beside the gangs they share,
-so that 53-54, 58, 60 and 62 time the card with no other process on
-it; a bare call runs them so) runs phases 1 and the build, then only
-the serving phases (2-7, 11-40), the training phases (8-10, 41-63,
-66-68) or the gang phases (64-65), and prints no per-kernel record;
-each phase's seconds are printed after it as ``[phase_name N s]``.
-Gangs of ranks boot while other work runs (``Gang.start()``), and one
-gang serves several meshes by laying its world out anew (``remesh``):
+below, but 69, which runs right after the build; 52-54, 58, 60 and 62,
+which run right after 10, before any gang starts, so that they time the
+card or read its memory with no other process on it; 66-68, which run
+right after 50 in the gangs of 49-50; 51; then 55-57, 59, 61 and 63 in
+the gangs they share; and 64 and 65, which run at the same time; a bare
+call runs them so) runs phases 1 and the build, then only the serving
+phases (2-7, 11-40), the training phases (8-10, 41-63, 66-68), the gang
+phases (64-65) or the device layer (69), and prints no per-kernel
+record; each phase's seconds are printed after it as ``[phase_name N
+s]``.  Gangs of ranks boot while other work runs (``Gang.start()``):
+the four of 42-44 and the two, four and eight of 49-50 and 66-68
+beside 36-40, the two and four of 55, 59, 61 and 63 beside 42-44, all
+idle through 45-48; one gang serves several meshes by laying its world
+out anew (``remesh``).  The worker runs that phases 40, 44, 51 and 69
+expect refused (one card; a card the host lacks) start right after
+phase 1 and boot beside the build:
 
 1. device: the card's name and power limit, TF32 off;
 2. K1 (paged decode attention, ``ops/csrc/paged_attention.cu``: the
@@ -433,10 +440,17 @@ gang serves several meshes by laying its world out anew (``remesh``):
 64. ``samples/jax-resnet.yaml``'s gang on the card: 4 pods as OS
    processes, each the sample's worker command (the default ResNet-50,
    batch 32 a pod, 224 px, 1000 classes) at ``--steps 3`` instead of
-   100, with exactly the shim's rendezvous env (``worker_env``'s five
-   variables, the coordinator on 127.0.0.1) and ``CUDA_VISIBLE_DEVICES``
-   0: one world of 4 ranks on ``cuda:0`` over gloo (host-staged: no time
-   here is a data-parallel speed); every pod prints ``TRAINING_MESH
+   100, each with exactly the env the port's CRI shim injects
+   (``crishim/inject.py::compute_injection`` over ``NvmlGpuProvider``,
+   each pod bound by a one-card assignment annotation to card 0, which
+   the four share as no allocator would): card 0's NVML UUID in
+   ``CUDA_VISIBLE_DEVICES`` and ``NVIDIA_VISIBLE_DEVICES`` and the
+   rendezvous table, the pods named after loopback addresses so the
+   shim's coordinator, the first pod's hostname at a free port, is
+   127.0.0.1; every pod prints the injected variables as it got them,
+   equal to the injection byte for byte, and ``WORKER_DEVICES`` naming
+   the card: one world of 4 ranks on ``cuda:0`` over gloo (host-staged:
+   no time here is a data-parallel speed); every pod prints ``TRAINING_MESH
    data=4 process=p/4``, ``FIRST_STEP_DONE`` and ``steady_state`` with
    the same losses, and every kernel count 0 (each pod's counts are the
    paged kernels' ``gang_launches``); the first loss within 1e-2 of one
@@ -448,7 +462,8 @@ gang serves several meshes by laying its world out anew (``remesh``):
 65. an LM gang on the card (``samples/jax-lm-tp.yaml``'s shape at phase
    10's small widths: 2 pods of 1 rank, ``--model lm --tp 2``, flash
    attention, float32 compute), each pod a script calling
-   ``worker.run_lm`` under the shim's env: every step's loss within 1e-5
+   ``worker.run_lm`` under the env the port's shim injects (as in 64,
+   echoed and equal byte for byte): every step's loss within 1e-5
    of the same gang on the CPU (one process, ``--device cpu --cpu-ranks
    2``), and each pod's K3, K4 and K5 launched steps x layers times (its
    float32 instantiation; no pre-pass at float32), the per-kernel
@@ -481,6 +496,19 @@ gang serves several meshes by laying its world out anew (``remesh``):
    launched steps x layers times a rank (``zero1_launches``), each rank's
    peak device memory in both runs.
 
+69. the GPU device layer (``kubegpu_tpu_torch/plugins``): NVML through
+   ctypes counts the cards torch counts, and each card's UUID, name and
+   memory (NVML's total less the driver's reserve) are torch's; every
+   card is healthy and its ``/dev/nvidia<minor>`` opens read-write; the
+   node annotation the advertiser would write is printed; the device
+   plugin's Allocate, run on request bytes without gRPC, grants every
+   card (their UUIDs in ``CUDA_VISIBLE_DEVICES`` and
+   ``NVIDIA_VISIBLE_DEVICES``, their device nodes and the driver's
+   control nodes) and refuses a card the host lacks; a worker whose
+   ``CUDA_VISIBLE_DEVICES`` names a UUID no card has exits non-zero
+   with the no-card error, its ``WORKER_DEVICES`` line naming that UUID,
+   and trains nothing.
+
 Phases 29-34, 53-54, 60, 61-63 and 64 set every kernel's launch count to 0
 before each run and require it to be 0 after: the dense paths, the
 ResNet, the worker's einsum-attention MoE and the pipeline run none of
@@ -493,6 +521,7 @@ exits non-zero and prints no result.
 """
 
 import argparse
+import concurrent.futures
 import contextlib
 import functools
 import json
@@ -592,7 +621,8 @@ def phase_build() -> None:
     t0 = time.monotonic()
     paths = _build.build()
     log(f"build: {len(paths)} kernel libraries in "
-        f"{time.monotonic() - t0:.1f} s, one nvcc each, started together ("
+        f"{time.monotonic() - t0:.1f} s, every nvcc started together (a "
+        "parted library's parts, then its link) ("
         + ", ".join(f"{n} {s:.1f} s"
                     for n, s in _build.BUILD_SECONDS.items()) + ")")
     for name, text in _build.BUILD_LOG.items():
@@ -1740,6 +1770,7 @@ def steady_step_cost(flags) -> dict:
     cb = ps.steady_batcher(flags)
     wall, tokens = ps.timed_window(cb)
     _, kernels = ps.profiled_window(cb)
+    assert kernels, "the profiler recorded no device kernel"
     del cb
     torch.cuda.empty_cache()
     return dict(ms=wall / ps.WINDOW * 1e3, tok_s=tokens / wall,
@@ -3026,6 +3057,66 @@ def run_worker_lines(argv: list, timeout: float = 600) -> dict:
     return {line.split()[0]: line for line in out.splitlines() if line}
 
 
+# worker runs refused at their start on one card (they never reach the
+# card), begun right after phase 1 so that their interpreters boot beside
+# other phases; each phase that reads one waits for it (key -> Popen)
+_EARLY: dict = {}
+
+
+def worker_popen(argv: list, env=None):
+    import os
+
+    return subprocess.Popen(
+        [sys.executable, "-m", "kubegpu_tpu_torch.models.worker", *argv],
+        cwd=os.path.dirname(os.path.abspath(__file__)), env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+
+def refused_runs() -> dict:
+    """The refused worker runs of phases 40, 44, 51 and 69 on this machine:
+    key -> (argv, env).  Phases 40, 44 and 51 expect a refusal only with
+    fewer cards than their mesh; on more they run over NCCL instead."""
+    import torch
+
+    n_cards = torch.cuda.device_count()
+    runs = {"bogus": (BOGUS_WORKER_ARGV, bogus_env())}
+    if n_cards < TP:
+        runs.update(tp_serve=(TP_WORKER_ARGV, None),
+                    tp_train=(TRAIN_TP_WORKER_ARGV, None))
+    if n_cards < CP:
+        runs["cp"] = (CP_WORKER_ARGV, None)
+    return runs
+
+
+def start_refused(keys) -> None:
+    """Begin the refused runs ``keys`` now (:func:`refused_runs`)."""
+    runs = refused_runs()
+    for key in keys:
+        if key in runs and key not in _EARLY:
+            _EARLY[key] = worker_popen(*runs[key])
+
+
+def stop_refused() -> None:
+    """Kill and reap every early run no phase read."""
+    while _EARLY:
+        proc = _EARLY.popitem()[1]
+        proc.kill()
+        proc.communicate()
+
+
+def refused_run(key: str, argv: list, env=None):
+    """The worker on ``argv`` (under ``env``) to its exit, begun early
+    under ``key`` or else now: a ``CompletedProcess``."""
+    proc = _EARLY.pop(key, None) or worker_popen(argv, env)
+    try:
+        out, err = proc.communicate(timeout=300)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+    return subprocess.CompletedProcess(proc.args, proc.returncode, out, err)
+
+
 def fields(line: str) -> dict:
     return dict(f.split("=", 1) for f in line.split()[1:] if "=" in f)
 
@@ -3813,15 +3904,9 @@ def phase_tp(ctx: dict, device: str = "cuda", flagship: dict = TP_FLAGSHIP,
     out["gang_s"] = time.monotonic() - t_gang
     # phase 40: the worker's --tp 2 on this machine
     n_cards = torch.cuda.device_count() if device == "cuda" else 0
-    argv = ["--model", "decode", "--serving", "paged", "--tp", str(TP),
-            "--vocab", "512", "--hidden", "256", "--heads", "2", "--layers",
-            "2", "--seq", "96", "--prompt-len", "32", "--page-size", "16",
-            "--batch-per-chip", "4", "--steps", "16", "--serve-fp32"]
+    argv = TP_WORKER_ARGV
     if n_cards < TP:
-        proc = subprocess.run(
-            [sys.executable, "-m", "kubegpu_tpu_torch.models.worker", *argv],
-            cwd=os.path.dirname(os.path.abspath(__file__)),
-            capture_output=True, text=True, timeout=300)
+        proc = refused_run("tp_serve", argv)
         want = f"exceeds the visible device count {n_cards}"
         assert proc.returncode != 0 and want in proc.stderr, (
             proc.returncode, proc.stderr[-2000:])
@@ -3834,6 +3919,14 @@ def phase_tp(ctx: dict, device: str = "cuda", flagship: dict = TP_FLAGSHIP,
         assert fields(lines["SERVING_TP"])["backend"] == "nccl"
         log(f"TP over NCCL: {lines['SERVING_TP']} / {lines['DECODE_DONE']}")
     return out
+
+
+# phase 40's worker: the small model's wave at --tp 2
+TP_WORKER_ARGV = ["--model", "decode", "--serving", "paged", "--tp", str(TP),
+                  "--vocab", "512", "--hidden", "256", "--heads", "2",
+                  "--layers", "2", "--seq", "96", "--prompt-len", "32",
+                  "--page-size", "16", "--batch-per-chip", "4", "--steps",
+                  "16", "--serve-fp32"]
 
 
 # data x tensor-parallel training: a ("data", "model") mesh of four ranks
@@ -4062,23 +4155,22 @@ def phase_tp_train_flagship(gang, device: str = "cuda",
                 peak=[r["peak_bytes"] for r in every])
 
 
+TRAIN_TP_WORKER_ARGV = ["--model", "lm", "--tp", "2", "--vocab", "512",
+                        "--hidden", "256", "--heads", "4", "--layers", "2",
+                        "--seq", "128", "--batch-per-chip", "2", "--steps",
+                        "3"]
+
+
 def phase_tp_train_worker(device: str = "cuda") -> None:
     """Phase 44: the worker's ``--model lm --tp 2`` on this machine:
     refused on one card ("exceeds the visible device count"); with two
     cards or more, a few small steps over NCCL."""
-    import os
-
     import torch
 
     n_cards = torch.cuda.device_count() if device == "cuda" else 0
-    argv = ["--model", "lm", "--tp", "2", "--vocab", "512", "--hidden",
-            "256", "--heads", "4", "--layers", "2", "--seq", "128",
-            "--batch-per-chip", "2", "--steps", "3"]
+    argv = TRAIN_TP_WORKER_ARGV
     if n_cards < 2:
-        proc = subprocess.run(
-            [sys.executable, "-m", "kubegpu_tpu_torch.models.worker", *argv],
-            cwd=os.path.dirname(os.path.abspath(__file__)),
-            capture_output=True, text=True, timeout=300)
+        proc = refused_run("tp_train", argv)
         want = f"exceeds the visible device count {n_cards}"
         assert proc.returncode != 0 and want in proc.stderr, (
             proc.returncode, proc.stderr[-2000:])
@@ -4095,15 +4187,17 @@ def phase_tp_train_worker(device: str = "cuda") -> None:
 def phase_tp_train(device: str = "cuda", small: dict = TRAIN_SMALL,
                    flagship: dict = TRAIN_FLAGSHIP,
                    run: dict = TRAIN_FLAGSHIP_RUN,
-                   ckpt_root: str = None) -> dict:
+                   ckpt_root: str = None, gang=None) -> dict:
     """Phases 42-44 in one four-rank gang (``device="cpu"`` with small
-    configs rehearses them on the CPU); with ``ckpt_root``, phase 47's
-    mesh half runs in the same gang."""
+    configs rehearses them on the CPU): ``gang``, started by the caller
+    (closed here), else its own; with ``ckpt_root``, phase 47's mesh half
+    runs in the same gang."""
     import tempfile
 
-    # the gang boots beside phase 42's one-device steps
-    with train_gang(tempfile.mkdtemp(prefix="chip-smoke-train-"),
-                    device).start() as gang:
+    # the gang boots beside earlier phases, or beside phase 42's
+    # one-device steps
+    with (gang or train_gang(tempfile.mkdtemp(prefix="chip-smoke-train-"),
+                             device)).start() as gang:
         t0 = time.monotonic()
         phase_tp_train_small(gang, device, small)
         log(f"train small phase {time.monotonic() - t0:.1f} s (the gang's "
@@ -4734,6 +4828,11 @@ def phase_cp_flagship(device: str = "cuda", cfg: dict = CP_FLAGSHIP,
                 ref=ref)
 
 
+CP_WORKER_ARGV = ["--model", "lm-cp", "--cp", "2", "--vocab", "512",
+                  "--hidden", "256", "--heads", "4", "--layers", "2", "--seq",
+                  "128", "--batch-per-chip", "2", "--steps", "3"]
+
+
 def phase_cp_worker(device: str = "cuda", sample=CP_SAMPLE_ARGV) -> dict:
     """Phase 51: the worker's ``--model lm-cp``: ``--cp 2`` refused on a
     one-card machine ("exceeds the visible device count"), NCCL reported
@@ -4742,19 +4841,12 @@ def phase_cp_worker(device: str = "cuda", sample=CP_SAMPLE_ARGV) -> dict:
     subprocess: a {"data": 1, "seq": 1} mesh whose ring runs one
     diagonal block, K3, K4, K5 and the pre-pass launched steps x layers
     times."""
-    import os
-
     import torch
 
     n_cards = torch.cuda.device_count() if device == "cuda" else 0
-    argv = ["--model", "lm-cp", "--cp", "2", "--vocab", "512", "--hidden",
-            "256", "--heads", "4", "--layers", "2", "--seq", "128",
-            "--batch-per-chip", "2", "--steps", "3"]
+    argv = CP_WORKER_ARGV
     if device == "cuda" and n_cards < 2:
-        proc = subprocess.run(
-            [sys.executable, "-m", "kubegpu_tpu_torch.models.worker", *argv],
-            cwd=os.path.dirname(os.path.abspath(__file__)),
-            capture_output=True, text=True, timeout=300)
+        proc = refused_run("cp", argv)
         want = f"exceeds the visible device count {n_cards}"
         assert proc.returncode != 0 and want in proc.stderr, (
             proc.returncode, proc.stderr[-2000:])
@@ -6346,31 +6438,78 @@ def gang_cases():
     return torch_gang_cases
 
 
-def pod_env(hostnames: list, i: int, port: int) -> dict:
-    """The CRI shim's rendezvous env (``worker_env``) for pod ``i`` of a
-    gang whose pods' hostnames are ``hostnames`` (in the shim's sorted
-    order), with the coordinator on loopback at ``port``."""
-    return {
-        "TPU_WORKER_ID": str(i),
-        "TPU_WORKER_HOSTNAMES": ",".join(hostnames),
-        "JAX_COORDINATOR_ADDRESS": f"127.0.0.1:{port}",
-        "JAX_NUM_PROCESSES": str(len(hostnames)),
-        "JAX_PROCESS_ID": str(i),
-    }
+# the pods of a gang on this host are named after loopback addresses, one
+# a pod (as pod IPs would be), so the CRI shim's coordinator address, the
+# first pod's hostname and the rendezvous port, reaches every pod
+GANG_POD_NAMES = "127.0.0.{}"
 
 
-def gang_pod_envs(name: str, pods: int, device: str) -> list:
-    """The env of each of ``pods`` pods of the sample ``name`` (pods
-    ``name-i`` under the headless service ``name``), the coordinator on
-    a free loopback port; on the card every pod sees card 0 only, as a
-    device plugin would hand each pod its card."""
-    hosts = [f"{name}-{i}.{name}.default.svc" for i in range(pods)]
-    port = gang_cases().free_port()
-    envs = [pod_env(hosts, i, port) for i in range(pods)]
+def gang_provider(device: str):
+    """The node's device provider: NVML on the card; a fake host of one
+    card in a CPU rehearsal."""
     if device == "cuda":
-        for env in envs:
-            env["CUDA_VISIBLE_DEVICES"] = "0"
+        from kubegpu_tpu_torch.plugins.discovery import NvmlGpuProvider
+
+        return NvmlGpuProvider()
+    from kubegpu_tpu_torch.plugins.fake import FakeGpuHost
+
+    return FakeGpuHost("cpu-rehearsal", cards=1).provider()
+
+
+def gang_pods(name: str, pods: int, node: str) -> list:
+    """The Pod objects of a gang of ``pods`` pods of the sample ``name``
+    (its pod group, one container ``worker`` asking for one card), each
+    bound by a one-card assignment annotation to card 0 of ``node``: on
+    one card the pods share it, which a real allocator would not do."""
+    from kubegpu_tpu_torch.types import annotations
+    from kubegpu_tpu_torch.types.info import Assignment, ChipRef
+    from kubegpu_tpu_torch.types.resource import RES_TPU
+
+    card = ChipRef(host=node, device_index=0, chip_id=0, coords=(0,))
+    assignment = annotations.encode_assignment(Assignment(
+        node=node, slice_id=node, per_container={"worker": [card]}))
+    return [{
+        "metadata": {"name": GANG_POD_NAMES.format(i + 1),
+                     "namespace": "default",
+                     "annotations": {
+                         annotations.POD_GROUP: name,
+                         annotations.POD_GROUP_SIZE: str(pods),
+                         annotations.POD_ASSIGNMENT: assignment}},
+        "spec": {"nodeName": node, "containers": [{
+            "name": "worker", "resources": {"limits": {RES_TPU: "1"}}}]},
+    } for i in range(pods)]
+
+
+def gang_pod_envs(name: str, pods: int, provider, port: int) -> list:
+    """The env of each pod of :func:`gang_pods` on ``provider``'s node as
+    the port's CRI shim injects it (``compute_injection`` over the gang's
+    member names): card 0's UUID in ``CUDA_VISIBLE_DEVICES`` and
+    ``NVIDIA_VISIBLE_DEVICES``, and the rendezvous table, its coordinator
+    the first pod's hostname at ``port`` (a free loopback port, none
+    fixed)."""
+    from kubegpu_tpu_torch.crishim.inject import compute_injection
+    from kubegpu_tpu_torch.types import annotations
+
+    frag = provider.enumerate()
+    assert frag is not None and frag.chips[0].healthy, frag
+    objs = gang_pods(name, pods, frag.node_name)
+    names = [o["metadata"]["name"] for o in objs]
+    envs = []
+    for obj in objs:
+        pod = annotations.pod_from_k8s(obj)
+        envs.append(dict(compute_injection(
+            pod, "worker", provider, member_names=names,
+            subdomain=pod.subdomain, coordinator_port=port).env))
     return envs
+
+
+def check_pod_envs(outs: list, envs: list) -> None:
+    """Each pod ran on exactly its injection: the variables it printed
+    (``POD_ENV``) equal the shim's, byte for byte."""
+    g = gang_cases()
+    for p, ((_, out, _, _), env) in enumerate(zip(outs, envs)):
+        got = g.pod_env_of(out)
+        assert got == env, (p, got, env)
 
 
 def pod_lines(out: str) -> dict:
@@ -6396,15 +6535,20 @@ def phase_gang_resnet(device: str = "cuda", argv=GANG_RESNET_ARGV,
     g = gang_cases()
     zero_counts()
     extra = [] if device == "cuda" else ["--device", "cpu"]
+    envs = gang_pod_envs("jax-resnet", pods, gang_provider(device),
+                         g.free_port())
     t0 = time.monotonic()
-    outs = g.run_commands([g.worker_command(argv + extra)] * pods,
-                          gang_pod_envs("jax-resnet", pods, device),
-                          timeout_s=900)
+    outs = g.run_commands(
+        [g.worker_command(argv + extra, echo_env=sorted(envs[0]))] * pods,
+        envs, timeout_s=900)
     wall = time.monotonic() - t0
     assert_no_kernel("resnet gang (this process)")
+    check_pod_envs(outs, envs)
     rows = []
     for p, (_, out, _, secs) in enumerate(outs):
         lines = pod_lines(out)
+        seen = fields(lines["WORKER_DEVICES"])["visible_devices"]
+        assert seen == envs[p]["CUDA_VISIBLE_DEVICES"], lines["WORKER_DEVICES"]
         mesh = fields(lines["TRAINING_MESH"])
         assert (mesh["data"], mesh["process"], mesh["backend"]) == (
             str(pods), f"{p}/{pods}", "gloo"), lines["TRAINING_MESH"]
@@ -6443,6 +6587,9 @@ def phase_gang_resnet(device: str = "cuda", argv=GANG_RESNET_ARGV,
             f" s after the worker's start, the pod's process {r['wall_s']:.1f}"
             f" s in all; peak device memory {r['peak_gib']} GiB; steady "
             f"{r['images_per_sec']} images/s")
+    log(f"resnet gang's env: each pod's {sorted(envs[0])} as the port's "
+        f"shim injected it (card 0, {envs[0]['CUDA_VISIBLE_DEVICES']}; "
+        f"coordinator {envs[0]['JAX_COORDINATOR_ADDRESS']})")
     log(f"resnet gang ({pods} pods of `{' '.join(argv)}` on one card over "
         f"gloo, host-staged): losses {rows[0]['first_loss']} -> "
         f"{rows[0]['last_loss']} on every pod; {step_s:.3f} s a step of "
@@ -6496,15 +6643,19 @@ def phase_gang_lm(device: str = "cuda", argv=GANG_LM_ARGV) -> dict:
     against the same gang on the CPU in one process."""
     g = gang_cases()
     pods = 2
+    envs = gang_pod_envs("jax-lm-tp", pods, gang_provider(device),
+                         g.free_port())
     t0 = time.monotonic()
     pod_argv = argv + ([] if device == "cuda" else ["--device", "cpu"])
     outs = g.run_commands(
-        [g.pod_script("run_lm", pod_argv, fp32=True)] * pods,
-        gang_pod_envs("jax-lm-tp", pods, device),
+        [g.pod_script("run_lm", pod_argv, fp32=True,
+                      echo_env=sorted(envs[0]))] * pods,
+        envs,
         g.pod_script("run_lm", argv + ["--device", "cpu", "--cpu-ranks",
                                        str(pods)], fp32=True),
         timeout_s=900)
     wall = time.monotonic() - t0
+    check_pod_envs(outs[:pods], envs)
     cpu = g.losses_of(outs[pods][1])
     steps = int(argv[argv.index("--steps") + 1])
     layers = int(argv[argv.index("--layers") + 1])
@@ -6534,6 +6685,121 @@ def phase_gang_lm(device: str = "cuda", argv=GANG_LM_ARGV) -> dict:
     return dict(launches=launches, worst=worst, wall_s=wall)
 
 
+# a card no host has: the worker given only it must find no card
+BOGUS_UUID = "GPU-00000000-0000-0000-0000-000000000000"
+BOGUS_WORKER_ARGV = ["--steps", "1"]
+
+
+def bogus_env() -> dict:
+    """This process's env but for the rendezvous variables, with
+    ``CUDA_VISIBLE_DEVICES`` only :data:`BOGUS_UUID`."""
+    import os
+
+    from kubegpu_tpu_torch.types.resource import ENV_VISIBLE_DEVICES
+
+    env = {k: v for k, v in os.environ.items()
+           if k not in gang_cases().RENDEZVOUS_ENV}
+    env[ENV_VISIBLE_DEVICES] = BOGUS_UUID
+    return env
+
+
+def torch_uuid(index: int) -> str:
+    """Card ``index``'s UUID as CUDA reports it, in NVML's ``GPU-`` form."""
+    import torch
+
+    u = str(torch.cuda.get_device_properties(index).uuid)
+    return u if u.startswith("GPU-") else "GPU-" + u
+
+
+def phase_device_layer() -> dict:
+    """Phase 69: the GPU device layer on the card: NVML's cards against
+    torch's, their health and device nodes, the node annotation, the
+    device plugin's Allocate on request bytes, and a worker whose
+    ``CUDA_VISIBLE_DEVICES`` names a card the host lacks."""
+    import os
+
+    import torch
+
+    from kubegpu_tpu_torch.plugins.deviceplugin import DevicePluginServer
+    from kubegpu_tpu_torch.plugins.provider import (
+        CONTROL_DEVICES,
+        ENV_NVIDIA_VISIBLE_DEVICES,
+        ENV_VISIBLE_DEVICES,
+    )
+    from kubegpu_tpu_torch.types import annotations
+    from kubegpu_tpu_torch.utils import protowire as pw
+
+    t0 = time.monotonic()
+    provider = gang_provider("cuda")
+    probe = provider.probe()
+    assert probe is not None, "libnvidia-ml.so.1 did not load"
+    n = torch.cuda.device_count()
+    assert len(probe.cards) == n, (len(probe.cards), n)
+    by_uuid = {torch_uuid(i): i for i in range(n)}
+    for card in probe.cards:
+        assert card.error is None, card
+        assert card.uuid in by_uuid, (
+            f"NVML card {card.index}'s UUID is none of torch's cards'")
+        props = torch.cuda.get_device_properties(by_uuid[card.uuid])
+        assert card.name == props.name, (card.name, props.name)
+        # CUDA offers a process NVML's total less the driver's reserve
+        assert card.memory_usable == props.total_memory, (
+            card.memory_total, card.memory_reserved, props.total_memory)
+        node = provider.device_node(card.minor)
+        assert os.path.exists(node) and provider.card_healthy(card), node
+        log(f"NVML card {card.index} (driver {probe.driver_version}): "
+            f"{card.name}, {card.uuid} = torch's cuda:{by_uuid[card.uuid]}; "
+            f"total {card.memory_total} B less reserved "
+            f"{card.memory_reserved} B = torch's {props.total_memory} B; "
+            f"{node} (minor {card.minor}) opens read-write; PCI bus id "
+            f"{card.pci_bus_id or 'not exposed by this driver'}")
+    frag = provider.enumerate()
+    assert [c.healthy for c in frag.chips] == [True] * n, frag
+    assert provider.healthy_device_indices() == list(range(n))
+    payload = annotations.encode_node_topology(frag.to_node_info())
+    log(f"node annotation {annotations.NODE_TOPOLOGY}={payload}")
+    # the device plugin's inventory and Allocate, request bytes in and
+    # response bytes out, no gRPC
+    plugin = DevicePluginServer(provider)
+    assert plugin._inventory() == {str(i): True for i in range(n)}
+    ids = [str(i) for i in range(n)]
+    req = pw.encode_len_field(1, b"".join(pw.encode_string_field(1, d)
+                                          for d in ids))
+    (resp,) = pw.get_all(plugin.allocate(req, None), 1)
+    env = pw.decode_string_map(pw.get_all(bytes(resp), 1))
+    uuids = ",".join(c.uuid for c in probe.cards)
+    assert env == {ENV_VISIBLE_DEVICES: uuids,
+                   ENV_NVIDIA_VISIBLE_DEVICES: uuids}, env
+    devices = [bytes(pw.get_field(bytes(d), 2)).decode()
+               for d in pw.get_all(bytes(resp), 3)]
+    want = [provider.device_node(c.minor) for c in probe.cards]
+    want += [p for p in (f"/dev/{c}" for c in CONTROL_DEVICES)
+             if os.path.exists(p)]
+    assert devices == want, devices
+    log(f"device plugin Allocate({ids}): env {env}, devices {devices}")
+    try:
+        plugin.allocate(pw.encode_len_field(1, pw.encode_string_field(
+            1, str(n))), None)
+    except ValueError as e:
+        log(f"device plugin Allocate(['{n}']) refused: {e}")
+    else:
+        raise AssertionError(f"Allocate of card {n} on a host of {n} passed")
+    # a worker given only a card the host lacks finds no card, and does
+    # not train on the CPU
+    assert BOGUS_UUID not in by_uuid
+    proc = refused_run("bogus", BOGUS_WORKER_ARGV, bogus_env())
+    assert proc.returncode != 0, proc.stdout[-2000:]
+    assert "no CUDA device is available" in proc.stderr, proc.stderr[-2000:]
+    assert f"visible_devices={BOGUS_UUID}" in proc.stdout, proc.stdout
+    assert "FIRST_STEP_DONE" not in proc.stdout, proc.stdout[-2000:]
+    last = proc.stderr.strip().splitlines()[-1]
+    log(f"worker with CUDA_VISIBLE_DEVICES={BOGUS_UUID}: exit "
+        f"{proc.returncode}, {last}")
+    wall = time.monotonic() - t0
+    log(f"device layer: {n} card(s), phase {wall:.1f} s")
+    return dict(cards=n, annotation=payload, wall_s=wall)
+
+
 def _timed(fn):
     """``fn`` that prints its seconds after it, as ``[name N s]``."""
     @functools.wraps(fn)
@@ -6546,7 +6812,11 @@ def _timed(fn):
     return run
 
 
-GROUPS = ("all", "serving", "training", "gang")
+GROUPS = ("all", "serving", "training", "gang", "device")
+# the gangs the training phases share, by label: their meshes' axes
+SMOKE_GANGS = {"train": TRAIN_AXES, "cp2": {"data": 1, "seq": CP},
+               "cp4": {"data": 2, "seq": CP}, "3d": AXES_3D,
+               "gang2": {"data": 2}, "gang4": {"data": 2, "expert": 2}}
 
 
 def main(argv=None) -> int:
@@ -6569,11 +6839,36 @@ def main(argv=None) -> int:
 
 
 def _run(group: str, torch) -> int:
+    with contextlib.ExitStack() as stack:
+        stack.callback(stop_refused)
+        return _run_phases(group, torch, stack)
+
+
+def _run_phases(group: str, torch, stack) -> int:
     serving = group in ("all", "serving")
     training = group in ("all", "training")
+    gangs = {}
+
+    def start_gangs(*labels) -> list:
+        """The gangs ``labels`` of :data:`SMOKE_GANGS`, each started here
+        unless it was already, and closed when the run ends."""
+        for label in labels:
+            if label not in gangs:
+                gangs[label] = stack.enter_context(cp_gang(
+                    SMOKE_GANGS[label], tempfile.mkdtemp(
+                        prefix=f"chip-smoke-{label}-"), "cuda"))
+                gangs[label].start()
+        return [gangs[label] for label in labels]
+
     t0 = time.monotonic()
     name, smi = phase_device()
+    # the refused workers' interpreters boot beside the build
+    start_refused(["bogus"] * (group in ("all", "device"))
+                  + ["tp_serve"] * serving + ["tp_train", "cp"] * training)
     phase_build()
+    if group in ("all", "device"):
+        # the device layer: NVML's cards, the plugin, a worker refused
+        phase_device_layer()
     if serving:
         k1 = phase_k1()
         phase_k1(geo=DEFAULT_PAGED)
@@ -6587,6 +6882,21 @@ def _run(group: str, torch) -> int:
         flash = phase_flash()
         train = phase_train_flagship()
         phase_train_card_vs_cpu()
+        # ResNet, MoE and pipeline training: first the phases that time
+        # the card or read its memory, each with no other process on it
+        # (no gang has started yet): ResNet card vs CPU at fp32, the
+        # sample's command, the reference's steady state, the reference's
+        # MoE bench row, the MoE worker, the pipeline worker at its
+        # defaults
+        t3 = time.monotonic()
+        phase_resnet_card_vs_cpu()
+        phase_resnet_sample()
+        phase_resnet_steady()
+        moe = phase_moe_bench()
+        phase_moe_worker()
+        pp = phase_pp_worker()
+        log(f"resnet, moe and pipeline phases alone on the card "
+            f"{time.monotonic() - t3:.1f} s")
     if serving:
         k1q = phase_k1(quant=True)
         phase_k1(quant=True, geo=DEFAULT_PAGED)
@@ -6629,91 +6939,73 @@ def _run(group: str, torch) -> int:
         phase_dense_card_vs_cpu(small)
         phase_dense_worker()
         # tensor-parallel serving: the sharded kernels at one rank's heads,
-        # then a two-rank gang on the card
+        # then a two-rank gang on the card; the training gangs of 42-44
+        # and 49-50 boot beside it
+        if training:
+            start_gangs("train", "cp2", "cp4", "3d")
         tp_k = phase_tp_kernels()
         tp = phase_tp(small)
     if training:
         # data x tensor-parallel training: the flash kernels at one rank's
-        # heads, then a four-rank gang on the card
+        # heads, then the four-rank gang on the card
         tp_flash = phase_tp_flash()
-        # checkpoints: phase 47's mesh half in the training gang, then the
-        # flagship trained, saved, resumed and served from its checkpoint
+        # the rest of the gangs boot beside phases 42-44 (those not
+        # started beside 36-40): two, four and eight ranks for phases
+        # 49-50 and, laid out anew, the flagship's 3-D mesh (67), ZeRO-1
+        # (68) and the eight's 66; two and four for the ResNet gang (55),
+        # the expert meshes (59) and the pipeline's (61, 63)
+        cp2, cp4, cp8, gang2, gang4 = start_gangs(
+            "cp2", "cp4", "3d", "gang2", "gang4")
         ckpt_root = tempfile.mkdtemp(prefix="chip-smoke-ckpt-")
-        try:
-            tp_train = phase_tp_train(ckpt_root=ckpt_root)
-            t1 = time.monotonic()
-            ck = phase_ckpt_train(ckpt_root)
-            phase_ckpt_serve(ck)
-            phase_ckpt_resume(ckpt_root)
-            log(f"checkpoint phases {time.monotonic() - t1:.1f} s")
-        finally:
-            shutil.rmtree(ckpt_root, ignore_errors=True)
+        stack.callback(shutil.rmtree, ckpt_root, ignore_errors=True)
+        tp_train = phase_tp_train(ckpt_root=ckpt_root,
+                                  gang=gangs.get("train"))
+        # checkpoints: the flagship trained, saved, resumed and served
+        # from its checkpoint (phase 47's mesh half ran in the training
+        # gang), beside the idle gangs
+        t1 = time.monotonic()
+        ck = phase_ckpt_train(ckpt_root)
+        phase_ckpt_serve(ck)
+        phase_ckpt_resume(ckpt_root)
+        shutil.rmtree(ckpt_root, ignore_errors=True)
+        log(f"checkpoint phases {time.monotonic() - t1:.1f} s")
         # context-parallel training: the ring block's kernels, the small
         # float32 gangs, the flagship at seq 8192 in a two-rank gang, the
-        # worker's lm-cp
+        # 3-D meshes and ZeRO-1, the worker's lm-cp
         t2 = time.monotonic()
         cp_k = phase_cp_kernels()
-        # gangs of two, four and eight ranks, started together: the two
-        # and four serve phases 49-50 and then, laid out anew, the
-        # flagship's 3-D mesh (67) and ZeRO-1 (68); the eight phase 66
-        with cp_gang({"data": 1, "seq": CP},
-                     tempfile.mkdtemp(prefix="chip-smoke-cp2-"),
-                     "cuda") as gang2, \
-                cp_gang({"data": 2, "seq": CP},
-                        tempfile.mkdtemp(prefix="chip-smoke-cp4-"),
-                        "cuda") as gang4, \
-                cp_gang(AXES_3D, tempfile.mkdtemp(prefix="chip-smoke-3d-"),
-                        "cuda") as gang8:
-            for gang in (gang2, gang4, gang8):
-                gang.start()
-            phase_cp_small(gangs=(gang2, gang4))
-            cp_flag = phase_cp_flagship(gang=gang2)
-            flag_3d = phase_3d_flagship(cp_flag["ref"], gang=gang4)
-            zero1 = phase_zero1_flagship(gang=gang2)
-            small_3d = phase_3d_small(gang=gang8)
+        phase_cp_small(gangs=(cp2, cp4))
+        cp_flag = phase_cp_flagship(gang=cp2)
+        flag_3d = phase_3d_flagship(cp_flag["ref"], gang=cp4)
+        zero1 = phase_zero1_flagship(gang=cp2)
+        small_3d = phase_3d_small(gang=cp8)
+        for gang in (cp2, cp4, cp8):
+            gang.close()
         phase_cp_worker()
         log(f"context-parallel, 3-D and ZeRO-1 phases "
             f"{time.monotonic() - t2:.1f} s")
-        # ResNet, MoE and pipeline training.  First the phases that time
-        # the card or read its memory, each with no other process on it:
-        # ResNet card vs CPU at fp32, the sample's command, the
-        # reference's steady state, the reference's MoE bench row, the
-        # MoE worker, the pipeline worker at its defaults
-        t3 = time.monotonic()
-        phase_resnet_card_vs_cpu()
-        phase_resnet_sample()
-        phase_resnet_steady()
-        moe = phase_moe_bench()
-        phase_moe_worker()
-        pp = phase_pp_worker()
-        log(f"resnet, moe and pipeline phases alone on the card "
-            f"{time.monotonic() - t3:.1f} s")
-        # then a gang of two ranks and one of four, booted together
-        # beside the ResNet checkpoints and the MoE card vs CPU, serve
-        # the ResNet gang (55), the expert meshes (59) and the
-        # pipeline's (61, 63), each laid out anew
+        # the ResNet checkpoints and the MoE card vs CPU, then the ResNet
+        # gang (55), the expert meshes (59) and the pipeline's (61, 63),
+        # each laid out anew in the shared gangs of two and four
         t4 = time.monotonic()
-        with cp_gang({"data": 2},
-                     tempfile.mkdtemp(prefix="chip-smoke-gang2-"),
-                     "cuda") as gang2, \
-                cp_gang({"data": 2, "expert": 2},
-                        tempfile.mkdtemp(prefix="chip-smoke-gang4-"),
-                        "cuda") as gang4:
-            gang2.start(), gang4.start()
-            phase_resnet_ckpt()
-            phase_moe_card_vs_cpu()
-            phase_resnet_gang(gang=gang2)
-            phase_moe_gang(moe, gangs=(gang4, gang2))
-            phase_pp_card_vs_cpu(gang2, gang4=gang4)
-            phase_pp_width(gang2)
+        phase_resnet_ckpt()
+        phase_moe_card_vs_cpu()
+        phase_resnet_gang(gang=gang2)
+        phase_moe_gang(moe, gangs=(gang4, gang2))
+        phase_pp_card_vs_cpu(gang2, gang4=gang4)
+        phase_pp_width(gang2)
+        gang2.close(), gang4.close()
         log(f"resnet, moe and pipeline phases beside the shared gangs "
             f"{time.monotonic() - t4:.1f} s")
     if group in ("all", "gang"):
         # the rendezvous of a gang of pods: the north star's 4 ResNet-50
-        # pods on the card, then an LM gang against the CPU
+        # pods on the card and, at the same time, an LM gang against the
+        # CPU
         t6 = time.monotonic()
-        gang_resnet = phase_gang_resnet()
-        gang_lm = phase_gang_lm()
+        with concurrent.futures.ThreadPoolExecutor(1) as pool:
+            lm_gang = pool.submit(phase_gang_lm)
+            gang_resnet = phase_gang_resnet()
+            gang_lm = lm_gang.result()
         log(f"gang phases {time.monotonic() - t6:.1f} s")
     if group != "all":
         log(f"chip_smoke: the {group} phases passed in "

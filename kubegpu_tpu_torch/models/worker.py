@@ -28,6 +28,10 @@ all P x L devices, met at the coordinator's store (gloo when two ranks
 share a card or sit on the CPU, NCCL otherwise).  Each pod's ResNet
 draws its own ``--batch-per-chip`` x L rows from its process id's
 stream, as a JAX process does; the LM family draws per data shard.
+Its cards are those the CRI shim made visible: L is the count of
+``CUDA_VISIBLE_DEVICES``'s entries (the cards' UUIDs), else every card
+(``mesh.local_chip_count``), and the first line the worker prints,
+``WORKER_DEVICES visible_devices=...``, names them.
 Each pod's first rank prints its ``TRAINING_MESH``, ``FIRST_STEP_DONE``
 and ``steady_state`` lines and its ranks' launch and peak lines; only
 the gang's rank 0 writes checkpoints.  A malformed table, or a count
@@ -343,7 +347,9 @@ from kubegpu_tpu_torch.parallel.mesh import (
     close_mesh,
     device_mesh,
     distributed_init_from_env,
+    local_chip_count,
 )
+from kubegpu_tpu_torch.types.resource import ENV_VISIBLE_DEVICES
 from kubegpu_tpu_torch.utils.metrics import Metrics
 
 log = logging.getLogger("kubegpu_tpu_torch.worker")
@@ -567,8 +573,9 @@ def training_devices(args: argparse.Namespace) -> int:
 
 
 def local_devices(args: argparse.Namespace) -> int:
-    """The visible device count of this pod: the cards, or ``--cpu-ranks``
-    with ``--device cpu`` (refused on the card)."""
+    """The visible device count of this pod: the cards the CRI shim made
+    visible (``mesh.local_chip_count``), or ``--cpu-ranks`` with
+    ``--device cpu`` (refused on the card)."""
     if args.device == "cuda":
         resolve_device("cuda")  # raises without a card
         if args.cpu_ranks != 1:
@@ -576,7 +583,7 @@ def local_devices(args: argparse.Namespace) -> int:
                 f"--cpu-ranks {args.cpu_ranks}: the CPU's stand-in for the "
                 "visible device count, only with --device cpu (the card "
                 "machine counts its cards)")
-        n = torch.cuda.device_count()
+        n = local_chip_count()
     else:
         n = args.cpu_ranks
     if n < 1:
@@ -1778,6 +1785,7 @@ def _train_over_mesh(args: argparse.Namespace, axes: dict,
 def main(argv: Optional[List[str]] = None) -> int:
     t0 = time.monotonic()
     args = build_parser().parse_args(argv)
+    report_devices(args)
     if args.model not in TRAINING_MODELS and args.cpu_ranks != 1:
         raise SystemExit("--cpu-ranks stands in for the training mesh's "
                          "devices: --model " + "|".join(TRAINING_MODELS)
@@ -1801,6 +1809,15 @@ def main(argv: Optional[List[str]] = None) -> int:
     else:
         report_decode(args, run_decode(args))
     return 0
+
+
+def report_devices(args: argparse.Namespace) -> None:
+    """The startup line: the cards this pod was given
+    (``CUDA_VISIBLE_DEVICES`` as the CRI shim injected it, or
+    ``<unset>``), as the JAX worker names its ``TPU_VISIBLE_CHIPS``."""
+    print(f"WORKER_DEVICES visible_devices="
+          f"{os.environ.get(ENV_VISIBLE_DEVICES, '<unset>')} "
+          f"device={args.device} model={args.model}", flush=True)
 
 
 def report_lm(r: Dict[str, object]) -> None:

@@ -10,8 +10,11 @@ count in every library's hash.  :func:`build` starts one ``nvcc``
 per missing library, all at once, and waits for them; each splits its
 device code's optimisation over the host's cores (``--split-compile``,
 CUDA 12.1 and later), which leaves every kernel's registers as they
-were.  A failed build raises with the compiler's output.  Nothing is built or imported when
-this module is imported.
+were.  A library registered in ``parts`` compiles its source that many
+times at once, with ``-DKG_PART=p`` for p = 0 .. parts - 1 (each part
+instantiates a share of the kernels), and links the objects into one
+library.  A failed build raises with the compiler's output.  Nothing is
+built or imported when this module is imported.
 """
 
 from __future__ import annotations
@@ -23,7 +26,7 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Callable, Dict, List, Optional, Sequence
+from typing import Callable, Dict, Optional, Sequence
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kubegpu_tpu_torch"
@@ -43,8 +46,8 @@ BUILD_SECONDS: Dict[str, float] = {}
 
 
 def register(name: str, source: str,
-             declare: Callable[[ctypes.CDLL], None]) -> None:
-    _KERNELS[name] = (source, declare)
+             declare: Callable[[ctypes.CDLL], None], parts: int = 1) -> None:
+    _KERNELS[name] = (source, declare, parts)
 
 
 def _nvcc() -> str:
@@ -66,38 +69,65 @@ def library_path(name: str) -> Path:
     for path in [CSRC / _KERNELS[name][0], *sorted(CSRC.glob("*.cuh"))]:
         digest.update(path.name.encode() + path.read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())
+    digest.update(f"parts={_KERNELS[name][2]}".encode())
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
+
+
+def _commands(nvcc: str, name: str, out: Path) -> tuple:
+    """``(compilations, link, objects)`` of library ``name`` into ``out``:
+    the compilations run at once, then the link of their objects (None,
+    and no objects, for a one-part library)."""
+    source, _, parts = _KERNELS[name]
+    if parts == 1:
+        return [[nvcc, *NVCC_FLAGS, "-o", str(out), str(CSRC / source)]], \
+            None, []
+    compile_flags = [f for f in NVCC_FLAGS if f != "-shared"]
+    objs = [out.with_suffix(f".part{p}.o") for p in range(parts)]
+    return ([[nvcc, *compile_flags, f"-DKG_PART={p}", "-c", "-o", str(obj),
+              str(CSRC / source)] for p, obj in enumerate(objs)],
+            [nvcc, "-shared", "-o", str(out), *map(str, objs)], objs)
 
 
 def build(names: Optional[Sequence[str]] = None) -> Dict[str, Path]:
     """Compile every named kernel library (default: all registered) that
-    is not built yet — one ``nvcc`` each, started together."""
+    is not built yet — every ``nvcc`` of every library started together,
+    then each parted library's link."""
     names = list(_KERNELS) if names is None else list(names)
     targets = {n: library_path(n) for n in names}
     missing = [n for n in names if not targets[n].exists()]
-    if missing:
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        nvcc = _nvcc()
-        procs: List[tuple] = []
-        for n in missing:
-            tmp = targets[n].with_suffix(f".{os.getpid()}.tmp")
-            cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp),
-                   str(CSRC / _KERNELS[n][0])]
-            procs.append((n, tmp, time.monotonic(), subprocess.Popen(
-                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                text=True,
-            )))
-        failed = []
-        for n, tmp, t0, proc in procs:
-            log, _ = proc.communicate()
-            BUILD_LOG[n] = log
-            BUILD_SECONDS[n] = time.monotonic() - t0
-            if proc.returncode != 0:
-                failed.append(f"{n} (nvcc exit {proc.returncode}):\n{log}")
-                continue
-            os.replace(tmp, targets[n])
-        if failed:
-            raise RuntimeError("kernel build failed: " + "\n".join(failed))
+    if not missing:
+        return targets
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
+    t0 = time.monotonic()
+    jobs = {}
+    for n in missing:
+        tmp = targets[n].with_suffix(f".{os.getpid()}.tmp")
+        cmds, link, objs = _commands(nvcc, n, tmp)
+        jobs[n] = (tmp, link, objs, [subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        ) for cmd in cmds])
+    failed = []
+    for n, (tmp, link, objs, procs) in jobs.items():
+        logs, ok = [], True
+        for proc in procs:
+            logs.append(proc.communicate()[0])
+            ok = ok and proc.returncode == 0
+        if ok and link is not None:
+            done = subprocess.run(link, stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+            logs.append(done.stdout)
+            ok = done.returncode == 0
+        for obj in objs:
+            obj.unlink(missing_ok=True)
+        BUILD_LOG[n] = "".join(logs)
+        BUILD_SECONDS[n] = time.monotonic() - t0
+        if not ok:
+            failed.append(f"{n}:\n{BUILD_LOG[n]}")
+            continue
+        os.replace(tmp, targets[n])
+    if failed:
+        raise RuntimeError("kernel build failed: " + "\n".join(failed))
     return targets
 
 

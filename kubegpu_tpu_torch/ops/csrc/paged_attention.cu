@@ -910,14 +910,70 @@ cudaError_t by_width(int hd, F&& f) {
   return f(Width<128, true>{});
 }
 
-bool bad_geometry(int b, int rows, int h, int hd, int page) {
-  return b <= 0 || h <= 0 || h > 65535 || b > 65535 || page <= 0 ||
-         rows < 1 || hd < 8 || hd > kMaxHeadDim || hd % 8 != 0;
+// One (q dtype T, pool TP) pair's walk and merge at head width hd.
+template <typename T, typename TP>
+cudaError_t launch_pair(const void* q, const void* kp, const void* vp,
+                        const float* ks, const float* vs, const int* table,
+                        const int* lengths, float* parts, void* out, int b,
+                        int rows, int h, int hd, int page, int table_width,
+                        int rows_per_walk, int tile_rows, int stages,
+                        int pages_per_split, float sm_scale,
+                        cudaStream_t stream) {
+  return by_width(hd, [&](auto w) {
+    using W = decltype(w);
+    return launch<T, TP, W::hd, W::padded>(
+        q, kp, vp, ks, vs, table, lengths, parts, out, b, rows, h, hd, page,
+        table_width, rows_per_walk, tile_rows, stages, pages_per_split,
+        sm_scale, stream);
+  });
 }
 
 }  // namespace
 
+// The library builds in four parts, one nvcc each, started together
+// (ops/_build.py): part KG_PART = p instantiates the kernels of one (q
+// dtype, pool) pair, p = dtype + 2 * quant, behind kg_paged_pair_<p>, and
+// part 0 also holds the entry points.  Without KG_PART one translation
+// unit holds all four.
+#define KG_PAIR_PARAMS                                                       \
+  const void *q, const void *kp, const void *vp, const float *ks,           \
+      const float *vs, const int *table, const int *lengths, float *parts,   \
+      void *out, int b, int rows, int h, int hd, int page, int table_width,  \
+      int rows_per_walk, int tile_rows, int stages, int pages_per_split,     \
+      float sm_scale, cudaStream_t stream
+#define KG_PAIR(P, T, TP)                                                    \
+  int kg_paged_pair_##P(KG_PAIR_PARAMS) {                                    \
+    return (int)launch_pair<T, TP>(                                          \
+        q, kp, vp, ks, vs, table, lengths, parts, out, b, rows, h, hd, page, \
+        table_width, rows_per_walk, tile_rows, stages, pages_per_split,      \
+        sm_scale, stream);                                                   \
+  }
+
 extern "C" {
+
+int kg_paged_pair_0(KG_PAIR_PARAMS);
+int kg_paged_pair_1(KG_PAIR_PARAMS);
+int kg_paged_pair_2(KG_PAIR_PARAMS);
+int kg_paged_pair_3(KG_PAIR_PARAMS);
+
+#if !defined(KG_PART) || KG_PART == 0
+KG_PAIR(0, float, float)
+#endif
+#if !defined(KG_PART) || KG_PART == 1
+KG_PAIR(1, __nv_bfloat16, __nv_bfloat16)
+#endif
+#if !defined(KG_PART) || KG_PART == 2
+KG_PAIR(2, float, int8_t)
+#endif
+#if !defined(KG_PART) || KG_PART == 3
+KG_PAIR(3, __nv_bfloat16, int8_t)
+#endif
+
+#if !defined(KG_PART) || KG_PART == 0
+static bool bad_geometry(int b, int rows, int h, int hd, int page) {
+  return b <= 0 || h <= 0 || h > 65535 || b > 65535 || page <= 0 ||
+         rows < 1 || hd < 8 || hd > kMaxHeadDim || hd % 8 != 0;
+}
 
 // K1, K1q, K2 and K2q: q and out (b, rows, h, hd), rows >= 1 (K1: 1);
 // dtype is q's and out's (0 float32, 1 bfloat16); quant 0 reads pools of
@@ -936,31 +992,21 @@ int kg_paged_attention(int dtype, int quant, const void* q,
                        int table_width, int rows_per_walk, int tile_rows,
                        int stages, int pages_per_split, float sm_scale,
                        void* stream) {
-  const float* ks = static_cast<const float*>(k_scale);
-  const float* vs = static_cast<const float*>(v_scale);
-  const int* tbl = static_cast<const int*>(table);
-  const int* len = static_cast<const int*>(lengths);
-  float* ws = static_cast<float*>(parts);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (bad_geometry(b, rows, h, hd, page)) return (int)cudaErrorInvalidValue;
-  return (int)by_width(hd, [&](auto w) {
-    using W = decltype(w);
-#define KG_LAUNCH(T, TP)                                                     \
-  launch<T, TP, W::hd, W::padded>(q, k_pool, v_pool, ks, vs, tbl, len, ws,   \
-                                  out, b, rows, h, hd, page, table_width,    \
-                                  rows_per_walk, tile_rows, stages,          \
-                                  pages_per_split, sm_scale, s)
-    if (dtype == 0 && !quant) return KG_LAUNCH(float, float);
-    if (dtype == 1 && !quant) return KG_LAUNCH(__nv_bfloat16, __nv_bfloat16);
-    if (dtype == 0 && quant) return KG_LAUNCH(float, int8_t);
-    if (dtype == 1 && quant) return KG_LAUNCH(__nv_bfloat16, int8_t);
-#undef KG_LAUNCH
-    return cudaErrorInvalidValue;
-  });
+  static int (*const pairs[4])(KG_PAIR_PARAMS) = {
+      kg_paged_pair_0, kg_paged_pair_1, kg_paged_pair_2, kg_paged_pair_3};
+  if (bad_geometry(b, rows, h, hd, page) || (dtype != 0 && dtype != 1))
+    return (int)cudaErrorInvalidValue;
+  return pairs[dtype + 2 * (quant != 0)](
+      q, k_pool, v_pool, static_cast<const float*>(k_scale),
+      static_cast<const float*>(v_scale), static_cast<const int*>(table),
+      static_cast<const int*>(lengths), static_cast<float*>(parts), out, b,
+      rows, h, hd, page, table_width, rows_per_walk, tile_rows, stages,
+      pages_per_split, sm_scale, static_cast<cudaStream_t>(stream));
 }
 
 const char* kg_cuda_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
+#endif
 
 }  // extern "C"

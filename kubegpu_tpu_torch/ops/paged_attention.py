@@ -663,4 +663,5 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.kg_cuda_error_string.restype = ctypes.c_char_p
 
 
-_build.register("paged_attention", "paged_attention.cu", _declare)
+# four parts, one for each (q dtype, pool) pair, compiled at once
+_build.register("paged_attention", "paged_attention.cu", _declare, parts=4)

@@ -6,7 +6,8 @@
 - :func:`start_ranks` starts chosen ranks of a mesh whose other ranks
   live elsewhere: the worker is rank 0 itself and starts the rest.
 - :func:`open_gang_store`, :func:`check_local_counts` and
-  :func:`gang_backend` join the ranks of a gang of pods: every pod
+  :func:`gang_backend` join the ranks of a gang of pods (and
+  :func:`gang_slice_ids` reads a multislice gang's slices): every pod
   starts its own ranks, and all of them meet at the coordinator the
   shim's env names (``mesh.distributed_init_from_env``), or, for a pod
   that trains alone, at :func:`open_host_gang`'s store.
@@ -100,6 +101,20 @@ def check_local_counts(store, table: GangTable, local: int) -> None:
                 f"gang of {table.num_processes} pods: process "
                 f"{table.process_id} holds {local} rank(s) and process {p} "
                 f"holds {n}; every pod must hold as many ({counts})")
+
+
+def gang_slice_ids(store, table: GangTable, local: int,
+                   env: Optional[Mapping[str, str]] = None) -> List[int]:
+    """Every global rank's slice (``mesh.hybrid_device_mesh``'s
+    ``slice_ids``): each pod publishes its ``MEGASCALE_SLICE_ID`` (0 for
+    a gang on one slice) and reads every pod's; rank ``p x local + i``
+    is on process p's slice."""
+    env = os.environ if env is None else env
+    mine = int(env.get("MEGASCALE_SLICE_ID", "0"))
+    store.set(f"{GANG_PREFIX}slice/{table.process_id}", str(mine))
+    keys = [f"{GANG_PREFIX}slice/{p}" for p in range(table.num_processes)]
+    _wait(store, keys, table, "every pod's slice id")
+    return [int(store.get(k)) for k in keys for _ in range(local)]
 
 
 def device_identity(device: torch.device) -> str:

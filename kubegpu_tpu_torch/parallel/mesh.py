@@ -39,13 +39,28 @@ ranks that differ from this one only along ``"data"`` and ``"seq"``
 (:data:`DATA_SEQ`), over which the loss and the gradients are averaged.
 :func:`remesh` lays the same world out as a mesh of another shape (new
 groups over the same ranks), so one gang of processes can run several
-meshes of its size in turn."""
+meshes of its size in turn.
+
+Three library functions follow JAX's mesh plumbing from scheduled
+devices to a mesh, with JAX's device order and refusals (the worker, like
+JAX's, calls none of them): :func:`local_chip_count` (the cards the CRI
+shim made visible), :func:`mesh_from_assignment` (the local cards in the
+order of the assignment's coordinates) and :func:`hybrid_device_mesh`
+(a leading ``"dcn"`` axis that groups a multislice gang's ranks by their
+pods' ``MEGASCALE_SLICE_ID``).  The last two return a layout: the axes
+with their sizes resolved and what sits at each position of the mesh,
+row-major, as a JAX ``Mesh`` holds its devices.  A mesh's rank k runs on
+the k-th device of ``mesh_from_assignment``'s layout (``launch.Gang``
+and :func:`device_mesh` take those axes and devices); the ranks of a
+hybrid layout are in slice-major order, which a gang numbered
+process-major does not follow yet."""
 
 from __future__ import annotations
 
 from dataclasses import dataclass, field
 from datetime import timedelta
-from typing import Dict, Mapping, Optional, Tuple, Union
+from typing import (TYPE_CHECKING, Dict, List, Mapping, Optional, Sequence,
+                    Tuple, Union)
 
 import os
 
@@ -54,6 +69,10 @@ import torch
 import torch.distributed as dist
 
 from kubegpu_tpu_torch.models.params import resolve_device
+from kubegpu_tpu_torch.types.resource import ENV_VISIBLE_DEVICES
+
+if TYPE_CHECKING:
+    from kubegpu_tpu_torch.types.info import Assignment
 
 DATA_AXIS = "data"
 MODEL_AXIS = "model"
@@ -325,3 +344,111 @@ def close_mesh(mesh: Mesh) -> None:
     """Leave the process group (every rank calls it)."""
     if dist.is_initialized():
         dist.destroy_process_group()
+
+
+# -- from scheduled devices to a layout (JAX's mesh plumbing) ---------------
+
+DCN_AXIS = "dcn"
+
+
+def layout(axes: Mapping[str, int], devices: Sequence
+           ) -> Tuple[Dict[str, int], list]:
+    """``devices`` laid out over ``axes`` (axis name -> size; one axis
+    may be -1, inferred), row-major: the axes with their sizes resolved
+    and the devices in mesh order, with the refusals of JAX's
+    ``device_mesh``."""
+    devs = list(devices)
+    sizes = dict(axes)
+    unknown = [k for k, v in sizes.items() if v == -1]
+    if len(unknown) > 1:
+        raise ValueError("at most one axis may be -1")
+    known = int(np.prod([v for v in sizes.values() if v != -1]))
+    if unknown:
+        if len(devs) % known != 0:
+            raise ValueError(f"{len(devs)} devices not divisible by {known}")
+        sizes[unknown[0]] = len(devs) // known
+    total = int(np.prod(list(sizes.values())))
+    if total != len(devs):
+        raise ValueError(f"mesh {sizes} wants {total} devices, have {len(devs)}")
+    return sizes, devs
+
+
+def local_chip_count(env: Optional[Mapping[str, str]] = None) -> int:
+    """The cards this pod may use: the entries of ``CUDA_VISIBLE_DEVICES``
+    (the CRI shim's injection), else every card the process sees."""
+    env = dict(os.environ if env is None else env)
+    vis = env.get(ENV_VISIBLE_DEVICES, "")
+    if vis:
+        return len([c for c in vis.split(",") if c.strip() != ""])
+    return torch.cuda.device_count()
+
+
+def mesh_from_assignment(assignment: "Assignment", axes: Mapping[str, int],
+                         devices: Optional[Sequence] = None
+                         ) -> Tuple[Dict[str, int], list]:
+    """The layout (:func:`layout`) of the local devices (default the
+    pod's cards, ``cuda:0`` .. ``cuda:L-1`` for :func:`local_chip_count`'s
+    L) in the order of the assignment's coordinates (row-major over the
+    allocated run), so that neighbours on the mesh are neighbours on the
+    host: rank k of the pod's mesh runs on the k-th device.  Device i is
+    the i-th of the assigned cards in ascending index order, which is
+    the order of ``CUDA_VISIBLE_DEVICES``."""
+    devs = list(devices if devices is not None
+                else [f"cuda:{i}" for i in range(local_chip_count())])
+    chips = sorted(assignment.all_chips(), key=lambda c: c.coords)
+    if len(chips) == len(devs):
+        index_rank = {
+            idx: rank
+            for rank, idx in enumerate(sorted(c.device_index for c in chips))
+        }
+        devs = [devs[index_rank[c.device_index]] for c in chips]
+    return layout(axes, devs)
+
+
+def hybrid_device_mesh(axes: Mapping[str, int], dcn_axis: str = DCN_AXIS,
+                       num_slices: Optional[int] = None,
+                       devices: Optional[Sequence] = None,
+                       slice_ids: Optional[Sequence[int]] = None
+                       ) -> Tuple[Dict[str, int], list]:
+    """The layout (:func:`layout`) of a mesh over several slices (a
+    multislice gang: its pods' ``MEGASCALE_NUM_SLICES`` > 1) whose first
+    axis, ``dcn_axis``, spans the slices, so only the collectives along
+    it cross the network.  ``devices`` (default every rank of the
+    world, ``range(world size)``) are grouped by ``slice_ids`` (one for
+    each device: its pod's ``MEGASCALE_SLICE_ID``, which
+    ``launch.gang_slice_ids`` gathers), the counterpart of JAX's
+    ``slice_index``; without them into
+    ``num_slices`` (default the dcn axis's size) equal runs in order.
+    JAX's refusals: the dcn axis not first, a -1 dcn axis without slice
+    ids, devices that do not divide into the slices, unequal slices, a
+    dcn size that is not the slice count."""
+    if not axes or next(iter(axes)) != dcn_axis:
+        raise ValueError(f"axes must lead with the DCN axis {dcn_axis!r}, got {list(axes)}")
+    devs = list(devices if devices is not None
+                else range(dist.get_world_size()))
+    if slice_ids is not None:
+        if len(slice_ids) != len(devs):
+            raise ValueError(f"{len(slice_ids)} slice ids for {len(devs)} devices")
+        by_slice: Dict[int, list] = {}
+        for d, sid in zip(devs, slice_ids):
+            by_slice.setdefault(int(sid), []).append(d)
+        groups = [by_slice[k] for k in sorted(by_slice)]
+    else:
+        k = num_slices or axes[dcn_axis]
+        if k == -1:
+            raise ValueError(
+                "the DCN axis cannot be inferred (-1) without slice ids; "
+                "pass num_slices")
+        if len(devs) % k:
+            raise ValueError(f"{len(devs)} devices not divisible into {k} slices")
+        per = len(devs) // k
+        groups = [devs[i * per:(i + 1) * per] for i in range(k)]
+    sizes = {len(g) for g in groups}
+    if len(sizes) != 1:
+        raise ValueError(f"slices are unequal ({sorted(sizes)} devices); multislice meshes need congruent slices")
+    want_dcn = axes[dcn_axis]
+    if want_dcn not in (-1, len(groups)):
+        raise ValueError(f"axes[{dcn_axis!r}]={want_dcn} but {len(groups)} slices visible")
+    ordered = {dcn_axis: len(groups)}
+    ordered.update((a, s) for a, s in axes.items() if a != dcn_axis)
+    return layout(ordered, [d for g in groups for d in g])

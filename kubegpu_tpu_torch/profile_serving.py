@@ -18,9 +18,10 @@ outlasts the measurement, and once all eight are decoding:
   ends: ms per step and tokens/s at 8 active slots (with
   ``--speculate`` a step is a draft scan plus a verify window, and the
   tokens are those the window committed);
-- profiles a second window of the same length with ``torch.profiler``:
-  device time by kernel, the device's busy time and its idle share of
-  the window's wall time, and the device kernels launched a step.
+- profiles a second window of the same length with ``torch.profiler``
+  (the card's activity only): device time by kernel, the device's busy
+  time and its idle share of the window's wall time, and the device
+  kernels launched a step.
 
 Needs one CUDA device; prints plain lines, the last a JSON summary.
 """
@@ -84,7 +85,9 @@ def profiled_window(cb):
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+    # the card's activity only: recording every host op as well slowed
+    # the window, and reading its events back took seconds a window
+    with profile(activities=[ProfilerActivity.CUDA],
                  acc_events=True) as prof:
         t0 = time.perf_counter()
         for _ in range(WINDOW):

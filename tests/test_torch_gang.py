@@ -135,10 +135,29 @@ def test_the_process_id_falls_back_on_tpu_worker_id_as_the_jax_worker(
 
 
 def test_the_smokes_pod_env_is_worker_envs():
-    envs = gang_envs(4, 8476)
-    names = envs[0]["TPU_WORKER_HOSTNAMES"].split(",")
+    """The smoke's pods run on the port's CRI shim's injection: JAX's
+    ``worker_env`` for the same gang, its coordinator the first pod's
+    hostname (a loopback address) at the free port the smoke passes,
+    and card 0's UUID in both visibility variables."""
+    from kubegpu_tpu_torch.plugins.fake import FakeGpuHost
+
+    host = FakeGpuHost("gpu-node", cards=1)
+    port = pods.free_port()
+    envs = chip_smoke.gang_pod_envs("jax-resnet", 4, host.provider(), port)
+    names = [o["metadata"]["name"]
+             for o in chip_smoke.gang_pods("jax-resnet", 4, "gpu-node")]
+    assert names == ["127.0.0.1", "127.0.0.2", "127.0.0.3", "127.0.0.4"]
     for i, env in enumerate(envs):
-        assert chip_smoke.pod_env(names, i, 8476) == env
+        want = worker_env(PodInfo(name=names[i], pod_group="jax-resnet"),
+                          names, coordinator_port=port)
+        assert {k: env[k] for k in want} == want
+        assert env["JAX_COORDINATOR_ADDRESS"] == f"127.0.0.1:{port}"
+        assert env["JAX_PROCESS_ID"] == env["TPU_WORKER_ID"] == str(i)
+        assert env["CUDA_VISIBLE_DEVICES"] == host.uuids[0]
+        assert env["NVIDIA_VISIBLE_DEVICES"] == host.uuids[0]
+        assert set(env) == set(want) | {"CUDA_VISIBLE_DEVICES",
+                                        "NVIDIA_VISIBLE_DEVICES"}
+        assert distributed_init_from_env(env).process_id == i
 
 
 # the north star's rule at the CI twin's size

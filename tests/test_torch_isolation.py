@@ -7,7 +7,9 @@ tests/torch_zero_cases.py, and the pods of tests/torch_gang_cases.py,
 whose processes must run without JAX) imports
 jax, flax, orbax or the JAX package, nor the Orbax converter
 (tools/orbax_to_torch_checkpoint.py); its entry points run on the card
-unless the caller asks for the CPU."""
+unless the caller asks for the CPU.  The GPU device layer imports grpc
+only where its two servers (the device plugin, the CRI proxy) start, and
+runs on request bytes without it."""
 
 import ast
 import os
@@ -90,7 +92,15 @@ def test_importing_every_module_leaves_jax_out():
                  "parallel.mesh", "parallel.sharding",
                  "parallel.collectives", "parallel.launch",
                  "parallel.replay", "models.train", "models.transformer",
-                 "models.data", "models.checkpoint"):
+                 "models.data", "models.checkpoint",
+                 # the GPU device layer
+                 "types", "types.topology", "types.resource", "types.info",
+                 "types.annotations", "utils.protowire", "utils.apiserver",
+                 "grpalloc", "grpalloc.scoring", "plugins",
+                 "plugins.provider", "plugins.nvml", "plugins.discovery",
+                 "plugins.fake", "plugins.deviceplugin",
+                 "plugins.advertiser", "crishim", "crishim.inject",
+                 "crishim.proxy", "crishim.daemon"):
         assert f"kubegpu_tpu_torch.{name}" in imported.split(), name
 
 
@@ -108,6 +118,101 @@ def test_no_source_imports_jax_or_the_jax_package():
                 assert name.split(".")[0] not in FORBIDDEN_ROOTS, (
                     f"{path} imports {name}"
                 )
+
+
+# where the device layer's two gRPC servers may import grpc: where they
+# start, and their handlers
+GRPC_START_PATHS = {
+    "plugins/deviceplugin.py": {"start", "register_with_kubelet",
+                                "plugin_handler"},
+    "crishim/proxy.py": {"__init__", "passthrough_handler"},
+}
+
+
+def test_grpc_is_imported_only_where_the_servers_start():
+    """No module of the port imports grpc at import time; the device
+    plugin and the CRI proxy import it in the functions that start them
+    (and build their handlers), nowhere else."""
+    found = {}
+    for path in port_sources():
+        tree = ast.parse(open(path).read(), path)
+        rel = os.path.relpath(path, PKG)
+
+        def visit(node, func):
+            for child in ast.iter_child_nodes(node):
+                if isinstance(child, (ast.FunctionDef, ast.AsyncFunctionDef)):
+                    visit(child, child.name)
+                    continue
+                if isinstance(child, (ast.Import, ast.ImportFrom)):
+                    names = ([a.name for a in child.names]
+                             if isinstance(child, ast.Import)
+                             else [child.module or ""])
+                    if any(n.split(".")[0] == "grpc" for n in names):
+                        assert func is not None, f"{rel} imports grpc at import time"
+                        found.setdefault(rel, set()).add(func)
+                visit(child, func)
+
+        visit(tree, None)
+    assert found == GRPC_START_PATHS
+
+
+def test_the_device_layer_runs_without_grpc():
+    """With grpc unimportable, every module of the device layer imports and
+    turns request bytes into response bytes: the device plugin's
+    inventory, Allocate and GetPreferredAllocation, the shim's decision and
+    its CreateContainer surgery; only starting a server needs grpc."""
+    code = """
+import sys
+sys.modules["grpc"] = None
+import importlib, pkgutil
+import kubegpu_tpu_torch as pkg
+for m in pkgutil.walk_packages(pkg.__path__, "kubegpu_tpu_torch."):
+    if m.name.split(".")[1] in ("types", "utils", "grpalloc", "plugins",
+                                "crishim"):
+        importlib.import_module(m.name)
+from kubegpu_tpu_torch.crishim.daemon import ShimDaemon
+from kubegpu_tpu_torch.crishim.proxy import CriProxy, mutate_create_request
+from kubegpu_tpu_torch.plugins.deviceplugin import DevicePluginServer
+from kubegpu_tpu_torch.plugins.fake import FakeGpuHost
+from kubegpu_tpu_torch.types import annotations
+from kubegpu_tpu_torch.types.info import Assignment, ChipRef
+from kubegpu_tpu_torch.utils import protowire as pw
+from kubegpu_tpu_torch.utils.apiserver import InMemoryApiServer
+
+host = FakeGpuHost("n0", cards=4)
+plugin = DevicePluginServer(host.provider())
+assert plugin._inventory() == {str(i): True for i in range(4)}
+req = pw.encode_len_field(1, pw.encode_string_field(1, "2"))
+resp = plugin.allocate(req, None)
+env = pw.decode_string_map(pw.get_all(bytes(pw.get_all(resp, 1)[0]), 1))
+assert env["CUDA_VISIBLE_DEVICES"] == host.uuids[2], env
+pref = pw.encode_len_field(1, b"".join(pw.encode_string_field(1, d)
+                                       for d in "0123")
+                           + pw.encode_varint(3 << 3) + pw.encode_varint(2))
+assert len(pw.get_all(bytes(pw.get_all(plugin.preferred_allocation(pref, None), 1)[0]), 1)) == 2
+api = InMemoryApiServer()
+a = Assignment("n0", "n0", {"main": [ChipRef("n0", 1, 1, (1,))]})
+api.create_pod({"metadata": {"name": "p", "namespace": "default",
+                             "annotations": {annotations.POD_ASSIGNMENT:
+                                             annotations.encode_assignment(a)}},
+                "spec": {"containers": [{"name": "main"}]}})
+inj = ShimDaemon(api, host.provider()).decide("default", "p", "main", {}, "n0")
+assert inj.env["CUDA_VISIBLE_DEVICES"] == host.uuids[1], inj.env
+assert mutate_create_request(pw.encode_len_field(2, b""), inj) != b""
+for start in (plugin.start, plugin.register_with_kubelet,
+              lambda: CriProxy("127.0.0.1:1", lambda *a: None)):
+    try:
+        start()
+    except ImportError:
+        continue
+    raise AssertionError("a server started without grpc")
+print("ok")
+"""
+    env = dict(os.environ, PYTHONPATH=REPO)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0 and proc.stdout.strip() == "ok", (
+        proc.stdout + proc.stderr)
 
 
 def test_entry_points_default_to_the_card_and_raise_without_one(

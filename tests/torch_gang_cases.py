@@ -13,6 +13,7 @@ leaves a pod waiting at the rendezvous."""
 from __future__ import annotations
 
 import ast
+import json
 import os
 import socket
 import subprocess
@@ -29,6 +30,8 @@ RENDEZVOUS_ENV = ("JAX_COORDINATOR_ADDRESS", "JAX_NUM_PROCESSES",
                   "JAX_PROCESS_ID", "TPU_WORKER_ID", "TPU_WORKER_HOSTNAMES")
 # the line a pod script prints its losses on
 LOSSES = "LOSSES "
+# the line a pod prints its injected env on (``echo_env``)
+POD_ENV = "POD_ENV "
 
 
 def free_port() -> int:
@@ -75,15 +78,26 @@ def float32_training() -> None:
     worker._train_rank = _rank_float32
 
 
+def _echo(keys: Sequence[str]) -> List[str]:
+    """Script lines printing ``POD_ENV <json>``: the values this process
+    got for ``keys`` (None where unset)."""
+    return ["import json, os",
+            f"print({POD_ENV!r} + json.dumps({{k: os.environ.get(k) for k "
+            f"in {sorted(keys)!r}}}, sort_keys=True), flush=True)"]
+
+
 def pod_script(run: str, argv: Sequence[str], *, fp32: bool = False,
-               timeout_s: Optional[float] = None) -> List[str]:
+               timeout_s: Optional[float] = None,
+               echo_env: Sequence[str] = ()) -> List[str]:
     """A pod's interpreter arguments: ``worker.<run>`` on ``argv`` with
     one torch thread, then the worker's launch and peak lines and
     ``LOSSES <repr>``.  ``fp32`` trains in float32
     (:func:`float32_training`); ``timeout_s`` bounds the rendezvous's
-    waits."""
-    lines = ["import torch", "torch.set_num_threads(1)",
-             "from kubegpu_tpu_torch.models import worker"]
+    waits; ``echo_env`` names variables the pod prints first
+    (``POD_ENV``)."""
+    lines = (_echo(echo_env) if echo_env else []) + [
+        "import torch", "torch.set_num_threads(1)",
+        "from kubegpu_tpu_torch.models import worker"]
     if fp32:
         lines += ["import torch_gang_cases",
                   "torch_gang_cases.float32_training()"]
@@ -100,9 +114,22 @@ def pod_script(run: str, argv: Sequence[str], *, fp32: bool = False,
     return ["-c", "\n".join(lines)]
 
 
-def worker_command(argv: Sequence[str]) -> List[str]:
-    """A pod's interpreter arguments for the worker's own entry point."""
-    return ["-m", "kubegpu_tpu_torch.models.worker", *argv]
+def worker_command(argv: Sequence[str],
+                   echo_env: Sequence[str] = ()) -> List[str]:
+    """A pod's interpreter arguments for the worker's own entry point
+    (its ``main``, after printing ``echo_env``'s variables as
+    ``POD_ENV`` where any are named)."""
+    if not echo_env:
+        return ["-m", "kubegpu_tpu_torch.models.worker", *argv]
+    return ["-c", "\n".join(_echo(echo_env) + [
+        "import sys", "from kubegpu_tpu_torch.models import worker",
+        f"sys.exit(worker.main({list(argv)!r}))"])]
+
+
+def pod_env_of(out: str) -> Dict[str, Optional[str]]:
+    """The env a pod printed (``echo_env``)."""
+    line = next(ln for ln in out.splitlines() if ln.startswith(POD_ENV))
+    return json.loads(line[len(POD_ENV):])
 
 
 def start_pod(command: Sequence[str], env: Optional[Dict[str, str]] = None):
