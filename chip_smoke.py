@@ -4,16 +4,17 @@
     python3 chip_smoke.py [--group all|serving|training|gang|device]
 
 Builds every kernel of the port's serving and training paths from the
-sources in the checkout, then runs sixty-nine phases; any failure
+sources in the checkout, then runs seventy phases; any failure
 exits non-zero.  ``--group`` (default ``all``, every phase in the order
-below, but 69, which runs right after the build; 52-54, 58, 60 and 62,
+below, but 69 and 70, which run right after the build; 52-54, 58, 60 and 62,
 which run right after 10, before any gang starts, so that they time the
 card or read its memory with no other process on it; 66-68, which run
 right after 50 in the gangs of 49-50; 51; then 55-57, 59, 61 and 63 in
 the gangs they share; and 64 and 65, which run at the same time; a bare
 call runs them so) runs phases 1 and the build, then only the serving
 phases (2-7, 11-40), the training phases (8-10, 41-63, 66-68), the gang
-phases (64-65) or the device layer (69), and prints no per-kernel
+phases (64-65) or the device layer and the control plane (69-70), and
+prints no per-kernel
 record; each phase's seconds are printed after it as ``[phase_name N
 s]``.  Gangs of ranks boot while other work runs (``Gang.start()``):
 the four of 42-44 and the two, four and eight of 49-50 and 66-68
@@ -21,7 +22,9 @@ beside 36-40, the two and four of 55, 59, 61 and 63 beside 42-44, all
 idle through 45-48; one gang serves several meshes by laying its world
 out anew (``remesh``).  The worker runs that phases 40, 44, 51 and 69
 expect refused (one card; a card the host lacks) start right after
-phase 1 and boot beside the build:
+phase 1 and boot beside the build, as does phase 70's pod, which its
+extender binds right after phase 1 and whose worker waits for the
+build before it serves:
 
 1. device: the card's name and power limit, TF32 off;
 2. K1 (paged decode attention, ``ops/csrc/paged_attention.cu``: the
@@ -507,7 +510,23 @@ phase 1 and boot beside the build:
    control nodes) and refuses a card the host lacks; a worker whose
    ``CUDA_VISIBLE_DEVICES`` names a UUID no card has exits non-zero
    with the no-card error, its ``WORKER_DEVICES`` line naming that UUID,
-   and trains nothing.
+   and trains nothing;
+70. the control plane on the card (``kubegpu_tpu_torch/scheduler``):
+   the port's advertiser over ``NvmlGpuProvider`` advertises this machine
+   into the port's in-memory API server and the port's
+   ``ExtenderServer`` listens on loopback; kube-scheduler's wire calls
+   to it refuse ``samples/jax-serve-gateway.yaml``'s ``decode-replica-*``
+   gang (3 pods of one card) whole on the one-card node (no plan, no
+   reservation, no bind), then filter, prioritize and bind one pod of
+   ``decode-replica-0``'s container alone (the flagship's width, its 256
+   steps cut to 8, without ``--serve-http``, ``--ckpt-dir`` and the pod
+   group); the port's shim turns its assignment into an env naming the
+   card's UUID, and the port's worker runs as the pod's process under
+   exactly that env: its ``WORKER_DEVICES`` names the card, K1
+   launches decode steps x layers times and no other kernel launches
+   (its ``KERNEL_LAUNCHES``, the paged records' ``bound_pod_launches``);
+   deleting the pod returns the card and the same pod binds to it
+   again; the host's milliseconds from filter to bind, both times.
 
 Phases 29-34, 53-54, 60, 61-63 and 64 set every kernel's launch count to 0
 before each run and require it to be 0 after: the dense paths, the
@@ -3057,17 +3076,31 @@ def run_worker_lines(argv: list, timeout: float = 600) -> dict:
     return {line.split()[0]: line for line in out.splitlines() if line}
 
 
-# worker runs refused at their start on one card (they never reach the
-# card), begun right after phase 1 so that their interpreters boot beside
-# other phases; each phase that reads one waits for it (key -> Popen)
+# worker runs begun right after phase 1 so that their interpreters boot
+# beside other phases: those refused at their start on one card (they
+# never reach the card), and the pod that phase 70's extender binds; each
+# phase that reads one waits for it (key -> Popen)
 _EARLY: dict = {}
+# the worker on argv[2:], its interpreter booted and torch imported at
+# once, its run begun once the file argv[1] exists (the kernels built)
+WORKER_GATE = "\n".join([
+    "import os, sys, time",
+    "import torch  # noqa: F401",
+    "from kubegpu_tpu_torch.models import worker",
+    "while not os.path.exists(sys.argv[1]):",
+    "    time.sleep(0.05)",
+    "sys.exit(worker.main(sys.argv[2:]))"])
 
 
-def worker_popen(argv: list, env=None):
+def worker_popen(argv: list, env=None, gate=None):
+    """The port's worker on ``argv`` (under ``env``) in a subprocess;
+    with ``gate``, it runs once the file ``gate`` exists."""
     import os
 
+    head = (["-c", WORKER_GATE, gate] if gate
+            else ["-m", "kubegpu_tpu_torch.models.worker"])
     return subprocess.Popen(
-        [sys.executable, "-m", "kubegpu_tpu_torch.models.worker", *argv],
+        [sys.executable, *head, *argv],
         cwd=os.path.dirname(os.path.abspath(__file__)), env=env,
         stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
 
@@ -3096,7 +3129,7 @@ def start_refused(keys) -> None:
             _EARLY[key] = worker_popen(*runs[key])
 
 
-def stop_refused() -> None:
+def stop_early() -> None:
     """Kill and reap every early run no phase read."""
     while _EARLY:
         proc = _EARLY.popitem()[1]
@@ -3104,7 +3137,7 @@ def stop_refused() -> None:
         proc.communicate()
 
 
-def refused_run(key: str, argv: list, env=None):
+def early_run(key: str, argv: list, env=None):
     """The worker on ``argv`` (under ``env``) to its exit, begun early
     under ``key`` or else now: a ``CompletedProcess``."""
     proc = _EARLY.pop(key, None) or worker_popen(argv, env)
@@ -3906,7 +3939,7 @@ def phase_tp(ctx: dict, device: str = "cuda", flagship: dict = TP_FLAGSHIP,
     n_cards = torch.cuda.device_count() if device == "cuda" else 0
     argv = TP_WORKER_ARGV
     if n_cards < TP:
-        proc = refused_run("tp_serve", argv)
+        proc = early_run("tp_serve", argv)
         want = f"exceeds the visible device count {n_cards}"
         assert proc.returncode != 0 and want in proc.stderr, (
             proc.returncode, proc.stderr[-2000:])
@@ -4170,7 +4203,7 @@ def phase_tp_train_worker(device: str = "cuda") -> None:
     n_cards = torch.cuda.device_count() if device == "cuda" else 0
     argv = TRAIN_TP_WORKER_ARGV
     if n_cards < 2:
-        proc = refused_run("tp_train", argv)
+        proc = early_run("tp_train", argv)
         want = f"exceeds the visible device count {n_cards}"
         assert proc.returncode != 0 and want in proc.stderr, (
             proc.returncode, proc.stderr[-2000:])
@@ -4846,7 +4879,7 @@ def phase_cp_worker(device: str = "cuda", sample=CP_SAMPLE_ARGV) -> dict:
     n_cards = torch.cuda.device_count() if device == "cuda" else 0
     argv = CP_WORKER_ARGV
     if device == "cuda" and n_cards < 2:
-        proc = refused_run("cp", argv)
+        proc = early_run("cp", argv)
         want = f"exceeds the visible device count {n_cards}"
         assert proc.returncode != 0 and want in proc.stderr, (
             proc.returncode, proc.stderr[-2000:])
@@ -6787,7 +6820,7 @@ def phase_device_layer() -> dict:
     # a worker given only a card the host lacks finds no card, and does
     # not train on the CPU
     assert BOGUS_UUID not in by_uuid
-    proc = refused_run("bogus", BOGUS_WORKER_ARGV, bogus_env())
+    proc = early_run("bogus", BOGUS_WORKER_ARGV, bogus_env())
     assert proc.returncode != 0, proc.stdout[-2000:]
     assert "no CUDA device is available" in proc.stderr, proc.stderr[-2000:]
     assert f"visible_devices={BOGUS_UUID}" in proc.stdout, proc.stdout
@@ -6798,6 +6831,228 @@ def phase_device_layer() -> dict:
     wall = time.monotonic() - t0
     log(f"device layer: {n} card(s), phase {wall:.1f} s")
     return dict(cards=n, annotation=payload, wall_s=wall)
+
+
+# phase 70: samples/jax-serve-gateway.yaml's decode replicas on this
+# machine.  Their container command with the port's worker for the JAX
+# one, its 256 steps cut to 8 and without --serve-http=8700 (no gateway
+# fronts it here) and --ckpt-dir=/ckpt (a volume this machine does not
+# mount: the worker serves fresh weights from its seed, as it does where
+# the directory holds no checkpoint)
+DECODE_REPLICA_ARGV = ["--model=decode", "--serving=paged",
+                       "--batch-per-chip=8", "--prompt-len=128", "--steps=8",
+                       "--vocab=32768", "--layers=4", "--heads=32",
+                       "--hidden=4096", "--seq=1023"]
+DECODE_REPLICA_GANG = ("decode-replicas", 3)
+
+
+def replica_pod(name: str, gang: bool, argv=DECODE_REPLICA_ARGV) -> dict:
+    """A ``decode-replica`` Pod object of the sample: its container
+    ``server`` asking one card, its serving group and, with ``gang``,
+    the sample's pod group of 3."""
+    from kubegpu_tpu_torch.types import annotations
+    from kubegpu_tpu_torch.types.resource import RES_TPU
+
+    ann = {annotations.POD_SERVING_GROUP: "decode"}
+    if gang:
+        ann[annotations.POD_GROUP] = DECODE_REPLICA_GANG[0]
+        ann[annotations.POD_GROUP_SIZE] = str(DECODE_REPLICA_GANG[1])
+    return {"metadata": {"name": name, "namespace": "default",
+                         "uid": f"uid-{name}",
+                         "labels": {"app": "decode-replica"},
+                         "annotations": ann},
+            "spec": {"restartPolicy": "Always", "containers": [{
+                "name": "server", "image": "kubegpu-tpu:latest",
+                "command": ["python", "-m", "kubegpu_tpu_torch.models.worker",
+                            *argv],
+                "resources": {"limits": {RES_TPU: "1"}}}]}}
+
+
+def extender_call(base: str, path: str, body=None) -> dict:
+    """One call to the extender on loopback (POST with a body, else GET):
+    its JSON answer."""
+    import urllib.request
+
+    data = None if body is None else json.dumps(body).encode()
+    req = urllib.request.Request(base + path, data=data,
+                                 headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=30) as resp:
+        assert resp.status == 200, (path, resp.status)
+        return json.loads(resp.read())
+
+
+def schedule_pod(api, base: str, pod: dict, node: str) -> tuple:
+    """kube-scheduler's cycle for ``pod`` against the extender at
+    ``base``, the pod created first: filter, prioritize, bind to
+    ``node``.  Returns (the host's milliseconds from filter to bind, the
+    bound Pod object)."""
+    name = pod["metadata"]["name"]
+    api.create_pod(pod)
+    t0 = time.perf_counter()
+    f = extender_call(base, "/filter", {"Pod": pod, "NodeNames": [node]})
+    assert f["NodeNames"] == [node] and not f["Error"], f
+    prio = extender_call(base, "/prioritize",
+                         {"Pod": pod, "NodeNames": f["NodeNames"]})
+    assert [e["Host"] for e in prio] == [node], prio
+    b = extender_call(base, "/bind", {"PodNamespace": "default",
+                                      "PodName": name, "Node": node})
+    ms = (time.perf_counter() - t0) * 1e3
+    assert b == {"Error": ""}, b
+    stored = api.get_pod("default", name)
+    assert stored["spec"]["nodeName"] == node, stored["spec"]
+    return ms, stored
+
+
+def control_plane_bind(provider, argv=DECODE_REPLICA_ARGV) -> dict:
+    """Phase 70, its first half, on the host: the node advertised, the
+    extender listening, the replicas' gang refused whole, one replica
+    bound and its container's env from the shim.  Returns the phase's
+    state (the API server, the extender and its address, the node, the
+    pod, its worker's arguments, its assignment and env, the
+    milliseconds)."""
+    import os
+
+    from kubegpu_tpu_torch.crishim.inject import compute_injection
+    from kubegpu_tpu_torch.plugins.advertiser import Advertiser
+    from kubegpu_tpu_torch.scheduler import ExtenderServer, Scheduler
+    from kubegpu_tpu_torch.types import annotations
+    from kubegpu_tpu_torch.types.resource import (
+        ENV_NVIDIA_VISIBLE_DEVICES,
+        ENV_VISIBLE_DEVICES,
+    )
+    from kubegpu_tpu_torch.utils.apiserver import InMemoryApiServer
+    from kubegpu_tpu_torch.utils.metrics import Metrics
+
+    t0 = time.monotonic()
+    api = InMemoryApiServer()
+    node = Advertiser(provider, api).advertise_once()
+    assert node is not None, "the advertiser found no card"
+    server = ExtenderServer(Scheduler(api, metrics=Metrics()),
+                            listen=("127.0.0.1", 0), resync_interval_s=3600.0)
+    server.start()
+    base = "http://%s:%d" % server.address
+    try:
+        cards = extender_call(base, "/state")["slices"][node]["free"]
+        # the sample's gang of three one-card replicas: refused whole by
+        # a node of fewer cards, nothing planned, reserved or bound
+        gang = [replica_pod(f"decode-replica-{i}", True, argv)
+                for i in range(DECODE_REPLICA_GANG[1])]
+        for pod in gang:
+            api.create_pod(pod)
+        for pod in gang:
+            f = extender_call(base, "/filter", {"Pod": pod,
+                                                "NodeNames": [node]})
+            assert f["NodeNames"] == [] and node in f["FailedNodes"], f
+        state = extender_call(base, "/state")
+        assert (state["gang_plans"], state["assumed"],
+                state["slices"][node]["used"]) == ({}, [], []), state
+        assert not any(o["spec"].get("nodeName")
+                       or annotations.assignment_from_pod(o)
+                       for o in api.list_pods())
+        refusal = f["FailedNodes"][node]
+        for pod in gang:
+            api.delete_pod("default", pod["metadata"]["name"])
+        # one replica alone: bound to a card, its container's env
+        pod = replica_pod("decode-replica-0", False, argv)
+        ms, stored = schedule_pod(api, base, pod, node)
+        command = stored["spec"]["containers"][0]["command"]
+        assert command[:3] == ["python", "-m",
+                               "kubegpu_tpu_torch.models.worker"], command
+        a = annotations.assignment_from_pod(stored)
+        (chip,) = a.per_container["server"]
+        inj = compute_injection(annotations.pod_from_k8s(stored), "server",
+                                provider)
+        assert (inj.env[ENV_VISIBLE_DEVICES]
+                == inj.env[ENV_NVIDIA_VISIBLE_DEVICES]), inj.env
+        env = {k: v for k, v in os.environ.items()
+               if k not in gang_cases().RENDEZVOUS_ENV
+               and k not in inj.env}
+        env.update(inj.env)
+    except BaseException:
+        server.stop()
+        raise
+    log(f"control plane: node advertised, extender up, gang refused, pod "
+        f"bound and its env made in {time.monotonic() - t0:.2f} s")
+    return dict(api=api, server=server, base=base, node=node, pod=pod,
+                argv=command[3:], cards=cards, refusal=refusal, chip=chip,
+                inj=inj, env=env, bind_ms=[ms])
+
+
+def stop_control_plane(cp: dict) -> None:
+    """Stop the extender (once)."""
+    server = cp.pop("server", None)
+    if server is not None:
+        server.stop()
+
+
+def phase_control_plane(cp: dict, uuid=None) -> dict:
+    """Phase 70, its second half: the bound pod's worker (begun early
+    under ``"pod"``, or else now) to its end (its card, every kernel's
+    launches: K1 once a layer of each decode step, no other), then the
+    pod deleted and bound again to the same card.  ``uuid`` is the
+    card's UUID as CUDA names it (None in a CPU rehearsal)."""
+    from kubegpu_tpu_torch.types import annotations
+    from kubegpu_tpu_torch.types.resource import ENV_VISIBLE_DEVICES
+
+    try:
+        t0 = time.monotonic()
+        proc = early_run("pod", cp["argv"], cp["env"])
+        wall = time.monotonic() - t0
+        assert proc.returncode == 0, proc.stderr[-3000:]
+        lines = pod_lines(proc.stdout)
+        seen = fields(lines["WORKER_DEVICES"])["visible_devices"]
+        assert seen == cp["env"][ENV_VISIBLE_DEVICES], lines["WORKER_DEVICES"]
+        if uuid is not None:
+            assert seen == uuid, (seen, uuid)
+        k1 = fields(lines["K1_LAUNCHES"])
+        want = int(k1["decode_steps"]) * int(k1["layers"])
+        every = fields(lines["KERNEL_LAUNCHES"])
+        assert every.pop("serving") == "paged", lines["KERNEL_LAUNCHES"]
+        on_card = every.pop("device").startswith("cuda")
+        launches = {k: int(v) for k, v in every.items()}
+        assert launches == dict.fromkeys(launches, 0) | {
+            "K1": want if on_card else 0} and want > 0, launches
+        assert launches["K1"] == int(k1["paged_decode_attention"]), k1
+        # the pod deleted: the extender's pod watch returns its card, and
+        # the same pod binds to it again
+        api, base, node = cp["api"], cp["base"], cp["node"]
+        name = cp["pod"]["metadata"]["name"]
+        api.delete_pod("default", name)
+        deadline = time.monotonic() + 30
+        while extender_call(base, "/state")["slices"][node]["used"]:
+            assert time.monotonic() < deadline, "the card was not returned"
+            time.sleep(0.02)
+        assert extender_call(base, "/state")["slices"][node]["free"] == (
+            cp["cards"])
+        pod = {k: v for k, v in cp["pod"].items() if k != "status"}
+        pod["spec"] = {k: v for k, v in pod["spec"].items()
+                       if k != "nodeName"}
+        meta = dict(pod["metadata"])
+        meta["annotations"] = {
+            k: v for k, v in meta["annotations"].items()
+            if k != annotations.POD_ASSIGNMENT}
+        pod["metadata"] = meta
+        ms, again = schedule_pod(api, base, pod, node)
+        a = annotations.assignment_from_pod(again)
+        assert a.per_container["server"] == [cp["chip"]], (a, cp["chip"])
+        cp["bind_ms"].append(ms)
+    finally:
+        stop_control_plane(cp)
+    log(f"control plane: the replicas' gang of {DECODE_REPLICA_GANG[1]} "
+        f"refused whole on {cp['node']} ({len(cp['cards'])} card(s)): "
+        f"{cp['refusal']}")
+    log(f"control plane: decode-replica-0 bound to {cp['node']} card "
+        f"{cp['chip'].device_index}; the shim's env {cp['inj'].env}; its "
+        f"worker (`{' '.join(cp['pod']['spec']['containers'][0]['command'][3:])}`) "
+        f"under that env: WORKER_DEVICES {seen}, K1 launches "
+        f"{launches['K1']} = decode steps {k1['decode_steps']} x layers "
+        f"{k1['layers']}, every kernel's {launches}, its "
+        f"process {wall:.1f} s after the build; deleted, the card came "
+        f"back and the pod bound to it again")
+    log(f"control plane: filter -> prioritize -> bind over loopback HTTP, "
+        f"host time on this machine: {cp['bind_ms'][0]:.3f} ms, after the "
+        f"delete {cp['bind_ms'][1]:.3f} ms")
+    return dict(launches=launches, bind_ms=cp["bind_ms"], wall_s=wall)
 
 
 def _timed(fn):
@@ -6840,11 +7095,13 @@ def main(argv=None) -> int:
 
 def _run(group: str, torch) -> int:
     with contextlib.ExitStack() as stack:
-        stack.callback(stop_refused)
+        stack.callback(stop_early)
         return _run_phases(group, torch, stack)
 
 
 def _run_phases(group: str, torch, stack) -> int:
+    import os
+
     serving = group in ("all", "serving")
     training = group in ("all", "training")
     gangs = {}
@@ -6862,13 +7119,25 @@ def _run_phases(group: str, torch, stack) -> int:
 
     t0 = time.monotonic()
     name, smi = phase_device()
-    # the refused workers' interpreters boot beside the build
-    start_refused(["bogus"] * (group in ("all", "device"))
+    device = group in ("all", "device")
+    # the refused workers' interpreters boot beside the build, as does
+    # the pod that phase 70's extender binds now
+    start_refused(["bogus"] * device
                   + ["tp_serve"] * serving + ["tp_train", "cp"] * training)
+    if device:
+        cp = control_plane_bind(gang_provider("cuda"))
+        stack.callback(stop_control_plane, cp)
+        gate_dir = tempfile.mkdtemp(prefix="chip-smoke-pod-")
+        stack.callback(shutil.rmtree, gate_dir, ignore_errors=True)
+        gate = os.path.join(gate_dir, "built")
+        _EARLY["pod"] = worker_popen(cp["argv"], cp["env"], gate)
     phase_build()
-    if group in ("all", "device"):
-        # the device layer: NVML's cards, the plugin, a worker refused
+    if device:
+        open(gate, "w").close()
+        # the device layer: NVML's cards, the plugin, a worker refused;
+        # the control plane: the pod's worker serves beside it
         phase_device_layer()
+        bound = phase_control_plane(cp, torch_uuid(cp["chip"].device_index))
     if serving:
         k1 = phase_k1()
         phase_k1(geo=DEFAULT_PAGED)
@@ -7056,6 +7325,9 @@ def _run_phases(group: str, torch, stack) -> int:
                               for p in gang_resnet["pods"]],
             # the pipeline (phase 62's worker): einsum attention, none
             "pp_launches": pp_launches[tp_key],
+            # the pod the port's extender bound (phase 70): its worker's
+            # launches
+            "bound_pod_launches": bound["launches"][tp_key],
             "tp_ms": tp_k[kname]["ms"],
             "tp_bound_ms": tp_k[kname]["bound_ms"],
         })

@@ -347,6 +347,7 @@ from kubegpu_tpu_torch.parallel.mesh import (
     close_mesh,
     device_mesh,
     distributed_init_from_env,
+    leaving,
     local_chip_count,
 )
 from kubegpu_tpu_torch.types.resource import ENV_VISIBLE_DEVICES
@@ -836,11 +837,8 @@ def _tp_follower(rank: int, args: argparse.Namespace,
     rank 0's calls on it until rank 0 closes it."""
     if args.device == "cpu":
         torch.set_num_threads(1)
-    mesh = join_tp_mesh(args, rank, store_path)
-    try:
+    with leaving(join_tp_mesh(args, rank, store_path)) as mesh:
         build_batcher(args, mesh).follow()
-    finally:
-        close_mesh(mesh)
 
 
 def open_batcher(args: argparse.Namespace):
@@ -855,7 +853,8 @@ def open_batcher(args: argparse.Namespace):
 class TPRanks:
     """``--tp N``'s ranks 1..N-1, started as processes, and rank 0's
     mesh (this process).  ``close`` releases the followers of ``cb``,
-    joins them, leaves the mesh, and raises if a rank failed."""
+    leaves the mesh with them (at once if the release failed: a
+    follower is gone), joins them, and raises if a rank failed."""
 
     def __init__(self, args: argparse.Namespace) -> None:
         self._dir = tempfile.mkdtemp(prefix="kubegpu-tp-")
@@ -867,13 +866,18 @@ class TPRanks:
               + f" backend={self.mesh.backend}", flush=True)
 
     def close(self, cb) -> None:
-        cb.close()
+        try:
+            cb.close()
+        except RuntimeError as e:   # gloo's error: a follower is gone
+            failed = e
+        else:
+            failed = None
+        close_mesh(self.mesh, orderly=failed is None)
         codes = join_ranks(self.procs)
-        close_mesh(self.mesh)
         shutil.rmtree(self._dir, ignore_errors=True)
-        if any(codes):
+        if any(codes) or failed is not None:
             raise RuntimeError(f"tensor-parallel ranks 1..{len(codes)} "
-                               f"exited with {codes}")
+                               f"exited with {codes}") from failed
 
 
 def serving_params(args: argparse.Namespace, device, announce: bool = True):
@@ -1650,11 +1654,8 @@ def _train_rank(rank: int, args: argparse.Namespace, axes: dict,
     collectives."""
     if args.device == "cpu":
         torch.set_num_threads(1)
-    mesh = join_training_mesh(args, axes, rank, gang)
-    try:
+    with leaving(join_training_mesh(args, axes, rank, gang)) as mesh:
         _train(args, mesh, time.monotonic())
-    finally:
-        close_mesh(mesh)
 
 
 def join_training_mesh(args: argparse.Namespace, axes: dict, rank: int,
@@ -1770,10 +1771,8 @@ def _train_over_mesh(args: argparse.Namespace, axes: dict,
               + f" backend={mesh.backend}"
               + (f" attn_impl={cp_attn_impl(args)}" if cp else ""),
               flush=True)
-        try:
+        with leaving(mesh):
             r = _train(args, mesh, t0)
-        finally:
-            close_mesh(mesh)
     finally:
         codes = join_ranks(procs)
     if any(codes):
@@ -1880,12 +1879,12 @@ def report_decode(args: argparse.Namespace, r: Dict[str, object]) -> None:
             f"steps={r['steps']} admits={r['admits']}",
             flush=True,
         )
+    # every kernel of the port by ID (the dense modes run none of them)
+    print("KERNEL_LAUNCHES "
+          + " ".join(f"{k}={v}" for k, v in r["launches"].items())
+          + f" serving={args.serving} device={r['device']}", flush=True)
     if args.serving != "paged":
-        # the dense modes run no kernel of the port: every count is 0
         peak = r.get("peak_bytes")
-        print("KERNEL_LAUNCHES "
-              + " ".join(f"{k}={v}" for k, v in r["launches"].items())
-              + f" serving={args.serving} device={r['device']}", flush=True)
         if peak is not None:
             print(f"PEAK_MEM_GIB {peak / 2**30:.2f} device={r['device']}",
                   flush=True)

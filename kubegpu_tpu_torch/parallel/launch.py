@@ -147,10 +147,15 @@ def _rank_main(rank: int, axes, backend: str, devices: Sequence[str],
     mesh = device_mesh(axes, rank, backend=backend, device=devices[rank],
                        store=open_store(store_path, len(devices)),
                        timeout_s=timeout_s, devices=tuple(devices))
+    # the ranks leave together when the parent closes the gang; a rank
+    # whose call failed leaves at once (its peers may wait for it in a
+    # collective of that call)
+    orderly = False
     try:
         while True:
             job = inbox.get()
             if job is None:
+                orderly = True
                 return
             fn, args = job
             try:
@@ -160,7 +165,7 @@ def _rank_main(rank: int, axes, backend: str, devices: Sequence[str],
                 return
             results.put((rank, True, value if rank == 0 else None))
     finally:
-        close_mesh(mesh)
+        close_mesh(mesh, orderly)
 
 
 class Gang:

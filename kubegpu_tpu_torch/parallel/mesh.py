@@ -57,10 +57,11 @@ process-major does not follow yet."""
 
 from __future__ import annotations
 
+from contextlib import contextmanager
 from dataclasses import dataclass, field
 from datetime import timedelta
-from typing import (TYPE_CHECKING, Dict, List, Mapping, Optional, Sequence,
-                    Tuple, Union)
+from typing import (TYPE_CHECKING, Dict, Iterator, List, Mapping, Optional,
+                    Sequence, Tuple, Union)
 
 import os
 
@@ -340,10 +341,35 @@ def remesh(mesh: Mesh, axes: Union[int, Mapping[str, int]]) -> Mesh:
                 timeout_s=mesh.timeout_s)
 
 
-def close_mesh(mesh: Mesh) -> None:
-    """Leave the process group (every rank calls it)."""
+def close_mesh(mesh: Mesh, orderly: bool = True) -> None:
+    """Leave the process group (every rank calls it).  A rank that
+    reached its end (``orderly``) first passes one last barrier on the
+    control group, so no rank tears its groups down while another still
+    holds them; a peer that has already died fails the barrier, and the
+    rank leaves all the same (whoever joins that peer reports it).  A
+    rank that leaves through an error passes ``orderly=False`` and
+    tears its groups down at once: its peers may wait for it in another
+    collective, which fails once this rank's process ends."""
     if dist.is_initialized():
+        if orderly:
+            try:
+                dist.barrier(group=mesh.control)
+            except RuntimeError:   # a dead peer (gloo's error)
+                pass
         dist.destroy_process_group()
+
+
+@contextmanager
+def leaving(mesh: Mesh) -> Iterator[Mesh]:
+    """Run the block on ``mesh``, then leave it (:func:`close_mesh`):
+    through the last barrier when the block ended, at once when it
+    raised."""
+    try:
+        yield mesh
+    except BaseException:
+        close_mesh(mesh, orderly=False)
+        raise
+    close_mesh(mesh)
 
 
 # -- from scheduled devices to a layout (JAX's mesh plumbing) ---------------

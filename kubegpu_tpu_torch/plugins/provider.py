@@ -25,7 +25,7 @@ from kubegpu_tpu_torch.types.resource import (  # noqa: F401 - re-exported
     ENV_NVIDIA_VISIBLE_DEVICES,
     ENV_VISIBLE_DEVICES,
 )
-from kubegpu_tpu_torch.types.topology import Chip, Coord
+from kubegpu_tpu_torch.types.topology import Chip, Coord, TpuGeneration
 
 # the driver's control nodes a CUDA process opens beside its cards'
 CONTROL_DEVICES = ("nvidiactl", "nvidia-uvm", "nvidia-uvm-tools")
@@ -40,7 +40,7 @@ class HostFragment:
 
     node_name: str
     slice_id: str
-    generation: Optional[str]
+    generation: Optional[TpuGeneration]
     mesh_shape: Coord
     wrap: Tuple[bool, ...]
     chips: List[Chip] = field(default_factory=list)

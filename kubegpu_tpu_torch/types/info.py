@@ -1,7 +1,10 @@
 """Node/pod/container records: the port's copy of the JAX package's
 ``types/info.py`` (``NodeInfo``, ``ContainerInfo``, ``PodInfo``,
-``ChipRef``, ``Assignment``), the fields the annotation codec reads and
-writes, unchanged, so the port decodes what the JAX extender binds."""
+``ChipRef``, ``Assignment``, ``TpuRequest``), with the fields the
+annotation codec reads and writes unchanged, so the port decodes what
+either extender binds.  A node carries capacity and used grouped-resource
+trees and the devices it owns; a pod carries its containers' requests
+and its gang metadata."""
 
 from __future__ import annotations
 
@@ -9,26 +12,43 @@ from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Tuple
 
 from kubegpu_tpu_torch.types.resource import LEAF_TPU, ResourcePath, ResourceTree
-from kubegpu_tpu_torch.types.topology import Chip, Coord
+from kubegpu_tpu_torch.types.topology import Chip, Coord, TpuGeneration
 
 
 @dataclass
 class NodeInfo:
-    """One Kubernetes node: the devices it owns, with their mesh
-    coordinates, and the capacity tree of its healthy ones.
-    ``generation`` is the TPU generation's name in the JAX package; a
-    GPU host has none."""
+    """One Kubernetes node as the scheduler sees it.  A GPU host has no
+    TPU ``generation`` (None)."""
 
     name: str
+    # TPU slice fragment owned by this host (empty for non-TPU nodes).
     slice_id: Optional[str] = None
-    generation: Optional[str] = None
+    generation: Optional[TpuGeneration] = None
     mesh_shape: Optional[Coord] = None
     wrap: Optional[Tuple[bool, ...]] = None
     chips: List[Chip] = field(default_factory=list)
+    # Grouped-resource bookkeeping (device resources only; cpu/mem stay with
+    # the default scheduler, as in the reference).
     capacity: ResourceTree = field(default_factory=ResourceTree)
+    used: ResourceTree = field(default_factory=ResourceTree)
+
+    @property
+    def is_tpu_node(self) -> bool:
+        return bool(self.chips)
+
+    def allocatable(self) -> ResourceTree:
+        t = self.capacity.clone()
+        t.add_tree(self.used, sign=-1)
+        return t
 
     def chip_path(self, chip: Chip) -> ResourcePath:
-        """``tpu-slice/<slice>/host/<node>/chip/<local-index>/tpu``."""
+        """Canonical grouped path for one chip's allocatable unit:
+        ``tpu-slice/<slice>/host/<node>/chip/<local-index>/tpu`` — the
+        slice→host→chip ownership encoding (resource.py docstring).  The host
+        level keeps paths cluster-globally unique so slice-wide aggregation
+        across NodeInfos cannot conflate chips; the leaf is the slash-free
+        LEAF_TPU (the k8s name RES_TPU contains '/', which is illegal in a
+        path segment)."""
         return ResourcePath(
             groups=(
                 ("tpu-slice", self.slice_id or "none"),
@@ -39,7 +59,8 @@ class NodeInfo:
         )
 
     def rebuild_capacity(self) -> None:
-        """Capacity tree from the chip list: healthy chips only."""
+        """Capacity tree from the chip list: healthy chips only — dead chips
+        fall out of the allocatable set (SURVEY.md §5.3)."""
         self.capacity = ResourceTree()
         for ch in self.chips:
             if ch.healthy:
@@ -51,12 +72,17 @@ class NodeInfo:
                 node.meta["coords"] = ch.coords
                 node.meta["chip_id"] = ch.chip_id
 
+    def coords_by_device_index(self) -> Dict[int, Coord]:
+        return {ch.device_index: ch.coords for ch in self.chips}
+
 
 @dataclass
 class ContainerInfo:
     name: str
     tpu_chips: int = 0                      # scalar google.com/tpu request
     grouped: Optional[ResourceTree] = None  # explicit grouped request (rare)
+    # Other extended resources (domain/name-style limits, e.g. a custom
+    # device type served by a non-TPU DeviceSchedulerPlugin — SURVEY.md §2 #5)
     extended: Dict[str, int] = field(default_factory=dict)
 
 
@@ -71,14 +97,34 @@ class PodInfo:
     priority: int = 0
     node_name: Optional[str] = None
     subdomain: Optional[str] = None  # spec.subdomain (headless-service DNS)
+    # Gang metadata (parsed from annotations by scheduler.podgroup).
     pod_group: Optional[str] = None
     pod_group_size: int = 1
+    # gang incarnation id (POD_GROUP_UID annotation, e.g. the owning Job's
+    # UID); "" when unset — scopes completed-member memory per incarnation
     pod_group_uid: str = ""
     require_contiguous: bool = True
+    # opt-in: the gang may span DCN-connected slices when no single slice
+    # fits it (grpalloc.multislice)
     allow_multislice: bool = False
+    # tenant pinning: slice ids placement may use (None = any slice)
     slice_selector: Optional[frozenset] = None
+    # Lifecycle (status.phase / metadata.deletionTimestamp): the stranded-
+    # gang sweep must not count Terminating victims or garbage-collected
+    # Succeeded members as "bound" capacity holders.
     phase: str = ""
     deletion_timestamp: Optional[str] = None
+
+    @property
+    def terminal(self) -> bool:
+        """Succeeded/Failed: the pod's chips are released; it will never
+        run again (its containers are done)."""
+        return self.phase in ("Succeeded", "Failed")
+
+    @property
+    def terminating(self) -> bool:
+        """Graceful deletion in progress (deletionTimestamp set)."""
+        return self.deletion_timestamp is not None
 
     @property
     def key(self) -> str:
@@ -90,8 +136,8 @@ class PodInfo:
 
 @dataclass(frozen=True)
 class ChipRef:
-    """A concrete allocated device: its host, host-local index, id and
-    coordinates."""
+    """A concrete allocated chip: enough for both the CRI shim (host-local
+    device index) and observability (global coords)."""
 
     host: str
     device_index: int
@@ -119,19 +165,32 @@ class ChipRef:
 @dataclass
 class Assignment:
     """The bind-time decision for one pod, written into its annotations
-    by the extender and read by the CRI shim."""
+    (SURVEY.md §1 data-flow contract: state lives in the API server)."""
 
     node: str
     slice_id: Optional[str]
     per_container: Dict[str, List[ChipRef]] = field(default_factory=dict)
     score: float = 0.0
+    # Non-chip device bindings from a generic DeviceSchedulerPlugin
+    # (SURVEY.md §2 #5): container -> [(concrete resource path, qty)].
     grouped: Dict[str, List[Tuple[str, int]]] = field(default_factory=dict)
+    # epoch seconds of the durable bind commit; rides the annotation so
+    # the preemption min-runtime shield (anti-starvation) survives
+    # scheduler restarts.  0.0 = unknown (legacy annotation): unshielded.
     bound_at: float = 0.0
 
     def all_chips(self) -> List[ChipRef]:
         out: List[ChipRef] = []
         for refs in self.per_container.values():
             out.extend(refs)
+        return out
+
+    def grouped_totals(self) -> Dict[str, int]:
+        """Aggregate grouped bindings across containers: path -> qty."""
+        out: Dict[str, int] = {}
+        for pairs in self.grouped.values():
+            for path, qty in pairs:
+                out[path] = out.get(path, 0) + qty
         return out
 
     def to_dict(self) -> dict:
@@ -166,4 +225,22 @@ class Assignment:
                 for c, pairs in d.get("grouped", {}).items()
             },
             bound_at=float(d.get("bound_at", 0.0) or 0.0),
+        )
+
+
+@dataclass
+class TpuRequest:
+    """A pod's device request, normalized for the allocator."""
+
+    total_chips: int
+    contiguous: bool = True
+    per_container: Dict[str, int] = field(default_factory=dict)
+
+    @staticmethod
+    def from_pod(pod: PodInfo) -> "TpuRequest":
+        per = {c.name: c.tpu_chips for c in pod.containers if c.tpu_chips > 0}
+        return TpuRequest(
+            total_chips=sum(per.values()),
+            contiguous=pod.require_contiguous,
+            per_container=per,
         )

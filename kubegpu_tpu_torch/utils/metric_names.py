@@ -1,7 +1,8 @@
 """The catalog of every metric name the port emits: its own copy of the
 entries of the JAX package's ``utils/metric_names.py`` for the names the
-port's replica serving path emits, with the same kind, label keys and
-help text, so dashboards read a torch replica exactly as a JAX one.
+port emits (its replica serving path and its scheduler extender), with
+the same kind, label keys and help text, so dashboards read a torch
+replica or extender exactly as a JAX one.
 
 ``tests/test_torch_observability.py`` greps ``kubegpu_tpu_torch/`` for
 ``inc(``/``observe(``/``set_gauge(``/``timer(`` string literals and
@@ -34,6 +35,28 @@ def _h(labels: Tuple[str, ...], help: str) -> MetricSpec:
 
 
 CATALOG: Dict[str, MetricSpec] = {
+    # -- scheduler / control plane (scheduler/core.py, utils/apiserver.py)
+    "kubegpu_filter_total": _c((), "extender Filter calls"),
+    "kubegpu_filter_seconds": _h((), "Filter handler wall time"),
+    "kubegpu_prioritize_total": _c((), "extender Prioritize calls"),
+    "kubegpu_prioritize_seconds": _h((), "Prioritize handler wall time"),
+    "kubegpu_bind_total": _c((), "extender Bind calls"),
+    "kubegpu_bind_seconds": _h((), "Bind handler wall time"),
+    "kubegpu_bind_conflicts_total": _c(
+        (), "binds refused by optimistic-concurrency conflicts"),
+    "kubegpu_chips_allocated_total": _c((), "chips handed to pods"),
+    "kubegpu_grouped_allocated_total": _c(
+        (), "chips allocated via gang (grouped) admission"),
+    "kubegpu_placements_total": _c((), "successful placements"),
+    "kubegpu_placements_contiguous_total": _c(
+        (), "placements that were ICI-contiguous"),
+    "kubegpu_preemptions_total": _c((), "preemption plans executed"),
+    "kubegpu_preempted_pods_total": _c((), "pods evicted by preemption"),
+    "kubegpu_stranded_gang_rollbacks_total": _c(
+        (), "partially-bound gangs rolled back after the grace window"),
+    "kubegpu_health_evictions_total": _c(
+        (), "assignments evicted because their chips disappeared"),
+
     # -- replica HTTP serving endpoint (gateway/dataplane.py)
     "replica_http_requests_total": _c(
         ("verb",), "replica endpoint requests by verb "

@@ -100,7 +100,14 @@ def test_importing_every_module_leaves_jax_out():
                  "plugins.provider", "plugins.nvml", "plugins.discovery",
                  "plugins.fake", "plugins.deviceplugin",
                  "plugins.advertiser", "crishim", "crishim.inject",
-                 "crishim.proxy", "crishim.daemon"):
+                 "crishim.proxy", "crishim.daemon",
+                 # the control plane's scheduling half
+                 "utils.events", "utils.leaderelection", "grpalloc.view",
+                 "grpalloc.treefit", "grpalloc.allocator",
+                 "grpalloc.multislice", "scheduler", "scheduler.cache",
+                 "scheduler.plugins", "scheduler.preemption",
+                 "scheduler.podgroup", "scheduler.core", "scheduler.server",
+                 "scheduler.status"):
         assert f"kubegpu_tpu_torch.{name}" in imported.split(), name
 
 

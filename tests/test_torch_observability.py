@@ -37,7 +37,7 @@ _EMIT_RE = re.compile(
     re.S,
 )
 
-# the names the port's replica path emits
+# the names the port's replica path and its extender emit
 WANT_NAMES = {
     "replica_http_requests_total", "replica_http_stream_events_total",
     "replica_http_streams_active", "replica_http_cancels_total",
@@ -71,6 +71,15 @@ WANT_NAMES = {
     # tensor-parallel serving's modeled all-reduce bytes (models/paging.py
     # over a mesh)
     "serve_tp_collective_bytes_total",
+    # the scheduler extender's series (scheduler/core.py)
+    "kubegpu_filter_total", "kubegpu_filter_seconds",
+    "kubegpu_prioritize_total", "kubegpu_prioritize_seconds",
+    "kubegpu_bind_total", "kubegpu_bind_seconds",
+    "kubegpu_bind_conflicts_total", "kubegpu_chips_allocated_total",
+    "kubegpu_grouped_allocated_total", "kubegpu_placements_total",
+    "kubegpu_placements_contiguous_total", "kubegpu_preemptions_total",
+    "kubegpu_preempted_pods_total", "kubegpu_stranded_gang_rollbacks_total",
+    "kubegpu_health_evictions_total",
 }
 
 

@@ -495,6 +495,109 @@ def test_worker_tp2_on_cpu_serves_the_tp1_wave(extra):
     assert got["pool_bytes_per_device"] * 2 == ref["pool_bytes"]
 
 
+# every process of the run (the spawned ranks too) logs each
+# destroy_process_group with its rank and time
+TEARDOWN_LOG = """
+import os, time
+import torch.distributed as dist
+_destroy = dist.destroy_process_group
+def destroy_process_group(*a, **k):
+    rank = dist.get_rank()
+    with open(os.environ["TEARDOWN_LOG"], "a") as f:
+        f.write(f"destroy {rank} {time.time()!r}\\n")
+    return _destroy(*a, **k)
+dist.destroy_process_group = destroy_process_group
+"""
+
+# rank 0 is held for HOLD_S before it leaves the mesh, after it has
+# released its followers; it logs when it arrives
+HELD_TP_WAVE = """
+import os, sys, time
+from kubegpu_tpu_torch.models import worker
+_close = worker.close_mesh
+def held(mesh, *args, **kwargs):
+    time.sleep(float(os.environ["HOLD_S"]))
+    with open(os.environ["TEARDOWN_LOG"], "a") as f:
+        f.write(f"arrive 0 {time.time()!r}\\n")
+    _close(mesh, *args, **kwargs)
+worker.close_mesh = held
+r = worker.run_decode(worker.build_parser().parse_args(sys.argv[1:]))
+print("WAVE_STEPS", r["steps"], flush=True)
+"""
+
+
+def test_tp_serving_ranks_leave_the_mesh_together(tmp_path):
+    """F3: no rank of a ``--tp 2`` server destroys its process groups
+    before every rank has come to leave the mesh.  Rank 0 is held for
+    half a second after it has released its follower; the follower must wait
+    for it at the mesh's last barrier, not tear down its groups (and
+    exit) while rank 0 still holds them, and both ranks exit 0."""
+    site = tmp_path / "site"
+    site.mkdir()
+    (site / "sitecustomize.py").write_text(TEARDOWN_LOG)
+    log = tmp_path / "teardown.log"
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join([str(site), REPO]),
+               TEARDOWN_LOG=str(log), HOLD_S="0.5")
+    argv = TINY + ["--device", "cpu", "--serve-fp32", "--tp", "2",
+                   "--steps", "2"]
+    proc = subprocess.run([sys.executable, "-c", HELD_TP_WAVE, *argv],
+                          cwd=REPO, env=env, capture_output=True, text=True,
+                          timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert re.search(r"^WAVE_STEPS \d+$", proc.stdout, re.M), proc.stdout
+    events = [line.split() for line in log.read_text().splitlines()]
+    arrive = [float(t) for kind, _, t in events if kind == "arrive"]
+    destroy = {int(r): float(t) for kind, r, t in events if kind == "destroy"}
+    assert len(arrive) == 1 and sorted(destroy) == [0, 1], events
+    assert min(destroy.values()) >= arrive[0], (
+        f"rank(s) {[r for r, t in destroy.items() if t < arrive[0]]} "
+        f"destroyed their groups before rank 0 came to leave the mesh")
+
+
+# rank 1 fails as it waits for rank 0's second call (the timed wave's
+# run, after the warm-up wave's: mid-follow), and logs when
+FAILING_FOLLOWER = """
+import os, time
+from kubegpu_tpu_torch.parallel import replay
+_broadcast = replay.broadcast_object
+_received = [0]
+def broadcast_object(obj, mesh):
+    if mesh.rank == 1:
+        _received[0] += 1
+        if _received[0] == 2:
+            with open(os.environ["FAIL_LOG"], "a") as f:
+                f.write(f"{time.time()!r}\\n")
+            raise RuntimeError("rank 1 fails while it follows")
+    return _broadcast(obj, mesh)
+replay.broadcast_object = broadcast_object
+"""
+
+
+def test_a_failing_tp_follower_fails_the_server_at_once(tmp_path):
+    """A ``--tp 2`` follower that raises while it follows leaves the mesh
+    at once, without the last barrier (rank 0 is not at it): rank 0's
+    next collective fails, it leaves too and exits non-zero, within
+    20 s of the follower's failure, naming the failed rank."""
+    site = tmp_path / "site"
+    site.mkdir()
+    (site / "sitecustomize.py").write_text(FAILING_FOLLOWER)
+    log = tmp_path / "fail.log"
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join([str(site), REPO]),
+               FAIL_LOG=str(log))
+    argv = TINY + ["--device", "cpu", "--serve-fp32", "--tp", "2",
+                   "--steps", "2"]
+    proc = subprocess.run(
+        [sys.executable, "-m", "kubegpu_tpu_torch.models.worker", *argv],
+        cwd=REPO, env=env, capture_output=True, text=True, timeout=120)
+    ended = time.time()
+    assert proc.returncode != 0, proc.stdout[-2000:]
+    assert "rank 1 fails while it follows" in proc.stderr, proc.stderr
+    assert "tensor-parallel ranks 1..1 exited with [1]" in proc.stderr, (
+        proc.stderr[-3000:])
+    (failed,) = [float(t) for t in log.read_text().split()]
+    assert ended - failed < 20.0, ended - failed
+
+
 @pytest.mark.parametrize("argv, match", [
     (["--tp", "2"], "exceeds the visible device count"),
     (["--tp", "3", "--device", "cpu"], "--heads 4 not divisible by tp=3"),
