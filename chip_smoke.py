@@ -4,27 +4,27 @@
     python3 chip_smoke.py [--group all|serving|training|gang|device]
 
 Builds every kernel of the port's serving and training paths from the
-sources in the checkout, then runs seventy phases; any failure
+sources in the checkout, then runs seventy-one phases; any failure
 exits non-zero.  ``--group`` (default ``all``, every phase in the order
-below, but 69 and 70, which run right after the build; 52-54, 58, 60 and 62,
+below, but 69-71, which run right after the build; 52-54, 58, 60 and 62,
 which run right after 10, before any gang starts, so that they time the
 card or read its memory with no other process on it; 66-68, which run
 right after 50 in the gangs of 49-50; 51; then 55-57, 59, 61 and 63 in
 the gangs they share; and 64 and 65, which run at the same time; a bare
 call runs them so) runs phases 1 and the build, then only the serving
 phases (2-7, 11-40), the training phases (8-10, 41-63, 66-68), the gang
-phases (64-65) or the device layer and the control plane (69-70), and
-prints no per-kernel
-record; each phase's seconds are printed after it as ``[phase_name N
-s]``.  Gangs of ranks boot while other work runs (``Gang.start()``):
+phases (64-65) or the device layer, the control plane and the gateway
+(69-71), and prints no per-kernel record; each phase's seconds are
+printed after it as ``[phase_name N s]``.  Gangs of ranks boot while other work runs (``Gang.start()``):
 the four of 42-44 and the two, four and eight of 49-50 and 66-68
 beside 36-40, the two and four of 55, 59, 61 and 63 beside 42-44, all
 idle through 45-48; one gang serves several meshes by laying its world
 out anew (``remesh``).  The worker runs that phases 40, 44, 51 and 69
 expect refused (one card; a card the host lacks) start right after
-phase 1 and boot beside the build, as does phase 70's pod, which its
+phase 1 and boot beside the build, as do phase 70's pod, which its
 extender binds right after phase 1 and whose worker waits for the
-build before it serves:
+build before it serves, and phase 71's replica, which serves only once
+phase 70's worker has exited:
 
 1. device: the card's name and power limit, TF32 off;
 2. K1 (paged decode attention, ``ops/csrc/paged_attention.cu``: the
@@ -526,7 +526,35 @@ build before it serves:
    launches decode steps x layers times and no other kernel launches
    (its ``KERNEL_LAUNCHES``, the paged records' ``bound_pod_launches``);
    deleting the pod returns the card and the same pod binds to it
-   again; the host's milliseconds from filter to bind, both times.
+   again, now with the sample's serving command (phase 71's replica);
+   the host's milliseconds from filter to bind, both times;
+71. the sample's gateway in front of its replica (``kubegpu_tpu_torch/
+   gateway``, the ``device`` group, right after 70): ``decode-replica-0``
+   as phase 70 binds it again runs the sample's container command with
+   ``--serve-http=0`` in place of 8700 (its steps cut as in 70) under
+   the shim's env, its process booted beside the build and serving once
+   70's worker has exited; the pod's status gets ``podIP: 127.0.0.1``
+   and ``phase: Running``; the port's gateway is wired as its in-cluster
+   mode wires it (``ReplicaRegistry`` over 70's API server, the group
+   ``decode``, ``HttpReplicaClient`` resolving podIP:port with its probe
+   as the registry's, the sample's ``--queue-capacity=256 --deadline=30
+   --hedge-after=1.0``): ``/readyz`` 503 before the replica answers its
+   probe and 200 after; 3 greedy prompts of 128 tokens, 32 new, each
+   streamed through the gateway's SSE equal to the same request sent
+   alone straight to the replica's ``/v1/submit`` (sent there twice
+   first, so that both read the prompt from the prefix cache); a burst
+   of 16, 8 at a time, every stream 32 tokens, no retry, hedge or 429 in
+   the gateway's ``/metrics``; ``python -m
+   kubegpu_tpu_torch.gateway.server --replica-endpoint`` in a subprocess
+   announces its port, serves one of the prompts with the replica's
+   tokens and exits 0 on SIGTERM after its drain; the pod deleted turns
+   ``/readyz`` 503 within one refresh; the replica, stopped by SIGTERM,
+   launched K1 decode steps x layers times and no other kernel (its
+   ``KERNEL_LAUNCHES`` line, the paged records' ``gateway_launches``);
+   the gateway's ``gateway_ttft_seconds`` and ``gateway_itl_seconds``
+   over the burst beside the replica's ``serve_ttft_seconds`` and
+   ``serve_itl_seconds``, and each single's first-token time straight
+   and through the gateway, with the card's name and power limit.
 
 Phases 29-34, 53-54, 60, 61-63 and 64 set every kernel's launch count to 0
 before each run and require it to be 0 after: the dense paths, the
@@ -1572,69 +1600,34 @@ def phase_http_worker() -> dict:
     build), answer one submit with a full ``done`` and exit 0 on
     SIGTERM.  The process is killed if anything fails."""
     import os
-    import queue
     import signal
-    import threading
 
     cmd = [sys.executable, "-m", "kubegpu_tpu_torch.models.worker",
            "--model", "decode", "--serving", "paged", "--serve-http", "0"]
     root = os.path.dirname(os.path.abspath(__file__))
     t0 = time.monotonic()
     proc = subprocess.Popen(cmd, cwd=root, stdout=subprocess.PIPE,
-                            stderr=subprocess.STDOUT, text=True)
-    lines: "queue.Queue" = queue.Queue()
-
-    def pump():
-        for line in proc.stdout:
-            lines.put(line)
-        lines.put(None)
-
-    threading.Thread(target=pump, daemon=True).start()
-    out = []
-
-    def next_line(deadline):
-        try:
-            line = lines.get(timeout=max(0.0, deadline - time.monotonic()))
-        except queue.Empty:
-            raise AssertionError(f"worker timed out; output so far {out}")
-        if line is None:
-            raise AssertionError(f"worker exited {proc.wait()}: {out}")
-        out.append(line.rstrip())
-        return line
-
+                            stderr=subprocess.PIPE, text=True)
+    lines = ProcLines(proc)
     try:
-        deadline = t0 + 300
-        while True:
-            line = next_line(deadline)
-            if line.startswith("REPLICA_HTTP_SERVING"):
-                break
+        line = lines.until("REPLICA_HTTP_SERVING", 300)
         up_s = time.monotonic() - t0
-        fields = dict(f.split("=", 1) for f in line.split()[1:])
-        port = int(fields["port"])
+        port = int(fields(line)["port"])
         events = sse_request(port, "/v1/submit", {
             "request_id": "w", "prompt": [5, 6, 7, 8], "max_new_tokens": 8})
         streams, _ = check_streams({0: events}, [8])
         proc.send_signal(signal.SIGTERM)
-        rc = proc.wait(timeout=120)
-        while True:
-            try:
-                rest = lines.get(timeout=10)
-            except queue.Empty:
-                break
-            if rest is None:
-                break
-            out.append(rest.rstrip())
-        stopped = next(x for x in out if x.startswith("REPLICA_HTTP_STOPPED"))
-        log(f"worker --serve-http 0 at its defaults: {line.strip()}; "
+        rc = lines.wait(120)
+        stopped = next(x for x in lines.out
+                       if x.startswith("REPLICA_HTTP_STOPPED"))
+        log(f"worker --serve-http 0 at its defaults: {line}; "
             f"REPLICA_HTTP_SERVING {up_s:.1f} s after the launch; one "
             f"submit -> {len(streams[0])} tokens; {stopped}; exit {rc}")
-        assert rc == 0, out
+        assert rc == 0, (lines.out, lines.tail())
         assert "error=False" in stopped
         return dict(serving_s=up_s)
     finally:
-        if proc.poll() is None:
-            proc.kill()
-            proc.wait()
+        lines.kill()
 
 
 # -- sampling (phases 23-25) --------------------------------------------------
@@ -6835,10 +6828,10 @@ def phase_device_layer() -> dict:
 
 # phase 70: samples/jax-serve-gateway.yaml's decode replicas on this
 # machine.  Their container command with the port's worker for the JAX
-# one, its 256 steps cut to 8 and without --serve-http=8700 (no gateway
-# fronts it here) and --ckpt-dir=/ckpt (a volume this machine does not
-# mount: the worker serves fresh weights from its seed, as it does where
-# the directory holds no checkpoint)
+# one, its 256 steps cut to 8 and without --serve-http=8700 (phase 71's
+# replica, the pod bound again, serves over HTTP) and --ckpt-dir=/ckpt (a
+# volume this machine does not mount: the worker serves fresh weights
+# from its seed, as it does where the directory holds no checkpoint)
 DECODE_REPLICA_ARGV = ["--model=decode", "--serving=paged",
                        "--batch-per-chip=8", "--prompt-len=128", "--steps=8",
                        "--vocab=32768", "--layers=4", "--heads=32",
@@ -6975,7 +6968,7 @@ def control_plane_bind(provider, argv=DECODE_REPLICA_ARGV) -> dict:
         f"bound and its env made in {time.monotonic() - t0:.2f} s")
     return dict(api=api, server=server, base=base, node=node, pod=pod,
                 argv=command[3:], cards=cards, refusal=refusal, chip=chip,
-                inj=inj, env=env, bind_ms=[ms])
+                inj=inj, env=env, bind_ms=[ms], provider=provider)
 
 
 def stop_control_plane(cp: dict) -> None:
@@ -6985,12 +6978,16 @@ def stop_control_plane(cp: dict) -> None:
         server.stop()
 
 
-def phase_control_plane(cp: dict, uuid=None) -> dict:
+def phase_control_plane(cp: dict, uuid=None, rebind_argv=None,
+                        serve_gate=None) -> dict:
     """Phase 70, its second half: the bound pod's worker (begun early
     under ``"pod"``, or else now) to its end (its card, every kernel's
     launches: K1 once a layer of each decode step, no other), then the
     pod deleted and bound again to the same card.  ``uuid`` is the
-    card's UUID as CUDA names it (None in a CPU rehearsal)."""
+    card's UUID as CUDA names it (None in a CPU rehearsal).  With
+    ``rebind_argv`` the pod bound again runs the worker on those
+    arguments (phase 71's serving replica); ``serve_gate``, a file made
+    once the worker has exited, lets that replica's process serve."""
     from kubegpu_tpu_torch.types import annotations
     from kubegpu_tpu_torch.types.resource import ENV_VISIBLE_DEVICES
 
@@ -6998,6 +6995,8 @@ def phase_control_plane(cp: dict, uuid=None) -> dict:
         t0 = time.monotonic()
         proc = early_run("pod", cp["argv"], cp["env"])
         wall = time.monotonic() - t0
+        if serve_gate is not None:
+            open(serve_gate, "w").close()
         assert proc.returncode == 0, proc.stderr[-3000:]
         lines = pod_lines(proc.stdout)
         seen = fields(lines["WORKER_DEVICES"])["visible_devices"]
@@ -7024,15 +7023,19 @@ def phase_control_plane(cp: dict, uuid=None) -> dict:
             time.sleep(0.02)
         assert extender_call(base, "/state")["slices"][node]["free"] == (
             cp["cards"])
-        pod = {k: v for k, v in cp["pod"].items() if k != "status"}
-        pod["spec"] = {k: v for k, v in pod["spec"].items()
-                       if k != "nodeName"}
-        meta = dict(pod["metadata"])
-        meta["annotations"] = {
-            k: v for k, v in meta["annotations"].items()
-            if k != annotations.POD_ASSIGNMENT}
-        pod["metadata"] = meta
+        if rebind_argv is not None:
+            pod = replica_pod(name, False, rebind_argv)
+        else:
+            pod = {k: v for k, v in cp["pod"].items() if k != "status"}
+            pod["spec"] = {k: v for k, v in pod["spec"].items()
+                           if k != "nodeName"}
+            meta = dict(pod["metadata"])
+            meta["annotations"] = {
+                k: v for k, v in meta["annotations"].items()
+                if k != annotations.POD_ASSIGNMENT}
+            pod["metadata"] = meta
         ms, again = schedule_pod(api, base, pod, node)
+        cp["rebound"] = again
         a = annotations.assignment_from_pod(again)
         assert a.per_container["server"] == [cp["chip"]], (a, cp["chip"])
         cp["bind_ms"].append(ms)
@@ -7053,6 +7056,356 @@ def phase_control_plane(cp: dict, uuid=None) -> dict:
         f"host time on this machine: {cp['bind_ms'][0]:.3f} ms, after the "
         f"delete {cp['bind_ms'][1]:.3f} ms")
     return dict(launches=launches, bind_ms=cp["bind_ms"], wall_s=wall)
+
+
+# phase 71: samples/jax-serve-gateway.yaml's gateway in front of its
+# replica.  The replica is decode-replica-0 as phase 70 binds it again:
+# the sample's container command with --serve-http=0 in place of 8700
+# (the port is read from its REPLICA_HTTP_SERVING line) and its steps cut
+# as in phase 70; the gateway takes the sample's flags
+# (--queue-capacity=256 --deadline=30 --hedge-after=1.0, --group=decode;
+# --dispatchers at the gateway's default, 8) and is wired as the gateway's
+# in-cluster mode wires it
+SERVE_REPLICA_ARGV = (DECODE_REPLICA_ARGV[:2] + ["--serve-http=0"]
+                      + DECODE_REPLICA_ARGV[2:])
+GATEWAY_FLAGS = dict(queue_capacity=256, deadline_s=30.0, hedge_after_s=1.0,
+                     dispatchers=8)
+# greedy requests of the replica's prompt length: a few alone, then a
+# burst of 16 sent 8 at a time (the replica's 8 slots)
+GATEWAY_TRAFFIC = dict(singles=3, burst=16, at_once=8, new_tokens=32)
+
+
+class ProcLines:
+    """A subprocess's output as it comes: threads pump its stdout lines
+    (``out``) and its stderr (``err``), so neither pipe fills while it
+    runs."""
+
+    def __init__(self, proc) -> None:
+        import queue
+        import threading
+
+        self.proc, self.out, self.err = proc, [], []
+        self._lines: "queue.Queue" = queue.Queue()
+
+        def pump_out():
+            for line in proc.stdout:
+                self._lines.put(line)
+            self._lines.put(None)
+
+        def pump_err():
+            for line in proc.stderr:
+                self.err.append(line)
+
+        self._threads = [threading.Thread(target=f, daemon=True)
+                         for f in (pump_out, pump_err)]
+        for th in self._threads:
+            th.start()
+
+    def until(self, prefix: str, timeout: float) -> str:
+        """The next stdout line that starts with ``prefix``."""
+        import queue
+
+        deadline = time.monotonic() + timeout
+        while True:
+            try:
+                line = self._lines.get(
+                    timeout=max(0.0, deadline - time.monotonic()))
+            except queue.Empty:
+                raise AssertionError(f"no {prefix} in {timeout} s: "
+                                     f"{self.out[-10:]} {self.tail()}")
+            if line is None:
+                raise AssertionError(f"exited {self.proc.wait()} before "
+                                     f"{prefix}: {self.out[-10:]} "
+                                     f"{self.tail()}")
+            self.out.append(line.rstrip())
+            if line.startswith(prefix):
+                return line.strip()
+
+    def wait(self, timeout: float) -> int:
+        """The exit code, once both pipes are read to their end."""
+        rc = self.proc.wait(timeout=timeout)
+        for th in self._threads:
+            th.join(timeout)
+        while True:
+            line = self._lines.get()
+            if line is None:
+                return rc
+            self.out.append(line.rstrip())
+
+    def tail(self) -> str:
+        return "".join(self.err)[-3000:]
+
+    def kill(self) -> None:
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
+
+
+def http_status(port: int, path: str) -> int:
+    import http.client
+
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+    try:
+        conn.request("GET", path)
+        r = conn.getresponse()
+        r.read()
+        return r.status
+    finally:
+        conn.close()
+
+
+def set_pod_status(api, namespace: str, name: str, status: dict) -> None:
+    """The kubelet's status write once a pod's container runs (its IP,
+    its phase), which the in-memory API server does not model: merged
+    into the stored pod and announced to its watchers as an update."""
+    with api._lock:
+        pod = api._pods[api._key(namespace, name)]
+        pod.setdefault("status", {}).update(status)
+        api._emit("pod-updated", pod)
+
+
+def metric_samples(text: str) -> dict:
+    """Every sample of a Prometheus exposition: series -> value."""
+    out = {}
+    for line in text.splitlines():
+        if line and not line.startswith("#"):
+            name, _, value = line.rpartition(" ")
+            out[name] = float(value)
+    return out
+
+
+def mean_between(before: dict, after: dict, name: str) -> tuple:
+    """(mean, count) of a histogram's observations between two
+    snapshots."""
+    n = after.get(name + "_count", 0.0) - before.get(name + "_count", 0.0)
+    s = after.get(name + "_sum", 0.0) - before.get(name + "_sum", 0.0)
+    return (s / n if n else float("nan")), int(n)
+
+
+def wait_until(predicate, timeout: float, what: str) -> float:
+    """Poll ``predicate`` until it holds; the seconds it took."""
+    t0 = time.monotonic()
+    while not predicate():
+        assert time.monotonic() - t0 < timeout, f"timed out: {what}"
+        time.sleep(0.02)
+    return time.monotonic() - t0
+
+
+def gateway_subprocess(replica_port: int, prompt: list, want: list,
+                       new_tokens: int) -> dict:
+    """``python -m kubegpu_tpu_torch.gateway.server --replica-endpoint``
+    in front of the replica: it announces its port, serves one stream
+    with the replica's tokens, and exits 0 on SIGTERM after its drain."""
+    import os
+    import signal
+
+    t0 = time.monotonic()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "kubegpu_tpu_torch.gateway.server",
+         "--replica-endpoint", f"127.0.0.1:{replica_port}",
+         "--listen", "127.0.0.1:0", "--drain-grace", "30"],
+        cwd=os.path.dirname(os.path.abspath(__file__)),
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    lines = ProcLines(proc)
+    try:
+        line = lines.until("GATEWAY_HTTP_SERVING", 120)
+        up_s = time.monotonic() - t0
+        port = int(fields(line)["port"])
+        wait_until(lambda: http_status(port, "/readyz") == 200, 60,
+                   "the --replica-endpoint gateway's /readyz")
+        events = sse_request(port, "/v1/generate", {
+            "prompt": prompt, "max_new_tokens": new_tokens,
+            "stream": True})
+        (got,), _ = check_streams({0: events}, [new_tokens])
+        assert got == want, (got, want)
+        proc.send_signal(signal.SIGTERM)
+        rc = lines.wait(120)
+        assert rc == 0, lines.tail()
+        assert "drain complete" in lines.tail(), lines.tail()
+        return dict(up_s=up_s, replica=events[-1][1]["replica"])
+    finally:
+        lines.kill()
+
+
+def phase_gateway(cp: dict, smi: str = "", traffic: dict = GATEWAY_TRAFFIC,
+                  argv=SERVE_REPLICA_ARGV) -> dict:
+    """Phase 71: the port's gateway, wired as its in-cluster mode wires
+    it (``ReplicaRegistry`` over phase 70's API server, the group
+    ``decode``; ``HttpReplicaClient`` resolving podIP:port, its probe the
+    registry's; the sample's queue, deadline and hedge), in front of
+    ``decode-replica-0`` as phase 70 bound it again, whose process (begun
+    early under ``"replica"``, or else now) runs the pod's command under
+    the shim's env.  ``smi`` is the card's name and power limit."""
+    import concurrent.futures
+    import signal
+
+    import numpy as np
+
+    from kubegpu_tpu_torch.crishim.inject import compute_injection
+    from kubegpu_tpu_torch.gateway import (
+        AdmissionQueue,
+        FailoverPolicy,
+        Gateway,
+        GatewayServer,
+        HttpReplicaClient,
+        ReplicaRegistry,
+    )
+    from kubegpu_tpu_torch.types import annotations
+    from kubegpu_tpu_torch.utils.metrics import Metrics
+
+    api, name = cp["api"], "decode-replica-0"
+    pod = cp["rebound"]
+    command = pod["spec"]["containers"][0]["command"]
+    assert command[3:] == list(argv), (command, argv)
+    inj = compute_injection(annotations.pod_from_k8s(pod), "server",
+                            cp["provider"])
+    assert inj.env == cp["inj"].env, (inj.env, cp["inj"].env)
+    proc = _EARLY.pop("replica", None) or worker_popen(argv, cp["env"])
+    replica = ProcLines(proc)
+    registry = ReplicaRegistry(api, group="decode")
+    endpoint = {}
+
+    def resolve(key):
+        info = registry.get(key)
+        if info is None or not info.addr or "port" not in endpoint:
+            return None
+        return f"{info.addr}:{endpoint['port']}"
+
+    client = HttpReplicaClient(resolver=resolve)
+    registry.probe = client.probe
+    registry.subscribe(client.sync_live)
+    metrics = Metrics()
+    gateway = Gateway(
+        registry, client, metrics=metrics,
+        dispatchers=GATEWAY_FLAGS["dispatchers"],
+        queue=AdmissionQueue(GATEWAY_FLAGS["queue_capacity"]),
+        policy=FailoverPolicy(deadline_s=GATEWAY_FLAGS["deadline_s"],
+                              hedge_after_s=GATEWAY_FLAGS["hedge_after_s"]))
+    server = GatewayServer(gateway, listen=("127.0.0.1", 0))
+    server.start()
+    gport = server.address[1]
+    try:
+        # not ready while the replica does not answer its probe
+        assert http_status(gport, "/readyz") == 503
+        line = replica.until("REPLICA_HTTP_SERVING", 300)
+        # the worker's own seconds from its start (the gate's opening)
+        serving_s = float(fields(line)["seconds"])
+        endpoint["port"] = rport = int(fields(line)["port"])
+        set_pod_status(api, "default", name,
+                       {"podIP": "127.0.0.1", "phase": "Running"})
+
+        def ready():
+            registry.refresh()
+            return http_status(gport, "/readyz") == 200
+
+        ready_s = wait_until(ready, 60, "the gateway's /readyz")
+        flags = dict(a[2:].split("=", 1) for a in argv if "=" in a)
+        plen, vocab = int(flags["prompt-len"]), int(flags["vocab"])
+        new = traffic["new_tokens"]
+        rng = np.random.RandomState(71)
+        prompts = [rng.randint(0, vocab, size=plen).tolist()
+                   for _ in range(traffic["singles"] + traffic["burst"])]
+        # each single: straight to the replica twice (the first seals its
+        # prompt pages, so both later sends read them from the prefix
+        # cache), then through the gateway, each sent alone
+        singles, direct_ttft, gw_ttft = [], [], []
+        for i, p in enumerate(prompts[:traffic["singles"]]):
+            body = {"prompt": p, "max_new_tokens": new}
+            for rep in range(2):
+                ev = sse_request(rport, "/v1/submit",
+                                 dict(body, request_id=f"direct-{i}-{rep}"))
+                (want,), (ttft,) = check_streams({0: ev}, [new])
+            ev = sse_request(gport, "/v1/generate", dict(body, stream=True))
+            (got,), (gttft,) = check_streams({0: ev}, [new])
+            assert got == want, (i, got, want)
+            assert ev[-1][1]["replica"] == f"default/{name}", ev[-1][1]
+            singles.append(want)
+            direct_ttft.append(ttft)
+            gw_ttft.append(gttft)
+        # the burst, 8 at a time, with both sides' metrics around it
+        g0 = metric_samples(http_get(gport, "/metrics"))
+        r0 = metric_samples(http_get(rport, "/metrics"))
+        t1 = time.monotonic()
+        with concurrent.futures.ThreadPoolExecutor(traffic["at_once"]) as ex:
+            burst = list(ex.map(lambda p: sse_request(
+                gport, "/v1/generate",
+                {"prompt": p, "max_new_tokens": new, "stream": True}),
+                prompts[traffic["singles"]:]))
+        burst_s = time.monotonic() - t1
+        _, burst_ttft = check_streams(dict(enumerate(burst)),
+                                      [new] * traffic["burst"])
+        g1 = metric_samples(http_get(gport, "/metrics"))
+        r1 = metric_samples(http_get(rport, "/metrics"))
+        n_ok = traffic["singles"] + traffic["burst"]
+        assert g1.get('gateway_requests_total{outcome="ok"}') == n_ok, g1
+        for series in ("gateway_retries_total", "gateway_hedges_total",
+                       "gateway_stream_hedges_total",
+                       'gateway_requests_total{outcome="rejected"}',
+                       "gateway_shed_total", "gateway_failures_total"):
+            assert g1.get(series, 0.0) == 0.0, (series, g1.get(series))
+        figures = {
+            "gateway_ttft_s": mean_between(g0, g1, "gateway_ttft_seconds"),
+            "gateway_itl_s": mean_between(g0, g1, "gateway_itl_seconds"),
+            "gateway_queue_wait_s": mean_between(
+                g0, g1, "gateway_queue_wait_seconds"),
+            "serve_ttft_s": mean_between(r0, r1, "serve_ttft_seconds"),
+            "serve_itl_s": mean_between(r0, r1, "serve_itl_seconds"),
+        }
+        assert figures["gateway_ttft_s"][1] == traffic["burst"], figures
+        assert figures["serve_ttft_s"][1] == traffic["burst"], figures
+        # the gateway's entry point in front of the same replica
+        sub = gateway_subprocess(rport, prompts[0], singles[0], new)
+        # the pod deleted: its replica leaves the registry at the pod
+        # watch's event, well within one refresh (10 s)
+        api.delete_pod("default", name)
+        gone_s = wait_until(lambda: http_status(gport, "/readyz") == 503,
+                            server.refresh_interval_s,
+                            "/readyz after the pod's delete")
+        proc.send_signal(signal.SIGTERM)
+        assert replica.wait(120) == 0, replica.tail()
+    finally:
+        replica.kill()
+        server.stop()
+        client.stop()
+    lines = {x.split()[0]: x for x in replica.out if x}
+    assert "error=False" in lines["REPLICA_HTTP_STOPPED"], lines
+    every = fields(lines["KERNEL_LAUNCHES"])
+    assert every.pop("serving") == "paged", lines["KERNEL_LAUNCHES"]
+    on_card = every.pop("device").startswith("cuda")
+    want_k1 = int(every.pop("decode_steps")) * int(every.pop("layers"))
+    launches = {k: int(v) for k, v in every.items()}
+    assert want_k1 > 0 and launches == dict.fromkeys(launches, 0) | {
+        "K1": want_k1 if on_card else 0}, (launches, want_k1)
+    ms = lambda v: f"{v * 1e3:.3f} ms"  # noqa: E731
+    log(f"gateway: decode-replica-0 bound again runs `{' '.join(argv)}` "
+        f"under the shim's env; REPLICA_HTTP_SERVING {serving_s:.2f} s "
+        f"after its worker started (phase 70's worker exited), /readyz 503 before its probe and "
+        f"200 {ready_s:.2f} s after its podIP; {traffic['singles']} prompts "
+        f"of {plen} tokens, {new} new, alone: the gateway's SSE stream "
+        f"equals the replica's own /v1/submit stream; {traffic['burst']} "
+        f"more {traffic['at_once']} at a time through the gateway in "
+        f"{burst_s:.2f} s, every stream {new} tokens, no retry, hedge or "
+        f"429; K1 launches {launches['K1']} = decode steps x layers, every "
+        f"kernel's {launches}; the --replica-endpoint gateway announced its "
+        f"port {sub['up_s']:.1f} s after its start, served the replica's "
+        f"tokens and exited 0 on SIGTERM; the pod deleted, /readyz 503 "
+        f"{gone_s:.3f} s later")
+    log(f"gateway added latency ({smi}): alone, client TTFT (first SSE "
+        f"token) straight {', '.join(ms(v) for v in direct_ttft)} vs "
+        f"through the gateway {', '.join(ms(v) for v in gw_ttft)}; burst of "
+        f"{traffic['burst']}: gateway_ttft_seconds (enqueue -> full "
+        f"response) mean {ms(figures['gateway_ttft_s'][0])}, "
+        f"gateway_queue_wait_seconds mean "
+        f"{ms(figures['gateway_queue_wait_s'][0])}, "
+        f"gateway_itl_seconds mean {ms(figures['gateway_itl_s'][0])} beside "
+        f"the replica's serve_ttft_seconds mean "
+        f"{ms(figures['serve_ttft_s'][0])}, serve_itl_seconds mean "
+        f"{ms(figures['serve_itl_s'][0])} ({figures['serve_itl_s'][1]} "
+        f"emissions); client TTFT mean "
+        f"{ms(sum(burst_ttft) / len(burst_ttft))}")
+    return dict(launches=launches, figures=figures, ready_s=ready_s,
+                gone_s=gone_s, direct_ttft=direct_ttft, gw_ttft=gw_ttft,
+                burst_ttft=burst_ttft, serving_s=serving_s)
 
 
 def _timed(fn):
@@ -7121,7 +7474,9 @@ def _run_phases(group: str, torch, stack) -> int:
     name, smi = phase_device()
     device = group in ("all", "device")
     # the refused workers' interpreters boot beside the build, as does
-    # the pod that phase 70's extender binds now
+    # the pod that phase 70's extender binds now, and the serving
+    # replica that pod runs once bound again (phase 71), which serves
+    # only after phase 70's worker has exited
     start_refused(["bogus"] * device
                   + ["tp_serve"] * serving + ["tp_train", "cp"] * training)
     if device:
@@ -7130,14 +7485,22 @@ def _run_phases(group: str, torch, stack) -> int:
         gate_dir = tempfile.mkdtemp(prefix="chip-smoke-pod-")
         stack.callback(shutil.rmtree, gate_dir, ignore_errors=True)
         gate = os.path.join(gate_dir, "built")
+        served = os.path.join(gate_dir, "served")
         _EARLY["pod"] = worker_popen(cp["argv"], cp["env"], gate)
+        _EARLY["replica"] = worker_popen(SERVE_REPLICA_ARGV, cp["env"],
+                                         served)
     phase_build()
     if device:
         open(gate, "w").close()
         # the device layer: NVML's cards, the plugin, a worker refused;
-        # the control plane: the pod's worker serves beside it
+        # the control plane: the pod's worker serves beside it, then the
+        # pod is bound again with the sample's serving command
         phase_device_layer()
-        bound = phase_control_plane(cp, torch_uuid(cp["chip"].device_index))
+        bound = phase_control_plane(cp, torch_uuid(cp["chip"].device_index),
+                                    rebind_argv=SERVE_REPLICA_ARGV,
+                                    serve_gate=served)
+        # the sample's gateway in front of that replica
+        fronted = phase_gateway(cp, smi)
     if serving:
         k1 = phase_k1()
         phase_k1(geo=DEFAULT_PAGED)
@@ -7328,6 +7691,9 @@ def _run_phases(group: str, torch, stack) -> int:
             # the pod the port's extender bound (phase 70): its worker's
             # launches
             "bound_pod_launches": bound["launches"][tp_key],
+            # that pod bound again, serving behind the port's gateway
+            # (phase 71): its replica's launches
+            "gateway_launches": fronted["launches"][tp_key],
             "tp_ms": tp_k[kname]["ms"],
             "tp_bound_ms": tp_k[kname]["bound_ms"],
         })

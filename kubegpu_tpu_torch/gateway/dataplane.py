@@ -1,7 +1,11 @@
-"""The replica side of the serving data plane: the port's own copy of the
-replica half of the JAX package's ``gateway/dataplane.py``, wire schema
-byte for byte, so an unmodified JAX gateway (``HttpReplicaClient`` +
-``Gateway``) fronts a torch replica as it fronts a JAX one.
+"""The serving data plane over HTTP: the port's own copy of the JAX
+package's ``gateway/dataplane.py``, both halves, wire schema byte for
+byte, so either package's gateway (``HttpReplicaClient`` + ``Gateway``)
+fronts either package's replica.  The replica half (``ReplicaServer``)
+runs the port's batchers; the gateway half (``HttpReplicaClient``, the
+``ReplicaClient`` over this protocol: TLS, the bearer token, probes,
+wire cancel, migration dispatch and trace grafting into the gateway's
+tracer) touches no tensor.
 
 ``ReplicaServer`` wraps any batcher speaking the incremental serving API
 (``submit``/``serve_step``/``cancel``/``has_work``/``live_tokens``: the
@@ -70,9 +74,11 @@ from __future__ import annotations
 
 import base64
 import hmac
+import http.client
 import json
 import logging
 import queue
+import socket
 import ssl
 import threading
 import time
@@ -81,9 +87,11 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
-import torch
 
 from kubegpu_tpu_torch.gateway.client import (
+    Attempt,
+    AttemptResult,
+    ReplicaClient,
     _sniff_takes,
     _sniff_takes_trace,
     sim_stream_seed,
@@ -116,6 +124,15 @@ def end_chunks(wfile) -> None:
     wfile.flush()
 
 
+def _connect(addr: str, timeout: float) -> http.client.HTTPConnection:
+    """The ONE "host:port" parse + connection constructor (probe, state,
+    wire cancel and the stream pool all route through it)."""
+    host, _, port = addr.rpartition(":")
+    return http.client.HTTPConnection(host, int(port), timeout=timeout)
+
+
+
+
 def _int_or(value, default: int) -> int:
     """Defensive wire-field parse: a malformed numeric from a client
     must degrade, never raise on the serving thread."""
@@ -131,6 +148,8 @@ def _bind_device(batcher) -> None:
     thread is not the one that built the batcher."""
     stream = getattr(batcher, "stream", None)
     if stream is not None:
+        import torch
+
         torch.cuda.set_device(stream.device)
         torch.cuda.set_stream(stream)
 
@@ -1148,3 +1167,777 @@ class ReplicaServer:
         self.httpd.server_close()
         if self._thread is not None:
             self._thread.join(timeout=5.0)
+
+
+class HttpReplicaClient(ReplicaClient):
+    """``ReplicaClient`` over the replica HTTP protocol.
+
+    Endpoint resolution: explicit ``set_endpoint(key, "host:port")``
+    entries win (tests, loopback soak); otherwise ``resolver(key)``
+    (in-cluster: the registry's discovered pod IP + ``default_port``).
+    A replica with no resolvable endpoint fails submissions immediately
+    with an unreachable RESULT, like the in-memory client.
+
+    Connection reuse: completed streams return their ``HTTPConnection``
+    to a small per-replica pool; errors and cancels discard it (the
+    socket state is unknowable mid-stream)."""
+
+    def __init__(
+        self,
+        endpoints: Optional[Dict[str, str]] = None,
+        resolver: Optional[Callable[[str], Optional[str]]] = None,
+        default_port: int = 8700,
+        timeout_s: float = 5.0,
+        metrics: Optional[Metrics] = None,
+        tls_ca: Optional[str] = None,
+        auth_token: Optional[str] = None,
+    ) -> None:
+        self.resolver = resolver
+        self.default_port = default_port
+        self.timeout_s = timeout_s
+        self.metrics = metrics
+        # transport security, matching the replica server's knobs:
+        # tls_ca = PEM bundle to verify replica certs against (HTTPS to
+        # every endpoint); auth_token = bearer sent on every request
+        # (the replica gates /v1/*).  Both None = plain loopback HTTP.
+        self.auth_token = auth_token
+        self._ssl_ctx = None
+        if tls_ca is not None:
+            import ssl
+
+            self._ssl_ctx = ssl.create_default_context(cafile=tls_ca)
+        self._lock = threading.Lock()
+        self._endpoints: Dict[str, str] = dict(endpoints or {})
+        self._pool: Dict[str, List[http.client.HTTPConnection]] = {}
+        # replica key -> in-flight attempts (sync_live aborts these the
+        # cycle a replica drains, so failover re-dispatches immediately
+        # instead of waiting out a dead socket)
+        self._inflight: Dict[str, set] = {}
+        # request_id -> completed ok deliveries (soak's exactly-once and
+        # wasted-hedge accounting — the in-memory client's `decodes`)
+        self.decodes: Dict[str, int] = {}
+        self._stopped = False
+
+    # -- transport ---------------------------------------------------------
+    def _connect(self, addr: str, timeout: float):
+        """The one connection constructor for this client: plain HTTP,
+        or HTTPS against the configured CA when ``tls_ca`` was given."""
+        if self._ssl_ctx is None:
+            return _connect(addr, timeout)
+        host, _, port = addr.rpartition(":")
+        return http.client.HTTPSConnection(
+            host, int(port), timeout=timeout, context=self._ssl_ctx
+        )
+
+    def _headers(self, extra: Optional[dict] = None) -> dict:
+        headers = dict(extra or {})
+        if self.auth_token:
+            headers["Authorization"] = f"Bearer {self.auth_token}"
+        return headers
+
+    # -- endpoints ---------------------------------------------------------
+    def set_endpoint(self, key: str, addr: str) -> None:
+        with self._lock:
+            self._endpoints[key] = addr
+
+    def drop_endpoint(self, key: str) -> None:
+        with self._lock:
+            self._endpoints.pop(key, None)
+            for conn in self._pool.pop(key, []):
+                conn.close()
+
+    def endpoint_for(self, key: str) -> Optional[str]:
+        with self._lock:
+            addr = self._endpoints.get(key)
+        if addr is None and self.resolver is not None:
+            try:
+                addr = self.resolver(key)
+            except Exception:  # noqa: BLE001 - resolution is best-effort
+                addr = None
+        return addr
+
+    def replicas(self) -> List[str]:
+        with self._lock:
+            return sorted(self._endpoints)
+
+    def ready(self) -> bool:
+        with self._lock:
+            if self._stopped:
+                return False
+            return bool(self._endpoints) or self.resolver is not None
+
+    def stop(self) -> None:
+        with self._lock:
+            self._stopped = True
+            attempts = [a for s in self._inflight.values() for a in s]
+            conns = [c for pool in self._pool.values() for c in pool]
+            self._pool.clear()
+        for conn in conns:
+            conn.close()
+        for attempt in attempts:
+            self._abort(attempt, "client stopped")
+
+    # -- registry subscription --------------------------------------------
+    def sync_live(self, live) -> None:
+        """A replica leaving the live set is its process dying: abort
+        its in-flight attempts now (the socket may linger half-open) so
+        failover re-routes this cycle, and drop its pooled sockets."""
+        with self._lock:
+            gone = [k for k in self._inflight if k not in live]
+            attempts = [a for k in gone for a in self._inflight.get(k, ())]
+            for k in [k for k in self._pool if k not in live]:
+                for conn in self._pool.pop(k, []):
+                    conn.close()
+        for attempt in attempts:
+            self._abort(attempt, f"replica {attempt.replica} left live set")
+
+    # -- probes / advertisement -------------------------------------------
+    def _addr_of(self, info) -> Optional[str]:
+        addr = self.endpoint_for(getattr(info, "key", ""))
+        if addr is None and getattr(info, "addr", None):
+            addr = f"{info.addr}:{self.default_port}"
+        return addr
+
+    def probe(self, info) -> Tuple[bool, str]:
+        """HTTP health probe for the registry (``ReplicaRegistry``'s
+        ``probe=`` hook): GET /healthz on the replica's endpoint.  A
+        replica the control plane believes healthy but whose serving
+        process is gone must drain from the live set — this is what
+        makes in-cluster ``/readyz`` REAL instead of fail-safe."""
+        addr = self._addr_of(info)
+        if addr is None:
+            return False, "no data-plane endpoint (pod IP unknown)"
+        conn = self._connect(addr, timeout=1.0)
+        try:
+            conn.request("GET", "/healthz")
+            resp = conn.getresponse()
+            resp.read()
+            if resp.status == 200:
+                return True, ""
+            return False, f"/healthz returned {resp.status}"
+        except OSError as e:
+            return False, f"/healthz unreachable: {e}"
+        finally:
+            conn.close()
+
+    def _get_state(self, key: str, ledger: int = 0) -> Optional[dict]:
+        addr = self.endpoint_for(key)
+        if addr is None:
+            return None
+        conn = self._connect(addr, timeout=1.0)
+        try:
+            path = "/v1/state" + (f"?ledger={ledger}" if ledger else "")
+            conn.request("GET", path, headers=self._headers())
+            resp = conn.getresponse()
+            if resp.status != 200:
+                resp.read()
+                return None
+            return json.loads(resp.read())
+        except (OSError, ValueError):
+            return None
+        finally:
+            conn.close()
+
+    def advertised(self) -> Dict[str, dict]:
+        out: Dict[str, dict] = {}
+        for key in self.replicas():
+            state = self._get_state(key)
+            if state is not None:
+                out[key] = {"tp": int(state.get("tp", 1))}
+        return out
+
+    def ledgers(self, limit: int = 32) -> Dict[str, List[dict]]:
+        out: Dict[str, List[dict]] = {}
+        for key in self.replicas():
+            state = self._get_state(key, ledger=limit)
+            if state is not None and state.get("ledger"):
+                out[key] = state["ledger"]
+        return out
+
+    # -- KV-page migration -------------------------------------------------
+    def inflight_on(self, replica_key: str) -> List[Attempt]:
+        with self._lock:
+            return list(self._inflight.get(replica_key, ()))
+
+    def seals_decode(self, replica_key: str) -> bool:
+        state = self._get_state(replica_key)
+        return bool(state and state.get("seals_decode"))
+
+    def _wire_export(self, addr: str, body: dict) -> Optional[dict]:
+        """POST /v1/export; returns the (still-encoded) payload dict or
+        None — the gateway relays it to /v1/import opaquely, so only
+        replica processes pay the codec."""
+        conn = self._connect(addr, timeout=self.timeout_s)
+        try:
+            conn.request(
+                "POST", "/v1/export", json.dumps(body),
+                self._headers({"Content-Type": "application/json"}),
+            )
+            resp = conn.getresponse()
+            data = resp.read()
+            if resp.status != 200:
+                return None
+            return json.loads(data).get("payload")
+        except (OSError, ValueError):
+            return None
+        finally:
+            conn.close()
+
+    def export_sealed(self, replica_key: str, stream) -> Optional[dict]:
+        addr = self.endpoint_for(replica_key)
+        if addr is None:
+            return None
+        return self._wire_export(
+            addr, {"stream": [int(t) for t in stream]}
+        )
+
+    def import_sealed(self, replica_key: str, payload) -> bool:
+        addr = self.endpoint_for(replica_key)
+        if addr is None or payload is None:
+            return False
+        conn = self._connect(addr, timeout=self.timeout_s)
+        try:
+            conn.request(
+                "POST", "/v1/import", json.dumps({"payload": payload}),
+                self._headers({"Content-Type": "application/json"}),
+            )
+            resp = conn.getresponse()
+            resp.read()
+            return resp.status == 200
+        except (OSError, ValueError):
+            return False
+        finally:
+            conn.close()
+
+    # -- streamed seal-time handoff ------------------------------------
+    def export_delta(self, attempt: Attempt, request,
+                     cursor: int) -> Optional[dict]:
+        """POST /v1/export {"delta": true}: pages sealed since
+        ``cursor``, kept wire-encoded — like migrate's payload, the
+        gateway relays deltas opaquely and only replicas pay the
+        codec."""
+        addr = self.endpoint_for(attempt.replica)
+        if addr is None:
+            return None
+        return self._wire_export(addr, {
+            "request_id": request.request_id,
+            "delta": True, "cursor": int(cursor),
+        })
+
+    def import_delta(self, replica_key: str, payload) -> Optional[int]:
+        addr = self.endpoint_for(replica_key)
+        if addr is None or payload is None:
+            return None
+        conn = self._connect(addr, timeout=self.timeout_s)
+        try:
+            conn.request(
+                "POST", "/v1/import", json.dumps({"payload": payload}),
+                self._headers({"Content-Type": "application/json"}),
+            )
+            resp = conn.getresponse()
+            data = resp.read()
+            if resp.status != 200:
+                return None
+            staged = json.loads(data).get("staged")
+            return int(staged) if staged is not None else None
+        except (OSError, ValueError, TypeError):
+            return None
+        finally:
+            conn.close()
+
+    def reclaim(self, attempt: Attempt, request, upto: int) -> int:
+        addr = self.endpoint_for(attempt.replica)
+        if addr is None:
+            return 0
+        conn = self._connect(addr, timeout=self.timeout_s)
+        try:
+            conn.request(
+                "POST", "/v1/export",
+                json.dumps({"request_id": request.request_id,
+                            "reclaim": int(upto)}),
+                self._headers({"Content-Type": "application/json"}),
+            )
+            resp = conn.getresponse()
+            data = resp.read()
+            if resp.status != 200:
+                return 0
+            return int(json.loads(data).get("reclaimed") or 0)
+        except (OSError, ValueError, TypeError):
+            return 0
+        finally:
+            conn.close()
+
+    def set_role(self, key: str, role: str) -> bool:
+        """POST /v1/role: flip a replica's serving role at runtime (the
+        fleet controller's ratio actuator, wire flavor)."""
+        addr = self.endpoint_for(key)
+        if addr is None:
+            return False
+        conn = self._connect(addr, timeout=2.0)
+        try:
+            conn.request(
+                "POST", "/v1/role", json.dumps({"role": role}),
+                self._headers({"Content-Type": "application/json"}),
+            )
+            resp = conn.getresponse()
+            resp.read()
+            return resp.status == 200
+        except (OSError, ValueError):
+            return False
+        finally:
+            conn.close()
+
+    def migrate(self, attempt: Attempt, request, to_key: str,
+                _between: Optional[Callable[[], None]] = None,
+                fallback: bool = False, cursor: int = 0) -> bool:
+        """Live migration over the wire: POST /v1/export on the source
+        (which detaches the sequence — its stream ends ``migrated``,
+        which the source's reader recognizes and leaves unresolved),
+        re-home the attempt, then stream the continuation from POST
+        /v1/import on the target.  The SAME attempt handle resolves
+        with the full token list from the target; a refused or dead
+        importer resolves it with an error so normal failover
+        re-dispatches cold — graceful, never wrong.
+
+        ``fallback=True`` (the disaggregation handoff contract): if the
+        target refuses or dies BEFORE streaming, the held payload is
+        re-imported into the SOURCE so the sequence resumes decode where
+        it prefilled — counted, never a request error.  It also permits
+        ``to_key == from_key``: detach-and-resume locally, the collapse
+        path when no decode replica is available at all."""
+        if attempt.done:
+            return False
+        from_key = attempt.replica
+        from_addr = self.endpoint_for(from_key)
+        to_addr = self.endpoint_for(to_key)
+        if from_addr is None or to_addr is None or (
+            from_key == to_key and not fallback
+        ):
+            return False
+        trace = getattr(request, "trace", None)
+        if not isinstance(trace, SpanCtx):
+            trace = None
+        # overhang_ok: a handoff's continuation (and its teardown) may
+        # resolve after a hedge twin already closed the request root —
+        # the same asynchrony the dispatch spans carry
+        mspan = (
+            trace.child("migrate", source=from_key, target=to_key,
+                        overhang_ok=True)
+            if trace is not None else None
+        )
+        attempt._migrating = True
+        export_body = {"request_id": request.request_id}
+        if cursor:
+            # streamed handoff's final hop: layers below the cursor
+            # were already delta-staged on the target
+            export_body["cursor"] = int(cursor)
+        wire = self._wire_export(from_addr, export_body)
+        if wire is None:
+            # nothing detached — or the export RESPONSE was lost after
+            # the replica already detached.  Clear the flag first: a
+            # "migrated" terminal arriving from now on resolves the
+            # attempt as a plain error (failover re-dispatches cold).
+            # If the reader ALREADY swallowed that terminal while the
+            # flag was up (it records _migrated_terminal before checking
+            # the flag — the handshake that closes the race), resolve
+            # the attempt here: the sequence is detached and no
+            # continuation is coming, and an unresolved attempt would
+            # otherwise hang until the dispatcher's full deadline.
+            attempt._migrating = False
+            if getattr(attempt, "_migrated_terminal", False):
+                attempt.finish(AttemptResult(
+                    False,
+                    error="migration export response lost: sequence "
+                    "detached at the source",
+                ))
+            if self.metrics is not None:
+                self.metrics.inc(
+                    "gateway_migrations_total", outcome="export_failed"
+                )
+            if mspan is not None:
+                mspan.end(outcome="export_failed")
+            return False
+        # re-home BEFORE any chaos can fire: if the source dies now,
+        # sync_live must not abort an attempt it no longer owns
+        with self._lock:
+            self._inflight.setdefault(to_key, set()).add(attempt)
+            bucket = self._inflight.get(from_key)
+            if bucket is not None:
+                bucket.discard(attempt)
+        attempt.replica = to_key
+        if fallback:
+            # src==dst (the collapse rung's local unpark) crossed no
+            # wire: it must not read as a disaggregated handoff
+            attempt.handoff_outcome = (
+                "fallback" if to_key == from_key else "ok"
+            )
+        if _between is not None:
+            _between()   # fault injection: kill-mid-migration schedules
+        t = threading.Thread(
+            target=self._run_attempt,
+            args=(attempt, request, to_addr, to_key),
+            kwargs={
+                "import_payload": wire,
+                "fallback": (from_key, from_addr) if fallback else None,
+            },
+            daemon=True,
+        )
+        t.start()
+        if self.metrics is not None:
+            self.metrics.inc("gateway_migrations_total", outcome="ok")
+        if mspan is not None:
+            mspan.end(
+                outcome="ok", pages=len(wire.get("page_keys") or [])
+            )
+        return True
+
+    # -- ReplicaClient -----------------------------------------------------
+    def submit(self, replica_key: str, request) -> Attempt:
+        attempt = Attempt(replica_key, request.request_id)
+        attempt.request = request
+        addr = self.endpoint_for(replica_key)
+        with self._lock:
+            stopped = self._stopped
+        if addr is None or stopped:
+            attempt.finish(AttemptResult(
+                False, error=f"replica {replica_key} unreachable"
+            ))
+            return attempt
+        with self._lock:
+            self._inflight.setdefault(replica_key, set()).add(attempt)
+        t = threading.Thread(
+            target=self._run_attempt,
+            args=(attempt, request, addr, replica_key),
+            daemon=True,
+        )
+        t.start()
+        return attempt
+
+    def cancel(self, attempt: Attempt) -> None:
+        attempt.cancelled = True
+        # wire-level cancel FIRST (frees the replica's pages even if the
+        # stream socket lingers), then tear the stream down locally
+        threading.Thread(
+            target=self._wire_cancel,
+            args=(attempt.replica, attempt.request_id),
+            daemon=True,
+        ).start()
+        self._abort(attempt, "cancelled")
+
+    # -- internals ---------------------------------------------------------
+    def _abort(self, attempt: Attempt, error: str) -> None:
+        attempt.finish(AttemptResult(False, error=error))
+        conn = getattr(attempt, "_stream_conn", None)
+        if conn is not None:
+            try:
+                conn.close()  # unblocks the reader thread mid-read
+            except OSError:
+                pass
+
+    def _wire_cancel(self, replica_key: str, request_id: str) -> None:
+        addr = self.endpoint_for(replica_key)
+        if addr is None:
+            return
+        conn = self._connect(addr, timeout=2.0)
+        try:
+            conn.request(
+                "POST", "/v1/cancel",
+                json.dumps({"request_id": request_id}),
+                self._headers({"Content-Type": "application/json"}),
+            )
+            conn.getresponse().read()
+        except OSError:
+            pass  # the replica may already be gone; its death frees pages
+        finally:
+            conn.close()
+
+    def _checkout(self, key: str, addr: str) -> http.client.HTTPConnection:
+        with self._lock:
+            pool = self._pool.get(key)
+            if pool:
+                return pool.pop()
+        return self._connect(addr, timeout=self.timeout_s)
+
+    def _checkin(self, key: str, conn: http.client.HTTPConnection) -> None:
+        with self._lock:
+            if not self._stopped:
+                self._pool.setdefault(key, []).append(conn)
+                return
+        conn.close()
+
+    def _settle(self, attempt: Attempt, replica_key: str) -> None:
+        # keyed by the replica THIS reader served, not attempt.replica:
+        # a migration re-homes the attempt to its target mid-flight, and
+        # the source's reader settling afterwards must not evict it from
+        # the target's bucket
+        with self._lock:
+            bucket = self._inflight.get(replica_key)
+            if bucket is not None:
+                bucket.discard(attempt)
+                if not bucket:
+                    self._inflight.pop(replica_key, None)
+
+    def _deadline_of(self, request) -> Optional[float]:
+        deadline_s = getattr(request, "deadline_s", None)
+        if deadline_s is None:
+            return None
+        anchor = getattr(request, "enqueued_at", 0.0) or time.monotonic()
+        return anchor + deadline_s
+
+    def _rescue(self, attempt: Attempt, request, import_payload,
+                fallback) -> bool:
+        """The handoff fallback: the decode-side import refused or died
+        BEFORE streaming — re-import the held payload into the SOURCE
+        replica so the sequence resumes decode where it prefilled.
+        Counted, never a request error.  Runs the continuation inline on
+        this reader thread (fallback=None below: one rescue, no loop)."""
+        if import_payload is None or fallback is None or attempt.done:
+            return False
+        fb_key, fb_addr = fallback
+        with self._lock:
+            bucket = self._inflight.get(attempt.replica)
+            if bucket is not None:
+                bucket.discard(attempt)
+            self._inflight.setdefault(fb_key, set()).add(attempt)
+        attempt.replica = fb_key
+        attempt.handoff_outcome = "fallback"
+        if self.metrics is not None:
+            self.metrics.inc(
+                "gateway_migrations_total", outcome="fallback"
+            )
+        self._run_attempt(
+            attempt, request, fb_addr, fb_key,
+            import_payload=import_payload,
+        )
+        return True
+
+    def _run_attempt(self, attempt: Attempt, request, addr: str,
+                     replica_key: str,
+                     import_payload: Optional[dict] = None,
+                     fallback: Optional[Tuple[str, str]] = None) -> None:
+        """Reader thread: stream the attempt to completion.  The
+        terminal event's span dicts are grafted into the gateway's trace
+        BEFORE the attempt resolves, so the winner's tree is complete
+        when the dispatcher records the result.  With
+        ``import_payload``, the attempt is a migration CONTINUATION:
+        POST /v1/import carries the exported payload and the stream
+        resumes mid-sequence on the target replica; ``fallback``
+        ((key, addr) of the SOURCE) re-imports there if the target
+        refuses or dies before streaming."""
+        conn = self._checkout(replica_key, addr)
+        trace = getattr(request, "trace", None)
+        if not isinstance(trace, SpanCtx):
+            trace = None
+        deadline = self._deadline_of(request)
+        reusable = False
+        streaming = False
+        try:
+            if import_payload is not None:
+                path = "/v1/import"
+                body = json.dumps({
+                    "request_id": request.request_id,
+                    "payload": import_payload,
+                })
+                attempt.handoff_wire_bytes = len(body)
+            else:
+                path = "/v1/submit"
+                payload = {
+                    "request_id": request.request_id,
+                    "prompt": [int(t) for t in request.prompt],
+                    "max_new_tokens": int(request.max_new_tokens),
+                    "temperature": float(
+                        getattr(request, "temperature", 0.0)
+                    ),
+                    "session": getattr(request, "session", None),
+                }
+                if getattr(request, "seed", None) is not None:
+                    payload["seed"] = int(request.seed)
+                wm = int(getattr(request, "resume_watermark", 0) or 0)
+                if wm > 0:
+                    # hedge/retry fast-forward: the replica emits only
+                    # past the caller's delivered prefix; stream_base
+                    # tells the relay where this attempt's deltas start
+                    payload["watermark"] = wm
+                    attempt.stream_base = wm
+                if deadline is not None:
+                    # remaining deadline rides the wire: the replica can
+                    # refuse a DOOMED admission (one that aged past its
+                    # budget in the serving loop's inbox) before burning
+                    # prefill compute on it — the shed-before-work rule,
+                    # enforced on both ends
+                    payload["deadline_s"] = max(
+                        0.0, deadline - time.monotonic()
+                    )
+                body = json.dumps(payload)
+            headers = self._headers({"Content-Type": "application/json"})
+            if trace is not None:
+                headers["X-Trace-Id"] = trace.trace_id
+                headers["X-Span-Id"] = str(trace.span_id)
+            attempt._stream_conn = conn
+            t_send = time.monotonic()
+            conn.request("POST", path, body, headers)
+            resp = conn.getresponse()
+            if resp.status != 200:
+                err = resp.read()[:200].decode(errors="replace")
+                if import_payload is not None and self.metrics is not None:
+                    self.metrics.inc(
+                        "gateway_migrations_total", outcome="import_refused"
+                    )
+                if self._rescue(attempt, request, import_payload, fallback):
+                    return
+                attempt.finish(AttemptResult(
+                    False, error=f"replica {replica_key} refused "
+                    f"({resp.status}): {err}"
+                ))
+                return
+            streaming = True
+            reusable = self._read_stream(
+                attempt, request, resp, trace, t_send, deadline
+            )
+        except socket.timeout:
+            if not streaming and self._rescue(
+                attempt, request, import_payload, fallback
+            ):
+                return
+            self._wire_cancel(replica_key, request.request_id)
+            attempt.finish(AttemptResult(
+                False, error="attempt timed out on the wire"
+            ))
+        except (OSError, ValueError, AttributeError,
+                http.client.HTTPException) as e:
+            # AttributeError: http.client reading a connection that
+            # cancel() closed under us (fp already torn down).
+            # The rescue only fires pre-stream: once the target has
+            # emitted tokens, a re-import would replay them — normal
+            # failover owns that path.
+            if not streaming and self._rescue(
+                attempt, request, import_payload, fallback
+            ):
+                return
+            attempt.finish(AttemptResult(
+                False,
+                error=f"replica {replica_key} connection failed: {e}",
+            ))
+        finally:
+            attempt._stream_conn = None
+            self._settle(attempt, replica_key)
+            if reusable:
+                self._checkin(replica_key, conn)
+            else:
+                conn.close()
+
+    def _read_stream(self, attempt: Attempt, request, resp, trace,
+                     t_send: float, deadline: Optional[float]) -> bool:
+        """Parse SSE events off the response.  Returns True when the
+        stream terminated cleanly (connection reusable)."""
+        on_tokens = getattr(request, "on_tokens", None)
+        tokens: List[int] = []
+        event, data = "", ""
+        terminal = None
+        while True:
+            if (terminal is None and deadline is not None
+                    and time.monotonic() >= deadline):
+                # per-attempt deadline: cancel ON THE WIRE so the
+                # replica frees the sequence's pages now — an expired
+                # attempt must not keep decoding server-side.  Not
+                # enforced during the post-terminal drain-to-EOF: the
+                # request already resolved, and a spurious cancel there
+                # would only discard a cleanly-reusable connection
+                self._wire_cancel(attempt.replica, request.request_id)
+                attempt.finish(AttemptResult(
+                    False, error="attempt deadline expired"
+                ))
+                return False
+            line = resp.readline()
+            if not line:
+                if terminal is not None:
+                    return True  # chunked terminator after the event
+                attempt.finish(AttemptResult(
+                    False,
+                    error=f"replica {attempt.replica} closed mid-stream",
+                ))
+                return False
+            line = line.strip().decode(errors="replace")
+            if terminal is not None:
+                continue  # drain to EOF for connection reuse
+            if line.startswith(":"):
+                continue  # keepalive ping
+            if line.startswith("event:"):
+                event = line[6:].strip()
+                continue
+            if line.startswith("data:"):
+                data = line[5:].strip()
+                continue
+            if line:
+                continue
+            # blank line: dispatch the buffered event
+            if not event:
+                continue
+            try:
+                payload = json.loads(data) if data else {}
+            except json.JSONDecodeError:
+                payload = {}
+            if event == "sealed":
+                # non-terminal: the prompt's pages sealed on a
+                # prefill-only replica — wake the dispatcher's handoff
+                attempt.sealed.set()
+            elif event == "tokens":
+                delta = payload.get("tokens") or []
+                tokens.extend(delta)
+                if on_tokens is not None and delta:
+                    try:
+                        on_tokens(attempt, list(delta))
+                    except Exception:  # noqa: BLE001 - sink is advisory
+                        log.exception("on_tokens callback failed")
+            elif event in ("done", "error"):
+                terminal = event
+                self._graft(trace, payload, t_send)
+                if event == "done":
+                    final = payload.get("tokens")
+                    result = AttemptResult(
+                        True,
+                        tokens=list(final) if final is not None else tokens,
+                    )
+                    if attempt.finish(result) and result.ok:
+                        with self._lock:
+                            self.decodes[request.request_id] = (
+                                self.decodes.get(request.request_id, 0) + 1
+                            )
+                elif str(payload.get("error", "")) == "migrated":
+                    # the exporter detached this sequence.  Record that
+                    # FIRST (migrate()'s export-failure path checks it:
+                    # a lost /v1/export response must still resolve the
+                    # attempt — see the flag handshake there), THEN
+                    # decide: mid-migration the import continuation owns
+                    # the attempt's resolution, so leave it unresolved
+                    # (the exporter's spans were still grafted above and
+                    # the drain below leaves the connection reusable);
+                    # otherwise surface it as a plain error so failover
+                    # re-dispatches cold.
+                    attempt._migrated_terminal = True
+                    if not attempt._migrating:
+                        attempt.finish(AttemptResult(
+                            False, error="migrated"
+                        ))
+                else:
+                    attempt.finish(AttemptResult(
+                        False, error=str(payload.get("error", "error"))
+                    ))
+            event, data = "", ""
+
+    def _graft(self, trace, payload: dict, t_send: float) -> None:
+        """Stitch the replica-side spans under the gateway's dispatch
+        span.  The offset maps the replica's monotonic clock onto ours:
+        anchored at send time, so the whole remote subtree lands inside
+        the dispatch span's window (network time on either side only
+        widens the containment margin)."""
+        if trace is None:
+            return
+        spans = payload.get("spans") or []
+        t_recv = payload.get("t_recv")
+        if not spans or t_recv is None:
+            return
+        try:
+            trace.tracer.graft(trace, spans, t_send - float(t_recv))
+        except Exception:  # noqa: BLE001 - tracing must never break serving
+            log.exception("span graft failed")

@@ -102,7 +102,8 @@ serving=S role=R tls=0|1 seconds=S`` and serves ``POST /v1/submit``
 ``/v1/import`` and ``/v1/role`` (a dense batcher answers them as the JAX
 replica does, without migration), ``GET /v1/state``, ``GET /healthz``
 and ``GET /metrics`` until SIGTERM, when it prints
-``REPLICA_HTTP_STOPPED`` and exits 0.  ``--role prefill|decode|flex`` is
+``REPLICA_HTTP_STOPPED`` and a ``KERNEL_LAUNCHES`` line (each kernel's
+launches over what it served, its decode steps and layers) and exits 0.  ``--role prefill|decode|flex`` is
 the replica's disaggregation role (``prefill`` parks each sequence at its
 seal for the gateway's handoff), ``--serve-http-fail-migration`` refuses
 every import (a chaos knob), ``--serve-http-tls-cert/-key`` serve HTTPS,
@@ -1248,11 +1249,18 @@ def serve_http(args: argparse.Namespace, t0: float) -> int:
     server.stop()
     if ranks is not None:
         ranks.close(cb)
-    launches = " ".join(f"{k}_LAUNCHES={v - launches0[k]}"
-                        for k, v in read_counters().items())
+    counts = {k: v - launches0[k] for k, v in read_counters().items()}
+    launches = " ".join(f"{k}_LAUNCHES={v}" for k, v in counts.items())
     print(f"REPLICA_HTTP_STOPPED steps={cb.stats['steps']} "
           f"admits={cb.stats['admits']} layers={args.layers} {launches} "
           f"error={server.loop.error is not None}", flush=True)
+    # every kernel of the port by ID over what the endpoint served, as
+    # the wave modes report it
+    print("KERNEL_LAUNCHES "
+          + " ".join(f"{k}={v}" for k, v in counts.items())
+          + f" serving={args.serving} device={cb.device} "
+          f"decode_steps={cb.stats['steps']} layers={args.layers}",
+          flush=True)
     return 0 if server.loop.error is None else 1
 
 

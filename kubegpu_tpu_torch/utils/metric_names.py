@@ -1,8 +1,9 @@
 """The catalog of every metric name the port emits: its own copy of the
 entries of the JAX package's ``utils/metric_names.py`` for the names the
-port emits (its replica serving path and its scheduler extender), with
-the same kind, label keys and help text, so dashboards read a torch
-replica or extender exactly as a JAX one.
+port emits (its gateway, session store and prefix tier, its replica
+serving path and its scheduler extender), with the same kind, label keys
+and help text, so dashboards read a torch gateway, replica or extender
+exactly as a JAX one.
 
 ``tests/test_torch_observability.py`` greps ``kubegpu_tpu_torch/`` for
 ``inc(``/``observe(``/``set_gauge(``/``timer(`` string literals and
@@ -56,6 +57,209 @@ CATALOG: Dict[str, MetricSpec] = {
         (), "partially-bound gangs rolled back after the grace window"),
     "kubegpu_health_evictions_total": _c(
         (), "assignments evicted because their chips disappeared"),
+
+    # -- gateway control plane (gateway/core.py, failover.py, router.py)
+    "gateway_requests_total": _c(
+        ("outcome",), "terminal results by outcome (ok/rejected/error/"
+        "timeout)"),
+    "gateway_queue_depth": _g((), "admission queue depth"),
+    "gateway_queue_wait_seconds": _h(
+        (), "enqueue -> dispatcher pickup wait"),
+    "gateway_ttft_seconds": _h(
+        ("role",), "enqueue -> full response (unary data plane: TTFT == "
+        "TTLT).  Emitted twice per ok request: unlabeled aggregate (the "
+        "FleetObserver's window diffs) plus role=colocated|disaggregated "
+        "(disaggregated = prefilled on one replica, decoded on another "
+        "after the post-prefill handoff)"),
+    "gateway_itl_seconds": _h(
+        ("role",), "mean inter-token latency per ok request (total / "
+        "tokens).  Unlabeled aggregate plus role=colocated|disaggregated "
+        "— the pair the disaggregation bench gates on (decode iterations "
+        "no longer stalled behind long prefills)"),
+    "gateway_phase_handoff_total": _c(
+        ("outcome",), "post-prefill KV handoffs by outcome (ok = decode "
+        "replica took the sequence; fallback = decode side refused/died "
+        "and the prefill replica resumed decode locally; failed = "
+        "neither leg landed, normal failover re-dispatched cold)"),
+    "gateway_phase_handoff_seconds": _h(
+        (), "sealed announcement -> handoff dispatched (export + "
+        "re-home + import kickoff wall time)"),
+    "gateway_phase_handoff_overlap_seconds": _h(
+        (), "per streamed handoff: delta-shipping wall time that ran "
+        "DURING prefill compute instead of on the critical path (large "
+        "overlap vs gateway_phase_handoff_seconds = handoff-bound TTFT "
+        "pressure; the ratio actuator reads the difference)"),
+    "gateway_phase_handoff_deltas_total": _c(
+        (), "sealed-page deltas acked by the decode side mid-prefill "
+        "(the seal-watch pipeline; 0 under stream_handoff=False)"),
+    "gateway_phase_handoff_wire_bytes_total": _c(
+        ("mode",), "serialized KV payload bytes shipped by post-prefill "
+        "handoffs, mode=streamed|oneshot (streamed = final cursor "
+        "export after >=1 acked delta; int8 pools halve this per page "
+        "vs bf16)"),
+    "gateway_live_replicas": _g((), "replicas routable right now"),
+    "gateway_deadline_exceeded_total": _c(
+        (), "requests failed by the end-to-end deadline"),
+    "gateway_failures_total": _c(
+        (), "requests failed after exhausting attempts"),
+    "gateway_retries_total": _c((), "re-dispatches after a failed attempt"),
+    "gateway_retry_budget_exhausted_total": _c(
+        (), "retries refused by the retry budget"),
+    "gateway_hedges_total": _c((), "hedged (duplicate) dispatches issued"),
+    "gateway_hedge_wasted_total": _c(
+        (), "hedge attempts cancelled because another attempt won"),
+    "gateway_duplicate_results_total": _c(
+        (), "second terminal results dropped by exactly-once delivery"),
+    "gateway_session_repin_total": _c(
+        (), "session re-pins after the pinned replica drained (KV loss "
+        "unless a sealed-export restore made the move a transfer — see "
+        "gateway_session_restores_total)"),
+    "gateway_session_restores_total": _c(
+        (), "sealed-chain KV restores imported into a re-pin target "
+        "before dispatch (the turn-2 state survived the replica)"),
+    "gateway_migrations_total": _c(
+        ("outcome",), "live KV-page migrations by outcome (ok = handoff "
+        "dispatched; export_failed = source refused/unreachable; "
+        "import_refused = target refused the payload)"),
+    "gateway_replica_drains_total": _c(
+        (), "graceful replica drains started (DRAINING -> released "
+        "lifecycles)"),
+    "gateway_shed_total": _c(
+        ("reason",), "requests shed with an explicit retryable "
+        "backpressure result instead of being served (brownout = the "
+        "overload ladder's level-3 admission shed of lowest-priority/"
+        "over-quota tenants; deadline_expired = shed-before-work, a "
+        "request whose deadline lapsed while queued was never "
+        "dispatched to burn prefill)"),
+    "gateway_brownout_level": _g(
+        (), "overload brownout ladder rung in force (0 none; 1 hedging "
+        "disabled; 2 + speculation shrunk; 3 + tenant shedding) — set "
+        "by the fleet controller when capacity cannot arrive in time"),
+
+    # -- session-KV store, gateway side (gateway/sessionstore.py):
+    #    degradation accounting for the external insurance store
+    "gateway_session_store_degraded_total": _c(
+        ("reason",), "sessions degraded to cold prefill by store "
+        "trouble, by reason (unreachable = store down/breaker open; "
+        "cas_conflict = a capture lost its versioned put race; "
+        "lease_expired = the session's store lease lapsed).  Never a "
+        "request error — degradation IS the contract"),
+    "gateway_session_store_retries_total": _c(
+        (), "store op retries after a transport failure (bounded, "
+        "exponential backoff + jitter)"),
+    "gateway_session_store_fastfail_total": _c(
+        (), "store ops fast-failed by the open circuit breaker (a dead "
+        "store costs microseconds per op, not a deadline)"),
+    "gateway_session_store_capture_drops_total": _c(
+        (), "queued sealed-KV captures dropped oldest-first by the "
+        "bounded async write-through queue (capture is insurance, "
+        "never admission-blocking)"),
+
+    # -- session-KV store, server side (gateway/sessionstore.py
+    #    StoreServer — the standalone store pod's own /metrics)
+    "session_store_requests_total": _c(
+        ("verb",), "store requests by verb (get/put/list/mark/delete)"),
+    "session_store_cas_conflicts_total": _c(
+        (), "versioned puts refused because the session's version "
+        "moved (a stale capture losing to a newer seal — the two-"
+        "gateway race the CAS exists for)"),
+    "session_store_lease_expired_total": _c(
+        (), "sessions dropped because their lease lapsed (reads after "
+        "expiry answer 404 reason=lease_expired; the gateway degrades "
+        "to cold prefill)"),
+    "session_store_payloads_dropped_total": _c(
+        (), "sealed-KV payloads evicted oldest-first by the byte-"
+        "bounded LRU (streams stay; those sessions restore cold)"),
+    "session_store_sessions": _g((), "session entries resident"),
+    "session_store_payload_bytes": _g(
+        (), "total retained sealed-KV payload bytes (bounded by "
+        "--max-payload-bytes, default 256 MiB)"),
+    "session_store_payload_dedup_total": _c(
+        (), "sealed-KV payload writes answered by an existing content-"
+        "addressed record instead of a second copy (a payload captured "
+        "by N sessions and published as a prefix rests ONCE; refcounts "
+        "track the sharers)"),
+    "session_store_prefixes": _g(
+        (), "fleet prefix chains resident in the store's prefix "
+        "namespace"),
+    "session_store_prefix_evicted_total": _c(
+        (), "prefix chains evicted by the popularity-weighted LRU "
+        "(fewest probe hits first, oldest touch breaking ties) or "
+        "reaped by the idle lease — prefixes are immortal only while "
+        "hot, never leased like sessions"),
+    "prefix_tier_resident_bytes": _g(
+        (), "payload bytes the prefix namespace keeps resident (its "
+        "share of the content-addressed payload table; bounded by "
+        "--max-prefix-bytes)"),
+
+    # -- fleet-wide shared-prefix KV tier (gateway/prefixtier.py,
+    #    router.py): prefill any hot prefix once, ever
+    "gateway_prefix_tier_hits_total": _c(
+        (), "admission-time tier probes that found a stored chain "
+        "sharing at least one full page with the prompt (the payload "
+        "then imports into the target replica before prefill)"),
+    "gateway_prefix_tier_misses_total": _c(
+        (), "tier probes that found no stored prefix (cold prefill as "
+        "usual; the completion's publish may seed the tier for the "
+        "next caller)"),
+    "gateway_prefix_tier_publishes_total": _c(
+        (), "sealed chains published into the tier's prefix namespace "
+        "(post-dedup: the gateway's published-set and the store's "
+        "metadata-first probe both gate re-uploads)"),
+    "gateway_prefix_tier_imports_total": _c(
+        (), "tier payloads imported into a replica's PrefixPageCache "
+        "before prefill (the fleet-warm pages the admission then hits)"),
+    "gateway_prefix_tier_degraded_total": _c(
+        ("reason",), "tier ops resolved as counted cold prefill by "
+        "store trouble, by reason (unreachable = store down/breaker "
+        "open; error = malformed or refused op).  Never a request "
+        "error — the session-store degradation contract, applied to "
+        "prefixes"),
+    "gateway_prefix_tier_publish_drops_total": _c(
+        (), "queued publishes dropped oldest-first by the bounded "
+        "async publish queue (publishing is opportunistic seeding, "
+        "never result-path-blocking)"),
+    "gateway_prefix_route_warm_total": _c(
+        (), "requests the PrefixLocalityRouter routed by longest "
+        "locally-warm prefix instead of the consistent-hash ring "
+        "fallback (agent fleets packing onto warm replicas)"),
+
+    # -- gateway streaming pass-through (gateway/server.py, failover.py)
+    "gateway_stream_requests_total": _c(
+        (), "streaming (SSE) /v1/generate requests accepted"),
+    "gateway_stream_tokens_total": _c(
+        (), "tokens relayed to streaming callers as they came off "
+        "replicas (the terminal result stays authoritative)"),
+    "gateway_stream_disconnects_total": _c(
+        (), "streaming callers that vanished mid-stream; each one "
+        "cancelled its in-flight attempts wire-level (replica pages "
+        "freed)"),
+    "gateway_stream_hedges_total": _c(
+        (), "hedged dispatches issued for STREAMING requests — safe "
+        "because the StreamRelay dedups twin streams by token index; "
+        "greedy and seed-pinned sampled streams hedge, unpinned "
+        "sampled streams never do"),
+    "gateway_sampled_hedges_total": _c(
+        (), "hedged dispatches issued for SAMPLED (temperature > 0) "
+        "requests — possible only because the request pinned a seed, "
+        "making every replica's sampled stream byte-identical"),
+    "gateway_stream_dedup_tokens_total": _c(
+        (), "tokens a streaming attempt delivered that the caller "
+        "already had (hedge twin / retry overlap) — dropped by the "
+        "relay's dedup watermark, never surfaced twice"),
+
+    # -- gateway tier (gateway/tier.py): the N-gateway scale-out layer
+    "gateway_tier_gateways": _g(
+        (), "gateways alive in this tier right now"),
+    "gateway_tier_deaths_total": _c(
+        (), "gateway instances killed (chaos or crash); their in-flight "
+        "attempts cancel wire-level and their pendings fail with the "
+        "retryable 'gateway died' error"),
+    "gateway_tier_retries_total": _c(
+        (), "tier-client retries of a request on a sibling gateway "
+        "after its home gateway died (same request_id; replica-side "
+        "duplicate-id eviction keeps at most one live stream)"),
+
 
     # -- replica HTTP serving endpoint (gateway/dataplane.py)
     "replica_http_requests_total": _c(

@@ -12,17 +12,30 @@ event unchanged.  A trace completes when its root has ended and no span
 in it is open; completed traces live in a bounded ring, and a leak
 guard force-closes the oldest open trace past ``max_open``.
 
-The oracles over span trees (``validate_trace``,
-``serve_retire_violations``, ``phase_durations``) stay with the
-reference: the port's tests hold its traces to the JAX ones.
+The gateway reads the ring through ``dump_traces`` (its ``/debug/trace``
+body: nested trees, newest first) and ``dump_jsonl`` writes one span a
+line, schema v1, which ``load_jsonl`` reads back.  The oracles over a
+trace's span list are the JAX package's: ``validate_trace`` (one root,
+no orphans, every span closed, children inside their parents but for
+``overhang_ok`` subtrees), ``serve_retire_violations`` (exactly one
+``retire`` under each ``serve``) and ``phase_durations`` (the TTFT
+decomposition).
 """
 
 from __future__ import annotations
 
+import json
 import threading
 import time
 from collections import OrderedDict
 from typing import Dict, Iterable, List, Optional
+
+SCHEMA_VERSION = 1
+
+# containment slack: spans are stamped with separate time.monotonic()
+# calls; a child opened "at the same moment" as its parent may read a
+# tick earlier on coarse clocks
+_EPS = 1e-6
 
 
 def _span_dict(trace_id: str, span_id: int, parent_id: Optional[int],
@@ -240,3 +253,201 @@ class Tracer:
             if spans is None:
                 return None
             return [dict(s, attrs=dict(s["attrs"])) for s in spans.values()]
+
+    def dump_traces(self, limit: Optional[int] = None) -> List[dict]:
+        """JSON-able trace trees, newest first: the /debug/trace body.
+        Only the newest ``limit`` traces are copied — completed traces
+        are immutable, so the lock is held for a pointer-list snapshot,
+        never for the deep copy (a debug read must not stall span
+        recording on a big ring)."""
+        with self._lock:
+            snapshot = list(self._completed.values())
+        snapshot.reverse()
+        if limit is not None:
+            snapshot = snapshot[:limit]
+        return [
+            span_tree(
+                [dict(s, attrs=dict(s["attrs"])) for s in spans.values()]
+            )
+            for spans in snapshot
+        ]
+
+    def dump_jsonl(self, path) -> int:
+        """One span per line (schema v1; see README).  Returns the span
+        count written.  ``path`` is a filesystem path or a file-like
+        object with ``write``."""
+        fh = path if hasattr(path, "write") else open(path, "w")
+        n = 0
+        try:
+            for spans in self.completed():
+                for s in sorted(spans, key=lambda s: s["span"]):
+                    fh.write(json.dumps(dict(s, v=SCHEMA_VERSION)) + "\n")
+                    n += 1
+        finally:
+            if fh is not path:
+                fh.close()
+        return n
+
+
+def load_jsonl(path) -> Dict[str, List[dict]]:
+    """Inverse of ``dump_jsonl``: {trace_id: [span dicts]}."""
+    fh = path if hasattr(path, "read") else open(path)
+    traces: Dict[str, List[dict]] = {}
+    try:
+        for line in fh:
+            line = line.strip()
+            if not line:
+                continue
+            s = json.loads(line)
+            traces.setdefault(s["trace"], []).append(s)
+    finally:
+        if fh is not path:
+            fh.close()
+    return traces
+
+
+# ---------------------------------------------------------------------------
+# Oracles: the span tree as a correctness artifact
+# ---------------------------------------------------------------------------
+
+def span_tree(spans: Iterable[dict]) -> dict:
+    """Nest spans into {.., children: [...]} under the root; orphans
+    (parent missing) attach under a synthetic "__orphans__" node so a
+    broken trace still renders for debugging."""
+    by_id = {
+        s["span"]: dict(s, attrs=dict(s["attrs"]), children=[])
+        for s in spans
+    }
+    root = None
+    orphans = []
+    for s in sorted(by_id.values(), key=lambda s: s["span"]):
+        if s["parent"] is None:
+            root = s
+        elif s["parent"] in by_id:
+            by_id[s["parent"]]["children"].append(s)
+        else:
+            orphans.append(s)
+    tree = root if root is not None else {
+        "trace": next(iter(by_id.values()))["trace"] if by_id else "",
+        "name": "__no_root__", "children": [],
+    }
+    if orphans:
+        tree = dict(tree)
+        tree.setdefault("children", []).append(
+            {"name": "__orphans__", "children": orphans}
+        )
+    return tree
+
+
+def validate_trace(spans: List[dict]) -> List[str]:
+    """Structural problems of one trace's span list ([] = sound):
+    exactly one root, zero orphans, every span closed, end >= start,
+    and children contained in their parents — except subtrees under a
+    span with ``overhang_ok`` (async teardown: hedge losers cancelled
+    after the winner's result already closed the gateway root)."""
+    problems: List[str] = []
+    by_id = {s["span"]: s for s in spans}
+    roots = [s for s in spans if s["parent"] is None]
+    if len(roots) != 1:
+        problems.append(f"{len(roots)} roots (want exactly 1)")
+    for s in spans:
+        label = f"span {s['span']} ({s['name']})"
+        if s["parent"] is not None and s["parent"] not in by_id:
+            problems.append(f"{label}: orphan (parent {s['parent']} missing)")
+        if s["end"] is None:
+            problems.append(f"{label}: never closed")
+        elif s["end"] < s["start"] - _EPS:
+            problems.append(f"{label}: ends before it starts")
+        if s["attrs"].get("abandoned"):
+            problems.append(f"{label}: abandoned (force-closed)")
+
+    def overhang_exempt(s: dict) -> bool:
+        seen = set()
+        while s is not None:
+            if s["attrs"].get("overhang_ok"):
+                return True
+            if s["span"] in seen:
+                return True  # cycle: already reported via containment
+            seen.add(s["span"])
+            s = by_id.get(s["parent"]) if s["parent"] is not None else None
+        return False
+
+    for s in spans:
+        if s["parent"] is None or s["parent"] not in by_id:
+            continue
+        p = by_id[s["parent"]]
+        label = f"span {s['span']} ({s['name']})"
+        if s["start"] < p["start"] - _EPS:
+            problems.append(
+                f"{label}: starts before its parent ({p['name']})"
+            )
+        if (
+            s["end"] is not None and p["end"] is not None
+            and s["end"] > p["end"] + _EPS
+            and not overhang_exempt(s)
+        ):
+            problems.append(
+                f"{label}: outlives its parent ({p['name']}) without "
+                "overhang_ok"
+            )
+    return problems
+
+
+def serve_retire_violations(spans: List[dict]) -> List[str]:
+    """Every replica-side ``serve`` subtree must contain EXACTLY one
+    ``retire`` span: zero means a sequence vanished without teardown
+    (leaked slot/pages), two means double-teardown (the double-free
+    class I5 hunts).  Returns one message per violating subtree."""
+    by_parent: Dict[int, List[dict]] = {}
+    for s in spans:
+        if s["parent"] is not None:
+            by_parent.setdefault(s["parent"], []).append(s)
+
+    def count_retires(span_id: int) -> int:
+        n = 0
+        stack = [span_id]
+        while stack:
+            for c in by_parent.get(stack.pop(), []):
+                if c["name"] == "retire":
+                    n += 1
+                stack.append(c["span"])
+        return n
+
+    out = []
+    for s in spans:
+        if s["name"] != "serve":
+            continue
+        n = count_retires(s["span"])
+        if n != 1:
+            out.append(
+                f"serve span {s['span']} (trace {s['trace']}): {n} retire "
+                f"spans (want exactly 1)"
+            )
+    return out
+
+
+def phase_durations(spans: List[dict]) -> Dict[str, float]:
+    """Per-phase wall seconds of one trace's FIRST serve subtree — the
+    TTFT decomposition bench.py reports.  Keys: the phase span names
+    present (queue/station_wait/prefill/decode/...), plus ``first_step``
+    (decode start → first token) when the decode span carries a
+    ``first_token_t`` annotation."""
+    serve = next((s for s in spans if s["name"] == "serve"), None)
+    if serve is None:
+        return {}
+    children = [s for s in spans if s["parent"] == serve["span"]]
+    out: Dict[str, float] = {}
+    for s in children:
+        if s["end"] is None or s["name"] == "retire":
+            continue
+        if s["name"] == "decode" and "first_token_t" in s["attrs"]:
+            # TTFT decomposition stops at the first token; the rest of
+            # the decode span is post-TTFT serving time
+            first_t = s["attrs"]["first_token_t"]
+            out["first_step"] = first_t - s["start"]
+            out["decode"] = out.get("decode", 0.0) + (s["end"] - first_t)
+        else:
+            out[s["name"]] = out.get(s["name"], 0.0) + (
+                s["end"] - s["start"]
+            )
+    return out

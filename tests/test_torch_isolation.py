@@ -107,7 +107,13 @@ def test_importing_every_module_leaves_jax_out():
                  "grpalloc.multislice", "scheduler", "scheduler.cache",
                  "scheduler.plugins", "scheduler.preemption",
                  "scheduler.podgroup", "scheduler.core", "scheduler.server",
-                 "scheduler.status"):
+                 "scheduler.status",
+                 # the gateway side of the serving data plane
+                 "gateway.queue", "gateway.hashring", "gateway.registry",
+                 "gateway.router", "gateway.sessionstore",
+                 "gateway.failover", "gateway.prefixtier", "gateway.core",
+                 "gateway.server", "gateway.tier", "testing",
+                 "testing.fake_serving"):
         assert f"kubegpu_tpu_torch.{name}" in imported.split(), name
 
 

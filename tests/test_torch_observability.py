@@ -37,7 +37,7 @@ _EMIT_RE = re.compile(
     re.S,
 )
 
-# the names the port's replica path and its extender emit
+# the names the port's gateway, its replica path and its extender emit
 WANT_NAMES = {
     "replica_http_requests_total", "replica_http_stream_events_total",
     "replica_http_streams_active", "replica_http_cancels_total",
@@ -80,6 +80,43 @@ WANT_NAMES = {
     "kubegpu_placements_contiguous_total", "kubegpu_preemptions_total",
     "kubegpu_preempted_pods_total", "kubegpu_stranded_gang_rollbacks_total",
     "kubegpu_health_evictions_total",
+    # the gateway's series: admission, routing, failover, streaming,
+    # the session store (both sides), the prefix tier and the tier
+    # (gateway/core.py, failover.py, router.py, server.py,
+    # sessionstore.py, prefixtier.py, tier.py)
+    "gateway_requests_total", "gateway_queue_depth",
+    "gateway_queue_wait_seconds", "gateway_ttft_seconds",
+    "gateway_itl_seconds", "gateway_phase_handoff_total",
+    "gateway_phase_handoff_seconds",
+    "gateway_phase_handoff_overlap_seconds",
+    "gateway_phase_handoff_deltas_total",
+    "gateway_phase_handoff_wire_bytes_total", "gateway_live_replicas",
+    "gateway_deadline_exceeded_total", "gateway_failures_total",
+    "gateway_retries_total", "gateway_retry_budget_exhausted_total",
+    "gateway_hedges_total", "gateway_hedge_wasted_total",
+    "gateway_duplicate_results_total", "gateway_session_repin_total",
+    "gateway_session_restores_total", "gateway_migrations_total",
+    "gateway_replica_drains_total", "gateway_shed_total",
+    "gateway_brownout_level", "gateway_session_store_degraded_total",
+    "gateway_session_store_retries_total",
+    "gateway_session_store_fastfail_total",
+    "gateway_session_store_capture_drops_total",
+    "session_store_requests_total", "session_store_cas_conflicts_total",
+    "session_store_lease_expired_total",
+    "session_store_payloads_dropped_total", "session_store_sessions",
+    "session_store_payload_bytes", "session_store_payload_dedup_total",
+    "session_store_prefixes", "session_store_prefix_evicted_total",
+    "prefix_tier_resident_bytes", "gateway_prefix_tier_hits_total",
+    "gateway_prefix_tier_misses_total",
+    "gateway_prefix_tier_publishes_total",
+    "gateway_prefix_tier_imports_total",
+    "gateway_prefix_tier_degraded_total",
+    "gateway_prefix_tier_publish_drops_total",
+    "gateway_prefix_route_warm_total", "gateway_stream_requests_total",
+    "gateway_stream_tokens_total", "gateway_stream_disconnects_total",
+    "gateway_stream_hedges_total", "gateway_sampled_hedges_total",
+    "gateway_stream_dedup_tokens_total", "gateway_tier_gateways",
+    "gateway_tier_deaths_total", "gateway_tier_retries_total",
 }
 
 
